@@ -1,0 +1,114 @@
+"""Backend dispatch for the multi-precision ops (port of
+``repro.core.dispatch``, the routes the serving slice runs).
+
+Two backends:
+
+  cuda  the hand-written CUDA kernels (kernels/ops.py, kernels/mp_attention.py)
+        — the default.  Their wrappers run the kernels' plain PyTorch
+        versions for CPU tensors.
+  ref   the pure-PyTorch oracle (kernels/ref.py), chosen only when a caller
+        asks for it.
+
+The sharded, mixed-lane and paged routes of the JAX package are not ported
+yet (ROADMAP.md).
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core import context as context_lib
+from repro_torch.core.formats import FormatLike, resolve
+from repro_torch.kernels import ref as ref_backend
+
+BACKENDS = ("cuda", "ref")
+
+
+def available_backends() -> Tuple[str, ...]:
+    return BACKENDS
+
+
+def _backend(backend: Optional[str]) -> str:
+    name = backend or context_lib.current_context().backend
+    if name not in BACKENDS:
+        raise ValueError(f"unknown backend {name!r}; have {BACKENDS}")
+    return name
+
+
+def dispatch(a: torch.Tensor, b: torch.Tensor, mode: FormatLike, *,
+             backend: Optional[str] = None) -> torch.Tensor:
+    """Route one static-format matmul a (..., M, K) @ b (..., K, N)."""
+    fmt = resolve(mode)
+    if _backend(backend) == "ref":
+        return ref_backend.mp_matmul_ref(a, b, fmt)
+    from repro_torch.kernels import ops
+
+    return ops.mp_matmul_cuda(a, b, fmt)
+
+
+def dispatch_fused(x: torch.Tensor, ws, mode: FormatLike, *,
+                   gate: str = "none", biases=None, residual=None,
+                   backend: Optional[str] = None):
+    """Route one fused projection group (one activation, ``n_out``
+    weights, epilogue lattice)."""
+    fmt = resolve(mode)
+    ws = tuple(ws)
+    if _backend(backend) == "ref":
+        return ref_backend.mp_fused_proj_ref(x, ws, fmt, gate=gate,
+                                             biases=biases, residual=residual)
+    from repro_torch.kernels import ops
+
+    return ops.mp_fused_proj_cuda(x, ws, fmt, gate=gate, biases=biases,
+                                  residual=residual)
+
+
+def dispatch_attention(q, k, v, mode_qk: FormatLike,
+                       mode_pv: Optional[FormatLike] = None, *,
+                       causal: bool = True, scale: Optional[float] = None,
+                       q_offset: int = 0, backend: Optional[str] = None
+                       ) -> torch.Tensor:
+    """Route one fused attention call (q (B, S, H, Dh), k/v (B, T, H, Dh),
+    H already GQA-repeated): the flash kernel on ``cuda``, the unblocked
+    oracle on ``ref``."""
+    fmt_qk = resolve(mode_qk)
+    fmt_pv = resolve(mode_pv if mode_pv is not None else mode_qk)
+    if _backend(backend) == "ref":
+        return ref_backend.mp_attention_ref(
+            q, k, v, fmt_qk, fmt_pv, causal=causal, scale=scale,
+            q_offset=q_offset)
+    from repro_torch.kernels import mp_attention as attn_kernels
+
+    return attn_kernels.mp_flash_attention(q, k, v, fmt_qk, fmt_pv,
+                                           causal=causal, scale=scale,
+                                           q_offset=q_offset)
+
+
+def masked_decode_attention(q, k, v, length, mode_qk: FormatLike,
+                            mode_pv: Optional[FormatLike] = None, *,
+                            scale: Optional[float] = None,
+                            backend: Optional[str] = None) -> torch.Tensor:
+    """Decode attention: q (B, 1, H, Dh) against k/v (B, T, H, Dh) (H already
+    repeated), masked to the first ``length`` positions.  Both contractions
+    route through ``mp_matmul`` at the ``attn_qk`` / ``attn_pv`` formats; q
+    is scaled *before* the contraction so the limb cascade decomposes the
+    same operand the fused kernels do.  k/v are read through transposed
+    views (no copies): the batched kernel takes their strides."""
+    from repro_torch.core.mpmatmul import mp_einsum_qk, mp_matmul
+
+    T = k.shape[1]
+    if scale is None:
+        scale = 1.0 / float(np.sqrt(q.shape[-1]))
+    mode_pv = mode_pv if mode_pv is not None else mode_qk
+    qh = q.permute(0, 2, 1, 3).float() * scale             # (B, H, 1, Dh)
+    kh = k.permute(0, 2, 1, 3).float()                     # (B, H, T, Dh)
+    vh = v.permute(0, 2, 1, 3).float()
+    logits = mp_einsum_qk(qh, kh, mode_qk, backend=backend)  # (B, H, 1, T)
+    mask = torch.arange(T, device=q.device) < length
+    neg = torch.full((), ref_backend.ATTN_NEG_INF, device=q.device)
+    logits = torch.where(mask, logits, neg)
+    p = torch.softmax(logits, dim=-1)
+    p = torch.where(mask, p, torch.zeros((), device=q.device))
+    out = mp_matmul(p, vh, mode_pv, backend=backend)       # (B, H, 1, Dh)
+    return out.permute(0, 2, 1, 3).to(q.dtype)

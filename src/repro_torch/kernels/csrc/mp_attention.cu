@@ -1,0 +1,299 @@
+// Multi-precision flash attention for Hopper (sm_90a), plain C interface.
+//
+// Replaces the Pallas TPU kernel _flash_kernel of
+// src/repro/kernels/mp_attention.py (entered there through
+// mp_attention_pallas).  One block per (b*h, q tile of BQ rows) walks the kv
+// tiles of BKV positions in order:
+//
+//   q is scaled by `scale` in f32 BEFORE it is limbed;
+//   logits = Q K^T at fmt_qk, masked to -1e30 (T tail, causal);
+//   m_new = max(m, rowmax(logits)); p = exp(logits - m_new), re-zeroed where
+//   invalid; alpha = exp(m - m_new); d = d * alpha + sum(p);
+//   acc = acc * alpha + P V at fmt_pv, where P itself is limbed (at M8 it is
+//   rounded to bf16);
+//   out = acc / max(d, 1e-30).
+//
+// Both contractions follow the oracle's _matmul_limbs discipline, not
+// _combine_orders: each kept limb pair (i, j) is its own full dot product;
+// at <= 3 limbs the products are added plainly in `products` order (highest
+// order first, i ascending within an order), above 3 limbs the products of
+// one order are summed and the order sums are joined by a Neumaier sum.
+// kv tiles entirely above the causal diagonal are skipped; q_offset shifts
+// the query positions.  The head dim is not padded beyond the tensor's own
+// (Dh = 64 runs D = 64).
+//
+// What bounds it on this card, and what the design does about it: at the
+// serving prefill shape (8 x 256 x 12 heads x 64) the work is the limb
+// products of the two contractions, done here with f32 FMAs on the CUDA
+// cores over bf16 limbs kept in shared memory; Q, K and V are read from
+// device memory once per tile and P never leaves shared memory.  The limb
+// planes use padded rows (D + 2 bf16) so the 32 lanes of a warp reading 32
+// different rows hit 32 different banks.  Tensor-core MMA is later work.
+//
+// Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 --fmad=false (no
+// --use_fast_math): expf is the accurate one, and d * alpha + sum(p) and
+// acc * alpha + pv round twice, as in the PyTorch plain version.
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int BQ = 32;             // query rows per block
+constexpr int BKV = 32;            // kv positions per tile
+constexpr int NT = 128;            // threads per block
+constexpr int PS = BKV + 2;        // padded row of a P limb plane (bf16)
+constexpr int SS = BKV + 1;        // padded row of the logits tile (f32)
+constexpr float NEG_INF = -1e30f;
+constexpr int MAX_SMEM = 232448;   // per-block shared memory on sm_90
+
+struct FlashArgs {
+  const float* q;
+  const float* k;
+  const float* v;
+  float* o;
+  int64_t q_sb, q_ss, q_sh;        // element strides; the head dim is unit
+  int64_t k_sb, k_ss, k_sh;
+  int64_t v_sb, v_ss, v_sh;
+  int64_t o_sb, o_ss, o_sh;
+  int H, S, T, Dh;
+  int causal, q_offset;
+  float scale;
+  int nl_qk, mo_qk, nl_pv, mo_pv;
+};
+
+__device__ __forceinline__ float bf(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+// limb cascade of x into n planes: plane l at dst[l * plane]
+__device__ __forceinline__ void store_limbs(float x, __nv_bfloat16* dst,
+                                            int plane, int n) {
+  float r = x;
+  for (int l = 0; l < n; ++l) {
+    const __nv_bfloat16 li = __float2bfloat16_rn(r);
+    dst[l * plane] = li;
+    r = r - bf(li);
+  }
+}
+
+__device__ __forceinline__ float limb_dot(const __nv_bfloat16* x, int xstep,
+                                          const __nv_bfloat16* y, int ystep,
+                                          int len) {
+  float acc = 0.f;
+  for (int e = 0; e < len; ++e)
+    acc = fmaf(bf(x[e * xstep]), bf(y[e * ystep]), acc);
+  return acc;
+}
+
+// One element of a limb contraction under _matmul_limbs' discipline.
+// x: limb planes of the left operand's row (plane stride xplane, element
+// stride xstep); y likewise for the right operand's column.
+__device__ float contract(const __nv_bfloat16* x, int xplane, int xstep,
+                          const __nv_bfloat16* y, int yplane, int ystep,
+                          int len, int nl, int mo) {
+  float out = 0.f, s = 0.f, c = 0.f;
+  bool first = true;
+  int n_orders = 0;
+  for (int o = mo; o >= 0; --o) {
+    float osum = 0.f;
+    bool ofirst = true;
+    const int ilo = o - (nl - 1) > 0 ? o - (nl - 1) : 0;
+    const int ihi = o < nl - 1 ? o : nl - 1;
+    for (int i = ilo; i <= ihi; ++i) {
+      const int j = o - i;
+      const float pr = limb_dot(x + i * xplane, xstep, y + j * yplane, ystep,
+                                len);
+      if (nl <= 3) {
+        out = first ? pr : out + pr;
+        first = false;
+      } else {
+        osum = ofirst ? pr : osum + pr;
+        ofirst = false;
+      }
+    }
+    if (nl > 3) {
+      if (n_orders == 0) {
+        s = osum;
+      } else {
+        const float tmp = s + osum;
+        c = c + ((fabsf(s) >= fabsf(osum)) ? ((s - tmp) + osum)
+                                           : ((osum - tmp) + s));
+        s = tmp;
+      }
+      ++n_orders;
+    }
+  }
+  if (nl <= 3) return out;
+  return n_orders == 1 ? s : s + c;
+}
+
+template <int D>
+__global__ void __launch_bounds__(NT) flash_kernel(FlashArgs p) {
+  constexpr int DS = D + 2;              // padded row of a Q/K/V limb plane
+  constexpr int OUT_PER_THREAD = BQ * D / NT;
+  extern __shared__ float4 smem4[];
+  float* Ss = reinterpret_cast<float*>(smem4);   // BQ x SS logits / probs
+  float* m_s = Ss + BQ * SS;
+  float* d_s = m_s + BQ;
+  float* al_s = d_s + BQ;
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(al_s + BQ);
+  __nv_bfloat16* Ks = Qs + p.nl_qk * BQ * DS;
+  __nv_bfloat16* Vs = Ks + p.nl_qk * BKV * DS;
+  __nv_bfloat16* Ps = Vs + p.nl_pv * BKV * DS;
+
+  const int tid = threadIdx.x;
+  const int bh = blockIdx.y;
+  const int b = bh / p.H;
+  const int h = bh % p.H;
+  const int q0 = blockIdx.x * BQ;
+  const float* q = p.q + b * p.q_sb + h * p.q_sh;
+  const float* k = p.k + b * p.k_sb + h * p.k_sh;
+  const float* v = p.v + b * p.v_sb + h * p.v_sh;
+  float* o = p.o + b * p.o_sb + h * p.o_sh;
+
+  // Q tile: scaled in f32, then limbed (rows past S and dims past Dh are 0)
+  for (int idx = tid; idx < BQ * D; idx += NT) {
+    const int r = idx / D;
+    const int dd = idx % D;
+    const int s = q0 + r;
+    const float x = (s < p.S && dd < p.Dh) ? q[s * p.q_ss + dd] * p.scale : 0.f;
+    store_limbs(x, Qs + r * DS + dd, BQ * DS, p.nl_qk);
+  }
+  if (tid < BQ) {
+    m_s[tid] = NEG_INF;
+    d_s[tid] = 0.f;
+  }
+  float acc[OUT_PER_THREAD];
+#pragma unroll
+  for (int u = 0; u < OUT_PER_THREAD; ++u) acc[u] = 0.f;
+
+  const int last_q = p.q_offset + q0 + BQ - 1;
+  for (int t0 = 0; t0 < p.T; t0 += BKV) {
+    if (p.causal && t0 > last_q) break;  // above the diagonal from here on
+    __syncthreads();  // the previous tile's readers are done
+    for (int idx = tid; idx < BKV * D; idx += NT) {
+      const int r = idx / D;
+      const int dd = idx % D;
+      const int t = t0 + r;
+      const bool in = t < p.T && dd < p.Dh;
+      store_limbs(in ? k[t * p.k_ss + dd] : 0.f, Ks + r * DS + dd, BKV * DS,
+                  p.nl_qk);
+      store_limbs(in ? v[t * p.v_ss + dd] : 0.f, Vs + r * DS + dd, BKV * DS,
+                  p.nl_pv);
+    }
+    __syncthreads();
+
+    // logits: lanes of a warp share a query row and take 32 kv columns
+    for (int idx = tid; idx < BQ * BKV; idx += NT) {
+      const int r = idx / BKV;
+      const int c = idx % BKV;
+      const int qpos = p.q_offset + q0 + r;
+      const int tpos = t0 + c;
+      const bool valid = tpos < p.T && (!p.causal || qpos >= tpos);
+      const float lg = contract(Qs + r * DS, BQ * DS, 1, Ks + c * DS, BKV * DS,
+                                1, D, p.nl_qk, p.mo_qk);
+      Ss[r * SS + c] = valid ? lg : NEG_INF;
+    }
+    __syncthreads();
+
+    // online softmax: one thread per query row
+    if (tid < BQ) {
+      const int r = tid;
+      const int qpos = p.q_offset + q0 + r;
+      float mx = NEG_INF;
+      for (int c = 0; c < BKV; ++c) mx = fmaxf(mx, Ss[r * SS + c]);
+      const float m_old = m_s[r];
+      const float m_new = fmaxf(m_old, mx);
+      float sum = 0.f;
+      for (int c = 0; c < BKV; ++c) {
+        const int tpos = t0 + c;
+        const bool valid = tpos < p.T && (!p.causal || qpos >= tpos);
+        const float pr = valid ? expf(Ss[r * SS + c] - m_new) : 0.f;
+        sum = sum + pr;
+        store_limbs(pr, Ps + r * PS + c, BQ * PS, p.nl_pv);
+      }
+      const float alpha = expf(m_old - m_new);
+      d_s[r] = d_s[r] * alpha + sum;
+      m_s[r] = m_new;
+      al_s[r] = alpha;
+    }
+    __syncthreads();
+
+    // acc = acc * alpha + P V: lanes take neighbouring head dims of one row
+#pragma unroll
+    for (int u = 0; u < OUT_PER_THREAD; ++u) {
+      const int idx = tid + u * NT;
+      const int r = idx / D;
+      const int dd = idx % D;
+      const float pv = contract(Ps + r * PS, BQ * PS, 1, Vs + dd, BKV * DS, DS,
+                                BKV, p.nl_pv, p.mo_pv);
+      acc[u] = acc[u] * al_s[r] + pv;
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int u = 0; u < OUT_PER_THREAD; ++u) {
+    const int idx = tid + u * NT;
+    const int r = idx / D;
+    const int dd = idx % D;
+    const int s = q0 + r;
+    if (s < p.S && dd < p.Dh)
+      o[s * p.o_ss + dd] = acc[u] / fmaxf(d_s[r], 1e-30f);
+  }
+}
+
+template <int D>
+cudaError_t launch(const FlashArgs& p, int B, cudaStream_t st) {
+  const int64_t bf16_elems =
+      (int64_t)p.nl_qk * (BQ + BKV) * (D + 2) + (int64_t)p.nl_pv * BKV * (D + 2) +
+      (int64_t)p.nl_pv * BQ * PS;
+  const int64_t smem = (int64_t)(BQ * SS + 3 * BQ) * 4 + bf16_elems * 2;
+  if (smem > MAX_SMEM) return cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        flash_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  const dim3 grid((unsigned)((p.S + BQ - 1) / BQ), (unsigned)(B * p.H), 1);
+  flash_kernel<D><<<grid, NT, (size_t)smem, st>>>(p);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// out (B, S, H, Dh) = flash attention of q (B, S, H, Dh) against k / v
+// (B, T, H, Dh) with H already GQA-repeated.  Strides in elements; the head
+// dim must have unit stride.  Returns the CUDA error of the launch (0 on
+// success).  Allocates nothing and does not synchronise.
+int mp_flash_attention_launch(
+    const void* q, int64_t q_sb, int64_t q_ss, int64_t q_sh, const void* k,
+    int64_t k_sb, int64_t k_ss, int64_t k_sh, const void* v, int64_t v_sb,
+    int64_t v_ss, int64_t v_sh, void* o, int64_t o_sb, int64_t o_ss,
+    int64_t o_sh, int64_t B, int64_t S, int64_t T, int64_t H, int64_t Dh,
+    int64_t causal, int64_t q_offset, double scale, int64_t nl_qk,
+    int64_t mo_qk, int64_t nl_pv, int64_t mo_pv, void* stream) {
+  if (nl_qk < 1 || nl_pv < 1 || mo_qk < 0 || mo_pv < 0 ||
+      mo_qk > 2 * (nl_qk - 1) || mo_pv > 2 * (nl_pv - 1) || Dh < 1 ||
+      Dh > 128 || B * H > 65535 || q_offset < 0)
+    return (int)cudaErrorInvalidValue;
+  if (B == 0 || S == 0 || H == 0) return 0;
+  FlashArgs p{static_cast<const float*>(q), static_cast<const float*>(k),
+              static_cast<const float*>(v), static_cast<float*>(o),
+              q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
+              o_sb, o_ss, o_sh, (int)H, (int)S, (int)T, (int)Dh,
+              (int)causal, (int)q_offset, (float)scale,
+              (int)nl_qk, (int)mo_qk, (int)nl_pv, (int)mo_pv};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (Dh <= 16) err = launch<16>(p, (int)B, st);
+  else if (Dh <= 32) err = launch<32>(p, (int)B, st);
+  else if (Dh <= 64) err = launch<64>(p, (int)B, st);
+  else err = launch<128>(p, (int)B, st);
+  return (int)err;
+}
+
+}  // extern "C"

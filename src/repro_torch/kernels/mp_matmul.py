@@ -1,0 +1,252 @@
+"""Fused multi-precision limb matmul kernels: wrappers, plain versions and
+launch counters (port of the Pallas ``_fused_kernel`` and
+``_fused_multi_kernel`` of ``repro.kernels.mp_matmul``).
+
+Each wrapper runs its plain PyTorch version for CPU tensors and launches its
+CUDA kernel (``csrc/mp_matmul.cu``) for CUDA tensors — there is no fallback
+from one to the other.  The plain versions repeat the kernels' accumulation
+discipline: one f32 sum per limb-product order, joined by the compensated
+``_combine_orders`` (highest order first), whatever the limb count.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import List, Optional, Sequence, Tuple
+
+import torch
+
+from repro_torch.core import limbs as limbs_lib
+from repro_torch.core.formats import FormatLike, MPFormat, resolve
+from repro_torch.kernels import build, ref
+
+MAX_OUT = 3   # weights one fused-projection launch takes (csrc MAX_OUT)
+MAX_BATCH = 65535  # grid.z limit of one batched matmul launch
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int64
+
+
+# ---------------------------------------------------------------------------
+# plain versions (the kernels' arithmetic in PyTorch)
+# ---------------------------------------------------------------------------
+def _order_sums(al: torch.Tensor, bl: torch.Tensor, s: MPFormat
+                ) -> List[torch.Tensor]:
+    """Per-order f32 sums of the kept limb products, index = order."""
+    by_order: dict[int, torch.Tensor] = {}
+    for (i, j) in s.products:
+        p = torch.matmul(al[i].float(), bl[j].float())
+        o = i + j
+        by_order[o] = p if o not in by_order else by_order[o] + p
+    return [by_order[o] for o in range(s.n_orders)]
+
+
+def combine_orders(acc: Sequence[torch.Tensor]) -> torch.Tensor:
+    """``_combine_orders``: Neumaier-compensated, highest order first."""
+    return limbs_lib.neumaier_sum(acc[::-1])
+
+
+def fused_matmul_plain(a: torch.Tensor, b: torch.Tensor, fmt: FormatLike
+                       ) -> torch.Tensor:
+    """Plain version of ``mp_fused_matmul``: a (..., M, K) @ b (..., K, N)
+    with ``torch.matmul`` broadcasting."""
+    s = resolve(fmt)
+    al = limbs_lib.decompose(a, s.n_limbs)
+    bl = limbs_lib.decompose(b, s.n_limbs)
+    return combine_orders(_order_sums(al, bl, s))
+
+
+def fused_proj_plain(a: torch.Tensor, ws: Sequence[torch.Tensor],
+                     fmt: FormatLike, *, gate: str = "none", biases=None,
+                     residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain version of ``mp_fused_proj``: a (M, K) limbed ONCE against each
+    (K, N) weight; epilogue bias -> silu gate -> residual.  Returns
+    (n_out, M, N), or (M, N) when gated."""
+    s = resolve(fmt)
+    al = limbs_lib.decompose(a, s.n_limbs)
+    raws = [combine_orders(_order_sums(al, limbs_lib.decompose(w, s.n_limbs),
+                                       s)) for w in ws]
+    out = ref.apply_epilogue(raws, gate=gate, biases=biases,
+                             residual=residual)
+    if gate != "none":
+        return out
+    return torch.stack(out) if isinstance(out, tuple) else out[None]
+
+
+# ---------------------------------------------------------------------------
+# launch marshalling (pointers, strides, the stream)
+# ---------------------------------------------------------------------------
+def _f32(x: torch.Tensor) -> torch.Tensor:
+    return x if x.dtype == torch.float32 else x.float()
+
+
+def _merge_batch(sizes, *strides_per_tensor):
+    """Merge adjacent batch dims that are contiguous with each other in
+    every tensor; returns (sizes, strides per tensor)."""
+    sizes = list(sizes)
+    strides = [list(s) for s in strides_per_tensor]
+    i = len(sizes) - 2
+    while i >= 0:
+        if all(st[i] == st[i + 1] * sizes[i + 1] for st in strides):
+            sizes[i] *= sizes[i + 1]
+            del sizes[i + 1]
+            for st in strides:
+                st[i] = st[i + 1]
+                del st[i + 1]
+        i -= 1
+    return sizes, strides
+
+
+def _set_argtypes(lib) -> None:
+    if getattr(lib, "_mp_matmul_typed", False):
+        return
+    lib.mp_fused_matmul_launch.argtypes = [
+        _P, _I, _I, _I, _I, _P, _I, _I, _I, _I, _P, _I, _I, _I, _I,
+        _I, _I, _I, _I, _I, _I, _I, _P]
+    lib.mp_fused_matmul_launch.restype = ctypes.c_int
+    lib.mp_fused_proj_launch.argtypes = [
+        _P, _I, _P, _P, _P, _I, _P, _P, _P, _P, _I, _P,
+        _I, _I, _I, _I, _I, _I, _I, _P]
+    lib.mp_fused_proj_launch.restype = ctypes.c_int
+    lib._mp_matmul_typed = True
+
+
+def launch_fused_matmul(lib, stream: int, a: torch.Tensor, b: torch.Tensor,
+                        fmt: MPFormat) -> torch.Tensor:
+    """Marshal one ``mp_fused_matmul_launch`` call (any device the library
+    runs on).  Leading dims broadcast; at most two batch dims reach the
+    kernel after merging, else the operands are copied to contiguous."""
+    _set_argtypes(lib)
+    a, b = _f32(a), _f32(b)
+    M, K = a.shape[-2:]
+    K2, N = b.shape[-2:]
+    if K != K2:
+        raise ValueError(f"contraction mismatch {tuple(a.shape)} @ "
+                         f"{tuple(b.shape)}")
+    lead = torch.broadcast_shapes(a.shape[:-2], b.shape[:-2])
+    a = a.expand(lead + (M, K))
+    b = b.expand(lead + (K, N))
+    c = torch.empty(lead + (M, N), dtype=torch.float32, device=a.device)
+    n = len(lead)
+    sizes, (sa, sb, sc) = _merge_batch(lead, a.stride()[:n], b.stride()[:n],
+                                       c.stride()[:n])
+    if len(sizes) > 2:
+        # explicit copy: three or more batch dims that do not merge
+        a, b = a.contiguous(), b.contiguous()
+        sizes, (sa, sb, sc) = _merge_batch(lead, a.stride()[:n],
+                                           b.stride()[:n], c.stride()[:n])
+    sizes = [1] * (2 - len(sizes)) + list(sizes)
+    sa, sb, sc = ([0] * (2 - len(x)) + list(x) for x in (sa, sb, sc))
+    if sizes[0] * sizes[1] > MAX_BATCH:
+        raise ValueError(f"batch of {sizes[0] * sizes[1]} matmuls exceeds "
+                         f"one launch ({MAX_BATCH})")
+    err = lib.mp_fused_matmul_launch(
+        a.data_ptr(), sa[0], sa[1], a.stride(-2), a.stride(-1),
+        b.data_ptr(), sb[0], sb[1], b.stride(-2), b.stride(-1),
+        c.data_ptr(), sc[0], sc[1], c.stride(-2), c.stride(-1),
+        sizes[0], sizes[1], M, N, K, fmt.n_limbs, fmt.max_order, stream)
+    build.check(err, "mp_fused_matmul")
+    return c
+
+
+def launch_fused_proj(lib, stream: int, a: torch.Tensor,
+                      ws: Sequence[torch.Tensor], fmt: MPFormat, *,
+                      gate: str = "none", biases=None,
+                      residual: Optional[torch.Tensor] = None
+                      ) -> torch.Tensor:
+    """Marshal one ``mp_fused_proj_launch`` call: a (M, K); ws n_out equal
+    (K, N) weights, each from its own pointer (no stacked copy)."""
+    _set_argtypes(lib)
+    n_out = len(ws)
+    if not 1 <= n_out <= MAX_OUT:
+        raise ValueError(f"one launch takes 1..{MAX_OUT} weights, got {n_out}")
+    if gate not in ("none", "swiglu"):
+        raise ValueError(f"unknown gate {gate!r}")
+    if gate == "swiglu" and n_out != 2:
+        raise ValueError("swiglu gate needs 2 weights")
+    if residual is not None and gate == "none" and n_out != 1:
+        raise ValueError("residual epilogue needs a single final output")
+    a = _f32(a).contiguous()
+    M, K = a.shape
+    ws = [_f32(w).contiguous() for w in ws]
+    N = ws[0].shape[1]
+    if any(tuple(w.shape) != (K, N) for w in ws):
+        raise ValueError(f"weights must all be ({K}, {N})")
+    bias_ptrs = [None] * MAX_OUT
+    if biases is not None:
+        biases = [_f32(x).contiguous() for x in biases]
+        if len(biases) != n_out or any(x.shape != (N,) for x in biases):
+            raise ValueError(f"need {n_out} biases of shape ({N},)")
+        bias_ptrs[:n_out] = [x.data_ptr() for x in biases]
+    res_ptr, res_sr = None, 0
+    if residual is not None:
+        residual = _f32(residual)
+        if residual.shape != (M, N) or residual.stride(-1) != 1:
+            residual = residual.reshape(M, N).contiguous()
+        res_ptr, res_sr = residual.data_ptr(), residual.stride(0)
+    out_shape = (M, N) if gate != "none" else (n_out, M, N)
+    out = torch.empty(out_shape, dtype=torch.float32, device=a.device)
+    w_ptrs = [w.data_ptr() for w in ws] + [None] * (MAX_OUT - n_out)
+    err = lib.mp_fused_proj_launch(
+        a.data_ptr(), a.stride(0), *w_ptrs, N, *bias_ptrs, res_ptr, res_sr,
+        out.data_ptr(), n_out, int(gate == "swiglu"), M, N, K,
+        fmt.n_limbs, fmt.max_order, stream)
+    build.check(err, "mp_fused_proj")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the wrappers the port calls
+# ---------------------------------------------------------------------------
+def _cuda_stream(*tensors: torch.Tensor) -> int:
+    dev = tensors[0].device
+    if dev.type != "cuda" or any(t.device != dev for t in tensors):
+        raise ValueError("CUDA kernel wrappers take tensors on one CUDA "
+                         f"device, got {[str(t.device) for t in tensors]}")
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def _on_cpu(*tensors: torch.Tensor) -> bool:
+    return all(t.device.type == "cpu" for t in tensors)
+
+
+def mp_fused_matmul(a: torch.Tensor, b: torch.Tensor, fmt: FormatLike
+                    ) -> torch.Tensor:
+    """a (..., M, K) @ b (..., K, N) at ``fmt`` -> (..., M, N) f32, leading
+    dims broadcast.  CPU tensors run :func:`fused_matmul_plain`; CUDA
+    tensors launch the kernel (one launch, batch dims included)."""
+    fmt = resolve(fmt)
+    if _on_cpu(a, b):
+        mp_fused_matmul.plain_calls += 1
+        return fused_matmul_plain(a, b, fmt)
+    stream = _cuda_stream(a, b)
+    out = launch_fused_matmul(build.load("mp_matmul"), stream, a, b, fmt)
+    mp_fused_matmul.launches += 1
+    return out
+
+
+mp_fused_matmul.launches = 0      # kernel launches
+mp_fused_matmul.plain_calls = 0   # CPU calls that ran the plain version
+
+
+def mp_fused_proj(a: torch.Tensor, ws: Sequence[torch.Tensor],
+                  fmt: FormatLike, *, gate: str = "none", biases=None,
+                  residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """a (M, K) against 1..3 equal-width (K, N) weights at ``fmt`` with the
+    fused epilogue -> (n_out, M, N), or (M, N) when ``gate="swiglu"``.  CPU
+    tensors run :func:`fused_proj_plain`; CUDA tensors launch the kernel."""
+    fmt = resolve(fmt)
+    extra: Tuple[torch.Tensor, ...] = tuple(biases or ()) + (
+        (residual,) if residual is not None else ())
+    if _on_cpu(a, *ws, *extra):
+        mp_fused_proj.plain_calls += 1
+        return fused_proj_plain(a, ws, fmt, gate=gate, biases=biases,
+                                residual=residual)
+    stream = _cuda_stream(a, *ws, *extra)
+    out = launch_fused_proj(build.load("mp_matmul"), stream, a, ws, fmt,
+                            gate=gate, biases=biases, residual=residual)
+    mp_fused_proj.launches += 1
+    return out
+
+
+mp_fused_proj.launches = 0
+mp_fused_proj.plain_calls = 0

@@ -1,0 +1,165 @@
+"""PyTorch port on the card: each CUDA kernel against its plain PyTorch
+version on the same CUDA tensors, and the SMOKE engine on the card against
+the same engine on the CPU.
+
+    python -m pytest -m gpu tests/test_torch_gpu.py
+
+Every test here needs a CUDA card; the ``cuda`` fixture decides at run time
+and skips without one (so the module collects the same tests everywhere).
+Tolerances: kernel and plain version sum the same exact limb products in
+another order, so matmuls are held at the repo's f32 accumulation floor
+(8 * 2^-24 * sqrt(K) of the output's scale, tests/test_kernels.py) plus
+rtol 2e-6, and attention at tests/test_mp_attention.py's same-blocking
+2e-5.  This module imports no jax: the machine with the card need not have
+it."""
+import math
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch import kernels
+from repro_torch.configs import paper_mpfp
+from repro_torch.core.formats import register_format, resolve, \
+    unregister_format
+from repro_torch.kernels import mp_attention, mp_matmul
+from repro_torch.models import transformer as T
+from repro_torch.serve.engine import ServeEngine
+
+pytestmark = pytest.mark.gpu
+
+CUSTOM = "M28GPU"
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (python -m pytest -m gpu "
+                    "tests/test_torch_gpu.py on the machine with one)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.fixture
+def custom_format():
+    fmt = register_format(CUSTOM, mantissa_bits=28, n_limbs=4, max_order=3)
+    yield fmt
+    unregister_format(CUSTOM)
+
+
+def _randn(dev, *shape, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randn(*shape, generator=g, device=dev)
+
+
+def _floor(ref, K):
+    rms = ref.pow(2).mean().sqrt()
+    return 2e-6 * ref.abs() + 8 * 2.0 ** -24 * math.sqrt(K) * rms
+
+
+def _assert_within(out, ref, tol):
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    assert ((out - ref).abs() <= tol).all(), (out - ref).abs().max().item()
+
+
+def _assert_mm_close(out, ref, K):
+    _assert_within(out, ref, _floor(ref, K))
+
+
+@pytest.mark.parametrize("mode", ["M8", "M16", "M23", "M36", "M52", CUSTOM])
+def test_fused_matmul_kernel_matches_plain(cuda, custom_format, mode):
+    a, b = _randn(cuda, 130, 200, seed=1), _randn(cuda, 200, 70, seed=2)
+    before = mp_matmul.mp_fused_matmul.launches
+    out = mp_matmul.mp_fused_matmul(a, b, mode)
+    assert mp_matmul.mp_fused_matmul.launches == before + 1
+    _assert_mm_close(out, mp_matmul.fused_matmul_plain(a, b, mode), 200)
+
+
+@pytest.mark.parametrize("mode", ["M8", "M16"])
+def test_batched_strided_matmul_is_one_launch(cuda, mode):
+    """Decode attention's QK: q (B, H, 1, Dh) against the cache read as a
+    transposed view, broadcast over nothing, strided over (B, H)."""
+    q = _randn(cuda, 4, 1, 3, 64, seed=3).permute(0, 2, 1, 3)
+    kc = _randn(cuda, 4, 100, 3, 64, seed=4)
+    kt = kc.permute(0, 2, 1, 3).transpose(-1, -2)
+    before = mp_matmul.mp_fused_matmul.launches
+    out = mp_matmul.mp_fused_matmul(q, kt, mode)
+    assert mp_matmul.mp_fused_matmul.launches == before + 1
+    _assert_mm_close(out, mp_matmul.fused_matmul_plain(q, kt, mode), 64)
+    a3 = _randn(cuda, 2, 3, 5, 24, seed=5)     # three batch dims
+    b3 = _randn(cuda, 1, 3, 24, 9, seed=6)     # one broadcast
+    _assert_mm_close(mp_matmul.mp_fused_matmul(a3, b3, mode),
+                     mp_matmul.fused_matmul_plain(a3, b3, mode), 24)
+
+
+@pytest.mark.parametrize("n_out", [1, 2, 3])
+@pytest.mark.parametrize("mode", ["M8", "M16", "M36", CUSTOM])
+def test_fused_proj_kernel_matches_plain(cuda, custom_format, mode, n_out):
+    a = _randn(cuda, 77, 96, seed=7)
+    ws = [_randn(cuda, 96, 50, seed=8 + t) for t in range(n_out)]
+    bs = [_randn(cuda, 50, seed=20 + t) for t in range(n_out)]
+    res = _randn(cuda, 77, 50, seed=30) if n_out == 1 else None
+    out = mp_matmul.mp_fused_proj(a, ws, mode, biases=bs, residual=res)
+    ref = mp_matmul.fused_proj_plain(a, ws, mode, biases=bs, residual=res)
+    _assert_mm_close(out, ref, 96)
+
+
+@pytest.mark.parametrize("mode", ["M8", "M23"])
+def test_swiglu_epilogue_matches_plain(cuda, mode):
+    a = _randn(cuda, 64, 128, seed=40)
+    ws = [_randn(cuda, 128, 256, seed=41) * 0.1,
+          _randn(cuda, 128, 256, seed=42) * 0.1]
+    res = _randn(cuda, 64, 256, seed=43)
+    out = mp_matmul.mp_fused_proj(a, ws, mode, gate="swiglu", residual=res)
+    ref = mp_matmul.fused_proj_plain(a, ws, mode, gate="swiglu",
+                                     residual=res)
+    # each raw output's floor, carried through silu(g) * u (|silu'| <= 1.1)
+    g, u = mp_matmul.fused_proj_plain(a, ws, mode)
+    tol = (1.1 * u.abs() * _floor(g, 128)
+           + (g / (1 + torch.exp(-g))).abs() * _floor(u, 128)
+           + 2e-6 * ref.abs())
+    _assert_within(out, ref, tol)
+
+
+@pytest.mark.parametrize("qk,pv,causal,S,T,q_offset", [
+    ("M16", "M8", True, 100, 100, 0),
+    ("M8", "M8", False, 33, 70, 0),
+    ("M23", "M16", True, 9, 80, 71),
+    ("M36", "M52", True, 40, 40, 0),
+])
+def test_flash_kernel_matches_plain(cuda, qk, pv, causal, S, T, q_offset):
+    q = _randn(cuda, 2, S, 3, 64, seed=50)
+    k, v = _randn(cuda, 2, T, 3, 64, seed=51), _randn(cuda, 2, T, 3, 64,
+                                                       seed=52)
+    before = mp_attention.mp_flash_attention.launches
+    out = mp_attention.mp_flash_attention(q, k, v, qk, pv, causal=causal,
+                                          q_offset=q_offset)
+    assert mp_attention.mp_flash_attention.launches == before + 1
+    ref = mp_attention.flash_attention_plain(
+        q, k, v, resolve(qk), resolve(pv), causal=causal, q_offset=q_offset,
+        scale=0.125)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ref, rtol=2e-5, atol=2e-5)
+
+
+def test_smoke_engine_on_the_card_matches_the_cpu(cuda):
+    """The whole slice on the card launches every kernel and agrees with
+    the plain versions on the CPU at M8's error budget."""
+    cfg = paper_mpfp.SMOKE
+    params = T.init_params(cfg, seed=0)
+    gpu = ServeEngine(cfg, params, max_batch=2, max_seq=48)
+    cpu = ServeEngine(cfg, params, max_batch=2, max_seq=48, device="cpu")
+    prompts = [np.arange(1, 14), np.asarray([5, 6, 7])]
+    toks = gpu.pad_prompts(prompts)
+    kernels.reset_launch_counts()
+    lg, _ = gpu.prefill(toks, gpu.make_cache())
+    lc, _ = cpu.prefill(toks, cpu.make_cache())
+    counts = kernels.launch_counts()
+    assert counts == {"mp_fused_matmul": 5, "mp_fused_proj": 4,
+                      "mp_flash_attention": 2}, counts
+    scale = lc.abs().max().item()
+    assert (lg.cpu() - lc).abs().max().item() <= \
+        resolve("M8").rel_err_bound * scale
+    assert len(gpu.generate(prompts, max_new=4)[0]) == 4
