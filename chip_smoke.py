@@ -11,12 +11,20 @@ line is not printed):
    in parallel into ``build/torch_kernels/`` (seconds, registers, spills);
 3. each kernel against its plain PyTorch version on the card, at the serving
    path's shapes and formats plus M23/M36 (and more) for the matmul kernels;
-4. the main path: ``ServeEngine.generate`` of the full-width
-   ``paper-mpfp-100m`` (random weights from seed 0) on 8 prompts of 64..256
-   tokens, 32 new tokens each, under ``serve_default``; launch counts must be
-   what the config implies, and the prefill logits must agree with the same
-   engine on the ``ref`` backend;
-5. a ``kernels`` JSON line: per kernel its launches on the main path, its
+   the decompose kernel bitwise, and the pre-limbed matmul bitwise against
+   the fused matmul on the raw weight;
+4. the static path: ``ServeEngine.generate`` of the full-width
+   ``paper-mpfp-100m`` (random weights from seed 0, raw decode weights) on 8
+   prompts of 64..256 tokens, 32 new tokens each, under ``serve_default``;
+   launch counts must be what the config implies, and the prefill logits
+   must agree with the same engine on the ``ref`` backend;
+4b. the scheduler path: ``ContinuousScheduler`` over a pre-limbed engine
+   (8 slots, a 160-block pool of 16 positions) serving 16 requests of
+   64..256 prompt tokens and 32 new tokens, arriving two ticks apart; launch
+   counts must be what the scheduler's own counters imply, two streams must
+   equal their solo runs bit for bit, and one paged prefill's logits must
+   agree with the ``ref`` backend; then a decode-only tick probe;
+5. a ``kernels`` JSON line: per kernel its launches on its main path, its
    time, the plain version's time, the card's bound and a library call's
    time where one PyTorch call computes the same function.
 
@@ -37,6 +45,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 PEAK_OPS = 989e12      # H100 SXM dense bf16 tensor-core rate (ops/s)
 PEAK_BYTES = 3.35e12   # H100 SXM HBM3 (bytes/s)
+PEAK_F32 = 67e12       # H100 SXM f32 outside the tensor cores (ops/s)
 U32 = 2.0 ** -24       # f32 unit roundoff
 SOURCES = {
     "mp_fused_matmul": ("src/repro_torch/kernels/csrc/mp_matmul.cu",
@@ -45,12 +54,31 @@ SOURCES = {
                       "src/repro/kernels/mp_matmul.py:227"),
     "mp_flash_attention": ("src/repro_torch/kernels/csrc/mp_attention.cu",
                            "src/repro/kernels/mp_attention.py:93"),
+    "mp_decompose": ("src/repro_torch/kernels/csrc/mp_matmul.cu",
+                     "src/repro/kernels/mp_matmul.py:514"),
+    "mp_prelimbed_matmul": ("src/repro_torch/kernels/csrc/mp_matmul.cu",
+                            "src/repro/kernels/mp_matmul.py:108"),
+    "mp_paged_attention": ("src/repro_torch/kernels/csrc/mp_attention.cu",
+                           "src/repro/kernels/mp_attention.py:230"),
 }
+# the path whose run gives each kernel's ``launches``: the three kernels of
+# slice 1 report the static ``generate`` path, the three of the scheduler
+# slice the scheduler path
+SCHED_KERNELS = ("mp_decompose", "mp_prelimbed_matmul", "mp_paged_attention")
 # launches of one generate(8 prompts, max_new=32) at 12 layers: prefill
 # QKV + SwiGLU per layer; wo, w_down per layer + lm_head; decode adds QK
 # and PV per layer
 EXPECTED = {"mp_fused_proj": 24 + 32 * 24, "mp_flash_attention": 12,
-            "mp_fused_matmul": 25 + 32 * 49}
+            "mp_fused_matmul": 25 + 32 * 49, "mp_decompose": 0,
+            "mp_prelimbed_matmul": 0, "mp_paged_attention": 0}
+# the scheduler path: one prelimb decomposes 7 matrices per layer + lm_head;
+# a B=1 paged prefill runs QKV and SwiGLU fused projections, flash attention
+# and wo, w_down per layer + lm_head; a decode launch runs 7 pre-limbed
+# matmuls and one paged attention per layer + the pre-limbed lm_head
+PER_PRELIMB = {"mp_decompose": 12 * 7 + 1}
+PER_PREFILL = {"mp_fused_proj": 24, "mp_flash_attention": 12,
+               "mp_fused_matmul": 25}
+PER_DECODE = {"mp_prelimbed_matmul": 12 * 7 + 1, "mp_paged_attention": 12}
 
 
 def log(*args) -> None:
@@ -111,8 +139,8 @@ def timed(fn, torch, min_ms: float = 30.0) -> float:
     return start.elapsed_time(end) / n
 
 
-def bound(ops: float, nbytes: float):
-    t_ops, t_bytes = ops / PEAK_OPS, nbytes / PEAK_BYTES
+def bound(ops: float, nbytes: float, peak_ops: float = PEAK_OPS):
+    t_ops, t_bytes = ops / peak_ops, nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
 
@@ -132,7 +160,11 @@ def main() -> int:
     from repro_torch.core.policy import PrecisionPolicy
     from repro_torch.kernels import build, mp_attention, mp_matmul
     from repro_torch.models import transformer as T
+    from repro_torch.serve import primitives as prim
     from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.kv_cache import PagedKVPool
+    from repro_torch.serve.scheduler import ContinuousScheduler, \
+        ScheduledRequest
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -266,6 +298,102 @@ def main() -> int:
                 q, k, v, fq, fp, causal=causal, q_offset=q_offset),
             library=None))
 
+    def decompose_case(label, w, n_limbs, main=False):
+        out = mp_matmul.mp_decompose(w, n_limbs)
+        ref = mp_matmul.decompose_plain(w, n_limbs)
+        torch.cuda.synchronize()
+        # the same round-to-nearest-even cascade: bitwise
+        diff = (out.view(torch.int16) != ref.view(torch.int16)).sum().item()
+        err = (out.float() - ref.float()).abs().max().item()
+        checks["mp_decompose"].append(dict(case=label, max_abs_err=err,
+                                           bit_mismatches=diff))
+        log(f"[check] mp_decompose {label}: bit mismatches {diff}")
+        if diff:
+            raise AssertionError(f"mp_decompose {label} is not bitwise its "
+                                 "plain version")
+        n = w.numel()
+        cases["mp_decompose"].append(dict(
+            case=label, fmt=f"L{n_limbs}", shape=list(w.shape),
+            ops=2 * n_limbs * n, bytes=4 * n + 2 * n_limbs * n,
+            peak=PEAK_F32, main=main, per=None,
+            fn=lambda: mp_matmul.mp_decompose(w, n_limbs),
+            plain=lambda: mp_matmul.decompose_plain(w, n_limbs),
+            library=None))
+
+    def prelimbed_case(label, a, w, fmt, n_stored, main=False,
+                       library=False, per=None):
+        fmt = resolve(fmt)
+        limbs = mp_matmul.mp_decompose(w, n_stored)
+        out = mp_matmul.mp_prelimbed_matmul(a, limbs, fmt)
+        ref = mp_matmul.prelimbed_matmul_plain(a, limbs, fmt)
+        torch.cuda.synchronize()
+        K = a.shape[-1]
+        hold("mp_prelimbed_matmul", label, out, ref, mm_tol(ref, K),
+             {"fmt": fmt.name, "n_stored": n_stored})
+        if n_stored >= fmt.n_limbs:
+            # every limb the format needs is stored: the fused kernel's
+            # products in the fused kernel's order, so its bits
+            fused = mp_matmul.mp_fused_matmul(a, w, fmt)
+            torch.cuda.synchronize()
+            if not torch.equal(out, fused):
+                raise AssertionError(f"mp_prelimbed_matmul {label} is not "
+                                     "bitwise mp_fused_matmul")
+            checks["mp_prelimbed_matmul"][-1]["bitwise_vs_fused"] = True
+        M, N = out.shape
+        ops = 2 * M * K * N * fmt.n_products
+        # only the planes the format reads leave device memory
+        nbytes = (4 * (a.numel() + out.numel())
+                  + 2 * min(n_stored, fmt.n_limbs) * K * N)
+        cases["mp_prelimbed_matmul"].append(dict(
+            case=label, fmt=fmt.name, n_stored=n_stored, a=list(a.shape),
+            b=list(w.shape), ops=ops, bytes=nbytes, main=main, per=per,
+            fn=lambda: mp_matmul.mp_prelimbed_matmul(a, limbs, fmt),
+            plain=lambda: mp_matmul.prelimbed_matmul_plain(a, limbs, fmt),
+            library=(lambda ar=a.bfloat16().float(), br=w.bfloat16().float():
+                     torch.matmul(ar, br)) if library else None))
+
+    def paged_case(label, lengths, H, Hkv, qk, pv, Dh=64, bs=16, main=False,
+                   per=None):
+        B = len(lengths)
+        cols = [-(-n // bs) for n in lengths]
+        W = prim.pow2_at_least(max(max(cols), 1))
+        n_blocks = sum(cols) + 1 + 8
+        q = randn(B, H, Dh)
+        kp, vp = randn(n_blocks, bs, Hkv, Dh), randn(n_blocks, bs, Hkv, Dh)
+        perm = (torch.randperm(n_blocks - 1, generator=torch.Generator()
+                               .manual_seed(B)) + 1).tolist()
+        table = np.zeros((B, W), np.int32)     # trash-padded
+        for b, c in enumerate(cols):
+            table[b, :c] = [perm.pop() for _ in range(c)]
+        table = torch.from_numpy(table).to(dev)
+        ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
+        fq, fp = resolve(qk), resolve(pv)
+        out = mp_attention.mp_paged_attention(q, kp, vp, table, ln, fq, fp)
+        ref = mp_attention.paged_attention_plain(q, kp, vp, table, ln, fq, fp,
+                                                 scale=Dh ** -0.5)
+        torch.cuda.synchronize()
+        # the same pool blocks and online-softmax steps on both sides: only
+        # f32 summation order differs (flash's same-blocking tolerance)
+        hold("mp_paged_attention", label, out, ref, 2e-5 + 2e-5 * ref.abs(),
+             {"fmt": f"{qk}/{pv}"})
+        for b, n in enumerate(lengths):
+            if n == 0 and out[b].any():
+                raise AssertionError(f"mp_paged_attention {label}: a "
+                                     "length-0 slot is not exact zeros")
+        toks = sum(lengths)
+        ops = 2 * H * toks * Dh * (fq.n_products + fp.n_products)
+        # blocks below each slot's length only, plus q, out, table, lengths
+        nbytes = (4 * 2 * Hkv * Dh * toks + 4 * (q.numel() + out.numel())
+                  + 4 * (table.numel() + B))
+        cases["mp_paged_attention"].append(dict(
+            case=label, fmt=f"{qk}/{pv}", lengths=list(lengths), H=H,
+            Hkv=Hkv, bs=bs, W=W, ops=ops, bytes=nbytes, main=main, per=per,
+            fn=lambda: mp_attention.mp_paged_attention(q, kp, vp, table, ln,
+                                                       fq, fp),
+            plain=lambda: mp_attention.paged_attention_plain(
+                q, kp, vp, table, ln, fq, fp, scale=Dh ** -0.5),
+            library=None))
+
     cfg = paper_mpfp.CONFIG
     d, ff, V, L = cfg.d_model, cfg.d_ff, cfg.padded_vocab, cfg.n_layers
     x = randn(2048, d)
@@ -325,6 +453,38 @@ def main() -> int:
     flash_case("(1,70,2,64) causal M36/M52", 1, 70, 70, 2, 64, "M36", "M52",
                True)
 
+    # the scheduler slice's kernels at the decode path's shapes: serve_default
+    # pre-limbs at 2 limbs (lm_head M16), so M8 matmuls run with one extra
+    # stored plane and read plane 0 only
+    w_up, w_lm = randn(d, ff) * 0.03, randn(d, V) * 0.03
+    decompose_case("lm_head 768x32000 L2", w_lm, 2, main=True)
+    decompose_case("w_up 768x3072 L2", w_up, 2)
+    decompose_case("w_down 3072x768 L2", w_down, 2)
+    decompose_case("wo 768x768 L2", w_o, 2)
+    decompose_case("ragged 37x300 L1", randn(37, 300), 1)
+    decompose_case("ragged 37x300 L3", randn(37, 300), 3)
+    x8 = randn(8, d)
+    prelimbed_case("decode wq/wk/wv/wo 8x768x768 M8", x8, w_o, "M8", 2,
+                   library=True, per=("tick", 4 * L))
+    prelimbed_case("decode w_gate/w_up 8x768x3072 M8", x8, w_up, "M8", 2,
+                   library=True, per=("tick", 2 * L))
+    prelimbed_case("decode w_down 8x3072x768 M8", randn(8, ff), w_down, "M8",
+                   2, main=True, library=True, per=("tick", L))
+    prelimbed_case("decode lm_head 8x768x32000 M16", x8, w_lm, "M16", 2,
+                   per=("tick", 1))
+    prelimbed_case("decode wo M16 from 1 stored limb", x8, w_o, "M16", 1)
+    prelimbed_case("wo 512x768x768 M23", x[:512], randn(d, d), "M23", 3)
+    prelimbed_case("wo 256x768x768 M36", x[:256], randn(d, d), "M36", 5)
+    prelimbed_case("ragged 37x300x77 M16", randn(37, 300), randn(300, 77),
+                   "M16", 3)
+    decode_lengths = [int(n) for n in np.linspace(64, 288, 8)]
+    paged_case(f"decode 8 slots H12 lengths {decode_lengths[0]}.."
+               f"{decode_lengths[-1]}", decode_lengths, 12, 12, "M16", "M8",
+               main=True, per=("tick", L))
+    paged_case("GQA n_rep 2, a length-0 slot, mid-block ends",
+               [0, 37, 16, 1, 100], 12, 6, "M16", "M8")
+    paged_case("M23/M16 lengths 5, 250", [5, 250], 4, 4, "M23", "M16")
+
     # ---- 4. the main path -------------------------------------------------
     params = T.init_params(cfg, seed=0, device=dev)
     eng = ServeEngine(cfg, params, max_batch=8, max_seq=512,
@@ -361,7 +521,7 @@ def main() -> int:
     prefill_ms = (time.perf_counter() - t0) * 1e3
     probe = eng.decode_throughput_probe(steps=16)
     ref_eng = ServeEngine(cfg, params, max_batch=8, max_seq=512,
-                          matmul_backend="ref",
+                          matmul_backend="ref", prelimb_weights=False,
                           policy=PrecisionPolicy.serve_default())
     ref_logits, _ = ref_eng.prefill(toks, ref_eng.make_cache())
     a, b = logits[:, -1].double(), ref_logits[:, -1].double()
@@ -384,6 +544,132 @@ def main() -> int:
                           peak_bytes=peak, launches=launches,
                           logits_rel_vs_ref=rel, top1_agree_vs_ref=agree)
 
+    # ---- 4b. the scheduler path -------------------------------------------
+    policy = PrecisionPolicy.serve_default()
+    n_req, sched_new = 16, 32
+    sched_lengths = [int(n) for n in np.linspace(64, 256, n_req)]
+    sched_prompts = [rng.integers(1, cfg.vocab, size=n).astype(np.int32)
+                     for n in sched_lengths]
+
+    def requests(ids, spaced=True):
+        return [ScheduledRequest(rid=i, prompt=sched_prompts[i],
+                                 max_new=sched_new,
+                                 arrival=2 * i if spaced else 0)
+                for i in ids]
+
+    del eng  # the static path's engine: its memory is not this path's
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    # resident before the path: the f32 weights and phase 3's inputs
+    s_base = torch.cuda.memory_allocated()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    s_eng = ServeEngine(cfg, params, max_batch=8, max_seq=512,
+                        prelimb_weights=True, policy=policy)
+    torch.cuda.synchronize()
+    prelimb_s = time.perf_counter() - t0
+    sched = ContinuousScheduler(s_eng, n_blocks=160, block_size=16)
+    t1 = time.perf_counter()
+    done = sched.run(requests(range(n_req)))
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t1
+    s_launches = kernels.launch_counts()
+    s_plain = kernels.plain_call_counts()
+    s_peak = torch.cuda.max_memory_allocated()
+    stats = sched.stats()
+    n_dec = stats["decode_launches"]
+    want = {k: PER_PRELIMB.get(k, 0) + stats["prefills"] * PER_PREFILL.get(
+        k, 0) + n_dec * PER_DECODE.get(k, 0) for k in kernels.KERNELS}
+    log(f"[sched] {n_req} requests, prompts {sched_lengths[0]}.."
+        f"{sched_lengths[-1]} x {sched_new} new, arrivals 2 ticks apart: "
+        f"prelimb {prelimb_s * 1e3:.1f} ms, run {run_s:.3f} s, "
+        f"{stats['useful_tokens'] / run_s:.1f} tokens/s, {stats['steps']} "
+        f"ticks, {stats['prefills']} prefills, {n_dec} decode launches, "
+        f"peak {s_peak / 2**30:.2f} GiB ({(s_peak - s_base) / 2**30:.2f} "
+        f"GiB above the {s_base / 2**30:.2f} GiB resident before the path), "
+        f"launches {s_launches}")
+    if s_launches != want or any(s_plain.values()):
+        raise AssertionError(f"scheduler launches {s_launches} != expected "
+                             f"{want} (plain calls {s_plain})")
+    out = {r.rid: r.out for r in done}
+    if (len(out) != n_req or stats["completed"] != n_req
+            or any(len(o) != sched_new for o in out.values())
+            or any(not 0 <= t < cfg.vocab for o in out.values() for t in o)
+            or stats["blocks_live"] != 0):
+        raise AssertionError(f"scheduler run malformed: {stats}")
+    lat = {k: stats[k] for k in ("ttft_p50_ms", "ttft_p95_ms", "tpot_p50_ms",
+                                 "tpot_p95_ms", "itl_p50_ms", "itl_p95_ms",
+                                 "queue_wait_p50_steps",
+                                 "queue_wait_p95_steps")}
+    log(f"[sched] latency {lat}")
+
+    # port-internal bitwise: streams decoded in micro-batches of up to 8
+    # equal their solo scheduled runs
+    solo_ids = (0, n_req - 1)
+    for i in solo_ids:
+        solo = ContinuousScheduler(s_eng, n_blocks=160, block_size=16).run(
+            requests([i], spaced=False))[0].out
+        if solo != out[i]:
+            first = next(t for t, (a, b) in enumerate(zip(solo, out[i]))
+                         if a != b)
+            raise AssertionError(f"request {i}: batched stream differs from "
+                                 f"its solo run at token {first}")
+    log(f"[sched] requests {list(solo_ids)}: batched streams == solo runs "
+        f"bitwise")
+
+    # one paged prefill's last-token logits against the ref backend
+    def paged_prefill_logits(engine, prompt):
+        pool = PagedKVPool(L, 24, 16, cfg.n_kv_heads, cfg.resolved_head_dim,
+                           max_blocks_per_seq=32, device=dev)
+        req = ScheduledRequest(rid=0, prompt=prompt, max_new=sched_new)
+        if not prim.try_reserve(pool, req):
+            raise AssertionError("the probe pool cannot hold the prompt")
+        prefill_fn, _ = engine.paged_steps_for(policy)
+        n = len(prompt)
+        tokens = np.zeros((1, prim.pow2_at_least(n)), np.int64)
+        tokens[0, :n] = prompt
+        table = pool.table_row(req.blocks)[None, :prim.table_width(pool,
+                                                                  [req])]
+        logits, stat, _, _ = prefill_fn(
+            engine.params, pool.k, pool.v, engine.to_device(table),
+            engine.to_device(np.zeros((1,), np.int32)),
+            engine.to_device(tokens), n - 1)
+        return logits[0, 0].double()
+
+    a = paged_prefill_logits(s_eng, sched_prompts[-1])
+    b = paged_prefill_logits(ref_eng, sched_prompts[-1])
+    s_rel = ((a - b).norm() / b.norm()).item()
+    log(f"[sched] paged prefill ({sched_lengths[-1]} tokens) last-token "
+        f"logits vs ref backend: rel {s_rel:.3e} (tol {rel_tol:.3e}), "
+        f"top-1 {'agrees' if a.argmax() == b.argmax() else 'differs'}")
+    if not torch.isfinite(a).all() or s_rel > rel_tol:
+        raise AssertionError("paged prefill logits disagree with the ref "
+                             "backend")
+
+    # decode-only tick probe: 8 active slots (prompts 64..256), no arrivals
+    probe = ContinuousScheduler(s_eng, n_blocks=160, block_size=16)
+    for r in requests(range(0, n_req, 2), spaced=False):
+        r.max_new = 64
+        probe.submit(r)
+    probe.step()  # admits all 8 (and runs the first tick)
+    ticks = 16
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    for _ in range(ticks):
+        probe.step()
+    torch.cuda.synchronize()
+    tick_ms = (time.perf_counter() - t2) / ticks * 1e3
+    log(f"[sched] decode tick (8 slots, no admissions): {tick_ms:.3f} ms, "
+        f"{8e3 / tick_ms:.1f} tokens/s")
+    report["sched"] = dict(
+        lengths=sched_lengths, max_new=sched_new, prelimb_ms=prelimb_s * 1e3,
+        run_s=run_s, tokens_per_s=stats["useful_tokens"] / run_s,
+        stats=stats, launches=s_launches, peak_bytes=s_peak,
+        resident_before_bytes=s_base,
+        solo_bitwise=list(solo_ids), logits_rel_vs_ref=s_rel,
+        decode_tick_ms=tick_ms)
+
     # ---- 5. the kernels line -----------------------------------------------
     line = []
     for kname, (src, replaces) in SOURCES.items():
@@ -392,9 +678,10 @@ def main() -> int:
             ms = timed(c["fn"], torch)
             plain_ms = timed(c["plain"], torch)
             lib_ms = timed(c["library"], torch) if c["library"] else None
-            b_ms, b_by = bound(c["ops"], c["bytes"])
+            b_ms, b_by = bound(c["ops"], c["bytes"],
+                               c.get("peak", PEAK_OPS))
             row = {k: v for k, v in c.items()
-                   if k not in ("fn", "plain", "library")}
+                   if k not in ("fn", "plain", "library", "peak")}
             row.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                        bound_ms=b_ms, bound_by=b_by)
             rows.append(row)
@@ -405,7 +692,11 @@ def main() -> int:
         main_row = next(r for r in rows if r["main"])
         line.append({
             "name": kname, "route": "cuda", "source": src,
-            "replaces": replaces, "launches": launches[kname],
+            "replaces": replaces,
+            "launches": (s_launches if kname in SCHED_KERNELS
+                         else launches)[kname],
+            "launches_by_path": {"generate": launches[kname],
+                                 "scheduler": s_launches[kname]},
             "max_abs_err": max(r["max_abs_err"] for r in checks[kname]),
             "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"],
@@ -415,17 +706,20 @@ def main() -> int:
         report.setdefault("cases", {})[kname] = rows
     # kernel time of one prefill and one decode step at these shapes: the
     # device-busy lower bound the measured step times are read against
-    busy = {"prefill": 0.0, "decode": 0.0}
+    busy = {"prefill": 0.0, "decode": 0.0, "tick": 0.0}
     for rows in report["cases"].values():
         for r in rows:
             if r["per"]:
                 busy[r["per"][0]] += r["ms"] * r["per"][1]
     report["main"]["kernel_ms_per_prefill"] = busy["prefill"]
     report["main"]["kernel_ms_per_decode_step"] = busy["decode"]
+    report["sched"]["kernel_ms_per_tick"] = busy["tick"]
     log(f"[busy] kernel ms per prefill {busy['prefill']:.3f} "
         f"(measured {report['main']['prefill_ms']:.3f} ms); per decode step "
         f"{busy['decode']:.3f} (measured "
-        f"{report['main']['decode_ms_per_step']:.3f} ms)")
+        f"{report['main']['decode_ms_per_step']:.3f} ms); per scheduler "
+        f"decode tick {busy['tick']:.3f} (measured {tick_ms:.3f} ms, idle "
+        f"share {max(0.0, 1 - busy['tick'] / tick_ms):.3f})")
     report["kernels"] = line
     report["checks"] = checks
     out_dir = ROOT / "chiprun_out"

@@ -81,6 +81,27 @@ def context(**kw):
         _scoped.reset(token)
 
 
+def resolve_request_policy(mode=None, policy=None,
+                           base: Optional[PrecisionPolicy] = None
+                           ) -> PrecisionPolicy:
+    """Per-request precision resolution (the serving QoS overlay).
+
+    A request may carry a full ``policy`` (object or JSON wire form; wins
+    outright) or a single ``mode`` (any ``formats.resolve`` spelling;
+    applied as a whole-network overlay on ``base`` via
+    :meth:`PrecisionPolicy.overlay`).  ``base`` defaults to the active
+    context's policy, else the serving recipe default."""
+    if policy is not None:
+        if not isinstance(policy, PrecisionPolicy):
+            policy = PrecisionPolicy.from_json(policy)
+        return policy
+    if base is None:
+        base = current_context().policy or PrecisionPolicy.serve_default()
+    if mode is None:
+        return base
+    return base.overlay(mode)
+
+
 def reset_context() -> None:
     """Drop the process default (tests)."""
     global _process_default

@@ -9,8 +9,12 @@ Two backends:
   ref   the pure-PyTorch oracle (kernels/ref.py), chosen only when a caller
         asks for it.
 
-The sharded, mixed-lane and paged routes of the JAX package are not ported
-yet (ROADMAP.md).
+Pre-limbed weights (:class:`~repro_torch.core.limbs.PrelimbedWeight`) route
+to the pre-limbed kernel on ``cuda`` and to the oracle on ``ref``; paged
+decode attention routes to the paged kernel on ``cuda`` and to the
+``pool[table]`` gather plus :func:`masked_decode_attention` on ``ref``.
+The sharded and mixed-lane routes of the JAX package are not ported yet
+(ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -20,7 +24,8 @@ import numpy as np
 import torch
 
 from repro_torch.core import context as context_lib
-from repro_torch.core.formats import FormatLike, resolve
+from repro_torch.core.formats import FormatLike, is_auto, resolve
+from repro_torch.core.limbs import PrelimbedWeight
 from repro_torch.kernels import ref as ref_backend
 
 BACKENDS = ("cuda", "ref")
@@ -37,14 +42,19 @@ def _backend(backend: Optional[str]) -> str:
     return name
 
 
-def dispatch(a: torch.Tensor, b: torch.Tensor, mode: FormatLike, *,
+def dispatch(a: torch.Tensor, b, mode: FormatLike, *,
              backend: Optional[str] = None) -> torch.Tensor:
-    """Route one static-format matmul a (..., M, K) @ b (..., K, N)."""
+    """Route one static-format matmul a (..., M, K) @ b (..., K, N); ``b``
+    may be a 2-D :class:`PrelimbedWeight`."""
     fmt = resolve(mode)
     if _backend(backend) == "ref":
         return ref_backend.mp_matmul_ref(a, b, fmt)
     from repro_torch.kernels import ops
 
+    if isinstance(b, PrelimbedWeight):
+        if b.ndim != 2:
+            raise ValueError("prelimbed weights must be 2-D per matmul")
+        return ops.mp_matmul_prelimbed_weights(a, b.limbs, fmt)
     return ops.mp_matmul_cuda(a, b, fmt)
 
 
@@ -90,11 +100,12 @@ def masked_decode_attention(q, k, v, length, mode_qk: FormatLike,
                             scale: Optional[float] = None,
                             backend: Optional[str] = None) -> torch.Tensor:
     """Decode attention: q (B, 1, H, Dh) against k/v (B, T, H, Dh) (H already
-    repeated), masked to the first ``length`` positions.  Both contractions
-    route through ``mp_matmul`` at the ``attn_qk`` / ``attn_pv`` formats; q
-    is scaled *before* the contraction so the limb cascade decomposes the
-    same operand the fused kernels do.  k/v are read through transposed
-    views (no copies): the batched kernel takes their strides."""
+    repeated), masked to the first ``length`` positions (an int, or a (B,)
+    tensor of per-slot lengths).  Both contractions route through
+    ``mp_matmul`` at the ``attn_qk`` / ``attn_pv`` formats; q is scaled
+    *before* the contraction so the limb cascade decomposes the same operand
+    the fused kernels do.  k/v are read through transposed views (no
+    copies): the batched kernel takes their strides."""
     from repro_torch.core.mpmatmul import mp_einsum_qk, mp_matmul
 
     T = k.shape[1]
@@ -105,6 +116,8 @@ def masked_decode_attention(q, k, v, length, mode_qk: FormatLike,
     kh = k.permute(0, 2, 1, 3).float()                     # (B, H, T, Dh)
     vh = v.permute(0, 2, 1, 3).float()
     logits = mp_einsum_qk(qh, kh, mode_qk, backend=backend)  # (B, H, 1, T)
+    if torch.is_tensor(length) and length.ndim:
+        length = length.reshape(-1, 1, 1, 1)
     mask = torch.arange(T, device=q.device) < length
     neg = torch.full((), ref_backend.ATTN_NEG_INF, device=q.device)
     logits = torch.where(mask, logits, neg)
@@ -112,3 +125,43 @@ def masked_decode_attention(q, k, v, length, mode_qk: FormatLike,
     p = torch.where(mask, p, torch.zeros((), device=q.device))
     out = mp_matmul(p, vh, mode_pv, backend=backend)       # (B, H, 1, Dh)
     return out.permute(0, 2, 1, 3).to(q.dtype)
+
+
+def dispatch_paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
+                             v_pool: torch.Tensor, block_table: torch.Tensor,
+                             lengths: torch.Tensor, mode_qk: FormatLike,
+                             mode_pv: Optional[FormatLike] = None, *,
+                             scale: Optional[float] = None,
+                             backend: Optional[str] = None) -> torch.Tensor:
+    """Route one paged-decode attention step: q (B, 1, H, Dh) against the
+    block pool (n_blocks, bs, Hkv, Dh) through the slot block tables
+    (B, W) int32 and per-slot lengths (B,) int32.
+
+    ``cuda`` runs the paged kernel: pool blocks are read straight through
+    the table, the contiguous ``pool[table]`` gather never materializes.
+    ``ref`` gathers the table's columns (bounded: the scheduler slices the
+    table to its used width) and runs :func:`masked_decode_attention`."""
+    B, S1, H, Dh = q.shape
+    _, bs, hk, _ = k_pool.shape
+    if is_auto(mode_qk) or is_auto(mode_pv):
+        raise NotImplementedError("AUTO (paper mode 1) is not ported yet: "
+                                  "see ROADMAP.md 'Slice 4: DD and AUTO'")
+    fmt_qk = resolve(mode_qk)
+    fmt_pv = resolve(mode_pv if mode_pv is not None else mode_qk)
+    if _backend(backend) == "cuda":
+        from repro_torch.kernels import mp_attention as attn_kernels
+
+        out = attn_kernels.mp_paged_attention(
+            q.reshape(B, H, Dh), k_pool, v_pool, block_table, lengths,
+            fmt_qk, fmt_pv, scale=scale)
+        return out.reshape(B, S1, H, Dh).to(q.dtype)
+    W = block_table.shape[1]
+    idx = block_table.long()
+    kk = k_pool[idx].reshape(B, W * bs, hk, Dh)
+    vv = v_pool[idx].reshape(B, W * bs, hk, Dh)
+    n_rep = H // hk
+    if n_rep > 1:
+        kk = torch.repeat_interleave(kk, n_rep, dim=2)
+        vv = torch.repeat_interleave(vv, n_rep, dim=2)
+    return masked_decode_attention(q, kk, vv, lengths, fmt_qk, fmt_pv,
+                                   scale=scale, backend="ref")

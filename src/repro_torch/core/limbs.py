@@ -8,9 +8,42 @@ same rounding XLA applies, so the cascade is bitwise equal to the JAX one.
 """
 from __future__ import annotations
 
-from typing import Sequence
+from typing import NamedTuple, Sequence
 
 import torch
+
+
+class PrelimbedWeight(NamedTuple):
+    """A weight operand carried as its pre-extracted bf16 limb stack.
+
+    ``limbs`` has shape (..., L, K, N): the last three dims are the limb
+    stack of one (K, N) matrix.  Serving decomposes each decode weight ONCE
+    per (policy, params); decode matmuls then read the stored limbs instead
+    of re-limbing the weight every step.  Inference only.  A format needing
+    more limbs than were stored computes at the stored precision (missing
+    limbs are zero); extra stored limbs are ignored."""
+
+    limbs: torch.Tensor  # (..., L, K, N) bf16
+
+    @property
+    def shape(self) -> torch.Size:
+        """Shape of the weight *value* the limb stack represents."""
+        return self.limbs.shape[:-3] + self.limbs.shape[-2:]
+
+    @property
+    def ndim(self) -> int:
+        return self.limbs.ndim - 1
+
+    @property
+    def n_limbs(self) -> int:
+        return self.limbs.shape[-3]
+
+
+def prelimb_weight(w: torch.Tensor, n_limbs: int) -> PrelimbedWeight:
+    """Plain-PyTorch prelimb of a (..., K, N) weight: the oracle of the
+    decompose kernel (``kernels/ops.decompose_weights``)."""
+    stacked = decompose(w, n_limbs)  # (L, ..., K, N)
+    return PrelimbedWeight(stacked.movedim(0, -3).contiguous())
 
 
 def decompose(x: torch.Tensor, n_limbs: int) -> torch.Tensor:

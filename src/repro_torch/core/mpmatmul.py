@@ -18,6 +18,8 @@ import torch
 
 from repro_torch.core import dispatch as dispatch_lib
 from repro_torch.core.formats import FormatLike, is_auto, resolve
+from repro_torch.core.limbs import PrelimbedWeight
+from repro_torch.kernels import ref as ref_backend
 
 _AUTO_TODO = ("AUTO (paper mode 1) is not ported yet: it comes with "
               "ROADMAP.md 'Slice 4: DD and AUTO'; resolve a static format")
@@ -29,17 +31,28 @@ def _static(mode: FormatLike):
     return resolve(mode)
 
 
-def mp_matmul(a: torch.Tensor, b: torch.Tensor, mode: FormatLike = "M16", *,
+def mp_matmul(a: torch.Tensor, b, mode: FormatLike = "M16", *,
               backend: Optional[str] = None) -> torch.Tensor:
     """Multi-precision matmul: a (..., M, K) @ b (..., K, N) -> (..., M, N)
-    f32 at the requested format."""
+    f32 at the requested format.  ``b`` may be a 2-D
+    :class:`~repro_torch.core.limbs.PrelimbedWeight` (the serving decode
+    path's pre-limbed weights)."""
     return dispatch_lib.dispatch(a, b, _static(mode), backend=backend)
 
 
-def mp_dense(x: torch.Tensor, w: torch.Tensor, mode: FormatLike = "M16", *,
+def mp_dense(x: torch.Tensor, w, mode: FormatLike = "M16", *,
              backend: Optional[str] = None) -> torch.Tensor:
-    """Dense layer contraction: x (..., K) @ w (K, N) -> (..., N)."""
+    """Dense layer contraction: x (..., K) @ w (K, N) -> (..., N); ``w``
+    may be a :class:`~repro_torch.core.limbs.PrelimbedWeight`."""
     return mp_matmul(x, w, mode, backend=backend)
+
+
+def _sequential_fused(x, ws, mode, *, epilogue, biases, residual, backend):
+    """Per-branch ``mp_matmul`` (pre-limbed weights): no A-sharing kernel,
+    the same epilogue math (``apply_epilogue``)."""
+    raws = [mp_matmul(x, w, mode, backend=backend) for w in ws]
+    return ref_backend.apply_epilogue(raws, gate=epilogue, biases=biases,
+                                      residual=residual)
 
 
 def mp_fused_proj(x: torch.Tensor, ws, mode: FormatLike = "M16", *,
@@ -51,7 +64,9 @@ def mp_fused_proj(x: torch.Tensor, ws, mode: FormatLike = "M16", *,
     decomposition.  Returns the tuple of (..., N_t) outputs, or one tensor
     when ``epilogue="swiglu"`` combines them or ``len(ws) == 1``.  Biases
     ((N_t,) each) and the residual (added to the single final output) fold
-    into the kernel's epilogue."""
+    into the kernel's epilogue.  Pre-limbed weights run per-branch
+    ``mp_matmul`` calls with the same epilogue (serving decode hits the
+    pre-limbed kernel per branch, as in the JAX package)."""
     ws = tuple(ws)
     if not ws:
         raise ValueError("mp_fused_proj needs at least one weight")
@@ -75,6 +90,10 @@ def mp_fused_proj(x: torch.Tensor, ws, mode: FormatLike = "M16", *,
         if any(b is None for b in biases):
             raise ValueError("biases must be all tensors or None (pass a "
                              "zeros vector for a bias-free branch)")
+    if any(isinstance(w, PrelimbedWeight) for w in ws):
+        return _sequential_fused(x, ws, _static(mode), epilogue=epilogue,
+                                 biases=biases, residual=residual,
+                                 backend=backend)
     return dispatch_lib.dispatch_fused(x, ws, _static(mode), gate=epilogue,
                                        biases=biases, residual=residual,
                                        backend=backend)

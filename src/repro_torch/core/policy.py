@@ -253,6 +253,27 @@ class PrecisionPolicy:
         return (f"PrecisionPolicy({rules!r}, bwd_dgrad={self._bwd_dgrad!r}, "
                 f"bwd_wgrad={self._bwd_wgrad!r})")
 
+    # ---- per-request overlays ---------------------------------------------
+    def overlay(self, patch: Union[FormatLike, Mapping[str, object]]
+                ) -> "PrecisionPolicy":
+        """Derive a policy for one serving request (the paper's mode-select
+        bits applied per request instead of per engine).
+
+        ``patch`` is either a single format — the request runs the *whole
+        network* at that format — or a rules mapping merged over this
+        policy's rules (same-pattern entries replaced, new patterns added;
+        resolution precedence is unchanged, so a ``"*"`` patch does NOT
+        shadow this policy's more specific rules).
+
+        Backward formats are dropped for the single-format spelling (serving
+        never differentiates) and inherited for mapping patches."""
+        if isinstance(patch, Mapping):
+            merged: Dict[str, object] = {p: r for p, r in self._rules}
+            merged.update(dict(patch))
+            return PrecisionPolicy(merged, bwd_dgrad=self._bwd_dgrad,
+                                   bwd_wgrad=self._bwd_wgrad)
+        return PrecisionPolicy({"*": patch})
+
     # ---- wire format -------------------------------------------------------
     def to_json(self) -> str:
         """Lossless wire form.  Custom formats referenced by any rule are

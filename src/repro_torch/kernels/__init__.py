@@ -2,14 +2,19 @@
 each with its plain PyTorch version and two counters: ``launches`` (kernel
 launches, counted where the kernel is launched and nowhere else) and
 ``plain_calls`` (calls on CPU tensors, which run the plain version)."""
-from repro_torch.kernels.mp_attention import mp_flash_attention
-from repro_torch.kernels.mp_matmul import mp_fused_matmul, mp_fused_proj
+from repro_torch.kernels.mp_attention import mp_flash_attention, \
+    mp_paged_attention
+from repro_torch.kernels.mp_matmul import mp_decompose, mp_fused_matmul, \
+    mp_fused_proj, mp_prelimbed_matmul
 
 # every kernel wrapper of the port, by name
 KERNELS = {
     "mp_fused_matmul": mp_fused_matmul,
     "mp_fused_proj": mp_fused_proj,
     "mp_flash_attention": mp_flash_attention,
+    "mp_decompose": mp_decompose,
+    "mp_prelimbed_matmul": mp_prelimbed_matmul,
+    "mp_paged_attention": mp_paged_attention,
 }
 
 

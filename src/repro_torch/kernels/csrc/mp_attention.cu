@@ -1,6 +1,8 @@
-// Multi-precision flash attention for Hopper (sm_90a), plain C interface.
+// Multi-precision flash attention and paged decode attention for Hopper
+// (sm_90a), plain C interface.  paged_kernel (below flash_kernel) replaces
+// _paged_kernel; its own comment says how.
 //
-// Replaces the Pallas TPU kernel _flash_kernel of
+// flash_kernel replaces the Pallas TPU kernel _flash_kernel of
 // src/repro/kernels/mp_attention.py (entered there through
 // mp_attention_pallas).  One block per (b*h, q tile of BQ rows) walks the kv
 // tiles of BKV positions in order:
@@ -261,9 +263,200 @@ cudaError_t launch(const FlashArgs& p, int B, cudaStream_t st) {
   return cudaGetLastError();
 }
 
+struct PagedArgs {
+  const float* q;                  // (B, H, Dh), head dim unit-stride
+  const float* k;                  // pools (n_blocks, bs, Hkv, Dh)
+  const float* v;
+  const int32_t* table;            // (B, W) physical block ids
+  const int32_t* lengths;          // (B,) valid prefix per slot
+  float* o;                        // (B, H, Dh) contiguous
+  int64_t q_sb, q_sh;
+  int64_t k_sb, k_ss, k_sh;        // pool strides: block, position, head
+  int64_t v_sb, v_ss, v_sh;
+  int64_t t_sb;
+  int H, n_rep, Dh, bs, W;
+  float scale;
+  int nl_qk, mo_qk, nl_pv, mo_pv;
+};
+
+// Replaces the Pallas TPU kernel _paged_kernel of
+// src/repro/kernels/mp_attention.py (entered there through
+// mp_paged_attention_pallas): one decode query per slot against the paged
+// KV pool.  One block per (kv head, slot) serves the n_rep query heads that
+// share the kv head.  It walks the slot's table columns j with
+// j * bs < length (at most W of them), reads pool block table[b, j] straight
+// from the pool (no pool[table] gather in device memory), and folds each
+// block into the running (max, denominator, accumulator) with one
+// online-softmax update, as the TPU kernel's grid column does: logits = Q K^T
+// at fmt_qk (q scaled in f32 before it is limbed), masked to -1e30 past the
+// length; p = exp(logits - m_new) re-zeroed past the length; P limbed at
+// fmt_pv for P V.  A slot of length 0 writes exact zeros (d clamped to
+// 1e-30, acc 0).  Contractions follow _matmul_limbs (contract above), like
+// flash_kernel.
+//
+// What bounds it on this card: at the decode shape (8 slots, 12 heads,
+// Dh 64, lengths up to ~300) the bytes of the K/V blocks below each slot's
+// length; each is read from device memory once per (slot, kv head) and
+// limbed once in shared memory for all n_rep query heads.  Small work per
+// block (bs positions): later work can split a slot's columns across blocks.
+template <int D>
+__global__ void __launch_bounds__(NT) paged_kernel(PagedArgs p) {
+  constexpr int DS = D + 2;              // padded row of a Q/K/V limb plane
+  const int kvh = blockIdx.x;
+  const int b = blockIdx.y;
+  const int nr = p.n_rep;
+  const int bs = p.bs;
+  const int ps = bs + 2;                 // padded row of a P limb plane
+  const int ss = bs + 1;                 // padded row of the logits tile
+  extern __shared__ float4 smem4[];
+  float* Ss = reinterpret_cast<float*>(smem4);   // nr x ss logits / probs
+  float* acc_s = Ss + nr * ss;                   // nr x D accumulators
+  float* m_s = acc_s + nr * D;
+  float* d_s = m_s + nr;
+  float* al_s = d_s + nr;
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(al_s + nr);
+  __nv_bfloat16* Ks = Qs + p.nl_qk * nr * DS;
+  __nv_bfloat16* Vs = Ks + p.nl_qk * bs * DS;
+  __nv_bfloat16* Ps = Vs + p.nl_pv * bs * DS;
+
+  const int tid = threadIdx.x;
+  const float* q = p.q + b * p.q_sb + (int64_t)kvh * nr * p.q_sh;
+  for (int idx = tid; idx < nr * D; idx += NT) {
+    const int r = idx / D;
+    const int dd = idx % D;
+    const float x = dd < p.Dh ? q[r * p.q_sh + dd] * p.scale : 0.f;
+    store_limbs(x, Qs + r * DS + dd, nr * DS, p.nl_qk);
+    acc_s[idx] = 0.f;
+  }
+  if (tid < nr) {
+    m_s[tid] = NEG_INF;
+    d_s[tid] = 0.f;
+  }
+  const int length = p.lengths[b];
+  int ncol = (length + bs - 1) / bs;
+  if (ncol > p.W) ncol = p.W;
+  for (int j = 0; j < ncol; ++j) {
+    __syncthreads();  // the previous block's readers are done
+    const int64_t blk = p.table[b * p.t_sb + j];
+    const float* kb = p.k + blk * p.k_sb + kvh * p.k_sh;
+    const float* vb = p.v + blk * p.v_sb + kvh * p.v_sh;
+    for (int idx = tid; idx < bs * D; idx += NT) {
+      const int t = idx / D;
+      const int dd = idx % D;
+      const bool in = dd < p.Dh;
+      store_limbs(in ? kb[t * p.k_ss + dd] : 0.f, Ks + t * DS + dd, bs * DS,
+                  p.nl_qk);
+      store_limbs(in ? vb[t * p.v_ss + dd] : 0.f, Vs + t * DS + dd, bs * DS,
+                  p.nl_pv);
+    }
+    __syncthreads();
+
+    for (int idx = tid; idx < nr * bs; idx += NT) {
+      const int r = idx / bs;
+      const int c = idx % bs;
+      const float lg = contract(Qs + r * DS, nr * DS, 1, Ks + c * DS, bs * DS,
+                                1, D, p.nl_qk, p.mo_qk);
+      Ss[r * ss + c] = (j * bs + c < length) ? lg : NEG_INF;
+    }
+    __syncthreads();
+
+    // online softmax: one thread per query head
+    if (tid < nr) {
+      const int r = tid;
+      float mx = NEG_INF;
+      for (int c = 0; c < bs; ++c) mx = fmaxf(mx, Ss[r * ss + c]);
+      const float m_old = m_s[r];
+      const float m_new = fmaxf(m_old, mx);
+      float sum = 0.f;
+      for (int c = 0; c < bs; ++c) {
+        const float pr =
+            (j * bs + c < length) ? expf(Ss[r * ss + c] - m_new) : 0.f;
+        sum = sum + pr;
+        store_limbs(pr, Ps + r * ps + c, nr * ps, p.nl_pv);
+      }
+      const float alpha = expf(m_old - m_new);
+      d_s[r] = d_s[r] * alpha + sum;
+      m_s[r] = m_new;
+      al_s[r] = alpha;
+    }
+    __syncthreads();
+
+    for (int idx = tid; idx < nr * D; idx += NT) {
+      const int r = idx / D;
+      const int dd = idx % D;
+      const float pv = contract(Ps + r * ps, nr * ps, 1, Vs + dd, bs * DS, DS,
+                                bs, p.nl_pv, p.mo_pv);
+      acc_s[idx] = acc_s[idx] * al_s[r] + pv;
+    }
+  }
+  __syncthreads();
+  float* o = p.o + ((int64_t)b * p.H + (int64_t)kvh * nr) * p.Dh;
+  for (int idx = tid; idx < nr * D; idx += NT) {
+    const int r = idx / D;
+    const int dd = idx % D;
+    if (dd < p.Dh) o[r * p.Dh + dd] = acc_s[idx] / fmaxf(d_s[r], 1e-30f);
+  }
+}
+
+template <int D>
+cudaError_t launch_paged(const PagedArgs& p, int B, int Hkv,
+                         cudaStream_t st) {
+  const int64_t nr = p.n_rep;
+  const int64_t bf16_elems = (int64_t)p.nl_qk * (nr + p.bs) * (D + 2) +
+                             (int64_t)p.nl_pv * p.bs * (D + 2) +
+                             (int64_t)p.nl_pv * nr * (p.bs + 2);
+  const int64_t smem = (nr * (p.bs + 1) + nr * D + 3 * nr) * 4 +
+                       bf16_elems * 2;
+  if (smem > MAX_SMEM) return cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        paged_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  const dim3 grid((unsigned)Hkv, (unsigned)B, 1);
+  paged_kernel<D><<<grid, NT, (size_t)smem, st>>>(p);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
+
+// out (B, H, Dh) = paged decode attention of q (B, H, Dh) against the K/V
+// pools (n_blocks, bs, Hkv, Dh) through table (B, W) int32 and lengths (B,)
+// int32; H = Hkv * n_rep (query head h reads kv head h / n_rep).  Strides in
+// elements; the head dim must have unit stride, out is contiguous.  Returns
+// the CUDA error of the launch (0 on success).  Allocates nothing and does
+// not synchronise.
+int mp_paged_attention_launch(
+    const void* q, int64_t q_sb, int64_t q_sh, const void* k, int64_t k_sb,
+    int64_t k_ss, int64_t k_sh, const void* v, int64_t v_sb, int64_t v_ss,
+    int64_t v_sh, const void* table, int64_t t_sb, const void* lengths,
+    void* o, int64_t B, int64_t H, int64_t Hkv, int64_t Dh, int64_t bs,
+    int64_t W, double scale, int64_t nl_qk, int64_t mo_qk, int64_t nl_pv,
+    int64_t mo_pv, void* stream) {
+  if (nl_qk < 1 || nl_pv < 1 || mo_qk < 0 || mo_pv < 0 ||
+      mo_qk > 2 * (nl_qk - 1) || mo_pv > 2 * (nl_pv - 1) || Dh < 1 ||
+      Dh > 128 || Hkv < 1 || H % Hkv != 0 || bs < 1 || W < 1 ||
+      B > 65535 || Hkv > 65535)
+    return (int)cudaErrorInvalidValue;
+  if (B == 0) return 0;
+  PagedArgs p{static_cast<const float*>(q), static_cast<const float*>(k),
+              static_cast<const float*>(v),
+              static_cast<const int32_t*>(table),
+              static_cast<const int32_t*>(lengths), static_cast<float*>(o),
+              q_sb, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, t_sb,
+              (int)H, (int)(H / Hkv), (int)Dh, (int)bs, (int)W,
+              (float)scale, (int)nl_qk, (int)mo_qk, (int)nl_pv, (int)mo_pv};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (Dh <= 16) err = launch_paged<16>(p, (int)B, (int)Hkv, st);
+  else if (Dh <= 32) err = launch_paged<32>(p, (int)B, (int)Hkv, st);
+  else if (Dh <= 64) err = launch_paged<64>(p, (int)B, (int)Hkv, st);
+  else err = launch_paged<128>(p, (int)B, (int)Hkv, st);
+  return (int)err;
+}
 
 // out (B, S, H, Dh) = flash attention of q (B, S, H, Dh) against k / v
 // (B, T, H, Dh) with H already GQA-repeated.  Strides in elements; the head

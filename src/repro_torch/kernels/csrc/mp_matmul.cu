@@ -8,6 +8,12 @@
 //                                                      by n_out B operands,
 //                                                      bias / swiglu / residual
 //                                                      epilogue)
+//   prelimbed_matmul_kernel  replaces _prelimbed_kernel  (B as stored bf16
+//                                                      limb planes: serving
+//                                                      decode)
+//   decompose_kernel     replaces _decompose_kernel    (f32 -> bf16 limb
+//                                                      planes, once per
+//                                                      policy)
 //
 // What they compute: C = sum over the format's kept limb pairs (i, j) of
 // A_i * B_j, where X_i is the i-th bf16 limb of the f32 operand (the
@@ -88,17 +94,30 @@ __device__ __forceinline__ float combine_orders(const float (&acc)[NO], int mo) 
   return s + c;
 }
 
+// Stored bf16 limb planes of a pre-limbed B operand (the serving path's
+// PrelimbedWeight): plane j of element (k, n) at p[j * plane + k * sr + n].
+// Planes j >= n_stored count as zero and are never read.
+struct Planes {
+  const __nv_bfloat16* p;
+  int64_t plane, sr;
+  int n_stored;
+};
+
 // The shared main loop: accumulates, for NOUT weights at once, the kept limb
 // products of the (BM x BN) output tile at (m0, n0) into per-order
 // accumulators acc[t][o][r][c].  Thread (tx, ty) owns rows m0 + ty + r*TY and
 // columns n0 + tx + c*TX, so global stores and shared-memory reads of
-// neighbouring threads touch neighbouring addresses.
-template <int NL, int NO, int NOUT, int RM, int RN, bool GEN>
+// neighbouring threads touch neighbouring addresses.  PL: B comes as stored
+// limb planes (``bp``, NOUT == 1) instead of f32 values limbed here; the
+// products and the order of every add are the same either way, so a
+// pre-limbed run is bitwise the f32 run on the weight the planes came from.
+template <int NL, int NO, int NOUT, int RM, int RN, bool GEN, bool PL = false>
 __device__ __forceinline__ void mainloop(
     const float* __restrict__ A, int64_t a_sr, int64_t a_sc,
     const float* const* B, int64_t b_sr, int64_t b_sc,
     int64_t M, int64_t N, int64_t K, int64_t m0, int64_t n0,
-    int n_limbs, int max_order, float (&acc)[NOUT][NO][RM][RN]) {
+    int n_limbs, int max_order, float (&acc)[NOUT][NO][RM][RN],
+    Planes bp = Planes{}) {
   constexpr int BM = TY * RM;
   constexpr int BN = TX * RN;
   __shared__ __nv_bfloat16 As[NL][BK][BM];
@@ -133,18 +152,37 @@ __device__ __forceinline__ void mainloop(
 #pragma unroll
       for (int i = 0; i < NL; ++i) As[i][kk][mm] = l[i];
     }
-#pragma unroll
-    for (int t = 0; t < NOUT; ++t) {
+    if constexpr (PL) {
+      // stored planes, read as they are: only planes below both the stored
+      // count and the format's limb count leave device memory
+      const int nst = bp.n_stored < nl ? bp.n_stored : nl;
+      const __nv_bfloat16 zero = __float2bfloat16_rn(0.f);
       for (int idx = tid; idx < BK * BN; idx += NT) {
         const int kk = idx / BN;
         const int nn = idx % BN;
         const int64_t gk = k0 + kk;
         const int64_t gn = n0 + nn;
-        const float x = (gk < K && gn < N) ? B[t][gk * b_sr + gn * b_sc] : 0.f;
-        __nv_bfloat16 l[NL];
-        extract_limbs<NL>(x, l);
+        const bool in = gk < K && gn < N;
+        const __nv_bfloat16* src = bp.p + gk * bp.sr + gn;
 #pragma unroll
-        for (int j = 0; j < NL; ++j) Bs[t][j][kk][nn] = l[j];
+        for (int j = 0; j < NL; ++j)
+          Bs[0][j][kk][nn] = (in && j < nst) ? src[j * bp.plane] : zero;
+      }
+    } else {
+#pragma unroll
+      for (int t = 0; t < NOUT; ++t) {
+        for (int idx = tid; idx < BK * BN; idx += NT) {
+          const int kk = idx / BN;
+          const int nn = idx % BN;
+          const int64_t gk = k0 + kk;
+          const int64_t gn = n0 + nn;
+          const float x =
+              (gk < K && gn < N) ? B[t][gk * b_sr + gn * b_sc] : 0.f;
+          __nv_bfloat16 l[NL];
+          extract_limbs<NL>(x, l);
+#pragma unroll
+          for (int j = 0; j < NL; ++j) Bs[t][j][kk][nn] = l[j];
+        }
       }
     }
     __syncthreads();
@@ -196,27 +234,25 @@ struct MatmulArgs {
   int n_limbs, max_order;
 };
 
-// Port of _fused_kernel: C[z] = A[z] @ B[z] at the format, z over up to two
-// batch dims with their own strides (a stride of 0 broadcasts), so decode
-// attention's (B, H, 1, Dh) x (B, H, Dh, T) runs as one launch.
-template <int NL, int NO, int RM, int RN, bool GEN>
-__global__ void __launch_bounds__(NT) fused_matmul_kernel(MatmulArgs p) {
+// One (BM x BN) tile at (blockIdx.y, blockIdx.x) of C = A @ B at the format,
+// B as f32 values or (PL) as stored limb planes: the body of both
+// fused_matmul_kernel and prelimbed_matmul_kernel, so the two share every
+// add of every output element.
+template <int NL, int NO, int RM, int RN, bool GEN, bool PL>
+__device__ __forceinline__ void matmul_tile(
+    const float* A, int64_t a_sr, int64_t a_sc, const float* B, int64_t b_sr,
+    int64_t b_sc, Planes bp, float* C, int64_t c_sr, int64_t c_sc, int64_t M,
+    int64_t N, int64_t K, int n_limbs, int max_order) {
   constexpr int BM = TY * RM;
   constexpr int BN = TX * RN;
-  const int64_t z = blockIdx.z;
-  const int64_t z0 = z / p.nb1;
-  const int64_t z1 = z % p.nb1;
-  const float* A = p.a + z0 * p.a_sb0 + z1 * p.a_sb1;
-  const float* const B[1] = {p.b + z0 * p.b_sb0 + z1 * p.b_sb1};
-  float* C = p.c + z0 * p.c_sb0 + z1 * p.c_sb1;
+  const float* const Bt[1] = {B};
   const int64_t m0 = (int64_t)blockIdx.y * BM;
   const int64_t n0 = (int64_t)blockIdx.x * BN;
 
   float acc[1][NO][RM][RN];
-  mainloop<NL, NO, 1, RM, RN, GEN>(A, p.a_sr, p.a_sc, B, p.b_sr, p.b_sc, p.M,
-                                   p.N, p.K, m0, n0, p.n_limbs, p.max_order,
-                                   acc);
-  const int mo = GEN ? p.max_order : NO - 1;
+  mainloop<NL, NO, 1, RM, RN, GEN, PL>(A, a_sr, a_sc, Bt, b_sr, b_sc, M, N, K,
+                                       m0, n0, n_limbs, max_order, acc, bp);
+  const int mo = GEN ? max_order : NO - 1;
   const int tx = threadIdx.x % TX;
   const int ty = threadIdx.x / TX;
 #pragma unroll
@@ -225,11 +261,69 @@ __global__ void __launch_bounds__(NT) fused_matmul_kernel(MatmulArgs p) {
     for (int c = 0; c < RN; ++c) {
       const int64_t gm = m0 + ty + r * TY;
       const int64_t gn = n0 + tx + c * TX;
-      if (gm >= p.M || gn >= p.N) continue;
+      if (gm >= M || gn >= N) continue;
       float per_order[NO];
 #pragma unroll
       for (int o = 0; o < NO; ++o) per_order[o] = acc[0][o][r][c];
-      C[gm * p.c_sr + gn * p.c_sc] = combine_orders<NO>(per_order, mo);
+      C[gm * c_sr + gn * c_sc] = combine_orders<NO>(per_order, mo);
+    }
+  }
+}
+
+// Port of _fused_kernel: C[z] = A[z] @ B[z] at the format, z over up to two
+// batch dims with their own strides (a stride of 0 broadcasts), so decode
+// attention's (B, H, 1, Dh) x (B, H, Dh, T) runs as one launch.
+template <int NL, int NO, int RM, int RN, bool GEN>
+__global__ void __launch_bounds__(NT) fused_matmul_kernel(MatmulArgs p) {
+  const int64_t z = blockIdx.z;
+  const int64_t z0 = z / p.nb1;
+  const int64_t z1 = z % p.nb1;
+  matmul_tile<NL, NO, RM, RN, GEN, false>(
+      p.a + z0 * p.a_sb0 + z1 * p.a_sb1, p.a_sr, p.a_sc,
+      p.b + z0 * p.b_sb0 + z1 * p.b_sb1, p.b_sr, p.b_sc, Planes{},
+      p.c + z0 * p.c_sb0 + z1 * p.c_sb1, p.c_sr, p.c_sc, p.M, p.N, p.K,
+      p.n_limbs, p.max_order);
+}
+
+struct PrelimbedArgs {
+  const float* a;        // (M, K), column stride 1
+  Planes b;              // (L, K, N) limb planes, column stride 1
+  float* c;              // (M, N), column stride 1
+  int64_t a_sr, c_sr;
+  int64_t M, N, K;
+  int n_limbs, max_order;
+};
+
+// Port of _prelimbed_kernel (build_prelimbed_call(both=False)): A limbed on
+// the fly, B read from its stored limb planes (the serving decode path's
+// pre-limbed weights).  Same tiles, same per-order accumulators, same
+// _combine_orders flush as fused_matmul_kernel: on planes decomposed from a
+// raw weight it returns fused_matmul_kernel's result on that weight, bit for
+// bit.  Bound at decode (M = 8) by the bytes of the planes it reads (an M8
+// format reads plane 0 only: half the f32 weight's bytes).
+template <int NL, int NO, int RM, int RN, bool GEN>
+__global__ void __launch_bounds__(NT) prelimbed_matmul_kernel(PrelimbedArgs p) {
+  matmul_tile<NL, NO, RM, RN, GEN, true>(p.a, p.a_sr, 1, nullptr, 0, 0, p.b,
+                                         p.c, p.c_sr, 1, p.M, p.N, p.K,
+                                         p.n_limbs, p.max_order);
+}
+
+// Port of _decompose_kernel: x (n f32 values) -> n_limbs bf16 planes of n
+// values each, the round-to-nearest-even cascade of extract_limbs (bitwise
+// limbs.decompose).  Elementwise and bound by its bytes: each value is read
+// once and each limb written once, neighbouring threads on neighbouring
+// addresses.
+__global__ void __launch_bounds__(256) decompose_kernel(
+    const float* __restrict__ x, __nv_bfloat16* __restrict__ out, int64_t n,
+    int n_limbs) {
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += stride) {
+    float r = x[i];
+    for (int l = 0; l < n_limbs; ++l) {
+      const __nv_bfloat16 li = __float2bfloat16_rn(r);
+      out[l * n + i] = li;
+      r = r - bf(li);
     }
   }
 }
@@ -304,6 +398,16 @@ cudaError_t launch_matmul(const MatmulArgs& p, int64_t nb0, cudaStream_t st) {
                   (unsigned)((p.M + TY * R - 1) / (TY * R)),
                   (unsigned)(nb0 * p.nb1));
   fused_matmul_kernel<NL, NO, R, R, GEN><<<grid, NT, 0, st>>>(p);
+  return cudaGetLastError();
+}
+
+// the tile choice is launch_matmul's, so the two kernels tile alike
+template <int NL, int NO, bool GEN>
+cudaError_t launch_prelimbed(const PrelimbedArgs& p, cudaStream_t st) {
+  constexpr int R = micro(NO, 1, GEN);
+  const dim3 grid((unsigned)((p.N + TX * R - 1) / (TX * R)),
+                  (unsigned)((p.M + TY * R - 1) / (TY * R)), 1);
+  prelimbed_matmul_kernel<NL, NO, R, R, GEN><<<grid, NT, 0, st>>>(p);
   return cudaGetLastError();
 }
 
@@ -408,6 +512,60 @@ int mp_fused_proj_launch(const void* a, int64_t a_sr, const void* b0,
   else if (n_out == 2) err = proj_for_format<2>(p, st);
   else err = proj_for_format<3>(p, st);
   return (int)err;
+}
+
+// C (M, N) = A (M, K) @ B at (n_limbs, max_order), B given as n_stored bf16
+// limb planes (plane stride b_plane, row stride b_sr; column strides of A,
+// the planes and C are 1).  Planes at or past min(n_stored, n_limbs) are
+// never read.  Returns the CUDA error of the launch (0 on success).
+// Allocates nothing and does not synchronise.
+int mp_prelimbed_matmul_launch(const void* a, int64_t a_sr, const void* b,
+                               int64_t b_plane, int64_t b_sr,
+                               int64_t n_stored, void* c, int64_t c_sr,
+                               int64_t M, int64_t N, int64_t K,
+                               int64_t n_limbs, int64_t max_order,
+                               void* stream) {
+  if (!format_ok(n_limbs, max_order) || n_stored < 1)
+    return (int)cudaErrorInvalidValue;
+  if (M == 0 || N == 0) return 0;
+  PrelimbedArgs p{};
+  p.a = static_cast<const float*>(a);
+  p.b = Planes{static_cast<const __nv_bfloat16*>(b), b_plane, b_sr,
+               (int)n_stored};
+  p.c = static_cast<float*>(c);
+  p.a_sr = a_sr;
+  p.c_sr = c_sr;
+  p.M = M;
+  p.N = N;
+  p.K = K;
+  p.n_limbs = (int)n_limbs;
+  p.max_order = (int)max_order;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int nl = (int)n_limbs;
+  const int mo = (int)max_order;
+  cudaError_t err;
+  if (nl == 1 && mo == 0) err = launch_prelimbed<1, 1, false>(p, st);
+  else if (nl == 2 && mo == 1) err = launch_prelimbed<2, 2, false>(p, st);
+  else if (nl == 3 && mo == 2) err = launch_prelimbed<3, 3, false>(p, st);
+  else if (nl == 5 && mo == 4) err = launch_prelimbed<5, 5, false>(p, st);
+  else if (nl == 7 && mo == 6) err = launch_prelimbed<7, 7, false>(p, st);
+  else err = launch_prelimbed<GEN_NL, GEN_NO, true>(p, st);
+  return (int)err;
+}
+
+// out (n_limbs planes of n bf16) = the limb cascade of x (n f32, contiguous).
+// Returns the CUDA error of the launch (0 on success).
+int mp_decompose_launch(const void* x, void* out, int64_t n, int64_t n_limbs,
+                        void* stream) {
+  if (n_limbs < 1 || n_limbs > GEN_NL || n < 0)
+    return (int)cudaErrorInvalidValue;
+  if (n == 0) return 0;
+  const int64_t blocks = (n + 255) / 256;
+  const unsigned grid = (unsigned)(blocks < 132 * 16 ? blocks : 132 * 16);
+  decompose_kernel<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<__nv_bfloat16*>(out), n,
+      (int)n_limbs);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

@@ -1,10 +1,10 @@
-"""Fused multi-precision flash attention: wrapper, plain version and launch
-counter (port of the Pallas ``_flash_kernel`` of
-``repro.kernels.mp_attention``).
+"""Multi-precision flash attention and paged decode attention: wrappers,
+plain versions and launch counters (port of the Pallas ``_flash_kernel``
+and ``_paged_kernel`` of ``repro.kernels.mp_attention``).
 
-The wrapper runs the plain PyTorch version for CPU tensors and launches the
+Each wrapper runs its plain PyTorch version for CPU tensors and launches its
 CUDA kernel (``csrc/mp_attention.cu``) for CUDA tensors — there is no
-fallback from one to the other.  The plain version is the oracle
+fallback from one to the other.  The flash plain version is the oracle
 ``ref.mp_attention_ref`` blocked as the kernel blocks: kv tiles of
 ``BLOCK_KV`` positions, each folded into the running (max, denominator,
 accumulator) by the shared online-softmax update.  (The q tile size does not
@@ -46,6 +46,10 @@ def _set_argtypes(lib) -> None:
     lib.mp_flash_attention_launch.argtypes = (
         [_P, _I, _I, _I] * 4 + [_I] * 7 + [ctypes.c_double] + [_I] * 4 + [_P])
     lib.mp_flash_attention_launch.restype = ctypes.c_int
+    lib.mp_paged_attention_launch.argtypes = (
+        [_P, _I, _I] + [_P, _I, _I, _I] * 2 + [_P, _I, _P, _P] + [_I] * 6
+        + [ctypes.c_double] + [_I] * 4 + [_P])
+    lib.mp_paged_attention_launch.restype = ctypes.c_int
     lib._mp_attention_typed = True
 
 
@@ -103,3 +107,117 @@ def mp_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 mp_flash_attention.launches = 0
 mp_flash_attention.plain_calls = 0
+
+
+# ---------------------------------------------------------------------------
+# paged decode attention (port of the Pallas ``_paged_kernel``)
+# ---------------------------------------------------------------------------
+def paged_attention_plain(q: torch.Tensor, k_pool: torch.Tensor,
+                          v_pool: torch.Tensor, block_table: torch.Tensor,
+                          lengths: torch.Tensor, fmt_qk, fmt_pv, *,
+                          scale: float) -> torch.Tensor:
+    """Plain version of :func:`mp_paged_attention`: the JAX kernel's steps
+    in PyTorch.  Table column j folds pool block ``table[b, j]`` into each
+    slot's running (max, denominator, accumulator) through
+    ``ref.attn_qk_logits`` / ``ref.online_softmax_update``, for the slots
+    with ``j * bs < length`` (the others keep their state, as the kernel
+    skips the column)."""
+    B, H, Dh = q.shape
+    _, bs, hk, _ = k_pool.shape
+    n_rep = H // hk
+    W = block_table.shape[1]
+    dev = q.device
+    qh = (q.float() * scale).reshape(B, hk, n_rep, Dh)
+    m = torch.full((B, hk, n_rep), ref.ATTN_NEG_INF, dtype=torch.float32,
+                   device=dev)
+    d = torch.zeros((B, hk, n_rep), dtype=torch.float32, device=dev)
+    acc = torch.zeros((B, hk, n_rep, Dh), dtype=torch.float32, device=dev)
+    lengths = lengths.long()
+    table = block_table.long()
+    n_cols = min(W, -(-int(lengths.max()) // bs)) if B else 0
+    neg = torch.full((), ref.ATTN_NEG_INF, device=dev)
+    for j in range(n_cols):
+        blk = table[:, j]
+        kb = k_pool[blk].float().permute(0, 2, 1, 3)       # (B, hk, bs, Dh)
+        vb = v_pool[blk].float().permute(0, 2, 1, 3)
+        pos = j * bs + torch.arange(bs, device=dev)
+        valid = (pos[None, :] < lengths[:, None])[:, None, None, :]
+        logits = torch.where(valid, ref.attn_qk_logits(qh, kb, fmt_qk), neg)
+        m_new, d_new, acc_new = ref.online_softmax_update(
+            m, d, acc, logits, vb, fmt_pv, p_mask=valid)
+        live = (j * bs < lengths)[:, None, None]
+        m = torch.where(live, m_new, m)
+        d = torch.where(live, d_new, d)
+        acc = torch.where(live[..., None], acc_new, acc)
+    out = acc / torch.clamp(d[..., None], min=1e-30)
+    return out.reshape(B, H, Dh)
+
+
+def launch_paged_attention(lib, stream: int, q, k_pool, v_pool, block_table,
+                           lengths, fmt_qk, fmt_pv, *, scale: float
+                           ) -> torch.Tensor:
+    """Marshal one ``mp_paged_attention_launch`` call: q (B, H, Dh), pools
+    (n_blocks, bs, Hkv, Dh) read in place through their strides (head dim
+    unit-stride), table (B, W) and lengths (B,) int32."""
+    _set_argtypes(lib)
+    B, H, Dh = q.shape
+    _, bs, hk, dh = k_pool.shape
+    W = block_table.shape[1]
+    if v_pool.shape != k_pool.shape or dh != Dh or H % hk:
+        raise ValueError(f"q {tuple(q.shape)} does not fit pools "
+                         f"{tuple(k_pool.shape)} / {tuple(v_pool.shape)}")
+    if Dh > MAX_HEAD_DIM:
+        raise ValueError(f"head dim {Dh} > {MAX_HEAD_DIM}")
+    if block_table.shape[0] != B or lengths.shape != (B,):
+        raise ValueError(f"table {tuple(block_table.shape)} / lengths "
+                         f"{tuple(lengths.shape)} do not match {B} slots")
+    if block_table.dtype != torch.int32 or lengths.dtype != torch.int32:
+        raise ValueError("block table and lengths must be int32")
+    if block_table.stride(-1) != 1 or not lengths.is_contiguous():
+        raise ValueError("block table rows and lengths must be contiguous")
+    for x in (q, k_pool, v_pool):
+        if x.dtype != torch.float32 or x.stride(-1) != 1:
+            raise ValueError("q and the pools must be f32 with a unit-stride "
+                             "head dim")
+    o = torch.empty((B, H, Dh), dtype=torch.float32, device=q.device)
+    err = lib.mp_paged_attention_launch(
+        q.data_ptr(), q.stride(0), q.stride(1),
+        k_pool.data_ptr(), k_pool.stride(0), k_pool.stride(1),
+        k_pool.stride(2), v_pool.data_ptr(), v_pool.stride(0),
+        v_pool.stride(1), v_pool.stride(2), block_table.data_ptr(),
+        block_table.stride(0), lengths.data_ptr(), o.data_ptr(), B, H, hk,
+        Dh, bs, W, float(scale), fmt_qk.n_limbs, fmt_qk.max_order,
+        fmt_pv.n_limbs, fmt_pv.max_order, stream)
+    build.check(err, "mp_paged_attention")
+    return o
+
+
+def mp_paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
+                       v_pool: torch.Tensor, block_table: torch.Tensor,
+                       lengths: torch.Tensor, mode_qk: FormatLike = "M16",
+                       mode_pv: Optional[FormatLike] = None, *,
+                       scale: Optional[float] = None) -> torch.Tensor:
+    """Paged-decode attention: one query per slot, q (B, H, Dh) against the
+    pools (n_blocks, bs, Hkv, Dh) through ``block_table`` (B, W) int32 and
+    ``lengths`` (B,) int32 -> (B, H, Dh) f32.  The GQA ratio is H // Hkv.
+    CPU tensors run :func:`paged_attention_plain`; CUDA tensors launch the
+    kernel."""
+    fmt_qk = resolve(mode_qk)
+    fmt_pv = resolve(mode_pv if mode_pv is not None else mode_qk)
+    if scale is None:
+        scale = 1.0 / float(np.sqrt(q.shape[-1]))
+    tensors = (q, k_pool, v_pool, block_table, lengths)
+    if _on_cpu(*tensors):
+        mp_paged_attention.plain_calls += 1
+        return paged_attention_plain(q, k_pool, v_pool, block_table, lengths,
+                                     fmt_qk, fmt_pv, scale=scale)
+    stream = _cuda_stream(*tensors)
+    out = launch_paged_attention(build.load("mp_attention"), stream, q,
+                                 k_pool, v_pool, block_table, lengths,
+                                 fmt_qk, fmt_pv, scale=scale)
+    mp_paged_attention.launches += 1
+    return out
+
+
+mp_paged_attention.launches = 0
+mp_paged_attention.plain_calls = 0

@@ -1,6 +1,7 @@
-"""Fused multi-precision limb matmul kernels: wrappers, plain versions and
-launch counters (port of the Pallas ``_fused_kernel`` and
-``_fused_multi_kernel`` of ``repro.kernels.mp_matmul``).
+"""Multi-precision limb matmul kernels: wrappers, plain versions and launch
+counters (port of the Pallas ``_fused_kernel``, ``_fused_multi_kernel``,
+``_prelimbed_kernel`` and ``_decompose_kernel`` of
+``repro.kernels.mp_matmul``).
 
 Each wrapper runs its plain PyTorch version for CPU tensors and launches its
 CUDA kernel (``csrc/mp_matmul.cu``) for CUDA tensors — there is no fallback
@@ -72,6 +73,25 @@ def fused_proj_plain(a: torch.Tensor, ws: Sequence[torch.Tensor],
     return torch.stack(out) if isinstance(out, tuple) else out[None]
 
 
+def decompose_plain(w: torch.Tensor, n_limbs: int) -> torch.Tensor:
+    """Plain version of ``mp_decompose``: (..., C) f32 -> (n_limbs, ..., C)
+    bf16."""
+    return limbs_lib.decompose(w, n_limbs)
+
+
+def prelimbed_matmul_plain(a: torch.Tensor, limbs: torch.Tensor,
+                           fmt: FormatLike) -> torch.Tensor:
+    """Plain version of ``mp_prelimbed_matmul``: a (M, K) @ the (K, N)
+    weight whose (L, K, N) bf16 limb stack is ``limbs`` (missing limbs zero,
+    extra limbs ignored).  The per-order sums and their combine are
+    :func:`fused_matmul_plain`'s, so on a stack decomposed from a raw weight
+    the two agree bit for bit."""
+    s = resolve(fmt)
+    al = limbs_lib.decompose(a, s.n_limbs)
+    bl = ref._limbs_of(limbs_lib.PrelimbedWeight(limbs), s.n_limbs)
+    return combine_orders(_order_sums(al, bl, s))
+
+
 # ---------------------------------------------------------------------------
 # launch marshalling (pointers, strides, the stream)
 # ---------------------------------------------------------------------------
@@ -107,6 +127,11 @@ def _set_argtypes(lib) -> None:
         _P, _I, _P, _P, _P, _I, _P, _P, _P, _P, _I, _P,
         _I, _I, _I, _I, _I, _I, _I, _P]
     lib.mp_fused_proj_launch.restype = ctypes.c_int
+    lib.mp_prelimbed_matmul_launch.argtypes = [
+        _P, _I, _P, _I, _I, _I, _P, _I, _I, _I, _I, _I, _I, _P]
+    lib.mp_prelimbed_matmul_launch.restype = ctypes.c_int
+    lib.mp_decompose_launch.argtypes = [_P, _P, _I, _I, _P]
+    lib.mp_decompose_launch.restype = ctypes.c_int
     lib._mp_matmul_typed = True
 
 
@@ -194,6 +219,48 @@ def launch_fused_proj(lib, stream: int, a: torch.Tensor,
     return out
 
 
+def launch_prelimbed_matmul(lib, stream: int, a: torch.Tensor,
+                            limbs: torch.Tensor, fmt: MPFormat
+                            ) -> torch.Tensor:
+    """Marshal one ``mp_prelimbed_matmul_launch`` call: a (M, K) f32 against
+    the (L, K, N) bf16 limb stack, read in place (no padded or sliced copy
+    of the stack: planes the format does not need are never read)."""
+    _set_argtypes(lib)
+    a = _f32(a)
+    if a.stride(-1) != 1:
+        a = a.contiguous()
+    M, K = a.shape
+    L, K2, N = limbs.shape
+    if K != K2:
+        raise ValueError(f"contraction mismatch {tuple(a.shape)} @ limb "
+                         f"stack {tuple(limbs.shape)}")
+    if limbs.dtype != torch.bfloat16:
+        raise ValueError(f"limb stack must be bf16, got {limbs.dtype}")
+    if limbs.stride(-1) != 1:
+        raise ValueError("limb stack needs unit column stride")
+    c = torch.empty((M, N), dtype=torch.float32, device=a.device)
+    err = lib.mp_prelimbed_matmul_launch(
+        a.data_ptr(), a.stride(0), limbs.data_ptr(), limbs.stride(0),
+        limbs.stride(1), L, c.data_ptr(), c.stride(0), M, N, K,
+        fmt.n_limbs, fmt.max_order, stream)
+    build.check(err, "mp_prelimbed_matmul")
+    return c
+
+
+def launch_decompose(lib, stream: int, w: torch.Tensor, n_limbs: int
+                     ) -> torch.Tensor:
+    """Marshal one ``mp_decompose_launch`` call: (..., C) f32 ->
+    (n_limbs, ..., C) bf16."""
+    _set_argtypes(lib)
+    w = _f32(w).contiguous()
+    out = torch.empty((n_limbs,) + tuple(w.shape), dtype=torch.bfloat16,
+                      device=w.device)
+    err = lib.mp_decompose_launch(w.data_ptr(), out.data_ptr(), w.numel(),
+                                  n_limbs, stream)
+    build.check(err, "mp_decompose")
+    return out
+
+
 # ---------------------------------------------------------------------------
 # the wrappers the port calls
 # ---------------------------------------------------------------------------
@@ -250,3 +317,41 @@ def mp_fused_proj(a: torch.Tensor, ws: Sequence[torch.Tensor],
 
 mp_fused_proj.launches = 0
 mp_fused_proj.plain_calls = 0
+
+
+def mp_prelimbed_matmul(a: torch.Tensor, limbs: torch.Tensor,
+                        fmt: FormatLike) -> torch.Tensor:
+    """a (M, K) f32 @ a (K, N) weight given as its (L, K, N) bf16 limb
+    stack, at ``fmt`` -> (M, N) f32.  Limbs the stack lacks are zero, limbs
+    past the format's are ignored.  CPU tensors run
+    :func:`prelimbed_matmul_plain`; CUDA tensors launch the kernel."""
+    fmt = resolve(fmt)
+    if _on_cpu(a, limbs):
+        mp_prelimbed_matmul.plain_calls += 1
+        return prelimbed_matmul_plain(a, limbs, fmt)
+    stream = _cuda_stream(a, limbs)
+    out = launch_prelimbed_matmul(build.load("mp_matmul"), stream, a, limbs,
+                                  fmt)
+    mp_prelimbed_matmul.launches += 1
+    return out
+
+
+mp_prelimbed_matmul.launches = 0
+mp_prelimbed_matmul.plain_calls = 0
+
+
+def mp_decompose(w: torch.Tensor, n_limbs: int) -> torch.Tensor:
+    """(..., C) f32 -> (n_limbs, ..., C) bf16 limb stack (the RNE cascade,
+    bitwise ``limbs.decompose``).  CPU tensors run
+    :func:`decompose_plain`; CUDA tensors launch the kernel."""
+    if _on_cpu(w):
+        mp_decompose.plain_calls += 1
+        return decompose_plain(w, n_limbs)
+    stream = _cuda_stream(w)
+    out = launch_decompose(build.load("mp_matmul"), stream, w, n_limbs)
+    mp_decompose.launches += 1
+    return out
+
+
+mp_decompose.launches = 0
+mp_decompose.plain_calls = 0

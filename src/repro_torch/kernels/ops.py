@@ -14,8 +14,8 @@ from typing import Optional
 import torch
 
 from repro_torch.core.formats import FormatLike, resolve
-from repro_torch.kernels.mp_matmul import MAX_OUT, mp_fused_matmul, \
-    mp_fused_proj
+from repro_torch.kernels.mp_matmul import MAX_OUT, mp_decompose, \
+    mp_fused_matmul, mp_fused_proj, mp_prelimbed_matmul
 
 
 def mp_matmul_cuda(a: torch.Tensor, b: torch.Tensor, mode: FormatLike = "M16"
@@ -73,3 +73,27 @@ def mp_fused_proj_cuda(x: torch.Tensor, ws, mode: FormatLike = "M16", *,
     out = mp_fused_proj(a, (w_cat,), fmt, biases=b_cat)[0]
     parts = torch.split(out, Ns, dim=-1)
     return tuple(p.reshape(lead + (p.shape[-1],)) for p in parts)
+
+
+def mp_matmul_prelimbed_weights(x: torch.Tensor, w_limbs: torch.Tensor,
+                                mode: FormatLike) -> torch.Tensor:
+    """Serving fast path: x (..., K) @ W (K, N), W given as its (L, K, N)
+    bf16 limb stack (``decompose_weights``), x limbed inside the kernel.
+
+    A format needing more limbs than were stored computes at the stored
+    precision (missing limbs are zero); extra stored limbs are ignored.
+    Unlike the JAX wrapper, nothing is padded or sliced in memory: the
+    kernel takes the stored count and reads only the planes it needs."""
+    lead = x.shape[:-1]
+    out = mp_prelimbed_matmul(x.reshape(-1, x.shape[-1]), w_limbs,
+                              resolve(mode))
+    return out.reshape(lead + (w_limbs.shape[-1],))
+
+
+def decompose_weights(w: torch.Tensor, n_limbs: int) -> torch.Tensor:
+    """Pre-limb a (R, C) weight matrix with the decompose kernel ->
+    (n_limbs, R, C) bf16."""
+    if w.ndim != 2:
+        raise ValueError(f"decompose_weights takes a 2-D weight, got "
+                         f"{tuple(w.shape)}")
+    return mp_decompose(w, n_limbs)

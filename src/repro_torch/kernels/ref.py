@@ -19,8 +19,25 @@ import torch
 
 from repro_torch.core import limbs as limbs_lib
 from repro_torch.core.formats import FormatLike, resolve
+from repro_torch.core.limbs import PrelimbedWeight
 
 ATTN_NEG_INF = -1e30
+
+
+def _limbs_of(x, n_limbs: int) -> torch.Tensor:
+    """(n_limbs, ..., K, N) bf16 limbs of an operand.  A
+    :class:`PrelimbedWeight` gives its stored planes: missing ones are zero
+    (the value carries no bits beyond its stored precision), extra ones are
+    ignored."""
+    if not isinstance(x, PrelimbedWeight):
+        return limbs_lib.decompose(x, n_limbs)
+    planes = x.limbs.movedim(-3, 0)
+    have = planes.shape[0]
+    if have >= n_limbs:
+        return planes[:n_limbs]
+    pad = torch.zeros((n_limbs - have,) + planes.shape[1:],
+                      dtype=torch.bfloat16, device=planes.device)
+    return torch.cat([planes, pad])
 
 
 def _mm(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -60,16 +77,17 @@ def _matmul_limbs(al: torch.Tensor, bl: torch.Tensor, s, dot=None
     return limbs_lib.neumaier_sum(order_sums)
 
 
-def mp_matmul_ref(a: torch.Tensor, b: torch.Tensor, mode: FormatLike = "M16"
+def mp_matmul_ref(a: torch.Tensor, b, mode: FormatLike = "M16"
                   ) -> torch.Tensor:
     """Multi-precision matmul oracle: a (..., M, K) @ b (..., K, N) with
-    ``torch.matmul`` broadcasting -> (..., M, N) f32."""
+    ``torch.matmul`` broadcasting -> (..., M, N) f32.  ``b`` may be a
+    :class:`PrelimbedWeight`."""
     s = resolve(mode)
     if s.n_limbs == 1:
         # M8: one bf16 x bf16 product, f32 accumulation
-        return _mm(a.to(torch.bfloat16), b.to(torch.bfloat16))
+        return _mm(a.to(torch.bfloat16), _limbs_of(b, 1)[0])
     return _matmul_limbs(limbs_lib.decompose(a, s.n_limbs),
-                         limbs_lib.decompose(b, s.n_limbs), s)
+                         _limbs_of(b, s.n_limbs), s)
 
 
 def silu(x: torch.Tensor) -> torch.Tensor:
@@ -113,10 +131,9 @@ def mp_fused_proj_ref(x: torch.Tensor, ws, mode: FormatLike, *,
     raws = []
     for w in ws:
         if s.n_limbs == 1:
-            raws.append(_mm(al[0], w.to(torch.bfloat16)))
+            raws.append(_mm(al[0], _limbs_of(w, 1)[0]))
         else:
-            raws.append(_matmul_limbs(al, limbs_lib.decompose(w, s.n_limbs),
-                                      s))
+            raws.append(_matmul_limbs(al, _limbs_of(w, s.n_limbs), s))
     return apply_epilogue(raws, gate=gate, biases=biases, residual=residual)
 
 

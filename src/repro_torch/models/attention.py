@@ -1,13 +1,14 @@
-"""GQA / MHA attention (port of ``repro.models.attention``, the no-cache and
-dense-KV-cache paths): fused multi-precision flash attention via
-``mp_attention``, the chunk-scan fallback for long sequences, and
-single-token decode against the dense cache.
+"""GQA / MHA attention (port of ``repro.models.attention``: the no-cache,
+dense-KV-cache and paged-KV-cache paths): fused multi-precision flash
+attention via ``mp_attention``, the chunk-scan fallback for long sequences,
+single-token decode against the dense cache, and the paged pool's write and
+decode attention (the continuous scheduler's path).
 
 All projections and both attention contractions run through the
 multi-precision ops, so the block obeys the run-time precision policy; the
 attention contractions resolve the ``attn_qk`` / ``attn_pv`` op classes
-(aliases of ``attn_logits`` / ``attn_out``).  The paged-cache branches wait
-for slice 2 (ROADMAP.md).
+(aliases of ``attn_logits`` / ``attn_out``).  The mixed-lane branches wait
+for slice 3 (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -22,6 +23,7 @@ from repro_torch.core.mpmatmul import mp_attention, mp_dense, mp_matmul, \
     mp_qkv_proj
 from repro_torch.core.policy import PrecisionPolicy
 from repro_torch.models.layers import apply_rope, dense_init
+from repro_torch.serve.kv_cache import TRASH_BLOCK, PagedKVCache
 
 NEG_INF = -1e30
 
@@ -164,11 +166,12 @@ def _self_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def gqa_forward(params: dict, x: torch.Tensor, dims: AttnDims,
                 policy: PrecisionPolicy, *,
                 positions: Optional[torch.Tensor] = None,
-                cache: Optional[KVCache] = None, q_chunk: int = 1024,
-                kv_chunk: int = 1024
-                ) -> Tuple[torch.Tensor, Optional[KVCache]]:
+                cache=None, q_chunk: int = 1024, kv_chunk: int = 1024
+                ) -> Tuple[torch.Tensor, object]:
     """Full attention block.  Prefill when cache is None or S > 1;
-    single-token decode writes the cache in place and attends over it."""
+    single-token decode writes the cache in place and attends over it.
+    ``cache`` is a dense :class:`KVCache` or one layer's
+    :class:`PagedKVCache` view."""
     B, S, D = x.shape
     h, hk, dh = dims.n_heads, dims.n_kv_heads, dims.head_dim
     # one fused projection group: x is read and limbed once for all three
@@ -180,7 +183,9 @@ def gqa_forward(params: dict, x: torch.Tensor, dims: AttnDims,
 
     if positions is None:
         base = cache.length if cache is not None else 0
-        positions = (base + torch.arange(S, device=x.device))[None, :]
+        if torch.is_tensor(base) and base.ndim:  # paged per-slot (B,)
+            base = base[:, None]
+        positions = (base + torch.arange(S, device=x.device)[None, :])
         positions = positions.expand(B, S)
 
     if dims.rope_theta > 0:
@@ -188,7 +193,18 @@ def gqa_forward(params: dict, x: torch.Tensor, dims: AttnDims,
         k = apply_rope(k, positions, dims.rope_theta, dims.rope_fraction)
 
     new_cache = None
-    if cache is not None:
+    if isinstance(cache, PagedKVCache):
+        new_cache = _paged_write(cache, k, v, positions)
+        if S == 1:
+            out = _paged_decode_attention(q, new_cache, dims, policy)
+        else:
+            # paged prefill is always into a fresh slot (per-slot length 0),
+            # so attention is plain self-attention over the new K/V
+            out = _self_attention(q, _repeat_kv(k, h // hk),
+                                  _repeat_kv(v, h // hk), policy,
+                                  causal=dims.causal, q_chunk=q_chunk,
+                                  kv_chunk=kv_chunk)
+    elif cache is not None:
         start = cache.length
         cache.k[:, start:start + S] = k.to(cache.k.dtype)
         cache.v[:, start:start + S] = v.to(cache.v.dtype)
@@ -221,6 +237,46 @@ def _decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     vv = _repeat_kv(v_cache.float(), n_rep)
     return dispatch_lib.masked_decode_attention(
         q, kk, vv, length, policy.mode("attn_qk"), policy.mode("attn_pv"))
+
+
+def _paged_write(cache: PagedKVCache, k: torch.Tensor, v: torch.Tensor,
+                 positions: torch.Tensor) -> PagedKVCache:
+    """Scatter S new K/V tokens per slot into the layer's pool blocks, in
+    place (one ``index_put_`` per pool).
+
+    ``positions`` (B, S) are absolute token positions; each lands at
+    ``(block_table[pos // bs], pos % bs)``.  Positions past the table's
+    width go to the trash block (clamping them into the last column could
+    overwrite a full row's last real block); positions past a slot's
+    reservation land in trash through the trash-padded table, or in the
+    row's own reserved tail, which is rewritten before any read
+    (serve/kv_cache.py).  Two writes of one step meet only in the trash
+    block, which is never read.  Returns the view with lengths + S."""
+    B, S = positions.shape
+    bs = cache.block_size
+    W = cache.block_table.shape[1]
+    col = torch.div(positions, bs, rounding_mode="floor")
+    blk = torch.gather(cache.block_table, 1,
+                       torch.clamp(col, 0, W - 1).to(torch.long))
+    blk = torch.where(col < W, blk, torch.full_like(blk, TRASH_BLOCK))
+    off = positions % bs
+    hk, dh = k.shape[2], k.shape[3]
+    idx = (blk.reshape(-1).long(), off.reshape(-1).long())
+    cache.k.index_put_(idx, k.reshape(B * S, hk, dh).to(cache.k.dtype))
+    cache.v.index_put_(idx, v.reshape(B * S, hk, dh).to(cache.v.dtype))
+    return PagedKVCache(cache.k, cache.v, cache.block_table,
+                        cache.length + S)
+
+
+def _paged_decode_attention(q: torch.Tensor, cache: PagedKVCache,
+                            dims: AttnDims, policy: PrecisionPolicy
+                            ) -> torch.Tensor:
+    """One-token attention against the paged pool through the dispatch
+    layer: the paged kernel on ``cuda`` (pool blocks read through the
+    table, no gather), the gather + masked einsums on ``ref``."""
+    return dispatch_lib.dispatch_paged_attention(
+        q, cache.k, cache.v, cache.block_table, cache.length,
+        policy.mode("attn_qk"), policy.mode("attn_pv"))
 
 
 def make_kv_cache(batch: int, max_seq: int, dims: AttnDims,

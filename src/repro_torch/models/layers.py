@@ -11,11 +11,26 @@ from repro_torch.core.mpmatmul import mp_dense, mp_swiglu
 from repro_torch.core.policy import PrecisionPolicy
 
 
+def _row_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last dim, in an order that does not depend on how many
+    rows there are.  PyTorch's CUDA reduction picks its thread layout from
+    the number of outputs too (a (8, 768) row sum splits each row across 64
+    lanes, a (1, 768) one across 128), so one row's sum changes with the
+    batch it sits in.  Summing 32-element chunks first, then the chunk
+    sums, gives both passes a layout fixed by the row length alone: the
+    decode micro-batch width (1, 2, 4 or 8 slots) cannot move a token."""
+    D = x.shape[-1]
+    if D % 32 or D == 32:
+        return x.sum(dim=-1, keepdim=True)
+    chunks = x.reshape(x.shape[:-1] + (D // 32, 32)).sum(dim=-1)
+    return chunks.sum(dim=-1, keepdim=True)
+
+
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6
              ) -> torch.Tensor:
     dt = x.dtype
     x = x.float()
-    var = torch.mean(x * x, dim=-1, keepdim=True)
+    var = _row_sum(x * x) / x.shape[-1]
     return (x * torch.rsqrt(var + eps) * weight).to(dt)
 
 

@@ -1,7 +1,7 @@
 """The dense transformer (port of the dense family of
-``repro.models.transformer``): parameter init, forward, and the dense KV
-cache.  Layers run as a Python loop over a list of per-layer parameter
-dicts (the JAX package scans stacked ``(L, ...)`` leaves; see
+``repro.models.transformer``): parameter init, forward, and the dense and
+paged KV caches.  Layers run as a Python loop over a list of per-layer
+parameter dicts (the JAX package scans stacked ``(L, ...)`` leaves; see
 ``repro_torch.weights.params_from_jax``)."""
 from __future__ import annotations
 
@@ -16,6 +16,7 @@ from repro_torch.models import attention as attn_lib
 from repro_torch.models.attention import AttnDims, KVCache
 from repro_torch.models.layers import (dense_init, embed, embed_init,
                                        rms_norm, swiglu_mlp, unembed)
+from repro_torch.serve.kv_cache import PagedKVCache
 
 
 def _attn_dims(cfg: ModelConfig) -> AttnDims:
@@ -60,12 +61,28 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
 
 @dataclasses.dataclass
 class ModelCache:
-    """Per-layer dense KV caches."""
-    attn: List[KVCache]
+    """Per-layer KV caches: dense :class:`KVCache` objects, or per-layer
+    :class:`PagedKVCache` views of one paged pool (see
+    :func:`paged_cache`)."""
+    attn: List
 
     @property
-    def length(self) -> int:
+    def length(self):
+        """The valid prefix: an int (dense), or the per-slot (B,) lengths
+        (paged)."""
         return self.attn[0].length
+
+
+def paged_cache(pool_k: torch.Tensor, pool_v: torch.Tensor,
+                block_table: torch.Tensor, lengths: torch.Tensor
+                ) -> ModelCache:
+    """The per-layer views of a paged pool (L, n_blocks, bs, Hkv, Dh) for one
+    step: layer ``l`` reads and writes ``pool_k[l]`` / ``pool_v[l]`` in
+    place; every layer shares the micro-batch's (B, W) table and (B,)
+    lengths (int32, on the pool's device)."""
+    return ModelCache([PagedKVCache(pool_k[l], pool_v[l], block_table,
+                                    lengths)
+                       for l in range(pool_k.shape[0])])
 
 
 def make_cache(cfg: ModelConfig, batch: int, max_seq: int,
@@ -100,7 +117,10 @@ def forward(params: dict, inputs: Dict[str, torch.Tensor], cfg: ModelConfig,
     h = embed(inputs["tokens"], params["embed"]["table"])
     B, S, _ = h.shape
     base = cache.length if cache is not None else 0
-    positions = (base + torch.arange(S, device=h.device))[None, :].expand(B, S)
+    if torch.is_tensor(base) and base.ndim:  # paged: per-slot (B,) lengths
+        base = base[:, None]
+    positions = (base + torch.arange(S, device=h.device)[None, :]).expand(
+        B, S)
     new_caches = []
     for i, lp in enumerate(params["layers"]):
         lc = cache.attn[i] if cache is not None else None

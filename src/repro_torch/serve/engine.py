@@ -1,5 +1,6 @@
-"""Serving engine, static-batch path (port of ``ServeEngine.generate`` in
-``repro.serve.engine``).
+"""Serving engine (port of ``repro.serve.engine``): the static-batch
+``generate`` path and the paged prefill / decode steps the continuous
+scheduler (``serve/scheduler.py``) drives.
 
 ``generate`` left-pads a batch of prompts to one length (with token 0; causal
 attention attends to those pads, as in the JAX package), prefills a dense
@@ -10,21 +11,76 @@ decode steps, one token per slot each.  Precision follows the engine's
 built for: ``cuda`` unless the caller passes ``device="cpu"``, where every
 kernel wrapper runs its plain PyTorch version.
 
-Not ported yet: pre-limbed decode weights, the paged continuous scheduler,
-and mixed-format lanes (ROADMAP.md, slices 2 and 3).
+Weight pre-limbing (on by default, as in the JAX package): decode is
+matmul-bound at tiny M (one token per slot), so the engine decomposes the
+dense-path weights ONCE per (policy limb count, params) with the decompose
+kernel (``kernels/ops.decompose_weights``, one launch per matrix) and runs
+decode steps against :class:`~repro_torch.core.limbs.PrelimbedWeight`
+operands, which dispatch routes to the pre-limbed matmul kernel.  Prefill
+keeps the raw weights (the fused projection kernels limb a whole group's
+operand once).  AUTO policies skip pre-limbing.
+
+Not ported yet: mixed-format lanes (ROADMAP.md, slice 3).
 """
 from __future__ import annotations
 
 import time
-from typing import Dict, List, Optional, Union
+from typing import Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import context as context_lib
+from repro_torch.core.formats import is_auto
+from repro_torch.core.limbs import PrelimbedWeight
 from repro_torch.core.policy import PrecisionPolicy
 from repro_torch.models import transformer as T
+
+# op classes whose weights sit on the decode dense path (the pre-limb set)
+_PRELIMB_CLASSES = ("qkv", "attn_out", "ffn", "lm_head")
+
+# params groups -> weight leaves that feed mp_dense 1:1 (safe to carry as
+# limb stacks)
+_PRELIMB_LEAVES = {"mlp": ("w_gate", "w_up", "w_down"),
+                   "attn": ("wq", "wk", "wv", "wo")}
+
+
+def _policy_prelimb_limbs(policy: PrecisionPolicy) -> Optional[int]:
+    """Max limb count any decode-path forward format needs, or None when an
+    AUTO rule makes pre-limbing unusable (AUTO analyzes raw values)."""
+    n = 1
+    for c in _PRELIMB_CLASSES:
+        mode = policy.mode(c)
+        if is_auto(mode):
+            return None
+        n = max(n, mode.n_limbs)
+    return n
+
+
+def prelimb_dense_params(params: dict, n_limbs: int) -> dict:
+    """Decompose the dense-path weight matrices of a params tree into
+    :class:`PrelimbedWeight` limb stacks (one-time, per policy limb count):
+    one decompose launch per matrix, 7 per layer plus ``lm_head``.  Other
+    leaves pass through untouched (shared, not copied)."""
+    from repro_torch.kernels import ops
+
+    def leaf(w):
+        return PrelimbedWeight(ops.decompose_weights(w, n_limbs))
+
+    def layer(lp):
+        out = dict(lp)
+        for group, keys in _PRELIMB_LEAVES.items():
+            if isinstance(lp.get(group), dict):
+                out[group] = {k: leaf(w) if k in keys else w
+                              for k, w in lp[group].items()}
+        return out
+
+    out = dict(params)
+    out["layers"] = [layer(lp) for lp in params["layers"]]
+    if isinstance(out.get("lm_head"), dict) and "w" in out["lm_head"]:
+        out["lm_head"] = {**out["lm_head"], "w": leaf(out["lm_head"]["w"])}
+    return out
 
 
 def make_prefill_step(cfg: ModelConfig, policy: PrecisionPolicy):
@@ -44,6 +100,47 @@ def make_serve_step(cfg: ModelConfig, policy: PrecisionPolicy):
     return serve_step
 
 
+def make_paged_prefill_step(cfg: ModelConfig, policy: PrecisionPolicy):
+    """Prefill one (micro-batch of) fresh request(s) into the paged pool.
+
+    ``table`` (B, W) / ``lengths`` (B,) int32 are the scheduler's slot state
+    (lengths are 0: paged prefill targets fresh slots); ``last_idx`` is the
+    true prompt length minus one: prompts are padded to a shape bucket, the
+    padded tail's writes land past the reservation (trash, or positions
+    rewritten before any read) and the returned logits row is the real last
+    token's.  The pool is written in place.
+
+    Returns ``(last_logits (B, 1, V), guard_stat (B,), pool_k, pool_v)``:
+    ``guard_stat`` is the per-slot max |logit| the numerical guardrail
+    polices (``amax`` propagates NaN, so non-finite logits surface as a
+    non-finite stat)."""
+    def step(params, pool_k, pool_v, table, lengths, tokens, last_idx: int):
+        cache = T.paged_cache(pool_k, pool_v, table, lengths)
+        logits, _ = T.forward(params, {"tokens": tokens}, cfg, policy,
+                              cache=cache)
+        last = logits[:, last_idx:last_idx + 1]
+        stat = last[:, 0].abs().amax(dim=-1)
+        return last, stat, pool_k, pool_v
+
+    return step
+
+
+def make_paged_decode_step(cfg: ModelConfig, policy: PrecisionPolicy):
+    """One decode step over a compacted micro-batch of active slots.
+
+    Padded / inactive rows are (all-trash row, length 0): their reads mask
+    to nothing and their writes land in the trash block.  Returns
+    ``(logits (B, 1, V), guard_stat (B,), pool_k, pool_v)``."""
+    def step(params, pool_k, pool_v, table, lengths, tokens):
+        cache = T.paged_cache(pool_k, pool_v, table, lengths)
+        logits, _ = T.forward(params, {"tokens": tokens}, cfg, policy,
+                              cache=cache)
+        stat = logits[:, -1].abs().amax(dim=-1)
+        return logits, stat, pool_k, pool_v
+
+    return step
+
+
 def _to_device(tree, device):
     if isinstance(tree, dict):
         return {k: _to_device(v, device) for k, v in tree.items()}
@@ -54,26 +151,23 @@ def _to_device(tree, device):
 
 class ServeEngine:
     """Batched greedy generation over a dense KV cache of ``max_batch``
-    slots x ``max_seq`` positions.
+    slots x ``max_seq`` positions, and the paged prefill / decode steps of
+    the continuous scheduler.
 
-    ``prelimb_weights`` defaults to False and only False is supported: the
-    JAX engine's pre-limbed decode (weights split into bf16 limb stacks once
-    per policy, fed to the pre-limbed matmul kernel) needs the decompose and
-    pre-limbed kernels, which come with slice 2 of the port (ROADMAP.md).
-    Until then decode limbs the raw weights inside the fused kernels —
-    numerically the same limbs — and asking for True raises rather than
-    silently serving raw weights.  ``matmul_backend`` names the dispatch
-    backend (``"cuda"``, the kernels, unless the active context says
-    otherwise; ``"ref"`` for the oracle)."""
+    ``prelimb_weights`` (default True, as in the JAX package): decode steps
+    run on the pre-limbed params of the active policy (decomposed once per
+    (limb count, params), eagerly at construction and on
+    :meth:`set_policy`); False decodes on the raw weights.
+    ``matmul_backend`` names the dispatch backend (``"cuda"``, the kernels,
+    unless the active context says otherwise; ``"ref"`` for the oracle)."""
+
+    # distinct policies whose step pairs stay resident (LRU beyond this)
+    MAX_POLICY_CACHE = 8
 
     def __init__(self, cfg: ModelConfig, params, *, max_batch: int = 8,
                  max_seq: int = 512, policy: Optional[PrecisionPolicy] = None,
                  matmul_backend: Optional[str] = None,
-                 prelimb_weights: bool = False, device: str = "cuda"):
-        if prelimb_weights:
-            raise NotImplementedError(
-                "prelimb_weights=True needs the decompose and pre-limbed "
-                "kernels: see ROADMAP.md 'Slice 2: the continuous scheduler'")
+                 prelimb_weights: bool = True, device: str = "cuda"):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("ServeEngine(device='cuda') needs a CUDA "
@@ -86,6 +180,19 @@ class ServeEngine:
         self.prelimb_weights = prelimb_weights
         self.matmul_backend = (matmul_backend
                                or context_lib.current_context().backend)
+        self._step_cache: Dict[PrecisionPolicy, Tuple] = {}
+        self._paged_step_cache: Dict[PrecisionPolicy, Tuple] = {}
+        # observability: step pairs built (the JAX engine counts jit traces
+        # here; PyTorch runs eagerly, so a step built is the analogue) and
+        # step / prelimb cache reuse, folded into the scheduler's stats()
+        self.trace_events = 0
+        self.step_cache_hits = 0
+        self.step_cache_misses = 0
+        self.prelimb_cache_hits = 0
+        self.prelimb_cache_misses = 0
+        # (n_limbs, id(params)) -> prelimbed params: the id guards against a
+        # live params swap leaving decode on stale limb stacks
+        self._prelimb_cache: Dict[Tuple[int, int], dict] = {}
         self.set_policy(policy or context_lib.current_context().policy
                         or PrecisionPolicy.serve_default())
 
@@ -96,9 +203,96 @@ class ServeEngine:
         if not isinstance(policy, PrecisionPolicy):
             policy = PrecisionPolicy.from_json(policy)
         self.policy = policy
-        self._prefill = make_prefill_step(self.cfg, policy)
-        self._decode = make_serve_step(self.cfg, policy)
+        self._prefill, self._decode = self._steps_for(policy)
+        self._decode_params_for(policy)  # warm the prelimb cache eagerly
         return policy
+
+    # ---- step caches -------------------------------------------------------
+    def _pinned(self, fn):
+        """Run a step without autograd under the engine's backend."""
+        def wrapped(*args):
+            with torch.no_grad(), \
+                    context_lib.context(backend=self.matmul_backend):
+                return fn(*args)
+
+        return wrapped
+
+    def _cached_steps(self, cache: Dict, key, factories: Tuple) -> Tuple:
+        """LRU discipline for the step caches: touch on hit, evict the
+        oldest past MAX_POLICY_CACHE, build (backend pinned) on miss."""
+        if key in cache:
+            cache[key] = cache.pop(key)  # LRU touch
+            self.step_cache_hits += 1
+        else:
+            self.step_cache_misses += 1
+            while len(cache) >= self.MAX_POLICY_CACHE:
+                cache.pop(next(iter(cache)))
+            self.trace_events += len(factories)
+            cache[key] = tuple(self._pinned(make(self.cfg, key))
+                               for make in factories)
+        return cache[key]
+
+    def _steps_for(self, policy: PrecisionPolicy) -> Tuple:
+        """(prefill, decode) pair of the static path for one policy."""
+        return self._cached_steps(self._step_cache, policy,
+                                  (make_prefill_step, make_serve_step))
+
+    def paged_steps_for(self, policy: PrecisionPolicy) -> Tuple:
+        """(paged_prefill, paged_decode) pair for one policy: the continuous
+        scheduler resolves a policy per request and routes each decode
+        bucket through its policy's pair.  Dense GQA models only."""
+        if self.cfg.family != "dense" or self.cfg.mla is not None:
+            raise NotImplementedError(
+                f"paged serving supports dense GQA models only "
+                f"(family={self.cfg.family!r})")
+        return self._cached_steps(
+            self._paged_step_cache, policy,
+            (make_paged_prefill_step, make_paged_decode_step))
+
+    @property
+    def _decode_params(self):
+        """Decode-step params, resolved lazily so a live ``eng.params`` swap
+        can never leave decode on stale limb stacks."""
+        return self._decode_params_for(self.policy)
+
+    def _decode_params_for(self, policy: PrecisionPolicy):
+        """Decode-step params: the dense-path weights as limb stacks,
+        decomposed ONCE per (policy limb count, params) and cached; the raw
+        params under AUTO policies or when pre-limbing is off."""
+        return self._decode_params_for_limbs(_policy_prelimb_limbs(policy))
+
+    def _decode_params_for_limbs(self, n: Optional[int]):
+        """Pre-limbed decode params at an explicit limb depth, keyed by
+        (n_limbs, id(params)); a miss drops entries of older params."""
+        if not self.prelimb_weights or n is None:
+            return self.params
+        key = (n, id(self.params))
+        if key in self._prelimb_cache:
+            self.prelimb_cache_hits += 1
+        else:
+            self.prelimb_cache_misses += 1
+            for k in [k for k in self._prelimb_cache
+                      if k[1] != id(self.params)]:
+                del self._prelimb_cache[k]
+            with torch.no_grad():
+                self._prelimb_cache[key] = prelimb_dense_params(
+                    self.params, n)
+        return self._prelimb_cache[key]
+
+    def cache_stats(self) -> Dict[str, int]:
+        """Step / prelimb cache counters (merged into the scheduler's
+        ``stats()``)."""
+        return {
+            "trace_events": self.trace_events,
+            "step_cache_hits": self.step_cache_hits,
+            "step_cache_misses": self.step_cache_misses,
+            "prelimb_cache_hits": self.prelimb_cache_hits,
+            "prelimb_cache_misses": self.prelimb_cache_misses,
+        }
+
+    def to_device(self, arr: np.ndarray) -> torch.Tensor:
+        """One host array to the engine's device (one copy)."""
+        return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
 
     def make_cache(self) -> T.ModelCache:
         return T.make_cache(self.cfg, self.max_batch, self.max_seq,
@@ -106,18 +300,14 @@ class ServeEngine:
 
     def prefill(self, tokens: np.ndarray, cache: T.ModelCache):
         """Run the prefill step on (max_batch, L) tokens under the engine's
-        backend."""
-        with torch.no_grad(), \
-                context_lib.context(backend=self.matmul_backend):
-            toks = torch.as_tensor(tokens, dtype=torch.long,
-                                   device=self.device)
-            return self._prefill(self.params, {"tokens": toks}, cache)
+        backend (raw weights)."""
+        toks = torch.as_tensor(tokens, dtype=torch.long, device=self.device)
+        return self._prefill(self.params, {"tokens": toks}, cache)
 
     def decode(self, cache: T.ModelCache, tokens: torch.Tensor):
-        """Run one decode step on (max_batch, 1) tokens."""
-        with torch.no_grad(), \
-                context_lib.context(backend=self.matmul_backend):
-            return self._decode(self.params, cache, tokens)
+        """Run one decode step on (max_batch, 1) tokens (on the pre-limbed
+        params unless pre-limbing is off)."""
+        return self._decode(self._decode_params, cache, tokens)
 
     def pad_prompts(self, prompts: List[np.ndarray]) -> np.ndarray:
         """Left-pad prompts with token 0 into a (max_batch, L) batch."""

@@ -157,9 +157,116 @@ def test_smoke_engine_on_the_card_matches_the_cpu(cuda):
     lg, _ = gpu.prefill(toks, gpu.make_cache())
     lc, _ = cpu.prefill(toks, cpu.make_cache())
     counts = kernels.launch_counts()
-    assert counts == {"mp_fused_matmul": 5, "mp_fused_proj": 4,
+    assert counts == {**dict.fromkeys(kernels.KERNELS, 0),
+                      "mp_fused_matmul": 5, "mp_fused_proj": 4,
                       "mp_flash_attention": 2}, counts
     scale = lc.abs().max().item()
     assert (lg.cpu() - lc).abs().max().item() <= \
         resolve("M8").rel_err_bound * scale
     assert len(gpu.generate(prompts, max_new=4)[0]) == 4
+
+
+@pytest.mark.parametrize("n_limbs", [1, 2, 3])
+def test_decompose_kernel_is_bitwise_the_plain_version(cuda, n_limbs):
+    w = _randn(cuda, 37, 300, seed=60)
+    w[0, :3] = torch.tensor([0.0, -0.0, 1e-30], device=cuda)
+    before = mp_matmul.mp_decompose.launches
+    out = mp_matmul.mp_decompose(w, n_limbs)
+    assert mp_matmul.mp_decompose.launches == before + 1
+    torch.cuda.synchronize()
+    assert torch.equal(out.view(torch.int16),
+                       mp_matmul.decompose_plain(w, n_limbs)
+                       .view(torch.int16))
+
+
+@pytest.mark.parametrize("mode,n_stored", [
+    ("M8", 1), ("M8", 2), ("M16", 1), ("M16", 2), ("M23", 4), ("M36", 3),
+    (CUSTOM, 4)])
+def test_prelimbed_kernel_matches_plain_and_fused(cuda, custom_format, mode,
+                                                  n_stored):
+    """Held at the f32 floor against the plain version, and bitwise against
+    the fused kernel on the raw weight whenever the stack holds every limb
+    the format needs."""
+    a, w = _randn(cuda, 70, 200, seed=61), _randn(cuda, 200, 90, seed=62)
+    limbs = mp_matmul.mp_decompose(w, n_stored)
+    before = mp_matmul.mp_prelimbed_matmul.launches
+    out = mp_matmul.mp_prelimbed_matmul(a, limbs, mode)
+    assert mp_matmul.mp_prelimbed_matmul.launches == before + 1
+    _assert_mm_close(out, mp_matmul.prelimbed_matmul_plain(a, limbs, mode),
+                     200)
+    if n_stored >= resolve(mode).n_limbs:
+        assert torch.equal(out, mp_matmul.mp_fused_matmul(a, w, mode))
+
+
+@pytest.mark.parametrize("qk,pv,hkv,lengths", [
+    ("M16", "M8", 12, (64, 0, 100, 288)),
+    ("M23", "M16", 6, (17, 16, 1, 45)),
+])
+def test_paged_kernel_matches_plain(cuda, qk, pv, hkv, lengths):
+    B, H, Dh, bs, n_blocks = len(lengths), 12, 64, 16, 80
+    q = _randn(cuda, B, H, Dh, seed=63)
+    kp = _randn(cuda, n_blocks, bs, hkv, Dh, seed=64)
+    vp = _randn(cuda, n_blocks, bs, hkv, Dh, seed=65)
+    W = max(-(-n // bs) for n in lengths) + 1      # one trash column
+    table = torch.zeros((B, W), dtype=torch.int32)
+    free = torch.randperm(n_blocks - 1,
+                          generator=torch.Generator().manual_seed(0)) + 1
+    used = 0
+    for b, n in enumerate(lengths):
+        k = -(-n // bs)
+        table[b, :k] = free[used:used + k]
+        used += k
+    table = table.to(cuda)
+    ln = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    before = mp_attention.mp_paged_attention.launches
+    out = mp_attention.mp_paged_attention(q, kp, vp, table, ln, qk, pv)
+    assert mp_attention.mp_paged_attention.launches == before + 1
+    ref = mp_attention.paged_attention_plain(q, kp, vp, table, ln,
+                                             resolve(qk), resolve(pv),
+                                             scale=0.125)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ref, rtol=2e-5, atol=2e-5)
+    for b, n in enumerate(lengths):
+        if n == 0:
+            assert not out[b].any()
+
+
+def test_smoke_scheduler_on_the_card_batched_equals_solo(cuda):
+    """The continuous scheduler on the card: streams decoded four to a
+    micro-batch equal their solo runs bit for bit, and the decode path
+    launches the pre-limbed and paged kernels only."""
+    from repro_torch.serve.scheduler import ContinuousScheduler, \
+        ScheduledRequest
+
+    cfg = paper_mpfp.SMOKE
+    eng = ServeEngine(cfg, T.init_params(cfg, seed=0), max_batch=4,
+                      max_seq=64)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, cfg.vocab, size=n) for n in (5, 3, 9, 12)]
+
+    def run(ps):
+        sched = ContinuousScheduler(eng, n_blocks=32, block_size=8)
+        done = sched.run([ScheduledRequest(rid=i, prompt=p, max_new=6)
+                          for i, p in enumerate(ps)])
+        return {r.rid: r.out for r in done}
+
+    solo = [run([p])[0] for p in prompts]
+    kernels.reset_launch_counts()
+    got = run(prompts)
+    counts = kernels.launch_counts()
+    assert [got[i] for i in range(4)] == solo
+    assert counts["mp_paged_attention"] > 0
+    assert counts["mp_prelimbed_matmul"] > 0
+    assert sum(kernels.plain_call_counts().values()) == 0
+
+
+def test_rms_norm_row_is_batch_invariant(cuda):
+    """A row's norm has the same bits whatever the number of rows beside
+    it (the decode micro-batch width 1, 2, 4 or 8)."""
+    from repro_torch.models.layers import rms_norm
+
+    x = _randn(cuda, 8, 1, 768, seed=70)
+    w = _randn(cuda, 768, seed=71)
+    full = rms_norm(x, w)
+    for b in (1, 2, 4):
+        assert torch.equal(rms_norm(x[:b], w), full[:b]), b

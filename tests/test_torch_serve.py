@@ -4,7 +4,8 @@ import hygiene.
 A JAX ``ServeEngine(SMOKE, params, prelimb_weights=False,
 matmul_backend="pallas_interpret")`` and the port's
 ``ServeEngine(SMOKE, params_from_jax(params), device="cpu")`` (whose kernel
-wrappers run their plain versions) serve the same weights.
+wrappers run their plain versions; decode on pre-limbed weights, the
+default) serve the same weights.
 
 Tolerance of the logits: under ``full_fp32`` (M23 everywhere) the two agree
 to f32 summation order, 1e-5 of the logits' scale.  Under
@@ -74,8 +75,8 @@ def _prefill_both(je, pe):
     ("full_fp32", 1e-5), ("serve_default", M8_BOUND)])
 def test_prefill_and_teacher_forced_decode_logits_match_jax(
         jax_params, policy_name, rel_tol):
-    je, pe = _engines(jax_params, policy_name)
     kernels.reset_launch_counts()
+    je, pe = _engines(jax_params, policy_name)
     jl, jc, pl, pc = _prefill_both(je, pe)
     scale = np.abs(jl).max()
     np.testing.assert_allclose(pl, jl, rtol=0, atol=rel_tol * scale)
@@ -87,8 +88,11 @@ def test_prefill_and_teacher_forced_decode_logits_match_jax(
         np.testing.assert_allclose(pl, jl, rtol=0,
                                    atol=rel_tol * np.abs(jl).max())
         cur = np.argmax(jl[:, -1], -1)[:, None].astype(np.int32)
+    # every kernel of the static path (decode on pre-limbed weights); the
+    # paged kernel serves the continuous scheduler only
     calls = kernels.plain_call_counts()
-    assert all(calls[name] > 0 for name in kernels.KERNELS), calls
+    assert all(calls[name] > 0 for name in kernels.KERNELS
+               if name != "mp_paged_attention"), calls
     assert kernels.launch_counts() == dict.fromkeys(kernels.KERNELS, 0)
 
 
@@ -124,9 +128,16 @@ def test_policy_json_from_jax_drives_the_port_engine(jax_params):
 
 def test_engine_options():
     params = PT.init_params(pconfigs.SMOKE, seed=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ServeEngine(pconfigs.SMOKE, params, prelimb_weights=True,
-                    device="cpu")
+    # pre-limbed decode weights (the default) cannot move a token: the
+    # pre-limbed matmul sums the fused kernel's limb products in its order
+    prompts = [np.arange(1, 12), np.asarray([7, 3, 9])]
+    raw = ServeEngine(pconfigs.SMOKE, params, prelimb_weights=False,
+                      device="cpu")
+    limbed = ServeEngine(pconfigs.SMOKE, params, device="cpu")
+    assert limbed.prelimb_weights and limbed.cache_stats()[
+        "prelimb_cache_misses"] == 1
+    assert limbed.generate(prompts, max_new=4) == raw.generate(prompts,
+                                                               max_new=4)
     if torch.cuda.is_available():
         assert ServeEngine(pconfigs.SMOKE, params).device.type == "cuda"
     else:
@@ -169,7 +180,9 @@ def test_import_hygiene_no_jax_no_repro():
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res["bad"] == []
     assert {"repro_torch.serve.engine", "repro_torch.kernels.build",
-            "repro_torch.weights"} <= set(res["mods"])
+            "repro_torch.weights", "repro_torch.serve.kv_cache",
+            "repro_torch.serve.primitives",
+            "repro_torch.serve.scheduler"} <= set(res["mods"])
 
 
 def test_chip_smoke_fails_without_the_card_or_the_repo(tmp_path):
