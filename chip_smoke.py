@@ -11,8 +11,9 @@ line is not printed):
    in parallel into ``build/torch_kernels/`` (seconds, registers, spills);
 3. each kernel against its plain PyTorch version on the card, at the serving
    path's shapes and formats plus M23/M36 (and more) for the matmul kernels;
-   the decompose kernel bitwise, and the pre-limbed matmul bitwise against
-   the fused matmul on the raw weight;
+   the decompose kernel bitwise, the pre-limbed matmul bitwise against the
+   fused matmul on the raw weight, and each row (slot) of the two mixed-lane
+   kernels bitwise against the homogeneous kernel at its own format;
 4. the static path: ``ServeEngine.generate`` of the full-width
    ``paper-mpfp-100m`` (random weights from seed 0, raw decode weights) on 8
    prompts of 64..256 tokens, 32 new tokens each, under ``serve_default``;
@@ -24,6 +25,13 @@ line is not printed):
    counts must be what the scheduler's own counters imply, two streams must
    equal their solo runs bit for bit, and one paged prefill's logits must
    agree with the ``ref`` backend; then a decode-only tick probe;
+4c. mixed traffic: a fresh pre-limbed engine under the same scheduler
+   serving the same 16 requests with modes M8 / M16 / M23 / a custom 2-limb
+   format in turn; one decode launch per tick, the mixed-lane and
+   homogeneous kernels' launches what the counts of mixed and bucket decode
+   launches imply, two requests of different modes equal to their solo runs
+   bit for bit; then a mixed decode-tick probe (8 slots, two per mode) timed
+   against the one-launch-per-policy plan on the same slots, tokens equal;
 5. a ``kernels`` JSON line: per kernel its launches on its main path, its
    time, the plain version's time, the card's bound and a library call's
    time where one PyTorch call computes the same function.
@@ -36,7 +44,6 @@ from __future__ import annotations
 
 import json
 import math
-import re
 import subprocess
 import sys
 import time
@@ -60,17 +67,27 @@ SOURCES = {
                             "src/repro/kernels/mp_matmul.py:108"),
     "mp_paged_attention": ("src/repro_torch/kernels/csrc/mp_attention.cu",
                            "src/repro/kernels/mp_attention.py:230"),
+    "mp_mixed_prelimbed_matmul": (
+        "src/repro_torch/kernels/csrc/mp_matmul.cu",
+        "src/repro/kernels/mp_matmul.py:137"),
+    "mp_mixed_paged_attention": (
+        "src/repro_torch/kernels/csrc/mp_attention.cu",
+        "src/repro/kernels/mp_attention.py:346"),
 }
 # the path whose run gives each kernel's ``launches``: the three kernels of
 # slice 1 report the static ``generate`` path, the three of the scheduler
-# slice the scheduler path
-SCHED_KERNELS = ("mp_decompose", "mp_prelimbed_matmul", "mp_paged_attention")
+# slice the scheduler path, the two mixed-lane kernels the mixed-traffic path
+LAUNCH_PATH = {"mp_decompose": "scheduler", "mp_prelimbed_matmul": "scheduler",
+               "mp_paged_attention": "scheduler",
+               "mp_mixed_prelimbed_matmul": "mixed",
+               "mp_mixed_paged_attention": "mixed"}
 # launches of one generate(8 prompts, max_new=32) at 12 layers: prefill
 # QKV + SwiGLU per layer; wo, w_down per layer + lm_head; decode adds QK
 # and PV per layer
 EXPECTED = {"mp_fused_proj": 24 + 32 * 24, "mp_flash_attention": 12,
             "mp_fused_matmul": 25 + 32 * 49, "mp_decompose": 0,
-            "mp_prelimbed_matmul": 0, "mp_paged_attention": 0}
+            "mp_prelimbed_matmul": 0, "mp_paged_attention": 0,
+            "mp_mixed_prelimbed_matmul": 0, "mp_mixed_paged_attention": 0}
 # the scheduler path: one prelimb decomposes 7 matrices per layer + lm_head;
 # a B=1 paged prefill runs QKV and SwiGLU fused projections, flash attention
 # and wo, w_down per layer + lm_head; a decode launch runs 7 pre-limbed
@@ -79,6 +96,13 @@ PER_PRELIMB = {"mp_decompose": 12 * 7 + 1}
 PER_PREFILL = {"mp_fused_proj": 24, "mp_flash_attention": 12,
                "mp_fused_matmul": 25}
 PER_DECODE = {"mp_prelimbed_matmul": 12 * 7 + 1, "mp_paged_attention": 12}
+# a mixed decode launch runs the same call sites on the mixed-lane kernels
+PER_MIXED = {"mp_mixed_prelimbed_matmul": 12 * 7 + 1,
+             "mp_mixed_paged_attention": 12}
+# the mixed-traffic modes, request i at MODES[i % 4]: the serving builtins
+# and a custom format that keeps all four 2-limb products (M16 keeps three)
+CUSTOM = dict(name="M16FULL", mantissa_bits=16, n_limbs=2, max_order=2)
+MODES = ("M8", "M16", "M23", CUSTOM["name"])
 
 
 def log(*args) -> None:
@@ -92,30 +116,6 @@ def card_line() -> str:
     if out.returncode != 0:
         raise RuntimeError(f"nvidia-smi failed: {out.stderr.strip()}")
     return out.stdout.strip().splitlines()[0]
-
-
-def ptxas_summary(log_text: str):
-    """(kernel, registers, spill stores, spill loads) per compiled entry."""
-    rows, entry = [], None
-    for line in log_text.splitlines():
-        m = re.search(r"Compiling entry function '([^']+)'", line)
-        if m:
-            entry = m.group(1)
-        m = re.search(r"Used (\d+) registers", line)
-        if m and entry:
-            rows.append([entry, int(m.group(1)), None, None])
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                      line)
-        if m and entry:
-            rows.append([entry, None, int(m.group(1)), int(m.group(2))])
-    merged = {}
-    for name, regs, st, ld in rows:
-        cur = merged.setdefault(name, [None, 0, 0])
-        if regs is not None:
-            cur[0] = regs
-        if st is not None:
-            cur[1], cur[2] = st, ld
-    return merged
 
 
 def timed(fn, torch, min_ms: float = 30.0) -> float:
@@ -139,6 +139,32 @@ def timed(fn, torch, min_ms: float = 30.0) -> float:
     return start.elapsed_time(end) / n
 
 
+def device_busy_ms(fn):
+    """Milliseconds of device time on the card while ``fn`` runs, summed
+    over what ``torch.profiler`` records (kernels and copies), and the
+    same by name, largest first (fails when it records none: a busy time
+    is read from the card or not at all)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    by_name = {}
+    for e in prof.key_averages():
+        if e.self_device_time_total > 0:
+            name = e.key.replace("(anonymous namespace)::", "")
+            name = name.removeprefix("void ").split("<")[0].split("(")[0]
+            name = name.split("::")[-1].strip()
+            by_name[name] = by_name.get(name, 0.0) \
+                + e.self_device_time_total / 1e3
+    total = sum(by_name.values())
+    if total <= 0:
+        raise RuntimeError("torch.profiler recorded no device time")
+    return total, dict(sorted(by_name.items(), key=lambda kv: -kv[1]))
+
+
 def bound(ops: float, nbytes: float, peak_ops: float = PEAK_OPS):
     t_ops, t_bytes = ops / peak_ops, nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
@@ -156,7 +182,8 @@ def main() -> int:
 
     from repro_torch import kernels
     from repro_torch.configs import paper_mpfp
-    from repro_torch.core.formats import resolve
+    from repro_torch.core import lanes
+    from repro_torch.core.formats import register_format, resolve
     from repro_torch.core.policy import PrecisionPolicy
     from repro_torch.kernels import build, mp_attention, mp_matmul
     from repro_torch.models import transformer as T
@@ -185,7 +212,8 @@ def main() -> int:
     log(f"[build] {report['build_s']:.1f} s wall "
         + ", ".join(f"{b.name} {b.seconds:.1f} s" for b in builds.values()))
     for b in builds.values():
-        for entry, (regs, st, ld) in sorted(ptxas_summary(b.ptxas).items()):
+        for entry, (regs, st, ld) in sorted(
+                build.ptxas_summary(b.ptxas).items()):
             log(f"[ptxas] {b.name}: {entry[:90]} regs {regs} "
                 f"spill st {st} ld {ld}")
 
@@ -394,6 +422,118 @@ def main() -> int:
                 q, kp, vp, table, ln, fq, fp, scale=Dh ** -0.5),
             library=None))
 
+    def lane_vectors(fmts):
+        """(M,) int32 device lanes of per-row formats."""
+        return (torch.tensor([f.n_limbs for f in fmts], dtype=torch.int32,
+                             device=dev),
+                torch.tensor([f.max_order for f in fmts], dtype=torch.int32,
+                             device=dev))
+
+    def envelope(fmts):
+        return lanes.envelope_format(max(f.n_limbs for f in fmts),
+                                     max(f.max_order for f in fmts))
+
+    def mixed_case(label, a, w, names, n_stored, main=False, per=None):
+        """Rows of a at the formats ``names`` (cycled; "PAD" = PAD_LANE)
+        against the stored limbs of w: each row bitwise the homogeneous
+        pre-limbed kernel at its format, all rows against the plain
+        version at the matmul tolerance."""
+        pad = lanes.envelope_format(*lanes.PAD_LANE)
+        fmts = [pad if n == "PAD" else resolve(n) for n in names]
+        fmts = (fmts * a.shape[0])[:a.shape[0]]
+        env = envelope(fmts)
+        limbs = mp_matmul.mp_decompose(w, n_stored)
+        ln, lo = lane_vectors(fmts)
+        out = mp_matmul.mp_mixed_prelimbed_matmul(a, limbs, env, ln, lo)
+        ref = mp_matmul.mixed_prelimbed_matmul_plain(a, limbs, env, ln, lo)
+        torch.cuda.synchronize()
+        K = a.shape[-1]
+        hold("mp_mixed_prelimbed_matmul", label, out, ref, mm_tol(ref, K),
+             {"fmt": env.name, "n_stored": n_stored})
+        for f in sorted(set(fmts), key=lambda f: f.name):
+            rows = [i for i, x in enumerate(fmts) if x == f]
+            homo = mp_matmul.mp_prelimbed_matmul(a[rows], limbs, f)
+            torch.cuda.synchronize()
+            if not torch.equal(out[rows].view(torch.int32),
+                               homo.view(torch.int32)):
+                raise AssertionError(
+                    f"mp_mixed_prelimbed_matmul {label}: the {f.name} rows "
+                    "are not bitwise mp_prelimbed_matmul's")
+        checks["mp_mixed_prelimbed_matmul"][-1]["rows_bitwise"] = True
+        M, N = out.shape
+        # the products each row keeps (its own lane), the envelope's planes
+        # read once, A and C, and the two lane vectors
+        ops = 2 * K * N * sum(f.n_products for f in fmts)
+        nbytes = (4 * (a.numel() + out.numel()) + 8 * M
+                  + 2 * min(n_stored, env.n_limbs) * K * N)
+        cases["mp_mixed_prelimbed_matmul"].append(dict(
+            case=label, fmt=env.name, lanes=[f.name for f in fmts],
+            n_stored=n_stored, a=list(a.shape), b=list(w.shape), ops=ops,
+            bytes=nbytes, main=main, per=per,
+            fn=lambda: mp_matmul.mp_mixed_prelimbed_matmul(a, limbs, env,
+                                                           ln, lo),
+            plain=lambda: mp_matmul.mixed_prelimbed_matmul_plain(
+                a, limbs, env, ln, lo),
+            library=None))
+
+    def mixed_paged_case(label, lengths, H, Hkv, slot_modes, Dh=64, bs=16,
+                         main=False, per=None):
+        """Slot b at the (qk, pv) formats ``slot_modes[b]``: each slot
+        bitwise the paged kernel at its formats, all slots against the plain
+        version at 2e-5, a length-0 slot exact zeros."""
+        B = len(lengths)
+        cols = [-(-n // bs) for n in lengths]
+        W = prim.pow2_at_least(max(max(cols), 1))
+        n_blocks = sum(cols) + 1 + 8
+        q = randn(B, H, Dh)
+        kp, vp = randn(n_blocks, bs, Hkv, Dh), randn(n_blocks, bs, Hkv, Dh)
+        perm = (torch.randperm(n_blocks - 1, generator=torch.Generator()
+                               .manual_seed(B + 1)) + 1).tolist()
+        table = np.zeros((B, W), np.int32)     # trash-padded
+        for b, c in enumerate(cols):
+            table[b, :c] = [perm.pop() for _ in range(c)]
+        table = torch.from_numpy(table).to(dev)
+        ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
+        fq = [resolve(a) for a, _ in slot_modes]
+        fp = [resolve(b) for _, b in slot_modes]
+        eq, ep = envelope(fq), envelope(fp)
+        lv = (*lane_vectors(fq), *lane_vectors(fp))
+        out = mp_attention.mp_mixed_paged_attention(q, kp, vp, table, ln, eq,
+                                                    ep, *lv)
+        ref = mp_attention.mixed_paged_attention_plain(
+            q, kp, vp, table, ln, eq, ep, *lv, scale=Dh ** -0.5)
+        torch.cuda.synchronize()
+        hold("mp_mixed_paged_attention", label, out, ref,
+             2e-5 + 2e-5 * ref.abs(), {"fmt": f"{eq.name}/{ep.name}"})
+        for b in range(B):
+            homo = mp_attention.mp_paged_attention(q, kp, vp, table, ln,
+                                                   fq[b], fp[b])
+            torch.cuda.synchronize()
+            if not torch.equal(out[b].view(torch.int32),
+                               homo[b].view(torch.int32)):
+                raise AssertionError(
+                    f"mp_mixed_paged_attention {label}: slot {b} is not "
+                    "bitwise mp_paged_attention's")
+            if lengths[b] == 0 and out[b].any():
+                raise AssertionError(f"mp_mixed_paged_attention {label}: a "
+                                     "length-0 slot is not exact zeros")
+        checks["mp_mixed_paged_attention"][-1]["slots_bitwise"] = True
+        ops = sum(2 * H * n * Dh * (a.n_products + b.n_products)
+                  for n, a, b in zip(lengths, fq, fp))
+        toks = sum(lengths)
+        nbytes = (4 * 2 * Hkv * Dh * toks + 4 * (q.numel() + out.numel())
+                  + 4 * (table.numel() + B) + 16 * B)
+        cases["mp_mixed_paged_attention"].append(dict(
+            case=label, fmt=f"{eq.name}/{ep.name}",
+            slots=[f"{a}/{b}" for a, b in slot_modes],
+            lengths=list(lengths), H=H, Hkv=Hkv, bs=bs, W=W, ops=ops,
+            bytes=nbytes, main=main, per=per,
+            fn=lambda: mp_attention.mp_mixed_paged_attention(
+                q, kp, vp, table, ln, eq, ep, *lv),
+            plain=lambda: mp_attention.mixed_paged_attention_plain(
+                q, kp, vp, table, ln, eq, ep, *lv, scale=Dh ** -0.5),
+            library=None))
+
     cfg = paper_mpfp.CONFIG
     d, ff, V, L = cfg.d_model, cfg.d_ff, cfg.padded_vocab, cfg.n_layers
     x = randn(2048, d)
@@ -473,6 +613,14 @@ def main() -> int:
     prelimbed_case("decode lm_head 8x768x32000 M16", x8, w_lm, "M16", 2,
                    per=("tick", 1))
     prelimbed_case("decode wo M16 from 1 stored limb", x8, w_o, "M16", 1)
+    # the formats of the mixed-traffic tick, homogeneous, at w_down's shape:
+    # what each launch of the per-policy plan runs and what the mixed kernel
+    # at the (3 limbs, order 2) envelope is compared with
+    spec = dict(CUSTOM)
+    custom = register_format(spec.pop("name"), **spec)
+    x_ff = randn(8, ff)
+    for m in ("M16", "M23", custom.name):
+        prelimbed_case(f"decode w_down 8x3072x768 {m}", x_ff, w_down, m, 3)
     prelimbed_case("wo 512x768x768 M23", x[:512], randn(d, d), "M23", 3)
     prelimbed_case("wo 256x768x768 M36", x[:256], randn(d, d), "M36", 5)
     prelimbed_case("ragged 37x300x77 M16", randn(37, 300), randn(300, 77),
@@ -484,6 +632,37 @@ def main() -> int:
     paged_case("GQA n_rep 2, a length-0 slot, mid-block ends",
                [0, 37, 16, 1, 100], 12, 6, "M16", "M8")
     paged_case("M23/M16 lengths 5, 250", [5, 250], 4, 4, "M23", "M16")
+
+    # the mixed-lane kernels: the mixed-traffic tick's rows (two per mode,
+    # envelope M23's 3 limbs, stored at 3), then M36, PAD_LANE rows, a
+    # ragged shape and the generic instantiation
+    tick_modes = [m for m in MODES for _ in range(2)]
+    mixed_case("decode wq/wk/wv/wo 8x768x768 mixed", x8, w_o, tick_modes, 3,
+               per=("mtick", 4 * L))
+    mixed_case("decode w_gate/w_up 8x768x3072 mixed", x8, w_up, tick_modes,
+               3, per=("mtick", 2 * L))
+    mixed_case("decode w_down 8x3072x768 mixed", x_ff, w_down,
+               tick_modes, 3, main=True, per=("mtick", L))
+    mixed_case("decode lm_head 8x768x32000 mixed", x8, w_lm, tick_modes, 3,
+               per=("mtick", 1))
+    mixed_case("8x768x768 M8/M16/M23/M36/custom/PAD", x8, w_o,
+               ["M8", "M16", "M23", "M36", custom.name, "PAD", "PAD", "M8"],
+               5)
+    mixed_case("ragged 13x300x77 M8/custom/PAD/M16 (generic)",
+               randn(13, 300), randn(300, 77),
+               ["M8", custom.name, "PAD", "M16"], 2)
+    mixed_case("ragged 13x700x300 M16/M52/M8 from 5 stored", randn(13, 700),
+               randn(700, 300), ["M16", "M52", "M8"], 5)
+    slot_modes = [(m, m) for m in tick_modes]
+    mixed_paged_case(f"decode 8 slots H12 lengths {decode_lengths[0]}.."
+                     f"{decode_lengths[-1]} two per mode", decode_lengths,
+                     12, 12, slot_modes, main=True, per=("mtick", L))
+    mixed_paged_case(
+        "GQA n_rep 2, a length-0 slot, mixed qk/pv",
+        [0, 37, 16, 1, 100, 64, 5, 200], 12, 6,
+        [("M16", "M8"), ("M8", "M8"), ("M23", "M16"), (custom.name, "M23"),
+         ("M16", custom.name), ("M8", "M23"), ("M23", "M23"),
+         ("M36", "M8")])
 
     # ---- 4. the main path -------------------------------------------------
     params = T.init_params(cfg, seed=0, device=dev)
@@ -669,6 +848,157 @@ def main() -> int:
         resident_before_bytes=s_base,
         solo_bitwise=list(solo_ids), logits_rel_vs_ref=s_rel,
         decode_tick_ms=tick_ms)
+    del s_eng, sched, probe
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    # ---- 4c. mixed traffic: one partitioned-lane launch per tick ----------
+    def mode_requests(ids, spaced=True, max_new=sched_new):
+        reqs = requests(ids, spaced)
+        for r in reqs:
+            r.mode, r.max_new = MODES[r.rid % len(MODES)], max_new
+        return reqs
+
+    step_calls = {"mixed": 0, "bucket": 0}
+    real_steps = {"mixed": prim.decode_mixed_step,
+                  "bucket": prim.decode_bucket_step}
+
+    def counted(kind):
+        def step(*args, **kw):
+            step_calls[kind] += 1
+            return real_steps[kind](*args, **kw)
+        return step
+
+    prim.decode_mixed_step = counted("mixed")
+    prim.decode_bucket_step = counted("bucket")
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        m_eng = ServeEngine(cfg, params, max_batch=8, max_seq=512,
+                            prelimb_weights=True, policy=policy)
+        m_sched = ContinuousScheduler(m_eng, n_blocks=160, block_size=16)
+        m_done = m_sched.run(mode_requests(range(n_req)))
+        torch.cuda.synchronize()
+        m_run_s = time.perf_counter() - t0
+        m_launches = kernels.launch_counts()
+        m_plain = kernels.plain_call_counts()
+    finally:
+        prim.decode_mixed_step = real_steps["mixed"]
+        prim.decode_bucket_step = real_steps["bucket"]
+    m_stats = m_sched.stats()
+    n_mixed, n_bucket = step_calls["mixed"], step_calls["bucket"]
+    misses = m_eng.prelimb_cache_misses
+    m_want = {k: misses * PER_PRELIMB.get(k, 0)
+              + m_stats["prefills"] * PER_PREFILL.get(k, 0)
+              + n_bucket * PER_DECODE.get(k, 0)
+              + n_mixed * PER_MIXED.get(k, 0) for k in kernels.KERNELS}
+    log(f"[mixed] {n_req} requests, modes {list(MODES)} in turn, prompts "
+        f"{sched_lengths[0]}..{sched_lengths[-1]} x {sched_new} new, "
+        f"arrivals 2 ticks apart: run {m_run_s:.3f} s (prelimbs included), "
+        f"{m_stats['useful_tokens'] / m_run_s:.1f} tokens/s, "
+        f"{m_stats['steps']} ticks, {m_stats['decode_launches']} decode "
+        f"launches ({n_mixed} mixed, {n_bucket} bucket), launches per tick "
+        f"{m_stats['launches_per_tick']}, {misses} prelimbs, peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, launches "
+        f"{m_launches} ({smi})")
+    if m_stats["launches_per_tick"] != 1.0 or n_mixed == 0:
+        raise AssertionError(f"mixed traffic is not one launch per tick: "
+                             f"{m_stats}, {step_calls}")
+    if m_launches != m_want or any(m_plain.values()):
+        raise AssertionError(f"mixed launches {m_launches} != expected "
+                             f"{m_want} (plain calls {m_plain})")
+    m_out = {r.rid: r.out for r in m_done}
+    if (len(m_out) != n_req or m_stats["completed"] != n_req
+            or any(len(o) != sched_new for o in m_out.values())
+            or any(not 0 <= t < cfg.vocab for o in m_out.values() for t in o)
+            or m_stats["blocks_live"] != 0):
+        raise AssertionError(f"mixed scheduler run malformed: {m_stats}")
+    # two requests of different modes == their solo runs at their modes
+    m_solo_ids = (0, n_req - 1)
+    for i in m_solo_ids:
+        solo = ContinuousScheduler(m_eng, n_blocks=160, block_size=16).run(
+            mode_requests([i], spaced=False))[0].out
+        if solo != m_out[i]:
+            first = next(t for t, (a, b) in enumerate(zip(solo, m_out[i]))
+                         if a != b)
+            raise AssertionError(f"request {i} ({MODES[i % 4]}): mixed "
+                                 f"stream differs from its solo run at "
+                                 f"token {first}")
+    log(f"[mixed] requests {list(m_solo_ids)} "
+        f"({', '.join(MODES[i % 4] for i in m_solo_ids)}): mixed streams == "
+        f"solo runs bitwise")
+
+    # mixed decode-tick probe: 8 slots, two per mode, no admissions; the
+    # one mixed launch against the per-policy plan on the same slots, in
+    # turns (mixed, per-policy, mixed, per-policy), tokens equal
+    def per_policy_plan(reqs, base):
+        return [("bucket", g) for _, g in prim.bucket_by_policy(reqs, base)]
+
+    mixed_plan = prim.decode_tick_plan
+    probes = {}
+    probe_ids = (0, 1, 2, 3, n_req - 4, n_req - 3, n_req - 2, n_req - 1)
+    for kind in ("mixed", "per_policy"):
+        pr = ContinuousScheduler(m_eng, n_blocks=160, block_size=16)
+        for r in mode_requests(probe_ids, spaced=False, max_new=64):
+            pr.submit(r)
+        probes[kind] = pr
+
+    def ticks_of(kind, n):
+        prim.decode_tick_plan = (mixed_plan if kind == "mixed"
+                                 else per_policy_plan)
+        try:
+            kernels.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                probes[kind].step()
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) / n * 1e3
+            return ms, sum(kernels.launch_counts().values()) / n
+        finally:
+            prim.decode_tick_plan = mixed_plan
+
+    for kind in probes:  # admits all 8 (and runs the first tick)
+        ticks_of(kind, 1)
+    probe_ticks = 12
+    tick = {"mixed": [], "per_policy": []}
+    per_tick = {}
+    for kind in ("mixed", "per_policy", "mixed", "per_policy"):
+        ms, n_launch = ticks_of(kind, probe_ticks)
+        tick[kind].append(ms)
+        per_tick[kind] = n_launch
+    busy_ms, busy_by_name = {}, {}
+    for k in probes:
+        total, names = device_busy_ms(lambda k=k: ticks_of(k, 4))
+        busy_ms[k] = total / 4
+        busy_by_name[k] = {n: ms / 4 for n, ms in names.items()}
+        log(f"[mixed] {k} tick, device ms by name: "
+            + ", ".join(f"{n} {ms:.3f}" for n, ms in
+                        list(busy_by_name[k].items())[:6]) + f" ({smi})")
+    outs = {k: {r.rid: list(r.out) for r in pr._slots if r is not None}
+            for k, pr in probes.items()}
+    if outs["mixed"] != outs["per_policy"] or len(outs["mixed"]) != 8:
+        raise AssertionError("mixed tick tokens differ from the per-policy "
+                             "plan's")
+    if per_tick["mixed"] != 97 or per_tick["per_policy"] != 4 * 97:
+        raise AssertionError(f"kernel launches per tick {per_tick} != "
+                             "97 (mixed) and 4 x 97 (per-policy)")
+    log(f"[mixed] decode tick (8 slots, two per mode, no admissions), in "
+        f"turns: mixed {tick['mixed'][0]:.3f} / {tick['mixed'][1]:.3f} ms "
+        f"({per_tick['mixed']:.0f} kernel launches, kernels busy "
+        f"{busy_ms['mixed']:.3f} ms); per-policy plan "
+        f"{tick['per_policy'][0]:.3f} / {tick['per_policy'][1]:.3f} ms "
+        f"({per_tick['per_policy']:.0f} launches, busy "
+        f"{busy_ms['per_policy']:.3f} ms); tokens equal bitwise ({smi})")
+    report["mixed"] = dict(
+        modes=list(MODES), lengths=sched_lengths, max_new=sched_new,
+        run_s=m_run_s, tokens_per_s=m_stats["useful_tokens"] / m_run_s,
+        stats=m_stats, launches=m_launches, mixed_launches=n_mixed,
+        bucket_launches=n_bucket, prelimb_misses=misses,
+        solo_bitwise=list(m_solo_ids), tick_ms=tick,
+        kernel_launches_per_tick=per_tick, kernel_busy_ms_per_tick=busy_ms,
+        device_ms_per_tick_by_name=busy_by_name)
 
     # ---- 5. the kernels line -----------------------------------------------
     line = []
@@ -690,13 +1020,14 @@ def main() -> int:
                 f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound "
                 f"{b_ms:.4f} ms ({b_by})")
         main_row = next(r for r in rows if r["main"])
+        by_path = {"generate": launches[kname],
+                   "scheduler": s_launches[kname],
+                   "mixed": m_launches[kname]}
         line.append({
             "name": kname, "route": "cuda", "source": src,
             "replaces": replaces,
-            "launches": (s_launches if kname in SCHED_KERNELS
-                         else launches)[kname],
-            "launches_by_path": {"generate": launches[kname],
-                                 "scheduler": s_launches[kname]},
+            "launches": by_path[LAUNCH_PATH.get(kname, "generate")],
+            "launches_by_path": by_path,
             "max_abs_err": max(r["max_abs_err"] for r in checks[kname]),
             "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"],
@@ -706,7 +1037,7 @@ def main() -> int:
         report.setdefault("cases", {})[kname] = rows
     # kernel time of one prefill and one decode step at these shapes: the
     # device-busy lower bound the measured step times are read against
-    busy = {"prefill": 0.0, "decode": 0.0, "tick": 0.0}
+    busy = {"prefill": 0.0, "decode": 0.0, "tick": 0.0, "mtick": 0.0}
     for rows in report["cases"].values():
         for r in rows:
             if r["per"]:
@@ -714,12 +1045,20 @@ def main() -> int:
     report["main"]["kernel_ms_per_prefill"] = busy["prefill"]
     report["main"]["kernel_ms_per_decode_step"] = busy["decode"]
     report["sched"]["kernel_ms_per_tick"] = busy["tick"]
+    report["mixed"]["kernel_ms_per_tick_from_cases"] = busy["mtick"]
     log(f"[busy] kernel ms per prefill {busy['prefill']:.3f} "
         f"(measured {report['main']['prefill_ms']:.3f} ms); per decode step "
         f"{busy['decode']:.3f} (measured "
         f"{report['main']['decode_ms_per_step']:.3f} ms); per scheduler "
         f"decode tick {busy['tick']:.3f} (measured {tick_ms:.3f} ms, idle "
-        f"share {max(0.0, 1 - busy['tick'] / tick_ms):.3f})")
+        f"share {max(0.0, 1 - busy['tick'] / tick_ms):.3f}); per mixed tick "
+        f"{busy['mtick']:.3f} (profiled {busy_ms['mixed']:.3f}, measured "
+        f"{tick['mixed'][0]:.3f} ms, idle share "
+        f"{max(0.0, 1 - busy_ms['mixed'] / tick['mixed'][0]):.3f}; "
+        f"per-policy plan: profiled {busy_ms['per_policy']:.3f}, measured "
+        f"{tick['per_policy'][0]:.3f} ms, idle share "
+        f"{max(0.0, 1 - busy_ms['per_policy'] / tick['per_policy'][0]):.3f})"
+        f" ({smi})")
     report["kernels"] = line
     report["checks"] = checks
     out_dir = ROOT / "chiprun_out"

@@ -3,9 +3,9 @@ each with its plain PyTorch version and two counters: ``launches`` (kernel
 launches, counted where the kernel is launched and nowhere else) and
 ``plain_calls`` (calls on CPU tensors, which run the plain version)."""
 from repro_torch.kernels.mp_attention import mp_flash_attention, \
-    mp_paged_attention
+    mp_mixed_paged_attention, mp_paged_attention
 from repro_torch.kernels.mp_matmul import mp_decompose, mp_fused_matmul, \
-    mp_fused_proj, mp_prelimbed_matmul
+    mp_fused_proj, mp_mixed_prelimbed_matmul, mp_prelimbed_matmul
 
 # every kernel wrapper of the port, by name
 KERNELS = {
@@ -15,6 +15,8 @@ KERNELS = {
     "mp_decompose": mp_decompose,
     "mp_prelimbed_matmul": mp_prelimbed_matmul,
     "mp_paged_attention": mp_paged_attention,
+    "mp_mixed_prelimbed_matmul": mp_mixed_prelimbed_matmul,
+    "mp_mixed_paged_attention": mp_mixed_paged_attention,
 }
 
 

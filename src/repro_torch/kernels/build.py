@@ -7,18 +7,26 @@ file name carries a hash of the source and the flags, so an edited source
 rebuilds and an unchanged one is reused.  Nothing is built when this module
 is imported: :func:`load` builds at first use, :func:`build` builds several
 sources in parallel (one ``nvcc`` process each, all started together).
+
+    python -m repro_torch.kernels.build --against OTHER/csrc
+
+compiles these sources and another version of them with the same flags and
+prints every kernel entry whose registers or spills differ (run it on the
+machine with the card: it needs ``nvcc``).
 """
 from __future__ import annotations
 
+import argparse
 import ctypes
 import dataclasses
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, List
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
@@ -63,6 +71,12 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
 
 
+def _nvcc(src: Path, out: Path) -> subprocess.Popen:
+    return subprocess.Popen([nvcc_path(), *NVCC_FLAGS, "-o", str(out),
+                             str(src)], stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+
+
 def build(names: Iterable[str] = SOURCES) -> Dict[str, BuildReport]:
     """Compile the named sources, all ``nvcc`` processes at once.  Raises
     with the compiler's output if any build fails."""
@@ -75,10 +89,7 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, BuildReport]:
             reports[name] = BuildReport(name, out, 0.0, "")
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
-               str(CSRC / f"{name}.cu")]
-        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                stderr=subprocess.STDOUT, text=True)
+        proc = _nvcc(CSRC / f"{name}.cu", tmp)
         running[name] = (proc, tmp, out, time.perf_counter())
     failures = []
     for name, (proc, tmp, out, t0) in running.items():
@@ -108,3 +119,65 @@ def check(err: int, what: str) -> None:
     """Raise on a non-zero CUDA error code returned by a C entry point."""
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err} at launch")
+
+
+# the per-file tag nvcc gives the anonymous namespace of a mangled entry name
+_ANON_TAG = re.compile(r"_GLOBAL__N__[0-9a-f]+_\d+_\w+?_cu_[0-9a-f]+")
+
+
+def ptxas_summary(log_text: str) -> Dict[str, List[int]]:
+    """[registers, spill stores, spill loads] per kernel entry of an
+    ``-Xptxas -v`` report, keyed by the mangled entry name without the
+    anonymous-namespace tag (which changes with the file's contents), so
+    two versions of a source compare entry by entry."""
+    merged: Dict[str, List[int]] = {}
+    entry = None
+    for line in log_text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            entry = _ANON_TAG.sub("", m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry:
+            merged.setdefault(entry, [0, 0, 0])[0] = int(m.group(1))
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and entry:
+            merged.setdefault(entry, [0, 0, 0])[1:] = [int(m.group(1)),
+                                                       int(m.group(2))]
+    return merged
+
+
+def compare_registers(other_csrc: Path) -> int:
+    """Compile :data:`SOURCES` from here and from ``other_csrc`` with the
+    same flags, print the entries of the other version whose registers or
+    spills differ here, and return their number."""
+    out_dir = BUILD_DIR / "compare"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = {(tag, name): _nvcc(base / f"{name}.cu",
+                                out_dir / f"{tag}_{name}.so")
+             for tag, base in (("here", CSRC), ("other", Path(other_csrc)))
+             for name in SOURCES}
+    regs: Dict[str, Dict[str, List[int]]] = {"here": {}, "other": {}}
+    for (tag, name), proc in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc {tag} {name}.cu failed:\n{log}")
+        regs[tag].update(ptxas_summary(log))
+    differ = 0
+    for entry, theirs in sorted(regs["other"].items()):
+        ours = regs["here"].get(entry)
+        if ours != theirs:
+            differ += 1
+            print(f"[regs] {entry[:100]}: other {theirs}, here {ours}")
+    print(f"[regs] {len(regs['other']) - differ} of {len(regs['other'])} "
+          f"entries of the other version keep their registers and spills; "
+          f"{len(set(regs['here']) - set(regs['other']))} entries are new "
+          f"here")
+    return differ
+
+
+if __name__ == "__main__":
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--against", required=True, type=Path,
+                        help="csrc directory of another version")
+    compare_registers(parser.parse_args().against)

@@ -1,6 +1,7 @@
 // Multi-precision flash attention and paged decode attention for Hopper
-// (sm_90a), plain C interface.  paged_kernel (below flash_kernel) replaces
-// _paged_kernel; its own comment says how.
+// (sm_90a), plain C interface.  paged_kernel and mixed_paged_kernel (below
+// flash_kernel) replace _paged_kernel and _mixed_paged_kernel; their own
+// comments say how.
 //
 // flash_kernel replaces the Pallas TPU kernel _flash_kernel of
 // src/repro/kernels/mp_attention.py (entered there through
@@ -276,7 +277,12 @@ struct PagedArgs {
   int64_t t_sb;
   int H, n_rep, Dh, bs, W;
   float scale;
-  int nl_qk, mo_qk, nl_pv, mo_pv;
+  int nl_qk, mo_qk, nl_pv, mo_pv;  // the formats (mixed: the envelopes)
+  // mixed_paged_kernel: per-slot lanes (B,) each; null for paged_kernel
+  const int32_t* lane_qk_n;
+  const int32_t* lane_qk_ord;
+  const int32_t* lane_pv_n;
+  const int32_t* lane_pv_ord;
 };
 
 // Replaces the Pallas TPU kernel _paged_kernel of
@@ -299,8 +305,16 @@ struct PagedArgs {
 // length; each is read from device memory once per (slot, kv head) and
 // limbed once in shared memory for all n_rep query heads.  Small work per
 // block (bs positions): later work can split a slot's columns across blocks.
-template <int D>
-__global__ void __launch_bounds__(NT) paged_kernel(PagedArgs p) {
+//
+// LN (mixed_paged_kernel): slot b runs at its own QK and PV lane formats,
+// four values the block reads from the lane vectors before it starts.
+// Shared memory is laid out for the envelopes (p.nl_qk, p.nl_pv), Q, K, V
+// and P are limbed to the slot's own depth, and contract() runs at the
+// slot's formats, so a slot's output is bitwise paged_kernel's at the
+// slot's formats (lanes are clamped to the envelope, which keeps a bad lane
+// inside shared memory).
+template <int D, bool LN>
+__device__ __forceinline__ void paged_body(const PagedArgs& p) {
   constexpr int DS = D + 2;              // padded row of a Q/K/V limb plane
   const int kvh = blockIdx.x;
   const int b = blockIdx.y;
@@ -308,6 +322,13 @@ __global__ void __launch_bounds__(NT) paged_kernel(PagedArgs p) {
   const int bs = p.bs;
   const int ps = bs + 2;                 // padded row of a P limb plane
   const int ss = bs + 1;                 // padded row of the logits tile
+  int nl_qk = p.nl_qk, mo_qk = p.mo_qk, nl_pv = p.nl_pv, mo_pv = p.mo_pv;
+  if constexpr (LN) {
+    nl_qk = max(1, min(p.lane_qk_n[b], p.nl_qk));
+    mo_qk = max(0, min(p.lane_qk_ord[b], min(p.mo_qk, 2 * (nl_qk - 1))));
+    nl_pv = max(1, min(p.lane_pv_n[b], p.nl_pv));
+    mo_pv = max(0, min(p.lane_pv_ord[b], min(p.mo_pv, 2 * (nl_pv - 1))));
+  }
   extern __shared__ float4 smem4[];
   float* Ss = reinterpret_cast<float*>(smem4);   // nr x ss logits / probs
   float* acc_s = Ss + nr * ss;                   // nr x D accumulators
@@ -325,7 +346,7 @@ __global__ void __launch_bounds__(NT) paged_kernel(PagedArgs p) {
     const int r = idx / D;
     const int dd = idx % D;
     const float x = dd < p.Dh ? q[r * p.q_sh + dd] * p.scale : 0.f;
-    store_limbs(x, Qs + r * DS + dd, nr * DS, p.nl_qk);
+    store_limbs(x, Qs + r * DS + dd, nr * DS, nl_qk);
     acc_s[idx] = 0.f;
   }
   if (tid < nr) {
@@ -345,9 +366,9 @@ __global__ void __launch_bounds__(NT) paged_kernel(PagedArgs p) {
       const int dd = idx % D;
       const bool in = dd < p.Dh;
       store_limbs(in ? kb[t * p.k_ss + dd] : 0.f, Ks + t * DS + dd, bs * DS,
-                  p.nl_qk);
+                  nl_qk);
       store_limbs(in ? vb[t * p.v_ss + dd] : 0.f, Vs + t * DS + dd, bs * DS,
-                  p.nl_pv);
+                  nl_pv);
     }
     __syncthreads();
 
@@ -355,7 +376,7 @@ __global__ void __launch_bounds__(NT) paged_kernel(PagedArgs p) {
       const int r = idx / bs;
       const int c = idx % bs;
       const float lg = contract(Qs + r * DS, nr * DS, 1, Ks + c * DS, bs * DS,
-                                1, D, p.nl_qk, p.mo_qk);
+                                1, D, nl_qk, mo_qk);
       Ss[r * ss + c] = (j * bs + c < length) ? lg : NEG_INF;
     }
     __syncthreads();
@@ -372,7 +393,7 @@ __global__ void __launch_bounds__(NT) paged_kernel(PagedArgs p) {
         const float pr =
             (j * bs + c < length) ? expf(Ss[r * ss + c] - m_new) : 0.f;
         sum = sum + pr;
-        store_limbs(pr, Ps + r * ps + c, nr * ps, p.nl_pv);
+        store_limbs(pr, Ps + r * ps + c, nr * ps, nl_pv);
       }
       const float alpha = expf(m_old - m_new);
       d_s[r] = d_s[r] * alpha + sum;
@@ -385,7 +406,7 @@ __global__ void __launch_bounds__(NT) paged_kernel(PagedArgs p) {
       const int r = idx / D;
       const int dd = idx % D;
       const float pv = contract(Ps + r * ps, nr * ps, 1, Vs + dd, bs * DS, DS,
-                                bs, p.nl_pv, p.mo_pv);
+                                bs, nl_pv, mo_pv);
       acc_s[idx] = acc_s[idx] * al_s[r] + pv;
     }
   }
@@ -399,6 +420,25 @@ __global__ void __launch_bounds__(NT) paged_kernel(PagedArgs p) {
 }
 
 template <int D>
+__global__ void __launch_bounds__(NT) paged_kernel(PagedArgs p) {
+  paged_body<D, false>(p);
+}
+
+// Replaces the Pallas TPU kernel _mixed_paged_kernel of
+// src/repro/kernels/mp_attention.py (entered there through
+// mp_mixed_paged_attention_pallas): paged_kernel for a decode micro-batch
+// whose slots run different formats, in one launch.  Slot b's QK and PV
+// formats are (lane_qk_n[b], lane_qk_ord[b]) and (lane_pv_n[b],
+// lane_pv_ord[b]) at or below the envelopes; the TPU kernel runs the
+// envelope's limb loops and masks a slot's surplus products to +0.0, this
+// one limbs and contracts at the slot's own depth, which leaves the same
+// products out and adds no zeros.  Bound like paged_kernel.
+template <int D>
+__global__ void __launch_bounds__(NT) mixed_paged_kernel(PagedArgs p) {
+  paged_body<D, true>(p);
+}
+
+template <int D, bool LN>
 cudaError_t launch_paged(const PagedArgs& p, int B, int Hkv,
                          cudaStream_t st) {
   const int64_t nr = p.n_rep;
@@ -408,15 +448,33 @@ cudaError_t launch_paged(const PagedArgs& p, int B, int Hkv,
   const int64_t smem = (nr * (p.bs + 1) + nr * D + 3 * nr) * 4 +
                        bf16_elems * 2;
   if (smem > MAX_SMEM) return cudaErrorInvalidValue;
+  auto* kern = LN ? mixed_paged_kernel<D> : paged_kernel<D>;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        paged_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
   }
   const dim3 grid((unsigned)Hkv, (unsigned)B, 1);
-  paged_kernel<D><<<grid, NT, (size_t)smem, st>>>(p);
+  kern<<<grid, NT, (size_t)smem, st>>>(p);
   return cudaGetLastError();
+}
+
+bool paged_args_ok(int64_t B, int64_t H, int64_t Hkv, int64_t Dh, int64_t bs,
+                   int64_t W, int64_t nl_qk, int64_t mo_qk, int64_t nl_pv,
+                   int64_t mo_pv) {
+  return nl_qk >= 1 && nl_pv >= 1 && mo_qk >= 0 && mo_pv >= 0 &&
+         mo_qk <= 2 * (nl_qk - 1) && mo_pv <= 2 * (nl_pv - 1) && Dh >= 1 &&
+         Dh <= 128 && Hkv >= 1 && H % Hkv == 0 && bs >= 1 && W >= 1 &&
+         B <= 65535 && Hkv <= 65535;
+}
+
+template <bool LN>
+cudaError_t paged_for_dh(const PagedArgs& p, int64_t B, int64_t Hkv,
+                         cudaStream_t st) {
+  if (p.Dh <= 16) return launch_paged<16, LN>(p, (int)B, (int)Hkv, st);
+  if (p.Dh <= 32) return launch_paged<32, LN>(p, (int)B, (int)Hkv, st);
+  if (p.Dh <= 64) return launch_paged<64, LN>(p, (int)B, (int)Hkv, st);
+  return launch_paged<128, LN>(p, (int)B, (int)Hkv, st);
 }
 
 }  // namespace
@@ -436,10 +494,7 @@ int mp_paged_attention_launch(
     void* o, int64_t B, int64_t H, int64_t Hkv, int64_t Dh, int64_t bs,
     int64_t W, double scale, int64_t nl_qk, int64_t mo_qk, int64_t nl_pv,
     int64_t mo_pv, void* stream) {
-  if (nl_qk < 1 || nl_pv < 1 || mo_qk < 0 || mo_pv < 0 ||
-      mo_qk > 2 * (nl_qk - 1) || mo_pv > 2 * (nl_pv - 1) || Dh < 1 ||
-      Dh > 128 || Hkv < 1 || H % Hkv != 0 || bs < 1 || W < 1 ||
-      B > 65535 || Hkv > 65535)
+  if (!paged_args_ok(B, H, Hkv, Dh, bs, W, nl_qk, mo_qk, nl_pv, mo_pv))
     return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
   PagedArgs p{static_cast<const float*>(q), static_cast<const float*>(k),
@@ -448,14 +503,44 @@ int mp_paged_attention_launch(
               static_cast<const int32_t*>(lengths), static_cast<float*>(o),
               q_sb, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, t_sb,
               (int)H, (int)(H / Hkv), (int)Dh, (int)bs, (int)W,
-              (float)scale, (int)nl_qk, (int)mo_qk, (int)nl_pv, (int)mo_pv};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (Dh <= 16) err = launch_paged<16>(p, (int)B, (int)Hkv, st);
-  else if (Dh <= 32) err = launch_paged<32>(p, (int)B, (int)Hkv, st);
-  else if (Dh <= 64) err = launch_paged<64>(p, (int)B, (int)Hkv, st);
-  else err = launch_paged<128>(p, (int)B, (int)Hkv, st);
-  return (int)err;
+              (float)scale, (int)nl_qk, (int)mo_qk, (int)nl_pv, (int)mo_pv,
+              nullptr, nullptr, nullptr, nullptr};
+  return (int)paged_for_dh<false>(p, B, Hkv,
+                                  static_cast<cudaStream_t>(stream));
+}
+
+// mp_paged_attention_launch with per-slot formats: slot b's QK format is
+// (lane_qk_n[b], lane_qk_ord[b]) and its PV format (lane_pv_n[b],
+// lane_pv_ord[b]), (B,) int32 each on the device, at or below the envelopes
+// (nl_qk, mo_qk) and (nl_pv, mo_pv), which size shared memory.  Returns the
+// CUDA error of the launch (0 on success).  Allocates nothing and does not
+// synchronise.
+int mp_mixed_paged_attention_launch(
+    const void* q, int64_t q_sb, int64_t q_sh, const void* k, int64_t k_sb,
+    int64_t k_ss, int64_t k_sh, const void* v, int64_t v_sb, int64_t v_ss,
+    int64_t v_sh, const void* table, int64_t t_sb, const void* lengths,
+    void* o, int64_t B, int64_t H, int64_t Hkv, int64_t Dh, int64_t bs,
+    int64_t W, double scale, int64_t nl_qk, int64_t mo_qk, int64_t nl_pv,
+    int64_t mo_pv, const void* lane_qk_n, const void* lane_qk_ord,
+    const void* lane_pv_n, const void* lane_pv_ord, void* stream) {
+  if (!paged_args_ok(B, H, Hkv, Dh, bs, W, nl_qk, mo_qk, nl_pv, mo_pv) ||
+      lane_qk_n == nullptr || lane_qk_ord == nullptr ||
+      lane_pv_n == nullptr || lane_pv_ord == nullptr)
+    return (int)cudaErrorInvalidValue;
+  if (B == 0) return 0;
+  PagedArgs p{static_cast<const float*>(q), static_cast<const float*>(k),
+              static_cast<const float*>(v),
+              static_cast<const int32_t*>(table),
+              static_cast<const int32_t*>(lengths), static_cast<float*>(o),
+              q_sb, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, t_sb,
+              (int)H, (int)(H / Hkv), (int)Dh, (int)bs, (int)W,
+              (float)scale, (int)nl_qk, (int)mo_qk, (int)nl_pv, (int)mo_pv,
+              static_cast<const int32_t*>(lane_qk_n),
+              static_cast<const int32_t*>(lane_qk_ord),
+              static_cast<const int32_t*>(lane_pv_n),
+              static_cast<const int32_t*>(lane_pv_ord)};
+  return (int)paged_for_dh<true>(p, B, Hkv,
+                                 static_cast<cudaStream_t>(stream));
 }
 
 // out (B, S, H, Dh) = flash attention of q (B, S, H, Dh) against k / v

@@ -14,6 +14,12 @@
 //   decompose_kernel     replaces _decompose_kernel    (f32 -> bf16 limb
 //                                                      planes, once per
 //                                                      policy)
+//   mixed_prelimbed_matmul_kernel  replaces _mixed_prelimbed_kernel  (the
+//                                                      pre-limbed kernel at a
+//                                                      batch's envelope
+//                                                      depth, each row at its
+//                                                      own lane format:
+//                                                      mixed-format decode)
 //
 // What they compute: C = sum over the format's kept limb pairs (i, j) of
 // A_i * B_j, where X_i is the i-th bf16 limb of the f32 operand (the
@@ -50,6 +56,8 @@ constexpr int TY = 16;            // threads along M
 constexpr int NT = TX * TY;       // threads per block
 constexpr int BK = 16;            // K depth of one shared-memory tile
 constexpr int MAX_OUT = 3;        // weights per fused projection launch
+constexpr int PAD_N = 1;          // lane of a row past M (lanes.PAD_LANE)
+constexpr int PAD_ORD = 0;
 
 // Largest limb count and order count of the generic (any registered format)
 // instantiation; the built-in formats get their own instantiations.
@@ -111,13 +119,19 @@ struct Planes {
 // limb planes (``bp``, NOUT == 1) instead of f32 values limbed here; the
 // products and the order of every add are the same either way, so a
 // pre-limbed run is bitwise the f32 run on the weight the planes came from.
-template <int NL, int NO, int NOUT, int RM, int RN, bool GEN, bool PL = false>
+// LN: each row m runs at its own lane (ln[m] limbs, order cut lo[m]) at or
+// below the (n_limbs, max_order) envelope; a product the row's lane leaves
+// out skips its FMA, so the row's accumulators see exactly the FMAs, in the
+// same order, as a homogeneous run at the lane's format.
+template <int NL, int NO, int NOUT, int RM, int RN, bool GEN, bool PL = false,
+          bool LN = false>
 __device__ __forceinline__ void mainloop(
     const float* __restrict__ A, int64_t a_sr, int64_t a_sc,
     const float* const* B, int64_t b_sr, int64_t b_sc,
     int64_t M, int64_t N, int64_t K, int64_t m0, int64_t n0,
     int n_limbs, int max_order, float (&acc)[NOUT][NO][RM][RN],
-    Planes bp = Planes{}) {
+    Planes bp = Planes{}, const int32_t* __restrict__ ln = nullptr,
+    const int32_t* __restrict__ lo = nullptr) {
   constexpr int BM = TY * RM;
   constexpr int BN = TX * RN;
   __shared__ __nv_bfloat16 As[NL][BK][BM];
@@ -138,6 +152,17 @@ __device__ __forceinline__ void mainloop(
       for (int r = 0; r < RM; ++r)
 #pragma unroll
         for (int c = 0; c < RN; ++c) acc[t][o][r][c] = 0.f;
+
+  // the rows' lanes, in registers for the whole K loop (LN only)
+  int rn[RM], ro[RM];
+  if constexpr (LN) {
+#pragma unroll
+    for (int r = 0; r < RM; ++r) {
+      const int64_t gm = m0 + ty + r * TY;
+      rn[r] = gm < M ? ln[gm] : PAD_N;
+      ro[r] = gm < M ? lo[gm] : PAD_ORD;
+    }
+  }
 
   for (int64_t k0 = 0; k0 < K; k0 += BK) {
     // A tile: read once, limbed once, shared by every output and thread
@@ -210,11 +235,16 @@ __device__ __forceinline__ void mainloop(
 #pragma unroll
           for (int t = 0; t < NOUT; ++t)
 #pragma unroll
-            for (int r = 0; r < RM; ++r)
+            for (int r = 0; r < RM; ++r) {
+              if constexpr (LN) {
+                // the row's own order cut (ref.lane_keep)
+                if (i >= rn[r] || j >= rn[r] || i + j > ro[r]) continue;
+              }
 #pragma unroll
               for (int c = 0; c < RN; ++c)
                 acc[t][i + j][r][c] =
                     fmaf(a[r][i], b[t][c][j], acc[t][i + j][r][c]);
+            }
         }
       }
     }
@@ -235,14 +265,16 @@ struct MatmulArgs {
 };
 
 // One (BM x BN) tile at (blockIdx.y, blockIdx.x) of C = A @ B at the format,
-// B as f32 values or (PL) as stored limb planes: the body of both
-// fused_matmul_kernel and prelimbed_matmul_kernel, so the two share every
-// add of every output element.
-template <int NL, int NO, int RM, int RN, bool GEN, bool PL>
+// B as f32 values or (PL) as stored limb planes, rows at their own lanes
+// (LN): the body of fused_matmul_kernel, prelimbed_matmul_kernel and
+// mixed_prelimbed_matmul_kernel, so the three share every add of every
+// output element.
+template <int NL, int NO, int RM, int RN, bool GEN, bool PL, bool LN = false>
 __device__ __forceinline__ void matmul_tile(
     const float* A, int64_t a_sr, int64_t a_sc, const float* B, int64_t b_sr,
     int64_t b_sc, Planes bp, float* C, int64_t c_sr, int64_t c_sc, int64_t M,
-    int64_t N, int64_t K, int n_limbs, int max_order) {
+    int64_t N, int64_t K, int n_limbs, int max_order,
+    const int32_t* ln = nullptr, const int32_t* lo = nullptr) {
   constexpr int BM = TY * RM;
   constexpr int BN = TX * RN;
   const float* const Bt[1] = {B};
@@ -250,8 +282,9 @@ __device__ __forceinline__ void matmul_tile(
   const int64_t n0 = (int64_t)blockIdx.x * BN;
 
   float acc[1][NO][RM][RN];
-  mainloop<NL, NO, 1, RM, RN, GEN, PL>(A, a_sr, a_sc, Bt, b_sr, b_sc, M, N, K,
-                                       m0, n0, n_limbs, max_order, acc, bp);
+  mainloop<NL, NO, 1, RM, RN, GEN, PL, LN>(A, a_sr, a_sc, Bt, b_sr, b_sc, M, N,
+                                           K, m0, n0, n_limbs, max_order, acc,
+                                           bp, ln, lo);
   const int mo = GEN ? max_order : NO - 1;
   const int tx = threadIdx.x % TX;
   const int ty = threadIdx.x / TX;
@@ -265,7 +298,9 @@ __device__ __forceinline__ void matmul_tile(
       float per_order[NO];
 #pragma unroll
       for (int o = 0; o < NO; ++o) per_order[o] = acc[0][o][r][c];
-      C[gm * c_sr + gn * c_sc] = combine_orders<NO>(per_order, mo);
+      // a lane row joins its own orders, from its own highest one down
+      const int mo_r = LN ? lo[gm] : mo;
+      C[gm * c_sr + gn * c_sc] = combine_orders<NO>(per_order, mo_r);
     }
   }
 }
@@ -306,6 +341,30 @@ __global__ void __launch_bounds__(NT) prelimbed_matmul_kernel(PrelimbedArgs p) {
   matmul_tile<NL, NO, RM, RN, GEN, true>(p.a, p.a_sr, 1, nullptr, 0, 0, p.b,
                                          p.c, p.c_sr, 1, p.M, p.N, p.K,
                                          p.n_limbs, p.max_order);
+}
+
+struct MixedPrelimbedArgs {
+  PrelimbedArgs m;          // the envelope's (n_limbs, max_order) in m
+  const int32_t* lane_n;    // (M,) limbs of each row's lane
+  const int32_t* lane_ord;  // (M,) order cut of each row's lane
+};
+
+// Port of _mixed_prelimbed_kernel (build_mixed_prelimbed_call): the
+// pre-limbed kernel at the batch's envelope depth, each output row at its
+// own lane format (lane_n[m], lane_ord[m]) at or below the envelope.  A
+// product the row's lane leaves out skips its FMA (the TPU kernel adds a
+// masked +0.0 instead), and the flush joins the row's orders from its own
+// highest one down, so a row is bit for bit prelimbed_matmul_kernel's row at
+// the lane's format, signs of zeros included.  One launch serves a decode
+// micro-batch whose slots run different formats.  Bound like the pre-limbed
+// kernel at decode (M = 8) by the bytes of the planes it reads: the
+// envelope's, once for all rows.
+template <int NL, int NO, int RM, int RN, bool GEN>
+__global__ void __launch_bounds__(NT)
+    mixed_prelimbed_matmul_kernel(MixedPrelimbedArgs p) {
+  matmul_tile<NL, NO, RM, RN, GEN, true, true>(
+      p.m.a, p.m.a_sr, 1, nullptr, 0, 0, p.m.b, p.m.c, p.m.c_sr, 1, p.m.M,
+      p.m.N, p.m.K, p.m.n_limbs, p.m.max_order, p.lane_n, p.lane_ord);
 }
 
 // Port of _decompose_kernel: x (n f32 values) -> n_limbs bf16 planes of n
@@ -408,6 +467,16 @@ cudaError_t launch_prelimbed(const PrelimbedArgs& p, cudaStream_t st) {
   const dim3 grid((unsigned)((p.N + TX * R - 1) / (TX * R)),
                   (unsigned)((p.M + TY * R - 1) / (TY * R)), 1);
   prelimbed_matmul_kernel<NL, NO, R, R, GEN><<<grid, NT, 0, st>>>(p);
+  return cudaGetLastError();
+}
+
+template <int NL, int NO, bool GEN>
+cudaError_t launch_mixed_prelimbed(const MixedPrelimbedArgs& p,
+                                   cudaStream_t st) {
+  constexpr int R = micro(NO, 1, GEN);
+  const dim3 grid((unsigned)((p.m.N + TX * R - 1) / (TX * R)),
+                  (unsigned)((p.m.M + TY * R - 1) / (TY * R)), 1);
+  mixed_prelimbed_matmul_kernel<NL, NO, R, R, GEN><<<grid, NT, 0, st>>>(p);
   return cudaGetLastError();
 }
 
@@ -550,6 +619,50 @@ int mp_prelimbed_matmul_launch(const void* a, int64_t a_sr, const void* b,
   else if (nl == 5 && mo == 4) err = launch_prelimbed<5, 5, false>(p, st);
   else if (nl == 7 && mo == 6) err = launch_prelimbed<7, 7, false>(p, st);
   else err = launch_prelimbed<GEN_NL, GEN_NO, true>(p, st);
+  return (int)err;
+}
+
+// C (M, N) = A (M, K) @ B with row m at its own lane format (lane_n[m]
+// limbs, order cut lane_ord[m]) at or below the envelope (n_limbs,
+// max_order); A, B and C as in mp_prelimbed_matmul_launch, lane_n and
+// lane_ord (M,) int32 on the device.  Planes at or past min(n_stored,
+// n_limbs) are never read.  Returns the CUDA error of the launch (0 on
+// success).  Allocates nothing and does not synchronise.
+int mp_mixed_prelimbed_matmul_launch(const void* a, int64_t a_sr,
+                                     const void* b, int64_t b_plane,
+                                     int64_t b_sr, int64_t n_stored,
+                                     const void* lane_n, const void* lane_ord,
+                                     void* c, int64_t c_sr, int64_t M,
+                                     int64_t N, int64_t K, int64_t n_limbs,
+                                     int64_t max_order, void* stream) {
+  if (!format_ok(n_limbs, max_order) || n_stored < 1 || lane_n == nullptr ||
+      lane_ord == nullptr)
+    return (int)cudaErrorInvalidValue;
+  if (M == 0 || N == 0) return 0;
+  MixedPrelimbedArgs p{};
+  p.m.a = static_cast<const float*>(a);
+  p.m.b = Planes{static_cast<const __nv_bfloat16*>(b), b_plane, b_sr,
+                 (int)n_stored};
+  p.m.c = static_cast<float*>(c);
+  p.m.a_sr = a_sr;
+  p.m.c_sr = c_sr;
+  p.m.M = M;
+  p.m.N = N;
+  p.m.K = K;
+  p.m.n_limbs = (int)n_limbs;
+  p.m.max_order = (int)max_order;
+  p.lane_n = static_cast<const int32_t*>(lane_n);
+  p.lane_ord = static_cast<const int32_t*>(lane_ord);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int nl = (int)n_limbs;
+  const int mo = (int)max_order;
+  cudaError_t err;
+  if (nl == 1 && mo == 0) err = launch_mixed_prelimbed<1, 1, false>(p, st);
+  else if (nl == 2 && mo == 1) err = launch_mixed_prelimbed<2, 2, false>(p, st);
+  else if (nl == 3 && mo == 2) err = launch_mixed_prelimbed<3, 3, false>(p, st);
+  else if (nl == 5 && mo == 4) err = launch_mixed_prelimbed<5, 5, false>(p, st);
+  else if (nl == 7 && mo == 6) err = launch_mixed_prelimbed<7, 7, false>(p, st);
+  else err = launch_mixed_prelimbed<GEN_NL, GEN_NO, true>(p, st);
   return (int)err;
 }
 

@@ -1,6 +1,7 @@
 """Multi-precision flash attention and paged decode attention: wrappers,
-plain versions and launch counters (port of the Pallas ``_flash_kernel``
-and ``_paged_kernel`` of ``repro.kernels.mp_attention``).
+plain versions and launch counters (port of the Pallas ``_flash_kernel``,
+``_paged_kernel`` and ``_mixed_paged_kernel`` of
+``repro.kernels.mp_attention``).
 
 Each wrapper runs its plain PyTorch version for CPU tensors and launches its
 CUDA kernel (``csrc/mp_attention.cu``) for CUDA tensors — there is no
@@ -50,6 +51,9 @@ def _set_argtypes(lib) -> None:
         [_P, _I, _I] + [_P, _I, _I, _I] * 2 + [_P, _I, _P, _P] + [_I] * 6
         + [ctypes.c_double] + [_I] * 4 + [_P])
     lib.mp_paged_attention_launch.restype = ctypes.c_int
+    lib.mp_mixed_paged_attention_launch.argtypes = (
+        list(lib.mp_paged_attention_launch.argtypes[:-1]) + [_P] * 5)
+    lib.mp_mixed_paged_attention_launch.restype = ctypes.c_int
     lib._mp_attention_typed = True
 
 
@@ -122,6 +126,48 @@ def paged_attention_plain(q: torch.Tensor, k_pool: torch.Tensor,
     ``ref.attn_qk_logits`` / ``ref.online_softmax_update``, for the slots
     with ``j * bs < length`` (the others keep their state, as the kernel
     skips the column)."""
+    return _paged_steps(
+        q, k_pool, v_pool, block_table, lengths, scale,
+        lambda qh, kb: ref.attn_qk_logits(qh, kb, fmt_qk),
+        lambda m, d, acc, logits, vb, valid: ref.online_softmax_update(
+            m, d, acc, logits, vb, fmt_pv, p_mask=valid))
+
+
+def mixed_paged_attention_plain(q: torch.Tensor, k_pool: torch.Tensor,
+                                v_pool: torch.Tensor,
+                                block_table: torch.Tensor,
+                                lengths: torch.Tensor, env_qk, env_pv,
+                                lane_qk_n: torch.Tensor,
+                                lane_qk_ord: torch.Tensor,
+                                lane_pv_n: torch.Tensor,
+                                lane_pv_ord: torch.Tensor, *,
+                                scale: float) -> torch.Tensor:
+    """Plain version of :func:`mp_mixed_paged_attention`: the steps of
+    :func:`paged_attention_plain` with each slot's contractions at its own
+    lane formats under the envelopes, through the masked cascade of
+    ``ref.masked_attn_qk_logits`` / ``ref.masked_online_softmax_update``
+    (what the JAX kernel runs).  A slot's output equals
+    :func:`paged_attention_plain`'s at the slot's formats up to the sign of
+    a zero."""
+    env_qk, env_pv = resolve(env_qk), resolve(env_pv)
+
+    def slot_lanes(lane):
+        return lane.reshape(-1, 1, 1, 1)
+
+    qn, qo = slot_lanes(lane_qk_n), slot_lanes(lane_qk_ord)
+    pn, po = slot_lanes(lane_pv_n), slot_lanes(lane_pv_ord)
+    return _paged_steps(
+        q, k_pool, v_pool, block_table, lengths, scale,
+        lambda qh, kb: ref.masked_attn_qk_logits(qh, kb, env_qk, qn, qo),
+        lambda m, d, acc, logits, vb, valid:
+            ref.masked_online_softmax_update(m, d, acc, logits, vb, env_pv,
+                                             pn, po, p_mask=valid))
+
+
+def _paged_steps(q, k_pool, v_pool, block_table, lengths, scale, qk,
+                 update) -> torch.Tensor:
+    """The column walk the paged plain versions share: ``qk`` gives a
+    block's logits, ``update`` folds them into the running softmax."""
     B, H, Dh = q.shape
     _, bs, hk, _ = k_pool.shape
     n_rep = H // hk
@@ -142,9 +188,8 @@ def paged_attention_plain(q: torch.Tensor, k_pool: torch.Tensor,
         vb = v_pool[blk].float().permute(0, 2, 1, 3)
         pos = j * bs + torch.arange(bs, device=dev)
         valid = (pos[None, :] < lengths[:, None])[:, None, None, :]
-        logits = torch.where(valid, ref.attn_qk_logits(qh, kb, fmt_qk), neg)
-        m_new, d_new, acc_new = ref.online_softmax_update(
-            m, d, acc, logits, vb, fmt_pv, p_mask=valid)
+        logits = torch.where(valid, qk(qh, kb), neg)
+        m_new, d_new, acc_new = update(m, d, acc, logits, vb, valid)
         live = (j * bs < lengths)[:, None, None]
         m = torch.where(live, m_new, m)
         d = torch.where(live, d_new, d)
@@ -154,11 +199,13 @@ def paged_attention_plain(q: torch.Tensor, k_pool: torch.Tensor,
 
 
 def launch_paged_attention(lib, stream: int, q, k_pool, v_pool, block_table,
-                           lengths, fmt_qk, fmt_pv, *, scale: float
-                           ) -> torch.Tensor:
+                           lengths, fmt_qk, fmt_pv, *, scale: float,
+                           lanes=None) -> torch.Tensor:
     """Marshal one ``mp_paged_attention_launch`` call: q (B, H, Dh), pools
     (n_blocks, bs, Hkv, Dh) read in place through their strides (head dim
-    unit-stride), table (B, W) and lengths (B,) int32."""
+    unit-stride), table (B, W) and lengths (B,) int32.  With ``lanes``
+    (the four (B,) int32 lane vectors, read in place) the call is
+    ``mp_mixed_paged_attention_launch`` and the formats are envelopes."""
     _set_argtypes(lib)
     B, H, Dh = q.shape
     _, bs, hk, dh = k_pool.shape
@@ -179,16 +226,27 @@ def launch_paged_attention(lib, stream: int, q, k_pool, v_pool, block_table,
         if x.dtype != torch.float32 or x.stride(-1) != 1:
             raise ValueError("q and the pools must be f32 with a unit-stride "
                              "head dim")
+    lane_ptrs = []
+    if lanes is not None:
+        for lane in lanes:
+            if (lane.dtype != torch.int32 or lane.shape != (B,)
+                    or not lane.is_contiguous()):
+                raise ValueError(f"lanes must be contiguous ({B},) int32, "
+                                 f"got {tuple(lane.shape)} {lane.dtype}")
+        lane_ptrs = [lane.data_ptr() for lane in lanes]
     o = torch.empty((B, H, Dh), dtype=torch.float32, device=q.device)
-    err = lib.mp_paged_attention_launch(
+    fn = (lib.mp_paged_attention_launch if lanes is None
+          else lib.mp_mixed_paged_attention_launch)
+    err = fn(
         q.data_ptr(), q.stride(0), q.stride(1),
         k_pool.data_ptr(), k_pool.stride(0), k_pool.stride(1),
         k_pool.stride(2), v_pool.data_ptr(), v_pool.stride(0),
         v_pool.stride(1), v_pool.stride(2), block_table.data_ptr(),
         block_table.stride(0), lengths.data_ptr(), o.data_ptr(), B, H, hk,
         Dh, bs, W, float(scale), fmt_qk.n_limbs, fmt_qk.max_order,
-        fmt_pv.n_limbs, fmt_pv.max_order, stream)
-    build.check(err, "mp_paged_attention")
+        fmt_pv.n_limbs, fmt_pv.max_order, *lane_ptrs, stream)
+    build.check(err, "mp_paged_attention" if lanes is None
+                else "mp_mixed_paged_attention")
     return o
 
 
@@ -221,3 +279,40 @@ def mp_paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
 
 mp_paged_attention.launches = 0
 mp_paged_attention.plain_calls = 0
+
+
+def mp_mixed_paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
+                             v_pool: torch.Tensor, block_table: torch.Tensor,
+                             lengths: torch.Tensor, env_qk: FormatLike,
+                             env_pv: FormatLike, lane_qk_n: torch.Tensor,
+                             lane_qk_ord: torch.Tensor,
+                             lane_pv_n: torch.Tensor,
+                             lane_pv_ord: torch.Tensor, *,
+                             scale: Optional[float] = None) -> torch.Tensor:
+    """Partitioned-lane paged decode: :func:`mp_paged_attention` for a
+    micro-batch whose slots run different formats, in one launch.  Slot b
+    runs QK at (``lane_qk_n[b]`` limbs, order cut ``lane_qk_ord[b]``) and PV
+    at (``lane_pv_n[b]``, ``lane_pv_ord[b]``), (B,) int32 each, at or below
+    the envelopes ``env_qk`` / ``env_pv``; its output is
+    :func:`mp_paged_attention`'s at its own formats.  CPU tensors run
+    :func:`mixed_paged_attention_plain`; CUDA tensors launch the kernel."""
+    env_qk, env_pv = resolve(env_qk), resolve(env_pv)
+    if scale is None:
+        scale = 1.0 / float(np.sqrt(q.shape[-1]))
+    lanes = (lane_qk_n, lane_qk_ord, lane_pv_n, lane_pv_ord)
+    tensors = (q, k_pool, v_pool, block_table, lengths) + lanes
+    if _on_cpu(*tensors):
+        mp_mixed_paged_attention.plain_calls += 1
+        return mixed_paged_attention_plain(
+            q, k_pool, v_pool, block_table, lengths, env_qk, env_pv, *lanes,
+            scale=scale)
+    stream = _cuda_stream(*tensors)
+    out = launch_paged_attention(build.load("mp_attention"), stream, q,
+                                 k_pool, v_pool, block_table, lengths,
+                                 env_qk, env_pv, scale=scale, lanes=lanes)
+    mp_mixed_paged_attention.launches += 1
+    return out
+
+
+mp_mixed_paged_attention.launches = 0
+mp_mixed_paged_attention.plain_calls = 0

@@ -1,7 +1,7 @@
 """Multi-precision limb matmul kernels: wrappers, plain versions and launch
 counters (port of the Pallas ``_fused_kernel``, ``_fused_multi_kernel``,
-``_prelimbed_kernel`` and ``_decompose_kernel`` of
-``repro.kernels.mp_matmul``).
+``_prelimbed_kernel``, ``_mixed_prelimbed_kernel`` and ``_decompose_kernel``
+of ``repro.kernels.mp_matmul``).
 
 Each wrapper runs its plain PyTorch version for CPU tensors and launches its
 CUDA kernel (``csrc/mp_matmul.cu``) for CUDA tensors — there is no fallback
@@ -92,6 +92,48 @@ def prelimbed_matmul_plain(a: torch.Tensor, limbs: torch.Tensor,
     return combine_orders(_order_sums(al, bl, s))
 
 
+def mixed_prelimbed_matmul_plain(a: torch.Tensor, limbs: torch.Tensor,
+                                 env: FormatLike, lane_n: torch.Tensor,
+                                 lane_ord: torch.Tensor) -> torch.Tensor:
+    """Plain version of ``mp_mixed_prelimbed_matmul``: row m of a (M, K) at
+    its own lane format (``lane_n[m]`` limbs, order cut ``lane_ord[m]``)
+    against the (L, K, N) limb stack, under the envelope ``env``.
+
+    The kernel's discipline: each order's f32 sum takes a row's kept
+    products in the envelope's product order and leaves the others out
+    (no +0.0 is added), then each row joins its orders with the compensated
+    combine from its own highest order down.  So a row equals
+    :func:`prelimbed_matmul_plain`'s row at the lane's format bit for bit."""
+    env = resolve(env)
+    al = limbs_lib.decompose(a, env.n_limbs)
+    bl = ref._limbs_of(limbs_lib.PrelimbedWeight(limbs), env.n_limbs)
+    rn, ro = lane_n.reshape(-1, 1), lane_ord.reshape(-1, 1)
+    acc: List[Optional[torch.Tensor]] = [None] * env.n_orders
+    started: List[Optional[torch.Tensor]] = [None] * env.n_orders
+    for (i, j) in env.products:
+        o = i + j
+        p = torch.matmul(al[i].float(), bl[j].float())
+        keep = ref.lane_keep(i, j, rn, ro)
+        if acc[o] is None:
+            acc[o], started[o] = torch.where(keep, p, 0.0), keep
+        else:
+            acc[o] = torch.where(
+                keep, torch.where(started[o], acc[o] + p, p), acc[o])
+            started[o] = started[o] | keep
+    # row-wise _combine_orders: orders above a row's cut are left out
+    s = torch.where(env.max_order <= ro, acc[-1], 0.0)
+    c = torch.zeros_like(s)
+    live = env.max_order <= ro
+    for o in range(env.max_order - 1, -1, -1):
+        t = acc[o]
+        tmp = s + t
+        comp = torch.where(s.abs() >= t.abs(), (s - tmp) + t, (t - tmp) + s)
+        s, c = (torch.where(live, tmp, torch.where(o == ro, t, s)),
+                torch.where(live, c + comp, c))
+        live = live | (o == ro)
+    return torch.where(ro == 0, s, s + c)
+
+
 # ---------------------------------------------------------------------------
 # launch marshalling (pointers, strides, the stream)
 # ---------------------------------------------------------------------------
@@ -130,6 +172,9 @@ def _set_argtypes(lib) -> None:
     lib.mp_prelimbed_matmul_launch.argtypes = [
         _P, _I, _P, _I, _I, _I, _P, _I, _I, _I, _I, _I, _I, _P]
     lib.mp_prelimbed_matmul_launch.restype = ctypes.c_int
+    lib.mp_mixed_prelimbed_matmul_launch.argtypes = [
+        _P, _I, _P, _I, _I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
+    lib.mp_mixed_prelimbed_matmul_launch.restype = ctypes.c_int
     lib.mp_decompose_launch.argtypes = [_P, _P, _I, _I, _P]
     lib.mp_decompose_launch.restype = ctypes.c_int
     lib._mp_matmul_typed = True
@@ -219,13 +264,9 @@ def launch_fused_proj(lib, stream: int, a: torch.Tensor,
     return out
 
 
-def launch_prelimbed_matmul(lib, stream: int, a: torch.Tensor,
-                            limbs: torch.Tensor, fmt: MPFormat
-                            ) -> torch.Tensor:
-    """Marshal one ``mp_prelimbed_matmul_launch`` call: a (M, K) f32 against
-    the (L, K, N) bf16 limb stack, read in place (no padded or sliced copy
-    of the stack: planes the format does not need are never read)."""
-    _set_argtypes(lib)
+def _prelimbed_operands(a: torch.Tensor, limbs: torch.Tensor):
+    """Checked operands of a pre-limbed launch: a (M, K) f32 with unit
+    column stride, the (L, K, N) bf16 stack as it is, and the output."""
     a = _f32(a)
     if a.stride(-1) != 1:
         a = a.contiguous()
@@ -239,11 +280,47 @@ def launch_prelimbed_matmul(lib, stream: int, a: torch.Tensor,
     if limbs.stride(-1) != 1:
         raise ValueError("limb stack needs unit column stride")
     c = torch.empty((M, N), dtype=torch.float32, device=a.device)
+    return a, c
+
+
+def launch_prelimbed_matmul(lib, stream: int, a: torch.Tensor,
+                            limbs: torch.Tensor, fmt: MPFormat
+                            ) -> torch.Tensor:
+    """Marshal one ``mp_prelimbed_matmul_launch`` call: a (M, K) f32 against
+    the (L, K, N) bf16 limb stack, read in place (no padded or sliced copy
+    of the stack: planes the format does not need are never read)."""
+    _set_argtypes(lib)
+    a, c = _prelimbed_operands(a, limbs)
+    (M, K), (L, _, N) = a.shape, limbs.shape
     err = lib.mp_prelimbed_matmul_launch(
         a.data_ptr(), a.stride(0), limbs.data_ptr(), limbs.stride(0),
         limbs.stride(1), L, c.data_ptr(), c.stride(0), M, N, K,
         fmt.n_limbs, fmt.max_order, stream)
     build.check(err, "mp_prelimbed_matmul")
+    return c
+
+
+def launch_mixed_prelimbed_matmul(lib, stream: int, a: torch.Tensor,
+                                  limbs: torch.Tensor, env: MPFormat,
+                                  lane_n: torch.Tensor,
+                                  lane_ord: torch.Tensor) -> torch.Tensor:
+    """Marshal one ``mp_mixed_prelimbed_matmul_launch`` call: as
+    :func:`launch_prelimbed_matmul` at the envelope ``env``, plus the
+    per-row lanes (M,) int32, read in place."""
+    _set_argtypes(lib)
+    a, c = _prelimbed_operands(a, limbs)
+    (M, K), (L, _, N) = a.shape, limbs.shape
+    for lane in (lane_n, lane_ord):
+        if (lane.dtype != torch.int32 or lane.shape != (M,)
+                or not lane.is_contiguous()):
+            raise ValueError(f"lanes must be contiguous ({M},) int32, got "
+                             f"{tuple(lane.shape)} {lane.dtype}")
+    err = lib.mp_mixed_prelimbed_matmul_launch(
+        a.data_ptr(), a.stride(0), limbs.data_ptr(), limbs.stride(0),
+        limbs.stride(1), L, lane_n.data_ptr(), lane_ord.data_ptr(),
+        c.data_ptr(), c.stride(0), M, N, K, env.n_limbs, env.max_order,
+        stream)
+    build.check(err, "mp_mixed_prelimbed_matmul")
     return c
 
 
@@ -338,6 +415,30 @@ def mp_prelimbed_matmul(a: torch.Tensor, limbs: torch.Tensor,
 
 mp_prelimbed_matmul.launches = 0
 mp_prelimbed_matmul.plain_calls = 0
+
+
+def mp_mixed_prelimbed_matmul(a: torch.Tensor, limbs: torch.Tensor,
+                              env: FormatLike, lane_n: torch.Tensor,
+                              lane_ord: torch.Tensor) -> torch.Tensor:
+    """a (M, K) f32 @ a (K, N) weight given as its (L, K, N) bf16 limb
+    stack, row m at its own lane format (``lane_n[m]`` limbs, order cut
+    ``lane_ord[m]``, (M,) int32 each) at or below the envelope ``env`` ->
+    (M, N) f32.  A row equals :func:`mp_prelimbed_matmul`'s row at the
+    lane's format bit for bit.  CPU tensors run
+    :func:`mixed_prelimbed_matmul_plain`; CUDA tensors launch the kernel."""
+    env = resolve(env)
+    if _on_cpu(a, limbs, lane_n, lane_ord):
+        mp_mixed_prelimbed_matmul.plain_calls += 1
+        return mixed_prelimbed_matmul_plain(a, limbs, env, lane_n, lane_ord)
+    stream = _cuda_stream(a, limbs, lane_n, lane_ord)
+    out = launch_mixed_prelimbed_matmul(build.load("mp_matmul"), stream, a,
+                                        limbs, env, lane_n, lane_ord)
+    mp_mixed_prelimbed_matmul.launches += 1
+    return out
+
+
+mp_mixed_prelimbed_matmul.launches = 0
+mp_mixed_prelimbed_matmul.plain_calls = 0
 
 
 def mp_decompose(w: torch.Tensor, n_limbs: int) -> torch.Tensor:

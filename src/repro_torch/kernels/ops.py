@@ -1,7 +1,8 @@
 """Shape handling around the CUDA matmul kernels (port of the
-``mp_matmul_pallas`` / ``mp_fused_proj_pallas`` wrappers of
-``repro.kernels.ops``): batch folding, the both-batched case, and the
-concatenation along N for unequal (GQA) projection widths.
+``mp_matmul_pallas`` / ``mp_fused_proj_pallas`` / ``mp_mixed_matmul_pallas``
+wrappers of ``repro.kernels.ops``): batch folding, the both-batched case,
+the concatenation along N for unequal (GQA) projection widths, and the
+per-row lanes of the mixed-format decode matmul.
 
 These are the ``cuda`` backend of ``core/dispatch.py``.  The kernel wrappers
 they call run their plain versions for CPU tensors, so the same shape logic
@@ -14,8 +15,10 @@ from typing import Optional
 import torch
 
 from repro_torch.core.formats import FormatLike, resolve
+from repro_torch.core.limbs import PrelimbedWeight
 from repro_torch.kernels.mp_matmul import MAX_OUT, mp_decompose, \
-    mp_fused_matmul, mp_fused_proj, mp_prelimbed_matmul
+    mp_fused_matmul, mp_fused_proj, mp_mixed_prelimbed_matmul, \
+    mp_prelimbed_matmul
 
 
 def mp_matmul_cuda(a: torch.Tensor, b: torch.Tensor, mode: FormatLike = "M16"
@@ -88,6 +91,40 @@ def mp_matmul_prelimbed_weights(x: torch.Tensor, w_limbs: torch.Tensor,
     out = mp_prelimbed_matmul(x.reshape(-1, x.shape[-1]), w_limbs,
                               resolve(mode))
     return out.reshape(lead + (w_limbs.shape[-1],))
+
+
+def _row_lanes(lane: torch.Tensor, rows: int) -> torch.Tensor:
+    """A (B,) lane vector as the lanes of the flattened rows: one row per
+    slot (the decode micro-batch's (B, 1, K))."""
+    lane = lane.reshape(-1)
+    if lane.numel() != rows:
+        raise ValueError(f"{lane.numel()} lanes for {rows} rows")
+    return lane
+
+
+def mp_mixed_matmul(x: torch.Tensor, w, env: FormatLike,
+                    lane_n: torch.Tensor, lane_ord: torch.Tensor
+                    ) -> torch.Tensor:
+    """Partitioned-lane matmul (port of ``ops.mp_mixed_matmul_pallas``):
+    x (..., K) @ W (K, N) with row m of the flattened leading dims at its
+    own lane format (``lane_n[m]`` limbs, order cut ``lane_ord[m]``, int32)
+    under the envelope ``env`` -> (..., N).  The decode micro-batch is
+    (B, 1, K): one row, and one lane, per slot.  ``w`` is a 2-D
+    :class:`PrelimbedWeight` on the serving path; a raw 2-D weight is
+    pre-limbed here at the envelope depth (the limbs the kernels would cut
+    from it, so the numbers are the same)."""
+    env = resolve(env)
+    if w.ndim != 2:
+        raise ValueError(f"mixed matmul weights must be 2-D, got "
+                         f"{tuple(w.shape)}")
+    limbs = w.limbs if isinstance(w, PrelimbedWeight) \
+        else decompose_weights(w, env.n_limbs)
+    lead = x.shape[:-1]
+    a = x.reshape(-1, x.shape[-1])
+    out = mp_mixed_prelimbed_matmul(a, limbs, env,
+                                    _row_lanes(lane_n, a.shape[0]),
+                                    _row_lanes(lane_ord, a.shape[0]))
+    return out.reshape(lead + (limbs.shape[-1],))
 
 
 def decompose_weights(w: torch.Tensor, n_limbs: int) -> torch.Tensor:

@@ -77,6 +77,69 @@ def _matmul_limbs(al: torch.Tensor, bl: torch.Tensor, s, dot=None
     return limbs_lib.neumaier_sum(order_sums)
 
 
+def lane_keep(i: int, j: int, lane_n, lane_ord):
+    """Which lanes keep limb product ``(i, j)``: the partitioned-lane
+    predicate every realization (this oracle, the plain versions and the
+    CUDA kernels) shares.  A lane at ``k`` limbs and order cut ``c`` keeps
+    exactly its own format's product set, so its masked cascade is its
+    homogeneous cascade.  ``lane_n`` / ``lane_ord`` are int32 tensors that
+    broadcast against one limb product."""
+    return (i < lane_n) & (j < lane_n) & (i + j <= lane_ord)
+
+
+def masked_matmul_limbs(al: torch.Tensor, bl: torch.Tensor, env, lane_n,
+                        lane_ord, dot=None) -> torch.Tensor:
+    """Per-lane masked limb contraction at the envelope format ``env``.
+
+    The product loop runs the envelope's product sequence (highest order
+    first); each lane masks the products outside its own format to +0.0
+    with ``torch.where`` (never by multiplying: 0·Inf is NaN).  A lane's
+    products keep their relative order in the envelope's sequence and the
+    masked entries add exact zeros, so every lane's result equals its
+    homogeneous run bit for bit up to the sign of a zero (-0 -> +0, which
+    cannot move a token).
+
+    Both disciplines of :func:`_matmul_limbs` are realized, and each lane
+    takes its own format's: plain adds in ``products`` order for <= 3
+    limbs, per-order sums joined by a Neumaier combine above that (the
+    all-zero leading orders of a shallow lane are exact no-ops there).
+    When the envelope has <= 3 limbs no lane needs the compensated branch
+    and it is skipped."""
+    dot = dot or _mm
+    masked = []
+    for (i, j) in env.products:  # highest order first: small terms first
+        p = dot(al[i], bl[j])
+        masked.append(((i, j), torch.where(
+            lane_keep(i, j, lane_n, lane_ord), p, 0.0)))
+    seq = None
+    for _, p in masked:
+        seq = p if seq is None else seq + p
+    if env.n_limbs <= 3:
+        return seq
+    by_order: dict[int, list[torch.Tensor]] = {}
+    for (i, j), p in masked:
+        by_order.setdefault(i + j, []).append(p)
+    order_sums = []
+    for o in sorted(by_order, reverse=True):  # smallest magnitude first
+        terms = by_order[o]
+        acc = terms[0]
+        for t in terms[1:]:
+            acc = acc + t
+        order_sums.append(acc)
+    return torch.where(lane_n <= 3, seq, limbs_lib.neumaier_sum(order_sums))
+
+
+def masked_matmul_ref(a: torch.Tensor, b, env, lane_n, lane_ord
+                      ) -> torch.Tensor:
+    """Mixed-lane matmul oracle: a (..., M, K) x b (..., K, N) at per-lane
+    depth -> (..., M, N) f32.  ``lane_n`` / ``lane_ord`` broadcast against
+    the product (a decode micro-batch passes (B, 1, 1) for (B, S, N));
+    ``b`` may be a :class:`PrelimbedWeight`."""
+    return masked_matmul_limbs(_limbs_of(a, env.n_limbs),
+                               _limbs_of(b, env.n_limbs), env, lane_n,
+                               lane_ord)
+
+
 def mp_matmul_ref(a: torch.Tensor, b, mode: FormatLike = "M16"
                   ) -> torch.Tensor:
     """Multi-precision matmul oracle: a (..., M, K) @ b (..., K, N) with
@@ -172,8 +235,9 @@ def attn_pv(p: torch.Tensor, v: torch.Tensor, mode: FormatLike
                          limbs_lib.decompose(v, s.n_limbs), s)
 
 
-def online_softmax_update(m, d, acc, logits, v, mode_pv, *, p_mask=None):
-    """One kv-block step of the running (max, denom, accum) softmax.
+def _online_step(m, d, acc, logits, p_mask, pv):
+    """One kv-block step of the running (max, denom, accum) softmax; ``pv``
+    is the P·V contraction of the probabilities.
 
     ``p_mask`` re-zeroes probabilities explicitly (a fully-masked row has
     max == ATTN_NEG_INF, so exp(logit - max) == 1, not 0)."""
@@ -183,8 +247,40 @@ def online_softmax_update(m, d, acc, logits, v, mode_pv, *, p_mask=None):
         p = torch.where(p_mask, p, torch.zeros((), device=p.device))
     alpha = torch.exp(m - m_new)
     d_new = d * alpha + p.sum(dim=-1)
-    acc_new = acc * alpha[..., None] + attn_pv(p, v, mode_pv)
+    acc_new = acc * alpha[..., None] + pv(p)
     return m_new, d_new, acc_new
+
+
+def online_softmax_update(m, d, acc, logits, v, mode_pv, *, p_mask=None):
+    """One kv-block step of the running softmax with P·V at ``mode_pv``."""
+    return _online_step(m, d, acc, logits, p_mask,
+                        lambda p: attn_pv(p, v, mode_pv))
+
+
+def masked_attn_qk_logits(q: torch.Tensor, k: torch.Tensor, env, lane_n,
+                          lane_ord) -> torch.Tensor:
+    """Per-lane :func:`attn_qk_logits`: the same untransposed contraction
+    through the masked cascade (the mixed paged kernel's plain version)."""
+    return masked_matmul_limbs(limbs_lib.decompose(q, env.n_limbs),
+                               limbs_lib.decompose(k, env.n_limbs), env,
+                               lane_n, lane_ord, dot=_dot_nt)
+
+
+def masked_attn_pv(p: torch.Tensor, v: torch.Tensor, env, lane_n,
+                   lane_ord) -> torch.Tensor:
+    """Per-lane :func:`attn_pv`."""
+    return masked_matmul_limbs(limbs_lib.decompose(p, env.n_limbs),
+                               limbs_lib.decompose(v, env.n_limbs), env,
+                               lane_n, lane_ord)
+
+
+def masked_online_softmax_update(m, d, acc, logits, v, env_pv, lane_n,
+                                 lane_ord, *, p_mask=None):
+    """:func:`online_softmax_update` with the P·V contraction at per-lane
+    depth; the softmax bookkeeping is format-free and unchanged."""
+    return _online_step(
+        m, d, acc, logits, p_mask,
+        lambda p: masked_attn_pv(p, v, env_pv, lane_n, lane_ord))
 
 
 def mp_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -7,8 +7,9 @@ decode attention (the continuous scheduler's path).
 All projections and both attention contractions run through the
 multi-precision ops, so the block obeys the run-time precision policy; the
 attention contractions resolve the ``attn_qk`` / ``attn_pv`` op classes
-(aliases of ``attn_logits`` / ``attn_out``).  The mixed-lane branches wait
-for slice 3 (ROADMAP.md).
+(aliases of ``attn_logits`` / ``attn_out``).  Inside a mixed decode step
+(``core/lanes.py``) the projections and the paged decode attention run each
+slot at its own formats, in one launch per call site.
 """
 from __future__ import annotations
 
@@ -18,6 +19,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.core import dispatch as dispatch_lib
+from repro_torch.core import lanes as lanes_lib
 from repro_torch.core.formats import is_auto
 from repro_torch.core.mpmatmul import mp_attention, mp_dense, mp_matmul, \
     mp_qkv_proj
@@ -174,9 +176,16 @@ def gqa_forward(params: dict, x: torch.Tensor, dims: AttnDims,
     :class:`PagedKVCache` view."""
     B, S, D = x.shape
     h, hk, dh = dims.n_heads, dims.n_kv_heads, dims.head_dim
-    # one fused projection group: x is read and limbed once for all three
-    q, k, v = mp_qkv_proj(x, params["wq"], params["wk"], params["wv"],
-                          policy.mode("qkv"))
+    lanes = lanes_lib.current_lanes()
+    if lanes is not None:
+        # mixed decode: per-branch lane matmuls at each slot's qkv format
+        env, ln, lo = lanes.for_class("qkv")
+        q, k, v = dispatch_lib.mixed_fused_proj(
+            x, (params["wq"], params["wk"], params["wv"]), env, ln, lo)
+    else:
+        # one fused projection group: x is read and limbed once for all
+        q, k, v = mp_qkv_proj(x, params["wq"], params["wk"], params["wv"],
+                              policy.mode("qkv"))
     q = q.reshape(B, S, h, dh)
     k = k.reshape(B, S, hk, dh)
     v = v.reshape(B, S, hk, dh)
@@ -223,6 +232,10 @@ def gqa_forward(params: dict, x: torch.Tensor, dims: AttnDims,
                               causal=dims.causal, q_chunk=q_chunk,
                               kv_chunk=kv_chunk)
     out = out.reshape(B, S, h * dh)
+    if lanes is not None:
+        env, ln, lo = lanes.for_class("attn_out")
+        return (dispatch_lib.dispatch_mixed_matmul(out, params["wo"], env,
+                                                   ln, lo), new_cache)
     return mp_dense(out, params["wo"], policy.mode("attn_out")), new_cache
 
 
@@ -273,7 +286,15 @@ def _paged_decode_attention(q: torch.Tensor, cache: PagedKVCache,
                             ) -> torch.Tensor:
     """One-token attention against the paged pool through the dispatch
     layer: the paged kernel on ``cuda`` (pool blocks read through the
-    table, no gather), the gather + masked einsums on ``ref``."""
+    table, no gather), the gather + masked einsums on ``ref``; inside a
+    mixed decode step their lane forms, each slot at its own formats."""
+    lanes = lanes_lib.current_lanes()
+    if lanes is not None:
+        env_qk, ln_qk, lo_qk = lanes.for_class("attn_qk")
+        env_pv, ln_pv, lo_pv = lanes.for_class("attn_pv")
+        return dispatch_lib.dispatch_mixed_paged_attention(
+            q, cache.k, cache.v, cache.block_table, cache.length,
+            env_qk, env_pv, ln_qk, lo_qk, ln_pv, lo_pv)
     return dispatch_lib.dispatch_paged_attention(
         q, cache.k, cache.v, cache.block_table, cache.length,
         policy.mode("attn_qk"), policy.mode("attn_pv"))

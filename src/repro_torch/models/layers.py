@@ -7,6 +7,8 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core import dispatch as dispatch_lib
+from repro_torch.core import lanes as lanes_lib
 from repro_torch.core.mpmatmul import mp_dense, mp_swiglu
 from repro_torch.core.policy import PrecisionPolicy
 
@@ -39,7 +41,14 @@ def swiglu_mlp(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
                op_class: str = "ffn") -> torch.Tensor:
     """LLaMA-style gated MLP: down( silu(x@gate) * (x@up) ).  The gate/up
     pair runs as ONE fused projection (x read and limbed once, the silu-gate
-    combine applied in the kernel's epilogue)."""
+    combine applied in the kernel's epilogue).  Inside a mixed decode step
+    every slot runs the MLP at its own format, in one launch per matmul."""
+    lanes = lanes_lib.current_lanes()
+    if lanes is not None:
+        env, ln, lo = lanes.for_class(op_class)
+        h = dispatch_lib.mixed_fused_proj(x, (w_gate, w_up), env, ln, lo,
+                                          epilogue="swiglu")
+        return dispatch_lib.dispatch_mixed_matmul(h, w_down, env, ln, lo)
     mode = policy.mode(op_class)
     h = mp_swiglu(x, w_gate, w_up, mode)
     return mp_dense(h, w_down, mode)
@@ -52,7 +61,12 @@ def embed(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
 
 def unembed(x: torch.Tensor, w_head: torch.Tensor, policy: PrecisionPolicy
             ) -> torch.Tensor:
-    """LM head: (..., D) @ (D, V) at the logits format."""
+    """LM head: (..., D) @ (D, V) at the logits format (each slot's own
+    inside a mixed decode step)."""
+    lanes = lanes_lib.current_lanes()
+    if lanes is not None:
+        env, ln, lo = lanes.for_class("lm_head")
+        return dispatch_lib.dispatch_mixed_matmul(x, w_head, env, ln, lo)
     return mp_dense(x, w_head, policy.mode("lm_head"))
 
 

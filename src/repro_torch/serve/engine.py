@@ -20,7 +20,11 @@ operands, which dispatch routes to the pre-limbed matmul kernel.  Prefill
 keeps the raw weights (the fused projection kernels limb a whole group's
 operand once).  AUTO policies skip pre-limbing.
 
-Not ported yet: mixed-format lanes (ROADMAP.md, slice 3).
+Mixed-format decode (:meth:`ServeEngine.mixed_decode_step_for`): a decode
+micro-batch whose slots carry different static formats runs as ONE step,
+each slot at its own format through the partitioned-lane kernels
+(``core/lanes.py``), on weights pre-limbed at the batch's deepest limb
+count.
 """
 from __future__ import annotations
 
@@ -32,6 +36,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import context as context_lib
+from repro_torch.core import lanes as lanes_lib
 from repro_torch.core.formats import is_auto
 from repro_torch.core.limbs import PrelimbedWeight
 from repro_torch.core.policy import PrecisionPolicy
@@ -141,6 +146,38 @@ def make_paged_decode_step(cfg: ModelConfig, policy: PrecisionPolicy):
     return step
 
 
+def make_mixed_decode_step(cfg: ModelConfig,
+                           envelope: lanes_lib.LaneEnvelope):
+    """One partitioned-lane decode step: a micro-batch whose slots run at
+    different (non-AUTO) formats inside ONE step.
+
+    ``envelope`` is the static per-op-class (n_limbs, max_order) ceiling
+    and keys the step cache, so any batch that fits under it shares the
+    step whichever formats sit in which lane.  ``lane_n`` / ``lane_ord``
+    are (C, B) int32 device tensors (C = ``lanes.DECODE_OP_CLASSES``): a
+    slot changing format between ticks is new data, not a new step.  The
+    lane context rides a contextvar around the forward, so the model's call
+    sites find it with ``lanes.current_lanes()``.
+
+    The policy given to the model (``serve_default``) only carries the
+    non-lane ops, all format-free at S == 1; every format-sensitive
+    contraction reads the lane tables.  Same ``(logits, guard_stat,
+    pool_k, pool_v)`` return as :func:`make_paged_decode_step`."""
+    carrier = PrecisionPolicy.serve_default()
+
+    def step(params, pool_k, pool_v, table, lengths, tokens, lane_n,
+             lane_ord):
+        cache = T.paged_cache(pool_k, pool_v, table, lengths)
+        ctx = lanes_lib.LaneCtx(envelope, lane_n, lane_ord)
+        with lanes_lib.lane_scope(ctx):
+            logits, _ = T.forward(params, {"tokens": tokens}, cfg, carrier,
+                                  cache=cache)
+        stat = logits[:, -1].abs().amax(dim=-1)
+        return logits, stat, pool_k, pool_v
+
+    return step
+
+
 def _to_device(tree, device):
     if isinstance(tree, dict):
         return {k: _to_device(v, device) for k, v in tree.items()}
@@ -182,6 +219,7 @@ class ServeEngine:
                                or context_lib.current_context().backend)
         self._step_cache: Dict[PrecisionPolicy, Tuple] = {}
         self._paged_step_cache: Dict[PrecisionPolicy, Tuple] = {}
+        self._mixed_step_cache: Dict[lanes_lib.LaneEnvelope, Tuple] = {}
         # observability: step pairs built (the JAX engine counts jit traces
         # here; PyTorch runs eagerly, so a step built is the analogue) and
         # step / prelimb cache reuse, folded into the scheduler's stats()
@@ -248,6 +286,18 @@ class ServeEngine:
         return self._cached_steps(
             self._paged_step_cache, policy,
             (make_paged_prefill_step, make_paged_decode_step))
+
+    def mixed_decode_step_for(self, envelope: lanes_lib.LaneEnvelope):
+        """The partitioned-lane decode step for one lane envelope.  The
+        envelope, not the format mix, keys the cache, so a mode joining
+        mid-stream reuses the batch-max step instead of building (and
+        perhaps evicting) per-policy entries.  Dense GQA models only."""
+        if self.cfg.family != "dense" or self.cfg.mla is not None:
+            raise NotImplementedError(
+                f"paged serving supports dense GQA models only "
+                f"(family={self.cfg.family!r})")
+        return self._cached_steps(self._mixed_step_cache, envelope,
+                                  (make_mixed_decode_step,))[0]
 
     @property
     def _decode_params(self):

@@ -62,11 +62,17 @@ class PagedKVPool:
     The free list is host state under a lock, so engines sharing one pool
     never race the accounting.  Allocation never hands out a block twice: a
     block is either free, live (owned by exactly one request), or the trash
-    block."""
+    block.  The pool lives on the card unless the caller passes
+    ``device="cpu"``."""
 
     def __init__(self, n_layers: int, n_blocks: int, block_size: int,
                  n_kv_heads: int, head_dim: int, *, max_blocks_per_seq: int,
-                 dtype=torch.float32, device="cpu"):
+                 dtype=torch.float32, device="cuda"):
+        if torch.device(device).type == "cuda" and \
+                not torch.cuda.is_available():
+            raise RuntimeError("PagedKVPool(device='cuda') needs a CUDA "
+                               "device; pass device='cpu' for a pool on "
+                               "the CPU")
         if n_blocks < 2:
             raise ValueError("need >= 2 blocks (block 0 is reserved trash)")
         if block_size < 1 or max_blocks_per_seq < 1:

@@ -10,22 +10,20 @@ is a thin state machine over:
     a scheduling event: the caller requeues behind eviction reclaim);
   * :func:`prefill_request` — one B=1 bucketed paged prefill producing the
     request's first output token;
-  * :func:`decode_tick_plan` + :func:`decode_bucket_step` — one decode tick:
-    active requests grouped by resolved per-request policy, each group one
-    decode launch of the engine's paged step for that policy;
+  * :func:`decode_tick_plan` + :func:`decode_bucket_step` /
+    :func:`decode_mixed_step` — one decode tick: every request with static
+    formats rides ONE decode launch (the engine's paged step for a
+    homogeneous group, its partitioned-lane mixed step for a heterogeneous
+    one); only AUTO requests would bucket per policy;
   * the **numerical guardrail** — every step returns one max-|logit| scalar
     per slot; :func:`guard_check` turns it into a per-slot verdict and
     :func:`escalate_mode` is the recovery dial (M8 -> M16 -> M23);
   * :func:`latency_stats` — TTFT / TPOT / inter-token-latency / queue-wait
     percentiles over a completed set.
 
-Each decode launch builds its table, lengths and tokens as one small host
-array each (one device copy each) and reads back the new tokens and the
-guard stats in one device-to-host copy.
-
-Not ported yet: ``decode_mixed_step`` (one partitioned-lane launch for a
-heterogeneous group) comes with slice 3; until then a heterogeneous group
-runs one launch per resolved policy (ROADMAP.md Queue 3).
+Each decode launch builds its table, lengths and tokens (and, mixed, its
+two lane tables) as one small host array each (one device copy each) and
+reads back the new tokens and the guard stats in one device-to-host copy.
 """
 from __future__ import annotations
 
@@ -37,6 +35,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import context as context_lib
+from repro_torch.core import lanes as lanes_lib
 from repro_torch.core.formats import (
     available_formats, builtin_formats, get_format, is_auto)
 from repro_torch.core.policy import PrecisionPolicy
@@ -302,15 +301,29 @@ def bucket_by_policy(reqs: Sequence[ScheduledRequest],
 def decode_tick_plan(reqs: Sequence[ScheduledRequest],
                      base: PrecisionPolicy
                      ) -> List[Tuple[str, List[ScheduledRequest]]]:
-    """Partition one tick's active requests into decode launches: one
-    ``("bucket", reqs)`` per resolved policy.
+    """Partition one tick's active requests into decode launches: shape
+    bucketing, not format bucketing.
 
-    The JAX package runs a heterogeneous static-format group as ONE
-    ``("mixed", reqs)`` partitioned-lane launch; that launch needs the
-    mixed-lane kernels of slice 3, so until then the port gives each policy
-    its own launch.  The tokens are the same (the JAX suite pins a lane row
-    bitwise to its homogeneous row); only the launch count differs."""
-    return [("bucket", group) for _, group in bucket_by_policy(reqs, base)]
+    Every lane-eligible request (all decode op classes at static formats)
+    joins ONE group whatever its format: a homogeneous group keeps the
+    per-policy step (``("bucket", reqs)``, no lane tables to carry), a
+    heterogeneous group becomes one partitioned-lane launch
+    (``("mixed", reqs)``, :func:`decode_mixed_step`).  Only AUTO-policy
+    requests bucket per policy (their formats are chosen per operand inside
+    the step, so there is no static lane).  Under any non-AUTO traffic mix
+    the plan is one launch per tick."""
+    eligible: List[ScheduledRequest] = []
+    rest: List[ScheduledRequest] = []
+    for r in reqs:
+        pol = resolve_request(r, base)
+        (eligible if lanes_lib.lanes_eligible(pol) else rest).append(r)
+    plan: List[Tuple[str, List[ScheduledRequest]]] = []
+    if eligible:
+        pols = {resolve_request(r, base) for r in eligible}
+        plan.append(("bucket" if len(pols) == 1 else "mixed", eligible))
+    for _, group in bucket_by_policy(rest, base):
+        plan.append(("bucket", group))
+    return plan
 
 
 def decode_bucket_step(engine, pool: PagedKVPool,
@@ -338,13 +351,61 @@ def decode_bucket_step(engine, pool: PagedKVPool,
         params, pool.k, pool.v, engine.to_device(table),
         engine.to_device(lengths), engine.to_device(tokens))
     pool.update(new_k, new_v)
-    # one device-to-host copy for the tokens and the guard stats
+    toks, stat_np = _tokens_and_stats(logits, stat, len(reqs))
+    ok = guard_check(stat_np, policy, guard)
+    _finish_decode_rows(reqs, ok, injector, cell_id)
+    return toks, ok
+
+
+def decode_mixed_step(engine, pool: PagedKVPool,
+                      reqs: Sequence[ScheduledRequest], *,
+                      max_slots: int, guard=None, injector=None,
+                      cell_id: int = 0) -> Tuple[np.ndarray, np.ndarray]:
+    """ONE partitioned-lane decode launch over a heterogeneous group: every
+    request runs at its own resolved (non-AUTO) format inside a single
+    step, the paper's run-time reconfigurable datapath partitioned over the
+    micro-batch instead of bucketed into one launch per format.
+
+    The group's lane envelope (per-op-class max limbs / order) keys the
+    engine's step; the per-slot formats travel as (C, B) int32 lane tables
+    (one device copy each), so any format mix under the envelope reuses one
+    step.  Weights come from the pre-limb cache at the envelope's batch-max
+    limb depth: decomposition is depth-stable, so a shallow lane reads the
+    same limbs as its homogeneous bucket.  Guardrail verdicts are
+    per-request (each request's own lm_head bound).  Same return contract,
+    padding and ITL accounting as :func:`decode_bucket_step`."""
+    cap = pow2_at_most(max_slots)
+    if len(reqs) > cap:
+        return _chunked_steps(
+            lambda part: decode_mixed_step(
+                engine, pool, part, max_slots=cap, guard=guard,
+                injector=injector, cell_id=cell_id), reqs, cap)
+    mb = min(pow2_at_least(len(reqs)), cap)
+    table, lengths, tokens, _ = _micro_batch(pool, reqs, mb)
+    policies = [resolve_request(r, engine.policy) for r in reqs]
+    env = lanes_lib.envelope_of(policies)
+    lane_n, lane_ord = lanes_lib.lane_tables(policies, mb)
+    decode_fn = engine.mixed_decode_step_for(env)
+    params = engine._decode_params_for_limbs(env.max_limbs)
+    logits, stat, new_k, new_v = decode_fn(
+        params, pool.k, pool.v, engine.to_device(table),
+        engine.to_device(lengths), engine.to_device(tokens),
+        engine.to_device(lane_n), engine.to_device(lane_ord))
+    pool.update(new_k, new_v)
+    toks, stat_np = _tokens_and_stats(logits, stat, len(reqs))
+    ok = np.asarray([bool(guard_check(stat_np[i:i + 1], pol, guard)[0])
+                     for i, pol in enumerate(policies)])
+    _finish_decode_rows(reqs, ok, injector, cell_id)
+    return toks, ok
+
+
+def _tokens_and_stats(logits: torch.Tensor, stat: torch.Tensor, n: int
+                      ) -> Tuple[np.ndarray, np.ndarray]:
+    """The greedy tokens and guard stats of a decode launch's first ``n``
+    rows, in one device-to-host copy."""
     host = torch.stack([logits[:, -1].argmax(dim=-1).double(),
                         stat.double()]).cpu().numpy()
-    toks = host[0].astype(np.int64)
-    ok = guard_check(host[1][: len(reqs)], policy, guard)
-    _finish_decode_rows(reqs, ok, injector, cell_id)
-    return toks[: len(reqs)], ok
+    return host[0][:n].astype(np.int64), host[1][:n]
 
 
 def _micro_batch(pool: PagedKVPool, reqs: Sequence[ScheduledRequest],

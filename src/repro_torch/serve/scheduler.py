@@ -10,7 +10,8 @@
   * **per-request precision (QoS)** — each request carries its own mode or
     policy, resolved through
     :func:`repro_torch.core.context.resolve_request_policy`; every tick runs
-    one decode launch per resolved policy.
+    ONE decode launch for all static-format requests, a partitioned-lane
+    launch when their formats differ (``core/lanes.py``).
 
 Token semantics match the static path: the first output token is the argmax
 of the prefill logits at the last prompt position; each decode step
@@ -28,8 +29,7 @@ configured bound) is evicted alone and re-queued at the front escalated one
 precision mode up, its generated prefix re-prefilled.
 
 Not ported yet: fault injection (``install_faults``; ``serve/faults.py``
-comes with the fleet, ROADMAP.md Queue 1 item 6) and the one-launch mixed
-decode of heterogeneous groups (slice 3).
+comes with the fleet, ROADMAP.md Queue 1 item 6).
 """
 from __future__ import annotations
 
@@ -52,10 +52,11 @@ class ContinuousScheduler:
     """Admission queue + slot map + per-tick join/evict over a ServeEngine.
 
     The engine contributes the paged prefill / decode steps (one pair per
-    resolved policy) and the pre-limbed decode weights; the scheduler owns
-    all host state: the request queue, the slot map, the block free list and
-    the per-tick bucketing.  Prompts pad to power-of-two length buckets and
-    decode micro-batches to power-of-two widths, as in the JAX package."""
+    resolved policy, one mixed decode step per lane envelope) and the
+    pre-limbed decode weights; the scheduler owns all host state: the
+    request queue, the slot map, the block free list and the per-tick
+    plan.  Prompts pad to power-of-two length buckets and decode
+    micro-batches to power-of-two widths, as in the JAX package."""
 
     def __init__(self, engine: ServeEngine, *, n_blocks: int = 64,
                  block_size: int = 16,
@@ -230,16 +231,23 @@ class ContinuousScheduler:
 
     def step(self) -> bool:
         """One scheduler tick: expire deadlines, admit arrivals, then run
-        the tick's decode plan (one launch per resolved policy; guardrail
-        verdicts folded into each step — a tripped slot is evicted alone
-        and escalated).  Returns True if any work was done."""
+        the tick's decode plan (guardrail verdicts folded into each step —
+        a tripped slot is evicted alone and escalated).
+
+        The plan buckets by shape, not by format: every static-format
+        request rides ONE launch per tick, a homogeneous set on the
+        per-policy step, a heterogeneous set on the partitioned-lane mixed
+        step.  Only AUTO-policy requests would bucket per policy.  Returns
+        True if any work was done."""
         self._sweep_deadlines()
         admitted = self._admit()
         active = [r for r in self._slots if r is not None]
         plan = prim.decode_tick_plan(active, self.engine.policy)
         cap = prim.pow2_at_most(self.max_slots)
-        for _kind, reqs in plan:
-            toks, ok = prim.decode_bucket_step(
+        for kind, reqs in plan:
+            step_fn = (prim.decode_mixed_step if kind == "mixed"
+                       else prim.decode_bucket_step)
+            toks, ok = step_fn(
                 self.engine, self.pool, reqs, max_slots=self.max_slots,
                 guard=self.guard, injector=self.injector, cell_id=0)
             self.decode_launches += -(-len(reqs) // cap)

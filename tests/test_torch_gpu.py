@@ -270,3 +270,128 @@ def test_rms_norm_row_is_batch_invariant(cuda):
     full = rms_norm(x, w)
     for b in (1, 2, 4):
         assert torch.equal(rms_norm(x[:b], w), full[:b]), b
+
+
+# =========================================================================
+# the mixed-lane kernels (slice 3)
+# =========================================================================
+MIXED_ROWS = ["M8", "M16", "M23", "M36", CUSTOM, "M8", "M16", "M23"]
+
+
+def _lane_vectors(cuda, fmts):
+    return (torch.tensor([f.n_limbs for f in fmts], dtype=torch.int32,
+                         device=cuda),
+            torch.tensor([f.max_order for f in fmts], dtype=torch.int32,
+                         device=cuda))
+
+
+def _envelope(fmts):
+    from repro_torch.core.lanes import envelope_format
+
+    return envelope_format(max(f.n_limbs for f in fmts),
+                           max(f.max_order for f in fmts))
+
+
+@pytest.mark.parametrize("M,K,N,n_stored", [
+    (8, 768, 768, 5), (13, 300, 77, 4), (8, 200, 90, 2)])
+def test_mixed_prelimbed_rows_are_the_homogeneous_kernel(
+        cuda, custom_format, M, K, N, n_stored):
+    """Each row of the mixed kernel is bit for bit the pre-limbed kernel's
+    row at its own format (zero signs included; rows past the table's end
+    at PAD_LANE), and the whole output is held at the f32 floor against
+    the plain version."""
+    fmts = [resolve(m) for m in (MIXED_ROWS * 2)[:M]]
+    env = _envelope(fmts)
+    a, w = _randn(cuda, M, K, seed=80), _randn(cuda, K, N, seed=81) * 0.05
+    a[0, :3] = torch.tensor([0.0, -0.0, 1e-30], device=cuda)
+    limbs = mp_matmul.mp_decompose(w, n_stored)
+    ln, lo = _lane_vectors(cuda, fmts)
+    before = mp_matmul.mp_mixed_prelimbed_matmul.launches
+    out = mp_matmul.mp_mixed_prelimbed_matmul(a, limbs, env, ln, lo)
+    assert mp_matmul.mp_mixed_prelimbed_matmul.launches == before + 1
+    _assert_mm_close(out, mp_matmul.mixed_prelimbed_matmul_plain(
+        a, limbs, env, ln, lo), K)
+    for f in set(fmts):
+        rows = [i for i, x in enumerate(fmts) if x == f]
+        homo = mp_matmul.mp_prelimbed_matmul(a[rows], limbs, f)
+        torch.cuda.synchronize()
+        assert torch.equal(out[rows].view(torch.int32),
+                           homo.view(torch.int32)), f.name
+
+
+@pytest.mark.parametrize("hkv,lengths", [(12, (64, 0, 100, 288, 5)),
+                                         (6, (17, 16, 1, 45, 0))])
+def test_mixed_paged_slots_are_the_homogeneous_kernel(cuda, custom_format,
+                                                      hkv, lengths):
+    """Each slot of the mixed paged kernel is bit for bit the paged
+    kernel's at its own formats; the whole output is held at 2e-5 against
+    the plain version; a length-0 slot writes exact zeros."""
+    slots = [("M16", "M8"), ("M8", CUSTOM), ("M23", "M16"), (CUSTOM, "M23"),
+             ("M36", "M8")]
+    B, H, Dh, bs, n_blocks = len(lengths), 12, 64, 16, 80
+    q = _randn(cuda, B, H, Dh, seed=82)
+    kp = _randn(cuda, n_blocks, bs, hkv, Dh, seed=83)
+    vp = _randn(cuda, n_blocks, bs, hkv, Dh, seed=84)
+    W = max(-(-n // bs) for n in lengths) + 1
+    table = torch.zeros((B, W), dtype=torch.int32)
+    free = torch.randperm(n_blocks - 1,
+                          generator=torch.Generator().manual_seed(1)) + 1
+    used = 0
+    for b, n in enumerate(lengths):
+        k = -(-n // bs)
+        table[b, :k] = free[used:used + k]
+        used += k
+    table = table.to(cuda)
+    ln = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    fq = [resolve(a) for a, _ in slots]
+    fp = [resolve(b) for _, b in slots]
+    eq, ep = _envelope(fq), _envelope(fp)
+    lanes = (*_lane_vectors(cuda, fq), *_lane_vectors(cuda, fp))
+    before = mp_attention.mp_mixed_paged_attention.launches
+    out = mp_attention.mp_mixed_paged_attention(q, kp, vp, table, ln, eq,
+                                                ep, *lanes)
+    assert mp_attention.mp_mixed_paged_attention.launches == before + 1
+    ref = mp_attention.mixed_paged_attention_plain(
+        q, kp, vp, table, ln, eq, ep, *lanes, scale=0.125)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ref, rtol=2e-5, atol=2e-5)
+    for b, n in enumerate(lengths):
+        homo = mp_attention.mp_paged_attention(q, kp, vp, table, ln, fq[b],
+                                               fp[b])
+        torch.cuda.synchronize()
+        assert torch.equal(out[b].view(torch.int32),
+                           homo[b].view(torch.int32)), b
+        if n == 0:
+            assert not out[b].any()
+
+
+def test_smoke_scheduler_mixed_modes_on_the_card(cuda, custom_format):
+    """Four modes decoding together on the card: one launch per tick, the
+    mixed-lane kernels only on the mixed ticks, each stream equal to its
+    solo run bit for bit."""
+    from repro_torch.serve.scheduler import ContinuousScheduler, \
+        ScheduledRequest
+
+    cfg = paper_mpfp.SMOKE
+    eng = ServeEngine(cfg, T.init_params(cfg, seed=0), max_batch=4,
+                      max_seq=64)
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(1, cfg.vocab, size=n) for n in (5, 3, 9, 12)]
+    modes = ["M8", "M16", "M23", CUSTOM]
+
+    def run(ids):
+        sched = ContinuousScheduler(eng, n_blocks=32, block_size=8)
+        done = sched.run([ScheduledRequest(rid=i, prompt=prompts[i],
+                                           max_new=6, mode=modes[i])
+                          for i in ids])
+        return {r.rid: r.out for r in done}, sched
+
+    solo = [run([i])[0][i] for i in range(4)]
+    kernels.reset_launch_counts()
+    got, sched = run(range(4))
+    counts = kernels.launch_counts()
+    assert [got[i] for i in range(4)] == solo
+    assert sched.stats()["launches_per_tick"] == 1.0
+    assert counts["mp_mixed_prelimbed_matmul"] > 0
+    assert counts["mp_mixed_paged_attention"] > 0
+    assert sum(kernels.plain_call_counts().values()) == 0

@@ -15,6 +15,8 @@ the invariants are bitwise: a request's stream does not depend on the
 micro-batch it decodes in, on neighbours joining or leaving, or (on the
 ``ref`` backend, whose dense and paged decode attention are the same
 masked einsums) on static versus scheduled serving."""
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -134,7 +136,7 @@ def _table_row_trash_padding(pool):
     _table_row_trash_padding], ids=lambda f: f.__name__.strip("_"))
 def test_paged_pool_invariants(case):
     pool = PagedKVPool(2, 8, 4, CFG_P.n_kv_heads, CFG_P.resolved_head_dim,
-                       max_blocks_per_seq=4)
+                       max_blocks_per_seq=4, device="cpu")
     assert pool.k.shape == (2, 8, 4, CFG_P.n_kv_heads,
                             CFG_P.resolved_head_dim)
     case(pool)
@@ -143,9 +145,20 @@ def test_paged_pool_invariants(case):
     pool.update(pool.k, pool.v)
 
 
+def test_paged_pool_defaults_to_the_card(monkeypatch):
+    """Like ``ServeEngine``, the pool lives on the card unless asked for the
+    CPU: without a card, constructing it without ``device`` raises instead
+    of allocating on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="needs a CUDA device"):
+        PagedKVPool(2, 8, 4, 2, 8, max_blocks_per_seq=4)
+    assert PagedKVPool(2, 8, 4, 2, 8, max_blocks_per_seq=4,
+                       device="cpu").k.device.type == "cpu"
+
+
 def test_transfer_blocks_copies_block_contents():
-    src = PagedKVPool(2, 6, 4, 2, 8, max_blocks_per_seq=4)
-    dst = PagedKVPool(2, 6, 4, 2, 8, max_blocks_per_seq=4)
+    src = PagedKVPool(2, 6, 4, 2, 8, max_blocks_per_seq=4, device="cpu")
+    dst = PagedKVPool(2, 6, 4, 2, 8, max_blocks_per_seq=4, device="cpu")
     src.k.normal_(generator=torch.Generator().manual_seed(0))
     src.v.normal_(generator=torch.Generator().manual_seed(1))
     src.transfer_blocks(dst, [2, 3], [5, 1])
@@ -203,7 +216,8 @@ def _port_rows(pe, prompt, stream):
     pol = pe.policy
     return _paged_logits(pe.paged_steps_for(pol), pe.params,
                          pe._decode_params_for(pol), prompt, stream,
-                         PagedKVPool, pe.to_device, CFG_P.n_layers,
+                         functools.partial(PagedKVPool, device=pe.device),
+                         pe.to_device, CFG_P.n_layers,
                          lambda a: pe.to_device(a.astype(np.int64)))
 
 
@@ -352,9 +366,9 @@ def custom_format():
 def test_mixed_mode_batch_matches_per_mode_solo(params, custom_format,
                                                 backend):
     """M8, M23 and a registered custom format decoding concurrently from
-    one engine (one decode launch per resolved policy per tick): each
-    stream equals its per-mode solo run (static ``generate`` at that
-    policy on ``ref``, a solo scheduled run on the kernels' route)."""
+    one engine (one partitioned-lane decode launch per tick): each stream
+    equals its per-mode solo run (static ``generate`` at that policy on
+    ``ref``, a solo scheduled run on the kernels' route)."""
     modes = ["M8", "M23", custom_format.name]
     prompts = _prompts(6, [5, 4, 6])
     eng = _engine(params, backend=backend)
@@ -372,8 +386,8 @@ def test_mixed_mode_batch_matches_per_mode_solo(params, custom_format,
     got = {r.rid: r.out for r in done}
     for i in range(3):
         assert got[i] == solo[i], (i, modes[i])
-    # one launch per resolved policy per tick (slice 3 makes it one)
-    assert sched.stats()["launches_per_tick"] > 1
+    # every static-format request rides one launch per tick
+    assert sched.stats()["launches_per_tick"] == 1.0
 
 
 def test_request_policy_resolution():

@@ -89,10 +89,12 @@ def test_prefill_and_teacher_forced_decode_logits_match_jax(
                                    atol=rel_tol * np.abs(jl).max())
         cur = np.argmax(jl[:, -1], -1)[:, None].astype(np.int32)
     # every kernel of the static path (decode on pre-limbed weights); the
-    # paged kernel serves the continuous scheduler only
+    # paged and mixed-lane kernels serve the continuous scheduler only
     calls = kernels.plain_call_counts()
+    scheduler_only = ("mp_paged_attention", "mp_mixed_prelimbed_matmul",
+                      "mp_mixed_paged_attention")
     assert all(calls[name] > 0 for name in kernels.KERNELS
-               if name != "mp_paged_attention"), calls
+               if name not in scheduler_only), calls
     assert kernels.launch_counts() == dict.fromkeys(kernels.KERNELS, 0)
 
 
@@ -181,8 +183,31 @@ def test_import_hygiene_no_jax_no_repro():
     assert res["bad"] == []
     assert {"repro_torch.serve.engine", "repro_torch.kernels.build",
             "repro_torch.weights", "repro_torch.serve.kv_cache",
-            "repro_torch.serve.primitives",
+            "repro_torch.serve.primitives", "repro_torch.core.lanes",
             "repro_torch.serve.scheduler"} <= set(res["mods"])
+
+
+def test_ptxas_summary_compares_entries_across_versions():
+    """The register report keys an entry by its mangled name without the
+    anonymous-namespace tag nvcc derives from the file's contents, so the
+    same kernel of two versions of a source meets under one key."""
+    from repro_torch.kernels import build
+
+    def log(tag, regs, spill):
+        return (f"ptxas info    : Compiling entry function '_ZN45_GLOBAL__N"
+                f"__{tag}_12_mp_matmul_cu_3f25466e23prelimbed_matmul_kernel"
+                f"ILi1ELi1ELi4ELi4ELb0EEEvNS_13PrelimbedArgsE' for 'sm_90a'\n"
+                f"    0 bytes stack frame, {spill} bytes spill stores, "
+                f"{spill} bytes spill loads\n"
+                f"ptxas info    : Used {regs} registers, used 1 barriers\n")
+
+    old, new = build.ptxas_summary(log("e0cb4247", 61, 0)), \
+        build.ptxas_summary(log("73b160df", 64, 12))
+    assert list(old) == list(new) == [
+        "_ZN45prelimbed_matmul_kernelILi1ELi1ELi4ELi4ELb0EEEvNS_13"
+        "PrelimbedArgsE"]
+    assert list(old.values()) == [[61, 0, 0]]
+    assert list(new.values()) == [[64, 12, 12]]
 
 
 def test_chip_smoke_fails_without_the_card_or_the_repo(tmp_path):
