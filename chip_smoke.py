@@ -14,6 +14,15 @@ line is not printed):
    the decompose kernel bitwise, the pre-limbed matmul bitwise against the
    fused matmul on the raw weight, and each row (slot) of the two mixed-lane
    kernels bitwise against the homogeneous kernel at its own format;
+3b. ``[modes]``: the paper's six modes through ``repro_torch.mp`` (the
+   quickstart's surface): every built-in format and a run-time M30 on f32
+   operands at the model's prefill shapes, M36 / M52 on two-float (DD)
+   operands at the same shapes and M52 once at the ``lm_head`` shape, AUTO
+   on integer and on float data; launch counts and host reads exact; the
+   both-prelimbed kernel against its plain version, bitwise the fused
+   kernel on limb stacks cut from f32 operands, the DD results below
+   ``8 * 2^-24 * sqrt(K)`` of the float64 golden, AUTO on integers M8 and
+   exact;
 4. the static path: ``ServeEngine.generate`` of the full-width
    ``paper-mpfp-100m`` (random weights from seed 0, raw decode weights) on 8
    prompts of 64..256 tokens, 32 new tokens each, under ``serve_default``;
@@ -32,6 +41,16 @@ line is not printed):
    launches imply, two requests of different modes equal to their solo runs
    bit for bit; then a mixed decode-tick probe (8 slots, two per mode) timed
    against the one-launch-per-policy plan on the same slots, tokens equal;
+4d. ``[auto]``: ``ServeEngine.generate`` under ``PrecisionPolicy.auto()``
+   (paper mode 1 on every matmul but ``lm_head``) on 4 prompts of 64..256
+   tokens, 16 new tokens each: launches and host reads exact, the
+   selections counted, prefill and decode step timed, device busy from the
+   profiler, prefill logits against the ``ref`` backend;
+4e. ``[auto-sched]``: 12 requests at M8 / M16 / M23 / AUTO in turn through
+   the scheduler: two decode launches on every tick where static-format and
+   AUTO requests are both live (one mixed launch, one AUTO bucket), launch
+   counts exact, the AUTO requests' tokens equal to their solo AUTO
+   ``generate`` bit for bit;
 5. a ``kernels`` JSON line: per kernel its launches on its main path, its
    time, the plain version's time, the card's bound and a library call's
    time where one PyTorch call computes the same function.
@@ -73,21 +92,27 @@ SOURCES = {
     "mp_mixed_paged_attention": (
         "src/repro_torch/kernels/csrc/mp_attention.cu",
         "src/repro/kernels/mp_attention.py:346"),
+    "mp_both_prelimbed_matmul": (
+        "src/repro_torch/kernels/csrc/mp_matmul.cu",
+        "src/repro/kernels/mp_matmul.py:182"),
 }
 # the path whose run gives each kernel's ``launches``: the three kernels of
 # slice 1 report the static ``generate`` path, the three of the scheduler
-# slice the scheduler path, the two mixed-lane kernels the mixed-traffic path
+# slice the scheduler path, the two mixed-lane kernels the mixed-traffic path,
+# the both-prelimbed kernel the six-mode path (its DD calls)
 LAUNCH_PATH = {"mp_decompose": "scheduler", "mp_prelimbed_matmul": "scheduler",
                "mp_paged_attention": "scheduler",
                "mp_mixed_prelimbed_matmul": "mixed",
-               "mp_mixed_paged_attention": "mixed"}
+               "mp_mixed_paged_attention": "mixed",
+               "mp_both_prelimbed_matmul": "modes"}
 # launches of one generate(8 prompts, max_new=32) at 12 layers: prefill
 # QKV + SwiGLU per layer; wo, w_down per layer + lm_head; decode adds QK
 # and PV per layer
 EXPECTED = {"mp_fused_proj": 24 + 32 * 24, "mp_flash_attention": 12,
             "mp_fused_matmul": 25 + 32 * 49, "mp_decompose": 0,
             "mp_prelimbed_matmul": 0, "mp_paged_attention": 0,
-            "mp_mixed_prelimbed_matmul": 0, "mp_mixed_paged_attention": 0}
+            "mp_mixed_prelimbed_matmul": 0, "mp_mixed_paged_attention": 0,
+            "mp_both_prelimbed_matmul": 0}
 # the scheduler path: one prelimb decomposes 7 matrices per layer + lm_head;
 # a B=1 paged prefill runs QKV and SwiGLU fused projections, flash attention
 # and wo, w_down per layer + lm_head; a decode launch runs 7 pre-limbed
@@ -103,6 +128,12 @@ PER_MIXED = {"mp_mixed_prelimbed_matmul": 12 * 7 + 1,
 # and a custom format that keeps all four 2-limb products (M16 keeps three)
 CUSTOM = dict(name="M16FULL", mantissa_bits=16, n_limbs=2, max_order=2)
 MODES = ("M8", "M16", "M23", CUSTOM["name"])
+# AUTO (paper mode 1): per layer the three QKV branches, wo, gate, up,
+# w_down and the two attention contractions analyze their operands (one
+# host read each) and launch the fused kernel; lm_head stays M23 (fused)
+AUTO_PER_PASS = 12 * 9
+# the AUTO-traffic modes, request i at AUTO_MODES[i % 4] (None: AUTO policy)
+AUTO_MODES = ("M8", "M16", "M23", None)
 
 
 def log(*args) -> None:
@@ -180,9 +211,12 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     import numpy as np
 
+    import repro_torch.mp as mp
     from repro_torch import kernels
     from repro_torch.configs import paper_mpfp
+    from repro_torch.core import auto as auto_lib
     from repro_torch.core import lanes
+    from repro_torch.core import limbs as limbs_lib
     from repro_torch.core.formats import register_format, resolve
     from repro_torch.core.policy import PrecisionPolicy
     from repro_torch.kernels import build, mp_attention, mp_matmul
@@ -664,6 +698,160 @@ def main() -> int:
          ("M16", custom.name), ("M8", "M23"), ("M23", "M23"),
          ("M36", "M8")])
 
+    # ---- 3b. [modes]: the paper's six modes through repro_torch.mp --------
+    # the quickstart's surface at the model's prefill shapes: f32 operands at
+    # every built-in format and a run-time M30 (4 limbs, order 3), two-float
+    # (DD) operands at M36 / M52, M52 DD once at the lm_head shape, AUTO on
+    # integer and float data; counts zeroed just before, read just after
+    m30 = mp.register_format("M30", mantissa_bits=30, n_limbs=4, max_order=3)
+    f32_fmts = ("M8", "M16", "M23", "M36", "M52", m30.name)
+    mrng = np.random.default_rng(1)
+    mshapes = {"w_up 2048x768x3072": (2048, d, ff),
+               "w_down 2048x3072x768": (2048, ff, d),
+               "lm_head 2048x768x32000": (2048, d, V)}
+    m64 = {k: (mrng.standard_normal((M, K)), mrng.standard_normal((K, N)))
+           for k, (M, K, N) in mshapes.items()}
+    mf32 = {k: tuple(torch.from_numpy(x.astype(np.float32)).to(dev)
+                     for x in v) for k, v in m64.items()}
+    mdd = {k: tuple(limbs_lib.dd_from_f64(x) for x in v)
+           for k, v in m64.items()}
+    ia = torch.from_numpy(mrng.integers(-99, 99, (2048, d)).astype(
+        np.float32)).to(dev)
+    ib = torch.from_numpy(mrng.integers(-99, 99, (d, ff)).astype(
+        np.float32)).to(dev)
+    runs = [(k, f, "f32") for k in list(mshapes)[:2] for f in f32_fmts]
+    runs += [(k, f, "dd") for k in list(mshapes)[:2] for f in ("M36", "M52")]
+    runs += [("lm_head 2048x768x32000", "M52", "dd")]
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    mode_out = {}
+    for k, f, kind in runs:
+        a_, b_ = (mf32 if kind == "f32" else mdd)[k]
+        mode_out[(k, f, kind)] = mp.mp_matmul(a_, b_, f)
+    auto_int = mp.mp_matmul(ia, ib, mp.AUTO)
+    auto_float = mp.mp_matmul(*mf32["w_up 2048x768x3072"], mp.AUTO)
+    torch.cuda.synchronize()
+    modes_s = time.perf_counter() - t0
+    md_launches = kernels.launch_counts()
+    md_reads = auto_lib.mp_matmul_auto.host_reads
+    n_f32 = sum(kind == "f32" for _, _, kind in runs)
+    md_want = {**dict.fromkeys(kernels.KERNELS, 0),
+               "mp_fused_matmul": n_f32 + 2,
+               "mp_both_prelimbed_matmul": len(runs) - n_f32}
+    log(f"[modes] {len(runs)} facade calls + 2 AUTO in {modes_s:.3f} s: "
+        f"launches {md_launches}, AUTO host reads {md_reads}")
+    if (md_launches != md_want or md_reads != 2
+            or any(kernels.plain_call_counts().values())):
+        raise AssertionError(f"[modes] launches {md_launches} != {md_want} "
+                             f"or host reads {md_reads} != 2")
+    modes_rel = {}
+    for (k, f, kind), out in mode_out.items():
+        a64, b64 = m64[k]
+        K = a64.shape[1]
+        gold = (torch.from_numpy(a64).to(dev)
+                @ torch.from_numpy(b64).to(dev))
+        rel = ((out.double() - gold).norm() / gold.norm()).item()
+        modes_rel[f"{k} {f} {kind}"] = rel
+        fmt = resolve(f)
+        if kind == "f32":
+            # tests/test_kernels.py's error model: limb truncation (f32
+            # inputs carry at most 3 limbs) or the f32 accumulation floor
+            lim = max(2.0 ** -(8 * min(fmt.n_limbs, 3) - 2),
+                      8 * U32 * math.sqrt(K))
+        else:
+            lim = 8 * U32 * math.sqrt(K)  # tests/test_kernels.py, DD
+        log(f"[modes] {k} {f} on {kind} operands: rel err vs float64 "
+            f"{rel:.3e} (limit {lim:.3e})")
+        if not torch.isfinite(out).all() or rel >= lim:
+            raise AssertionError(f"[modes] {k} {f} {kind}: rel {rel} >= "
+                                 f"{lim}")
+    for k in list(mshapes)[:2]:
+        r = [modes_rel[f"{k} {f} f32"] for f in ("M8", "M16", "M23")]
+        if not r[0] > r[1] > r[2]:
+            raise AssertionError(f"[modes] {k}: accuracy not monotone in "
+                                 f"the format {r}")
+
+    def both_case(label, al, bl, fmt, out=None, bitwise=None, timed=False,
+                  main=False):
+        """The both-prelimbed kernel's result ``out`` on the stacks (al, bl)
+        (launched here when None) against its plain version; ``bitwise``:
+        the fused kernel's result it must equal bit for bit; ``timed``: a
+        case of the ``[time]`` lines."""
+        fmt = resolve(fmt)
+        if out is None:
+            out = mp_matmul.mp_both_prelimbed_matmul(al, bl, fmt)
+        ref = mp_matmul.both_prelimbed_matmul_plain(al, bl, fmt)
+        torch.cuda.synchronize()
+        K = al.shape[-1]
+        hold("mp_both_prelimbed_matmul", label, out, ref, mm_tol(ref, K),
+             {"fmt": fmt.name, "stored": [al.shape[0], bl.shape[0]]})
+        if bitwise is not None:
+            if not torch.equal(out.view(torch.int32),
+                               bitwise.view(torch.int32)):
+                raise AssertionError(f"mp_both_prelimbed_matmul {label} is "
+                                     "not bitwise mp_fused_matmul")
+            checks["mp_both_prelimbed_matmul"][-1]["bitwise_vs_fused"] = True
+        if not timed:
+            return
+        M, N = out.shape
+        L = fmt.n_limbs
+        ops = 2 * M * K * N * fmt.n_products
+        # the planes the format reads, once each, and C
+        nbytes = (2 * (min(al.shape[0], L) * M * K + min(bl.shape[0], L)
+                       * K * N) + 4 * M * N)
+        cases["mp_both_prelimbed_matmul"].append(dict(
+            case=label, fmt=fmt.name, a=[M, K], b=[K, N], ops=ops,
+            bytes=nbytes, main=main, per=None,
+            fn=lambda: mp_matmul.mp_both_prelimbed_matmul(al, bl, fmt),
+            plain=lambda: mp_matmul.both_prelimbed_matmul_plain(al, bl, fmt),
+            library=None))
+
+    # the DD calls of the facade: the kernel against its plain version on
+    # the same stacks (decompose_dd's, plain PyTorch on the card)
+    for (k, f, kind), out in mode_out.items():
+        if kind != "dd":
+            continue
+        n = resolve(f).n_limbs
+        al, bl = (limbs_lib.decompose_dd(x, n) for x in mdd[k])
+        main = k.startswith("lm_head")
+        both_case(f"DD {k} {f}", al, bl, f, out=out, main=main,
+                  timed=main or (k.startswith("w_down") and f == "M36"))
+    # on stacks cut from f32 operands: bitwise the fused kernel's result
+    a32, b32 = mf32["w_up 2048x768x3072"]
+    for f in f32_fmts:
+        n = resolve(f).n_limbs
+        both_case(f"w_up 2048x768x3072 {f} on decompose(a), decompose(b)",
+                  mp_matmul.mp_decompose(a32, n),
+                  mp_matmul.mp_decompose(b32, n), f,
+                  bitwise=mode_out[("w_up 2048x768x3072", f, "f32")])
+    ra, rb = randn(37, 300), randn(300, 77)
+    both_case("ragged 37x300x77 M52 from 3 and 7 stored",
+              mp_matmul.mp_decompose(ra, 3), mp_matmul.mp_decompose(rb, 7),
+              "M52")
+    # AUTO: M8 on integers with an exact product; the float data's choice
+    int_gold = ia.double() @ ib.double()
+    rep_int = mp.auto_report(ia, ib)
+    rep_float = mp.auto_report(*mf32["w_up 2048x768x3072"])
+    exact = torch.equal(auto_int.double(), int_gold)
+    log(f"[modes] AUTO on integers: {rep_int['selected_format']} "
+        f"(sig limbs {rep_int['sig_limbs_a']}/{rep_int['sig_limbs_b']}), "
+        f"product exact {exact}; on floats: {rep_float['selected_format']} "
+        f"(sig limbs {rep_float['sig_limbs_a']}/{rep_float['sig_limbs_b']})")
+    if rep_int["selected_format"] != "M8" or not exact:
+        raise AssertionError("[modes] AUTO on integers is not an exact M8")
+    float_fmt = rep_float["selected_format"]
+    if not torch.equal(auto_float,
+                       mode_out[("w_up 2048x768x3072", float_fmt, "f32")]):
+        raise AssertionError("[modes] AUTO on floats is not its selected "
+                             "format's result")
+    report["modes"] = dict(
+        seconds=modes_s, launches=md_launches, host_reads=md_reads,
+        rel_vs_f64=modes_rel, auto_int=rep_int["selected_format"],
+        auto_float=float_fmt, auto_int_exact=exact)
+    del mode_out, mf32, mdd, auto_int, auto_float, int_gold
+    torch.cuda.empty_cache()
+
     # ---- 4. the main path -------------------------------------------------
     params = T.init_params(cfg, seed=0, device=dev)
     eng = ServeEngine(cfg, params, max_batch=8, max_seq=512,
@@ -1000,6 +1188,219 @@ def main() -> int:
         kernel_launches_per_tick=per_tick, kernel_busy_ms_per_tick=busy_ms,
         device_ms_per_tick_by_name=busy_by_name)
 
+    del m_eng, m_sched, probes
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    # ---- 4d. [auto]: generate under PrecisionPolicy.auto() ----------------
+    auto_pol = PrecisionPolicy.auto()
+    a_lengths = [int(n) for n in np.linspace(64, 256, 4)]
+    a_prompts = [rng.integers(1, cfg.vocab, size=n).astype(np.int64)
+                 for n in a_lengths]
+    a_new = 16
+    a_eng = ServeEngine(cfg, params, max_batch=4, max_seq=512,
+                        policy=auto_pol)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    a_outs = a_eng.generate(a_prompts, max_new=a_new)
+    torch.cuda.synchronize()
+    a_gen_s = time.perf_counter() - t0
+    a_launches = kernels.launch_counts()
+    a_reads = auto_lib.mp_matmul_auto.host_reads
+    passes = 1 + a_new  # the prefill and a_new decode steps
+    a_want = {**dict.fromkeys(kernels.KERNELS, 0),
+              "mp_fused_matmul": passes * (AUTO_PER_PASS + 1)}
+    log(f"[auto] generate 4 prompts {a_lengths} x {a_new} new: "
+        f"{a_gen_s:.3f} s, {4 * a_new / a_gen_s:.1f} tokens/s, launches "
+        f"{a_launches}, host reads {a_reads} ({smi})")
+    if (a_launches != a_want or a_reads != passes * AUTO_PER_PASS
+            or any(kernels.plain_call_counts().values())
+            or a_eng.prelimb_cache_misses != 0):
+        raise AssertionError(f"[auto] launches {a_launches} != {a_want} or "
+                             f"host reads {a_reads} != "
+                             f"{passes * AUTO_PER_PASS}")
+    if any(len(o) != a_new or not all(0 <= t < cfg.vocab for t in o)
+           for o in a_outs):
+        raise AssertionError("[auto] generate returned malformed streams")
+    a_toks = a_eng.pad_prompts(a_prompts)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    a_logits, a_cache = a_eng.prefill(a_toks, a_eng.make_cache())
+    torch.cuda.synchronize()
+    a_prefill_ms = (time.perf_counter() - t0) * 1e3
+    cur = a_logits[:, -1].argmax(-1)[:, None]
+
+    def a_steps(n):
+        nonlocal a_cache, cur
+        for _ in range(n):
+            lg, a_cache = a_eng.decode(a_cache, cur)
+            cur = lg[:, -1].argmax(-1)[:, None]
+
+    a_steps(1)
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    a_steps(8)
+    torch.cuda.synchronize()
+    a_step_ms = (time.perf_counter() - t0) / 8 * 1e3
+    a_reads_step = auto_lib.mp_matmul_auto.host_reads / 8
+    a_busy, a_busy_names = device_busy_ms(lambda: a_steps(4))
+    a_busy /= 4
+    # which formats AUTO selected, on one more prefill and decode step (the
+    # recording reads the index a second time, so it is kept out of the
+    # timed runs)
+    picks = {}
+    real_select = auto_lib.select_mode_index
+
+    def recording_select(*args, **kw):
+        idx = real_select(*args, **kw)
+        cands = args[2] if len(args) > 2 else kw.get("candidates")
+        name = resolve(cands[int(idx)]).name
+        picks[name] = picks.get(name, 0) + 1
+        return idx
+
+    auto_lib.select_mode_index = recording_select
+    try:
+        lg, c2 = a_eng.prefill(a_toks, a_eng.make_cache())
+        a_eng.decode(c2, lg[:, -1].argmax(-1)[:, None])
+    finally:
+        auto_lib.select_mode_index = real_select
+    ref_a = ServeEngine(cfg, params, max_batch=4, max_seq=512,
+                        matmul_backend="ref", policy=auto_pol)
+    ref_logits, _ = ref_a.prefill(a_toks, ref_a.make_cache())
+    a, b = a_logits[:, -1].double(), ref_logits[:, -1].double()
+    a_rel = ((a - b).norm() / b.norm()).item()
+    log(f"[auto] prefill {a_prefill_ms:.1f} ms; decode {a_step_ms:.3f} "
+        f"ms/step, {a_reads_step:.1f} host reads per step, device busy "
+        f"{a_busy:.3f} ms/step (idle share "
+        f"{max(0.0, 1 - a_busy / a_step_ms):.3f}); selections over one "
+        f"prefill + one decode step {picks}; last-token logits vs ref "
+        f"backend: rel {a_rel:.3e} (tol {rel_tol:.3e}) ({smi})")
+    log("[auto] decode step device ms by name: " + ", ".join(
+        f"{n} {ms / 4:.3f}" for n, ms in list(a_busy_names.items())[:6]))
+    if not torch.isfinite(a_logits).all() or a_rel > rel_tol:
+        raise AssertionError("[auto] prefill logits disagree with the ref "
+                             "backend")
+    report["auto"] = dict(
+        lengths=a_lengths, max_new=a_new, generate_s=a_gen_s,
+        tokens_per_s=4 * a_new / a_gen_s, launches=a_launches,
+        host_reads=a_reads, prefill_ms=a_prefill_ms,
+        decode_ms_per_step=a_step_ms, host_reads_per_step=a_reads_step,
+        device_busy_ms_per_step=a_busy,
+        device_ms_per_step_by_name={n: ms / 4
+                                    for n, ms in a_busy_names.items()},
+        selections=picks, logits_rel_vs_ref=a_rel)
+    del ref_a, a_cache, c2
+    torch.cuda.empty_cache()
+
+    # ---- 4e. [auto-sched]: static-format and AUTO requests together -------
+    def auto_requests(ids, spaced=True):
+        reqs = requests(ids, spaced)
+        for r in reqs:
+            mode = AUTO_MODES[r.rid % len(AUTO_MODES)]
+            r.max_new = a_new
+            if mode is None:
+                r.policy = auto_pol
+            else:
+                r.mode = mode
+        return reqs
+
+    n_as = 12
+    plans = []
+    real_plan = prim.decode_tick_plan
+
+    def recording_plan(reqs, base):
+        plan = real_plan(reqs, base)
+        n_auto = sum(r.policy is auto_pol for r in reqs)
+        plans.append((len(reqs) - n_auto, n_auto,
+                      [(kind, all(r.policy is auto_pol for r in g))
+                       for kind, g in plan]))
+        return plan
+
+    prim.decode_tick_plan = recording_plan
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        as_eng = ServeEngine(cfg, params, max_batch=8, max_seq=512,
+                             prelimb_weights=True, policy=policy)
+        as_sched = ContinuousScheduler(as_eng, n_blocks=160, block_size=16)
+        as_done = as_sched.run(auto_requests(range(n_as)))
+        torch.cuda.synchronize()
+        as_run_s = time.perf_counter() - t0
+        as_launches = kernels.launch_counts()
+        as_reads = auto_lib.mp_matmul_auto.host_reads
+        as_plain = kernels.plain_call_counts()
+    finally:
+        prim.decode_tick_plan = real_plan
+    as_stats = as_sched.stats()
+    both_live = [p for p in plans if p[0] and p[1]]
+    n_auto_launch = sum(is_auto for p in plans for _, is_auto in p[2])
+    n_mixed_launch = sum(k == "mixed" for p in plans for k, _ in p[2])
+    n_static_bucket = sum(k == "bucket" and not is_auto
+                          for p in plans for k, is_auto in p[2])
+    n_auto_req = sum(AUTO_MODES[i % 4] is None for i in range(n_as))
+    n_static_pf = as_stats["prefills"] - n_auto_req
+    misses = as_eng.prelimb_cache_misses
+    as_want = {k: misses * PER_PRELIMB.get(k, 0)
+               + n_static_pf * PER_PREFILL.get(k, 0)
+               + n_static_bucket * PER_DECODE.get(k, 0)
+               + n_mixed_launch * PER_MIXED.get(k, 0)
+               for k in kernels.KERNELS}
+    as_want["mp_fused_matmul"] += ((n_auto_req + n_auto_launch)
+                                   * (AUTO_PER_PASS + 1))
+    as_reads_want = (n_auto_req + n_auto_launch) * AUTO_PER_PASS
+    both_per_tick = (sum(len(p[2]) for p in both_live)
+                     / max(len(both_live), 1))
+    log(f"[auto-sched] {n_as} requests, modes "
+        f"{[m or 'AUTO' for m in AUTO_MODES]} in turn, prompts "
+        f"{sched_lengths[0]}..{sched_lengths[-1]} x {a_new} new, arrivals 2 "
+        f"ticks apart: run {as_run_s:.3f} s (prelimbs included), "
+        f"{as_stats['useful_tokens'] / as_run_s:.1f} tokens/s, "
+        f"{as_stats['steps']} ticks, {len(both_live)} with static and AUTO "
+        f"requests live at {both_per_tick} launches each; decode launches "
+        f"{n_mixed_launch} mixed, {n_static_bucket} static bucket, "
+        f"{n_auto_launch} AUTO bucket; launches {as_launches}, host reads "
+        f"{as_reads} ({smi})")
+    if not both_live or any(len(p[2]) != 2 for p in both_live):
+        raise AssertionError(f"[auto-sched] ticks with static and AUTO "
+                             f"requests live are not two launches: {plans}")
+    if as_launches != as_want or as_reads != as_reads_want \
+            or any(as_plain.values()):
+        raise AssertionError(f"[auto-sched] launches {as_launches} != "
+                             f"{as_want} or host reads {as_reads} != "
+                             f"{as_reads_want} (plain {as_plain})")
+    as_out = {r.rid: r.out for r in as_done}
+    if (len(as_out) != n_as or as_stats["completed"] != n_as
+            or any(len(o) != a_new for o in as_out.values())
+            or as_stats["blocks_live"] != 0):
+        raise AssertionError(f"[auto-sched] run malformed: {as_stats}")
+    # the AUTO requests == their solo AUTO generate, bit for bit
+    auto_ids = [i for i in range(n_as) if AUTO_MODES[i % 4] is None]
+    for i in auto_ids:
+        solo = a_eng.generate([sched_prompts[i]], max_new=a_new)[0]
+        if solo != as_out[i]:
+            first = next(t for t, (x, y) in enumerate(zip(solo, as_out[i]))
+                         if x != y)
+            raise AssertionError(f"[auto-sched] AUTO request {i}: scheduled "
+                                 f"stream differs from its solo generate "
+                                 f"at token {first}")
+    log(f"[auto-sched] AUTO requests {auto_ids}: scheduled streams == solo "
+        f"AUTO generate bitwise")
+    report["auto_sched"] = dict(
+        modes=[m or "AUTO" for m in AUTO_MODES], n_requests=n_as,
+        max_new=a_new, run_s=as_run_s,
+        tokens_per_s=as_stats["useful_tokens"] / as_run_s, stats=as_stats,
+        launches=as_launches, host_reads=as_reads,
+        ticks_both_live=len(both_live),
+        launches_per_tick_both_live=both_per_tick,
+        mixed_launches=n_mixed_launch, static_bucket_launches=n_static_bucket,
+        auto_bucket_launches=n_auto_launch, solo_bitwise=auto_ids)
+    del as_eng, as_sched, a_eng
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
     # ---- 5. the kernels line -----------------------------------------------
     line = []
     for kname, (src, replaces) in SOURCES.items():
@@ -1022,7 +1423,9 @@ def main() -> int:
         main_row = next(r for r in rows if r["main"])
         by_path = {"generate": launches[kname],
                    "scheduler": s_launches[kname],
-                   "mixed": m_launches[kname]}
+                   "mixed": m_launches[kname], "modes": md_launches[kname],
+                   "auto": a_launches[kname],
+                   "auto_sched": as_launches[kname]}
         line.append({
             "name": kname, "route": "cuda", "source": src,
             "replaces": replaces,

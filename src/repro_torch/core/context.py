@@ -1,8 +1,9 @@
 """Explicit precision context (PyTorch port of ``repro.core.context``).
 
-Carries the two fields the serving slice reads: the dispatch ``backend``
-(``"cuda"``, the hand-written kernels, by default; ``"ref"``, the oracle,
-only when a caller asks for it) and the active ``policy``.
+Carries the dispatch ``backend`` (``"cuda"``, the hand-written kernels, by
+default; ``"ref"``, the oracle, only when a caller asks for it), the active
+``policy``, and the AUTO controller's candidate formats and analysis
+tolerance (``auto_candidates``, ``auto_tol``).
 ``configure(...)`` replaces the process default; ``with context(...)``
 pushes a scoped override on a ``contextvars`` ContextVar, so concurrent
 threads may run under different settings.
@@ -12,9 +13,17 @@ from __future__ import annotations
 import contextlib
 import contextvars
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
+from repro_torch.core.formats import FormatLike, PrecisionMode, resolve
 from repro_torch.core.policy import PrecisionPolicy
+
+# default AUTO candidate set: the fp32-representable built-in modes
+DEFAULT_AUTO_CANDIDATES: Tuple[PrecisionMode, ...] = (
+    PrecisionMode.M8,
+    PrecisionMode.M16,
+    PrecisionMode.M23,
+)
 
 _UNSET = object()
 
@@ -25,6 +34,8 @@ class PrecisionContext:
 
     backend: str = "cuda"
     policy: Optional[PrecisionPolicy] = None
+    auto_candidates: Tuple[FormatLike, ...] = DEFAULT_AUTO_CANDIDATES
+    auto_tol: float = 2.0**-13
 
     def replace(self, **kw) -> "PrecisionContext":
         return dataclasses.replace(self, **kw)
@@ -50,7 +61,7 @@ def current_context() -> PrecisionContext:
 
 
 def _validate(kw) -> None:
-    unknown = set(kw) - {"backend", "policy"}
+    unknown = set(kw) - {"backend", "policy", "auto_candidates", "auto_tol"}
     if unknown:
         raise TypeError(f"unknown context fields {sorted(unknown)}")
     backend = kw.get("backend", _UNSET)
@@ -60,6 +71,15 @@ def _validate(kw) -> None:
         if backend not in dispatch.available_backends():
             raise ValueError(f"unknown backend {backend!r}; have "
                              f"{dispatch.available_backends()}")
+    cands = kw.get("auto_candidates", _UNSET)
+    if cands is not _UNSET:
+        if not cands:
+            raise ValueError("auto_candidates must name at least one format")
+        for cand in cands:
+            # AUTO cannot be its own candidate: select_mode_index ranks
+            # static formats by limb count; resolve() raises on AUTO and on
+            # unknown names, here rather than at the first AUTO call
+            resolve(cand)
 
 
 def configure(**kw) -> PrecisionContext:

@@ -10,9 +10,12 @@ Two backends:
         asks for it.
 
 Pre-limbed weights (:class:`~repro_torch.core.limbs.PrelimbedWeight`) route
-to the pre-limbed kernel on ``cuda`` and to the oracle on ``ref``; paged
-decode attention routes to the paged kernel on ``cuda`` and to the
-``pool[table]`` gather plus :func:`masked_decode_attention` on ``ref``.
+to the pre-limbed kernel on ``cuda`` and to the oracle on ``ref``; two-float
+operands (:class:`~repro_torch.core.limbs.DD`) to the both-prelimbed kernel
+on ``cuda`` and to the oracle on ``ref``; paged decode attention routes to
+the paged kernel on ``cuda`` and to the ``pool[table]`` gather plus
+:func:`masked_decode_attention` on ``ref``, and under AUTO formats to that
+gather on every backend.
 The partitioned-lane (mixed-format decode) routes go to the mixed kernels
 on ``cuda`` and to the lane-masked oracle on ``ref``.  The sharded route of
 the JAX package is not ported yet (ROADMAP.md).
@@ -26,7 +29,7 @@ import torch
 
 from repro_torch.core import context as context_lib
 from repro_torch.core.formats import FormatLike, is_auto, resolve
-from repro_torch.core.limbs import PrelimbedWeight
+from repro_torch.core.limbs import DD, PrelimbedWeight
 from repro_torch.kernels import ref as ref_backend
 
 BACKENDS = ("cuda", "ref")
@@ -43,15 +46,18 @@ def _backend(backend: Optional[str]) -> str:
     return name
 
 
-def dispatch(a: torch.Tensor, b, mode: FormatLike, *,
+def dispatch(a, b, mode: FormatLike, *,
              backend: Optional[str] = None) -> torch.Tensor:
     """Route one static-format matmul a (..., M, K) @ b (..., K, N); ``b``
-    may be a 2-D :class:`PrelimbedWeight`."""
+    may be a 2-D :class:`PrelimbedWeight`, and either operand a 2-D
+    :class:`DD` pair."""
     fmt = resolve(mode)
     if _backend(backend) == "ref":
         return ref_backend.mp_matmul_ref(a, b, fmt)
     from repro_torch.kernels import ops
 
+    if isinstance(a, DD) or isinstance(b, DD):
+        return ops.mp_matmul_dd(a, b, fmt)
     if isinstance(b, PrelimbedWeight):
         if b.ndim != 2:
             raise ValueError("prelimbed weights must be 2-D per matmul")
@@ -141,23 +147,22 @@ def dispatch_paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
     ``cuda`` runs the paged kernel: pool blocks are read straight through
     the table, the contiguous ``pool[table]`` gather never materializes.
     ``ref`` gathers the table's columns (bounded: the scheduler slices the
-    table to its used width) and runs :func:`masked_decode_attention`."""
+    table to its used width) and runs :func:`masked_decode_attention`.
+    AUTO formats analyze raw operand values, so they take that gather on
+    every backend (its contractions run AUTO through ``mp_matmul``)."""
     B, S1, H, Dh = q.shape
-    if is_auto(mode_qk) or is_auto(mode_pv):
-        raise NotImplementedError("AUTO (paper mode 1) is not ported yet: "
-                                  "see ROADMAP.md 'Slice 4: DD and AUTO'")
-    fmt_qk = resolve(mode_qk)
-    fmt_pv = resolve(mode_pv if mode_pv is not None else mode_qk)
-    if _backend(backend) == "cuda":
+    mode_pv = mode_pv if mode_pv is not None else mode_qk
+    name = _backend(backend)
+    if name == "cuda" and not (is_auto(mode_qk) or is_auto(mode_pv)):
         from repro_torch.kernels import mp_attention as attn_kernels
 
         out = attn_kernels.mp_paged_attention(
             q.reshape(B, H, Dh), k_pool, v_pool, block_table, lengths,
-            fmt_qk, fmt_pv, scale=scale)
+            resolve(mode_qk), resolve(mode_pv), scale=scale)
         return out.reshape(B, S1, H, Dh).to(q.dtype)
     kk, vv = _gather_pages(k_pool, v_pool, block_table, H)
-    return masked_decode_attention(q, kk, vv, lengths, fmt_qk, fmt_pv,
-                                   scale=scale, backend="ref")
+    return masked_decode_attention(q, kk, vv, lengths, mode_qk, mode_pv,
+                                   scale=scale, backend=name)
 
 
 def _gather_pages(k_pool: torch.Tensor, v_pool: torch.Tensor,

@@ -260,7 +260,8 @@ def resolve(f: FormatLike) -> MPFormat:
     if is_auto(f):
         raise ValueError(
             "AUTO is a dispatch mode, not a static format; resolve a static "
-            "format first (the port has no AUTO controller yet).")
+            "format first (core.auto.select_mode_index) or call mp_matmul "
+            "with mode=AUTO")
     if isinstance(f, str):
         return get_format(f)
     if isinstance(f, (int, PrecisionMode)):

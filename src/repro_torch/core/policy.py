@@ -315,3 +315,24 @@ class PrecisionPolicy:
         """Decode-optimized: single-pass bf16 with precise logits."""
         return cls({"qkv": "M8", "attn_logits": "M16", "attn_out": "M8",
                     "ffn": "M8", "moe_expert": "M8", "lm_head": "M16"})
+
+    @classmethod
+    def auto(cls) -> "PrecisionPolicy":
+        """Paper mode 1 everywhere: per-op run-time operand analysis
+        (``lm_head`` keeps its built-in default)."""
+        return cls({c: "AUTO" for c in ("qkv", "attn_logits", "attn_out",
+                                        "ffn", "moe_expert", "ssm",
+                                        "frontend")})
+
+
+# the canonical recipes the port has, by name (the JAX package's training
+# recipes come with the training slice)
+POLICIES = {
+    "full_fp32": PrecisionPolicy.full_fp32,
+    "serve_default": PrecisionPolicy.serve_default,
+    "auto": PrecisionPolicy.auto,
+}
+
+
+def get_policy(name: str) -> PrecisionPolicy:
+    return POLICIES[name]()

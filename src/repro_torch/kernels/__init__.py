@@ -1,11 +1,14 @@
 """The port's kernels: hand-written CUDA (``csrc/``) behind PyTorch wrappers,
 each with its plain PyTorch version and two counters: ``launches`` (kernel
 launches, counted where the kernel is launched and nowhere else) and
-``plain_calls`` (calls on CPU tensors, which run the plain version)."""
+``plain_calls`` (calls on CPU tensors, which run the plain version).  Beside
+them, ``core.auto.mp_matmul_auto.host_reads`` counts the AUTO controller's
+reads of its selected format back to the host."""
 from repro_torch.kernels.mp_attention import mp_flash_attention, \
     mp_mixed_paged_attention, mp_paged_attention
-from repro_torch.kernels.mp_matmul import mp_decompose, mp_fused_matmul, \
-    mp_fused_proj, mp_mixed_prelimbed_matmul, mp_prelimbed_matmul
+from repro_torch.kernels.mp_matmul import mp_both_prelimbed_matmul, \
+    mp_decompose, mp_fused_matmul, mp_fused_proj, mp_mixed_prelimbed_matmul, \
+    mp_prelimbed_matmul
 
 # every kernel wrapper of the port, by name
 KERNELS = {
@@ -17,13 +20,19 @@ KERNELS = {
     "mp_paged_attention": mp_paged_attention,
     "mp_mixed_prelimbed_matmul": mp_mixed_prelimbed_matmul,
     "mp_mixed_paged_attention": mp_mixed_paged_attention,
+    "mp_both_prelimbed_matmul": mp_both_prelimbed_matmul,
 }
 
 
 def reset_launch_counts() -> None:
+    """Zero every wrapper's counters and the AUTO controller's count of
+    host reads (``core.auto.mp_matmul_auto.host_reads``)."""
+    from repro_torch.core.auto import mp_matmul_auto
+
     for fn in KERNELS.values():
         fn.launches = 0
         fn.plain_calls = 0
+    mp_matmul_auto.host_reads = 0
 
 
 def launch_counts() -> dict:

@@ -20,6 +20,11 @@
 //                                                      depth, each row at its
 //                                                      own lane format:
 //                                                      mixed-format decode)
+//   both_prelimbed_matmul_kernel  replaces _both_prelimbed_kernel  (A and B
+//                                                      both as stored bf16
+//                                                      limb planes: two-float
+//                                                      DD operands, modes 5
+//                                                      and 6)
 //
 // What they compute: C = sum over the format's kept limb pairs (i, j) of
 // A_i * B_j, where X_i is the i-th bf16 limb of the f32 operand (the
@@ -102,9 +107,10 @@ __device__ __forceinline__ float combine_orders(const float (&acc)[NO], int mo) 
   return s + c;
 }
 
-// Stored bf16 limb planes of a pre-limbed B operand (the serving path's
-// PrelimbedWeight): plane j of element (k, n) at p[j * plane + k * sr + n].
-// Planes j >= n_stored count as zero and are never read.
+// Stored bf16 limb planes of a pre-limbed operand (the serving path's
+// PrelimbedWeight, or a DD operand's limbs): plane j of element (r, c) at
+// p[j * plane + r * sr + c].  Planes j >= n_stored count as zero and are
+// never read.
 struct Planes {
   const __nv_bfloat16* p;
   int64_t plane, sr;
@@ -122,16 +128,18 @@ struct Planes {
 // LN: each row m runs at its own lane (ln[m] limbs, order cut lo[m]) at or
 // below the (n_limbs, max_order) envelope; a product the row's lane leaves
 // out skips its FMA, so the row's accumulators see exactly the FMAs, in the
-// same order, as a homogeneous run at the lane's format.
+// same order, as a homogeneous run at the lane's format.  PLA: A comes as
+// stored limb planes too (``ap``); on planes cut from f32 operands the
+// run is bitwise the f32 run, as for PL.
 template <int NL, int NO, int NOUT, int RM, int RN, bool GEN, bool PL = false,
-          bool LN = false>
+          bool LN = false, bool PLA = false>
 __device__ __forceinline__ void mainloop(
     const float* __restrict__ A, int64_t a_sr, int64_t a_sc,
     const float* const* B, int64_t b_sr, int64_t b_sc,
     int64_t M, int64_t N, int64_t K, int64_t m0, int64_t n0,
     int n_limbs, int max_order, float (&acc)[NOUT][NO][RM][RN],
     Planes bp = Planes{}, const int32_t* __restrict__ ln = nullptr,
-    const int32_t* __restrict__ lo = nullptr) {
+    const int32_t* __restrict__ lo = nullptr, Planes ap = Planes{}) {
   constexpr int BM = TY * RM;
   constexpr int BN = TX * RN;
   __shared__ __nv_bfloat16 As[NL][BK][BM];
@@ -165,17 +173,35 @@ __device__ __forceinline__ void mainloop(
   }
 
   for (int64_t k0 = 0; k0 < K; k0 += BK) {
-    // A tile: read once, limbed once, shared by every output and thread
-    for (int idx = tid; idx < BM * BK; idx += NT) {
-      const int mm = idx / BK;
-      const int kk = idx % BK;
-      const int64_t gm = m0 + mm;
-      const int64_t gk = k0 + kk;
-      const float x = (gm < M && gk < K) ? A[gm * a_sr + gk * a_sc] : 0.f;
-      __nv_bfloat16 l[NL];
-      extract_limbs<NL>(x, l);
+    if constexpr (PLA) {
+      // A's stored planes, as PL reads B's: only planes below both the
+      // stored count and the format's limb count leave device memory
+      const int nst = ap.n_stored < nl ? ap.n_stored : nl;
+      const __nv_bfloat16 zero = __float2bfloat16_rn(0.f);
+      for (int idx = tid; idx < BM * BK; idx += NT) {
+        const int mm = idx / BK;
+        const int kk = idx % BK;
+        const int64_t gm = m0 + mm;
+        const int64_t gk = k0 + kk;
+        const bool in = gm < M && gk < K;
+        const __nv_bfloat16* src = ap.p + gm * ap.sr + gk;
 #pragma unroll
-      for (int i = 0; i < NL; ++i) As[i][kk][mm] = l[i];
+        for (int i = 0; i < NL; ++i)
+          As[i][kk][mm] = (in && i < nst) ? src[i * ap.plane] : zero;
+      }
+    } else {
+      // A tile: read once, limbed once, shared by every output and thread
+      for (int idx = tid; idx < BM * BK; idx += NT) {
+        const int mm = idx / BK;
+        const int kk = idx % BK;
+        const int64_t gm = m0 + mm;
+        const int64_t gk = k0 + kk;
+        const float x = (gm < M && gk < K) ? A[gm * a_sr + gk * a_sc] : 0.f;
+        __nv_bfloat16 l[NL];
+        extract_limbs<NL>(x, l);
+#pragma unroll
+        for (int i = 0; i < NL; ++i) As[i][kk][mm] = l[i];
+      }
     }
     if constexpr (PL) {
       // stored planes, read as they are: only planes below both the stored
@@ -266,15 +292,18 @@ struct MatmulArgs {
 
 // One (BM x BN) tile at (blockIdx.y, blockIdx.x) of C = A @ B at the format,
 // B as f32 values or (PL) as stored limb planes, rows at their own lanes
-// (LN): the body of fused_matmul_kernel, prelimbed_matmul_kernel and
-// mixed_prelimbed_matmul_kernel, so the three share every add of every
-// output element.
-template <int NL, int NO, int RM, int RN, bool GEN, bool PL, bool LN = false>
+// (LN), A as stored limb planes (PLA): the body of fused_matmul_kernel,
+// prelimbed_matmul_kernel, mixed_prelimbed_matmul_kernel and
+// both_prelimbed_matmul_kernel, so the four share every add of every output
+// element.
+template <int NL, int NO, int RM, int RN, bool GEN, bool PL, bool LN = false,
+          bool PLA = false>
 __device__ __forceinline__ void matmul_tile(
     const float* A, int64_t a_sr, int64_t a_sc, const float* B, int64_t b_sr,
     int64_t b_sc, Planes bp, float* C, int64_t c_sr, int64_t c_sc, int64_t M,
     int64_t N, int64_t K, int n_limbs, int max_order,
-    const int32_t* ln = nullptr, const int32_t* lo = nullptr) {
+    const int32_t* ln = nullptr, const int32_t* lo = nullptr,
+    Planes ap = Planes{}) {
   constexpr int BM = TY * RM;
   constexpr int BN = TX * RN;
   const float* const Bt[1] = {B};
@@ -282,9 +311,10 @@ __device__ __forceinline__ void matmul_tile(
   const int64_t n0 = (int64_t)blockIdx.x * BN;
 
   float acc[1][NO][RM][RN];
-  mainloop<NL, NO, 1, RM, RN, GEN, PL, LN>(A, a_sr, a_sc, Bt, b_sr, b_sc, M, N,
-                                           K, m0, n0, n_limbs, max_order, acc,
-                                           bp, ln, lo);
+  mainloop<NL, NO, 1, RM, RN, GEN, PL, LN, PLA>(A, a_sr, a_sc, Bt, b_sr, b_sc,
+                                                M, N, K, m0, n0, n_limbs,
+                                                max_order, acc, bp, ln, lo,
+                                                ap);
   const int mo = GEN ? max_order : NO - 1;
   const int tx = threadIdx.x % TX;
   const int ty = threadIdx.x / TX;
@@ -365,6 +395,33 @@ __global__ void __launch_bounds__(NT)
   matmul_tile<NL, NO, RM, RN, GEN, true, true>(
       p.m.a, p.m.a_sr, 1, nullptr, 0, 0, p.m.b, p.m.c, p.m.c_sr, 1, p.m.M,
       p.m.N, p.m.K, p.m.n_limbs, p.m.max_order, p.lane_n, p.lane_ord);
+}
+
+struct BothPrelimbedArgs {
+  Planes a;              // (La, M, K) limb planes, column stride 1
+  Planes b;              // (Lb, K, N) limb planes, column stride 1
+  float* c;              // (M, N), column stride 1
+  int64_t c_sr;
+  int64_t M, N, K;
+  int n_limbs, max_order;
+};
+
+// Port of _both_prelimbed_kernel (build_prelimbed_call(both=True)): both
+// operands read from stored bf16 limb planes, the path of two-float (DD)
+// operands, whose ~49 mantissa bits no f32 can hold (M36 and M52 on wider
+// than fp32 inputs; the f32 side of a mixed DD x f32 call comes from the
+// decompose kernel).  Same tiles, products, per-order accumulators and
+// _combine_orders flush as fused_matmul_kernel, so on planes decomposed
+// from f32 operands it returns fused_matmul_kernel's result on them, bit for
+// bit.  Bound at the prefill shapes by its limb products (28 for M52), like
+// the fused kernel: the planes it reads are half the bytes per limb of an
+// f32 operand, but 7 of them are read.
+template <int NL, int NO, int RM, int RN, bool GEN>
+__global__ void __launch_bounds__(NT)
+    both_prelimbed_matmul_kernel(BothPrelimbedArgs p) {
+  matmul_tile<NL, NO, RM, RN, GEN, true, false, true>(
+      nullptr, 0, 0, nullptr, 0, 0, p.b, p.c, p.c_sr, 1, p.M, p.N, p.K,
+      p.n_limbs, p.max_order, nullptr, nullptr, p.a);
 }
 
 // Port of _decompose_kernel: x (n f32 values) -> n_limbs bf16 planes of n
@@ -477,6 +534,16 @@ cudaError_t launch_mixed_prelimbed(const MixedPrelimbedArgs& p,
   const dim3 grid((unsigned)((p.m.N + TX * R - 1) / (TX * R)),
                   (unsigned)((p.m.M + TY * R - 1) / (TY * R)), 1);
   mixed_prelimbed_matmul_kernel<NL, NO, R, R, GEN><<<grid, NT, 0, st>>>(p);
+  return cudaGetLastError();
+}
+
+template <int NL, int NO, bool GEN>
+cudaError_t launch_both_prelimbed(const BothPrelimbedArgs& p,
+                                  cudaStream_t st) {
+  constexpr int R = micro(NO, 1, GEN);
+  const dim3 grid((unsigned)((p.N + TX * R - 1) / (TX * R)),
+                  (unsigned)((p.M + TY * R - 1) / (TY * R)), 1);
+  both_prelimbed_matmul_kernel<NL, NO, R, R, GEN><<<grid, NT, 0, st>>>(p);
   return cudaGetLastError();
 }
 
@@ -663,6 +730,47 @@ int mp_mixed_prelimbed_matmul_launch(const void* a, int64_t a_sr,
   else if (nl == 5 && mo == 4) err = launch_mixed_prelimbed<5, 5, false>(p, st);
   else if (nl == 7 && mo == 6) err = launch_mixed_prelimbed<7, 7, false>(p, st);
   else err = launch_mixed_prelimbed<GEN_NL, GEN_NO, true>(p, st);
+  return (int)err;
+}
+
+// C (M, N) = A @ B at (n_limbs, max_order), A given as na_stored bf16 limb
+// planes of (M, K) (plane stride a_plane, row stride a_sr) and B as
+// nb_stored planes of (K, N) (b_plane, b_sr); column strides of the planes
+// and C are 1.  Planes at or past min(n_stored, n_limbs) of either operand
+// are never read.  Returns the CUDA error of the launch (0 on success).
+// Allocates nothing and does not synchronise.
+int mp_both_prelimbed_matmul_launch(const void* a, int64_t a_plane,
+                                    int64_t a_sr, int64_t na_stored,
+                                    const void* b, int64_t b_plane,
+                                    int64_t b_sr, int64_t nb_stored, void* c,
+                                    int64_t c_sr, int64_t M, int64_t N,
+                                    int64_t K, int64_t n_limbs,
+                                    int64_t max_order, void* stream) {
+  if (!format_ok(n_limbs, max_order) || na_stored < 1 || nb_stored < 1)
+    return (int)cudaErrorInvalidValue;
+  if (M == 0 || N == 0) return 0;
+  BothPrelimbedArgs p{};
+  p.a = Planes{static_cast<const __nv_bfloat16*>(a), a_plane, a_sr,
+               (int)na_stored};
+  p.b = Planes{static_cast<const __nv_bfloat16*>(b), b_plane, b_sr,
+               (int)nb_stored};
+  p.c = static_cast<float*>(c);
+  p.c_sr = c_sr;
+  p.M = M;
+  p.N = N;
+  p.K = K;
+  p.n_limbs = (int)n_limbs;
+  p.max_order = (int)max_order;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int nl = (int)n_limbs;
+  const int mo = (int)max_order;
+  cudaError_t err;
+  if (nl == 1 && mo == 0) err = launch_both_prelimbed<1, 1, false>(p, st);
+  else if (nl == 2 && mo == 1) err = launch_both_prelimbed<2, 2, false>(p, st);
+  else if (nl == 3 && mo == 2) err = launch_both_prelimbed<3, 3, false>(p, st);
+  else if (nl == 5 && mo == 4) err = launch_both_prelimbed<5, 5, false>(p, st);
+  else if (nl == 7 && mo == 6) err = launch_both_prelimbed<7, 7, false>(p, st);
+  else err = launch_both_prelimbed<GEN_NL, GEN_NO, true>(p, st);
   return (int)err;
 }
 

@@ -1,7 +1,8 @@
 """Multi-precision limb matmul kernels: wrappers, plain versions and launch
 counters (port of the Pallas ``_fused_kernel``, ``_fused_multi_kernel``,
-``_prelimbed_kernel``, ``_mixed_prelimbed_kernel`` and ``_decompose_kernel``
-of ``repro.kernels.mp_matmul``).
+``_prelimbed_kernel``, ``_mixed_prelimbed_kernel``,
+``_both_prelimbed_kernel`` and ``_decompose_kernel`` of
+``repro.kernels.mp_matmul``).
 
 Each wrapper runs its plain PyTorch version for CPU tensors and launches its
 CUDA kernel (``csrc/mp_matmul.cu``) for CUDA tensors — there is no fallback
@@ -92,6 +93,19 @@ def prelimbed_matmul_plain(a: torch.Tensor, limbs: torch.Tensor,
     return combine_orders(_order_sums(al, bl, s))
 
 
+def both_prelimbed_matmul_plain(al: torch.Tensor, bl: torch.Tensor,
+                                fmt: FormatLike) -> torch.Tensor:
+    """Plain version of ``mp_both_prelimbed_matmul``: the (M, K) operand
+    whose (La, M, K) bf16 limb stack is ``al`` @ the (K, N) operand whose
+    (Lb, K, N) stack is ``bl`` (missing limbs zero, extra limbs ignored).
+    The per-order sums and their combine are :func:`fused_matmul_plain`'s,
+    so on stacks decomposed from f32 operands the two agree bit for bit."""
+    s = resolve(fmt)
+    al = ref._limbs_of(limbs_lib.PrelimbedWeight(al), s.n_limbs)
+    bl = ref._limbs_of(limbs_lib.PrelimbedWeight(bl), s.n_limbs)
+    return combine_orders(_order_sums(al, bl, s))
+
+
 def mixed_prelimbed_matmul_plain(a: torch.Tensor, limbs: torch.Tensor,
                                  env: FormatLike, lane_n: torch.Tensor,
                                  lane_ord: torch.Tensor) -> torch.Tensor:
@@ -175,6 +189,9 @@ def _set_argtypes(lib) -> None:
     lib.mp_mixed_prelimbed_matmul_launch.argtypes = [
         _P, _I, _P, _I, _I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
     lib.mp_mixed_prelimbed_matmul_launch.restype = ctypes.c_int
+    lib.mp_both_prelimbed_matmul_launch.argtypes = [
+        _P, _I, _I, _I, _P, _I, _I, _I, _P, _I, _I, _I, _I, _I, _I, _P]
+    lib.mp_both_prelimbed_matmul_launch.restype = ctypes.c_int
     lib.mp_decompose_launch.argtypes = [_P, _P, _I, _I, _P]
     lib.mp_decompose_launch.restype = ctypes.c_int
     lib._mp_matmul_typed = True
@@ -264,21 +281,26 @@ def launch_fused_proj(lib, stream: int, a: torch.Tensor,
     return out
 
 
+def _check_stack(limbs: torch.Tensor, what: str) -> None:
+    if limbs.ndim != 3 or limbs.dtype != torch.bfloat16:
+        raise ValueError(f"{what} must be an (L, rows, cols) bf16 limb stack, "
+                         f"got {tuple(limbs.shape)} {limbs.dtype}")
+    if limbs.stride(-1) != 1:
+        raise ValueError(f"{what} needs unit column stride")
+
+
 def _prelimbed_operands(a: torch.Tensor, limbs: torch.Tensor):
     """Checked operands of a pre-limbed launch: a (M, K) f32 with unit
     column stride, the (L, K, N) bf16 stack as it is, and the output."""
     a = _f32(a)
     if a.stride(-1) != 1:
         a = a.contiguous()
+    _check_stack(limbs, "limb stack")
     M, K = a.shape
     L, K2, N = limbs.shape
     if K != K2:
         raise ValueError(f"contraction mismatch {tuple(a.shape)} @ limb "
                          f"stack {tuple(limbs.shape)}")
-    if limbs.dtype != torch.bfloat16:
-        raise ValueError(f"limb stack must be bf16, got {limbs.dtype}")
-    if limbs.stride(-1) != 1:
-        raise ValueError("limb stack needs unit column stride")
     c = torch.empty((M, N), dtype=torch.float32, device=a.device)
     return a, c
 
@@ -321,6 +343,28 @@ def launch_mixed_prelimbed_matmul(lib, stream: int, a: torch.Tensor,
         c.data_ptr(), c.stride(0), M, N, K, env.n_limbs, env.max_order,
         stream)
     build.check(err, "mp_mixed_prelimbed_matmul")
+    return c
+
+
+def launch_both_prelimbed_matmul(lib, stream: int, al: torch.Tensor,
+                                 bl: torch.Tensor, fmt: MPFormat
+                                 ) -> torch.Tensor:
+    """Marshal one ``mp_both_prelimbed_matmul_launch`` call: the (La, M, K)
+    and (Lb, K, N) bf16 limb stacks, read in place (planes the format does
+    not need are never read)."""
+    _set_argtypes(lib)
+    _check_stack(al, "A limb stack")
+    _check_stack(bl, "B limb stack")
+    (La, M, K), (Lb, K2, N) = al.shape, bl.shape
+    if K != K2:
+        raise ValueError(f"contraction mismatch: limb stacks "
+                         f"{tuple(al.shape)} @ {tuple(bl.shape)}")
+    c = torch.empty((M, N), dtype=torch.float32, device=al.device)
+    err = lib.mp_both_prelimbed_matmul_launch(
+        al.data_ptr(), al.stride(0), al.stride(1), La, bl.data_ptr(),
+        bl.stride(0), bl.stride(1), Lb, c.data_ptr(), c.stride(0), M, N, K,
+        fmt.n_limbs, fmt.max_order, stream)
+    build.check(err, "mp_both_prelimbed_matmul")
     return c
 
 
@@ -439,6 +483,28 @@ def mp_mixed_prelimbed_matmul(a: torch.Tensor, limbs: torch.Tensor,
 
 mp_mixed_prelimbed_matmul.launches = 0
 mp_mixed_prelimbed_matmul.plain_calls = 0
+
+
+def mp_both_prelimbed_matmul(al: torch.Tensor, bl: torch.Tensor,
+                             fmt: FormatLike) -> torch.Tensor:
+    """(M, K) @ (K, N) at ``fmt`` -> (M, N) f32, both operands given as
+    their bf16 limb stacks, (La, M, K) and (Lb, K, N): the DD operand path
+    (modes 5 and 6 on operands wider than f32).  Limbs a stack lacks are
+    zero, limbs past the format's are ignored.  CPU tensors run
+    :func:`both_prelimbed_matmul_plain`; CUDA tensors launch the kernel."""
+    fmt = resolve(fmt)
+    if _on_cpu(al, bl):
+        mp_both_prelimbed_matmul.plain_calls += 1
+        return both_prelimbed_matmul_plain(al, bl, fmt)
+    stream = _cuda_stream(al, bl)
+    out = launch_both_prelimbed_matmul(build.load("mp_matmul"), stream, al,
+                                       bl, fmt)
+    mp_both_prelimbed_matmul.launches += 1
+    return out
+
+
+mp_both_prelimbed_matmul.launches = 0
+mp_both_prelimbed_matmul.plain_calls = 0
 
 
 def mp_decompose(w: torch.Tensor, n_limbs: int) -> torch.Tensor:

@@ -2,7 +2,8 @@
 ``mp_matmul_pallas`` / ``mp_fused_proj_pallas`` / ``mp_mixed_matmul_pallas``
 wrappers of ``repro.kernels.ops``): batch folding, the both-batched case,
 the concatenation along N for unequal (GQA) projection widths, and the
-per-row lanes of the mixed-format decode matmul.
+per-row lanes of the mixed-format decode matmul, and the limb stacks of
+two-float (DD) operands.
 
 These are the ``cuda`` backend of ``core/dispatch.py``.  The kernel wrappers
 they call run their plain versions for CPU tensors, so the same shape logic
@@ -14,11 +15,12 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core import limbs as limbs_lib
 from repro_torch.core.formats import FormatLike, resolve
-from repro_torch.core.limbs import PrelimbedWeight
-from repro_torch.kernels.mp_matmul import MAX_OUT, mp_decompose, \
-    mp_fused_matmul, mp_fused_proj, mp_mixed_prelimbed_matmul, \
-    mp_prelimbed_matmul
+from repro_torch.core.limbs import DD, PrelimbedWeight
+from repro_torch.kernels.mp_matmul import MAX_OUT, \
+    mp_both_prelimbed_matmul, mp_decompose, mp_fused_matmul, mp_fused_proj, \
+    mp_mixed_prelimbed_matmul, mp_prelimbed_matmul
 
 
 def mp_matmul_cuda(a: torch.Tensor, b: torch.Tensor, mode: FormatLike = "M16"
@@ -33,6 +35,25 @@ def mp_matmul_cuda(a: torch.Tensor, b: torch.Tensor, mode: FormatLike = "M16"
         out = mp_fused_matmul(a.reshape(-1, a.shape[-1]), b, fmt)
         return out.reshape(lead + (b.shape[-1],))
     return mp_fused_matmul(a, b, fmt)
+
+
+def mp_matmul_dd(a, b, mode: FormatLike) -> torch.Tensor:
+    """DD-capable matmul (port of ``ops._matmul2d_dd``): a (M, K) @ b (K, N)
+    where either operand may be a :class:`DD` pair.  Both operands become
+    limb stacks at the format's depth, a DD through ``limbs.decompose_dd``
+    and an f32 tensor through the decompose kernel; then one launch of the
+    both-prelimbed kernel.  2-D operands only, as in the JAX package."""
+    fmt = resolve(mode)
+    if a.ndim != 2 or b.ndim != 2:
+        raise ValueError(f"DD operands are 2-D only, got {tuple(a.shape)} @ "
+                         f"{tuple(b.shape)}")
+
+    def stack(x):
+        if isinstance(x, DD):
+            return limbs_lib.decompose_dd(x, fmt.n_limbs)
+        return mp_decompose(x, fmt.n_limbs)
+
+    return mp_both_prelimbed_matmul(stack(a), stack(b), fmt)
 
 
 def mp_fused_proj_cuda(x: torch.Tensor, ws, mode: FormatLike = "M16", *,

@@ -19,16 +19,18 @@ import torch
 
 from repro_torch.core import limbs as limbs_lib
 from repro_torch.core.formats import FormatLike, resolve
-from repro_torch.core.limbs import PrelimbedWeight
+from repro_torch.core.limbs import DD, PrelimbedWeight
 
 ATTN_NEG_INF = -1e30
 
 
 def _limbs_of(x, n_limbs: int) -> torch.Tensor:
-    """(n_limbs, ..., K, N) bf16 limbs of an operand.  A
-    :class:`PrelimbedWeight` gives its stored planes: missing ones are zero
-    (the value carries no bits beyond its stored precision), extra ones are
-    ignored."""
+    """(n_limbs, ..., K, N) bf16 limbs of an operand.  A :class:`DD` pair
+    gives ``decompose_dd``'s limbs; a :class:`PrelimbedWeight` its stored
+    planes: missing ones are zero (the value carries no bits beyond its
+    stored precision), extra ones are ignored."""
+    if isinstance(x, DD):
+        return limbs_lib.decompose_dd(x, n_limbs)
     if not isinstance(x, PrelimbedWeight):
         return limbs_lib.decompose(x, n_limbs)
     planes = x.limbs.movedim(-3, 0)
@@ -144,13 +146,19 @@ def mp_matmul_ref(a: torch.Tensor, b, mode: FormatLike = "M16"
                   ) -> torch.Tensor:
     """Multi-precision matmul oracle: a (..., M, K) @ b (..., K, N) with
     ``torch.matmul`` broadcasting -> (..., M, N) f32.  ``b`` may be a
-    :class:`PrelimbedWeight`."""
+    :class:`PrelimbedWeight`; either may be a :class:`DD` pair (M8 takes
+    its high word only, as the JAX oracle does)."""
     s = resolve(mode)
     if s.n_limbs == 1:
         # M8: one bf16 x bf16 product, f32 accumulation
-        return _mm(a.to(torch.bfloat16), _limbs_of(b, 1)[0])
-    return _matmul_limbs(limbs_lib.decompose(a, s.n_limbs),
-                         _limbs_of(b, s.n_limbs), s)
+        def one_limb(x):
+            if isinstance(x, PrelimbedWeight):
+                return _limbs_of(x, 1)[0]
+            return (x.hi if isinstance(x, DD) else x).to(torch.bfloat16)
+
+        return _mm(one_limb(a), one_limb(b))
+    return _matmul_limbs(_limbs_of(a, s.n_limbs), _limbs_of(b, s.n_limbs),
+                         s)
 
 
 def silu(x: torch.Tensor) -> torch.Tensor:
@@ -201,10 +209,14 @@ def mp_fused_proj_ref(x: torch.Tensor, ws, mode: FormatLike, *,
 
 
 def matmul_golden_f64(a, b) -> np.ndarray:
-    """Host-side float64 golden product (numpy) — the accuracy yardstick."""
-    a64 = np.asarray(torch.as_tensor(a).detach().cpu(), np.float64)
-    b64 = np.asarray(torch.as_tensor(b).detach().cpu(), np.float64)
-    return a64 @ b64
+    """Host-side float64 golden product (numpy) — the accuracy yardstick;
+    a :class:`DD` operand enters as ``hi + lo`` in float64."""
+    def f64(x):
+        if isinstance(x, DD):
+            return limbs_lib.dd_to_f64(x)
+        return np.asarray(torch.as_tensor(x).detach().cpu(), np.float64)
+
+    return f64(a) @ f64(b)
 
 
 # ---------------------------------------------------------------------------

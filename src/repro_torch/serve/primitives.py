@@ -14,7 +14,7 @@ is a thin state machine over:
     :func:`decode_mixed_step` — one decode tick: every request with static
     formats rides ONE decode launch (the engine's paged step for a
     homogeneous group, its partitioned-lane mixed step for a heterogeneous
-    one); only AUTO requests would bucket per policy;
+    one); AUTO requests bucket per policy, on one more launch;
   * the **numerical guardrail** — every step returns one max-|logit| scalar
     per slot; :func:`guard_check` turns it into a per-slot verdict and
     :func:`escalate_mode` is the recovery dial (M8 -> M16 -> M23);

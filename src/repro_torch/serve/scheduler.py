@@ -237,8 +237,8 @@ class ContinuousScheduler:
         The plan buckets by shape, not by format: every static-format
         request rides ONE launch per tick, a homogeneous set on the
         per-policy step, a heterogeneous set on the partitioned-lane mixed
-        step.  Only AUTO-policy requests would bucket per policy.  Returns
-        True if any work was done."""
+        step.  AUTO-policy requests bucket per policy (one more launch).
+        Returns True if any work was done."""
         self._sweep_deadlines()
         admitted = self._admit()
         active = [r for r in self._slots if r is not None]

@@ -395,3 +395,100 @@ def test_smoke_scheduler_mixed_modes_on_the_card(cuda, custom_format):
     assert counts["mp_mixed_prelimbed_matmul"] > 0
     assert counts["mp_mixed_paged_attention"] > 0
     assert sum(kernels.plain_call_counts().values()) == 0
+
+
+@pytest.mark.parametrize("mode,na,nb", [
+    ("M8", 1, 1), ("M16", 2, 2), ("M23", 3, 3), ("M36", 5, 5), ("M52", 7, 7),
+    (CUSTOM, 4, 4), ("M52", 3, 7), ("M23", 5, 2)])
+def test_both_prelimbed_kernel_matches_plain_and_fused(cuda, custom_format,
+                                                       mode, na, nb):
+    """The DD path's kernel at the f32 floor against its plain version on
+    stacks of any stored depth, and bitwise the fused kernel on the raw
+    operands whenever both stacks hold every limb the format needs."""
+    a, b = _randn(cuda, 70, 200, seed=80), _randn(cuda, 200, 90, seed=81)
+    al, bl = mp_matmul.mp_decompose(a, na), mp_matmul.mp_decompose(b, nb)
+    before = mp_matmul.mp_both_prelimbed_matmul.launches
+    out = mp_matmul.mp_both_prelimbed_matmul(al, bl, mode)
+    assert mp_matmul.mp_both_prelimbed_matmul.launches == before + 1
+    _assert_mm_close(out, mp_matmul.both_prelimbed_matmul_plain(al, bl, mode),
+                     200)
+    if min(na, nb) >= resolve(mode).n_limbs:
+        assert torch.equal(out.view(torch.int32),
+                           mp_matmul.mp_fused_matmul(a, b, mode)
+                           .view(torch.int32))
+
+
+@pytest.mark.parametrize("mode", ["M36", "M52"])
+def test_dd_matmul_on_the_card_beats_the_f32_floor(cuda, mode):
+    """tests/test_kernels.py's DD bound on the card: M36/M52 on two-float
+    operands below 8 * 2^-24 * sqrt(K) of the float64 golden, and the
+    limbs of each pair bitwise the CPU's (subnormal hi words included)."""
+    from repro_torch.core import limbs
+    from repro_torch.core.mpmatmul import mp_matmul as mm
+
+    rng = np.random.default_rng(82)
+    a64, b64 = rng.standard_normal((96, 300)), rng.standard_normal((300, 77))
+    a, b = limbs.dd_from_f64(a64), limbs.dd_from_f64(b64)
+    before = mp_matmul.mp_both_prelimbed_matmul.launches
+    out = mm(a, b, mode)
+    assert mp_matmul.mp_both_prelimbed_matmul.launches == before + 1
+    gold = a64 @ b64
+    rel = np.linalg.norm(out.cpu().numpy() - gold) / np.linalg.norm(gold)
+    assert rel < 8 * 2.0 ** -24 * math.sqrt(300), rel
+    tiny = limbs.dd_from_f64(a64 * 2.0 ** -140)
+    for d in (a, tiny):
+        dev = limbs.decompose_dd(d, 7)
+        cpu = limbs.decompose_dd(limbs.DD(d.hi.cpu(), d.lo.cpu()), 7)
+        assert torch.equal(dev.cpu().view(torch.int16), cpu.view(torch.int16))
+
+
+def test_auto_selection_on_the_card(cuda):
+    """AUTO on the card: the analysis stays a device tensor, one host read
+    per call, M8 on integers with an exact product, the CPU's selection on
+    full-mantissa data."""
+    from repro_torch.core import auto, limbs
+
+    rng = np.random.default_rng(83)
+    ai = torch.from_numpy(rng.integers(-50, 50, (64, 96)).astype(np.float32))
+    bi = torch.from_numpy(rng.integers(-50, 50, (96, 40)).astype(np.float32))
+    k = limbs.significant_limbs(ai.to(cuda))
+    assert k.device.type == "cuda" and k.dtype == torch.int32
+    kernels.reset_launch_counts()
+    out = auto.mp_matmul_auto(ai.to(cuda), bi.to(cuda))
+    assert auto.mp_matmul_auto.host_reads == 1
+    assert kernels.launch_counts()["mp_fused_matmul"] == 1
+    assert torch.equal(out.cpu(), (ai.double() @ bi.double()).float())
+    assert auto.auto_report(ai.to(cuda), bi.to(cuda))["selected_format"] \
+        == "M8"
+    a, b = _randn(cuda, 64, 96, seed=84), _randn(cuda, 96, 40, seed=85)
+    assert int(auto.select_mode_index(a, b)) == \
+        int(auto.select_mode_index(a.cpu(), b.cpu()))
+
+
+def test_smoke_scheduler_auto_beside_mixed_on_the_card(cuda):
+    """Static-format and AUTO requests together on the card: two launches
+    per tick (one mixed, one AUTO bucket), the AUTO stream equal to its
+    solo run bit for bit."""
+    from repro_torch.core.policy import PrecisionPolicy
+    from repro_torch.serve.scheduler import ContinuousScheduler, \
+        ScheduledRequest
+
+    cfg = paper_mpfp.SMOKE
+    eng = ServeEngine(cfg, T.init_params(cfg, seed=0), max_batch=4,
+                      max_seq=64)
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(1, cfg.vocab, size=n) for n in (5, 3, 9)]
+    auto = PrecisionPolicy.auto()
+
+    def req(i):
+        return ScheduledRequest(rid=i, prompt=prompts[i], max_new=6,
+                                mode=(None if i == 2 else ("M8", "M23")[i]),
+                                policy=auto if i == 2 else None)
+
+    sched = ContinuousScheduler(eng, n_blocks=32, block_size=8)
+    got = {r.rid: r.out for r in sched.run([req(i) for i in range(3)])}
+    solo = ContinuousScheduler(eng, n_blocks=32, block_size=8).run(
+        [req(2)])[0].out
+    assert got[2] == solo
+    assert sched.stats()["launches_per_tick"] == 2.0
+    assert sum(kernels.plain_call_counts().values()) == 0

@@ -107,9 +107,3 @@ def test_wrapper_launches_only_for_cuda_tensors():
     assert pkern.mp_fused_matmul.plain_calls == before_p + 1
     torch.testing.assert_close(out, pkern.fused_matmul_plain(a, b, "M16"),
                                rtol=0, atol=0)
-
-
-def test_auto_mode_is_not_ported_yet():
-    a = torch.ones(2, 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        mp_matmul(a, a, "AUTO")

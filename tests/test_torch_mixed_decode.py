@@ -16,9 +16,9 @@ port the invariants are bitwise, as the JAX suite's
 (tests/test_mixed_decode.py): a lane row is its homogeneous row, and a
 request's stream does not depend on which formats decode beside it.
 
-Not here: ``test_auto_requests_still_bucket_apart`` of the JAX suite waits
-for AUTO, which the port takes up in slice 4 (ROADMAP.md); until then the
-port's ops raise ``NotImplementedError`` on AUTO."""
+The JAX suite's ``test_auto_requests_still_bucket_apart`` (an AUTO request
+on its own launch beside one mixed launch: two launches per tick) is held
+with the rest of AUTO in tests/test_torch_auto.py."""
 import itertools
 
 import jax
