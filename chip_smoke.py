@@ -12,8 +12,11 @@ line is not printed):
 3. each kernel against its plain PyTorch version on the card, at the serving
    path's shapes and formats plus M23/M36 (and more) for the matmul kernels;
    the decompose kernel bitwise, the pre-limbed matmul bitwise against the
-   fused matmul on the raw weight, and each row (slot) of the two mixed-lane
-   kernels bitwise against the homogeneous kernel at its own format;
+   fused matmul on the raw weight, each decode case (M <= 16 rows: the
+   decode tile) of the fused and pre-limbed matmuls bitwise against the
+   same rows of an M = 70 launch (the 64x64 tile), and each row (slot) of
+   the two mixed-lane kernels bitwise against the homogeneous kernel at its
+   own format;
 3b. ``[modes]``: the paper's six modes through ``repro_torch.mp`` (the
    quickstart's surface): every built-in format and a run-time M30 on f32
    operands at the model's prefill shapes, M36 / M52 on two-float (DD)
@@ -52,8 +55,11 @@ line is not printed):
    counts exact, the AUTO requests' tokens equal to their solo AUTO
    ``generate`` bit for bit;
 5. a ``kernels`` JSON line: per kernel its launches on its main path, its
-   time, the plain version's time, the card's bound and a library call's
-   time where one PyTorch call computes the same function.
+   device time (CUDA events around calls enqueued behind a sleep kernel, so
+   the card runs them back to back; the time of calls issued one after the
+   other from the host beside it as ``event_ms``), the plain version's, the
+   card's bound and a library call's device time where one PyTorch call
+   computes the same function.
 
 The last line is ``{"ok": true, "device": {...}}``.  A report with every
 number goes to ``chiprun_out/chip_smoke.json``.  Exits non-zero without a
@@ -196,6 +202,39 @@ def device_busy_ms(fn):
     return total, dict(sorted(by_name.items(), key=lambda kv: -kv[1]))
 
 
+def device_ms(fn, torch, min_ms: float = 30.0):
+    """Mean device milliseconds per call with the host ahead of the card,
+    and whether it stayed ahead: a sleep kernel holds the stream while the
+    host enqueues the calls, so the CUDA events time them back to back on
+    the card, without the launch gaps that set :func:`timed` for a call of a
+    few microseconds.  Where the sleep ran out before the host had enqueued
+    the last call (the start event had passed), the run is made again with
+    half the calls and twice the sleep; after five runs the last one's time
+    comes back with ``False``."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    once = max(time.perf_counter() - t0, 1e-6) * 1e3  # ms, host and card
+    n = max(3, min(200, int(min_ms / once)))
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    for attempt in range(5):
+        # ~2e6 cycles per ms at the card's boost clock (a lower clock only
+        # makes the sleep longer), twice the host's n enqueues and more
+        torch.cuda._sleep(int(2e6 * (2 ** (attempt + 1) * n * once + 1.0)))
+        start.record()
+        for _ in range(n):
+            fn()
+        end.record()
+        ahead = not start.query()
+        torch.cuda.synchronize()
+        if ahead:
+            break
+        n = max(3, n // 2)
+    return start.elapsed_time(end) / n, ahead
+
+
 def bound(ops: float, nbytes: float, peak_ops: float = PEAK_OPS):
     t_ops, t_bytes = ops / peak_ops, nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
@@ -281,6 +320,26 @@ def main() -> int:
         rms = ref.pow(2).mean().sqrt()
         return 2e-6 * ref.abs() + 8 * U32 * math.sqrt(K) * rms
 
+    gen70 = torch.Generator(device=dev).manual_seed(70)
+
+    def decode_rows_bitwise(kernel, label, fn, a, out):
+        """A decode case (M <= 16 rows: the decode tile) against the same
+        rows of one launch at M = 70 (the 64x64 tile), bit for bit."""
+        M = a.shape[-2]
+        if M > 16:
+            return
+        pad = torch.randn(*a.shape[:-2], 70 - M, a.shape[-1],
+                          generator=gen70, device=dev)
+        big = fn(torch.cat([a, pad], dim=-2))[..., :M, :]
+        torch.cuda.synchronize()
+        if not torch.equal(out.view(torch.int32), big.view(torch.int32)):
+            raise AssertionError(f"{kernel} {label}: rows of the M = {M} "
+                                 "launch are not bitwise the M = 70 "
+                                 "launch's")
+        checks[kernel][-1]["bitwise_vs_m70"] = True
+        log(f"[check] {kernel} {label}: M = {M} rows == M = 70 rows "
+            "bitwise")
+
     def matmul_case(label, a, b, fmt, main=False, library=False, per=None):
         fmt = resolve(fmt)
         out = mp_matmul.mp_fused_matmul(a, b, fmt)
@@ -289,6 +348,9 @@ def main() -> int:
         K = a.shape[-1]
         hold("mp_fused_matmul", label, out, ref, mm_tol(ref, K),
              {"fmt": fmt.name})
+        decode_rows_bitwise("mp_fused_matmul", label,
+                            lambda x: mp_matmul.mp_fused_matmul(x, b, fmt),
+                            a, out)
         nb = out.numel() // (out.shape[-1] * out.shape[-2])
         M, N = out.shape[-2:]
         ops = 2 * nb * M * K * N * fmt.n_products
@@ -401,6 +463,9 @@ def main() -> int:
                 raise AssertionError(f"mp_prelimbed_matmul {label} is not "
                                      "bitwise mp_fused_matmul")
             checks["mp_prelimbed_matmul"][-1]["bitwise_vs_fused"] = True
+        decode_rows_bitwise(
+            "mp_prelimbed_matmul", label,
+            lambda x: mp_matmul.mp_prelimbed_matmul(x, limbs, fmt), a, out)
         M, N = out.shape
         ops = 2 * M * K * N * fmt.n_products
         # only the planes the format reads leave device memory
@@ -593,6 +658,12 @@ def main() -> int:
                 library=True, per=("decode", L))
     matmul_case("decode lm_head 8x768x32000", randn(8, d),
                 randn(d, V) * 0.03, "M16", per=("decode", 1))
+    # a partly filled decode micro-batch (own generator: every other case
+    # keeps its data)
+    for m in (1, 4):
+        matmul_case(f"decode w_down {m}x3072x768",
+                    torch.randn(m, ff, generator=gen70, device=dev), w_down,
+                    "M8", library=True)
     matmul_case("wo 2048x768x768 M23", x, randn(d, d), "M23")
     matmul_case("wo 2048x768x768 M36", x, randn(d, d), "M36")
     matmul_case("ragged 1000x700x300 M23", randn(1000, 700),
@@ -646,6 +717,10 @@ def main() -> int:
                    2, main=True, library=True, per=("tick", L))
     prelimbed_case("decode lm_head 8x768x32000 M16", x8, w_lm, "M16", 2,
                    per=("tick", 1))
+    for m in (1, 4):
+        prelimbed_case(f"decode w_down {m}x3072x768 M8",
+                       torch.randn(m, ff, generator=gen70, device=dev),
+                       w_down, "M8", 2, library=True)
     prelimbed_case("decode wo M16 from 1 stored limb", x8, w_o, "M16", 1)
     # the formats of the mixed-traffic tick, homogeneous, at w_down's shape:
     # what each launch of the per-policy plan runs and what the mixed kernel
@@ -1406,20 +1481,29 @@ def main() -> int:
     for kname, (src, replaces) in SOURCES.items():
         rows = []
         for c in cases[kname]:
-            ms = timed(c["fn"], torch)
-            plain_ms = timed(c["plain"], torch)
-            lib_ms = timed(c["library"], torch) if c["library"] else None
+            ms, ahead = device_ms(c["fn"], torch)
+            event_ms = timed(c["fn"], torch)
+            plain_ms, plain_ahead = device_ms(c["plain"], torch)
+            lib_ms, lib_ahead = (device_ms(c["library"], torch)
+                                 if c["library"] else (None, True))
             b_ms, b_by = bound(c["ops"], c["bytes"],
                                c.get("peak", PEAK_OPS))
             row = {k: v for k, v in c.items()
                    if k not in ("fn", "plain", "library", "peak")}
-            row.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                       bound_ms=b_ms, bound_by=b_by)
+            # False where the host fell behind the card even so
+            host_ahead = dict(ms=ahead, plain_ms=plain_ahead,
+                              library_ms=lib_ahead)
+            row.update(ms=ms, event_ms=event_ms, plain_ms=plain_ms,
+                       library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+                       host_ahead=host_ahead)
             rows.append(row)
-            log(f"[time] {kname} {c['case']} {c['fmt']}: {ms:.4f} ms, plain "
+            behind = [k for k, v in host_ahead.items() if not v]
+            log(f"[time] {kname} {c['case']} {c['fmt']}: {ms:.4f} ms "
+                f"(back to back from the host {event_ms:.4f} ms), plain "
                 f"{plain_ms:.4f} ms, library "
                 f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound "
-                f"{b_ms:.4f} ms ({b_by})")
+                f"{b_ms:.4f} ms ({b_by})"
+                + (f"; host behind the card for {behind}" if behind else ""))
         main_row = next(r for r in rows if r["main"])
         by_path = {"generate": launches[kname],
                    "scheduler": s_launches[kname],

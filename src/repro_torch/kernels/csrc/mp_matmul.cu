@@ -34,17 +34,28 @@
 // combine of _combine_orders: start from the highest order, walk down, and
 // take the |s| >= |t| branch of the compensation.
 //
-// What bounds them on this card, and what the design does about it: the
-// decode shapes (M = 8 rows against a 768 x 2304 weight) are bound by the
-// bytes of the weight; the prefill shapes (M = 2048) are bound by the limb
-// products.  This first version multiplies bf16-rounded limbs with f32 FMAs
-// on the CUDA cores (a bf16 x bf16 product is exact in f32, so each FMA adds
-// the exact product): every operand element is read from device memory once
-// per tile, limbed once in registers as it is loaded, and kept in shared
-// memory as bf16 limb planes that all threads of the block reuse.  The
-// multi-output kernel limbs its A tile once for all n_out weights.  Ragged
-// edges are masked in the loads and stores; nothing is padded in device
-// memory.  Tensor-core MMA (mma.sync / wgmma) and TMA are later work.
+// What bounds them on this card, and what the design does about it: every
+// kernel multiplies bf16-rounded limbs with f32 FMAs on the CUDA cores (a
+// bf16 x bf16 product is exact in f32, so each FMA adds the exact product),
+// and each output element is one serial fmaf chain over k ascending, one
+// accumulator per order: that order is what keeps pre-limbed == fused,
+// mixed rows == homogeneous rows and scheduled == solo bit for bit, so no
+// kernel splits K or sums through a tensor-core MMA.
+//
+// The prefill shapes (M = 2048) are bound by the limb products: a 64 x 64
+// output tile per 256-thread block (mainloop), every operand element read
+// from device memory once per tile, limbed once as it is loaded, and kept in
+// shared memory as bf16 limb planes that all threads of the block reuse; the
+// multi-output kernel limbs its A tile once for all n_out weights.
+//
+// The decode shapes (M <= 16 rows) of the fused and pre-limbed kernels are
+// bound by the fmaf chain (K times the deepest order's products, ~4 cycles
+// each: ~7 us at K = 3072 for M8) and by the bytes of the weight (the planes
+// the format reads, or the f32 weight).  They take the decode tile
+// (decode_tile): rows sized to M, 16 columns per block so that N = 768 runs
+// 48 blocks, and B streamed through a cp.async ring so that the loads of the
+// next stages overlap this stage's FMAs.  Ragged edges are masked in the
+// loads and stores; nothing is padded in device memory.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 --fmad=false
 // (no --use_fast_math).  --fmad=false keeps every a*b+c outside the explicit
@@ -335,6 +346,409 @@ __device__ __forceinline__ void matmul_tile(
   }
 }
 
+// ---------------------------------------------------------------------------
+// The decode tile: the body of fused_matmul_kernel and prelimbed_matmul_kernel
+// when M <= DEC_M (a decode micro-batch of 1..16 rows, or one row per batch
+// entry of decode attention's QK and PV).
+//
+// Invariant: every output element gets exactly the fmaf()s mainloop gives it,
+// in the same order, so a row has the same bits whichever tile ran it (and
+// pre-limbed == fused, mixed rows == homogeneous rows and scheduled == solo
+// keep holding).  For k ascending over 0..K-1, then i, then j over the kept
+// pairs: acc[i + j] = fmaf(a_i, b_j, acc[i + j]), planes at or past the
+// stored count read as +0.0 as mainloop reads them, then combine_orders with
+// the same mo.  mainloop runs K up to a multiple of BK on zero-filled tiles:
+// fmaf(+0, +0, acc) is the identity except that it turns an accumulator of
+// -0.0 (a sum that underflowed from below) into +0.0, and is idempotent, so
+// the tile adds one such step at the end when K % BK != 0.  No split over K,
+// no tensor-core MMA: either would reorder the adds.
+//
+// Design: the block owns DEC_N columns and all M rows, one output element per
+// compute thread (M * DEC_N of them), so a thread carries only its NO
+// accumulators, and N = 768 runs 48 blocks.  Two or four producer warps
+// (warp specialisation) stream A and B through a ring of DecRing::S stages
+// of up to DecRing::K k each in dynamic shared memory, by cp.async (16-byte
+// cp.async.cg where the rows are contiguous and 16-byte aligned, else
+// element by element), and limb stage s + 1 (A's rows; the fused kernel's
+// f32 B too) into bf16 planes, once per block, while the compute warps run
+// stage s from the other of two plane buffers: one block barrier per stage.
+// A compute thread reads A's planes by 16-byte broadcast reads, 8 k at a
+// time, its B column 8 k at a time, and keeps the next 8 k's reads in
+// flight while this 8's FMAs run, so the fmaf chain, not shared-memory
+// latency, sets the pace.
+constexpr int DEC_M = 16;   // most rows of the decode tile
+constexpr int DEC_N = 16;   // columns of one block
+
+// ring shape per limb count: deeper formats do more FMAs per byte
+template <int NL>
+struct DecRing {
+  static constexpr int K = NL <= 3 ? 256 : 128;  // most k of one stage
+  static constexpr int S = 3;                    // stages
+  // producer warps: the fused kernel limbs its B stage as well
+  static constexpr int P(bool pl) { return pl ? 2 : 4; }
+};
+
+// threads that own outputs: M rows of DEC_N, whole warps
+__host__ __device__ inline int dec_compute_threads(int M) {
+  return (M * DEC_N + 31) / 32 * 32;
+}
+
+// dynamic shared memory of the decode tile: the B ring (bf16 planes or f32),
+// the A ring (f32), A's limb planes and (fused) B's limb planes, two buffers
+// each; every region a multiple of 16 bytes (dk is a multiple of 8)
+__host__ __device__ inline int64_t dec_ring_b_bytes(bool pl, int nl, int dk,
+                                                    int slots) {
+  return pl ? (int64_t)slots * nl * dk * DEC_N * 2
+            : (int64_t)slots * dk * DEC_N * 4;
+}
+
+__host__ __device__ inline int64_t dec_smem_bytes(bool pl, int nl, int M,
+                                                  int dk, int slots) {
+  return dec_ring_b_bytes(pl, nl, dk, slots) + (int64_t)slots * M * dk * 4 +
+         2 * (int64_t)nl * M * dk * 2 +
+         (pl ? 0 : 2 * (int64_t)nl * dk * DEC_N * 2);
+}
+
+__device__ __forceinline__ bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// asynchronous global -> shared copies; a false predicate fills zeros
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool in) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(in ? 4 : 0));
+}
+
+// 16-byte copy of which the first ``bytes`` come from src, the rest zeros
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// element u (0..7) of eight packed bf16 values, as f32
+__device__ __forceinline__ float bf_at(const uint4& v, int u) {
+  const uint32_t w = u < 2 ? v.x : u < 4 ? v.y : u < 6 ? v.z : v.w;
+  return __uint_as_float((u & 1) ? (w & 0xffff0000u) : (w << 16));
+}
+
+// limbs of 4 f32 values (16-byte aligned) into nl bf16 planes (8-byte
+// aligned, plane stride ``ps`` elements): extract_limbs on each value
+template <int NL>
+__device__ __forceinline__ void limb4(const float* src, __nv_bfloat16* dst,
+                                      int ps, int nl) {
+  const float4 x = *reinterpret_cast<const float4*>(src);
+  __nv_bfloat16 l[4][NL];
+  extract_limbs<NL>(x.x, l[0]);
+  extract_limbs<NL>(x.y, l[1]);
+  extract_limbs<NL>(x.z, l[2]);
+  extract_limbs<NL>(x.w, l[3]);
+#pragma unroll
+  for (int i = 0; i < NL; ++i) {
+    if (i >= nl) continue;
+    uint2 w;
+    w.x = (uint32_t)__bfloat16_as_ushort(l[0][i]) |
+          ((uint32_t)__bfloat16_as_ushort(l[1][i]) << 16);
+    w.y = (uint32_t)__bfloat16_as_ushort(l[2][i]) |
+          ((uint32_t)__bfloat16_as_ushort(l[3][i]) << 16);
+    *reinterpret_cast<uint2*>(dst + i * ps) = w;
+  }
+}
+
+// one k of mainloop's inner loop for one output element
+template <int NL, int NO>
+__device__ __forceinline__ void fma_step(const float (&a)[NL],
+                                         const float (&b)[NL],
+                                         float (&acc)[NO], int nl, int mo) {
+#pragma unroll
+  for (int i = 0; i < NL; ++i) {
+#pragma unroll
+    for (int j = 0; j < NL; ++j) {
+      if (i + j >= NO) continue;
+      if (i >= nl || j >= nl || i + j > mo) continue;
+      acc[i + j] = fmaf(a[i], b[j], acc[i + j]);
+    }
+  }
+}
+
+// dk: k per ring stage (a multiple of 8, at most DecRing<NL>::K); the
+// dynamic shared memory holds dec_smem_bytes(PL, nl, M, dk, slots) bytes,
+// slots = min(DecRing<NL>::S, stages).  Warp roles: the first
+// dec_compute_threads(M) threads own one output each (row tid / DEC_N,
+// column tid % DEC_N); the DecRing<NL>::P(PL) warps after them copy and limb.
+template <int NL, int NO, bool GEN, bool PL>
+__device__ __forceinline__ void decode_tile(
+    const float* __restrict__ A, int64_t a_sr, int64_t a_sc,
+    const float* __restrict__ B, int64_t b_sr, int64_t b_sc, Planes bp,
+    float* __restrict__ C, int64_t c_sr, int64_t c_sc, int M, int64_t N,
+    int64_t K, int n_limbs, int max_order, int dk) {
+  constexpr int NS = DecRing<NL>::S;
+  // 16-byte copies where rows are contiguous and every chunk is aligned
+  const bool vec_a = a_sc == 1 && a_sr % 4 == 0 && aligned16(A);
+  const bool vec_b = PL ? bp.sr % 8 == 0 && bp.plane % 8 == 0 &&
+                              N % 8 == 0 && aligned16(bp.p)
+                        : b_sc == 1 && b_sr % 4 == 0 && N % 4 == 0 &&
+                              aligned16(B);
+  extern __shared__ __align__(16) unsigned char dec_smem[];
+  const int nl = GEN ? n_limbs : NL;
+  const int mo = GEN ? max_order : NO - 1;
+  const int stages = dk > 0 ? (int)((K + dk - 1) / dk) : 0;
+  const int slots = stages < NS ? stages : NS;
+  const int plane = M * dk;  // elements of one A limb plane at one stage
+  // regions of dec_smem: the B ring, the A ring, A's limb planes (two
+  // buffers), B's limb planes (fused, two buffers)
+  __nv_bfloat16* const Bp = reinterpret_cast<__nv_bfloat16*>(dec_smem);
+  float* const Br = reinterpret_cast<float*>(dec_smem);
+  float* const Ar = reinterpret_cast<float*>(
+      dec_smem + dec_ring_b_bytes(PL, nl, dk, slots));
+  __nv_bfloat16* const As =
+      reinterpret_cast<__nv_bfloat16*>(Ar + (int64_t)slots * plane);
+  __nv_bfloat16* const Bl = As + 2 * nl * plane;
+  auto bp_at = [&](int q, int j) { return (q * nl + j) * dk * DEC_N; };
+  auto as_at = [&](int buf, int i) { return (buf * nl + i) * plane; };
+  auto bl_at = [&](int buf, int j) { return (buf * nl + j) * dk * DEC_N; };
+
+  const int tid = threadIdx.x;
+  const int ct = dec_compute_threads(M);
+  const bool producer = tid >= ct;
+  const int pt = tid - ct;  // producer thread index
+  const int np = (int)blockDim.x - ct;
+  const int r = tid / DEC_N;
+  const int c = tid % DEC_N;
+  const int64_t n0 = (int64_t)blockIdx.x * DEC_N;
+  const int nst = PL ? (bp.n_stored < nl ? bp.n_stored : nl) : nl;
+  const __nv_bfloat16 zero = __float2bfloat16_rn(0.f);
+  auto stage_k = [&](int s) {
+    const int64_t left = K - (int64_t)s * dk;
+    return left < dk ? (int)left : dk;
+  };
+
+  // producers: stage s of A and B into ring slot s % NS, only its valid k;
+  // index maps by shifts and masks (DEC_N is 16), neighbouring threads on
+  // neighbouring addresses where the layout allows
+  auto load = [&](int s) {
+    const int q = s % NS;
+    const int64_t k0 = (int64_t)s * dk;
+    const int kn = stage_k(s);
+    if (vec_a) {
+      // 16-byte chunks of 4 k; the last one of a row may be partial (the
+      // rest zero-filled)
+      const int ch = (kn + 3) >> 2;
+      for (int m = 0; m < M; ++m)
+        for (int e = pt; e < ch; e += np) {
+          const int left = kn - 4 * e;
+          cp_async16(Ar + q * plane + m * dk + 4 * e, A + m * a_sr + k0 + 4 * e,
+                     left < 4 ? 4 * left : 16);
+        }
+    } else {
+      for (int m = 0; m < M; ++m)
+        for (int kk = pt; kk < kn; kk += np)
+          cp_async4(Ar + q * plane + m * dk + kk,
+                    A + m * a_sr + (k0 + kk) * a_sc, true);
+    }
+    if constexpr (PL) {
+      for (int j = 0; j < nst; ++j) {
+        const __nv_bfloat16* src = bp.p + j * bp.plane + k0 * bp.sr;
+        __nv_bfloat16* dst = Bp + bp_at(q, j);
+        if (vec_b) {
+          // 16-byte chunks: two per plane row of 16 columns
+          for (int e = pt; e < kn * 2; e += np) {
+            const int kk = e >> 1;
+            const int cc = (e & 1) * 8;
+            const bool in = n0 + cc < N;
+            cp_async16(dst + kk * DEC_N + cc,
+                       in ? src + kk * bp.sr + n0 + cc : bp.p, in ? 16 : 0);
+          }
+        } else {
+          for (int e = pt; e < kn * DEC_N; e += np) {
+            const int64_t gn = n0 + (e & 15);
+            dst[e] = gn < N ? src[(e >> 4) * bp.sr + gn] : zero;
+          }
+        }
+      }
+    } else {
+      const float* src = B + k0 * b_sr;
+      float* dst = Br + q * dk * DEC_N;
+      if (vec_b) {
+        for (int e = pt; e < kn * 4; e += np) {
+          const int kk = e >> 2;
+          const int cc = (e & 3) * 4;
+          const bool in = n0 + cc < N;
+          cp_async16(dst + kk * DEC_N + cc,
+                     in ? src + kk * b_sr + n0 + cc : B, in ? 16 : 0);
+        }
+      } else if (b_sr == 1) {
+        // k contiguous in B (decode QK's transposed cache): walk k
+        for (int nn = 0; nn < DEC_N; ++nn) {
+          const bool in = n0 + nn < N;
+          for (int kk = pt; kk < kn; kk += np)
+            cp_async4(dst + kk * DEC_N + nn,
+                      in ? src + kk + (n0 + nn) * b_sc : B, in);
+        }
+      } else {
+        for (int e = pt; e < kn * DEC_N; e += np) {
+          const int64_t gn = n0 + (e & 15);
+          const bool in = gn < N;
+          cp_async4(dst + e, in ? src + (e >> 4) * b_sr + gn * b_sc : B, in);
+        }
+      }
+    }
+  };
+  // producers: wait for stage s, then limb it once for the block into
+  // buffer s % 2
+  auto limb = [&](int s) {
+    cp_async_wait<NS - 2>();
+    asm volatile("bar.sync 1, %0;\n" ::"r"(np));  // every copy has landed
+    const int q = s % NS;
+    const int kn = stage_k(s);
+    const int buf = s & 1;
+    // 4 k of one row (A) or 4 columns of one k (B) at a time; past a row's
+    // kn the ring holds zeros or stale values, whose limbs no FMA reads
+    const int ach = (kn + 3) >> 2;
+    for (int e = pt; e < M * ach; e += np) {
+      const int m = e / ach;
+      const int kk = (e - m * ach) * 4;
+      limb4<NL>(Ar + q * plane + m * dk + kk, As + as_at(buf, 0) + m * dk + kk,
+                plane, nl);
+    }
+    if constexpr (!PL) {
+      for (int e = pt; e < kn * 4; e += np)
+        limb4<NL>(Br + q * dk * DEC_N + 4 * e, Bl + bl_at(buf, 0) + 4 * e,
+                  dk * DEC_N, nl);
+    }
+  };
+
+  float acc[NO];
+#pragma unroll
+  for (int o = 0; o < NO; ++o) acc[o] = 0.f;
+
+  if (producer) {
+    if constexpr (PL) {
+      // planes the stack lacks read as +0.0, as mainloop reads them; the
+      // loads never write them
+      for (int j = nst; j < nl; ++j)
+        for (int q = 0; q < slots; ++q)
+          for (int e = pt; e < dk * DEC_N; e += np) Bp[bp_at(q, j) + e] = zero;
+    }
+    for (int s = 0; s < NS - 1; ++s) {
+      if (s < stages) load(s);
+      cp_async_commit();
+    }
+    if (stages > 0) limb(0);
+  }
+  __syncthreads();
+#pragma unroll 1
+  for (int s = 0; s < stages; ++s) {
+    if (producer) {
+      // the copies of stage s + NS - 1 and the limbs of stage s + 1 while
+      // the compute warps run stage s
+      if (s + NS - 1 < stages) load(s + NS - 1);
+      cp_async_commit();
+      if (s + 1 < stages) limb(s + 1);
+    } else if (r < M) {
+      const int kn = stage_k(s);
+      const __nv_bfloat16* const arow = As + as_at(s & 1, 0) + r * dk;
+      // this thread's column of B's planes at this stage, plane stride dk*16
+      const __nv_bfloat16* const bcol =
+          (PL ? Bp + bp_at(s % NS, 0) : Bl + bl_at(s & 1, 0)) + c;
+      const int bs = dk * DEC_N;
+      int kk = 0;
+      // 8 k of A's planes (one 16-byte broadcast read each) and of this
+      // thread's B column
+      auto fetch = [&](int k8, uint4 (&av)[NL], float (&bv)[NL][8]) {
+#pragma unroll
+        for (int i = 0; i < NL; ++i)
+          av[i] = *reinterpret_cast<const uint4*>(arow + i * plane + k8);
+#pragma unroll
+        for (int j = 0; j < NL; ++j)
+#pragma unroll
+          for (int u = 0; u < 8; ++u)
+            bv[j][u] = bf(bcol[j * bs + (k8 + u) * DEC_N]);
+      };
+      auto run = [&](const uint4 (&av)[NL], const float (&bv)[NL][8]) {
+#pragma unroll
+        for (int u = 0; u < 8; ++u) {
+          float a[NL], b[NL];
+#pragma unroll
+          for (int i = 0; i < NL; ++i) a[i] = bf_at(av[i], u);
+#pragma unroll
+          for (int j = 0; j < NL; ++j) b[j] = bv[j][u];
+          fma_step<NL, NO>(a, b, acc, nl, mo);
+        }
+      };
+      if constexpr (!GEN && NL <= 3) {
+        // the next 8 k's shared-memory reads in flight while this 8's
+        // FMAs run
+        const int kn8 = kn & ~7;
+        if (kn8 > 0) {
+          uint4 av[NL];
+          float bv[NL][8];
+          fetch(0, av, bv);
+#pragma unroll 1
+          for (kk = 8; kk < kn8; kk += 8) {
+            uint4 an[NL];
+            float bn[NL][8];
+            fetch(kk, an, bn);
+            run(av, bv);
+#pragma unroll
+            for (int i = 0; i < NL; ++i) av[i] = an[i];
+#pragma unroll
+            for (int j = 0; j < NL; ++j)
+#pragma unroll
+              for (int u = 0; u < 8; ++u) bv[j][u] = bn[j][u];
+          }
+          run(av, bv);
+          kk = kn8;
+        }
+      } else if constexpr (!GEN) {
+        for (; kk + 8 <= kn; kk += 8) {
+          uint4 av[NL];
+          float bv[NL][8];
+          fetch(kk, av, bv);
+          run(av, bv);
+        }
+      }
+      for (; kk < kn; ++kk) {
+        float a[NL], b[NL];
+#pragma unroll
+        for (int i = 0; i < NL; ++i)
+          a[i] = i < nl ? bf(arow[i * plane + kk]) : 0.f;
+#pragma unroll
+        for (int j = 0; j < NL; ++j)
+          b[j] = j < nl ? bf(bcol[j * bs + kk * DEC_N]) : 0.f;
+        fma_step<NL, NO>(a, b, acc, nl, mo);
+      }
+    }
+    __syncthreads();
+  }
+  if (producer || r >= M) return;
+  if (K % BK != 0) {
+    // mainloop's zero-filled k past the edge (see the invariant above)
+    float z[NL];
+#pragma unroll
+    for (int i = 0; i < NL; ++i) z[i] = 0.f;
+    fma_step<NL, NO>(z, z, acc, nl, mo);
+  }
+  const int64_t gn = n0 + c;
+  if (gn < N) C[r * c_sr + gn * c_sc] = combine_orders<NO>(acc, mo);
+}
+
 // Port of _fused_kernel: C[z] = A[z] @ B[z] at the format, z over up to two
 // batch dims with their own strides (a stride of 0 broadcasts), so decode
 // attention's (B, H, 1, Dh) x (B, H, Dh, T) runs as one launch.
@@ -348,6 +762,21 @@ __global__ void __launch_bounds__(NT) fused_matmul_kernel(MatmulArgs p) {
       p.b + z0 * p.b_sb0 + z1 * p.b_sb1, p.b_sr, p.b_sc, Planes{},
       p.c + z0 * p.c_sb0 + z1 * p.c_sb1, p.c_sr, p.c_sc, p.M, p.N, p.K,
       p.n_limbs, p.max_order);
+}
+
+// fused_matmul_kernel's decode tile (M <= DEC_M), one block per DEC_N
+// columns and batch entry.
+template <int NL, int NO, bool GEN>
+__global__ void __launch_bounds__(DEC_M * DEC_N + 128)
+    fused_matmul_decode_kernel(MatmulArgs p, int dk) {
+  const int64_t z = blockIdx.z;
+  const int64_t z0 = z / p.nb1;
+  const int64_t z1 = z % p.nb1;
+  decode_tile<NL, NO, GEN, false>(
+      p.a + z0 * p.a_sb0 + z1 * p.a_sb1, p.a_sr, p.a_sc,
+      p.b + z0 * p.b_sb0 + z1 * p.b_sb1, p.b_sr, p.b_sc, Planes{},
+      p.c + z0 * p.c_sb0 + z1 * p.c_sb1, p.c_sr, p.c_sc, (int)p.M, p.N, p.K,
+      p.n_limbs, p.max_order, dk);
 }
 
 struct PrelimbedArgs {
@@ -371,6 +800,17 @@ __global__ void __launch_bounds__(NT) prelimbed_matmul_kernel(PrelimbedArgs p) {
   matmul_tile<NL, NO, RM, RN, GEN, true>(p.a, p.a_sr, 1, nullptr, 0, 0, p.b,
                                          p.c, p.c_sr, 1, p.M, p.N, p.K,
                                          p.n_limbs, p.max_order);
+}
+
+// prelimbed_matmul_kernel's decode tile (M <= DEC_M): the serving decode
+// path's matmuls.  Bound at M = 8 by the serial fmaf chain of each output
+// (K steps of the deepest order's products) and by the planes' bytes.
+template <int NL, int NO, bool GEN>
+__global__ void __launch_bounds__(DEC_M * DEC_N + 128)
+    prelimbed_matmul_decode_kernel(PrelimbedArgs p, int dk) {
+  decode_tile<NL, NO, GEN, true>(p.a, p.a_sr, 1, nullptr, 0, 0, p.b, p.c,
+                                 p.c_sr, 1, (int)p.M, p.N, p.K, p.n_limbs,
+                                 p.max_order, dk);
 }
 
 struct MixedPrelimbedArgs {
@@ -507,8 +947,45 @@ constexpr int micro(int no, int nout, bool gen) {
   return (!gen && no * nout <= 7) ? 4 : 2;
 }
 
+// Launch one decode-tile kernel: blocks of M * DEC_N threads over the N
+// columns (x) and the batch (z), the ring sized to K and M.  The kernel's
+// dynamic shared memory limit is raised to the card's once.
+template <int NL, auto kernel, typename Args>
+cudaError_t launch_decode(const Args& p, bool pl, int nl, int64_t M,
+                          int64_t N, int64_t K, int64_t nz, cudaStream_t st) {
+  static int optin = 0;
+  if (optin == 0) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(
+          &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
+    if (err != cudaSuccess) {
+      optin = 0;
+      return err;
+    }
+  }
+  const int dk = (int)(K < DecRing<NL>::K ? (K + 7) / 8 * 8 : DecRing<NL>::K);
+  const int64_t stages = dk > 0 ? (K + dk - 1) / dk : 0;
+  const int slots = (int)(stages < DecRing<NL>::S ? stages : DecRing<NL>::S);
+  const int64_t smem = dec_smem_bytes(pl, nl, (int)M, dk, slots);
+  const dim3 grid((unsigned)((N + DEC_N - 1) / DEC_N), 1, (unsigned)nz);
+  const unsigned threads =
+      (unsigned)(dec_compute_threads((int)M) + 32 * DecRing<NL>::P(pl));
+  kernel<<<grid, threads, (size_t)smem, st>>>(p, dk);
+  return cudaGetLastError();
+}
+
+// M <= DEC_M takes the decode tile, larger M the (TY * R) x (TX * R) tile;
+// both give every output the same bits
 template <int NL, int NO, bool GEN>
 cudaError_t launch_matmul(const MatmulArgs& p, int64_t nb0, cudaStream_t st) {
+  if (p.M <= DEC_M)
+    return launch_decode<NL, fused_matmul_decode_kernel<NL, NO, GEN>>(
+        p, false, GEN ? p.n_limbs : NL, p.M, p.N, p.K, nb0 * p.nb1, st);
   constexpr int R = micro(NO, 1, GEN);
   const dim3 grid((unsigned)((p.N + TX * R - 1) / (TX * R)),
                   (unsigned)((p.M + TY * R - 1) / (TY * R)),
@@ -520,6 +997,9 @@ cudaError_t launch_matmul(const MatmulArgs& p, int64_t nb0, cudaStream_t st) {
 // the tile choice is launch_matmul's, so the two kernels tile alike
 template <int NL, int NO, bool GEN>
 cudaError_t launch_prelimbed(const PrelimbedArgs& p, cudaStream_t st) {
+  if (p.M <= DEC_M)
+    return launch_decode<NL, prelimbed_matmul_decode_kernel<NL, NO, GEN>>(
+        p, true, GEN ? p.n_limbs : NL, p.M, p.N, p.K, 1, st);
   constexpr int R = micro(NO, 1, GEN);
   const dim3 grid((unsigned)((p.N + TX * R - 1) / (TX * R)),
                   (unsigned)((p.M + TY * R - 1) / (TY * R)), 1);

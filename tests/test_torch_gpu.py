@@ -68,13 +68,15 @@ def _assert_mm_close(out, ref, K):
     _assert_within(out, ref, _floor(ref, K))
 
 
+@pytest.mark.parametrize("M,K,N", [(130, 200, 70), (8, 768, 768)])
 @pytest.mark.parametrize("mode", ["M8", "M16", "M23", "M36", "M52", CUSTOM])
-def test_fused_matmul_kernel_matches_plain(cuda, custom_format, mode):
-    a, b = _randn(cuda, 130, 200, seed=1), _randn(cuda, 200, 70, seed=2)
+def test_fused_matmul_kernel_matches_plain(cuda, custom_format, mode, M, K,
+                                           N):
+    a, b = _randn(cuda, M, K, seed=1), _randn(cuda, K, N, seed=2)
     before = mp_matmul.mp_fused_matmul.launches
     out = mp_matmul.mp_fused_matmul(a, b, mode)
     assert mp_matmul.mp_fused_matmul.launches == before + 1
-    _assert_mm_close(out, mp_matmul.fused_matmul_plain(a, b, mode), 200)
+    _assert_mm_close(out, mp_matmul.fused_matmul_plain(a, b, mode), K)
 
 
 @pytest.mark.parametrize("mode", ["M8", "M16"])
@@ -179,23 +181,109 @@ def test_decompose_kernel_is_bitwise_the_plain_version(cuda, n_limbs):
                        .view(torch.int16))
 
 
+@pytest.mark.parametrize("M,K,N", [(70, 200, 90), (8, 768, 768)])
 @pytest.mark.parametrize("mode,n_stored", [
     ("M8", 1), ("M8", 2), ("M16", 1), ("M16", 2), ("M23", 4), ("M36", 3),
     (CUSTOM, 4)])
 def test_prelimbed_kernel_matches_plain_and_fused(cuda, custom_format, mode,
-                                                  n_stored):
+                                                  n_stored, M, K, N):
     """Held at the f32 floor against the plain version, and bitwise against
     the fused kernel on the raw weight whenever the stack holds every limb
     the format needs."""
-    a, w = _randn(cuda, 70, 200, seed=61), _randn(cuda, 200, 90, seed=62)
+    a, w = _randn(cuda, M, K, seed=61), _randn(cuda, K, N, seed=62)
     limbs = mp_matmul.mp_decompose(w, n_stored)
     before = mp_matmul.mp_prelimbed_matmul.launches
     out = mp_matmul.mp_prelimbed_matmul(a, limbs, mode)
     assert mp_matmul.mp_prelimbed_matmul.launches == before + 1
     _assert_mm_close(out, mp_matmul.prelimbed_matmul_plain(a, limbs, mode),
-                     200)
+                     K)
     if n_stored >= resolve(mode).n_limbs:
         assert torch.equal(out, mp_matmul.mp_fused_matmul(a, w, mode))
+
+
+# =========================================================================
+# the decode tile (M <= 16 rows): a row's bits do not depend on the tile
+# =========================================================================
+BATCH_MS = (1, 2, 3, 4, 8, 16, 17)
+# (K, N, lda): K off the 16-deep edge of the 64x64 tile and off a stage, N
+# off the decode tile's 16 columns, A's rows lda apart; the first takes
+# 16-byte copies of A and B (N a multiple of 8), the second copies B element
+# by element, the third copies A element by element (its rows 201 apart),
+# the fourth ends each row of A in a partial 16-byte chunk (201 columns of a
+# 204-wide tensor)
+DECODE_KN = [(200, 88, 200), (304, 77, 304), (201, 88, 201), (201, 88, 204)]
+
+
+def _underflow_row(a, b):
+    """Row 0 of a and column 0 of b tiny, so C[0, 0]'s products underflow
+    and its accumulators end at +0.0 or -0.0: the zero signs the 64x64
+    tile's zero-filled K edge leaves are part of the bits held."""
+    a[0] *= 1e-30
+    b[:, 0] *= 1e-30
+
+
+def _rows_of(cuda, M, K, lda, seed):
+    """(M, K) rows of an (M, lda) tensor: a column slice when lda > K."""
+    return _randn(cuda, M, lda, seed=seed)[:, :K]
+
+
+def _assert_rows_bitwise(out, full, rows, what):
+    torch.cuda.synchronize()
+    assert torch.equal(out.view(torch.int32), full[rows].view(torch.int32)), \
+        what
+
+
+@pytest.mark.parametrize("K,N,lda", DECODE_KN)
+@pytest.mark.parametrize("mode", ["M8", "M16", "M23", "M36", "M52", CUSTOM])
+def test_fused_matmul_rows_are_batch_invariant(cuda, custom_format, mode, K,
+                                               N, lda):
+    """Rows of a launch at M <= 17 (the decode tile up to 16) equal, bit for
+    bit, the same rows of one launch at M = 70 (the 64x64 tile)."""
+    a, b = _rows_of(cuda, 70, K, lda, seed=90), _randn(cuda, K, N, seed=91)
+    _underflow_row(a, b)
+    full = mp_matmul.mp_fused_matmul(a, b, mode)
+    for M in BATCH_MS:
+        for rows in (slice(0, M), slice(70 - M, 70)):
+            _assert_rows_bitwise(mp_matmul.mp_fused_matmul(a[rows], b, mode),
+                                 full, rows, (M, rows))
+
+
+@pytest.mark.parametrize("mode", ["M8", "M16", CUSTOM])
+def test_batched_strided_matmul_rows_are_batch_invariant(cuda, custom_format,
+                                                         mode):
+    """Decode attention's layouts on a two-dim grid.z batch: QK against the
+    cache as a transposed view (B's row stride 1) and PV against the
+    cache's strided values, M rows per batch entry against M = 70."""
+    q = _randn(cuda, 4, 70, 3, 64, seed=92).permute(0, 2, 1, 3)
+    kt = _randn(cuda, 4, 100, 3, 64, seed=93).permute(0, 2, 1, 3) \
+        .transpose(-1, -2)
+    p = _randn(cuda, 4, 3, 70, 100, seed=94)
+    v = _randn(cuda, 4, 100, 3, 64, seed=95).permute(0, 2, 1, 3)
+    for x, y in ((q, kt), (p, v)):
+        full = mp_matmul.mp_fused_matmul(x, y, mode)
+        for M in BATCH_MS:
+            rows = (slice(None), slice(None), slice(0, M))
+            _assert_rows_bitwise(mp_matmul.mp_fused_matmul(x[rows], y, mode),
+                                 full, rows, (tuple(y.shape), M))
+
+
+@pytest.mark.parametrize("K,N,lda", DECODE_KN)
+@pytest.mark.parametrize("mode,n_stored", [
+    ("M8", 1), ("M8", 2), ("M16", 1), ("M16", 3), ("M23", 3), ("M36", 5),
+    ("M52", 7), ("M52", 3), (CUSTOM, 4), (CUSTOM, 2)])
+def test_prelimbed_rows_are_batch_invariant(cuda, custom_format, mode,
+                                            n_stored, K, N, lda):
+    """The pre-limbed kernel's rows at M <= 17 equal the same rows at
+    M = 70 bit for bit, with stacks below and above the format's limbs."""
+    a, w = _rows_of(cuda, 70, K, lda, seed=96), _randn(cuda, K, N, seed=97)
+    _underflow_row(a, w)
+    limbs = mp_matmul.mp_decompose(w, n_stored)
+    full = mp_matmul.mp_prelimbed_matmul(a, limbs, mode)
+    for M in BATCH_MS:
+        for rows in (slice(0, M), slice(70 - M, 70)):
+            _assert_rows_bitwise(
+                mp_matmul.mp_prelimbed_matmul(a[rows], limbs, mode), full,
+                rows, (M, rows))
 
 
 @pytest.mark.parametrize("qk,pv,hkv,lengths", [
