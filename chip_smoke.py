@@ -12,11 +12,13 @@ line is not printed):
 3. each kernel against its plain PyTorch version on the card, at the serving
    path's shapes and formats plus M23/M36 (and more) for the matmul kernels;
    the decompose kernel bitwise, the pre-limbed matmul bitwise against the
-   fused matmul on the raw weight, each decode case (M <= 16 rows: the
-   decode tile) of the fused and pre-limbed matmuls bitwise against the
-   same rows of an M = 70 launch (the 64x64 tile), and each row (slot) of
-   the two mixed-lane kernels bitwise against the homogeneous kernel at its
-   own format;
+   fused matmul on the raw weight, the fused projection's outputs without
+   an epilogue bitwise the fused matmul with each weight, each decode case
+   (M <= 16 rows: the decode tile) of the fused, pre-limbed and mixed-lane
+   matmuls and of the fused projection bitwise against the same rows of an
+   M = 70 launch (the 64x64 tile; the mixed kernel's extra rows at
+   PAD_LANE), and each row (slot) of the two mixed-lane kernels bitwise
+   against the homogeneous kernel at its own format;
 3b. ``[modes]``: the paper's six modes through ``repro_torch.mp`` (the
    quickstart's surface): every built-in format and a run-time M30 on f32
    operands at the model's prefill shapes, M36 / M52 on two-float (DD)
@@ -381,6 +383,19 @@ def main() -> int:
                    + (g / (1 + torch.exp(-g))).abs() * mm_tol(u, K)
                    + 2e-6 * ref.abs())
         hold("mp_fused_proj", label, out, ref, tol, {"fmt": fmt.name})
+        if gate == "none" and biases is None and residual is None:
+            # no epilogue: each output is the fused matmul with its weight
+            for t, w in enumerate(ws):
+                mm = mp_matmul.mp_fused_matmul(a, w, fmt)
+                torch.cuda.synchronize()
+                if not torch.equal(out[t].view(torch.int32),
+                                   mm.view(torch.int32)):
+                    raise AssertionError(f"mp_fused_proj {label}: output {t}"
+                                         " is not bitwise mp_fused_matmul")
+            checks["mp_fused_proj"][-1]["bitwise_vs_fused"] = True
+        decode_rows_bitwise(
+            "mp_fused_proj", label,
+            lambda x: mp_matmul.mp_fused_proj(x, ws, fmt, **kw), a, out)
         M, N = a.shape[0], ws[0].shape[1]
         ops = 2 * M * K * N * fmt.n_products * len(ws)
         nbytes = 4 * (a.numel() + sum(w.numel() for w in ws) + out.numel()
@@ -559,6 +574,17 @@ def main() -> int:
                     f"mp_mixed_prelimbed_matmul {label}: the {f.name} rows "
                     "are not bitwise mp_prelimbed_matmul's")
         checks["mp_mixed_prelimbed_matmul"][-1]["rows_bitwise"] = True
+
+        def padded(x):
+            # the rows past a's run at PAD_LANE under the same envelope
+            pn, po = (torch.full((x.shape[0] - a.shape[0],), v,
+                                 dtype=torch.int32, device=dev)
+                      for v in lanes.PAD_LANE)
+            return mp_matmul.mp_mixed_prelimbed_matmul(
+                x, limbs, env, torch.cat([ln, pn]), torch.cat([lo, po]))
+
+        decode_rows_bitwise("mp_mixed_prelimbed_matmul", label, padded, a,
+                            out)
         M, N = out.shape
         # the products each row keeps (its own lane), the envelope's planes
         # read once, A and C, and the two lane vectors
@@ -678,7 +704,7 @@ def main() -> int:
     proj_case("prefill SwiGLU 2048x768 vs 2x768x3072", x, wg, "M8",
               gate="swiglu", per=("prefill", L))
     proj_case("decode SwiGLU 8x768 vs 2x768x3072", randn(8, d), wg, "M8",
-              gate="swiglu", per=("decode", L))
+              gate="swiglu", library=True, per=("decode", L))
     proj_case("decode QKV 8x768 vs 3x768x768", randn(8, d), wq, "M8",
               library=True, per=("decode", L))
     proj_case("QKV 512x768 M23", x[:512], wq, "M23")

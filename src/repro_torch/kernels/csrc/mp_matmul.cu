@@ -48,14 +48,15 @@
 // shared memory as bf16 limb planes that all threads of the block reuse; the
 // multi-output kernel limbs its A tile once for all n_out weights.
 //
-// The decode shapes (M <= 16 rows) of the fused and pre-limbed kernels are
-// bound by the fmaf chain (K times the deepest order's products, ~4 cycles
-// each: ~7 us at K = 3072 for M8) and by the bytes of the weight (the planes
-// the format reads, or the f32 weight).  They take the decode tile
-// (decode_tile): rows sized to M, 16 columns per block so that N = 768 runs
-// 48 blocks, and B streamed through a cp.async ring so that the loads of the
-// next stages overlap this stage's FMAs.  Ragged edges are masked in the
-// loads and stores; nothing is padded in device memory.
+// The decode shapes (M <= 16 rows) of the fused, pre-limbed, mixed-lane and
+// projection kernels are bound by the fmaf chain (K times the deepest
+// order's products, ~4 cycles each: ~7 us at K = 3072 for M8) and by the
+// bytes of the weights (the planes the format reads, or the f32 weights).
+// They take the decode tile (decode_tile): rows sized to M, 16 columns per
+// block so that N = 768 runs 48 blocks (the projection: 48 per weight), and
+// B streamed through a cp.async ring so that the loads of the next stages
+// overlap this stage's FMAs.  Ragged edges are masked in the loads and
+// stores; nothing is padded in device memory.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 --fmad=false
 // (no --use_fast_math).  --fmad=false keeps every a*b+c outside the explicit
@@ -347,9 +348,10 @@ __device__ __forceinline__ void matmul_tile(
 }
 
 // ---------------------------------------------------------------------------
-// The decode tile: the body of fused_matmul_kernel and prelimbed_matmul_kernel
-// when M <= DEC_M (a decode micro-batch of 1..16 rows, or one row per batch
-// entry of decode attention's QK and PV).
+// The decode tile: the body of fused_matmul_kernel, prelimbed_matmul_kernel,
+// mixed_prelimbed_matmul_kernel and fused_proj_kernel when M <= DEC_M (a
+// decode micro-batch of 1..16 rows, or one row per batch entry of decode
+// attention's QK and PV).
 //
 // Invariant: every output element gets exactly the fmaf()s mainloop gives it,
 // in the same order, so a row has the same bits whichever tile ran it (and
@@ -360,22 +362,26 @@ __device__ __forceinline__ void matmul_tile(
 // the same mo.  mainloop runs K up to a multiple of BK on zero-filled tiles:
 // fmaf(+0, +0, acc) is the identity except that it turns an accumulator of
 // -0.0 (a sum that underflowed from below) into +0.0, and is idempotent, so
-// the tile adds one such step at the end when K % BK != 0.  No split over K,
-// no tensor-core MMA: either would reorder the adds.
+// the tile adds one such step at the end when K % BK != 0.  LN: a row at its
+// own lane skips the products its lane leaves out, in the step and in the
+// zero step, and joins its orders from its own cut down, as mainloop and
+// matmul_tile do.  NOUT weights: each output of each weight is a chain of its
+// own, in the same order as mainloop's per-weight accumulators.  No split
+// over K, no tensor-core MMA: either would reorder the adds.
 //
 // Design: the block owns DEC_N columns and all M rows, one output element per
-// compute thread (M * DEC_N of them), so a thread carries only its NO
+// compute thread (M * DEC_N of them), so a thread carries only its NOUT * NO
 // accumulators, and N = 768 runs 48 blocks.  Two or four producer warps
-// (warp specialisation) stream A and B through a ring of DecRing::S stages
-// of up to DecRing::K k each in dynamic shared memory, by cp.async (16-byte
-// cp.async.cg where the rows are contiguous and 16-byte aligned, else
-// element by element), and limb stage s + 1 (A's rows; the fused kernel's
-// f32 B too) into bf16 planes, once per block, while the compute warps run
-// stage s from the other of two plane buffers: one block barrier per stage.
-// A compute thread reads A's planes by 16-byte broadcast reads, 8 k at a
-// time, its B column 8 k at a time, and keeps the next 8 k's reads in
-// flight while this 8's FMAs run, so the fmaf chain, not shared-memory
-// latency, sets the pace.
+// (warp specialisation) stream A and the NOUT Bs through a ring of
+// DecRing::S stages of up to DecRing::K k each in dynamic shared memory, by
+// cp.async (16-byte cp.async.cg where the rows are contiguous and 16-byte
+// aligned, else element by element), and limb stage s + 1 (A's rows, once for
+// every weight; the f32 Bs too) into bf16 planes, once per block, while the
+// compute warps run stage s from the other of two plane buffers: one block
+// barrier per stage.  A compute thread reads A's planes by 16-byte broadcast
+// reads, 8 k at a time, its B columns 8 k at a time, and (where the
+// registers allow) keeps the next 8 k's reads in flight while this 8's FMAs
+// run, so the fmaf chain, not shared-memory latency, sets the pace.
 constexpr int DEC_M = 16;   // most rows of the decode tile
 constexpr int DEC_N = 16;   // columns of one block
 
@@ -384,7 +390,7 @@ template <int NL>
 struct DecRing {
   static constexpr int K = NL <= 3 ? 256 : 128;  // most k of one stage
   static constexpr int S = 3;                    // stages
-  // producer warps: the fused kernel limbs its B stage as well
+  // producer warps: the fused kernels limb their B stages as well
   static constexpr int P(bool pl) { return pl ? 2 : 4; }
 };
 
@@ -393,20 +399,22 @@ __host__ __device__ inline int dec_compute_threads(int M) {
   return (M * DEC_N + 31) / 32 * 32;
 }
 
-// dynamic shared memory of the decode tile: the B ring (bf16 planes or f32),
-// the A ring (f32), A's limb planes and (fused) B's limb planes, two buffers
-// each; every region a multiple of 16 bytes (dk is a multiple of 8)
+// dynamic shared memory of the decode tile: the B ring (bf16 planes, or f32
+// for each of nout weights), the A ring (f32), A's limb planes and (fused)
+// the Bs' limb planes, two buffers each; every region a multiple of 16 bytes
+// (dk is a multiple of 8)
 __host__ __device__ inline int64_t dec_ring_b_bytes(bool pl, int nl, int dk,
-                                                    int slots) {
+                                                    int slots, int nout) {
   return pl ? (int64_t)slots * nl * dk * DEC_N * 2
-            : (int64_t)slots * dk * DEC_N * 4;
+            : (int64_t)nout * slots * dk * DEC_N * 4;
 }
 
 __host__ __device__ inline int64_t dec_smem_bytes(bool pl, int nl, int M,
-                                                  int dk, int slots) {
-  return dec_ring_b_bytes(pl, nl, dk, slots) + (int64_t)slots * M * dk * 4 +
-         2 * (int64_t)nl * M * dk * 2 +
-         (pl ? 0 : 2 * (int64_t)nl * dk * DEC_N * 2);
+                                                  int dk, int slots,
+                                                  int nout) {
+  return dec_ring_b_bytes(pl, nl, dk, slots, nout) +
+         (int64_t)slots * M * dk * 4 + 2 * (int64_t)nl * M * dk * 2 +
+         (pl ? 0 : 2 * (int64_t)nout * nl * dk * DEC_N * 2);
 }
 
 __device__ __forceinline__ bool aligned16(const void* p) {
@@ -471,40 +479,53 @@ __device__ __forceinline__ void limb4(const float* src, __nv_bfloat16* dst,
   }
 }
 
-// one k of mainloop's inner loop for one output element
-template <int NL, int NO>
+// one k of mainloop's inner loop for one output element; LN: the row's own
+// lane (rn limbs, order cut ro) cuts as well
+template <int NL, int NO, bool LN = false>
 __device__ __forceinline__ void fma_step(const float (&a)[NL],
                                          const float (&b)[NL],
-                                         float (&acc)[NO], int nl, int mo) {
+                                         float (&acc)[NO], int nl, int mo,
+                                         int rn = 0, int ro = 0) {
 #pragma unroll
   for (int i = 0; i < NL; ++i) {
 #pragma unroll
     for (int j = 0; j < NL; ++j) {
       if (i + j >= NO) continue;
       if (i >= nl || j >= nl || i + j > mo) continue;
+      if constexpr (LN) {
+        if (i >= rn || j >= rn || i + j > ro) continue;
+      }
       acc[i + j] = fmaf(a[i], b[j], acc[i + j]);
     }
   }
 }
 
 // dk: k per ring stage (a multiple of 8, at most DecRing<NL>::K); the
-// dynamic shared memory holds dec_smem_bytes(PL, nl, M, dk, slots) bytes,
-// slots = min(DecRing<NL>::S, stages).  Warp roles: the first
-// dec_compute_threads(M) threads own one output each (row tid / DEC_N,
-// column tid % DEC_N); the DecRing<NL>::P(PL) warps after them copy and limb.
-template <int NL, int NO, bool GEN, bool PL>
+// dynamic shared memory holds dec_smem_bytes(PL, nl, M, dk, slots, NOUT)
+// bytes, slots = min(DecRing<NL>::S, stages).  Warp roles: the first
+// dec_compute_threads(M) threads own one output of each weight (row
+// tid / DEC_N, column tid % DEC_N); the DecRing<NL>::P(PL) warps after them
+// copy and limb.  B: NOUT f32 weights (PL: unused, NOUT == 1, the planes
+// bp instead); LN: row r's lane is (ln[r], lo[r]).  The row's NOUT results
+// go to store(r, column, y) after combine_orders.
+template <int NL, int NO, bool GEN, bool PL, bool LN = false, int NOUT = 1,
+          typename Store>
 __device__ __forceinline__ void decode_tile(
     const float* __restrict__ A, int64_t a_sr, int64_t a_sc,
-    const float* __restrict__ B, int64_t b_sr, int64_t b_sc, Planes bp,
-    float* __restrict__ C, int64_t c_sr, int64_t c_sc, int M, int64_t N,
-    int64_t K, int n_limbs, int max_order, int dk) {
+    const float* const (&B)[NOUT], int64_t b_sr, int64_t b_sc, Planes bp,
+    int M, int64_t N, int64_t K, int n_limbs, int max_order, int dk,
+    const int32_t* __restrict__ ln, const int32_t* __restrict__ lo,
+    Store store) {
+  static_assert(!PL || NOUT == 1, "stored planes come for one weight");
   constexpr int NS = DecRing<NL>::S;
   // 16-byte copies where rows are contiguous and every chunk is aligned
+  bool b_al = true;
+#pragma unroll
+  for (int t = 0; t < NOUT; ++t) b_al = b_al && aligned16(B[t]);
   const bool vec_a = a_sc == 1 && a_sr % 4 == 0 && aligned16(A);
   const bool vec_b = PL ? bp.sr % 8 == 0 && bp.plane % 8 == 0 &&
                               N % 8 == 0 && aligned16(bp.p)
-                        : b_sc == 1 && b_sr % 4 == 0 && N % 4 == 0 &&
-                              aligned16(B);
+                        : b_sc == 1 && b_sr % 4 == 0 && N % 4 == 0 && b_al;
   extern __shared__ __align__(16) unsigned char dec_smem[];
   const int nl = GEN ? n_limbs : NL;
   const int mo = GEN ? max_order : NO - 1;
@@ -512,17 +533,20 @@ __device__ __forceinline__ void decode_tile(
   const int slots = stages < NS ? stages : NS;
   const int plane = M * dk;  // elements of one A limb plane at one stage
   // regions of dec_smem: the B ring, the A ring, A's limb planes (two
-  // buffers), B's limb planes (fused, two buffers)
+  // buffers), the Bs' limb planes (fused, two buffers each)
   __nv_bfloat16* const Bp = reinterpret_cast<__nv_bfloat16*>(dec_smem);
   float* const Br = reinterpret_cast<float*>(dec_smem);
   float* const Ar = reinterpret_cast<float*>(
-      dec_smem + dec_ring_b_bytes(PL, nl, dk, slots));
+      dec_smem + dec_ring_b_bytes(PL, nl, dk, slots, NOUT));
   __nv_bfloat16* const As =
       reinterpret_cast<__nv_bfloat16*>(Ar + (int64_t)slots * plane);
   __nv_bfloat16* const Bl = As + 2 * nl * plane;
   auto bp_at = [&](int q, int j) { return (q * nl + j) * dk * DEC_N; };
+  auto br_at = [&](int q, int t) { return (q * NOUT + t) * dk * DEC_N; };
   auto as_at = [&](int buf, int i) { return (buf * nl + i) * plane; };
-  auto bl_at = [&](int buf, int j) { return (buf * nl + j) * dk * DEC_N; };
+  auto bl_at = [&](int buf, int t, int j) {
+    return ((buf * NOUT + t) * nl + j) * dk * DEC_N;
+  };
 
   const int tid = threadIdx.x;
   const int ct = dec_compute_threads(M);
@@ -583,29 +607,33 @@ __device__ __forceinline__ void decode_tile(
         }
       }
     } else {
-      const float* src = B + k0 * b_sr;
-      float* dst = Br + q * dk * DEC_N;
-      if (vec_b) {
-        for (int e = pt; e < kn * 4; e += np) {
-          const int kk = e >> 2;
-          const int cc = (e & 3) * 4;
-          const bool in = n0 + cc < N;
-          cp_async16(dst + kk * DEC_N + cc,
-                     in ? src + kk * b_sr + n0 + cc : B, in ? 16 : 0);
-        }
-      } else if (b_sr == 1) {
-        // k contiguous in B (decode QK's transposed cache): walk k
-        for (int nn = 0; nn < DEC_N; ++nn) {
-          const bool in = n0 + nn < N;
-          for (int kk = pt; kk < kn; kk += np)
-            cp_async4(dst + kk * DEC_N + nn,
-                      in ? src + kk + (n0 + nn) * b_sc : B, in);
-        }
-      } else {
-        for (int e = pt; e < kn * DEC_N; e += np) {
-          const int64_t gn = n0 + (e & 15);
-          const bool in = gn < N;
-          cp_async4(dst + e, in ? src + (e >> 4) * b_sr + gn * b_sc : B, in);
+#pragma unroll
+      for (int t = 0; t < NOUT; ++t) {
+        const float* src = B[t] + k0 * b_sr;
+        float* dst = Br + br_at(q, t);
+        if (vec_b) {
+          for (int e = pt; e < kn * 4; e += np) {
+            const int kk = e >> 2;
+            const int cc = (e & 3) * 4;
+            const bool in = n0 + cc < N;
+            cp_async16(dst + kk * DEC_N + cc,
+                       in ? src + kk * b_sr + n0 + cc : B[t], in ? 16 : 0);
+          }
+        } else if (b_sr == 1) {
+          // k contiguous in B (decode QK's transposed cache): walk k
+          for (int nn = 0; nn < DEC_N; ++nn) {
+            const bool in = n0 + nn < N;
+            for (int kk = pt; kk < kn; kk += np)
+              cp_async4(dst + kk * DEC_N + nn,
+                        in ? src + kk + (n0 + nn) * b_sc : B[t], in);
+          }
+        } else {
+          for (int e = pt; e < kn * DEC_N; e += np) {
+            const int64_t gn = n0 + (e & 15);
+            const bool in = gn < N;
+            cp_async4(dst + e, in ? src + (e >> 4) * b_sr + gn * b_sc : B[t],
+                      in);
+          }
         }
       }
     }
@@ -628,15 +656,27 @@ __device__ __forceinline__ void decode_tile(
                 plane, nl);
     }
     if constexpr (!PL) {
-      for (int e = pt; e < kn * 4; e += np)
-        limb4<NL>(Br + q * dk * DEC_N + 4 * e, Bl + bl_at(buf, 0) + 4 * e,
-                  dk * DEC_N, nl);
+#pragma unroll
+      for (int t = 0; t < NOUT; ++t)
+        for (int e = pt; e < kn * 4; e += np)
+          limb4<NL>(Br + br_at(q, t) + 4 * e, Bl + bl_at(buf, t, 0) + 4 * e,
+                    dk * DEC_N, nl);
     }
   };
 
-  float acc[NO];
+  float acc[NOUT][NO];
 #pragma unroll
-  for (int o = 0; o < NO; ++o) acc[o] = 0.f;
+  for (int t = 0; t < NOUT; ++t)
+#pragma unroll
+    for (int o = 0; o < NO; ++o) acc[t][o] = 0.f;
+  // the row's lane, in registers for the whole K loop (LN only)
+  int rn = 0, ro = 0;
+  if constexpr (LN) {
+    if (!producer && r < M) {
+      rn = ln[r];
+      ro = lo[r];
+    }
+  }
 
   if (producer) {
     if constexpr (PL) {
@@ -664,24 +704,30 @@ __device__ __forceinline__ void decode_tile(
     } else if (r < M) {
       const int kn = stage_k(s);
       const __nv_bfloat16* const arow = As + as_at(s & 1, 0) + r * dk;
-      // this thread's column of B's planes at this stage, plane stride dk*16
-      const __nv_bfloat16* const bcol =
-          (PL ? Bp + bp_at(s % NS, 0) : Bl + bl_at(s & 1, 0)) + c;
+      // this thread's column of each B's planes at this stage, plane
+      // stride dk*16
+      const __nv_bfloat16* bcol[NOUT];
+#pragma unroll
+      for (int t = 0; t < NOUT; ++t)
+        bcol[t] = (PL ? Bp + bp_at(s % NS, 0) : Bl + bl_at(s & 1, t, 0)) + c;
       const int bs = dk * DEC_N;
       int kk = 0;
-      // 8 k of A's planes (one 16-byte broadcast read each) and of this
-      // thread's B column
-      auto fetch = [&](int k8, uint4 (&av)[NL], float (&bv)[NL][8]) {
+      // 8 k of A's planes (one 16-byte broadcast read each), and of weight
+      // t's B column
+      auto fetch_a = [&](int k8, uint4 (&av)[NL]) {
 #pragma unroll
         for (int i = 0; i < NL; ++i)
           av[i] = *reinterpret_cast<const uint4*>(arow + i * plane + k8);
+      };
+      auto fetch_b = [&](int k8, int t, float (&bv)[NL][8]) {
 #pragma unroll
         for (int j = 0; j < NL; ++j)
 #pragma unroll
           for (int u = 0; u < 8; ++u)
-            bv[j][u] = bf(bcol[j * bs + (k8 + u) * DEC_N]);
+            bv[j][u] = bf(bcol[t][j * bs + (k8 + u) * DEC_N]);
       };
-      auto run = [&](const uint4 (&av)[NL], const float (&bv)[NL][8]) {
+      // 8 k of weight t's chains, k ascending
+      auto run = [&](const uint4 (&av)[NL], const float (&bv)[NL][8], int t) {
 #pragma unroll
         for (int u = 0; u < 8; ++u) {
           float a[NL], b[NL];
@@ -689,39 +735,53 @@ __device__ __forceinline__ void decode_tile(
           for (int i = 0; i < NL; ++i) a[i] = bf_at(av[i], u);
 #pragma unroll
           for (int j = 0; j < NL; ++j) b[j] = bv[j][u];
-          fma_step<NL, NO>(a, b, acc, nl, mo);
+          fma_step<NL, NO, LN>(a, b, acc[t], nl, mo, rn, ro);
         }
       };
-      if constexpr (!GEN && NL <= 3) {
+      if constexpr (!GEN && NL * NOUT <= 3) {
         // the next 8 k's shared-memory reads in flight while this 8's
         // FMAs run
         const int kn8 = kn & ~7;
         if (kn8 > 0) {
           uint4 av[NL];
-          float bv[NL][8];
-          fetch(0, av, bv);
+          float bv[NOUT][NL][8];
+          fetch_a(0, av);
+#pragma unroll
+          for (int t = 0; t < NOUT; ++t) fetch_b(0, t, bv[t]);
 #pragma unroll 1
           for (kk = 8; kk < kn8; kk += 8) {
             uint4 an[NL];
-            float bn[NL][8];
-            fetch(kk, an, bn);
-            run(av, bv);
+            float bn[NOUT][NL][8];
+            fetch_a(kk, an);
+#pragma unroll
+            for (int t = 0; t < NOUT; ++t) fetch_b(kk, t, bn[t]);
+#pragma unroll
+            for (int t = 0; t < NOUT; ++t) run(av, bv[t], t);
 #pragma unroll
             for (int i = 0; i < NL; ++i) av[i] = an[i];
 #pragma unroll
-            for (int j = 0; j < NL; ++j)
+            for (int t = 0; t < NOUT; ++t)
 #pragma unroll
-              for (int u = 0; u < 8; ++u) bv[j][u] = bn[j][u];
+              for (int j = 0; j < NL; ++j)
+#pragma unroll
+                for (int u = 0; u < 8; ++u) bv[t][j][u] = bn[t][j][u];
           }
-          run(av, bv);
+#pragma unroll
+          for (int t = 0; t < NOUT; ++t) run(av, bv[t], t);
           kk = kn8;
         }
       } else if constexpr (!GEN) {
+        // weight by weight within each 8 k: every chain still takes its k
+        // in ascending order
         for (; kk + 8 <= kn; kk += 8) {
           uint4 av[NL];
-          float bv[NL][8];
-          fetch(kk, av, bv);
-          run(av, bv);
+          fetch_a(kk, av);
+#pragma unroll
+          for (int t = 0; t < NOUT; ++t) {
+            float bv[NL][8];
+            fetch_b(kk, t, bv);
+            run(av, bv, t);
+          }
         }
       }
       for (; kk < kn; ++kk) {
@@ -730,9 +790,12 @@ __device__ __forceinline__ void decode_tile(
         for (int i = 0; i < NL; ++i)
           a[i] = i < nl ? bf(arow[i * plane + kk]) : 0.f;
 #pragma unroll
-        for (int j = 0; j < NL; ++j)
-          b[j] = j < nl ? bf(bcol[j * bs + kk * DEC_N]) : 0.f;
-        fma_step<NL, NO>(a, b, acc, nl, mo);
+        for (int t = 0; t < NOUT; ++t) {
+#pragma unroll
+          for (int j = 0; j < NL; ++j)
+            b[j] = j < nl ? bf(bcol[t][j * bs + kk * DEC_N]) : 0.f;
+          fma_step<NL, NO, LN>(a, b, acc[t], nl, mo, rn, ro);
+        }
       }
     }
     __syncthreads();
@@ -743,10 +806,17 @@ __device__ __forceinline__ void decode_tile(
     float z[NL];
 #pragma unroll
     for (int i = 0; i < NL; ++i) z[i] = 0.f;
-    fma_step<NL, NO>(z, z, acc, nl, mo);
+#pragma unroll
+    for (int t = 0; t < NOUT; ++t)
+      fma_step<NL, NO, LN>(z, z, acc[t], nl, mo, rn, ro);
   }
   const int64_t gn = n0 + c;
-  if (gn < N) C[r * c_sr + gn * c_sc] = combine_orders<NO>(acc, mo);
+  if (gn >= N) return;
+  // a lane row joins its own orders, from its own highest one down
+  float y[NOUT];
+#pragma unroll
+  for (int t = 0; t < NOUT; ++t) y[t] = combine_orders<NO>(acc[t], LN ? ro : mo);
+  store(r, gn, y);
 }
 
 // Port of _fused_kernel: C[z] = A[z] @ B[z] at the format, z over up to two
@@ -772,11 +842,14 @@ __global__ void __launch_bounds__(DEC_M * DEC_N + 128)
   const int64_t z = blockIdx.z;
   const int64_t z0 = z / p.nb1;
   const int64_t z1 = z % p.nb1;
+  const float* const B[1] = {p.b + z0 * p.b_sb0 + z1 * p.b_sb1};
+  float* const C = p.c + z0 * p.c_sb0 + z1 * p.c_sb1;
   decode_tile<NL, NO, GEN, false>(
-      p.a + z0 * p.a_sb0 + z1 * p.a_sb1, p.a_sr, p.a_sc,
-      p.b + z0 * p.b_sb0 + z1 * p.b_sb1, p.b_sr, p.b_sc, Planes{},
-      p.c + z0 * p.c_sb0 + z1 * p.c_sb1, p.c_sr, p.c_sc, (int)p.M, p.N, p.K,
-      p.n_limbs, p.max_order, dk);
+      p.a + z0 * p.a_sb0 + z1 * p.a_sb1, p.a_sr, p.a_sc, B, p.b_sr, p.b_sc,
+      Planes{}, (int)p.M, p.N, p.K, p.n_limbs, p.max_order, dk, nullptr,
+      nullptr, [&](int r, int64_t gn, const float (&y)[1]) {
+        C[r * p.c_sr + gn * p.c_sc] = y[0];
+      });
 }
 
 struct PrelimbedArgs {
@@ -808,9 +881,13 @@ __global__ void __launch_bounds__(NT) prelimbed_matmul_kernel(PrelimbedArgs p) {
 template <int NL, int NO, bool GEN>
 __global__ void __launch_bounds__(DEC_M * DEC_N + 128)
     prelimbed_matmul_decode_kernel(PrelimbedArgs p, int dk) {
-  decode_tile<NL, NO, GEN, true>(p.a, p.a_sr, 1, nullptr, 0, 0, p.b, p.c,
-                                 p.c_sr, 1, (int)p.M, p.N, p.K, p.n_limbs,
-                                 p.max_order, dk);
+  const float* const B[1] = {nullptr};
+  decode_tile<NL, NO, GEN, true>(
+      p.a, p.a_sr, 1, B, 0, 0, p.b, (int)p.M, p.N, p.K, p.n_limbs,
+      p.max_order, dk, nullptr, nullptr,
+      [&](int r, int64_t gn, const float (&y)[1]) {
+        p.c[r * p.c_sr + gn] = y[0];
+      });
 }
 
 struct MixedPrelimbedArgs {
@@ -835,6 +912,25 @@ __global__ void __launch_bounds__(NT)
   matmul_tile<NL, NO, RM, RN, GEN, true, true>(
       p.m.a, p.m.a_sr, 1, nullptr, 0, 0, p.m.b, p.m.c, p.m.c_sr, 1, p.m.M,
       p.m.N, p.m.K, p.m.n_limbs, p.m.max_order, p.lane_n, p.lane_ord);
+}
+
+// mixed_prelimbed_matmul_kernel's decode tile (M <= DEC_M): the mixed-format
+// decode tick's matmuls.  The envelope's planes stream once for all rows;
+// each compute thread cuts its own row's products, so a warp (two rows) runs
+// at its deeper row's chain, and a row is the pre-limbed decode tile's row at
+// its lane, bit for bit.  One block per SM is asked for (the ring leaves
+// room for no more at most shapes): without it ptxas caps some
+// instantiations at 80 registers, two blocks' worth, and spills.
+template <int NL, int NO, bool GEN>
+__global__ void __launch_bounds__(DEC_M * DEC_N + 128, 1)
+    mixed_prelimbed_matmul_decode_kernel(MixedPrelimbedArgs p, int dk) {
+  const float* const B[1] = {nullptr};
+  decode_tile<NL, NO, GEN, true, true>(
+      p.m.a, p.m.a_sr, 1, B, 0, 0, p.m.b, (int)p.m.M, p.m.N, p.m.K,
+      p.m.n_limbs, p.m.max_order, dk, p.lane_n, p.lane_ord,
+      [&](int r, int64_t gn, const float (&y)[1]) {
+        p.m.c[r * p.m.c_sr + gn] = y[0];
+      });
 }
 
 struct BothPrelimbedArgs {
@@ -895,10 +991,33 @@ struct ProjArgs {
   int n_limbs, max_order, gate;
 };
 
+// The projection's epilogue of output (gm, gn) of weights t0 .. t0 + NOUT - 1
+// (their combined sums y), before the single store, in _flush's order: bias,
+// then silu(out0) * out1 (silu(x) = x / (1 + expf(-x)) in f32), then the
+// residual.  Both projection tiles call it, so an output has the same bits
+// whichever tile ran it.
+template <int NOUT>
+__device__ __forceinline__ void proj_store(const ProjArgs& p, int64_t gm,
+                                           int64_t gn, int t0,
+                                           float (&y)[NOUT]) {
+#pragma unroll
+  for (int t = 0; t < NOUT; ++t)
+    if (p.bias[0] != nullptr) y[t] = y[t] + p.bias[t0 + t][gn];
+  if (p.gate) {
+    float g = 0.f;
+    if constexpr (NOUT == 2) g = (y[0] / (1.0f + expf(-y[0]))) * y[1];
+    if (p.res != nullptr) g = g + p.res[gm * p.res_sr + gn];
+    p.out[gm * p.N + gn] = g;
+  } else {
+    if (p.res != nullptr) y[0] = y[0] + p.res[gm * p.res_sr + gn];
+#pragma unroll
+    for (int t = 0; t < NOUT; ++t)
+      p.out[((t0 + t) * p.M + gm) * p.N + gn] = y[t];
+  }
+}
+
 // Port of _fused_multi_kernel: the A tile is limbed once per K step and feeds
-// every output; the epilogue runs before the single store, in _flush's order:
-// bias, then silu(out0) * out1 (silu(x) = x / (1 + expf(-x)) in f32), then
-// the residual.
+// every output; proj_store's epilogue runs before the single store.
 template <int NL, int NO, int NOUT, int RM, int RN, bool GEN>
 __global__ void __launch_bounds__(NT) fused_proj_kernel(ProjArgs p) {
   constexpr int BM = TY * RM;
@@ -925,20 +1044,31 @@ __global__ void __launch_bounds__(NT) fused_proj_kernel(ProjArgs p) {
 #pragma unroll
         for (int o = 0; o < NO; ++o) per_order[o] = acc[t][o][r][c];
         y[t] = combine_orders<NO>(per_order, mo);
-        if (p.bias[0] != nullptr) y[t] = y[t] + p.bias[t][gn];
       }
-      if (p.gate) {
-        float g = 0.f;
-        if constexpr (NOUT == 2) g = (y[0] / (1.0f + expf(-y[0]))) * y[1];
-        if (p.res != nullptr) g = g + p.res[gm * p.res_sr + gn];
-        p.out[gm * p.N + gn] = g;
-      } else {
-        if (p.res != nullptr) y[0] = y[0] + p.res[gm * p.res_sr + gn];
-#pragma unroll
-        for (int t = 0; t < NOUT; ++t) p.out[(t * p.M + gm) * p.N + gn] = y[t];
-      }
+      proj_store<NOUT>(p, gm, gn, 0, y);
     }
   }
+}
+
+// fused_proj_kernel's decode tile (M <= DEC_M): A limbed once per stage for
+// the block's NOUT weights, weights t0 = blockIdx.y * NOUT onwards (grid.y
+// blocks of weights per column block), then proj_store.  NOUT = 1 without
+// the gate; the swiglu gate needs g and u of one output in one thread, so
+// it runs NOUT = 2.  One block per SM is asked for, as for the mixed decode
+// kernel.
+template <int NL, int NO, int NOUT, bool GEN>
+__global__ void __launch_bounds__(DEC_M * DEC_N + 128, 1)
+    fused_proj_decode_kernel(ProjArgs p, int dk) {
+  const int t0 = (int)blockIdx.y * NOUT;
+  const float* B[NOUT];
+#pragma unroll
+  for (int t = 0; t < NOUT; ++t) B[t] = p.b[t0 + t];
+  decode_tile<NL, NO, GEN, false, false, NOUT>(
+      p.a, p.a_sr, 1, B, p.b_sr, 1, Planes{}, (int)p.M, p.N, p.K, p.n_limbs,
+      p.max_order, dk, nullptr, nullptr,
+      [&](int r, int64_t gn, float (&y)[NOUT]) {
+        proj_store<NOUT>(p, r, gn, t0, y);
+      });
 }
 
 // micro-tile per thread: 4 x 4 while the accumulators stay within ~112
@@ -947,16 +1077,27 @@ constexpr int micro(int no, int nout, bool gen) {
   return (!gen && no * nout <= 7) ? 4 : 2;
 }
 
-// Launch one decode-tile kernel: blocks of M * DEC_N threads over the N
-// columns (x) and the batch (z), the ring sized to K and M.  The kernel's
-// dynamic shared memory limit is raised to the card's once.
-template <int NL, auto kernel, typename Args>
+// Launch one decode-tile kernel: blocks of M * DEC_N compute threads and the
+// producer warps over the N columns (x), ny groups of NOUT weights (y) and
+// the batch (z).  k per stage is DecRing's, halved until NOUT weights' rings
+// and planes fit the card's shared memory and, where the grid has more
+// blocks than the card has SMs, until two blocks fit on one SM (down to 64
+// k).  It only stages the loads: every chain keeps its order, so the bits do
+// not depend on it.  The kernel's dynamic shared memory limit is raised to
+// the card's once per kernel.
+template <int NL, int NOUT, auto kernel, typename Args>
 cudaError_t launch_decode(const Args& p, bool pl, int nl, int64_t M,
-                          int64_t N, int64_t K, int64_t nz, cudaStream_t st) {
-  static int optin = 0;
+                          int64_t N, int64_t K, unsigned ny, int64_t nz,
+                          cudaStream_t st) {
+  static int optin = 0, sms = 0, sm_smem = 0;
   if (optin == 0) {
     int dev = 0;
     cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(
+          &sm_smem, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
     if (err == cudaSuccess)
       err = cudaDeviceGetAttribute(
           &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
@@ -968,11 +1109,20 @@ cudaError_t launch_decode(const Args& p, bool pl, int nl, int64_t M,
       return err;
     }
   }
-  const int dk = (int)(K < DecRing<NL>::K ? (K + 7) / 8 * 8 : DecRing<NL>::K);
-  const int64_t stages = dk > 0 ? (K + dk - 1) / dk : 0;
-  const int slots = (int)(stages < DecRing<NL>::S ? stages : DecRing<NL>::S);
-  const int64_t smem = dec_smem_bytes(pl, nl, (int)M, dk, slots);
-  const dim3 grid((unsigned)((N + DEC_N - 1) / DEC_N), 1, (unsigned)nz);
+  auto smem_of = [&](int dk) {
+    const int64_t stages = dk > 0 ? (K + dk - 1) / dk : 0;
+    const int slots =
+        (int)(stages < DecRing<NL>::S ? stages : DecRing<NL>::S);
+    return dec_smem_bytes(pl, nl, (int)M, dk, slots, NOUT);
+  };
+  int dk = (int)(K < DecRing<NL>::K ? (K + 7) / 8 * 8 : DecRing<NL>::K);
+  while (dk > 8 && smem_of(dk) > optin) dk = (dk / 2 + 7) / 8 * 8;
+  const dim3 grid((unsigned)((N + DEC_N - 1) / DEC_N), ny, (unsigned)nz);
+  if ((int64_t)grid.x * grid.y * grid.z > sms)
+    // 1 KB of each block's shared memory is the runtime's
+    while (dk > 64 && 2 * (smem_of(dk) + 1024) > sm_smem)
+      dk = (dk / 2 + 7) / 8 * 8;
+  const int64_t smem = smem_of(dk);
   const unsigned threads =
       (unsigned)(dec_compute_threads((int)M) + 32 * DecRing<NL>::P(pl));
   kernel<<<grid, threads, (size_t)smem, st>>>(p, dk);
@@ -984,8 +1134,8 @@ cudaError_t launch_decode(const Args& p, bool pl, int nl, int64_t M,
 template <int NL, int NO, bool GEN>
 cudaError_t launch_matmul(const MatmulArgs& p, int64_t nb0, cudaStream_t st) {
   if (p.M <= DEC_M)
-    return launch_decode<NL, fused_matmul_decode_kernel<NL, NO, GEN>>(
-        p, false, GEN ? p.n_limbs : NL, p.M, p.N, p.K, nb0 * p.nb1, st);
+    return launch_decode<NL, 1, fused_matmul_decode_kernel<NL, NO, GEN>>(
+        p, false, GEN ? p.n_limbs : NL, p.M, p.N, p.K, 1, nb0 * p.nb1, st);
   constexpr int R = micro(NO, 1, GEN);
   const dim3 grid((unsigned)((p.N + TX * R - 1) / (TX * R)),
                   (unsigned)((p.M + TY * R - 1) / (TY * R)),
@@ -998,8 +1148,8 @@ cudaError_t launch_matmul(const MatmulArgs& p, int64_t nb0, cudaStream_t st) {
 template <int NL, int NO, bool GEN>
 cudaError_t launch_prelimbed(const PrelimbedArgs& p, cudaStream_t st) {
   if (p.M <= DEC_M)
-    return launch_decode<NL, prelimbed_matmul_decode_kernel<NL, NO, GEN>>(
-        p, true, GEN ? p.n_limbs : NL, p.M, p.N, p.K, 1, st);
+    return launch_decode<NL, 1, prelimbed_matmul_decode_kernel<NL, NO, GEN>>(
+        p, true, GEN ? p.n_limbs : NL, p.M, p.N, p.K, 1, 1, st);
   constexpr int R = micro(NO, 1, GEN);
   const dim3 grid((unsigned)((p.N + TX * R - 1) / (TX * R)),
                   (unsigned)((p.M + TY * R - 1) / (TY * R)), 1);
@@ -1010,6 +1160,10 @@ cudaError_t launch_prelimbed(const PrelimbedArgs& p, cudaStream_t st) {
 template <int NL, int NO, bool GEN>
 cudaError_t launch_mixed_prelimbed(const MixedPrelimbedArgs& p,
                                    cudaStream_t st) {
+  if (p.m.M <= DEC_M)
+    return launch_decode<NL, 1,
+                         mixed_prelimbed_matmul_decode_kernel<NL, NO, GEN>>(
+        p, true, GEN ? p.m.n_limbs : NL, p.m.M, p.m.N, p.m.K, 1, 1, st);
   constexpr int R = micro(NO, 1, GEN);
   const dim3 grid((unsigned)((p.m.N + TX * R - 1) / (TX * R)),
                   (unsigned)((p.m.M + TY * R - 1) / (TY * R)), 1);
@@ -1027,8 +1181,21 @@ cudaError_t launch_both_prelimbed(const BothPrelimbedArgs& p,
   return cudaGetLastError();
 }
 
+// At M <= DEC_M the decode tile: one block per (column block, weight)
+// without the gate (QKV's 768 columns: 144 blocks, 1.3x faster than the
+// three weights in one block), both weights in one block with it (the gate
+// needs g and u of one output in one thread).
 template <int NL, int NO, int NOUT, bool GEN>
 cudaError_t launch_proj(const ProjArgs& p, cudaStream_t st) {
+  if (p.M <= DEC_M) {
+    const int nl = GEN ? p.n_limbs : NL;
+    if constexpr (NOUT == 2)
+      if (p.gate)
+        return launch_decode<NL, 2, fused_proj_decode_kernel<NL, NO, 2, GEN>>(
+            p, false, nl, p.M, p.N, p.K, 1, 1, st);
+    return launch_decode<NL, 1, fused_proj_decode_kernel<NL, NO, 1, GEN>>(
+        p, false, nl, p.M, p.N, p.K, NOUT, 1, st);
+  }
   constexpr int R = micro(NO, NOUT, GEN);
   const dim3 grid((unsigned)((p.N + TX * R - 1) / (TX * R)),
                   (unsigned)((p.M + TY * R - 1) / (TY * R)), 1);

@@ -48,16 +48,23 @@ def _assert_outputs(j, p):
         assert_matmul_close(a, b)
 
 
+# the decode micro-batch's row counts (the CUDA decode tile takes M <= 16)
+# and the prefill-shaped default
+ROWS = [1, 8, 16, 37]
+
+
+@pytest.mark.parametrize("M", ROWS)
 @pytest.mark.parametrize("n_out", [1, 2, 3])
 @pytest.mark.parametrize("mode", ["M8", "M16", "M23"])
-def test_equal_width_outputs_match_jax(mode, n_out):
-    x, ws, _, _ = _inputs(n_out, Ns=(24,) * n_out)
+def test_equal_width_outputs_match_jax(mode, n_out, M):
+    x, ws, _, _ = _inputs(n_out, M=M, Ns=(24,) * n_out)
     _assert_outputs(*_both(x, ws, mode))
 
 
+@pytest.mark.parametrize("M", ROWS)
 @pytest.mark.parametrize("mode", ["M8", "M16", "M36"])
-def test_swiglu_bias_residual_match_jax(mode):
-    x, ws, bs, res = _inputs(7, Ns=(40, 40), bias=True, residual=True)
+def test_swiglu_bias_residual_match_jax(mode, M):
+    x, ws, bs, res = _inputs(7, M=M, Ns=(40, 40), bias=True, residual=True)
     _assert_outputs(*_both(x, ws, mode, bs, res, gate="swiglu"))
 
 

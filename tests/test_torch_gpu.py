@@ -286,6 +286,64 @@ def test_prelimbed_rows_are_batch_invariant(cuda, custom_format, mode,
                 rows, (M, rows))
 
 
+# (n_out, gate, biases, residual) of the projection's epilogues
+PROJ_EPILOGUES = [(1, "none", True, True), (2, "none", False, False),
+                  (3, "none", True, False), (3, "none", False, False),
+                  (2, "swiglu", True, True), (2, "swiglu", False, False)]
+
+
+@pytest.mark.parametrize("K,N,lda", DECODE_KN)
+@pytest.mark.parametrize("n_out,gate,bias,res", PROJ_EPILOGUES)
+@pytest.mark.parametrize("mode", ["M8", "M16", "M23", "M36", "M52", CUSTOM])
+def test_fused_proj_rows_are_batch_invariant(cuda, custom_format, mode,
+                                             n_out, gate, bias, res, K, N,
+                                             lda):
+    """The fused projection's rows at M <= 17 (the decode tile up to 16)
+    equal the same rows of one launch at M = 70 (the 64x64 tile) bit for
+    bit, epilogue included."""
+    a = _rows_of(cuda, 70, K, lda, seed=100)
+    ws = [_randn(cuda, K, N, seed=101 + t) for t in range(n_out)]
+    _underflow_row(a, ws[0])
+    for w in ws[1:]:
+        w[:, 0] *= 1e-30
+    bs = [_randn(cuda, N, seed=110 + t) for t in range(n_out)] if bias \
+        else None
+    r70 = _randn(cuda, 70, N, seed=120) if res else None
+
+    def proj(rows):
+        return mp_matmul.mp_fused_proj(
+            a[rows], ws, mode, gate=gate, biases=bs,
+            residual=None if r70 is None else r70[rows])
+
+    full = proj(slice(0, 70))
+    for M in BATCH_MS:
+        for rows in (slice(0, M), slice(70 - M, 70)):
+            want = full[rows] if gate == "swiglu" else full[:, rows]
+            out = proj(rows)
+            torch.cuda.synchronize()
+            assert torch.equal(out.view(torch.int32),
+                               want.view(torch.int32)), (M, rows)
+
+
+@pytest.mark.parametrize("M", [8, 70])
+@pytest.mark.parametrize("mode", ["M8", "M16", "M23", "M36", "M52", CUSTOM])
+def test_fused_proj_outputs_are_the_fused_matmul(cuda, custom_format, mode,
+                                                 M):
+    """Without an epilogue, output t of the projection is bit for bit the
+    fused matmul of A with weight t: each weight's chains are the fused
+    matmul's, at decode (M = 8) and prefill (M = 70) tiles alike."""
+    a = _randn(cuda, M, 200, seed=130)
+    ws = [_randn(cuda, 200, 88, seed=131 + t) for t in range(3)]
+    _underflow_row(a, ws[0])
+    for n_out in (1, 2, 3):
+        out = mp_matmul.mp_fused_proj(a, ws[:n_out], mode)
+        for t in range(n_out):
+            mm = mp_matmul.mp_fused_matmul(a, ws[t], mode)
+            torch.cuda.synchronize()
+            assert torch.equal(out[t].view(torch.int32),
+                               mm.view(torch.int32)), (n_out, t)
+
+
 @pytest.mark.parametrize("qk,pv,hkv,lengths", [
     ("M16", "M8", 12, (64, 0, 100, 288)),
     ("M23", "M16", 6, (17, 16, 1, 45)),
@@ -381,14 +439,15 @@ def _envelope(fmts):
 
 
 @pytest.mark.parametrize("M,K,N,n_stored", [
-    (8, 768, 768, 5), (13, 300, 77, 4), (8, 200, 90, 2)])
+    (8, 768, 768, 5), (13, 300, 77, 4), (8, 200, 90, 2), (1, 768, 768, 5),
+    (16, 300, 77, 4), (17, 200, 90, 2)])
 def test_mixed_prelimbed_rows_are_the_homogeneous_kernel(
         cuda, custom_format, M, K, N, n_stored):
     """Each row of the mixed kernel is bit for bit the pre-limbed kernel's
     row at its own format (zero signs included; rows past the table's end
     at PAD_LANE), and the whole output is held at the f32 floor against
     the plain version."""
-    fmts = [resolve(m) for m in (MIXED_ROWS * 2)[:M]]
+    fmts = [resolve(m) for m in (MIXED_ROWS * 3)[:M]]
     env = _envelope(fmts)
     a, w = _randn(cuda, M, K, seed=80), _randn(cuda, K, N, seed=81) * 0.05
     a[0, :3] = torch.tensor([0.0, -0.0, 1e-30], device=cuda)
@@ -405,6 +464,35 @@ def test_mixed_prelimbed_rows_are_the_homogeneous_kernel(
         torch.cuda.synchronize()
         assert torch.equal(out[rows].view(torch.int32),
                            homo.view(torch.int32)), f.name
+
+
+# lanes of the 70 rows, cycled: envelopes (5, 4) (M36's instantiation),
+# (4, 3) (the generic one) and (3, 2) (the mixed-traffic tick's)
+LANE_CYCLES = {"builtin": MIXED_ROWS, "generic": ["M8", CUSTOM, "M16", "M8"],
+               "tick": ["M8", "M16", "M23", "M8"]}
+
+
+@pytest.mark.parametrize("K,N,lda", DECODE_KN)
+@pytest.mark.parametrize("cycle", sorted(LANE_CYCLES))
+@pytest.mark.parametrize("n_stored", [2, 7])
+def test_mixed_prelimbed_rows_are_batch_invariant(cuda, custom_format, cycle,
+                                                  n_stored, K, N, lda):
+    """The mixed kernel's rows at M <= 17 (the decode tile up to 16) equal
+    the same rows of one launch at M = 70 (the 64x64 tile) bit for bit, at
+    the same envelope, with stacks below and above it."""
+    fmts = [resolve(m) for m in (LANE_CYCLES[cycle] * 70)[:70]]
+    env = _envelope(fmts)
+    a, w = _rows_of(cuda, 70, K, lda, seed=140), _randn(cuda, K, N, seed=141)
+    _underflow_row(a, w)
+    limbs = mp_matmul.mp_decompose(w, n_stored)
+    ln, lo = _lane_vectors(cuda, fmts)
+    full = mp_matmul.mp_mixed_prelimbed_matmul(a, limbs, env, ln, lo)
+    for M in BATCH_MS:
+        for rows in (slice(0, M), slice(70 - M, 70)):
+            _assert_rows_bitwise(
+                mp_matmul.mp_mixed_prelimbed_matmul(a[rows], limbs, env,
+                                                    ln[rows], lo[rows]),
+                full, rows, (M, rows))
 
 
 @pytest.mark.parametrize("hkv,lengths", [(12, (64, 0, 100, 288, 5)),
