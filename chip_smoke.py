@@ -8,7 +8,8 @@ line is not printed):
 
 1. the card: ``nvidia-smi`` name and power limit, ``torch`` device name;
 2. the build: every CUDA source of ``src/repro_torch/kernels/csrc`` compiled
-   in parallel into ``build/torch_kernels/`` (seconds, registers, spills);
+   in parallel into ``build/torch_kernels/`` (seconds, registers, spills),
+   and the chunk ``KC`` of the limb matmuls' tensor-core order;
 3. each kernel against its plain PyTorch version on the card, at the serving
    path's shapes and formats plus M23/M36 (and more) for the matmul kernels;
    the decompose kernel bitwise, the pre-limbed matmul bitwise against the
@@ -16,9 +17,10 @@ line is not printed):
    an epilogue bitwise the fused matmul with each weight, each decode case
    (M <= 16 rows: the decode tile) of the fused, pre-limbed and mixed-lane
    matmuls and of the fused projection bitwise against the same rows of an
-   M = 70 launch (the 64x64 tile; the mixed kernel's extra rows at
-   PAD_LANE), and each row (slot) of the two mixed-lane kernels bitwise
-   against the homogeneous kernel at its own format;
+   M = 70 launch (the prefill tile; the mixed kernel's extra rows at
+   PAD_LANE), each row (slot) of the two mixed-lane kernels bitwise
+   against the homogeneous kernel at its own format, and each prefill case
+   within tests/test_kernels.py's error model of its float64 golden;
 3b. ``[modes]``: the paper's six modes through ``repro_torch.mp`` (the
    quickstart's surface): every built-in format and a run-time M30 on f32
    operands at the model's prefill shapes, M36 / M52 on two-float (DD)
@@ -291,6 +293,11 @@ def main() -> int:
                 build.ptxas_summary(b.ptxas).items()):
             log(f"[ptxas] {b.name}: {entry[:90]} regs {regs} "
                 f"spill st {st} ld {ld}")
+    # the K of one chunk: the length of every tensor-core chain, so the
+    # order of every matmul's sum
+    report["chunk_k"] = mp_matmul.chunk_k()
+    log(f"[build] limb matmuls: one mma.sync chain per product over chunks "
+        f"of KC = {report['chunk_k']} k, summed by f32 adds")
 
     # ---- 3. kernels against their plain versions --------------------------
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -316,6 +323,28 @@ def main() -> int:
             raise AssertionError(f"{kernel} {label} disagrees with its "
                                  "plain version")
 
+    def f32_bound(fmt, K):
+        # tests/test_kernels.py's error model: limb truncation (f32 inputs
+        # carry at most 3 limbs) or the f32 accumulation floor
+        return max(2.0 ** -(8 * min(fmt.n_limbs, 3) - 2),
+                   8 * U32 * math.sqrt(K))
+
+    def hold_golden(kernel, label, out, gold, bound):
+        """A prefill case against its float64 golden: the relative error in
+        the norm, held below ``bound``, and the largest absolute error beside
+        it; returned for the case's ``[time]`` line."""
+        err = out.double() - gold
+        res = dict(gold_rel=(err.norm() / gold.norm()).item(),
+                   gold_bound=bound, gold_max_abs=err.abs().max().item())
+        checks[kernel][-1].update(res)
+        log(f"[gold] {kernel} {label}: rel err vs float64 "
+            f"{res['gold_rel']:.3e} (bound {bound:.3e}), max abs "
+            f"{res['gold_max_abs']:.3e}")
+        if not res["gold_rel"] < bound:
+            raise AssertionError(f"{kernel} {label}: error vs float64 "
+                                 f"{res['gold_rel']} >= {bound}")
+        return res
+
     def mm_tol(ref, K):
         # the repo's f32 accumulation floor (tests/test_kernels.py
         # _err_bound): two orders of summing the same exact limb products
@@ -326,7 +355,7 @@ def main() -> int:
 
     def decode_rows_bitwise(kernel, label, fn, a, out):
         """A decode case (M <= 16 rows: the decode tile) against the same
-        rows of one launch at M = 70 (the 64x64 tile), bit for bit."""
+        rows of one launch at M = 70 (the prefill tile), bit for bit."""
         M = a.shape[-2]
         if M > 16:
             return
@@ -350,6 +379,9 @@ def main() -> int:
         K = a.shape[-1]
         hold("mp_fused_matmul", label, out, ref, mm_tol(ref, K),
              {"fmt": fmt.name})
+        gold = (hold_golden("mp_fused_matmul", label, out,
+                            a.double() @ b.double(), f32_bound(fmt, K))
+                if label.startswith("prefill") else {})
         decode_rows_bitwise("mp_fused_matmul", label,
                             lambda x: mp_matmul.mp_fused_matmul(x, b, fmt),
                             a, out)
@@ -359,7 +391,7 @@ def main() -> int:
         nbytes = 4 * (a.numel() + b.numel() + out.numel())
         cases["mp_fused_matmul"].append(dict(
             case=label, fmt=fmt.name, a=list(a.shape), b=list(b.shape),
-            ops=ops, bytes=nbytes, main=main, per=per,
+            ops=ops, bytes=nbytes, main=main, per=per, **gold,
             fn=lambda: mp_matmul.mp_fused_matmul(a, b, fmt),
             plain=lambda: mp_matmul.fused_matmul_plain(a, b, fmt),
             library=(lambda ar=a.bfloat16().float(), br=b.bfloat16().float():
@@ -383,6 +415,32 @@ def main() -> int:
                    + (g / (1 + torch.exp(-g))).abs() * mm_tol(u, K)
                    + 2e-6 * ref.abs())
         hold("mp_fused_proj", label, out, ref, tol, {"fmt": fmt.name})
+        gold = {}
+        if label.startswith("prefill"):
+            raw = []
+            for t, w in enumerate(ws):
+                r = a.double() @ w.double()
+                if biases is not None:
+                    r = r + biases[t].double()
+                raw.append(r)
+            lim = f32_bound(fmt, K)
+            if gate == "none":
+                g64 = torch.stack(raw)
+                if residual is not None:
+                    g64 = g64 + residual.double()
+                gold = hold_golden("mp_fused_proj", label, out, g64, lim)
+            else:
+                # each raw output within lim of its golden in the norm,
+                # carried through silu(g) * u (|silu'| <= 1.1)
+                g, u = raw
+                sg = g / (1 + torch.exp(-g))
+                g64 = sg * u
+                carried = lim * (1.1 * u.abs().max() * g.norm()
+                                 + sg.abs().max() * u.norm()) / g64.norm()
+                if residual is not None:
+                    g64 = g64 + residual.double()
+                gold = hold_golden("mp_fused_proj", label, out, g64,
+                                   carried.item())
         if gate == "none" and biases is None and residual is None:
             # no epilogue: each output is the fused matmul with its weight
             for t, w in enumerate(ws):
@@ -404,7 +462,7 @@ def main() -> int:
         stack = torch.stack([w.bfloat16().float() for w in ws])
         cases["mp_fused_proj"].append(dict(
             case=label, fmt=fmt.name, a=list(a.shape), n_out=len(ws),
-            N=N, gate=gate, ops=ops, bytes=nbytes, main=main, per=per,
+            N=N, gate=gate, ops=ops, bytes=nbytes, main=main, per=per, **gold,
             fn=lambda: mp_matmul.mp_fused_proj(a, ws, fmt, **kw),
             plain=lambda: mp_matmul.fused_proj_plain(a, ws, fmt, **kw),
             library=(lambda ar=a.bfloat16().float(): torch.matmul(ar, stack))
@@ -856,10 +914,7 @@ def main() -> int:
         modes_rel[f"{k} {f} {kind}"] = rel
         fmt = resolve(f)
         if kind == "f32":
-            # tests/test_kernels.py's error model: limb truncation (f32
-            # inputs carry at most 3 limbs) or the f32 accumulation floor
-            lim = max(2.0 ** -(8 * min(fmt.n_limbs, 3) - 2),
-                      8 * U32 * math.sqrt(K))
+            lim = f32_bound(fmt, K)
         else:
             lim = 8 * U32 * math.sqrt(K)  # tests/test_kernels.py, DD
         log(f"[modes] {k} {f} on {kind} operands: rel err vs float64 "
@@ -874,11 +929,12 @@ def main() -> int:
                                  f"the format {r}")
 
     def both_case(label, al, bl, fmt, out=None, bitwise=None, timed=False,
-                  main=False):
+                  main=False, gold=None):
         """The both-prelimbed kernel's result ``out`` on the stacks (al, bl)
         (launched here when None) against its plain version; ``bitwise``:
         the fused kernel's result it must equal bit for bit; ``timed``: a
-        case of the ``[time]`` lines."""
+        case of the ``[time]`` lines; ``gold``: its error against the
+        float64 golden and the bound (held in ``[modes]``) for that line."""
         fmt = resolve(fmt)
         if out is None:
             out = mp_matmul.mp_both_prelimbed_matmul(al, bl, fmt)
@@ -903,7 +959,7 @@ def main() -> int:
                        * K * N) + 4 * M * N)
         cases["mp_both_prelimbed_matmul"].append(dict(
             case=label, fmt=fmt.name, a=[M, K], b=[K, N], ops=ops,
-            bytes=nbytes, main=main, per=None,
+            bytes=nbytes, main=main, per=None, **(gold or {}),
             fn=lambda: mp_matmul.mp_both_prelimbed_matmul(al, bl, fmt),
             plain=lambda: mp_matmul.both_prelimbed_matmul_plain(al, bl, fmt),
             library=None))
@@ -916,8 +972,11 @@ def main() -> int:
         n = resolve(f).n_limbs
         al, bl = (limbs_lib.decompose_dd(x, n) for x in mdd[k])
         main = k.startswith("lm_head")
+        K = m64[k][0].shape[1]
         both_case(f"DD {k} {f}", al, bl, f, out=out, main=main,
-                  timed=main or (k.startswith("w_down") and f == "M36"))
+                  timed=main or (k.startswith("w_down") and f == "M36"),
+                  gold=dict(gold_rel=modes_rel[f"{k} {f} {kind}"],
+                            gold_bound=8 * U32 * math.sqrt(K)))
     # on stacks cut from f32 operands: bitwise the fused kernel's result
     a32, b32 = mf32["w_up 2048x768x3072"]
     for f in f32_fmts:
@@ -1529,6 +1588,8 @@ def main() -> int:
                 f"{plain_ms:.4f} ms, library "
                 f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound "
                 f"{b_ms:.4f} ms ({b_by})"
+                + (f"; rel err vs float64 {c['gold_rel']:.3e} (bound "
+                   f"{c['gold_bound']:.3e})" if "gold_rel" in c else "")
                 + (f"; host behind the card for {behind}" if behind else ""))
         main_row = next(r for r in rows if r["main"])
         by_path = {"generate": launches[kname],

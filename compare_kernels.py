@@ -1,0 +1,113 @@
+#!/usr/bin/env python3
+"""Time this tree's limb-matmul kernels against other versions of
+``csrc/mp_matmul.cu`` on one card, and check that they give the same bits.
+
+    python3 compare_kernels.py OTHER.cu [OTHER.cu ...]
+
+This tree's source and each other one are compiled with the tree's flags,
+all at once, into ``build/compare_kernels/``; every case below runs on each
+library through the port's launch marshalling, timed with ``chip_smoke.py``'s
+``ms`` timer (calls queued behind a sleep kernel), and each other version's
+output is compared with this tree's bit for bit.  A version whose order of
+sums differs is reported, not rejected: the tool serves to time a redesign
+(the parent's source, or a copy with one part removed) and to check that a
+new instruction keeps the order's bits.  Each version's ``[ptxas]`` lines
+show its registers and spills.  Needs the card and ``nvcc``; imports nothing
+of JAX.
+"""
+from __future__ import annotations
+
+import ctypes
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+
+
+def main(others) -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("compare_kernels: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    from chip_smoke import device_ms
+    from repro_torch.core.formats import resolve
+    from repro_torch.kernels import build, mp_matmul as mm
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out_dir = ROOT / "build" / "compare_kernels"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    sources = {"this tree": build.CSRC / "mp_matmul.cu"}
+    sources.update((Path(o).name, Path(o)) for o in others)
+    procs = {name: subprocess.Popen(
+        [build.nvcc_path(), *build.NVCC_FLAGS, "-o",
+         str(out_dir / f"{i}.so"), str(src)], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+        for i, (name, src) in enumerate(sources.items())}
+    libs = {}
+    for i, (name, proc) in enumerate(procs.items()):
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc {name} failed:\n{log}")
+        libs[name] = ctypes.CDLL(str(out_dir / f"{i}.so"))
+        for entry, (regs, st, ld) in sorted(build.ptxas_summary(log).items()):
+            print(f"[ptxas] {name}: {entry[:90]} regs {regs} spill {st}/{ld}")
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+
+    # the model's prefill and decode shapes (paper-mpfp-100m), as in
+    # chip_smoke.py's [time] lines
+    x, a_ff = randn(2048, 768), randn(2048, 3072)
+    w_o, w_down = randn(768, 768) * 0.03, randn(3072, 768) * 0.02
+    w_lm = randn(768, 32000) * 0.03
+    wq = [randn(768, 768) * 0.03 for _ in range(3)]
+    wg = [randn(768, 3072) * 0.03 for _ in range(2)]
+    qh = randn(8, 1, 12, 64).permute(0, 2, 1, 3)
+    kt = randn(8, 512, 12, 64).permute(0, 2, 1, 3).transpose(-1, -2)
+    xa7, wl7 = mm.mp_decompose(x, 7), mm.mp_decompose(w_lm, 7)
+    f = resolve
+    cases = {
+        "prefill w_down 2048x3072x768 M8": lambda lib, st: (
+            mm.launch_fused_matmul(lib, st, a_ff, w_down, f("M8"))),
+        "prefill wo 2048x768x768 M8": lambda lib, st: (
+            mm.launch_fused_matmul(lib, st, x, w_o, f("M8"))),
+        "prefill lm_head 2048x768x32000 M16": lambda lib, st: (
+            mm.launch_fused_matmul(lib, st, x, w_lm, f("M16"))),
+        "prefill wo 2048x768x768 M23": lambda lib, st: (
+            mm.launch_fused_matmul(lib, st, x, w_o, f("M23"))),
+        "prefill QKV 2048x768 vs 3x768x768 M8": lambda lib, st: (
+            mm.launch_fused_proj(lib, st, x, wq, f("M8"))),
+        "prefill SwiGLU 2048x768 vs 2x768x3072 M8": lambda lib, st: (
+            mm.launch_fused_proj(lib, st, x, wg, f("M8"), gate="swiglu")),
+        "decode lm_head 8x768x32000 M16": lambda lib, st: (
+            mm.launch_fused_matmul(lib, st, x[:8], w_lm, f("M16"))),
+        "decode w_down 8x3072x768 M8": lambda lib, st: (
+            mm.launch_fused_matmul(lib, st, a_ff[:8], w_down, f("M8"))),
+        "decode QK 96 x 1x64x512 M16": lambda lib, st: (
+            mm.launch_fused_matmul(lib, st, qh, kt, f("M16"))),
+        "DD lm_head 2048x768x32000 M52": lambda lib, st: (
+            mm.launch_both_prelimbed_matmul(lib, st, xa7, wl7, f("M52"))),
+    }
+    stream = torch.cuda.current_stream().cuda_stream
+    for case, fn in cases.items():
+        ref = fn(libs["this tree"], stream)
+        for name, lib in libs.items():
+            out = fn(lib, stream)
+            torch.cuda.synchronize()
+            ms, ahead = device_ms(lambda: fn(lib, stream), torch)
+            same = torch.equal(out.view(torch.int32), ref.view(torch.int32))
+            print(f"[compare] {name}: {case}: {ms:.4f} ms"
+                  + ("" if ahead else " (host behind the card)")
+                  + ("" if name == "this tree" else
+                     f", bitwise this tree's: {same}"), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

@@ -34,8 +34,8 @@ SOURCES = ("mp_matmul", "mp_attention")
 
 # sm_90a (not sm_90): the Hopper-only instructions exist only for that
 # target.  No --use_fast_math: expf and the divisions stay accurate.
-# --fmad=false: a*b+c outside explicit fmaf() calls rounds twice, as the
-# PyTorch plain versions do.  -Xptxas -v reports registers and spills.
+# --fmad=false: every a*b+c rounds twice, as the PyTorch plain versions
+# do.  -Xptxas -v reports registers and spills.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-lineinfo", "-shared",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")

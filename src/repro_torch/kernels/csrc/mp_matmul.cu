@@ -34,47 +34,77 @@
 // combine of _combine_orders: start from the highest order, walk down, and
 // take the |s| >= |t| branch of the compensation.
 //
-// What bounds them on this card, and what the design does about it: every
-// kernel multiplies bf16-rounded limbs with f32 FMAs on the CUDA cores (a
-// bf16 x bf16 product is exact in f32, so each FMA adds the exact product),
-// and each output element is one serial fmaf chain over k ascending, one
-// accumulator per order: that order is what keeps pre-limbed == fused,
-// mixed rows == homogeneous rows and scheduled == solo bit for bit, so no
-// kernel splits K or sums through a tensor-core MMA.
+// The order of the sum is one order for every kernel and both tiles; it is
+// what keeps pre-limbed == fused, a mixed row == its homogeneous row, rows at
+// M <= 16 == rows at M = 70, the projection without an epilogue == the fused
+// matmul and scheduled == solo bit for bit.  K runs in chunks of KC from
+// k = 0, zero-filled up to a multiple of KC.  For each chunk, each order o
+// and each kept product (i, j) of o, i ascending (the format's product
+// order), frag = A_i[:, chunk] @ B_j[chunk, :] is one chain of KC / 16
+// tensor-core MMAs (mma.sync m16n8k16, bf16 operands, f32 accumulator,
+// starting from +0.0); the order's terms are summed by IEEE f32 adds on the
+// CUDA cores, tot = the first term, then tot = tot + frag; then acc[o] =
+// acc[o] + tot.  That is _fused_kernel's body with its block depth set to
+// KC: the tensor core's own f32 summation, which is not IEEE round to
+// nearest, never spans more than one chunk's KC products, and every longer
+// sum is IEEE adds.  The rows of an MMA never interact, so a row's bits
+// depend neither on M nor on the tile that ran it.  Lanes (LN): a row whose
+// lane leaves out product (i, j) does not add its frag (a selection in
+// registers: a thread's accumulators belong to rows lane / 4 and lane / 4 + 8
+// of each fragment) and starts each order's sum at its own first kept term,
+// so it performs exactly the adds of a homogeneous run at its lane.  Planes
+// at or past a stack's stored count read as +0.0, and their products run
+// like any other.  Both tiles run the last chunk on zero-filled planes, so
+// zero signs come out of both alike.
 //
-// The prefill shapes (M = 2048) are bound by the limb products: a 64 x 64
-// output tile per 256-thread block (mainloop), every operand element read
-// from device memory once per tile, limbed once as it is loaded, and kept in
-// shared memory as bf16 limb planes that all threads of the block reuse; the
-// multi-output kernel limbs its A tile once for all n_out weights.
+// What bounds them on this card, and what the design does about it:
+//
+// The prefill shapes (M > 16) take the tile of mainloop: 8 warps of 32
+// threads, 2 x 4 warps of (WM x WN) outputs each.  Registers set the tile:
+// each output carries NOUT x (orders) accumulators plus the order's running
+// sum and the chain, so the block tile is 128 x 128 for M8 (64 outputs per
+// thread; 64 x 128 at two blocks per SM was slower on the H100) and shrinks
+// to 64 x 128, 64 x 64, 32 x 64 and 32 x 32 as that count grows (Tile).
+// Every operand element is read from device memory once per tile, by
+// cp.async into an f32 staging buffer one or two stages ahead, and limbed
+// once per block into bf16 planes in shared memory whose rows are padded by
+// 16 bytes, so that ldmatrix reads them without bank conflicts; the blocks
+// walk M first, so that a weight larger than the L2 cache is read about
+// once; the multi-output kernel limbs its A tile once for all NOUT weights;
+// stored planes are copied as they are.  Where two plane buffers fit, half
+// the warps limb the next stage while the other half run this stage's MMAs,
+// so the limbing and the MMAs overlap.  The one- and two-limb formats run
+// all their products' chains in one pass over a chunk, so a limb's fragments
+// are read once per k16 step.  What is left bounds them: the limbing and
+// the copies' instructions on the CUDA cores, the fragment reads from
+// shared memory, and the rate of mma.sync (wgmma and TMA are the next
+// step).
 //
 // The decode shapes (M <= 16 rows) of the fused, pre-limbed, mixed-lane and
-// projection kernels are bound by the fmaf chain (K times the deepest
-// order's products, ~4 cycles each: ~7 us at K = 3072 for M8) and by the
-// bytes of the weights (the planes the format reads, or the f32 weights).
-// They take the decode tile (decode_tile): rows sized to M, 16 columns per
-// block so that N = 768 runs 48 blocks (the projection: 48 per weight), and
-// B streamed through a cp.async ring so that the loads of the next stages
-// overlap this stage's FMAs.  Ragged edges are masked in the loads and
-// stores; nothing is padded in device memory.
+// projection kernels take the decode tile (decode_tile): the rows padded to
+// one m16 fragment, 16 columns per block so that N = 768 runs 48 blocks, B
+// streamed through a cp.async ring by producer warps that limb it once per
+// block.  They are bound by the bytes of the weights (the planes the format
+// reads, or the f32 weights), by the limbing of f32 weights and, in the
+// deeper formats, by one warp's MMA chains per 8 columns.  Ragged edges are
+// masked in the loads and stores; nothing is padded in device memory.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 --fmad=false
-// (no --use_fast_math).  --fmad=false keeps every a*b+c outside the explicit
-// fmaf() calls of the main loops rounded twice, as the PyTorch plain versions
-// round it.
+// (no --use_fast_math).  --fmad=false keeps every a*b+c rounded twice, as
+// the PyTorch plain versions round it.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int TX = 16;            // threads along N
-constexpr int TY = 16;            // threads along M
-constexpr int NT = TX * TY;       // threads per block
-constexpr int BK = 16;            // K depth of one shared-memory tile
+constexpr int KC = 64;            // K of one chunk: a chain of KC / 16 MMAs
+constexpr int KS = KC / 16;       // k16 steps of one chunk
+constexpr int PADE = 8;           // bf16 elements padding each plane row
 constexpr int MAX_OUT = 3;        // weights per fused projection launch
 constexpr int PAD_N = 1;          // lane of a row past M (lanes.PAD_LANE)
 constexpr int PAD_ORD = 0;
+constexpr int64_t SMEM_MAX = 232448;  // shared memory one block can use
 
 // Largest limb count and order count of the generic (any registered format)
 // instantiation; the built-in formats get their own instantiations.
@@ -83,17 +113,6 @@ constexpr int GEN_NO = 2 * GEN_NL - 1;
 
 __device__ __forceinline__ float bf(__nv_bfloat16 x) {
   return __bfloat162float(x);
-}
-
-// The on-the-fly limb cascade of _extract_limbs, in registers.
-template <int NL>
-__device__ __forceinline__ void extract_limbs(float x, __nv_bfloat16 (&l)[NL]) {
-  float r = x;
-#pragma unroll
-  for (int i = 0; i < NL; ++i) {
-    l[i] = __float2bfloat16_rn(r);
-    r = r - bf(l[i]);
-  }
 }
 
 // Neumaier-compensated combine of one output's per-order accumulators,
@@ -129,294 +148,6 @@ struct Planes {
   int n_stored;
 };
 
-// The shared main loop: accumulates, for NOUT weights at once, the kept limb
-// products of the (BM x BN) output tile at (m0, n0) into per-order
-// accumulators acc[t][o][r][c].  Thread (tx, ty) owns rows m0 + ty + r*TY and
-// columns n0 + tx + c*TX, so global stores and shared-memory reads of
-// neighbouring threads touch neighbouring addresses.  PL: B comes as stored
-// limb planes (``bp``, NOUT == 1) instead of f32 values limbed here; the
-// products and the order of every add are the same either way, so a
-// pre-limbed run is bitwise the f32 run on the weight the planes came from.
-// LN: each row m runs at its own lane (ln[m] limbs, order cut lo[m]) at or
-// below the (n_limbs, max_order) envelope; a product the row's lane leaves
-// out skips its FMA, so the row's accumulators see exactly the FMAs, in the
-// same order, as a homogeneous run at the lane's format.  PLA: A comes as
-// stored limb planes too (``ap``); on planes cut from f32 operands the
-// run is bitwise the f32 run, as for PL.
-template <int NL, int NO, int NOUT, int RM, int RN, bool GEN, bool PL = false,
-          bool LN = false, bool PLA = false>
-__device__ __forceinline__ void mainloop(
-    const float* __restrict__ A, int64_t a_sr, int64_t a_sc,
-    const float* const* B, int64_t b_sr, int64_t b_sc,
-    int64_t M, int64_t N, int64_t K, int64_t m0, int64_t n0,
-    int n_limbs, int max_order, float (&acc)[NOUT][NO][RM][RN],
-    Planes bp = Planes{}, const int32_t* __restrict__ ln = nullptr,
-    const int32_t* __restrict__ lo = nullptr, Planes ap = Planes{}) {
-  constexpr int BM = TY * RM;
-  constexpr int BN = TX * RN;
-  __shared__ __nv_bfloat16 As[NL][BK][BM];
-  __shared__ __nv_bfloat16 Bs[NOUT][NL][BK][BN];
-
-  // built-in instantiations fold these to constants
-  const int nl = GEN ? n_limbs : NL;
-  const int mo = GEN ? max_order : NO - 1;
-  const int tid = threadIdx.x;
-  const int tx = tid % TX;
-  const int ty = tid / TX;
-
-#pragma unroll
-  for (int t = 0; t < NOUT; ++t)
-#pragma unroll
-    for (int o = 0; o < NO; ++o)
-#pragma unroll
-      for (int r = 0; r < RM; ++r)
-#pragma unroll
-        for (int c = 0; c < RN; ++c) acc[t][o][r][c] = 0.f;
-
-  // the rows' lanes, in registers for the whole K loop (LN only)
-  int rn[RM], ro[RM];
-  if constexpr (LN) {
-#pragma unroll
-    for (int r = 0; r < RM; ++r) {
-      const int64_t gm = m0 + ty + r * TY;
-      rn[r] = gm < M ? ln[gm] : PAD_N;
-      ro[r] = gm < M ? lo[gm] : PAD_ORD;
-    }
-  }
-
-  for (int64_t k0 = 0; k0 < K; k0 += BK) {
-    if constexpr (PLA) {
-      // A's stored planes, as PL reads B's: only planes below both the
-      // stored count and the format's limb count leave device memory
-      const int nst = ap.n_stored < nl ? ap.n_stored : nl;
-      const __nv_bfloat16 zero = __float2bfloat16_rn(0.f);
-      for (int idx = tid; idx < BM * BK; idx += NT) {
-        const int mm = idx / BK;
-        const int kk = idx % BK;
-        const int64_t gm = m0 + mm;
-        const int64_t gk = k0 + kk;
-        const bool in = gm < M && gk < K;
-        const __nv_bfloat16* src = ap.p + gm * ap.sr + gk;
-#pragma unroll
-        for (int i = 0; i < NL; ++i)
-          As[i][kk][mm] = (in && i < nst) ? src[i * ap.plane] : zero;
-      }
-    } else {
-      // A tile: read once, limbed once, shared by every output and thread
-      for (int idx = tid; idx < BM * BK; idx += NT) {
-        const int mm = idx / BK;
-        const int kk = idx % BK;
-        const int64_t gm = m0 + mm;
-        const int64_t gk = k0 + kk;
-        const float x = (gm < M && gk < K) ? A[gm * a_sr + gk * a_sc] : 0.f;
-        __nv_bfloat16 l[NL];
-        extract_limbs<NL>(x, l);
-#pragma unroll
-        for (int i = 0; i < NL; ++i) As[i][kk][mm] = l[i];
-      }
-    }
-    if constexpr (PL) {
-      // stored planes, read as they are: only planes below both the stored
-      // count and the format's limb count leave device memory
-      const int nst = bp.n_stored < nl ? bp.n_stored : nl;
-      const __nv_bfloat16 zero = __float2bfloat16_rn(0.f);
-      for (int idx = tid; idx < BK * BN; idx += NT) {
-        const int kk = idx / BN;
-        const int nn = idx % BN;
-        const int64_t gk = k0 + kk;
-        const int64_t gn = n0 + nn;
-        const bool in = gk < K && gn < N;
-        const __nv_bfloat16* src = bp.p + gk * bp.sr + gn;
-#pragma unroll
-        for (int j = 0; j < NL; ++j)
-          Bs[0][j][kk][nn] = (in && j < nst) ? src[j * bp.plane] : zero;
-      }
-    } else {
-#pragma unroll
-      for (int t = 0; t < NOUT; ++t) {
-        for (int idx = tid; idx < BK * BN; idx += NT) {
-          const int kk = idx / BN;
-          const int nn = idx % BN;
-          const int64_t gk = k0 + kk;
-          const int64_t gn = n0 + nn;
-          const float x =
-              (gk < K && gn < N) ? B[t][gk * b_sr + gn * b_sc] : 0.f;
-          __nv_bfloat16 l[NL];
-          extract_limbs<NL>(x, l);
-#pragma unroll
-          for (int j = 0; j < NL; ++j) Bs[t][j][kk][nn] = l[j];
-        }
-      }
-    }
-    __syncthreads();
-
-#pragma unroll 2
-    for (int kk = 0; kk < BK; ++kk) {
-      float a[RM][NL];
-      float b[NOUT][RN][NL];
-#pragma unroll
-      for (int r = 0; r < RM; ++r)
-#pragma unroll
-        for (int i = 0; i < NL; ++i) a[r][i] = bf(As[i][kk][ty + r * TY]);
-#pragma unroll
-      for (int t = 0; t < NOUT; ++t)
-#pragma unroll
-        for (int c = 0; c < RN; ++c)
-#pragma unroll
-          for (int j = 0; j < NL; ++j) b[t][c][j] = bf(Bs[t][j][kk][tx + c * TX]);
-#pragma unroll
-      for (int i = 0; i < NL; ++i) {
-#pragma unroll
-        for (int j = 0; j < NL; ++j) {
-          if (i + j >= NO) continue;  // compile-time: no such accumulator
-          if (i >= nl || j >= nl || i + j > mo) continue;  // order cut
-#pragma unroll
-          for (int t = 0; t < NOUT; ++t)
-#pragma unroll
-            for (int r = 0; r < RM; ++r) {
-              if constexpr (LN) {
-                // the row's own order cut (ref.lane_keep)
-                if (i >= rn[r] || j >= rn[r] || i + j > ro[r]) continue;
-              }
-#pragma unroll
-              for (int c = 0; c < RN; ++c)
-                acc[t][i + j][r][c] =
-                    fmaf(a[r][i], b[t][c][j], acc[t][i + j][r][c]);
-            }
-        }
-      }
-    }
-    __syncthreads();
-  }
-}
-
-struct MatmulArgs {
-  const float* a;
-  const float* b;
-  float* c;
-  int64_t a_sb0, a_sb1, a_sr, a_sc;
-  int64_t b_sb0, b_sb1, b_sr, b_sc;
-  int64_t c_sb0, c_sb1, c_sr, c_sc;
-  int64_t nb1;  // size of the second batch dim (grid.z = nb0 * nb1)
-  int64_t M, N, K;
-  int n_limbs, max_order;
-};
-
-// One (BM x BN) tile at (blockIdx.y, blockIdx.x) of C = A @ B at the format,
-// B as f32 values or (PL) as stored limb planes, rows at their own lanes
-// (LN), A as stored limb planes (PLA): the body of fused_matmul_kernel,
-// prelimbed_matmul_kernel, mixed_prelimbed_matmul_kernel and
-// both_prelimbed_matmul_kernel, so the four share every add of every output
-// element.
-template <int NL, int NO, int RM, int RN, bool GEN, bool PL, bool LN = false,
-          bool PLA = false>
-__device__ __forceinline__ void matmul_tile(
-    const float* A, int64_t a_sr, int64_t a_sc, const float* B, int64_t b_sr,
-    int64_t b_sc, Planes bp, float* C, int64_t c_sr, int64_t c_sc, int64_t M,
-    int64_t N, int64_t K, int n_limbs, int max_order,
-    const int32_t* ln = nullptr, const int32_t* lo = nullptr,
-    Planes ap = Planes{}) {
-  constexpr int BM = TY * RM;
-  constexpr int BN = TX * RN;
-  const float* const Bt[1] = {B};
-  const int64_t m0 = (int64_t)blockIdx.y * BM;
-  const int64_t n0 = (int64_t)blockIdx.x * BN;
-
-  float acc[1][NO][RM][RN];
-  mainloop<NL, NO, 1, RM, RN, GEN, PL, LN, PLA>(A, a_sr, a_sc, Bt, b_sr, b_sc,
-                                                M, N, K, m0, n0, n_limbs,
-                                                max_order, acc, bp, ln, lo,
-                                                ap);
-  const int mo = GEN ? max_order : NO - 1;
-  const int tx = threadIdx.x % TX;
-  const int ty = threadIdx.x / TX;
-#pragma unroll
-  for (int r = 0; r < RM; ++r) {
-#pragma unroll
-    for (int c = 0; c < RN; ++c) {
-      const int64_t gm = m0 + ty + r * TY;
-      const int64_t gn = n0 + tx + c * TX;
-      if (gm >= M || gn >= N) continue;
-      float per_order[NO];
-#pragma unroll
-      for (int o = 0; o < NO; ++o) per_order[o] = acc[0][o][r][c];
-      // a lane row joins its own orders, from its own highest one down
-      const int mo_r = LN ? lo[gm] : mo;
-      C[gm * c_sr + gn * c_sc] = combine_orders<NO>(per_order, mo_r);
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// The decode tile: the body of fused_matmul_kernel, prelimbed_matmul_kernel,
-// mixed_prelimbed_matmul_kernel and fused_proj_kernel when M <= DEC_M (a
-// decode micro-batch of 1..16 rows, or one row per batch entry of decode
-// attention's QK and PV).
-//
-// Invariant: every output element gets exactly the fmaf()s mainloop gives it,
-// in the same order, so a row has the same bits whichever tile ran it (and
-// pre-limbed == fused, mixed rows == homogeneous rows and scheduled == solo
-// keep holding).  For k ascending over 0..K-1, then i, then j over the kept
-// pairs: acc[i + j] = fmaf(a_i, b_j, acc[i + j]), planes at or past the
-// stored count read as +0.0 as mainloop reads them, then combine_orders with
-// the same mo.  mainloop runs K up to a multiple of BK on zero-filled tiles:
-// fmaf(+0, +0, acc) is the identity except that it turns an accumulator of
-// -0.0 (a sum that underflowed from below) into +0.0, and is idempotent, so
-// the tile adds one such step at the end when K % BK != 0.  LN: a row at its
-// own lane skips the products its lane leaves out, in the step and in the
-// zero step, and joins its orders from its own cut down, as mainloop and
-// matmul_tile do.  NOUT weights: each output of each weight is a chain of its
-// own, in the same order as mainloop's per-weight accumulators.  No split
-// over K, no tensor-core MMA: either would reorder the adds.
-//
-// Design: the block owns DEC_N columns and all M rows, one output element per
-// compute thread (M * DEC_N of them), so a thread carries only its NOUT * NO
-// accumulators, and N = 768 runs 48 blocks.  Two or four producer warps
-// (warp specialisation) stream A and the NOUT Bs through a ring of
-// DecRing::S stages of up to DecRing::K k each in dynamic shared memory, by
-// cp.async (16-byte cp.async.cg where the rows are contiguous and 16-byte
-// aligned, else element by element), and limb stage s + 1 (A's rows, once for
-// every weight; the f32 Bs too) into bf16 planes, once per block, while the
-// compute warps run stage s from the other of two plane buffers: one block
-// barrier per stage.  A compute thread reads A's planes by 16-byte broadcast
-// reads, 8 k at a time, its B columns 8 k at a time, and (where the
-// registers allow) keeps the next 8 k's reads in flight while this 8's FMAs
-// run, so the fmaf chain, not shared-memory latency, sets the pace.
-constexpr int DEC_M = 16;   // most rows of the decode tile
-constexpr int DEC_N = 16;   // columns of one block
-
-// ring shape per limb count: deeper formats do more FMAs per byte
-template <int NL>
-struct DecRing {
-  static constexpr int K = NL <= 3 ? 256 : 128;  // most k of one stage
-  static constexpr int S = 3;                    // stages
-  // producer warps: the fused kernels limb their B stages as well
-  static constexpr int P(bool pl) { return pl ? 2 : 4; }
-};
-
-// threads that own outputs: M rows of DEC_N, whole warps
-__host__ __device__ inline int dec_compute_threads(int M) {
-  return (M * DEC_N + 31) / 32 * 32;
-}
-
-// dynamic shared memory of the decode tile: the B ring (bf16 planes, or f32
-// for each of nout weights), the A ring (f32), A's limb planes and (fused)
-// the Bs' limb planes, two buffers each; every region a multiple of 16 bytes
-// (dk is a multiple of 8)
-__host__ __device__ inline int64_t dec_ring_b_bytes(bool pl, int nl, int dk,
-                                                    int slots, int nout) {
-  return pl ? (int64_t)slots * nl * dk * DEC_N * 2
-            : (int64_t)nout * slots * dk * DEC_N * 4;
-}
-
-__host__ __device__ inline int64_t dec_smem_bytes(bool pl, int nl, int M,
-                                                  int dk, int slots,
-                                                  int nout) {
-  return dec_ring_b_bytes(pl, nl, dk, slots, nout) +
-         (int64_t)slots * M * dk * 4 + 2 * (int64_t)nl * M * dk * 2 +
-         (pl ? 0 : 2 * (int64_t)nout * nl * dk * DEC_N * 2);
-}
-
 __device__ __forceinline__ bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
@@ -450,61 +181,795 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// element u (0..7) of eight packed bf16 values, as f32
-__device__ __forceinline__ float bf_at(const uint4& v, int u) {
-  const uint32_t w = u < 2 ? v.x : u < 4 ? v.y : u < 6 ? v.z : v.w;
-  return __uint_as_float((u & 1) ? (w & 0xffff0000u) : (w << 16));
-}
-
 // limbs of 4 f32 values (16-byte aligned) into nl bf16 planes (8-byte
-// aligned, plane stride ``ps`` elements): extract_limbs on each value
+// aligned, plane stride ``ps`` elements): the cascade of _extract_limbs
+// (l0 = bf16(x), l1 = bf16(x - l0), ...) on each value, two values per
+// conversion (cvt.rn.bf16x2.f32 rounds each as __float2bfloat16_rn does);
+// values at or past ``nv`` count as +0.0 and are not read
 template <int NL>
 __device__ __forceinline__ void limb4(const float* src, __nv_bfloat16* dst,
-                                      int ps, int nl) {
-  const float4 x = *reinterpret_cast<const float4*>(src);
-  __nv_bfloat16 l[4][NL];
-  extract_limbs<NL>(x.x, l[0]);
-  extract_limbs<NL>(x.y, l[1]);
-  extract_limbs<NL>(x.z, l[2]);
-  extract_limbs<NL>(x.w, l[3]);
-#pragma unroll
-  for (int i = 0; i < NL; ++i) {
-    if (i >= nl) continue;
-    uint2 w;
-    w.x = (uint32_t)__bfloat16_as_ushort(l[0][i]) |
-          ((uint32_t)__bfloat16_as_ushort(l[1][i]) << 16);
-    w.y = (uint32_t)__bfloat16_as_ushort(l[2][i]) |
-          ((uint32_t)__bfloat16_as_ushort(l[3][i]) << 16);
-    *reinterpret_cast<uint2*>(dst + i * ps) = w;
+                                      int64_t ps, int nl, int nv = 4) {
+  float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (nv >= 4) {
+    x = *reinterpret_cast<const float4*>(src);
+  } else {
+    if (nv > 0) x.x = src[0];
+    if (nv > 1) x.y = src[1];
+    if (nv > 2) x.z = src[2];
   }
-}
-
-// one k of mainloop's inner loop for one output element; LN: the row's own
-// lane (rn limbs, order cut ro) cuts as well
-template <int NL, int NO, bool LN = false>
-__device__ __forceinline__ void fma_step(const float (&a)[NL],
-                                         const float (&b)[NL],
-                                         float (&acc)[NO], int nl, int mo,
-                                         int rn = 0, int ro = 0) {
+  float2 r0 = make_float2(x.x, x.y), r1 = make_float2(x.z, x.w);
 #pragma unroll
   for (int i = 0; i < NL; ++i) {
-#pragma unroll
-    for (int j = 0; j < NL; ++j) {
-      if (i + j >= NO) continue;
-      if (i >= nl || j >= nl || i + j > mo) continue;
-      if constexpr (LN) {
-        if (i >= rn || j >= rn || i + j > ro) continue;
-      }
-      acc[i + j] = fmaf(a[i], b[j], acc[i + j]);
+    if (i >= nl) break;
+    const __nv_bfloat162 l0 = __floats2bfloat162_rn(r0.x, r0.y);
+    const __nv_bfloat162 l1 = __floats2bfloat162_rn(r1.x, r1.y);
+    uint2 w;
+    w.x = *reinterpret_cast<const uint32_t*>(&l0);
+    w.y = *reinterpret_cast<const uint32_t*>(&l1);
+    *reinterpret_cast<uint2*>(dst + i * ps) = w;
+    if (i + 1 < NL) {
+      const float2 f0 = __bfloat1622float2(l0), f1 = __bfloat1622float2(l1);
+      r0 = make_float2(r0.x - f0.x, r0.y - f0.y);
+      r1 = make_float2(r1.x - f1.x, r1.y - f1.y);
     }
   }
 }
 
-// dk: k per ring stage (a multiple of 8, at most DecRing<NL>::K); the
+// ---------------------------------------------------------------------------
+// The tensor-core step both tiles share.
+
+// four 8x8 bf16 matrices from shared memory (one row address per thread)
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+// the same, each matrix transposed (B stored k-major, read as columns)
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldsm_x2_t(uint32_t (&r)[2], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
+      : "r"(smem_addr(p)));
+}
+
+// d (16 x 8, f32) = a (16 x 16, bf16) @ b (16 x 8, bf16) + +0.0
+__device__ __forceinline__ void mma_bf16_first(float (&d)[4],
+                                               const uint32_t (&a)[4],
+                                               uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
+        "f"(0.f));
+}
+
+// d (16 x 8, f32) += a (16 x 16, bf16) @ b (16 x 8, bf16)
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// One chunk (KC k) of the shared order for a warp's FM x FN fragments of
+// 16 x 8 outputs, for NOUT weights: for each order o, acc[t][o] += the sum,
+// in the format's product order, of the kept products' MMA chains (the
+// order described at the top of this file).  a_at(i, mf, ks): this thread's
+// ldmatrix row address of A's limb i, m fragment mf, k16 step ks; b_at(t, j,
+// p, ks): of weight t's limb j, n fragments 2p and 2p + 1 (FN == 1: n
+// fragment 0 only).  Accumulator element e of a fragment is row lane / 4 +
+// 8 (e / 2), column 2 (lane % 4) + e % 2.  LN: rn/ro hold the lanes of the
+// thread's rows (fragment mf, half e / 2).  Every ldmatrix and MMA runs on
+// the whole warp; only the adds are selected per row.
+template <int NL, int NO, int NOUT, int FM, int FN, bool LN, typename AAt,
+          typename BAt>
+__device__ __forceinline__ void chunk_step(
+    float (&acc)[NOUT][NO][FM][FN][4], int nl, int mo, const int (&rn)[FM][2],
+    const int (&ro)[FM][2], AAt a_at, BAt b_at) {
+  // the fragments of A's limb i and of weight t's limb j at k16 step ks
+  auto load_a = [&](uint32_t (&a)[FM][4], int i, int ks) {
+#pragma unroll
+    for (int mf = 0; mf < FM; ++mf) ldsm_x4(a[mf], a_at(i, mf, ks));
+  };
+  auto load_b = [&](uint32_t (&b)[FN][2], int t, int j, int ks) {
+    if constexpr (FN == 1) {
+      ldsm_x2_t(b[0], b_at(t, j, 0, ks));
+    } else {
+#pragma unroll
+      for (int p = 0; p < FN / 2; ++p) {
+        uint32_t r[4];
+        ldsm_x4_t(r, b_at(t, j, p, ks));
+        b[2 * p][0] = r[0];
+        b[2 * p][1] = r[1];
+        b[2 * p + 1][0] = r[2];
+        b[2 * p + 1][1] = r[3];
+      }
+    }
+  };
+  // one k16 step of a product's chain (the first one starts from +0.0)
+  auto mma_step = [&](float (&f)[FM][FN][4], const uint32_t (&a)[FM][4],
+                      const uint32_t (&b)[FN][2], int ks) {
+#pragma unroll
+    for (int mf = 0; mf < FM; ++mf)
+#pragma unroll
+      for (int nf = 0; nf < FN; ++nf) {
+        if (ks == 0)
+          mma_bf16_first(f[mf][nf], a[mf], b[nf][0], b[nf][1]);
+        else
+          mma_bf16(f[mf][nf], a[mf], b[nf][0], b[nf][1]);
+      }
+  };
+  // the term of product (i, j) in its order's sum: the first kept term,
+  // then IEEE adds; LN: only the rows whose lane keeps (i, j)
+  auto add_term = [&](float (&tot)[FM][FN][4], bool (&st)[FM][2], bool any,
+                      const float (&f)[FM][FN][4], int i, int j) {
+#pragma unroll
+    for (int mf = 0; mf < FM; ++mf) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        bool keep = true, started = any;
+        if constexpr (LN) {
+          // the row's own order cut (ref.lane_keep)
+          keep = i < rn[mf][h] && j < rn[mf][h] && i + j <= ro[mf][h];
+          started = st[mf][h];
+          st[mf][h] = started || keep;
+        }
+        if (!keep) continue;
+#pragma unroll
+        for (int nf = 0; nf < FN; ++nf)
+#pragma unroll
+          for (int e = 2 * h; e < 2 * h + 2; ++e)
+            tot[mf][nf][e] =
+                started ? tot[mf][nf][e] + f[mf][nf][e] : f[mf][nf][e];
+      }
+    }
+  };
+  // acc[t][o] += the order's sum (LN: in the rows where it started)
+  auto add_order = [&](int t, int o, const float (&tot)[FM][FN][4],
+                       const bool (&st)[FM][2]) {
+#pragma unroll
+    for (int mf = 0; mf < FM; ++mf)
+#pragma unroll
+      for (int nf = 0; nf < FN; ++nf)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (!LN || st[mf][e >> 1])
+            acc[t][o][mf][nf][e] = acc[t][o][mf][nf][e] + tot[mf][nf][e];
+  };
+
+  if constexpr (NL <= 2 && !LN) {
+    // one and two limbs (built-in formats only; not the lane kernels, whose
+    // row selection leaves no registers for it): every kept product's chain
+    // in one pass over the chunk's k16 steps, so that each limb's fragments
+    // are read once per step; each chain is the same MMAs as on its own
+#pragma unroll
+    for (int t = 0; t < NOUT; ++t) {
+      float f[NL][NL][FM][FN][4];
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) {
+        uint32_t a[NL][FM][4], b[NL][FN][2];
+#pragma unroll
+        for (int i = 0; i < NL; ++i) load_a(a[i], i, ks);
+#pragma unroll
+        for (int j = 0; j < NL; ++j) load_b(b[j], t, j, ks);
+#pragma unroll
+        for (int i = 0; i < NL; ++i)
+#pragma unroll
+          for (int j = 0; j < NL; ++j)
+            if (i + j <= mo) mma_step(f[i][j], a[i], b[j], ks);
+      }
+#pragma unroll
+      for (int o = 0; o < NO; ++o) {
+        float tot[FM][FN][4];
+        bool st[FM][2] = {};
+        bool any = false;
+#pragma unroll
+        for (int i = 0; i < NL; ++i) {
+          const int j = o - i;
+          if (j < 0 || j >= NL) continue;
+          add_term(tot, st, any, f[i][j], i, j);
+          any = true;
+        }
+        if (any) add_order(t, o, tot, st);
+      }
+    }
+  } else {
+    // one product's chain at a time, the terms of an order in turn (with
+    // three limbs or more ptxas would otherwise overlap the chains of an
+    // order's terms and spill)
+#pragma unroll
+    for (int o = 0; o < NO; ++o) {
+      if (o > mo) continue;
+#pragma unroll
+      for (int t = 0; t < NOUT; ++t) {
+        float tot[FM][FN][4];
+        bool st[FM][2] = {};
+        bool any = false;
+        const int i0 = o - nl + 1 > 0 ? o - nl + 1 : 0;
+        const int i1 = o < nl - 1 ? o : nl - 1;
+#pragma unroll 1
+        for (int i = i0; i <= i1; ++i) {
+          float f[FM][FN][4];
+#pragma unroll
+          for (int ks = 0; ks < KS; ++ks) {
+            uint32_t a[FM][4], b[FN][2];
+            load_a(a, i, ks);
+            load_b(b, t, o - i, ks);
+            mma_step(f, a, b, ks);
+          }
+          add_term(tot, st, any, f, i, o - i);
+          any = true;
+        }
+        if (any) add_order(t, o, tot, st);
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The prefill tile (M > DEC_M).
+
+constexpr int NT = 256;           // threads per block: 2 x 4 warps
+constexpr int WGM = 2;            // warps along M
+constexpr int WGN = 4;            // warps along N
+
+// outputs per thread: the most (64, 32, 16, 8 or 4) whose registers fit a
+// budget.  Per output: NOUT x orders accumulators plus the live chains (one
+// limb: one chain; two limbs: the three products' chains, run together;
+// three or more, and the lane kernels: the order's running sum and one
+// chain).  The budget, 160
+// registers for one weight of one or two limbs, 128 for more weights and
+// 144 for deeper formats, is where ptxas stopped spilling in the H100 build
+__host__ __device__ constexpr int tile_e(int nl, int no, int nout) {
+  const int c = nout * no + (nl == 1 ? 1 : nl == 2 ? 3 : 2);
+  const int budget = nl >= 3 ? 144 : nout == 1 ? 160 : 128;
+  return c * 64 <= budget ? 64
+       : c * 32 <= budget ? 32
+       : c * 16 <= budget ? 16
+       : c * 8 <= budget  ? 8
+                          : 4;
+}
+
+// The tile of one format and weight count: warp tiles (WM x WN) of FM x FN
+// MMA fragments, the block's (BM x BN), and its dynamic shared memory: RS
+// stages of f32 staging of A (unless A comes as planes, PLA) and of the NOUT
+// Bs (unless B comes as planes, PL), then NPB buffers of A's limb planes
+// [NL][BM][AP] and the Bs' [NOUT][NL][KC][BP], rows padded by PADE.  Two
+// plane buffers (DP: the limbs of the next stage written while this
+// stage's MMAs run) where the f32 kernels fit them, else one; RS is 2 (the
+// copies run two stages ahead) where that fits too, else 1.
+template <int NL, int NO, int NOUT>
+struct Tile {
+  static constexpr int E = tile_e(NL, NO, NOUT);
+  static constexpr int WM = E == 64 ? 64 : E >= 16 ? 32 : 16;
+  static constexpr int WN = E * 32 / WM;
+  static constexpr int FM = WM / 16;
+  static constexpr int FN = WN / 8;
+  static constexpr int BM = WGM * WM;
+  static constexpr int BN = WGN * WN;
+  static constexpr int AP = KC + PADE;
+  static constexpr int BP = BN + PADE;
+  __host__ __device__ static constexpr int64_t raw_a(bool pla) {
+    return pla ? 0 : (int64_t)BM * KC * 4;
+  }
+  __host__ __device__ static constexpr int64_t raw_b(bool pl) {
+    return pl ? 0 : (int64_t)NOUT * KC * BN * 4;
+  }
+  __host__ __device__ static constexpr int64_t planes() {
+    return (int64_t)NL * BM * AP * 2 + (int64_t)NOUT * NL * KC * BP * 2;
+  }
+  __host__ __device__ static constexpr bool DP(bool pl, bool pla) {
+    return !pl && !pla && raw_a(pla) + raw_b(pl) + 2 * planes() <= SMEM_MAX;
+  }
+  __host__ __device__ static constexpr int NPB(bool pl, bool pla) {
+    return DP(pl, pla) ? 2 : 1;
+  }
+  __host__ __device__ static constexpr int RS(bool pl, bool pla) {
+    return 2 * (raw_a(pla) + raw_b(pl)) + NPB(pl, pla) * planes() <= SMEM_MAX
+               ? 2
+               : 1;
+  }
+  __host__ __device__ static constexpr int64_t smem(bool pl, bool pla) {
+    return RS(pl, pla) * (raw_a(pla) + raw_b(pl)) + NPB(pl, pla) * planes();
+  }
+};
+
+template <int NL, int NO, int NOUT>
+using Acc = float[NOUT][NO][Tile<NL, NO, NOUT>::FM][Tile<NL, NO, NOUT>::FN]
+                 [4];
+
+// The shared main loop of the prefill tile: accumulates, for NOUT weights at
+// once, the (BM x BN) outputs at (m0, n0) into per-order accumulators, in
+// the order of chunk_step, one stage of KC k at a time.  PL: B comes as
+// stored limb planes (``bp``, NOUT == 1) instead of f32 values limbed here;
+// the products and the order of every add are the same either way, so a
+// pre-limbed run is bitwise the f32 run on the weight the planes came from.
+// LN: each row m runs at its own lane (ln[m] limbs, order cut lo[m]) at or
+// below the (n_limbs, max_order) envelope.  PLA: A comes as stored limb
+// planes too (``ap``); on planes cut from f32 operands the run is bitwise
+// the f32 run, as for PL.
+template <int NL, int NO, int NOUT, bool GEN, bool PL = false,
+          bool LN = false, bool PLA = false>
+__device__ __forceinline__ void mainloop(
+    const float* __restrict__ A, int64_t a_sr, int64_t a_sc,
+    const float* const* B, int64_t b_sr, int64_t b_sc, int64_t M, int64_t N,
+    int64_t K, int64_t m0, int64_t n0, int n_limbs, int max_order,
+    Acc<NL, NO, NOUT>& acc, Planes bp = Planes{},
+    const int32_t* __restrict__ ln = nullptr,
+    const int32_t* __restrict__ lo = nullptr, Planes ap = Planes{}) {
+  using T = Tile<NL, NO, NOUT>;
+  constexpr int BM = T::BM, BN = T::BN, WM = T::WM, WN = T::WN;
+  constexpr int FM = T::FM, FN = T::FN, AP = T::AP, BP = T::BP;
+  static_assert(T::smem(PL, PLA) <= SMEM_MAX, "tile exceeds shared memory");
+  static_assert(!PL || NOUT == 1, "stored planes come for one weight");
+  extern __shared__ __align__(16) unsigned char tile_smem[];
+  // staging slot r: A's at Ar0 + r * BM * KC, the Bs' at Br0 + r * NOUT *
+  // KC * BN; planes buffer b: A's at As0 + b * PB, the Bs' at Bs0 + b * PB
+  constexpr int RS = T::RS(PL, PLA);
+  constexpr bool DP = T::DP(PL, PLA);
+  constexpr int PB = (int)(T::planes() / 2);
+  float* const Ar0 = reinterpret_cast<float*>(tile_smem);
+  float* const Br0 = reinterpret_cast<float*>(tile_smem + RS * T::raw_a(PLA));
+  __nv_bfloat16* const As0 = reinterpret_cast<__nv_bfloat16*>(
+      tile_smem + RS * (T::raw_a(PLA) + T::raw_b(PL)));
+  __nv_bfloat16* const Bs0 = As0 + NL * BM * AP;
+  int cb = 0;  // the planes buffer the MMAs read
+
+  // built-in instantiations fold these to constants
+  const int nl = GEN ? n_limbs : NL;
+  const int mo = GEN ? max_order : NO - 1;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int wm = (tid >> 5) / WGN;
+  const int wn = (tid >> 5) % WGN;
+
+#pragma unroll
+  for (int t = 0; t < NOUT; ++t)
+#pragma unroll
+    for (int o = 0; o < NO; ++o)
+#pragma unroll
+      for (int mf = 0; mf < FM; ++mf)
+#pragma unroll
+        for (int nf = 0; nf < FN; ++nf)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[t][o][mf][nf][e] = 0.f;
+
+  // the lanes of this thread's rows, in registers for the whole K loop
+  int rn[FM][2], ro[FM][2];
+#pragma unroll
+  for (int mf = 0; mf < FM; ++mf)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int64_t gm = m0 + wm * WM + mf * 16 + (lane >> 2) + 8 * h;
+      rn[mf][h] = LN && gm < M ? ln[gm] : PAD_N;
+      ro[mf][h] = LN && gm < M ? lo[gm] : PAD_ORD;
+    }
+
+  // 16-byte copies where rows are contiguous and aligned (stored planes:
+  // and whole 16-byte chunks up to the edge)
+  const bool vec_a =
+      PLA ? ap.sr % 8 == 0 && ap.plane % 8 == 0 && K % 8 == 0 &&
+                aligned16(ap.p)
+          : a_sc == 1 && a_sr % 4 == 0 && aligned16(A);
+  bool vec_b = PL ? bp.sr % 8 == 0 && bp.plane % 8 == 0 && N % 8 == 0 &&
+                        aligned16(bp.p)
+                  : b_sc == 1 && b_sr % 4 == 0;
+  if constexpr (!PL) {
+#pragma unroll
+    for (int t = 0; t < NOUT; ++t) vec_b = vec_b && aligned16(B[t]);
+  }
+  const int nsa = ap.n_stored < nl ? ap.n_stored : nl;
+  const int nsb = bp.n_stored < nl ? bp.n_stored : nl;
+  const __nv_bfloat16 zero = __float2bfloat16_rn(0.f);
+
+  // fixed positions of this thread's 16-byte chunks in a stage: A's rows
+  // ra + i * RA at k ka .. ka + 3, B's k rows kb + i * RB at columns nb ..
+  // nb + 3 (stored planes: 8 k or 8 columns, at ra8 / ka8, kb8 / nb8)
+  constexpr int RA = NT / (KC / 4), NA = BM / RA;
+  constexpr int RB = NT / (BN / 4), NB = KC / RB;
+  constexpr int RA8 = NT / (KC / 8), RB8 = NT / (BN / 8);
+  static_assert(BM % RA == 0 && KC % RB == 0 && BM % RA8 == 0 &&
+                    KC % RB8 == 0,
+                "every thread copies the same number of chunks");
+  const int ra = tid / (KC / 4), ka = (tid % (KC / 4)) * 4;
+  const int kb = tid / (BN / 4), nb = (tid % (BN / 4)) * 4;
+  const int ra8 = tid / (KC / 8), ka8 = (tid % (KC / 8)) * 8;
+  const int kb8 = tid / (BN / 8), nb8 = (tid % (BN / 8)) * 8;
+  const float* const a_row = PLA ? nullptr : A + (m0 + ra) * a_sr + ka;
+  const int64_t b_left = N - (n0 + nb);
+  const int b_bytes = b_left >= 4 ? 16 : b_left > 0 ? 4 * (int)b_left : 0;
+
+  // the f32 operands of the stage at k0 into staging slot r; the edges
+  // zero-filled
+  auto stage_raw = [&](int64_t k0, int r) {
+    float* const Ar = Ar0 + r * BM * KC;
+    float* const Br = Br0 + r * NOUT * KC * BN;
+    if constexpr (!PLA) {
+      if (vec_a) {
+        // this thread's chunks: 4 k at ka of rows ra + i * RA
+        const int64_t left = K - (k0 + ka);
+        const int bytes = left >= 4 ? 16 : left > 0 ? 4 * (int)left : 0;
+#pragma unroll
+        for (int i = 0; i < NA; ++i) {
+          const int m = ra + i * RA;
+          const bool in = bytes > 0 && m0 + m < M;
+          cp_async16(Ar + m * KC + ka, in ? a_row + i * RA * a_sr + k0 : A,
+                     in ? bytes : 0);
+        }
+      } else {
+        for (int e = tid; e < BM * KC; e += NT) {
+          const int64_t gm = m0 + e / KC, gk = k0 + e % KC;
+          const bool in = gm < M && gk < K;
+          cp_async4(Ar + e, in ? A + gm * a_sr + gk * a_sc : A, in);
+        }
+      }
+    }
+    if constexpr (!PL) {
+#pragma unroll
+      for (int t = 0; t < NOUT; ++t) {
+        float* const dst = Br + t * KC * BN;
+        if (vec_b) {
+          // this thread's chunks: 4 columns at nb of k rows kb + i * RB
+#pragma unroll
+          for (int i = 0; i < NB; ++i) {
+            const int kk = kb + i * RB;
+            const bool in = b_bytes > 0 && k0 + kk < K;
+            cp_async16(dst + kk * BN + nb,
+                       in ? B[t] + (k0 + kk) * b_sr + n0 + nb : B[t],
+                       in ? b_bytes : 0);
+          }
+        } else {
+          for (int e = tid; e < KC * BN; e += NT) {
+            const int64_t gk = k0 + e / BN, gn = n0 + e % BN;
+            const bool in = gk < K && gn < N;
+            cp_async4(dst + e, in ? B[t] + gk * b_sr + gn * b_sc : B[t], in);
+          }
+        }
+      }
+    }
+  };
+  // the stored planes of the stage at k0, as they are, into the planes; the
+  // edges and the planes past the stored count zero-filled
+  auto stage_planes = [&](int64_t k0) {
+    if constexpr (PLA) {
+      for (int i = 0; i < nl; ++i) {
+        __nv_bfloat16* const dst = As0 + i * BM * AP;
+        const __nv_bfloat16* const src = ap.p + i * ap.plane;
+        if (vec_a) {
+#pragma unroll
+          for (int u = 0; u < BM / RA8; ++u) {
+            const int64_t gm = m0 + ra8 + u * RA8;
+            const bool in = i < nsa && gm < M && k0 + ka8 < K;
+            cp_async16(dst + (ra8 + u * RA8) * AP + ka8,
+                       in ? src + gm * ap.sr + k0 + ka8 : ap.p, in ? 16 : 0);
+          }
+        } else {
+          for (int e = tid; e < BM * KC; e += NT) {
+            const int m = e / KC, kk = e % KC;
+            const int64_t gm = m0 + m, gk = k0 + kk;
+            dst[m * AP + kk] =
+                i < nsa && gm < M && gk < K ? src[gm * ap.sr + gk] : zero;
+          }
+        }
+      }
+    }
+    if constexpr (PL) {
+      for (int j = 0; j < nl; ++j) {
+        __nv_bfloat16* const dst = Bs0 + j * KC * BP;
+        const __nv_bfloat16* const src = bp.p + j * bp.plane;
+        if (vec_b) {
+#pragma unroll
+          for (int u = 0; u < KC / RB8; ++u) {
+            const int kk = kb8 + u * RB8;
+            const int64_t gk = k0 + kk;
+            const bool in = j < nsb && gk < K && n0 + nb8 < N;
+            cp_async16(dst + kk * BP + nb8,
+                       in ? src + gk * bp.sr + n0 + nb8 : bp.p, in ? 16 : 0);
+          }
+        } else {
+          for (int e = tid; e < KC * BN; e += NT) {
+            const int kk = e / BN, nn = e % BN;
+            const int64_t gk = k0 + kk, gn = n0 + nn;
+            dst[kk * BP + nn] =
+                j < nsb && gk < K && gn < N ? src[gk * bp.sr + gn] : zero;
+          }
+        }
+      }
+    }
+  };
+  // the f32 values of staging slot r limbed into planes buffer b, once for
+  // the block; with the 16-byte copies each thread limbs the chunks it
+  // copied itself
+  auto limb_stage = [&](int r, int b) {
+    const float* const Ar = Ar0 + r * BM * KC;
+    const float* const Br = Br0 + r * NOUT * KC * BN;
+    __nv_bfloat16* const As = As0 + b * PB;
+    __nv_bfloat16* const Bs = Bs0 + b * PB;
+    if constexpr (!PLA) {
+#pragma unroll
+      for (int i = 0; i < NA; ++i) {
+        const int m = ra + i * RA;
+        limb4<NL>(Ar + m * KC + ka, As + m * AP + ka, BM * AP, nl);
+      }
+    }
+    if constexpr (!PL) {
+#pragma unroll
+      for (int t = 0; t < NOUT; ++t)
+#pragma unroll
+        for (int i = 0; i < NB; ++i) {
+          const int kk = kb + i * RB;
+          limb4<NL>(Br + (t * KC + kk) * BN + nb,
+                    Bs + (t * NL * KC + kk) * BP + nb, KC * BP, nl);
+        }
+    }
+  };
+
+  // ldmatrix row addresses: A's rows of the warp's fragment mf (threads
+  // 16..31 at k + 8); B's k rows of fragments 2p, 2p + 1 (threads 16..31
+  // at n + 8)
+  const int ar = lane & 15;
+  const int ak = (lane >> 4) * 8;
+  auto a_at = [&](int i, int mf, int ks) {
+    return As0 + cb * PB + (i * BM + wm * WM + mf * 16 + ar) * AP + ks * 16 +
+           ak;
+  };
+  auto b_at = [&](int t, int j, int p, int ks) {
+    return Bs0 + cb * PB + ((t * NL + j) * KC + ks * 16 + ar) * BP +
+           wn * WN + p * 16 + ak;
+  };
+  const int64_t stages = (K + KC - 1) / KC;
+
+  if constexpr (DP) {
+    if (vec_a && vec_b) {
+      // Two plane buffers: in stage s, one warp of each scheduler runs the
+      // MMAs of buffer s % 2 while the other limbs stage s + 1 into the
+      // other buffer (then they swap tasks), so the CUDA cores' limbing
+      // and the tensor cores' MMAs overlap; one barrier per stage.  The
+      // copies run RS stages ahead, RS groups in flight, each thread
+      // waiting for its own.
+      const bool mma_first = (tid >> 5) >= WGM * WGN / 2;
+#pragma unroll
+      for (int r = 0; r < RS; ++r) {
+        if (r < stages) stage_raw(r * KC, r);
+        cp_async_commit();
+      }
+      if (stages > 0) {
+        cp_async_wait<RS - 1>();
+        limb_stage(0, 0);
+        if (RS < stages) stage_raw(RS * KC, 0);
+      }
+      cp_async_commit();
+      __syncthreads();
+#pragma unroll 1
+      for (int64_t s = 0; s < stages; ++s) {
+        cb = (int)(s & 1);
+        auto next = [&]() {
+          if (s + 1 < stages) {
+            cp_async_wait<RS - 1>();
+            const int r = (int)((s + 1) % RS);
+            limb_stage(r, cb ^ 1);
+            if (s + 1 + RS < stages) stage_raw((s + 1 + RS) * KC, r);
+          }
+          cp_async_commit();
+        };
+        if (mma_first) {
+          chunk_step<NL, NO, NOUT, FM, FN, LN>(acc, nl, mo, rn, ro, a_at,
+                                               b_at);
+          next();
+        } else {
+          next();
+          chunk_step<NL, NO, NOUT, FM, FN, LN>(acc, nl, mo, rn, ro, a_at,
+                                               b_at);
+        }
+        __syncthreads();  // buffer s % 2 is free, the other one written
+      }
+      return;
+    }
+  }
+
+  // One plane buffer: the f32 operands' copies run RS stages ahead (RS
+  // groups in flight; a stage's copies and, in the first group, the planes
+  // of stage 0 form one group); the stored planes' copies of the next stage
+  // start when every warp is done with the planes, so they are waited for
+  // with all the rest
+#pragma unroll
+  for (int r = 0; r < RS; ++r) {
+    if (r < stages) {
+      stage_raw(r * KC, r);
+      if (r == 0) stage_planes(0);
+    }
+    cp_async_commit();
+  }
+#pragma unroll 1
+  for (int64_t s = 0; s < stages; ++s) {
+    const int r = (int)(s % RS);
+    if constexpr (PL || PLA)
+      cp_async_wait<0>();
+    else
+      cp_async_wait<RS - 1>();
+    __syncthreads();  // the stage has landed; the planes are free
+    if constexpr (!PL || !PLA) {
+      limb_stage(r, 0);
+      __syncthreads();  // the planes are written; slot r is free
+    }
+    if (s + RS < stages) stage_raw((s + RS) * KC, r);
+    cp_async_commit();
+    chunk_step<NL, NO, NOUT, FM, FN, LN>(acc, nl, mo, rn, ro, a_at, b_at);
+    if constexpr (PL || PLA) {
+      if (s + 1 < stages) {
+        __syncthreads();  // every warp is done with the planes
+        stage_planes((s + 1) * KC);
+        cp_async_commit();
+      }
+    }
+  }
+}
+
+// The tile of block blockIdx.x: the blocks walk M first, so that the blocks
+// in flight share B's column block (a weight larger than the L2 cache, as
+// lm_head's, is then read from device memory about once) and A stays in L2.
+template <int BM>
+__device__ __forceinline__ int64_t tile_m0(int64_t M) {
+  return (int64_t)(blockIdx.x % ((M + BM - 1) / BM)) * BM;
+}
+
+template <int BM, int BN>
+__device__ __forceinline__ int64_t tile_n0(int64_t M) {
+  return (int64_t)(blockIdx.x / ((M + BM - 1) / BM)) * BN;
+}
+
+// out(gm, gn, mf, nf, e) for each of this thread's outputs of the
+// prefill tile at (m0, n0) that lies inside (M, N)
+template <int NL, int NO, int NOUT, typename Out>
+__device__ __forceinline__ void tile_outputs(int64_t M, int64_t N, int64_t m0,
+                                             int64_t n0, Out out) {
+  using T = Tile<NL, NO, NOUT>;
+  const int lane = threadIdx.x & 31;
+  const int wm = (threadIdx.x >> 5) / WGN;
+  const int wn = (threadIdx.x >> 5) % WGN;
+#pragma unroll
+  for (int mf = 0; mf < T::FM; ++mf)
+#pragma unroll
+    for (int nf = 0; nf < T::FN; ++nf)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int64_t gm =
+            m0 + wm * T::WM + mf * 16 + (lane >> 2) + 8 * (e >> 1);
+        const int64_t gn = n0 + wn * T::WN + nf * 8 + 2 * (lane & 3) + (e & 1);
+        if (gm < M && gn < N) out(gm, gn, mf, nf, e);
+      }
+}
+
+struct MatmulArgs {
+  const float* a;
+  const float* b;
+  float* c;
+  int64_t a_sb0, a_sb1, a_sr, a_sc;
+  int64_t b_sb0, b_sb1, b_sr, b_sc;
+  int64_t c_sb0, c_sb1, c_sr, c_sc;
+  int64_t nb1;  // size of the second batch dim (grid.z = nb0 * nb1)
+  int64_t M, N, K;
+  int n_limbs, max_order;
+};
+
+// One (BM x BN) tile at (blockIdx.y, blockIdx.x) of C = A @ B at the format,
+// B as f32 values or (PL) as stored limb planes, rows at their own lanes
+// (LN), A as stored limb planes (PLA): the body of fused_matmul_kernel,
+// prelimbed_matmul_kernel, mixed_prelimbed_matmul_kernel and
+// both_prelimbed_matmul_kernel, so the four share every add of every output
+// element.
+template <int NL, int NO, bool GEN, bool PL, bool LN = false,
+          bool PLA = false>
+__device__ __forceinline__ void matmul_tile(
+    const float* A, int64_t a_sr, int64_t a_sc, const float* B, int64_t b_sr,
+    int64_t b_sc, Planes bp, float* C, int64_t c_sr, int64_t c_sc, int64_t M,
+    int64_t N, int64_t K, int n_limbs, int max_order,
+    const int32_t* ln = nullptr, const int32_t* lo = nullptr,
+    Planes ap = Planes{}) {
+  using T = Tile<NL, NO, 1>;
+  const float* const Bt[1] = {B};
+  const int64_t m0 = tile_m0<T::BM>(M);
+  const int64_t n0 = tile_n0<T::BM, T::BN>(M);
+  Acc<NL, NO, 1> acc;
+  mainloop<NL, NO, 1, GEN, PL, LN, PLA>(A, a_sr, a_sc, Bt, b_sr, b_sc, M, N,
+                                        K, m0, n0, n_limbs, max_order, acc,
+                                        bp, ln, lo, ap);
+  const int mo = GEN ? max_order : NO - 1;
+  tile_outputs<NL, NO, 1>(M, N, m0, n0, [&](int64_t gm, int64_t gn, int mf,
+                                            int nf, int e) {
+    float per_order[NO];
+#pragma unroll
+    for (int o = 0; o < NO; ++o) per_order[o] = acc[0][o][mf][nf][e];
+    // a lane row joins its own orders, from its own highest one down
+    C[gm * c_sr + gn * c_sc] = combine_orders<NO>(per_order, LN ? lo[gm] : mo);
+  });
+}
+
+// ---------------------------------------------------------------------------
+// The decode tile: the body of fused_matmul_kernel, prelimbed_matmul_kernel,
+// mixed_prelimbed_matmul_kernel and fused_proj_kernel when M <= DEC_M (a
+// decode micro-batch of 1..16 rows, or one row per batch entry of decode
+// attention's QK and PV).
+//
+// Invariant: every output element gets exactly the MMAs and adds of the
+// prefill tile, in the same order (chunk_step on the same chunks of KC k,
+// from k = 0), so a row has the same bits whichever tile ran it, and
+// pre-limbed == fused, mixed rows == homogeneous rows and scheduled == solo
+// keep holding.  The M rows fill one m16 fragment: rows M..15 read 16 zero
+// bytes and are never stored, and an MMA's rows do not interact.  k per
+// ring stage is a multiple of KC, so a chunk never straddles two stages;
+// the last stage's chunk is zero-filled past K, in the planes, as the
+// prefill tile's is.  LN: a row at its own lane skips the terms its lane
+// leaves out and joins its orders from its own cut down, as chunk_step and
+// matmul_tile do.  NOUT weights: each weight's sums are its own, as the
+// prefill tile's per-weight accumulators.
+//
+// Design: the block owns DEC_N columns and all M rows; two compute warps,
+// one per 8 columns (one n8 fragment), carry NOUT x NO accumulators of 4
+// outputs per thread.  Two or four producer warps (warp specialisation)
+// stream A and the NOUT Bs through a ring of DecRing::S stages of up to
+// DecRing::K k each in dynamic shared memory, by cp.async (16-byte
+// cp.async.cg where the rows are contiguous and 16-byte aligned, else
+// element by element), and limb stage s + 1 (A's rows, once for every
+// weight; the f32 Bs too) into bf16 planes, once per block, while the
+// compute warps run stage s from the other of two plane buffers: one block
+// barrier per stage.  A's plane rows are padded by PADE and B's 8-column
+// halves swap places every 4 k rows, so ldmatrix reads both without bank
+// conflicts.
+constexpr int DEC_M = 16;   // most rows of the decode tile
+constexpr int DEC_N = 16;   // columns of one block
+constexpr int DEC_CT = 64;  // compute threads: one warp per 8 columns
+
+// ring shape per limb count: deeper formats do more products per byte
+template <int NL>
+struct DecRing {
+  static constexpr int K = NL <= 3 ? 256 : 128;  // most k of one stage
+  static constexpr int S = 3;                    // stages
+  // producer warps: the fused kernels limb their B stages as well
+  static constexpr int P(bool pl) { return pl ? 2 : 4; }
+};
+
+// column of B plane row k where column c (of DEC_N) is kept
+__device__ __forceinline__ int dec_col(int k, int c) {
+  return c ^ (((k >> 2) & 1) << 3);
+}
+
+// dynamic shared memory of the decode tile: the B ring (bf16 planes, or f32
+// for each of nout weights), the A ring (f32), A's limb planes (rows padded
+// by PADE) and (fused) the Bs' limb planes, two buffers each, then 16 zero
+// bytes (the fragment's rows past M); every region a multiple of 16 bytes
+// (dk is a multiple of KC)
+__host__ __device__ inline int64_t dec_ring_b_bytes(bool pl, int nl, int dk,
+                                                    int slots, int nout) {
+  return pl ? (int64_t)slots * nl * dk * DEC_N * 2
+            : (int64_t)nout * slots * dk * DEC_N * 4;
+}
+
+__host__ __device__ inline int64_t dec_smem_bytes(bool pl, int nl, int M,
+                                                  int dk, int slots,
+                                                  int nout) {
+  return dec_ring_b_bytes(pl, nl, dk, slots, nout) +
+         (int64_t)slots * M * dk * 4 + 2 * (int64_t)nl * M * (dk + PADE) * 2 +
+         (pl ? 0 : 2 * (int64_t)nout * nl * dk * DEC_N * 2) + 16;
+}
+
+// dk: k per ring stage (a multiple of KC, at most DecRing<NL>::K); the
 // dynamic shared memory holds dec_smem_bytes(PL, nl, M, dk, slots, NOUT)
 // bytes, slots = min(DecRing<NL>::S, stages).  Warp roles: the first
-// dec_compute_threads(M) threads own one output of each weight (row
-// tid / DEC_N, column tid % DEC_N); the DecRing<NL>::P(PL) warps after them
+// DEC_CT threads own the outputs; the DecRing<NL>::P(PL) warps after them
 // copy and limb.  B: NOUT f32 weights (PL: unused, NOUT == 1, the planes
 // bp instead); LN: row r's lane is (ln[r], lo[r]).  The row's NOUT results
 // go to store(r, column, y) after combine_orders.
@@ -531,16 +996,19 @@ __device__ __forceinline__ void decode_tile(
   const int mo = GEN ? max_order : NO - 1;
   const int stages = dk > 0 ? (int)((K + dk - 1) / dk) : 0;
   const int slots = stages < NS ? stages : NS;
-  const int plane = M * dk;  // elements of one A limb plane at one stage
+  const int ring = M * dk;         // f32 elements of one A ring slot
+  const int ap = dk + PADE;        // elements of one A plane row
+  const int plane = M * ap;        // elements of one A limb plane
   // regions of dec_smem: the B ring, the A ring, A's limb planes (two
-  // buffers), the Bs' limb planes (fused, two buffers each)
+  // buffers), the Bs' limb planes (fused, two buffers each), zeros
   __nv_bfloat16* const Bp = reinterpret_cast<__nv_bfloat16*>(dec_smem);
   float* const Br = reinterpret_cast<float*>(dec_smem);
   float* const Ar = reinterpret_cast<float*>(
       dec_smem + dec_ring_b_bytes(PL, nl, dk, slots, NOUT));
   __nv_bfloat16* const As =
-      reinterpret_cast<__nv_bfloat16*>(Ar + (int64_t)slots * plane);
+      reinterpret_cast<__nv_bfloat16*>(Ar + (int64_t)slots * ring);
   __nv_bfloat16* const Bl = As + 2 * nl * plane;
+  __nv_bfloat16* const zeros = Bl + (PL ? 0 : 2 * NOUT * nl * dk * DEC_N);
   auto bp_at = [&](int q, int j) { return (q * nl + j) * dk * DEC_N; };
   auto br_at = [&](int q, int t) { return (q * NOUT + t) * dk * DEC_N; };
   auto as_at = [&](int buf, int i) { return (buf * nl + i) * plane; };
@@ -549,12 +1017,9 @@ __device__ __forceinline__ void decode_tile(
   };
 
   const int tid = threadIdx.x;
-  const int ct = dec_compute_threads(M);
-  const bool producer = tid >= ct;
-  const int pt = tid - ct;  // producer thread index
-  const int np = (int)blockDim.x - ct;
-  const int r = tid / DEC_N;
-  const int c = tid % DEC_N;
+  const bool producer = tid >= DEC_CT;
+  const int pt = tid - DEC_CT;  // producer thread index
+  const int np = (int)blockDim.x - DEC_CT;
   const int64_t n0 = (int64_t)blockIdx.x * DEC_N;
   const int nst = PL ? (bp.n_stored < nl ? bp.n_stored : nl) : nl;
   const __nv_bfloat16 zero = __float2bfloat16_rn(0.f);
@@ -563,9 +1028,10 @@ __device__ __forceinline__ void decode_tile(
     return left < dk ? (int)left : dk;
   };
 
-  // producers: stage s of A and B into ring slot s % NS, only its valid k;
-  // index maps by shifts and masks (DEC_N is 16), neighbouring threads on
-  // neighbouring addresses where the layout allows
+  // producers: stage s of A and B into ring slot s % NS, A's and the f32
+  // Bs' valid k, the stored planes up to the stage's last chunk (zeros past
+  // K); index maps by shifts and masks (DEC_N is 16), neighbouring threads
+  // on neighbouring addresses where the layout allows
   auto load = [&](int s) {
     const int q = s % NS;
     const int64_t k0 = (int64_t)s * dk;
@@ -577,32 +1043,35 @@ __device__ __forceinline__ void decode_tile(
       for (int m = 0; m < M; ++m)
         for (int e = pt; e < ch; e += np) {
           const int left = kn - 4 * e;
-          cp_async16(Ar + q * plane + m * dk + 4 * e, A + m * a_sr + k0 + 4 * e,
+          cp_async16(Ar + q * ring + m * dk + 4 * e, A + m * a_sr + k0 + 4 * e,
                      left < 4 ? 4 * left : 16);
         }
     } else {
       for (int m = 0; m < M; ++m)
         for (int kk = pt; kk < kn; kk += np)
-          cp_async4(Ar + q * plane + m * dk + kk,
+          cp_async4(Ar + q * ring + m * dk + kk,
                     A + m * a_sr + (k0 + kk) * a_sc, true);
     }
     if constexpr (PL) {
+      const int kc = (kn + KC - 1) / KC * KC;
       for (int j = 0; j < nst; ++j) {
         const __nv_bfloat16* src = bp.p + j * bp.plane + k0 * bp.sr;
         __nv_bfloat16* dst = Bp + bp_at(q, j);
         if (vec_b) {
           // 16-byte chunks: two per plane row of 16 columns
-          for (int e = pt; e < kn * 2; e += np) {
+          for (int e = pt; e < kc * 2; e += np) {
             const int kk = e >> 1;
             const int cc = (e & 1) * 8;
-            const bool in = n0 + cc < N;
-            cp_async16(dst + kk * DEC_N + cc,
+            const bool in = kk < kn && n0 + cc < N;
+            cp_async16(dst + kk * DEC_N + dec_col(kk, cc),
                        in ? src + kk * bp.sr + n0 + cc : bp.p, in ? 16 : 0);
           }
         } else {
-          for (int e = pt; e < kn * DEC_N; e += np) {
+          for (int e = pt; e < kc * DEC_N; e += np) {
+            const int kk = e >> 4;
             const int64_t gn = n0 + (e & 15);
-            dst[e] = gn < N ? src[(e >> 4) * bp.sr + gn] : zero;
+            dst[kk * DEC_N + dec_col(kk, e & 15)] =
+                kk < kn && gn < N ? src[kk * bp.sr + gn] : zero;
           }
         }
       }
@@ -639,49 +1108,62 @@ __device__ __forceinline__ void decode_tile(
     }
   };
   // producers: wait for stage s, then limb it once for the block into
-  // buffer s % 2
+  // buffer s % 2, up to the stage's last chunk; the ring's k past the
+  // stage's kn (zeros or stale values) are not read: their limbs are +0.0
   auto limb = [&](int s) {
     cp_async_wait<NS - 2>();
     asm volatile("bar.sync 1, %0;\n" ::"r"(np));  // every copy has landed
     const int q = s % NS;
     const int kn = stage_k(s);
+    const int kc = (kn + KC - 1) / KC * KC;
     const int buf = s & 1;
-    // 4 k of one row (A) or 4 columns of one k (B) at a time; past a row's
-    // kn the ring holds zeros or stale values, whose limbs no FMA reads
-    const int ach = (kn + 3) >> 2;
+    // 4 k of one row (A) or 4 columns of one k (B) at a time
+    const int ach = kc >> 2;
     for (int e = pt; e < M * ach; e += np) {
       const int m = e / ach;
       const int kk = (e - m * ach) * 4;
-      limb4<NL>(Ar + q * plane + m * dk + kk, As + as_at(buf, 0) + m * dk + kk,
-                plane, nl);
+      const int nv = kn - kk;
+      limb4<NL>(Ar + q * ring + m * dk + kk, As + as_at(buf, 0) + m * ap + kk,
+                plane, nl, nv < 0 ? 0 : nv);
     }
     if constexpr (!PL) {
 #pragma unroll
       for (int t = 0; t < NOUT; ++t)
-        for (int e = pt; e < kn * 4; e += np)
-          limb4<NL>(Br + br_at(q, t) + 4 * e, Bl + bl_at(buf, t, 0) + 4 * e,
-                    dk * DEC_N, nl);
+        for (int e = pt; e < kc * 4; e += np) {
+          const int kk = e >> 2;
+          const int cc = (e & 3) * 4;
+          limb4<NL>(Br + br_at(q, t) + 4 * e,
+                    Bl + bl_at(buf, t, 0) + kk * DEC_N + dec_col(kk, cc),
+                    dk * DEC_N, nl, kk < kn ? 4 : 0);
+        }
     }
   };
 
-  float acc[NOUT][NO];
+  // the compute warps: warp w owns columns 8 w .. 8 w + 7; thread's rows
+  // g and g + 8 of the fragment
+  const int lane = tid & 31;
+  const int w = tid >> 5;
+  const int g = lane >> 2;
+  float acc[NOUT][NO][1][1][4];
 #pragma unroll
   for (int t = 0; t < NOUT; ++t)
 #pragma unroll
-    for (int o = 0; o < NO; ++o) acc[t][o] = 0.f;
-  // the row's lane, in registers for the whole K loop (LN only)
-  int rn = 0, ro = 0;
-  if constexpr (LN) {
-    if (!producer && r < M) {
-      rn = ln[r];
-      ro = lo[r];
-    }
+    for (int o = 0; o < NO; ++o)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[t][o][0][0][e] = 0.f;
+  // the rows' lanes, in registers for the whole K loop (LN only)
+  int rn[1][2], ro[1][2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = g + 8 * h;
+    rn[0][h] = LN && !producer && r < M ? ln[r] : PAD_N;
+    ro[0][h] = LN && !producer && r < M ? lo[r] : PAD_ORD;
   }
 
   if (producer) {
+    if (pt < 4) reinterpret_cast<uint32_t*>(zeros)[pt] = 0u;
     if constexpr (PL) {
-      // planes the stack lacks read as +0.0, as mainloop reads them; the
-      // loads never write them
+      // planes the stack lacks read as +0.0; the loads never write them
       for (int j = nst; j < nl; ++j)
         for (int q = 0; q < slots; ++q)
           for (int e = pt; e < dk * DEC_N; e += np) Bp[bp_at(q, j) + e] = zero;
@@ -693,6 +1175,8 @@ __device__ __forceinline__ void decode_tile(
     if (stages > 0) limb(0);
   }
   __syncthreads();
+  const int ar = lane & 15;
+  const int ak = (lane >> 4) * 8;
 #pragma unroll 1
   for (int s = 0; s < stages; ++s) {
     if (producer) {
@@ -701,133 +1185,55 @@ __device__ __forceinline__ void decode_tile(
       if (s + NS - 1 < stages) load(s + NS - 1);
       cp_async_commit();
       if (s + 1 < stages) limb(s + 1);
-    } else if (r < M) {
-      const int kn = stage_k(s);
-      const __nv_bfloat16* const arow = As + as_at(s & 1, 0) + r * dk;
-      // this thread's column of each B's planes at this stage, plane
-      // stride dk*16
-      const __nv_bfloat16* bcol[NOUT];
-#pragma unroll
-      for (int t = 0; t < NOUT; ++t)
-        bcol[t] = (PL ? Bp + bp_at(s % NS, 0) : Bl + bl_at(s & 1, t, 0)) + c;
-      const int bs = dk * DEC_N;
-      int kk = 0;
-      // 8 k of A's planes (one 16-byte broadcast read each), and of weight
-      // t's B column
-      auto fetch_a = [&](int k8, uint4 (&av)[NL]) {
-#pragma unroll
-        for (int i = 0; i < NL; ++i)
-          av[i] = *reinterpret_cast<const uint4*>(arow + i * plane + k8);
-      };
-      auto fetch_b = [&](int k8, int t, float (&bv)[NL][8]) {
-#pragma unroll
-        for (int j = 0; j < NL; ++j)
-#pragma unroll
-          for (int u = 0; u < 8; ++u)
-            bv[j][u] = bf(bcol[t][j * bs + (k8 + u) * DEC_N]);
-      };
-      // 8 k of weight t's chains, k ascending
-      auto run = [&](const uint4 (&av)[NL], const float (&bv)[NL][8], int t) {
-#pragma unroll
-        for (int u = 0; u < 8; ++u) {
-          float a[NL], b[NL];
-#pragma unroll
-          for (int i = 0; i < NL; ++i) a[i] = bf_at(av[i], u);
-#pragma unroll
-          for (int j = 0; j < NL; ++j) b[j] = bv[j][u];
-          fma_step<NL, NO, LN>(a, b, acc[t], nl, mo, rn, ro);
-        }
-      };
-      if constexpr (!GEN && NL * NOUT <= 3) {
-        // the next 8 k's shared-memory reads in flight while this 8's
-        // FMAs run
-        const int kn8 = kn & ~7;
-        if (kn8 > 0) {
-          uint4 av[NL];
-          float bv[NOUT][NL][8];
-          fetch_a(0, av);
-#pragma unroll
-          for (int t = 0; t < NOUT; ++t) fetch_b(0, t, bv[t]);
+    } else {
+      const int nch = (stage_k(s) + KC - 1) / KC;
+      const int buf = s & 1;
+      const int q = s % NS;
 #pragma unroll 1
-          for (kk = 8; kk < kn8; kk += 8) {
-            uint4 an[NL];
-            float bn[NOUT][NL][8];
-            fetch_a(kk, an);
-#pragma unroll
-            for (int t = 0; t < NOUT; ++t) fetch_b(kk, t, bn[t]);
-#pragma unroll
-            for (int t = 0; t < NOUT; ++t) run(av, bv[t], t);
-#pragma unroll
-            for (int i = 0; i < NL; ++i) av[i] = an[i];
-#pragma unroll
-            for (int t = 0; t < NOUT; ++t)
-#pragma unroll
-              for (int j = 0; j < NL; ++j)
-#pragma unroll
-                for (int u = 0; u < 8; ++u) bv[t][j][u] = bn[t][j][u];
-          }
-#pragma unroll
-          for (int t = 0; t < NOUT; ++t) run(av, bv[t], t);
-          kk = kn8;
-        }
-      } else if constexpr (!GEN) {
-        // weight by weight within each 8 k: every chain still takes its k
-        // in ascending order
-        for (; kk + 8 <= kn; kk += 8) {
-          uint4 av[NL];
-          fetch_a(kk, av);
-#pragma unroll
-          for (int t = 0; t < NOUT; ++t) {
-            float bv[NL][8];
-            fetch_b(kk, t, bv);
-            run(av, bv, t);
-          }
-        }
-      }
-      for (; kk < kn; ++kk) {
-        float a[NL], b[NL];
-#pragma unroll
-        for (int i = 0; i < NL; ++i)
-          a[i] = i < nl ? bf(arow[i * plane + kk]) : 0.f;
-#pragma unroll
-        for (int t = 0; t < NOUT; ++t) {
-#pragma unroll
-          for (int j = 0; j < NL; ++j)
-            b[j] = j < nl ? bf(bcol[t][j * bs + kk * DEC_N]) : 0.f;
-          fma_step<NL, NO, LN>(a, b, acc[t], nl, mo, rn, ro);
-        }
+      for (int c = 0; c < nch; ++c) {
+        const int kb = c * KC;
+        auto a_at = [&](int i, int, int ks) -> const __nv_bfloat16* {
+          return ar < M ? As + as_at(buf, i) + ar * ap + kb + ks * 16 + ak
+                        : zeros;
+        };
+        auto b_at = [&](int t, int j, int, int ks) -> const __nv_bfloat16* {
+          const int kr = kb + ks * 16 + ar;
+          return (PL ? Bp + bp_at(q, j) : Bl + bl_at(buf, t, j)) +
+                 kr * DEC_N + dec_col(kr, 8 * w);
+        };
+        chunk_step<NL, NO, NOUT, 1, 1, LN>(acc, nl, mo, rn, ro, a_at, b_at);
       }
     }
     __syncthreads();
   }
-  if (producer || r >= M) return;
-  if (K % BK != 0) {
-    // mainloop's zero-filled k past the edge (see the invariant above)
-    float z[NL];
+  if (producer) return;
 #pragma unroll
-    for (int i = 0; i < NL; ++i) z[i] = 0.f;
+  for (int e = 0; e < 4; ++e) {
+    const int r = g + 8 * (e >> 1);
+    const int64_t gn = n0 + 8 * w + 2 * (lane & 3) + (e & 1);
+    if (r >= M || gn >= N) continue;
+    // a lane row joins its own orders, from its own highest one down
+    float y[NOUT];
 #pragma unroll
-    for (int t = 0; t < NOUT; ++t)
-      fma_step<NL, NO, LN>(z, z, acc[t], nl, mo, rn, ro);
+    for (int t = 0; t < NOUT; ++t) {
+      float per_order[NO];
+#pragma unroll
+      for (int o = 0; o < NO; ++o) per_order[o] = acc[t][o][0][0][e];
+      y[t] = combine_orders<NO>(per_order, LN ? ro[0][e >> 1] : mo);
+    }
+    store(r, gn, y);
   }
-  const int64_t gn = n0 + c;
-  if (gn >= N) return;
-  // a lane row joins its own orders, from its own highest one down
-  float y[NOUT];
-#pragma unroll
-  for (int t = 0; t < NOUT; ++t) y[t] = combine_orders<NO>(acc[t], LN ? ro : mo);
-  store(r, gn, y);
 }
 
 // Port of _fused_kernel: C[z] = A[z] @ B[z] at the format, z over up to two
 // batch dims with their own strides (a stride of 0 broadcasts), so decode
 // attention's (B, H, 1, Dh) x (B, H, Dh, T) runs as one launch.
-template <int NL, int NO, int RM, int RN, bool GEN>
+template <int NL, int NO, bool GEN>
 __global__ void __launch_bounds__(NT) fused_matmul_kernel(MatmulArgs p) {
   const int64_t z = blockIdx.z;
   const int64_t z0 = z / p.nb1;
   const int64_t z1 = z % p.nb1;
-  matmul_tile<NL, NO, RM, RN, GEN, false>(
+  matmul_tile<NL, NO, GEN, false>(
       p.a + z0 * p.a_sb0 + z1 * p.a_sb1, p.a_sr, p.a_sc,
       p.b + z0 * p.b_sb0 + z1 * p.b_sb1, p.b_sr, p.b_sc, Planes{},
       p.c + z0 * p.c_sb0 + z1 * p.c_sb1, p.c_sr, p.c_sc, p.M, p.N, p.K,
@@ -837,7 +1243,7 @@ __global__ void __launch_bounds__(NT) fused_matmul_kernel(MatmulArgs p) {
 // fused_matmul_kernel's decode tile (M <= DEC_M), one block per DEC_N
 // columns and batch entry.
 template <int NL, int NO, bool GEN>
-__global__ void __launch_bounds__(DEC_M * DEC_N + 128)
+__global__ void __launch_bounds__(DEC_CT + 128)
     fused_matmul_decode_kernel(MatmulArgs p, int dk) {
   const int64_t z = blockIdx.z;
   const int64_t z0 = z / p.nb1;
@@ -863,23 +1269,22 @@ struct PrelimbedArgs {
 
 // Port of _prelimbed_kernel (build_prelimbed_call(both=False)): A limbed on
 // the fly, B read from its stored limb planes (the serving decode path's
-// pre-limbed weights).  Same tiles, same per-order accumulators, same
-// _combine_orders flush as fused_matmul_kernel: on planes decomposed from a
-// raw weight it returns fused_matmul_kernel's result on that weight, bit for
-// bit.  Bound at decode (M = 8) by the bytes of the planes it reads (an M8
-// format reads plane 0 only: half the f32 weight's bytes).
-template <int NL, int NO, int RM, int RN, bool GEN>
+// pre-limbed weights).  Same tiles, same chunks, same per-order accumulators,
+// same _combine_orders flush as fused_matmul_kernel: on planes decomposed
+// from a raw weight it returns fused_matmul_kernel's result on that weight,
+// bit for bit.  Bound at decode (M = 8) by the bytes of the planes it reads
+// (an M8 format reads plane 0 only: half the f32 weight's bytes).
+template <int NL, int NO, bool GEN>
 __global__ void __launch_bounds__(NT) prelimbed_matmul_kernel(PrelimbedArgs p) {
-  matmul_tile<NL, NO, RM, RN, GEN, true>(p.a, p.a_sr, 1, nullptr, 0, 0, p.b,
-                                         p.c, p.c_sr, 1, p.M, p.N, p.K,
-                                         p.n_limbs, p.max_order);
+  matmul_tile<NL, NO, GEN, true>(p.a, p.a_sr, 1, nullptr, 0, 0, p.b, p.c,
+                                 p.c_sr, 1, p.M, p.N, p.K, p.n_limbs,
+                                 p.max_order);
 }
 
 // prelimbed_matmul_kernel's decode tile (M <= DEC_M): the serving decode
-// path's matmuls.  Bound at M = 8 by the serial fmaf chain of each output
-// (K steps of the deepest order's products) and by the planes' bytes.
+// path's matmuls.  Bound at M = 8 by the planes' bytes.
 template <int NL, int NO, bool GEN>
-__global__ void __launch_bounds__(DEC_M * DEC_N + 128)
+__global__ void __launch_bounds__(DEC_CT + 128)
     prelimbed_matmul_decode_kernel(PrelimbedArgs p, int dk) {
   const float* const B[1] = {nullptr};
   decode_tile<NL, NO, GEN, true>(
@@ -898,31 +1303,27 @@ struct MixedPrelimbedArgs {
 
 // Port of _mixed_prelimbed_kernel (build_mixed_prelimbed_call): the
 // pre-limbed kernel at the batch's envelope depth, each output row at its
-// own lane format (lane_n[m], lane_ord[m]) at or below the envelope.  A
-// product the row's lane leaves out skips its FMA (the TPU kernel adds a
-// masked +0.0 instead), and the flush joins the row's orders from its own
-// highest one down, so a row is bit for bit prelimbed_matmul_kernel's row at
-// the lane's format, signs of zeros included.  One launch serves a decode
-// micro-batch whose slots run different formats.  Bound like the pre-limbed
-// kernel at decode (M = 8) by the bytes of the planes it reads: the
-// envelope's, once for all rows.
-template <int NL, int NO, int RM, int RN, bool GEN>
+// own lane format (lane_n[m], lane_ord[m]) at or below the envelope.  The
+// MMAs run for every row; a row adds only the terms its lane keeps (the TPU
+// kernel adds a masked +0.0 instead), and the flush joins the row's orders
+// from its own highest one down, so a row is bit for bit
+// prelimbed_matmul_kernel's row at the lane's format, signs of zeros
+// included.  One launch serves a decode micro-batch whose slots run
+// different formats.  Bound like the pre-limbed kernel at decode (M = 8) by
+// the bytes of the planes it reads: the envelope's, once for all rows.
+template <int NL, int NO, bool GEN>
 __global__ void __launch_bounds__(NT)
     mixed_prelimbed_matmul_kernel(MixedPrelimbedArgs p) {
-  matmul_tile<NL, NO, RM, RN, GEN, true, true>(
+  matmul_tile<NL, NO, GEN, true, true>(
       p.m.a, p.m.a_sr, 1, nullptr, 0, 0, p.m.b, p.m.c, p.m.c_sr, 1, p.m.M,
       p.m.N, p.m.K, p.m.n_limbs, p.m.max_order, p.lane_n, p.lane_ord);
 }
 
 // mixed_prelimbed_matmul_kernel's decode tile (M <= DEC_M): the mixed-format
-// decode tick's matmuls.  The envelope's planes stream once for all rows;
-// each compute thread cuts its own row's products, so a warp (two rows) runs
-// at its deeper row's chain, and a row is the pre-limbed decode tile's row at
-// its lane, bit for bit.  One block per SM is asked for (the ring leaves
-// room for no more at most shapes): without it ptxas caps some
-// instantiations at 80 registers, two blocks' worth, and spills.
+// decode tick's matmuls.  The envelope's planes stream once for all rows and
+// the MMAs run at the envelope; each row selects its own terms.
 template <int NL, int NO, bool GEN>
-__global__ void __launch_bounds__(DEC_M * DEC_N + 128, 1)
+__global__ void __launch_bounds__(DEC_CT + 128)
     mixed_prelimbed_matmul_decode_kernel(MixedPrelimbedArgs p, int dk) {
   const float* const B[1] = {nullptr};
   decode_tile<NL, NO, GEN, true, true>(
@@ -946,22 +1347,21 @@ struct BothPrelimbedArgs {
 // operands read from stored bf16 limb planes, the path of two-float (DD)
 // operands, whose ~49 mantissa bits no f32 can hold (M36 and M52 on wider
 // than fp32 inputs; the f32 side of a mixed DD x f32 call comes from the
-// decompose kernel).  Same tiles, products, per-order accumulators and
-// _combine_orders flush as fused_matmul_kernel, so on planes decomposed
+// decompose kernel).  Same tiles, chunks, products, per-order accumulators
+// and _combine_orders flush as fused_matmul_kernel, so on planes decomposed
 // from f32 operands it returns fused_matmul_kernel's result on them, bit for
-// bit.  Bound at the prefill shapes by its limb products (28 for M52), like
-// the fused kernel: the planes it reads are half the bytes per limb of an
-// f32 operand, but 7 of them are read.
-template <int NL, int NO, int RM, int RN, bool GEN>
+// bit.  Bound at the prefill shapes by its limb products (28 for M52): the
+// fragment reads from shared memory and the MMAs.
+template <int NL, int NO, bool GEN>
 __global__ void __launch_bounds__(NT)
     both_prelimbed_matmul_kernel(BothPrelimbedArgs p) {
-  matmul_tile<NL, NO, RM, RN, GEN, true, false, true>(
+  matmul_tile<NL, NO, GEN, true, false, true>(
       nullptr, 0, 0, nullptr, 0, 0, p.b, p.c, p.c_sr, 1, p.M, p.N, p.K,
       p.n_limbs, p.max_order, nullptr, nullptr, p.a);
 }
 
 // Port of _decompose_kernel: x (n f32 values) -> n_limbs bf16 planes of n
-// values each, the round-to-nearest-even cascade of extract_limbs (bitwise
+// values each, the round-to-nearest-even cascade of _extract_limbs (bitwise
 // limbs.decompose).  Elementwise and bound by its bytes: each value is read
 // once and each limb written once, neighbouring threads on neighbouring
 // addresses.
@@ -1016,48 +1416,38 @@ __device__ __forceinline__ void proj_store(const ProjArgs& p, int64_t gm,
   }
 }
 
-// Port of _fused_multi_kernel: the A tile is limbed once per K step and feeds
-// every output; proj_store's epilogue runs before the single store.
-template <int NL, int NO, int NOUT, int RM, int RN, bool GEN>
+// Port of _fused_multi_kernel: the A tile is limbed once per K stage and
+// feeds every output; proj_store's epilogue runs before the single store.
+template <int NL, int NO, int NOUT, bool GEN>
 __global__ void __launch_bounds__(NT) fused_proj_kernel(ProjArgs p) {
-  constexpr int BM = TY * RM;
-  constexpr int BN = TX * RN;
-  const int64_t m0 = (int64_t)blockIdx.y * BM;
-  const int64_t n0 = (int64_t)blockIdx.x * BN;
-  float acc[NOUT][NO][RM][RN];
-  mainloop<NL, NO, NOUT, RM, RN, GEN>(p.a, p.a_sr, 1, p.b, p.b_sr, 1, p.M, p.N,
-                                      p.K, m0, n0, p.n_limbs, p.max_order, acc);
+  using T = Tile<NL, NO, NOUT>;
+  const int64_t m0 = tile_m0<T::BM>(p.M);
+  const int64_t n0 = tile_n0<T::BM, T::BN>(p.M);
+  Acc<NL, NO, NOUT> acc;
+  mainloop<NL, NO, NOUT, GEN>(p.a, p.a_sr, 1, p.b, p.b_sr, 1, p.M, p.N, p.K,
+                              m0, n0, p.n_limbs, p.max_order, acc);
   const int mo = GEN ? p.max_order : NO - 1;
-  const int tx = threadIdx.x % TX;
-  const int ty = threadIdx.x / TX;
+  tile_outputs<NL, NO, NOUT>(p.M, p.N, m0, n0, [&](int64_t gm, int64_t gn,
+                                                   int mf, int nf, int e) {
+    float y[NOUT];
 #pragma unroll
-  for (int r = 0; r < RM; ++r) {
+    for (int t = 0; t < NOUT; ++t) {
+      float per_order[NO];
 #pragma unroll
-    for (int c = 0; c < RN; ++c) {
-      const int64_t gm = m0 + ty + r * TY;
-      const int64_t gn = n0 + tx + c * TX;
-      if (gm >= p.M || gn >= p.N) continue;
-      float y[NOUT];
-#pragma unroll
-      for (int t = 0; t < NOUT; ++t) {
-        float per_order[NO];
-#pragma unroll
-        for (int o = 0; o < NO; ++o) per_order[o] = acc[t][o][r][c];
-        y[t] = combine_orders<NO>(per_order, mo);
-      }
-      proj_store<NOUT>(p, gm, gn, 0, y);
+      for (int o = 0; o < NO; ++o) per_order[o] = acc[t][o][mf][nf][e];
+      y[t] = combine_orders<NO>(per_order, mo);
     }
-  }
+    proj_store<NOUT>(p, gm, gn, 0, y);
+  });
 }
 
 // fused_proj_kernel's decode tile (M <= DEC_M): A limbed once per stage for
 // the block's NOUT weights, weights t0 = blockIdx.y * NOUT onwards (grid.y
 // blocks of weights per column block), then proj_store.  NOUT = 1 without
 // the gate; the swiglu gate needs g and u of one output in one thread, so
-// it runs NOUT = 2.  One block per SM is asked for, as for the mixed decode
-// kernel.
+// it runs NOUT = 2.
 template <int NL, int NO, int NOUT, bool GEN>
-__global__ void __launch_bounds__(DEC_M * DEC_N + 128, 1)
+__global__ void __launch_bounds__(DEC_CT + 128)
     fused_proj_decode_kernel(ProjArgs p, int dk) {
   const int t0 = (int)blockIdx.y * NOUT;
   const float* B[NOUT];
@@ -1071,20 +1461,15 @@ __global__ void __launch_bounds__(DEC_M * DEC_N + 128, 1)
       });
 }
 
-// micro-tile per thread: 4 x 4 while the accumulators stay within ~112
-// registers, else 2 x 2 (the generic instantiation, wide fused groups)
-constexpr int micro(int no, int nout, bool gen) {
-  return (!gen && no * nout <= 7) ? 4 : 2;
-}
-
-// Launch one decode-tile kernel: blocks of M * DEC_N compute threads and the
+// Launch one decode-tile kernel: blocks of DEC_CT compute threads and the
 // producer warps over the N columns (x), ny groups of NOUT weights (y) and
-// the batch (z).  k per stage is DecRing's, halved until NOUT weights' rings
-// and planes fit the card's shared memory and, where the grid has more
-// blocks than the card has SMs, until two blocks fit on one SM (down to 64
-// k).  It only stages the loads: every chain keeps its order, so the bits do
-// not depend on it.  The kernel's dynamic shared memory limit is raised to
-// the card's once per kernel.
+// the batch (z).  k per stage is DecRing's (K rounded up to a multiple of
+// KC when shorter), halved, in multiples of KC and down to KC, until NOUT
+// weights' rings and planes fit the card's shared memory and, where the
+// grid has more blocks than the card has SMs, until two blocks fit on one
+// SM.  It only stages the loads: the chunks and every add keep their
+// order, so the bits do not depend on it.  The kernel's dynamic shared
+// memory limit is raised to the card's once per kernel.
 template <int NL, int NOUT, auto kernel, typename Args>
 cudaError_t launch_decode(const Args& p, bool pl, int nl, int64_t M,
                           int64_t N, int64_t K, unsigned ny, int64_t nz,
@@ -1115,33 +1500,53 @@ cudaError_t launch_decode(const Args& p, bool pl, int nl, int64_t M,
         (int)(stages < DecRing<NL>::S ? stages : DecRing<NL>::S);
     return dec_smem_bytes(pl, nl, (int)M, dk, slots, NOUT);
   };
-  int dk = (int)(K < DecRing<NL>::K ? (K + 7) / 8 * 8 : DecRing<NL>::K);
-  while (dk > 8 && smem_of(dk) > optin) dk = (dk / 2 + 7) / 8 * 8;
+  auto half = [](int dk) { return (dk / 2 + KC - 1) / KC * KC; };
+  int dk = (int)(K < DecRing<NL>::K ? (K + KC - 1) / KC * KC
+                                    : DecRing<NL>::K);
+  while (dk > KC && smem_of(dk) > optin) dk = half(dk);
   const dim3 grid((unsigned)((N + DEC_N - 1) / DEC_N), ny, (unsigned)nz);
   if ((int64_t)grid.x * grid.y * grid.z > sms)
     // 1 KB of each block's shared memory is the runtime's
-    while (dk > 64 && 2 * (smem_of(dk) + 1024) > sm_smem)
-      dk = (dk / 2 + 7) / 8 * 8;
+    while (dk > KC && 2 * (smem_of(dk) + 1024) > sm_smem) dk = half(dk);
   const int64_t smem = smem_of(dk);
-  const unsigned threads =
-      (unsigned)(dec_compute_threads((int)M) + 32 * DecRing<NL>::P(pl));
+  const unsigned threads = (unsigned)(DEC_CT + 32 * DecRing<NL>::P(pl));
   kernel<<<grid, threads, (size_t)smem, st>>>(p, dk);
   return cudaGetLastError();
 }
 
-// M <= DEC_M takes the decode tile, larger M the (TY * R) x (TX * R) tile;
-// both give every output the same bits
+// Launch one prefill-tile kernel over (M / BM) x (N / BN) blocks of NT
+// threads (x, M first) and the batch (z); its dynamic shared memory limit is
+// raised to the tile's need once per kernel.
+template <int NL, int NO, int NOUT, bool PL, bool PLA, auto kernel,
+          typename Args>
+cudaError_t launch_tile(const Args& p, int64_t M, int64_t N, int64_t nz,
+                        cudaStream_t st) {
+  using T = Tile<NL, NO, NOUT>;
+  constexpr int64_t smem = T::smem(PL, PLA);
+  static bool raised = false;
+  if (!raised) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    raised = true;
+  }
+  const dim3 grid((unsigned)(((M + T::BM - 1) / T::BM) *
+                             ((N + T::BN - 1) / T::BN)),
+                  1, (unsigned)nz);
+  kernel<<<grid, NT, (size_t)smem, st>>>(p);
+  return cudaGetLastError();
+}
+
+// M <= DEC_M takes the decode tile, larger M the prefill tile; both give
+// every output the same bits
 template <int NL, int NO, bool GEN>
 cudaError_t launch_matmul(const MatmulArgs& p, int64_t nb0, cudaStream_t st) {
   if (p.M <= DEC_M)
     return launch_decode<NL, 1, fused_matmul_decode_kernel<NL, NO, GEN>>(
         p, false, GEN ? p.n_limbs : NL, p.M, p.N, p.K, 1, nb0 * p.nb1, st);
-  constexpr int R = micro(NO, 1, GEN);
-  const dim3 grid((unsigned)((p.N + TX * R - 1) / (TX * R)),
-                  (unsigned)((p.M + TY * R - 1) / (TY * R)),
-                  (unsigned)(nb0 * p.nb1));
-  fused_matmul_kernel<NL, NO, R, R, GEN><<<grid, NT, 0, st>>>(p);
-  return cudaGetLastError();
+  return launch_tile<NL, NO, 1, false, false,
+                     fused_matmul_kernel<NL, NO, GEN>>(p, p.M, p.N,
+                                                       nb0 * p.nb1, st);
 }
 
 // the tile choice is launch_matmul's, so the two kernels tile alike
@@ -1150,11 +1555,8 @@ cudaError_t launch_prelimbed(const PrelimbedArgs& p, cudaStream_t st) {
   if (p.M <= DEC_M)
     return launch_decode<NL, 1, prelimbed_matmul_decode_kernel<NL, NO, GEN>>(
         p, true, GEN ? p.n_limbs : NL, p.M, p.N, p.K, 1, 1, st);
-  constexpr int R = micro(NO, 1, GEN);
-  const dim3 grid((unsigned)((p.N + TX * R - 1) / (TX * R)),
-                  (unsigned)((p.M + TY * R - 1) / (TY * R)), 1);
-  prelimbed_matmul_kernel<NL, NO, R, R, GEN><<<grid, NT, 0, st>>>(p);
-  return cudaGetLastError();
+  return launch_tile<NL, NO, 1, true, false,
+                     prelimbed_matmul_kernel<NL, NO, GEN>>(p, p.M, p.N, 1, st);
 }
 
 template <int NL, int NO, bool GEN>
@@ -1164,21 +1566,17 @@ cudaError_t launch_mixed_prelimbed(const MixedPrelimbedArgs& p,
     return launch_decode<NL, 1,
                          mixed_prelimbed_matmul_decode_kernel<NL, NO, GEN>>(
         p, true, GEN ? p.m.n_limbs : NL, p.m.M, p.m.N, p.m.K, 1, 1, st);
-  constexpr int R = micro(NO, 1, GEN);
-  const dim3 grid((unsigned)((p.m.N + TX * R - 1) / (TX * R)),
-                  (unsigned)((p.m.M + TY * R - 1) / (TY * R)), 1);
-  mixed_prelimbed_matmul_kernel<NL, NO, R, R, GEN><<<grid, NT, 0, st>>>(p);
-  return cudaGetLastError();
+  return launch_tile<NL, NO, 1, true, false,
+                     mixed_prelimbed_matmul_kernel<NL, NO, GEN>>(p, p.m.M,
+                                                                 p.m.N, 1, st);
 }
 
 template <int NL, int NO, bool GEN>
 cudaError_t launch_both_prelimbed(const BothPrelimbedArgs& p,
                                   cudaStream_t st) {
-  constexpr int R = micro(NO, 1, GEN);
-  const dim3 grid((unsigned)((p.N + TX * R - 1) / (TX * R)),
-                  (unsigned)((p.M + TY * R - 1) / (TY * R)), 1);
-  both_prelimbed_matmul_kernel<NL, NO, R, R, GEN><<<grid, NT, 0, st>>>(p);
-  return cudaGetLastError();
+  return launch_tile<NL, NO, 1, true, true,
+                     both_prelimbed_matmul_kernel<NL, NO, GEN>>(p, p.M, p.N, 1,
+                                                                st);
 }
 
 // At M <= DEC_M the decode tile: one block per (column block, weight)
@@ -1196,11 +1594,8 @@ cudaError_t launch_proj(const ProjArgs& p, cudaStream_t st) {
     return launch_decode<NL, 1, fused_proj_decode_kernel<NL, NO, 1, GEN>>(
         p, false, nl, p.M, p.N, p.K, NOUT, 1, st);
   }
-  constexpr int R = micro(NO, NOUT, GEN);
-  const dim3 grid((unsigned)((p.N + TX * R - 1) / (TX * R)),
-                  (unsigned)((p.M + TY * R - 1) / (TY * R)), 1);
-  fused_proj_kernel<NL, NO, NOUT, R, R, GEN><<<grid, NT, 0, st>>>(p);
-  return cudaGetLastError();
+  return launch_tile<NL, NO, NOUT, false, false,
+                     fused_proj_kernel<NL, NO, NOUT, GEN>>(p, p.M, p.N, 1, st);
 }
 
 template <int NOUT>
@@ -1223,6 +1618,10 @@ bool format_ok(int64_t n_limbs, int64_t max_order) {
 }  // namespace
 
 extern "C" {
+
+// The K of one chunk (KC): the length of every MMA chain, so the order of
+// every sum these kernels take.
+int mp_chunk_k() { return KC; }
 
 // C[z] (M, N) = A[z] (M, K) @ B[z] (K, N) at (n_limbs, max_order); strides in
 // elements; z = z0 * nb1 + z1 over nb0 * nb1 batches.  Returns the CUDA error

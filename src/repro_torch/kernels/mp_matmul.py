@@ -522,3 +522,13 @@ def mp_decompose(w: torch.Tensor, n_limbs: int) -> torch.Tensor:
 
 mp_decompose.launches = 0
 mp_decompose.plain_calls = 0
+
+
+def chunk_k() -> int:
+    """The K of one chunk of the CUDA kernels (``KC`` in
+    ``csrc/mp_matmul.cu``): each limb product is one tensor-core chain over
+    this many k, and the chains are summed by f32 adds.  Builds the library
+    (needs ``nvcc``: the machine with the card)."""
+    lib = build.load("mp_matmul")
+    lib.mp_chunk_k.restype = ctypes.c_int
+    return int(lib.mp_chunk_k())

@@ -205,7 +205,7 @@ def test_prelimbed_kernel_matches_plain_and_fused(cuda, custom_format, mode,
 # the decode tile (M <= 16 rows): a row's bits do not depend on the tile
 # =========================================================================
 BATCH_MS = (1, 2, 3, 4, 8, 16, 17)
-# (K, N, lda): K off the 16-deep edge of the 64x64 tile and off a stage, N
+# (K, N, lda): K off the 64-k chunk of both tiles and off a stage, N
 # off the decode tile's 16 columns, A's rows lda apart; the first takes
 # 16-byte copies of A and B (N a multiple of 8), the second copies B element
 # by element, the third copies A element by element (its rows 201 apart),
@@ -216,8 +216,8 @@ DECODE_KN = [(200, 88, 200), (304, 77, 304), (201, 88, 201), (201, 88, 204)]
 
 def _underflow_row(a, b):
     """Row 0 of a and column 0 of b tiny, so C[0, 0]'s products underflow
-    and its accumulators end at +0.0 or -0.0: the zero signs the 64x64
-    tile's zero-filled K edge leaves are part of the bits held."""
+    and its sums end at +0.0 or -0.0: the zero signs both tiles leave are
+    part of the bits held."""
     a[0] *= 1e-30
     b[:, 0] *= 1e-30
 
@@ -238,7 +238,7 @@ def _assert_rows_bitwise(out, full, rows, what):
 def test_fused_matmul_rows_are_batch_invariant(cuda, custom_format, mode, K,
                                                N, lda):
     """Rows of a launch at M <= 17 (the decode tile up to 16) equal, bit for
-    bit, the same rows of one launch at M = 70 (the 64x64 tile)."""
+    bit, the same rows of one launch at M = 70 (the prefill tile)."""
     a, b = _rows_of(cuda, 70, K, lda, seed=90), _randn(cuda, K, N, seed=91)
     _underflow_row(a, b)
     full = mp_matmul.mp_fused_matmul(a, b, mode)
@@ -299,7 +299,7 @@ def test_fused_proj_rows_are_batch_invariant(cuda, custom_format, mode,
                                              n_out, gate, bias, res, K, N,
                                              lda):
     """The fused projection's rows at M <= 17 (the decode tile up to 16)
-    equal the same rows of one launch at M = 70 (the 64x64 tile) bit for
+    equal the same rows of one launch at M = 70 (the prefill tile) bit for
     bit, epilogue included."""
     a = _rows_of(cuda, 70, K, lda, seed=100)
     ws = [_randn(cuda, K, N, seed=101 + t) for t in range(n_out)]
@@ -478,7 +478,7 @@ LANE_CYCLES = {"builtin": MIXED_ROWS, "generic": ["M8", CUSTOM, "M16", "M8"],
 def test_mixed_prelimbed_rows_are_batch_invariant(cuda, custom_format, cycle,
                                                   n_stored, K, N, lda):
     """The mixed kernel's rows at M <= 17 (the decode tile up to 16) equal
-    the same rows of one launch at M = 70 (the 64x64 tile) bit for bit, at
+    the same rows of one launch at M = 70 (the prefill tile) bit for bit, at
     the same envelope, with stacks below and above it."""
     fmts = [resolve(m) for m in (LANE_CYCLES[cycle] * 70)[:70]]
     env = _envelope(fmts)
@@ -668,3 +668,143 @@ def test_smoke_scheduler_auto_beside_mixed_on_the_card(cuda):
     assert got[2] == solo
     assert sched.stats()["launches_per_tick"] == 2.0
     assert sum(kernels.plain_call_counts().values()) == 0
+
+
+# =========================================================================
+# the tensor-core order: K in chunks of KC k, one MMA chain per product,
+# the chains summed by f32 adds, in both tiles alike
+# =========================================================================
+# K off the 64-k chunk, and across the decode tile's ring stages (256 k)
+CHUNK_KS = [63, 65, 130, 1000]
+# lanes of a mixed batch at or below each format (cycled over the rows)
+CHUNK_LANES = {"M8": ["M8"], "M16": ["M8", "M16"],
+               "M23": ["M8", "M16", "M23"], "M52": ["M8", "M23", "M52"]}
+
+
+def test_chunk_k_is_64(cuda):
+    """The chunk every kernel sums over: each limb product is one chain of
+    64 / 16 MMAs."""
+    assert mp_matmul.chunk_k() == 64
+
+
+@pytest.mark.parametrize("K", CHUNK_KS)
+@pytest.mark.parametrize("kind", ["fused", "prelimbed", "mixed", "proj"])
+@pytest.mark.parametrize("mode", ["M8", "M16", "M23", "M52"])
+def test_rows_are_batch_invariant_off_the_chunk(cuda, mode, kind, K):
+    """Rows at M <= 17 (the decode tile up to 16) equal the same rows of one
+    launch at M = 70 (the prefill tile) bit for bit when K is not a
+    multiple of the chunk: both tiles run the last chunk on zero-filled
+    planes, in the same MMA chains and adds."""
+    fmt = resolve(mode)
+    a = _randn(cuda, 70, K, seed=150)
+    w, w2 = _randn(cuda, K, 40, seed=151), _randn(cuda, K, 40, seed=152)
+    _underflow_row(a, w)
+    limbs = mp_matmul.mp_decompose(w, fmt.n_limbs)
+    fmts = [resolve(m) for m in (CHUNK_LANES[mode] * 70)[:70]]
+    ln, lo = _lane_vectors(cuda, fmts)
+
+    def run(rows):
+        x = a[rows]
+        if kind == "fused":
+            return mp_matmul.mp_fused_matmul(x, w, fmt)
+        if kind == "prelimbed":
+            return mp_matmul.mp_prelimbed_matmul(x, limbs, fmt)
+        if kind == "mixed":
+            return mp_matmul.mp_mixed_prelimbed_matmul(
+                x, limbs, _envelope(fmts), ln[rows], lo[rows])
+        return mp_matmul.mp_fused_proj(x, [w, w2], fmt).transpose(0, 1)
+
+    full = run(slice(0, 70))
+    for M in BATCH_MS:
+        for rows in (slice(0, M), slice(70 - M, 70)):
+            _assert_rows_bitwise(run(rows), full, rows, (M, rows))
+
+
+@pytest.mark.parametrize("mode", ["M8", "M16", "M23", "M52"])
+def test_underflowing_sum_is_plus_zero_from_both_tiles(cuda, mode):
+    """Row 0 of A against column 0 of B: every product is negative and far
+    below the smallest subnormal, so the exact sum rounds to -0.0.  Each
+    order's accumulator starts at +0.0 and takes the chunk's sum by an f32
+    add, +0.0 + -0.0 = +0.0, so both tiles return +0.0, bit for bit alike
+    at M = 70 (the prefill tile) and M <= 16 (the decode tile)."""
+    a = _randn(cuda, 70, 200, seed=153)
+    b = _randn(cuda, 200, 24, seed=154)
+    a[0] = a[0].abs() * 1e-30 + 1e-30
+    b[:, 0] = -(b[:, 0].abs() * 1e-30 + 1e-30)
+    full = mp_matmul.mp_fused_matmul(a, b, mode)
+    torch.cuda.synchronize()
+    assert full[0, 0].item() == 0.0 and not torch.signbit(full[0, 0])
+    for M in (1, 8, 16):
+        _assert_rows_bitwise(mp_matmul.mp_fused_matmul(a[:M], b, mode), full,
+                             slice(0, M), M)
+
+
+@pytest.mark.parametrize("mode", ["M8", "M16", "M23", "M36", "M52", CUSTOM])
+def test_prelimbed_both_and_proj_are_the_fused_matmul_at_prefill_shapes(
+        cuda, custom_format, mode):
+    """At the model's prefill shape (2048 x 768 x 768, the prefill tile):
+    the pre-limbed kernel on the weight's limb stack, the both-prelimbed
+    kernel on both operands' stacks and each output of the projection
+    without an epilogue are bit for bit the fused matmul."""
+    fmt = resolve(mode)
+    a = _randn(cuda, 2048, 768, seed=155)
+    ws = [_randn(cuda, 768, 768, seed=156 + t) * 0.03 for t in range(2)]
+    fused = [mp_matmul.mp_fused_matmul(a, w, fmt) for w in ws]
+    wl = mp_matmul.mp_decompose(ws[0], fmt.n_limbs)
+    pl = mp_matmul.mp_prelimbed_matmul(a, wl, fmt)
+    both = mp_matmul.mp_both_prelimbed_matmul(
+        mp_matmul.mp_decompose(a, fmt.n_limbs), wl, fmt)
+    proj = mp_matmul.mp_fused_proj(a, ws, fmt)
+    torch.cuda.synchronize()
+    for out in (pl, both, proj[0]):
+        assert torch.equal(out.view(torch.int32), fused[0].view(torch.int32))
+    assert torch.equal(proj[1].view(torch.int32), fused[1].view(torch.int32))
+
+
+@pytest.mark.parametrize("M,K,N,n_stored", [
+    (70, 768, 768, 3), (300, 1000, 200, 5), (2048, 768, 256, 3)])
+def test_mixed_lanes_are_the_homogeneous_rows_at_prefill_shapes(
+        cuda, custom_format, M, K, N, n_stored):
+    """Each row of the mixed kernel on the prefill tile (M > 16) is bit for
+    bit the pre-limbed kernel's row at its own format: the MMAs run at the
+    envelope and each row adds only its lane's terms."""
+    fmts = [resolve(m) for m in (MIXED_ROWS * M)[:M]]
+    a, w = _randn(cuda, M, K, seed=158), _randn(cuda, K, N, seed=159) * 0.05
+    limbs = mp_matmul.mp_decompose(w, n_stored)
+    ln, lo = _lane_vectors(cuda, fmts)
+    out = mp_matmul.mp_mixed_prelimbed_matmul(a, limbs, _envelope(fmts), ln,
+                                              lo)
+    for f in set(fmts):
+        rows = [i for i, x in enumerate(fmts) if x == f]
+        homo = mp_matmul.mp_prelimbed_matmul(a[rows], limbs, f)
+        torch.cuda.synchronize()
+        assert torch.equal(out[rows].view(torch.int32),
+                           homo.view(torch.int32)), f.name
+
+
+@pytest.mark.parametrize("mode", ["M8", "M16", "M23"])
+def test_subnormal_products_are_kept(cuda, mode):
+    """ROADMAP Queue 3's case on the card: B's last column is 1e-40 (an f32
+    and bf16 subnormal), A's row 0 is +-3.39e38 and A[1, 3] is inf.  The
+    kernel keeps the subnormal limbs and products, as the plain version
+    does (XLA on the CPU flushes them): that column is within the f32
+    floor of the plain version, its subnormal sums are not flushed to
+    zero, its inf and NaN fall where the plain version's do, and the decode
+    tile's rows are the prefill tile's bit for bit."""
+    a = _randn(cuda, 4, 16, seed=160)
+    a[0] = 3.39e38 * torch.sign(a[0])
+    a[1, 3] = float("inf")
+    b = _randn(cuda, 16, 5, seed=161)
+    b[:, 4] = 1e-40
+    out = mp_matmul.mp_fused_matmul(a, b, mode)[:, 4]
+    ref = mp_matmul.fused_matmul_plain(a, b, mode)[:, 4]
+    big = mp_matmul.mp_fused_matmul(
+        torch.cat([a, _randn(cuda, 66, 16, seed=162)]), b, mode)[:4, 4]
+    torch.cuda.synchronize()
+    fin = torch.isfinite(ref)
+    assert torch.equal(torch.isfinite(out), fin)
+    assert torch.equal(torch.isnan(out), torch.isnan(ref))
+    sub = fin & (ref.abs() < torch.finfo(torch.float32).tiny)
+    assert sub.any() and (out[sub] != 0).all()
+    _assert_within(out[fin], ref[fin], _floor(ref[fin], 16))
+    assert torch.equal(out.view(torch.int32), big.view(torch.int32))
