@@ -9,7 +9,8 @@ line is not printed):
 1. the card: ``nvidia-smi`` name and power limit, ``torch`` device name;
 2. the build: every CUDA source of ``src/repro_torch/kernels/csrc`` compiled
    in parallel into ``build/torch_kernels/`` (seconds, registers, spills),
-   and the chunk ``KC`` of the limb matmuls' tensor-core order;
+   the chunk ``KC`` of the limb matmuls' tensor-core order and the chunk
+   ``C`` (table columns) of the paged attention kernels;
 3. each kernel against its plain PyTorch version on the card, at the serving
    path's shapes and formats plus M23/M36 (and more) for the matmul kernels;
    the decompose kernel bitwise, the pre-limbed matmul bitwise against the
@@ -19,8 +20,12 @@ line is not printed):
    matmuls and of the fused projection bitwise against the same rows of an
    M = 70 launch (the prefill tile; the mixed kernel's extra rows at
    PAD_LANE), each row (slot) of the two mixed-lane kernels bitwise
-   against the homogeneous kernel at its own format, and each prefill case
-   within tests/test_kernels.py's error model of its float64 golden;
+   against the homogeneous kernel at its own format, each slot of the two
+   paged kernels bitwise the same slot launched alone (B = 1, the table cut
+   to its own width), paged cases at the chunk's edges, with the largest
+   logit in a slot's first, last or every column and with a table far
+   wider than the slots, and each prefill case within
+   tests/test_kernels.py's error model of its float64 golden;
 3b. ``[modes]``: the paper's six modes through ``repro_torch.mp`` (the
    quickstart's surface): every built-in format and a run-time M30 on f32
    operands at the model's prefill shapes, M36 / M52 on two-float (DD)
@@ -239,6 +244,38 @@ def device_ms(fn, torch, min_ms: float = 30.0):
     return start.elapsed_time(end) / n, ahead
 
 
+def paged_inputs(torch, randn, lengths, H, Hkv, Dh=64, bs=16, perm_seed=0,
+                 W=None, plant=()):
+    """Inputs of one paged decode launch: q (B, H, Dh), K and V pools of
+    random blocks, a (B, W) table holding each slot's distinct live blocks
+    and the trash block 0 after them, int32 lengths; W defaults to the power
+    of two at least the longest slot's columns.  ``plant`` holds (slot,
+    position, gain): K there becomes the multiple of the first query head
+    of each kv head that gives that head the logit ``gain``."""
+    import numpy as np
+
+    B = len(lengths)
+    cols = [-(-n // bs) for n in lengths]
+    if W is None:
+        W = 1 << (max(max(cols), 1) - 1).bit_length()
+    n_blocks = sum(cols) + 1 + 8
+    q = randn(B, H, Dh)
+    kp, vp = randn(n_blocks, bs, Hkv, Dh), randn(n_blocks, bs, Hkv, Dh)
+    perm = (torch.randperm(n_blocks - 1, generator=torch.Generator()
+                           .manual_seed(perm_seed)) + 1).tolist()
+    table = np.zeros((B, W), np.int32)     # trash-padded
+    for b, c in enumerate(cols):
+        table[b, :c] = [perm.pop() for _ in range(c)]
+    for b, pos, gain in plant:
+        blk = int(table[b, pos // bs])
+        for g in range(Hkv):
+            qr = q[b, g * (H // Hkv)]
+            kp[blk, pos % bs, g] = gain * qr / (qr.dot(qr) * Dh ** -0.5)
+    table = torch.from_numpy(table).to(q.device)
+    ln = torch.tensor(lengths, dtype=torch.int32, device=q.device)
+    return q, kp, vp, table, ln
+
+
 def bound(ops: float, nbytes: float, peak_ops: float = PEAK_OPS):
     t_ops, t_bytes = ops / peak_ops, nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
@@ -298,6 +335,17 @@ def main() -> int:
     report["chunk_k"] = mp_matmul.chunk_k()
     log(f"[build] limb matmuls: one mma.sync chain per product over chunks "
         f"of KC = {report['chunk_k']} k, summed by f32 adds")
+    # the paged kernels' chunk at the decode shape (Dh 64, bs 16, M16/M8 and
+    # the mixed tick's (3, 3) envelope); a slot's bits do not depend on it
+    chunk_cols = mp_attention.paged_chunk_cols(64, 16, 1, 2, 1)
+    report["paged_chunk_cols"] = chunk_cols
+    if (chunk_cols != mp_attention.PAGED_CHUNK_POS // 16
+            or mp_attention.paged_chunk_cols(64, 16, 1, 3, 3) != chunk_cols):
+        raise AssertionError(f"paged chunk of {chunk_cols} columns, not "
+                             f"{mp_attention.PAGED_CHUNK_POS // 16}")
+    log(f"[build] paged attention: chunks of C = {chunk_cols} table columns "
+        f"({chunk_cols * 16} positions at bs 16, Dh 64), no split: one block "
+        f"per (kv head, slot)")
 
     # ---- 3. kernels against their plain versions --------------------------
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -552,21 +600,27 @@ def main() -> int:
             library=(lambda ar=a.bfloat16().float(), br=w.bfloat16().float():
                      torch.matmul(ar, br)) if library else None))
 
+    def solo_bitwise(kernel, label, launch, out, table, lengths, bs):
+        """Each slot of ``out`` bitwise the same slot launched alone (B = 1,
+        the table cut to its own power-of-two width): a slot's bits may
+        depend on nothing but its own inputs."""
+        for b, n in enumerate(lengths):
+            w = 1 << (max(-(-n // bs), 1) - 1).bit_length()
+            one = launch(slice(b, b + 1), table[b:b + 1, :w])
+            torch.cuda.synchronize()
+            if not torch.equal(out[b:b + 1].view(torch.int32),
+                               one.view(torch.int32)):
+                raise AssertionError(f"{kernel} {label}: slot {b} alone is "
+                                     "not bitwise its row of the batch")
+        checks[kernel][-1]["solo_bitwise"] = True
+
     def paged_case(label, lengths, H, Hkv, qk, pv, Dh=64, bs=16, main=False,
-                   per=None):
+                   per=None, data=None, W=None, plant=()):
         B = len(lengths)
-        cols = [-(-n // bs) for n in lengths]
-        W = prim.pow2_at_least(max(max(cols), 1))
-        n_blocks = sum(cols) + 1 + 8
-        q = randn(B, H, Dh)
-        kp, vp = randn(n_blocks, bs, Hkv, Dh), randn(n_blocks, bs, Hkv, Dh)
-        perm = (torch.randperm(n_blocks - 1, generator=torch.Generator()
-                               .manual_seed(B)) + 1).tolist()
-        table = np.zeros((B, W), np.int32)     # trash-padded
-        for b, c in enumerate(cols):
-            table[b, :c] = [perm.pop() for _ in range(c)]
-        table = torch.from_numpy(table).to(dev)
-        ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
+        q, kp, vp, table, ln = paged_inputs(
+            torch, data or randn, lengths, H, Hkv, Dh, bs, perm_seed=B, W=W,
+            plant=plant)
+        W = table.shape[1]
         fq, fp = resolve(qk), resolve(pv)
         out = mp_attention.mp_paged_attention(q, kp, vp, table, ln, fq, fp)
         ref = mp_attention.paged_attention_plain(q, kp, vp, table, ln, fq, fp,
@@ -580,6 +634,10 @@ def main() -> int:
             if n == 0 and out[b].any():
                 raise AssertionError(f"mp_paged_attention {label}: a "
                                      "length-0 slot is not exact zeros")
+        solo_bitwise("mp_paged_attention", label,
+                     lambda s, t: mp_attention.mp_paged_attention(
+                         q[s], kp, vp, t, ln[s], fq, fp),
+                     out, table, lengths, bs)
         toks = sum(lengths)
         ops = 2 * H * toks * Dh * (fq.n_products + fp.n_products)
         # blocks below each slot's length only, plus q, out, table, lengths
@@ -660,23 +718,17 @@ def main() -> int:
             library=None))
 
     def mixed_paged_case(label, lengths, H, Hkv, slot_modes, Dh=64, bs=16,
-                         main=False, per=None):
-        """Slot b at the (qk, pv) formats ``slot_modes[b]``: each slot
-        bitwise the paged kernel at its formats, all slots against the plain
-        version at 2e-5, a length-0 slot exact zeros."""
+                         main=False, per=None, data=None, W=None, plant=()):
+        """Slot b at the (qk, pv) formats ``slot_modes[b]`` (cycled): each
+        slot bitwise the paged kernel at its formats and bitwise itself
+        launched alone, all slots against the plain version at 2e-5, a
+        length-0 slot exact zeros."""
         B = len(lengths)
-        cols = [-(-n // bs) for n in lengths]
-        W = prim.pow2_at_least(max(max(cols), 1))
-        n_blocks = sum(cols) + 1 + 8
-        q = randn(B, H, Dh)
-        kp, vp = randn(n_blocks, bs, Hkv, Dh), randn(n_blocks, bs, Hkv, Dh)
-        perm = (torch.randperm(n_blocks - 1, generator=torch.Generator()
-                               .manual_seed(B + 1)) + 1).tolist()
-        table = np.zeros((B, W), np.int32)     # trash-padded
-        for b, c in enumerate(cols):
-            table[b, :c] = [perm.pop() for _ in range(c)]
-        table = torch.from_numpy(table).to(dev)
-        ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
+        slot_modes = (list(slot_modes) * B)[:B]
+        q, kp, vp, table, ln = paged_inputs(
+            torch, data or randn, lengths, H, Hkv, Dh, bs, perm_seed=B + 1,
+            W=W, plant=plant)
+        W = table.shape[1]
         fq = [resolve(a) for a, _ in slot_modes]
         fp = [resolve(b) for _, b in slot_modes]
         eq, ep = envelope(fq), envelope(fp)
@@ -701,6 +753,11 @@ def main() -> int:
                 raise AssertionError(f"mp_mixed_paged_attention {label}: a "
                                      "length-0 slot is not exact zeros")
         checks["mp_mixed_paged_attention"][-1]["slots_bitwise"] = True
+        solo_bitwise("mp_mixed_paged_attention", label,
+                     lambda s, t: mp_attention.mp_mixed_paged_attention(
+                         q[s], kp, vp, t, ln[s], eq, ep,
+                         *(x[s] for x in lv)),
+                     out, table, lengths, bs)
         ops = sum(2 * H * n * Dh * (a.n_products + b.n_products)
                   for n, a, b in zip(lengths, fq, fp))
         toks = sum(lengths)
@@ -825,6 +882,28 @@ def main() -> int:
     paged_case("GQA n_rep 2, a length-0 slot, mid-block ends",
                [0, 37, 16, 1, 100], 12, 6, "M16", "M8")
     paged_case("M23/M16 lengths 5, 250", [5, 250], 4, 4, "M23", "M16")
+    # what the chunked walk changes (own generator: every other case keeps
+    # its data): lengths at the chunk's edges, the largest logit in the
+    # first column, in the last, rising in every column (m_j moves inside
+    # a chunk), and a table far wider than the slots
+    genp = torch.Generator(device=dev).manual_seed(18)
+
+    def randp(*shape):
+        return torch.randn(*shape, generator=genp, device=dev)
+
+    edge = chunk_cols * 16
+    edge_lengths = [edge - 1, edge, edge + 1, 2 * edge - 1, 2 * edge,
+                    2 * edge + 1, 1, 16]
+    max_lengths = [200, 200, 200, 2 * edge + 1]
+    plant = ([(0, 5, 8.0), (1, 197, 8.0), (3, 2 * edge, 8.0)]
+             + [(2, 16 * j + 7, 2.0 + 0.5 * j) for j in range(13)])
+    wide_lengths = [5, 16, 17, 70]
+    paged_case(f"chunk edges {edge - 1}..{2 * edge + 1}", edge_lengths, 12,
+               12, "M16", "M8", data=randp)
+    paged_case("max in the first / last column, rising", max_lengths, 12, 12,
+               "M16", "M8", data=randp, plant=plant)
+    paged_case("W 64 columns, slots of 1..5", wide_lengths, 12, 12, "M16",
+               "M8", data=randp, W=64)
 
     # the mixed-lane kernels: the mixed-traffic tick's rows (two per mode,
     # envelope M23's 3 limbs, stored at 3), then M36, PAD_LANE rows, a
@@ -856,6 +935,15 @@ def main() -> int:
         [("M16", "M8"), ("M8", "M8"), ("M23", "M16"), (custom.name, "M23"),
          ("M16", custom.name), ("M8", "M23"), ("M23", "M23"),
          ("M36", "M8")])
+
+    edge_modes = [("M16", "M8"), ("M8", "M8"), ("M23", "M16"),
+                  (custom.name, "M23")]
+    mixed_paged_case(f"chunk edges {edge - 1}..{2 * edge + 1} mixed",
+                     edge_lengths, 12, 12, edge_modes, data=randp)
+    mixed_paged_case("max in the first / last column, rising, mixed",
+                     max_lengths, 12, 12, edge_modes, data=randp, plant=plant)
+    mixed_paged_case("W 64 columns, slots of 1..5, mixed", wide_lengths, 12,
+                     12, edge_modes, data=randp, W=64)
 
     # ---- 3b. [modes]: the paper's six modes through repro_torch.mp --------
     # the quickstart's surface at the model's prefill shapes: f32 operands at

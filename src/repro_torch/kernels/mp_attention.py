@@ -27,6 +27,7 @@ from repro_torch.kernels.mp_matmul import _cuda_stream, _f32, _on_cpu
 BLOCK_Q = 32    # csrc BQ
 BLOCK_KV = 32   # csrc BKV: the online-softmax granularity both versions use
 MAX_HEAD_DIM = 128
+PAGED_CHUNK_POS = 128  # csrc CHUNK_POS: the paged kernels' chunk, in positions
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int64
@@ -116,6 +117,23 @@ mp_flash_attention.plain_calls = 0
 # ---------------------------------------------------------------------------
 # paged decode attention (port of the Pallas ``_paged_kernel``)
 # ---------------------------------------------------------------------------
+def _dot_nt_in_order(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(..., M, D) x (..., T, D) -> (..., M, T) bf16-valued limbs, each
+    entry one f32 sum of its D products in order from +0.0: the paged
+    kernels' QK chains.  A product of two bf16 values is exact in f32, so
+    multiply-then-add gives an FMA chain's bits.  The paged plain versions
+    take their logits this way because P is limbed against the running max:
+    a logit one f32 unit off (another order of the same sum) can move a
+    probability across a bf16 rounding boundary at M8, and the output by
+    more than the kernels' tolerance against these versions."""
+    a, b = a.float(), b.float()
+    acc = torch.zeros(torch.broadcast_shapes(a.shape[:-2], b.shape[:-2])
+                      + (a.shape[-2], b.shape[-2]), device=a.device)
+    for e in range(a.shape[-1]):
+        acc = acc + a[..., :, e:e + 1] * b[..., None, :, e]
+    return acc
+
+
 def paged_attention_plain(q: torch.Tensor, k_pool: torch.Tensor,
                           v_pool: torch.Tensor, block_table: torch.Tensor,
                           lengths: torch.Tensor, fmt_qk, fmt_pv, *,
@@ -123,12 +141,14 @@ def paged_attention_plain(q: torch.Tensor, k_pool: torch.Tensor,
     """Plain version of :func:`mp_paged_attention`: the JAX kernel's steps
     in PyTorch.  Table column j folds pool block ``table[b, j]`` into each
     slot's running (max, denominator, accumulator) through
-    ``ref.attn_qk_logits`` / ``ref.online_softmax_update``, for the slots
+    ``ref.attn_qk_logits`` (in the kernels' order,
+    :func:`_dot_nt_in_order`) / ``ref.online_softmax_update``, for the slots
     with ``j * bs < length`` (the others keep their state, as the kernel
     skips the column)."""
     return _paged_steps(
         q, k_pool, v_pool, block_table, lengths, scale,
-        lambda qh, kb: ref.attn_qk_logits(qh, kb, fmt_qk),
+        lambda qh, kb: ref.attn_qk_logits(qh, kb, fmt_qk,
+                                          dot=_dot_nt_in_order),
         lambda m, d, acc, logits, vb, valid: ref.online_softmax_update(
             m, d, acc, logits, vb, fmt_pv, p_mask=valid))
 
@@ -158,7 +178,8 @@ def mixed_paged_attention_plain(q: torch.Tensor, k_pool: torch.Tensor,
     pn, po = slot_lanes(lane_pv_n), slot_lanes(lane_pv_ord)
     return _paged_steps(
         q, k_pool, v_pool, block_table, lengths, scale,
-        lambda qh, kb: ref.masked_attn_qk_logits(qh, kb, env_qk, qn, qo),
+        lambda qh, kb: ref.masked_attn_qk_logits(qh, kb, env_qk, qn, qo,
+                                                 dot=_dot_nt_in_order),
         lambda m, d, acc, logits, vb, valid:
             ref.masked_online_softmax_update(m, d, acc, logits, vb, env_pv,
                                              pn, po, p_mask=valid))
@@ -166,8 +187,10 @@ def mixed_paged_attention_plain(q: torch.Tensor, k_pool: torch.Tensor,
 
 def _paged_steps(q, k_pool, v_pool, block_table, lengths, scale, qk,
                  update) -> torch.Tensor:
-    """The column walk the paged plain versions share: ``qk`` gives a
-    block's logits, ``update`` folds them into the running softmax."""
+    """The column walk the paged plain versions share: ``qk`` gives the
+    logits of every walked block at once (each logit is its own sum, so
+    this is the per-block logits side by side), ``update`` folds one
+    block's into the running softmax."""
     B, H, Dh = q.shape
     _, bs, hk, _ = k_pool.shape
     n_rep = H // hk
@@ -182,13 +205,16 @@ def _paged_steps(q, k_pool, v_pool, block_table, lengths, scale, qk,
     table = block_table.long()
     n_cols = min(W, -(-int(lengths.max()) // bs)) if B else 0
     neg = torch.full((), ref.ATTN_NEG_INF, device=dev)
+    k_all = k_pool[table[:, :n_cols]].float()   # (B, n_cols, bs, hk, Dh)
+    k_all = k_all.permute(0, 3, 1, 2, 4).reshape(B, hk, n_cols * bs, Dh)
+    logits_all = qk(qh, k_all) if n_cols else None
     for j in range(n_cols):
         blk = table[:, j]
-        kb = k_pool[blk].float().permute(0, 2, 1, 3)       # (B, hk, bs, Dh)
-        vb = v_pool[blk].float().permute(0, 2, 1, 3)
+        vb = v_pool[blk].float().permute(0, 2, 1, 3)       # (B, hk, bs, Dh)
         pos = j * bs + torch.arange(bs, device=dev)
         valid = (pos[None, :] < lengths[:, None])[:, None, None, :]
-        logits = torch.where(valid, qk(qh, kb), neg)
+        logits = torch.where(valid, logits_all[..., j * bs:(j + 1) * bs],
+                             neg)
         m_new, d_new, acc_new = update(m, d, acc, logits, vb, valid)
         live = (j * bs < lengths)[:, None, None]
         m = torch.where(live, m_new, m)
@@ -316,3 +342,17 @@ def mp_mixed_paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
 
 mp_mixed_paged_attention.launches = 0
 mp_mixed_paged_attention.plain_calls = 0
+
+
+def paged_chunk_cols(head_dim: int, block_size: int, n_rep: int = 1,
+                     nl_qk: int = 2, nl_pv: int = 1) -> int:
+    """The table columns one chunk of the paged kernels takes at these
+    shapes and (envelope) limb depths, as the built library plans it
+    (``PAGED_CHUNK_POS // block_size`` unless shared memory is short; 0
+    where not one column fits).  A slot's bits do not depend on it.  Needs
+    the library (the card's machine)."""
+    lib = build.load("mp_attention")
+    lib.mp_paged_chunk_cols.argtypes = [_I] * 5
+    lib.mp_paged_chunk_cols.restype = ctypes.c_int
+    return int(lib.mp_paged_chunk_cols(head_dim, block_size, n_rep, nl_qk,
+                                       nl_pv))

@@ -228,14 +228,15 @@ def _dot_nt(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.matmul(a.float(), b.float().transpose(-1, -2))
 
 
-def attn_qk_logits(q: torch.Tensor, k: torch.Tensor, mode: FormatLike
-                   ) -> torch.Tensor:
+def attn_qk_logits(q: torch.Tensor, k: torch.Tensor, mode: FormatLike,
+                   dot=_dot_nt) -> torch.Tensor:
     """Logits for one block pair at the QK format: q (..., M, D) f32
     (pre-scaled), k (..., T, D) f32 -> (..., M, T) f32, through
-    :func:`_matmul_limbs`' discipline."""
+    :func:`_matmul_limbs`' discipline (``dot``: one limb pair's product in
+    the untransposed QK form)."""
     s = resolve(mode)
     return _matmul_limbs(limbs_lib.decompose(q, s.n_limbs),
-                         limbs_lib.decompose(k, s.n_limbs), s, dot=_dot_nt)
+                         limbs_lib.decompose(k, s.n_limbs), s, dot=dot)
 
 
 def attn_pv(p: torch.Tensor, v: torch.Tensor, mode: FormatLike
@@ -270,12 +271,12 @@ def online_softmax_update(m, d, acc, logits, v, mode_pv, *, p_mask=None):
 
 
 def masked_attn_qk_logits(q: torch.Tensor, k: torch.Tensor, env, lane_n,
-                          lane_ord) -> torch.Tensor:
+                          lane_ord, dot=_dot_nt) -> torch.Tensor:
     """Per-lane :func:`attn_qk_logits`: the same untransposed contraction
     through the masked cascade (the mixed paged kernel's plain version)."""
     return masked_matmul_limbs(limbs_lib.decompose(q, env.n_limbs),
                                limbs_lib.decompose(k, env.n_limbs), env,
-                               lane_n, lane_ord, dot=_dot_nt)
+                               lane_n, lane_ord, dot=dot)
 
 
 def masked_attn_pv(p: torch.Tensor, v: torch.Tensor, env, lane_n,

@@ -541,6 +541,140 @@ def test_mixed_paged_slots_are_the_homogeneous_kernel(cuda, custom_format,
             assert not out[b].any()
 
 
+# =========================================================================
+# the paged kernels' chunked walk (chunks of PAGED_CHUNK_POS positions)
+# =========================================================================
+EDGE = mp_attention.PAGED_CHUNK_POS
+# 8 slots each: lengths at the chunk's edges; length-0 slots; the largest
+# logit in the first column, in the last (a one-position column at a chunk
+# edge) and rising in every column (m_j moves inside a chunk); GQA
+PAGED_LAYOUTS = {
+    "chunk-edges": dict(lengths=(EDGE - 1, EDGE, EDGE + 1, 2 * EDGE - 1,
+                                 2 * EDGE, 2 * EDGE + 1, 1, 16), hkv=12),
+    "length-0": dict(lengths=(0, 37, 0, 300, 16, 0, 1, 0), hkv=12),
+    "max-first-last-rising": dict(
+        lengths=(200, 200, 200, 2 * EDGE + 1, 200, 200, 200, 2 * EDGE + 1),
+        hkv=12,
+        plant=[(0, 5, 8.0), (1, 197, 8.0), (3, 2 * EDGE, 8.0), (4, 2, 8.0),
+               (5, 199, 8.0), (7, 2 * EDGE, 8.0)]
+        + [(b, 16 * j + 7, 2.0 + 0.5 * j) for b in (2, 6)
+           for j in range(13)]),
+    "gqa": dict(lengths=(17, EDGE, EDGE + 1, 250, 0, 3, 2 * EDGE, 100),
+                hkv=6),
+    "w-padding": dict(lengths=(5, 16, 17, 70, 1, 64, 33, 80), hkv=12,
+                      width=64),
+}
+PAGED_MIXED_SLOTS = [("M16", "M8"), ("M8", "M8"), ("M23", "M16"),
+                     (CUSTOM, "M23"), ("M36", "M8"), ("M8", CUSTOM),
+                     ("M16", "M16"), ("M23", "M23")]
+
+
+def _paged_layout(cuda, layout, seed):
+    """An 8-slot paged launch's inputs at bs 16, Dh 64, H 12: a table of
+    distinct live blocks (trash block 0 after them) of ``width`` columns
+    (default the power of two at least the longest slot's); each planted
+    (slot, position, gain) gives the first query head of every kv head the
+    logit ``gain`` there."""
+    lengths, hkv = layout["lengths"], layout["hkv"]
+    B, H, Dh, bs = len(lengths), 12, 64, 16
+    cols = [-(-n // bs) for n in lengths]
+    W = layout.get("width") or 1 << (max(max(cols), 1) - 1).bit_length()
+    n_blocks = sum(cols) + 9
+    q = _randn(cuda, B, H, Dh, seed=seed)
+    kp = _randn(cuda, n_blocks, bs, hkv, Dh, seed=seed + 1)
+    vp = _randn(cuda, n_blocks, bs, hkv, Dh, seed=seed + 2)
+    free = (torch.randperm(n_blocks - 1,
+                           generator=torch.Generator().manual_seed(seed))
+            + 1).tolist()
+    table = torch.zeros((B, W), dtype=torch.int32)
+    for b, c in enumerate(cols):
+        table[b, :c] = torch.tensor([free.pop() for _ in range(c)])
+    for b, pos, gain in layout.get("plant", ()):
+        for g in range(hkv):
+            qr = q[b, g * (H // hkv)]
+            kp[int(table[b, pos // bs]), pos % bs, g] = \
+                gain * qr / (qr.dot(qr) * Dh ** -0.5)
+    ln = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    return q, kp, vp, table.to(cuda), ln
+
+
+def _assert_slots_batch_invariant(launch, out, table, lengths):
+    """Slots launched 1, 2, 4 at a time (each group's table cut to its own
+    power-of-two width) are bitwise their rows of the 8-slot launch."""
+    for nb in (1, 2, 4):
+        for b0 in range(0, len(lengths), nb):
+            group = slice(b0, b0 + nb)
+            cols = max(max(-(-n // 16) for n in lengths[group]), 1)
+            w = 1 << (cols - 1).bit_length()
+            part = launch(group, table[group, :w])
+            torch.cuda.synchronize()
+            assert torch.equal(part.view(torch.int32),
+                               out[group].view(torch.int32)), (nb, b0)
+
+
+def test_paged_chunk_is_128_positions(cuda):
+    """The chunk the library plans at the decode shape, and under the
+    mixed tick's (3, 3) envelope: PAGED_CHUNK_POS // bs columns."""
+    assert mp_attention.paged_chunk_cols(64, 16, 1, 2, 1) == EDGE // 16
+    assert mp_attention.paged_chunk_cols(64, 16, 1, 3, 3) == EDGE // 16
+    assert mp_attention.paged_chunk_cols(64, 8) == EDGE // 8
+
+
+@pytest.mark.parametrize("fmts", [("M16", "M8"), ("M23", "M16")])
+@pytest.mark.parametrize("layout", sorted(PAGED_LAYOUTS))
+def test_paged_slots_are_batch_invariant(cuda, layout, fmts):
+    """The paged kernel at 8 slots against its plain version at 2e-5, a
+    length-0 slot exact zeros, and every slot bitwise the same slot in
+    launches of 1, 2 and 4 slots with their own table widths."""
+    fq, fp = (resolve(m) for m in fmts)
+    q, kp, vp, table, ln = _paged_layout(cuda, PAGED_LAYOUTS[layout], 91)
+    lengths = PAGED_LAYOUTS[layout]["lengths"]
+    out = mp_attention.mp_paged_attention(q, kp, vp, table, ln, fq, fp)
+    ref = mp_attention.paged_attention_plain(q, kp, vp, table, ln, fq, fp,
+                                             scale=0.125)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ref, rtol=2e-5, atol=2e-5)
+    for b, n in enumerate(lengths):
+        if n == 0:
+            assert not out[b].any()
+    _assert_slots_batch_invariant(
+        lambda s, t: mp_attention.mp_paged_attention(q[s], kp, vp, t, ln[s],
+                                                     fq, fp),
+        out, table, lengths)
+
+
+@pytest.mark.parametrize("layout", sorted(PAGED_LAYOUTS))
+def test_mixed_paged_slots_are_homogeneous_and_batch_invariant(
+        cuda, custom_format, layout):
+    """The mixed paged kernel on the same layouts: each slot bitwise the
+    paged kernel at its formats, bitwise itself in smaller launches, all
+    slots against the plain version at 2e-5."""
+    q, kp, vp, table, ln = _paged_layout(cuda, PAGED_LAYOUTS[layout], 92)
+    lengths = PAGED_LAYOUTS[layout]["lengths"]
+    fq = [resolve(a) for a, _ in PAGED_MIXED_SLOTS]
+    fp = [resolve(b) for _, b in PAGED_MIXED_SLOTS]
+    eq, ep = _envelope(fq), _envelope(fp)
+    lanes = (*_lane_vectors(cuda, fq), *_lane_vectors(cuda, fp))
+    out = mp_attention.mp_mixed_paged_attention(q, kp, vp, table, ln, eq,
+                                                ep, *lanes)
+    ref = mp_attention.mixed_paged_attention_plain(
+        q, kp, vp, table, ln, eq, ep, *lanes, scale=0.125)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ref, rtol=2e-5, atol=2e-5)
+    for b, n in enumerate(lengths):
+        homo = mp_attention.mp_paged_attention(q, kp, vp, table, ln, fq[b],
+                                               fp[b])
+        torch.cuda.synchronize()
+        assert torch.equal(out[b].view(torch.int32),
+                           homo[b].view(torch.int32)), b
+        if n == 0:
+            assert not out[b].any()
+    _assert_slots_batch_invariant(
+        lambda s, t: mp_attention.mp_mixed_paged_attention(
+            q[s], kp, vp, t, ln[s], eq, ep, *(x[s] for x in lanes)),
+        out, table, lengths)
+
+
 def test_smoke_scheduler_mixed_modes_on_the_card(cuda, custom_format):
     """Four modes decoding together on the card: one launch per tick, the
     mixed-lane kernels only on the mixed ticks, each stream equal to its

@@ -26,35 +26,60 @@ from torch_parity import assert_attention_close
 N_BLOCKS, BS, W, DH = 16, 4, 4, 16
 
 
-def _paged_inputs(seed, lengths, H=4, Hkv=4):
+def _paged_inputs(seed, lengths, H=4, Hkv=4, bs=BS, n_blocks=N_BLOCKS, w=W,
+                  plant=()):
     """q (B, H, Dh), pools (n_blocks, bs, Hkv, Dh), a trash-padded table of
-    distinct live blocks (ceil(length / bs) per slot) and int32 lengths."""
+    distinct live blocks (ceil(length / bs) per slot) and int32 lengths.
+    Each planted (slot, position, gain) sets K there to the multiple of the
+    first query head of each kv head that gives that head the logit
+    ``gain``."""
     rng = np.random.default_rng(seed)
     B = len(lengths)
     q = rng.standard_normal((B, H, DH)).astype(np.float32)
-    kp = rng.standard_normal((N_BLOCKS, BS, Hkv, DH)).astype(np.float32)
-    vp = rng.standard_normal((N_BLOCKS, BS, Hkv, DH)).astype(np.float32)
-    free = list(rng.permutation(np.arange(1, N_BLOCKS)))
-    table = np.full((B, W), TRASH_BLOCK, np.int32)
+    kp = rng.standard_normal((n_blocks, bs, Hkv, DH)).astype(np.float32)
+    vp = rng.standard_normal((n_blocks, bs, Hkv, DH)).astype(np.float32)
+    free = list(rng.permutation(np.arange(1, n_blocks)))
+    table = np.full((B, w), TRASH_BLOCK, np.int32)
     for b, n in enumerate(lengths):
-        for j in range(-(-n // BS)):
+        for j in range(-(-n // bs)):
             table[b, j] = free.pop()
+    for b, pos, gain in plant:
+        for g in range(Hkv):
+            qr = q[b, g * (H // Hkv)]
+            kp[table[b, pos // bs], pos % bs, g] = \
+                gain * qr / (qr @ qr * DH ** -0.5)
     return q, kp, vp, table, np.asarray(lengths, np.int32)
 
 
 CASES = {
-    f"{qk}/{pv}-Hkv{hkv}-len{'_'.join(map(str, ln))}": (qk, pv, hkv, ln)
+    f"{qk}/{pv}-Hkv{hkv}-len{'_'.join(map(str, ln))}": (qk, pv, hkv, ln, {})
     for qk, pv in (("M16", "M8"), ("M23", "M16"))
     for hkv in (4, 2)
     for ln in ((0, 3, 13), (4, 13, 3))
 }
+# the inputs the card's paged cases stress (tests/test_torch_gpu.py), at
+# the kernels' 128-position chunk and bs 16: lengths at the chunk's edges,
+# and the largest logit in the first column, in the last and rising in
+# every column, so the running max moves inside a chunk
+EDGE = pattn.PAGED_CHUNK_POS
+CARD = dict(bs=16, n_blocks=48, w=32)
+CASES.update({
+    f"{qk}/{pv}-Hkv{hkv}-{name}": (qk, pv, hkv, ln, dict(CARD, plant=plant))
+    for qk, pv in (("M16", "M8"), ("M23", "M16"))
+    for hkv in (4, 2)
+    for name, ln, plant in (
+        ("chunk-edges", (EDGE - 1, EDGE, EDGE + 1, 2 * EDGE + 1), ()),
+        ("max-first-last-rising", (70, 70, 70, 2 * EDGE + 1),
+         [(0, 5, 8.0), (1, 67, 8.0), (3, 2 * EDGE, 8.0)]
+         + [(2, 16 * j + 7, 2.0 + j) for j in range(5)]))
+})
 
 
 @pytest.mark.parametrize("case", CASES.values(), ids=CASES.keys())
 def test_paged_plain_matches_jax_kernel(case):
-    qk, pv, hkv, lengths = case
+    qk, pv, hkv, lengths, extra = case
     q, kp, vp, table, ln = _paged_inputs(sum(lengths) + hkv, lengths,
-                                         Hkv=hkv)
+                                         Hkv=hkv, **extra)
     j = jattn.mp_paged_attention_pallas(
         jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp), jnp.asarray(table),
         jnp.asarray(ln), qk, pv, interpret=True)
@@ -67,6 +92,23 @@ def test_paged_plain_matches_jax_kernel(case):
     for b, n in enumerate(lengths):
         if n == 0:  # an empty slot flushes exact zeros on both sides
             assert not p[b].any() and not np.asarray(j)[b].any()
+
+
+@pytest.mark.parametrize("dh", [16, 64])
+def test_paged_plain_logits_sum_in_order(dh):
+    """The paged plain versions' QK dot is the kernels' chain: per entry one
+    f32 sum of the exact bf16 products in dim order from +0.0, held bitwise
+    against numpy's float32 arithmetic term by term."""
+    rng = np.random.default_rng(dh)
+    a = rng.standard_normal((3, 2, dh)).astype(np.float32)
+    b = rng.standard_normal((3, 5, dh)).astype(np.float32)
+    a = torch.from_numpy(a).bfloat16().float()
+    b = torch.from_numpy(b).bfloat16().float()
+    got = pattn._dot_nt_in_order(a, b).numpy()
+    want = np.zeros((3, 2, 5), np.float32)
+    for e in range(dh):
+        want = want + a[..., :, None, e].numpy() * b[..., None, :, e].numpy()
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
 
 
 @pytest.mark.parametrize("hkv", [4, 2])
