@@ -9,8 +9,9 @@ line is not printed):
 1. the card: ``nvidia-smi`` name and power limit, ``torch`` device name;
 2. the build: every CUDA source of ``src/repro_torch/kernels/csrc`` compiled
    in parallel into ``build/torch_kernels/`` (seconds, registers, spills),
-   the chunk ``KC`` of the limb matmuls' tensor-core order and the chunk
-   ``C`` (table columns) of the paged attention kernels;
+   the chunk ``KC`` of the limb matmuls' tensor-core order, the chunk ``C``
+   (table columns) of the paged attention kernels and flash attention's
+   query rows per block at the serving shapes;
 3. each kernel against its plain PyTorch version on the card, at the serving
    path's shapes and formats plus M23/M36 (and more) for the matmul kernels;
    the decompose kernel bitwise, the pre-limbed matmul bitwise against the
@@ -24,7 +25,9 @@ line is not printed):
    paged kernels bitwise the same slot launched alone (B = 1, the table cut
    to its own width), paged cases at the chunk's edges, with the largest
    logit in a slot's first, last or every column and with a table far
-   wider than the slots, and each prefill case within
+   wider than the slots, each head of each flash case bitwise the same
+   head launched alone (B = H = 1), a flash case with rows' largest logits
+   in the last column of a kv tile, and each prefill case within
    tests/test_kernels.py's error model of its float64 golden;
 3b. ``[modes]``: the paper's six modes through ``repro_torch.mp`` (the
    quickstart's surface): every built-in format and a run-time M30 on f32
@@ -143,6 +146,25 @@ PER_MIXED = {"mp_mixed_prelimbed_matmul": 12 * 7 + 1,
 # and a custom format that keeps all four 2-limb products (M16 keeps three)
 CUSTOM = dict(name="M16FULL", mantissa_bits=16, n_limbs=2, max_order=2)
 MODES = ("M8", "M16", "M23", CUSTOM["name"])
+# flash attention's cases: (label, B, S, T, H, Dh, qk, pv, causal, q_offset,
+# plant); the first is the main path's prefill, the fifth the scheduler's
+# B = 1 prefill (the longest prompt); ``plant`` holds (row, position, gain)
+# for every (b, h) (:func:`flash_inputs`), here the largest logit of a row
+# in the last column of each of the first three kv tiles
+FLASH_CASES = (
+    ("prefill (8,256,12,64) causal", 8, 256, 256, 12, 64, "M16", "M8", True,
+     0, ()),
+    ("(2,37,4,64) q_offset 63 causal", 2, 37, 100, 4, 64, "M23", "M16", True,
+     63, ()),
+    ("(2,100,4,64) bidirectional", 2, 100, 100, 4, 64, "M8", "M8", False, 0,
+     ()),
+    ("(1,70,2,64) causal M36/M52", 1, 70, 70, 2, 64, "M36", "M52", True, 0,
+     ()),
+    ("scheduler prefill (1,256,12,64) causal", 1, 256, 256, 12, 64, "M16",
+     "M8", True, 0, ()),
+    ("(2,96,4,64) max in a tile's last column", 2, 96, 96, 4, 64, "M16",
+     "M8", True, 0, ((31, 31, 8.0), (70, 63, 8.0), (95, 95, 8.0))),
+)
 # AUTO (paper mode 1): per layer the three QKV branches, wo, gate, up,
 # w_down and the two attention contractions analyze their operands (one
 # host read each) and launch the fused kernel; lm_head stays M23 (fused)
@@ -276,6 +298,19 @@ def paged_inputs(torch, randn, lengths, H, Hkv, Dh=64, bs=16, perm_seed=0,
     return q, kp, vp, table, ln
 
 
+def flash_inputs(torch, randn, B, S, T, H, Dh, plant=()):
+    """q (B, S, H, Dh), k and v (B, T, H, Dh) of one flash case; for each
+    (row, position, gain) of ``plant``, K at the position becomes the
+    multiple of each head's query row that gives it the logit ``gain``
+    (scale Dh^-1/2)."""
+    q, k, v = randn(B, S, H, Dh), randn(B, T, H, Dh), randn(B, T, H, Dh)
+    for s, t, gain in plant:
+        qr = q[:, s]                                     # (B, H, Dh)
+        k[:, t] = gain * qr / ((qr * qr).sum(-1, keepdim=True)
+                               * Dh ** -0.5)
+    return q, k, v
+
+
 def bound(ops: float, nbytes: float, peak_ops: float = PEAK_OPS):
     t_ops, t_bytes = ops / peak_ops, nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
@@ -346,6 +381,21 @@ def main() -> int:
     log(f"[build] paged attention: chunks of C = {chunk_cols} table columns "
         f"({chunk_cols * 16} positions at bs 16, Dh 64), no split: one block "
         f"per (kv head, slot)")
+    # flash attention's query rows per block: the largest of 64, 32, 16
+    # whose grid B * H * ceil(S / rows) reaches the SM count
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    flash_bq = {f"B{b} S{s} H12": mp_attention.flash_block_q(
+        b, s, 12, 64, "M16", "M8") for b, s in ((8, 256), (1, 256), (1, 64))}
+    report["flash_block_q"] = {k: v[0] for k, v in flash_bq.items()}
+    if not all(sp for _, sp in flash_bq.values()):
+        raise AssertionError("flash M16/M8 at Dh 64 is not the compile-time "
+                             "instantiation")
+    log(f"[build] flash attention: BQ = the largest of 64, 32, 16 query rows "
+        f"with B * H * ceil(S / BQ) >= {n_sm} SMs (else 16); 128 threads: a "
+        f"warp per 16 rows, the others copy and limb; kv tiles of 32: M16/M8 "
+        f"Dh 64 "
+        + ", ".join(f"{k} -> BQ {v}" for k, v in
+                    report["flash_block_q"].items()))
 
     # ---- 3. kernels against their plain versions --------------------------
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -517,8 +567,8 @@ def main() -> int:
             if library else None))
 
     def flash_case(label, B, S, T, H, Dh, qk, pv, causal, q_offset=0,
-                   main=False, per=None):
-        q, k, v = randn(B, S, H, Dh), randn(B, T, H, Dh), randn(B, T, H, Dh)
+                   plant=(), main=False, per=None, data=None):
+        q, k, v = flash_inputs(torch, data or randn, B, S, T, H, Dh, plant)
         fq, fp = resolve(qk), resolve(pv)
         out = mp_attention.mp_flash_attention(q, k, v, fq, fp, causal=causal,
                                               q_offset=q_offset)
@@ -530,6 +580,23 @@ def main() -> int:
         # same-blocking tolerance): only f32 summation order differs
         hold("mp_flash_attention", label, out, ref,
              2e-5 + 2e-5 * ref.abs(), {"fmt": f"{qk}/{pv}"})
+        # each (b, h) bitwise the same head launched alone (B = H = 1, so
+        # the smallest block of query rows)
+        for b in range(B):
+            for h in range(H):
+                one = mp_attention.mp_flash_attention(
+                    q[b:b + 1, :, h:h + 1], k[b:b + 1, :, h:h + 1],
+                    v[b:b + 1, :, h:h + 1], fq, fp, causal=causal,
+                    q_offset=q_offset)
+                torch.cuda.synchronize()
+                if not torch.equal(out[b:b + 1, :, h:h + 1].view(torch.int32),
+                                   one.view(torch.int32)):
+                    raise AssertionError(f"mp_flash_attention {label}: head "
+                                         f"({b}, {h}) alone is not bitwise "
+                                         "its part of the batch")
+        checks["mp_flash_attention"][-1]["solo_bitwise"] = True
+        log(f"[check] mp_flash_attention {label}: each of {B * H} heads == "
+            "the head launched alone, bitwise")
         qpos = q_offset + np.arange(S)
         pairs = (np.minimum(qpos + 1, T).sum() if causal else S * T)
         ops = 2 * B * H * int(pairs) * Dh * (fq.n_products + fp.n_products)
@@ -830,14 +897,19 @@ def main() -> int:
     proj_case("1 out+bias+res 300x768 M23", x[:300], wq[:1], "M23",
               biases=[randn(d)], residual=randn(300, d))
 
-    flash_case("prefill (8,256,12,64) causal", 8, 256, 256, 12, 64, "M16",
-               "M8", True, main=True, per=("prefill", L))
-    flash_case("(2,37,4,64) q_offset 63 causal", 2, 37, 100, 4, 64, "M23",
-               "M16", True, q_offset=63)
-    flash_case("(2,100,4,64) bidirectional", 2, 100, 100, 4, 64, "M8", "M8",
-               False)
-    flash_case("(1,70,2,64) causal M36/M52", 1, 70, 70, 2, 64, "M36", "M52",
-               True)
+    # the cases after the first four draw from their own generator: every
+    # other case keeps its data
+    genf = torch.Generator(device=dev).manual_seed(19)
+
+    def randf(*shape):
+        return torch.randn(*shape, generator=genf, device=dev)
+
+    for i, (label, *shape, qk, pv, causal, q_off, plant) in enumerate(
+            FLASH_CASES):
+        flash_case(label, *shape, qk, pv, causal, q_offset=q_off,
+                   plant=plant, main=i == 0,
+                   per=("prefill", L) if i == 0 else None,
+                   data=randn if i < 4 else randf)
 
     # the scheduler slice's kernels at the decode path's shapes: serve_default
     # pre-limbs at 2 limbs (lm_head M16), so M8 matmuls run with one extra

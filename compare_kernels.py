@@ -12,18 +12,20 @@ compiled with the tree's flags, all at once, into
 ``build/compare_kernels/``; every case of the source runs on each library
 through the port's launch marshalling, timed with ``chip_smoke.py``'s ``ms``
 timer (calls queued behind a sleep kernel), and each other version's output
-is compared with this tree's bit for bit.  A version whose order of sums
-differs is reported, not rejected: the tool serves to time a redesign (the
-parent's source, or a copy with one part removed) and to check that a new
-instruction keeps the order's bits.  Each version's ``[ptxas]`` lines show
-its registers and spills.  Needs the card and ``nvcc``; imports nothing of
-JAX.
+is compared with this tree's bit for bit; the SM clock and power draw are
+sampled while each case of this tree runs back to back.  A version
+whose order of sums differs is reported, not rejected: the tool serves to
+time a redesign (the parent's source, or a copy with one part removed) and
+to check that a new instruction keeps the order's bits.  Each version's
+``[ptxas]`` lines show its registers and spills.  Needs the card and
+``nvcc``; imports nothing of JAX.
 """
 from __future__ import annotations
 
 import ctypes
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -69,10 +71,10 @@ def matmul_cases(torch, randn):
 
 def attention_cases(torch, randn):
     """chip_smoke.py's paged decode cases (the scheduler's and the mixed
-    tick's main case, chunk edges, GQA) and its flash prefill case."""
+    tick's main case, chunk edges, GQA) and every one of its flash cases."""
     import numpy as np
 
-    from chip_smoke import CUSTOM, paged_inputs
+    from chip_smoke import CUSTOM, FLASH_CASES, flash_inputs, paged_inputs
     from repro_torch.core import lanes
     from repro_torch.core.formats import register_format, resolve
     from repro_torch.kernels import mp_attention as ma
@@ -111,12 +113,41 @@ def attention_cases(torch, randn):
     mixed("decode 8 slots H12 lengths 64..288 two per mode", decode,
           ["M8", "M8", "M16", "M16", "M23", "M23", CUSTOM["name"],
            CUSTOM["name"]])
-    qf, kf, vf = (randn(8, 256, 12, 64) for _ in range(3))
-    cases["flash prefill (8,256,12,64) causal M16/M8"] = lambda lib, st: (
-        ma.launch_flash_attention(lib, st, qf, kf, vf, resolve("M16"),
-                                  resolve("M8"), causal=True, scale=0.125,
-                                  q_offset=0))
+    for label, B, S, T, H, Dh, qk, pv, causal, q_off, plant in FLASH_CASES:
+        qf, kf, vf = flash_inputs(torch, randn, B, S, T, H, Dh, plant)
+        cases[f"flash {label} {qk}/{pv}"] = (
+            lambda lib, st, qf=qf, kf=kf, vf=vf, fq=resolve(qk),
+            fp=resolve(pv), c=causal, o=q_off, sc=Dh ** -0.5:
+            ma.launch_flash_attention(lib, st, qf, kf, vf, fq, fp, causal=c,
+                                      scale=sc, q_offset=o))
     return cases
+
+
+def clocks_while(fn, torch, seconds: float = 1.0) -> str:
+    """The card's SM clock (MHz) and power draw (W), sampled by
+    ``nvidia-smi`` every 100 ms while ``fn`` runs back to back for about
+    ``seconds``: the median of each."""
+    import statistics
+
+    smi = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+         "--format=csv,noheader,nounits", "-lms", "100"],
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    try:
+        t_end = time.perf_counter() + seconds
+        while time.perf_counter() < t_end:
+            for _ in range(20):
+                fn()
+            torch.cuda.synchronize()
+    finally:
+        smi.terminate()
+        out, _ = smi.communicate()
+    rows = [line.split(",") for line in out.strip().splitlines()[2:]]
+    if not rows:
+        return "clock not sampled"
+    mhz = statistics.median(float(r[0]) for r in rows)
+    watts = statistics.median(float(r[1]) for r in rows)
+    return f"SM clock {mhz:.0f} MHz, {watts:.0f} W ({len(rows)} samples)"
 
 
 def main(argv) -> int:
@@ -174,6 +205,8 @@ def main(argv) -> int:
             same = torch.equal(out.view(torch.int32), ref.view(torch.int32))
             print(f"[compare] {name}: {case}: {ms:.4f} ms"
                   + ("" if ahead else " (host behind the card)")
+                  + (f"; {clocks_while(lambda: fn(lib, stream), torch)}"
+                     if name == "this tree" else "")
                   + ("" if name == "this tree" else
                      f", bitwise this tree's: {same}"), flush=True)
     return 0

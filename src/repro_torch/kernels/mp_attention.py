@@ -8,14 +8,16 @@ CUDA kernel (``csrc/mp_attention.cu``) for CUDA tensors — there is no
 fallback from one to the other.  The flash plain version is the oracle
 ``ref.mp_attention_ref`` blocked as the kernel blocks: kv tiles of
 ``BLOCK_KV`` positions, each folded into the running (max, denominator,
-accumulator) by the shared online-softmax update.  (The q tile size does not
-change the numbers: a kv tile that is processed for a q tile but lies above
-a row's diagonal is an exact no-op for that row.)
+accumulator) by the shared online-softmax update, with every logit summed
+in the kernel's order (:func:`ref.dot_nt_in_order`).  (The q tile size does
+not change the numbers: a kv tile that is processed for a q tile but lies
+above a row's diagonal is an exact no-op for that row.  The kernel's blocks
+take 16, 32 or 64 query rows, :func:`flash_block_q`.)
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -24,8 +26,9 @@ from repro_torch.core.formats import FormatLike, resolve
 from repro_torch.kernels import build, ref
 from repro_torch.kernels.mp_matmul import _cuda_stream, _f32, _on_cpu
 
-BLOCK_Q = 32    # csrc BQ
+BLOCK_Q = 32    # csrc OQ: the q tile whose rows' causal walks end together
 BLOCK_KV = 32   # csrc BKV: the online-softmax granularity both versions use
+FLASH_BLOCK_QS = (16, 32, 64)  # the kernel's query rows per block
 MAX_HEAD_DIM = 128
 PAGED_CHUNK_POS = 128  # csrc CHUNK_POS: the paged kernels' chunk, in positions
 
@@ -39,7 +42,8 @@ def flash_attention_plain(q, k, v, fmt_qk, fmt_pv, *, causal=True,
     """Plain version of :func:`mp_flash_attention`."""
     return ref.mp_attention_ref(q, k, v, fmt_qk, fmt_pv, causal=causal,
                                 scale=scale, q_offset=q_offset,
-                                block_q=BLOCK_Q, block_kv=BLOCK_KV)
+                                block_q=BLOCK_Q, block_kv=BLOCK_KV,
+                                qk_dot=ref.dot_nt_in_order)
 
 
 def _set_argtypes(lib) -> None:
@@ -48,6 +52,10 @@ def _set_argtypes(lib) -> None:
     lib.mp_flash_attention_launch.argtypes = (
         [_P, _I, _I, _I] * 4 + [_I] * 7 + [ctypes.c_double] + [_I] * 4 + [_P])
     lib.mp_flash_attention_launch.restype = ctypes.c_int
+    if hasattr(lib, "mp_flash_attention_launch_bq"):
+        lib.mp_flash_attention_launch_bq.argtypes = (
+            lib.mp_flash_attention_launch.argtypes[:-1] + [_I, _P])
+        lib.mp_flash_attention_launch_bq.restype = ctypes.c_int
     lib.mp_paged_attention_launch.argtypes = (
         [_P, _I, _I] + [_P, _I, _I, _I] * 2 + [_P, _I, _P, _P] + [_I] * 6
         + [ctypes.c_double] + [_I] * 4 + [_P])
@@ -59,11 +67,13 @@ def _set_argtypes(lib) -> None:
 
 
 def launch_flash_attention(lib, stream: int, q, k, v, fmt_qk, fmt_pv, *,
-                           causal: bool, scale: float, q_offset: int
-                           ) -> torch.Tensor:
+                           causal: bool, scale: float, q_offset: int,
+                           block_q: Optional[int] = None) -> torch.Tensor:
     """Marshal one ``mp_flash_attention_launch`` call.  q (B, S, H, Dh),
     k/v (B, T, H, Dh), read in place through their strides (the head dim
-    must be unit-stride, else that operand is copied)."""
+    must be unit-stride, else that operand is copied).  ``block_q`` (one of
+    :data:`FLASH_BLOCK_QS`) sets the kernel's query rows per block through
+    ``mp_flash_attention_launch_bq``; by default the library picks them."""
     _set_argtypes(lib)
     B, S, H, Dh = q.shape
     T = k.shape[1]
@@ -78,10 +88,15 @@ def launch_flash_attention(lib, stream: int, q, k, v, fmt_qk, fmt_pv, *,
     args = []
     for x in (q, k, v, o):
         args += [x.data_ptr(), x.stride(0), x.stride(1), x.stride(2)]
-    err = lib.mp_flash_attention_launch(
-        *args, B, S, T, H, Dh, int(causal), q_offset, float(scale),
-        fmt_qk.n_limbs, fmt_qk.max_order, fmt_pv.n_limbs, fmt_pv.max_order,
-        stream)
+    args += [B, S, T, H, Dh, int(causal), q_offset, float(scale),
+             fmt_qk.n_limbs, fmt_qk.max_order, fmt_pv.n_limbs,
+             fmt_pv.max_order]
+    if block_q is None:
+        err = lib.mp_flash_attention_launch(*args, stream)
+    else:
+        if block_q not in FLASH_BLOCK_QS:
+            raise ValueError(f"block_q {block_q} not in {FLASH_BLOCK_QS}")
+        err = lib.mp_flash_attention_launch_bq(*args, block_q, stream)
     build.check(err, "mp_flash_attention")
     return o
 
@@ -117,23 +132,6 @@ mp_flash_attention.plain_calls = 0
 # ---------------------------------------------------------------------------
 # paged decode attention (port of the Pallas ``_paged_kernel``)
 # ---------------------------------------------------------------------------
-def _dot_nt_in_order(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """(..., M, D) x (..., T, D) -> (..., M, T) bf16-valued limbs, each
-    entry one f32 sum of its D products in order from +0.0: the paged
-    kernels' QK chains.  A product of two bf16 values is exact in f32, so
-    multiply-then-add gives an FMA chain's bits.  The paged plain versions
-    take their logits this way because P is limbed against the running max:
-    a logit one f32 unit off (another order of the same sum) can move a
-    probability across a bf16 rounding boundary at M8, and the output by
-    more than the kernels' tolerance against these versions."""
-    a, b = a.float(), b.float()
-    acc = torch.zeros(torch.broadcast_shapes(a.shape[:-2], b.shape[:-2])
-                      + (a.shape[-2], b.shape[-2]), device=a.device)
-    for e in range(a.shape[-1]):
-        acc = acc + a[..., :, e:e + 1] * b[..., None, :, e]
-    return acc
-
-
 def paged_attention_plain(q: torch.Tensor, k_pool: torch.Tensor,
                           v_pool: torch.Tensor, block_table: torch.Tensor,
                           lengths: torch.Tensor, fmt_qk, fmt_pv, *,
@@ -142,13 +140,13 @@ def paged_attention_plain(q: torch.Tensor, k_pool: torch.Tensor,
     in PyTorch.  Table column j folds pool block ``table[b, j]`` into each
     slot's running (max, denominator, accumulator) through
     ``ref.attn_qk_logits`` (in the kernels' order,
-    :func:`_dot_nt_in_order`) / ``ref.online_softmax_update``, for the slots
-    with ``j * bs < length`` (the others keep their state, as the kernel
-    skips the column)."""
+    :func:`ref.dot_nt_in_order`) / ``ref.online_softmax_update``, for the
+    slots with ``j * bs < length`` (the others keep their state, as the
+    kernel skips the column)."""
     return _paged_steps(
         q, k_pool, v_pool, block_table, lengths, scale,
         lambda qh, kb: ref.attn_qk_logits(qh, kb, fmt_qk,
-                                          dot=_dot_nt_in_order),
+                                          dot=ref.dot_nt_in_order),
         lambda m, d, acc, logits, vb, valid: ref.online_softmax_update(
             m, d, acc, logits, vb, fmt_pv, p_mask=valid))
 
@@ -179,7 +177,7 @@ def mixed_paged_attention_plain(q: torch.Tensor, k_pool: torch.Tensor,
     return _paged_steps(
         q, k_pool, v_pool, block_table, lengths, scale,
         lambda qh, kb: ref.masked_attn_qk_logits(qh, kb, env_qk, qn, qo,
-                                                 dot=_dot_nt_in_order),
+                                                 dot=ref.dot_nt_in_order),
         lambda m, d, acc, logits, vb, valid:
             ref.masked_online_softmax_update(m, d, acc, logits, vb, env_pv,
                                              pn, po, p_mask=valid))
@@ -356,3 +354,23 @@ def paged_chunk_cols(head_dim: int, block_size: int, n_rep: int = 1,
     lib.mp_paged_chunk_cols.restype = ctypes.c_int
     return int(lib.mp_paged_chunk_cols(head_dim, block_size, n_rep, nl_qk,
                                        nl_pv))
+
+
+def flash_block_q(B: int, S: int, H: int, head_dim: int, fmt_qk,
+                  fmt_pv) -> Tuple[int, bool]:
+    """The query rows per block that :func:`mp_flash_attention` launches
+    with for B x S x H heads at these formats on the current card (the
+    largest of :data:`FLASH_BLOCK_QS` whose grid B * H * ceil(S / rows)
+    reaches the card's SM count, within shared memory; 0 where none
+    fits), and whether that launch runs an instantiation with its formats
+    fixed at compile time.  The rows change no bit.  Needs the library
+    (the card's machine)."""
+    fmt_qk, fmt_pv = resolve(fmt_qk), resolve(fmt_pv)
+    lib = build.load("mp_attention")
+    lib.mp_flash_block_q.argtypes = [_I] * 8 + [ctypes.POINTER(ctypes.c_int)]
+    lib.mp_flash_block_q.restype = ctypes.c_int
+    special = ctypes.c_int(0)
+    bq = lib.mp_flash_block_q(B, S, H, head_dim, fmt_qk.n_limbs,
+                              fmt_qk.max_order, fmt_pv.n_limbs,
+                              fmt_pv.max_order, ctypes.byref(special))
+    return int(bq), bool(special.value)

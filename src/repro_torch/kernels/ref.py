@@ -228,6 +228,23 @@ def _dot_nt(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.matmul(a.float(), b.float().transpose(-1, -2))
 
 
+def dot_nt_in_order(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """:func:`_dot_nt` of bf16-valued limbs with each entry one f32 sum of
+    its D products in order from +0.0: the attention kernels' QK chains.
+    A product of two bf16 values is exact in f32, so multiply-then-add
+    gives an FMA chain's bits.  The kernels' plain versions take their
+    logits this way because P is limbed against the running max: a logit
+    one f32 unit off (another order of the same sum) can move a probability
+    across a bf16 rounding boundary at M8, and the output by more than the
+    kernels' tolerance against these versions."""
+    a, b = a.float(), b.float()
+    acc = torch.zeros(torch.broadcast_shapes(a.shape[:-2], b.shape[:-2])
+                      + (a.shape[-2], b.shape[-2]), device=a.device)
+    for e in range(a.shape[-1]):
+        acc = acc + a[..., :, e:e + 1] * b[..., None, :, e]
+    return acc
+
+
 def attn_qk_logits(q: torch.Tensor, k: torch.Tensor, mode: FormatLike,
                    dot=_dot_nt) -> torch.Tensor:
     """Logits for one block pair at the QK format: q (..., M, D) f32
@@ -301,13 +318,17 @@ def mp_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      mode_pv: Optional[FormatLike] = None, *,
                      causal: bool = True, scale: Optional[float] = None,
                      q_offset: int = 0, block_q: Optional[int] = None,
-                     block_kv: Optional[int] = None) -> torch.Tensor:
+                     block_kv: Optional[int] = None, qk_dot=_dot_nt
+                     ) -> torch.Tensor:
     """Multi-precision flash-attention oracle.
 
     q (B, S, H, Dh); k/v (B, T, H, Dh) with H already GQA-repeated.  QK^T at
     ``mode_qk``, P·V at ``mode_pv`` (defaults to ``mode_qk``).
     ``block_q``/``block_kv`` default to the full sequence (the unchunked
-    oracle); ``q_offset`` shifts the causal query positions."""
+    oracle); ``q_offset`` shifts the causal query positions.  ``qk_dot``
+    is one QK limb pair's product (:func:`attn_qk_logits`); every logit is
+    its own sum, so the logits of all block pairs are taken at once and the
+    online-softmax steps fold ``block_kv`` columns of them at a time."""
     B, S, H, Dh = q.shape
     T = k.shape[1]
     fmt_qk = resolve(mode_qk)
@@ -327,10 +348,10 @@ def mp_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     qh = heads_first(q, S_pad - S) * scale
     kh = heads_first(k, T_pad - T)
     vh = heads_first(v, T_pad - T)
+    logits_all = attn_qk_logits(qh, kh, fmt_qk, dot=qk_dot)
 
     outs = []
     for qi in range(nq):
-        q_blk = qh[:, :, qi * bq:(qi + 1) * bq]
         q_pos = q_offset + qi * bq + torch.arange(bq, device=dev)
         m = torch.full((B, H, bq), ATTN_NEG_INF, dtype=torch.float32,
                        device=dev)
@@ -339,13 +360,13 @@ def mp_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         for ki in range(nkv):
             if causal and ki * bkv > q_offset + (qi + 1) * bq - 1:
                 continue  # block entirely above the causal diagonal
-            k_blk = kh[:, :, ki * bkv:(ki + 1) * bkv]
             v_blk = vh[:, :, ki * bkv:(ki + 1) * bkv]
             k_pos = ki * bkv + torch.arange(bkv, device=dev)
             valid = k_pos[None, :] < T
             if causal:
                 valid = valid & (q_pos[:, None] >= k_pos[None, :])
-            logits = attn_qk_logits(q_blk, k_blk, fmt_qk)
+            logits = logits_all[:, :, qi * bq:(qi + 1) * bq,
+                                ki * bkv:(ki + 1) * bkv]
             logits = torch.where(valid, logits,
                                  torch.full((), ATTN_NEG_INF, device=dev))
             m, d, acc = online_softmax_update(m, d, acc, logits, v_blk,

@@ -22,7 +22,7 @@ from repro_torch import kernels
 from repro_torch.configs import paper_mpfp
 from repro_torch.core.formats import register_format, resolve, \
     unregister_format
-from repro_torch.kernels import mp_attention, mp_matmul
+from repro_torch.kernels import build, mp_attention, mp_matmul
 from repro_torch.models import transformer as T
 from repro_torch.serve.engine import ServeEngine
 
@@ -144,6 +144,128 @@ def test_flash_kernel_matches_plain(cuda, qk, pv, causal, S, T, q_offset):
         scale=0.125)
     torch.cuda.synchronize()
     torch.testing.assert_close(out, ref, rtol=2e-5, atol=2e-5)
+
+
+# =========================================================================
+# flash attention: a head's bits do not depend on the batch, the other
+# heads or the block's query rows
+# =========================================================================
+# (B, S, T, H, Dh, causal, q_offset): S and T off the 16/32/64-row blocks
+# and the 32-position kv tiles, on both sides of them, q_offset, S != T
+FLASH_SHAPES = {
+    "causal ragged": (2, 77, 77, 3, 64, True, 0),
+    "causal tile edges": (1, 65, 65, 2, 64, True, 0),
+    "bidirectional S != T": (2, 33, 70, 2, 64, False, 0),
+    "q_offset": (1, 9, 80, 2, 64, True, 71),
+    "q_offset ragged": (2, 17, 50, 2, 64, True, 33),
+}
+SERVING = ("M8", "M16", "M23")
+FLASH_FORMATS = ([(qk, pv) for qk in SERVING for pv in SERVING]
+                 + [("M36", "M52"), (CUSTOM, "M16")])
+
+
+def _flash_inputs(cuda, B, S, T, H, Dh, seed):
+    return (_randn(cuda, B, S, H, Dh, seed=seed),
+            _randn(cuda, B, T, H, Dh, seed=seed + 1),
+            _randn(cuda, B, T, H, Dh, seed=seed + 2))
+
+
+def _flash_at_block_q(q, k, v, qk, pv, causal, q_offset, block_q):
+    return mp_attention.launch_flash_attention(
+        build.load("mp_attention"),
+        torch.cuda.current_stream().cuda_stream, q, k, v, resolve(qk),
+        resolve(pv), causal=causal, scale=q.shape[-1] ** -0.5,
+        q_offset=q_offset, block_q=block_q)
+
+
+def _assert_flash_invariant(out, q, k, v, qk, pv, causal, q_offset):
+    """``out`` bitwise every block size's launch and, head by head, the
+    head launched alone (B = H = 1)."""
+    torch.cuda.synchronize()
+    bits = out.view(torch.int32)
+    for bq in mp_attention.FLASH_BLOCK_QS:
+        other = _flash_at_block_q(q, k, v, qk, pv, causal, q_offset, bq)
+        torch.cuda.synchronize()
+        assert torch.equal(bits, other.view(torch.int32)), bq
+    for b in range(q.shape[0]):
+        for h in range(q.shape[2]):
+            one = mp_attention.mp_flash_attention(
+                q[b:b + 1, :, h:h + 1], k[b:b + 1, :, h:h + 1],
+                v[b:b + 1, :, h:h + 1], qk, pv, causal=causal,
+                q_offset=q_offset)
+            torch.cuda.synchronize()
+            assert torch.equal(bits[b:b + 1, :, h:h + 1],
+                               one.view(torch.int32)), (b, h)
+
+
+@pytest.mark.parametrize("fmts", FLASH_FORMATS,
+                         ids=[f"{a}/{b}" for a, b in FLASH_FORMATS])
+@pytest.mark.parametrize("shape", sorted(FLASH_SHAPES))
+def test_flash_heads_are_invariant(cuda, custom_format, shape, fmts):
+    """Every serving format pair (the compile-time instantiations), M36/M52
+    and a custom format (the generic one): the kernel within 2e-5 of its
+    plain version, and each head's bits independent of the block's query
+    rows and of the other heads and batch rows."""
+    B, S, T, H, Dh, causal, q_offset = FLASH_SHAPES[shape]
+    qk, pv = fmts
+    q, k, v = _flash_inputs(cuda, B, S, T, H, Dh, seed=80)
+    out = mp_attention.mp_flash_attention(q, k, v, qk, pv, causal=causal,
+                                          q_offset=q_offset)
+    ref = mp_attention.flash_attention_plain(
+        q, k, v, resolve(qk), resolve(pv), causal=causal, q_offset=q_offset,
+        scale=Dh ** -0.5)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ref, rtol=2e-5, atol=2e-5)
+    _assert_flash_invariant(out, q, k, v, qk, pv, causal, q_offset)
+
+
+@pytest.mark.parametrize("fmts", [("M16", "M8"), ("M23", "M23")])
+@pytest.mark.parametrize("dh", [16, 24, 32, 64, 100, 128])
+def test_flash_head_dims(cuda, dh, fmts):
+    """Head dims 16..128 (Dh off 16, 32, 64, 128 among them: the dims past
+    Dh are zero), against the plain version and invariant as above."""
+    qk, pv = fmts
+    q, k, v = _flash_inputs(cuda, 2, 45, 45, 2, dh, seed=90)
+    out = mp_attention.mp_flash_attention(q, k, v, qk, pv)
+    ref = mp_attention.flash_attention_plain(q, k, v, resolve(qk),
+                                             resolve(pv), scale=dh ** -0.5)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ref, rtol=2e-5, atol=2e-5)
+    _assert_flash_invariant(out, q, k, v, qk, pv, True, 0)
+
+
+def test_flash_strided_heads_and_unaligned_rows(cuda):
+    """q, k, v read in place through their strides: heads of a fused QKV
+    output, and K/V rows that do not start 16-byte aligned (element copies)
+    give the bits of contiguous copies."""
+    qkv = _randn(cuda, 2, 40, 3, 2, 64, seed=95)
+    q, k, v = qkv.unbind(2)
+    out = mp_attention.mp_flash_attention(q, k, v, "M16", "M8")
+    same = mp_attention.mp_flash_attention(q.contiguous(), k.contiguous(),
+                                           v.contiguous(), "M16", "M8")
+    torch.cuda.synchronize()
+    assert torch.equal(out.view(torch.int32), same.view(torch.int32))
+    raw = _randn(cuda, 2 * 40 * 2 * 64 + 1, seed=96)
+    ku = raw[1:].view(2, 40, 2, 64)          # rows 4 bytes off 16
+    odd = mp_attention.mp_flash_attention(q, ku, v, "M16", "M8")
+    even = mp_attention.mp_flash_attention(q, ku.clone(), v, "M16", "M8")
+    torch.cuda.synchronize()
+    assert torch.equal(odd.view(torch.int32), even.view(torch.int32))
+
+
+def test_flash_block_q_rule(cuda):
+    """The library's rows per block: the largest of 64, 32, 16 whose grid
+    reaches the SM count, 16 where none does, and the serving formats at
+    Dh 64 on the compile-time instantiation."""
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    for B, S, H in ((8, 256, 12), (1, 256, 12), (1, 64, 12), (2, 256, 12),
+                    (64, 64, 12)):
+        want = next((bq for bq in (64, 32) if B * H * -(-S // bq) >= n_sm),
+                    16)
+        assert mp_attention.flash_block_q(B, S, H, 64, "M16", "M8") == (
+            want, True), (B, S, H)
+    assert mp_attention.flash_block_q(1, 70, 2, 64, "M36", "M52")[1] is False
+    assert mp_attention.flash_block_q(1, 70, 2, 128, "M16", "M8")[1] is False
 
 
 def test_smoke_engine_on_the_card_matches_the_cpu(cuda):
