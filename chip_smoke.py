@@ -66,6 +66,23 @@ line is not printed):
    AUTO requests are both live (one mixed launch, one AUTO bucket), launch
    counts exact, the AUTO requests' tokens equal to their solo AUTO
    ``generate`` bit for bit;
+4f. ``[train]``: ``Trainer.run`` of the full-width ``paper-mpfp-100m``
+   (params from seed 0) for 5 steps of batch 8 x 128 under
+   ``train_default`` with remat, a checkpoint under ``chiprun_out/`` (it
+   must restore the state bitwise; then it is removed): launches per step
+   exactly ``train_launches``, no plain-version call, losses and
+   parameters finite; step 1's loss and every gradient leaf against the
+   ``ref`` backend on the card (1e-5 relative; 5e-4 of the leaf's max),
+   remat off giving remat's bits, one step taken twice giving the same
+   bits; step ms on the host clock, busy ms from the profiler, the idle
+   share, tokens/s, peak memory; each weight gradient's plain product
+   (``ref.mp_wgrad_ref``) timed beside ``fused_matmul_kernel`` on the same
+   contraction.  Phase 3 holds the kernels at the step's shapes: dgrad
+   through a transposed weight view bitwise the launch on a contiguous
+   copy (both timed), the attention backward's batched products with each
+   entry bitwise launched alone, the projections with gate "none" at 1024
+   rows, flash M16/M16 at (8, 128, 12, 64), each against its float64
+   golden;
 5. a ``kernels`` JSON line: per kernel its launches on its main path, its
    device time (CUDA events around calls enqueued behind a sleep kernel, so
    the card runs them back to back; the time of calls issued one after the
@@ -79,8 +96,10 @@ CUDA device.  Imports nothing of JAX.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
+import shutil
 import subprocess
 import sys
 import time
@@ -171,6 +190,21 @@ FLASH_CASES = (
 AUTO_PER_PASS = 12 * 9
 # the AUTO-traffic modes, request i at AUTO_MODES[i % 4] (None: AUTO policy)
 AUTO_MODES = ("M8", "M16", "M23", None)
+# the training path: paper-mpfp-100m at the launcher's batch and sequence
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 128, 5
+
+
+def train_launches(n_layers: int, remat: bool = True) -> dict:
+    """Kernel launches of one train_default step (value and gradient):
+    per layer the forward's QKV and SwiGLU projections (gate "none" under
+    autograd), flash attention, wo and w_down, run twice with remat (the
+    recompute); the backward's dgrads (w_down 1, gate/up 2, wo 1, QKV 3)
+    and the attention backward's 5 both-batched products; lm_head forward
+    and dgrad.  Each weight gradient is one plain product (no kernel)."""
+    fwd = 2 if remat else 1
+    return {"mp_fused_proj": 2 * fwd * n_layers,
+            "mp_flash_attention": fwd * n_layers,
+            "mp_fused_matmul": n_layers * (2 * fwd + 12) + 2}
 
 
 def log(*args) -> None:
@@ -341,6 +375,13 @@ def main() -> int:
     from repro_torch.serve.kv_cache import PagedKVPool
     from repro_torch.serve.scheduler import ContinuousScheduler, \
         ScheduledRequest
+    from repro_torch import tree as tree_lib
+    from repro_torch.checkpoint import checkpoint as ckpt_lib
+    from repro_torch.core import context as context_lib
+    from repro_torch.core.classify import all_finite
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.kernels import ref as ref_lib
+    from repro_torch.train import trainer as trainer_lib
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -469,7 +510,18 @@ def main() -> int:
         log(f"[check] {kernel} {label}: M = {M} rows == M = 70 rows "
             "bitwise")
 
-    def matmul_case(label, a, b, fmt, main=False, library=False, per=None):
+    def golden_case(label):
+        # the serving prefill cases and the training cases meet the float64
+        # golden; decode cases are held bitwise against their M = 70 rows
+        return label.startswith(("prefill", "train"))
+
+    def matmul_case(label, a, b, fmt, main=False, library=False, per=None,
+                    contig=False, solo=False):
+        """``contig``: a 2-D operand is a transposed view (dgrad's W^T, a
+        2-D wgrad's x^T), which the wrapper copies to row-major; the launch
+        on the views as they are (strided 4-byte copies in the kernel) must
+        give the wrapper's bits, and is timed beside it.  ``solo``: each
+        batch entry bitwise the same product launched alone."""
         fmt = resolve(fmt)
         out = mp_matmul.mp_fused_matmul(a, b, fmt)
         ref = mp_matmul.fused_matmul_plain(a, b, fmt)
@@ -479,21 +531,58 @@ def main() -> int:
              {"fmt": fmt.name})
         gold = (hold_golden("mp_fused_matmul", label, out,
                             a.double() @ b.double(), f32_bound(fmt, K))
-                if label.startswith("prefill") else {})
+                if golden_case(label) else {})
         decode_rows_bitwise("mp_fused_matmul", label,
                             lambda x: mp_matmul.mp_fused_matmul(x, b, fmt),
                             a, out)
+        lib, stream = build.load("mp_matmul"), \
+            torch.cuda.current_stream().cuda_stream
+
+        def on_views():
+            return mp_matmul.launch_fused_matmul(lib, stream, a, b, fmt)
+
+        if contig:
+            views = on_views()
+            torch.cuda.synchronize()
+            if not torch.equal(out.view(torch.int32),
+                               views.view(torch.int32)):
+                raise AssertionError(f"mp_fused_matmul {label}: the launch on "
+                                     "the transposed views is not bitwise the "
+                                     "launch on row-major copies")
+            checks["mp_fused_matmul"][-1]["bitwise_vs_views"] = True
+            log(f"[check] mp_fused_matmul {label}: the views as they are == "
+                "row-major copies, bitwise")
+        if solo:
+            lead = out.shape[:-2]
+            for idx in np.ndindex(*lead):
+                one = mp_matmul.mp_fused_matmul(a[idx], b[idx], fmt)
+                torch.cuda.synchronize()
+                if not torch.equal(out[idx].view(torch.int32),
+                                   one.view(torch.int32)):
+                    raise AssertionError(f"mp_fused_matmul {label}: entry "
+                                         f"{idx} alone is not bitwise its "
+                                         "part of the batch")
+            checks["mp_fused_matmul"][-1]["solo_bitwise"] = True
+            log(f"[check] mp_fused_matmul {label}: each of "
+                f"{math.prod(lead)} entries == the entry launched alone, "
+                "bitwise")
         nb = out.numel() // (out.shape[-1] * out.shape[-2])
         M, N = out.shape[-2:]
         ops = 2 * nb * M * K * N * fmt.n_products
         nbytes = 4 * (a.numel() + b.numel() + out.numel())
-        cases["mp_fused_matmul"].append(dict(
-            case=label, fmt=fmt.name, a=list(a.shape), b=list(b.shape),
-            ops=ops, bytes=nbytes, main=main, per=per, **gold,
-            fn=lambda: mp_matmul.mp_fused_matmul(a, b, fmt),
-            plain=lambda: mp_matmul.fused_matmul_plain(a, b, fmt),
-            library=(lambda ar=a.bfloat16().float(), br=b.bfloat16().float():
-                     torch.matmul(ar, br)) if library else None))
+        row = dict(case=label, fmt=fmt.name, a=list(a.shape),
+                   b=list(b.shape), ops=ops, bytes=nbytes, main=main,
+                   per=per, **gold,
+                   fn=lambda: mp_matmul.mp_fused_matmul(a, b, fmt),
+                   plain=lambda: mp_matmul.fused_matmul_plain(a, b, fmt),
+                   library=(lambda ar=a.bfloat16().float(),
+                            br=b.bfloat16().float(): torch.matmul(ar, br))
+                   if library else None)
+        cases["mp_fused_matmul"].append(row)
+        if contig:
+            cases["mp_fused_matmul"].append(dict(
+                row, case=label + ", launched on the views as they are",
+                main=False, per=None, fn=on_views))
 
     def proj_case(label, a, ws, fmt, gate="none", biases=None,
                   residual=None, main=False, library=False, per=None):
@@ -514,7 +603,7 @@ def main() -> int:
                    + 2e-6 * ref.abs())
         hold("mp_fused_proj", label, out, ref, tol, {"fmt": fmt.name})
         gold = {}
-        if label.startswith("prefill"):
+        if golden_case(label):
             raw = []
             for t, w in enumerate(ws):
                 r = a.double() @ w.double()
@@ -597,13 +686,27 @@ def main() -> int:
         checks["mp_flash_attention"][-1]["solo_bitwise"] = True
         log(f"[check] mp_flash_attention {label}: each of {B * H} heads == "
             "the head launched alone, bitwise")
+        gold = {}
+        if golden_case(label):
+            # float64 attention; both contractions within the error model
+            # of their formats, the softmax carrying the logits' error:
+            # 4x the QK format's bound (the repo's logits convention)
+            qd, kd, vd = (x.double().permute(0, 2, 1, 3) for x in (q, k, v))
+            lg = qd @ kd.transpose(-1, -2) * Dh ** -0.5
+            if causal:
+                keep = (q_offset + torch.arange(S, device=dev))[:, None] \
+                    >= torch.arange(T, device=dev)[None, :]
+                lg = lg.masked_fill(~keep, -math.inf)
+            g64 = (torch.softmax(lg, dim=-1) @ vd).permute(0, 2, 1, 3)
+            gold = hold_golden("mp_flash_attention", label, out, g64,
+                               4 * max(f32_bound(fq, Dh), f32_bound(fp, T)))
         qpos = q_offset + np.arange(S)
         pairs = (np.minimum(qpos + 1, T).sum() if causal else S * T)
         ops = 2 * B * H * int(pairs) * Dh * (fq.n_products + fp.n_products)
         nbytes = 4 * (q.numel() + k.numel() + v.numel() + out.numel())
         cases["mp_flash_attention"].append(dict(
             case=label, fmt=f"{qk}/{pv}", shape=[B, S, T, H, Dh],
-            causal=causal, ops=ops, bytes=nbytes, main=main, per=per,
+            causal=causal, ops=ops, bytes=nbytes, main=main, per=per, **gold,
             fn=lambda: mp_attention.mp_flash_attention(
                 q, k, v, fq, fp, causal=causal, q_offset=q_offset),
             plain=lambda: mp_attention.flash_attention_plain(
@@ -1016,6 +1119,59 @@ def main() -> int:
                      max_lengths, 12, 12, edge_modes, data=randp, plant=plant)
     mixed_paged_case("W 64 columns, slots of 1..5, mixed", wide_lengths, 12,
                      12, edge_modes, data=randp, W=64)
+
+    # the training slice's shapes: paper-mpfp-100m at batch 8 x 128 under
+    # train_default (M16, lm_head M23), as a step's backward gives them to
+    # the forward kernels (own generator: every other case keeps its data)
+    gent = torch.Generator(device=dev).manual_seed(20)
+
+    def randt(*shape):
+        return torch.randn(*shape, generator=gent, device=dev)
+
+    tok = TRAIN_BATCH * TRAIN_SEQ
+    w_down_t, w_lm_t = randt(ff, d) * 0.02, randt(d, V) * 0.03
+    g_d, g_lm, h_ff = randt(tok, d), randt(tok, V) * 1e-3, randt(tok, ff)
+    # dgrad g @ W^T: W^T a view with unit row stride, which the wrapper
+    # copies to row-major; the launch on the view timed beside it
+    matmul_case(f"train dgrad w_down {tok}x{d}x{ff} (W^T view) M16", g_d,
+                w_down_t.t(), "M16", contig=True)
+    matmul_case(f"train dgrad lm_head {tok}x{V}x{d} (W^T view) M23", g_lm,
+                w_lm_t.t(), "M23", contig=True)
+    # the attention backward's five both-batched products on (B, H, S, Dh)
+    # views of (B, S, H, Dh) tensors: each (b, h) bitwise launched alone
+    nh, dh = cfg.n_heads, cfg.resolved_head_dim
+
+    def bhsd(scale=1.0):
+        return (randt(TRAIN_BATCH, TRAIN_SEQ, nh, dh) * scale).permute(
+            0, 2, 1, 3)
+
+    qs_t, k_t, v_t, go_t = bhsd(dh ** -0.5), bhsd(), bhsd(), bhsd()
+    p_t = torch.softmax(randt(TRAIN_BATCH, nh, TRAIN_SEQ, TRAIN_SEQ),
+                        dim=-1)
+    ds_t = randt(TRAIN_BATCH, nh, TRAIN_SEQ, TRAIN_SEQ) * 1e-3
+    bh = f"{TRAIN_BATCH * nh} x {TRAIN_SEQ}x"
+    for label, x_, y_ in (
+            (f"logits Qs K^T {bh}{dh}x{TRAIN_SEQ}", qs_t,
+             k_t.transpose(-1, -2)),
+            (f"dV = P^T dO {bh}{TRAIN_SEQ}x{dh}", p_t.transpose(-1, -2), go_t),
+            (f"dP = dO V^T {bh}{dh}x{TRAIN_SEQ}", go_t, v_t.transpose(-1, -2)),
+            (f"dQ = dS K {bh}{TRAIN_SEQ}x{dh}", ds_t, k_t),
+            (f"dK = dS^T Qs {bh}{TRAIN_SEQ}x{dh}", ds_t.transpose(-1, -2),
+             qs_t)):
+        matmul_case(f"train attn bwd {label} M16", x_, y_, "M16", solo=True)
+    # a weight gradient as the kernel would take it (x^T a view): the
+    # step takes the same contraction as one plain product (mp_wgrad_ref,
+    # timed in [train])
+    matmul_case(f"train wgrad w_down as a matmul {ff}x{tok}x{d} (x^T view) "
+                "M16", h_ff.t(), g_d, "M16", contig=True)
+    x_t = randt(tok, d)
+    proj_case(f"train QKV {tok}x{d} vs 3x{d}x{d} M16 (no gate)", x_t,
+              [randt(d, d) * 0.03 for _ in range(3)], "M16")
+    proj_case(f"train gate/up {tok}x{d} vs 2x{d}x{ff} M16 (no gate)", x_t,
+              [randt(d, ff) * 0.03 for _ in range(2)], "M16")
+    flash_case(f"train ({TRAIN_BATCH},{TRAIN_SEQ},{nh},{dh}) causal "
+               "M16/M16", TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, nh, dh, "M16",
+               "M16", True, data=randt)
 
     # ---- 3b. [modes]: the paper's six modes through repro_torch.mp --------
     # the quickstart's surface at the model's prefill shapes: f32 operands at
@@ -1721,6 +1877,193 @@ def main() -> int:
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 
+    # ---- 4f. [train]: training steps of the full-width model -------------
+    t_policy = PrecisionPolicy.train_default()
+    ck_dir = ROOT / "chiprun_out" / "train_ckpt"
+    shutil.rmtree(ck_dir, ignore_errors=True)
+    tcfg = trainer_lib.TrainerConfig(total_steps=TRAIN_STEPS, warmup=2,
+                                     ckpt_dir=str(ck_dir),
+                                     ckpt_every=TRAIN_STEPS, keep=1)
+    trainer = trainer_lib.Trainer(cfg, tcfg, policy=t_policy)
+    pipe = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ + 1,
+                                  global_batch=TRAIN_BATCH))
+    state0 = trainer.init_state(seed=0)
+    batch0 = trainer.to_device(pipe.batch(0))
+    per_step = {**dict.fromkeys(kernels.KERNELS, 0), **train_launches(L)}
+
+    def grads_of(model_cfg):
+        loss_fn = trainer_lib.make_loss_fn(model_cfg, t_policy)
+        out = trainer_lib.value_and_grad(loss_fn, state0.params, batch0)
+        torch.cuda.synchronize()
+        return out
+
+    # step 1's loss and gradients against the ref backend on the card, at
+    # the CPU tests' bounds (loss 1e-5 relative; each leaf 5e-4 of its max)
+    kernels.reset_launch_counts()
+    (l_k, _), g_k = grads_of(cfg)
+    vg_launches = kernels.launch_counts()
+    if vg_launches != per_step or any(kernels.plain_call_counts().values()):
+        raise AssertionError(f"[train] value and grad launches {vg_launches}"
+                             f" != {per_step}")
+    with context_lib.context(backend="ref"):
+        (l_r, _), g_r = grads_of(cfg)
+    loss_rel = abs(l_k.item() - l_r.item()) / abs(l_r.item())
+    leaf_err = {path: ((a_ - b_).abs().max() / b_.abs().max()).item()
+                for (path, a_), b_ in zip(tree_lib.items(g_k),
+                                          tree_lib.leaves(g_r))}
+    worst = max(leaf_err, key=leaf_err.get)
+    log(f"[train] step 1 against the ref backend: loss {l_k.item():.6f} vs "
+        f"{l_r.item():.6f} (rel {loss_rel:.3e}, bound 1e-5); worst gradient "
+        f"leaf {worst} {leaf_err[worst]:.3e} of its max (bound 5e-4); "
+        f"launches {vg_launches}")
+    if not loss_rel <= 1e-5 or not leaf_err[worst] < 5e-4:
+        raise AssertionError("[train] step 1 disagrees with the ref backend")
+    del g_r
+    # remat's recompute gives the forward's bits: remat off, same bits
+    kernels.reset_launch_counts()
+    (l_n, _), g_n = grads_of(dataclasses.replace(cfg, remat=False))
+    no_remat = {**dict.fromkeys(kernels.KERNELS, 0),
+                **train_launches(L, remat=False)}
+    if kernels.launch_counts() != no_remat:
+        raise AssertionError(f"[train] launches without remat "
+                             f"{kernels.launch_counts()} != {no_remat}")
+    if not torch.equal(l_n, l_k) or not all(
+            torch.equal(a_, b_) for a_, b_ in zip(tree_lib.leaves(g_n),
+                                                   tree_lib.leaves(g_k))):
+        raise AssertionError("[train] remat's gradients are not bitwise the "
+                             "gradients without remat")
+    log("[train] remat on == remat off, loss and every gradient bitwise")
+    del g_n, g_k
+    # the same step twice from one state and batch: the same bits
+    s1, m1 = trainer._step_fn(state0, batch0)
+    s2, m2 = trainer._step_fn(state0, batch0)
+    torch.cuda.synchronize()
+    if not torch.equal(m1["loss"], m2["loss"]) or not all(
+            torch.equal(a_, b_) for a_, b_ in zip(tree_lib.leaves(s1),
+                                                   tree_lib.leaves(s2))):
+        raise AssertionError("[train] one step twice is not bitwise")
+    log("[train] one step twice from one state and batch: loss and every "
+        "parameter and moment bitwise")
+    del s1, s2, m1, m2
+    # Trainer.run: TRAIN_STEPS steps from seed 0, a checkpoint at the end
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    # resident before the path: the serving weights and phase 3's inputs
+    t_base = torch.cuda.memory_allocated()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    state, hist = trainer.run(pipe, num_steps=TRAIN_STEPS, log_every=0,
+                              state=state0)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    t_launches = kernels.launch_counts()
+    t_peak = torch.cuda.max_memory_allocated()
+    t_want = {k: TRAIN_STEPS * v for k, v in per_step.items()}
+    run_ms = [t * 1e3 for t in trainer._step_times]
+    log(f"[train] Trainer.run {TRAIN_STEPS} steps of batch {TRAIN_BATCH} x "
+        f"{TRAIN_SEQ} under train_default: {train_s:.3f} s, losses "
+        f"{[round(x, 5) for x in hist]}, step ms {[round(x, 2) for x in run_ms]}"
+        f", peak {t_peak / 2**30:.2f} GiB ({(t_peak - t_base) / 2**30:.2f} "
+        f"GiB above the {t_base / 2**30:.2f} GiB resident before the path), "
+        f"launches {t_launches}")
+    if t_launches != t_want or any(kernels.plain_call_counts().values()):
+        raise AssertionError(f"[train] launches {t_launches} != {t_want} "
+                             f"(plain {kernels.plain_call_counts()})")
+    if (len(hist) != TRAIN_STEPS or not all(math.isfinite(x) for x in hist)
+            or not bool(all_finite(state.params))):
+        raise AssertionError("[train] losses or parameters not finite")
+    if ckpt_lib.latest_step(str(ck_dir)) != TRAIN_STEPS:
+        raise AssertionError("[train] no checkpoint at the last step")
+    restored, _ = ckpt_lib.restore(str(ck_dir), TRAIN_STEPS, state)
+    if not all(torch.equal(a_, b_) for a_, b_ in zip(
+            tree_lib.leaves(restored), tree_lib.leaves(state))):
+        raise AssertionError("[train] the checkpoint does not restore the "
+                             "state bitwise")
+    shutil.rmtree(ck_dir)  # 1.6 GB: not for the output directory
+    del restored
+    log(f"[train] checkpoint of step {TRAIN_STEPS} restores the state bitwise")
+    # step time on the host clock after synchronize, then the card's busy
+    # time of one more step
+    step_ms = []
+    for i in range(3):
+        b_ = trainer.to_device(pipe.batch(TRAIN_STEPS + i))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, _ = trainer._step_fn(state, b_)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    b_ = trainer.to_device(pipe.batch(TRAIN_STEPS + 3))
+    t_busy, t_by_name = device_busy_ms(lambda: trainer._step_fn(state, b_))
+    med = float(np.median(step_ms))
+    tok = TRAIN_BATCH * TRAIN_SEQ
+    log(f"[train] step {med:.2f} ms (host clock after synchronize, "
+        f"{[round(x, 2) for x in step_ms]}), {tok / med * 1e3:.0f} tokens/s;"
+        f" busy {t_busy:.2f} ms, idle share {max(0.0, 1 - t_busy / med):.3f}"
+        f"; busy by name {dict(list(t_by_name.items())[:10])} ({smi})")
+    # the weight gradient's plain product against the kernel on the same
+    # contraction (one sum of the same exact products in other orders)
+    x3 = x_t.reshape(TRAIN_BATCH, TRAIN_SEQ, d)
+    wgrads = {}
+    for label, a3, g3, f in (
+            (f"w_down {ff}x{d} M16", h_ff.reshape(TRAIN_BATCH, TRAIN_SEQ, ff),
+             g_d.reshape(TRAIN_BATCH, TRAIN_SEQ, d), "M16"),
+            (f"wq {d}x{d} M16", x3, g_d.reshape(TRAIN_BATCH, TRAIN_SEQ, d),
+             "M16"),
+            (f"w_up {d}x{ff} M16", x3,
+             h_ff.reshape(TRAIN_BATCH, TRAIN_SEQ, ff), "M16"),
+            (f"lm_head {d}x{V} M23", x3,
+             g_lm.reshape(TRAIN_BATCH, TRAIN_SEQ, V), "M23")):
+        fmt = resolve(f)
+        a2, g2 = a3.reshape(tok, -1), g3.reshape(tok, -1)
+        a_sel, g_sel = ref_lib.wgrad_stacks(a3, g3, fmt)
+        via_mm = ref_lib.mp_wgrad_ref(a3, g3, fmt)
+        via_k = mp_matmul.mp_fused_matmul(a2.t(), g2, fmt)
+        torch.cuda.synchronize()
+        w_err = (via_k - via_mm).abs()
+        if not (w_err <= mm_tol(via_mm, tok * fmt.n_products)).all():
+            raise AssertionError(f"[train] wgrad {label}: the kernel and the "
+                                 "plain product disagree beyond the f32 "
+                                 "floor")
+        ref_ms, ref_ahead = device_ms(
+            lambda: ref_lib.mp_wgrad_ref(a3, g3, fmt), torch)
+        mm_ms, mm_ahead = device_ms(
+            lambda: ref_lib.wgrad_product(a_sel, g_sel), torch)
+        k_ms, k_ahead = device_ms(
+            lambda: mp_matmul.mp_fused_matmul(a2.t(), g2, fmt), torch)
+        del a_sel, g_sel
+        b_ms, b_by = bound(2 * tok * a2.shape[1] * g2.shape[1]
+                           * fmt.n_products,
+                           4 * (a2.numel() + g2.numel()
+                                + a2.shape[1] * g2.shape[1]))
+        wgrads[label] = dict(wgrad_ref_ms=ref_ms, torch_mm_ms=mm_ms,
+                             kernel_ms=k_ms, max_abs_diff=w_err.max().item(),
+                             bound_ms=b_ms, bound_by=b_by,
+                             host_ahead=dict(wgrad_ref=ref_ahead,
+                                             torch_mm=mm_ahead,
+                                             kernel=k_ahead))
+        log(f"[train] wgrad {label} over {tok} tokens: mp_wgrad_ref "
+            f"{ref_ms:.4f} ms, of it the one torch.mm (bf16 operands, f32 "
+            f"out) {mm_ms:.4f} ms; fused_matmul_kernel on the same "
+            f"contraction (x^T copied) {k_ms:.4f} ms; bound {b_ms:.4f} ms "
+            f"({b_by})")
+    if (torch.get_float32_matmul_precision() != "highest"
+            or torch.backends.cuda.matmul.allow_tf32):
+        raise AssertionError("[train] TF32 left on for f32 matmuls")
+    report["train"] = dict(
+        batch=TRAIN_BATCH, seq=TRAIN_SEQ, steps=TRAIN_STEPS,
+        policy="train_default", losses=hist, run_s=train_s,
+        run_step_ms=run_ms, step_ms=step_ms, step_ms_median=med,
+        tokens_per_s=tok / med * 1e3, busy_ms=t_busy,
+        idle_share=max(0.0, 1 - t_busy / med),
+        busy_by_name=t_by_name, peak_bytes=t_peak,
+        resident_before_bytes=t_base, launches=t_launches,
+        launches_per_step=per_step, loss_rel_vs_ref=loss_rel,
+        grad_err_vs_ref=leaf_err, wgrad=wgrads)
+    del trainer, state, state0, hist
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
     # ---- 5. the kernels line -----------------------------------------------
     line = []
     for kname, (src, replaces) in SOURCES.items():
@@ -1756,7 +2099,8 @@ def main() -> int:
                    "scheduler": s_launches[kname],
                    "mixed": m_launches[kname], "modes": md_launches[kname],
                    "auto": a_launches[kname],
-                   "auto_sched": as_launches[kname]}
+                   "auto_sched": as_launches[kname],
+                   "train": t_launches[kname]}
         line.append({
             "name": kname, "route": "cuda", "source": src,
             "replaces": replaces,

@@ -3,7 +3,8 @@
 The fields are the JAX package's that the dense family reads, under the
 same names, so a configuration reads the same in both packages.  The MLA /
 MoE / SSM dims stay ``None``: the port runs the dense family only so far
-(ROADMAP.md, "Other families"); their other fields come with them.
+(ROADMAP.md, "Other families"); their other fields, and their terms of
+``param_count``, come with them.
 """
 from __future__ import annotations
 
@@ -30,6 +31,7 @@ class ModelConfig:
     ssm: Optional[Any] = None
     encoder_only: bool = False  # bidirectional attention, no decode
     max_seq: int = 8192
+    remat: bool = True          # rematerialize each layer under autograd
     attn_q_chunk: int = 1024    # chunk-scan attention tiles
     attn_kv_chunk: int = 1024
     source: str = ""
@@ -45,3 +47,27 @@ class ModelConfig:
         if self.head_dim:
             return self.head_dim
         return self.d_model // self.n_heads if self.n_heads else 0
+
+    def _check_dense(self) -> None:
+        if self.family != "dense" or self.mla is not None:
+            raise NotImplementedError(
+                f"parameter counts of family {self.family!r} are not ported "
+                f"yet (ROADMAP.md, 'Other families')")
+
+    def param_count(self) -> int:
+        """Analytic parameter count (for MODEL_FLOPS = 6·N·D): the dense
+        GQA family's embed, layers and untied LM head."""
+        self._check_dense()
+        d, L, V = self.d_model, self.n_layers, self.vocab
+        dh = self.resolved_head_dim
+        per_layer = (d * self.n_heads * dh + 2 * d * self.n_kv_heads * dh
+                     + self.n_heads * dh * d + 3 * d * self.d_ff)
+        return V * d + L * per_layer + V * d
+
+    def active_param_count(self) -> int:
+        """Activated params per token (every param, in the dense family)."""
+        return self.param_count()
+
+
+def d_eff(cfg: ModelConfig) -> int:
+    return cfg.d_model

@@ -101,6 +101,20 @@ def context(**kw):
         _scoped.reset(token)
 
 
+@contextlib.contextmanager
+def scoped(ctx: PrecisionContext):
+    """Make the snapshot ``ctx`` the current context for a scope.  Work run
+    later on another thread (the autograd engine's, which runs a CUDA
+    backward and sees none of the caller's scopes) takes the caller's
+    settings this way: the training ops capture ``current_context()`` when
+    their forward runs."""
+    token = _scoped.set(ctx)
+    try:
+        yield ctx
+    finally:
+        _scoped.reset(token)
+
+
 def resolve_request_policy(mode=None, policy=None,
                            base: Optional[PrecisionPolicy] = None
                            ) -> PrecisionPolicy:

@@ -9,7 +9,8 @@ reconfigured with one object:
     PrecisionPolicy({"moe_*": "M8", "lm_head": "M23", "*": "M16"})
 
 with per-class backward overrides (dgrad/wgrad may run at different formats
-than fwd; the port's forward-only ops do not read them yet) and a lossless
+than fwd; the models pass them to the differentiable ops through
+``bwd_kwargs``) and a lossless
 ``to_json``/``from_json`` wire format, so the serving engine can hot-swap
 precision (serve/engine.set_policy).
 
@@ -238,6 +239,17 @@ class PrecisionPolicy:
             else self._bwd_dgrad)
         return _denorm(name)
 
+    def bwd(self, op_class: str) -> Optional[ResolvedFormat]:
+        """v1 accessor: the single backward mode (= dgrad)."""
+        return self.dgrad(op_class)
+
+    def bwd_kwargs(self, op_class: str) -> Dict[str, Optional[ResolvedFormat]]:
+        """Keyword bundle for mp_matmul/mp_dense: the op class's backward
+        formats (models splat this so dgrad and wgrad stay independently
+        reconfigurable)."""
+        return {"dgrad_mode": self.dgrad(op_class),
+                "wgrad_mode": self.wgrad(op_class)}
+
     # ---- identity ----------------------------------------------------------
     def _key(self):
         return (self._rules, self._bwd_dgrad, self._bwd_wgrad)
@@ -306,6 +318,17 @@ class PrecisionPolicy:
 
     # ---- canonical recipes -------------------------------------------------
     @classmethod
+    def train_default(cls) -> "PrecisionPolicy":
+        """The production recipe: 16-bit-mantissa fwd, fp32-grade reductions."""
+        return cls()
+
+    @classmethod
+    def train_fast(cls) -> "PrecisionPolicy":
+        """Paper mode 2 everywhere it is safe (max throughput)."""
+        return cls({"attn_logits": "M16", "ssm": "M16", "moe_expert": "M8",
+                    "qkv": "M8", "attn_out": "M8", "ffn": "M8"})
+
+    @classmethod
     def full_fp32(cls) -> "PrecisionPolicy":
         """Paper mode 4 everywhere — the accuracy baseline."""
         return cls({"*": "M23"})
@@ -325,9 +348,9 @@ class PrecisionPolicy:
                                         "frontend")})
 
 
-# the canonical recipes the port has, by name (the JAX package's training
-# recipes come with the training slice)
 POLICIES = {
+    "train_default": PrecisionPolicy.train_default,
+    "train_fast": PrecisionPolicy.train_fast,
     "full_fp32": PrecisionPolicy.full_fp32,
     "serve_default": PrecisionPolicy.serve_default,
     "auto": PrecisionPolicy.auto,

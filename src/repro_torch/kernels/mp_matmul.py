@@ -397,17 +397,33 @@ def _on_cpu(*tensors: torch.Tensor) -> bool:
     return all(t.device.type == "cpu" for t in tensors)
 
 
+def _row_major(x: torch.Tensor) -> torch.Tensor:
+    """A 2-D operand stored column by column (a transposed view: the
+    training backward's W^T and x^T) as a row-major copy.  The kernel reads
+    any strides, but off unit column stride it copies one 4-byte element
+    at a time; one pass of the copy costs less (on an H100,
+    ``chip_smoke.py`` times both: the dgrad of ``lm_head`` takes 4.8 ms
+    through the view, 2.5 ms with the copy).  Batched operands (decode
+    attention's K^T) are read as they are."""
+    if x.ndim == 2 and x.stride(-1) != 1 and x.stride(-2) == 1:
+        return x.contiguous()
+    return x
+
+
 def mp_fused_matmul(a: torch.Tensor, b: torch.Tensor, fmt: FormatLike
                     ) -> torch.Tensor:
     """a (..., M, K) @ b (..., K, N) at ``fmt`` -> (..., M, N) f32, leading
     dims broadcast.  CPU tensors run :func:`fused_matmul_plain`; CUDA
-    tensors launch the kernel (one launch, batch dims included)."""
+    tensors launch the kernel (one launch, batch dims included; a
+    column-major 2-D operand copied to row-major first, which moves no
+    bit: the kernel's sums do not depend on the operands' strides)."""
     fmt = resolve(fmt)
     if _on_cpu(a, b):
         mp_fused_matmul.plain_calls += 1
         return fused_matmul_plain(a, b, fmt)
     stream = _cuda_stream(a, b)
-    out = launch_fused_matmul(build.load("mp_matmul"), stream, a, b, fmt)
+    out = launch_fused_matmul(build.load("mp_matmul"), stream, _row_major(a),
+                              _row_major(b), fmt)
     mp_fused_matmul.launches += 1
     return out
 

@@ -5,10 +5,12 @@ Semantics: C = A @ B computed as the sum of kept limb products
     C = sum_{(i,j) in fmt.products} A_limb[i] @ B_limb[j]
 Every limb product multiplies bf16 limbs *upcast to f32*: ``torch.matmul``
 of two bf16 tensors returns bf16, while a bf16 x bf16 product is exact in
-f32 (and in TF32), so the upcast product is the exact one.
+f32, so the upcast product is the exact one.
 
-This module is the ``ref`` backend of ``core/dispatch.py`` and the shared
-attention math the flash kernel's plain version runs.
+This module is the ``ref`` backend of ``core/dispatch.py``, the shared
+attention math the flash kernel's plain version runs, and the weight
+gradient of a batched activation (:func:`mp_wgrad_ref`, one plain product
+on every backend, as the JAX package leaves it to XLA).
 """
 from __future__ import annotations
 
@@ -206,6 +208,50 @@ def mp_fused_proj_ref(x: torch.Tensor, ws, mode: FormatLike, *,
         else:
             raws.append(_matmul_limbs(al, _limbs_of(w, s.n_limbs), s))
     return apply_epilogue(raws, gate=gate, biases=biases, residual=residual)
+
+
+def wgrad_stacks(a: torch.Tensor, g: torch.Tensor, mode: FormatLike):
+    """The operands of :func:`mp_wgrad_ref`'s one product: (T', K) and
+    (T', N) bf16 tensors, T' the tokens times the kept products (M8: the
+    bf16-rounded operands themselves)."""
+    s = resolve(mode)
+    K, N = a.shape[-1], g.shape[-1]
+    if a.shape[:-1] != g.shape[:-1]:
+        raise ValueError(f"wgrad operands disagree on their leading dims: "
+                         f"{tuple(a.shape)} and {tuple(g.shape)}")
+    if s.n_limbs == 1:
+        return (a.to(torch.bfloat16).reshape(-1, K),
+                g.float().to(torch.bfloat16).reshape(-1, N))
+    al = limbs_lib.decompose(a, s.n_limbs)
+    gl = limbs_lib.decompose(g.float(), s.n_limbs)
+    a_sel = torch.stack([al[i] for (i, j) in s.products])
+    g_sel = torch.stack([gl[j] for (i, j) in s.products])
+    return a_sel.reshape(-1, K), g_sel.reshape(-1, N)
+
+
+def wgrad_product(a_sel: torch.Tensor, g_sel: torch.Tensor) -> torch.Tensor:
+    """``a_sel^T @ g_sel`` of two bf16 stacks, products exact and summed in
+    f32.  On the card one bf16 GEMM with an f32 output (``out_dtype``:
+    f32 accumulation, set for this call alone; no process-wide precision
+    switch); on the CPU, which has no such product, the f32 product of the
+    upcast stacks."""
+    if a_sel.is_cuda:
+        return torch.mm(a_sel.t(), g_sel, out_dtype=torch.float32)
+    return torch.mm(a_sel.t().float(), g_sel.float())
+
+
+def mp_wgrad_ref(a: torch.Tensor, g: torch.Tensor, mode: FormatLike
+                 ) -> torch.Tensor:
+    """Weight gradient a^T·g contracting ALL leading dims at once:
+    a (..., K), g (..., N) -> (K, N) f32 (port of the JAX oracle's
+    ``mp_wgrad_ref``).
+
+    M8 is one product of the bf16-rounded operands; wider formats stack the
+    kept products' limbs, (P, ..., K) and (P, ..., N), and contract the
+    products and the tokens in ONE f32-accumulating product
+    (:func:`wgrad_stacks`, :func:`wgrad_product`; never a bf16 x bf16
+    product with a bf16 result)."""
+    return wgrad_product(*wgrad_stacks(a, g, mode))
 
 
 def matmul_golden_f64(a, b) -> np.ndarray:

@@ -1,0 +1,70 @@
+"""Training launcher (port of ``repro.launch.train``).
+
+    PYTHONPATH=src python -m repro_torch.launch.train --smoke --steps 50 \\
+        --policy train_default --device cpu
+
+Runs on the card unless ``--device cpu`` is given (every kernel wrapper
+then runs its plain version).  ``--arch`` takes the port's configurations
+(``paper-mpfp-100m``; ``--smoke`` for its CI-sized config).
+"""
+import argparse
+import os
+
+from repro_torch.configs import paper_mpfp
+from repro_torch.core.policy import POLICIES, get_policy
+from repro_torch.data.pipeline import DataConfig, SyntheticLM
+from repro_torch.optim import adamw
+from repro_torch.train import trainer as trainer_lib
+
+ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__)))))
+CONFIGS = {"paper-mpfp-100m": (paper_mpfp.CONFIG, paper_mpfp.SMOKE)}
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="paper-mpfp-100m",
+                    choices=sorted(CONFIGS))
+    ap.add_argument("--smoke", action="store_true",
+                    help="reduced config (CPU-sized)")
+    ap.add_argument("--steps", type=int, default=50)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--policy", default="train_default",
+                    choices=sorted(POLICIES))
+    ap.add_argument("--backend", default="",
+                    help="mp_matmul dispatch backend (cuda/ref); '' = the "
+                         "context's default")
+    ap.add_argument("--ckpt-dir", default="",
+                    help="default: build/ckpt/<arch> in the checkout")
+    ap.add_argument("--moment-dtype", default="float32")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default) or cpu")
+    args = ap.parse_args(argv)
+
+    full, smoke = CONFIGS[args.arch]
+    cfg = smoke if args.smoke else full
+    if not args.smoke and cfg.param_count() > 1e9 and args.device == "cpu":
+        raise SystemExit(f"{args.arch} full config is {cfg.param_count():,} "
+                         f"params — use --smoke on the CPU")
+
+    pipe = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=args.seq + 1,
+                                  global_batch=args.batch))
+    tcfg = trainer_lib.TrainerConfig(
+        opt=adamw.AdamWConfig(moment_dtype=args.moment_dtype),
+        total_steps=args.steps, warmup=max(2, args.steps // 20),
+        ckpt_dir=args.ckpt_dir or os.path.join(ROOT, "build", "ckpt",
+                                               args.arch),
+        ckpt_every=max(10, args.steps // 5), matmul_backend=args.backend)
+    trainer = trainer_lib.Trainer(cfg, tcfg, policy=get_policy(args.policy),
+                                  device=args.device)
+    state, history = trainer.run(pipe, num_steps=args.steps, log_every=10)
+    if history:
+        print(f"done: loss {history[0]:.4f} -> {history[-1]:.4f}")
+    else:
+        print(f"done: nothing to run (resumed at step {args.steps})")
+    return state, history
+
+
+if __name__ == "__main__":
+    main()

@@ -29,9 +29,9 @@ from repro_torch.serve.kv_cache import TRASH_BLOCK, PagedKVCache
 
 NEG_INF = -1e30
 
-# ceiling on the probability matrix (B·H·S·T f32 elements) the fused path
-# may form in the JAX package's backward; longer sequences take the
-# chunk-scan there, and the port routes them the same way
+# ceiling on the probability matrix (B·H·S·T f32 elements) the fused path's
+# backward forms densely; longer sequences take the chunk-scan, as in the
+# JAX package
 FUSED_P_MAX_ELEMENTS = 1 << 24
 
 
@@ -110,6 +110,8 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     mode_l = policy.mode("attn_qk")    # alias: attn_logits
     mode_o = policy.mode("attn_pv")    # alias: attn_out
+    bwd = policy.bwd_kwargs("attn_qk")
+    bwd_o = policy.bwd_kwargs("attn_pv")
 
     # (B, S_pad, H, Dh) -> (nq, B, H, qc, Dh)
     qr = q.reshape(B, nq, qc, H, Dh).permute(1, 0, 3, 2, 4) * scale.to(dev)
@@ -125,7 +127,8 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         d_run = torch.zeros((B, H, qc), device=dev)
         acc = torch.zeros((B, H, qc, Dh), device=dev)
         for ki in range(nk):
-            logits = mp_matmul(qr[qi], kr[ki].transpose(-1, -2), mode_l)
+            logits = mp_matmul(qr[qi], kr[ki].transpose(-1, -2), mode_l,
+                               **bwd)
             if causal:
                 mask = q_pos[qi][:, None] >= k_pos[ki][None, :]
                 if T_pad != T:  # padded tail keys are not real positions
@@ -137,7 +140,7 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             p = torch.exp(logits - m_new[..., None])
             alpha = torch.exp(m_run - m_new)
             d_run = d_run * alpha + p.sum(dim=-1)
-            pv = mp_matmul(p.float(), vr[ki], mode_o)
+            pv = mp_matmul(p.float(), vr[ki], mode_o, **bwd_o)
             acc = acc * alpha[..., None] + pv
             m_run = m_new
         outs.append(acc / torch.clamp(d_run[..., None], min=1e-30))
@@ -162,7 +165,14 @@ def _self_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             or B * H * S * T > FUSED_P_MAX_ELEMENTS):
         return chunked_attention(q, k, v, policy, causal=causal,
                                  q_chunk=q_chunk, kv_chunk=kv_chunk)
-    return mp_attention(q, k, v, fmt_qk, fmt_pv, causal=causal)
+    bwd_qk = policy.bwd_kwargs("attn_qk")
+    bwd_pv = policy.bwd_kwargs("attn_pv")
+    return mp_attention(
+        q, k, v, fmt_qk, fmt_pv, causal=causal,
+        dgrad_qk_mode=bwd_qk["dgrad_mode"],
+        wgrad_qk_mode=bwd_qk["wgrad_mode"],
+        dgrad_pv_mode=bwd_pv["dgrad_mode"],
+        wgrad_pv_mode=bwd_pv["wgrad_mode"])
 
 
 def gqa_forward(params: dict, x: torch.Tensor, dims: AttnDims,
@@ -185,7 +195,7 @@ def gqa_forward(params: dict, x: torch.Tensor, dims: AttnDims,
     else:
         # one fused projection group: x is read and limbed once for all
         q, k, v = mp_qkv_proj(x, params["wq"], params["wk"], params["wv"],
-                              policy.mode("qkv"))
+                              policy.mode("qkv"), **policy.bwd_kwargs("qkv"))
     q = q.reshape(B, S, h, dh)
     k = k.reshape(B, S, hk, dh)
     v = v.reshape(B, S, hk, dh)
@@ -236,7 +246,8 @@ def gqa_forward(params: dict, x: torch.Tensor, dims: AttnDims,
         env, ln, lo = lanes.for_class("attn_out")
         return (dispatch_lib.dispatch_mixed_matmul(out, params["wo"], env,
                                                    ln, lo), new_cache)
-    return mp_dense(out, params["wo"], policy.mode("attn_out")), new_cache
+    return (mp_dense(out, params["wo"], policy.mode("attn_out"),
+                     **policy.bwd_kwargs("attn_out")), new_cache)
 
 
 def _decode_attention(q: torch.Tensor, k_cache: torch.Tensor,

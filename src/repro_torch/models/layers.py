@@ -50,12 +50,52 @@ def swiglu_mlp(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
                                           epilogue="swiglu")
         return dispatch_lib.dispatch_mixed_matmul(h, w_down, env, ln, lo)
     mode = policy.mode(op_class)
-    h = mp_swiglu(x, w_gate, w_up, mode)
-    return mp_dense(h, w_down, mode)
+    bwd = policy.bwd_kwargs(op_class)
+    h = mp_swiglu(x, w_gate, w_up, mode, **bwd)
+    return mp_dense(h, w_down, mode, **bwd)
+
+
+def sorted_row_sum(ids: torch.Tensor, rows: torch.Tensor, n_rows: int
+                   ) -> torch.Tensor:
+    """``out[i] = sum of rows[t] where ids[t] == i`` -> (n_rows, D) f32,
+    each sum taken from +0.0 in the order of t, with no atomics and no
+    read back to the host: rows are sorted by id (stably), each id's run
+    is found by a binary search, and one segmented reduction adds every
+    run's rows in order.  PyTorch's gather backward accumulates duplicates
+    on the card in an order it does not promise, and a training step must
+    give the same bits twice."""
+    ids = ids.long()
+    order = torch.argsort(ids, stable=True)
+    ids_s, rows_s = ids[order], rows[order].float()
+    bounds = torch.searchsorted(
+        ids_s, torch.arange(n_rows + 1, device=ids.device))
+    return torch.segment_reduce(rows_s, "sum", lengths=bounds.diff(),
+                                unsafe=True)
+
+
+class _EmbedFn(torch.autograd.Function):
+    """``table[tokens]`` whose backward sums each row's gradients in token
+    order (:func:`sorted_row_sum`)."""
+
+    @staticmethod
+    def forward(ctx, table, tokens):
+        ctx.save_for_backward(tokens)
+        ctx.table_shape, ctx.table_dtype = table.shape, table.dtype
+        return table[tokens]
+
+    @staticmethod
+    def backward(ctx, g):
+        tokens, = ctx.saved_tensors
+        V, D = ctx.table_shape
+        d_table = sorted_row_sum(tokens.reshape(-1), g.reshape(-1, D), V)
+        return d_table.to(ctx.table_dtype), None
 
 
 def embed(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
-    """Token embedding lookup."""
+    """Token embedding lookup (a gather; under autograd its backward sums
+    in a fixed order)."""
+    if torch.is_grad_enabled() and table.requires_grad:
+        return _EmbedFn.apply(table, tokens)
     return table[tokens]
 
 
@@ -67,7 +107,8 @@ def unembed(x: torch.Tensor, w_head: torch.Tensor, policy: PrecisionPolicy
     if lanes is not None:
         env, ln, lo = lanes.for_class("lm_head")
         return dispatch_lib.dispatch_mixed_matmul(x, w_head, env, ln, lo)
-    return mp_dense(x, w_head, policy.mode("lm_head"))
+    return mp_dense(x, w_head, policy.mode("lm_head"),
+                    **policy.bwd_kwargs("lm_head"))
 
 
 # --------------------------------------------------------------------- RoPE

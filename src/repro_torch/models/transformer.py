@@ -2,15 +2,20 @@
 ``repro.models.transformer``): parameter init, forward, and the dense and
 paged KV caches.  Layers run as a Python loop over a list of per-layer
 parameter dicts (the JAX package scans stacked ``(L, ...)`` leaves; see
-``repro_torch.weights.params_from_jax``)."""
+``repro_torch.weights.params_from_jax``).  Under autograd with
+``cfg.remat`` each layer is rematerialized (the JAX package's
+``jax.checkpoint``): its forward runs again in the backward."""
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Dict, List, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import context as context_lib
 from repro_torch.core.policy import PrecisionPolicy
 from repro_torch.models import attention as attn_lib
 from repro_torch.models.attention import AttnDims, KVCache
@@ -108,6 +113,29 @@ def _dense_layer_fwd(lp: dict, h: torch.Tensor, cfg: ModelConfig,
     return h, new_cache
 
 
+def _remat_layer(lp: dict, h: torch.Tensor, cfg: ModelConfig,
+                 policy: PrecisionPolicy, positions: torch.Tensor
+                 ) -> torch.Tensor:
+    """One layer under ``torch.utils.checkpoint`` (non-reentrant): only its
+    input is kept, and its forward runs again when the backward reaches it,
+    under the precision context of the first run (the recompute runs on the
+    autograd engine's thread)."""
+    ctx = context_lib.current_context()
+
+    def layer(h):
+        return _dense_layer_fwd(lp, h, cfg, policy, positions, None)[0]
+
+    return torch.utils.checkpoint.checkpoint(
+        layer, h, use_reentrant=False,
+        context_fn=lambda: (contextlib.nullcontext(),
+                            context_lib.scoped(ctx)))
+
+
+def _needs_grad(h: torch.Tensor, lp: dict) -> bool:
+    return torch.is_grad_enabled() and (h.requires_grad or any(
+        w.requires_grad for group in lp.values() for w in group.values()))
+
+
 def forward(params: dict, inputs: Dict[str, torch.Tensor], cfg: ModelConfig,
             policy: PrecisionPolicy, *, cache: Optional[ModelCache] = None
             ) -> Tuple[torch.Tensor, Optional[ModelCache]]:
@@ -123,6 +151,9 @@ def forward(params: dict, inputs: Dict[str, torch.Tensor], cfg: ModelConfig,
         B, S)
     new_caches = []
     for i, lp in enumerate(params["layers"]):
+        if cfg.remat and cache is None and _needs_grad(h, lp):
+            h = _remat_layer(lp, h, cfg, policy, positions)
+            continue
         lc = cache.attn[i] if cache is not None else None
         h, nc = _dense_layer_fwd(lp, h, cfg, policy, positions, lc)
         new_caches.append(nc)

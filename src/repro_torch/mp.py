@@ -24,8 +24,9 @@ where every kernel wrapper runs its plain PyTorch version
 Not here, because the port does not have them yet (ROADMAP.md): the
 autotune switch (``autotune_enabled``) and the backend registry
 (``pin_backend``, ``register_backend``, ``unregister_backend``); the port's
-two backends are fixed (``available_backends``).  The ops are forward only:
-the backward formats of the JAX facade's ops come with the training slice.
+two backends are fixed (``available_backends``).  The static-format ops
+are differentiable, with the JAX facade's backward formats (``bwd_mode``,
+``dgrad_mode``, ``wgrad_mode``); AUTO under autograd is not ported yet.
 """
 from repro_torch.core.formats import (  # noqa: F401
     FormatLike,

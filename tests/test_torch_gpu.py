@@ -1064,3 +1064,153 @@ def test_subnormal_products_are_kept(cuda, mode):
     assert sub.any() and (out[sub] != 0).all()
     _assert_within(out[fin], ref[fin], _floor(ref[fin], 16))
     assert torch.equal(out.view(torch.int32), big.view(torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# the training slice's shapes and layouts
+# ---------------------------------------------------------------------------
+def _bitwise(x, y):
+    torch.cuda.synchronize()
+    return torch.equal(x.view(torch.int32), y.view(torch.int32))
+
+
+@pytest.mark.parametrize("M,K,N", [(130, 200, 300), (256, 768, 3072)])
+@pytest.mark.parametrize("mode", ["M8", "M16", "M23"])
+def test_transposed_operands_are_the_contiguous_launch(cuda, mode, M, K, N):
+    """dgrad's g @ W^T (B a transposed view, unit row stride) and a 2-D
+    wgrad's x^T @ g (A a transposed view): the wrapper copies them to
+    row-major, and the launch on the views as they are (the kernel's
+    strided copies) gives the same bits; both agree with the plain
+    version."""
+    lib, stream = build.load("mp_matmul"), \
+        torch.cuda.current_stream().cuda_stream
+    g, w = _randn(cuda, M, N, seed=170), _randn(cuda, K, N, seed=171)
+    x = _randn(cuda, M, K, seed=172)
+    for a, b, k in ((g, w.t(), N), (x.t(), g, M)):
+        out = mp_matmul.mp_fused_matmul(a, b, mode)
+        assert _bitwise(out, mp_matmul.launch_fused_matmul(lib, stream, a, b,
+                                                           resolve(mode)))
+        assert _bitwise(out, mp_matmul.mp_fused_matmul(
+            a.contiguous(), b.contiguous(), mode))
+        _assert_mm_close(out, mp_matmul.fused_matmul_plain(a, b, mode), k)
+
+
+@pytest.mark.parametrize("mode", ["M8", "M16", "M23"])
+def test_attention_backward_products_batch_entries_are_solo(cuda, mode):
+    """The attention backward's both-batched products at M = 128 (P^T·dO,
+    dO·V^T, dS·K, dS^T·Qs on (B, H, S, Dh) views of (B, S, H, Dh) tensors):
+    each (b, h) entry bitwise the same product launched alone, and the
+    batch within the floor of the plain version."""
+    B, H, S, Dh = 2, 3, 128, 64
+    bshd = lambda s: _randn(cuda, B, S, H, Dh, seed=s).permute(0, 2, 1, 3)
+    gh, vh, kh, qh = bshd(173), bshd(174), bshd(175), bshd(176)
+    p = torch.softmax(_randn(cuda, B, H, S, S, seed=177), dim=-1)
+    for a, b in ((p.transpose(-1, -2), gh), (gh, vh.transpose(-1, -2)),
+                 (p, kh), (p.transpose(-1, -2), qh)):
+        before = mp_matmul.mp_fused_matmul.launches
+        out = mp_matmul.mp_fused_matmul(a, b, mode)
+        assert mp_matmul.mp_fused_matmul.launches == before + 1
+        _assert_mm_close(out, mp_matmul.fused_matmul_plain(a, b, mode),
+                         a.shape[-1])
+        for i in range(B):
+            for j in range(H):
+                solo = mp_matmul.mp_fused_matmul(a[i, j], b[i, j], mode)
+                assert _bitwise(out[i, j], solo), (i, j)
+
+
+@pytest.mark.parametrize("n_out", [2, 3])
+@pytest.mark.parametrize("mode", ["M16", "M23"])
+def test_fused_proj_without_gate_at_training_rows(cuda, mode, n_out):
+    """The projection under autograd: gate "none", 2 (gate/up) or 3 (QKV)
+    outputs at M = 1024 rows; each output the fused matmul's bits."""
+    a = _randn(cuda, 1024, 768, seed=178)
+    ws = [_randn(cuda, 768, 512, seed=179 + t) * 0.03 for t in range(n_out)]
+    out = mp_matmul.mp_fused_proj(a, ws, mode)
+    _assert_mm_close(out, mp_matmul.fused_proj_plain(a, ws, mode), 768)
+    for t, w in enumerate(ws):
+        assert _bitwise(out[t], mp_matmul.mp_fused_matmul(a, w, mode))
+
+
+def test_wgrad_product_on_the_card_keeps_f32_elsewhere(cuda):
+    """The weight gradient's one plain product (bf16 operands, f32 output,
+    exact products) agrees with the CPU's within the f32 floor, and leaves
+    the process's f32 matmul precision as it was."""
+    from repro_torch.kernels import ref
+
+    a, g = _randn(cuda, 8, 128, 768, seed=182), _randn(cuda, 8, 128, 256,
+                                                       seed=183)
+    assert torch.get_float32_matmul_precision() == "highest"
+    for mode in ("M8", "M16", "M23"):
+        out = ref.mp_wgrad_ref(a, g, mode)
+        want = ref.mp_wgrad_ref(a.cpu(), g.cpu(), mode)
+        _assert_mm_close(out, want.to(cuda), 3 * 1024)
+        assert torch.get_float32_matmul_precision() == "highest"
+
+
+def test_embedding_backward_on_the_card_is_the_cpus_sum(cuda):
+    """The embedding's backward at the training shape (1,024 tokens, one
+    id 300 times, a 32,000-row table): bitwise the CPU's token-order sum,
+    twice the same bits, and no read back to the host (CUDA's sync debug
+    mode raises on one)."""
+    from repro_torch.models.layers import sorted_row_sum
+
+    g = torch.Generator().manual_seed(184)
+    V, D = 32000, 768
+    ids = torch.cat([torch.zeros(300, dtype=torch.long),
+                     torch.randint(0, 50, (400,), generator=g),
+                     torch.randint(0, V, (324,), generator=g)])
+    ids = ids[torch.randperm(1024, generator=g)]
+    rows = torch.randn(1024, D, generator=g)
+    want = sorted_row_sum(ids, rows, V)
+    ids_c, rows_c = ids.to(cuda), rows.to(cuda)
+    sorted_row_sum(ids_c, rows_c, V)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = sorted_row_sum(ids_c, rows_c, V)
+        again = sorted_row_sum(ids_c, rows_c, V)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.equal(got.cpu(), want) and torch.equal(got, again)
+
+
+def test_smoke_training_step_on_the_card(cuda):
+    """A SMOKE train_default step with remat on the card: the launch counts
+    of the formula, no plain-version call, the loss and every gradient
+    leaf within 5e-4 of the CPU's, and the same step twice bitwise."""
+    from repro_torch import tree as tree_lib
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.optim import adamw
+    from repro_torch.train import trainer as trainer_lib
+
+    cfg = paper_mpfp.SMOKE
+    tcfg = trainer_lib.TrainerConfig(total_steps=10, warmup=2)
+    gpu = trainer_lib.Trainer(cfg, tcfg)
+    cpu = trainer_lib.Trainer(cfg, tcfg, device="cpu")
+    state = cpu.init_state()
+    batch = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=33,
+                                   global_batch=4)).batch(0)
+    gstate = trainer_lib.TrainState(
+        tree_lib.map_(lambda x: x.to(cuda), state.params),
+        adamw.init(tree_lib.map_(lambda x: x.to(cuda), state.params),
+                   tcfg.opt))
+    loss_fn = trainer_lib.make_loss_fn(cfg, gpu.policy)
+    kernels.reset_launch_counts()
+    (lg, _), gg = trainer_lib.value_and_grad(loss_fn, gstate.params,
+                                             gpu.to_device(batch))
+    L = cfg.n_layers
+    assert kernels.launch_counts() == {
+        **dict.fromkeys(kernels.KERNELS, 0), "mp_fused_proj": 4 * L,
+        "mp_flash_attention": 2 * L, "mp_fused_matmul": 16 * L + 2}
+    assert not any(kernels.plain_call_counts().values())
+    (lc, _), gc = trainer_lib.value_and_grad(loss_fn, state.params,
+                                             cpu.to_device(batch))
+    assert abs(lg.item() - lc.item()) <= 1e-5 * abs(lc.item())
+    for a, b in zip(tree_lib.leaves(gg), tree_lib.leaves(gc)):
+        assert (a.cpu() - b).abs().max() <= 5e-4 * b.abs().max()
+    s1, m1 = gpu._step_fn(gstate, gpu.to_device(batch))
+    s2, m2 = gpu._step_fn(gstate, gpu.to_device(batch))
+    assert _bitwise(m1["loss"], m2["loss"])
+    for a, b in zip(tree_lib.leaves(s1), tree_lib.leaves(s2)):
+        assert torch.equal(a, b)
+    assert torch.get_float32_matmul_precision() == "highest"

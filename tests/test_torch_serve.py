@@ -185,7 +185,9 @@ def test_import_hygiene_no_jax_no_repro():
     assert {"repro_torch.serve.engine", "repro_torch.kernels.build",
             "repro_torch.weights", "repro_torch.serve.kv_cache",
             "repro_torch.serve.primitives", "repro_torch.core.lanes",
-            "repro_torch.serve.scheduler"} <= set(res["mods"])
+            "repro_torch.serve.scheduler", "repro_torch.train.trainer",
+            "repro_torch.optim.adamw", "repro_torch.checkpoint.checkpoint",
+            "repro_torch.launch.train"} <= set(res["mods"])
 
 
 def test_ptxas_summary_compares_entries_across_versions():
