@@ -83,6 +83,38 @@ line is not printed):
    entry bitwise launched alone, the projections with gate "none" at 1024
    rows, flash M16/M16 at (8, 128, 12, 64), each against its float64
    golden;
+4g. ``[train-auto]``: one step of the full-width model at 8 x 128 under
+   ``PrecisionPolicy.auto()`` with remat: launches and AUTO's host reads
+   exactly ``auto_train_launches`` / ``auto_train_reads`` (the forward's
+   AUTO matmuls, again in remat's recompute, which must select what the
+   forward selected), remat on == off bitwise, the loss and gradients
+   against the ``ref`` backend at ``[train]``'s bounds; step ms, busy ms,
+   idle share, host reads a step;
+4h. ``[train-more]``: ``train_fast`` (the M8 attention backward; held
+   against the ``ref`` backend at M8's bound 2^-6 on the loss and each
+   leaf's norm) and ``full_fp32`` (escalation's policy, ``[train]``'s
+   bounds) value-and-grad at full depth, microbatch accumulation (equal to
+   the full batch and to the ``ref`` backend) and a NaN rollback with
+   escalation (losses against the ``ref`` backend's run) at depth 2 and
+   full widths, each with its launch counts;
+4i. ``[fleet]``: 24 requests (modes M8 / M16 / M23 / M36 in turn, prompts
+   of 64..256 tokens, 16..32 new, two arrivals a tick) through
+   ``make_fleet(engine, 4, n_blocks=64, block_size=16)`` under
+   ``mode_affinity``, one interleaved cell (the mixed-lane kernels) and
+   ``round_robin``: every stream bitwise ``ContinuousScheduler``'s on the
+   same engine and trace, every request done, pools whole, no parked
+   handoff, no error on any cell's health record, launches what the
+   prefills, decode launches (bucket and mixed) and prelimbs imply; then
+   one router tick with 16 slots decoding: host ms, busy ms, idle share;
+4j. ``[chaos]``: ``FaultPlan.chaos(seed=0, n_cells=4)`` over 48 such
+   requests (four arrivals a tick, so handoffs cross pools) under
+   ``least_kv``, with ``benchmarks/chaos_soak.py``'s gates: every event
+   fired, no lost request, no leaked block, slot or handoff, untouched
+   streams == the no-fault run, each recovered suffix == a resumed solo
+   run at its (possibly escalated) mode, the plan twice identical, recovery
+   p95 <= 24 ticks; then one ``pool_block_corrupt`` handoff the guardrail
+   catches.  A failed gate of 4g-4j is logged and the phases go on; the
+   run fails after them;
 5. a ``kernels`` JSON line: per kernel its launches on its main path, its
    device time (CUDA events around calls enqueued behind a sleep kernel, so
    the card runs them back to back; the time of calls issued one after the
@@ -150,17 +182,6 @@ EXPECTED = {"mp_fused_proj": 24 + 32 * 24, "mp_flash_attention": 12,
             "mp_prelimbed_matmul": 0, "mp_paged_attention": 0,
             "mp_mixed_prelimbed_matmul": 0, "mp_mixed_paged_attention": 0,
             "mp_both_prelimbed_matmul": 0}
-# the scheduler path: one prelimb decomposes 7 matrices per layer + lm_head;
-# a B=1 paged prefill runs QKV and SwiGLU fused projections, flash attention
-# and wo, w_down per layer + lm_head; a decode launch runs 7 pre-limbed
-# matmuls and one paged attention per layer + the pre-limbed lm_head
-PER_PRELIMB = {"mp_decompose": 12 * 7 + 1}
-PER_PREFILL = {"mp_fused_proj": 24, "mp_flash_attention": 12,
-               "mp_fused_matmul": 25}
-PER_DECODE = {"mp_prelimbed_matmul": 12 * 7 + 1, "mp_paged_attention": 12}
-# a mixed decode launch runs the same call sites on the mixed-lane kernels
-PER_MIXED = {"mp_mixed_prelimbed_matmul": 12 * 7 + 1,
-             "mp_mixed_paged_attention": 12}
 # the mixed-traffic modes, request i at MODES[i % 4]: the serving builtins
 # and a custom format that keeps all four 2-limb products (M16 keeps three)
 CUSTOM = dict(name="M16FULL", mantissa_bits=16, n_limbs=2, max_order=2)
@@ -205,6 +226,686 @@ def train_launches(n_layers: int, remat: bool = True) -> dict:
     return {"mp_fused_proj": 2 * fwd * n_layers,
             "mp_flash_attention": fwd * n_layers,
             "mp_fused_matmul": n_layers * (2 * fwd + 12) + 2}
+
+
+# the fleet and chaos paths: paper-mpfp-100m behind the router, the modes in
+# turn; the chaos trace is twice as long and twice as dense, so that decode
+# slots fill and handoffs cross pools (where handoff_transfer_fail fires)
+FLEET_MODES = ("M8", "M16", "M23", "M36")
+N_CELLS = 4
+FLEET_REQUESTS, CHAOS_REQUESTS = 24, 48
+FLEET_BLOCKS, CHAOS_BLOCKS, SCHED_BLOCKS = 64, 153, 160
+# recovery p95 limit, in ticks (benchmarks/chaos_soak.py --max-recovery-p95)
+MAX_RECOVERY_P95 = 24.0
+# an injected fault's record on a cell's health (router.py): anything else
+# there is a real exception the router caught
+INJECTED_ERRORS = (None, "crash", "straggler")
+
+
+def _n_chunks(n: int, chunk: int) -> int:
+    """The chunk-scan's chunk count along a length (models/attention.py
+    ``chunked_attention``)."""
+    k = max(1, n // chunk)
+    return k if n % k == 0 else -(-n // max(1, min(chunk, n)))
+
+
+def auto_train_launches(cfg, seq: int, remat: bool = True) -> dict:
+    """Kernel launches of one step under ``PrecisionPolicy.auto()``: AUTO
+    runs each matmul alone on the fused kernel (no projection group, and
+    attention on the chunk-scan, a QK and a PV product per pair of query
+    and key chunks: one pair at the full config's 1024-token chunks), so
+    per layer the forward's 3 QKV branches, wo, gate, up and w_down and 2
+    products a pair (run twice with remat) and the backward's dgrads (QKV
+    3, wo 1, gate/up 2, w_down 1) plus both operands' gradients of each
+    pair's two products (batched, so kernels); lm_head (M23) forward and
+    dgrad."""
+    pairs = (_n_chunks(seq, cfg.attn_q_chunk)
+             * _n_chunks(seq, cfg.attn_kv_chunk))
+    fwd = (7 + 2 * pairs) * (2 if remat else 1)
+    return {"mp_fused_matmul": cfg.n_layers * (fwd + 7 + 4 * pairs) + 2}
+
+
+def auto_train_reads(cfg, seq: int, remat: bool = True) -> int:
+    """AUTO's host reads of one step: one per AUTO matmul of the forward
+    (7 + 2 a chunk pair, a layer), again in remat's recompute; the backward
+    runs the selected formats and reads nothing."""
+    pairs = (_n_chunks(seq, cfg.attn_q_chunk)
+             * _n_chunks(seq, cfg.attn_kv_chunk))
+    return (7 + 2 * pairs) * cfg.n_layers * (2 if remat else 1)
+
+
+def serve_launches(n_layers: int, prefills: int, bucket: int, mixed: int,
+                   prelimbs: int) -> dict:
+    """Kernel launches of a serving run from its counts: a B = 1 paged
+    prefill runs the QKV and SwiGLU projections, flash attention, wo and
+    w_down a layer and lm_head; a decode launch 7 pre-limbed matmuls a layer
+    and lm_head plus paged attention a layer (a mixed launch the same on the
+    mixed-lane kernels); a prelimb decomposes the same 7L + 1 weights."""
+    mm = 7 * n_layers + 1
+    return {"mp_fused_proj": 2 * n_layers * prefills,
+            "mp_flash_attention": n_layers * prefills,
+            "mp_fused_matmul": (2 * n_layers + 1) * prefills,
+            "mp_decompose": mm * prelimbs,
+            "mp_prelimbed_matmul": mm * bucket,
+            "mp_paged_attention": n_layers * bucket,
+            "mp_mixed_prelimbed_matmul": mm * mixed,
+            "mp_mixed_paged_attention": n_layers * mixed,
+            "mp_both_prelimbed_matmul": 0}
+
+
+def fleet_trace(vocab: int, n: int, per_tick: int, seed: int = 0):
+    """``n`` requests at FLEET_MODES in turn, prompts of 64..256 tokens,
+    16..32 new tokens, ``per_tick`` arrivals a tick (fresh objects every
+    call: a run writes into its requests)."""
+    import numpy as np
+
+    from repro_torch.serve.primitives import ScheduledRequest
+
+    rng = np.random.default_rng(seed)
+    reqs = []
+    for i in range(n):
+        size, new = int(rng.integers(64, 257)), int(rng.integers(16, 33))
+        reqs.append(ScheduledRequest(
+            rid=i, prompt=rng.integers(1, vocab, size=size).astype(np.int32),
+            max_new=new, mode=FLEET_MODES[i % len(FLEET_MODES)],
+            arrival=i // per_tick))
+    return reqs
+
+
+class Failures:
+    """The new phases' gates: a failed gate is logged and kept, the phase
+    goes on, and :meth:`raise_if_any` fails the run at the end, so one run
+    on the card shows every gate."""
+
+    def __init__(self):
+        self.items = []
+
+    def check(self, ok, what: str) -> bool:
+        if not ok:
+            self.items.append(what)
+            log(f"[FAIL] {what}")
+        return bool(ok)
+
+    def run(self, label: str, fn, *args, **kw):
+        import traceback
+
+        try:
+            return fn(*args, **kw)
+        except Exception as err:  # noqa: BLE001 — kept, raised at the end
+            self.items.append(f"{label}: {type(err).__name__}: {err}")
+            log(f"[FAIL] {label}: {type(err).__name__}: {err}")
+            log(traceback.format_exc())
+            return None
+
+    def raise_if_any(self) -> None:
+        if self.items:
+            raise AssertionError(f"{len(self.items)} gates failed: "
+                                 + " | ".join(self.items))
+
+
+class Counted:
+    """Counts the decode step calls by kind, the cross-pool block transfers
+    and the handoffs delivered, while it is entered."""
+
+    def __init__(self):
+        self.steps = {"mixed": 0, "bucket": 0}
+        self.transfers = 0
+
+    def __enter__(self):
+        from repro_torch.serve import primitives as prim
+        from repro_torch.serve.kv_cache import PagedKVPool
+
+        self._real = (prim.decode_mixed_step, prim.decode_bucket_step,
+                      PagedKVPool.transfer_blocks)
+
+        def counted(kind, real):
+            def step(*args, **kw):
+                self.steps[kind] += 1
+                return real(*args, **kw)
+            return step
+
+        def transfer(pool, *args, **kw):
+            self.transfers += 1
+            return self._real[2](pool, *args, **kw)
+
+        prim.decode_mixed_step = counted("mixed", self._real[0])
+        prim.decode_bucket_step = counted("bucket", self._real[1])
+        PagedKVPool.transfer_blocks = transfer
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.serve import primitives as prim
+        from repro_torch.serve.kv_cache import PagedKVPool
+
+        (prim.decode_mixed_step, prim.decode_bucket_step,
+         PagedKVPool.transfer_blocks) = self._real
+        return False
+
+
+def grads_vs_ref(fail, tag, loss_fn, params, batch, sync, m8=False):
+    """Loss and gradients on the kernels and on the ``ref`` backend, held at
+    ``[train]``'s bounds (loss 1e-5 relative; each leaf 5e-4 of its max).
+    ``m8``: the policy puts whole op classes at M8, whose products round
+    their operands to bf16, and two sum orders of an operand (the kernels'
+    and the ref backend's) can round it to neighbouring bf16 values; such a
+    step is held at M8's format bound 2^-6, on the loss and on each leaf's
+    norm (the CPU tests hold the M8 attention backward against JAX in the
+    norm too, tests/test_torch_grad.py)."""
+    from repro_torch import tree as tree_lib
+    from repro_torch.core import context as context_lib
+    from repro_torch.train import trainer as trainer_lib
+
+    (l_k, _), g_k = trainer_lib.value_and_grad(loss_fn, params, batch)
+    sync()
+    with context_lib.context(backend="ref"):
+        (l_r, _), g_r = trainer_lib.value_and_grad(loss_fn, params, batch)
+    sync()
+    loss_rel = abs(l_k.item() - l_r.item()) / abs(l_r.item())
+    leaf = {p: ((a - b).abs().max() / b.abs().max()).item()
+            for (p, a), b in zip(tree_lib.items(g_k), tree_lib.leaves(g_r))}
+    norm = {p: ((a - b).norm() / b.norm()).item()
+            for (p, a), b in zip(tree_lib.items(g_k), tree_lib.leaves(g_r))}
+    worst, worst_n = max(leaf, key=leaf.get), max(norm, key=norm.get)
+    if m8:
+        bound = 2.0 ** -6
+        ok = loss_rel <= bound and norm[worst_n] <= bound
+        rule = f"M8's bound {bound:.3e} on the loss and each leaf's norm"
+    else:
+        ok = loss_rel <= 1e-5 and leaf[worst] < 5e-4
+        rule = "loss 1e-5, each leaf 5e-4 of its max"
+    log(f"[{tag}] against the ref backend: loss {l_k.item():.6f} vs "
+        f"{l_r.item():.6f} (rel {loss_rel:.3e}); worst gradient leaf "
+        f"{worst} {leaf[worst]:.3e} of its max, worst in the norm "
+        f"{worst_n} {norm[worst_n]:.3e} (bounds: {rule})")
+    fail.check(ok, f"[{tag}] disagrees with the ref backend")
+    return (l_k, g_k), dict(loss_rel=loss_rel, worst_leaf=worst,
+                            worst_leaf_err=leaf[worst], worst_norm=worst_n,
+                            worst_norm_err=norm[worst_n])
+
+
+def train_auto_phase(fail, cfg, dev, smi, counts):
+    """``[train-auto]``: one step of the model under
+    ``PrecisionPolicy.auto()`` at TRAIN_BATCH x TRAIN_SEQ with remat."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch import tree as tree_lib
+    from repro_torch.core import auto as auto_lib
+    from repro_torch.core.policy import PrecisionPolicy
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.train import trainer as trainer_lib
+
+    on_card = dev.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    policy = PrecisionPolicy.auto()
+    trainer = trainer_lib.Trainer(
+        cfg, trainer_lib.TrainerConfig(total_steps=TRAIN_STEPS, warmup=2),
+        policy=policy, device=str(dev))
+    pipe = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ + 1,
+                                  global_batch=TRAIN_BATCH))
+    state0 = trainer.init_state(seed=0)
+    batch0 = trainer.to_device(pipe.batch(0))
+    zero = dict.fromkeys(kernels.KERNELS, 0)
+
+    def value_and_grad(model_cfg):
+        kernels.reset_launch_counts()
+        out = trainer_lib.value_and_grad(
+            trainer_lib.make_loss_fn(model_cfg, policy), state0.params,
+            batch0)
+        sync()
+        return out, counts(), auto_lib.mp_matmul_auto.host_reads
+
+    (on, on_n, on_reads) = value_and_grad(cfg)
+    want = {**zero, **auto_train_launches(cfg, TRAIN_SEQ)}
+    reads = auto_train_reads(cfg, TRAIN_SEQ)
+    log(f"[train-auto] value and grad: launches {on_n}, host reads "
+        f"{on_reads} (want {want['mp_fused_matmul']} fused matmuls, "
+        f"{reads} reads: {reads // 2} forward AUTO calls and as many in "
+        f"remat's recompute)")
+    fail.check(on_n == want and on_reads == reads,
+               "[train-auto] launches or host reads off the formula")
+    (off, off_n, off_reads) = value_and_grad(
+        dataclasses.replace(cfg, remat=False))
+    fail.check(off_n == {**zero, **auto_train_launches(cfg, TRAIN_SEQ,
+                                                       remat=False)}
+               and off_reads == auto_train_reads(cfg, TRAIN_SEQ,
+                                                 remat=False),
+               "[train-auto] launches or host reads without remat")
+    same = torch.equal(on[0][0], off[0][0]) and all(
+        torch.equal(a, b) for a, b in zip(tree_lib.leaves(on[1]),
+                                          tree_lib.leaves(off[1])))
+    fail.check(same, "[train-auto] remat's gradients are not bitwise the "
+               "gradients without remat")
+    log(f"[train-auto] remat on == remat off, loss and every gradient "
+        f"{'bitwise' if same else 'DIFFER'}")
+    del on, off
+    _, vs_ref = grads_vs_ref(fail, "train-auto", trainer_lib.make_loss_fn(
+        cfg, policy), state0.params, batch0, sync)
+    out = dict(policy="auto", batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+               launches=on_n, host_reads=on_reads, host_reads_want=reads,
+               launches_no_remat=off_n, host_reads_no_remat=off_reads,
+               remat_bitwise=same, **vs_ref)
+    # one Trainer step: host clock, reads, busy and idle share
+    state, step_ms = state0, []
+    for i in range(3):
+        b = trainer.to_device(pipe.batch(1 + i))
+        kernels.reset_launch_counts()
+        sync()
+        t0 = time.perf_counter()
+        state, m = trainer._step_fn(state, b)
+        sync()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        fail.check(auto_lib.mp_matmul_auto.host_reads == reads
+                   and counts() == want and math.isfinite(m["loss"].item()),
+                   f"[train-auto] Trainer step {i}: reads "
+                   f"{auto_lib.mp_matmul_auto.host_reads}, launches "
+                   f"{counts()}")
+    med = float(np.median(step_ms))
+    out.update(step_ms=step_ms, step_ms_median=med,
+               tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / med * 1e3)
+    msg = (f"[train-auto] Trainer step {med:.2f} ms (host clock after "
+           f"synchronize, {[round(x, 2) for x in step_ms]}), "
+           f"{out['tokens_per_s']:.0f} tokens/s, {reads} host reads a step")
+    if on_card:
+        b = trainer.to_device(pipe.batch(4))
+        busy, by_name = device_busy_ms(lambda: trainer._step_fn(state, b))
+        out.update(busy_ms=busy, idle_share=max(0.0, 1 - busy / med),
+                   busy_by_name=by_name)
+        msg += (f"; busy {busy:.2f} ms, idle share {out['idle_share']:.3f}; "
+                f"busy by name {dict(list(by_name.items())[:6])} ({smi})")
+    log(msg)
+    return out
+
+
+def train_more_phase(fail, cfg, dev, smi, counts, ck_root):
+    """``[train-more]``: the training paths ``[train]`` does not run, each
+    with its launch counts and the ref backend: a ``train_fast`` step (the
+    M8 attention backward) and a ``full_fp32`` one (escalation's policy) at
+    full depth; microbatch accumulation and a NaN rollback at depth 2 (full
+    widths: the checkpoints stay small)."""
+    import dataclasses
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch import tree as tree_lib
+    from repro_torch.core import context as context_lib
+    from repro_torch.core.policy import PrecisionPolicy
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.train import trainer as trainer_lib
+
+    on_card = dev.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    zero = dict.fromkeys(kernels.KERNELS, 0)
+    pipe = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ + 1,
+                                  global_batch=TRAIN_BATCH))
+    out = {}
+    for name in ("train_fast", "full_fp32"):
+        policy = getattr(PrecisionPolicy, name)()
+        trainer = trainer_lib.Trainer(cfg, trainer_lib.TrainerConfig(),
+                                      policy=policy, device=str(dev))
+        params = trainer.init_state(seed=0).params
+        batch = trainer.to_device(pipe.batch(0))
+        kernels.reset_launch_counts()
+        loss_fn = trainer_lib.make_loss_fn(cfg, policy)
+        trainer_lib.value_and_grad(loss_fn, params, batch)
+        sync()
+        n = counts()
+        want = {**zero, **train_launches(cfg.n_layers)}
+        fail.check(n == want, f"[train-more] {name} launches {n} != {want}")
+        _, vs_ref = grads_vs_ref(fail, f"train-more {name}", loss_fn, params,
+                                 batch, sync, m8=name == "train_fast")
+        log(f"[train-more] {name} value and grad, {cfg.n_layers} layers: "
+            f"launches {n}")
+        out[name] = dict(launches=n, **vs_ref)
+        del trainer, params
+    # depth 2 from here: two layers of full width
+    cfg2 = dataclasses.replace(cfg, n_layers=2)
+    want2 = {**zero, **train_launches(2)}
+    policy = PrecisionPolicy.full_fp32()
+    trainer = trainer_lib.Trainer(cfg2, trainer_lib.TrainerConfig(),
+                                  policy=policy, device=str(dev))
+    params = trainer.init_state(seed=0).params
+    batch = trainer.to_device(pipe.batch(0))
+    loss_fn = trainer_lib.make_loss_fn(cfg2, policy)
+    (_, _), g_full = trainer_lib.value_and_grad(loss_fn, params, batch)
+    micro = TRAIN_BATCH // 2
+    kernels.reset_launch_counts()
+    g_micro, m = trainer_lib._accum_grads(loss_fn, params, batch, micro)
+    sync()
+    n = counts()
+    err = max(((a - b).abs().max() / b.abs().max()).item()
+              for a, b in zip(tree_lib.leaves(g_micro),
+                              tree_lib.leaves(g_full)))
+    fail.check(n == {k: 2 * v for k, v in want2.items()},
+               f"[train-more] microbatch launches {n}")
+    fail.check(err < 5e-4 and math.isfinite(m["loss"].item()),
+               f"[train-more] microbatches vs the full batch {err:.3e}")
+    with context_lib.context(backend="ref"):
+        g_ref, m_ref = trainer_lib._accum_grads(loss_fn, params, batch, micro)
+    sync()
+    ref_err = max(((a - b).abs().max() / b.abs().max()).item()
+                  for a, b in zip(tree_lib.leaves(g_micro),
+                                  tree_lib.leaves(g_ref)))
+    loss_rel = abs(m["loss"].item() - m_ref["loss"].item()) / abs(
+        m_ref["loss"].item())
+    fail.check(loss_rel <= 1e-5 and ref_err < 5e-4,
+               "[train-more] microbatches disagree with the ref backend")
+    log(f"[train-more] microbatch {micro} x 2 at depth 2 (full widths), "
+        f"full_fp32: launches {n}; the mean of the microbatches' gradients "
+        f"vs the full batch's: worst leaf {err:.3e} of its max (bound "
+        f"5e-4); vs the ref backend: loss rel {loss_rel:.3e}, worst leaf "
+        f"{ref_err:.3e}")
+    out["microbatch"] = dict(depth=2, micro=micro, launches=n,
+                             vs_full_batch=err, loss_rel_vs_ref=loss_rel,
+                             grad_err_vs_ref=ref_err)
+    del trainer, params, g_full, g_micro, g_ref
+    # NaN rollback at depth 2: step 3's parameters poisoned, rollback to the
+    # checkpoint of step 2, the rest at full_fp32 (escalation)
+    hist = {}
+    for backend in ("", "ref"):
+        ck = ck_root / f"rollback{backend}"
+        shutil.rmtree(ck, ignore_errors=True)
+        trainer = trainer_lib.Trainer(
+            cfg2, trainer_lib.TrainerConfig(
+                total_steps=4, warmup=2, ckpt_dir=str(ck), ckpt_every=2,
+                keep=1, matmul_backend=backend),
+            policy=PrecisionPolicy.train_default(), device=str(dev))
+        real, calls = trainer._step_fn, {"n": 0}
+
+        def poisoned(state, b, real=real, calls=calls):
+            calls["n"] += 1
+            new, metrics = real(state, b)
+            if calls["n"] == 3:
+                bad = tree_lib.map_(lambda x: x * float("nan"), new.params)
+                new = trainer_lib.TrainState(bad, new.opt)
+                metrics = dict(metrics, params_finite=torch.zeros(()))
+            return new, metrics
+
+        trainer._step_fn = poisoned
+        kernels.reset_launch_counts()
+        state, h = trainer.run(pipe, num_steps=4, log_every=0)
+        sync()
+        n = counts()
+        hist[backend or "cuda"] = h
+        if not backend:
+            # 3 steps, the rollback, then steps 3 and 4 at full_fp32
+            fail.check(n == {k: 5 * v for k, v in want2.items()},
+                       f"[train-more] rollback launches {n}")
+            fail.check(trainer.rollbacks == 1 and len(h) == 4
+                       and all(math.isfinite(x) for x in h)
+                       and trainer._escalated_fn is not None
+                       and all(torch.isfinite(x).all()
+                               for x in tree_lib.leaves(state.params)),
+                       f"[train-more] rollback: {trainer.rollbacks} "
+                       f"rollbacks, losses {h}")
+            roll_launches = n
+        shutil.rmtree(ck, ignore_errors=True)
+        del trainer, state
+    rel = max(abs(a - b) / abs(b) for a, b in zip(hist["cuda"], hist["ref"]))
+    fail.check(rel <= 1e-5, f"[train-more] rollback losses vs the ref "
+               f"backend rel {rel:.3e}")
+    log(f"[train-more] NaN rollback at depth 2 (full widths): step 3 "
+        f"poisoned, rolled back to the checkpoint of step 2, steps 3-4 at "
+        f"full_fp32: losses {[round(x, 5) for x in hist['cuda']]}, vs the "
+        f"ref backend's rel {rel:.3e} (bound 1e-5); launches {roll_launches}"
+        f" ({smi})")
+    out["rollback"] = dict(depth=2, losses=hist["cuda"],
+                           losses_ref=hist["ref"], loss_rel_vs_ref=rel,
+                           launches=roll_launches)
+    return out
+
+
+def health_of(router):
+    errors = sum(h.errors for h in router.health.values())
+    foreign = [h.last_error for h in router.health.values()
+               if h.last_error not in INJECTED_ERRORS]
+    return errors, foreign
+
+
+def routed(fail, tag, eng, cells, reqs, counts, sync, **router_kw):
+    """One router run under the counters: streams, stats, launches, and the
+    gates every fleet run holds (every request done, pools whole, no parked
+    handoff, no real error on any cell, launches the formula's)."""
+    from repro_torch import kernels
+    from repro_torch.serve.fleet import FleetRouter
+
+    router = FleetRouter(cells, **router_kw)
+    misses0 = eng.prelimb_cache_misses
+    kernels.reset_launch_counts()
+    with Counted() as c:
+        t0 = time.perf_counter()
+        done = router.run(reqs)
+        sync()
+        run_s = time.perf_counter() - t0
+    n = counts()
+    stats = router.stats()
+    errors, foreign = health_of(router)
+    want = serve_launches(eng.cfg.n_layers, stats["prefills"],
+                          c.steps["bucket"], c.steps["mixed"],
+                          eng.prelimb_cache_misses - misses0)
+    decode_launches = sum(cell.decode.decode_launches for cell in cells)
+    fail.check(len(done) == len(reqs) and stats["completed"] == len(reqs)
+               and all(len(r.out) == r.max_new for r in done),
+               f"[{tag}] {stats['completed']} of {len(reqs)} requests done")
+    fail.check(all(cell.pool.n_free == cell.pool.n_blocks - 1
+                   and cell.decode.n_active == 0
+                   and cell.prefill.queue_depth == 0 for cell in cells)
+               and stats["pending_handoffs"] == 0,
+               f"[{tag}] a block, slot or handoff leaked")
+    fail.check(errors == 0 and not foreign,
+               f"[{tag}] health errors {errors}, last errors {foreign}")
+    fail.check(n == want and decode_launches == sum(c.steps.values()),
+               f"[{tag}] launches {n} != {want} (decode launches "
+               f"{decode_launches}, step calls {c.steps})")
+    return dict(router=router, done=done, outs={r.rid: list(r.out)
+                                                for r in done},
+                stats=stats, run_s=run_s, launches=n, steps=dict(c.steps),
+                transfers=c.transfers, errors=errors)
+
+
+def fleet_phase(fail, eng, dev, smi, counts):
+    """``[fleet]``: FLEET_REQUESTS requests through make_fleet(eng, 4) under
+    mode_affinity, against ContinuousScheduler on the same engine and
+    trace, an interleaved cell and round_robin; then a router tick's busy
+    time."""
+    import numpy as np
+    import torch
+
+    from repro_torch.serve.fleet import FleetRouter, make_fleet
+    from repro_torch.serve.scheduler import ContinuousScheduler
+
+    on_card = dev.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    vocab = eng.cfg.vocab
+
+    def trace():
+        return fleet_trace(vocab, FLEET_REQUESTS, 2)
+
+    sched = ContinuousScheduler(eng, n_blocks=SCHED_BLOCKS, block_size=16)
+    want = {r.rid: list(r.out) for r in sched.run(trace())}
+    out = {}
+    for tag, n_cells, blocks, kw in (
+            ("mode_affinity", N_CELLS, FLEET_BLOCKS,
+             dict(policy="mode_affinity")),
+            ("interleaved", 1, SCHED_BLOCKS, dict()),
+            ("round_robin", N_CELLS, FLEET_BLOCKS,
+             dict(policy="round_robin"))):
+        cells = make_fleet(eng, n_cells, n_blocks=blocks, block_size=16,
+                           disaggregate=tag != "interleaved")
+        r = routed(fail, f"fleet {tag}", eng, cells, trace(), counts, sync,
+                   **kw)
+        same = r["outs"] == want
+        fail.check(same, f"[fleet {tag}] streams differ from the "
+                   "scheduler's")
+        if tag == "interleaved":
+            fail.check(r["steps"]["mixed"] > 0, "[fleet interleaved] ran no "
+                       "mixed-lane launch")
+        st = r["stats"]
+        log(f"[fleet] {tag}: {n_cells} cells x {blocks} blocks, "
+            f"{FLEET_REQUESTS} requests, modes {list(FLEET_MODES)} in turn: "
+            f"{r['run_s']:.3f} s, {st['useful_tokens'] / r['run_s']:.1f} "
+            f"tokens/s, {st['ticks']} ticks, {st['prefills']} prefills, "
+            f"decode launches {r['steps']} (bucket/mixed), "
+            f"{st['prefills']} handoffs of which {r['transfers']} cross "
+            f"pools, requeues {st['requeues']}; streams == scheduler "
+            f"{'bitwise' if same else 'DIFFER'}; launches {r['launches']}")
+        out[tag] = dict(cells=n_cells, blocks=blocks, run_s=r["run_s"],
+                        tokens_per_s=st["useful_tokens"] / r["run_s"],
+                        ticks=st["ticks"], prefills=st["prefills"],
+                        transfers=r["transfers"], steps=r["steps"],
+                        requeues=st["requeues"], launches=r["launches"],
+                        streams_equal_scheduler=same,
+                        health_errors=r["errors"],
+                        latency={k: v for k, v in st.items()
+                                 if k.endswith(("_ms", "_steps"))})
+    # one router tick with every cell decoding (4 requests a cell, no
+    # admissions): host clock and the card's busy time
+    cells = make_fleet(eng, N_CELLS, n_blocks=FLEET_BLOCKS, block_size=16)
+    router = FleetRouter(cells, policy="mode_affinity")
+    probe = fleet_trace(vocab, 16, 16, seed=1)
+    for q in probe:
+        q.prompt, q.max_new = q.prompt[:160], 64
+        router.submit(q)
+    while router._backlog or any(c.prefill.queue_depth for c in cells) \
+            or router._pending_handoffs:
+        router.step()
+    ticks = 8
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(ticks):
+        router.step()
+    sync()
+    tick_ms = (time.perf_counter() - t0) / ticks * 1e3
+    active = sum(c.decode.n_active for c in cells)
+    fail.check(active == 16, f"[fleet] tick probe: {active} slots decoding")
+    msg = (f"[fleet] router tick, 4 cells x 4 slots decoding, no admissions:"
+           f" {tick_ms:.3f} ms on the host clock")
+    out["tick"] = dict(tick_ms=tick_ms, slots=active)
+    if on_card:
+        busy, by_name = device_busy_ms(router.step)
+        out["tick"].update(busy_ms=busy, idle_share=max(0.0,
+                                                        1 - busy / tick_ms),
+                           busy_by_name=by_name)
+        msg += (f", busy {busy:.3f} ms, idle share "
+                f"{out['tick']['idle_share']:.3f} ({smi})")
+    log(msg)
+    return out
+
+
+def solo_suffix(eng, req):
+    """A recovered request's suffix from a resumed solo run: its prefix in
+    ``out`` (re-prefill prompt + out[:-1], feed out[-1]), as the router's
+    re-admission ran it (benchmarks/chaos_soak.py ``solo_suffix``)."""
+    import numpy as np
+
+    from repro_torch.serve.primitives import ScheduledRequest
+    from repro_torch.serve.scheduler import ContinuousScheduler
+
+    k = req.recovery_prefixes[-1]
+    solo = ScheduledRequest(rid=0, prompt=np.asarray(req.prompt, np.int32),
+                            max_new=req.max_new, mode=req.mode,
+                            eos_token=req.eos_token)
+    solo.out = list(req.out[:k])
+    ContinuousScheduler(eng, n_blocks=SCHED_BLOCKS, block_size=16).run(
+        [solo])
+    return list(solo.out[k:])
+
+
+def chaos_phase(fail, eng, dev, smi, counts):
+    """``[chaos]``: ``FaultPlan.chaos(seed=0, n_cells=4)`` over
+    CHAOS_REQUESTS requests under least_kv, with chaos_soak's gates; then
+    one poisoned handoff the guardrail must catch."""
+    import torch
+
+    from repro_torch.serve.faults import FaultEvent, FaultPlan
+    from repro_torch.serve.fleet import make_fleet
+
+    on_card = dev.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    vocab = eng.cfg.vocab
+
+    def run(tag, plan):
+        cells = make_fleet(eng, N_CELLS, n_blocks=CHAOS_BLOCKS,
+                           block_size=16)
+        return routed(fail, f"chaos {tag}", eng, cells,
+                      fleet_trace(vocab, CHAOS_REQUESTS, 4), counts, sync,
+                      policy="least_kv", fault_plan=plan)
+
+    base = run("no-fault", None)
+    chaos = run("seed 0", FaultPlan.chaos(seed=0, n_cells=N_CELLS))
+    st, router = chaos["stats"], chaos["router"]
+    fail.check(st["fault_events_unfired"] == 0,
+               f"[chaos] unfired events {router.injector.unfired}")
+    fail.check(st["cell_deaths"] == 1 and st["guard_trips"] >= 1,
+               f"[chaos] {st['cell_deaths']} deaths, {st['guard_trips']} "
+               "guard trips")
+    reqs = {r.rid: r for r in chaos["done"]}
+    untouched = [r for r in reqs.values()
+                 if not r.recovery_prefixes and not r.guard_trips]
+    bad = [r.rid for r in untouched
+           if chaos["outs"][r.rid] != base["outs"][r.rid]]
+    fail.check(not bad, f"[chaos] untouched requests {bad} differ from the "
+               "no-fault run")
+    recovered = [r for r in reqs.values() if r.recovery_prefixes]
+    bad_prefix = [r.rid for r in recovered if r.out[:r.recovery_prefixes[0]]
+                  != base["outs"][r.rid][:r.recovery_prefixes[0]]]
+    bad_suffix = [r.rid for r in recovered
+                  if r.out[r.recovery_prefixes[-1]:] != solo_suffix(eng, r)]
+    fail.check(not bad_prefix and not bad_suffix,
+               f"[chaos] recovered requests: history changed {bad_prefix}, "
+               f"suffix != resumed solo run {bad_suffix}")
+    again = run("seed 0 again", FaultPlan.chaos(seed=0, n_cells=N_CELLS))
+    same = (again["router"].injector.trace == router.injector.trace
+            and again["outs"] == chaos["outs"])
+    fail.check(same, "[chaos] the same plan twice: other trace or streams")
+    p95 = st["recovery_latency_p95_ticks"]
+    fail.check(st["recovered_requests"] >= 1 and p95 <= MAX_RECOVERY_P95,
+               f"[chaos] recovery p95 {p95} ticks")
+    log(f"[chaos] {CHAOS_REQUESTS} requests, 4 arrivals a tick, 4 cells x "
+        f"{CHAOS_BLOCKS} blocks, least_kv, FaultPlan.chaos(seed=0): trace "
+        f"{router.injector.trace}; {st['completed']} done, "
+        f"{st['cell_deaths']} cell death, {st['recovered_requests']} "
+        f"recovered ({[r.rid for r in recovered]}), {st['guard_trips']} "
+        f"guard trips, {st['escalations']} escalations, "
+        f"{chaos['transfers']} cross-pool transfers, recovery p95 {p95} "
+        f"ticks (limit {MAX_RECOVERY_P95}); {len(untouched)} untouched == "
+        f"no-fault run, recovered suffixes == resumed solo runs, the plan "
+        f"twice {'identical' if same else 'DIFFERS'}; {st['ticks']} ticks in "
+        f"{chaos['run_s']:.3f} s (no-fault {base['stats']['ticks']} ticks in "
+        f"{base['run_s']:.3f} s); cell states {st['cell_states']}")
+    # one poisoned cross-pool handoff: the first transferred block lands as
+    # NaN; the receiving slot's guardrail must trip on its next step
+    bad_run = run("pool_block_corrupt",
+                  FaultPlan(events=[FaultEvent("pool_block_corrupt")]))
+    bs = bad_run["stats"]
+    fired = [e for e in bad_run["router"].injector.trace
+             if e[1] == "pool_block_corrupt"]
+    tripped = sorted(r.rid for r in bad_run["done"] if r.guard_trips)
+    fail.check(len(fired) == 1 and bs["guard_trips"] >= 1,
+               f"[chaos] pool_block_corrupt: fired {fired}, "
+               f"{bs['guard_trips']} guard trips")
+    log(f"[chaos] pool_block_corrupt: fired at tick "
+        f"{fired[0][0] if fired else None}; guard trips {bs['guard_trips']}"
+        f" (requests {tripped}, escalated and completed); health errors "
+        f"{bad_run['errors']} ({smi})")
+    return dict(
+        requests=CHAOS_REQUESTS, blocks=CHAOS_BLOCKS,
+        trace=[list(t) for t in router.injector.trace],
+        completed=st["completed"], cell_deaths=st["cell_deaths"],
+        recovered=[r.rid for r in recovered], guard_trips=st["guard_trips"],
+        escalations=st["escalations"], transfers=chaos["transfers"],
+        recovery_p95_ticks=p95, deterministic=same, ticks=st["ticks"],
+        run_s=chaos["run_s"], no_fault_ticks=base["stats"]["ticks"],
+        no_fault_run_s=base["run_s"], launches=chaos["launches"],
+        corrupt=dict(fired_tick=fired[0][0] if fired else None,
+                     guard_trips=bs["guard_trips"], tripped=tripped,
+                     health_errors=bad_run["errors"]))
 
 
 def log(*args) -> None:
@@ -957,7 +1658,7 @@ def main() -> int:
     p = torch.softmax(randn(8, 12, 1, 512), dim=-1)
     matmul_case("decode PV 96 x 1x512x64", p,
                 randn(8, 512, 12, 64).permute(0, 2, 1, 3), "M8",
-                per=("decode", L))
+                library=True, per=("decode", L))
     w_o, w_down = randn(d, d) * 0.03, randn(ff, d) * 0.02
     matmul_case("prefill wo 2048x768x768", x, w_o, "M8", library=True,
                 per=("prefill", L))
@@ -1422,8 +2123,7 @@ def main() -> int:
     s_peak = torch.cuda.max_memory_allocated()
     stats = sched.stats()
     n_dec = stats["decode_launches"]
-    want = {k: PER_PRELIMB.get(k, 0) + stats["prefills"] * PER_PREFILL.get(
-        k, 0) + n_dec * PER_DECODE.get(k, 0) for k in kernels.KERNELS}
+    want = serve_launches(L, stats["prefills"], n_dec, 0, 1)
     log(f"[sched] {n_req} requests, prompts {sched_lengths[0]}.."
         f"{sched_lengths[-1]} x {sched_new} new, arrivals 2 ticks apart: "
         f"prelimb {prelimb_s * 1e3:.1f} ms, run {run_s:.3f} s, "
@@ -1523,19 +2223,7 @@ def main() -> int:
             r.mode, r.max_new = MODES[r.rid % len(MODES)], max_new
         return reqs
 
-    step_calls = {"mixed": 0, "bucket": 0}
-    real_steps = {"mixed": prim.decode_mixed_step,
-                  "bucket": prim.decode_bucket_step}
-
-    def counted(kind):
-        def step(*args, **kw):
-            step_calls[kind] += 1
-            return real_steps[kind](*args, **kw)
-        return step
-
-    prim.decode_mixed_step = counted("mixed")
-    prim.decode_bucket_step = counted("bucket")
-    try:
+    with Counted() as step_calls:
         torch.cuda.reset_peak_memory_stats()
         kernels.reset_launch_counts()
         t0 = time.perf_counter()
@@ -1547,16 +2235,11 @@ def main() -> int:
         m_run_s = time.perf_counter() - t0
         m_launches = kernels.launch_counts()
         m_plain = kernels.plain_call_counts()
-    finally:
-        prim.decode_mixed_step = real_steps["mixed"]
-        prim.decode_bucket_step = real_steps["bucket"]
     m_stats = m_sched.stats()
-    n_mixed, n_bucket = step_calls["mixed"], step_calls["bucket"]
+    n_mixed, n_bucket = step_calls.steps["mixed"], step_calls.steps["bucket"]
     misses = m_eng.prelimb_cache_misses
-    m_want = {k: misses * PER_PRELIMB.get(k, 0)
-              + m_stats["prefills"] * PER_PREFILL.get(k, 0)
-              + n_bucket * PER_DECODE.get(k, 0)
-              + n_mixed * PER_MIXED.get(k, 0) for k in kernels.KERNELS}
+    m_want = serve_launches(L, m_stats["prefills"], n_bucket, n_mixed,
+                            misses)
     log(f"[mixed] {n_req} requests, modes {list(MODES)} in turn, prompts "
         f"{sched_lengths[0]}..{sched_lengths[-1]} x {sched_new} new, "
         f"arrivals 2 ticks apart: run {m_run_s:.3f} s (prelimbs included), "
@@ -1568,7 +2251,7 @@ def main() -> int:
         f"{m_launches} ({smi})")
     if m_stats["launches_per_tick"] != 1.0 or n_mixed == 0:
         raise AssertionError(f"mixed traffic is not one launch per tick: "
-                             f"{m_stats}, {step_calls}")
+                             f"{m_stats}, {step_calls.steps}")
     if m_launches != m_want or any(m_plain.values()):
         raise AssertionError(f"mixed launches {m_launches} != expected "
                              f"{m_want} (plain calls {m_plain})")
@@ -1819,11 +2502,8 @@ def main() -> int:
     n_auto_req = sum(AUTO_MODES[i % 4] is None for i in range(n_as))
     n_static_pf = as_stats["prefills"] - n_auto_req
     misses = as_eng.prelimb_cache_misses
-    as_want = {k: misses * PER_PRELIMB.get(k, 0)
-               + n_static_pf * PER_PREFILL.get(k, 0)
-               + n_static_bucket * PER_DECODE.get(k, 0)
-               + n_mixed_launch * PER_MIXED.get(k, 0)
-               for k in kernels.KERNELS}
+    as_want = serve_launches(L, n_static_pf, n_static_bucket, n_mixed_launch,
+                             misses)
     as_want["mp_fused_matmul"] += ((n_auto_req + n_auto_launch)
                                    * (AUTO_PER_PASS + 1))
     as_reads_want = (n_auto_req + n_auto_launch) * AUTO_PER_PASS
@@ -2064,6 +2744,45 @@ def main() -> int:
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 
+    # ---- 4g-4j. AUTO and the other training paths, the fleet, chaos --------
+    # each gate of these phases is logged and kept; the run fails at the end
+    # of them if any failed
+    fail = Failures()
+
+    def card_counts():
+        plain = kernels.plain_call_counts()
+        fail.check(not any(plain.values()), f"plain-version calls {plain}")
+        return kernels.launch_counts()
+
+    new = {}
+    new["train_auto"] = fail.run("[train-auto]", train_auto_phase, fail, cfg,
+                                 dev, smi, card_counts)
+    torch.cuda.empty_cache()
+    ck_root = ROOT / "build" / "train_more_ckpt"
+    try:
+        new["train_more"] = fail.run("[train-more]", train_more_phase, fail,
+                                     cfg, dev, smi, card_counts, ck_root)
+    finally:
+        shutil.rmtree(ck_root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    f_eng = ServeEngine(cfg, params, max_batch=8, max_seq=512,
+                        prelimb_weights=True,
+                        policy=PrecisionPolicy.serve_default())
+    new["fleet"] = fail.run("[fleet]", fleet_phase, fail, f_eng, dev, smi,
+                            card_counts)
+    new["chaos"] = fail.run("[chaos]", chaos_phase, fail, f_eng, dev, smi,
+                            card_counts)
+    del f_eng
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    report.update({k: v for k, v in new.items() if v is not None})
+    fail.raise_if_any()
+    new_launches = {
+        "train_auto": report["train_auto"]["launches"],
+        "train_more": report["train_more"]["rollback"]["launches"],
+        "fleet": report["fleet"]["mode_affinity"]["launches"],
+        "chaos": report["chaos"]["launches"]}
+
     # ---- 5. the kernels line -----------------------------------------------
     line = []
     for kname, (src, replaces) in SOURCES.items():
@@ -2100,7 +2819,8 @@ def main() -> int:
                    "mixed": m_launches[kname], "modes": md_launches[kname],
                    "auto": a_launches[kname],
                    "auto_sched": as_launches[kname],
-                   "train": t_launches[kname]}
+                   "train": t_launches[kname],
+                   **{k: v[kname] for k, v in new_launches.items()}}
         line.append({
             "name": kname, "route": "cuda", "source": src,
             "replaces": replaces,

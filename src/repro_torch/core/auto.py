@@ -15,13 +15,24 @@ kernel: a device-to-host sync per call, counted in
 ``mp_matmul_auto.host_reads``.  A selection that stays on the device is later
 work (ROADMAP.md).
 
+Under autograd the selected format runs as the static differentiable
+``mp_matmul`` with the caller's backward formats, so the gradient is the
+chosen branch's at that branch's dgrad / wgrad formats, as in the JAX
+package.  A rematerialized layer analyzes its operands again when the
+backward recomputes it (on the autograd engine's thread): a
+:class:`SelectionLog` records the forward's selections and the recompute
+must make the same ones, or it raises.
+
 The candidate set and analysis tolerance default to the active
 :class:`~repro_torch.core.context.PrecisionContext` (``auto_candidates`` /
 ``auto_tol``); candidates may include run-time-registered formats.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+import contextlib
+import contextvars
+import threading
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -62,19 +73,80 @@ def select_mode_index(a: torch.Tensor, b: torch.Tensor,
     return idx
 
 
+class SelectionLog:
+    """The AUTO selections of one rematerialized region: the forward
+    records the index of each AUTO call in order (:meth:`recording`); the
+    recompute in the backward must select the same index at each call
+    (:meth:`replaying`), or :meth:`note` raises."""
+
+    def __init__(self):
+        self.indices: List[int] = []
+        self._pos: Optional[int] = None  # None while recording
+
+    @contextlib.contextmanager
+    def recording(self):
+        self.indices.clear()
+        self._pos = None
+        token = _active_log.set(self)
+        try:
+            yield self
+        finally:
+            _active_log.reset(token)
+
+    @contextlib.contextmanager
+    def replaying(self):
+        self._pos = 0
+        token = _active_log.set(self)
+        try:
+            yield self
+            if self._pos != len(self.indices):
+                raise RuntimeError(
+                    f"AUTO recompute made {self._pos} selections, the "
+                    f"forward {len(self.indices)}")
+        finally:
+            _active_log.reset(token)
+
+    def note(self, idx: int) -> None:
+        if self._pos is None:
+            self.indices.append(idx)
+            return
+        want = (self.indices[self._pos] if self._pos < len(self.indices)
+                else None)
+        if idx != want:
+            raise RuntimeError(
+                f"AUTO recompute selected candidate {idx} at call "
+                f"{self._pos}, the forward {want}")
+        self._pos += 1
+
+
+_active_log: contextvars.ContextVar[Optional[SelectionLog]] = \
+    contextvars.ContextVar("repro_torch_auto_log", default=None)
+_reads_lock = threading.Lock()  # the forward's thread and autograd's
+
+
 def mp_matmul_auto(a: torch.Tensor, b: torch.Tensor,
                    candidates: Optional[Sequence[FormatLike]] = None, *,
                    backend: Optional[str] = None,
+                   bwd_mode: Optional[FormatLike] = None,
+                   dgrad_mode: Optional[FormatLike] = None,
+                   wgrad_mode: Optional[FormatLike] = None,
                    tol: Optional[float] = None) -> torch.Tensor:
     """Run-time reconfigurable matmul: analyze on the device, read the
-    selected index back once, run the one selected format."""
+    selected index back once, run the one selected format (differentiable,
+    at the given backward formats; each defaults to the selected one)."""
     from repro_torch.core import mpmatmul  # mpmatmul imports this module
 
     candidates, tol = _candidates_and_tol(candidates, tol)
     idx = select_mode_index(a, b, candidates, tol=tol)
     i = int(idx)  # the one host read of this call
-    mp_matmul_auto.host_reads += 1
-    return mpmatmul.mp_matmul(a, b, resolve(candidates[i]), backend=backend)
+    with _reads_lock:
+        mp_matmul_auto.host_reads += 1
+    log = _active_log.get()
+    if log is not None:
+        log.note(i)
+    return mpmatmul.mp_matmul(a, b, resolve(candidates[i]), bwd_mode=bwd_mode,
+                              dgrad_mode=dgrad_mode, wgrad_mode=wgrad_mode,
+                              backend=backend)
 
 
 mp_matmul_auto.host_reads = 0  # selected indices read back to the host

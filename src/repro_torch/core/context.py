@@ -6,15 +6,19 @@ default; ``"ref"``, the oracle, only when a caller asks for it), the active
 tolerance (``auto_candidates``, ``auto_tol``).
 ``configure(...)`` replaces the process default; ``with context(...)``
 pushes a scoped override on a ``contextvars`` ContextVar, so concurrent
-threads may run under different settings.
+threads may run under different settings.  ``to_json`` / ``from_json``
+round-trip a context in the JAX package's wire form; the port has no
+autotune yet, so its payload carries ``"autotune": null``.
 """
 from __future__ import annotations
 
 import contextlib
 import contextvars
 import dataclasses
-from typing import Optional, Tuple
+import json
+from typing import Optional, Tuple, Union
 
+from repro_torch.core import formats
 from repro_torch.core.formats import FormatLike, PrecisionMode, resolve
 from repro_torch.core.policy import PrecisionPolicy
 
@@ -26,6 +30,8 @@ DEFAULT_AUTO_CANDIDATES: Tuple[PrecisionMode, ...] = (
 )
 
 _UNSET = object()
+# backends of the JAX package that the port does not have
+JAX_ONLY_BACKENDS = ("pallas", "pallas_interpret", "sharded")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -39,6 +45,45 @@ class PrecisionContext:
 
     def replace(self, **kw) -> "PrecisionContext":
         return dataclasses.replace(self, **kw)
+
+    # ---- wire format (the JAX package's fields; no mesh) -------------------
+    def to_json(self) -> str:
+        # custom formats among the AUTO candidates ship their definitions,
+        # so the payload hydrates in a process that never registered them
+        names = [resolve(c).name for c in self.auto_candidates]
+        return json.dumps({
+            "backend": self.backend,
+            "policy": None if self.policy is None
+            else json.loads(self.policy.to_json()),
+            "auto_candidates": names,
+            "formats": formats.collect_defs(names),
+            "auto_tol": self.auto_tol,
+            "autotune": None,
+        }, indent=1)
+
+    @classmethod
+    def from_json(cls, payload: Union[str, bytes, dict]
+                  ) -> "PrecisionContext":
+        """Hydrate a payload (validated as ``configure`` validates), from
+        either package; the backend must be one of the port's, and autotune
+        null or false (the port has none)."""
+        obj = json.loads(payload) if isinstance(payload, (str, bytes)) \
+            else payload
+        if obj.get("autotune"):
+            raise ValueError("the payload turns autotune on; the port has "
+                             "no autotune")
+        formats.register_defs(obj.get("formats"))
+        policy = obj.get("policy")
+        backend = obj.get("backend", cls.backend)
+        candidates = tuple(obj.get("auto_candidates")
+                           or DEFAULT_AUTO_CANDIDATES)
+        _validate({"backend": backend, "auto_candidates": candidates})
+        return cls(
+            backend=backend,
+            policy=None if policy is None
+            else PrecisionPolicy.from_json(policy),
+            auto_candidates=candidates,
+            auto_tol=float(obj.get("auto_tol", 2.0**-13)))
 
 
 _process_default: Optional[PrecisionContext] = None
@@ -68,6 +113,10 @@ def _validate(kw) -> None:
     if backend is not _UNSET:
         from repro_torch.core import dispatch  # lazy: dispatch imports us
 
+        if backend in JAX_ONLY_BACKENDS:
+            raise ValueError(
+                f"backend {backend!r} is the JAX package's; the port has "
+                f"{dispatch.available_backends()}")
         if backend not in dispatch.available_backends():
             raise ValueError(f"unknown backend {backend!r}; have "
                              f"{dispatch.available_backends()}")

@@ -20,8 +20,9 @@ rest of the precision context, are taken when the forward runs: the CUDA
 backward runs on the autograd engine's thread, which sees none of the
 caller's scopes.
 
-DD and pre-limbed operands are inference-only, as in the JAX package; AUTO
-under autograd is not ported yet (ROADMAP.md).
+DD and pre-limbed operands are inference-only, as in the JAX package.  AUTO
+under autograd runs the selected format's differentiable op at the caller's
+backward formats (``core/auto.py``).
 """
 from __future__ import annotations
 
@@ -126,13 +127,10 @@ def mp_matmul(a, b, mode: FormatLike = "M16", *,
                 "weights carry only a fixed limb stack and DD pairs two "
                 "words — resolve a static format first (serving skips "
                 "pre-limbing under AUTO policies)")
-        if _needs_grad(a, b):
-            raise NotImplementedError(
-                "AUTO under autograd (the JAX mp_matmul_auto VJP) is not "
-                "ported yet; see ROADMAP.md")
         from repro_torch.core import auto  # auto imports this module
 
-        return auto.mp_matmul_auto(a, b, backend=backend)
+        return auto.mp_matmul_auto(a, b, backend=backend, dgrad_mode=dgrad,
+                                   wgrad_mode=wgrad)
     fmt = resolve(mode)
     if (isinstance(a, (DD, PrelimbedWeight))
             or isinstance(b, (DD, PrelimbedWeight)) or not _needs_grad(a, b)):

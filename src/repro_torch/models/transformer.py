@@ -15,6 +15,7 @@ import torch
 import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import auto as auto_lib
 from repro_torch.core import context as context_lib
 from repro_torch.core.policy import PrecisionPolicy
 from repro_torch.models import attention as attn_lib
@@ -119,16 +120,23 @@ def _remat_layer(lp: dict, h: torch.Tensor, cfg: ModelConfig,
     """One layer under ``torch.utils.checkpoint`` (non-reentrant): only its
     input is kept, and its forward runs again when the backward reaches it,
     under the precision context of the first run (the recompute runs on the
-    autograd engine's thread)."""
+    autograd engine's thread).  AUTO calls analyze their operands again in
+    the recompute; each must select what the forward selected
+    (:class:`~repro_torch.core.auto.SelectionLog`)."""
     ctx = context_lib.current_context()
+    selections = auto_lib.SelectionLog()
 
     def layer(h):
         return _dense_layer_fwd(lp, h, cfg, policy, positions, None)[0]
 
+    @contextlib.contextmanager
+    def recompute():
+        with context_lib.scoped(ctx), selections.replaying():
+            yield
+
     return torch.utils.checkpoint.checkpoint(
         layer, h, use_reentrant=False,
-        context_fn=lambda: (contextlib.nullcontext(),
-                            context_lib.scoped(ctx)))
+        context_fn=lambda: (selections.recording(), recompute()))
 
 
 def _needs_grad(h: torch.Tensor, lp: dict) -> bool:

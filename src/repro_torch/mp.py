@@ -24,9 +24,12 @@ where every kernel wrapper runs its plain PyTorch version
 Not here, because the port does not have them yet (ROADMAP.md): the
 autotune switch (``autotune_enabled``) and the backend registry
 (``pin_backend``, ``register_backend``, ``unregister_backend``); the port's
-two backends are fixed (``available_backends``).  The static-format ops
-are differentiable, with the JAX facade's backward formats (``bwd_mode``,
-``dgrad_mode``, ``wgrad_mode``); AUTO under autograd is not ported yet.
+two backends are fixed (``available_backends``).  Every op is
+differentiable, AUTO included, with the JAX facade's backward formats
+(``bwd_mode``, ``dgrad_mode``, ``wgrad_mode``).  Beyond the JAX facade the
+port exports the paper's mode table (``MODE_TABLE``, ``STATIC_MODES``,
+``spec``, ``mode_for_limbs``, ``validate_mode_pair``; JAX's ``repro.core``
+exports them).
 """
 from repro_torch.core.formats import (  # noqa: F401
     FormatLike,
@@ -71,5 +74,12 @@ from repro_torch.core.auto import (  # noqa: F401
     select_mode_index,
 )
 from repro_torch.core.dispatch import available_backends  # noqa: F401
+from repro_torch.core.modes import (  # noqa: F401
+    MODE_TABLE,
+    STATIC_MODES,
+    mode_for_limbs,
+    spec,
+    validate_mode_pair,
+)
 
 AUTO = PrecisionMode.AUTO

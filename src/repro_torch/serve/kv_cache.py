@@ -51,6 +51,16 @@ class PagedKVCache:
         return self.k.shape[-3]
 
 
+def _block_ids(blocks: Sequence[int], like: torch.Tensor) -> torch.Tensor:
+    """Block ids as a long tensor on ``like``'s device; to a card they go
+    from pinned memory without a wait, so a handoff never stops the host
+    (a pageable copy would wait for the stream to drain)."""
+    ids = torch.tensor(list(blocks), dtype=torch.long)
+    if like.device.type != "cuda":
+        return ids
+    return ids.pin_memory().to(like.device, non_blocking=True)
+
+
 class BlockPoolExhausted(RuntimeError):
     """Raised when an allocation asks for more blocks than the free list
     has."""
@@ -87,8 +97,9 @@ class PagedKVPool:
         self._free: List[int] = list(range(1, n_blocks))  # LIFO reuse
         self._live: set = set()
         self._lock = threading.Lock()
-        # seam of the fault injector (serve/faults.py in the JAX package,
-        # ported with the fleet): None here
+        # chaos seam (serve/faults.py): when installed, transfer_blocks asks
+        # it whether this transfer's payload lands corrupted (a poisoned
+        # handoff the decode guardrail must catch); None otherwise
         self.fault_injector = None
 
     # ---- free-list accounting ---------------------------------------------
@@ -157,8 +168,11 @@ class PagedKVPool:
                         dst_blocks: Sequence[int]) -> None:
         """Copy block *contents* into another pool (the disaggregated
         prefill->decode handoff): ``dst.pool[:, dst_blocks] =
-        src.pool[:, src_blocks]`` for K and V.  The caller owns the
-        free-list bookkeeping on both pools."""
+        src.pool[:, src_blocks]`` for K and V, one gather and one scatter
+        per side on the device (the block ids go to the device; nothing
+        comes back).  The caller owns the free-list bookkeeping on both
+        pools.  An installed injector's ``pool_block_corrupt`` lands the
+        first transferred block as NaN in K and V."""
         if len(src_blocks) != len(dst_blocks):
             raise ValueError(
                 f"block count mismatch: {len(src_blocks)} src vs "
@@ -167,12 +181,15 @@ class PagedKVPool:
                 or self.n_layers != dst.n_layers):
             raise ValueError(f"incompatible pool geometry: "
                              f"{tuple(self.k.shape)} vs {tuple(dst.k.shape)}")
-        si = torch.as_tensor(list(src_blocks), dtype=torch.long,
-                             device=self.k.device)
-        di = torch.as_tensor(list(dst_blocks), dtype=torch.long,
-                             device=dst.k.device)
+        si, di = _block_ids(src_blocks, self.k), _block_ids(dst_blocks, dst.k)
         dst.k[:, di] = self.k[:, si].to(dst.k.device)
         dst.v[:, di] = self.v[:, si].to(dst.v.device)
+        inj = dst.fault_injector or self.fault_injector
+        if inj is not None and inj.block_corrupt():
+            # injected transport corruption: the decode guardrail, not this
+            # layer, must catch it downstream
+            dst.k[:, dst_blocks[0]] = float("nan")
+            dst.v[:, dst_blocks[0]] = float("nan")
 
     # ---- pool hand-back -----------------------------------------------------
     def update(self, k: torch.Tensor, v: torch.Tensor) -> None:

@@ -26,10 +26,9 @@ Lifecycle: requests may carry a ``deadline_ticks`` TTL, may be canceled
 mid-flight (:meth:`ContinuousScheduler.cancel`), and every decode step runs
 the numerical guardrail — a slot whose logits go non-finite (or past the
 configured bound) is evicted alone and re-queued at the front escalated one
-precision mode up, its generated prefix re-prefilled.
-
-Not ported yet: fault injection (``install_faults``; ``serve/faults.py``
-comes with the fleet, ROADMAP.md Queue 1 item 6).
+precision mode up, its generated prefix re-prefilled.  A fault plan
+(``serve/faults.py``) installs through :meth:`install_faults`: here the
+``step_nan`` and ``pool_block_corrupt`` seams exist.
 """
 from __future__ import annotations
 
@@ -41,6 +40,7 @@ import torch
 
 from repro_torch.serve import primitives as prim
 from repro_torch.serve.engine import ServeEngine
+from repro_torch.serve.faults import FaultInjector
 from repro_torch.serve.kv_cache import BlockPoolExhausted, PagedKVPool
 from repro_torch.serve.primitives import (  # re-export  # noqa: F401
     GuardrailConfig,
@@ -81,7 +81,7 @@ class ContinuousScheduler:
         self.expired: List[ScheduledRequest] = []
         self.canceled: List[ScheduledRequest] = []
         self.guard = guard or GuardrailConfig()
-        self.injector = None        # fault seam: stays None in the port
+        self.injector: Optional[FaultInjector] = None  # chaos seam
         self.steps = 0              # decode ticks executed (virtual clock)
         self.prefills = 0
         self.decode_token_slots = 0  # useful (non-padded) decode lanes used
@@ -92,13 +92,15 @@ class ContinuousScheduler:
         self.decode_launches = 0    # decode launches issued
         self.decode_ticks = 0       # ticks that ran >= 1 decode launch
 
-    def install_faults(self, plan_or_injector):
-        """Fault injection is not ported yet: ``serve/faults.py`` comes with
-        the fleet (ROADMAP.md Queue 1 item 6)."""
-        raise NotImplementedError(
-            "install_faults: serve/faults.py is not ported yet; it comes "
-            "with the fleet, ROADMAP.md Queue 1 item 6 'Fleet and chaos "
-            "serving'")
+    def install_faults(self, plan_or_injector) -> FaultInjector:
+        """Install a fault plan (single-engine chaos: ``step_nan`` and
+        ``pool_block_corrupt`` are the seams that exist here)."""
+        inj = (plan_or_injector
+               if isinstance(plan_or_injector, FaultInjector)
+               else FaultInjector(plan_or_injector))
+        self.injector = inj
+        self.pool.fault_injector = inj
+        return inj
 
     # ---- admission ---------------------------------------------------------
     def submit(self, req: ScheduledRequest) -> None:
@@ -239,6 +241,8 @@ class ContinuousScheduler:
         per-policy step, a heterogeneous set on the partitioned-lane mixed
         step.  AUTO-policy requests bucket per policy (one more launch).
         Returns True if any work was done."""
+        if self.injector is not None:
+            self.injector.begin_tick(self.steps)
         self._sweep_deadlines()
         admitted = self._admit()
         active = [r for r in self._slots if r is not None]

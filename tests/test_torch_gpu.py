@@ -1214,3 +1214,137 @@ def test_smoke_training_step_on_the_card(cuda):
     for a, b in zip(tree_lib.leaves(s1), tree_lib.leaves(s2)):
         assert torch.equal(a, b)
     assert torch.get_float32_matmul_precision() == "highest"
+
+
+def _fleet_requests(vocab, n=8, seed=2):
+    from repro_torch.serve.scheduler import ScheduledRequest
+
+    rng = np.random.default_rng(seed)
+    return [ScheduledRequest(
+        rid=i, prompt=rng.integers(1, vocab, size=int(rng.integers(3, 20))),
+        max_new=int(rng.integers(4, 9)),
+        mode=("M8", "M16", "M23", "M36")[i % 4], arrival=i // 2)
+        for i in range(n)]
+
+
+def test_smoke_fleet_is_the_scheduler_on_the_card(cuda):
+    """Four SMOKE cells on the card under each placement policy: every
+    stream bitwise the scheduler's on the same engine, the pools whole
+    afterwards, no error on any cell's health record, no plain call."""
+    from repro_torch.serve.fleet import FleetRouter, make_fleet
+    from repro_torch.serve.scheduler import ContinuousScheduler
+
+    cfg = paper_mpfp.SMOKE
+    eng = ServeEngine(cfg, T.init_params(cfg, seed=0), max_batch=4,
+                      max_seq=64, device=cuda)
+    want = {r.rid: r.out for r in ContinuousScheduler(
+        eng, n_blocks=48, block_size=8).run(_fleet_requests(cfg.vocab))}
+    for policy in ("round_robin", "least_kv", "mode_affinity"):
+        cells = make_fleet(eng, 4, n_blocks=12, block_size=8)
+        kernels.reset_launch_counts()
+        router = FleetRouter(cells, policy=policy)
+        got = {r.rid: r.out for r in router.run(_fleet_requests(cfg.vocab))}
+        assert got == want, policy
+        assert all(c.pool.n_free == 11 for c in cells)
+        assert sum(h.errors for h in router.health.values()) == 0
+        assert kernels.launch_counts()["mp_paged_attention"] > 0
+        assert not any(kernels.plain_call_counts().values())
+
+
+def test_smoke_chaos_is_deterministic_on_the_card(cuda):
+    """One seeded chaos plan twice over the same trace on the card: the same
+    injector trace and the same streams, no lost request or leaked block,
+    the untouched streams equal to the no-fault run's."""
+    from repro_torch.serve.faults import FaultPlan
+    from repro_torch.serve.fleet import FleetRouter, make_fleet
+
+    cfg = paper_mpfp.SMOKE
+    eng = ServeEngine(cfg, T.init_params(cfg, seed=0), max_batch=4,
+                      max_seq=64, device=cuda)
+
+    def run(plan):
+        cells = make_fleet(eng, 4, n_blocks=24, block_size=8)
+        router = FleetRouter(cells, policy="least_kv", fault_plan=plan)
+        done = router.run(_fleet_requests(cfg.vocab, n=16, seed=3))
+        assert len(done) == 16 and all(len(r.out) == r.max_new
+                                       for r in done)
+        assert router.stats()["blocks_live"] == 0
+        return router, {r.rid: r for r in done}
+
+    _, base = run(None)
+    a, got = run(FaultPlan.chaos(seed=1, n_cells=4, horizon=12))
+    b, again = run(FaultPlan.chaos(seed=1, n_cells=4, horizon=12))
+    assert a.injector.trace and a.injector.trace == b.injector.trace
+    assert {k: r.out for k, r in got.items()} == \
+        {k: r.out for k, r in again.items()}
+    for rid, r in got.items():
+        if not r.recovery_prefixes and not r.guard_trips:
+            assert r.out == base[rid].out
+
+
+def test_smoke_auto_training_on_the_card(cuda):
+    """A SMOKE step under PrecisionPolicy.auto() on the card: the loss and
+    every gradient leaf within 5e-4 of the CPU's, remat on == off bitwise,
+    and the host reads of the formula (9 AUTO matmuls a layer and chunk
+    pair count, twice with remat)."""
+    import dataclasses
+
+    from repro_torch import tree as tree_lib
+    from repro_torch.core import auto as auto_lib
+    from repro_torch.core.policy import PrecisionPolicy
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.train import trainer as trainer_lib
+
+    cfg = paper_mpfp.SMOKE
+    policy = PrecisionPolicy.auto()
+    cpu = trainer_lib.Trainer(cfg, trainer_lib.TrainerConfig(),
+                              policy=policy, device="cpu")
+    params = cpu.init_state().params
+    batch = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=33,
+                                   global_batch=4)).batch(0)
+    tb = {k: torch.from_numpy(v) for k, v in batch.items()}
+
+    def grads(model_cfg, dev):
+        ps = tree_lib.map_(lambda x: x.to(dev), params)
+        return trainer_lib.value_and_grad(
+            trainer_lib.make_loss_fn(model_cfg, policy), ps,
+            {k: v.to(dev) for k, v in tb.items()})
+
+    kernels.reset_launch_counts()
+    (lg, _), gg = grads(cfg, cuda)
+    pairs = (32 // cfg.attn_q_chunk) * (32 // cfg.attn_kv_chunk)
+    assert auto_lib.mp_matmul_auto.host_reads == \
+        2 * (7 + 2 * pairs) * cfg.n_layers
+    assert not any(kernels.plain_call_counts().values())
+    (ln, _), gn = grads(dataclasses.replace(cfg, remat=False), cuda)
+    assert _bitwise(lg, ln)
+    assert all(torch.equal(a, b) for a, b in zip(tree_lib.leaves(gg),
+                                                 tree_lib.leaves(gn)))
+    (lc, _), gc = grads(cfg, "cpu")
+    assert abs(lg.item() - lc.item()) <= 1e-5 * abs(lc.item())
+    for a, b in zip(tree_lib.leaves(gg), tree_lib.leaves(gc)):
+        assert (a.cpu() - b).abs().max() <= 5e-4 * b.abs().max()
+
+
+def test_cross_pool_handoff_reads_nothing_back(cuda):
+    """A handoff between two pools on the card: the blocks' contents move
+    by a gather and a scatter on the device; under CUDA's sync debug mode
+    nothing synchronizes the host (the block ids only go to the card)."""
+    from repro_torch.serve.fleet import KVHandoff, deliver
+    from repro_torch.serve.kv_cache import PagedKVPool
+    from repro_torch.serve.scheduler import ScheduledRequest
+
+    src, dst = (PagedKVPool(2, 16, 8, 4, 64, max_blocks_per_seq=8)
+                for _ in range(2))
+    req = ScheduledRequest(rid=0, prompt=np.arange(9), max_new=8)
+    req.blocks = src.alloc(3)
+    src.k[:, req.blocks] = _randn(cuda, 2, 3, 8, 4, 64)
+    want = src.k[:, req.blocks].clone()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        assert deliver(KVHandoff(req=req, src_pool=src, src_cell=0), dst)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.equal(dst.k[:, req.blocks], want)
+    assert src.n_live == 0 and dst.n_live == 3

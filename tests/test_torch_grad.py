@@ -106,9 +106,21 @@ def test_bwd_mode_is_the_default_of_both_backward_formats():
 
 
 def test_auto_under_autograd_is_not_ported_yet():
+    """AUTO under autograd is ported now (the name is kept from when it
+    raised): the gradient is the selected static format's, bitwise, and
+    the forward reads the selection back once (tests/test_torch_train_auto.py
+    holds it against ``jax.grad``)."""
+    from repro_torch.core import auto as pauto
+
     a, b = _np((4, 8), (8, 3))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pmp.mp_matmul(_leaf(a), torch.from_numpy(b), "AUTO")
+    a, b = np.round(a * 4), np.round(b * 4)  # integers: AUTO selects M8
+    pauto.mp_matmul_auto.host_reads = 0
+    ta = _leaf(a)
+    pmp.mp_matmul(ta, torch.from_numpy(b), "AUTO").sum().backward()
+    assert pauto.mp_matmul_auto.host_reads == 1
+    ts = _leaf(a)
+    pmp.mp_matmul(ts, torch.from_numpy(b), "M8").sum().backward()
+    assert torch.equal(ta.grad, ts.grad)
 
 
 @pytest.mark.parametrize("fmts", FMTS[:2], ids=lambda f: "/".join(f))
@@ -340,7 +352,7 @@ def test_schedules_match_jax():
 
 
 @pytest.mark.parametrize("rank,world", [(0, 1), (1, 2)])
-def test_synthetic_pipeline_is_bitwise_jax(rank, world):
+def test_synthetic_pipeline_is_bitwise_jax(rank, world, tmp_path):
     kw = dict(vocab=256, seq_len=17, global_batch=4, seed=5)
     j = jpipe.SyntheticLM(jpipe.DataConfig(**kw))
     p = ppipe.make_pipeline(ppipe.DataConfig(**kw))
@@ -350,8 +362,21 @@ def test_synthetic_pipeline_is_bitwise_jax(rank, world):
         for k in jb:
             assert jb[k].dtype == pb[k].dtype
             np.testing.assert_array_equal(jb[k], pb[k])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ppipe.make_pipeline(ppipe.DataConfig(kind="memmap", path="x", **kw))
+    # the memmap kind is ported too: make_pipeline builds it, and its
+    # batches are JAX's (tests/test_torch_modes_context.py holds more)
+    path = tmp_path / "tokens.bin"
+    np.random.default_rng(rank).integers(0, 256, 2000).astype(
+        np.uint32).tofile(path)
+    mkw = dict(kw, kind="memmap", path=str(path))
+    jm = jpipe.make_pipeline(jpipe.DataConfig(**mkw))
+    pm = ppipe.make_pipeline(ppipe.DataConfig(**mkw))
+    assert isinstance(pm, ppipe.MemmapLM)
+    for step in (0, 3):
+        jb, pb = jm.batch(step, rank, world), pm.batch(step, rank, world)
+        for k in jb:
+            np.testing.assert_array_equal(jb[k], pb[k])
+    with pytest.raises(ValueError, match="unknown pipeline kind"):
+        ppipe.make_pipeline(ppipe.DataConfig(kind="parquet", **kw))
 
 
 @pytest.mark.parametrize("name", ["train_default", "train_fast"])

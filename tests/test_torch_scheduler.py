@@ -488,5 +488,9 @@ def test_lifecycle_eos_deadline_cancel_and_stats(params):
     for k in ("ttft_p50_ms", "ttft_p95_ms", "tpot_p50_ms", "itl_p95_ms",
               "queue_wait_p95_steps"):
         assert s[k] >= 0.0
-    with pytest.raises(NotImplementedError, match="item 6"):
-        sched.install_faults(None)
+    # fault injection installs now (tests/test_torch_faults.py runs it):
+    # the injector reaches the pool's corruption seam
+    from repro_torch.serve.faults import FaultInjector, FaultPlan
+
+    inj = sched.install_faults(FaultPlan())
+    assert isinstance(inj, FaultInjector) and sched.pool.fault_injector is inj
