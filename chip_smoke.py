@@ -28,7 +28,11 @@ line is not printed):
    wider than the slots, each head of each flash case bitwise the same
    head launched alone (B = H = 1), a flash case with rows' largest logits
    in the last column of a kv tile, and each prefill case within
-   tests/test_kernels.py's error model of its float64 golden;
+   tests/test_kernels.py's error model of its float64 golden; on every
+   2-D matmul case the fused kernel's partials epilogue (each order's
+   plane against its plain version, ``combine_partials`` of the stack
+   bitwise the fused kernel, decode rows bitwise an M = 70 launch's), and
+   two timed partials cases at ``[dist]``'s K-sharded prefill shapes;
 3b. ``[modes]``: the paper's six modes through ``repro_torch.mp`` (the
    quickstart's surface): every built-in format and a run-time M30 on f32
    operands at the model's prefill shapes, M36 / M52 on two-float (DD)
@@ -113,8 +117,22 @@ line is not printed):
    streams == the no-fault run, each recovered suffix == a resumed solo
    run at its (possibly escalated) mode, the plan twice identical, recovery
    p95 <= 24 ticks; then one ``pool_block_corrupt`` handoff the guardrail
-   catches.  A failed gate of 4g-4j is logged and the phases go on; the
-   run fails after them;
+   catches;
+4k. ``[dist]``: the sharded backend across ranks, spawned processes (a card
+   each over NCCL where the host has two or more, else two ranks sharing
+   the card over gloo): full-width ``ServeEngine(matmul_backend="sharded")
+   .generate`` on 4's prompts (tokens equal on every rank, prefill logits
+   within 4·2^-6 of the cuda engine's, partials launches and all-reduce
+   calls and bytes per prefill and decode step exactly the formula), the
+   scheduler under ``sharded`` (paged decode sequence-parallel, every
+   request done, ranks equal), ``sp_decode_attention`` against the cuda
+   route, ``pipeline_forward`` of the 12 layers over the ranks bitwise
+   the sequential forward, a depth-2 value-and-grad against the cuda
+   backend, [train]'s checkpoint restored onto the ranks' mesh (each
+   shard bitwise its slice); ``hierarchical_psum`` on four ranks; the
+   serve launcher under ``torchrun``; a one-rank NCCL group (sharded ==
+   cuda engine bitwise).  A failed gate of 4g-4k is logged and the phases
+   go on; the run fails after them;
 5. a ``kernels`` JSON line: per kernel its launches on its main path, its
    device time (CUDA events around calls enqueued behind a sleep kernel, so
    the card runs them back to back; the time of calls issued one after the
@@ -164,6 +182,11 @@ SOURCES = {
     "mp_both_prelimbed_matmul": (
         "src/repro_torch/kernels/csrc/mp_matmul.cu",
         "src/repro/kernels/mp_matmul.py:182"),
+    # replaces no TPU kernel: the JAX package's sharded local step, which
+    # XLA computes (ref.mp_matmul_partials inside _sharded_2d)
+    "mp_fused_matmul_partials": (
+        "src/repro_torch/kernels/csrc/mp_matmul.cu",
+        "src/repro/core/dispatch.py:141"),
 }
 # the path whose run gives each kernel's ``launches``: the three kernels of
 # slice 1 report the static ``generate`` path, the three of the scheduler
@@ -173,7 +196,8 @@ LAUNCH_PATH = {"mp_decompose": "scheduler", "mp_prelimbed_matmul": "scheduler",
                "mp_paged_attention": "scheduler",
                "mp_mixed_prelimbed_matmul": "mixed",
                "mp_mixed_paged_attention": "mixed",
-               "mp_both_prelimbed_matmul": "modes"}
+               "mp_both_prelimbed_matmul": "modes",
+               "mp_fused_matmul_partials": "dist"}
 # launches of one generate(8 prompts, max_new=32) at 12 layers: prefill
 # QKV + SwiGLU per layer; wo, w_down per layer + lm_head; decode adds QK
 # and PV per layer
@@ -181,7 +205,7 @@ EXPECTED = {"mp_fused_proj": 24 + 32 * 24, "mp_flash_attention": 12,
             "mp_fused_matmul": 25 + 32 * 49, "mp_decompose": 0,
             "mp_prelimbed_matmul": 0, "mp_paged_attention": 0,
             "mp_mixed_prelimbed_matmul": 0, "mp_mixed_paged_attention": 0,
-            "mp_both_prelimbed_matmul": 0}
+            "mp_both_prelimbed_matmul": 0, "mp_fused_matmul_partials": 0}
 # the mixed-traffic modes, request i at MODES[i % 4]: the serving builtins
 # and a custom format that keeps all four 2-limb products (M16 keeps three)
 CUSTOM = dict(name="M16FULL", mantissa_bits=16, n_limbs=2, max_order=2)
@@ -290,7 +314,7 @@ def serve_launches(n_layers: int, prefills: int, bucket: int, mixed: int,
             "mp_paged_attention": n_layers * bucket,
             "mp_mixed_prelimbed_matmul": mm * mixed,
             "mp_mixed_paged_attention": n_layers * mixed,
-            "mp_both_prelimbed_matmul": 0}
+            "mp_both_prelimbed_matmul": 0, "mp_fused_matmul_partials": 0}
 
 
 def fleet_trace(vocab: int, n: int, per_tick: int, seed: int = 0):
@@ -908,6 +932,819 @@ def chaos_phase(fail, eng, dev, smi, counts):
                      health_errors=bad_run["errors"]))
 
 
+# ---------------------------------------------------------------------------
+# [dist]: the sharded backend across ranks.  Each rank is a spawned process
+# (one card each over NCCL where the host has two or more, else two ranks
+# sharing the card over gloo); every rank runs the same tasks on the same
+# inputs and reports back through a queue.
+# ---------------------------------------------------------------------------
+DIST_TIMEOUT_S = 600.0     # the process group's and each spawn's deadline
+DIST_PV_TOL = {"M8": 5e-3}  # sp decode vs the cuda route, by PV format
+
+
+def _dist_setup():
+    import torch
+
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch
+
+
+class CollectiveClock:
+    """Host milliseconds spent in ``torch.distributed.all_reduce`` while
+    entered, each call timed between two synchronizes (so the time is the
+    collective's own, not the kernels queued before it)."""
+
+    def __enter__(self):
+        import torch
+        import torch.distributed as dist
+
+        self.ms, self.calls = 0.0, 0
+        self._real = dist.all_reduce
+
+        def timed(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = self._real(*args, **kw)
+            torch.cuda.synchronize()
+            self.ms += (time.perf_counter() - t0) * 1e3
+            self.calls += 1
+            return out
+
+        dist.all_reduce = timed
+        return self
+
+    def __exit__(self, *exc):
+        import torch.distributed as dist
+
+        dist.all_reduce = self._real
+        return False
+
+
+def _counts():
+    from repro_torch import kernels
+    from repro_torch.dist import collectives
+
+    return kernels.launch_counts(), collectives.counts()
+
+
+def _reset():
+    from repro_torch import kernels
+    from repro_torch.dist import collectives
+
+    kernels.reset_launch_counts()
+    collectives.reset_counts()
+
+
+def dist_generate(prompts, max_new):
+    """Full-width sharded generate: counts per prefill, per decode step and
+    per generate, the prefill's last logits, timings; rank 0 also runs the
+    cuda engine on the same prompts while the other ranks wait."""
+    torch = _dist_setup()
+    import torch.distributed as dist
+
+    from repro_torch import kernels
+    from repro_torch.configs import paper_mpfp
+    from repro_torch.core.policy import PrecisionPolicy
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.engine import ServeEngine
+
+    cfg = paper_mpfp.CONFIG
+    params = T.init_params(cfg, seed=0, device="cuda")
+    policy = PrecisionPolicy.serve_default()
+    eng = ServeEngine(cfg, params, max_batch=8, max_seq=512, policy=policy,
+                      matmul_backend="sharded", device="cuda")
+    toks = eng.pad_prompts(prompts)
+    eng.prefill(toks, eng.make_cache())        # warm-up: gloo's buffers
+    torch.cuda.synchronize()
+    _reset()
+    t0 = time.perf_counter()
+    logits, cache = eng.prefill(toks, eng.make_cache())
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    pre = _counts()
+    cur = logits[:, -1, :].argmax(dim=-1)[:, None]
+    _reset()
+    eng.decode(cache, cur)
+    torch.cuda.synchronize()
+    step = _counts()
+    _reset()
+    t0 = time.perf_counter()
+    outs = eng.generate(prompts, max_new=max_new)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    total = _counts()
+    plain = kernels.plain_call_counts()
+    probe = eng.decode_throughput_probe(steps=8)
+    with CollectiveClock() as pre_clock:
+        eng.prefill(toks, eng.make_cache())
+    with CollectiveClock() as step_clock:   # a warm-up step and 4 more
+        eng.decode_throughput_probe(steps=4)
+    out = dict(
+        tokens=outs, logits=logits[:, -1].float().cpu().numpy(),
+        prefill=pre, step=step, total=total, plain=plain, gen_s=gen_s,
+        tokens_per_s=len(prompts) * max_new / gen_s, prefill_ms=prefill_ms,
+        decode_ms_per_step=probe["ms_per_step"],
+        decode_tokens_per_s=probe["tokens_per_s"],
+        coll_ms_prefill=pre_clock.ms, coll_calls_prefill=pre_clock.calls,
+        coll_ms_per_step=step_clock.ms / 5,
+        coll_calls_per_step=step_clock.calls / 5)
+    del eng, cache
+    torch.cuda.empty_cache()
+    if dist.get_rank() == 0:
+        ref = ServeEngine(cfg, params, max_batch=8, max_seq=512,
+                          policy=policy, matmul_backend="cuda", device="cuda")
+        ref_logits, _ = ref.prefill(toks, ref.make_cache())
+        ref.generate(prompts, max_new=max_new)       # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref_outs = ref.generate(prompts, max_new=max_new)
+        torch.cuda.synchronize()
+        ref_s = time.perf_counter() - t0
+        out.update(ref_tokens=ref_outs,
+                   ref_logits=ref_logits[:, -1].float().cpu().numpy(),
+                   ref_tokens_per_s=len(prompts) * max_new / ref_s,
+                   ref_decode_ms_per_step=ref.decode_throughput_probe(
+                       steps=8)["ms_per_step"])
+        del ref
+        torch.cuda.empty_cache()
+    dist.barrier()
+    return out
+
+
+def dist_scheduler(prompts, max_new, n_blocks):
+    """The continuous scheduler over a sharded engine: paged decode goes
+    sequence-parallel."""
+    torch = _dist_setup()
+    from repro_torch.configs import paper_mpfp
+    from repro_torch.core.policy import PrecisionPolicy
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.scheduler import ContinuousScheduler, \
+        ScheduledRequest
+
+    cfg = paper_mpfp.CONFIG
+    params = T.init_params(cfg, seed=0, device="cuda")
+    eng = ServeEngine(cfg, params, max_batch=8, max_seq=512,
+                      policy=PrecisionPolicy.serve_default(),
+                      matmul_backend="sharded", device="cuda")
+    sched = ContinuousScheduler(eng, n_blocks=n_blocks, block_size=16)
+    _reset()
+    t0 = time.perf_counter()
+    done = sched.run([ScheduledRequest(rid=i, prompt=p, max_new=max_new,
+                                       arrival=2 * i)
+                      for i, p in enumerate(prompts)])
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    stats = sched.stats()
+    return dict(out={r.rid: list(r.out) for r in done}, run_s=run_s,
+                counts=_counts(), completed=stats["completed"],
+                ticks=stats["steps"], blocks_live=stats["blocks_live"],
+                useful_tokens=stats["useful_tokens"])
+
+
+def dist_sp_decode(lengths):
+    """sp_decode_attention at the generate path's decode shapes against the
+    cuda route's masked_decode_attention on the same (replicated) inputs."""
+    torch = _dist_setup()
+    from repro_torch.core import dispatch
+    from repro_torch.dist import collectives
+    from repro_torch.dist.attention import sp_decode_attention
+    from repro_torch.kernels import ref as ref_lib
+
+    g = torch.Generator(device="cuda").manual_seed(3)
+    q = torch.randn(8, 1, 12, 64, generator=g, device="cuda")
+    k = torch.randn(8, 512, 12, 64, generator=g, device="cuda")
+    v = torch.randn(8, 512, 12, 64, generator=g, device="cuda")
+    ln = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    out = {}
+    for qk, pv in (("M16", "M16"), ("M16", "M8")):
+        collectives.reset_counts()
+        sp = sp_decode_attention(q, k, v, ln, qk, pv,
+                                 dot=ref_lib.dot_nt_in_order)
+        calls = collectives.counts()["all_reduce"]["calls"]
+        local = dispatch.masked_decode_attention(q, k, v, ln, qk, pv,
+                                                 backend="cuda")
+        torch.cuda.synchronize()
+        zero = [i for i, n in enumerate(lengths) if n == 0]
+        out[f"{qk}/{pv}"] = dict(
+            max_abs_err=(sp - local).abs().max().item(), calls=calls,
+            zeros_exact=all(bool((sp[i] == 0).all()) for i in zero),
+            sp=sp.cpu().numpy())
+    return out
+
+
+def dist_pipeline(n_micro):
+    """pipeline_forward of the full-width model's 12 layers over the ranks
+    (stages) against the sequential loop at 8 x 128."""
+    torch = _dist_setup()
+    import numpy as np
+
+    from repro_torch.configs import paper_mpfp
+    from repro_torch.core import context as context_lib
+    from repro_torch.core.policy import PrecisionPolicy
+    from repro_torch.dist import collectives, pipeline
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import embed
+
+    cfg = paper_mpfp.CONFIG
+    params = T.init_params(cfg, seed=0, device="cuda")
+    policy = PrecisionPolicy.serve_default()
+    tokens = torch.from_numpy(np.random.default_rng(5).integers(
+        1, cfg.vocab, (8, 128))).cuda()
+    h = embed(tokens, params["embed"]["table"])
+    pos = torch.arange(128, device="cuda")[None, :]
+
+    def layer_fn(lp, x):
+        return T._dense_layer_fwd(lp, x, cfg, policy,
+                                  pos.expand(x.shape[0], 128), None)[0]
+
+    world = torch.distributed.get_world_size()
+    mesh = mesh_lib.make_debug_mesh(data=1, model=world)
+    with torch.no_grad():
+        seq = h
+        for lp in params["layers"]:
+            seq = layer_fn(lp, seq)
+        collectives.reset_counts()
+        with context_lib.context(backend="sharded"):
+            out = pipeline.pipeline_forward(layer_fn, params["layers"], h,
+                                            mesh, n_micro=n_micro)
+        torch.cuda.synchronize()
+    return dict(bitwise=bool(torch.equal(out.view(torch.int32),
+                                         seq.view(torch.int32))),
+                max_abs_err=(out - seq).abs().max().item(),
+                scale=seq.abs().max().item(),
+                counts=collectives.counts(),
+                digest=float(out.double().sum().item()))
+
+
+def dist_train(seq, batch):
+    """One value-and-grad of the depth-2, full-width model under sharded
+    and under cuda."""
+    torch = _dist_setup()
+    import hashlib
+
+    from repro_torch import tree as tree_lib
+    from repro_torch.configs import paper_mpfp
+    from repro_torch.core import context as context_lib
+    from repro_torch.core.policy import PrecisionPolicy
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models import transformer as T
+    from repro_torch.train import trainer as trainer_lib
+
+    cfg = dataclasses.replace(paper_mpfp.CONFIG, n_layers=2)
+    params = T.init_params(cfg, seed=0, device="cuda")
+    b = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=seq + 1,
+                               global_batch=batch)).batch(0)
+    b = {k: torch.from_numpy(v).cuda() for k, v in b.items()}
+    loss_fn = trainer_lib.make_loss_fn(cfg, PrecisionPolicy.train_default())
+    res = {}
+    for backend in ("sharded", "cuda"):
+        _reset()
+        with context_lib.context(backend=backend):
+            (loss, _), grads = trainer_lib.value_and_grad(loss_fn, params, b)
+        torch.cuda.synchronize()
+        res[backend] = (loss, grads, _counts())
+    (ls, gs, cs), (lc, gc, _) = res["sharded"], res["cuda"]
+    worst = max(((a - c).abs().max() / c.abs().max()).item()
+                for a, c in zip(tree_lib.leaves(gs), tree_lib.leaves(gc)))
+    digest = hashlib.sha1()
+    for g in tree_lib.leaves(gs):
+        digest.update(g.contiguous().view(torch.int32).cpu().numpy()
+                      .tobytes())
+    return dict(loss=ls.item(), loss_cuda=lc.item(),
+                loss_rel=abs(ls.item() - lc.item()) / abs(lc.item()),
+                worst_leaf=worst, grads_sha1=digest.hexdigest(),
+                counts=cs)
+
+
+def _bits(t):
+    """A tensor's bit patterns as integers (bitwise comparison, -0 and NaN
+    included)."""
+    import torch
+
+    t = t.contiguous().reshape(-1)
+    by_size = {2: torch.int16, 4: torch.int32, 8: torch.int64}
+    return t.view(by_size[t.element_size()]) if t.is_floating_point() else t
+
+
+def dist_restore(ck_dir, step):
+    """[train]'s checkpoint restored onto this world's mesh under
+    param_shardings: each rank's shard against its slice of the array."""
+    torch = _dist_setup()
+    from repro_torch import tree as tree_lib
+    from repro_torch.checkpoint import checkpoint as ckpt_lib
+    from repro_torch.configs import paper_mpfp
+    from repro_torch.dist import sharding as sh
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw
+    from repro_torch.train import trainer as trainer_lib
+
+    params = T.init_params(paper_mpfp.CONFIG, seed=0, device="cpu")
+    like = trainer_lib.TrainState(params,
+                                  adamw.init(params, adamw.AdamWConfig()))
+    mesh = mesh_lib.make_matmul_mesh()
+    rules = sh.AxisRules(mesh, batch_axes=("data",))
+    t0 = time.perf_counter()
+    placed, extra = ckpt_lib.restore(ck_dir, step, like,
+                                     shardings=sh.param_shardings(like,
+                                                                  rules))
+    restore_s = time.perf_counter() - t0
+    full, _ = ckpt_lib.restore(ck_dir, step, like)
+    n = mesh.size(0)
+    r = mesh.get_local_rank("data")
+    n_sharded = n_leaves = 0
+    equal = True
+    for (path, d), f in zip(tree_lib.items(placed), tree_lib.leaves(full)):
+        n_leaves += 1
+        local = d.to_local().cpu()
+        if f.ndim and f.shape[-1] % n == 0 and f.shape[-1] >= n:
+            n_sharded += 1
+            w = f.shape[-1] // n
+            want = f[..., r * w:(r + 1) * w]
+        else:
+            want = f
+        equal = equal and local.shape == want.shape and torch.equal(
+            _bits(local), _bits(want))
+    return dict(equal=equal, n_leaves=n_leaves, n_sharded=n_sharded,
+                restore_s=restore_s, extra=extra)
+
+
+def dist_collectives():
+    """hierarchical_psum against flat_psum on CUDA tensors over a
+    (pod 2, data 2, model 1) mesh, and the compressed variant's error."""
+    torch = _dist_setup()
+    from repro_torch.dist import collectives
+    from repro_torch.launch import mesh as mesh_lib
+
+    mesh = mesh_lib.make_debug_mesh(data=2, model=1, pod=2)
+    g = torch.Generator(device="cuda").manual_seed(4)
+    x = torch.randn(64, 1024, generator=g, device="cuda")
+    collectives.reset_counts()
+    h = collectives.hierarchical_psum(x, mesh)
+    fl = collectives.flat_psum(x, mesh, ("pod", "data"))
+    err0 = torch.zeros(x.numel() // 2, device="cuda")
+    out, err = collectives.hierarchical_psum_compressed(x, err0, mesh)
+    out2, err2 = collectives.hierarchical_psum_compressed(x, err, mesh)
+    torch.cuda.synchronize()
+    rel = ((h - fl).norm() / fl.norm()).item()
+    return dict(h_vs_flat_max_rel=((h - fl).abs() / fl.abs().clamp_min(
+        1e-30)).max().item(), h_vs_flat_norm_rel=rel,
+        h_vs_4x=((h - 4 * x).abs().max() / (4 * x).abs().max()).item(),
+        compressed_rel=((out - fl).norm() / fl.norm()).item(),
+        err_max=err.abs().max().item(),
+        compressed_rel_step2=((out2 - fl).norm() / fl.norm()).item(),
+        counts=collectives.counts())
+
+
+def dist_gloo_ops(p2p=False):
+    """Which collectives gloo runs on CUDA tensors itself: each op straight
+    through ``torch.distributed`` on the world group, the result checked.
+    With ``p2p`` only rank 0's send to rank 1 (a rank that crashes there
+    ends the spawn, so it runs alone)."""
+    torch = _dist_setup()
+    import torch.distributed as dist
+
+    r, w = dist.get_rank(), dist.get_world_size()
+    x = torch.arange(8, dtype=torch.float32, device="cuda") + r
+    base = torch.arange(8, dtype=torch.float32, device="cuda")
+    total = w * base + w * (w - 1) / 2
+    out = {}
+
+    def attempt(name, fn, want):
+        try:
+            got = fn()
+            torch.cuda.synchronize()
+            out[name] = "right" if torch.equal(got, want) else "wrong"
+        except RuntimeError as e:
+            out[name] = f"raised: {str(e).splitlines()[0][:120]}"
+
+    def reduced(op):
+        y = x.clone()
+        dist.all_reduce(y, op=op)
+        return y
+
+    def gathered():
+        y = torch.empty(8 * w, device="cuda")
+        dist.all_gather_into_tensor(y, x)
+        return y
+
+    def scattered():
+        y = torch.empty(8 // w, device="cuda")
+        dist.reduce_scatter_tensor(y, x)
+        return y
+
+    def sent():
+        y = x.clone() if r == 0 else torch.zeros(8, device="cuda")
+        if r == 0:
+            dist.send(y, 1)
+        elif r == 1:
+            dist.recv(y, 0)
+        return y
+
+    if p2p:
+        attempt("send/recv", sent, base if r < 2 else torch.zeros(
+            8, device="cuda"))
+        return out
+    attempt("all_reduce", lambda: reduced(dist.ReduceOp.SUM), total)
+    attempt("all_reduce_max", lambda: reduced(dist.ReduceOp.MAX),
+            base + w - 1)
+    def broadcast():
+        y = x.clone()
+        dist.broadcast(y, 0)
+        return y
+
+    attempt("broadcast", broadcast, base)
+    attempt("all_gather", gathered,
+            torch.cat([base + q for q in range(w)]))
+    attempt("reduce_scatter", scattered,
+            total[r * (8 // w):(r + 1) * (8 // w)])
+    return out
+
+
+DIST_TASKS = {"generate": dist_generate, "scheduler": dist_scheduler,
+              "sp_decode": dist_sp_decode, "pipeline": dist_pipeline,
+              "train": dist_train, "restore": dist_restore,
+              "collectives": dist_collectives, "gloo_ops": dist_gloo_ops}
+
+
+def dist_rank(rank, world, init_file, backend, tasks, outq):
+    """One spawned rank: join the group, run each task (an exception is
+    kept as the task's result), report, leave."""
+    import traceback
+
+    out = {}
+    try:
+        _dist_setup()
+        from repro_torch.launch import mesh as mesh_lib
+
+        info = mesh_lib.init_distributed(
+            rank, world, init_method=f"file://{init_file}", device="cuda",
+            backend=backend, timeout_s=DIST_TIMEOUT_S)
+        out["backend"] = info.backend
+        for name, kw in tasks:
+            t0 = time.perf_counter()
+            try:
+                out[name] = DIST_TASKS[name](**kw)
+            except Exception:  # noqa: BLE001 — reported to the parent
+                out[name] = {"error": traceback.format_exc()}
+            log(f"[dist] rank {rank}: {name} {time.perf_counter() - t0:.1f} s")
+        mesh_lib.shutdown()
+    except BaseException:  # noqa: BLE001 — reported, then the rank ends
+        out["error"] = traceback.format_exc()
+    outq.put((rank, out))
+
+
+def run_ranks(world: int, tasks, backend=None, timeout=DIST_TIMEOUT_S):
+    """Spawn ``world`` ranks running ``tasks``; their reports in rank order.
+    A rank that reports a start-up failure, dies or misses the deadline
+    fails the call, and every rank still alive is killed."""
+    import multiprocessing
+    import queue
+
+    ctx = multiprocessing.get_context("spawn")
+    (ROOT / "build").mkdir(exist_ok=True)
+    init_file = ROOT / "build" / f"dist_rendezvous_{time.time_ns()}"
+    outq = ctx.Queue()
+    procs = [ctx.Process(target=dist_rank, args=(r, world, str(init_file),
+                                                 backend, tasks, outq))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    got = {}
+    deadline = time.monotonic() + timeout
+    try:
+        while len(got) < world:
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"ranks {sorted(set(range(world)) - set(got))}"
+                                   f" gave no report in {timeout} s")
+            try:
+                rank, out = outq.get(timeout=5)
+            except queue.Empty:
+                dead = [r for r, p in enumerate(procs)
+                        if r not in got and p.exitcode not in (None, 0)]
+                if dead:
+                    raise RuntimeError(f"ranks {dead} died (exit codes "
+                                       f"{[procs[r].exitcode for r in dead]})")
+                continue
+            got[rank] = out
+            if "error" in out:
+                raise RuntimeError(f"rank {rank} failed:\n{out['error']}")
+    finally:
+        for p in procs:
+            p.join(timeout=30 if len(got) == world else 1)
+            if p.is_alive():
+                p.kill()
+                p.join(timeout=10)
+        init_file.unlink(missing_ok=True)
+    return [got[r] for r in range(world)]
+
+
+def _task(fail, label, reports, name):
+    """Each rank's result of one task, or None (logged, failed) where a
+    rank raised in it."""
+    bad = [r for r, rep in enumerate(reports)
+           if isinstance(rep.get(name), dict) and "error" in rep[name]]
+    for r in bad:
+        log(f"[FAIL] {label} rank {r}:\n{reports[r][name]['error']}")
+    fail.check(not bad, f"{label} raised on ranks {bad}")
+    return None if bad else [rep[name] for rep in reports]
+
+
+def dist_phase(fail, cfg, params, main_prompts, sched_prompts, ck_dir, smi):
+    """[dist]: full-width serving, the scheduler, sequence-parallel decode,
+    the pipeline, a training value-and-grad and elastic restore across W
+    ranks; the collectives on four; the torchrun launcher; one-rank NCCL."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.formats import resolve
+    from repro_torch.core.policy import PrecisionPolicy
+    from repro_torch.dist import collectives
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.serve.engine import ServeEngine
+
+    n_dev = torch.cuda.device_count()
+    W = min(n_dev, 4) if n_dev >= 2 else 2
+    backend = "nccl" if n_dev >= 2 else "gloo"
+    L, V, D, H = cfg.n_layers, cfg.padded_vocab, cfg.d_model, cfg.n_heads
+    Dh = D // H
+    policy = PrecisionPolicy.serve_default()
+    new = 32
+    sp_lengths = [int(n) + 16 for n in np.linspace(64, 256, 8)]
+    sp_lengths[-1] = 0                          # an inactive slot
+    tasks = [("generate", dict(prompts=main_prompts, max_new=new)),
+             ("scheduler", dict(prompts=sched_prompts, max_new=new,
+                                n_blocks=SCHED_BLOCKS)),
+             ("sp_decode", dict(lengths=sp_lengths)),
+             ("pipeline", dict(n_micro=4)),
+             ("train", dict(seq=TRAIN_SEQ, batch=TRAIN_BATCH)),
+             ("restore", dict(ck_dir=str(ck_dir), step=TRAIN_STEPS))]
+    t0 = time.perf_counter()
+    reports = run_ranks(W, tasks, backend=backend)
+    ranks_s = time.perf_counter() - t0
+    log(f"[dist] {W} ranks over {reports[0]['backend']} "
+        f"({'one card each' if n_dev >= 2 else 'sharing one card'}): "
+        f"{ranks_s:.1f} s")
+    res = {"W": W, "backend": reports[0]["backend"], "ranks_s": ranks_s}
+
+    # ---- sharded generate ---------------------------------------------------
+    gen = _task(fail, "[dist] generate", reports, "generate")
+    if gen is not None:
+        g0 = gen[0]
+        fail.check(all(g["tokens"] == g0["tokens"] for g in gen),
+                   "[dist] generate: ranks' tokens differ")
+        M = 8 * max(len(p) for p in main_prompts)
+        fmts = {c: resolve(policy.mode(c)) for c in ("attn_out", "ffn",
+                                                     "lm_head")}
+        pre_bytes = 4 * M * (L * D * (fmts["attn_out"].n_orders
+                                      + fmts["ffn"].n_orders)
+                             + V * fmts["lm_head"].n_orders)
+        step_bytes = 4 * L * 8 * H * (1 + 1 + Dh)
+        want_pre = {"calls": 2 * L + 1, "bytes": pre_bytes}
+        want_step = {"calls": 3 * L, "bytes": step_bytes}
+        for tag, got, want, part in (
+                ("prefill", g0["prefill"], want_pre, 2 * L + 1),
+                ("decode step", g0["step"], want_step, 0),
+                ("generate", g0["total"],
+                 {"calls": want_pre["calls"] + new * want_step["calls"],
+                  "bytes": pre_bytes + new * step_bytes},
+                 2 * L + 1)):
+            ar = got[1]["all_reduce"]
+            n_part = got[0]["mp_fused_matmul_partials"]
+            log(f"[dist] {tag}: {n_part} partials launches (want {part}), "
+                f"{ar['calls']} all-reduces of {ar['bytes']} bytes (want "
+                f"{want['calls']} of {want['bytes']}), {ar['staged']} "
+                "staged through the host")
+            fail.check(n_part == part and ar["calls"] == want["calls"]
+                       and ar["bytes"] == want["bytes"],
+                       f"[dist] {tag} counts off the formula")
+        fail.check(not any(g0["plain"].values()),
+                   f"[dist] plain-version calls {g0['plain']}")
+        a, b = g0["logits"].astype(np.float64), g0["ref_logits"].astype(
+            np.float64)
+        rel = float(np.linalg.norm(a - b) / np.linalg.norm(b))
+        rel_tol = 4 * 2.0 ** -6
+        top2 = np.sort(b, axis=-1)[:, -2:]
+        margin_ok = (top2[:, 1] - top2[:, 0]) > rel_tol * np.abs(b).max()
+        first_eq = [g0["tokens"][i][0] == g0["ref_tokens"][i][0]
+                    for i in range(8)]
+        same_streams = sum(g0["tokens"][i] == g0["ref_tokens"][i]
+                           for i in range(8))
+        log(f"[dist] generate 8 prompts x {new} new on {W} ranks: "
+            f"{g0['gen_s']:.3f} s, {g0['tokens_per_s']:.1f} tokens/s (cuda "
+            f"engine on rank 0: {g0['ref_tokens_per_s']:.1f}); prefill "
+            f"{g0['prefill_ms']:.1f} ms (all-reduces {g0['coll_ms_prefill']:.1f}"
+            f" ms host), decode {g0['decode_ms_per_step']:.3f} ms/step (cuda "
+            f"{g0['ref_decode_ms_per_step']:.3f}; all-reduces "
+            f"{g0['coll_ms_per_step']:.3f} ms/step host); prefill logits vs "
+            f"the cuda engine rel {rel:.3e} (tol {rel_tol:.3e}); first tokens"
+            f" equal {sum(first_eq)}/8 ({int(margin_ok.sum())} with a margin "
+            f"above the bound), streams equal {same_streams}/8 ({smi})")
+        fail.check(rel <= rel_tol and np.isfinite(a).all(),
+                   "[dist] prefill logits disagree with the cuda engine")
+        fail.check(all(e for e, m in zip(first_eq, margin_ok) if m),
+                   "[dist] a first token with a clear margin differs")
+        res["generate"] = {k: v for k, v in g0.items()
+                           if k not in ("logits", "ref_logits", "tokens",
+                                        "ref_tokens")}
+        res["generate"].update(logits_rel_vs_cuda=rel,
+                               first_equal=sum(first_eq),
+                               margin_ok=int(margin_ok.sum()),
+                               streams_equal=same_streams,
+                               launches=g0["total"][0])
+
+    # ---- the scheduler --------------------------------------------------------
+    sch = _task(fail, "[dist] scheduler", reports, "scheduler")
+    if sch is not None:
+        s0 = sch[0]
+        fail.check(all(s["out"] == s0["out"] for s in sch),
+                   "[dist] scheduler: ranks' streams differ")
+        ok = (s0["completed"] == len(sched_prompts) and s0["blocks_live"] == 0
+              and all(len(o) == new for o in s0["out"].values()))
+        ar = s0["counts"][1]["all_reduce"]
+        log(f"[dist] scheduler {len(sched_prompts)} requests: {s0['ticks']} "
+            f"ticks, {s0['run_s']:.3f} s, {s0['useful_tokens'] / s0['run_s']:.1f}"
+            f" tokens/s, {ar['calls']} all-reduces ({ar['staged']} staged), "
+            f"partials launches {s0['counts'][0]['mp_fused_matmul_partials']},"
+            f" paged kernel launches {s0['counts'][0]['mp_paged_attention']}")
+        fail.check(ok, "[dist] scheduler: a request unfinished or a block "
+                       "leaked")
+        fail.check(s0["counts"][0]["mp_paged_attention"] == 0 and ar["calls"]
+                   > 0, "[dist] scheduler: paged decode did not go "
+                        "sequence-parallel")
+        res["scheduler"] = {k: v for k, v in s0.items() if k != "out"}
+
+    # ---- sp decode ---------------------------------------------------------------
+    sp = _task(fail, "[dist] sp_decode", reports, "sp_decode")
+    if sp is not None:
+        res["sp_decode"] = {}
+        for key, r0 in sp[0].items():
+            tol = DIST_PV_TOL.get(key.split("/")[1], 2e-5)
+            same = all(np.array_equal(r[key]["sp"], r0["sp"]) for r in sp)
+            log(f"[dist] sp_decode_attention (8, 1, 12, 64) vs (8, 512) "
+                f"{key}: max abs err vs the cuda route {r0['max_abs_err']:.3e}"
+                f" (tol {tol:.0e}), {r0['calls']} all-reduces, length-0 slot"
+                f" exact zeros {r0['zeros_exact']}, ranks equal {same}")
+            fail.check(r0["max_abs_err"] <= tol and r0["calls"] == 3
+                       and r0["zeros_exact"] and same,
+                       f"[dist] sp_decode {key}")
+            res["sp_decode"][key] = {k: v for k, v in r0.items() if k != "sp"}
+
+    # ---- the pipeline -------------------------------------------------------------
+    pp = _task(fail, "[dist] pipeline", reports, "pipeline")
+    if pp is not None:
+        p0 = pp[0]
+        c = p0["counts"]
+        log(f"[dist] pipeline_forward {L} layers over {W} stages, n_micro 4, "
+            f"8 x 128: bitwise the sequential forward {p0['bitwise']} (max "
+            f"abs {p0['max_abs_err']:.3e} of {p0['scale']:.3e}); sends "
+            f"{[r['counts']['send']['calls'] for r in pp]}, staged "
+            f"{c['send']['staged'] + c['recv']['staged']}, all-reduces "
+            f"{c['all_reduce']['calls']}")
+        fail.check(p0["bitwise"] and all(r["digest"] == p0["digest"]
+                                         for r in pp)
+                   and c["all_reduce"]["calls"] == 0,
+                   "[dist] pipeline forward is not the sequential forward")
+        res["pipeline"] = dict(bitwise=p0["bitwise"],
+                               max_abs_err=p0["max_abs_err"],
+                               counts=[r["counts"] for r in pp])
+
+    # ---- training -------------------------------------------------------------------
+    tr = _task(fail, "[dist] train", reports, "train")
+    if tr is not None:
+        t0_ = tr[0]
+        same = all(r["loss"] == t0_["loss"] and
+                   r["grads_sha1"] == t0_["grads_sha1"] for r in tr)
+        ar = t0_["counts"][1]["all_reduce"]
+        log(f"[dist] train value-and-grad, depth 2, 8 x 128: loss "
+            f"{t0_['loss']:.6f} vs cuda {t0_['loss_cuda']:.6f} (rel "
+            f"{t0_['loss_rel']:.3e}), worst leaf {t0_['worst_leaf']:.3e} of "
+            f"its max; ranks equal (loss, gradients) {same}; {ar['calls']} "
+            f"all-reduces, partials launches "
+            f"{t0_['counts'][0]['mp_fused_matmul_partials']}")
+        fail.check(same and t0_["loss_rel"] <= 1e-5
+                   and t0_["worst_leaf"] < 5e-4,
+                   "[dist] sharded training disagrees")
+        res["train"] = t0_
+
+    # ---- elastic restore ------------------------------------------------------------
+    rs = _task(fail, "[dist] restore", reports, "restore")
+    if rs is not None:
+        log(f"[dist] elastic restore of [train]'s checkpoint onto {W} "
+            f"ranks: {rs[0]['n_leaves']} leaves, {rs[0]['n_sharded']} "
+            f"sharded, every rank's shard == its slice bitwise "
+            f"{[r['equal'] for r in rs]}, {rs[0]['restore_s']:.1f} s")
+        fail.check(all(r["equal"] for r in rs) and rs[0]["n_sharded"] > 0,
+                   "[dist] elastic restore")
+        res["restore"] = rs[0]
+
+    # ---- collectives on four ranks --------------------------------------------------
+    t0 = time.perf_counter()
+    four = run_ranks(4, [("collectives", {})],
+                     backend="nccl" if n_dev >= 4 else "gloo")
+    co = _task(fail, "[dist] collectives", four, "collectives")
+    if co is not None:
+        c0 = co[0]
+        staged = {k: v["staged"] for k, v in c0["counts"].items()
+                  if v["staged"]}
+        log(f"[dist] hierarchical_psum on 4 ranks ({four[0]['backend']}, "
+            f"(pod 2, data 2, model 1), CUDA tensors): vs flat_psum max rel "
+            f"{c0['h_vs_flat_max_rel']:.3e}, vs 4x {c0['h_vs_4x']:.3e}; "
+            f"compressed rel {c0['compressed_rel']:.3e} then "
+            f"{c0['compressed_rel_step2']:.3e} with the error carried (max "
+            f"{c0['err_max']:.3e}); staged through the host {staged} "
+            f"({time.perf_counter() - t0:.1f} s)")
+        fail.check(c0["h_vs_flat_max_rel"] <= 1e-6 and c0["h_vs_4x"] <= 1e-6
+                   and c0["compressed_rel"] < 0.03 and c0["err_max"] > 0,
+                   "[dist] hierarchical collectives")
+        res["collectives"] = c0
+
+    # ---- which ops gloo runs on CUDA tensors: the staged set's evidence --------------
+    if n_dev < 4:
+        from repro_torch.dist.collectives import GLOO_HOST_STAGED
+
+        ops = run_ranks(2, [("gloo_ops", {})], backend="gloo",
+                        timeout=180)[0]["gloo_ops"]
+        try:
+            ops.update(run_ranks(2, [("gloo_ops", {"p2p": True})],
+                                 backend="gloo", timeout=60)[0]["gloo_ops"])
+        except (RuntimeError, TimeoutError) as err:   # a rank died or hung
+            ops["send/recv"] = f"failed: {str(err).splitlines()[0][:200]}"
+        refused = set()
+        for k, v in ops.items():
+            if v != "right":
+                refused |= {"send", "recv"} if k == "send/recv" else {k}
+        log(f"[dist] gloo on CUDA tensors, each op run natively on 2 ranks: "
+            f"{ops}; staged through the host by dist/collectives.py: "
+            f"{sorted(GLOO_HOST_STAGED)}")
+        fail.check(refused == set(GLOO_HOST_STAGED),
+                   f"[dist] gloo refuses {sorted(refused)}, "
+                   f"dist/collectives.py stages {sorted(GLOO_HOST_STAGED)}")
+        res["gloo_ops"] = ops
+
+    # ---- the launcher under torchrun ------------------------------------------------
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = dict(__import__("os").environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    run = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node",
+         str(W), "--master-addr", "127.0.0.1", "--master-port", str(port),
+         "-m", "repro_torch.launch.serve", "--backend", "sharded",
+         "--requests", "8", "--max-new", str(new), "--max-seq", "512"],
+        cwd=str(ROOT), env=env, capture_output=True, text=True, timeout=600)
+    lines = [ln for ln in run.stdout.splitlines() if ln.startswith("req")]
+    log(f"[dist] torchrun --nproc-per-node {W} -m repro_torch.launch.serve "
+        f"--backend sharded: rc {run.returncode}, {len(lines)} streams, "
+        f"{time.perf_counter() - t0:.1f} s")
+    if run.returncode != 0:
+        log(run.stdout[-3000:])
+        log(run.stderr[-3000:])
+    fail.check(run.returncode == 0 and len(lines) == 8,
+               "[dist] the launcher under torchrun")
+    res["torchrun"] = dict(rc=run.returncode, streams=len(lines))
+
+    # ---- one rank over NCCL -----------------------------------------------------------
+    info = mesh_lib.init_distributed(
+        0, 1, init_method=f"file://{ROOT / 'build'}/nccl_{time.time_ns()}",
+        device="cuda", backend="nccl", timeout_s=120)
+    try:
+        collectives.reset_counts()
+        one = collectives.all_reduce(torch.ones(4, device="cuda"),
+                                     torch.distributed.group.WORLD)
+        e_s = ServeEngine(cfg, params, max_batch=8, max_seq=512,
+                          policy=policy, matmul_backend="sharded")
+        e_c = ServeEngine(cfg, params, max_batch=8, max_seq=512,
+                          policy=policy, matmul_backend="cuda")
+        toks = e_s.pad_prompts(main_prompts)
+        l_s, _ = e_s.prefill(toks, e_s.make_cache())
+        l_c, _ = e_c.prefill(toks, e_c.make_cache())
+        o_s = e_s.generate(main_prompts, max_new=8)
+        o_c = e_c.generate(main_prompts, max_new=8)
+        torch.cuda.synchronize()
+        bitwise = bool(torch.equal(l_s.view(torch.int32),
+                                   l_c.view(torch.int32))) and o_s == o_c
+        log(f"[dist] one rank over {info.backend}: all-reduce "
+            f"{one.tolist()}; sharded engine == cuda engine bitwise "
+            f"(prefill logits, 8 x 8 tokens) {bitwise}")
+        fail.check(info.backend == "nccl" and bitwise
+                   and one.tolist() == [1.0] * 4,
+                   "[dist] one-rank NCCL: sharded != cuda")
+        res["nccl_one_rank"] = dict(backend=info.backend, bitwise=bitwise)
+        del e_s, e_c
+    finally:
+        mesh_lib.shutdown()
+    torch.cuda.empty_cache()
+    return res
+
+
 def log(*args) -> None:
     print(*args, flush=True)
 
@@ -1236,6 +2073,8 @@ def main() -> int:
         decode_rows_bitwise("mp_fused_matmul", label,
                             lambda x: mp_matmul.mp_fused_matmul(x, b, fmt),
                             a, out)
+        if a.ndim == 2 and b.ndim == 2:
+            partials_gate(label, a, b, fmt, out)
         lib, stream = build.load("mp_matmul"), \
             torch.cuda.current_stream().cuda_stream
 
@@ -1278,12 +2117,69 @@ def main() -> int:
                    plain=lambda: mp_matmul.fused_matmul_plain(a, b, fmt),
                    library=(lambda ar=a.bfloat16().float(),
                             br=b.bfloat16().float(): torch.matmul(ar, br))
-                   if library else None)
+                   if library else None,
+                   # M8's function exactly, on the card's bf16 fast path
+                   library_bf16=(lambda ab=a.bfloat16(), bb=b.bfloat16():
+                                 torch.mm(ab, bb, out_dtype=torch.float32))
+                   if library and fmt.name == "M8" and a.ndim == 2
+                   and b.ndim == 2 else None)
         cases["mp_fused_matmul"].append(row)
         if contig:
             cases["mp_fused_matmul"].append(dict(
                 row, case=label + ", launched on the views as they are",
                 main=False, per=None, fn=on_views))
+
+    def partials_gate(label, a, b, fmt, fused_out):
+        """The partials epilogue on a 2-D case: each order's plane against
+        its plain version, ``combine_partials`` of the stack bitwise the
+        fused kernel's output, and a decode case's rows (M <= 16, the
+        decode tile) bitwise the same rows of an M = 70 launch."""
+        kname = "mp_fused_matmul_partials"
+        parts = mp_matmul.mp_fused_matmul_partials(a, b, fmt)
+        plain = mp_matmul.fused_matmul_partials_plain(a, b, fmt)
+        torch.cuda.synchronize()
+        tol = torch.stack([mm_tol(pl, a.shape[-1]) for pl in plain])
+        hold(kname, label, parts, plain, tol, {"fmt": fmt.name})
+        joined = ref_lib.combine_partials(parts, fmt)
+        torch.cuda.synchronize()
+        if not torch.equal(joined.view(torch.int32),
+                           fused_out.view(torch.int32)):
+            raise AssertionError(f"{kname} {label}: combine_partials of the "
+                                 "stack is not bitwise mp_fused_matmul")
+        checks[kname][-1]["combine_bitwise_fused"] = True
+        M = a.shape[0]
+        if M <= 16:
+            pad = torch.randn(70 - M, a.shape[1], generator=gen70,
+                              device=dev)
+            big = mp_matmul.mp_fused_matmul_partials(
+                torch.cat([a, pad]), b, fmt)[:, :M]
+            torch.cuda.synchronize()
+            if not torch.equal(parts.view(torch.int32),
+                               big.view(torch.int32)):
+                raise AssertionError(f"{kname} {label}: rows of the M = {M} "
+                                     "stack are not bitwise the M = 70 "
+                                     "stack's")
+            checks[kname][-1]["bitwise_vs_m70"] = True
+        log(f"[check] {kname} {label}: combine_partials(stack) == "
+            "mp_fused_matmul bitwise"
+            + (f"; M = {M} rows == M = 70 rows bitwise" if M <= 16 else ""))
+
+    def partials_case(label, a, b, fmt, main=False):
+        """A timed partials case at a K-sharded shape, with the fused
+        kernel on the same operands timed beside it (``fused_ms``)."""
+        fmt = resolve(fmt)
+        fused = mp_matmul.mp_fused_matmul(a, b, fmt)
+        partials_gate(label, a, b, fmt, fused)
+        (M, K), N = a.shape, b.shape[1]
+        cases["mp_fused_matmul_partials"].append(dict(
+            case=label, fmt=fmt.name, a=list(a.shape), b=list(b.shape),
+            ops=2 * M * K * N * fmt.n_products,
+            bytes=4 * (a.numel() + b.numel() + fmt.n_orders * M * N),
+            main=main, per=None,
+            fn=lambda: mp_matmul.mp_fused_matmul_partials(a, b, fmt),
+            plain=lambda: mp_matmul.fused_matmul_partials_plain(a, b, fmt),
+            library=None,
+            vs=lambda: mp_matmul.mp_fused_matmul(a, b, fmt)))
 
     def proj_case(label, a, ws, fmt, gate="none", biases=None,
                   residual=None, main=False, library=False, per=None):
@@ -1682,6 +2578,12 @@ def main() -> int:
                 randn(700, 300), "M23")
     matmul_case("ragged 200x333x77 M52", randn(200, 333), randn(333, 77),
                 "M52")
+    # the partials epilogue at [dist]'s K-sharded prefill shapes (two
+    # ranks: half of K each)
+    partials_case(f"lm_head prefill K/2 2048x{d // 2}x{V}", x[:, :d // 2],
+                  randn(d // 2, V) * 0.03, "M16", main=True)
+    partials_case(f"w_down prefill K/2 2048x{ff // 2}x{d}",
+                  randn(2048, ff // 2), w_down[:ff // 2], "M8")
 
     wq = [randn(d, d) * 0.03 for _ in range(3)]
     proj_case("prefill QKV 2048x768 vs 3x768x768", x, wq, "M8", main=True,
@@ -2559,7 +3461,9 @@ def main() -> int:
 
     # ---- 4f. [train]: training steps of the full-width model -------------
     t_policy = PrecisionPolicy.train_default()
-    ck_dir = ROOT / "chiprun_out" / "train_ckpt"
+    # 1.6 GB: under build/, never the output directory; [dist] restores it
+    # onto its ranks' mesh, then it is removed
+    ck_dir = ROOT / "build" / "train_ckpt"
     shutil.rmtree(ck_dir, ignore_errors=True)
     tcfg = trainer_lib.TrainerConfig(total_steps=TRAIN_STEPS, warmup=2,
                                      ckpt_dir=str(ck_dir),
@@ -2660,7 +3564,6 @@ def main() -> int:
             tree_lib.leaves(restored), tree_lib.leaves(state))):
         raise AssertionError("[train] the checkpoint does not restore the "
                              "state bitwise")
-    shutil.rmtree(ck_dir)  # 1.6 GB: not for the output directory
     del restored
     log(f"[train] checkpoint of step {TRAIN_STEPS} restores the state bitwise")
     # step time on the host clock after synchronize, then the card's busy
@@ -2775,13 +3678,19 @@ def main() -> int:
     del f_eng
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
+    try:
+        new["dist"] = fail.run("[dist]", dist_phase, fail, cfg, params,
+                               prompts, sched_prompts, ck_dir, smi)
+    finally:
+        shutil.rmtree(ck_dir, ignore_errors=True)
     report.update({k: v for k, v in new.items() if v is not None})
     fail.raise_if_any()
     new_launches = {
         "train_auto": report["train_auto"]["launches"],
         "train_more": report["train_more"]["rollback"]["launches"],
         "fleet": report["fleet"]["mode_affinity"]["launches"],
-        "chaos": report["chaos"]["launches"]}
+        "chaos": report["chaos"]["launches"],
+        "dist": report["dist"]["generate"]["launches"]}
 
     # ---- 5. the kernels line -----------------------------------------------
     line = []
@@ -2796,7 +3705,13 @@ def main() -> int:
             b_ms, b_by = bound(c["ops"], c["bytes"],
                                c.get("peak", PEAK_OPS))
             row = {k: v for k, v in c.items()
-                   if k not in ("fn", "plain", "library", "peak")}
+                   if k not in ("fn", "plain", "library", "peak", "vs",
+                                "library_bf16")}
+            if c.get("library_bf16"):
+                row["library_bf16_ms"] = device_ms(c["library_bf16"],
+                                                   torch)[0]
+            if c.get("vs"):
+                row["fused_ms"] = device_ms(c["vs"], torch)[0]
             # False where the host fell behind the card even so
             host_ahead = dict(ms=ahead, plain_ms=plain_ahead,
                               library_ms=lib_ahead)
@@ -2810,6 +3725,10 @@ def main() -> int:
                 f"{plain_ms:.4f} ms, library "
                 f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound "
                 f"{b_ms:.4f} ms ({b_by})"
+                + (f"; torch.mm bf16 (f32 out) {row['library_bf16_ms']:.4f} ms"
+                   if "library_bf16_ms" in row else "")
+                + (f"; fused_matmul_kernel on the same operands "
+                   f"{row['fused_ms']:.4f} ms" if "fused_ms" in row else "")
                 + (f"; rel err vs float64 {c['gold_rel']:.3e} (bound "
                    f"{c['gold_bound']:.3e})" if "gold_rel" in c else "")
                 + (f"; host behind the card for {behind}" if behind else ""))

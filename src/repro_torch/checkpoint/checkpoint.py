@@ -99,9 +99,16 @@ def _from_numpy(arr: np.ndarray, logical: str, like) -> torch.Tensor:
     return t.to(device)
 
 
-def restore(ckpt_dir: str, step: int, like: Any) -> Tuple[Any, dict]:
+def restore(ckpt_dir: str, step: int, like: Any,
+            shardings: Optional[Any] = None) -> Tuple[Any, dict]:
     """Restore into the structure of ``like``; each leaf lands on the device
-    of ``like``'s leaf at its path, with the saved dtype."""
+    of ``like``'s leaf at its path, with the saved dtype.
+
+    ``shardings`` (a tree of ``dist.sharding.Sharding``, e.g. from
+    ``param_shardings``): each leaf comes back as a ``DTensor`` on that
+    sharding's mesh — elastic restore of a logically saved checkpoint onto
+    any world.  Every rank reads the checkpoint and keeps its own shard
+    (``distribute_tensor(..., src_data_rank=None)``): no communication."""
     path = os.path.join(ckpt_dir, f"step_{step:010d}")
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
@@ -113,6 +120,8 @@ def restore(ckpt_dir: str, step: int, like: Any) -> Tuple[Any, dict]:
                          f"{sorted(missing)[:5]} extra={sorted(extra)[:5]}")
     with np.load(os.path.join(path, "shard_host0.npz")) as data:
         arrays = {p: data[m["key"]] for p, m in manifest["leaves"].items()}
+    placed = dict(tree_lib.items(shardings)) if shardings is not None \
+        else None
 
     def rebuild(prefix, node):
         def join(k):  # tree_lib.items' paths
@@ -131,6 +140,13 @@ def restore(ckpt_dir: str, step: int, like: Any) -> Tuple[Any, dict]:
         if tuple(arr.shape) != tuple(np.shape(node)):
             raise ValueError(f"shape mismatch at {prefix}: {arr.shape} vs "
                              f"{tuple(np.shape(node))}")
-        return _from_numpy(arr, meta["dtype"], node)
+        t = _from_numpy(arr, meta["dtype"], node)
+        if placed is None:
+            return t
+        from torch.distributed.tensor import distribute_tensor
+
+        sh = placed[prefix]
+        return distribute_tensor(t.to(sh.mesh.device_type), sh.mesh,
+                                 sh.placements(), src_data_rank=None)
 
     return rebuild("", like), manifest["extra"]

@@ -1,9 +1,12 @@
 """Explicit precision context (PyTorch port of ``repro.core.context``).
 
 Carries the dispatch ``backend`` (``"cuda"``, the hand-written kernels, by
-default; ``"ref"``, the oracle, only when a caller asks for it), the active
-``policy``, and the AUTO controller's candidate formats and analysis
-tolerance (``auto_candidates``, ``auto_tol``).
+default; ``"ref"``, the oracle, only when a caller asks for it;
+``"sharded"``, the K-sharded multi-rank path), the active ``policy``, the
+AUTO controller's candidate formats and analysis tolerance
+(``auto_candidates``, ``auto_tol``), and the sharded backend's default
+``mesh`` (a ``torch.distributed`` DeviceMesh; process-local, so it is left
+out of the JSON, as in the JAX package).
 ``configure(...)`` replaces the process default; ``with context(...)``
 pushes a scoped override on a ``contextvars`` ContextVar, so concurrent
 threads may run under different settings.  ``to_json`` / ``from_json``
@@ -16,7 +19,7 @@ import contextlib
 import contextvars
 import dataclasses
 import json
-from typing import Optional, Tuple, Union
+from typing import Any, Optional, Tuple, Union
 
 from repro_torch.core import formats
 from repro_torch.core.formats import FormatLike, PrecisionMode, resolve
@@ -31,7 +34,7 @@ DEFAULT_AUTO_CANDIDATES: Tuple[PrecisionMode, ...] = (
 
 _UNSET = object()
 # backends of the JAX package that the port does not have
-JAX_ONLY_BACKENDS = ("pallas", "pallas_interpret", "sharded")
+JAX_ONLY_BACKENDS = ("pallas", "pallas_interpret")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,6 +45,7 @@ class PrecisionContext:
     policy: Optional[PrecisionPolicy] = None
     auto_candidates: Tuple[FormatLike, ...] = DEFAULT_AUTO_CANDIDATES
     auto_tol: float = 2.0**-13
+    mesh: Any = None  # default mesh for the sharded backend (process-local)
 
     def replace(self, **kw) -> "PrecisionContext":
         return dataclasses.replace(self, **kw)
@@ -106,7 +110,8 @@ def current_context() -> PrecisionContext:
 
 
 def _validate(kw) -> None:
-    unknown = set(kw) - {"backend", "policy", "auto_candidates", "auto_tol"}
+    unknown = set(kw) - {"backend", "policy", "auto_candidates", "auto_tol",
+                         "mesh"}
     if unknown:
         raise TypeError(f"unknown context fields {sorted(unknown)}")
     backend = kw.get("backend", _UNSET)

@@ -16,9 +16,19 @@ then to the forward format — and so runs the forward kernels.  The weight
 gradient of a batched activation against a 2-D weight is one plain product
 over all its tokens (``ref.mp_wgrad_ref``).  When no input requires grad
 (every serving path) the ops call dispatch directly.  The backend, and the
-rest of the precision context, are taken when the forward runs: the CUDA
-backward runs on the autograd engine's thread, which sees none of the
-caller's scopes.
+rest of the precision context with the owned mesh axes
+(``dispatch.snapshot``), are taken when the forward runs and restored
+around the backward: the CUDA backward runs on the autograd engine's
+thread, which sees none of the caller's scopes.
+
+Under ``sharded`` the dgrad re-enters dispatch at ``sharded`` (K-sharded
+over the forward's N, one all-reduce of its partials) and the weight
+gradient of a batched activation stays local (``ref.mp_wgrad_ref``), as in
+the JAX package.  Every rank builds the same graph from the same
+replicated inputs, so autograd runs its nodes — and so their collectives —
+in one order on every rank: the forward's in program order, the
+backward's in reverse order of creation (remat's recompute included, which
+runs when the backward reaches its layer).
 
 DD and pre-limbed operands are inference-only, as in the JAX package.  AUTO
 under autograd runs the selected format's differentiable op at the caller's
@@ -26,6 +36,7 @@ backward formats (``core/auto.py``).
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -35,6 +46,17 @@ from repro_torch.core import dispatch as dispatch_lib
 from repro_torch.core.formats import FormatLike, is_auto, resolve
 from repro_torch.core.limbs import DD, PrelimbedWeight
 from repro_torch.kernels import ref as ref_backend
+
+
+def _in_forward_scope(backward):
+    """Run an autograd Function's backward under the precision context and
+    owned axes its forward saved in ``ctx.snap`` (``dispatch.snapshot``)."""
+    @functools.wraps(backward)
+    def wrapped(ctx, *grads):
+        with dispatch_lib.restored(ctx.snap):
+            return backward(ctx, *grads)
+
+    return wrapped
 
 
 def _needs_grad(*xs) -> bool:
@@ -86,9 +108,11 @@ class _MPMatmulFn(torch.autograd.Function):
         ctx.save_for_backward(a, b)
         ctx.fmts = (dgrad_fmt or fmt, wgrad_fmt or fmt)
         ctx.backend = backend
+        ctx.snap = dispatch_lib.snapshot()
         return dispatch_lib.dispatch(a, b, fmt, backend=backend)
 
     @staticmethod
+    @_in_forward_scope
     def backward(ctx, g):
         a, b = ctx.saved_tensors
         dg, wg = ctx.fmts
@@ -177,9 +201,11 @@ class _FusedProjFn(torch.autograd.Function):
         ctx.bias_dtypes = None if biases is None else [b.dtype for b in
                                                        biases]
         ctx.res_dtype = None if residual is None else residual.dtype
+        ctx.snap = dispatch_lib.snapshot()
         return out
 
     @staticmethod
+    @_in_forward_scope
     def backward(ctx, *grads):
         fmt, dg, wg, backend, gate, n_w = ctx.meta
         dg, wg = dg or fmt, wg or fmt
@@ -326,11 +352,13 @@ class _AttentionFn(torch.autograd.Function):
         fmt_qk, fmt_pv, _, _, _, _, causal, scale, q_offset, backend = meta
         ctx.save_for_backward(q, k, v)
         ctx.meta = meta
+        ctx.snap = dispatch_lib.snapshot()
         return dispatch_lib.dispatch_attention(
             q, k, v, fmt_qk, fmt_pv, causal=causal, scale=scale,
             q_offset=q_offset, backend=backend)
 
     @staticmethod
+    @_in_forward_scope
     def backward(ctx, g):
         q, k, v = ctx.saved_tensors
         (fmt_qk, fmt_pv, dg_qk, wg_qk, dg_pv, wg_pv, causal, scale,

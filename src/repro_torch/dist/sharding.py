@@ -1,0 +1,221 @@
+"""Logical sharding rules (port of ``repro.dist.sharding``): one
+:class:`AxisRules` describes how a cell lays out on a ``DeviceMesh``, and
+code asks for layouts by *logical name* instead of hard-coded placements.
+
+Layouts are JAX's PartitionSpec entries — per tensor dim ``None``, a mesh
+axis name, or a tuple of names — held in a :class:`Sharding` beside its
+mesh; :meth:`Sharding.placements` turns them into ``torch.distributed.tensor``
+placements (``Shard(d)`` on each mesh dim a tensor dim is split over,
+``Replicate()`` on the others), which ``distribute_tensor`` and
+``DTensor.redistribute`` take.
+
+Vocabulary (as the JAX package's launch/specs.make_rules decides it):
+  batch_axes  mesh axes the global batch shards over
+  model_axis  the tensor- / sequence-parallel axis
+  seq_axes    axes the activation sequence dim shards over
+  tp_enabled  weights sharded over model_axis (Megatron TP)
+"""
+from __future__ import annotations
+
+import contextlib
+import contextvars
+import dataclasses
+from typing import Optional, Tuple
+
+from repro_torch import tree as tree_lib
+
+
+def _entry(axes: Tuple[str, ...]):
+    """Tuple of mesh axes -> one spec entry (None / name / tuple)."""
+    axes = tuple(a for a in axes if a)
+    if not axes:
+        return None
+    return axes if len(axes) > 1 else axes[0]
+
+
+def _names(mesh) -> Tuple[str, ...]:
+    return tuple(mesh.mesh_dim_names)
+
+
+def _size(mesh, axis: str) -> int:
+    return mesh.size(_names(mesh).index(axis))
+
+
+@dataclasses.dataclass(frozen=True)
+class Sharding:
+    """A spec (JAX's PartitionSpec entries, one per tensor dim) on a mesh."""
+
+    mesh: object
+    spec: Tuple
+
+    def placements(self):
+        """The DTensor placements, one per mesh dim."""
+        from torch.distributed.tensor import Replicate, Shard
+
+        out = [Replicate()] * len(_names(self.mesh))
+        for d, e in enumerate(self.spec):
+            for a in ((e,) if isinstance(e, str) else (e or ())):
+                out[_names(self.mesh).index(a)] = Shard(d)
+        return tuple(out)
+
+
+@dataclasses.dataclass(frozen=True)
+class AxisRules:
+    """Sharding layout of one cell (frozen)."""
+
+    mesh: object
+    batch_axes: Tuple[Optional[str], ...] = (None,)
+    model_axis: str = "model"
+    seq_axes: Tuple[str, ...] = ()
+    tp_enabled: bool = False
+
+    @property
+    def batch(self):
+        return _entry(tuple(a for a in self.batch_axes if a))
+
+    @property
+    def seq(self):
+        return _entry(self.seq_axes)
+
+    @property
+    def model_free(self) -> bool:
+        """Is the model axis free for weight / head sharding (not absorbed
+        into the batch)?"""
+        return (self.model_axis in _names(self.mesh)
+                and self.model_axis not in self.batch_axes)
+
+    def axis_size(self, entry) -> int:
+        if entry is None:
+            return 1
+        n = 1
+        for a in (entry if isinstance(entry, tuple) else (entry,)):
+            n *= _size(self.mesh, a)
+        return n
+
+
+_RULES: contextvars.ContextVar[Optional[AxisRules]] = contextvars.ContextVar(
+    "repro_torch_axis_rules", default=None)
+
+
+@contextlib.contextmanager
+def use_rules(rules: Optional[AxisRules]):
+    tok = _RULES.set(rules)
+    try:
+        yield rules
+    finally:
+        _RULES.reset(tok)
+
+
+def current_rules() -> Optional[AxisRules]:
+    return _RULES.get()
+
+
+def _logical_entries(name: str, ndim: int, rules: AxisRules):
+    """A logical activation name -> per-dim spec entries."""
+    b, s = rules.batch, rules.seq
+    m = rules.model_axis if rules.model_free else None
+    vocab = (m if rules.tp_enabled and m is not None
+             and m not in (rules.seq_axes or ()) else None)
+    table = {
+        "activations": (b, None, None),           # (B, S, D)
+        "activations_seq": (b, s, None),
+        "logits": (b, s, vocab),                  # (B, S, V)
+        "attn_heads": (b, None, m, None),         # (B, S, H, Dh)
+        "attn_out_seq": (b, s, None, None),
+    }
+    if name not in table:
+        raise KeyError(f"unknown logical sharding name: {name!r}")
+    entries = list(table[name])
+    while len(entries) < ndim:
+        entries.insert(0, None)
+    return entries[-ndim:]
+
+
+def constrain(x, name: str):
+    """Lay ``x`` out by logical name.  The identity with no rules installed
+    or on a plain tensor: eager PyTorch has no partitioner to hand a hint
+    to (JAX's ``with_sharding_constraint``), so only a ``DTensor`` moves,
+    redistributed to the named placements; a dim that does not divide its
+    axes stays whole."""
+    from torch.distributed.tensor import DTensor
+
+    rules = current_rules()
+    if rules is None or not isinstance(x, DTensor):
+        return x
+    entries = _logical_entries(name, x.ndim, rules)
+    for i, e in enumerate(entries):
+        if e is not None and x.shape[i] % rules.axis_size(e) != 0:
+            entries[i] = None
+    return x.redistribute(rules.mesh,
+                          Sharding(rules.mesh, tuple(entries)).placements())
+
+
+def _map_with_path(fn, tree, prefix: str = ""):
+    def join(k):
+        return f"{prefix}/{k}" if prefix else str(k)
+
+    if isinstance(tree, dict):
+        return {k: _map_with_path(fn, v, join(k)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        out = [_map_with_path(fn, v, join(i)) for i, v in enumerate(tree)]
+        if isinstance(tree, list):
+            return out
+        return type(tree)(*out) if hasattr(tree, "_fields") \
+            else type(tree)(out)
+    return fn(prefix, tree)
+
+
+def param_shardings(params, rules: AxisRules):
+    """A :class:`Sharding` tree for model / optimizer parameters.
+
+    TP layouts shard each weight over the model axis, Megatron-style:
+    column-parallel (last dim) for up / gate / qkv, row-parallel (the
+    contraction dim) for ``w_down`` / ``wo`` / ``w_o``.  Otherwise the
+    trailing dim shards over the batch axes (FSDP).  A dim that does not
+    divide its axes stays replicated."""
+    mesh = rules.mesh
+
+    def leaf(path, x):
+        entries = [None] * x.ndim
+        if x.ndim == 0:
+            return Sharding(mesh, ())
+        if rules.tp_enabled and rules.model_free:
+            msize = _size(mesh, rules.model_axis)
+            row_parallel = any(t in path for t in ("w_down", "wo", "w_o"))
+            dim = x.ndim - 2 if (row_parallel and x.ndim >= 2) \
+                else x.ndim - 1
+            if x.shape[dim] % msize == 0:
+                entries[dim] = rules.model_axis
+        else:
+            b = rules.batch
+            if b is not None and x.shape[-1] % rules.axis_size(b) == 0:
+                entries[-1] = b
+        return Sharding(mesh, tuple(entries))
+
+    return _map_with_path(leaf, params)
+
+
+def cache_specs(cache, rules: AxisRules, *, seq_axes=()):
+    """Spec tree (tuples of entries) for stacked decode caches: leaves
+    (L, B, S_max, ...) shard dim 1 over the batch group and dim 2 (the
+    cache sequence) over ``seq_axes``; leaves without a sequence dim shard
+    the batch only."""
+    if isinstance(seq_axes, str):
+        seq_axes = (seq_axes,)
+    seq_axes = tuple(a for a in (seq_axes or ())
+                     if a and a in _names(rules.mesh))
+    bentry = rules.batch
+
+    def leaf(x):
+        if x.ndim < 2:
+            return ()
+        entries = [None] * x.ndim
+        if bentry is not None and x.shape[1] % rules.axis_size(bentry) == 0:
+            entries[1] = bentry
+        if x.ndim >= 4 and seq_axes:
+            sentry = _entry(seq_axes)
+            if x.shape[2] % rules.axis_size(sentry) == 0:
+                entries[2] = sentry
+        return tuple(entries)
+
+    return tree_lib.map_(leaf, cache)

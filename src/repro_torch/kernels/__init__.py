@@ -7,8 +7,8 @@ reads of its selected format back to the host."""
 from repro_torch.kernels.mp_attention import mp_flash_attention, \
     mp_mixed_paged_attention, mp_paged_attention
 from repro_torch.kernels.mp_matmul import mp_both_prelimbed_matmul, \
-    mp_decompose, mp_fused_matmul, mp_fused_proj, mp_mixed_prelimbed_matmul, \
-    mp_prelimbed_matmul
+    mp_decompose, mp_fused_matmul, mp_fused_matmul_partials, mp_fused_proj, \
+    mp_mixed_prelimbed_matmul, mp_prelimbed_matmul
 
 # every kernel wrapper of the port, by name
 KERNELS = {
@@ -21,6 +21,7 @@ KERNELS = {
     "mp_mixed_prelimbed_matmul": mp_mixed_prelimbed_matmul,
     "mp_mixed_paged_attention": mp_mixed_paged_attention,
     "mp_both_prelimbed_matmul": mp_both_prelimbed_matmul,
+    "mp_fused_matmul_partials": mp_fused_matmul_partials,
 }
 
 

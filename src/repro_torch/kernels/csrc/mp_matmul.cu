@@ -4,6 +4,10 @@
 //
 //   fused_matmul_kernel  replaces _fused_kernel        (one output, batched,
 //                                                      arbitrary strides)
+//     <PARTS> (mp_fused_matmul_partials_launch) replaces no TPU kernel: the
+//                                                      per-order stack of the
+//                                                      K-sharded backend's
+//                                                      local step
 //   fused_proj_kernel    replaces _fused_multi_kernel  (one A operand shared
 //                                                      by n_out B operands,
 //                                                      bias / swiglu / residual
@@ -863,6 +867,7 @@ struct MatmulArgs {
   int64_t nb1;  // size of the second batch dim (grid.z = nb0 * nb1)
   int64_t M, N, K;
   int n_limbs, max_order;
+  int64_t c_so;  // PARTS: stride of one order's (M, N) plane of C
 };
 
 // One (BM x BN) tile at (blockIdx.y, blockIdx.x) of C = A @ B at the format,
@@ -870,15 +875,17 @@ struct MatmulArgs {
 // (LN), A as stored limb planes (PLA): the body of fused_matmul_kernel,
 // prelimbed_matmul_kernel, mixed_prelimbed_matmul_kernel and
 // both_prelimbed_matmul_kernel, so the four share every add of every output
-// element.
+// element.  PARTS (the partials epilogue): instead of the combine, order o's
+// accumulator of each output goes to C[o * c_so + ...], for o <= max_order.
 template <int NL, int NO, bool GEN, bool PL, bool LN = false,
-          bool PLA = false>
+          bool PLA = false, bool PARTS = false>
 __device__ __forceinline__ void matmul_tile(
     const float* A, int64_t a_sr, int64_t a_sc, const float* B, int64_t b_sr,
     int64_t b_sc, Planes bp, float* C, int64_t c_sr, int64_t c_sc, int64_t M,
     int64_t N, int64_t K, int n_limbs, int max_order,
     const int32_t* ln = nullptr, const int32_t* lo = nullptr,
-    Planes ap = Planes{}) {
+    Planes ap = Planes{}, int64_t c_so = 0) {
+  static_assert(!PARTS || !LN, "the partials epilogue has no lanes");
   using T = Tile<NL, NO, 1>;
   const float* const Bt[1] = {B};
   const int64_t m0 = tile_m0<T::BM>(M);
@@ -890,11 +897,18 @@ __device__ __forceinline__ void matmul_tile(
   const int mo = GEN ? max_order : NO - 1;
   tile_outputs<NL, NO, 1>(M, N, m0, n0, [&](int64_t gm, int64_t gn, int mf,
                                             int nf, int e) {
-    float per_order[NO];
+    if constexpr (PARTS) {
 #pragma unroll
-    for (int o = 0; o < NO; ++o) per_order[o] = acc[0][o][mf][nf][e];
-    // a lane row joins its own orders, from its own highest one down
-    C[gm * c_sr + gn * c_sc] = combine_orders<NO>(per_order, LN ? lo[gm] : mo);
+      for (int o = 0; o < NO; ++o)
+        if (o <= mo) C[o * c_so + gm * c_sr + gn * c_sc] = acc[0][o][mf][nf][e];
+    } else {
+      float per_order[NO];
+#pragma unroll
+      for (int o = 0; o < NO; ++o) per_order[o] = acc[0][o][mf][nf][e];
+      // a lane row joins its own orders, from its own highest one down
+      C[gm * c_sr + gn * c_sc] =
+          combine_orders<NO>(per_order, LN ? lo[gm] : mo);
+    }
   });
 }
 
@@ -972,9 +986,11 @@ __host__ __device__ inline int64_t dec_smem_bytes(bool pl, int nl, int M,
 // DEC_CT threads own the outputs; the DecRing<NL>::P(PL) warps after them
 // copy and limb.  B: NOUT f32 weights (PL: unused, NOUT == 1, the planes
 // bp instead); LN: row r's lane is (ln[r], lo[r]).  The row's NOUT results
-// go to store(r, column, y) after combine_orders.
+// go to store(r, column, y) after combine_orders; PARTS (the partials
+// epilogue, NOUT == 1): its NO per-order accumulators go to store(r,
+// column, per_order) instead, uncombined.
 template <int NL, int NO, bool GEN, bool PL, bool LN = false, int NOUT = 1,
-          typename Store>
+          bool PARTS = false, typename Store>
 __device__ __forceinline__ void decode_tile(
     const float* __restrict__ A, int64_t a_sr, int64_t a_sc,
     const float* const (&B)[NOUT], int64_t b_sr, int64_t b_sc, Planes bp,
@@ -1212,37 +1228,56 @@ __device__ __forceinline__ void decode_tile(
     const int r = g + 8 * (e >> 1);
     const int64_t gn = n0 + 8 * w + 2 * (lane & 3) + (e & 1);
     if (r >= M || gn >= N) continue;
-    // a lane row joins its own orders, from its own highest one down
-    float y[NOUT];
-#pragma unroll
-    for (int t = 0; t < NOUT; ++t) {
+    if constexpr (PARTS) {
+      static_assert(NOUT == 1 && !LN, "partials: one weight, no lanes");
       float per_order[NO];
 #pragma unroll
-      for (int o = 0; o < NO; ++o) per_order[o] = acc[t][o][0][0][e];
-      y[t] = combine_orders<NO>(per_order, LN ? ro[0][e >> 1] : mo);
+      for (int o = 0; o < NO; ++o) per_order[o] = acc[0][o][0][0][e];
+      store(r, gn, per_order);
+    } else {
+      // a lane row joins its own orders, from its own highest one down
+      float y[NOUT];
+#pragma unroll
+      for (int t = 0; t < NOUT; ++t) {
+        float per_order[NO];
+#pragma unroll
+        for (int o = 0; o < NO; ++o) per_order[o] = acc[t][o][0][0][e];
+        y[t] = combine_orders<NO>(per_order, LN ? ro[0][e >> 1] : mo);
+      }
+      store(r, gn, y);
     }
-    store(r, gn, y);
   }
 }
 
 // Port of _fused_kernel: C[z] = A[z] @ B[z] at the format, z over up to two
 // batch dims with their own strides (a stride of 0 broadcasts), so decode
 // attention's (B, H, 1, Dh) x (B, H, Dh, T) runs as one launch.
-template <int NL, int NO, bool GEN>
+//
+// PARTS, the partials epilogue (replaces no TPU kernel: the JAX package
+// computes the sharded backend's local step, ref.mp_matmul_partials, in
+// XLA, core/dispatch.py _sharded_2d).  The same mainloop in the same order;
+// at the flush each order's f32 accumulator goes to the (n_orders, M, N)
+// stack C + o * c_so instead of through combine_orders, so the K-sharded
+// backend reduces the stack across ranks and joins the orders once, after
+// the reduce.  At one rank, combine_partials of the stack is this kernel's
+// combined output bit for bit (the combine is adds and subtracts, with no
+// product for nvcc to contract).  Bound like the kernel itself, plus
+// n_orders x M x N x 4 bytes of stores in place of M x N x 4.
+template <int NL, int NO, bool GEN, bool PARTS = false>
 __global__ void __launch_bounds__(NT) fused_matmul_kernel(MatmulArgs p) {
   const int64_t z = blockIdx.z;
   const int64_t z0 = z / p.nb1;
   const int64_t z1 = z % p.nb1;
-  matmul_tile<NL, NO, GEN, false>(
+  matmul_tile<NL, NO, GEN, false, false, false, PARTS>(
       p.a + z0 * p.a_sb0 + z1 * p.a_sb1, p.a_sr, p.a_sc,
       p.b + z0 * p.b_sb0 + z1 * p.b_sb1, p.b_sr, p.b_sc, Planes{},
       p.c + z0 * p.c_sb0 + z1 * p.c_sb1, p.c_sr, p.c_sc, p.M, p.N, p.K,
-      p.n_limbs, p.max_order);
+      p.n_limbs, p.max_order, nullptr, nullptr, Planes{}, p.c_so);
 }
 
 // fused_matmul_kernel's decode tile (M <= DEC_M), one block per DEC_N
-// columns and batch entry.
-template <int NL, int NO, bool GEN>
+// columns and batch entry; PARTS as fused_matmul_kernel's.
+template <int NL, int NO, bool GEN, bool PARTS = false>
 __global__ void __launch_bounds__(DEC_CT + 128)
     fused_matmul_decode_kernel(MatmulArgs p, int dk) {
   const int64_t z = blockIdx.z;
@@ -1250,12 +1285,25 @@ __global__ void __launch_bounds__(DEC_CT + 128)
   const int64_t z1 = z % p.nb1;
   const float* const B[1] = {p.b + z0 * p.b_sb0 + z1 * p.b_sb1};
   float* const C = p.c + z0 * p.c_sb0 + z1 * p.c_sb1;
-  decode_tile<NL, NO, GEN, false>(
-      p.a + z0 * p.a_sb0 + z1 * p.a_sb1, p.a_sr, p.a_sc, B, p.b_sr, p.b_sc,
-      Planes{}, (int)p.M, p.N, p.K, p.n_limbs, p.max_order, dk, nullptr,
-      nullptr, [&](int r, int64_t gn, const float (&y)[1]) {
-        C[r * p.c_sr + gn * p.c_sc] = y[0];
-      });
+  const float* const A = p.a + z0 * p.a_sb0 + z1 * p.a_sb1;
+  if constexpr (PARTS) {
+    const int mo = GEN ? p.max_order : NO - 1;
+    decode_tile<NL, NO, GEN, false, false, 1, true>(
+        A, p.a_sr, p.a_sc, B, p.b_sr, p.b_sc, Planes{}, (int)p.M, p.N, p.K,
+        p.n_limbs, p.max_order, dk, nullptr, nullptr,
+        [&](int r, int64_t gn, const float (&po)[NO]) {
+#pragma unroll
+          for (int o = 0; o < NO; ++o)
+            if (o <= mo) C[o * p.c_so + r * p.c_sr + gn * p.c_sc] = po[o];
+        });
+  } else {
+    decode_tile<NL, NO, GEN, false>(
+        A, p.a_sr, p.a_sc, B, p.b_sr, p.b_sc, Planes{}, (int)p.M, p.N, p.K,
+        p.n_limbs, p.max_order, dk, nullptr, nullptr,
+        [&](int r, int64_t gn, const float (&y)[1]) {
+          C[r * p.c_sr + gn * p.c_sc] = y[0];
+        });
+  }
 }
 
 struct PrelimbedArgs {
@@ -1539,14 +1587,15 @@ cudaError_t launch_tile(const Args& p, int64_t M, int64_t N, int64_t nz,
 
 // M <= DEC_M takes the decode tile, larger M the prefill tile; both give
 // every output the same bits
-template <int NL, int NO, bool GEN>
+template <int NL, int NO, bool GEN, bool PARTS = false>
 cudaError_t launch_matmul(const MatmulArgs& p, int64_t nb0, cudaStream_t st) {
   if (p.M <= DEC_M)
-    return launch_decode<NL, 1, fused_matmul_decode_kernel<NL, NO, GEN>>(
+    return launch_decode<NL, 1,
+                         fused_matmul_decode_kernel<NL, NO, GEN, PARTS>>(
         p, false, GEN ? p.n_limbs : NL, p.M, p.N, p.K, 1, nb0 * p.nb1, st);
   return launch_tile<NL, NO, 1, false, false,
-                     fused_matmul_kernel<NL, NO, GEN>>(p, p.M, p.N,
-                                                       nb0 * p.nb1, st);
+                     fused_matmul_kernel<NL, NO, GEN, PARTS>>(p, p.M, p.N,
+                                                              nb0 * p.nb1, st);
 }
 
 // the tile choice is launch_matmul's, so the two kernels tile alike
@@ -1651,6 +1700,35 @@ int mp_fused_matmul_launch(const void* a, int64_t a_sb0, int64_t a_sb1,
   else if (nl == 5 && mo == 4) err = launch_matmul<5, 5, false>(p, nb0, st);
   else if (nl == 7 && mo == 6) err = launch_matmul<7, 7, false>(p, nb0, st);
   else err = launch_matmul<GEN_NL, GEN_NO, true>(p, nb0, st);
+  return (int)err;
+}
+
+// The partials epilogue of mp_fused_matmul_launch: C (max_order + 1, M, N)
+// with C[o] the order-o sum of A (M, K) @ B (K, N) at (n_limbs, max_order),
+// uncombined; strides in elements (c_so: one order's plane).  Returns the
+// CUDA error of the launch (0 on success).
+int mp_fused_matmul_partials_launch(const void* a, int64_t a_sr, int64_t a_sc,
+                                    const void* b, int64_t b_sr, int64_t b_sc,
+                                    void* c, int64_t c_so, int64_t c_sr,
+                                    int64_t c_sc, int64_t M, int64_t N,
+                                    int64_t K, int64_t n_limbs,
+                                    int64_t max_order, void* stream) {
+  if (!format_ok(n_limbs, max_order)) return (int)cudaErrorInvalidValue;
+  if (M == 0 || N == 0) return 0;
+  MatmulArgs p{static_cast<const float*>(a), static_cast<const float*>(b),
+               static_cast<float*>(c), 0, 0, a_sr, a_sc, 0, 0, b_sr, b_sc,
+               0, 0, c_sr, c_sc, 1, M, N, K, (int)n_limbs, (int)max_order,
+               c_so};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int nl = (int)n_limbs;
+  const int mo = (int)max_order;
+  cudaError_t err;
+  if (nl == 1 && mo == 0) err = launch_matmul<1, 1, false, true>(p, 1, st);
+  else if (nl == 2 && mo == 1) err = launch_matmul<2, 2, false, true>(p, 1, st);
+  else if (nl == 3 && mo == 2) err = launch_matmul<3, 3, false, true>(p, 1, st);
+  else if (nl == 5 && mo == 4) err = launch_matmul<5, 5, false, true>(p, 1, st);
+  else if (nl == 7 && mo == 6) err = launch_matmul<7, 7, false, true>(p, 1, st);
+  else err = launch_matmul<GEN_NL, GEN_NO, true, true>(p, 1, st);
   return (int)err;
 }
 

@@ -2,7 +2,8 @@
 counters (port of the Pallas ``_fused_kernel``, ``_fused_multi_kernel``,
 ``_prelimbed_kernel``, ``_mixed_prelimbed_kernel``,
 ``_both_prelimbed_kernel`` and ``_decompose_kernel`` of
-``repro.kernels.mp_matmul``).
+``repro.kernels.mp_matmul``, plus the fused kernel's partials epilogue,
+which replaces no TPU kernel: the K-sharded backend's local step).
 
 Each wrapper runs its plain PyTorch version for CPU tensors and launches its
 CUDA kernel (``csrc/mp_matmul.cu``) for CUDA tensors — there is no fallback
@@ -40,6 +41,16 @@ def _order_sums(al: torch.Tensor, bl: torch.Tensor, s: MPFormat
         o = i + j
         by_order[o] = p if o not in by_order else by_order[o] + p
     return [by_order[o] for o in range(s.n_orders)]
+
+
+def fused_matmul_partials_plain(a: torch.Tensor, b: torch.Tensor,
+                                fmt: FormatLike) -> torch.Tensor:
+    """Plain version of ``mp_fused_matmul_partials``: the (n_orders, M, N)
+    stack of :func:`_order_sums` of a (M, K) @ b (K, N), uncombined."""
+    s = resolve(fmt)
+    al = limbs_lib.decompose(a, s.n_limbs)
+    bl = limbs_lib.decompose(b, s.n_limbs)
+    return torch.stack(_order_sums(al, bl, s))
 
 
 def combine_orders(acc: Sequence[torch.Tensor]) -> torch.Tensor:
@@ -192,6 +203,9 @@ def _set_argtypes(lib) -> None:
     lib.mp_both_prelimbed_matmul_launch.argtypes = [
         _P, _I, _I, _I, _P, _I, _I, _I, _P, _I, _I, _I, _I, _I, _I, _P]
     lib.mp_both_prelimbed_matmul_launch.restype = ctypes.c_int
+    lib.mp_fused_matmul_partials_launch.argtypes = [
+        _P, _I, _I, _P, _I, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]
+    lib.mp_fused_matmul_partials_launch.restype = ctypes.c_int
     lib.mp_decompose_launch.argtypes = [_P, _P, _I, _I, _P]
     lib.mp_decompose_launch.restype = ctypes.c_int
     lib._mp_matmul_typed = True
@@ -232,6 +246,28 @@ def launch_fused_matmul(lib, stream: int, a: torch.Tensor, b: torch.Tensor,
         c.data_ptr(), sc[0], sc[1], c.stride(-2), c.stride(-1),
         sizes[0], sizes[1], M, N, K, fmt.n_limbs, fmt.max_order, stream)
     build.check(err, "mp_fused_matmul")
+    return c
+
+
+def launch_fused_matmul_partials(lib, stream: int, a: torch.Tensor,
+                                 b: torch.Tensor, fmt: MPFormat
+                                 ) -> torch.Tensor:
+    """Marshal one ``mp_fused_matmul_partials_launch`` call: 2-D a (M, K)
+    and b (K, N) read through their strides (a K-slice of a wider operand
+    is a view, not a copy) -> the (n_orders, M, N) f32 stack."""
+    _set_argtypes(lib)
+    a, b = _f32(a), _f32(b)
+    if a.ndim != 2 or b.ndim != 2 or a.shape[1] != b.shape[0]:
+        raise ValueError(f"partials take 2-D a (M, K) @ b (K, N), got "
+                         f"{tuple(a.shape)} @ {tuple(b.shape)}")
+    (M, K), N = a.shape, b.shape[1]
+    c = torch.empty((fmt.n_orders, M, N), dtype=torch.float32,
+                    device=a.device)
+    err = lib.mp_fused_matmul_partials_launch(
+        a.data_ptr(), a.stride(0), a.stride(1), b.data_ptr(), b.stride(0),
+        b.stride(1), c.data_ptr(), c.stride(0), c.stride(1), c.stride(2),
+        M, N, K, fmt.n_limbs, fmt.max_order, stream)
+    build.check(err, "mp_fused_matmul_partials")
     return c
 
 
@@ -430,6 +466,29 @@ def mp_fused_matmul(a: torch.Tensor, b: torch.Tensor, fmt: FormatLike
 
 mp_fused_matmul.launches = 0      # kernel launches
 mp_fused_matmul.plain_calls = 0   # CPU calls that ran the plain version
+
+
+def mp_fused_matmul_partials(a: torch.Tensor, b: torch.Tensor,
+                             fmt: FormatLike) -> torch.Tensor:
+    """a (M, K) @ b (K, N) at ``fmt`` -> the (n_orders, M, N) f32 stack of
+    per-order sums, uncombined: the K-sharded backend's local step, which
+    ``ref.combine_partials`` joins after the cross-rank reduce.  CPU
+    tensors run :func:`fused_matmul_partials_plain`; CUDA tensors launch
+    ``fused_matmul_kernel``'s partials epilogue (a column-major operand
+    copied to row-major first, as :func:`mp_fused_matmul` does)."""
+    fmt = resolve(fmt)
+    if _on_cpu(a, b):
+        mp_fused_matmul_partials.plain_calls += 1
+        return fused_matmul_partials_plain(a, b, fmt)
+    stream = _cuda_stream(a, b)
+    out = launch_fused_matmul_partials(build.load("mp_matmul"), stream,
+                                       _row_major(a), _row_major(b), fmt)
+    mp_fused_matmul_partials.launches += 1
+    return out
+
+
+mp_fused_matmul_partials.launches = 0
+mp_fused_matmul_partials.plain_calls = 0
 
 
 def mp_fused_proj(a: torch.Tensor, ws: Sequence[torch.Tensor],

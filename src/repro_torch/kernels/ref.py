@@ -254,6 +254,33 @@ def mp_wgrad_ref(a: torch.Tensor, g: torch.Tensor, mode: FormatLike
     return wgrad_product(*wgrad_stacks(a, g, mode))
 
 
+def mp_matmul_partials(a, b, mode: FormatLike) -> torch.Tensor:
+    """Per-order partial sums: (n_orders, ..., M, N) f32, order o at index
+    o — the sharded backend's local step.  Each rank sums its K-slice's
+    limb products per order, the cross-rank reduce adds the stacks, and
+    :func:`combine_partials` joins the orders once, so the K partition does
+    not change which terms each compensation sees."""
+    s = resolve(mode)
+    al = _limbs_of(a, s.n_limbs)
+    bl = _limbs_of(b, s.n_limbs)
+    by_order: dict[int, torch.Tensor] = {}
+    for (i, j) in s.products:
+        p = _mm(al[i], bl[j])
+        o = i + j
+        by_order[o] = p if o not in by_order else by_order[o] + p
+    return torch.stack([by_order[o] for o in range(s.n_orders)])
+
+
+def combine_partials(partials: torch.Tensor, mode: FormatLike
+                     ) -> torch.Tensor:
+    """Compensated cross-order combine of a :func:`mp_matmul_partials`
+    stack, highest order first (the kernels' ``combine_orders``: on the
+    partials kernel's stack it gives the fused kernel's bits)."""
+    s = resolve(mode)
+    return limbs_lib.neumaier_sum(
+        [partials[o] for o in range(s.n_orders - 1, -1, -1)])
+
+
 def matmul_golden_f64(a, b) -> np.ndarray:
     """Host-side float64 golden product (numpy) — the accuracy yardstick;
     a :class:`DD` operand enters as ``hi + lo`` in float64."""

@@ -28,6 +28,16 @@ poison decode steps, fail handoffs — per a JSON plan; see serve/faults.py):
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --engines 4 \\
         --requests 16 --fault-plan plan.json
 
+Across ranks (the ``sharded`` backend: each matmul K-sharded over the
+ranks, decode attention sequence-parallel; every rank serves the same
+requests, rank 0 prints, and every rank checks that its tokens equal rank
+0's):
+
+    PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.serve \
+        --smoke --backend sharded --device cpu
+
+(gloo on the CPU or on ranks sharing one card; NCCL with a card per rank.)
+
 Runs on the card unless ``--device cpu`` is given (every kernel wrapper
 then runs its plain version); without a card and without ``--device cpu``
 it stops.  ``--arch`` takes the port's configurations (``paper-mpfp-100m``;
@@ -40,6 +50,7 @@ import torch
 
 from repro_torch.configs import paper_mpfp
 from repro_torch.core.policy import POLICIES, get_policy
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models import transformer as T
 from repro_torch.serve.engine import ServeEngine
 
@@ -58,8 +69,8 @@ def main(argv=None):
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--max-seq", type=int, default=128)
     ap.add_argument("--backend", default="",
-                    help="mp_matmul dispatch backend (cuda/ref); '' = the "
-                         "context's default")
+                    help="mp_matmul dispatch backend (cuda/ref/sharded); "
+                         "'' = the context's default")
     ap.add_argument("--scheduler", action="store_true",
                     help="continuous-batching scheduler (paged KV pool, "
                          "join-on-arrival/evict-on-EOS) instead of the "
@@ -97,6 +108,14 @@ def main(argv=None):
     if args.device != "cpu" and not torch.cuda.is_available():
         raise SystemExit("no CUDA device: pass --device cpu to run the "
                          "plain versions on the CPU")
+    info = mesh_lib.join_from_env(args.device)
+    if info is not None:
+        args.device = str(info.device)
+    with mesh_lib.rank0_prints(info):
+        return _serve(args)
+
+
+def _serve(args):
     if args.backend:
         import repro_torch.mp as mp
         mp.configure(backend=args.backend)
@@ -118,6 +137,7 @@ def main(argv=None):
                             ).astype(np.int32)
                for _ in range(args.requests)]
     outs = eng.generate(prompts, max_new=args.max_new)
+    mesh_lib.check_same_on_every_rank(outs, "tokens")
     for i, o in enumerate(outs):
         print(f"req{i} ({len(prompts[i])} prompt toks): {o}")
     print(eng.decode_throughput_probe())
@@ -158,6 +178,8 @@ def _run_scheduler(cfg, params, args, rng):
     sched = ContinuousScheduler(eng, n_blocks=n_blocks,
                                 block_size=block_size)
     done = sched.run(_build_stream(cfg, args, rng))
+    mesh_lib.check_same_on_every_rank(
+        {r.rid: list(r.out) for r in done}, "token streams")
     for r in sorted(done, key=lambda r: r.rid):
         qos = r.mode or "engine-default"
         print(f"req{r.rid} [{qos}] arrive@{r.arrival} "
@@ -188,6 +210,8 @@ def _run_fleet(cfg, params, args, rng):
             plan = FaultPlan.from_json(f.read())
     router = FleetRouter(cells, policy=args.router_policy, fault_plan=plan)
     done = router.run(_build_stream(cfg, args, rng))
+    mesh_lib.check_same_on_every_rank(
+        {r.rid: list(r.out) for r in done}, "token streams")
     for r in sorted(done, key=lambda r: r.rid):
         qos = r.mode or "engine-default"
         extra = f" (downgraded from {r.downgraded_from})" \
@@ -205,4 +229,7 @@ def _run_fleet(cfg, params, args, rng):
 
 
 if __name__ == "__main__":
-    main()
+    try:
+        main()
+    finally:
+        mesh_lib.shutdown()

@@ -3,6 +3,13 @@
     PYTHONPATH=src python -m repro_torch.launch.train --smoke --steps 50 \\
         --policy train_default --device cpu
 
+Across ranks (the ``sharded`` backend; every rank takes the same steps on
+the same batches, rank 0 prints, every rank checks that its losses equal
+rank 0's and checkpoints into its own ``rank<r>`` directory):
+
+    PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \
+        --smoke --steps 4 --backend sharded --device cpu
+
 Runs on the card unless ``--device cpu`` is given (every kernel wrapper
 then runs its plain version).  ``--arch`` takes the port's configurations
 (``paper-mpfp-100m``; ``--smoke`` for its CI-sized config).
@@ -13,6 +20,7 @@ import os
 from repro_torch.configs import paper_mpfp
 from repro_torch.core.policy import POLICIES, get_policy
 from repro_torch.data.pipeline import DataConfig, SyntheticLM
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.optim import adamw
 from repro_torch.train import trainer as trainer_lib
 
@@ -33,15 +41,24 @@ def main(argv=None):
     ap.add_argument("--policy", default="train_default",
                     choices=sorted(POLICIES))
     ap.add_argument("--backend", default="",
-                    help="mp_matmul dispatch backend (cuda/ref); '' = the "
-                         "context's default")
+                    help="mp_matmul dispatch backend (cuda/ref/sharded); "
+                         "'' = the context's default")
     ap.add_argument("--ckpt-dir", default="",
                     help="default: build/ckpt/<arch> in the checkout")
     ap.add_argument("--moment-dtype", default="float32")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
     args = ap.parse_args(argv)
+    info = mesh_lib.join_from_env(args.device)
+    if info is not None:
+        args.device = str(info.device)
+        args.ckpt_dir = os.path.join(args.ckpt_dir or os.path.join(
+            ROOT, "build", "ckpt", args.arch), f"rank{info.rank}")
+    with mesh_lib.rank0_prints(info):
+        return _train(args)
 
+
+def _train(args):
     full, smoke = CONFIGS[args.arch]
     cfg = smoke if args.smoke else full
     if not args.smoke and cfg.param_count() > 1e9 and args.device == "cpu":
@@ -59,6 +76,7 @@ def main(argv=None):
     trainer = trainer_lib.Trainer(cfg, tcfg, policy=get_policy(args.policy),
                                   device=args.device)
     state, history = trainer.run(pipe, num_steps=args.steps, log_every=10)
+    mesh_lib.check_same_on_every_rank(history, "losses")
     if history:
         print(f"done: loss {history[0]:.4f} -> {history[-1]:.4f}")
     else:
@@ -67,4 +85,7 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
-    main()
+    try:
+        main()
+    finally:
+        mesh_lib.shutdown()

@@ -16,7 +16,7 @@ import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import auto as auto_lib
-from repro_torch.core import context as context_lib
+from repro_torch.core import dispatch as dispatch_lib
 from repro_torch.core.policy import PrecisionPolicy
 from repro_torch.models import attention as attn_lib
 from repro_torch.models.attention import AttnDims, KVCache
@@ -123,7 +123,7 @@ def _remat_layer(lp: dict, h: torch.Tensor, cfg: ModelConfig,
     autograd engine's thread).  AUTO calls analyze their operands again in
     the recompute; each must select what the forward selected
     (:class:`~repro_torch.core.auto.SelectionLog`)."""
-    ctx = context_lib.current_context()
+    snap = dispatch_lib.snapshot()
     selections = auto_lib.SelectionLog()
 
     def layer(h):
@@ -131,7 +131,7 @@ def _remat_layer(lp: dict, h: torch.Tensor, cfg: ModelConfig,
 
     @contextlib.contextmanager
     def recompute():
-        with context_lib.scoped(ctx), selections.replaying():
+        with dispatch_lib.restored(snap), selections.replaying():
             yield
 
     return torch.utils.checkpoint.checkpoint(
@@ -145,10 +145,12 @@ def _needs_grad(h: torch.Tensor, lp: dict) -> bool:
 
 
 def forward(params: dict, inputs: Dict[str, torch.Tensor], cfg: ModelConfig,
-            policy: PrecisionPolicy, *, cache: Optional[ModelCache] = None
-            ) -> Tuple[torch.Tensor, Optional[ModelCache]]:
+            policy: PrecisionPolicy, *, cache: Optional[ModelCache] = None,
+            mesh=None) -> Tuple[torch.Tensor, Optional[ModelCache]]:
     """Returns (logits (B, S, vocab), updated cache or None).
-    ``inputs``: {"tokens": (B, S) int}."""
+    ``inputs``: {"tokens": (B, S) int}.  ``mesh`` is the JAX forward's
+    expert-parallel mesh, which only the MoE family reads; the dense family
+    takes and ignores it."""
     _check_dense(cfg)
     h = embed(inputs["tokens"], params["embed"]["table"])
     B, S, _ = h.shape

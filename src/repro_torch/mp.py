@@ -21,12 +21,21 @@ Operands live on the card (``cuda``, the hand-written kernels) or on the CPU,
 where every kernel wrapper runs its plain PyTorch version
 (``dd_from_f64(x, device="cpu")`` for a DD pair there).
 
-Not here, because the port does not have them yet (ROADMAP.md): the
-autotune switch (``autotune_enabled``) and the backend registry
-(``pin_backend``, ``register_backend``, ``unregister_backend``); the port's
-two backends are fixed (``available_backends``).  Every op is
-differentiable, AUTO included, with the JAX facade's backward formats
-(``bwd_mode``, ``dgrad_mode``, ``wgrad_mode``).  Beyond the JAX facade the
+Backends (``available_backends``): ``cuda``, ``ref`` and ``sharded``, the
+K-sharded path across the ranks of a ``torch.distributed`` process group
+(``launch.mesh.init_distributed``; the mesh from the call, the context's
+``mesh`` or the whole world), plus any registered at run time:
+
+    with mp.context(backend="sharded"):             # every rank runs this
+        y = mp.mp_matmul(a, b, "M16")               # one all-reduce
+    mp.register_backend("mine", lambda a, b, fmt: ...)  # then
+    mp.unregister_backend("mine")                   # (built-ins reserved)
+    step = mp.pin_backend(step, "sharded")
+
+Not here, because the port does not have it yet (ROADMAP.md): the
+autotune switch (``autotune_enabled``).  Every op is differentiable, AUTO
+included, with the JAX facade's backward formats (``bwd_mode``,
+``dgrad_mode``, ``wgrad_mode``).  Beyond the JAX facade the
 port exports the paper's mode table (``MODE_TABLE``, ``STATIC_MODES``,
 ``spec``, ``mode_for_limbs``, ``validate_mode_pair``; JAX's ``repro.core``
 exports them).
@@ -73,7 +82,12 @@ from repro_torch.core.auto import (  # noqa: F401
     mp_matmul_auto,
     select_mode_index,
 )
-from repro_torch.core.dispatch import available_backends  # noqa: F401
+from repro_torch.core.dispatch import (  # noqa: F401
+    available_backends,
+    pin_backend,
+    register_backend,
+    unregister_backend,
+)
 from repro_torch.core.modes import (  # noqa: F401
     MODE_TABLE,
     STATIC_MODES,

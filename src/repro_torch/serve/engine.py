@@ -88,24 +88,27 @@ def prelimb_dense_params(params: dict, n_limbs: int) -> dict:
     return out
 
 
-def make_prefill_step(cfg: ModelConfig, policy: PrecisionPolicy):
+def make_prefill_step(cfg: ModelConfig, policy: PrecisionPolicy, mesh=None):
     """(params, inputs, cache) -> (last-position logits (B, 1, V), cache)."""
     def prefill_step(params, inputs, cache):
-        logits, new_cache = T.forward(params, inputs, cfg, policy, cache=cache)
+        logits, new_cache = T.forward(params, inputs, cfg, policy, cache=cache,
+                                      mesh=mesh)
         return logits[:, -1:, :], new_cache
 
     return prefill_step
 
 
-def make_serve_step(cfg: ModelConfig, policy: PrecisionPolicy):
+def make_serve_step(cfg: ModelConfig, policy: PrecisionPolicy, mesh=None):
     """(params, cache, tokens (B, 1)) -> (logits (B, 1, V), cache)."""
     def serve_step(params, cache, tokens):
-        return T.forward(params, {"tokens": tokens}, cfg, policy, cache=cache)
+        return T.forward(params, {"tokens": tokens}, cfg, policy, cache=cache,
+                         mesh=mesh)
 
     return serve_step
 
 
-def make_paged_prefill_step(cfg: ModelConfig, policy: PrecisionPolicy):
+def make_paged_prefill_step(cfg: ModelConfig, policy: PrecisionPolicy,
+                            mesh=None):
     """Prefill one (micro-batch of) fresh request(s) into the paged pool.
 
     ``table`` (B, W) / ``lengths`` (B,) int32 are the scheduler's slot state
@@ -122,7 +125,7 @@ def make_paged_prefill_step(cfg: ModelConfig, policy: PrecisionPolicy):
     def step(params, pool_k, pool_v, table, lengths, tokens, last_idx: int):
         cache = T.paged_cache(pool_k, pool_v, table, lengths)
         logits, _ = T.forward(params, {"tokens": tokens}, cfg, policy,
-                              cache=cache)
+                              cache=cache, mesh=mesh)
         last = logits[:, last_idx:last_idx + 1]
         stat = last[:, 0].abs().amax(dim=-1)
         return last, stat, pool_k, pool_v
@@ -130,7 +133,8 @@ def make_paged_prefill_step(cfg: ModelConfig, policy: PrecisionPolicy):
     return step
 
 
-def make_paged_decode_step(cfg: ModelConfig, policy: PrecisionPolicy):
+def make_paged_decode_step(cfg: ModelConfig, policy: PrecisionPolicy,
+                           mesh=None):
     """One decode step over a compacted micro-batch of active slots.
 
     Padded / inactive rows are (all-trash row, length 0): their reads mask
@@ -139,7 +143,7 @@ def make_paged_decode_step(cfg: ModelConfig, policy: PrecisionPolicy):
     def step(params, pool_k, pool_v, table, lengths, tokens):
         cache = T.paged_cache(pool_k, pool_v, table, lengths)
         logits, _ = T.forward(params, {"tokens": tokens}, cfg, policy,
-                              cache=cache)
+                              cache=cache, mesh=mesh)
         stat = logits[:, -1].abs().amax(dim=-1)
         return logits, stat, pool_k, pool_v
 
@@ -147,7 +151,7 @@ def make_paged_decode_step(cfg: ModelConfig, policy: PrecisionPolicy):
 
 
 def make_mixed_decode_step(cfg: ModelConfig,
-                           envelope: lanes_lib.LaneEnvelope):
+                           envelope: lanes_lib.LaneEnvelope, mesh=None):
     """One partitioned-lane decode step: a micro-batch whose slots run at
     different (non-AUTO) formats inside ONE step.
 
@@ -171,7 +175,7 @@ def make_mixed_decode_step(cfg: ModelConfig,
         ctx = lanes_lib.LaneCtx(envelope, lane_n, lane_ord)
         with lanes_lib.lane_scope(ctx):
             logits, _ = T.forward(params, {"tokens": tokens}, cfg, carrier,
-                                  cache=cache)
+                                  cache=cache, mesh=mesh)
         stat = logits[:, -1].abs().amax(dim=-1)
         return logits, stat, pool_k, pool_v
 
@@ -196,7 +200,11 @@ class ServeEngine:
     (limb count, params), eagerly at construction and on
     :meth:`set_policy`); False decodes on the raw weights.
     ``matmul_backend`` names the dispatch backend (``"cuda"``, the kernels,
-    unless the active context says otherwise; ``"ref"`` for the oracle)."""
+    unless the active context says otherwise; ``"ref"`` for the oracle;
+    ``"sharded"`` for the K-sharded multi-rank path, every rank of the
+    process group running the same engine on the same requests).
+    ``mesh`` is passed to the model's forward, as in the JAX package (the
+    MoE family's expert-parallel mesh; the dense family ignores it)."""
 
     # distinct policies whose step pairs stay resident (LRU beyond this)
     MAX_POLICY_CACHE = 8
@@ -204,13 +212,15 @@ class ServeEngine:
     def __init__(self, cfg: ModelConfig, params, *, max_batch: int = 8,
                  max_seq: int = 512, policy: Optional[PrecisionPolicy] = None,
                  matmul_backend: Optional[str] = None,
-                 prelimb_weights: bool = True, device: str = "cuda"):
+                 prelimb_weights: bool = True, device: str = "cuda",
+                 mesh=None):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("ServeEngine(device='cuda') needs a CUDA "
                                "device; pass device='cpu' to run the plain "
                                "versions on the CPU")
         self.cfg = cfg
+        self.mesh = mesh
         self.params = _to_device(params, self.device)
         self.max_batch = max_batch
         self.max_seq = max_seq
@@ -266,7 +276,7 @@ class ServeEngine:
             while len(cache) >= self.MAX_POLICY_CACHE:
                 cache.pop(next(iter(cache)))
             self.trace_events += len(factories)
-            cache[key] = tuple(self._pinned(make(self.cfg, key))
+            cache[key] = tuple(self._pinned(make(self.cfg, key, self.mesh))
                                for make in factories)
         return cache[key]
 

@@ -65,18 +65,19 @@ class TrainerConfig:
     escalate_on_nan: bool = True
     metrics_path: str = ""       # JSONL observability sink (train/metrics.py)
     # mp_matmul dispatch backend for the steps ("" = the context's;
-    # "cuda" / "ref" — core/dispatch.py)
+    # "cuda" / "ref" / "sharded" — core/dispatch.py)
     matmul_backend: str = ""
 
 
-def make_loss_fn(cfg: ModelConfig, policy: PrecisionPolicy) -> Callable:
+def make_loss_fn(cfg: ModelConfig, policy: PrecisionPolicy,
+                 mesh=None) -> Callable:
     """loss_fn(params, batch) -> (loss, extras): the mean over tokens of the
     f32 ``logsumexp`` minus the label's logit (the dense family has no
     auxiliary losses; the MoE weights come with that family)."""
 
     def loss_fn(params, batch):
         inputs = {k: v for k, v in batch.items() if k != "labels"}
-        logits, _ = T.forward(params, inputs, cfg, policy)
+        logits, _ = T.forward(params, inputs, cfg, policy, mesh=mesh)
         logits = logits.float()
         lse = torch.logsumexp(logits, dim=-1)
         picked = torch.gather(logits, -1,
@@ -107,8 +108,8 @@ def _backend_scope(name: str):
 
 
 def make_train_step(cfg: ModelConfig, policy: PrecisionPolicy,
-                    tcfg: TrainerConfig) -> Callable:
-    loss_fn = make_loss_fn(cfg, policy)
+                    tcfg: TrainerConfig, mesh=None) -> Callable:
+    loss_fn = make_loss_fn(cfg, policy, mesh=mesh)
     sched = sched_lib.SCHEDULES[tcfg.schedule]
 
     def train_step(state: TrainState, batch) -> Tuple[TrainState, Dict]:
@@ -161,7 +162,7 @@ class Trainer:
     def __init__(self, cfg: ModelConfig, tcfg: TrainerConfig,
                  policy: Optional[PrecisionPolicy] = None,
                  escalation_policy: Optional[PrecisionPolicy] = None,
-                 device: str = "cuda"):
+                 device: str = "cuda", mesh=None):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Trainer(device='cuda') needs a CUDA device; "
@@ -169,12 +170,15 @@ class Trainer:
                                "of the kernels on the CPU")
         self.cfg = cfg
         self.tcfg = tcfg
+        # passed to the forward, as in the JAX package (the MoE family's
+        # expert-parallel mesh; the dense family ignores it)
+        self.mesh = mesh
         # explicit policy > active PrecisionContext's policy > recipe default
         self.policy = (policy or context_lib.current_context().policy
                        or PrecisionPolicy.train_default())
         self.escalation_policy = (escalation_policy
                                   or PrecisionPolicy.full_fp32())
-        self._step_fn = make_train_step(cfg, self.policy, tcfg)
+        self._step_fn = make_train_step(cfg, self.policy, tcfg, mesh=mesh)
         self._escalated_fn = None
         self._step_times: list = []
         self.straggler_events = 0
@@ -225,7 +229,8 @@ class Trainer:
                 if self.tcfg.escalate_on_nan:
                     if self._escalated_fn is None:
                         self._escalated_fn = make_train_step(
-                            self.cfg, self.escalation_policy, self.tcfg)
+                            self.cfg, self.escalation_policy, self.tcfg,
+                            mesh=self.mesh)
                     fn = self._escalated_fn
                 continue
 

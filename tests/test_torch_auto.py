@@ -365,13 +365,16 @@ def test_mode_flops_is_jax():
 def test_facade_has_the_jax_names_the_port_has():
     """Every name ``repro.mp`` exports is in ``repro_torch.mp`` but the
     ones its docstring lists as not ported yet."""
-    not_yet = {"autotune_enabled", "pin_backend", "register_backend",
-               "unregister_backend"}
+    not_yet = {"autotune_enabled"}
     jnames = {n for n in dir(jmp) if not n.startswith("_")
               and not isinstance(getattr(jmp, n), type(jmp))}
     missing = {n for n in jnames - not_yet if not hasattr(mp, n)}
     assert not missing, missing
     assert all(n in (mp.__doc__ or "") for n in not_yet)
+    # the backend registry and the sharded backend are the port's now
+    for n in ("pin_backend", "register_backend", "unregister_backend"):
+        assert hasattr(mp, n) and n in (mp.__doc__ or ""), n
+    assert "sharded" in mp.available_backends()
 
 
 def test_auto_policy_is_jax():

@@ -79,6 +79,36 @@ def test_fused_matmul_kernel_matches_plain(cuda, custom_format, mode, M, K,
     _assert_mm_close(out, mp_matmul.fused_matmul_plain(a, b, mode), K)
 
 
+@pytest.mark.parametrize("M,K,N", [(130, 200, 70), (8, 768, 768),
+                                   (1, 77, 33)])
+@pytest.mark.parametrize("mode", ["M8", "M16", "M23", "M36", "M52", CUSTOM])
+def test_partials_epilogue_matches_plain_and_combines_to_fused(
+        cuda, custom_format, mode, M, K, N):
+    """The partials epilogue: each order's plane against the plain stack,
+    ``combine_partials`` of the stack bitwise the fused kernel (both
+    tiles), one launch; a K-slice view read in place."""
+    from repro_torch.kernels import ref
+
+    a, b = _randn(cuda, M, K, seed=1), _randn(cuda, K, N, seed=2)
+    before = mp_matmul.mp_fused_matmul_partials.launches
+    parts = mp_matmul.mp_fused_matmul_partials(a, b, mode)
+    assert mp_matmul.mp_fused_matmul_partials.launches == before + 1
+    plain = mp_matmul.fused_matmul_partials_plain(a, b, mode)
+    assert parts.shape == (resolve(mode).n_orders, M, N)
+    for o in range(parts.shape[0]):
+        _assert_mm_close(parts[o], plain[o], K)
+    fused = mp_matmul.mp_fused_matmul(a, b, mode)
+    torch.cuda.synchronize()
+    assert torch.equal(ref.combine_partials(parts, mode).view(torch.int32),
+                       fused.view(torch.int32))
+    half = K // 2
+    view = mp_matmul.mp_fused_matmul_partials(a[:, half:], b[half:], mode)
+    copy = mp_matmul.mp_fused_matmul_partials(a[:, half:].contiguous(),
+                                              b[half:].contiguous(), mode)
+    torch.cuda.synchronize()
+    assert torch.equal(view.view(torch.int32), copy.view(torch.int32))
+
+
 @pytest.mark.parametrize("mode", ["M8", "M16"])
 def test_batched_strided_matmul_is_one_launch(cuda, mode):
     """Decode attention's QK: q (B, H, 1, Dh) against the cache read as a

@@ -134,14 +134,31 @@ def test_from_json_takes_autotune_off_only(autotune, ok):
             mp.PrecisionContext.from_json(payload)
 
 
-@pytest.mark.parametrize("backend", ["pallas", "pallas_interpret",
-                                     "sharded"])
+@pytest.mark.parametrize("backend", ["pallas", "pallas_interpret"])
 def test_from_json_names_the_jax_only_backends(backend):
     payload = jmp.PrecisionContext(backend=backend).to_json()
     with pytest.raises(ValueError, match="JAX package's"):
         mp.PrecisionContext.from_json(payload)
     with pytest.raises(ValueError, match="JAX package's"):
         mp.configure(backend=backend)
+
+
+def test_sharded_context_round_trips_from_jax():
+    """JAX's ``PrecisionContext(backend="sharded")`` payload hydrates in the
+    port (which has the sharded backend), and back; the mesh is
+    process-local and stays out of the JSON in both packages."""
+    pol = mp.PrecisionPolicy({"ffn": "M8"})
+    payload = jmp.PrecisionContext(
+        backend="sharded", policy=jmp.PrecisionPolicy.from_json(
+            pol.to_json())).to_json()
+    ctx = mp.PrecisionContext.from_json(payload)
+    assert ctx.backend == "sharded" and ctx.mesh is None
+    assert ctx.policy == pol
+    assert "mesh" not in json.loads(ctx.to_json())
+    assert json.loads(ctx.to_json()) == json.loads(payload)
+    assert jmp.PrecisionContext.from_json(ctx.to_json()).backend == "sharded"
+    with mp.context(backend="sharded"):
+        assert mp.current_context().backend == "sharded"
 
 
 def test_context_from_json_validates_payload():

@@ -89,11 +89,13 @@ def test_prefill_and_teacher_forced_decode_logits_match_jax(
                                    atol=rel_tol * np.abs(jl).max())
         cur = np.argmax(jl[:, -1], -1)[:, None].astype(np.int32)
     # every kernel of the static path (decode on pre-limbed weights); the
-    # paged and mixed-lane kernels serve the continuous scheduler only, and
-    # the both-prelimbed kernel two-float (DD) operands only
+    # paged and mixed-lane kernels serve the continuous scheduler only, the
+    # both-prelimbed kernel two-float (DD) operands only, and the partials
+    # epilogue the sharded backend only
     calls = kernels.plain_call_counts()
     off_path = ("mp_paged_attention", "mp_mixed_prelimbed_matmul",
-                "mp_mixed_paged_attention", "mp_both_prelimbed_matmul")
+                "mp_mixed_paged_attention", "mp_both_prelimbed_matmul",
+                "mp_fused_matmul_partials")
     assert all(calls[name] > 0 for name in kernels.KERNELS
                if name not in off_path), calls
     assert kernels.launch_counts() == dict.fromkeys(kernels.KERNELS, 0)

@@ -1,0 +1,345 @@
+"""Cases the gloo ranks of ``torch_dist_pool.RankPool`` run: every rank
+calls the same function with the same (numpy) arguments, inside the process
+group, and returns numpy arrays or plain values.  Imports the port alone."""
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from repro_torch import tree as tree_lib
+from repro_torch.core import context as context_lib
+from repro_torch.core import dispatch
+from repro_torch.dist import collectives
+from repro_torch.launch import mesh as mesh_lib
+
+
+def _t(x):
+    return torch.as_tensor(np.asarray(x))
+
+
+def _np(x):
+    return x.detach().cpu().numpy()
+
+
+# ---------------------------------------------------------------- mesh
+def meshes():
+    """Cached meshes, axes and the production mesh's refusal."""
+    m = mesh_lib.make_matmul_mesh()
+    same = m is mesh_lib.make_matmul_mesh()
+    d = mesh_lib.make_debug_mesh(data=2, model=2)
+    try:
+        mesh_lib.make_production_mesh()
+        refused = False
+    except RuntimeError:
+        refused = True
+    return {"matmul": mesh_lib.mesh_axes(m), "cached": same,
+            "debug": mesh_lib.mesh_axes(d), "production_refused": refused}
+
+
+# ---------------------------------------------------------------- collectives
+def hier_psum(x, pod=2, data=2, model=1):
+    mesh = mesh_lib.make_debug_mesh(data=data, model=model, pod=pod)
+    collectives.reset_counts()
+    x = _t(x)
+    h = collectives.hierarchical_psum(x, mesh, pod_axis="pod",
+                                      inner_axis="data")
+    counts = collectives.counts()
+    fl = collectives.flat_psum(x, mesh, ("pod", "data"))
+    return _np(h), _np(fl), counts
+
+
+def hier_psum_compressed(x, err, pod=2, data=2, model=1):
+    mesh = mesh_lib.make_debug_mesh(data=data, model=model, pod=pod)
+    out, new_e = collectives.hierarchical_psum_compressed(
+        _t(x), _t(err), mesh, pod_axis="pod", inner_axis="data")
+    ref = collectives.flat_psum(_t(x), mesh, ("pod", "data"))
+    return _np(out), _np(new_e), _np(ref)
+
+
+# ---------------------------------------------------------------- pipeline
+def _layer_fn(lp, h):
+    from repro_torch.core.mpmatmul import mp_dense
+
+    y = mp_dense(h, lp["w1"], "M16")
+    y = torch.nn.functional.gelu(y, approximate="tanh")  # jax.nn.gelu
+    return h + mp_dense(y, lp["w2"], "M16")
+
+
+def _sequential(params, x):
+    h = x
+    for i in range(params["w1"].shape[0]):
+        h = _layer_fn({"w1": params["w1"][i], "w2": params["w2"][i]}, h)
+    return h
+
+
+def pipeline_fwd(params, x, n_micro, data=1, model=4):
+    from repro_torch.dist import pipeline
+
+    mesh = mesh_lib.make_debug_mesh(data=data, model=model)
+    params = tree_lib.map_(_t, params)
+    collectives.reset_counts()
+    out = pipeline.pipeline_forward(_layer_fn, params, _t(x), mesh,
+                                    n_micro=n_micro)
+    counts = collectives.counts()
+    return _np(out), _np(_sequential(params, _t(x))), counts
+
+
+def pipeline_grads(params, x, n_micro, data=1, model=4):
+    from repro_torch.dist import pipeline
+
+    mesh = mesh_lib.make_debug_mesh(data=data, model=model)
+    live = tree_lib.map_(lambda a: _t(a).requires_grad_(True), params)
+    out = pipeline.pipeline_forward(_layer_fn, live, _t(x), mesh,
+                                    n_micro=n_micro)
+    (out ** 2).sum().backward()
+    group = mesh.get_group("model")
+    grads = {}
+    for k, p in live.items():
+        g = p.grad if p.grad is not None else torch.zeros_like(p)
+        # each stage holds its own layers' gradients: the sum over the
+        # stage axis is the whole model's (one term per element is not 0)
+        grads[k] = _np(collectives.all_reduce(g.clone(), group))
+    seq = tree_lib.map_(lambda a: _t(a).requires_grad_(True), params)
+    (_sequential(seq, _t(x)) ** 2).sum().backward()
+    return grads, {k: _np(p.grad) for k, p in seq.items()}
+
+
+# ---------------------------------------------------------------- sharding
+def shardings(shapes):
+    """param_shardings / cache_specs specs under a few rule sets on a
+    (data 2, model 2) mesh."""
+    from repro_torch.dist import sharding as sh
+
+    mesh = mesh_lib.make_debug_mesh(data=2, model=2)
+    params = {k: torch.zeros(s) for k, s in shapes.items()}
+    out = {}
+    for tag, rules in {
+            "tp": sh.AxisRules(mesh, batch_axes=("data",), tp_enabled=True),
+            "fsdp": sh.AxisRules(mesh, batch_axes=("data", "model")),
+            "none": sh.AxisRules(mesh)}.items():
+        out[tag] = {k: v.spec for k, v in
+                    sh.param_shardings(params, rules).items()}
+        out["cache_" + tag] = sh.cache_specs(
+            {k: v for k, v in params.items() if v.ndim >= 2}, rules,
+            seq_axes="model")
+    return out
+
+
+def constrain_dtensor(x):
+    """``constrain``: identity without rules and on a plain tensor; a
+    DTensor moves to the named layout."""
+    from torch.distributed.tensor import Replicate, distribute_tensor
+
+    from repro_torch.dist import sharding as sh
+
+    mesh = mesh_lib.make_debug_mesh(data=2, model=2)
+    x = _t(x)
+    same_plain = sh.constrain(x, "activations") is x
+    rules = sh.AxisRules(mesh, batch_axes=("data",))
+    d = distribute_tensor(x, mesh, (Replicate(), Replicate()))
+    with sh.use_rules(rules):
+        same_plain_rules = sh.constrain(x, "activations") is x
+        c = sh.constrain(d, "activations")
+    return {"plain": same_plain and same_plain_rules,
+            "placements": [str(p) for p in c.placements],
+            "local": _np(c.to_local()), "full": _np(c.full_tensor())}
+
+
+def elastic_restore(ckpt_dir, step, like_shapes):
+    """Restore a logically saved checkpoint onto this world's mesh under
+    ``param_shardings``; each rank's local shard and its slice."""
+    from repro_torch.checkpoint import checkpoint as ckpt
+    from repro_torch.dist import sharding as sh
+
+    mesh = mesh_lib.make_matmul_mesh()
+    like = {k: torch.zeros(s) for k, s in like_shapes.items()}
+    rules = sh.AxisRules(mesh, batch_axes=("data",))
+    shs = sh.param_shardings(like, rules)
+    restored, extra = ckpt.restore(ckpt_dir, step, like, shardings=shs)
+    return {k: (_np(v.to_local()), [str(p) for p in v.placements],
+                tuple(v.shape)) for k, v in restored.items()}, extra
+
+
+# ---------------------------------------------------------------- matmul
+def sharded_matmul(a, b, modes, **kw):
+    """mp_matmul under sharded for each mode; collective counts of each."""
+    from repro_torch.core.mpmatmul import mp_matmul
+
+    outs, counts = {}, {}
+    for m in modes:
+        collectives.reset_counts()
+        outs[m] = _np(mp_matmul(_t(a), _t(b), m, backend="sharded", **kw))
+        counts[m] = collectives.counts()["all_reduce"]
+    return outs, counts
+
+
+def sharded_grads(a, b, mode, bwd_mode):
+    from repro_torch.core.mpmatmul import mp_matmul
+
+    out = {}
+    for backend in ("sharded", "cuda"):
+        ta = _t(a).requires_grad_(True)
+        tb = _t(b).requires_grad_(True)
+        collectives.reset_counts()
+        (mp_matmul(ta, tb, mode, backend=backend, bwd_mode=bwd_mode) ** 2
+         ).sum().backward()
+        out[backend] = (_np(ta.grad), _np(tb.grad),
+                        collectives.counts()["all_reduce"]["calls"])
+    return out
+
+
+def sharded_fallbacks(a, b, a3, b3, pw_x, pw_w):
+    """Inside an owned scope, a batched b, DD and pre-limbed operands: the
+    sharded backend computes locally (the cuda route), no collective."""
+    from repro_torch.core.limbs import dd_from_f64, prelimb_weight
+    from repro_torch.core.mpmatmul import mp_dense, mp_matmul
+
+    collectives.reset_counts()
+    with dispatch.owned_axes("model"):
+        owned = _np(mp_matmul(_t(a), _t(b), "M16", backend="sharded"))
+    batched = _np(mp_matmul(_t(a3), _t(b3), "M16", backend="sharded"))
+    a64 = np.asarray(a, np.float64)
+    b64 = np.asarray(b, np.float64)
+    dd = _np(mp_matmul(dd_from_f64(a64, device="cpu"),
+                       dd_from_f64(b64, device="cpu"), "M52",
+                       backend="sharded"))
+    pw = prelimb_weight(_t(pw_w), 3)
+    pl = _np(mp_dense(_t(pw_x), pw, "M23", backend="sharded"))
+    calls = collectives.counts()["all_reduce"]["calls"]
+    local = {
+        "owned": _np(mp_matmul(_t(a), _t(b), "M16", backend="cuda")),
+        "batched": _np(mp_matmul(_t(a3), _t(b3), "M16", backend="cuda")),
+        "dd": _np(mp_matmul(dd_from_f64(a64, device="cpu"),
+                            dd_from_f64(b64, device="cpu"), "M52",
+                            backend="cuda")),
+        "prelimbed": _np(mp_dense(_t(pw_x), pw, "M23", backend="cuda"))}
+    return {"owned": owned, "batched": batched, "dd": dd,
+            "prelimbed": pl}, local, calls
+
+
+def context_mesh(a, b):
+    """A 1-D context mesh under any name shards; a 2-D mesh without a
+    'data' axis raises."""
+    import repro_torch.mp as mp
+    from torch.distributed.device_mesh import init_device_mesh
+
+    w = dist.get_world_size()
+    mesh_x = init_device_mesh("cpu", (w,), mesh_dim_names=("x",))
+    collectives.reset_counts()
+    with mp.context(mesh=mesh_x):
+        got = _np(mp.mp_matmul(_t(a), _t(b), "M16", backend="sharded"))
+    calls = collectives.counts()["all_reduce"]["calls"]
+    bad = init_device_mesh("cpu", (2, w // 2), mesh_dim_names=("rows",
+                                                                "cols"))
+    try:
+        with mp.context(mesh=bad):
+            mp.mp_matmul(_t(a), _t(b), "M16", backend="sharded")
+        err = ""
+    except ValueError as e:
+        err = str(e)
+    return got, calls, err
+
+
+# ---------------------------------------------------------------- attention
+def sp_decode(q, k, v, lengths, mode, mode_pv=None):
+    from repro_torch.dist.attention import sp_decode_attention
+
+    collectives.reset_counts()
+    out = sp_decode_attention(_t(q), _t(k), _t(v), _t(lengths), mode,
+                              mode_pv)
+    counts = collectives.counts()["all_reduce"]
+    again = sp_decode_attention(_t(q), _t(k), _t(v), _t(lengths), mode,
+                                mode_pv)
+    return _np(out), bool(torch.equal(out, again)), counts
+
+
+def sp_routes(q, k, v, lengths):
+    """masked_decode_attention and dispatch_attention (S == 1) under
+    sharded; AUTO falling back to the local route."""
+    collectives.reset_counts()
+    masked = dispatch.masked_decode_attention(_t(q), _t(k), _t(v),
+                                              _t(lengths), "M16",
+                                              backend="sharded")
+    n_masked = collectives.counts()["all_reduce"]["calls"]
+    T = k.shape[1]
+    probe = dispatch.dispatch_attention(_t(q), _t(k), _t(v), "M16",
+                                        causal=True, q_offset=T - 1,
+                                        backend="sharded")
+    from repro_torch.dist.attention import sp_decode_attention
+
+    auto = sp_decode_attention(_t(q), _t(k), _t(v), _t(lengths), "AUTO")
+    auto_local = dispatch.masked_decode_attention(
+        _t(q), _t(k), _t(v), _t(lengths), "AUTO", backend="cuda")
+    return {"masked": _np(masked), "n_masked": n_masked,
+            "probe": _np(probe), "auto": _np(auto),
+            "auto_local": _np(auto_local)}
+
+
+# ---------------------------------------------------------------- engine
+def _smoke_params(jax_params):
+    from repro_torch.configs import paper_mpfp
+    from repro_torch.weights import params_from_jax
+
+    return paper_mpfp.SMOKE, params_from_jax(jax_params)
+
+
+def engine_generate(jax_params, prompts, max_new):
+    """ServeEngine pinned to sharded vs the cuda backend, plus the
+    collectives of one sharded generate."""
+    from repro_torch.kernels import mp_matmul as kern
+    from repro_torch.serve.engine import ServeEngine
+
+    cfg, params = _smoke_params(jax_params)
+    prompts = [np.asarray(p, np.int32) for p in prompts]
+    ref = ServeEngine(cfg, params, max_batch=2, max_seq=48, device="cpu"
+                      ).generate(prompts, max_new=max_new)
+    eng = ServeEngine(cfg, params, max_batch=2, max_seq=48, device="cpu",
+                      matmul_backend="sharded")
+    collectives.reset_counts()
+    kern.mp_fused_matmul_partials.plain_calls = 0
+    toks = eng.generate(prompts, max_new=max_new)
+    return toks, ref, collectives.counts()["all_reduce"], \
+        kern.mp_fused_matmul_partials.plain_calls
+
+
+def scheduler_streams(jax_params, prompts, max_new):
+    """ContinuousScheduler over a sharded engine (paged decode goes
+    sequence-parallel) vs the cuda engine's."""
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.scheduler import ContinuousScheduler, \
+        ScheduledRequest
+
+    cfg, params = _smoke_params(jax_params)
+    out = {}
+    for backend in ("sharded", "cuda"):
+        eng = ServeEngine(cfg, params, max_batch=4, max_seq=64,
+                          device="cpu", matmul_backend=backend)
+        s = ContinuousScheduler(eng, n_blocks=32, block_size=8)
+        collectives.reset_counts()
+        done = s.run([ScheduledRequest(rid=i, prompt=list(p),
+                                       max_new=max_new, arrival=i)
+                      for i, p in enumerate(prompts)])
+        out[backend] = ({r.rid: list(r.out) for r in done},
+                        collectives.counts()["all_reduce"]["calls"])
+    return out
+
+
+def train_value_and_grad(jax_params, tokens, labels):
+    """One value_and_grad of the SMOKE model under sharded and cuda."""
+    from repro_torch.core.policy import PrecisionPolicy
+    from repro_torch.train import trainer as trainer_lib
+
+    cfg, params = _smoke_params(jax_params)
+    batch = {"tokens": _t(tokens).long(), "labels": _t(labels).long()}
+    loss_fn = trainer_lib.make_loss_fn(cfg, PrecisionPolicy.train_default())
+    out = {}
+    for backend in ("sharded", "cuda"):
+        collectives.reset_counts()
+        with context_lib.context(backend=backend):
+            (loss, _), grads = trainer_lib.value_and_grad(loss_fn, params,
+                                                          batch)
+        out[backend] = (float(loss), {p: _np(g) for p, g in
+                                      tree_lib.items(grads)},
+                        collectives.counts()["all_reduce"]["calls"])
+    return out
