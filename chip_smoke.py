@@ -27,7 +27,8 @@ line is not printed):
    logit in a slot's first, last or every column and with a table far
    wider than the slots, each head of each flash case bitwise the same
    head launched alone (B = H = 1), a flash case with rows' largest logits
-   in the last column of a kv tile, and each prefill case within
+   in the last column of a kv tile, flash at ``[arch]``'s head dims 192
+   (MLA), 80 and 96, and each prefill case within
    tests/test_kernels.py's error model of its float64 golden; on every
    2-D matmul case the fused kernel's partials epilogue (each order's
    plane against its plain version, ``combine_partials`` of the stack
@@ -131,8 +132,24 @@ line is not printed):
    backend, [train]'s checkpoint restored onto the ranks' mesh (each
    shard bitwise its slice); ``hierarchical_psum`` on four ranks; the
    serve launcher under ``torchrun``; a one-rank NCCL group (sharded ==
-   cuda engine bitwise).  A failed gate of 4g-4k is logged and the phases
-   go on; the run fails after them;
+   cuda engine bitwise);
+4l. ``[arch]`` (before ``[dist]``): every other family's serving path at
+   full width, random weights from seed 0, ``serve_default``, pre-limbed
+   decode weights: deepseek-v2-lite-16b at depth 6 (1 dense + 5 MoE
+   layers), mamba2-130m and zamba2-2.7b at full depth, ``generate`` on
+   4's prompts, 32 new; the other seven ids at depth 2 (hubert-xlarge one
+   encoder forward of 2 x 256 stub frames; the six decoders ``generate``
+   of 2 prompts of 64 tokens, 8 new; llava-next-34b also one prefill
+   behind its 576 stub patches): launches per prefill and decode step
+   exactly the family's formula, prefill logits and one decode step's
+   (both engines from copies of one prefilled cache) within 4·2^-6 of the
+   ``ref`` backend, every kernel launch of a prefill and a decode step
+   held against its plain version at its shapes, the batched expert
+   launch bitwise the per-expert launches, TF32 off; beside each logits
+   reading a control at M8 for serve_default's two M16 classes; tokens/s,
+   prefill ms, decode ms/step, busy and idle share, peak memory.  A
+   failed gate of 4g-4l is logged and the phases go on;
+   the run fails after them;
 5. a ``kernels`` JSON line: per kernel its launches on its main path, its
    device time (CUDA events around calls enqueued behind a sleep kernel, so
    the card runs them back to back; the time of calls issued one after the
@@ -146,6 +163,7 @@ CUDA device.  Imports nothing of JAX.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -228,6 +246,17 @@ FLASH_CASES = (
      "M8", True, 0, ()),
     ("(2,96,4,64) max in a tile's last column", 2, 96, 96, 4, 64, "M16",
      "M8", True, 0, ((31, 31, 8.0), (70, 63, 8.0), (95, 95, 8.0))),
+    # [arch]'s prefill attention: MLA's head dim 192 (deepseek-v2-lite at
+    # [main]'s prompts), 80 (zamba2's shared block; hubert's encoder,
+    # bidirectional), 96 (minicpm3's MLA, [arch]'s short prompts)
+    ("prefill (8,256,16,192) causal MLA", 8, 256, 256, 16, 192, "M16", "M8",
+     True, 0, ()),
+    ("prefill (8,256,32,80) causal", 8, 256, 256, 32, 80, "M16", "M8", True,
+     0, ()),
+    ("prefill (2,256,16,80) bidirectional", 2, 256, 256, 16, 80, "M16", "M8",
+     False, 0, ()),
+    ("prefill (2,64,40,96) causal", 2, 64, 64, 40, 96, "M16", "M8", True, 0,
+     ()),
 )
 # AUTO (paper mode 1): per layer the three QKV branches, wo, gate, up,
 # w_down and the two attention contractions analyze their operands (one
@@ -933,6 +962,536 @@ def chaos_phase(fail, eng, dev, smi, counts):
 
 
 # ---------------------------------------------------------------------------
+# A kernel against its plain version (phase 3 and [arch]).
+FLASH_TOL = 2e-5   # abs and rel: the same blocking on both sides, only the
+                   # f32 summation order differs (tests/test_mp_attention.py)
+
+
+def mm_tol(ref, K):
+    """The repo's f32 accumulation floor (tests/test_kernels.py
+    _err_bound): two orders of summing the same exact limb products."""
+    rms = ref.pow(2).mean().sqrt()
+    return 2e-6 * ref.abs() + 8 * U32 * math.sqrt(K) * rms
+
+
+def proj_tol(a, ws, fmt, ref, gate="none", biases=None, residual=None):
+    """:func:`mm_tol` of a projection, propagated through silu(g) * u
+    (|silu'| <= 1.1) plus the f32 rounding of the epilogue when gated."""
+    from repro_torch.kernels import mp_matmul
+
+    K = a.shape[-1]
+    if gate == "none":
+        return mm_tol(ref, K)
+    g, u = mp_matmul.fused_proj_plain(a, ws, fmt, biases=biases)
+    return (1.1 * u.abs() * mm_tol(g, K)
+            + (g / (1 + g.neg().exp())).abs() * mm_tol(u, K)
+            + 2e-6 * ref.abs())
+
+
+@contextlib.contextmanager
+def plain_held(fail, tag):
+    """While entered, the first launch of each kernel wrapper at each shape,
+    format and epilogue, as the models reach them (``kernels.ops``' matmul
+    wrappers and the flash wrapper), is held against its plain version on
+    the same operands right after it returns, at phase 3's tolerance; a
+    disagreement fails ``fail``.  Yields the list of cases held.  It
+    launches nothing itself: the plain versions are plain PyTorch."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.formats import resolve
+    from repro_torch.kernels import mp_attention, mp_matmul, ops
+
+    def sig(x):
+        if torch.is_tensor(x):
+            return tuple(x.shape)
+        if isinstance(x, (tuple, list)):
+            return tuple(sig(e) for e in x)
+        return getattr(x, "name", x)
+
+    def matmul(plain):
+        def check(a, b, fmt, **kw):
+            ref = plain(a, b, fmt, **kw)
+            if plain is mp_matmul.fused_proj_plain:
+                return ref, proj_tol(a, b, resolve(fmt), ref, **kw)
+            return ref, mm_tol(ref, a.shape[-1])
+        return check
+
+    def flash(q, k, v, mode_qk="M16", mode_pv=None, *, causal=True,
+              scale=None, q_offset=0):
+        if scale is None:   # the wrapper's default
+            scale = 1.0 / float(np.sqrt(q.shape[-1]))
+        ref = mp_attention.flash_attention_plain(
+            q, k, v, resolve(mode_qk),
+            resolve(mode_pv if mode_pv is not None else mode_qk),
+            causal=causal, scale=scale, q_offset=q_offset)
+        return ref, FLASH_TOL + FLASH_TOL * ref.abs()
+
+    wrappers = (
+        (ops, "mp_fused_matmul", matmul(mp_matmul.fused_matmul_plain)),
+        (ops, "mp_fused_proj", matmul(mp_matmul.fused_proj_plain)),
+        (ops, "mp_prelimbed_matmul", matmul(mp_matmul.prelimbed_matmul_plain)),
+        (mp_attention, "mp_flash_attention", flash))
+    seen, held, real = set(), [], {}
+
+    class Spy:
+        """Stands in for a wrapper: calls it, then holds the result; its
+        counters are the wrapper's (a wrapper counts through its module's
+        global name, which the spy takes while entered)."""
+
+        def __init__(self, launch, name, check):
+            object.__setattr__(self, "_real", (launch, name, check))
+
+        def __getattr__(self, attr):
+            return getattr(self._real[0], attr)
+
+        def __setattr__(self, attr, value):
+            setattr(self._real[0], attr, value)
+
+        def __call__(self, *args, **kw):
+            launch, name, check = self._real
+            out = launch(*args, **kw)
+            key = (name, sig(args), sig(sorted(kw.items())))
+            if key not in seen:
+                seen.add(key)
+                hold(name, check, out, args, kw)
+            return out
+
+    def hold(name, check, out, args, kw):
+        with torch.no_grad():
+            ref, tol = check(*args, **kw)
+            err = (out - ref).abs()
+            bad = int((err > tol).sum())
+            case = dict(kernel=name, args=sig(args)[:-1], fmt=sig(args)[-1],
+                        max_abs_err=err.max().item(),
+                        worst_err_over_tol=(err / tol).max().item(),
+                        violations=bad)
+        held.append(case)
+        fail.check(bad == 0 and bool(torch.isfinite(out).all()),
+                   f"[arch] {tag}: {name} {case['args']} {case['fmt']} "
+                   f"disagrees with its plain version: {bad} elements past "
+                   f"the tolerance, max abs {case['max_abs_err']:.3e}")
+
+    try:
+        for mod, name, check in wrappers:
+            real[mod, name] = getattr(mod, name)
+            setattr(mod, name, Spy(real[mod, name], name, check))
+        yield held
+    finally:
+        for (mod, name), launch in real.items():
+            setattr(mod, name, launch)
+
+
+# ---------------------------------------------------------------------------
+# [arch]: every model family's serving path at full width.  (arch id,
+# depth or None for the config's own, prompts: "main" = [main]'s 8 of
+# 64..256 tokens, 32 new; "short" = 2 of 64 tokens, 8 new; "encoder" = one
+# forward of 2 x 256 stub frame embeddings)
+ARCH_RUNS = (
+    ("deepseek-v2-lite-16b", 6, "main"),
+    ("mamba2-130m", None, "main"),
+    ("zamba2-2.7b", None, "main"),
+    ("deepseek-v2-236b", 2, "short"),
+    ("minicpm3-4b", 2, "short"),
+    ("deepseek-7b", 2, "short"),
+    ("mistral-large-123b", 2, "short"),
+    ("chatglm3-6b", 2, "short"),
+    ("llava-next-34b", 2, "short"),
+    ("hubert-xlarge", 2, "encoder"),
+)
+ARCH_SHORT = (2, 64, 8)   # prompts, tokens each, new tokens
+ARCH_FRAMES = (2, 256)    # the encoder's rows x stub frames
+FUSED_P_MAX = 1 << 24     # models/attention.py FUSED_P_MAX_ELEMENTS
+
+
+def arch_forward_launches(cfg, B: int, S: int) -> dict:
+    """Kernel launches of one forward of S tokens a row on raw weights
+    (a prefill, or the encoder's forward): per attention block the input
+    projection group (MLA: the input group, the latent's K/V up-projection,
+    ``w_uq`` with a query LoRA) and ``wo``; flash attention, or the
+    chunk-scan's QK and PV per chunk pair where B·H·S² passes FUSED_P_MAX;
+    per MLP the SwiGLU projection and ``w_down``; per MoE layer the router,
+    the three batched expert launches and the shared experts' MLP; per
+    Mamba2 layer ``in_proj``, the SSD's four batched products and
+    ``out_proj``; the head."""
+    fm = fp = fl = 0
+    if B * cfg.n_heads * S * S > FUSED_P_MAX:   # the chunk-scan
+        a_fl = 0
+        attn_fm = 2 * (_n_chunks(S, cfg.attn_q_chunk)
+                       * _n_chunks(S, cfg.attn_kv_chunk))
+    else:
+        a_fl, attn_fm = 1, 0
+    if cfg.mla is not None:
+        a_fm, a_fp = 1 + (cfg.mla.q_lora > 0), 2
+    else:
+        a_fm, a_fp = 1, 1
+    a_fm += attn_fm
+    mlp_fm, mlp_fp = 1, 1
+    moe_fm = moe_fp = 0
+    if cfg.moe is not None:
+        moe_fm = 4 + (cfg.moe.n_shared > 0)
+        moe_fp = int(cfg.moe.n_shared > 0)
+    L = cfg.n_layers
+    if cfg.family in ("dense", "vlm", "audio"):
+        fm, fp, fl = L * (a_fm + mlp_fm), L * (a_fp + mlp_fp), L * a_fl
+    elif cfg.family == "moe":
+        k = cfg.first_k_dense
+        fm = k * (a_fm + mlp_fm) + (L - k) * (a_fm + moe_fm)
+        fp = k * (a_fp + mlp_fp) + (L - k) * (a_fp + moe_fp)
+        fl = L * a_fl
+    elif cfg.family == "ssm":
+        fm = 6 * L
+    elif cfg.family == "hybrid":
+        G = L // cfg.hybrid_attn_every
+        fm, fp, fl = G * (a_fm + mlp_fm) + 6 * L, G * (a_fp + mlp_fp), G * a_fl
+    return {"mp_fused_matmul": fm + 1, "mp_fused_proj": fp,
+            "mp_flash_attention": fl}
+
+
+def arch_decode_launches(cfg) -> dict:
+    """Kernel launches of one decode step on pre-limbed params: the
+    ``attn`` and ``mlp`` weights of ``layers`` / ``dense_layers`` and the
+    head run the pre-limbed kernel, one launch a matrix; GQA decode
+    attention its QK and PV; MLA the raw input group (and ``w_uq``) and
+    ``w_o`` around the f32 absorbed einsums; MoE the router, three batched
+    expert launches and the shared MLP, raw; Mamba2 ``in_proj`` and
+    ``out_proj``; the hybrid's shared block raw (its LoRA patches wq / wo)."""
+    fm = fp = pl = 0
+    L = cfg.n_layers
+    if cfg.mla is not None:
+        a = dict(fm=1 + (cfg.mla.q_lora > 0), fp=1, pl=0)
+    else:
+        a = dict(fm=2, fp=0, pl=4)           # qkv, wo pre-limbed; QK, PV
+    mlp = dict(fm=0, fp=0, pl=3)
+    if cfg.family in ("dense", "vlm"):
+        fm, fp, pl = (L * (a[k] + mlp[k]) for k in ("fm", "fp", "pl"))
+    elif cfg.family == "moe":
+        k = cfg.first_k_dense
+        n_sh = int(cfg.moe.n_shared > 0)
+        fm = k * (a["fm"] + mlp["fm"]) + (L - k) * (a["fm"] + 4 + n_sh)
+        fp = k * (a["fp"] + mlp["fp"]) + (L - k) * (a["fp"] + n_sh)
+        pl = k * (a["pl"] + mlp["pl"]) + (L - k) * a["pl"]
+    elif cfg.family == "ssm":
+        fm = 2 * L
+    elif cfg.family == "hybrid":
+        G = L // cfg.hybrid_attn_every
+        # the shared block: wo, QK, PV, w_down; qkv, swiglu
+        fm, fp = G * 4 + 2 * L, G * 2
+    return {"mp_fused_matmul": fm, "mp_fused_proj": fp,
+            "mp_prelimbed_matmul": pl + 1}
+
+
+def arch_phase(fail, dev, smi, counts, main_prompts):
+    """``[arch]``: each family's serving path at full width: ``generate``
+    on pre-limbed weights with launches per prefill and decode step exactly
+    the formula; the prefill's last logits and one decode step's logits
+    (both engines stepping copies of the same prefilled cache with the same
+    tokens) within 4·2^-6 of the ``ref`` backend; every kernel launch of a
+    prefill and a decode step held against its plain version at its
+    shapes (:func:`plain_held`); the encoder's forward; llava's prefill
+    behind its stub patches; the batched expert launch bitwise the
+    per-expert launches; each model freed before the next.  Beside each
+    reading vs ``ref``, a control: the same prefill with serve_default's
+    two M16 classes (``attn_logits``, ``lm_head``) one format lower, at M8,
+    which is what a kernel at the wrong format would do."""
+    import copy
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.policy import PrecisionPolicy
+    from repro_torch.kernels import mp_matmul
+    from repro_torch.models import multimodal
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.engine import ServeEngine
+
+    on_card = dev.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    policy = PrecisionPolicy.serve_default()
+    control = policy.overlay({"attn_logits": "M8", "lm_head": "M8"})
+    zero = dict.fromkeys(kernels.KERNELS, 0)
+    rel_tol = 4 * 2.0 ** -6
+    out = {}
+
+    def rel_of(got, ref):
+        a, b = got.double(), ref.double()
+        return ((a - b).norm() / b.norm()).item()
+
+    def vs_ref(tag, got, ref):
+        rel = rel_of(got, ref)
+        fail.check(bool(torch.isfinite(got).all()) and rel <= rel_tol,
+                   f"[arch] {tag}: logits {rel:.3e} from the ref backend "
+                   f"(tol {rel_tol:.3e})")
+        return rel
+
+    def held_note(row, held, what):
+        row[f"held_{what}"] = held
+        worst = max(c["worst_err_over_tol"] for c in held)
+        return (f"{len(held)} {what} launch shapes held against their plain "
+                f"versions (worst err/tol {worst:.3f})")
+
+    def timed_ms(fn):
+        sync()
+        t0 = time.perf_counter()
+        res = fn()
+        sync()
+        return (time.perf_counter() - t0) * 1e3, res
+
+    for arch, depth, kind in ARCH_RUNS:
+        cfg = get_config(arch)
+        if depth is not None:
+            cfg = dataclasses.replace(cfg, n_layers=depth)
+        if on_card:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = T.init_params(cfg, seed=0, device=dev)
+        init_s = time.perf_counter() - t0
+        row = dict(family=cfg.family, n_layers=cfg.n_layers,
+                   params=cfg.param_count(), init_s=init_s)
+        rng = np.random.default_rng(0)
+        if kind == "encoder":
+            B, S = ARCH_FRAMES
+            emb = torch.from_numpy(multimodal.audio_frame_embeds_stub(
+                rng, B, S, cfg)).to(dev)
+            def fwd(pol=policy):
+                return T.forward(params, {"embeds": emb}, cfg, pol)[0]
+
+            with torch.no_grad():
+                kernels.reset_launch_counts()
+                ms, logits = timed_ms(fwd)
+                got = counts()
+                want = {**zero, **arch_forward_launches(cfg, B, S)}
+                fail.check(got == want, f"[arch] {arch} forward launches "
+                           f"{got} != {want}")
+                fail.check(tuple(logits.shape) == (B, S, cfg.vocab),
+                           f"[arch] {arch} logits {tuple(logits.shape)}")
+                with mp_ctx("ref"):
+                    ref = fwd()
+                rel = vs_ref(f"{arch} forward", logits, ref)
+                ctl = rel_of(fwd(control), ref)
+                with plain_held(fail, f"{arch} forward") as held:
+                    fwd()
+                del ref
+                ms, _ = timed_ms(fwd)
+            row.update(forward_ms=ms, launches=got, logits_rel_vs_ref=rel,
+                       control_rel_vs_ref=ctl, frames_per_s=B * S / ms * 1e3)
+            msg = (f"[arch] {arch} ({cfg.family}, {cfg.n_layers} layers, "
+                   f"d_model {cfg.d_model}): encoder forward {B} x {S} stub "
+                   f"frames {ms:.2f} ms, {row['frames_per_s']:.0f} frames/s, "
+                   f"launches {nonzero(got)}, logits vs ref {rel:.3e} "
+                   f"(control {ctl:.3e}); "
+                   + held_note(row, held, "forward"))
+            if on_card:
+                busy, _ = device_busy_ms(fwd)
+                row.update(busy_ms=busy, idle_share=max(0.0, 1 - busy / ms))
+                msg += f", busy {busy:.2f} ms, idle {row['idle_share']:.3f}"
+        else:
+            if kind == "main":
+                prompts = main_prompts
+                max_new = 32
+            else:
+                n, ln, max_new = ARCH_SHORT
+                prompts = [rng.integers(1, cfg.vocab, size=ln).astype(
+                    np.int64) for _ in range(n)]
+            B = len(prompts)
+            S = max(len(p) for p in prompts)
+            eng = ServeEngine(cfg, params, max_batch=B, max_seq=S + max_new
+                              + 8, policy=policy, prelimb_weights=True,
+                              device=str(dev))
+            kernels.reset_launch_counts()
+            g_s, outs = timed_ms(lambda: eng.generate(prompts,
+                                                      max_new=max_new))
+            g_s /= 1e3
+            got = counts()
+            pre = arch_forward_launches(cfg, B, S)
+            step = arch_decode_launches(cfg)
+            want = dict(zero)
+            for d, n in ((pre, 1), (step, max_new)):
+                for k, v in d.items():
+                    want[k] += n * v
+            fail.check(got == want, f"[arch] {arch} generate launches "
+                       f"{nonzero(got)} != prefill {pre} + {max_new} x "
+                       f"step {step}")
+            fail.check(len(outs) == B and all(
+                len(o) == max_new and all(0 <= t < cfg.vocab for t in o)
+                for o in outs), f"[arch] {arch} malformed token streams")
+            toks = eng.pad_prompts(prompts)
+            pre_ms, (logits, cache) = timed_ms(
+                lambda: eng.prefill(toks, eng.make_cache()))
+            ref_eng = ServeEngine(cfg, params, max_batch=B,
+                                  max_seq=S + max_new + 8, policy=policy,
+                                  prelimb_weights=False,
+                                  matmul_backend="ref", device=str(dev))
+            ctl_eng = ServeEngine(cfg, params, max_batch=B,
+                                  max_seq=S + max_new + 8, policy=control,
+                                  prelimb_weights=False, device=str(dev))
+            tok = logits[:, -1].argmax(-1)[:, None]
+            with torch.no_grad():
+                with route_log() as ref_routes:
+                    ref = ref_eng.prefill(toks, ref_eng.make_cache())[0][:, -1]
+                rel = vs_ref(f"{arch} prefill", logits[:, -1], ref)
+                ctl = rel_of(ctl_eng.prefill(
+                    toks, ctl_eng.make_cache())[0][:, -1], ref)
+                del ctl_eng, ref
+                with route_log() as routes, \
+                        plain_held(fail, f"{arch} prefill") as held_pre:
+                    eng.prefill(toks, eng.make_cache())
+                # one decode step of each engine from copies of the same
+                # prefilled cache, on the same tokens
+                with plain_held(fail, f"{arch} decode step") as held_dec:
+                    step_lg = eng.decode(copy.deepcopy(cache), tok)[0]
+                ref = ref_eng.decode(copy.deepcopy(cache), tok)[0]
+                d_rel = vs_ref(f"{arch} decode step", step_lg[:, -1],
+                               ref[:, -1])
+                del ref_eng, ref, step_lg
+            if ref_routes:
+                # the tokens whose top-k experts differ from the ref
+                # backend's, per MoE layer (the router's input carries the
+                # M8 layers' rounding): what moves a MoE model's logits
+                row["route_flips"] = [
+                    int((a.sort(-1).values != b.sort(-1).values).any(-1)
+                        .sum()) for a, b in zip(routes, ref_routes)]
+            probe = eng.decode_throughput_probe(steps=8)
+            row.update(prompts=[len(p) for p in prompts], max_new=max_new,
+                       generate_s=g_s, tokens_per_s=B * max_new / g_s,
+                       prefill_ms=pre_ms,
+                       decode_ms_per_step=probe["ms_per_step"],
+                       launches=got, launches_prefill=pre,
+                       launches_step=step, logits_rel_vs_ref=rel,
+                       control_rel_vs_ref=ctl, decode_rel_vs_ref=d_rel)
+            if "route_flips" in row:
+                msg_flips = (f"; top-{cfg.moe.top_k} experts differ from "
+                             f"ref on {row['route_flips']} of {B * S} "
+                             "tokens per MoE layer")
+            else:
+                msg_flips = ""
+            msg = (f"[arch] {arch} ({cfg.family}, {cfg.n_layers} layers, "
+                   f"d_model {cfg.d_model}): generate {B} prompts "
+                   f"{row['prompts'][0]}..{S} x {max_new} new "
+                   f"{row['tokens_per_s']:.1f} tokens/s, prefill "
+                   f"{pre_ms:.2f} ms, decode {probe['ms_per_step']:.3f} "
+                   f"ms/step; launches prefill {pre} + step {step}; "
+                   f"logits vs ref: prefill {rel:.3e} (control "
+                   f"{ctl:.3e}), decode step {d_rel:.3e}{msg_flips}; "
+                   + held_note(row, held_pre, "prefill") + ", "
+                   + held_note(row, held_dec, "decode"))
+            if on_card:
+                busy, by_name = device_busy_ms(lambda: eng.decode(cache, tok))
+                row.update(busy_ms=busy, idle_share=max(
+                    0.0, 1 - busy / probe["ms_per_step"]),
+                    busy_by_name=dict(list(by_name.items())[:6]))
+                msg += (f"; decode step busy {busy:.3f} ms, idle share "
+                        f"{row['idle_share']:.3f}")
+            if cfg.family == "vlm":
+                pe = torch.from_numpy(multimodal.vision_patch_embeds_stub(
+                    rng, B, cfg)).to(dev)
+                inp = {"tokens": torch.as_tensor(toks, device=dev),
+                       "patch_embeds": pe}
+                fwd = (lambda: T.forward(params, inp, cfg, policy)[0])
+                with torch.no_grad():
+                    kernels.reset_launch_counts()
+                    v_ms, v_logits = timed_ms(fwd)
+                    v_got = counts()
+                    v_want = {**zero, **arch_forward_launches(
+                        cfg, B, S + cfg.n_patches)}
+                    fail.check(v_got == v_want, f"[arch] {arch} patch "
+                               f"prefill launches {v_got} != {v_want}")
+                    with mp_ctx("ref"):
+                        v_ref = fwd()[:, -1]
+                    v_rel = vs_ref(f"{arch} patch prefill", v_logits[:, -1],
+                                   v_ref)
+                row.update(patch_prefill_ms=v_ms, patch_launches=v_got,
+                           patch_logits_rel_vs_ref=v_rel)
+                msg += (f"; prefill behind {cfg.n_patches} stub patches "
+                        f"(S {S + cfg.n_patches}) {v_ms:.2f} ms, launches "
+                        f"{nonzero(v_got)}, logits vs ref {v_rel:.3e}")
+            if cfg.moe is not None and arch == ARCH_RUNS[0][0]:
+                row["experts_bitwise"] = experts_gate(
+                    fail, arch, params["layers"][0]["moe"], dev)
+            del eng, cache, logits
+        if on_card:
+            sync()
+            row["peak_bytes"] = torch.cuda.max_memory_allocated()
+            msg += f"; peak {row['peak_bytes'] / 2**30:.2f} GiB ({smi})"
+        log(msg)
+        out[arch] = row
+        del params
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+    # the plain f32 products of the path (MLA's absorbed einsums, the gate
+    # combine, the SSM decode, the LoRA patch) ran in true f32
+    fail.check(not torch.backends.cuda.matmul.allow_tf32
+               and torch.get_float32_matmul_precision() == "highest",
+               "[arch] TF32 on for f32 matmuls")
+    return out
+
+
+def experts_gate(fail, arch, moe_params, dev):
+    """The batched expert launch (256 tokens against one MoE layer's
+    stacked (E, D, F) ``w_gate``, and its (E, F, D) ``w_down`` on the
+    batched hidden) bitwise the per-expert launches."""
+    import torch
+
+    from repro_torch.core.formats import resolve
+    from repro_torch.kernels import mp_matmul
+
+    fmt = resolve("M8")
+    w_gate, w_down = moe_params["w_gate"], moe_params["w_down"]
+    E, D, F = w_gate.shape
+    gen = torch.Generator(device=dev).manual_seed(23)
+    x = torch.randn(256, D, generator=gen, device=dev)
+    h = torch.randn(E, 256, F, generator=gen, device=dev)
+    same = True
+    for a, w in ((x, w_gate), (h, w_down)):
+        batched = mp_matmul.mp_fused_matmul(a, w, fmt)
+        for e in range(E):
+            one = mp_matmul.mp_fused_matmul(a if a.ndim == 2 else a[e], w[e],
+                                            fmt)
+            same = same and torch.equal(batched[e].view(torch.int32),
+                                        one.view(torch.int32))
+    fail.check(same, f"[arch] {arch}: the batched expert launch is not "
+               "bitwise the per-expert launches")
+    log(f"[arch] {arch}: batched expert launches (256 x {D} vs ({E}, {D}, "
+        f"{F}) and ({E}, 256, {F}) vs ({E}, {F}, {D}), M8) == the {E} "
+        f"per-expert launches, {'bitwise' if same else 'DIFFER'}")
+    return same
+
+
+@contextlib.contextmanager
+def route_log():
+    """The top-k expert ids of every MoE router call while entered, in
+    call order (``models/moe._route`` wrapped)."""
+    from repro_torch.models import moe
+
+    real, ids = moe._route, []
+
+    def spy(*args, **kw):
+        top_p, top_i, aux = real(*args, **kw)
+        ids.append(top_i.clone())
+        return top_p, top_i, aux
+
+    moe._route = spy
+    try:
+        yield ids
+    finally:
+        moe._route = real
+
+
+def nonzero(counts: dict) -> dict:
+    return {k: v for k, v in counts.items() if v}
+
+
+def mp_ctx(backend):
+    from repro_torch.core import context as context_lib
+
+    return context_lib.context(backend=backend)
+
+
 # [dist]: the sharded backend across ranks.  Each rank is a spawned process
 # (one card each over NCCL where the host has two or more, else two ranks
 # sharing the card over gloo); every rank runs the same tasks on the same
@@ -1969,10 +2528,15 @@ def main() -> int:
     if not all(sp for _, sp in flash_bq.values()):
         raise AssertionError("flash M16/M8 at Dh 64 is not the compile-time "
                              "instantiation")
+    report["flash_block_q"]["B8 S256 H16 Dh192"], sp192 = \
+        mp_attention.flash_block_q(8, 256, 16, 192, "M16", "M8")
+    if sp192 or not report["flash_block_q"]["B8 S256 H16 Dh192"]:
+        raise AssertionError("flash M16/M8 at Dh 192 is not the generic "
+                             "instantiation")
     log(f"[build] flash attention: BQ = the largest of 64, 32, 16 query rows "
         f"with B * H * ceil(S / BQ) >= {n_sm} SMs (else 16); 128 threads: a "
         f"warp per 16 rows, the others copy and limb; kv tiles of 32: M16/M8 "
-        f"Dh 64 "
+        f"Dh 64 (Dh 192: the generic instantiation) "
         + ", ".join(f"{k} -> BQ {v}" for k, v in
                     report["flash_block_q"].items()))
 
@@ -2021,12 +2585,6 @@ def main() -> int:
             raise AssertionError(f"{kernel} {label}: error vs float64 "
                                  f"{res['gold_rel']} >= {bound}")
         return res
-
-    def mm_tol(ref, K):
-        # the repo's f32 accumulation floor (tests/test_kernels.py
-        # _err_bound): two orders of summing the same exact limb products
-        rms = ref.pow(2).mean().sqrt()
-        return 2e-6 * ref.abs() + 8 * U32 * math.sqrt(K) * rms
 
     gen70 = torch.Generator(device=dev).manual_seed(70)
 
@@ -2189,16 +2747,8 @@ def main() -> int:
         ref = mp_matmul.fused_proj_plain(a, ws, fmt, **kw)
         torch.cuda.synchronize()
         K = a.shape[-1]
-        if gate == "none":
-            tol = mm_tol(ref, K)
-        else:
-            # propagate each raw output's floor through silu(g) * u
-            # (|silu'| <= 1.1), plus the f32 rounding of the epilogue
-            g, u = mp_matmul.fused_proj_plain(a, ws, fmt, biases=biases)
-            tol = (1.1 * u.abs() * mm_tol(g, K)
-                   + (g / (1 + torch.exp(-g))).abs() * mm_tol(u, K)
-                   + 2e-6 * ref.abs())
-        hold("mp_fused_proj", label, out, ref, tol, {"fmt": fmt.name})
+        hold("mp_fused_proj", label, out, ref, proj_tol(a, ws, fmt, ref, **kw),
+             {"fmt": fmt.name})
         gold = {}
         if golden_case(label):
             raw = []
@@ -2262,10 +2812,8 @@ def main() -> int:
                                                  causal=causal,
                                                  q_offset=q_offset)
         torch.cuda.synchronize()
-        # same blocking on both sides (tests/test_mp_attention.py's
-        # same-blocking tolerance): only f32 summation order differs
         hold("mp_flash_attention", label, out, ref,
-             2e-5 + 2e-5 * ref.abs(), {"fmt": f"{qk}/{pv}"})
+             FLASH_TOL + FLASH_TOL * ref.abs(), {"fmt": f"{qk}/{pv}"})
         # each (b, h) bitwise the same head launched alone (B = H = 1, so
         # the smallest block of query rows)
         for b in range(B):
@@ -3678,6 +4226,10 @@ def main() -> int:
     del f_eng
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
+    new["arch"] = fail.run("[arch]", arch_phase, fail, dev, smi, card_counts,
+                           prompts)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
     try:
         new["dist"] = fail.run("[dist]", dist_phase, fail, cfg, params,
                                prompts, sched_prompts, ck_dir, smi)
@@ -3690,6 +4242,7 @@ def main() -> int:
         "train_more": report["train_more"]["rollback"]["launches"],
         "fleet": report["fleet"]["mode_affinity"]["launches"],
         "chaos": report["chaos"]["launches"],
+        "arch": report["arch"][ARCH_RUNS[0][0]]["launches"],
         "dist": report["dist"]["generate"]["launches"]}
 
     # ---- 5. the kernels line -----------------------------------------------

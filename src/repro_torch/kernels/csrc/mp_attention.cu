@@ -14,7 +14,7 @@
 //      cascade); K and V are limbed at fmt_qk and fmt_pv;
 //   2. each kept limb pair (i, j) of a logit is one f32 fmaf chain over the
 //      head dims 0..D-1 in order, from +0.0 (D: Dh rounded up to 16, 32,
-//      64 or 128, the dims past Dh zero);
+//      64, 128 or 192, the dims past Dh zero);
 //   3. the pairs are joined by combine(): plain adds in `products` order
 //      (highest order first, i ascending within an order) at <= 3 limbs,
 //      per-order sums joined by a Neumaier sum above; the logit is -1e30
@@ -676,9 +676,11 @@ bool serving_format(int nl, int mo) {
   return nl >= 1 && nl <= 3 && mo == nl - 1;
 }
 
-// Dh rounded up to the head dims the kernels are built for
+// Dh rounded up to the head dims the kernels are built for (192, MLA's
+// 128 + 64, for flash_kernel only: the paged kernels take Dh <= 128)
 int padded_d(int64_t Dh) {
-  return Dh <= 16 ? 16 : Dh <= 32 ? 32 : Dh <= 64 ? 64 : 128;
+  return Dh <= 16 ? 16 : Dh <= 32 ? 32 : Dh <= 64 ? 64 : Dh <= 128 ? 128
+                                                                    : 192;
 }
 
 // the instantiation a launch takes: the serving formats at D = 64 fixed at
@@ -745,7 +747,8 @@ cudaError_t flash_dispatch(FlashArgs p, int B, int bq, cudaStream_t st) {
     case 16: return flash_launch<16, 0, 0, 0, 0>(p, B, bq, st);
     case 32: return flash_launch<32, 0, 0, 0, 0>(p, B, bq, st);
     case 64: return flash_launch<64, 0, 0, 0, 0>(p, B, bq, st);
-    default: return flash_launch<128, 0, 0, 0, 0>(p, B, bq, st);
+    case 128: return flash_launch<128, 0, 0, 0, 0>(p, B, bq, st);
+    default: return flash_launch<192, 0, 0, 0, 0>(p, B, bq, st);
   }
 }
 
@@ -1258,7 +1261,7 @@ int flash_entry(const void* q, int64_t q_sb, int64_t q_ss, int64_t q_sh,
                 int64_t nl_pv, int64_t mo_pv, int64_t bq, void* stream) {
   if (nl_qk < 1 || nl_pv < 1 || mo_qk < 0 || mo_pv < 0 ||
       mo_qk > 2 * (nl_qk - 1) || mo_pv > 2 * (nl_pv - 1) || Dh < 1 ||
-      Dh > 128 || B * H > 65535 || q_offset < 0 ||
+      Dh > 192 || B * H > 65535 || q_offset < 0 ||
       (bq != 0 && bq != 16 && bq != 32 && bq != 64) || S > 65535 * WR)
     return (int)cudaErrorInvalidValue;
   if (B == 0 || S == 0 || H == 0) return 0;
@@ -1399,7 +1402,7 @@ int mp_flash_attention_launch_bq(
 int mp_flash_block_q(int64_t B, int64_t S, int64_t H, int64_t Dh,
                      int64_t nl_qk, int64_t mo_qk, int64_t nl_pv,
                      int64_t mo_pv, int* special) {
-  if (Dh < 1 || Dh > 128 || nl_qk < 1 || nl_pv < 1 || S < 1) return 0;
+  if (Dh < 1 || Dh > 192 || nl_qk < 1 || nl_pv < 1 || S < 1) return 0;
   FlashArgs p{};
   p.S = (int)S;
   p.nl_qk = (int)nl_qk;

@@ -29,7 +29,8 @@ from repro_torch.kernels.mp_matmul import _cuda_stream, _f32, _on_cpu
 BLOCK_Q = 32    # csrc OQ: the q tile whose rows' causal walks end together
 BLOCK_KV = 32   # csrc BKV: the online-softmax granularity both versions use
 FLASH_BLOCK_QS = (16, 32, 64)  # the kernel's query rows per block
-MAX_HEAD_DIM = 128
+MAX_HEAD_DIM = 192  # flash: Dh padded to 16, 32, 64, 128 or 192 (MLA's)
+PAGED_MAX_HEAD_DIM = 128
 PAGED_CHUNK_POS = 128  # csrc CHUNK_POS: the paged kernels' chunk, in positions
 
 _P = ctypes.c_void_p
@@ -237,8 +238,8 @@ def launch_paged_attention(lib, stream: int, q, k_pool, v_pool, block_table,
     if v_pool.shape != k_pool.shape or dh != Dh or H % hk:
         raise ValueError(f"q {tuple(q.shape)} does not fit pools "
                          f"{tuple(k_pool.shape)} / {tuple(v_pool.shape)}")
-    if Dh > MAX_HEAD_DIM:
-        raise ValueError(f"head dim {Dh} > {MAX_HEAD_DIM}")
+    if Dh > PAGED_MAX_HEAD_DIM:
+        raise ValueError(f"head dim {Dh} > {PAGED_MAX_HEAD_DIM}")
     if block_table.shape[0] != B or lengths.shape != (B,):
         raise ValueError(f"table {tuple(block_table.shape)} / lengths "
                          f"{tuple(lengths.shape)} do not match {B} slots")

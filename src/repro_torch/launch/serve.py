@@ -40,27 +40,30 @@ requests, rank 0 prints, and every rank checks that its tokens equal rank
 
 Runs on the card unless ``--device cpu`` is given (every kernel wrapper
 then runs its plain version); without a card and without ``--device cpu``
-it stops.  ``--arch`` takes the port's configurations (``paper-mpfp-100m``;
-``--smoke`` for its CI-sized config).  Weights are random, from seed 0.
+it stops.  ``--arch`` takes every id of ``configs/registry.py`` (``--smoke``
+for its CI-sized config); an encoder-only arch has no decode to serve and
+exits, and so does a full config above 1e9 parameters on the CPU.  The
+scheduler and the fleet serve the dense GQA family only, as in the JAX
+package.  Weights are random, from seed 0.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch deepseek-v2-lite-16b --smoke --device cpu
 """
 import argparse
 
 import numpy as np
 import torch
 
-from repro_torch.configs import paper_mpfp
+from repro_torch.configs.registry import ARCH_IDS, get_config
 from repro_torch.core.policy import POLICIES, get_policy
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models import transformer as T
 from repro_torch.serve.engine import ServeEngine
 
-CONFIGS = {"paper-mpfp-100m": (paper_mpfp.CONFIG, paper_mpfp.SMOKE)}
-
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="paper-mpfp-100m",
-                    choices=sorted(CONFIGS))
+    ap.add_argument("--arch", default="paper-mpfp-100m", choices=ARCH_IDS)
     ap.add_argument("--smoke", action="store_true",
                     help="reduced config (CPU-sized)")
     ap.add_argument("--policy", default="serve_default",
@@ -120,8 +123,12 @@ def _serve(args):
         import repro_torch.mp as mp
         mp.configure(backend=args.backend)
 
-    full, smoke = CONFIGS[args.arch]
-    cfg = smoke if args.smoke else full
+    cfg = get_config(args.arch, smoke=args.smoke)
+    if cfg.encoder_only:
+        raise SystemExit(f"{args.arch} is encoder-only: no decode serving")
+    if (not args.smoke and cfg.param_count() > 1e9
+            and torch.device(args.device).type == "cpu"):
+        raise SystemExit("full config on CPU: use --smoke")
     params = T.init_params(cfg, seed=0, device=args.device)
     rng = np.random.default_rng(0)
 

@@ -36,6 +36,15 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6
     return (x * torch.rsqrt(var + eps) * weight).to(dt)
 
 
+def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    dt = x.dtype
+    x = x.float()
+    mu = _row_sum(x) / x.shape[-1]
+    var = _row_sum((x - mu) ** 2) / x.shape[-1]
+    return ((x - mu) * torch.rsqrt(var + eps) * weight + bias).to(dt)
+
+
 def swiglu_mlp(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
                w_down: torch.Tensor, policy: PrecisionPolicy,
                op_class: str = "ffn") -> torch.Tensor:
@@ -137,15 +146,35 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return torch.cat([out, x_pass], dim=-1) if rot < dh else out
 
 
+def apply_rope_interleaved(x: torch.Tensor, positions: torch.Tensor,
+                           theta: float = 10000.0) -> torch.Tensor:
+    """DeepSeek-MLA style rope over the dedicated rope dims (full dim)."""
+    return apply_rope(x, positions, theta, fraction=1.0)
+
+
 # --------------------------------------------------------------- init utils
+# Every draw comes from ``gen`` on the generator's own device (a CUDA
+# generator fills the card's memory in place: the full-width families hold
+# billions of parameters), then moves to ``device``.
+def normal(gen: torch.Generator, shape, scale: float = 1.0, device=None
+           ) -> torch.Tensor:
+    w = torch.randn(shape, generator=gen, dtype=torch.float32,
+                    device=gen.device)
+    return (w * scale).to(device)
+
+
 def dense_init(gen: torch.Generator, d_in: int, d_out: int,
                scale: Optional[float] = None, device=None) -> torch.Tensor:
     scale = scale if scale is not None else 1.0 / float(d_in) ** 0.5
-    w = torch.randn((d_in, d_out), generator=gen, dtype=torch.float32)
-    return (w * scale).to(device)
+    return normal(gen, (d_in, d_out), scale, device)
 
 
 def embed_init(gen: torch.Generator, vocab: int, d: int, device=None
                ) -> torch.Tensor:
-    w = torch.randn((vocab, d), generator=gen, dtype=torch.float32)
-    return (w * 0.02).to(device)
+    return normal(gen, (vocab, d), 0.02, device)
+
+
+def make_generator(seed: int, device=None) -> torch.Generator:
+    """A seeded generator on ``device`` (the CPU by default)."""
+    dev = torch.device(device) if device is not None else torch.device("cpu")
+    return torch.Generator(device=dev).manual_seed(seed)

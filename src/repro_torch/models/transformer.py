@@ -1,9 +1,19 @@
-"""The dense transformer (port of the dense family of
-``repro.models.transformer``): parameter init, forward, and the dense and
-paged KV caches.  Layers run as a Python loop over a list of per-layer
-parameter dicts (the JAX package scans stacked ``(L, ...)`` leaves; see
+"""The unified model stack (port of ``repro.models.transformer``): parameter
+init, forward and caches of every family.
+
+  dense   — GQA or MLA attention + SwiGLU MLP (llama/mistral/chatglm/minicpm3)
+  moe     — attention + (shared + routed experts) FFN  (deepseek-v2/-lite)
+  ssm     — Mamba2 SSD mixer only                      (mamba2-130m)
+  hybrid  — Mamba2 layers + ONE shared attention block invoked every
+            ``hybrid_attn_every`` layers with per-invocation LoRA (zamba2)
+  vlm     — dense backbone; precomputed patch embeddings prepended (llava)
+  audio   — encoder-only bidirectional; frame embeddings in, frame-level
+            cluster logits out (hubert)
+
+Layers run as a Python loop over lists of per-layer parameter dicts (the
+JAX package scans stacked ``(L, ...)`` leaves; see
 ``repro_torch.weights.params_from_jax``).  Under autograd with
-``cfg.remat`` each layer is rematerialized (the JAX package's
+``cfg.remat`` each dense-family layer is rematerialized (the JAX package's
 ``jax.checkpoint``): its forward runs again in the backward."""
 from __future__ import annotations
 
@@ -19,9 +29,13 @@ from repro_torch.core import auto as auto_lib
 from repro_torch.core import dispatch as dispatch_lib
 from repro_torch.core.policy import PrecisionPolicy
 from repro_torch.models import attention as attn_lib
-from repro_torch.models.attention import AttnDims, KVCache
+from repro_torch.models import mla as mla_lib
+from repro_torch.models import moe as moe_lib
+from repro_torch.models import ssm as ssm_lib
+from repro_torch.models.attention import AttnDims
 from repro_torch.models.layers import (dense_init, embed, embed_init,
-                                       rms_norm, swiglu_mlp, unembed)
+                                       make_generator, rms_norm, swiglu_mlp,
+                                       unembed)
 from repro_torch.serve.kv_cache import PagedKVCache
 
 
@@ -32,51 +46,107 @@ def _attn_dims(cfg: ModelConfig) -> AttnDims:
         rope_fraction=cfg.rope_fraction, causal=not cfg.encoder_only)
 
 
-def _check_dense(cfg: ModelConfig) -> None:
-    if cfg.family != "dense" or cfg.mla is not None:
-        raise NotImplementedError(
-            f"the port runs the dense GQA family only so far (family="
-            f"{cfg.family!r}); see ROADMAP.md 'Other families'")
+def _init_attn(gen: torch.Generator, cfg: ModelConfig, device) -> dict:
+    if cfg.mla is not None:
+        return {"mla": mla_lib.init_mla_params(gen, cfg.mla, device)}
+    return {"attn": attn_lib.init_attn_params(gen, _attn_dims(cfg), device)}
+
+
+def _init_dense_layer(gen: torch.Generator, cfg: ModelConfig, ff: int,
+                      device) -> dict:
+    d = cfg.d_model
+    return {
+        **_init_attn(gen, cfg, device),
+        "mlp": {"w_gate": dense_init(gen, d, ff, device=device),
+                "w_up": dense_init(gen, d, ff, device=device),
+                "w_down": dense_init(gen, ff, d, device=device)},
+        "ln1": {"w": torch.ones(d, device=device)},
+        "ln2": {"w": torch.ones(d, device=device)},
+    }
+
+
+def _init_moe_layer(gen: torch.Generator, cfg: ModelConfig, device) -> dict:
+    d = cfg.d_model
+    return {**_init_attn(gen, cfg, device),
+            "moe": moe_lib.init_moe_params(gen, cfg.moe, device),
+            "ln1": {"w": torch.ones(d, device=device)},
+            "ln2": {"w": torch.ones(d, device=device)}}
+
+
+def _init_ssm_layer(gen: torch.Generator, cfg: ModelConfig, device) -> dict:
+    return {"ssm": ssm_lib.init_ssm_params(gen, cfg.ssm, device),
+            "ln1": {"w": torch.ones(cfg.d_model, device=device)}}
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
-    """Random parameters from a seeded ``torch.Generator`` (the JAX
-    package's init scales; not its numbers — use ``params_from_jax`` to run
-    the same weights in both packages)."""
-    _check_dense(cfg)
-    gen = torch.Generator().manual_seed(seed)
-    d, ff = cfg.d_model, cfg.d_ff
-    params: Dict[str, object] = {
-        "embed": {"table": embed_init(gen, cfg.padded_vocab, d, device)}}
-    layers = []
-    for _ in range(cfg.n_layers):
-        layers.append({
-            "attn": attn_lib.init_attn_params(gen, _attn_dims(cfg), device),
-            "mlp": {"w_gate": dense_init(gen, d, ff, device=device),
-                    "w_up": dense_init(gen, d, ff, device=device),
-                    "w_down": dense_init(gen, ff, d, device=device)},
-            "ln1": {"w": torch.ones(d, device=device)},
-            "ln2": {"w": torch.ones(d, device=device)},
-        })
-    params["layers"] = layers
+    """Random parameters from a ``torch.Generator`` seeded with ``seed`` on
+    ``device`` (the JAX package's init scales; not its numbers — use
+    ``params_from_jax`` to run the same weights in both packages).  Layers
+    are lists of per-layer dicts: ``layers`` (and the MoE family's
+    ``dense_layers``); the hybrid's are its L Mamba2 layers in order, with
+    ONE ``shared_block`` and a ``shared_lora`` per group."""
+    gen = make_generator(seed, device)
+    d, L = cfg.d_model, cfg.n_layers
+    params: Dict[str, object] = {}
+    if cfg.family != "audio":
+        params["embed"] = {"table": embed_init(gen, cfg.padded_vocab, d,
+                                               device)}
+    if cfg.family in ("dense", "vlm", "audio"):
+        params["layers"] = [_init_dense_layer(gen, cfg, cfg.d_ff, device)
+                            for _ in range(L)]
+    elif cfg.family == "moe":
+        if cfg.first_k_dense:
+            params["dense_layers"] = [
+                _init_dense_layer(gen, cfg, cfg.dense_ff or cfg.d_ff, device)
+                for _ in range(cfg.first_k_dense)]
+        params["layers"] = [_init_moe_layer(gen, cfg, device)
+                            for _ in range(L - cfg.first_k_dense)]
+    elif cfg.family == "ssm":
+        params["layers"] = [_init_ssm_layer(gen, cfg, device)
+                            for _ in range(L)]
+    elif cfg.family == "hybrid":
+        params["layers"] = [_init_ssm_layer(gen, cfg, device)
+                            for _ in range(L)]
+        params["shared_block"] = _init_dense_layer(gen, cfg, cfg.d_ff, device)
+        if cfg.hybrid_lora_rank:
+            r, dq = cfg.hybrid_lora_rank, cfg.n_heads * cfg.resolved_head_dim
+
+            def pair(d_out):
+                return {"a": dense_init(gen, d, r, scale=0.01, device=device),
+                        "b": torch.zeros((r, d_out), device=device)}
+
+            n_groups = L // cfg.hybrid_attn_every
+            params["shared_lora"] = [{"q": pair(dq), "o": pair(d)}
+                                     for _ in range(n_groups)]
+    else:
+        raise ValueError(cfg.family)
     params["ln_final"] = {"w": torch.ones(d, device=device)}
-    params["lm_head"] = {"w": dense_init(gen, d, cfg.padded_vocab,
-                                         device=device)}
+    head = "ctc_head" if cfg.family == "audio" else "lm_head"
+    params[head] = {"w": dense_init(gen, d, cfg.padded_vocab, device=device)}
     return params
 
 
 @dataclasses.dataclass
 class ModelCache:
-    """Per-layer KV caches: dense :class:`KVCache` objects, or per-layer
-    :class:`PagedKVCache` views of one paged pool (see
-    :func:`paged_cache`)."""
-    attn: List
+    """Per-layer caches of each family; fields a family does not use are
+    None.  ``attn``: dense :class:`KVCache`, :class:`MLACache` or per-layer
+    :class:`PagedKVCache` views of one paged pool (see :func:`paged_cache`);
+    ``dense_attn``: the MoE family's first-k dense layers; ``ssm``: one
+    :class:`SSMCache` per Mamba2 layer; ``shared_attn``: the hybrid's
+    :class:`KVCache` per group of its shared block."""
+    attn: Optional[List] = None
+    dense_attn: Optional[List] = None
+    ssm: Optional[List] = None
+    shared_attn: Optional[List] = None
 
     @property
     def length(self):
         """The valid prefix: an int (dense), or the per-slot (B,) lengths
         (paged)."""
-        return self.attn[0].length
+        for c in (self.attn, self.ssm, self.shared_attn, self.dense_attn):
+            if c:
+                return c[0].length
+        raise ValueError("empty cache")
 
 
 def paged_cache(pool_k: torch.Tensor, pool_v: torch.Tensor,
@@ -93,25 +163,85 @@ def paged_cache(pool_k: torch.Tensor, pool_v: torch.Tensor,
 
 def make_cache(cfg: ModelConfig, batch: int, max_seq: int,
                dtype=torch.bfloat16, device=None) -> ModelCache:
-    _check_dense(cfg)
-    dims = _attn_dims(cfg)
-    return ModelCache([attn_lib.make_kv_cache(batch, max_seq, dims, dtype,
-                                              device)
-                       for _ in range(cfg.n_layers)])
+    if cfg.encoder_only:
+        raise ValueError("encoder-only archs have no decode cache")
+
+    def attn_caches(n):
+        if cfg.mla is not None:
+            return [mla_lib.make_mla_cache(batch, max_seq, cfg.mla, dtype,
+                                           device) for _ in range(n)]
+        return [attn_lib.make_kv_cache(batch, max_seq, _attn_dims(cfg),
+                                       dtype, device) for _ in range(n)]
+
+    def ssm_caches(n):
+        return [ssm_lib.make_ssm_cache(batch, cfg.ssm, torch.float32, device)
+                for _ in range(n)]
+
+    if cfg.family in ("dense", "vlm"):
+        return ModelCache(attn=attn_caches(cfg.n_layers))
+    if cfg.family == "moe":
+        return ModelCache(
+            attn=attn_caches(cfg.n_layers - cfg.first_k_dense),
+            dense_attn=(attn_caches(cfg.first_k_dense)
+                        if cfg.first_k_dense else None))
+    if cfg.family == "ssm":
+        return ModelCache(ssm=ssm_caches(cfg.n_layers))
+    if cfg.family == "hybrid":
+        n_groups = cfg.n_layers // cfg.hybrid_attn_every
+        mk = lambda: attn_lib.make_kv_cache(batch, max_seq, _attn_dims(cfg),
+                                            dtype, device)
+        return ModelCache(ssm=ssm_caches(cfg.n_layers),
+                          shared_attn=[mk() for _ in range(n_groups)])
+    raise ValueError(cfg.family)
+
+
+def _attn_block(lp: dict, h: torch.Tensor, cfg: ModelConfig,
+                policy: PrecisionPolicy, positions: torch.Tensor, cache,
+                lora: Optional[dict] = None):
+    if cfg.mla is not None:
+        return mla_lib.mla_forward(
+            lp["mla"], h, cfg.mla, policy, positions=positions, cache=cache,
+            q_chunk=cfg.attn_q_chunk, kv_chunk=cfg.attn_kv_chunk)
+    p = lp["attn"]
+    if lora is not None:  # zamba2's per-invocation LoRA on shared weights
+        p = dict(p)
+        p["wq"] = p["wq"] + lora["q"]["a"] @ lora["q"]["b"]
+        p["wo"] = p["wo"] + lora["o"]["a"] @ lora["o"]["b"]
+    return attn_lib.gqa_forward(
+        p, h, _attn_dims(cfg), policy, positions=positions, cache=cache,
+        q_chunk=cfg.attn_q_chunk, kv_chunk=cfg.attn_kv_chunk)
 
 
 def _dense_layer_fwd(lp: dict, h: torch.Tensor, cfg: ModelConfig,
                      policy: PrecisionPolicy, positions: torch.Tensor,
-                     cache: Optional[KVCache]):
+                     cache):
     a_in = rms_norm(h, lp["ln1"]["w"], cfg.norm_eps)
-    a_out, new_cache = attn_lib.gqa_forward(
-        lp["attn"], a_in, _attn_dims(cfg), policy, positions=positions,
-        cache=cache, q_chunk=cfg.attn_q_chunk, kv_chunk=cfg.attn_kv_chunk)
+    a_out, new_cache = _attn_block(lp, a_in, cfg, policy, positions, cache)
     h = h + a_out
     m_in = rms_norm(h, lp["ln2"]["w"], cfg.norm_eps)
     m = lp["mlp"]
     h = h + swiglu_mlp(m_in, m["w_gate"], m["w_up"], m["w_down"], policy)
     return h, new_cache
+
+
+def _moe_layer_fwd(lp: dict, h: torch.Tensor, cfg: ModelConfig,
+                   policy: PrecisionPolicy, positions: torch.Tensor, cache,
+                   mesh):
+    a_in = rms_norm(h, lp["ln1"]["w"], cfg.norm_eps)
+    a_out, new_cache = _attn_block(lp, a_in, cfg, policy, positions, cache)
+    h = h + a_out
+    m_in = rms_norm(h, lp["ln2"]["w"], cfg.norm_eps)
+    moe_out, aux = moe_lib.moe_forward(lp["moe"], m_in, cfg.moe, policy,
+                                       mesh=mesh)
+    return h + moe_out, new_cache, aux
+
+
+def _ssm_layer_fwd(lp: dict, h: torch.Tensor, cfg: ModelConfig,
+                   policy: PrecisionPolicy, cache):
+    s_in = rms_norm(h, lp["ln1"]["w"], cfg.norm_eps)
+    s_out, new_cache = ssm_lib.ssm_forward(lp["ssm"], s_in, cfg.ssm, policy,
+                                           cache=cache)
+    return h + s_out, new_cache
 
 
 def _remat_layer(lp: dict, h: torch.Tensor, cfg: ModelConfig,
@@ -144,31 +274,108 @@ def _needs_grad(h: torch.Tensor, lp: dict) -> bool:
         w.requires_grad for group in lp.values() for w in group.values()))
 
 
+def _dense_stack(layers: List[dict], h: torch.Tensor, cfg: ModelConfig,
+                 policy: PrecisionPolicy, positions: torch.Tensor,
+                 caches: Optional[List]):
+    new_caches = []
+    for i, lp in enumerate(layers):
+        if cfg.remat and caches is None and _needs_grad(h, lp):
+            h = _remat_layer(lp, h, cfg, policy, positions)
+            continue
+        lc = caches[i] if caches is not None else None
+        h, nc = _dense_layer_fwd(lp, h, cfg, policy, positions, lc)
+        new_caches.append(nc)
+    return h, new_caches
+
+
 def forward(params: dict, inputs: Dict[str, torch.Tensor], cfg: ModelConfig,
             policy: PrecisionPolicy, *, cache: Optional[ModelCache] = None,
             mesh=None) -> Tuple[torch.Tensor, Optional[ModelCache]]:
     """Returns (logits (B, S, vocab), updated cache or None).
-    ``inputs``: {"tokens": (B, S) int}.  ``mesh`` is the JAX forward's
-    expert-parallel mesh, which only the MoE family reads; the dense family
-    takes and ignores it."""
-    _check_dense(cfg)
-    h = embed(inputs["tokens"], params["embed"]["table"])
+
+    ``inputs``: {"tokens": (B, S) int} and/or {"embeds": (B, S, D)} (audio),
+    and optionally {"patch_embeds": (B, P, D)} (vlm), prepended to the
+    token embeddings.  ``mesh`` is the MoE family's expert-parallel mesh
+    (not ported: an MoE forward given one raises); the other families take
+    and ignore it.  The MoE layers' aux losses are not returned (the
+    serving path does not read them)."""
+    if "tokens" in inputs:
+        h = embed(inputs["tokens"], params["embed"]["table"])
+        if "patch_embeds" in inputs and cfg.family == "vlm":
+            h = torch.cat([inputs["patch_embeds"].to(h.dtype), h], dim=1)
+    else:
+        h = inputs["embeds"]
     B, S, _ = h.shape
     base = cache.length if cache is not None else 0
     if torch.is_tensor(base) and base.ndim:  # paged: per-slot (B,) lengths
         base = base[:, None]
     positions = (base + torch.arange(S, device=h.device)[None, :]).expand(
         B, S)
-    new_caches = []
-    for i, lp in enumerate(params["layers"]):
-        if cfg.remat and cache is None and _needs_grad(h, lp):
-            h = _remat_layer(lp, h, cfg, policy, positions)
-            continue
-        lc = cache.attn[i] if cache is not None else None
-        h, nc = _dense_layer_fwd(lp, h, cfg, policy, positions, lc)
-        new_caches.append(nc)
+    has_cache = cache is not None
+    new_cache = None
+    if cfg.family in ("dense", "vlm", "audio"):
+        h, nc = _dense_stack(params["layers"], h, cfg, policy, positions,
+                             cache.attn if has_cache else None)
+        new_cache = ModelCache(nc) if has_cache else None
+    elif cfg.family == "moe":
+        nc_dense = None
+        if cfg.first_k_dense:
+            h, nc_dense = _dense_stack(
+                params["dense_layers"], h, cfg, policy, positions,
+                cache.dense_attn if has_cache else None)
+        nc = []
+        for i, lp in enumerate(params["layers"]):
+            lc = cache.attn[i] if has_cache else None
+            h, c, _ = _moe_layer_fwd(lp, h, cfg, policy, positions, lc, mesh)
+            nc.append(c)
+        if has_cache:
+            new_cache = ModelCache(attn=nc, dense_attn=nc_dense)
+    elif cfg.family == "ssm":
+        nc = []
+        for i, lp in enumerate(params["layers"]):
+            h, c = _ssm_layer_fwd(lp, h, cfg, policy,
+                                  cache.ssm[i] if has_cache else None)
+            nc.append(c)
+        if has_cache:
+            new_cache = ModelCache(ssm=nc)
+    elif cfg.family == "hybrid":
+        h, new_cache = _hybrid_forward(params, h, cfg, policy, positions,
+                                       cache)
+    else:
+        raise ValueError(cfg.family)
     h = rms_norm(h, params["ln_final"]["w"], cfg.norm_eps)
-    logits = unembed(h, params["lm_head"]["w"], policy)
+    head = params["ctc_head"] if cfg.family == "audio" else params["lm_head"]
+    logits = unembed(h, head["w"], policy)
     if cfg.padded_vocab != cfg.vocab:
         logits = logits[..., :cfg.vocab]
-    return logits, (ModelCache(new_caches) if cache is not None else None)
+    return logits, new_cache
+
+
+def _hybrid_forward(params: dict, h: torch.Tensor, cfg: ModelConfig,
+                    policy: PrecisionPolicy, positions: torch.Tensor,
+                    cache: Optional[ModelCache]):
+    """zamba2: per group, the ONE shared attention + MLP block (with this
+    group's LoRA on wq / wo) then ``hybrid_attn_every`` Mamba2 layers."""
+    shared = params["shared_block"]
+    loras = params.get("shared_lora")
+    every = cfg.hybrid_attn_every
+    has_cache = cache is not None
+    new_ssm, new_attn = [], []
+    for g in range(cfg.n_layers // every):
+        a_in = rms_norm(h, shared["ln1"]["w"], cfg.norm_eps)
+        a_out, nac = _attn_block(
+            shared, a_in, cfg, policy, positions,
+            cache.shared_attn[g] if has_cache else None,
+            lora=loras[g] if loras is not None else None)
+        h = h + a_out
+        m_in = rms_norm(h, shared["ln2"]["w"], cfg.norm_eps)
+        m = shared["mlp"]
+        h = h + swiglu_mlp(m_in, m["w_gate"], m["w_up"], m["w_down"], policy)
+        new_attn.append(nac)
+        for i in range(g * every, (g + 1) * every):
+            h, nc = _ssm_layer_fwd(params["layers"][i], h, cfg, policy,
+                                   cache.ssm[i] if has_cache else None)
+            new_ssm.append(nc)
+    if has_cache:
+        return h, ModelCache(ssm=new_ssm, shared_attn=new_attn)
+    return h, None

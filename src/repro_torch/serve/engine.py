@@ -1,11 +1,13 @@
 """Serving engine (port of ``repro.serve.engine``): the static-batch
-``generate`` path and the paged prefill / decode steps the continuous
-scheduler (``serve/scheduler.py``) drives.
+``generate`` path of every decoder family and the paged prefill / decode
+steps the continuous scheduler (``serve/scheduler.py``) drives for the
+dense GQA family.
 
 ``generate`` left-pads a batch of prompts to one length (with token 0; causal
-attention attends to those pads, as in the JAX package), prefills a dense
-KV cache in one forward over the padded batch, then runs ``max_new`` greedy
-decode steps, one token per slot each.  Precision follows the engine's
+attention attends to those pads, as in the JAX package), prefills the
+family's cache (dense KV, MLA latent, Mamba2 state, or the hybrid's both) in
+one forward over the padded batch, then runs ``max_new`` greedy decode
+steps, one token per slot each.  Precision follows the engine's
 ``PrecisionPolicy`` (``serve_default`` unless given), hot-swappable with
 :meth:`ServeEngine.set_policy`.  Kernels run on the device the engine was
 built for: ``cuda`` unless the caller passes ``device="cpu"``, where every
@@ -13,10 +15,12 @@ kernel wrapper runs its plain PyTorch version.
 
 Weight pre-limbing (on by default, as in the JAX package): decode is
 matmul-bound at tiny M (one token per slot), so the engine decomposes the
-dense-path weights ONCE per (policy limb count, params) with the decompose
-kernel (``kernels/ops.decompose_weights``, one launch per matrix) and runs
-decode steps against :class:`~repro_torch.core.limbs.PrelimbedWeight`
-operands, which dispatch routes to the pre-limbed matmul kernel.  Prefill
+dense-path weights (the ``attn`` and ``mlp`` leaves of ``layers`` and
+``dense_layers``, and the head) ONCE per (policy limb count, params) with
+the decompose kernel (``kernels/ops.decompose_weights``, one launch per
+matrix) and runs decode steps against
+:class:`~repro_torch.core.limbs.PrelimbedWeight` operands, which dispatch
+routes to the pre-limbed matmul kernel.  Prefill
 keeps the raw weights (the fused projection kernels limb a whole group's
 operand once).  AUTO policies skip pre-limbing.
 
@@ -42,11 +46,14 @@ from repro_torch.core.limbs import PrelimbedWeight
 from repro_torch.core.policy import PrecisionPolicy
 from repro_torch.models import transformer as T
 
-# op classes whose weights sit on the decode dense path (the pre-limb set)
+# op classes whose weights sit on the decode dense path (the pre-limb set);
+# MoE experts and MLA stay raw: their weights reshape or absorb before they
+# contract
 _PRELIMB_CLASSES = ("qkv", "attn_out", "ffn", "lm_head")
 
 # params groups -> weight leaves that feed mp_dense 1:1 (safe to carry as
-# limb stacks)
+# limb stacks; anything reshaped, LoRA-patched or einsum'd — MLA, MoE, SSM,
+# the hybrid's shared block — is deliberately absent, as in the JAX package)
 _PRELIMB_LEAVES = {"mlp": ("w_gate", "w_up", "w_down"),
                    "attn": ("wq", "wk", "wv", "wo")}
 
@@ -66,8 +73,10 @@ def _policy_prelimb_limbs(policy: PrecisionPolicy) -> Optional[int]:
 def prelimb_dense_params(params: dict, n_limbs: int) -> dict:
     """Decompose the dense-path weight matrices of a params tree into
     :class:`PrelimbedWeight` limb stacks (one-time, per policy limb count):
-    one decompose launch per matrix, 7 per layer plus ``lm_head``.  Other
-    leaves pass through untouched (shared, not copied)."""
+    one decompose launch per matrix — the ``mlp`` and ``attn`` weights of
+    every layer of ``layers`` and ``dense_layers``, and ``lm_head`` or
+    ``ctc_head``.  Other leaves pass through untouched (shared, not
+    copied)."""
     from repro_torch.kernels import ops
 
     def leaf(w):
@@ -82,9 +91,12 @@ def prelimb_dense_params(params: dict, n_limbs: int) -> dict:
         return out
 
     out = dict(params)
-    out["layers"] = [layer(lp) for lp in params["layers"]]
-    if isinstance(out.get("lm_head"), dict) and "w" in out["lm_head"]:
-        out["lm_head"] = {**out["lm_head"], "w": leaf(out["lm_head"]["w"])}
+    for stack in ("layers", "dense_layers"):
+        if isinstance(out.get(stack), list):
+            out[stack] = [layer(lp) for lp in out[stack]]
+    for head in ("lm_head", "ctc_head"):
+        if isinstance(out.get(head), dict) and "w" in out[head]:
+            out[head] = {**out[head], "w": leaf(out[head]["w"])}
     return out
 
 

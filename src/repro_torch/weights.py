@@ -1,9 +1,10 @@
 """Parameters and optimizer state from the JAX package, so both packages
 compute the same thing.
 
-``params_from_jax`` takes the JAX ``init_params`` tree with its leaves
-converted to numpy (``jax.tree_util.tree_map(np.asarray, params)``) — the
-stacked ``(L, ...)`` layer leaves become the port's list of per-layer dicts.
+``params_from_jax`` takes the JAX ``init_params`` tree of any family with
+its leaves converted to numpy (``jax.tree_util.tree_map(np.asarray,
+params)``) — the stacked ``(L, ...)`` layer leaves become the port's lists
+of per-layer dicts.
 A gradient tree has the params' structure and maps the same way;
 ``adamw_state_from_jax`` carries an AdamW state (step, m, v) across with
 that mapping.  No jax is imported here: the caller converts.
@@ -24,23 +25,48 @@ def _tensor(x, device) -> torch.Tensor:
     return torch.as_tensor(np.array(x, copy=True), device=device)
 
 
+def _map(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _map(v, fn) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _first_leaf(tree):
+    while isinstance(tree, dict):
+        tree = next(iter(tree.values()))
+    return np.asarray(tree)
+
+
+def _unstack(tree: dict, device, lead: int = 1) -> list:
+    """A tree of stacked leaves -> the list of its per-layer trees; the
+    ``lead`` leading dims (the hybrid's (G, every)) flatten into one."""
+    def flat(x):
+        x = np.asarray(x)
+        return x.reshape((-1,) + x.shape[lead:])
+
+    n = flat(_first_leaf(tree)).shape[0]
+    return [_map(tree, lambda x, i=i: _tensor(flat(x)[i], device))
+            for i in range(n)]
+
+
 def params_from_jax(tree: dict, device="cpu") -> dict:
-    """JAX dense-family params (numpy leaves) -> the port's params; also
-    any tree of that structure (gradients, AdamW moments)."""
-    layers_np = tree["layers"]
-    n_layers = np.asarray(layers_np["ln1"]["w"]).shape[0]
-
-    def layer(i):
-        return {group: {name: _tensor(np.asarray(leaf)[i], device)
-                        for name, leaf in leaves.items()}
-                for group, leaves in layers_np.items()}
-
-    return {
-        "embed": {"table": _tensor(tree["embed"]["table"], device)},
-        "layers": [layer(i) for i in range(n_layers)],
-        "ln_final": {"w": _tensor(tree["ln_final"]["w"], device)},
-        "lm_head": {"w": _tensor(tree["lm_head"]["w"], device)},
-    }
+    """JAX params of any family (numpy leaves) -> the port's params; also
+    any tree of that structure (gradients, AdamW moments).  Stacked layer
+    groups become lists of per-layer dicts: ``layers`` and ``dense_layers``
+    (L, ...), the hybrid's ``layers`` (G, every, ...) flattened to its L
+    Mamba2 layers in order and its ``shared_lora`` (G, ...) to one dict per
+    group; every other leaf (embed, ``shared_block``, the norms, the
+    ``lm_head`` or audio's ``ctc_head``) is carried as it is."""
+    hybrid = "shared_block" in tree
+    out = {}
+    for key, sub in tree.items():
+        if key == "layers":
+            out[key] = _unstack(sub, device, lead=2 if hybrid else 1)
+        elif key in ("dense_layers", "shared_lora"):
+            out[key] = _unstack(sub, device)
+        else:
+            out[key] = _map(sub, lambda x: _tensor(x, device))
+    return out
 
 
 def adamw_state_from_jax(step, m: dict, v: dict, device="cpu") -> AdamWState:

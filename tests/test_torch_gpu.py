@@ -250,10 +250,11 @@ def test_flash_heads_are_invariant(cuda, custom_format, shape, fmts):
 
 
 @pytest.mark.parametrize("fmts", [("M16", "M8"), ("M23", "M23")])
-@pytest.mark.parametrize("dh", [16, 24, 32, 64, 100, 128])
+@pytest.mark.parametrize("dh", [16, 24, 32, 64, 80, 96, 100, 128, 160, 192])
 def test_flash_head_dims(cuda, dh, fmts):
-    """Head dims 16..128 (Dh off 16, 32, 64, 128 among them: the dims past
-    Dh are zero), against the plain version and invariant as above."""
+    """Head dims 16..192 (Dh off 16, 32, 64, 128, 192 among them: the dims
+    past Dh are zero; 80 and 96 are zamba2's / hubert's and minicpm3's, 192
+    MLA's 128 + 64), against the plain version and invariant as above."""
     qk, pv = fmts
     q, k, v = _flash_inputs(cuda, 2, 45, 45, 2, dh, seed=90)
     out = mp_attention.mp_flash_attention(q, k, v, qk, pv)
@@ -296,6 +297,82 @@ def test_flash_block_q_rule(cuda):
             want, True), (B, S, H)
     assert mp_attention.flash_block_q(1, 70, 2, 64, "M36", "M52")[1] is False
     assert mp_attention.flash_block_q(1, 70, 2, 128, "M16", "M8")[1] is False
+    # MLA's head dim: the generic instantiation, 64 rows at the prefill grid
+    assert mp_attention.flash_block_q(8, 256, 16, 192, "M16", "M8") == (
+        64, False)
+
+
+def test_flash_mla_prefill_shape(cuda):
+    """deepseek-v2-lite's prefill attention (V padded to the QK head dim
+    192) at 4 of its 16 heads: within 2e-5 of the plain version, every head
+    bitwise the head launched alone."""
+    q, k, v = _flash_inputs(cuda, 2, 256, 256, 4, 192, seed=97)
+    v[..., 128:] = 0.0
+    out = mp_attention.mp_flash_attention(q, k, v, "M16", "M8")
+    ref = mp_attention.flash_attention_plain(q, k, v, resolve("M16"),
+                                             resolve("M8"), scale=192 ** -0.5)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ref, rtol=2e-5, atol=2e-5)
+    assert torch.equal(out[..., 128:], torch.zeros_like(out[..., 128:]))
+    _assert_flash_invariant(out, q, k, v, "M16", "M8", True, 0)
+
+
+@pytest.mark.parametrize("mode", ["M8", "M16", "M23"])
+def test_batched_expert_launch_is_the_per_expert_loop(cuda, mode):
+    """The MoE experts' contraction: (T, D) tokens broadcast against the
+    stacked (E, D, F) weights in ONE launch, each expert's slice bitwise
+    its lone launch, at a prefill and a decode token count."""
+    w = _randn(cuda, 8, 256, 176, seed=98)
+    for T in (300, 8):
+        x = _randn(cuda, T, 256, seed=99)
+        before = mp_matmul.mp_fused_matmul.launches
+        out = mp_matmul.mp_fused_matmul(x, w, mode)
+        assert mp_matmul.mp_fused_matmul.launches == before + 1
+        for e in range(w.shape[0]):
+            one = mp_matmul.mp_fused_matmul(x, w[e], mode)
+            torch.cuda.synchronize()
+            assert torch.equal(out[e].view(torch.int32),
+                               one.view(torch.int32)), (T, e)
+
+
+# the cuda route's distance from the ref backend on one full-width MLA
+# layer, in the norm: set from the card's readings, between the sound run
+# (9.08e-4 on an H100) and the same layer with its QK one format lower, M8
+# where M16 is asked (3.10e-3)
+MLA_LAYER_TOL = 1.5e-3
+
+
+def test_full_width_mla_layer_prefill_matches_ref(cuda):
+    """One deepseek-v2-lite MLA attention layer at full width (d_model
+    2048, 16 heads, kv_lora 512, qk 128 + 64, v 128) over 2 x 128 tokens
+    under serve_default: the cuda route (fused projections, flash at Dh
+    192) within MLA_LAYER_TOL of the ref backend in the norm, and the same
+    layer with ``attn_logits`` at M8 past it (the control)."""
+    import repro_torch.mp as mp
+    from repro_torch.configs import deepseek_v2_lite_16b
+    from repro_torch.core.policy import PrecisionPolicy
+    from repro_torch.models import mla
+
+    dims = deepseek_v2_lite_16b.CONFIG.mla
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    params = mla.init_mla_params(gen, dims, cuda)
+    x = _randn(cuda, 2, 128, dims.d_model, seed=100)
+    pol = PrecisionPolicy.serve_default()
+    kernels.reset_launch_counts()
+    with torch.no_grad():
+        out, _ = mla.mla_forward(params, x, dims, pol)
+        assert kernels.launch_counts()["mp_flash_attention"] == 1
+        assert not any(kernels.plain_call_counts().values())
+        low, _ = mla.mla_forward(params, x, dims,
+                                 pol.overlay({"attn_logits": "M8"}))
+        with mp.context(backend="ref"):
+            ref, _ = mla.mla_forward(params, x, dims, pol)
+    torch.cuda.synchronize()
+    rel = ((out - ref).norm() / ref.norm()).item()
+    ctl = ((low - ref).norm() / ref.norm()).item()
+    print(f"MLA layer vs ref: {rel:.4e}; QK at M8: {ctl:.4e}")
+    assert torch.isfinite(out).all() and rel <= MLA_LAYER_TOL < ctl, \
+        (rel, ctl)
 
 
 def test_smoke_engine_on_the_card_matches_the_cpu(cuda):
