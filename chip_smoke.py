@@ -132,7 +132,9 @@ line is not printed):
    backend, [train]'s checkpoint restored onto the ranks' mesh (each
    shard bitwise its slice); ``hierarchical_psum`` on four ranks; the
    serve launcher under ``torchrun``; a one-rank NCCL group (sharded ==
-   cuda engine bitwise);
+   cuda engine bitwise); which collectives gloo runs on CUDA tensors
+   (``all_to_all`` included), against the set ``dist/collectives.py``
+   stages;
 4l. ``[arch]`` (before ``[dist]``): every other family's serving path at
    full width, random weights from seed 0, ``serve_default``, pre-limbed
    decode weights: deepseek-v2-lite-16b at depth 6 (1 dense + 5 MoE
@@ -147,9 +149,32 @@ line is not printed):
    held against its plain version at its shapes, the batched expert
    launch bitwise the per-expert launches, TF32 off; beside each logits
    reading a control at M8 for serve_default's two M16 classes; tokens/s,
-   prefill ms, decode ms/step, busy and idle share, peak memory.  A
-   failed gate of 4g-4l is logged and the phases go on;
-   the run fails after them;
+   prefill ms, decode ms/step, busy and idle share, peak memory;
+4m. ``[train-arch]`` (after ``[arch]``): every family's training at full
+   width under ``train_default``: deepseek-v2-lite-16b at depth 3 (1 dense
+   + 2 MoE layers) through ``Trainer.run`` (3 steps of 4 x 256, AdamW,
+   remat, a checkpoint restoring bitwise): launches per step exactly
+   ``arch_train_launches``, step 1's loss, ``moe_aux``, ``moe_zloss`` and
+   every gradient leaf against the ``ref`` backend at ``[train]``'s bounds
+   with the router's top-k on both counted, every launch shape held
+   against its plain version, remat on == off and one step twice bitwise;
+   the new launch shapes (batched experts' forward, dgrad, 3-D wgrad;
+   flash at Dh 192) timed; step ms, busy, idle share, peak memory; then
+   one value-and-grad each of mamba2-130m (full depth), zamba2-2.7b (depth
+   12), minicpm3-4b, llava-next-34b (576 stub patches) and hubert-xlarge
+   (stub frames) at depth 2 against ``ref``, launches of the formula,
+   launch shapes held;
+4n. ``[ep]`` (after ``[dist]``): the expert-parallel MoE on four ranks,
+   (data 2, model 2) (gloo sharing the card; NCCL with a card each),
+   deepseek-v2-lite-16b at depth 2: a value-and-grad (ranks equal; within
+   ``[train]``'s bounds of the one-rank all-experts path at a capacity
+   factor that drops nothing; ``all_to_all`` calls and bytes exactly
+   ``ep_a2a``), the config's capacity factor (finite, dropped share),
+   ``ServeEngine(mesh=...)`` (prefill on the split route, decode on the
+   replicated route, logits within 4·2^-6 of the one-rank engine,
+   launches and exchanges of the formula); one rank over NCCL.  A failed
+   gate of 4g-4n is logged and the phases go on; the run fails after
+   them;
 5. a ``kernels`` JSON line: per kernel its launches on its main path, its
    device time (CUDA events around calls enqueued behind a sleep kernel, so
    the card runs them back to back; the time of calls issued one after the
@@ -279,6 +304,51 @@ def train_launches(n_layers: int, remat: bool = True) -> dict:
     return {"mp_fused_proj": 2 * fwd * n_layers,
             "mp_flash_attention": fwd * n_layers,
             "mp_fused_matmul": n_layers * (2 * fwd + 12) + 2}
+
+
+def arch_train_launches(cfg, B: int, S: int, remat: bool = True) -> dict:
+    """Kernel launches of one train_default value-and-gradient of any
+    family at B x S positions (the VLM's patches included): the forward of
+    :func:`arch_forward_launches`, every layer's again in remat's
+    recompute (the head's once), then the backward: per contraction the
+    activation gradient (dgrad), and the weight gradient too where a
+    kernel takes it — a 2-D activation (the router) or a batched weight
+    (the experts: dgrad (E,T,F)·(E,F,D) and the 3-D wgrad with x^T
+    broadcast as a stride-0 batch); a 3-D activation's weight gradient
+    against a 2-D weight is one plain product (no kernel).  Per attention
+    block: GQA the QKV group's 3 dgrads and wo; MLA the input group's 3,
+    the latent's K / V up-projection 2, ``w_uq`` with a query LoRA, and
+    ``w_o``; flash attention's backward 5 products (the chunk-scan 2 a
+    product).  Per MLP the gate / up dgrads and w_down; per MoE layer the
+    router 2, the three batched expert contractions 2 each, the shared
+    experts' MLP 3; per Mamba2 layer 7; the head's dgrad."""
+    f = arch_forward_launches(cfg, B, S)
+    rep = 2 if remat else 1
+    if cfg.mla is not None:
+        attn = 3 + 2 + (cfg.mla.q_lora > 0) + 1
+    else:
+        attn = 3 + 1
+    if f["mp_flash_attention"]:
+        attn += 5
+    else:
+        attn += 2 * 2 * (_n_chunks(S, cfg.attn_q_chunk)
+                         * _n_chunks(S, cfg.attn_kv_chunk))
+    mlp, ssm = 3, 7
+    L = cfg.n_layers
+    if cfg.family in ("dense", "vlm", "audio"):
+        bwd = L * (attn + mlp)
+    elif cfg.family == "moe":
+        k = cfg.first_k_dense
+        moe = 2 + 3 * 2 + 3 * (cfg.moe.n_shared > 0)
+        bwd = k * (attn + mlp) + (L - k) * (attn + moe)
+    elif cfg.family == "ssm":
+        bwd = L * ssm
+    else:  # hybrid: the shared block once a group, the Mamba2 layers
+        bwd = L // cfg.hybrid_attn_every * (attn + mlp) + L * ssm
+    return {"mp_fused_matmul": rep * (f["mp_fused_matmul"] - 1) + 1 + bwd
+            + 1,
+            "mp_fused_proj": rep * f["mp_fused_proj"],
+            "mp_flash_attention": rep * f["mp_flash_attention"]}
 
 
 # the fleet and chaos paths: paper-mpfp-100m behind the router, the modes in
@@ -1068,7 +1138,7 @@ def plain_held(fail, tag):
                         violations=bad)
         held.append(case)
         fail.check(bad == 0 and bool(torch.isfinite(out).all()),
-                   f"[arch] {tag}: {name} {case['args']} {case['fmt']} "
+                   f"{tag}: {name} {case['args']} {case['fmt']} "
                    f"disagrees with its plain version: {bad} elements past "
                    f"the tolerance, max abs {case['max_abs_err']:.3e}")
 
@@ -1273,7 +1343,7 @@ def arch_phase(fail, dev, smi, counts, main_prompts):
                     ref = fwd()
                 rel = vs_ref(f"{arch} forward", logits, ref)
                 ctl = rel_of(fwd(control), ref)
-                with plain_held(fail, f"{arch} forward") as held:
+                with plain_held(fail, f"[arch] {arch} forward") as held:
                     fwd()
                 del ref
                 ms, _ = timed_ms(fwd)
@@ -1338,11 +1408,11 @@ def arch_phase(fail, dev, smi, counts, main_prompts):
                     toks, ctl_eng.make_cache())[0][:, -1], ref)
                 del ctl_eng, ref
                 with route_log() as routes, \
-                        plain_held(fail, f"{arch} prefill") as held_pre:
+                        plain_held(fail, f"[arch] {arch} prefill") as held_pre:
                     eng.prefill(toks, eng.make_cache())
                 # one decode step of each engine from copies of the same
                 # prefilled cache, on the same tokens
-                with plain_held(fail, f"{arch} decode step") as held_dec:
+                with plain_held(fail, f"[arch] {arch} decode step") as held_dec:
                     step_lg = eng.decode(copy.deepcopy(cache), tok)[0]
                 ref = ref_eng.decode(copy.deepcopy(cache), tok)[0]
                 d_rel = vs_ref(f"{arch} decode step", step_lg[:, -1],
@@ -1429,6 +1499,333 @@ def arch_phase(fail, dev, smi, counts, main_prompts):
                and torch.get_float32_matmul_precision() == "highest",
                "[arch] TF32 on for f32 matmuls")
     return out
+
+
+# ---------------------------------------------------------------------------
+# [train-arch]: every model family's training at full width.  The main
+# case: deepseek-v2-lite-16b (MLA at Dh 192, 64 experts top-6 + 2 shared,
+# vocab 102400) at depth 3 (1 dense + 2 MoE layers; all 27 would hold about
+# 250 GB of params, gradients and moments) through Trainer.run; then one
+# value-and-grad of each other family (depth None: the config's own).
+TRAIN_ARCH = ("deepseek-v2-lite-16b", 3)
+TRAIN_ARCH_BATCH, TRAIN_ARCH_SEQ, TRAIN_ARCH_STEPS = 4, 256, 3
+TRAIN_ARCH_OTHERS = (("mamba2-130m", None), ("zamba2-2.7b", 12),
+                     ("minicpm3-4b", 2), ("llava-next-34b", 2),
+                     ("hubert-xlarge", 2))
+TRAIN_ARCH_SMALL = (2, 128)   # the other families' rows x tokens (frames)
+
+
+def train_arch_phase(fail, dev, smi, counts):
+    """``[train-arch]``: the main case's step 1 (loss, ``moe_aux``,
+    ``moe_zloss`` and every gradient leaf) against the ``ref`` backend at
+    ``[train]``'s bounds, each router on ``ref`` routed to the experts
+    the card's run picked (``RouteLog.pinning``; the tokens whose own
+    top-k differs there counted), with every launch shape held against
+    its plain version (:func:`plain_held`: the batched experts' forward,
+    dgrad and 3-D wgrad, MLA's flash at Dh 192); launches per step exactly
+    :func:`arch_train_launches`; remat on == off and one step twice,
+    bitwise; ``TRAIN_ARCH_STEPS`` ``Trainer.run`` steps and a checkpoint
+    that restores bitwise; step ms, busy, idle share, tokens/s, peak
+    memory.  Then each other family's value-and-grad against ``ref`` with
+    its launches of the formula and its launch shapes held."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch import tree as tree_lib
+    from repro_torch.checkpoint import checkpoint as ckpt_lib
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core import context as context_lib
+    from repro_torch.core.classify import all_finite
+    from repro_torch.core.policy import PrecisionPolicy
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw
+    from repro_torch.train import trainer as trainer_lib
+
+    sync = torch.cuda.synchronize
+    policy = PrecisionPolicy.train_default()
+    zero = dict.fromkeys(kernels.KERNELS, 0)
+    out = {}
+
+    def pipe_of(cfg, batch, seq):
+        return SyntheticLM(DataConfig(
+            vocab=cfg.vocab, seq_len=seq + 1, global_batch=batch,
+            frontend=cfg.frontend, d_model=cfg.d_model,
+            n_patches=cfg.n_patches))
+
+    def positions(cfg, seq):
+        return seq + (cfg.n_patches if cfg.family == "vlm" else 0)
+
+    def bitwise(a, b):
+        return all(torch.equal(x.view(torch.int32), y.view(torch.int32))
+                   for x, y in zip(tree_lib.leaves(a), tree_lib.leaves(b)))
+
+    # ---- the main case ------------------------------------------------------
+    arch, depth = TRAIN_ARCH
+    B, S = TRAIN_ARCH_BATCH, TRAIN_ARCH_SEQ
+    cfg = dataclasses.replace(get_config(arch), n_layers=depth)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    ck_dir = ROOT / "build" / "train_arch_ckpt"
+    shutil.rmtree(ck_dir, ignore_errors=True)
+    tcfg = trainer_lib.TrainerConfig(total_steps=TRAIN_ARCH_STEPS, warmup=2,
+                                     ckpt_dir=str(ck_dir),
+                                     ckpt_every=TRAIN_ARCH_STEPS, keep=1)
+    trainer = trainer_lib.Trainer(cfg, tcfg, policy=policy, device=dev)
+    pipe = pipe_of(cfg, B, S)
+    # the params alone while the gradients are compared; the moments come
+    # with the steps (Trainer.init_state(seed=0)'s numbers)
+    params0 = T.init_params(cfg, seed=0, device=dev)
+    batch0 = trainer.to_device(pipe.batch(0))
+    per_step = {**zero, **arch_train_launches(cfg, B, S)}
+    loss_fn = trainer_lib.make_loss_fn(cfg, policy, tcfg)
+    row = dict(arch=arch, n_layers=depth, params=cfg.param_count(),
+               batch=B, seq=S, launches_per_step=per_step)
+
+    kernels.reset_launch_counts()
+    with plain_held(fail, f"[train-arch] {arch} step") as held:
+        (l_k, x_k), g_k = trainer_lib.value_and_grad(loss_fn, params0,
+                                                     batch0)
+        sync()
+    got = counts()
+    fail.check(got == per_step, f"[train-arch] {arch} value and grad "
+               f"launches {nonzero(got)} != {nonzero(per_step)}")
+    # remat's recompute gives the forward's bits (the aux values too); the
+    # run without remat records its routing for the ref backend's run
+    kernels.reset_launch_counts()
+    off = dataclasses.replace(cfg, remat=False)
+    off_fn = trainer_lib.make_loss_fn(off, policy, tcfg)
+    routes = moe_lib.RouteLog()
+    with routes.recording():
+        (l_n, x_n), g_n = trainer_lib.value_and_grad(off_fn, params0,
+                                                     batch0)
+        sync()
+    want_off = {**zero, **arch_train_launches(off, B, S, remat=False)}
+    got_off = counts()
+    same = (torch.equal(l_n, l_k) and all(torch.equal(x_n[k], x_k[k])
+                                          for k in x_k) and bitwise(g_n, g_k))
+    log(f"[train-arch] remat on == remat off (loss, aux and every "
+        f"gradient): {'bitwise' if same else 'DIFFER'}; launches without "
+        f"remat {nonzero(got_off)}")
+    fail.check(same and got_off == want_off,
+               f"[train-arch] remat off: bits or launches "
+               f"{nonzero(got_off)} != {nonzero(want_off)}")
+    del g_k
+    # step 1 on the ref backend, each router routed to the experts the
+    # card's run picked (a token whose logits' last bits differ can pick
+    # another top-6 there: counted)
+    with routes.pinning(), context_lib.context(backend="ref"):
+        (l_r, x_r), g_r = trainer_lib.value_and_grad(off_fn, params0,
+                                                     batch0)
+        sync()
+    flips = list(routes.flips)
+    loss_rel = abs(l_n.item() - l_r.item()) / abs(l_r.item())
+    aux_rel = {k: abs(x_n[k].item() - x_r[k].item()) / abs(x_r[k].item())
+               for k in ("nll", "moe_aux", "moe_zloss")}
+    leaf = {p: ((a - b).abs().max() / b.abs().max()).item()
+            for (p, a), b in zip(tree_lib.items(g_n), tree_lib.leaves(g_r))}
+    worst = max(leaf, key=leaf.get)
+    worst_held = max(c["worst_err_over_tol"] for c in held)
+    log(f"[train-arch] {arch} depth {depth} ({cfg.param_count():,} params), "
+        f"batch {B} x {S}, step 1 against the ref backend (routed as on the "
+        f"card): loss {l_n.item():.6f} vs {l_r.item():.6f} (rel "
+        f"{loss_rel:.3e}, bound 1e-5), nll / moe_aux / moe_zloss rel "
+        f"{', '.join(f'{v:.3e}' for v in aux_rel.values())} (moe_aux "
+        f"{x_n['moe_aux'].item():.6f}, moe_zloss "
+        f"{x_n['moe_zloss'].item():.6f}); worst gradient leaf {worst} "
+        f"{leaf[worst]:.3e} of its max (bound 5e-4); tokens whose own top-6 "
+        f"on ref differs, per MoE layer: {flips} of {B * S}; "
+        f"{len(held)} launch shapes held against their plain versions "
+        f"(worst err/tol {worst_held:.3f}); launches {nonzero(got)}")
+    fail.check(loss_rel <= 1e-5 and max(aux_rel.values()) <= 1e-5
+               and leaf[worst] < 5e-4,
+               f"[train-arch] {arch} step 1 disagrees with the ref backend")
+    row.update(loss=l_n.item(), loss_ref=l_r.item(), loss_rel=loss_rel,
+               extras_rel=aux_rel, worst_leaf=worst,
+               worst_leaf_err=leaf[worst], router_flips=flips,
+               held=held, moe_aux=x_n["moe_aux"].item(),
+               moe_zloss=x_n["moe_zloss"].item())
+    del g_r, g_n
+    state0 = trainer_lib.TrainState(params0, adamw.init(params0, tcfg.opt))
+    # the first step's state kept on the host while the second runs
+    s1, m1 = trainer._step_fn(state0, batch0)
+    s1 = tree_lib.map_(lambda t: t.cpu(), s1)
+    l1 = m1["loss"].cpu()
+    del m1
+    s2, m2 = trainer._step_fn(state0, batch0)
+    twice = torch.equal(l1, m2["loss"].cpu()) and all(
+        torch.equal(a.view(torch.int32), b.cpu().view(torch.int32))
+        for a, b in zip(tree_lib.leaves(s1), tree_lib.leaves(s2)))
+    log(f"[train-arch] one step twice from one state and batch: "
+        f"{'bitwise' if twice else 'DIFFER'}")
+    fail.check(twice, "[train-arch] one step twice is not bitwise")
+    del s1, s2, m2
+    torch.cuda.empty_cache()
+    kernels.reset_launch_counts()
+    # the run holds the only reference to its initial state, so each step
+    # frees the state before it
+    start = [state0]
+    del state0, params0
+    t0 = time.perf_counter()
+    state, hist = trainer.run(pipe, num_steps=TRAIN_ARCH_STEPS, log_every=0,
+                              state=start.pop())
+    sync()
+    run_s = time.perf_counter() - t0
+    launches = counts()
+    want = {k: TRAIN_ARCH_STEPS * v for k, v in per_step.items()}
+    fail.check(launches == want, f"[train-arch] Trainer.run launches "
+               f"{nonzero(launches)} != {nonzero(want)}")
+    fail.check(len(hist) == TRAIN_ARCH_STEPS
+               and all(math.isfinite(x) for x in hist)
+               and bool(all_finite(state.params)),
+               "[train-arch] losses or parameters not finite")
+    restored = None
+    if ckpt_lib.latest_step(str(ck_dir)) == TRAIN_ARCH_STEPS:
+        restored, _ = ckpt_lib.restore(str(ck_dir), TRAIN_ARCH_STEPS, state)
+    fail.check(restored is not None and bitwise(restored, state),
+               "[train-arch] the checkpoint does not restore the state "
+               "bitwise")
+    del restored
+    shutil.rmtree(ck_dir, ignore_errors=True)
+    step_ms = []
+    for i in range(2):
+        b_ = trainer.to_device(pipe.batch(TRAIN_ARCH_STEPS + i))
+        sync()
+        t0 = time.perf_counter()
+        state, _ = trainer._step_fn(state, b_)
+        sync()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    b_ = trainer.to_device(pipe.batch(TRAIN_ARCH_STEPS + 2))
+    busy, by_name = device_busy_ms(lambda: trainer._step_fn(state, b_))
+    med = float(np.median(step_ms))
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[train-arch] Trainer.run {TRAIN_ARCH_STEPS} steps under "
+        f"train_default: {run_s:.3f} s, losses "
+        f"{[round(x, 5) for x in hist]}, step ms "
+        f"{[round(t * 1e3, 2) for t in trainer._step_times]}; checkpoint "
+        f"restored bitwise; then step {med:.2f} ms (host clock after "
+        f"synchronize, {[round(x, 2) for x in step_ms]}), "
+        f"{B * S / med * 1e3:.0f} tokens/s, busy {busy:.2f} ms, idle share "
+        f"{max(0.0, 1 - busy / med):.3f}, busy by name "
+        f"{dict(list(by_name.items())[:8])}; peak {peak / 2**30:.2f} GiB "
+        f"({(peak - base) / 2**30:.2f} above the {base / 2**30:.2f} resident "
+        f"before); launches {nonzero(launches)} ({smi})")
+    row.update(losses=hist, run_s=run_s, launches=launches,
+               run_step_ms=[t * 1e3 for t in trainer._step_times],
+               step_ms=step_ms, step_ms_median=med,
+               tokens_per_s=B * S / med * 1e3, busy_ms=busy,
+               idle_share=max(0.0, 1 - busy / med), busy_by_name=by_name,
+               peak_bytes=peak, resident_before_bytes=base)
+    out[arch] = row
+    del trainer, state, hist, batch0
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- the step's new launch shapes, timed --------------------------------
+    out["times"] = train_arch_times(cfg, policy, B, S, dev)
+
+    # ---- one value-and-grad of each other family ---------------------------
+    B, S = TRAIN_ARCH_SMALL
+    for arch, depth in TRAIN_ARCH_OTHERS:
+        cfg = get_config(arch)
+        if depth is not None:
+            cfg = dataclasses.replace(cfg, n_layers=depth)
+        torch.cuda.reset_peak_memory_stats()
+        params = T.init_params(cfg, seed=0, device=dev)
+        batch = {k: torch.from_numpy(v).to(dev)
+                 for k, v in pipe_of(cfg, B, S).batch(0).items()}
+        want = {**zero, **arch_train_launches(cfg, B, positions(cfg, S))}
+        fn = trainer_lib.make_loss_fn(cfg, policy)
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        with plain_held(fail, f"[train-arch] {arch}") as held:
+            _, vs = grads_vs_ref(fail, f"train-arch] [{arch}", fn, params,
+                                 batch, sync)
+        vg_s = time.perf_counter() - t0
+        got = counts()
+        peak = torch.cuda.max_memory_allocated()
+        worst_held = max(c["worst_err_over_tol"] for c in held)
+        log(f"[train-arch] {arch} (depth {cfg.n_layers}, "
+            f"{cfg.param_count():,} params, {B} x {positions(cfg, S)} "
+            f"positions): launches {nonzero(got)}; {len(held)} launch shapes "
+            f"held (worst err/tol {worst_held:.3f}); value-and-grad on the "
+            f"card and on ref {vg_s:.1f} s, peak {peak / 2**30:.2f} GiB")
+        fail.check(got == want, f"[train-arch] {arch} launches "
+                   f"{nonzero(got)} != {nonzero(want)}")
+        out[arch] = dict(n_layers=cfg.n_layers, params=cfg.param_count(),
+                         launches=got, held=held, peak_bytes=peak, **vs)
+        del params, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+    fail.check(not torch.backends.cuda.matmul.allow_tf32
+               and torch.get_float32_matmul_precision() == "highest",
+               "[train-arch] TF32 on for f32 matmuls")
+    return out
+
+
+def train_arch_times(cfg, policy, B: int, S: int, dev) -> dict:
+    """Device ms of the main case's new launch shapes beside their plain
+    versions and bounds: the batched experts' forward (tokens broadcast
+    against (E, D, F)), dgrad ((E, T, F) against the (E, F, D) transposed
+    view, read through its strides) and 3-D wgrad (x^T copied to row-major,
+    then broadcast as a stride-0 batch against (E, T, F)), at
+    ``moe_expert``; MLA's flash attention at Dh 192 at the step's
+    ``attn_logits`` / ``attn_pv``.  None has one library call that
+    computes it (the limb products at M16)."""
+    import torch
+
+    from repro_torch.core.formats import resolve
+    from repro_torch.kernels import mp_attention, mp_matmul
+
+    E, D, F = cfg.moe.n_experts, cfg.d_model, cfg.moe.expert_ff
+    T = B * S
+    gen = torch.Generator(device=dev).manual_seed(31)
+    x = torch.randn(T, D, generator=gen, device=dev)
+    w = torch.randn(E, D, F, generator=gen, device=dev) * D ** -0.5
+    g = torch.randn(E, T, F, generator=gen, device=dev)
+    fmt = resolve(policy.mode("moe_expert"))
+    rows = {}
+    for label, a, b in (
+            (f"experts forward ({T},{D}) x ({E},{D},{F})", x, w),
+            (f"experts dgrad ({E},{T},{F}) x ({E},{D},{F})^T", g,
+             w.transpose(-1, -2)),
+            (f"experts wgrad ({T},{D})^T x ({E},{T},{F})", x.t(), g)):
+        k_ms, k_ahead = device_ms(
+            lambda: mp_matmul.mp_fused_matmul(a, b, fmt), torch)
+        p_ms, _ = device_ms(
+            lambda: mp_matmul.fused_matmul_plain(a, b, fmt), torch)
+        M, K = a.shape[-2:]
+        N = b.shape[-1]
+        b_ms, b_by = bound(2 * E * M * K * N * fmt.n_products,
+                           4 * (a.numel() + b.numel() + E * M * N))
+        rows[label] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                           bound_by=b_by, fmt=fmt.name, host_ahead=k_ahead)
+        log(f"[train-arch] time {label} {fmt.name}: {k_ms:.4f} ms, plain "
+            f"{p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), library none")
+    del x, w, g
+    m = cfg.mla
+    H, Dh = m.n_heads, m.qk_nope_dim + m.qk_rope_dim
+    fq, fp = (resolve(policy.mode(c)) for c in ("attn_logits", "attn_pv"))
+    q, k, v = (torch.randn(B, S, H, Dh, generator=gen, device=dev)
+               for _ in range(3))
+    f_ms, _ = device_ms(lambda: mp_attention.mp_flash_attention(
+        q, k, v, fq, fp, causal=True), torch)
+    p_ms, _ = device_ms(lambda: mp_attention.flash_attention_plain(
+        q, k, v, fq, fp, causal=True, scale=Dh ** -0.5), torch)
+    pairs = S * (S + 1) // 2
+    b_ms, b_by = bound(2 * B * H * pairs * Dh * (fq.n_products
+                                                 + fp.n_products),
+                       4 * 4 * q.numel())
+    label = f"flash ({B},{S},{H},{Dh}) {fq.name}/{fp.name}"
+    rows[label] = dict(ms=f_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by)
+    log(f"[train-arch] time {label}: {f_ms:.4f} ms, plain {p_ms:.4f} ms, "
+        f"bound {b_ms:.4f} ms ({b_by}), library none")
+    return rows
 
 
 def experts_gate(fail, arch, moe_params, dev):
@@ -1859,11 +2256,238 @@ def dist_collectives():
         counts=collectives.counts())
 
 
-def dist_gloo_ops(p2p=False):
+# ---------------------------------------------------------------------------
+# [ep]: the expert-parallel MoE across four ranks on a (data 2, model 2)
+# mesh (gloo, sharing one card; NCCL with a card each): deepseek-v2-lite-16b
+# at depth 2 (1 dense + 1 MoE layer of 64 experts, 32 a model rank), full
+# width.
+EP_DEPTH = 2
+EP_BATCH, EP_SEQ = 2, 128             # the value-and-grad: one row a data rank
+EP_PROMPTS = (2, 64, 8)               # generate: prompts, tokens each, new
+
+
+def ep_a2a(cfg, tokens: int, m_size: int, d_size: int,
+           capacity_factor=None) -> tuple:
+    """(calls, bytes) of ``all_to_all`` in one expert-parallel forward of
+    ``tokens`` positions on the split route: per MoE layer and token chunk
+    one exchange to the experts' ranks and one back, each of
+    ``m_size * (E / m_size) * cap * D`` values in the dispatch dtype, where
+    ``cap = ceil(Tc * top_k * capacity_factor / E)`` and Tc the tokens of
+    a chunk on one model rank."""
+    moe = cfg.moe
+    cf = moe.capacity_factor if capacity_factor is None else capacity_factor
+    n_moe = cfg.n_layers - cfg.first_k_dense
+    tc = tokens // d_size // m_size // max(1, moe.n_chunks)
+    cap = max(1, math.ceil(tc * moe.top_k * cf / moe.n_experts))
+    size = {"float32": 4, "bfloat16": 2, "float16": 2}[moe.dispatch_dtype]
+    calls = n_moe * 2 * max(1, moe.n_chunks)
+    return calls, calls * moe.n_experts * cap * moe.d_model * size
+
+
+def ep_launches(cfg, launches: dict, m_size: int, chunks: int) -> dict:
+    """A forward's launches (:func:`arch_forward_launches` or
+    :func:`arch_decode_launches`) with each MoE layer's three batched
+    expert launches replaced by the expert-parallel path's: three a local
+    expert, a token chunk (``chunks``: 1 on the decode route)."""
+    e_local = cfg.moe.n_experts // m_size
+    n_moe = cfg.n_layers - cfg.first_k_dense
+    out = dict(launches)
+    out["mp_fused_matmul"] += n_moe * 3 * (e_local * chunks - 1)
+    return out
+
+
+def dist_ep_grad(batch, seq):
+    """One value-and-grad of the depth-2 model with the mesh, at a
+    capacity factor of E / top_k (it drops nothing), against the one-rank
+    all-experts path on rank 0; then a forward at the config's own
+    capacity factor, with the share of assignments it drops."""
+    torch = _dist_setup()
+    import hashlib
+
+    import torch.distributed as dist
+
+    from repro_torch import tree as tree_lib
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.policy import PrecisionPolicy
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as T
+    from repro_torch.train import trainer as trainer_lib
+
+    cfg = dataclasses.replace(get_config("deepseek-v2-lite-16b"),
+                              n_layers=EP_DEPTH)
+    whole = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k))
+    params = T.init_params(cfg, seed=0, device="cuda")
+    mesh = mesh_lib.make_debug_mesh(data=2, model=2)
+    b = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=seq + 1,
+                               global_batch=batch)).batch(0)
+    b = {k: torch.from_numpy(v).cuda() for k, v in b.items()}
+    policy = PrecisionPolicy.train_default()
+    # aux weight 0 for the comparison: with the mesh the load-balance aux
+    # is a mean over the ranks' token slices, without it over all tokens
+    tcfg = trainer_lib.TrainerConfig(aux_weight=0.0)
+    fn = trainer_lib.make_loss_fn(whole, policy, tcfg, mesh=mesh)
+    torch.cuda.synchronize()
+    _reset()
+    t0 = time.perf_counter()
+    (loss, extras), grads = trainer_lib.value_and_grad(fn, params, b)
+    torch.cuda.synchronize()
+    vg_ms = (time.perf_counter() - t0) * 1e3
+    launches, coll = _counts()
+    digest = hashlib.sha1()
+    for g in tree_lib.leaves(grads):
+        digest.update(g.contiguous().view(torch.int32).cpu().numpy()
+                      .tobytes())
+    res = dict(loss=loss.item(), extras={k: v.item() for k, v in
+                                         extras.items()},
+               grads_sha1=digest.hexdigest(), launches=launches,
+               collectives=coll, vg_ms=vg_ms)
+    if dist.get_rank() == 0:
+        fd = trainer_lib.make_loss_fn(whole, policy, tcfg)
+        (l_d, x_d), g_d = trainer_lib.value_and_grad(fd, params, b)
+        torch.cuda.synchronize()
+        leaf = {p: ((a - c).abs().max() / c.abs().max()).item()
+                for (p, a), c in zip(tree_lib.items(grads),
+                                     tree_lib.leaves(g_d))}
+        worst = max(leaf, key=leaf.get)
+        res.update(loss_whole=l_d.item(),
+                   loss_rel=abs(loss.item() - l_d.item()) / abs(l_d.item()),
+                   extras_rel={k: abs(extras[k].item() - x_d[k].item())
+                               / abs(x_d[k].item())
+                               for k in ("nll", "moe_zloss")},
+                   worst_leaf=worst, worst_leaf_err=leaf[worst])
+        del g_d
+    del grads
+    torch.cuda.empty_cache()
+    dist.barrier()
+    keeps, real = [], moe._dispatch_chunk
+
+    def spy(*args, **kw):
+        send, keep, buf_idx = real(*args, **kw)
+        keeps.append(keep)
+        return send, keep, buf_idx
+
+    moe._dispatch_chunk = spy
+    try:
+        _reset()
+        with torch.no_grad():
+            logits, aux, _ = T.forward(params, {"tokens": b["tokens"]}, cfg,
+                                       policy, mesh=mesh)
+        torch.cuda.synchronize()
+    finally:
+        moe._dispatch_chunk = real
+    kept = sum(int(k.sum()) for k in keeps)
+    total = sum(k.numel() for k in keeps)
+    res.update(dropped_share=1 - kept / total, assignments=total,
+               finite=bool(torch.isfinite(logits).all())
+               and all(math.isfinite(v.item()) for v in aux.values()),
+               own_cf_collectives=_counts()[1])
+    return res
+
+
+def dist_ep_generate(prompts, max_new):
+    """ServeEngine(mesh=...).generate at full width at a capacity factor of
+    E / top_k (it drops nothing): the prefill on the split route, a decode
+    step on the replicated route (counts, last logits), then generate;
+    one prefill at the config's own capacity factor (its last logits and
+    the share of assignments it drops); rank 0 also runs the one-rank
+    engine from the same params on the same tokens while the others
+    wait."""
+    torch = _dist_setup()
+    import numpy as np
+    import torch.distributed as dist
+
+    from repro_torch import kernels
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.policy import PrecisionPolicy
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.engine import ServeEngine
+
+    cfg = dataclasses.replace(get_config("deepseek-v2-lite-16b"),
+                              n_layers=EP_DEPTH)
+    whole = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k))
+    params = T.init_params(cfg, seed=0, device="cuda")
+    mesh = mesh_lib.make_debug_mesh(data=2, model=2)
+    policy = PrecisionPolicy.serve_default()
+    max_seq = max(len(p) for p in prompts) + max_new
+    out = {}
+
+    def engine(c, m):
+        return ServeEngine(c, params, max_batch=len(prompts),
+                           max_seq=max_seq, policy=policy, mesh=m,
+                           device="cuda")
+
+    def run(eng):
+        toks = eng.pad_prompts(prompts)
+        eng.prefill(toks, eng.make_cache())     # warm-up: gloo's buffers
+        torch.cuda.synchronize()
+        _reset()
+        t0 = time.perf_counter()
+        logits, cache = eng.prefill(toks, eng.make_cache())
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        pre = _counts()
+        cur = torch.as_tensor(np.asarray([[7], [11]])[:len(prompts)],
+                              device="cuda")
+        _reset()
+        t0 = time.perf_counter()
+        step_logits, _ = eng.decode(cache, cur)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3
+        step = _counts()
+        _reset()
+        t0 = time.perf_counter()
+        outs = eng.generate(prompts, max_new=max_new)
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t0
+        return dict(
+            tokens=outs, logits=logits[:, -1].float().cpu().numpy(),
+            step_logits=step_logits[:, -1].float().cpu().numpy(),
+            prefill=pre, step=step, total=_counts(),
+            plain=kernels.plain_call_counts(), prefill_ms=prefill_ms,
+            step_ms=step_ms, gen_s=gen_s,
+            tokens_per_s=len(prompts) * max_new / gen_s)
+
+    out["ep"] = run(engine(whole, mesh))
+    torch.cuda.empty_cache()
+    keeps, real = [], moe._dispatch_chunk
+
+    def spy(*args, **kw):
+        send, keep, buf_idx = real(*args, **kw)
+        keeps.append(keep)
+        return send, keep, buf_idx
+
+    own = engine(cfg, mesh)
+    moe._dispatch_chunk = spy
+    try:
+        logits, _ = own.prefill(own.pad_prompts(prompts), own.make_cache())
+        torch.cuda.synchronize()
+    finally:
+        moe._dispatch_chunk = real
+    out["own_cf"] = dict(
+        logits=logits[:, -1].float().cpu().numpy(),
+        dropped_share=1 - sum(int(k.sum()) for k in keeps)
+        / sum(k.numel() for k in keeps))
+    del own
+    torch.cuda.empty_cache()
+    if dist.get_rank() == 0:
+        out["one"] = run(engine(cfg, None))
+        torch.cuda.empty_cache()
+    dist.barrier()
+    return out
+
+
+def dist_gloo_ops(p2p=False, a2a=False):
     """Which collectives gloo runs on CUDA tensors itself: each op straight
     through ``torch.distributed`` on the world group, the result checked.
-    With ``p2p`` only rank 0's send to rank 1 (a rank that crashes there
-    ends the spawn, so it runs alone)."""
+    With ``p2p`` only rank 0's send to rank 1, with ``a2a`` only
+    ``all_to_all_single`` (a rank that crashes there ends the spawn, so
+    each runs alone)."""
     torch = _dist_setup()
     import torch.distributed as dist
 
@@ -1904,9 +2528,19 @@ def dist_gloo_ops(p2p=False):
             dist.recv(y, 0)
         return y
 
+    def exchanged():
+        y = torch.empty(8, device="cuda")
+        dist.all_to_all_single(y, x)
+        return y
+
     if p2p:
         attempt("send/recv", sent, base if r < 2 else torch.zeros(
             8, device="cuda"))
+        return out
+    if a2a:   # block j of rank q's x lands as block q of rank j's result
+        n = 8 // w
+        attempt("all_to_all", exchanged, torch.cat(
+            [base[r * n:(r + 1) * n] + q for q in range(w)]))
         return out
     attempt("all_reduce", lambda: reduced(dist.ReduceOp.SUM), total)
     attempt("all_reduce_max", lambda: reduced(dist.ReduceOp.MAX),
@@ -1927,7 +2561,8 @@ def dist_gloo_ops(p2p=False):
 DIST_TASKS = {"generate": dist_generate, "scheduler": dist_scheduler,
               "sp_decode": dist_sp_decode, "pipeline": dist_pipeline,
               "train": dist_train, "restore": dist_restore,
-              "collectives": dist_collectives, "gloo_ops": dist_gloo_ops}
+              "collectives": dist_collectives, "gloo_ops": dist_gloo_ops,
+              "ep_grad": dist_ep_grad, "ep_generate": dist_ep_generate}
 
 
 def dist_rank(rank, world, init_file, backend, tasks, outq):
@@ -2228,11 +2863,13 @@ def dist_phase(fail, cfg, params, main_prompts, sched_prompts, ck_dir, smi):
 
         ops = run_ranks(2, [("gloo_ops", {})], backend="gloo",
                         timeout=180)[0]["gloo_ops"]
-        try:
-            ops.update(run_ranks(2, [("gloo_ops", {"p2p": True})],
-                                 backend="gloo", timeout=60)[0]["gloo_ops"])
-        except (RuntimeError, TimeoutError) as err:   # a rank died or hung
-            ops["send/recv"] = f"failed: {str(err).splitlines()[0][:200]}"
+        for flag, key in (("p2p", "send/recv"), ("a2a", "all_to_all")):
+            try:
+                ops.update(run_ranks(2, [("gloo_ops", {flag: True})],
+                                     backend="gloo",
+                                     timeout=60)[0]["gloo_ops"])
+            except (RuntimeError, TimeoutError) as err:  # died or hung
+                ops[key] = f"failed: {str(err).splitlines()[0][:200]}"
         refused = set()
         for k, v in ops.items():
             if v != "right":
@@ -2298,6 +2935,192 @@ def dist_phase(fail, cfg, params, main_prompts, sched_prompts, ck_dir, smi):
                    "[dist] one-rank NCCL: sharded != cuda")
         res["nccl_one_rank"] = dict(backend=info.backend, bitwise=bitwise)
         del e_s, e_c
+    finally:
+        mesh_lib.shutdown()
+    torch.cuda.empty_cache()
+    return res
+
+
+def ep_phase(fail, smi):
+    """``[ep]``: the expert-parallel MoE on four ranks, (data 2, model 2):
+    one value-and-grad (loss and gradients equal on every rank, within
+    ``[train]``'s bounds of the one-rank all-experts path at a capacity
+    factor that drops nothing, ``all_to_all`` calls and bytes of
+    :func:`ep_a2a`, nothing staged), the config's capacity factor (finite,
+    the dropped share), ``ServeEngine(mesh=...)`` (prefill on the split
+    route, a decode step on the replicated one: logits within 4·2^-6 of
+    the one-rank engine, launches and exchanges of the formula); then one
+    rank over NCCL on a (1, 1) mesh."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.policy import PrecisionPolicy
+    from repro_torch.dist import collectives
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.engine import ServeEngine
+
+    n_dev = torch.cuda.device_count()
+    backend = "nccl" if n_dev >= 4 else "gloo"
+    cfg = dataclasses.replace(get_config("deepseek-v2-lite-16b"),
+                              n_layers=EP_DEPTH)
+    E, k = cfg.moe.n_experts, cfg.moe.top_k
+    n_p, p_len, new = EP_PROMPTS
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(1, cfg.vocab, p_len) for _ in range(n_p)]
+    t0 = time.perf_counter()
+    reports = run_ranks(4, [("ep_grad", dict(batch=EP_BATCH, seq=EP_SEQ)),
+                            ("ep_generate", dict(prompts=prompts,
+                                                 max_new=new))],
+                        backend=backend)
+    res = {"backend": reports[0]["backend"],
+           "ranks_s": time.perf_counter() - t0}
+    log(f"[ep] 4 ranks over {res['backend']} ("
+        f"{'one card each' if n_dev >= 4 else 'sharing one card'}), mesh "
+        f"(data 2, model 2): {res['ranks_s']:.1f} s")
+
+    # ---- value and grad -------------------------------------------------------
+    gr = _task(fail, "[ep] value and grad", reports, "ep_grad")
+    if gr is not None:
+        g0 = gr[0]
+        same = all(g["loss"] == g0["loss"]
+                   and g["grads_sha1"] == g0["grads_sha1"] for g in gr)
+        # remat: the forward's exchanges again in the recompute, then the
+        # backward's (each exchange's transpose is one)
+        calls, nbytes = ep_a2a(cfg, EP_BATCH * EP_SEQ, 2, 2,
+                               capacity_factor=E / k)
+        a2a = g0["collectives"]["all_to_all"]
+        want = (3 * calls, 3 * nbytes)
+        staged = {n: c["staged"] for n, c in g0["collectives"].items()
+                  if c["staged"]}
+        log(f"[ep] value-and-grad of deepseek-v2-lite-16b depth {EP_DEPTH} "
+            f"({EP_BATCH} x {EP_SEQ}, train_default, capacity factor E/k = "
+            f"{E / k:.3f}, aux weight 0): {g0['vg_ms']:.1f} ms on rank 0; "
+            f"loss {g0['loss']:.6f} on every rank: {same} (gradients' sha1 "
+            f"too); vs the one-rank all-experts path: loss rel "
+            f"{g0['loss_rel']:.3e}, nll / zloss rel "
+            f"{', '.join(f'{v:.3e}' for v in g0['extras_rel'].values())}, "
+            f"worst leaf {g0['worst_leaf']} {g0['worst_leaf_err']:.3e} of its "
+            f"max (bounds 1e-5, 5e-4); all_to_all {a2a['calls']} calls, "
+            f"{a2a['bytes']:,} bytes (formula {want[0]}, {want[1]:,}); staged "
+            f"{staged}; launches {nonzero(g0['launches'])}; collectives "
+            f"{ {n: c['calls'] for n, c in g0['collectives'].items() if c['calls']} }")
+        fail.check(same, "[ep] ranks' losses or gradients differ")
+        fail.check(g0["loss_rel"] <= 1e-5
+                   and max(g0["extras_rel"].values()) <= 1e-5
+                   and g0["worst_leaf_err"] < 5e-4,
+                   "[ep] value and grad disagrees with the all-experts path")
+        fail.check((a2a["calls"], a2a["bytes"]) == want,
+                   f"[ep] all_to_all {a2a['calls']} calls {a2a['bytes']} "
+                   f"bytes != {want}")
+        fail.check(not staged if res["backend"] == "nccl" else
+                   set(staged) <= set(collectives.GLOO_HOST_STAGED),
+                   f"[ep] staged {staged}")
+        fail.check(any(g0["launches"].values())
+                   and all(g["finite"] for g in gr),
+                   "[ep] no launches, or the config's capacity factor gave "
+                   "non-finite outputs")
+        log(f"[ep] at the config's capacity factor "
+            f"{cfg.moe.capacity_factor}: outputs finite "
+            f"{all(g['finite'] for g in gr)}, dropped share per rank "
+            f"{[round(g['dropped_share'], 4) for g in gr]} of "
+            f"{g0['assignments']} assignments")
+        res["grad"] = g0
+        res["dropped_share"] = [g["dropped_share"] for g in gr]
+
+    # ---- generate with the mesh ---------------------------------------------------
+    gen = _task(fail, "[ep] generate", reports, "ep_generate")
+    if gen is not None:
+        ep0, one, own = gen[0]["ep"], gen[0]["one"], gen[0]["own_cf"]
+        same = all(g["ep"]["tokens"] == ep0["tokens"] for g in gen)
+        rel_tol = 4 * 2.0 ** -6
+
+        def rel(a, b):
+            return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+        r_pre = rel(ep0["logits"], one["logits"])
+        r_dec = rel(ep0["step_logits"], one["step_logits"])
+        r_own = rel(own["logits"], one["logits"])
+        m_size = 2
+        pre_a2a = ep_a2a(cfg, n_p * p_len, m_size, 2, capacity_factor=E / k)
+        got_pre = ep0["prefill"][1]["all_to_all"]
+        got_dec = ep0["step"][1]["all_to_all"]
+        want_pre_k = ep_launches(cfg, arch_forward_launches(
+            cfg, n_p, p_len), m_size, cfg.moe.n_chunks)
+        want_dec_k = ep_launches(cfg, arch_decode_launches(cfg), m_size, 1)
+        got_pre_k = nonzero(ep0["prefill"][0])
+        got_dec_k = nonzero(ep0["step"][0])
+        log(f"[ep] ServeEngine(mesh=...) generate {n_p} x {p_len} tokens, "
+            f"{new} new (serve_default, capacity factor E/k): tokens equal "
+            f"on every rank {same}, "
+            f"== the one-rank engine's {ep0['tokens'] == one['tokens']}; "
+            f"prefill logits {r_pre:.3e} and a decode step's {r_dec:.3e} "
+            f"from the one-rank engine (tol {rel_tol:.3e}); prefill "
+            f"{ep0['prefill_ms']:.1f} ms (one rank {one['prefill_ms']:.1f}), "
+            f"decode step {ep0['step_ms']:.1f} ms (one rank "
+            f"{one['step_ms']:.1f}), {ep0['tokens_per_s']:.1f} tokens/s (one "
+            f"rank {one['tokens_per_s']:.1f}); all_to_all per prefill "
+            f"{got_pre['calls']} calls {got_pre['bytes']:,} bytes (formula "
+            f"{pre_a2a[0]}, {pre_a2a[1]:,}), per decode step "
+            f"{got_dec['calls']}; launches per prefill {got_pre_k} (formula "
+            f"{nonzero(want_pre_k)}), per decode step {got_dec_k} (formula "
+            f"{nonzero(want_dec_k)}); plain calls {nonzero(ep0['plain'])}; "
+            f"at the config's capacity factor {cfg.moe.capacity_factor} the "
+            f"prefill drops {own['dropped_share']:.4f} of its assignments "
+            f"and its last logits read {r_own:.3e} from the one-rank engine")
+        fail.check(same, "[ep] generate: ranks' tokens differ")
+        fail.check(r_pre <= rel_tol and r_dec <= rel_tol,
+                   "[ep] generate logits off the one-rank engine")
+        fail.check((got_pre["calls"], got_pre["bytes"]) == pre_a2a
+                   and got_dec["calls"] == 0,
+                   "[ep] generate: all_to_all off the formula")
+        fail.check(got_pre_k == nonzero(want_pre_k)
+                   and got_dec_k == nonzero(want_dec_k)
+                   and not any(ep0["plain"].values()),
+                   "[ep] generate: launches off the formula")
+        def plain(d):  # the report keeps numbers, not the logits
+            return {k: v for k, v in d.items()
+                    if k not in ("logits", "step_logits")}
+
+        res["generate"] = dict(ep=plain(ep0), one=plain(one),
+                               prefill_rel=r_pre,
+                               decode_rel=r_dec, own_cf_prefill_rel=r_own,
+                               own_cf_dropped_share=own["dropped_share"],
+                               launches=ep0["total"][0])
+
+    # ---- one rank over NCCL -------------------------------------------------------
+    info = mesh_lib.init_distributed(
+        0, 1, init_method=f"file://{ROOT / 'build'}/nccl_ep_{time.time_ns()}",
+        device="cuda", backend="nccl", timeout_s=120)
+    try:
+        mesh = mesh_lib.make_debug_mesh(data=1, model=1)
+        params = T.init_params(cfg, seed=0, device="cuda")
+        policy = PrecisionPolicy.serve_default()
+        whole = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=E / k))
+        logits = {}
+        for tag, m in (("ep", mesh), ("one", None)):
+            eng = ServeEngine(whole, params, max_batch=n_p,
+                              max_seq=p_len + new, policy=policy, mesh=m)
+            collectives.reset_counts()
+            logits[tag], _ = eng.prefill(eng.pad_prompts(prompts),
+                                         eng.make_cache())
+            if m is not None:
+                a2a = collectives.counts()["all_to_all"]
+            del eng
+        torch.cuda.synchronize()
+        r = ((logits["ep"] - logits["one"]).norm()
+             / logits["one"].norm()).item()
+        log(f"[ep] one rank over {info.backend}, mesh (1, 1), capacity "
+            f"factor E/k: prefill logits {r:.3e} from the engine without a "
+            f"mesh; all_to_all "
+            f"{a2a}")
+        fail.check(info.backend == "nccl" and r <= 4 * 2.0 ** -6
+                   and a2a["calls"] > 0 and a2a["staged"] == 0,
+                   "[ep] one-rank NCCL")
+        res["nccl_one_rank"] = dict(backend=info.backend, rel=r, a2a=a2a)
+        del params, logits
     finally:
         mesh_lib.shutdown()
     torch.cuda.empty_cache()
@@ -4230,11 +5053,16 @@ def main() -> int:
                            prompts)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
+    new["train_arch"] = fail.run("[train-arch]", train_arch_phase, fail, dev,
+                                 smi, card_counts)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
     try:
         new["dist"] = fail.run("[dist]", dist_phase, fail, cfg, params,
                                prompts, sched_prompts, ck_dir, smi)
     finally:
         shutil.rmtree(ck_dir, ignore_errors=True)
+    new["ep"] = fail.run("[ep]", ep_phase, fail, smi)
     report.update({k: v for k, v in new.items() if v is not None})
     fail.raise_if_any()
     new_launches = {
@@ -4243,7 +5071,9 @@ def main() -> int:
         "fleet": report["fleet"]["mode_affinity"]["launches"],
         "chaos": report["chaos"]["launches"],
         "arch": report["arch"][ARCH_RUNS[0][0]]["launches"],
-        "dist": report["dist"]["generate"]["launches"]}
+        "train_arch": report["train_arch"][TRAIN_ARCH[0]]["launches"],
+        "dist": report["dist"]["generate"]["launches"],
+        "ep": report["ep"]["generate"]["launches"]}
 
     # ---- 5. the kernels line -----------------------------------------------
     line = []

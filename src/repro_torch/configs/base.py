@@ -38,6 +38,8 @@ class ModelConfig:
     n_patches: int = 0          # vlm: patch embeddings per image
     max_seq: int = 8192
     remat: bool = True          # rematerialize each layer under autograd
+    scan_layers: bool = True    # False: the JAX package's unrolled loop
+    scan_group: int = 1         # remat one GROUP of layers as one region
     attn_q_chunk: int = 1024    # chunk-scan attention tiles
     attn_kv_chunk: int = 1024
     sub_quadratic: bool = False  # eligible for long_500k

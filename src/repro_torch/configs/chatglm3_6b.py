@@ -14,6 +14,7 @@ CONFIG = ModelConfig(
     d_ff=13696,
     rope_fraction=0.5,   # ChatGLM 2D-RoPE: first half rotary, rest pass-through
     max_seq=32768,
+    scan_group=2,
     sub_quadratic=False,
     source="[arXiv:2406.12793; hf THUDM/chatglm3-6b]",
 )

@@ -13,6 +13,7 @@ CONFIG = ModelConfig(
     n_kv_heads=32,
     d_ff=11008,
     max_seq=32768,
+    scan_group=2,
     sub_quadratic=False,
     source="[arXiv:2401.02954; hf deepseek-ai/deepseek-llm-7b-base]",
 )

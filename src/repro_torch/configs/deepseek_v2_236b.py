@@ -17,7 +17,8 @@ CONFIG = ModelConfig(
     mla=MLADims(d_model=5120, n_heads=128, kv_lora=512, q_lora=1536,
                 qk_nope_dim=128, qk_rope_dim=64, v_head_dim=128),
     moe=MoEDims(d_model=5120, n_experts=160, top_k=6, expert_ff=1536,
-                n_shared=2),
+                n_shared=2, capacity_factor=1.25, n_chunks=4,
+                dispatch_dtype="float32"),
     first_k_dense=1,
     dense_ff=12288,
     max_seq=32768,
@@ -37,7 +38,7 @@ SMOKE = ModelConfig(
     mla=MLADims(d_model=64, n_heads=4, kv_lora=32, q_lora=48,
                 qk_nope_dim=16, qk_rope_dim=8, v_head_dim=16),
     moe=MoEDims(d_model=64, n_experts=8, top_k=2, expert_ff=96,
-                n_shared=2),
+                n_shared=2, capacity_factor=2.0),
     first_k_dense=1,
     dense_ff=128,
     max_seq=128,

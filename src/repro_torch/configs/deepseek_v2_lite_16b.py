@@ -17,7 +17,7 @@ CONFIG = ModelConfig(
     mla=MLADims(d_model=2048, n_heads=16, kv_lora=512, q_lora=0,
                 qk_nope_dim=128, qk_rope_dim=64, v_head_dim=128),
     moe=MoEDims(d_model=2048, n_experts=64, top_k=6, expert_ff=1408,
-                n_shared=2),
+                n_shared=2, capacity_factor=1.25, n_chunks=2),
     first_k_dense=1,
     dense_ff=10944,
     max_seq=32768,
@@ -36,7 +36,8 @@ SMOKE = ModelConfig(
     d_ff=96,
     mla=MLADims(d_model=64, n_heads=4, kv_lora=32, q_lora=0,
                 qk_nope_dim=16, qk_rope_dim=8, v_head_dim=16),
-    moe=MoEDims(d_model=64, n_experts=4, top_k=2, expert_ff=96, n_shared=2),
+    moe=MoEDims(d_model=64, n_experts=4, top_k=2, expert_ff=96, n_shared=2,
+                capacity_factor=2.0),
     first_k_dense=1,
     dense_ff=128,
     max_seq=128,

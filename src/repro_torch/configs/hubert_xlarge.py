@@ -19,6 +19,7 @@ CONFIG = ModelConfig(
     rope_theta=0.0,      # w2v2 uses conv positional embeddings (stubbed);
                          # rope disabled for fidelity to the encoder arch
     max_seq=32768,
+    scan_group=4,
     sub_quadratic=False,
     source="[arXiv:2106.07447; unverified]",
 )

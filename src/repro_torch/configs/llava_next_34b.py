@@ -17,6 +17,7 @@ CONFIG = ModelConfig(
     frontend="vision",
     n_patches=576,       # one 24x24 anyres tile of precomputed embeddings
     max_seq=32768,
+    scan_group=4,
     sub_quadratic=False,
     source="[hf:llava-hf/llava-v1.6-mistral-7b-hf (34b variant); unverified]",
 )

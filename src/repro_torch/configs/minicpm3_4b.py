@@ -16,6 +16,7 @@ CONFIG = ModelConfig(
     mla=MLADims(d_model=2560, n_heads=40, kv_lora=256, q_lora=768,
                 qk_nope_dim=64, qk_rope_dim=32, v_head_dim=64),
     max_seq=32768,
+    scan_group=2,
     sub_quadratic=False,
     source="[hf:openbmb/MiniCPM3-4B; hf]",
 )

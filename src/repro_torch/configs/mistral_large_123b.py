@@ -14,6 +14,7 @@ CONFIG = ModelConfig(
     d_ff=28672,
     head_dim=128,
     max_seq=32768,
+    scan_group=4,
     sub_quadratic=False,
     source="[hf:mistralai/Mistral-Large-Instruct-2407; unverified]",
 )

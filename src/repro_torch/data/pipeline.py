@@ -8,8 +8,8 @@ token depends on the previous one through a fixed random bigram table), so a
 real model shows a real loss curve without external data.  Deterministic in
 (seed, step, rank): restart-safe (the checkpoint stores the step; the stream
 resumes exactly) and elastic-safe (re-sharding by rank count is pure
-arithmetic).  The vision/audio stub inputs come with the other model
-families (ROADMAP.md).
+arithmetic).  The vision and audio families' stub inputs (``frontend``)
+come from the same generator, after the tokens.
 """
 from __future__ import annotations
 
@@ -29,6 +29,9 @@ class DataConfig:
     seed: int = 1234
     kind: str = "synthetic"          # "synthetic" | "memmap"
     path: Optional[str] = None       # memmap token file (.bin uint32)
+    frontend: str = "none"           # vision/audio stub embeds
+    d_model: int = 0
+    n_patches: int = 0
 
 
 class SyntheticLM:
@@ -54,8 +57,16 @@ class SyntheticLM:
         for t in range(1, S):
             nxt = self._table[toks[:, t - 1]]
             toks[:, t] = np.where(noise[:, t], rand[:, t], nxt)
-        return {"tokens": toks[:, :-1].astype(np.int32),
-                "labels": toks[:, 1:].astype(np.int32)}
+        out = {"tokens": toks[:, :-1].astype(np.int32),
+               "labels": toks[:, 1:].astype(np.int32)}
+        if cfg.frontend == "audio":
+            out = {"embeds": rng.standard_normal(
+                       (B, S - 1, cfg.d_model)).astype(np.float32),
+                   "labels": out["labels"]}
+        elif cfg.frontend == "vision":
+            out["patch_embeds"] = rng.standard_normal(
+                (B, cfg.n_patches, cfg.d_model)).astype(np.float32)
+        return out
 
 
 class MemmapLM:

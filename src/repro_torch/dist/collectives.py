@@ -15,9 +15,9 @@ wrappers count launches; the counts are the port's form of the JAX tests'
 HLO checks.  :func:`counts` and :func:`reset_counts` read and zero them.
 
 gloo and CUDA tensors: gloo runs all-reduce (sum, max), broadcast,
-all-gather and reduce-scatter on CUDA tensors itself, and refuses
-point-to-point (measured on an H100 with torch 2.11 and PyTorch's gloo:
-``send`` / ``recv`` of a CUDA tensor fail).  The ops in
+all-gather, reduce-scatter and ``all_to_all_single`` on CUDA tensors
+itself, and refuses point-to-point (measured on an H100 with torch 2.11
+and PyTorch's gloo: ``send`` / ``recv`` of a CUDA tensor fail).  The ops in
 :data:`GLOO_HOST_STAGED` are staged through pinned host memory there:
 copied to the host, run, copied back; each staged call adds one to
 ``fn.staged``.  Nothing else is staged, so an op gloo refuses that is not
@@ -97,6 +97,23 @@ def all_gather(x: torch.Tensor, group) -> torch.Tensor:
     return out
 
 
+def all_to_all(x: torch.Tensor, group) -> torch.Tensor:
+    """``x``'s dim-0 blocks (one per rank of ``group``, in group-rank
+    order) exchanged: block j goes to rank j, and block j of the result
+    came from rank j (JAX's ``all_to_all(split_axis=0, concat_axis=0)``).
+    Its own inverse."""
+    n = dist.get_world_size(group)
+    if x.shape[0] % n:
+        raise ValueError(f"dim 0 of {tuple(x.shape)} does not split over "
+                         f"{n} ranks")
+    _counted(all_to_all, _nbytes(x))
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    _run(all_to_all, "all_to_all", [x, out],
+         lambda t: dist.all_to_all_single(t[1], t[0], group=group), group)
+    return out
+
+
 def send(x: torch.Tensor, dst: int, group) -> None:
     """Point-to-point send to group rank ``dst`` (blocking)."""
     _counted(send, _nbytes(x))
@@ -123,8 +140,8 @@ def broadcast(x: torch.Tensor, src: int, group) -> torch.Tensor:
 
 
 COLLECTIVES = {"all_reduce": all_reduce, "reduce_scatter": reduce_scatter,
-               "all_gather": all_gather, "broadcast": broadcast,
-               "send": send, "recv": recv}
+               "all_gather": all_gather, "all_to_all": all_to_all,
+               "broadcast": broadcast, "send": send, "recv": recv}
 
 
 def reset_counts() -> None:
@@ -220,6 +237,67 @@ def hierarchical_psum_compressed(x: torch.Tensor, err: torch.Tensor, mesh, *,
     new_err = val - deq
     all_reduce(deq, axis_group(mesh, pod_axis))
     return _gather(deq, mesh, inner_axis, shape), new_err
+
+
+# ---------------------------------------------------------------------------
+# differentiable forms (the expert-parallel MoE under autograd).  Each
+# backward is the transpose JAX's autodiff takes of the same collective
+# inside ``shard_map``: psum -> psum, a tiled all_gather -> psum_scatter,
+# all_to_all -> all_to_all.  Every rank builds the same graph, so autograd
+# runs these backwards in one order on every rank.
+# ---------------------------------------------------------------------------
+class _Psum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return all_reduce(x.clone(), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g.contiguous().clone(), ctx.group), None
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group, ctx.shape = group, tuple(x.shape)
+        n = dist.get_world_size(group)
+        out = all_gather(x.contiguous(), group)
+        return out.reshape((n * x.shape[0],) + tuple(x.shape[1:]))
+
+    @staticmethod
+    def backward(ctx, g):
+        return reduce_scatter(g.contiguous(), ctx.group).reshape(
+            ctx.shape), None
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return all_to_all(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_to_all(g, ctx.group), None
+
+
+def psum_diff(x: torch.Tensor, group) -> torch.Tensor:
+    """Sum over ``group`` (a new tensor); backward: the sum of the
+    cotangents over the group."""
+    return _Psum.apply(x, group)
+
+
+def all_gather_diff(x: torch.Tensor, group) -> torch.Tensor:
+    """Every rank's ``x`` concatenated along dim 0 in group-rank order (a
+    tiled all-gather); backward: the reduce-scatter of the cotangent."""
+    return _AllGather.apply(x, group)
+
+
+def all_to_all_diff(x: torch.Tensor, group) -> torch.Tensor:
+    """:func:`all_to_all` under autograd; backward: the same exchange of
+    the cotangent."""
+    return _AllToAll.apply(x, group)
 
 
 reset_counts()

@@ -110,6 +110,24 @@ def current_rules() -> Optional[AxisRules]:
     return _RULES.get()
 
 
+def moe_layer_kwargs(rules: Optional[AxisRules] = None) -> dict:
+    """The layout arguments an MoE layer passes to the expert-parallel
+    forward (``models.moe.moe_forward_ep``) under ``rules`` (default: the
+    installed ones; none installed, none passed): the batch axes besides
+    ``data`` and the model axis, whether the tokens already split over the
+    model axis, and the activations' (batch, seq) spec entries."""
+    rules = rules if rules is not None else current_rules()
+    if rules is None:
+        return {}
+    return {
+        "extra_data_axes": tuple(a for a in rules.batch_axes
+                                 if a and a not in ("data", rules.model_axis)),
+        "tokens_on_model": (rules.model_axis in (rules.seq_axes or ())
+                            or rules.model_axis in rules.batch_axes),
+        "x_pspec": (rules.batch, rules.seq_axes if rules.seq_axes else None),
+    }
+
+
 def _logical_entries(name: str, ndim: int, rules: AxisRules):
     """A logical activation name -> per-dim spec entries."""
     b, s = rules.batch, rules.seq
@@ -191,6 +209,24 @@ def param_shardings(params, rules: AxisRules):
             if b is not None and x.shape[-1] % rules.axis_size(b) == 0:
                 entries[-1] = b
         return Sharding(mesh, tuple(entries))
+
+    return _map_with_path(leaf, params)
+
+
+def expert_shardings(params, mesh, *, model_axis: str = "model",
+                     data_axis: str = "data"):
+    """A :class:`Sharding` tree for a model's parameters as the
+    expert-parallel MoE holds them (``models.moe.moe_forward_ep``'s
+    ``P(model, data, None)``): each MoE layer's stacked ``w_gate`` /
+    ``w_up`` / ``w_down`` with its experts over ``model_axis`` and its
+    next dim over ``data_axis``; every other leaf replicated.  For
+    ``checkpoint.restore(shardings=...)``."""
+    def leaf(path, x):
+        parts = path.split("/")
+        if ("moe" in parts and "shared" not in parts
+                and parts[-1] in ("w_gate", "w_up", "w_down")):
+            return Sharding(mesh, (model_axis, data_axis, None))
+        return Sharding(mesh, (None,) * x.ndim)
 
     return _map_with_path(leaf, params)
 

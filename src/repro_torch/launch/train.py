@@ -11,13 +11,18 @@ rank 0's and checkpoints into its own ``rank<r>`` directory):
         --smoke --steps 4 --backend sharded --device cpu
 
 Runs on the card unless ``--device cpu`` is given (every kernel wrapper
-then runs its plain version).  ``--arch`` takes the port's configurations
-(``paper-mpfp-100m``; ``--smoke`` for its CI-sized config).
+then runs its plain version).  ``--arch`` takes every id of
+``configs/registry.py`` (``--smoke`` for its CI-sized config); the vision
+and audio families train on the pipeline's stub patch and frame
+embeddings, the MoE family with its aux and z-losses:
+
+    PYTHONPATH=src python -m repro_torch.launch.train \
+        --arch deepseek-v2-lite-16b --smoke --steps 2 --device cpu
 """
 import argparse
 import os
 
-from repro_torch.configs import paper_mpfp
+from repro_torch.configs.registry import ARCH_IDS, get_config
 from repro_torch.core.policy import POLICIES, get_policy
 from repro_torch.data.pipeline import DataConfig, SyntheticLM
 from repro_torch.launch import mesh as mesh_lib
@@ -26,13 +31,11 @@ from repro_torch.train import trainer as trainer_lib
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))))
-CONFIGS = {"paper-mpfp-100m": (paper_mpfp.CONFIG, paper_mpfp.SMOKE)}
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="paper-mpfp-100m",
-                    choices=sorted(CONFIGS))
+    ap.add_argument("--arch", default="paper-mpfp-100m", choices=ARCH_IDS)
     ap.add_argument("--smoke", action="store_true",
                     help="reduced config (CPU-sized)")
     ap.add_argument("--steps", type=int, default=50)
@@ -59,14 +62,15 @@ def main(argv=None):
 
 
 def _train(args):
-    full, smoke = CONFIGS[args.arch]
-    cfg = smoke if args.smoke else full
+    cfg = get_config(args.arch, smoke=args.smoke)
     if not args.smoke and cfg.param_count() > 1e9 and args.device == "cpu":
         raise SystemExit(f"{args.arch} full config is {cfg.param_count():,} "
                          f"params — use --smoke on the CPU")
 
-    pipe = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=args.seq + 1,
-                                  global_batch=args.batch))
+    pipe = SyntheticLM(DataConfig(
+        vocab=cfg.vocab, seq_len=args.seq + 1, global_batch=args.batch,
+        frontend=cfg.frontend, d_model=cfg.d_model,
+        n_patches=cfg.n_patches))
     tcfg = trainer_lib.TrainerConfig(
         opt=adamw.AdamWConfig(moment_dtype=args.moment_dtype),
         total_steps=args.steps, warmup=max(2, args.steps // 20),

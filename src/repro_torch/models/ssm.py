@@ -143,11 +143,15 @@ def _ssd_chunked(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     seg_total = cum[:, :, -1, :]                      # (B, nc, H)
 
     # --- intra-chunk: decay L[i, j] = exp(cum_i - cum_j) for i >= j -------
+    # masked before the exp: above the diagonal cum_i - cum_j > 0 overflows
+    # to inf over a long chunk, and the gradient through exp(inf) masked to
+    # 0 afterwards is 0 * inf = NaN (the JAX package masks after the exp);
+    # exp(-inf) = 0, so the forward's bits are the same
     Li = cum[:, :, :, None, :] - cum[:, :, None, :, :]        # (B,nc,l,s,H)
     mask = torch.tril(torch.ones((cl, cl), dtype=torch.bool,
                                  device=xh.device))
-    L = torch.where(mask[None, None, :, :, None], torch.exp(Li),
-                    torch.zeros((), device=xh.device))
+    L = torch.exp(torch.where(mask[None, None, :, :, None], Li,
+                              torch.full((), -math.inf, device=xh.device)))
     # scores per group, C_i · B_j: (B,nc,G,l,ds) @ (B,nc,G,ds,s)
     Cg = C_c.permute(0, 1, 3, 2, 4)
     Bg = B_c.permute(0, 1, 3, 4, 2)

@@ -13,8 +13,12 @@ init, forward and caches of every family.
 Layers run as a Python loop over lists of per-layer parameter dicts (the
 JAX package scans stacked ``(L, ...)`` leaves; see
 ``repro_torch.weights.params_from_jax``).  Under autograd with
-``cfg.remat`` each dense-family layer is rematerialized (the JAX package's
-``jax.checkpoint``): its forward runs again in the backward."""
+``cfg.remat`` every layer is rematerialized (the JAX package's
+``jax.checkpoint``): its forward runs again in the backward — a dense,
+MoE or Mamba2 layer alone, or ``cfg.scan_group`` of them together (JAX's
+nested scan), and each zamba2 group (the shared block with its LoRA, then
+its Mamba2 layers) as one region.  ``cfg.scan_layers=False`` is the JAX
+package's unrolled loop, which does not rematerialize."""
 from __future__ import annotations
 
 import contextlib
@@ -24,10 +28,12 @@ from typing import Dict, List, Optional, Tuple
 import torch
 import torch.utils.checkpoint
 
+from repro_torch import tree as tree_lib
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import auto as auto_lib
 from repro_torch.core import dispatch as dispatch_lib
 from repro_torch.core.policy import PrecisionPolicy
+from repro_torch.dist import sharding as sharding_lib
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import mla as mla_lib
 from repro_torch.models import moe as moe_lib
@@ -226,13 +232,16 @@ def _dense_layer_fwd(lp: dict, h: torch.Tensor, cfg: ModelConfig,
 
 def _moe_layer_fwd(lp: dict, h: torch.Tensor, cfg: ModelConfig,
                    policy: PrecisionPolicy, positions: torch.Tensor, cache,
-                   mesh):
+                   mesh, moe_kw: Optional[dict] = None):
+    """``moe_kw``: the expert-parallel layout arguments
+    (``dist.sharding.moe_layer_kwargs``), taken where the forward starts:
+    remat's recompute runs on autograd's thread, which sees no rules."""
     a_in = rms_norm(h, lp["ln1"]["w"], cfg.norm_eps)
     a_out, new_cache = _attn_block(lp, a_in, cfg, policy, positions, cache)
     h = h + a_out
     m_in = rms_norm(h, lp["ln2"]["w"], cfg.norm_eps)
     moe_out, aux = moe_lib.moe_forward(lp["moe"], m_in, cfg.moe, policy,
-                                       mesh=mesh)
+                                       mesh=mesh, **(moe_kw or {}))
     return h + moe_out, new_cache, aux
 
 
@@ -244,61 +253,90 @@ def _ssm_layer_fwd(lp: dict, h: torch.Tensor, cfg: ModelConfig,
     return h + s_out, new_cache
 
 
-def _remat_layer(lp: dict, h: torch.Tensor, cfg: ModelConfig,
-                 policy: PrecisionPolicy, positions: torch.Tensor
-                 ) -> torch.Tensor:
-    """One layer under ``torch.utils.checkpoint`` (non-reentrant): only its
-    input is kept, and its forward runs again when the backward reaches it,
-    under the precision context of the first run (the recompute runs on the
-    autograd engine's thread).  AUTO calls analyze their operands again in
-    the recompute; each must select what the forward selected
-    (:class:`~repro_torch.core.auto.SelectionLog`)."""
+def _remat(fn, *args):
+    """``fn(*args)`` under ``torch.utils.checkpoint`` (non-reentrant): only
+    its inputs are kept, and it runs again when the backward reaches it,
+    under the precision context of the first run (the recompute runs on
+    the autograd engine's thread).  AUTO calls analyze their operands
+    again in the recompute and each must select what the forward selected
+    (:class:`~repro_torch.core.auto.SelectionLog`); each MoE router must
+    pick the experts it picked (:class:`~repro_torch.models.moe.RouteLog`),
+    or the backward raises."""
     snap = dispatch_lib.snapshot()
     selections = auto_lib.SelectionLog()
+    routes = moe_lib.RouteLog()
 
-    def layer(h):
-        return _dense_layer_fwd(lp, h, cfg, policy, positions, None)[0]
+    @contextlib.contextmanager
+    def record():
+        with selections.recording(), routes.recording():
+            yield
 
     @contextlib.contextmanager
     def recompute():
-        with dispatch_lib.restored(snap), selections.replaying():
+        with dispatch_lib.restored(snap), selections.replaying(), \
+                routes.replaying():
             yield
 
     return torch.utils.checkpoint.checkpoint(
-        layer, h, use_reentrant=False,
-        context_fn=lambda: (selections.recording(), recompute()))
+        fn, *args, use_reentrant=False,
+        context_fn=lambda: (record(), recompute()))
 
 
-def _needs_grad(h: torch.Tensor, lp: dict) -> bool:
+def _needs_grad(h: torch.Tensor, layers) -> bool:
     return torch.is_grad_enabled() and (h.requires_grad or any(
-        w.requires_grad for group in lp.values() for w in group.values()))
+        w.requires_grad for w in tree_lib.leaves(layers)))
 
 
-def _dense_stack(layers: List[dict], h: torch.Tensor, cfg: ModelConfig,
-                 policy: PrecisionPolicy, positions: torch.Tensor,
-                 caches: Optional[List]):
-    new_caches = []
-    for i, lp in enumerate(layers):
-        if cfg.remat and caches is None and _needs_grad(h, lp):
-            h = _remat_layer(lp, h, cfg, policy, positions)
-            continue
-        lc = caches[i] if caches is not None else None
-        h, nc = _dense_layer_fwd(lp, h, cfg, policy, positions, lc)
-        new_caches.append(nc)
-    return h, new_caches
+def _stack(layers: List[dict], h: torch.Tensor, aux: torch.Tensor,
+           cfg: ModelConfig, caches: Optional[List], step):
+    """Run ``step(lp, h, cache) -> (h, new cache, aux (2,) or None)`` over
+    the layers in order, adding their aux values to ``aux`` in layer order
+    (JAX's ``_scan_layers``).  Under autograd with ``cfg.remat`` (and
+    ``cfg.scan_layers``) each layer — or each group of ``cfg.scan_group``
+    layers where that divides the stack, JAX's nested scan — is one
+    rematerialized region."""
+    n = len(layers)
+    if not (cfg.remat and cfg.scan_layers and caches is None
+            and _needs_grad(h, layers)):
+        new_caches = []
+        for i, lp in enumerate(layers):
+            h, nc, a = step(lp, h, caches[i] if caches is not None else None)
+            if a is not None:
+                aux = aux + a
+            new_caches.append(nc)
+        return h, aux, new_caches
+    g = max(1, cfg.scan_group)
+    g = g if g > 1 and n % g == 0 and n > g else 1
+
+    def region(group):
+        def body(h, aux):
+            for lp in group:
+                h, _, a = step(lp, h, None)
+                if a is not None:
+                    aux = aux + a
+            return h, aux
+
+        return body
+
+    for s in range(0, n, g):
+        h, aux = _remat(region(layers[s:s + g]), h, aux)
+    return h, aux, []
 
 
 def forward(params: dict, inputs: Dict[str, torch.Tensor], cfg: ModelConfig,
             policy: PrecisionPolicy, *, cache: Optional[ModelCache] = None,
-            mesh=None) -> Tuple[torch.Tensor, Optional[ModelCache]]:
-    """Returns (logits (B, S, vocab), updated cache or None).
+            mesh=None
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor],
+                       Optional[ModelCache]]:
+    """Returns (logits (B, S, vocab), aux losses, updated cache or None).
 
     ``inputs``: {"tokens": (B, S) int} and/or {"embeds": (B, S, D)} (audio),
     and optionally {"patch_embeds": (B, P, D)} (vlm), prepended to the
     token embeddings.  ``mesh`` is the MoE family's expert-parallel mesh
-    (not ported: an MoE forward given one raises); the other families take
-    and ignore it.  The MoE layers' aux losses are not returned (the
-    serving path does not read them)."""
+    (``models.moe.moe_forward_ep``, laid out by the installed sharding
+    rules); the other families take and ignore it.  The aux losses are
+    ``{"moe_aux", "moe_zloss"}``, the MoE layers' summed in layer order
+    (zeros for the other families)."""
     if "tokens" in inputs:
         h = embed(inputs["tokens"], params["embed"]["table"])
         if "patch_embeds" in inputs and cfg.family == "vlm":
@@ -313,29 +351,40 @@ def forward(params: dict, inputs: Dict[str, torch.Tensor], cfg: ModelConfig,
         B, S)
     has_cache = cache is not None
     new_cache = None
+    aux = torch.zeros(2, device=h.device)
+
+    def dense_step(lp, h, lc):
+        h, nc = _dense_layer_fwd(lp, h, cfg, policy, positions, lc)
+        return h, nc, None
+
     if cfg.family in ("dense", "vlm", "audio"):
-        h, nc = _dense_stack(params["layers"], h, cfg, policy, positions,
-                             cache.attn if has_cache else None)
+        h, aux, nc = _stack(params["layers"], h, aux, cfg,
+                            cache.attn if has_cache else None, dense_step)
         new_cache = ModelCache(nc) if has_cache else None
     elif cfg.family == "moe":
+        moe_kw = sharding_lib.moe_layer_kwargs() if mesh is not None else None
+
+        def moe_step(lp, h, lc):
+            h, nc, a = _moe_layer_fwd(lp, h, cfg, policy, positions, lc,
+                                      mesh, moe_kw)
+            return h, nc, torch.stack([a["moe_aux"], a["moe_zloss"]])
+
         nc_dense = None
         if cfg.first_k_dense:
-            h, nc_dense = _dense_stack(
-                params["dense_layers"], h, cfg, policy, positions,
-                cache.dense_attn if has_cache else None)
-        nc = []
-        for i, lp in enumerate(params["layers"]):
-            lc = cache.attn[i] if has_cache else None
-            h, c, _ = _moe_layer_fwd(lp, h, cfg, policy, positions, lc, mesh)
-            nc.append(c)
+            h, _, nc_dense = _stack(
+                params["dense_layers"], h, aux, cfg,
+                cache.dense_attn if has_cache else None, dense_step)
+        h, aux, nc = _stack(params["layers"], h, aux, cfg,
+                            cache.attn if has_cache else None, moe_step)
         if has_cache:
             new_cache = ModelCache(attn=nc, dense_attn=nc_dense)
     elif cfg.family == "ssm":
-        nc = []
-        for i, lp in enumerate(params["layers"]):
-            h, c = _ssm_layer_fwd(lp, h, cfg, policy,
-                                  cache.ssm[i] if has_cache else None)
-            nc.append(c)
+        def ssm_step(lp, h, lc):
+            h, nc = _ssm_layer_fwd(lp, h, cfg, policy, lc)
+            return h, nc, None
+
+        h, aux, nc = _stack(params["layers"], h, aux, cfg,
+                            cache.ssm if has_cache else None, ssm_step)
         if has_cache:
             new_cache = ModelCache(ssm=nc)
     elif cfg.family == "hybrid":
@@ -348,20 +397,23 @@ def forward(params: dict, inputs: Dict[str, torch.Tensor], cfg: ModelConfig,
     logits = unembed(h, head["w"], policy)
     if cfg.padded_vocab != cfg.vocab:
         logits = logits[..., :cfg.vocab]
-    return logits, new_cache
+    return logits, {"moe_aux": aux[0], "moe_zloss": aux[1]}, new_cache
 
 
 def _hybrid_forward(params: dict, h: torch.Tensor, cfg: ModelConfig,
                     policy: PrecisionPolicy, positions: torch.Tensor,
                     cache: Optional[ModelCache]):
     """zamba2: per group, the ONE shared attention + MLP block (with this
-    group's LoRA on wq / wo) then ``hybrid_attn_every`` Mamba2 layers."""
+    group's LoRA on wq / wo) then ``hybrid_attn_every`` Mamba2 layers;
+    under autograd with ``cfg.remat`` each group is one rematerialized
+    region (JAX: ``jax.checkpoint`` of the group scan's body)."""
     shared = params["shared_block"]
     loras = params.get("shared_lora")
     every = cfg.hybrid_attn_every
     has_cache = cache is not None
     new_ssm, new_attn = [], []
-    for g in range(cfg.n_layers // every):
+
+    def group(g, h):
         a_in = rms_norm(h, shared["ln1"]["w"], cfg.norm_eps)
         a_out, nac = _attn_block(
             shared, a_in, cfg, policy, positions,
@@ -371,11 +423,21 @@ def _hybrid_forward(params: dict, h: torch.Tensor, cfg: ModelConfig,
         m_in = rms_norm(h, shared["ln2"]["w"], cfg.norm_eps)
         m = shared["mlp"]
         h = h + swiglu_mlp(m_in, m["w_gate"], m["w_up"], m["w_down"], policy)
-        new_attn.append(nac)
+        ncs = []
         for i in range(g * every, (g + 1) * every):
             h, nc = _ssm_layer_fwd(params["layers"][i], h, cfg, policy,
                                    cache.ssm[i] if has_cache else None)
-            new_ssm.append(nc)
+            ncs.append(nc)
+        return h, nac, ncs
+
+    remat = cfg.remat and not has_cache and _needs_grad(h, params)
+    for g in range(cfg.n_layers // every):
+        if remat:
+            h = _remat(lambda h, g=g: group(g, h)[0], h)
+            continue
+        h, nac, ncs = group(g, h)
+        new_attn.append(nac)
+        new_ssm.extend(ncs)
     if has_cache:
         return h, ModelCache(ssm=new_ssm, shared_attn=new_attn)
     return h, None

@@ -103,8 +103,8 @@ def prelimb_dense_params(params: dict, n_limbs: int) -> dict:
 def make_prefill_step(cfg: ModelConfig, policy: PrecisionPolicy, mesh=None):
     """(params, inputs, cache) -> (last-position logits (B, 1, V), cache)."""
     def prefill_step(params, inputs, cache):
-        logits, new_cache = T.forward(params, inputs, cfg, policy, cache=cache,
-                                      mesh=mesh)
+        logits, _, new_cache = T.forward(params, inputs, cfg, policy,
+                                         cache=cache, mesh=mesh)
         return logits[:, -1:, :], new_cache
 
     return prefill_step
@@ -113,8 +113,9 @@ def make_prefill_step(cfg: ModelConfig, policy: PrecisionPolicy, mesh=None):
 def make_serve_step(cfg: ModelConfig, policy: PrecisionPolicy, mesh=None):
     """(params, cache, tokens (B, 1)) -> (logits (B, 1, V), cache)."""
     def serve_step(params, cache, tokens):
-        return T.forward(params, {"tokens": tokens}, cfg, policy, cache=cache,
-                         mesh=mesh)
+        logits, _, new_cache = T.forward(params, {"tokens": tokens}, cfg,
+                                         policy, cache=cache, mesh=mesh)
+        return logits, new_cache
 
     return serve_step
 
@@ -136,8 +137,8 @@ def make_paged_prefill_step(cfg: ModelConfig, policy: PrecisionPolicy,
     non-finite stat)."""
     def step(params, pool_k, pool_v, table, lengths, tokens, last_idx: int):
         cache = T.paged_cache(pool_k, pool_v, table, lengths)
-        logits, _ = T.forward(params, {"tokens": tokens}, cfg, policy,
-                              cache=cache, mesh=mesh)
+        logits, _, _ = T.forward(params, {"tokens": tokens}, cfg, policy,
+                                 cache=cache, mesh=mesh)
         last = logits[:, last_idx:last_idx + 1]
         stat = last[:, 0].abs().amax(dim=-1)
         return last, stat, pool_k, pool_v
@@ -154,8 +155,8 @@ def make_paged_decode_step(cfg: ModelConfig, policy: PrecisionPolicy,
     ``(logits (B, 1, V), guard_stat (B,), pool_k, pool_v)``."""
     def step(params, pool_k, pool_v, table, lengths, tokens):
         cache = T.paged_cache(pool_k, pool_v, table, lengths)
-        logits, _ = T.forward(params, {"tokens": tokens}, cfg, policy,
-                              cache=cache, mesh=mesh)
+        logits, _, _ = T.forward(params, {"tokens": tokens}, cfg, policy,
+                                 cache=cache, mesh=mesh)
         stat = logits[:, -1].abs().amax(dim=-1)
         return logits, stat, pool_k, pool_v
 
@@ -186,8 +187,8 @@ def make_mixed_decode_step(cfg: ModelConfig,
         cache = T.paged_cache(pool_k, pool_v, table, lengths)
         ctx = lanes_lib.LaneCtx(envelope, lane_n, lane_ord)
         with lanes_lib.lane_scope(ctx):
-            logits, _ = T.forward(params, {"tokens": tokens}, cfg, carrier,
-                                  cache=cache, mesh=mesh)
+            logits, _, _ = T.forward(params, {"tokens": tokens}, cfg,
+                                     carrier, cache=cache, mesh=mesh)
         stat = logits[:, -1].abs().amax(dim=-1)
         return logits, stat, pool_k, pool_v
 

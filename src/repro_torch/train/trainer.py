@@ -1,10 +1,12 @@
 """Fault-tolerant training loop and its step (port of
-``repro.train.trainer``, the dense family on one device).
+``repro.train.trainer``; every model family, on one device or with the
+MoE family's expert-parallel mesh).
 
     train_step(state, batch) -> (state', metrics)
 
 The step is the forward of ``models.transformer`` under the precision
-policy, the f32 cross entropy, the backward through the differentiable
+policy, the f32 cross entropy plus the MoE aux and router z-losses, the
+backward through the differentiable
 multi-precision ops (``core/mpmatmul.py``: the forward kernels at the
 dgrad/wgrad formats) and one AdamW update.  PyTorch runs it eagerly: there
 is no ``jit``, and a step is one call.
@@ -58,6 +60,8 @@ class TrainerConfig:
     warmup: int = 100
     total_steps: int = 1000
     microbatch: int = 0          # 0 = no gradient accumulation
+    aux_weight: float = 0.01
+    zloss_weight: float = 1e-4
     ckpt_dir: str = ""
     ckpt_every: int = 100
     keep: int = 3
@@ -70,20 +74,29 @@ class TrainerConfig:
 
 
 def make_loss_fn(cfg: ModelConfig, policy: PrecisionPolicy,
+                 tcfg: Optional[TrainerConfig] = None,
                  mesh=None) -> Callable:
     """loss_fn(params, batch) -> (loss, extras): the mean over tokens of the
-    f32 ``logsumexp`` minus the label's logit (the dense family has no
-    auxiliary losses; the MoE weights come with that family)."""
+    f32 ``logsumexp`` minus the label's logit (the VLM's patch positions
+    sliced off), plus ``tcfg.aux_weight`` x the MoE load-balance aux and
+    ``tcfg.zloss_weight`` x the router z-loss (zeros for the other
+    families); extras ``{"nll", "moe_aux", "moe_zloss"}``.  ``tcfg``
+    defaults to ``TrainerConfig()``'s weights."""
+    tcfg = tcfg if tcfg is not None else TrainerConfig()
 
     def loss_fn(params, batch):
         inputs = {k: v for k, v in batch.items() if k != "labels"}
-        logits, _ = T.forward(params, inputs, cfg, policy, mesh=mesh)
+        logits, aux, _ = T.forward(params, inputs, cfg, policy, mesh=mesh)
+        if cfg.family == "vlm" and "patch_embeds" in inputs:
+            logits = logits[:, inputs["patch_embeds"].shape[1]:, :]
         logits = logits.float()
         lse = torch.logsumexp(logits, dim=-1)
         picked = torch.gather(logits, -1,
                               batch["labels"].long()[..., None])[..., 0]
         nll = torch.mean(lse - picked)
-        return nll, {"nll": nll}
+        loss = (nll + tcfg.aux_weight * aux["moe_aux"]
+                + tcfg.zloss_weight * aux["moe_zloss"])
+        return loss, {"nll": nll, **aux}
 
     return loss_fn
 
@@ -109,7 +122,7 @@ def _backend_scope(name: str):
 
 def make_train_step(cfg: ModelConfig, policy: PrecisionPolicy,
                     tcfg: TrainerConfig, mesh=None) -> Callable:
-    loss_fn = make_loss_fn(cfg, policy, mesh=mesh)
+    loss_fn = make_loss_fn(cfg, policy, tcfg, mesh=mesh)
     sched = sched_lib.SCHEDULES[tcfg.schedule]
 
     def train_step(state: TrainState, batch) -> Tuple[TrainState, Dict]:
@@ -138,7 +151,9 @@ def _batch_size(batch) -> int:
 
 def _accum_grads(loss_fn, params, batch, micro: int):
     """Gradient accumulation over microbatches of ``micro`` rows, in row
-    order; the mean of their gradients and losses."""
+    order: the mean of their gradients and of their losses (aux terms
+    included); the metrics report that mean as ``nll`` and zero aux, as
+    the JAX package does."""
     B = _batch_size(batch)
     if B % micro:
         raise ValueError(f"batch {B} is not a multiple of microbatch {micro}")
@@ -152,7 +167,9 @@ def _accum_grads(loss_fn, params, batch, micro: int):
         g_acc = tree_lib.map_(torch.add, g_acc, g)
         l_acc = loss if l_acc is None else l_acc + loss
     g_mean = tree_lib.map_(lambda g: g / n, g_acc)
-    return g_mean, {"loss": l_acc / n, "nll": l_acc / n}
+    zero = torch.zeros((), device=l_acc.device)
+    return g_mean, {"loss": l_acc / n, "nll": l_acc / n, "moe_aux": zero,
+                    "moe_zloss": zero}
 
 
 # =========================================================================

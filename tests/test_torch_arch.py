@@ -114,8 +114,8 @@ def test_smoke_forward_logits_match_jax(arch, policy):
     jl, _, _ = JT.forward(jp, {k: jnp.asarray(v) for k, v in inputs.items()},
                           jcfg, getattr(JPolicy, policy)())
     with torch.no_grad():
-        pl, _ = PT.forward(pp, _torch_inputs(inputs), pcfg,
-                           getattr(PPolicy, policy)())
+        pl, _, _ = PT.forward(pp, _torch_inputs(inputs), pcfg,
+                              getattr(PPolicy, policy)())
     jl = np.asarray(jl)
     assert pl.shape == jl.shape
     np.testing.assert_allclose(pl.numpy(), jl, rtol=0,
@@ -133,14 +133,14 @@ def test_decode_matches_full_forward(arch):
     toks = torch.as_tensor(np.random.default_rng(2).integers(
         0, cfg.vocab, (B, S)))
     with torch.no_grad():
-        full, _ = PT.forward(params, {"tokens": toks}, cfg, policy)
+        full, _, _ = PT.forward(params, {"tokens": toks}, cfg, policy)
         cache = PT.make_cache(cfg, B, 32, dtype=torch.float32)
-        lg, cache = PT.forward(params, {"tokens": toks[:, :12]}, cfg, policy,
-                               cache=cache)
+        lg, _, cache = PT.forward(params, {"tokens": toks[:, :12]}, cfg,
+                                  policy, cache=cache)
         outs = [lg[:, -1]]
         for i in range(12, S):
-            lg, cache = PT.forward(params, {"tokens": toks[:, i:i + 1]}, cfg,
-                                   policy, cache=cache)
+            lg, _, cache = PT.forward(params, {"tokens": toks[:, i:i + 1]},
+                                      cfg, policy, cache=cache)
             outs.append(lg[:, -1])
     assert cache.length == S
     dec, ref = torch.stack(outs, dim=1), full[:, 11:S]

@@ -206,15 +206,56 @@ def test_batched_expert_launch_is_the_per_expert_loop():
 
 
 def test_moe_forward_with_a_mesh_raises():
+    """A mesh goes to the expert-parallel path (tests/test_torch_moe_ep.py),
+    which refuses a mesh without the data and model axes it splits over."""
+    import types
+
     _, pd = _moe_dims(0)
-    with pytest.raises(NotImplementedError, match="moe_forward_ep"):
+    mesh = types.SimpleNamespace(mesh_dim_names=("data",))
+    with pytest.raises(ValueError, match="model"):
         pmoe.moe_forward({}, torch.zeros(1, 1, pd.d_model), pd,
-                         PPolicy.serve_default(), mesh=object())
+                         PPolicy.serve_default(), mesh=mesh)
 
 
 # ---------------------------------------------------------------------- SSM
 SSM_J, SSM_P = j_mamba.SMOKE.ssm, registry.get_config(
     "mamba2-130m", smoke=True).ssm
+
+
+def test_ssd_gradient_is_finite_over_a_long_chunk():
+    """Over a 128-position chunk with many heads, cum_i - cum_j above the
+    diagonal overflows exp: the JAX package masks after the exp and its
+    gradient is NaN there (0 * inf); the port masks before it.  Forward
+    within 1e-5 of JAX's, the port's gradients finite and equal to JAX's
+    on every leaf JAX's are finite."""
+    kw = dict(d_model=64, d_state=16, head_dim=4, expand=2, chunk=128)
+    jd, pd = jssm.SSMDims(**kw), pssm.SSMDims(**kw)
+    jp = jssm.init_ssm_params(jax.random.PRNGKey(5), jd)
+    x = _x(21, 1, 128, 64)
+
+    def jf(p):
+        return jnp.sum(jssm.ssm_forward(p, jnp.asarray(x), jd,
+                                        JPolicy.full_fp32())[0])
+
+    from repro.core import context as jcontext
+
+    with jcontext.context(backend="ref"):
+        jy = jssm.ssm_forward(jp, jnp.asarray(x), jd, JPolicy.full_fp32())[0]
+        jg = jax.grad(jf)(jp)
+    pp = {k: torch.tensor(np.asarray(v), requires_grad=True)
+          for k, v in jp.items()}
+    py, _ = pssm.ssm_forward(pp, torch.as_tensor(x), pd, PPolicy.full_fp32())
+    py.sum().backward()
+    np.testing.assert_allclose(py.detach().numpy(), np.asarray(jy),
+                               rtol=0, atol=1e-5 * np.abs(jy).max())
+    nan_in_jax = [k for k, g in jg.items() if np.isnan(np.asarray(g)).any()]
+    assert nan_in_jax   # the overflow this case is built to reach
+    for k, g in jg.items():
+        got = pp[k].grad.numpy()
+        assert np.isfinite(got).all(), k
+        if k not in nan_in_jax:
+            g = np.asarray(g)
+            assert np.abs(got - g).max() <= 5e-4 * np.abs(g).max(), k
 
 
 def test_causal_conv_matches_jax():

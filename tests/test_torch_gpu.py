@@ -335,6 +335,27 @@ def test_batched_expert_launch_is_the_per_expert_loop(cuda, mode):
                                one.view(torch.int32)), (T, e)
 
 
+@pytest.mark.parametrize("mode", ["M8", "M16"])
+def test_batched_expert_backward_shapes_are_the_per_expert_loop(cuda, mode):
+    """The experts' backward launches: the dgrad (E, T, F) against the
+    (E, F, D) transposed view of the stacked weights, and the 3-D wgrad
+    x^T (a stride-0 batch) against (E, T, F): each one launch, each
+    expert's slice bitwise its lone launch on contiguous copies."""
+    w = _randn(cuda, 8, 256, 176, seed=101)
+    g = _randn(cuda, 8, 300, 176, seed=102)
+    x = _randn(cuda, 300, 256, seed=103)
+    for a, b in ((g, w.transpose(-1, -2)), (x.t(), g)):
+        before = mp_matmul.mp_fused_matmul.launches
+        out = mp_matmul.mp_fused_matmul(a, b, mode)
+        assert mp_matmul.mp_fused_matmul.launches == before + 1
+        for e in range(w.shape[0]):
+            ae = (a if a.ndim == 2 else a[e]).contiguous()
+            one = mp_matmul.mp_fused_matmul(ae, b[e].contiguous(), mode)
+            torch.cuda.synchronize()
+            assert torch.equal(out[e].view(torch.int32),
+                               one.view(torch.int32)), e
+
+
 # the cuda route's distance from the ref backend on one full-width MLA
 # layer, in the norm: set from the card's readings, between the sound run
 # (9.08e-4 on an H100) and the same layer with its QK one format lower, M8

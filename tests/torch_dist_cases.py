@@ -343,3 +343,123 @@ def train_value_and_grad(jax_params, tokens, labels):
                                       tree_lib.items(grads)},
                         collectives.counts()["all_reduce"]["calls"])
     return out
+
+
+# ---------------------------------------------------------------- MoE EP
+def moe_ep(params, x, dims_kw, route_kw, ct=None, policy="full_fp32"):
+    """moe_forward_ep on a (data 2, model 2) mesh: its output and aux, the
+    collectives of the forward (and of the backward), and the dense
+    oracle on the same params; with ``ct`` the gradients of
+    sum(out * ct) + 0.01 aux + 1e-4 zloss w.r.t. x and every param."""
+    from repro_torch.core.policy import PrecisionPolicy
+    from repro_torch.models import moe
+
+    mesh = mesh_lib.make_debug_mesh(data=2, model=2)
+    dims = moe.MoEDims(**dims_kw)
+    grad = ct is not None
+    p = tree_lib.map_(lambda a: _t(a).clone().requires_grad_(grad), params)
+    xt = _t(x).clone().requires_grad_(grad)
+    pol = getattr(PrecisionPolicy, policy)()
+    collectives.reset_counts()
+    out, aux = moe.moe_forward_ep(p, xt, dims, pol, mesh, **route_kw)
+    res = {"out": _np(out),
+           "aux": {k: float(v.detach()) for k, v in aux.items()},
+           "fwd_counts": collectives.counts()}
+    if grad:
+        loss = ((out * _t(ct)).sum() + 0.01 * aux["moe_aux"]
+                + 1e-4 * aux["moe_zloss"])
+        leaves = [xt] + tree_lib.leaves(p)
+        gs = torch.autograd.grad(loss, leaves)
+        res["grads"] = {"x": _np(gs[0]), **{
+            path: _np(g) for (path, _), g in zip(tree_lib.items(p), gs[1:])}}
+        res["counts"] = collectives.counts()
+    with torch.no_grad():
+        dense, _ = moe.moe_forward_dense(p, xt, dims, pol)
+    res["dense"] = _np(dense)
+    return res
+
+
+def _moe_smoke(jax_params):
+    from repro_torch.configs import registry
+    from repro_torch.weights import params_from_jax
+
+    return (registry.get_config("deepseek-v2-lite-16b", smoke=True),
+            params_from_jax(jax_params))
+
+
+def moe_model_grads(jax_params, tokens, labels):
+    """One value_and_grad of the MoE SMOKE model (loss with aux and
+    z-loss) with the expert-parallel mesh and without (all experts), and
+    the collectives of the mesh's run."""
+    from repro_torch.core.policy import PrecisionPolicy
+    from repro_torch.train import trainer as trainer_lib
+
+    cfg, params = _moe_smoke(jax_params)
+    mesh = mesh_lib.make_debug_mesh(data=2, model=2)
+    batch = {"tokens": _t(tokens).long(), "labels": _t(labels).long()}
+    out = {}
+    for tag, m in (("ep", mesh), ("dense", None)):
+        loss_fn = trainer_lib.make_loss_fn(cfg, PrecisionPolicy.full_fp32(),
+                                           mesh=m)
+        collectives.reset_counts()
+        (loss, extras), grads = trainer_lib.value_and_grad(loss_fn, params,
+                                                           batch)
+        out[tag] = (float(loss), {k: float(v) for k, v in extras.items()},
+                    {p: _np(g) for p, g in tree_lib.items(grads)},
+                    collectives.counts())
+    return out
+
+
+def moe_model_serve_train(jax_params, prompts, max_new, ck_dir):
+    """ServeEngine(mesh=...) on the MoE SMOKE (prefill on the split route,
+    decode on the replicated one) against the one-rank engine; two
+    Trainer.run steps with the mesh and without; the trained state's
+    checkpoint restored with the experts by shard."""
+    from repro_torch.checkpoint import checkpoint as ckpt_lib
+    from repro_torch.core.policy import PrecisionPolicy
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.dist import sharding as sh
+    from repro_torch.optim import adamw
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.train import trainer as trainer_lib
+
+    cfg, params = _moe_smoke(jax_params)
+    mesh = mesh_lib.make_debug_mesh(data=2, model=2)
+    prompts = [np.asarray(p, np.int32) for p in prompts]
+    pol = PrecisionPolicy.full_fp32()
+    out = {}
+    for tag, m in (("ep", mesh), ("dense", None)):
+        eng = ServeEngine(cfg, params, max_batch=len(prompts), max_seq=48,
+                          device="cpu", policy=pol, mesh=m)
+        collectives.reset_counts()
+        toks = eng.generate(prompts, max_new=max_new)
+        out[f"generate_{tag}"] = (toks, collectives.counts())
+    pipe = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=9,
+                                  global_batch=4))
+    for tag, m in (("ep", mesh), ("dense", None)):
+        rank_dir = f"{ck_dir}/rank{torch.distributed.get_rank()}"
+        # aux weight 0: the load-balance aux is a mean over the ranks'
+        # token slices with the mesh, over all tokens without
+        tr = trainer_lib.Trainer(cfg, trainer_lib.TrainerConfig(
+            total_steps=10, warmup=2, ckpt_dir=rank_dir if m else "",
+            ckpt_every=2, aux_weight=0.0), policy=pol, device="cpu", mesh=m)
+        state = trainer_lib.TrainState(params, adamw.init(params,
+                                                          tr.tcfg.opt))
+        state, hist = tr.run(pipe, num_steps=2, log_every=0, state=state)
+        out[f"train_{tag}"] = hist
+        if m is not None:
+            shs = sh.expert_shardings(state, mesh)
+            got, _ = ckpt_lib.restore(rank_dir, 2, state, shardings=shs)
+            got = got.params
+            w = got["layers"][0]["moe"]["w_gate"]
+            full = state.params["layers"][0]["moe"]["w_gate"]
+            E, D = full.shape[:2]
+            mi, di = mesh.get_local_rank("model"), mesh.get_local_rank("data")
+            out["restore"] = (
+                _np(w.to_local()),
+                _np(full[mi * E // 2:(mi + 1) * E // 2,
+                         di * D // 2:(di + 1) * D // 2]),
+                tuple(w.shape),
+                _np(got["layers"][0]["moe"]["router"].to_local()),
+                _np(state.params["layers"][0]["moe"]["router"]))
+    return out
