@@ -192,6 +192,7 @@ import contextlib
 import dataclasses
 import json
 import math
+import os
 import shutil
 import subprocess
 import sys
@@ -199,9 +200,6 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-PEAK_OPS = 989e12      # H100 SXM dense bf16 tensor-core rate (ops/s)
-PEAK_BYTES = 3.35e12   # H100 SXM HBM3 (bytes/s)
-PEAK_F32 = 67e12       # H100 SXM f32 outside the tensor cores (ops/s)
 U32 = 2.0 ** -24       # f32 unit roundoff
 SOURCES = {
     "mp_fused_matmul": ("src/repro_torch/kernels/csrc/mp_matmul.cu",
@@ -1128,6 +1126,9 @@ def plain_held(fail, tag):
             return out
 
     def hold(name, check, out, args, kw):
+        # the autotuner's launch parameters change no bit, and the plain
+        # versions take none
+        kw = {k: v for k, v in kw.items() if k not in ("tune", "block_q")}
         with torch.no_grad():
             ref, tol = check(*args, **kw)
             err = (out - ref).abs()
@@ -3127,6 +3128,257 @@ def ep_phase(fail, smi):
     return res
 
 
+# ---- [autotune] and [roofline] ---------------------------------------------
+AUTOTUNE_DIR = ROOT / "build" / "autotune_smoke"   # a fresh table each run
+AUTOTUNE_ITERS = 5
+# one dry-run cell per family (the cheap shape of each): rank 0 of the
+# 256-rank fake world, in a subprocess
+DRYRUN_CELLS = ("deepseek-7b:decode_32k", "deepseek-v2-lite-16b:decode_32k",
+                "mamba2-130m:long_500k", "zamba2-2.7b:decode_32k",
+                "llava-next-34b:decode_32k", "hubert-xlarge:train_4k")
+ROOFLINE_MAX_SHARE = 1.05   # no card beats its roofline
+
+
+def autotune_keys(cfg, params, policy, rows=(8 * 256, 8)):
+    """The launch keys of one ``generate`` of the full-width model (8
+    prompts padded to 256, decode at 8 rows) that dispatch tunes: at each
+    row count the QKV and SwiGLU projections, ``wo``, ``w_down`` and
+    ``lm_head`` at the policy's formats (keyed as dispatch keys them), then
+    flash at (8, 256, 12, 64) and the scheduler's B = 1 prefill.  Returns
+    (matmul keys as autotune() arguments, attention keys likewise)."""
+    def fmt(op_class):
+        return policy.mode(op_class).name
+
+    lp = params["layers"][0]
+    d = cfg.d_model
+    wq, wk, wv = (lp["attn"][k].shape[1] for k in ("wq", "wk", "wv"))
+    qkv = (3, wq) if wq == wk == wv else (1, wq + wk + wv)
+    ff, V = lp["mlp"]["w_gate"].shape[1], params["lm_head"]["w"].shape[1]
+    mm = []
+    for M in rows:
+        mm += [(M, d, qkv[1], fmt("qkv"), qkv[0], "none"),
+               (M, d, ff, fmt("ffn"), 2, "swiglu"),
+               (M, lp["attn"]["wo"].shape[0], d, fmt("attn_out"), 1, "none"),
+               (M, ff, d, fmt("ffn"), 1, "none"),
+               (M, d, V, fmt("lm_head"), 1, "none")]
+    H, Dh = cfg.n_heads, cfg.resolved_head_dim
+    attn = [(B * H, 256, 256, Dh, fmt("attn_qk"), fmt("attn_pv"))
+            for B in (8, 1)]
+    return mm, attn
+
+
+def autotune_phase(cfg, params, prompts, main_outs, smi) -> dict:
+    """Sweep the full-width keys into a fresh table (every candidate held
+    bitwise against the default launch inside the sweep), then a generate
+    with the switch off reads it: no sweep, a hit on every key generate
+    uses, the tokens of [main] bitwise; then a fresh process reads the same
+    table from disk and does not sweep."""
+    from repro_torch.kernels import autotune as at
+
+    shutil.rmtree(AUTOTUNE_DIR, ignore_errors=True)
+    before = os.environ.get("REPRO_AUTOTUNE_CACHE_DIR")
+    os.environ["REPRO_AUTOTUNE_CACHE_DIR"] = str(AUTOTUNE_DIR)
+    at.clear_memory_cache()
+    try:
+        return _autotune_run(cfg, params, prompts, main_outs, smi)
+    finally:   # the other phases launch with the defaults
+        os.environ["REPRO_AUTOTUNE_CACHE_DIR"] = before
+        at.clear_memory_cache()
+
+
+def _autotune_run(cfg, params, prompts, main_outs, smi) -> dict:
+    import torch
+
+    import repro_torch.mp as mp
+    from repro_torch.core.policy import PrecisionPolicy
+    from repro_torch.kernels import autotune as at
+    from repro_torch.serve.engine import ServeEngine
+
+    policy = PrecisionPolicy.serve_default()
+    eng = ServeEngine(cfg, params, max_batch=8, max_seq=512,
+                      prelimb_weights=False, policy=policy)
+    mm, attn = autotune_keys(cfg, params, policy)
+    keys = [at.table_key(M, K, N, f, torch.float32, n_out=n, epilogue=e)
+            for M, K, N, f, n, e in mm]
+    akeys = [at.attention_table_key(bh, S, T_, Dh, fq, fp, causal=True)
+             for bh, S, T_, Dh, fq, fp in attn]
+    gen_keys = set(keys) | {akeys[0]}     # B = 1 is the scheduler's prefill
+    at.reset_stats()
+    rows = []
+    t0 = time.perf_counter()
+    for (M, K, N, f, n, e), key in zip(mm, keys):
+        rec = {}
+        at.autotune(M, K, N, f, n_out=n, epilogue=e, iters=AUTOTUNE_ITERS,
+                    record=rec)
+        rows.append(rec)
+    for (bh, S, T_, Dh, fq, fp), key in zip(attn, akeys):
+        rec = {}
+        at.autotune_attention(bh, S, T_, Dh, fq, fp, causal=True,
+                              iters=AUTOTUNE_ITERS, record=rec)
+        rows.append(rec)
+    sweep_s = time.perf_counter() - t0
+    for r in rows:
+        log(f"[autotune] {r['key']}: default {r['default_ms']:.4f} ms, "
+            f"winner {r['winner']} {r['winner_ms']:.4f} ms; every candidate "
+            f"bitwise the default launch: "
+            f"{ {k: round(v, 4) for k, v in r['candidates'].items()} } "
+            f"({smi})")
+    st = at.stats()
+    if st["sweeps"] != len(keys) + len(akeys):
+        raise AssertionError(f"[autotune] {st['sweeps']} sweeps for "
+                             f"{len(keys) + len(akeys)} keys")
+    # the switch off: the table is read, nothing sweeps
+    at.reset_stats()
+    with mp.context(autotune=False):
+        outs = eng.generate(prompts, max_new=32)
+    torch.cuda.synchronize()
+    st = at.stats()
+    log(f"[autotune] generate with the switch off: {st['sweeps']} sweeps, "
+        f"{len(st['hit_keys'])} of the {len(gen_keys)} keys it uses hit "
+        f"({st['hits']} hits in {st['lookups']} lookups); tokens "
+        f"{'bitwise' if outs == main_outs else 'NOT'} [main]'s")
+    # every lookup hits, and every key but the scheduler's is looked up
+    if st["sweeps"] or set(st["hit_keys"]) != gen_keys \
+            or st["hits"] != st["lookups"]:
+        raise AssertionError(f"[autotune] the tuned generate swept or "
+                             f"missed: {st}")
+    if outs != main_outs:
+        raise AssertionError("[autotune] the tuned generate's tokens are not "
+                             "[main]'s")
+    table = dict(at.load_table())
+    # a fresh process: the switch ON, every key cached on disk, no sweep
+    code = ("import json, torch\n"
+            "from repro_torch.kernels import autotune as at\n"
+            f"mm, attn = {mm!r}, {attn!r}\n"
+            "got = {}\n"
+            "for M, K, N, f, n, e in mm:\n"
+            "    got[at.table_key(M, K, N, f, torch.float32, n_out=n, "
+            "epilogue=e)] = list(at.autotune(M, K, N, f, n_out=n, "
+            "epilogue=e))\n"
+            "for bh, S, T, Dh, fq, fp in attn:\n"
+            "    got[at.attention_table_key(bh, S, T, Dh, fq, fp, "
+            "causal=True)] = list(at.autotune_attention(bh, S, T, Dh, fq, "
+            "fp))\n"
+            "print(json.dumps({'table': got, 'stats': at.stats()}))\n")
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
+           "REPRO_AUTOTUNE_CACHE_DIR": str(AUTOTUNE_DIR),
+           "REPRO_MP_AUTOTUNE": "1"}
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=300)
+    if out.returncode != 0:
+        raise AssertionError(f"[autotune] the reader process failed:\n"
+                             f"{out.stderr[-3000:]}")
+    sub = json.loads(out.stdout.strip().splitlines()[-1])
+    log(f"[autotune] a fresh process with the switch on read "
+        f"{len(sub['table'])} keys from disk: {sub['stats']['sweeps']} "
+        f"sweeps, {sub['stats']['hits']} hits, table "
+        f"{'equal' if sub['table'] == table else 'DIFFERENT'}")
+    if sub["stats"]["sweeps"] or sub["table"] != table:
+        raise AssertionError("[autotune] the reader process swept or read "
+                             "another table")
+    return dict(keys=rows, sweep_s=sweep_s, table=table,
+                generate_hits=len(gen_keys), reader=sub["stats"])
+
+
+def roofline_phase(cfg, params, prompts, trainer, state, pipe, train_ms,
+                   smi) -> dict:
+    """Count the real [main] prefill and one [train] step under ``cuda``,
+    hold the counts equal to the dry run of the same shapes (meta tensors,
+    ``launch/specs.build_cell``), and read each path's measured time
+    against its roofline bound; then one dry-run cell per family."""
+    import numpy as np
+    import torch
+
+    from repro_torch.analysis import accounting, roofline
+    from repro_torch.configs.shapes import ShapeCell
+    from repro_torch.core.policy import PrecisionPolicy
+    from repro_torch.launch import specs
+    from repro_torch.serve.engine import ServeEngine
+
+    hw = card_rates()
+    out = {}
+    eng = ServeEngine(cfg, params, max_batch=8, max_seq=512,
+                      prelimb_weights=False,
+                      policy=PrecisionPolicy.serve_default())
+    toks = eng.pad_prompts(prompts)
+    eng.prefill(toks, eng.make_cache())
+    ms = []
+    for _ in range(3):
+        cache = eng.make_cache()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.prefill(toks, cache)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    with accounting.count_work() as real_pre:
+        eng.prefill(toks, eng.make_cache())
+        torch.cuda.synchronize()
+    del eng
+    b_train = trainer.to_device(pipe.batch(0))
+    with accounting.count_work() as real_train:
+        trainer._step_fn(state, b_train)
+        torch.cuda.synchronize()
+    for path, real, cell, measured in (
+            ("prefill", real_pre,
+             ShapeCell("main_prefill", toks.shape[1], toks.shape[0],
+                       "prefill"), float(np.median(ms))),
+            ("train", real_train,
+             ShapeCell("train_step", b_train["tokens"].shape[1],
+                       b_train["tokens"].shape[0], "train"), train_ms)):
+        policy = PrecisionPolicy.serve_default() if path == "prefill" \
+            else trainer.policy
+        dry = specs.build_cell("paper-mpfp-100m", cfg, cell, policy=policy)
+        with accounting.count_work() as meta:
+            dry.fn(*dry.args)
+        if meta.summary() != real.summary():
+            raise AssertionError(f"[roofline] {path}: the card's counts "
+                                 f"{real.summary()} != the dry run's "
+                                 f"{meta.summary()}")
+        r = roofline.from_work(real, hw=hw)
+        share = r.bound_s * 1e3 / measured
+        log(f"[roofline] {path} {cell.global_batch} x {cell.seq_len}: "
+            f"{len(real.calls)} dispatch calls, {real.flops:,} flops, "
+            f"{real.bytes:,} bytes, == the dry run's exactly; bound "
+            f"{r.bound_s * 1e3:.4f} ms ({r.dominant}), measured "
+            f"{measured:.3f} ms (host clock after synchronize), share "
+            f"{share:.4f} ({smi})")
+        if share > ROOFLINE_MAX_SHARE:
+            raise AssertionError(f"[roofline] {path}: share {share:.4f} above "
+                                 f"{ROOFLINE_MAX_SHARE}")
+        out[path] = dict(work=real.summary(), bound_ms=r.bound_s * 1e3,
+                         dominant=r.dominant, measured_ms=measured,
+                         share=share, roofline=r.to_dict())
+    # one dry-run cell per family, full size, rank 0 of 256
+    dry_dir = ROOT / "build" / "dryrun_smoke"
+    shutil.rmtree(dry_dir, ignore_errors=True)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--mesh",
+         "single", "--out", str(dry_dir), "--cells", ",".join(DRYRUN_CELLS)],
+        capture_output=True, text=True, timeout=300,
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    dry_s = time.perf_counter() - t0
+    for line in proc.stdout.splitlines():
+        log(f"[roofline] dryrun {line}")
+    if proc.returncode != 0:
+        raise AssertionError(f"[roofline] dryrun failed:\n"
+                             f"{proc.stderr[-3000:]}")
+    recs = {}
+    for c in DRYRUN_CELLS:
+        arch, shape = c.split(":")
+        rec = json.loads((dry_dir / f"singlepod_{arch}_{shape}.json")
+                         .read_text())
+        if rec["status"] != "ok":
+            raise AssertionError(f"[roofline] dryrun {c}: {rec['reason']}")
+        recs[c] = dict(roofline=rec["roofline"], memory=rec["memory"],
+                       work_flops=rec["work"]["flops"],
+                       trace_s=rec["trace_s"])
+    log(f"[roofline] dryrun: {len(recs)} cells in {dry_s:.1f} s")
+    out["dryrun"] = recs
+    out["dryrun_s"] = dry_s
+    return out
+
+
 def log(*args) -> None:
     print(*args, flush=True)
 
@@ -3265,10 +3517,22 @@ def flash_inputs(torch, randn, B, S, T, H, Dh, plant=()):
     return q, k, v
 
 
-def bound(ops: float, nbytes: float, peak_ops: float = PEAK_OPS):
-    t_ops, t_bytes = ops / peak_ops, nbytes / PEAK_BYTES
-    return (max(t_ops, t_bytes) * 1e3,
-            "operations" if t_ops >= t_bytes else "bytes")
+def card_rates():
+    """The H100 SXM's rates from the port's roofline
+    (``repro_torch.analysis.roofline``): every bound of this script."""
+    from repro_torch.analysis import roofline
+
+    return roofline.hardware(roofline.H100_SXM)
+
+
+def bound(ops: float, nbytes: float, peak_ops=None):
+    """(ms, "operations" or "bytes"): the least time the card could take
+    for ``ops`` at ``peak_ops`` (the bf16 tensor-core rate by default) and
+    ``nbytes`` at the HBM rate (``roofline.bound_s``)."""
+    from repro_torch.analysis import roofline
+
+    t, by = roofline.bound_s(ops, nbytes, card_rates(), peak_ops)
+    return t * 1e3, by
 
 
 def main() -> int:
@@ -3278,6 +3542,11 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    # the autotune table every phase but [autotune] reads: an empty one
+    # inside the checkout, so every launch keeps its default choice
+    shutil.rmtree(ROOT / "build" / "autotune_table", ignore_errors=True)
+    os.environ["REPRO_AUTOTUNE_CACHE_DIR"] = str(ROOT / "build"
+                                                 / "autotune_table")
     import numpy as np
 
     import repro_torch.mp as mp
@@ -3698,7 +3967,7 @@ def main() -> int:
         cases["mp_decompose"].append(dict(
             case=label, fmt=f"L{n_limbs}", shape=list(w.shape),
             ops=2 * n_limbs * n, bytes=4 * n + 2 * n_limbs * n,
-            peak=PEAK_F32, main=main, per=None,
+            peak=card_rates().peak_f32, main=main, per=None,
             fn=lambda: mp_matmul.mp_decompose(w, n_limbs),
             plain=lambda: mp_matmul.decompose_plain(w, n_limbs),
             library=None))
@@ -4329,6 +4598,7 @@ def main() -> int:
     if len(outs) != 8 or any(len(o) != 32 for o in outs) or any(
             not 0 <= t < cfg.vocab for o in outs for t in o):
         raise AssertionError("generate returned malformed token streams")
+    main_outs = [list(o) for o in outs]
 
     toks = eng.pad_prompts(prompts)
     torch.cuda.synchronize()
@@ -5014,6 +5284,13 @@ def main() -> int:
         resident_before_bytes=t_base, launches=t_launches,
         launches_per_step=per_step, loss_rel_vs_ref=loss_rel,
         grad_err_vs_ref=leaf_err, wgrad=wgrads)
+
+    # ---- 4f'. [autotune] and [roofline] -----------------------------------
+    t0 = time.perf_counter()
+    report["autotune"] = autotune_phase(cfg, params, prompts, main_outs, smi)
+    report["roofline"] = roofline_phase(cfg, params, prompts, trainer, state,
+                                        pipe, med, smi)
+    log(f"[autotune] + [roofline] {time.perf_counter() - t0:.1f} s")
     del trainer, state, state0, hist
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -5085,8 +5362,7 @@ def main() -> int:
             plain_ms, plain_ahead = device_ms(c["plain"], torch)
             lib_ms, lib_ahead = (device_ms(c["library"], torch)
                                  if c["library"] else (None, True))
-            b_ms, b_by = bound(c["ops"], c["bytes"],
-                               c.get("peak", PEAK_OPS))
+            b_ms, b_by = bound(c["ops"], c["bytes"], c.get("peak"))
             row = {k: v for k, v in c.items()
                    if k not in ("fn", "plain", "library", "peak", "vs",
                                 "library_bf16")}

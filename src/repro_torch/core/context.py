@@ -10,8 +10,9 @@ out of the JSON, as in the JAX package).
 ``configure(...)`` replaces the process default; ``with context(...)``
 pushes a scoped override on a ``contextvars`` ContextVar, so concurrent
 threads may run under different settings.  ``to_json`` / ``from_json``
-round-trip a context in the JAX package's wire form; the port has no
-autotune yet, so its payload carries ``"autotune": null``.
+round-trip a context in the JAX package's wire form, the ``autotune``
+switch included (``true``, ``false`` or ``null``: not configured, so
+:func:`autotune_enabled` reads ``REPRO_MP_AUTOTUNE`` live).
 """
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ import contextlib
 import contextvars
 import dataclasses
 import json
+import os
 from typing import Any, Optional, Tuple, Union
 
 from repro_torch.core import formats
@@ -46,6 +48,9 @@ class PrecisionContext:
     auto_candidates: Tuple[FormatLike, ...] = DEFAULT_AUTO_CANDIDATES
     auto_tol: float = 2.0**-13
     mesh: Any = None  # default mesh for the sharded backend (process-local)
+    # sweep launch parameters on a table miss (kernels/autotune.py); None:
+    # not configured, the REPRO_MP_AUTOTUNE env var decides per call
+    autotune: Optional[bool] = None
 
     def replace(self, **kw) -> "PrecisionContext":
         return dataclasses.replace(self, **kw)
@@ -62,20 +67,16 @@ class PrecisionContext:
             "auto_candidates": names,
             "formats": formats.collect_defs(names),
             "auto_tol": self.auto_tol,
-            "autotune": None,
+            "autotune": self.autotune,
         }, indent=1)
 
     @classmethod
     def from_json(cls, payload: Union[str, bytes, dict]
                   ) -> "PrecisionContext":
         """Hydrate a payload (validated as ``configure`` validates), from
-        either package; the backend must be one of the port's, and autotune
-        null or false (the port has none)."""
+        either package; the backend must be one of the port's."""
         obj = json.loads(payload) if isinstance(payload, (str, bytes)) \
             else payload
-        if obj.get("autotune"):
-            raise ValueError("the payload turns autotune on; the port has "
-                             "no autotune")
         formats.register_defs(obj.get("formats"))
         policy = obj.get("policy")
         backend = obj.get("backend", cls.backend)
@@ -87,7 +88,9 @@ class PrecisionContext:
             policy=None if policy is None
             else PrecisionPolicy.from_json(policy),
             auto_candidates=candidates,
-            auto_tol=float(obj.get("auto_tol", 2.0**-13)))
+            auto_tol=float(obj.get("auto_tol", 2.0**-13)),
+            autotune=None if obj.get("autotune") is None
+            else bool(obj["autotune"]))
 
 
 _process_default: Optional[PrecisionContext] = None
@@ -111,7 +114,7 @@ def current_context() -> PrecisionContext:
 
 def _validate(kw) -> None:
     unknown = set(kw) - {"backend", "policy", "auto_candidates", "auto_tol",
-                         "mesh"}
+                         "mesh", "autotune"}
     if unknown:
         raise TypeError(f"unknown context fields {sorted(unknown)}")
     backend = kw.get("backend", _UNSET)
@@ -188,6 +191,16 @@ def resolve_request_policy(mode=None, policy=None,
     if mode is None:
         return base
     return base.overlay(mode)
+
+
+def autotune_enabled() -> bool:
+    """The effective autotune switch for dispatch: an explicitly configured
+    context flag wins; otherwise the ``REPRO_MP_AUTOTUNE`` env var is read
+    live, on every call (``"1"`` turns sweeps on)."""
+    flag = current_context().autotune
+    if flag is not None:
+        return bool(flag)
+    return os.environ.get("REPRO_MP_AUTOTUNE", "") == "1"
 
 
 def reset_context() -> None:

@@ -42,6 +42,13 @@ backend.  The partitioned-lane (mixed-format decode) routes go to the mixed
 kernels on ``cuda`` and ``sharded`` and to the lane-masked oracle
 elsewhere.
 
+On the card the fused matmul (a 2-D weight), the fused projection and
+flash attention launch with the autotune table's parameters for their
+shape (``kernels/autotune.py``; a miss keeps the default launch, and the
+context's ``autotune`` switch sweeps on a miss); the parameters change no
+bit.  Every route reports its call to ``analysis.accounting`` (nothing
+outside ``count_work``); under ``sharded`` the part this rank runs.
+
 Backends registered with :func:`register_backend` take ``fn(a, b, fmt)``
 for every matmul; their fused projections run per branch through it, their
 attention through the oracle.  The deprecated v1 shims
@@ -57,9 +64,11 @@ from typing import Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.analysis import accounting
 from repro_torch.core import context as context_lib
 from repro_torch.core.formats import FormatLike, MPFormat, is_auto, resolve
 from repro_torch.core.limbs import DD, PrelimbedWeight
+from repro_torch.kernels import autotune
 from repro_torch.kernels import ref as ref_backend
 
 BACKENDS = ("cuda", "ref", "sharded")
@@ -142,6 +151,34 @@ def restored(snap: Tuple):
 # ---------------------------------------------------------------------------
 # backends
 # ---------------------------------------------------------------------------
+def _on_card(*tensors) -> bool:
+    for t in tensors:
+        if not t.is_cuda:
+            return False
+    return True
+
+
+def _tuned_blocks(a, b, fmt: MPFormat):
+    """The autotune table's launch parameters for the fused matmul that
+    ``ops.mp_matmul_cuda`` will launch (``a``'s batch folded into M when
+    ``b`` is 2-D), or None (a miss: today's choice).  Sweeps only when the
+    context's ``autotune`` switch is on (``REPRO_MP_AUTOTUNE=1``);
+    otherwise a pure table read.  Batched ``b`` and tensors off the card
+    take no part."""
+    if b.ndim != 2 or not _on_card(a, b):
+        return None
+    sweep = context_lib.autotune_enabled()
+    if not sweep and not autotune.load_table():
+        return None     # no table: nothing to look up on the host
+    M = 1
+    for d in a.shape[:-1]:
+        M *= d
+    K, N = b.shape
+    if sweep:
+        return autotune.autotune(M, K, N, fmt, dtype=torch.float32)
+    return autotune.lookup(M, K, N, fmt)
+
+
 def _run_cuda(a, b, fmt: MPFormat) -> torch.Tensor:
     from repro_torch.kernels import ops
 
@@ -151,7 +188,7 @@ def _run_cuda(a, b, fmt: MPFormat) -> torch.Tensor:
         if b.ndim != 2:
             raise ValueError("prelimbed weights must be 2-D per matmul")
         return ops.mp_matmul_prelimbed_weights(a, b.limbs, fmt)
-    return ops.mp_matmul_cuda(a, b, fmt)
+    return ops.mp_matmul_cuda(a, b, fmt, tune=_tuned_blocks(a, b, fmt))
 
 
 def _run_ref(a, b, fmt: MPFormat) -> torch.Tensor:
@@ -200,6 +237,8 @@ def _sharded_2d(a: torch.Tensor, b: torch.Tensor, fmt: MPFormat, mesh,
     K = a.shape[1]
     kl = -(-K // n)
     k0, k1 = min(r * kl, K), min((r + 1) * kl, K)
+    accounting.record_matmul(a[:, k0:k1], b[k0:k1], fmt,
+                             out_planes=fmt.n_orders)
     if k1 > k0:
         part = kern.mp_fused_matmul_partials(a[:, k0:k1], b[k0:k1], fmt)
     else:  # more ranks than K: this rank's slice is all padding
@@ -208,6 +247,13 @@ def _sharded_2d(a: torch.Tensor, b: torch.Tensor, fmt: MPFormat, mesh,
     # ONE collective: the (n_orders, M, N) f32 stack
     collectives.all_reduce(part, mesh.get_group(axis))
     return ref_backend.combine_partials(part, fmt)
+
+
+def _local(a, b, fmt: MPFormat) -> torch.Tensor:
+    """The sharded backend computing on this rank alone (the cuda
+    route)."""
+    accounting.record_matmul(a, b, fmt)
+    return _run_cuda(a, b, fmt)
 
 
 def _run_sharded(a, b, fmt: MPFormat, *, mesh=None,
@@ -219,13 +265,13 @@ def _run_sharded(a, b, fmt: MPFormat, *, mesh=None,
     if isinstance(a, (DD, PrelimbedWeight)) \
             or isinstance(b, (DD, PrelimbedWeight)) or b.ndim != 2 \
             or _bound_axis_names():
-        return _run_cuda(a, b, fmt)
+        return _local(a, b, fmt)
     resolved = resolve_mesh(mesh, axis)
     if resolved is None:
-        return _run_cuda(a, b, fmt)
+        return _local(a, b, fmt)
     mesh, axis = resolved
     if mesh.size(mesh.mesh_dim_names.index(axis)) == 1:
-        return _run_cuda(a, b, fmt)
+        return _local(a, b, fmt)
     lead = a.shape[:-1]
     out = _sharded_2d(a.reshape(-1, a.shape[-1]), b, fmt, mesh, axis)
     return out.reshape(tuple(lead) + (b.shape[-1],))
@@ -289,7 +335,10 @@ def dispatch(a, b, mode: FormatLike, *,
     """Route one static-format matmul a (..., M, K) @ b (..., K, N); ``b``
     may be a 2-D :class:`PrelimbedWeight`, and either operand a 2-D
     :class:`DD` pair."""
-    return _REGISTRY[_backend(backend)](a, b, resolve(mode))
+    name = _backend(backend)
+    if name != "sharded":   # the sharded backend reports this rank's part
+        accounting.record_matmul(a, b, mode)
+    return _REGISTRY[name](a, b, resolve(mode))
 
 
 def dispatch_fused(x: torch.Tensor, ws, mode: FormatLike, *,
@@ -303,17 +352,69 @@ def dispatch_fused(x: torch.Tensor, ws, mode: FormatLike, *,
     fmt = resolve(mode)
     ws = tuple(ws)
     name = _backend(backend)
+    accounting.record_fused(x, ws, fmt, gate=gate, biases=biases,
+                            residual=residual)
     if name == "ref":
         return ref_backend.mp_fused_proj_ref(x, ws, fmt, gate=gate,
                                              biases=biases, residual=residual)
     if _kernel_route(name):
         from repro_torch.kernels import ops
 
+        tune = _tuned_blocks_fused(x, ws, fmt, gate, biases is not None,
+                                   residual is not None)
         return ops.mp_fused_proj_cuda(x, ws, fmt, gate=gate, biases=biases,
-                                      residual=residual)
-    raws = [dispatch(x, w, fmt, backend=name) for w in ws]
+                                      residual=residual, tune=tune)
+    with accounting.paused():
+        raws = [dispatch(x, w, fmt, backend=name) for w in ws]
     return ref_backend.apply_epilogue(raws, gate=gate, biases=biases,
                                       residual=residual)
+
+
+def _tuned_blocks_fused(x, ws, fmt: MPFormat, gate: str, has_bias: bool,
+                        has_res: bool):
+    """The autotune table's launch parameters for the fused projection
+    ``ops.mp_fused_proj_cuda`` will launch: equal widths stack (n_out > 1),
+    unequal widths concatenate along N (n_out = 1, N = the sum), as the JAX
+    package keys them.  Same sweep discipline as :func:`_tuned_blocks`."""
+    if not _on_card(x, *ws):
+        return None
+    sweep = context_lib.autotune_enabled()
+    if not sweep and not autotune.load_table():
+        return None
+    M = 1
+    for d in x.shape[:-1]:
+        M *= d
+    K = x.shape[-1]
+    Ns = [w.shape[-1] for w in ws]
+    if len(set(Ns)) == 1 and len(ws) > 1:
+        n_out, N = len(ws), Ns[0]
+    else:
+        n_out, N = 1, sum(Ns)
+    desc = autotune.epilogue_desc(gate, has_bias, has_res)
+    if sweep:
+        return autotune.autotune(M, K, N, fmt, dtype=torch.float32,
+                                 n_out=n_out, epilogue=desc)
+    return autotune.lookup(M, K, N, fmt, n_out=n_out, epilogue=desc)
+
+
+def _attn_blocks(q, k, fmt_qk: MPFormat, fmt_pv: MPFormat, causal: bool):
+    """The autotune table's query rows per block for the flash kernel (a
+    batch x heads / S / T / Dh cell), or None; same sweep discipline as
+    :func:`_tuned_blocks`."""
+    if not _on_card(q, k):
+        return None
+    sweep = context_lib.autotune_enabled()
+    if not sweep and not autotune.load_table():
+        return None
+    B, S, H, Dh = q.shape
+    T = k.shape[1]
+    if sweep:
+        got = autotune.autotune_attention(B * H, S, T, Dh, fmt_qk, fmt_pv,
+                                          causal=causal)
+    else:
+        got = autotune.lookup_attention(B * H, S, T, Dh, fmt_qk, fmt_pv,
+                                        causal=causal)
+    return None if got is None else got[0]
 
 
 def dispatch_attention(q, k, v, mode_qk: FormatLike,
@@ -335,6 +436,9 @@ def dispatch_attention(q, k, v, mode_qk: FormatLike,
         from repro_torch.dist import attention as dist_attn
 
         name = "sharded" if dist_attn.usable_mesh() is not None else "cuda"
+    if name != "sharded" or q.shape[1] != 1:   # sp decode reports its part
+        accounting.record_attention(q, k, v, fmt_qk, fmt_pv, causal=causal,
+                                    q_offset=q_offset)
     if name == "sharded" and q.shape[1] == 1:
         T = k.shape[1]
         ln = min(q_offset + 1, T) if causal else T
@@ -346,9 +450,10 @@ def dispatch_attention(q, k, v, mode_qk: FormatLike,
             q_offset=q_offset)
     from repro_torch.kernels import mp_attention as attn_kernels
 
-    return attn_kernels.mp_flash_attention(q, k, v, fmt_qk, fmt_pv,
-                                           causal=causal, scale=scale,
-                                           q_offset=q_offset)
+    return attn_kernels.mp_flash_attention(
+        q, k, v, fmt_qk, fmt_pv, causal=causal, scale=scale,
+        q_offset=q_offset,
+        block_q=_attn_blocks(q, k, fmt_qk, fmt_pv, causal))
 
 
 def masked_decode_attention(q, k, v, length, mode_qk: FormatLike,

@@ -97,6 +97,12 @@ class MPFormat:
         return tuple(sorted(pairs, key=lambda p: -(p[0] + p[1])))
 
     @property
+    def flops_factor(self) -> float:
+        """FLOP multiplier relative to a single bf16 matmul of the same
+        shape."""
+        return float(self.n_products)
+
+    @property
     def mode(self) -> Optional[PrecisionMode]:
         """The paper enum value for built-in formats, None for custom ones."""
         try:

@@ -42,6 +42,7 @@ from typing import Optional
 import torch
 
 from repro_torch.core import context as context_lib
+from repro_torch.analysis import accounting
 from repro_torch.core import dispatch as dispatch_lib
 from repro_torch.core.formats import FormatLike, is_auto, resolve
 from repro_torch.core.limbs import DD, PrelimbedWeight
@@ -94,6 +95,7 @@ def _wgrad(x: torch.Tensor, dr: torch.Tensor, w_shape, wg, backend
     activation meets a 2-D weight, else a dispatched matmul of the
     transposed view (plus the broadcast reduction)."""
     if len(w_shape) == 2 and x.ndim > 2:
+        accounting.record_wgrad(x, dr, wg)
         return ref_backend.mp_wgrad_ref(x, dr, wg)
     dw = dispatch_lib.dispatch(x.transpose(-1, -2), dr, wg, backend=backend)
     return _unbroadcast(dw, w_shape)

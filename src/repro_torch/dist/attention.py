@@ -72,6 +72,7 @@ def sp_decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     AUTO formats need whole-operand value analysis, and a mesh of one rank
     has nothing to shard: both run ``masked_decode_attention`` on the
     ``cuda`` backend (the JAX package runs its ``ref``)."""
+    from repro_torch.analysis import accounting
     from repro_torch.dist import collectives
 
     mode_pv = mode_pv if mode_pv is not None else mode_qk
@@ -101,6 +102,8 @@ def sp_decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         pad = (0, 0, 0, 0, 0, t_loc - (t1 - t0))
         k_loc = torch.nn.functional.pad(k_loc, pad)
         v_loc = torch.nn.functional.pad(v_loc, pad)
+    accounting.record_attention(q, k_loc, v_loc, fmt_qk, fmt_pv,
+                                causal=False)
     ln = torch.as_tensor(lengths, device=q.device).reshape(-1, 1, 1, 1)
     qh = q.permute(0, 2, 1, 3).float() * scale                 # (B, H, 1, Dh)
     kh = k_loc.permute(0, 2, 1, 3).float()                    # (B, H, t, Dh)

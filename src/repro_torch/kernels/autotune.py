@@ -1,0 +1,532 @@
+"""Autotuner over the CUDA kernels' bit-neutral launch parameters (port of
+``repro.kernels.autotune``, which sweeps the Pallas kernels' block sizes).
+
+The order contract (``csrc/mp_matmul.cu``'s header) fixes every add of
+every output: K runs in chunks of KC from k = 0, one f32 sum per order.
+What is left free moves work between stages and blocks, never an add, so a
+launch at any of these parameters gives the default launch's bits:
+
+  * the decode tile (M <= 16 rows) of the fused matmul and the fused
+    projection: ``dk``, the k of one ring stage, a multiple of KC up to
+    the ring's most (256 for the built-in formats up to three limbs, 128
+    for deeper ones);
+  * their prefill tile (M > 16): ``E``, the outputs per thread, the tile's
+    default (where ptxas stopped spilling) or half of it, for the built-in
+    formats (the library instantiates both);
+  * flash attention: ``block_q``, the query rows per block (16, 32, 64).
+
+A matmul entry of the table is ``[dk, e]`` (0: the default choice), an
+attention entry ``[block_q]``.  The feasibility filter plays the part of
+the JAX package's VMEM budget: a candidate's dynamic shared memory, by the
+kernels' own formulas (mirrored here, and exported by the libraries as
+``mp_tile_smem_bytes``, ``mp_decode_smem_bytes`` and
+``mp_flash_smem_bytes``), must fit the card's opt-in limit, and its
+instantiation must build without a spill (``build.ptxas_summary``).
+
+A sweep first holds each candidate's output bitwise against the default
+launch's (a difference raises: it is a kernel fault, not a slower
+candidate), then times the default and the candidates in turn with CUDA
+events, ``iters`` rounds of back-to-back launches, and keeps the
+candidate with the least median.  Winners persist in one JSON table per
+card, keyed by ``torch.cuda.get_device_name()`` (spaces and slashes
+replaced), under ``REPRO_AUTOTUNE_CACHE_DIR`` or
+``~/.cache/repro_torch/autotune/``; tables are written atomically (tmp
+file, then rename).  Sweeps run only
+when the context's switch is on (``mp.configure(autotune=True)`` or
+``REPRO_MP_AUTOTUNE=1``); :func:`lookup` never sweeps, and a miss keeps
+today's launch choice (dispatch skips the lookup while the table is empty
+and the switch off, so an untuned process pays nothing for it).
+"""
+from __future__ import annotations
+
+import functools
+import json
+import os
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.formats import FormatLike, MPFormat, resolve
+
+MatmulParams = Tuple[int, int]   # (dk, e); 0 = the default choice
+AttnParams = Tuple[int]          # (block_q,)
+
+# csrc/mp_matmul.cu
+KC = 64
+PADE = 8
+SMEM_MAX = 232448
+WGM, WGN = 2, 4
+DEC_M = 16
+GEN_NL = 8
+GEN_NO = 2 * GEN_NL - 1
+DEC_SLOTS = 3
+BUILTIN = ((1, 0), (2, 1), (3, 2), (5, 4), (7, 6))
+# csrc/mp_attention.cu
+BKV, WR = 32, 16
+PTS, PFS = WR + 4, BKV + 4
+FLASH_BLOCK_QS = (16, 32, 64)
+
+_memory_table: Dict[str, Dict[str, List[int]]] = {}
+_STATS = {"sweeps": 0, "lookups": 0, "hits": 0}
+_HIT_KEYS: set = set()
+
+
+# ---------------------------------------------------------------------------
+# the table
+# ---------------------------------------------------------------------------
+@functools.cache
+def device_kind() -> str:
+    """The card's name with spaces and slashes replaced ("cpu" without
+    one), e.g. ``NVIDIA_H100_80GB_HBM3``; read once per process (every
+    dispatch on the card looks a key up)."""
+    name = torch.cuda.get_device_name(0) if torch.cuda.is_available() \
+        else "cpu"
+    return name.replace(" ", "_").replace("/", "_")
+
+
+def cache_dir() -> str:
+    return os.environ.get(
+        "REPRO_AUTOTUNE_CACHE_DIR",
+        os.path.join(os.path.expanduser("~"), ".cache", "repro_torch",
+                     "autotune"))
+
+
+def _cache_path(kind: Optional[str] = None) -> str:
+    return os.path.join(cache_dir(), f"{kind or device_kind()}.json")
+
+
+def _dtype_name(dtype) -> str:
+    if isinstance(dtype, torch.dtype):
+        return str(dtype).removeprefix("torch.")
+    return np.dtype(dtype).name
+
+
+def epilogue_desc(gate: str = "none", has_bias: bool = False,
+                  has_residual: bool = False) -> str:
+    """The epilogue's key string ("none", "bias", "swiglu+bias+res", ...),
+    the JAX package's ``kernels.mp_matmul.epilogue_desc``."""
+    parts = [gate] if gate != "none" else []
+    if has_bias:
+        parts.append("bias")
+    if has_residual:
+        parts.append("res")
+    return "+".join(parts) if parts else "none"
+
+
+def table_key(M: int, K: int, N: int, mode: FormatLike, dtype, *,
+              n_out: int = 1, epilogue: str = "none") -> str:
+    """Cache key, the JAX package's string: the resolved format name, the
+    folded shape and the operand dtype, plus ``|out{n}|{epilogue}`` for a
+    fused projection that is not one plain output."""
+    base = f"{resolve(mode).name}|{M}x{K}x{N}|{_dtype_name(dtype)}"
+    if n_out != 1 or epilogue != "none":
+        base += f"|out{n_out}|{epilogue}"
+    return base
+
+
+def attention_table_key(B_H: int, S: int, T: int, Dh: int,
+                        mode_qk: FormatLike, mode_pv: FormatLike, *,
+                        causal: bool, paged: bool = False) -> str:
+    """Cache key of one attention cell (the JAX package's string): both
+    format names, the folded batch x heads / sequence / head-dim shape and
+    the causal / paged bits.  No sweep writes ``paged=True`` entries."""
+    return (f"attn|{resolve(mode_qk).name}/{resolve(mode_pv).name}"
+            f"|{B_H}x{S}x{T}x{Dh}|c{int(bool(causal))}|p{int(bool(paged))}")
+
+
+def load_table(kind: Optional[str] = None) -> Dict[str, List[int]]:
+    kind = kind or device_kind()
+    if kind not in _memory_table:
+        try:
+            with open(_cache_path(kind)) as f:
+                _memory_table[kind] = {
+                    k: list(map(int, v)) for k, v in json.load(f).items()}
+        except (OSError, ValueError):
+            _memory_table[kind] = {}
+    return _memory_table[kind]
+
+
+def save_table(table: Dict[str, List[int]], kind: Optional[str] = None
+               ) -> str:
+    """Atomic write (tmp + rename): concurrent processes never see a torn
+    table, last writer wins."""
+    path = _cache_path(kind)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    tmp = f"{path}.tmp.{os.getpid()}"
+    with open(tmp, "w") as f:
+        json.dump(table, f, indent=1, sort_keys=True)
+    os.replace(tmp, path)
+    return path
+
+
+def clear_memory_cache() -> None:
+    """Drop the in-process table cache (tests re-point the cache dir)."""
+    _memory_table.clear()
+
+
+def stats() -> dict:
+    """Sweeps run, lookups made and hits, and the keys hit, since
+    :func:`reset_stats`."""
+    return {**_STATS, "hit_keys": sorted(_HIT_KEYS)}
+
+
+def reset_stats() -> None:
+    for k in _STATS:
+        _STATS[k] = 0
+    _HIT_KEYS.clear()
+
+
+def _get(key: str) -> Optional[List[int]]:
+    _STATS["lookups"] += 1
+    entry = load_table().get(key)
+    if entry is not None:
+        _STATS["hits"] += 1
+        _HIT_KEYS.add(key)
+    return entry
+
+
+# ---------------------------------------------------------------------------
+# the kernels' shared-memory formulas (mirrors of csrc)
+# ---------------------------------------------------------------------------
+def _builtin(fmt: MPFormat) -> bool:
+    return (fmt.n_limbs, fmt.max_order) in BUILTIN
+
+
+def tile_e(nl: int, no: int, nout: int) -> int:
+    """``tile_e``: the prefill tile's outputs per thread."""
+    c = nout * no + (1 if nl == 1 else 3 if nl == 2 else 2)
+    budget = 144 if nl >= 3 else 160 if nout == 1 else 128
+    for e in (64, 32, 16, 8):
+        if c * e <= budget:
+            return e
+    return 4
+
+
+def format_tile_e(fmt: FormatLike, n_out: int = 1) -> int:
+    """``mp_tile_e``: the default E of the instantiation ``fmt`` runs."""
+    fmt = resolve(fmt)
+    if _builtin(fmt):
+        return tile_e(fmt.n_limbs, fmt.n_orders, n_out)
+    return tile_e(GEN_NL, GEN_NO, n_out)
+
+
+def format_tile_e_alt(fmt: FormatLike, n_out: int = 1) -> int:
+    """``mp_tile_e_alt``: the other E the library builds (0: none)."""
+    fmt = resolve(fmt)
+    e = format_tile_e(fmt, n_out)
+    return e // 2 if _builtin(fmt) and e >= 8 else 0
+
+
+def _tile_wm(e: int) -> int:
+    return 64 if e == 64 else 32 if e >= 16 else 16
+
+
+def tile_smem(nl: int, nout: int, e: int, pl: bool = False,
+              pla: bool = False) -> int:
+    """``tile_smem`` / ``Tile::smem``: one prefill-tile block's dynamic
+    shared memory."""
+    bm = WGM * _tile_wm(e)
+    bn = WGN * (e * 32 // _tile_wm(e))
+    raw = (0 if pla else bm * KC * 4) + (0 if pl else nout * KC * bn * 4)
+    planes = nl * bm * (KC + PADE) * 2 + nout * nl * KC * (bn + PADE) * 2
+    npb = 2 if not pl and not pla and raw + 2 * planes <= SMEM_MAX else 1
+    rs = 2 if 2 * raw + npb * planes <= SMEM_MAX else 1
+    return rs * raw + npb * planes
+
+
+def decode_ring_k(fmt: FormatLike) -> int:
+    """``DecRing<NL>::K`` of the instantiation ``fmt`` runs."""
+    fmt = resolve(fmt)
+    return 256 if _builtin(fmt) and fmt.n_limbs <= 3 else 128
+
+
+def dec_smem_bytes(pl: bool, nl: int, M: int, dk: int, slots: int,
+                   nout: int) -> int:
+    """``dec_smem_bytes``: one decode-tile block's dynamic shared memory."""
+    ring_b = slots * nl * dk * 16 * 2 if pl else nout * slots * dk * 16 * 4
+    return (ring_b + slots * M * dk * 4 + 2 * nl * M * (dk + PADE) * 2
+            + (0 if pl else 2 * nout * nl * dk * 16 * 2) + 16)
+
+
+def _padded_d(Dh: int) -> int:
+    for d in (16, 32, 64, 128):
+        if Dh <= d:
+            return d
+    return 192
+
+
+def flash_smem(Dh: int, bq: int, fmt_qk: FormatLike, fmt_pv: FormatLike
+               ) -> int:
+    """``mp_flash_smem_bytes``: one flash block's dynamic shared memory."""
+    fq, fp = resolve(fmt_qk), resolve(fmt_pv)
+    D = _padded_d(Dh)
+    serving = [1 <= f.n_limbs <= 3 and f.max_order == f.n_limbs - 1
+               for f in (fq, fp)]
+    sq = sp = 4 if D == 64 and all(serving) else 2
+    dv = max(D, 32)
+    p_limbs = fp.n_limbs * BKV * PTS * sp
+    p_f32 = WR * PFS * 4
+    o = 2 * BKV * (D + 4) * 4 + fq.n_limbs * D * BKV * sq \
+        + fp.n_limbs * BKV * dv * sp
+    per_warp = fq.n_limbs * D * WR * sq + max(p_limbs, p_f32)
+    return o + (bq // WR) * per_warp
+
+
+def smem_limit() -> int:
+    """The card's opt-in shared memory per block (:data:`SMEM_MAX` without
+    a card)."""
+    if not torch.cuda.is_available():
+        return SMEM_MAX
+    props = torch.cuda.get_device_properties(0)
+    return int(getattr(props, "shared_memory_per_block_optin", SMEM_MAX))
+
+
+# ---------------------------------------------------------------------------
+# candidates
+# ---------------------------------------------------------------------------
+def _entry_spills(summary: Dict[str, List[int]], kernel: str,
+                  targs: Sequence) -> Optional[List[int]]:
+    """[registers, spill stores, spill loads] of the instantiation
+    ``kernel<targs...>`` in a ``build.ptxas_summary`` (None: not built).
+    Template arguments mangle as ``Li<int>E`` / ``Lb<0|1>E``."""
+    enc = "".join(f"Lb{int(a)}E" if isinstance(a, bool) else f"Li{a}E"
+                  for a in targs)
+    # the summary's key lost, with nvcc's file tag, the name's length and
+    # its leading hex letters ("fused_..." keys as "used_...")
+    want = f"{kernel.lstrip('abcdef')}I{enc}E"
+    for entry, regs in summary.items():
+        if want in entry:
+            return regs
+    return None
+
+
+def _tile_builds(fmt: MPFormat, n_out: int, e: int, proj: bool,
+                 summary: Optional[Dict[str, List[int]]]) -> bool:
+    """Does the prefill instantiation at E build without a spill?"""
+    if summary is None:
+        return True
+    nl, no, gen = (fmt.n_limbs, fmt.n_orders, False) if _builtin(fmt) \
+        else (GEN_NL, GEN_NO, True)
+    if proj:
+        regs = _entry_spills(summary, "fused_proj_kernel",
+                             (nl, no, n_out, gen, e))
+    else:
+        regs = _entry_spills(summary, "fused_matmul_kernel",
+                             (nl, no, gen, False, e))
+    return regs is not None and regs[1] == 0 and regs[2] == 0
+
+
+def candidate_blocks(M: int, K: int, N: int, mode: FormatLike, *,
+                     n_out: int = 1, epilogue: str = "none",
+                     smem: Optional[int] = None,
+                     ptxas: Optional[Dict[str, List[int]]] = None
+                     ) -> List[MatmulParams]:
+    """The feasible ``(dk, e)`` of one matmul cell: at M <= 16 the decode
+    tile's stages (multiples of KC up to the ring's most and K rounded up
+    to KC), at larger M the prefill tile's default E and E / 2 (built-in
+    formats); each within ``smem`` bytes of shared memory (the card's
+    opt-in limit by default) and, given a ``ptxas`` summary, built without
+    a spill."""
+    fmt = resolve(mode)
+    limit = smem if smem is not None else smem_limit()
+    gated = "swiglu" in epilogue
+    out: List[MatmulParams] = []
+    if M <= DEC_M:
+        nout = 2 if gated else 1
+        kmax = min(decode_ring_k(fmt), -(-K // KC) * KC)
+        for dk in range(KC, kmax + 1, KC):
+            slots = min(DEC_SLOTS, -(-K // dk))
+            if dec_smem_bytes(False, fmt.n_limbs, M, dk, slots,
+                              nout) <= limit:
+                out.append((dk, 0))
+        return out
+    width = min(n_out, 3)   # ops.mp_fused_proj_cuda: 3 weights per launch
+    proj = n_out != 1 or epilogue != "none"
+    nl = fmt.n_limbs if _builtin(fmt) else GEN_NL
+    for e in (format_tile_e(fmt, width), format_tile_e_alt(fmt, width)):
+        if e and tile_smem(nl, width, e) <= limit and _tile_builds(
+                fmt, width, e, proj, ptxas):
+            out.append((0, e))
+    return out
+
+
+def attention_candidate_blocks(S: int, T: int, Dh: int, mode_qk: FormatLike,
+                               mode_pv: FormatLike, *,
+                               smem: Optional[int] = None) -> List[AttnParams]:
+    """The flash kernel's query rows per block within ``smem`` bytes of
+    shared memory; rows past S rounded up to 16 are left out (but 16)."""
+    limit = smem if smem is not None else smem_limit()
+    sp = -(-S // 16) * 16
+    return [(bq,) for bq in FLASH_BLOCK_QS
+            if (bq == FLASH_BLOCK_QS[0] or bq <= sp)
+            and flash_smem(Dh, bq, mode_qk, mode_pv) <= limit]
+
+
+# ---------------------------------------------------------------------------
+# sweeps
+# ---------------------------------------------------------------------------
+def _sample_ms(fn) -> float:
+    """Milliseconds per launch: after a warm-up launch, the mean of enough
+    back-to-back launches between two CUDA events to span about a
+    millisecond."""
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    reps = max(1, min(50, int(1.0 / max(start.elapsed_time(end), 1e-3))))
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _sweep(key: str, cands, run, iters: int, record: Optional[dict]):
+    """Hold each candidate bitwise against the default launch, then time
+    the default and every candidate in turn, ``iters`` rounds, each round
+    starting at the next one (so neither a drift of the card's clock nor
+    the place in a round favours one), and keep the fastest candidate by
+    its median."""
+    ref = run(None)
+    for cand in cands:
+        if not torch.equal(run(cand), ref):
+            raise RuntimeError(
+                f"autotune {key}: the launch at {list(cand)} differs from "
+                f"the default launch (a kernel fault: these parameters "
+                f"must change no bit)")
+    configs = [None] + list(cands)
+    samples = {i: [] for i in range(len(configs))}
+    for r in range(iters):
+        for k in range(len(configs)):
+            i = (r + k) % len(configs)     # each round starts one later
+            samples[i].append(_sample_ms(lambda: run(configs[i])))
+    med = {i: sorted(v)[len(v) // 2] for i, v in samples.items()}
+    best = min(range(1, len(configs)), key=lambda i: med[i])
+    _STATS["sweeps"] += 1
+    if record is not None:
+        record.update(key=key, default_ms=med[0], winner=list(configs[best]),
+                      winner_ms=med[best],
+                      candidates={str(list(c)): med[i + 1]
+                                  for i, c in enumerate(cands)})
+    return configs[best]
+
+
+def _gen(seed: int = 0) -> torch.Generator:
+    return torch.Generator(device="cuda").manual_seed(seed)
+
+
+def autotune(M: int, K: int, N: int, mode: FormatLike, *,
+             dtype=torch.float32, iters: int = 5,
+             candidates: Optional[Sequence[MatmulParams]] = None,
+             n_out: int = 1, epilogue: str = "none",
+             record: Optional[dict] = None) -> MatmulParams:
+    """Sweep one (format, shape, dtype, n_out, epilogue) matmul cell on the
+    card and persist the winner; returns the cached winner when the table
+    has the key.  ``record`` (a dict) receives the default's and each
+    candidate's milliseconds."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import mp_matmul as kern
+
+    fmt = resolve(mode)
+    key = table_key(M, K, N, fmt, dtype, n_out=n_out, epilogue=epilogue)
+    cached = _get(key)
+    if cached is not None:
+        dk, e = cached
+        return dk, e
+    if candidates is None:
+        ptxas = build.ptxas_summary(build.ptxas_log("mp_matmul"))
+        candidates = candidate_blocks(M, K, N, fmt, n_out=n_out,
+                                      epilogue=epilogue, ptxas=ptxas)
+    if not candidates:
+        raise ValueError(f"no feasible launch parameters for {key}")
+    g = _gen()
+    a = torch.randn((M, K), generator=g, device="cuda")
+    if n_out == 1 and epilogue == "none":
+        b = torch.randn((K, N), generator=g, device="cuda")
+
+        def run(tune):
+            return kern.mp_fused_matmul(a, b, fmt, tune=tune)
+    else:
+        gate = "swiglu" if "swiglu" in epilogue else "none"
+        ws = [torch.randn((K, N), generator=g, device="cuda")
+              for _ in range(n_out)]
+        biases = [torch.randn((N,), generator=g, device="cuda")
+                  for _ in range(n_out)] if "bias" in epilogue else None
+        residual = torch.randn((M, N), generator=g, device="cuda") \
+            if "res" in epilogue else None
+
+        def run(tune):
+            from repro_torch.kernels import ops
+
+            out = ops.mp_fused_proj_cuda(a, ws, fmt, gate=gate,
+                                         biases=biases, residual=residual,
+                                         tune=tune)
+            return torch.stack(out) if isinstance(out, tuple) else out
+    best = _sweep(key, candidates, run, iters, record)
+    table = load_table()
+    table[key] = list(best)
+    save_table(table)
+    return best
+
+
+def lookup(M: int, K: int, N: int, mode: FormatLike, dtype=torch.float32, *,
+           n_out: int = 1, epilogue: str = "none"
+           ) -> Optional[MatmulParams]:
+    """Cached winner or None; never sweeps (the serving-safe path)."""
+    entry = _get(table_key(M, K, N, mode, dtype, n_out=n_out,
+                           epilogue=epilogue))
+    if entry is None:
+        return None
+    dk, e = entry
+    return dk, e
+
+
+def autotune_attention(B_H: int, S: int, T: int, Dh: int,
+                       mode_qk: FormatLike,
+                       mode_pv: Optional[FormatLike] = None, *,
+                       causal: bool = True, iters: int = 5,
+                       candidates: Optional[Sequence[AttnParams]] = None,
+                       record: Optional[dict] = None) -> AttnParams:
+    """Sweep the flash kernel's query rows per block for one attention cell
+    (run as B = 1 with B_H heads, as the JAX tuner runs it) and persist the
+    winner in the same per-card table."""
+    from repro_torch.kernels import mp_attention as attn
+
+    mode_qk = resolve(mode_qk)
+    mode_pv = resolve(mode_pv if mode_pv is not None else mode_qk)
+    key = attention_table_key(B_H, S, T, Dh, mode_qk, mode_pv, causal=causal)
+    cached = _get(key)
+    if cached is not None:
+        return (cached[0],)
+    if candidates is None:
+        candidates = attention_candidate_blocks(S, T, Dh, mode_qk, mode_pv)
+    if not candidates:
+        raise ValueError(f"no feasible attention blocks for {key}")
+    g = _gen()
+    q = torch.randn((1, S, B_H, Dh), generator=g, device="cuda")
+    k = torch.randn((1, T, B_H, Dh), generator=g, device="cuda")
+    v = torch.randn((1, T, B_H, Dh), generator=g, device="cuda")
+
+    def run(cand):
+        return attn.mp_flash_attention(
+            q, k, v, mode_qk, mode_pv, causal=causal,
+            block_q=None if cand is None else cand[0])
+    best = _sweep(key, candidates, run, iters, record)
+    table = load_table()
+    table[key] = list(best)
+    save_table(table)
+    return best
+
+
+def lookup_attention(B_H: int, S: int, T: int, Dh: int, mode_qk: FormatLike,
+                     mode_pv: Optional[FormatLike] = None, *,
+                     causal: bool = True, paged: bool = False
+                     ) -> Optional[AttnParams]:
+    """Cached attention winner or None; never sweeps (serving-safe)."""
+    mode_pv = mode_pv if mode_pv is not None else mode_qk
+    entry = _get(attention_table_key(B_H, S, T, Dh, mode_qk, mode_pv,
+                                     causal=causal, paged=paged))
+    return None if entry is None else (entry[0],)

@@ -46,7 +46,7 @@ class BuildReport:
     name: str
     path: Path
     seconds: float      # 0.0 when an earlier build was reused
-    ptxas: str          # nvcc's -Xptxas -v report ("" when reused)
+    ptxas: str          # nvcc's -Xptxas -v report (kept beside the library)
 
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
@@ -71,6 +71,16 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
 
 
+def _log_path(lib: Path) -> Path:
+    return lib.with_suffix(".ptxas.txt")
+
+
+def ptxas_log(name: str) -> str:
+    """The ``-Xptxas -v`` report of the built library of ``csrc/<name>.cu``
+    (builds it first if needed)."""
+    return build([name])[name].ptxas
+
+
 def _nvcc(src: Path, out: Path) -> subprocess.Popen:
     return subprocess.Popen([nvcc_path(), *NVCC_FLAGS, "-o", str(out),
                              str(src)], stdout=subprocess.PIPE,
@@ -86,7 +96,9 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, BuildReport]:
     for name in names:
         out = library_path(name)
         if out.exists():
-            reports[name] = BuildReport(name, out, 0.0, "")
+            log = _log_path(out)
+            reports[name] = BuildReport(
+                name, out, 0.0, log.read_text() if log.exists() else "")
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         proc = _nvcc(CSRC / f"{name}.cu", tmp)
@@ -99,6 +111,8 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, BuildReport]:
             failures.append(f"--- nvcc {name}.cu (rc {proc.returncode}) ---\n"
                             f"{log}")
             continue
+        _log_path(tmp).write_text(log)
+        os.replace(_log_path(tmp), _log_path(out))
         os.replace(tmp, out)  # atomic: a reader never sees a partial file
         reports[name] = BuildReport(name, out, seconds, log)
     if failures:

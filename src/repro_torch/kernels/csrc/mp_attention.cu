@@ -1394,6 +1394,20 @@ int mp_flash_attention_launch_bq(
                      q_offset, scale, nl_qk, mo_qk, nl_pv, mo_pv, bq, stream);
 }
 
+// Dynamic shared memory of one flash block of bq query rows (flash_smem's
+// total) for head dim Dh at these formats: the instantiation's plane
+// element sizes (f32 at the serving formats and Dh 64, else bf16).
+int64_t mp_flash_smem_bytes(int64_t Dh, int64_t bq, int64_t nl_qk,
+                            int64_t mo_qk, int64_t nl_pv, int64_t mo_pv) {
+  if (Dh < 1 || Dh > 192 || nl_qk < 1 || nl_pv < 1) return 0;
+  const int D = padded_d(Dh);
+  const bool sp = flash_special(D, (int)nl_qk, (int)mo_qk, (int)nl_pv,
+                                (int)mo_pv);
+  return flash_smem(D, (int)bq, (int)nl_qk, (int)nl_pv, sp ? 4 : 2,
+                    sp ? 4 : 2)
+      .total;
+}
+
 // The query rows of one flash block that mp_flash_attention_launch takes
 // for B x S x H heads of head dim Dh at these formats on the current
 // device (0 where shared memory cannot hold 16 rows), and whether the

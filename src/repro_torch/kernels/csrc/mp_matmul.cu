@@ -93,6 +93,12 @@
 // deeper formats, by one warp's MMA chains per 8 columns.  Ragged edges are
 // masked in the loads and stores; nothing is padded in device memory.
 //
+// Launch parameters the order leaves free, which the autotuner
+// (kernels/autotune.py) may set per launch (mp_set_launch_params): the
+// decode tile's k per ring stage and the prefill tile's outputs per thread
+// (tile_e's, or half of it for the built-in formats' fused matmul and
+// projection).  They move work between stages and blocks, never an add.
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 --fmad=false
 // (no --use_fast_math).  --fmad=false keeps every a*b+c rounded twice, as
 // the PyTorch plain versions round it.
@@ -447,18 +453,39 @@ __host__ __device__ constexpr int tile_e(int nl, int no, int nout) {
                           : 4;
 }
 
-// The tile of one format and weight count: warp tiles (WM x WN) of FM x FN
-// MMA fragments, the block's (BM x BN), and its dynamic shared memory: RS
-// stages of f32 staging of A (unless A comes as planes, PLA) and of the NOUT
-// Bs (unless B comes as planes, PL), then NPB buffers of A's limb planes
-// [NL][BM][AP] and the Bs' [NOUT][NL][KC][BP], rows padded by PADE.  Two
-// plane buffers (DP: the limbs of the next stage written while this
-// stage's MMAs run) where the f32 kernels fit them, else one; RS is 2 (the
-// copies run two stages ahead) where that fits too, else 1.
-template <int NL, int NO, int NOUT>
+// The tile's shape from its outputs per thread E: warp tiles (WM x WN), the
+// block's (BM x BN); and its dynamic shared memory: RS stages of f32 staging
+// of A (unless A comes as planes, PLA) and of the NOUT Bs (unless B comes as
+// planes, PL), then NPB buffers of A's limb planes [NL][BM][AP] and the Bs'
+// [NOUT][NL][KC][BP], rows padded by PADE.  Two plane buffers (DP: the limbs
+// of the next stage written while this stage's MMAs run) where the f32
+// kernels fit them, else one; RS is 2 (the copies run two stages ahead)
+// where that fits too, else 1.  mp_tile_smem_bytes exports the formula.
+__host__ __device__ constexpr int tile_wm(int e) {
+  return e == 64 ? 64 : e >= 16 ? 32 : 16;
+}
+
+__host__ __device__ constexpr int64_t tile_smem_bytes(int nl, int nout,
+                                                      int e, bool pl,
+                                                      bool pla) {
+  const int64_t bm = WGM * tile_wm(e);
+  const int64_t bn = WGN * (e * 32 / tile_wm(e));
+  const int64_t raw = (pla ? 0 : bm * KC * 4) + (pl ? 0 : nout * KC * bn * 4);
+  const int64_t planes = (int64_t)nl * bm * (KC + PADE) * 2 +
+                         (int64_t)nout * nl * KC * (bn + PADE) * 2;
+  const int npb = !pl && !pla && raw + 2 * planes <= SMEM_MAX ? 2 : 1;
+  const int rs = 2 * raw + npb * planes <= SMEM_MAX ? 2 : 1;
+  return rs * raw + npb * planes;
+}
+
+// The tile of one format, weight count and outputs per thread (tile_e's by
+// default; the autotuner may launch E / 2, which changes no bit: a row's
+// sums do not depend on the tile that runs it): warp tiles (WM x WN) of FM x
+// FN MMA fragments, the block's (BM x BN) and its dynamic shared memory.
+template <int NL, int NO, int NOUT, int E_ = tile_e(NL, NO, NOUT)>
 struct Tile {
-  static constexpr int E = tile_e(NL, NO, NOUT);
-  static constexpr int WM = E == 64 ? 64 : E >= 16 ? 32 : 16;
+  static constexpr int E = E_;
+  static constexpr int WM = tile_wm(E);
   static constexpr int WN = E * 32 / WM;
   static constexpr int FM = WM / 16;
   static constexpr int FN = WN / 8;
@@ -489,11 +516,17 @@ struct Tile {
   __host__ __device__ static constexpr int64_t smem(bool pl, bool pla) {
     return RS(pl, pla) * (raw_a(pla) + raw_b(pl)) + NPB(pl, pla) * planes();
   }
+  static_assert(smem(false, false) ==
+                        tile_smem_bytes(NL, NOUT, E, false, false) &&
+                    smem(true, false) ==
+                        tile_smem_bytes(NL, NOUT, E, true, false) &&
+                    smem(true, true) == tile_smem_bytes(NL, NOUT, E, true, true),
+                "tile_smem_bytes is Tile::smem");
 };
 
-template <int NL, int NO, int NOUT>
-using Acc = float[NOUT][NO][Tile<NL, NO, NOUT>::FM][Tile<NL, NO, NOUT>::FN]
-                 [4];
+template <int NL, int NO, int NOUT, int E = tile_e(NL, NO, NOUT)>
+using Acc = float[NOUT][NO][Tile<NL, NO, NOUT, E>::FM]
+                 [Tile<NL, NO, NOUT, E>::FN][4];
 
 // The shared main loop of the prefill tile: accumulates, for NOUT weights at
 // once, the (BM x BN) outputs at (m0, n0) into per-order accumulators, in
@@ -506,15 +539,15 @@ using Acc = float[NOUT][NO][Tile<NL, NO, NOUT>::FM][Tile<NL, NO, NOUT>::FN]
 // planes too (``ap``); on planes cut from f32 operands the run is bitwise
 // the f32 run, as for PL.
 template <int NL, int NO, int NOUT, bool GEN, bool PL = false,
-          bool LN = false, bool PLA = false>
+          bool LN = false, bool PLA = false, int E = tile_e(NL, NO, NOUT)>
 __device__ __forceinline__ void mainloop(
     const float* __restrict__ A, int64_t a_sr, int64_t a_sc,
     const float* const* B, int64_t b_sr, int64_t b_sc, int64_t M, int64_t N,
     int64_t K, int64_t m0, int64_t n0, int n_limbs, int max_order,
-    Acc<NL, NO, NOUT>& acc, Planes bp = Planes{},
+    Acc<NL, NO, NOUT, E>& acc, Planes bp = Planes{},
     const int32_t* __restrict__ ln = nullptr,
     const int32_t* __restrict__ lo = nullptr, Planes ap = Planes{}) {
-  using T = Tile<NL, NO, NOUT>;
+  using T = Tile<NL, NO, NOUT, E>;
   constexpr int BM = T::BM, BN = T::BN, WM = T::WM, WN = T::WN;
   constexpr int FM = T::FM, FN = T::FN, AP = T::AP, BP = T::BP;
   static_assert(T::smem(PL, PLA) <= SMEM_MAX, "tile exceeds shared memory");
@@ -837,10 +870,10 @@ __device__ __forceinline__ int64_t tile_n0(int64_t M) {
 
 // out(gm, gn, mf, nf, e) for each of this thread's outputs of the
 // prefill tile at (m0, n0) that lies inside (M, N)
-template <int NL, int NO, int NOUT, typename Out>
+template <int NL, int NO, int NOUT, int E, typename Out>
 __device__ __forceinline__ void tile_outputs(int64_t M, int64_t N, int64_t m0,
                                              int64_t n0, Out out) {
-  using T = Tile<NL, NO, NOUT>;
+  using T = Tile<NL, NO, NOUT, E>;
   const int lane = threadIdx.x & 31;
   const int wm = (threadIdx.x >> 5) / WGN;
   const int wn = (threadIdx.x >> 5) % WGN;
@@ -878,7 +911,7 @@ struct MatmulArgs {
 // element.  PARTS (the partials epilogue): instead of the combine, order o's
 // accumulator of each output goes to C[o * c_so + ...], for o <= max_order.
 template <int NL, int NO, bool GEN, bool PL, bool LN = false,
-          bool PLA = false, bool PARTS = false>
+          bool PLA = false, bool PARTS = false, int E = tile_e(NL, NO, 1)>
 __device__ __forceinline__ void matmul_tile(
     const float* A, int64_t a_sr, int64_t a_sc, const float* B, int64_t b_sr,
     int64_t b_sc, Planes bp, float* C, int64_t c_sr, int64_t c_sc, int64_t M,
@@ -886,17 +919,17 @@ __device__ __forceinline__ void matmul_tile(
     const int32_t* ln = nullptr, const int32_t* lo = nullptr,
     Planes ap = Planes{}, int64_t c_so = 0) {
   static_assert(!PARTS || !LN, "the partials epilogue has no lanes");
-  using T = Tile<NL, NO, 1>;
+  using T = Tile<NL, NO, 1, E>;
   const float* const Bt[1] = {B};
   const int64_t m0 = tile_m0<T::BM>(M);
   const int64_t n0 = tile_n0<T::BM, T::BN>(M);
-  Acc<NL, NO, 1> acc;
-  mainloop<NL, NO, 1, GEN, PL, LN, PLA>(A, a_sr, a_sc, Bt, b_sr, b_sc, M, N,
-                                        K, m0, n0, n_limbs, max_order, acc,
-                                        bp, ln, lo, ap);
+  Acc<NL, NO, 1, E> acc;
+  mainloop<NL, NO, 1, GEN, PL, LN, PLA, E>(A, a_sr, a_sc, Bt, b_sr, b_sc, M,
+                                           N, K, m0, n0, n_limbs, max_order,
+                                           acc, bp, ln, lo, ap);
   const int mo = GEN ? max_order : NO - 1;
-  tile_outputs<NL, NO, 1>(M, N, m0, n0, [&](int64_t gm, int64_t gn, int mf,
-                                            int nf, int e) {
+  tile_outputs<NL, NO, 1, E>(M, N, m0, n0, [&](int64_t gm, int64_t gn, int mf,
+                                               int nf, int e) {
     if constexpr (PARTS) {
 #pragma unroll
       for (int o = 0; o < NO; ++o)
@@ -1263,12 +1296,13 @@ __device__ __forceinline__ void decode_tile(
 // combined output bit for bit (the combine is adds and subtracts, with no
 // product for nvcc to contract).  Bound like the kernel itself, plus
 // n_orders x M x N x 4 bytes of stores in place of M x N x 4.
-template <int NL, int NO, bool GEN, bool PARTS = false>
+template <int NL, int NO, bool GEN, bool PARTS = false,
+          int E = tile_e(NL, NO, 1)>
 __global__ void __launch_bounds__(NT) fused_matmul_kernel(MatmulArgs p) {
   const int64_t z = blockIdx.z;
   const int64_t z0 = z / p.nb1;
   const int64_t z1 = z % p.nb1;
-  matmul_tile<NL, NO, GEN, false, false, false, PARTS>(
+  matmul_tile<NL, NO, GEN, false, false, false, PARTS, E>(
       p.a + z0 * p.a_sb0 + z1 * p.a_sb1, p.a_sr, p.a_sc,
       p.b + z0 * p.b_sb0 + z1 * p.b_sb1, p.b_sr, p.b_sc, Planes{},
       p.c + z0 * p.c_sb0 + z1 * p.c_sb1, p.c_sr, p.c_sc, p.M, p.N, p.K,
@@ -1466,17 +1500,19 @@ __device__ __forceinline__ void proj_store(const ProjArgs& p, int64_t gm,
 
 // Port of _fused_multi_kernel: the A tile is limbed once per K stage and
 // feeds every output; proj_store's epilogue runs before the single store.
-template <int NL, int NO, int NOUT, bool GEN>
+template <int NL, int NO, int NOUT, bool GEN,
+          int E = tile_e(NL, NO, NOUT)>
 __global__ void __launch_bounds__(NT) fused_proj_kernel(ProjArgs p) {
-  using T = Tile<NL, NO, NOUT>;
+  using T = Tile<NL, NO, NOUT, E>;
   const int64_t m0 = tile_m0<T::BM>(p.M);
   const int64_t n0 = tile_n0<T::BM, T::BN>(p.M);
-  Acc<NL, NO, NOUT> acc;
-  mainloop<NL, NO, NOUT, GEN>(p.a, p.a_sr, 1, p.b, p.b_sr, 1, p.M, p.N, p.K,
-                              m0, n0, p.n_limbs, p.max_order, acc);
+  Acc<NL, NO, NOUT, E> acc;
+  mainloop<NL, NO, NOUT, GEN, false, false, false, E>(
+      p.a, p.a_sr, 1, p.b, p.b_sr, 1, p.M, p.N, p.K, m0, n0, p.n_limbs,
+      p.max_order, acc);
   const int mo = GEN ? p.max_order : NO - 1;
-  tile_outputs<NL, NO, NOUT>(p.M, p.N, m0, n0, [&](int64_t gm, int64_t gn,
-                                                   int mf, int nf, int e) {
+  tile_outputs<NL, NO, NOUT, E>(p.M, p.N, m0, n0, [&](int64_t gm, int64_t gn,
+                                                      int mf, int nf, int e) {
     float y[NOUT];
 #pragma unroll
     for (int t = 0; t < NOUT; ++t) {
@@ -1518,6 +1554,13 @@ __global__ void __launch_bounds__(DEC_CT + 128)
 // SM.  It only stages the loads: the chunks and every add keep their
 // order, so the bits do not depend on it.  The kernel's dynamic shared
 // memory limit is raised to the card's once per kernel.
+// The autotuner's launch parameters for the next launches of this thread
+// (mp_set_launch_params): the decode tile's k per stage and the prefill
+// tile's outputs per thread; 0 keeps the choice below.  Both only move work
+// between stages and blocks, never an add, so they change no bit.
+thread_local int g_dec_dk = 0;
+thread_local int g_tile_e = 0;
+
 template <int NL, int NOUT, auto kernel, typename Args>
 cudaError_t launch_decode(const Args& p, bool pl, int nl, int64_t M,
                           int64_t N, int64_t K, unsigned ny, int64_t nz,
@@ -1556,6 +1599,13 @@ cudaError_t launch_decode(const Args& p, bool pl, int nl, int64_t M,
   if ((int64_t)grid.x * grid.y * grid.z > sms)
     // 1 KB of each block's shared memory is the runtime's
     while (dk > KC && 2 * (smem_of(dk) + 1024) > sm_smem) dk = half(dk);
+  if (g_dec_dk) {
+    // the tuner's stage: a multiple of KC within the ring and the card
+    if (g_dec_dk % KC || g_dec_dk > DecRing<NL>::K ||
+        smem_of(g_dec_dk) > optin)
+      return cudaErrorInvalidValue;
+    dk = g_dec_dk;
+  }
   const int64_t smem = smem_of(dk);
   const unsigned threads = (unsigned)(DEC_CT + 32 * DecRing<NL>::P(pl));
   kernel<<<grid, threads, (size_t)smem, st>>>(p, dk);
@@ -1566,10 +1616,10 @@ cudaError_t launch_decode(const Args& p, bool pl, int nl, int64_t M,
 // threads (x, M first) and the batch (z); its dynamic shared memory limit is
 // raised to the tile's need once per kernel.
 template <int NL, int NO, int NOUT, bool PL, bool PLA, auto kernel,
-          typename Args>
+          typename Args, int E = tile_e(NL, NO, NOUT)>
 cudaError_t launch_tile(const Args& p, int64_t M, int64_t N, int64_t nz,
                         cudaStream_t st) {
-  using T = Tile<NL, NO, NOUT>;
+  using T = Tile<NL, NO, NOUT, E>;
   constexpr int64_t smem = T::smem(PL, PLA);
   static bool raised = false;
   if (!raised) {
@@ -1585,6 +1635,32 @@ cudaError_t launch_tile(const Args& p, int64_t M, int64_t N, int64_t nz,
   return cudaGetLastError();
 }
 
+// The prefill tile's outputs per thread the tuner may ask for: tile_e's
+// (the budget where ptxas stopped spilling), or half of it for the built-in
+// formats' fused matmul and projection (fewer registers, so no spill; more
+// blocks).  0 where E / 2 is not built.
+__host__ __device__ constexpr int tile_e_alt(int nl, int no, int nout) {
+  return tile_e(nl, no, nout) >= 8 ? tile_e(nl, no, nout) / 2 : 0;
+}
+
+// launch_tile at the tuner's E (g_tile_e: 0 or tile_e's for the default,
+// tile_e_alt's for the other instantiation, anything else an error)
+template <int NL, int NO, int NOUT, bool TUNED, auto kernel, auto kernel_alt,
+          typename Args>
+cudaError_t launch_tile_tuned(const Args& p, int64_t M, int64_t N, int64_t nz,
+                              cudaStream_t st) {
+  constexpr int E = tile_e(NL, NO, NOUT);
+  if (g_tile_e == 0 || g_tile_e == E)
+    return launch_tile<NL, NO, NOUT, false, false, kernel>(p, M, N, nz, st);
+  if constexpr (TUNED && tile_e_alt(NL, NO, NOUT) > 0) {
+    constexpr int EA = tile_e_alt(NL, NO, NOUT);
+    if (g_tile_e == EA)
+      return launch_tile<NL, NO, NOUT, false, false, kernel_alt, Args, EA>(
+          p, M, N, nz, st);
+  }
+  return cudaErrorInvalidValue;
+}
+
 // M <= DEC_M takes the decode tile, larger M the prefill tile; both give
 // every output the same bits
 template <int NL, int NO, bool GEN, bool PARTS = false>
@@ -1593,9 +1669,13 @@ cudaError_t launch_matmul(const MatmulArgs& p, int64_t nb0, cudaStream_t st) {
     return launch_decode<NL, 1,
                          fused_matmul_decode_kernel<NL, NO, GEN, PARTS>>(
         p, false, GEN ? p.n_limbs : NL, p.M, p.N, p.K, 1, nb0 * p.nb1, st);
-  return launch_tile<NL, NO, 1, false, false,
-                     fused_matmul_kernel<NL, NO, GEN, PARTS>>(p, p.M, p.N,
-                                                              nb0 * p.nb1, st);
+  constexpr bool tuned = !GEN && !PARTS;
+  constexpr int EA = tuned && tile_e_alt(NL, NO, 1) ? tile_e_alt(NL, NO, 1)
+                                                    : tile_e(NL, NO, 1);
+  return launch_tile_tuned<NL, NO, 1, tuned,
+                           fused_matmul_kernel<NL, NO, GEN, PARTS>,
+                           fused_matmul_kernel<NL, NO, GEN, PARTS, EA>>(
+      p, p.M, p.N, nb0 * p.nb1, st);
 }
 
 // the tile choice is launch_matmul's, so the two kernels tile alike
@@ -1643,8 +1723,13 @@ cudaError_t launch_proj(const ProjArgs& p, cudaStream_t st) {
     return launch_decode<NL, 1, fused_proj_decode_kernel<NL, NO, 1, GEN>>(
         p, false, nl, p.M, p.N, p.K, NOUT, 1, st);
   }
-  return launch_tile<NL, NO, NOUT, false, false,
-                     fused_proj_kernel<NL, NO, NOUT, GEN>>(p, p.M, p.N, 1, st);
+  constexpr int EA = !GEN && tile_e_alt(NL, NO, NOUT)
+                         ? tile_e_alt(NL, NO, NOUT)
+                         : tile_e(NL, NO, NOUT);
+  return launch_tile_tuned<NL, NO, NOUT, !GEN,
+                           fused_proj_kernel<NL, NO, NOUT, GEN>,
+                           fused_proj_kernel<NL, NO, NOUT, GEN, EA>>(
+      p, p.M, p.N, 1, st);
 }
 
 template <int NOUT>
@@ -1659,6 +1744,13 @@ cudaError_t proj_for_format(const ProjArgs& p, cudaStream_t st) {
   return launch_proj<GEN_NL, GEN_NO, NOUT, true>(p, st);
 }
 
+// the formats with their own instantiations (the rest run the generic one)
+bool builtin_format(int64_t n_limbs, int64_t max_order) {
+  return (n_limbs == 1 || n_limbs == 2 || n_limbs == 3 || n_limbs == 5 ||
+          n_limbs == 7) &&
+         max_order == n_limbs - 1;
+}
+
 bool format_ok(int64_t n_limbs, int64_t max_order) {
   return n_limbs >= 1 && n_limbs <= GEN_NL && max_order >= 0 &&
          max_order <= 2 * (n_limbs - 1);
@@ -1671,6 +1763,55 @@ extern "C" {
 // The K of one chunk (KC): the length of every MMA chain, so the order of
 // every sum these kernels take.
 int mp_chunk_k() { return KC; }
+
+// The autotuner's launch parameters for the next launches of the calling
+// thread: the decode tile's k per stage (dec_dk, a multiple of KC within
+// the ring, <= 0: the default choice) and the prefill tile's outputs per
+// thread (tile_e: mp_tile_e's or mp_tile_e_alt's, <= 0: the default).  A
+// launch the parameters do not fit returns cudaErrorInvalidValue.  No bit
+// of any output depends on them.
+int mp_set_launch_params(int64_t dec_dk, int64_t tile_e) {
+  g_dec_dk = dec_dk > 0 ? (int)dec_dk : 0;
+  g_tile_e = tile_e > 0 ? (int)tile_e : 0;
+  return 0;
+}
+
+// The prefill tile's default outputs per thread and the tuner's other
+// choice (0 where none is built) for a format's (n_limbs, max_order) and
+// n_out weights; the generic instantiation has no other choice.
+int mp_tile_e(int64_t n_limbs, int64_t max_order, int64_t n_out) {
+  return builtin_format(n_limbs, max_order)
+             ? tile_e((int)n_limbs, (int)max_order + 1, (int)n_out)
+             : tile_e(GEN_NL, GEN_NO, (int)n_out);
+}
+
+int mp_tile_e_alt(int64_t n_limbs, int64_t max_order, int64_t n_out) {
+  return builtin_format(n_limbs, max_order)
+             ? tile_e_alt((int)n_limbs, (int)max_order + 1, (int)n_out)
+             : 0;
+}
+
+// Dynamic shared memory of one prefill-tile block (Tile::smem) at nl limbs,
+// nout weights, e outputs per thread, B as planes (pl), A as planes (pla).
+int64_t mp_tile_smem_bytes(int64_t nl, int64_t nout, int64_t e, int64_t pl,
+                           int64_t pla) {
+  return tile_smem_bytes((int)nl, (int)nout, (int)e, pl != 0, pla != 0);
+}
+
+// Dynamic shared memory of one decode-tile block (dec_smem_bytes) at M rows,
+// dk k per stage and slots ring slots; and the ring's most k per stage for
+// a format's instantiation (DecRing<NL>::K).
+int64_t mp_decode_smem_bytes(int64_t pl, int64_t nl, int64_t M, int64_t dk,
+                             int64_t slots, int64_t nout) {
+  return dec_smem_bytes(pl != 0, (int)nl, (int)M, (int)dk, (int)slots,
+                        (int)nout);
+}
+
+int mp_decode_ring_k(int64_t n_limbs, int64_t max_order) {
+  return builtin_format(n_limbs, max_order) && n_limbs <= 3
+             ? DecRing<1>::K
+             : DecRing<GEN_NL>::K;
+}
 
 // C[z] (M, N) = A[z] (M, K) @ B[z] (K, N) at (n_limbs, max_order); strides in
 // elements; z = z0 * nb1 + z1 over nb0 * nb1 batches.  Returns the CUDA error

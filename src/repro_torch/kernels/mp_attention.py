@@ -24,7 +24,8 @@ import torch
 
 from repro_torch.core.formats import FormatLike, resolve
 from repro_torch.kernels import build, ref
-from repro_torch.kernels.mp_matmul import _cuda_stream, _f32, _on_cpu
+from repro_torch.kernels.mp_matmul import _cuda_stream, _f32, _meta, \
+    _on_cpu, _on_meta
 
 BLOCK_Q = 32    # csrc OQ: the q tile whose rows' causal walks end together
 BLOCK_KV = 32   # csrc BKV: the online-softmax granularity both versions use
@@ -106,14 +107,19 @@ def mp_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        mode_qk: FormatLike = "M16",
                        mode_pv: Optional[FormatLike] = None, *,
                        causal: bool = True, scale: Optional[float] = None,
-                       q_offset: int = 0) -> torch.Tensor:
+                       q_offset: int = 0, block_q: Optional[int] = None
+                       ) -> torch.Tensor:
     """Flash attention: q (B, S, H, Dh), k/v (B, T, H, Dh) with H already
     GQA-repeated -> (B, S, H, Dh) f32.  QK^T at ``mode_qk``, P·V at
-    ``mode_pv`` (defaults to ``mode_qk``)."""
+    ``mode_pv`` (defaults to ``mode_qk``).  ``block_q``: the kernel's query
+    rows per block (the autotuner's; by default :func:`flash_block_q`'s),
+    which change no bit."""
     fmt_qk = resolve(mode_qk)
     fmt_pv = resolve(mode_pv if mode_pv is not None else mode_qk)
     if scale is None:
         scale = 1.0 / float(np.sqrt(q.shape[-1]))
+    if _on_meta(q, k, v):
+        return _meta(q.shape)
     if _on_cpu(q, k, v):
         mp_flash_attention.plain_calls += 1
         return flash_attention_plain(q, k, v, fmt_qk, fmt_pv, causal=causal,
@@ -121,7 +127,7 @@ def mp_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     stream = _cuda_stream(q, k, v)
     out = launch_flash_attention(build.load("mp_attention"), stream, q, k, v,
                                  fmt_qk, fmt_pv, causal=causal, scale=scale,
-                                 q_offset=q_offset)
+                                 q_offset=q_offset, block_q=block_q)
     mp_flash_attention.launches += 1
     return out
 
@@ -290,6 +296,8 @@ def mp_paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
     if scale is None:
         scale = 1.0 / float(np.sqrt(q.shape[-1]))
     tensors = (q, k_pool, v_pool, block_table, lengths)
+    if _on_meta(*tensors):
+        return _meta(q.shape)
     if _on_cpu(*tensors):
         mp_paged_attention.plain_calls += 1
         return paged_attention_plain(q, k_pool, v_pool, block_table, lengths,
@@ -326,6 +334,8 @@ def mp_mixed_paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
         scale = 1.0 / float(np.sqrt(q.shape[-1]))
     lanes = (lane_qk_n, lane_qk_ord, lane_pv_n, lane_pv_ord)
     tensors = (q, k_pool, v_pool, block_table, lengths) + lanes
+    if _on_meta(*tensors):
+        return _meta(q.shape)
     if _on_cpu(*tensors):
         mp_mixed_paged_attention.plain_calls += 1
         return mixed_paged_attention_plain(
@@ -375,3 +385,16 @@ def flash_block_q(B: int, S: int, H: int, head_dim: int, fmt_qk,
                               fmt_qk.max_order, fmt_pv.n_limbs,
                               fmt_pv.max_order, ctypes.byref(special))
     return int(bq), bool(special.value)
+
+
+def flash_smem_bytes(head_dim: int, block_q: int, fmt_qk, fmt_pv) -> int:
+    """Dynamic shared memory of one flash block of ``block_q`` query rows
+    (``mp_flash_smem_bytes``, the kernel's own formula).  Needs the
+    library (the card's machine)."""
+    fmt_qk, fmt_pv = resolve(fmt_qk), resolve(fmt_pv)
+    lib = build.load("mp_attention")
+    lib.mp_flash_smem_bytes.argtypes = [_I] * 6
+    lib.mp_flash_smem_bytes.restype = ctypes.c_int64
+    return int(lib.mp_flash_smem_bytes(head_dim, block_q, fmt_qk.n_limbs,
+                                       fmt_qk.max_order, fmt_pv.n_limbs,
+                                       fmt_pv.max_order))

@@ -13,6 +13,7 @@ discipline: one f32 sum per limb-product order, joined by the compensated
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 from typing import List, Optional, Sequence, Tuple
 
@@ -208,7 +209,35 @@ def _set_argtypes(lib) -> None:
     lib.mp_fused_matmul_partials_launch.restype = ctypes.c_int
     lib.mp_decompose_launch.argtypes = [_P, _P, _I, _I, _P]
     lib.mp_decompose_launch.restype = ctypes.c_int
+    # the autotuner's entries (a library built from an older source, as
+    # compare_kernels.py loads, has none)
+    if hasattr(lib, "mp_set_launch_params"):
+        lib.mp_set_launch_params.argtypes = [_I, _I]
+        lib.mp_set_launch_params.restype = ctypes.c_int
+        for entry in ("mp_tile_e", "mp_tile_e_alt"):
+            getattr(lib, entry).argtypes = [_I, _I, _I]
+            getattr(lib, entry).restype = ctypes.c_int
+        lib.mp_tile_smem_bytes.argtypes = [_I] * 5
+        lib.mp_tile_smem_bytes.restype = ctypes.c_int64
+        lib.mp_decode_smem_bytes.argtypes = [_I] * 6
+        lib.mp_decode_smem_bytes.restype = ctypes.c_int64
+        lib.mp_decode_ring_k.argtypes = [_I, _I]
+        lib.mp_decode_ring_k.restype = ctypes.c_int
     lib._mp_matmul_typed = True
+
+
+@contextlib.contextmanager
+def launch_params(lib, tune: Sequence[int]):
+    """The autotuner's launch parameters ``(dec_dk, tile_e)`` (0: the
+    default choice) for the launches of this scope on this thread
+    (``mp_set_launch_params``).  They change no bit of any output."""
+    _set_argtypes(lib)
+    dk, e = (int(t) for t in tune)
+    lib.mp_set_launch_params(dk, e)
+    try:
+        yield
+    finally:
+        lib.mp_set_launch_params(0, 0)
 
 
 def launch_fused_matmul(lib, stream: int, a: torch.Tensor, b: torch.Tensor,
@@ -421,16 +450,37 @@ def launch_decompose(lib, stream: int, w: torch.Tensor, n_limbs: int
 # ---------------------------------------------------------------------------
 # the wrappers the port calls
 # ---------------------------------------------------------------------------
+# the device checks read ``is_cuda`` / ``get_device`` / ``is_cpu`` /
+# ``is_meta``, not ``device``: every launch asks, and building a
+# ``torch.device`` costs microseconds of host time on the decode path
 def _cuda_stream(*tensors: torch.Tensor) -> int:
-    dev = tensors[0].device
-    if dev.type != "cuda" or any(t.device != dev for t in tensors):
-        raise ValueError("CUDA kernel wrappers take tensors on one CUDA "
-                         f"device, got {[str(t.device) for t in tensors]}")
-    return torch.cuda.current_stream(dev).cuda_stream
+    idx = tensors[0].get_device()
+    for t in tensors:
+        if not t.is_cuda or t.get_device() != idx:
+            raise ValueError(
+                "CUDA kernel wrappers take tensors on one CUDA device, got "
+                f"{[str(t.device) for t in tensors]}")
+    return torch.cuda.current_stream(idx).cuda_stream
 
 
 def _on_cpu(*tensors: torch.Tensor) -> bool:
-    return all(t.device.type == "cpu" for t in tensors)
+    for t in tensors:
+        if not t.is_cpu:
+            return False
+    return True
+
+
+def _on_meta(*tensors: torch.Tensor) -> bool:
+    """Meta tensors (the dry run's): a wrapper returns its output's shape
+    and dtype on ``meta`` and neither launches nor runs a plain version."""
+    for t in tensors:
+        if t.is_meta:
+            return True
+    return False
+
+
+def _meta(shape, dtype=torch.float32) -> torch.Tensor:
+    return torch.empty(tuple(shape), dtype=dtype, device="meta")
 
 
 def _row_major(x: torch.Tensor) -> torch.Tensor:
@@ -446,20 +496,30 @@ def _row_major(x: torch.Tensor) -> torch.Tensor:
     return x
 
 
-def mp_fused_matmul(a: torch.Tensor, b: torch.Tensor, fmt: FormatLike
-                    ) -> torch.Tensor:
+def mp_fused_matmul(a: torch.Tensor, b: torch.Tensor, fmt: FormatLike, *,
+                    tune: Optional[Sequence[int]] = None) -> torch.Tensor:
     """a (..., M, K) @ b (..., K, N) at ``fmt`` -> (..., M, N) f32, leading
     dims broadcast.  CPU tensors run :func:`fused_matmul_plain`; CUDA
     tensors launch the kernel (one launch, batch dims included; a
     column-major 2-D operand copied to row-major first, which moves no
-    bit: the kernel's sums do not depend on the operands' strides)."""
+    bit: the kernel's sums do not depend on the operands' strides).
+    ``tune``: the autotuner's ``(dec_dk, tile_e)`` (:func:`launch_params`)."""
     fmt = resolve(fmt)
+    if _on_meta(a, b):
+        lead = torch.broadcast_shapes(a.shape[:-2], b.shape[:-2])
+        return _meta(tuple(lead) + (a.shape[-2], b.shape[-1]))
     if _on_cpu(a, b):
         mp_fused_matmul.plain_calls += 1
         return fused_matmul_plain(a, b, fmt)
     stream = _cuda_stream(a, b)
-    out = launch_fused_matmul(build.load("mp_matmul"), stream, _row_major(a),
-                              _row_major(b), fmt)
+    lib = build.load("mp_matmul")
+    if tune is None:
+        out = launch_fused_matmul(lib, stream, _row_major(a), _row_major(b),
+                                  fmt)
+    else:
+        with launch_params(lib, tune):
+            out = launch_fused_matmul(lib, stream, _row_major(a),
+                                      _row_major(b), fmt)
     mp_fused_matmul.launches += 1
     return out
 
@@ -477,6 +537,8 @@ def mp_fused_matmul_partials(a: torch.Tensor, b: torch.Tensor,
     ``fused_matmul_kernel``'s partials epilogue (a column-major operand
     copied to row-major first, as :func:`mp_fused_matmul` does)."""
     fmt = resolve(fmt)
+    if _on_meta(a, b):
+        return _meta((fmt.n_orders, a.shape[0], b.shape[1]))
     if _on_cpu(a, b):
         mp_fused_matmul_partials.plain_calls += 1
         return fused_matmul_partials_plain(a, b, fmt)
@@ -493,20 +555,31 @@ mp_fused_matmul_partials.plain_calls = 0
 
 def mp_fused_proj(a: torch.Tensor, ws: Sequence[torch.Tensor],
                   fmt: FormatLike, *, gate: str = "none", biases=None,
-                  residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  residual: Optional[torch.Tensor] = None,
+                  tune: Optional[Sequence[int]] = None) -> torch.Tensor:
     """a (M, K) against 1..3 equal-width (K, N) weights at ``fmt`` with the
     fused epilogue -> (n_out, M, N), or (M, N) when ``gate="swiglu"``.  CPU
-    tensors run :func:`fused_proj_plain`; CUDA tensors launch the kernel."""
+    tensors run :func:`fused_proj_plain`; CUDA tensors launch the kernel
+    (``tune``: the autotuner's ``(dec_dk, tile_e)``)."""
     fmt = resolve(fmt)
     extra: Tuple[torch.Tensor, ...] = tuple(biases or ()) + (
         (residual,) if residual is not None else ())
+    if _on_meta(a, *ws, *extra):
+        M, N = a.shape[0], ws[0].shape[1]
+        return _meta((M, N) if gate != "none" else (len(ws), M, N))
     if _on_cpu(a, *ws, *extra):
         mp_fused_proj.plain_calls += 1
         return fused_proj_plain(a, ws, fmt, gate=gate, biases=biases,
                                 residual=residual)
     stream = _cuda_stream(a, *ws, *extra)
-    out = launch_fused_proj(build.load("mp_matmul"), stream, a, ws, fmt,
-                            gate=gate, biases=biases, residual=residual)
+    lib = build.load("mp_matmul")
+    if tune is None:
+        out = launch_fused_proj(lib, stream, a, ws, fmt, gate=gate,
+                                biases=biases, residual=residual)
+    else:
+        with launch_params(lib, tune):
+            out = launch_fused_proj(lib, stream, a, ws, fmt, gate=gate,
+                                    biases=biases, residual=residual)
     mp_fused_proj.launches += 1
     return out
 
@@ -522,6 +595,8 @@ def mp_prelimbed_matmul(a: torch.Tensor, limbs: torch.Tensor,
     past the format's are ignored.  CPU tensors run
     :func:`prelimbed_matmul_plain`; CUDA tensors launch the kernel."""
     fmt = resolve(fmt)
+    if _on_meta(a, limbs):
+        return _meta((a.shape[0], limbs.shape[-1]))
     if _on_cpu(a, limbs):
         mp_prelimbed_matmul.plain_calls += 1
         return prelimbed_matmul_plain(a, limbs, fmt)
@@ -546,6 +621,8 @@ def mp_mixed_prelimbed_matmul(a: torch.Tensor, limbs: torch.Tensor,
     lane's format bit for bit.  CPU tensors run
     :func:`mixed_prelimbed_matmul_plain`; CUDA tensors launch the kernel."""
     env = resolve(env)
+    if _on_meta(a, limbs, lane_n, lane_ord):
+        return _meta((a.shape[0], limbs.shape[-1]))
     if _on_cpu(a, limbs, lane_n, lane_ord):
         mp_mixed_prelimbed_matmul.plain_calls += 1
         return mixed_prelimbed_matmul_plain(a, limbs, env, lane_n, lane_ord)
@@ -568,6 +645,8 @@ def mp_both_prelimbed_matmul(al: torch.Tensor, bl: torch.Tensor,
     zero, limbs past the format's are ignored.  CPU tensors run
     :func:`both_prelimbed_matmul_plain`; CUDA tensors launch the kernel."""
     fmt = resolve(fmt)
+    if _on_meta(al, bl):
+        return _meta((al.shape[1], bl.shape[2]))
     if _on_cpu(al, bl):
         mp_both_prelimbed_matmul.plain_calls += 1
         return both_prelimbed_matmul_plain(al, bl, fmt)
@@ -586,6 +665,11 @@ def mp_decompose(w: torch.Tensor, n_limbs: int) -> torch.Tensor:
     """(..., C) f32 -> (n_limbs, ..., C) bf16 limb stack (the RNE cascade,
     bitwise ``limbs.decompose``).  CPU tensors run
     :func:`decompose_plain`; CUDA tensors launch the kernel."""
+    from repro_torch.analysis import accounting
+
+    accounting.record_decompose(w, n_limbs)
+    if _on_meta(w):
+        return _meta((n_limbs,) + tuple(w.shape), torch.bfloat16)
     if _on_cpu(w):
         mp_decompose.plain_calls += 1
         return decompose_plain(w, n_limbs)

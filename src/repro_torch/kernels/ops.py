@@ -23,16 +23,17 @@ from repro_torch.kernels.mp_matmul import MAX_OUT, \
     mp_mixed_prelimbed_matmul, mp_prelimbed_matmul
 
 
-def mp_matmul_cuda(a: torch.Tensor, b: torch.Tensor, mode: FormatLike = "M16"
-                   ) -> torch.Tensor:
+def mp_matmul_cuda(a: torch.Tensor, b: torch.Tensor, mode: FormatLike = "M16",
+                   *, tune=None) -> torch.Tensor:
     """a (..., M, K) @ b (..., K, N) -> (..., M, N).  When only ``a`` is
-    batched the batch folds into M (one large matmul); when both are, the
-    kernel takes the broadcast batch dims with their strides in ONE launch
-    (decode attention's (B, H, 1, Dh) x (B, H, Dh, T))."""
+    batched the batch folds into M (one large matmul, launched with the
+    autotuner's ``tune`` when given); when both are, the kernel takes the
+    broadcast batch dims with their strides in ONE launch (decode
+    attention's (B, H, 1, Dh) x (B, H, Dh, T))."""
     fmt = resolve(mode)
     if b.ndim == 2:
         lead = a.shape[:-1]
-        out = mp_fused_matmul(a.reshape(-1, a.shape[-1]), b, fmt)
+        out = mp_fused_matmul(a.reshape(-1, a.shape[-1]), b, fmt, tune=tune)
         return out.reshape(lead + (b.shape[-1],))
     return mp_fused_matmul(a, b, fmt)
 
@@ -58,7 +59,7 @@ def mp_matmul_dd(a, b, mode: FormatLike) -> torch.Tensor:
 
 def mp_fused_proj_cuda(x: torch.Tensor, ws, mode: FormatLike = "M16", *,
                        gate: str = "none", biases=None,
-                       residual: Optional[torch.Tensor] = None):
+                       residual: Optional[torch.Tensor] = None, tune=None):
     """Fused projection: x (..., K) against n_out (K, N_t) weights.
 
     Equal widths run the multi-output kernel, each weight from its own
@@ -66,7 +67,8 @@ def mp_fused_proj_cuda(x: torch.Tensor, ws, mode: FormatLike = "M16", *,
     wider than wk/wv) concatenate along N into ONE wide contraction — x is
     still read and limbed once — and the outputs are sliced back apart; only
     valid without a gate combine.  Returns the tuple of (..., N_t) outputs,
-    or one tensor when gated or n_out == 1."""
+    or one tensor when gated or n_out == 1.  ``tune``: the autotuner's
+    launch parameters, for every launch of the call."""
     fmt = resolve(mode)
     ws = tuple(ws)
     Ns = [w.shape[-1] for w in ws]
@@ -78,13 +80,14 @@ def mp_fused_proj_cuda(x: torch.Tensor, ws, mode: FormatLike = "M16", *,
     if len(set(Ns)) == 1:
         if gate != "none":
             out = mp_fused_proj(a, ws, fmt, gate=gate, biases=biases,
-                                residual=res2)
+                                residual=res2, tune=tune)
             return out.reshape(lead + (Ns[0],))
         outs = []
         for g in range(0, len(ws), MAX_OUT):
             grp_b = None if biases is None else tuple(biases[g:g + MAX_OUT])
             outs += list(mp_fused_proj(a, ws[g:g + MAX_OUT], fmt,
-                                       biases=grp_b, residual=res2))
+                                       biases=grp_b, residual=res2,
+                                       tune=tune))
         outs = tuple(o.reshape(lead + (Ns[0],)) for o in outs)
         return outs[0] if len(outs) == 1 else outs
     if gate != "none":
@@ -94,7 +97,7 @@ def mp_fused_proj_cuda(x: torch.Tensor, ws, mode: FormatLike = "M16", *,
     w_cat = torch.cat([w.float() for w in ws], dim=-1)      # (K, sum N)
     b_cat = None if biases is None else (torch.cat(
         [b.float() for b in biases], dim=-1),)
-    out = mp_fused_proj(a, (w_cat,), fmt, biases=b_cat)[0]
+    out = mp_fused_proj(a, (w_cat,), fmt, biases=b_cat, tune=tune)[0]
     parts = torch.split(out, Ns, dim=-1)
     return tuple(p.reshape(lead + (p.shape[-1],)) for p in parts)
 

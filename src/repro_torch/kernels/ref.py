@@ -447,3 +447,19 @@ def mp_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         outs.append(acc / torch.clamp(d[..., None], min=1e-30))
     out = torch.cat(outs, dim=2)[:, :, :S]
     return out.permute(0, 2, 1, 3).contiguous()
+
+
+def naive_multipass_ref(a: torch.Tensor, b, mode: FormatLike
+                        ) -> torch.Tensor:
+    """The *unoptimized* baseline the paper compares against (schoolbook):
+    all ``n_limbs**2`` limb products, no order cut, a naive left-to-right
+    f32 sum.  Each product multiplies bf16 limbs upcast to f32 (a bf16 x
+    bf16 ``torch.matmul`` would round its output to bf16)."""
+    s = resolve(mode)
+    al = _limbs_of(a, s.n_limbs)
+    bl = _limbs_of(b, s.n_limbs)
+    out = torch.zeros((), dtype=torch.float32, device=al.device)
+    for i in range(s.n_limbs):
+        for j in range(s.n_limbs):
+            out = out + _mm(al[i], bl[j])
+    return out

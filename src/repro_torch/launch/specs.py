@@ -1,0 +1,219 @@
+"""Input stand-ins for every (arch x shape x phase) cell on ``meta`` tensors
+(port of ``repro.launch.specs``, whose ``ShapeDtypeStruct`` trees carry
+shardings): shapes and dtypes at each cell's full config, no device memory.
+
+``build_cell`` returns what the dry run (``launch/dryrun.py``) needs to run
+one cell: the port's own step (``train.trainer.make_train_step``,
+``make_prefill_step``, ``make_serve_step``), its meta arguments by group
+(params, optimizer state, cache, batch) and the cell's layout rules.
+
+Layout.  :func:`make_rules` decides the JAX package's layout (batch axes,
+sequence axes, tensor parallelism) from the mesh's axis names and sizes
+alone, so it takes a ``torch.distributed`` DeviceMesh or any stand-in with
+``axis_names`` and a ``shape`` dict.  The port does not shard by those
+rules: it keeps parameters, optimizer state, batch and cache whole on every
+rank and shards the contraction of each 2-D matmul over the mesh's
+``data`` axis (the ``sharded`` backend; ROADMAP.md Queue 3).  The
+structures here are what the port holds per rank, so they have the global
+shapes.
+"""
+from __future__ import annotations
+
+import dataclasses
+import os
+from typing import Any, Callable, Dict, Optional, Tuple, Union
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.shapes import SHAPES, ShapeCell
+from repro_torch.core import context as context_lib
+from repro_torch.core.policy import PrecisionPolicy
+from repro_torch.dist import sharding as sh_lib
+from repro_torch.models import transformer as T
+from repro_torch.optim import adamw
+from repro_torch.train import trainer as trainer_lib
+
+META = torch.device("meta")
+
+
+def _axis_sizes(mesh) -> Dict[str, int]:
+    """{axis name: size} of a DeviceMesh or of a stand-in with
+    ``axis_names`` and a ``shape`` dict (the JAX mesh's attributes)."""
+    if hasattr(mesh, "mesh_dim_names"):
+        from repro_torch.launch import mesh as mesh_lib
+
+        return mesh_lib.mesh_axes(mesh)
+    return {a: int(mesh.shape[a]) for a in mesh.axis_names}
+
+
+def _divisible_batch_axes(mesh, B: int,
+                          include_model: bool = False) -> Tuple[str, ...]:
+    """Largest prefix of the data-parallel axis group that divides B.
+    include_model: allow absorbing the model axis into batch (FSDP-only
+    layout — pure 2D/3D data parallelism)."""
+    sizes = _axis_sizes(mesh)
+    cand = [a for a in ("pod", "data") if a in sizes]
+    if include_model:
+        cand.append("model")
+    axes = []
+    prod = 1
+    for a in cand:
+        if B % (prod * sizes[a]) == 0:
+            axes.append(a)
+            prod *= sizes[a]
+    return tuple(axes) if axes else ()
+
+
+def needs_tp(cfg: ModelConfig) -> bool:
+    """Layout decision: tensor parallelism above 60e9 parameters, as the
+    JAX package decides it.  ``REPRO_FORCE_LAYOUT=fsdp|tp`` overrides."""
+    force = os.environ.get("REPRO_FORCE_LAYOUT", "")
+    if force == "fsdp":
+        return False
+    if force == "tp":
+        return True
+    return cfg.param_count() > 60e9
+
+
+def make_rules(mesh, cell: ShapeCell, cfg: ModelConfig) -> sh_lib.AxisRules:
+    """Per-(arch x cell) layout, the JAX package's decisions:
+      TP archs:                     batch (pod, data) + TP + sequence
+                                    parallelism over model (train/prefill).
+      FSDP archs, batch divisible:  data parallelism over (pod, data, model).
+      FSDP archs, small batch:      batch (pod, data) + seq over model.
+    """
+    B = cell.global_batch
+    tp = needs_tp(cfg)
+    seq_axes: Tuple[str, ...] = ()
+    if tp:
+        batch_axes = _divisible_batch_axes(mesh, B)
+        if cell.phase in ("train", "prefill"):
+            seq_axes = ("model",)
+    else:
+        batch_axes = _divisible_batch_axes(
+            mesh, B, include_model=cell.phase in ("train", "prefill"))
+        if (cell.phase in ("train", "prefill")
+                and "model" not in batch_axes):
+            seq_axes = ("model",)
+    return sh_lib.AxisRules(mesh=mesh, batch_axes=batch_axes or (None,),
+                            model_axis="model", seq_axes=seq_axes,
+                            tp_enabled=tp)
+
+
+@dataclasses.dataclass
+class Cell:
+    arch: str
+    shape: str
+    phase: str
+    fn: Callable
+    args: tuple
+    donate: tuple = ()
+    # the meta arguments by group: params, opt, cache, batch
+    groups: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    rules: Optional[sh_lib.AxisRules] = None
+
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device=META)
+
+
+def batch_structs(cfg: ModelConfig, cell: ShapeCell, rules=None
+                  ) -> Dict[str, torch.Tensor]:
+    """The step's inputs at the global batch (int32 tokens, f32 stub
+    embeddings, as the pipelines make them)."""
+    B, S = cell.global_batch, cell.seq_len
+    if cfg.family == "audio":
+        return {"embeds": _meta((B, S, cfg.d_model), torch.float32)}
+    if cfg.family == "vlm":
+        return {"tokens": _meta((B, S - cfg.n_patches), torch.int32),
+                "patch_embeds": _meta((B, cfg.n_patches, cfg.d_model),
+                                      torch.float32)}
+    return {"tokens": _meta((B, S), torch.int32)}
+
+
+def label_struct(cfg: ModelConfig, cell: ShapeCell, rules=None
+                 ) -> torch.Tensor:
+    B, S = cell.global_batch, cell.seq_len
+    S_lab = S - cfg.n_patches if cfg.family == "vlm" else S
+    return _meta((B, S_lab), torch.int32)
+
+
+def params_structs(cfg: ModelConfig, rules=None) -> dict:
+    return T.init_params(cfg, device=META)
+
+
+def state_structs(cfg: ModelConfig, rules, moment_dtype: str):
+    params = params_structs(cfg, rules)
+    ocfg = adamw.AdamWConfig(moment_dtype=moment_dtype)
+    return trainer_lib.TrainState(params, adamw.init(params, ocfg)), ocfg
+
+
+def cache_structs(cfg: ModelConfig, cell: ShapeCell, rules=None,
+                  dtype=torch.bfloat16) -> T.ModelCache:
+    return T.make_cache(cfg, cell.global_batch, cell.seq_len, dtype=dtype,
+                        device=META)
+
+
+def _scoped(step: Callable, rules, mesh) -> Callable:
+    """Run ``step`` under the cell's rules and, across ranks, the
+    ``sharded`` backend on ``mesh`` (the port's multi-rank code); on one
+    process under the context's backend."""
+    def fn(*args):
+        ctx = context_lib.context(backend="sharded", mesh=mesh) \
+            if mesh is not None else context_lib.context()
+        with sh_lib.use_rules(rules), ctx:
+            return step(*args)
+
+    return fn
+
+
+def build_cell(arch: str, cfg: ModelConfig, shape: Union[str, ShapeCell],
+               mesh=None, policy: Optional[PrecisionPolicy] = None) -> Cell:
+    """One cell's step and meta arguments.  ``shape`` is a name of
+    :data:`SHAPES` or a :class:`ShapeCell`; ``mesh`` None runs on one
+    process (no rules)."""
+    cell = SHAPES[shape] if isinstance(shape, str) else shape
+    rules = make_rules(mesh, cell, cfg) if mesh is not None else None
+    policy = policy or PrecisionPolicy.train_default()
+
+    if cell.phase == "train":
+        moment_dtype = "bfloat16" if cfg.param_count() > 5e10 else "float32"
+        state, ocfg = state_structs(cfg, rules, moment_dtype)
+        tcfg = trainer_lib.TrainerConfig(opt=ocfg)
+        step = trainer_lib.make_train_step(cfg, policy, tcfg, mesh=mesh)
+        batch = batch_structs(cfg, cell, rules)
+        batch["labels"] = label_struct(cfg, cell, rules)
+        return Cell(arch, cell.name, "train", _scoped(step, rules, mesh),
+                    (state, batch), donate=(0,),
+                    groups={"params": state.params, "opt": state.opt,
+                            "batch": batch}, rules=rules)
+
+    params = params_structs(cfg, rules)
+    if cell.phase == "prefill":
+        inputs = batch_structs(cfg, cell, rules)
+        if cfg.encoder_only:
+            def enc(params, inputs):
+                logits, _, _ = T.forward(params, inputs, cfg, policy,
+                                         mesh=mesh)
+                return logits[:, -1:, :]
+
+            return Cell(arch, cell.name, "prefill",
+                        _scoped(enc, rules, mesh), (params, inputs),
+                        groups={"params": params, "batch": inputs},
+                        rules=rules)
+        cache = cache_structs(cfg, cell, rules)
+        pre = trainer_lib.make_prefill_step(cfg, policy, mesh=mesh)
+        return Cell(arch, cell.name, "prefill", _scoped(pre, rules, mesh),
+                    (params, inputs, cache), donate=(2,),
+                    groups={"params": params, "cache": cache,
+                            "batch": inputs}, rules=rules)
+
+    # decode: one new token per sequence against a full-length cache
+    cache = cache_structs(cfg, cell, rules)
+    tok = _meta((cell.global_batch, 1), torch.int32)
+    srv = trainer_lib.make_serve_step(cfg, policy, mesh=mesh)
+    return Cell(arch, cell.name, "decode", _scoped(srv, rules, mesh),
+                (params, cache, tok), donate=(1,),
+                groups={"params": params, "cache": cache, "batch": tok},
+                rules=rules)

@@ -155,9 +155,26 @@ def apply_rope_interleaved(x: torch.Tensor, positions: torch.Tensor,
 # --------------------------------------------------------------- init utils
 # Every draw comes from ``gen`` on the generator's own device (a CUDA
 # generator fills the card's memory in place: the full-width families hold
-# billions of parameters), then moves to ``device``.
+# billions of parameters), then moves to ``device``.  On ``meta`` (the dry
+# run's shapes) there is no generator: :class:`MetaGenerator` stands in and
+# the draws are shapes only.
+class MetaGenerator:
+    """The stand-in generator of a ``meta`` init: no state, no numbers."""
+
+    device = torch.device("meta")
+
+
+def rand(gen, shape) -> torch.Tensor:
+    """Uniform [0, 1) draws from ``gen`` (shapes only on ``meta``)."""
+    if isinstance(gen, MetaGenerator):
+        return torch.empty(shape, dtype=torch.float32, device="meta")
+    return torch.rand(shape, generator=gen, device=gen.device)
+
+
 def normal(gen: torch.Generator, shape, scale: float = 1.0, device=None
            ) -> torch.Tensor:
+    if isinstance(gen, MetaGenerator):
+        return torch.empty(shape, dtype=torch.float32, device="meta")
     w = torch.randn(shape, generator=gen, dtype=torch.float32,
                     device=gen.device)
     return (w * scale).to(device)
@@ -175,6 +192,9 @@ def embed_init(gen: torch.Generator, vocab: int, d: int, device=None
 
 
 def make_generator(seed: int, device=None) -> torch.Generator:
-    """A seeded generator on ``device`` (the CPU by default)."""
+    """A seeded generator on ``device`` (the CPU by default); on ``meta``
+    a :class:`MetaGenerator` (a ``torch.Generator`` cannot live there)."""
     dev = torch.device(device) if device is not None else torch.device("cpu")
+    if dev.type == "meta":
+        return MetaGenerator()
     return torch.Generator(device=dev).manual_seed(seed)

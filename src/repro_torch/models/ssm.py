@@ -24,7 +24,7 @@ import torch.nn.functional as F
 
 from repro_torch.core.mpmatmul import mp_dense, mp_matmul
 from repro_torch.core.policy import PrecisionPolicy
-from repro_torch.models.layers import dense_init, normal, rms_norm
+from repro_torch.models.layers import dense_init, normal, rand, rms_norm
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,7 +67,7 @@ class SSMCache:
 def init_ssm_params(gen: torch.Generator, dims: SSMDims, device=None
                     ) -> dict:
     H = dims.n_heads
-    u = torch.rand(H, generator=gen, device=gen.device)
+    u = rand(gen, H)
     dt = torch.exp(u * (math.log(dims.dt_max) - math.log(dims.dt_min))
                    + math.log(dims.dt_min))
     dt_bias = dt + torch.log(-torch.expm1(-dt))  # inverse softplus

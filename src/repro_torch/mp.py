@@ -32,8 +32,10 @@ K-sharded path across the ranks of a ``torch.distributed`` process group
     mp.unregister_backend("mine")                   # (built-ins reserved)
     step = mp.pin_backend(step, "sharded")
 
-Not here, because the port does not have it yet (ROADMAP.md): the
-autotune switch (``autotune_enabled``).  Every op is differentiable, AUTO
+The autotune switch (``autotune_enabled``: ``mp.configure(autotune=True)``
+or ``REPRO_MP_AUTOTUNE=1``) lets dispatch sweep the kernels' bit-neutral
+launch parameters on a table miss (``kernels/autotune.py``).  Every op is
+differentiable, AUTO
 included, with the JAX facade's backward formats (``bwd_mode``,
 ``dgrad_mode``, ``wgrad_mode``).  Beyond the JAX facade the
 port exports the paper's mode table (``MODE_TABLE``, ``STATIC_MODES``,
@@ -55,6 +57,7 @@ from repro_torch.core.formats import (  # noqa: F401
 from repro_torch.core.context import (  # noqa: F401
     DEFAULT_AUTO_CANDIDATES,
     PrecisionContext,
+    autotune_enabled,
     configure,
     context,
     current_context,

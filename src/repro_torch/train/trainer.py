@@ -44,6 +44,9 @@ from repro_torch.core.policy import PrecisionPolicy
 from repro_torch.models import transformer as T
 from repro_torch.optim import adamw
 from repro_torch.optim import schedule as sched_lib
+# the serving steps live with the engine; the JAX package keeps them here
+from repro_torch.serve.engine import (  # noqa: F401
+    make_prefill_step, make_serve_step)
 from repro_torch.train.metrics import MetricsLogger
 
 

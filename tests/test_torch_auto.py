@@ -365,7 +365,7 @@ def test_mode_flops_is_jax():
 def test_facade_has_the_jax_names_the_port_has():
     """Every name ``repro.mp`` exports is in ``repro_torch.mp`` but the
     ones its docstring lists as not ported yet."""
-    not_yet = {"autotune_enabled"}
+    not_yet = set()
     jnames = {n for n in dir(jmp) if not n.startswith("_")
               and not isinstance(getattr(jmp, n), type(jmp))}
     missing = {n for n in jnames - not_yet if not hasattr(mp, n)}

@@ -1,0 +1,179 @@
+"""The port's meta-device dry run (``repro_torch.launch.specs``,
+``repro_torch.launch.dryrun``) against the JAX package's: ``make_rules``
+decides the same layout for every registry id x shape x production mesh,
+the RUN / SKIP decisions are ``repro.configs.shapes.applicability``'s, the
+meta structures hold the bytes of the real SMOKE state, and a handful of
+full-size cells run in a subprocess (the fake process group never enters
+this process, and ``repro.launch.dryrun``, which sets ``XLA_FLAGS`` at
+import, is never imported)."""
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from repro.configs.registry import get_config as jget_config
+from repro.configs.shapes import SHAPES as JSHAPES
+from repro.configs.shapes import applicability as japplicability
+from repro.launch import specs as jspecs
+from repro_torch.configs.registry import ARCH_IDS, assigned_archs, get_config
+from repro_torch.configs.shapes import SHAPE_ORDER, SHAPES
+from repro_torch.data.pipeline import DataConfig, SyntheticLM
+from repro_torch.launch import specs
+from repro_torch.launch.dryrun import nbytes
+from repro_torch.models import transformer as T
+from repro_torch.optim import adamw
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+class StandInMesh:
+    """What ``make_rules`` reads of a mesh in either package: its axis names
+    and sizes (a 256- or 512-device mesh needs no devices here)."""
+
+    def __init__(self, multi_pod: bool):
+        sizes = (2, 16, 16) if multi_pod else (16, 16)
+        self.axis_names = (("pod", "data", "model") if multi_pod
+                           else ("data", "model"))
+        self.shape = dict(zip(self.axis_names, sizes))
+
+
+@pytest.mark.parametrize("force", ["", "fsdp", "tp"])
+def test_make_rules_is_jax(force, monkeypatch):
+    monkeypatch.setenv("REPRO_FORCE_LAYOUT", force)
+    n = 0
+    for arch in ARCH_IDS:
+        cfg, jcfg = get_config(arch), jget_config(arch)
+        assert specs.needs_tp(cfg) == jspecs.needs_tp(jcfg), arch
+        for shape in SHAPE_ORDER:
+            for multi in (False, True):
+                mesh = StandInMesh(multi)
+                got = specs.make_rules(mesh, SHAPES[shape], cfg)
+                want = jspecs.make_rules(mesh, JSHAPES[shape], jcfg)
+                assert (got.batch_axes, got.seq_axes, got.tp_enabled,
+                        got.model_axis) == \
+                    (want.batch_axes, want.seq_axes, want.tp_enabled,
+                     want.model_axis), (arch, shape, multi)
+                n += 1
+    assert n == 11 * 4 * 2
+
+
+def test_run_skip_decisions_are_jax():
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--list",
+         "--all"], capture_output=True, text=True, timeout=120, cwd=ROOT,
+        env={**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")})
+    assert out.returncode == 0, out.stderr
+    lines = out.stdout.strip().splitlines()
+    assert len(lines) == 10 * 4
+    for line in lines:
+        arch, shape, verdict = line.split(None, 2)
+        ok, reason = japplicability(jget_config(arch), shape)
+        assert verdict == ("RUN" if ok else "SKIP: " + reason), line
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_meta_params_are_the_real_shapes(arch):
+    cfg = get_config(arch, smoke=True)
+    real = T.init_params(cfg, seed=0)
+    meta = specs.params_structs(cfg)
+    flat_r, flat_m = _leaves(real), _leaves(meta)
+    assert [(t.shape, t.dtype) for t in flat_m] == \
+        [(t.shape, t.dtype) for t in flat_r]
+    assert all(t.is_meta for t in flat_m)
+    assert nbytes(meta) == nbytes(real)
+
+
+@pytest.mark.parametrize("arch", ["paper-mpfp-100m", "deepseek-v2-lite-16b",
+                                  "zamba2-2.7b", "llava-next-34b",
+                                  "hubert-xlarge"])
+def test_meta_argument_bytes_are_the_real_smoke_state(arch):
+    """The train state (AdamW f32 moments), the batch the pipeline makes and
+    the decode cache: meta bytes == the real tensors' nbytes."""
+    cfg = get_config(arch, smoke=True)
+    cell = specs.ShapeCell("smoke", 64, 2, "train")
+    state, ocfg = specs.state_structs(cfg, None, "float32")
+    params = T.init_params(cfg, seed=0)
+    real_state = (params, adamw.init(params, ocfg))
+    assert nbytes(state) == nbytes(real_state)
+    batch = specs.batch_structs(cfg, cell)
+    batch["labels"] = specs.label_struct(cfg, cell)
+    # a cell's seq_len counts the VLM's patches; the pipeline's tokens not
+    s_tok = 64 - (cfg.n_patches if cfg.family == "vlm" else 0)
+    pipe = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=s_tok + 1,
+                                  global_batch=2, frontend=cfg.frontend,
+                                  d_model=cfg.d_model,
+                                  n_patches=cfg.n_patches))
+    real_batch = {k: torch.from_numpy(np.ascontiguousarray(v))
+                  for k, v in pipe.batch(0).items()}
+    assert {k: (tuple(v.shape), v.dtype) for k, v in batch.items()} == \
+        {k: (tuple(v.shape), v.dtype) for k, v in real_batch.items()}
+    assert nbytes(batch) == nbytes(real_batch)
+    if not cfg.encoder_only:
+        cache = specs.cache_structs(cfg, cell)
+        assert nbytes(cache) == nbytes(T.make_cache(cfg, 2, 64))
+
+
+def _leaves(tree):
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in _leaves(v)]
+    return []
+
+
+CELLS = (("deepseek-7b", "decode_32k"),          # dense
+         ("deepseek-v2-lite-16b", "decode_32k"),  # MoE (MLA)
+         ("mamba2-130m", "long_500k"),            # SSM
+         ("hubert-xlarge", "train_4k"),           # encoder-only
+         ("hubert-xlarge", "decode_32k"),         # skip: no decode step
+         ("deepseek-7b", "long_500k"))            # skip: full attention
+
+
+def test_cells_in_a_subprocess(tmp_path):
+    """Full-size cells as rank 0 of the 256-rank fake world: ok records with
+    the layout of ``make_rules``, per-rank work and memory, the H100
+    roofline; skip records with JAX's reasons."""
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--mesh",
+         "single", "--out", str(tmp_path), "--cells",
+         ",".join(f"{a}:{s}" for a, s in CELLS)],
+        capture_output=True, text=True, timeout=300, cwd=ROOT,
+        env={**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")})
+    assert out.returncode == 0, out.stdout + out.stderr
+    for arch, shape in CELLS:
+        with open(tmp_path / f"singlepod_{arch}_{shape}.json") as f:
+            rec = json.load(f)
+        ok, reason = japplicability(jget_config(arch), shape)
+        if not ok:
+            assert rec["status"] == "skip" and rec["reason"] == reason
+            continue
+        assert rec["status"] == "ok", rec["reason"]
+        assert rec["n_chips"] == 256 and rec["trace_s"] > 0
+        want = jspecs.make_rules(StandInMesh(False), JSHAPES[shape],
+                                 jget_config(arch))
+        assert rec["layout"] == {
+            "batch_axes": [a for a in want.batch_axes if a],
+            "seq_axes": list(want.seq_axes), "tp_enabled": want.tp_enabled}
+        mem, work = rec["memory"], rec["work"]
+        cfg = get_config(arch)
+        # the port holds the parameters whole on every rank
+        assert mem["params_bytes"] == nbytes(specs.params_structs(cfg))
+        assert mem["argument_bytes"] == sum(
+            v for k, v in mem.items() if k.endswith("_bytes")
+            and k not in ("argument_bytes", "output_bytes", "peak_bytes"))
+        assert mem["peak_bytes"] is None and mem["output_bytes"] > 0
+        assert work["flops"] > 0 and work["bytes"] > 0
+        roof = rec["roofline"]
+        assert roof["hardware"] == "NVIDIA H100 80GB HBM3"
+        assert roof["bound_s"] == max(roof["compute_s"], roof["memory_s"],
+                                      roof["collective_s"])
+        assert roof["flops_per_chip"] == work["flops"]
+        if shape == "train_4k":   # K-sharded matmuls: the all-reduces
+            assert work["collective_bytes"]["all_reduce"] > 0
+    assert arch in assigned_archs()

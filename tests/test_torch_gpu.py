@@ -1476,3 +1476,88 @@ def test_cross_pool_handoff_reads_nothing_back(cuda):
         torch.cuda.set_sync_debug_mode("default")
     assert torch.equal(dst.k[:, req.blocks], want)
     assert src.n_live == 0 and dst.n_live == 3
+
+
+def test_autotune_sweeps_bitwise(cuda, tmp_path, monkeypatch):
+    """The autotuner on the card: the libraries' shared-memory formulas
+    (``mp_tile_smem_bytes``, ``mp_decode_smem_bytes``,
+    ``mp_flash_smem_bytes``) and tile choices equal the Python mirrors;
+    every candidate of ragged decode, prefill, projection and flash keys is
+    bitwise the default launch (``autotune`` raises otherwise); the
+    winners persist, and dispatch launching with them gives the default
+    launches' bits."""
+    import ctypes
+
+    from repro_torch.core import dispatch
+    from repro_torch.kernels import autotune as at
+
+    monkeypatch.setenv("REPRO_AUTOTUNE_CACHE_DIR", str(tmp_path))
+    at.clear_memory_cache()
+    at.reset_stats()
+    lib = build.load("mp_matmul")
+    mp_matmul._set_argtypes(lib)
+    for nl, mo in at.BUILTIN + ((2, 2), (4, 3)):
+        resolved = next((f for f in ("M8", "M16", "M23", "M36", "M52")
+                         if (resolve(f).n_limbs, resolve(f).max_order)
+                         == (nl, mo)), None)
+        for n_out in (1, 2, 3):
+            if resolved:
+                assert lib.mp_tile_e(nl, mo, n_out) == \
+                    at.format_tile_e(resolved, n_out)
+                assert lib.mp_tile_e_alt(nl, mo, n_out) == \
+                    at.format_tile_e_alt(resolved, n_out)
+            for e in (4, 8, 16, 32, 64):
+                for pl, pla in ((0, 0), (1, 0), (1, 1)):
+                    assert lib.mp_tile_smem_bytes(nl, n_out, e, pl, pla) == \
+                        at.tile_smem(nl, n_out, e, bool(pl), bool(pla))
+        assert lib.mp_decode_ring_k(nl, mo) == (
+            at.decode_ring_k(resolved) if resolved else 128)
+        for M in (1, 8, 16):
+            for dk in (64, 128, 192, 256):
+                for slots in (1, 3):
+                    for nout in (1, 2):
+                        for pl in (0, 1):
+                            assert lib.mp_decode_smem_bytes(
+                                pl, nl, M, dk, slots, nout) == \
+                                at.dec_smem_bytes(bool(pl), nl, M, dk, slots,
+                                                  nout)
+    alib = build.load("mp_attention")
+    alib.mp_flash_smem_bytes.argtypes = [ctypes.c_int64] * 6
+    alib.mp_flash_smem_bytes.restype = ctypes.c_int64
+    for Dh in (16, 40, 64, 80, 128, 192):
+        for bq in (16, 32, 64):
+            for q, p in (("M8", "M8"), ("M16", "M8"), ("M23", "M23"),
+                         ("M36", "M16")):
+                fq, fp = resolve(q), resolve(p)
+                assert mp_attention.flash_smem_bytes(Dh, bq, fq, fp) == \
+                    at.flash_smem(Dh, bq, fq, fp)
+    keys = [(70, 96, 200, "M16", 1, "none"), (8, 700, 300, "M8", 2, "swiglu"),
+            (40, 64, 96, "M23", 3, "none"), (5, 130, 64, "M52", 1, "none"),
+            (2048, 768, 768, "M8", 1, "none")]
+    for M, K, N, f, n_out, ep in keys:
+        rec = {}
+        got = at.autotune(M, K, N, f, n_out=n_out, epilogue=ep, iters=2,
+                          record=rec)
+        assert list(got) == rec["winner"] and len(rec["candidates"]) >= 1
+    rec = {}
+    at.autotune_attention(6, 40, 40, 64, "M16", "M8", iters=2, record=rec)
+    assert len(rec["candidates"]) == 2      # 64 rows exceed S = 40
+    assert at.stats()["sweeps"] == len(keys) + 1
+    table = dict(at.load_table())
+    at.clear_memory_cache()
+    assert at.load_table() == table
+    # dispatch launches with the winners: the default launches' bits
+    a, b = _randn(cuda, 70, 96), _randn(cuda, 96, 200, seed=1)
+    x, ws = _randn(cuda, 8, 700), [_randn(cuda, 700, 300, seed=s)
+                                   for s in (2, 3)]
+    tuned = (dispatch.dispatch(a, b, "M16", backend="cuda"),
+             dispatch.dispatch_fused(x, ws, "M8", gate="swiglu",
+                                     backend="cuda"))
+    assert at.stats()["hits"] >= 2
+    monkeypatch.setenv("REPRO_AUTOTUNE_CACHE_DIR", str(tmp_path / "none"))
+    at.clear_memory_cache()
+    plain = (dispatch.dispatch(a, b, "M16", backend="cuda"),
+             dispatch.dispatch_fused(x, ws, "M8", gate="swiglu",
+                                     backend="cuda"))
+    assert all(torch.equal(t, p) for t, p in zip(tuned, plain))
+    at.clear_memory_cache()
