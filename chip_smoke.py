@@ -229,6 +229,11 @@ SOURCES = {
         "src/repro_torch/kernels/csrc/mp_matmul.cu",
         "src/repro/core/dispatch.py:141"),
 }
+# the files of the routed wrappers' kernels, by route: the kernels line
+# names those of the routes its path launched
+ROUTE_SOURCES = {"cluster": "src/repro_torch/kernels/csrc/mp_matmul_hopper.cu",
+                 "tma": "src/repro_torch/kernels/csrc/mp_matmul_hopper.cu",
+                 "strided": "src/repro_torch/kernels/csrc/mp_matmul.cu"}
 # the path whose run gives each kernel's ``launches``: the three kernels of
 # slice 1 report the static ``generate`` path, the three of the scheduler
 # slice the scheduler path, the two mixed-lane kernels the mixed-traffic path,
@@ -247,6 +252,10 @@ EXPECTED = {"mp_fused_proj": 24 + 32 * 24, "mp_flash_attention": 12,
             "mp_prelimbed_matmul": 0, "mp_paged_attention": 0,
             "mp_mixed_prelimbed_matmul": 0, "mp_mixed_paged_attention": 0,
             "mp_both_prelimbed_matmul": 0, "mp_fused_matmul_partials": 0}
+# the fused matmul's routes in that generate: the 24 prefill wo / w_down
+# and lm_head on the TMA tile, every decode matmul (wo, w_down, QK, PV,
+# lm_head at 8 rows, or 1 row per batch entry) on the split decode tile
+EXPECTED_ROUTES = {"cluster": 32 * 49, "tma": 25, "strided": 0}
 # the mixed-traffic modes, request i at MODES[i % 4]: the serving builtins
 # and a custom format that keeps all four 2-limb products (M16 keeps three)
 CUSTOM = dict(name="M16FULL", mantissa_bits=16, n_limbs=2, max_order=2)
@@ -1033,6 +1042,14 @@ def chaos_phase(fail, eng, dev, smi, counts):
 # A kernel against its plain version (phase 3 and [arch]).
 FLASH_TOL = 2e-5   # abs and rel: the same blocking on both sides, only the
                    # f32 summation order differs (tests/test_mp_attention.py)
+
+
+def routed_call(fn, *args):
+    """``fn(*args)`` for a wrapper that counts its launches per route, and
+    the route that ran."""
+    before = dict(fn.routes)
+    out = fn(*args)
+    return out, next(k for k, v in fn.routes.items() if v != before[k])
 
 
 def mm_tol(ref, K):
@@ -1992,6 +2009,7 @@ def dist_generate(prompts, max_new):
     torch.cuda.synchronize()
     gen_s = time.perf_counter() - t0
     total = _counts()
+    routes = kernels.route_counts()
     plain = kernels.plain_call_counts()
     probe = eng.decode_throughput_probe(steps=8)
     with CollectiveClock() as pre_clock:
@@ -2000,7 +2018,8 @@ def dist_generate(prompts, max_new):
         eng.decode_throughput_probe(steps=4)
     out = dict(
         tokens=outs, logits=logits[:, -1].float().cpu().numpy(),
-        prefill=pre, step=step, total=total, plain=plain, gen_s=gen_s,
+        prefill=pre, step=step, total=total, routes=routes, plain=plain,
+        gen_s=gen_s,
         tokens_per_s=len(prompts) * max_new / gen_s, prefill_ms=prefill_ms,
         decode_ms_per_step=probe["ms_per_step"],
         decode_tokens_per_s=probe["tokens_per_s"],
@@ -2719,6 +2738,17 @@ def dist_phase(fail, cfg, params, main_prompts, sched_prompts, ck_dir, smi):
                        f"[dist] {tag} counts off the formula")
         fail.check(not any(g0["plain"].values()),
                    f"[dist] plain-version calls {g0['plain']}")
+        # the prefill's partials: the TMA tile at one limb, the strided
+        # tile at more (mp_matmul.fused_route)
+        want_routes = dict.fromkeys(("cluster", "tma", "strided"), 0)
+        for f, n in ((fmts["attn_out"], L), (fmts["ffn"], L),
+                     (fmts["lm_head"], 1)):
+            want_routes["tma" if f.n_limbs == 1 else "strided"] += n
+        p_routes = g0["routes"]["mp_fused_matmul_partials"]
+        log(f"[dist] generate: the partials' routes {p_routes} (want "
+            f"{want_routes})")
+        fail.check(p_routes == want_routes,
+                   "[dist] generate: the partials' routes off the formula")
         a, b = g0["logits"].astype(np.float64), g0["ref_logits"].astype(
             np.float64)
         rel = float(np.linalg.norm(a - b) / np.linalg.norm(b))
@@ -3219,10 +3249,15 @@ def _autotune_run(cfg, params, prompts, main_outs, smi) -> dict:
     sweep_s = time.perf_counter() - t0
     for r in rows:
         log(f"[autotune] {r['key']}: default {r['default_ms']:.4f} ms, "
-            f"winner {r['winner']} {r['winner_ms']:.4f} ms; every candidate "
+            f"winner {r['winner']} {r['winner_ms']:.4f} ms, the default "
+            f"{'won' if r['default_won'] else 'lost'}; every candidate "
             f"bitwise the default launch: "
             f"{ {k: round(v, 4) for k, v in r['candidates'].items()} } "
-            f"({smi})")
+            f"(device time, calls queued behind a sleep kernel; {smi})")
+        # the default is one of the configurations the sweep times
+        if r["winner_ms"] > r["default_ms"]:
+            raise AssertionError(f"[autotune] {r['key']}: the winner "
+                                 f"{r['winner']} is slower than the default")
     st = at.stats()
     if st["sweeps"] != len(keys) + len(akeys):
         raise AssertionError(f"[autotune] {st['sweeps']} sweeps for "
@@ -3439,37 +3474,14 @@ def device_busy_ms(fn):
     return total, dict(sorted(by_name.items(), key=lambda kv: -kv[1]))
 
 
-def device_ms(fn, torch, min_ms: float = 30.0):
+def device_ms(fn, torch=None, min_ms: float = 30.0):
     """Mean device milliseconds per call with the host ahead of the card,
-    and whether it stayed ahead: a sleep kernel holds the stream while the
-    host enqueues the calls, so the CUDA events time them back to back on
-    the card, without the launch gaps that set :func:`timed` for a call of a
-    few microseconds.  Where the sleep ran out before the host had enqueued
-    the last call (the start event had passed), the run is made again with
-    half the calls and twice the sleep; after five runs the last one's time
-    comes back with ``False``."""
-    fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    fn()
-    torch.cuda.synchronize()
-    once = max(time.perf_counter() - t0, 1e-6) * 1e3  # ms, host and card
-    n = max(3, min(200, int(min_ms / once)))
-    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    for attempt in range(5):
-        # ~2e6 cycles per ms at the card's boost clock (a lower clock only
-        # makes the sleep longer), twice the host's n enqueues and more
-        torch.cuda._sleep(int(2e6 * (2 ** (attempt + 1) * n * once + 1.0)))
-        start.record()
-        for _ in range(n):
-            fn()
-        end.record()
-        ahead = not start.query()
-        torch.cuda.synchronize()
-        if ahead:
-            break
-        n = max(3, n // 2)
-    return start.elapsed_time(end) / n, ahead
+    and whether it stayed ahead: the port's one timer,
+    :func:`repro_torch.kernels.timing.device_ms` (calls queued behind a
+    sleep kernel), which the autotuner's sweeps use too."""
+    from repro_torch.kernels.timing import device_ms as timer
+
+    return timer(fn, min_ms)
 
 
 def paged_inputs(torch, randn, lengths, H, Hkv, Dh=64, bs=16, perm_seed=0,
@@ -3598,8 +3610,18 @@ def main() -> int:
     # the K of one chunk: the length of every tensor-core chain, so the
     # order of every matmul's sum
     report["chunk_k"] = mp_matmul.chunk_k()
-    log(f"[build] limb matmuls: one mma.sync chain per product over chunks "
-        f"of KC = {report['chunk_k']} k, summed by f32 adds")
+    log(f"[build] limb matmuls: one tensor-core chain per product (mma.sync;"
+        f" wgmma on the fused matmul's TMA tile) over chunks of KC = "
+        f"{report['chunk_k']} k, summed by f32 adds")
+    # the fused matmul's decode plan at the serving decode shapes: the
+    # cluster size splitting K's chunks and the k per ring stage
+    report["split_plan"] = {
+        f"{lbl} 8x{K}x{N} {f}": mp_matmul.decode_plan(8, N, K, f)
+        for lbl, K, N, f in (("w_down", 3072, 768, "M8"),
+                             ("wo", 768, 768, "M8"),
+                             ("lm_head", 768, 32000, "M16"))}
+    log("[build] fused matmul decode plan (cluster size, k per stage): "
+        + ", ".join(f"{k} {v}" for k, v in report["split_plan"].items()))
     # the paged kernels' chunk at the decode shape (Dh 64, bs 16, M16/M8 and
     # the mixed tick's (3, 3) envelope); a slot's bits do not depend on it
     chunk_cols = mp_attention.paged_chunk_cols(64, 16, 1, 2, 1)
@@ -3711,12 +3733,12 @@ def main() -> int:
         give the wrapper's bits, and is timed beside it.  ``solo``: each
         batch entry bitwise the same product launched alone."""
         fmt = resolve(fmt)
-        out = mp_matmul.mp_fused_matmul(a, b, fmt)
+        out, route = routed_call(mp_matmul.mp_fused_matmul, a, b, fmt)
         ref = mp_matmul.fused_matmul_plain(a, b, fmt)
         torch.cuda.synchronize()
         K = a.shape[-1]
         hold("mp_fused_matmul", label, out, ref, mm_tol(ref, K),
-             {"fmt": fmt.name})
+             {"fmt": fmt.name, "route": route})
         gold = (hold_golden("mp_fused_matmul", label, out,
                             a.double() @ b.double(), f32_bound(fmt, K))
                 if golden_case(label) else {})
@@ -3762,7 +3784,7 @@ def main() -> int:
         nbytes = 4 * (a.numel() + b.numel() + out.numel())
         row = dict(case=label, fmt=fmt.name, a=list(a.shape),
                    b=list(b.shape), ops=ops, bytes=nbytes, main=main,
-                   per=per, **gold,
+                   per=per, route=route, **gold,
                    fn=lambda: mp_matmul.mp_fused_matmul(a, b, fmt),
                    plain=lambda: mp_matmul.fused_matmul_plain(a, b, fmt),
                    library=(lambda ar=a.bfloat16().float(),
@@ -3777,7 +3799,8 @@ def main() -> int:
         if contig:
             cases["mp_fused_matmul"].append(dict(
                 row, case=label + ", launched on the views as they are",
-                main=False, per=None, fn=on_views))
+                main=False, per=None, fn=on_views,
+                route=mp_matmul.STRIDED))
 
     def partials_gate(label, a, b, fmt, fused_out):
         """The partials epilogue on a 2-D case: each order's plane against
@@ -3785,11 +3808,13 @@ def main() -> int:
         fused kernel's output, and a decode case's rows (M <= 16, the
         decode tile) bitwise the same rows of an M = 70 launch."""
         kname = "mp_fused_matmul_partials"
-        parts = mp_matmul.mp_fused_matmul_partials(a, b, fmt)
+        parts, route = routed_call(mp_matmul.mp_fused_matmul_partials, a, b,
+                                   fmt)
         plain = mp_matmul.fused_matmul_partials_plain(a, b, fmt)
         torch.cuda.synchronize()
         tol = torch.stack([mm_tol(pl, a.shape[-1]) for pl in plain])
-        hold(kname, label, parts, plain, tol, {"fmt": fmt.name})
+        hold(kname, label, parts, plain, tol, {"fmt": fmt.name,
+                                               "route": route})
         joined = ref_lib.combine_partials(parts, fmt)
         torch.cuda.synchronize()
         if not torch.equal(joined.view(torch.int32),
@@ -3823,6 +3848,7 @@ def main() -> int:
         (M, K), N = a.shape, b.shape[1]
         cases["mp_fused_matmul_partials"].append(dict(
             case=label, fmt=fmt.name, a=list(a.shape), b=list(b.shape),
+            route=checks["mp_fused_matmul_partials"][-1]["route"],
             ops=2 * M * K * N * fmt.n_products,
             bytes=4 * (a.numel() + b.numel() + fmt.n_orders * M * N),
             main=main, per=None,
@@ -4005,7 +4031,12 @@ def main() -> int:
             fn=lambda: mp_matmul.mp_prelimbed_matmul(a, limbs, fmt),
             plain=lambda: mp_matmul.prelimbed_matmul_plain(a, limbs, fmt),
             library=(lambda ar=a.bfloat16().float(), br=w.bfloat16().float():
-                     torch.matmul(ar, br)) if library else None))
+                     torch.matmul(ar, br)) if library else None,
+            # M8 reads plane 0, the bf16 weight: torch.mm of bf16 operands
+            # (f32 out) computes its function
+            library_bf16=(lambda ab=a.bfloat16(), bb=limbs[0]:
+                          torch.mm(ab, bb, out_dtype=torch.float32))
+            if library and fmt.name == "M8" else None))
 
     def solo_bitwise(kernel, label, launch, out, table, lengths, bs):
         """Each slot of ``out`` bitwise the same slot launched alone (B = 1,
@@ -4589,12 +4620,17 @@ def main() -> int:
     torch.cuda.synchronize()
     gen_s = time.perf_counter() - t0
     launches = kernels.launch_counts()
+    main_routes = kernels.route_counts()
     peak = torch.cuda.max_memory_allocated()
     log(f"[main] generate 8 prompts {lengths} x 32 new: {gen_s:.3f} s, "
         f"{8 * 32 / gen_s:.1f} tokens/s, peak {peak / 2**30:.2f} GiB, "
-        f"launches {launches}")
+        f"launches {launches}; the fused matmul's routes "
+        f"{main_routes['mp_fused_matmul']}")
     if launches != EXPECTED:
         raise AssertionError(f"launches {launches} != expected {EXPECTED}")
+    if main_routes["mp_fused_matmul"] != EXPECTED_ROUTES:
+        raise AssertionError(f"routes {main_routes['mp_fused_matmul']} != "
+                             f"expected {EXPECTED_ROUTES}")
     if len(outs) != 8 or any(len(o) != 32 for o in outs) or any(
             not 0 <= t < cfg.vocab for o in outs for t in o):
         raise AssertionError("generate returned malformed token streams")
@@ -4629,6 +4665,7 @@ def main() -> int:
                           decode_ms_per_step=probe["ms_per_step"],
                           decode_tokens_per_s=probe["tokens_per_s"],
                           peak_bytes=peak, launches=launches,
+                          routes=main_routes,
                           logits_rel_vs_ref=rel, top1_agree_vs_ref=agree)
 
     # ---- 4b. the scheduler path -------------------------------------------
@@ -5268,7 +5305,7 @@ def main() -> int:
                                              kernel=k_ahead))
         log(f"[train] wgrad {label} over {tok} tokens: mp_wgrad_ref "
             f"{ref_ms:.4f} ms, of it the one torch.mm (bf16 operands, f32 "
-            f"out) {mm_ms:.4f} ms; fused_matmul_kernel on the same "
+            f"out) {mm_ms:.4f} ms; the fused matmul on the same "
             f"contraction (x^T copied) {k_ms:.4f} ms; bound {b_ms:.4f} ms "
             f"({b_by})")
     if (torch.get_float32_matmul_precision() != "highest"
@@ -5379,14 +5416,16 @@ def main() -> int:
                        host_ahead=host_ahead)
             rows.append(row)
             behind = [k for k, v in host_ahead.items() if not v]
-            log(f"[time] {kname} {c['case']} {c['fmt']}: {ms:.4f} ms "
+            log(f"[time] {kname} {c['case']} {c['fmt']}"
+                + (f" ({c['route']} route)" if c.get("route") else "")
+                + f": {ms:.4f} ms "
                 f"(back to back from the host {event_ms:.4f} ms), plain "
                 f"{plain_ms:.4f} ms, library "
                 f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound "
                 f"{b_ms:.4f} ms ({b_by})"
                 + (f"; torch.mm bf16 (f32 out) {row['library_bf16_ms']:.4f} ms"
                    if "library_bf16_ms" in row else "")
-                + (f"; fused_matmul_kernel on the same operands "
+                + (f"; the fused matmul on the same operands "
                    f"{row['fused_ms']:.4f} ms" if "fused_ms" in row else "")
                 + (f"; rel err vs float64 {c['gold_rel']:.3e} (bound "
                    f"{c['gold_bound']:.3e})" if "gold_rel" in c else "")
@@ -5399,17 +5438,25 @@ def main() -> int:
                    "auto_sched": as_launches[kname],
                    "train": t_launches[kname],
                    **{k: v[kname] for k, v in new_launches.items()}}
+        path = LAUNCH_PATH.get(kname, "generate")
+        routes = {"generate": report["main"]["routes"],
+                  "dist": report["dist"]["generate"]["routes"]}.get(
+                      path, {}).get(kname)
+        if routes:     # the files of the routes that ran
+            src = ", ".join(dict.fromkeys(
+                ROUTE_SOURCES[r] for r, n in routes.items() if n)) or src
         line.append({
             "name": kname, "route": "cuda", "source": src,
             "replaces": replaces,
-            "launches": by_path[LAUNCH_PATH.get(kname, "generate")],
+            "launches": by_path[path],
             "launches_by_path": by_path,
             "max_abs_err": max(r["max_abs_err"] for r in checks[kname]),
             "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"],
             "bound_by": main_row["bound_by"],
             "library_ms": main_row["library_ms"],
-            "main_case": main_row["case"]})
+            "main_case": main_row["case"],
+            **({"routes": routes} if routes else {})})
         report.setdefault("cases", {})[kname] = rows
     # kernel time of one prefill and one decode step at these shapes: the
     # device-busy lower bound the measured step times are read against

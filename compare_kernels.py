@@ -7,13 +7,23 @@ sources on one card, and check that they give the same bits.
 
 ``--source`` names the source (``mp_matmul``, the default: the limb
 matmuls; ``mp_attention``: paged and mixed paged decode attention and flash
-attention).  This tree's ``csrc/<source>.cu`` and each other one are
-compiled with the tree's flags, all at once, into
-``build/compare_kernels/``; every case of the source runs on each library
-through the port's launch marshalling, timed with ``chip_smoke.py``'s ``ms``
-timer (calls queued behind a sleep kernel), and each other version's output
-is compared with this tree's bit for bit; the SM clock and power draw are
-sampled while each case of this tree runs back to back.  A version
+attention).  Each other version is compiled with the tree's flags into
+``build/compare_kernels/``, all at once, beside this tree's libraries (for
+``mp_matmul``: ``mp_matmul.cu`` and ``mp_matmul_hopper.cu``, whose fused
+matmul runs each case by the route the port's wrapper takes; another
+version's ``mp_matmul.cu`` runs every case itself).  Every case runs on
+each version through the port's launch marshalling, timed on the port's
+device timer (``repro_torch/kernels/timing.py``: calls queued behind a
+sleep kernel), and each other version's output is compared with this
+tree's bit for bit; the SM clock and power draw are sampled while each
+case of this tree runs back to back, and this tree's matmul lines carry
+the case's route, its bound, its plain version's time and, at M8, the
+time of ``torch.mm`` on bf16 operands with f32 out (M8's function).
+
+    python3 compare_kernels.py PARENT/src/repro_torch/kernels/csrc/mp_matmul.cu
+
+with the parent commit unpacked under ``build/`` (``git archive``) times a
+change against its parent in one call.  A version
 whose order of sums differs is reported, not rejected: the tool serves to
 time a redesign (the parent's source, or a copy with one part removed) and
 to check that a new instruction keeps the order's bits.  Each version's
@@ -33,9 +43,34 @@ ROOT = Path(__file__).resolve().parent
 
 def matmul_cases(torch, randn):
     """The model's prefill and decode shapes (paper-mpfp-100m), as in
-    chip_smoke.py's [time] lines."""
+    chip_smoke.py's [time] lines, the partials epilogue at the K-sharded
+    prefill's shapes (two ranks: half of K), and two cases of the order's
+    edges: a row whose products are all -0.0, and the subnormal products
+    of tests/test_torch_gpu.py::test_subnormal_products_are_kept (an f32
+    and bf16 subnormal column, rows of +-3.39e38 and an inf), each at a
+    prefill and a decode row count.  Returns {label: (run, (a, b, fmt,
+    parts) or None)}; ``run(lib, stream)`` launches on another version's
+    library, or on this tree's by the wrapper's route when ``lib`` is
+    None."""
     from repro_torch.core.formats import resolve as f
     from repro_torch.kernels import mp_matmul as mm
+
+    def fused(a, b, fmt):
+        def run(lib, st):
+            if lib is None:
+                return mm.launch_routed(st, a, b, f(fmt))[0]
+            return mm.launch_fused_matmul(lib, st, a, b, f(fmt))
+        return run, (a, b, f(fmt), False)
+
+    def partials(a, b, fmt):
+        def run(lib, st):
+            if lib is None:
+                return mm.launch_routed(st, a, b, f(fmt), parts=True)[0]
+            return mm.launch_fused_matmul_partials(lib, st, a, b, f(fmt))
+        return run, (a, b, f(fmt), True)
+
+    def this_tree(lib):
+        return lib if lib is not None else _tree_lib()
 
     x, a_ff = randn(2048, 768), randn(2048, 3072)
     w_o, w_down = randn(768, 768) * 0.03, randn(3072, 768) * 0.02
@@ -45,28 +80,77 @@ def matmul_cases(torch, randn):
     qh = randn(8, 1, 12, 64).permute(0, 2, 1, 3)
     kt = randn(8, 512, 12, 64).permute(0, 2, 1, 3).transpose(-1, -2)
     xa7, wl7 = mm.mp_decompose(x, 7), mm.mp_decompose(w_lm, 7)
+    neg = randn(70, 256)
+    neg[3] = -0.0
+    pos = randn(256, 64).abs() + 0.1
+    sub = randn(70, 16)
+    sub[0] = 3.39e38 * torch.sign(sub[0])
+    sub[1, 3] = float("inf")
+    sub_b = randn(16, 8)
+    sub_b[:, 4] = 1e-40
     return {
-        "prefill w_down 2048x3072x768 M8": lambda lib, st: (
-            mm.launch_fused_matmul(lib, st, a_ff, w_down, f("M8"))),
-        "prefill wo 2048x768x768 M8": lambda lib, st: (
-            mm.launch_fused_matmul(lib, st, x, w_o, f("M8"))),
-        "prefill lm_head 2048x768x32000 M16": lambda lib, st: (
-            mm.launch_fused_matmul(lib, st, x, w_lm, f("M16"))),
-        "prefill wo 2048x768x768 M23": lambda lib, st: (
-            mm.launch_fused_matmul(lib, st, x, w_o, f("M23"))),
-        "prefill QKV 2048x768 vs 3x768x768 M8": lambda lib, st: (
-            mm.launch_fused_proj(lib, st, x, wq, f("M8"))),
-        "prefill SwiGLU 2048x768 vs 2x768x3072 M8": lambda lib, st: (
-            mm.launch_fused_proj(lib, st, x, wg, f("M8"), gate="swiglu")),
-        "decode lm_head 8x768x32000 M16": lambda lib, st: (
-            mm.launch_fused_matmul(lib, st, x[:8], w_lm, f("M16"))),
-        "decode w_down 8x3072x768 M8": lambda lib, st: (
-            mm.launch_fused_matmul(lib, st, a_ff[:8], w_down, f("M8"))),
-        "decode QK 96 x 1x64x512 M16": lambda lib, st: (
-            mm.launch_fused_matmul(lib, st, qh, kt, f("M16"))),
-        "DD lm_head 2048x768x32000 M52": lambda lib, st: (
-            mm.launch_both_prelimbed_matmul(lib, st, xa7, wl7, f("M52"))),
+        "prefill w_down 2048x3072x768 M8": fused(a_ff, w_down, "M8"),
+        "prefill wo 2048x768x768 M8": fused(x, w_o, "M8"),
+        "prefill lm_head 2048x768x32000 M16": fused(x, w_lm, "M16"),
+        "prefill wo 2048x768x768 M23": fused(x, w_o, "M23"),
+        "prefill QKV 2048x768 vs 3x768x768 M8": (lambda lib, st: (
+            mm.launch_fused_proj(this_tree(lib), st, x, wq, f("M8"))), None),
+        "prefill SwiGLU 2048x768 vs 2x768x3072 M8": (lambda lib, st: (
+            mm.launch_fused_proj(this_tree(lib), st, x, wg, f("M8"),
+                                 gate="swiglu")), None),
+        "partials lm_head K/2 2048x384x32000 M16": partials(
+            x[:, :384], w_lm[:384], "M16"),
+        "partials w_down K/2 2048x1536x768 M8": partials(
+            a_ff[:, :1536], w_down[:1536], "M8"),
+        "partials wo K/2 2048x384x768 M8": partials(x[:, :384], w_o[:384],
+                                                    "M8"),
+        "decode lm_head 8x768x32000 M16": fused(x[:8], w_lm, "M16"),
+        "decode w_down 8x3072x768 M8": fused(a_ff[:8], w_down, "M8"),
+        "decode wo 8x768x768 M8": fused(x[:8], w_o, "M8"),
+        "decode QK 96 x 1x64x512 M16": fused(qh, kt, "M16"),
+        "row of -0.0 products 70x256x64 M8": fused(neg, pos, "M8"),
+        "row of -0.0 products 8x256x64 M8": fused(neg[:8], pos, "M8"),
+        "subnormal products 70x16x8 M16": fused(sub, sub_b, "M16"),
+        "subnormal products 4x16x8 M16": fused(sub[:4], sub_b, "M16"),
+        "DD lm_head 2048x768x32000 M52": (lambda lib, st: (
+            mm.launch_both_prelimbed_matmul(this_tree(lib), st, xa7, wl7,
+                                            f("M52"))), None),
     }
+
+
+def _tree_lib():
+    from repro_torch.kernels import build
+
+    return build.load("mp_matmul")
+
+
+def matmul_extras(torch, a, b, fmt, parts) -> str:
+    """This tree's line's tail: the case's route, its bound, its plain
+    version's time and, at M8 on 2-D operands (not the partials stack),
+    torch.mm on bf16 operands with f32 out (the function M8 computes)."""
+    from chip_smoke import bound
+    from repro_torch.kernels import mp_matmul as mm
+    from repro_torch.kernels.timing import device_ms
+
+    A, B, _, sizes, strides = mm._marshal(a, b)
+    route = mm.fused_route(A, B, sizes, strides,
+                           parts_limbs=fmt.n_limbs if parts else 0)
+    M, K = a.shape[-2:]
+    N = b.shape[-1]
+    nb = A.numel() // (M * K)
+    n_out = fmt.n_orders if parts else 1
+    b_ms, b_by = bound(2 * nb * M * K * N * fmt.n_products,
+                       4 * (a.numel() + b.numel() + n_out * nb * M * N))
+    plain = mm.fused_matmul_partials_plain if parts else mm.fused_matmul_plain
+    plain_ms = device_ms(lambda: plain(a, b, fmt))[0]
+    out = (f"; {route} route, bound {b_ms:.4f} ms ({b_by}), plain "
+           f"{plain_ms:.4f} ms")
+    if fmt.name == "M8" and a.ndim == 2 and b.ndim == 2 and not parts:
+        ab, bb = a.bfloat16(), b.bfloat16()
+        lib_ms = device_ms(lambda: torch.mm(ab, bb,
+                                            out_dtype=torch.float32))[0]
+        out += f", torch.mm bf16 (f32 out) {lib_ms:.4f} ms"
+    return out
 
 
 def attention_cases(torch, randn):
@@ -165,20 +249,29 @@ def main(argv) -> int:
         print("compare_kernels: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
-    from chip_smoke import device_ms
     from repro_torch.kernels import build
+    from repro_torch.kernels.timing import device_ms
 
     torch.backends.cuda.matmul.allow_tf32 = False
     out_dir = ROOT / "build" / "compare_kernels"
     out_dir.mkdir(parents=True, exist_ok=True)
-    sources = {"this tree": build.CSRC / f"{args.source}.cu"}
-    sources.update((str(o), o) for o in args.others)
+    sources = {str(o): o for o in args.others}
+    if args.source != "mp_matmul":
+        sources = {"this tree": build.CSRC / f"{args.source}.cu", **sources}
     procs = {name: subprocess.Popen(
         [build.nvcc_path(), *build.NVCC_FLAGS, "-o",
          str(out_dir / f"{args.source}_{i}.so"), str(src)],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for i, (name, src) in enumerate(sources.items())}
     libs = {}
+    if args.source == "mp_matmul":
+        # this tree's libraries, built in parallel with the others
+        for rep in build.build(("mp_matmul", "mp_matmul_hopper")).values():
+            for entry, (regs, st, ld) in sorted(
+                    build.ptxas_summary(rep.ptxas).items()):
+                print(f"[ptxas] this tree: {entry[:90]} regs {regs} spill "
+                      f"{st}/{ld}")
+        libs["this tree"] = None
     for i, (name, proc) in enumerate(procs.items()):
         log, _ = proc.communicate()
         if proc.returncode != 0:
@@ -196,19 +289,28 @@ def main(argv) -> int:
     cases = (matmul_cases if args.source == "mp_matmul"
              else attention_cases)(torch, randn)
     stream = torch.cuda.current_stream().cuda_stream
+    differ = 0
     for case, fn in cases.items():
+        fn, operands = fn if isinstance(fn, tuple) else (fn, None)
         ref = fn(libs["this tree"], stream)
         for name, lib in libs.items():
             out = fn(lib, stream)
             torch.cuda.synchronize()
-            ms, ahead = device_ms(lambda: fn(lib, stream), torch)
+            ms, ahead = device_ms(lambda: fn(lib, stream))
             same = torch.equal(out.view(torch.int32), ref.view(torch.int32))
+            differ += not same
+            tail = ""
+            if name == "this tree":
+                tail = f"; {clocks_while(lambda: fn(lib, stream), torch)}"
+                if operands is not None:
+                    tail += matmul_extras(torch, *operands)
+            else:
+                tail = f", bitwise this tree's: {same}"
             print(f"[compare] {name}: {case}: {ms:.4f} ms"
-                  + ("" if ahead else " (host behind the card)")
-                  + (f"; {clocks_while(lambda: fn(lib, stream), torch)}"
-                     if name == "this tree" else "")
-                  + ("" if name == "this tree" else
-                     f", bitwise this tree's: {same}"), flush=True)
+                  + ("" if ahead else " (host behind the card)") + tail,
+                  flush=True)
+    print(f"[compare] {differ} case(s) of another version differ from this "
+          f"tree's bits")
     return 0
 
 

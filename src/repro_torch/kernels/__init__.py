@@ -1,7 +1,9 @@
 """The port's kernels: hand-written CUDA (``csrc/``) behind PyTorch wrappers,
 each with its plain PyTorch version and two counters: ``launches`` (kernel
 launches, counted where the kernel is launched and nowhere else) and
-``plain_calls`` (calls on CPU tensors, which run the plain version).  Beside
+``plain_calls`` (calls on CPU tensors, which run the plain version); the
+fused matmul and its partials epilogue also count their launches per route
+(``routes``).  Beside
 them, ``core.auto.mp_matmul_auto.host_reads`` counts the AUTO controller's
 reads of its selected format back to the host."""
 from repro_torch.kernels.mp_attention import mp_flash_attention, \
@@ -33,11 +35,20 @@ def reset_launch_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
         fn.plain_calls = 0
+        if hasattr(fn, "routes"):
+            fn.routes = dict.fromkeys(fn.routes, 0)
     mp_matmul_auto.host_reads = 0
 
 
 def launch_counts() -> dict:
     return {name: fn.launches for name, fn in KERNELS.items()}
+
+
+def route_counts() -> dict:
+    """Launches per route of the wrappers with more than one (the fused
+    matmul and its partials epilogue: ``mp_matmul.ROUTES``)."""
+    return {name: dict(fn.routes) for name, fn in KERNELS.items()
+            if hasattr(fn, "routes")}
 
 
 def plain_call_counts() -> dict:

@@ -6,32 +6,43 @@ every output: K runs in chunks of KC from k = 0, one f32 sum per order.
 What is left free moves work between stages and blocks, never an add, so a
 launch at any of these parameters gives the default launch's bits:
 
-  * the decode tile (M <= 16 rows) of the fused matmul and the fused
-    projection: ``dk``, the k of one ring stage, a multiple of KC up to
-    the ring's most (256 for the built-in formats up to three limbs, 128
-    for deeper ones);
-  * their prefill tile (M > 16): ``E``, the outputs per thread, the tile's
-    default (where ptxas stopped spilling) or half of it, for the built-in
-    formats (the library instantiates both);
-  * flash attention: ``block_q``, the query rows per block (16, 32, 64).
+  * the fused matmul's decode tile (M <= 16 rows, csrc/mp_matmul_hopper.cu):
+    ``[dk, S]``, the k of one ring stage (a multiple of KC up to the ring's
+    most: 256 for the built-in formats up to three limbs, 128 for deeper
+    ones) and the cluster size S that splits K's chunks (1..8, each rank
+    at least one chunk);
+  * its prefill tiles (M > 16, TMA or strided) have no free parameter:
+    their keys hold the default, ``[0, 0]``, timed alone;
+  * the fused projection (csrc/mp_matmul.cu): ``[dk, 0]`` at its decode
+    tile, ``[0, E]`` at its prefill tile, E the outputs per thread, the
+    tile's default (where ptxas stopped spilling) or half of it, for the
+    built-in formats (the library instantiates both);
+  * flash attention: ``[block_q]``, the query rows per block (16, 32, 64).
 
-A matmul entry of the table is ``[dk, e]`` (0: the default choice), an
-attention entry ``[block_q]``.  The feasibility filter plays the part of
-the JAX package's VMEM budget: a candidate's dynamic shared memory, by the
-kernels' own formulas (mirrored here, and exported by the libraries as
-``mp_tile_smem_bytes``, ``mp_decode_smem_bytes`` and
-``mp_flash_smem_bytes``), must fit the card's opt-in limit, and its
-instantiation must build without a spill (``build.ptxas_summary``).
+``[0, 0]`` is a matmul's default launch (the plan's choice), an attention
+entry's default is the kernel's own ``block_q``; a launch at its default
+passes zeros to the launch entry and makes no other call.  The feasibility
+filter plays the part of the JAX package's VMEM budget: a candidate's
+dynamic shared memory, by the kernels' own formulas (mirrored here, and
+exported by the libraries as ``mp_split_smem_bytes``,
+``mp_tma_smem_bytes``, ``mp_tile_smem_bytes``, ``mp_decode_smem_bytes``
+and ``mp_flash_smem_bytes``), must fit the card's opt-in limit, and an
+instantiation of its own (the projection's E / 2) must build without a
+spill (``build.ptxas_summary``).
 
 A sweep first holds each candidate's output bitwise against the default
 launch's (a difference raises: it is a kernel fault, not a slower
-candidate), then times the default and the candidates in turn with CUDA
-events, ``iters`` rounds of back-to-back launches, and keeps the
-candidate with the least median.  Winners persist in one JSON table per
-card, keyed by ``torch.cuda.get_device_name()`` (spaces and slashes
-replaced), under ``REPRO_AUTOTUNE_CACHE_DIR`` or
-``~/.cache/repro_torch/autotune/``; tables are written atomically (tmp
-file, then rename).  Sweeps run only
+candidate), then times the default and the candidates in turn on the
+port's device timer (``kernels/timing.py``: calls queued behind a sleep
+kernel, so the card's time and not the host's), ``iters`` rounds, and
+keeps the fastest of all of them, the default among them, by its median,
+as the JAX package's sweep keeps the fastest of its candidates.  Winners
+persist in one JSON table per card, keyed by
+``torch.cuda.get_device_name()`` (spaces and slashes replaced), under
+``REPRO_AUTOTUNE_CACHE_DIR`` or ``~/.cache/repro_torch/autotune/``;
+tables are written atomically (tmp file, then rename).  The file name
+carries the entries' layout (``TABLE_LAYOUT``), so a table written for
+other kernels' parameters is never read.  Sweeps run only
 when the context's switch is on (``mp.configure(autotune=True)`` or
 ``REPRO_MP_AUTOTUNE=1``); :func:`lookup` never sweeps, and a miss keeps
 today's launch choice (dispatch skips the lookup while the table is empty
@@ -49,8 +60,11 @@ import torch
 
 from repro_torch.core.formats import FormatLike, MPFormat, resolve
 
-MatmulParams = Tuple[int, int]   # (dk, e); 0 = the default choice
+MatmulParams = Tuple[int, int]   # (p0, p1); (0, 0) = the default launch
 AttnParams = Tuple[int]          # (block_q,)
+# the layout of a table's entries, in its file name: 2 = the decode tile's
+# (dk, S) and the TMA tile's (0, 0); 1 (no tag) was the old tiles' (dk, E)
+TABLE_LAYOUT = 2
 
 # csrc/mp_matmul.cu
 KC = 64
@@ -61,7 +75,15 @@ DEC_M = 16
 GEN_NL = 8
 GEN_NO = 2 * GEN_NL - 1
 DEC_SLOTS = 3
+DEC_N = 16
 BUILTIN = ((1, 0), (2, 1), (3, 2), (5, 4), (7, 6))
+# csrc/mp_matmul_hopper.cu
+HM = 128          # rows of the TMA tile
+HALIGN = 1024     # the swizzle's alignment (slack in the shared memory)
+SPLIT_MAX = 8     # the portable cluster size
+SPLIT_PER_SM = 5  # split-tile blocks an SM holds at 64 registers a thread
+H100_SMS = 132
+H100_SM_SMEM = 233472   # shared memory of one H100 SM
 # csrc/mp_attention.cu
 BKV, WR = 32, 16
 PTS, PFS = WR + 4, BKV + 4
@@ -93,7 +115,8 @@ def cache_dir() -> str:
 
 
 def _cache_path(kind: Optional[str] = None) -> str:
-    return os.path.join(cache_dir(), f"{kind or device_kind()}.json")
+    return os.path.join(cache_dir(),
+                        f"{kind or device_kind()}.v{TABLE_LAYOUT}.json")
 
 
 def _dtype_name(dtype) -> str:
@@ -235,6 +258,105 @@ def tile_smem(nl: int, nout: int, e: int, pl: bool = False,
     return rs * raw + npb * planes
 
 
+def _nl_no(fmt: MPFormat) -> Tuple[int, int]:
+    """(limbs, orders) of the instantiation ``fmt`` runs."""
+    return (fmt.n_limbs, fmt.n_orders) if _builtin(fmt) else (GEN_NL, GEN_NO)
+
+
+def tma_tile_n(fmt: FormatLike) -> int:
+    """``hp_bn``: the TMA prefill tile's columns for ``fmt`` (96 at M8)."""
+    no = _nl_no(resolve(fmt))[1]
+    return 96 if no == 1 else 64 if no == 2 else 48 if no == 3 \
+        else 32 if no <= 5 else 24 if no <= 7 else 8
+
+
+def _tma_plane_b(bn: int) -> int:
+    """``hp_plane_b``: one B plane, N-major in 64-column atoms of 8 KB at 64
+    columns or more, else K-major."""
+    return -(-bn // 64) * 64 * KC * 2 if bn >= 64 else bn * KC * 2
+
+
+def _tma_planes(nl: int, bn: int) -> int:
+    return nl * (HM * KC * 2 + _tma_plane_b(bn))
+
+
+def _tma_stage(bn: int) -> int:
+    return (HM + bn) * KC * 4
+
+
+def tma_smem(fmt: FormatLike) -> int:
+    """``mp_tma_smem_bytes``: one TMA-tile block's dynamic shared memory
+    (``hp_smem`` at ``hp_rs``): one or two plane buffers, whichever fits
+    with two f32 stages; three f32 stages where they fit, else two; four
+    mbarriers."""
+    fmt = resolve(fmt)
+    nl, bn = _nl_no(fmt)[0], tma_tile_n(fmt)
+    planes, stage = _tma_planes(nl, bn), _tma_stage(bn)
+    npb = 2 if HALIGN + 2 * planes + 2 * stage + 64 <= SMEM_MAX else 1
+    three = HALIGN + npb * planes + 3 * stage + 8 * 4
+    return three if three <= SMEM_MAX else three - stage
+
+
+def split_norm(K: int, s: int) -> int:
+    """``split_norm``: cluster size s as the split tile runs it, every rank
+    at least one chunk (S = ceil(chunks / ceil(chunks / s)))."""
+    nch = -(-K // KC)
+    if nch <= 1 or s <= 1:
+        return 1
+    s = min(s, nch)
+    cpr = -(-nch // s)
+    return -(-nch // cpr)
+
+
+def split_smem(fmt: FormatLike, M: int, kr: int, dk: int, cpr: int) -> int:
+    """``split_smem_bytes``: one split-tile block's dynamic shared memory:
+    the decode tile's for a K range of ``kr`` at ``dk`` k per stage,
+    16-aligned, then the chunk sums of ``cpr`` chunks."""
+    fmt = resolve(fmt)
+    slots = min(DEC_SLOTS, -(-kr // dk))
+    base = -(-dec_smem_bytes(False, fmt.n_limbs, M, dk, slots, 1) // 16) * 16
+    return base + cpr * _nl_no(fmt)[1] * DEC_M * DEC_N * 4
+
+
+def split_dk(fmt: FormatLike, M: int, kr: int, cpr: int,
+             optin: int = SMEM_MAX) -> int:
+    """``split_dk``: the split tile's k per stage for a rank's K range: the
+    ring's most, or the range rounded up to KC when shorter, halved in
+    multiples of KC until the block fits ``optin`` bytes."""
+    ring = decode_ring_k(fmt)
+    dk = -(-kr // KC) * KC if kr < ring else ring
+    while dk > KC and split_smem(fmt, M, kr, dk, cpr) > optin:
+        dk = -(-(dk // 2) // KC) * KC
+    return dk
+
+
+def split_plan(slabs: int, K: int, fmt: FormatLike = "M8", M: int = 8,
+               sms: int = H100_SMS, sm_smem: int = H100_SM_SMEM,
+               optin: int = SMEM_MAX) -> Tuple[int, int]:
+    """``split_plan``: the decode tile's default (cluster size, k per stage)
+    for ``slabs`` 16-column slabs (times the batch): the largest S <= 8, as
+    the tile runs it, whose blocks all fit on the card at once at
+    :func:`split_dk`'s stage or a shorter one (blocks per SM by shared
+    memory, at most ``SPLIT_PER_SM``); (1, 0) where none does (lm_head's
+    2,000 slabs: the single-block tile at its own stage)."""
+    nch = -(-K // KC)
+    for s in range(SPLIT_MAX, 1, -1):
+        if split_norm(K, s) != s:
+            continue
+        cpr = -(-nch // s)
+        kr = cpr * KC
+        dk = split_dk(fmt, M, kr, cpr, optin)
+        while True:
+            smem = split_smem(fmt, M, kr, dk, cpr)
+            per_sm = min(sm_smem // (smem + 1024), SPLIT_PER_SM)
+            if smem <= optin and s * slabs <= per_sm * sms:
+                return s, dk
+            if dk <= KC:
+                break
+            dk = -(-(dk // 2) // KC) * KC
+    return 1, 0
+
+
 def decode_ring_k(fmt: FormatLike) -> int:
     """``DecRing<NL>::K`` of the instantiation ``fmt`` runs."""
     fmt = resolve(fmt)
@@ -301,36 +423,62 @@ def _entry_spills(summary: Dict[str, List[int]], kernel: str,
     return None
 
 
-def _tile_builds(fmt: MPFormat, n_out: int, e: int, proj: bool,
+def _tile_builds(fmt: MPFormat, n_out: int, e: int,
                  summary: Optional[Dict[str, List[int]]]) -> bool:
-    """Does the prefill instantiation at E build without a spill?"""
+    """Does the projection's prefill instantiation at E build without a
+    spill?"""
     if summary is None:
         return True
-    nl, no, gen = (fmt.n_limbs, fmt.n_orders, False) if _builtin(fmt) \
-        else (GEN_NL, GEN_NO, True)
-    if proj:
-        regs = _entry_spills(summary, "fused_proj_kernel",
-                             (nl, no, n_out, gen, e))
-    else:
-        regs = _entry_spills(summary, "fused_matmul_kernel",
-                             (nl, no, gen, False, e))
+    nl, no = _nl_no(fmt)
+    regs = _entry_spills(summary, "fused_proj_kernel",
+                         (nl, no, n_out, not _builtin(fmt), e))
     return regs is not None and regs[1] == 0 and regs[2] == 0
+
+
+def _split_candidates(M: int, K: int, N: int, fmt: MPFormat, limit: int,
+                      sms: int) -> List[MatmulParams]:
+    """The fused matmul's decode tile: cluster sizes (the plan's, 1, 2, 4
+    and 8 as the tile runs them) and, for each, the stages of KC up to the
+    ring's most and the rank's K range, within ``limit`` bytes."""
+    sizes = sorted({split_norm(K, s) for s in
+                    (split_plan(-(-N // DEC_N), K, fmt, M, sms)[0], 1, 2, 4,
+                     8)})
+    out: List[MatmulParams] = []
+    nch = -(-K // KC)
+    for S in sizes:
+        cpr = -(-nch // S)
+        kr = K if S == 1 else cpr * KC
+        kmax = min(decode_ring_k(fmt), -(-kr // KC) * KC)
+        for dk in range(KC, kmax + 1, KC):
+            need = (dec_smem_bytes(False, fmt.n_limbs, M, dk,
+                                   min(DEC_SLOTS, -(-kr // dk)), 1)
+                    if S == 1 else split_smem(fmt, M, kr, dk, cpr))
+            if need <= limit:
+                out.append((dk, S))
+    return out
 
 
 def candidate_blocks(M: int, K: int, N: int, mode: FormatLike, *,
                      n_out: int = 1, epilogue: str = "none",
                      smem: Optional[int] = None,
-                     ptxas: Optional[Dict[str, List[int]]] = None
-                     ) -> List[MatmulParams]:
-    """The feasible ``(dk, e)`` of one matmul cell: at M <= 16 the decode
-    tile's stages (multiples of KC up to the ring's most and K rounded up
-    to KC), at larger M the prefill tile's default E and E / 2 (built-in
-    formats); each within ``smem`` bytes of shared memory (the card's
-    opt-in limit by default) and, given a ``ptxas`` summary, built without
-    a spill."""
+                     ptxas: Optional[Dict[str, List[int]]] = None,
+                     sms: int = H100_SMS) -> List[MatmulParams]:
+    """The feasible launch parameters of one matmul cell, each within
+    ``smem`` bytes of shared memory (the card's opt-in limit by default)
+    and, given a ``ptxas`` summary, an instantiation of its own only if it
+    built without a spill (the projection's E / 2).  The fused
+    matmul: at M <= 16 the decode tile's ``(dk, S)``, at larger M none (its
+    prefill tiles have no free parameter).  The fused projection: at M <=
+    16 its decode tile's ``(dk, 0)``, at larger M its prefill tile's ``(0,
+    E)`` at the default E and E / 2 (built-in formats)."""
     fmt = resolve(mode)
     limit = smem if smem is not None else smem_limit()
     gated = "swiglu" in epilogue
+    proj = n_out != 1 or epilogue != "none"
+    if not proj:
+        if M <= DEC_M:
+            return _split_candidates(M, K, N, fmt, limit, sms)
+        return []
     out: List[MatmulParams] = []
     if M <= DEC_M:
         nout = 2 if gated else 1
@@ -342,11 +490,10 @@ def candidate_blocks(M: int, K: int, N: int, mode: FormatLike, *,
                 out.append((dk, 0))
         return out
     width = min(n_out, 3)   # ops.mp_fused_proj_cuda: 3 weights per launch
-    proj = n_out != 1 or epilogue != "none"
-    nl = fmt.n_limbs if _builtin(fmt) else GEN_NL
+    nl = _nl_no(fmt)[0]
     for e in (format_tile_e(fmt, width), format_tile_e_alt(fmt, width)):
         if e and tile_smem(nl, width, e) <= limit and _tile_builds(
-                fmt, width, e, proj, ptxas):
+                fmt, width, e, ptxas):
             out.append((0, e))
     return out
 
@@ -366,30 +513,16 @@ def attention_candidate_blocks(S: int, T: int, Dh: int, mode_qk: FormatLike,
 # ---------------------------------------------------------------------------
 # sweeps
 # ---------------------------------------------------------------------------
-def _sample_ms(fn) -> float:
-    """Milliseconds per launch: after a warm-up launch, the mean of enough
-    back-to-back launches between two CUDA events to span about a
-    millisecond."""
-    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    start.record()
-    fn()
-    end.record()
-    torch.cuda.synchronize()
-    reps = max(1, min(50, int(1.0 / max(start.elapsed_time(end), 1e-3))))
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+def _sweep(key: str, cands, run, iters: int, record: Optional[dict],
+           default):
+    """Hold each candidate bitwise against the default launch (``run(None)``),
+    then time the default and every candidate in turn on the device timer,
+    ``iters`` rounds, each round starting at the next one (so neither a
+    drift of the card's clock nor the place in a round favours one), and
+    keep the fastest of all by its median: ``default`` (the table's value
+    for the default launch) where the default is fastest."""
+    from repro_torch.kernels.timing import device_ms
 
-
-def _sweep(key: str, cands, run, iters: int, record: Optional[dict]):
-    """Hold each candidate bitwise against the default launch, then time
-    the default and every candidate in turn, ``iters`` rounds, each round
-    starting at the next one (so neither a drift of the card's clock nor
-    the place in a round favours one), and keep the fastest candidate by
-    its median."""
     ref = run(None)
     for cand in cands:
         if not torch.equal(run(cand), ref):
@@ -402,16 +535,17 @@ def _sweep(key: str, cands, run, iters: int, record: Optional[dict]):
     for r in range(iters):
         for k in range(len(configs)):
             i = (r + k) % len(configs)     # each round starts one later
-            samples[i].append(_sample_ms(lambda: run(configs[i])))
+            samples[i].append(device_ms(lambda: run(configs[i]))[0])
     med = {i: sorted(v)[len(v) // 2] for i, v in samples.items()}
-    best = min(range(1, len(configs)), key=lambda i: med[i])
+    best = min(range(len(configs)), key=lambda i: med[i])
     _STATS["sweeps"] += 1
+    winner = tuple(default) if best == 0 else tuple(configs[best])
     if record is not None:
-        record.update(key=key, default_ms=med[0], winner=list(configs[best]),
-                      winner_ms=med[best],
+        record.update(key=key, default_ms=med[0], winner=list(winner),
+                      winner_ms=med[best], default_won=best == 0,
                       candidates={str(list(c)): med[i + 1]
                                   for i, c in enumerate(cands)})
-    return configs[best]
+    return winner
 
 
 def _gen(seed: int = 0) -> torch.Generator:
@@ -425,8 +559,9 @@ def autotune(M: int, K: int, N: int, mode: FormatLike, *,
              record: Optional[dict] = None) -> MatmulParams:
     """Sweep one (format, shape, dtype, n_out, epilogue) matmul cell on the
     card and persist the winner; returns the cached winner when the table
-    has the key.  ``record`` (a dict) receives the default's and each
-    candidate's milliseconds."""
+    has the key.  A cell without candidates (a prefill tile's) records
+    the default launch.  ``record`` (a dict) receives the default's and
+    each candidate's milliseconds."""
     from repro_torch.kernels import build
     from repro_torch.kernels import mp_matmul as kern
 
@@ -438,11 +573,10 @@ def autotune(M: int, K: int, N: int, mode: FormatLike, *,
         return dk, e
     if candidates is None:
         ptxas = build.ptxas_summary(build.ptxas_log("mp_matmul"))
-        candidates = candidate_blocks(M, K, N, fmt, n_out=n_out,
-                                      epilogue=epilogue, ptxas=ptxas)
-    if not candidates:
-        raise ValueError(f"no feasible launch parameters for {key}")
-    g = _gen()
+        candidates = candidate_blocks(
+            M, K, N, fmt, n_out=n_out, epilogue=epilogue, ptxas=ptxas,
+            sms=torch.cuda.get_device_properties(0).multi_processor_count)
+    g = _gen()     # no candidate: the default launch, timed alone
     a = torch.randn((M, K), generator=g, device="cuda")
     if n_out == 1 and epilogue == "none":
         b = torch.randn((K, N), generator=g, device="cuda")
@@ -465,7 +599,7 @@ def autotune(M: int, K: int, N: int, mode: FormatLike, *,
                                          biases=biases, residual=residual,
                                          tune=tune)
             return torch.stack(out) if isinstance(out, tuple) else out
-    best = _sweep(key, candidates, run, iters, record)
+    best = _sweep(key, candidates, run, iters, record, (0, 0))
     table = load_table()
     table[key] = list(best)
     save_table(table)
@@ -514,7 +648,8 @@ def autotune_attention(B_H: int, S: int, T: int, Dh: int,
         return attn.mp_flash_attention(
             q, k, v, mode_qk, mode_pv, causal=causal,
             block_q=None if cand is None else cand[0])
-    best = _sweep(key, candidates, run, iters, record)
+    default = (attn.flash_block_q(1, S, B_H, Dh, mode_qk, mode_pv)[0],)
+    best = _sweep(key, candidates, run, iters, record, default)
     table = load_table()
     table[key] = list(best)
     save_table(table)

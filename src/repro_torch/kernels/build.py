@@ -30,7 +30,7 @@ from typing import Dict, Iterable, List
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
-SOURCES = ("mp_matmul", "mp_attention")
+SOURCES = ("mp_matmul", "mp_matmul_hopper", "mp_attention")
 
 # sm_90a (not sm_90): the Hopper-only instructions exist only for that
 # target.  No --use_fast_math: expf and the divisions stay accurate.
@@ -66,7 +66,9 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    # the headers a source may include (csrc/*.cuh) are part of its hash
+    src = (CSRC / f"{name}.cu").read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
 
@@ -170,7 +172,7 @@ def compare_registers(other_csrc: Path) -> int:
     procs = {(tag, name): _nvcc(base / f"{name}.cu",
                                 out_dir / f"{tag}_{name}.so")
              for tag, base in (("here", CSRC), ("other", Path(other_csrc)))
-             for name in SOURCES}
+             for name in SOURCES if (base / f"{name}.cu").exists()}
     regs: Dict[str, Dict[str, List[int]]] = {"here": {}, "other": {}}
     for (tag, name), proc in procs.items():
         log, _ = proc.communicate()

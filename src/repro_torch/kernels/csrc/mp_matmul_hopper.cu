@@ -1,0 +1,938 @@
+// The fused limb matmul's two tiles redesigned for Hopper (sm_90a), plain C
+// interface.  Both replace _fused_kernel (src/repro/kernels/mp_matmul.py:76)
+// with fused_matmul_kernel of mp_matmul.cu, whose order of sums they keep
+// bit for bit (mp_matmul.cu's header: K in chunks of KC from k = 0, one
+// chain of KC / 16 tensor-core k16 steps per chunk and kept product from
+// +0.0, the order's terms summed by IEEE f32 adds in product order, acc[o]
+// += tot, the compensated combine at the end), partials epilogue included.
+//
+// tma_matmul_kernel, the prefill tile (M > DEC_M) of the operands a TMA
+// tensor map can describe (unit column stride, 16-byte aligned bases and
+// strides, up to two batch dims; mp_matmul.cu's fused_matmul_kernel keeps
+// the others: a stride-0 broadcast, a transposed view read as it is).
+//   Design: a 128 x BN tile per block (BN by format, 96 at M8, so that the
+//   2048 x 768 outputs of wo and w_down make 128 tiles on 132 SMs; the
+//   blocks walk M first, so a weight larger than L2 is read about once).
+//   Limbing warpgroups (two at one limb, else one), whose first thread is
+//   the TMA producer (cp.async.bulk.tensor into a ring of RS f32 stages,
+//   each completing an mbarrier; TMA zero-fills past M, N and K, which is
+//   the contract's zero-filled chunk edge), turn each stage into its bf16
+//   limb planes in the 128-byte swizzle wgmma reads (A K-major; B N-major
+//   as it lies, with the transpose bit, from 64 columns, else transposed
+//   to K-major on the way), into one of NPB plane buffers.  Two consumer
+//   warpgroups of 64 rows each chain four wgmma m64nBNk16 into a fresh
+//   accumulator (zeroed, scale-d 1: the +0.0 start of mma_bf16_first),
+//   then wgmma.wait_group and the CUDA-core adds; one warpgroup's adds
+//   overlap the other's chains, and named barriers hand the plane buffers
+//   over.  Four wgmma k16 steps give four mma.sync m16n8k16 steps' bits
+//   (compare_kernels.py's cases, signs of zero and subnormal products
+//   included), so every bitwise gate of the old tile holds.  Registers
+//   set BN: NO accumulators, the order's running sum and one chain per
+//   output within the registers of the block's threads.
+//   Bound now: the f32 operands cross from L2 once per tile, each A row
+//   block once per column block and each B column block once per row
+//   block (352 MB at w_down, 2048 x 3072 x 768 M8; 4.7 GB at lm_head M16,
+//   whose BN of 64 the three live chains per output cap); neither the
+//   limbing nor the MMAs, nor deeper stages, move its time much.  A
+//   cluster of two column tiles sharing A by TMA multicast measured
+//   slower on the H100 and is not kept.
+//   Registers: one block an SM of 384 threads (one limbing warpgroup,
+//   from two limbs) leaves 168 a thread; from three limbs setmaxnreg
+//   moves the limbers' registers to the consumers (56 and 224 a thread),
+//   which removed ptxas's spills (100 bytes at M23); M16 keeps 168 and
+//   spills 20 bytes, where moving them measured slower.
+//   Its partials epilogue (PARTS) takes one limb only: at more, the
+//   strided tile of mp_matmul.cu measured faster on the K-sharded
+//   lm_head at M16 and keeps that route (PERF.md).
+//
+// fused_matmul_split_kernel, the decode tile (M <= DEC_M).
+//   Bound: the bytes of the f32 weight, streamed by too few blocks: one
+//   block per 16 columns makes 48 blocks at N = 768.
+//   Design: a thread-block cluster of S blocks (S <= 8) shares one 16-column
+//   slab; rank r runs a contiguous range of K's chunks through
+//   mp_matmul_common.cuh's decode_tile (its cp.async ring and limbing warps)
+//   and keeps each chunk's per-order sum tot_c in its shared memory; after
+//   cluster.sync() each rank takes 1/S of the slab's outputs and forms
+//   acc[o] = ((+0.0 + tot_0) + tot_1) + ... in chunk order, reading the
+//   other ranks' sums through distributed shared memory, then combines and
+//   stores; a last cluster.sync() keeps every rank's shared memory alive
+//   until the others have read it.  These are the single block's adds in
+//   the single block's order (acc never holds -0.0, so a chunk sum kept as
+//   +0.0 + tot_c adds the same as tot_c).  The plan (split_plan) takes the
+//   largest S whose blocks all fit on the card at once: S = 8 at w_down
+//   M8 (384 blocks of 6 chunks, 128 k a stage), 6 at wo, 1 at lm_head
+//   (2,000 slabs), where the kernel is fused_matmul_kernel's old decode
+//   tile as it was.
+//   Bound now: each rank runs a few short stages (3 of 128 k at w_down),
+//   so the ring's fill and the chunk sums' join through distributed
+//   shared memory, not the weight's bytes, set its time; the B stream is
+//   still cp.async, not TMA.
+//
+// Launch parameters the order leaves free, which the autotuner may set per
+// launch (mp_hopper_matmul_launch's p0, p1; 0 keeps the plan): the decode
+// tile's k per ring stage and cluster size.  The prefill tile has none.
+//
+// The tensor maps come from cuTensorMapEncodeTiled, a driver-API function,
+// obtained through the runtime's cudaGetDriverEntryPointByVersion (no
+// -lcuda).  Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3
+// --fmad=false (no --use_fast_math), as mp_matmul.cu.
+#include <cooperative_groups.h>
+#include <cuda.h>
+#include <cudaTypedefs.h>
+
+#include "mp_matmul_common.cuh"
+
+namespace cg = cooperative_groups;
+
+namespace {
+
+// ---------------------------------------------------------------------------
+// wgmma m64nNk16, bf16 x bf16 -> f32, both operands in shared memory in the
+// 128-byte swizzle: A K-major, B K-major (TB 0) or N-major (TB 1, the
+// transpose bit); d += A @ B (scale-d 1)
+template <int N, int TB>
+struct Wg;
+template <>
+struct Wg<8, 0> {
+  static __device__ __forceinline__ void run(float (&d)[4], uint64_t da,
+                                             uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3}, "
+        "%4, %5, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "l"(da), "l"(db), "r"(1));
+  }
+};
+template <>
+struct Wg<24, 0> {
+  static __device__ __forceinline__ void run(float (&d)[12], uint64_t da,
+                                             uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %14, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n24k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11}, "
+        "%12, %13, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11])
+        : "l"(da), "l"(db), "r"(1));
+  }
+};
+template <>
+struct Wg<32, 0> {
+  static __device__ __forceinline__ void run(float (&d)[16], uint64_t da,
+                                             uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "%16, %17, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(da), "l"(db), "r"(1));
+  }
+};
+template <>
+struct Wg<48, 0> {
+  static __device__ __forceinline__ void run(float (&d)[24], uint64_t da,
+                                             uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %26, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23}, "
+        "%24, %25, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+        : "l"(da), "l"(db), "r"(1));
+  }
+};
+template <>
+struct Wg<64, 1> {
+  static __device__ __forceinline__ void run(float (&d)[32], uint64_t da,
+                                             uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "%32, %33, p, 1, 1, 0, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(da), "l"(db), "r"(1));
+  }
+};
+template <>
+struct Wg<96, 1> {
+  static __device__ __forceinline__ void run(float (&d)[48], uint64_t da,
+                                             uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %50, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47}, "
+        "%48, %49, p, 1, 1, 0, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+        : "l"(da), "l"(db), "r"(1));
+  }
+};
+template <int N, int TB>
+__device__ __forceinline__ void wgmma(float (&d)[N / 2], uint64_t da,
+                                      uint64_t db) {
+  Wg<N, TB>::run(d, da, db);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// matrix descriptors of bf16 tiles in the 128-byte swizzle, from 1024-byte
+// aligned bases.  K-major: rows of 64 k (128 bytes), 8-row groups 1024
+// bytes apart; the k16 step ks starts 32 bytes further (+2 in the address
+// field).  N-major: rows of 64 n, one per k, 8-k groups 1024 bytes apart,
+// 64-column atoms 8 KB apart; the k16 step starts 2048 bytes further.
+__device__ __forceinline__ uint64_t desc_k(const void* p) {
+  const uint64_t a = smem_addr(p);
+  return ((a & 0x3FFFF) >> 4) | (uint64_t)1 << 16 | (uint64_t)(1024 >> 4) << 32 |
+         (uint64_t)1 << 62;
+}
+__device__ __forceinline__ uint64_t desc_n(const void* p) {
+  const uint64_t a = smem_addr(p);
+  return ((a & 0x3FFFF) >> 4) | (uint64_t)(8192 >> 4) << 16 |
+         (uint64_t)(1024 >> 4) << 32 | (uint64_t)1 << 62;
+}
+
+// element offset of (row, 4 k at k = 4 kq) in a K-major tile
+__device__ __forceinline__ int swz(int row, int kq) {
+  return row * KC + ((((kq >> 1) ^ (row & 7)) << 3) | ((kq & 1) << 2));
+}
+
+// element offset of (k, 4 columns at n) in an N-major tile
+__device__ __forceinline__ int swz_n(int k, int n) {
+  return (n >> 6) * (64 * KC) + k * 64 + ((((n & 63) >> 3) ^ (k & 7)) << 3) +
+         (n & 7);
+}
+
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+// wait for the phase of ``parity`` of an mbarrier; a wait of about ten
+// seconds traps, so a stalled pipeline fails its launch instead of holding
+// the card
+__device__ __forceinline__ void mbar_wait(const uint64_t* bar, int parity) {
+  const long long t0 = clock64();
+  for (;;) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (clock64() - t0 > (1LL << 34)) __trap();
+  }
+}
+
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         int c0, int c1, int c2, int c3,
+                                         uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// The prefill tile.
+
+constexpr int HM = 128;                // rows of a tile: two warpgroups of 64
+constexpr int HP = 2 * 128;            // the first limbing thread
+constexpr int HALIGN = 1024;           // the swizzle's alignment
+constexpr int BAR_FULL = 1, BAR_EMPTY = 3, BAR_LIMB = 5;  // named barriers
+
+// the tile's columns by format: NO accumulators, the order's sum and one
+// chain of BN / 2 registers each per thread within the registers of the
+// block's threads
+__host__ __device__ constexpr int hp_bn(int no) {
+  return no == 1 ? 96 : no == 2 ? 64 : no == 3 ? 48 : no <= 5 ? 32
+       : no <= 7 ? 24 : 8;
+}
+// B's planes N-major (limbed from the f32 stage as it lies) where the tile
+// has 64 columns or more, else K-major (transposed while limbing)
+__host__ __device__ constexpr bool hp_nmaj(int bn) { return bn >= 64; }
+__host__ __device__ constexpr int64_t hp_plane_b(int bn) {
+  return hp_nmaj(bn) ? (int64_t)(bn + 63) / 64 * 64 * KC * 2
+                     : (int64_t)bn * KC * 2;
+}
+// limbing warpgroups: two where the consumers' registers fit 512 threads
+// (one limb), else one
+__host__ __device__ constexpr int hp_lwg(int nl) { return nl == 1 ? 2 : 1; }
+// bytes of one plane buffer (NL A planes of HM x KC, NL B planes, bf16) and
+// of one f32 stage (A's HM x KC, B's KC x BN)
+__host__ __device__ constexpr int64_t hp_planes(int nl, int bn) {
+  return (int64_t)nl * ((int64_t)HM * KC * 2 + hp_plane_b(bn));
+}
+__host__ __device__ constexpr int64_t hp_stage(int bn) {
+  return (int64_t)(HM + bn) * KC * 4;
+}
+// plane buffers: two where two and two stages fit, else one
+__host__ __device__ constexpr int hp_npb(int nl, int bn) {
+  return HALIGN + 2 * hp_planes(nl, bn) + 2 * hp_stage(bn) + 64 <= SMEM_MAX
+             ? 2 : 1;
+}
+__host__ __device__ constexpr int64_t hp_smem(int nl, int bn, int rs) {
+  return HALIGN + hp_npb(nl, bn) * hp_planes(nl, bn) + rs * hp_stage(bn) +
+         8 * 4;
+}
+// f32 stages: three where they fit, else two (deeper rings did not move
+// the tile's time on the H100)
+__host__ __device__ constexpr int hp_rs(int nl, int bn) {
+  return hp_smem(nl, bn, 3) <= SMEM_MAX ? 3 : 2;
+}
+
+template <int NL, int NO>
+struct Hp {
+  static constexpr int BN = hp_bn(NO);
+  static constexpr int R = BN / 2;     // accumulator registers per chain
+  static constexpr bool NMAJ = hp_nmaj(BN);
+  static constexpr int LT = 128 * hp_lwg(NL);   // limbing threads
+  static constexpr int HT = HP + LT;            // threads
+  // from three limbs (one limbing warpgroup: 384 threads, 168 registers a
+  // thread at one block an SM) the limbers hand registers to the
+  // consumers' chains, 2 x 128 x CREG + 128 x LREG = 384 x 168: no spill,
+  // 7-24% faster at M23-M52 on the H100; at M16 it measured 1% slower, so
+  // M16 keeps 168 and a 20-byte spill (PERF.md)
+  static constexpr bool MOVE_REGS = NL >= 3;
+  static constexpr int LREG = 56, CREG = 224;
+  static constexpr int NPB = hp_npb(NL, BN);
+  static constexpr int RS = hp_rs(NL, BN);
+  static constexpr int64_t PA = (int64_t)HM * KC * 2;   // one A plane
+  static constexpr int64_t PB = hp_plane_b(BN);         // one B plane
+  static_assert(hp_smem(NL, BN, RS) <= SMEM_MAX, "the f32 stages fit");
+  static_assert(PB % HALIGN == 0, "B planes keep the swizzle's alignment");
+  static_assert((LT / 16) % 8 == 0 && HM * KC / 4 % LT == 0,
+                "a limber's A chunks share one swizzle phase");
+};
+
+// one chain: d = +0.0, then KC / 16 wgmma steps of A's limb plane (the
+// warpgroup's 64 rows) against B's
+template <int R, bool NMAJ>
+__device__ __forceinline__ void chain(float (&d)[R], uint64_t da,
+                                      uint64_t db) {
+#pragma unroll
+  for (int e = 0; e < R; ++e) d[e] = 0.f;
+  wg_fence();
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks)
+    wgmma<2 * R, NMAJ ? 1 : 0>(d, da + 2 * ks, db + (NMAJ ? 128 : 2) * ks);
+  wg_commit();
+}
+
+template <int NL, int NO, bool GEN, bool PARTS>
+__global__ void __launch_bounds__(Hp<NL, NO>::HT, 1) tma_matmul_kernel(
+    const __grid_constant__ CUtensorMap ta,
+    const __grid_constant__ CUtensorMap tb, float* C, int64_t c_sb0,
+    int64_t c_sb1, int64_t c_sr, int64_t c_sc, int64_t c_so, int nb1, int M,
+    int N, int K, int n_limbs, int max_order) {
+  using H = Hp<NL, NO>;
+  constexpr int BN = H::BN, R = H::R, NPB = H::NPB, RS = H::RS, LT = H::LT,
+                HT = H::HT;
+  extern __shared__ unsigned char hp_raw[];
+  unsigned char* const sm = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(hp_raw) + HALIGN - 1) &
+      ~(uintptr_t)(HALIGN - 1));
+  constexpr int64_t PLANES = hp_planes(NL, BN), STAGE = hp_stage(BN);
+  auto plane_a = [&](int p, int i) {
+    return reinterpret_cast<__nv_bfloat16*>(sm + p * PLANES + i * H::PA);
+  };
+  auto plane_b = [&](int p, int j) {
+    return reinterpret_cast<__nv_bfloat16*>(sm + p * PLANES + NL * H::PA +
+                                            j * H::PB);
+  };
+  auto stage_a = [&](int r) {
+    return reinterpret_cast<float*>(sm + NPB * PLANES + r * STAGE);
+  };
+  auto stage_b = [&](int r) {
+    return reinterpret_cast<float*>(sm + NPB * PLANES + r * STAGE +
+                                    (int64_t)HM * KC * 4);
+  };
+  uint64_t* const full =   // full[r]: stage r has landed (TMA's bytes)
+      reinterpret_cast<uint64_t*>(sm + NPB * PLANES + RS * STAGE);
+
+  const int nl = GEN ? n_limbs : NL;
+  const int mo = GEN ? max_order : NO - 1;
+  const int mt = (M + HM - 1) / HM;
+  const int m0 = (int)(blockIdx.x % mt) * HM;   // M first (mp_matmul.cu)
+  const int n0 = (int)(blockIdx.x / mt) * BN;
+  const int z0 = (int)blockIdx.z / nb1, z1 = (int)blockIdx.z % nb1;
+  const int stages = (K + KC - 1) / KC;
+  const int tid = threadIdx.x;
+
+  if (tid == HP) {
+    for (int r = 0; r < RS; ++r)
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
+                       smem_addr(full + r)));
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= HP) {
+    // the limbing warpgroups; the first thread keeps the TMA loads in flight
+    if constexpr (H::MOVE_REGS)
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(H::LREG));
+    const int lt = tid - HP;
+    auto issue = [&](int s, int r) {   // stage s into slot r
+      asm volatile(
+          "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+              smem_addr(full + r)),
+          "r"((int)STAGE)
+          : "memory");
+      tma_load(stage_a(r), &ta, s * KC, m0, z1, z0, full + r);
+      tma_load(stage_b(r), &tb, n0, s * KC, z1, z0, full + r);
+    };
+    if (lt == 0)
+      for (int s = 0; s < RS && s < stages; ++s) issue(s, s);
+    // A: 4 k of a row per chunk, 16 chunks a row; this thread's chunks are
+    // column 4 kq of rows r0, r0 + LT / 16, ..., all in one swizzle phase
+    const int kq = lt & 15, r0 = lt >> 4;
+    const int a_src = r0 * KC + 4 * kq, a_dst = swz(r0, kq);
+    constexpr int A_STEP = LT / 16 * KC;
+#pragma unroll 1
+    for (int s = 0; s < stages; ++s) {
+      const int r = s % RS, p = s % NPB;
+      mbar_wait(full + r, (s / RS) & 1);
+      if (s >= NPB) bar_sync(BAR_EMPTY + p, HT);  // the consumers are done
+      const float* const fa = stage_a(r);
+      const float* const fb = stage_b(r);
+#pragma unroll
+      for (int i = 0; i < HM * KC / 4 / LT; ++i)
+        limb4v<NL>(*reinterpret_cast<const float4*>(fa + a_src + i * A_STEP),
+                   plane_a(p, 0) + a_dst + i * A_STEP, H::PA / 2, nl);
+      if constexpr (H::NMAJ) {
+        // B as it lies: 4 columns of one k per chunk
+#pragma unroll 4
+        for (int it = lt; it < BN * KC / 4; it += LT) {
+          const int k = it / (BN / 4), n = 4 * (it % (BN / 4));
+          limb4v<NL>(*reinterpret_cast<const float4*>(fb + k * BN + n),
+                     plane_b(p, 0) + swz_n(k, n), H::PB / 2, nl);
+        }
+      } else {
+        // B transposed: 4 k of one column per chunk
+#pragma unroll 4
+        for (int it = lt; it < BN * KC / 4; it += LT) {
+          const int n = it % BN, k4 = it / BN;
+          const float4 x = make_float4(
+              fb[(4 * k4) * BN + n], fb[(4 * k4 + 1) * BN + n],
+              fb[(4 * k4 + 2) * BN + n], fb[(4 * k4 + 3) * BN + n]);
+          limb4v<NL>(x, plane_b(p, 0) + swz(n, k4), H::PB / 2, nl);
+        }
+      }
+      // the planes are read by wgmma (the async proxy)
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      bar_arrive(BAR_FULL + p, HT);
+      if (s + RS < stages) {
+        bar_sync(BAR_LIMB, LT);   // every limber is done with slot r
+        if (lt == 0) issue(s + RS, r);
+      }
+    }
+  } else {
+    // the consumer warpgroups: rows 64 w .. 64 w + 63 of the tile
+    if constexpr (H::MOVE_REGS)
+      asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(H::CREG));
+    const int w = tid >> 7;
+    float acc[NO][R];
+#pragma unroll
+    for (int o = 0; o < NO; ++o)
+#pragma unroll
+      for (int e = 0; e < R; ++e) acc[o][e] = 0.f;
+#pragma unroll 1
+    for (int s = 0; s < stages; ++s) {
+      const int p = s % NPB;
+      bar_sync(BAR_FULL + p, HT);
+      auto da = [&](int i) { return desc_k(plane_a(p, i) + 64 * w * KC); };
+      auto db = [&](int j) {
+        return H::NMAJ ? desc_n(plane_b(p, j)) : desc_k(plane_b(p, j));
+      };
+#pragma unroll
+      for (int o = 0; o < NO; ++o) {
+        if (o > mo) continue;
+        const int i0 = o - nl + 1 > 0 ? o - nl + 1 : 0;
+        const int i1 = o < nl - 1 ? o : nl - 1;
+        // the order's first kept product, then the others in turn
+        float tot[R];
+        chain<R, H::NMAJ>(tot, da(i0), db(o - i0));
+        wg_wait<0>();
+#pragma unroll 1
+        for (int i = i0 + 1; i <= i1; ++i) {
+          float f[R];
+          chain<R, H::NMAJ>(f, da(i), db(o - i));
+          wg_wait<0>();
+#pragma unroll
+          for (int e = 0; e < R; ++e) tot[e] = tot[e] + f[e];
+        }
+#pragma unroll
+        for (int e = 0; e < R; ++e) acc[o][e] = acc[o][e] + tot[e];
+      }
+      if (s + NPB < stages) bar_arrive(BAR_EMPTY + p, HT);
+    }
+
+    // accumulator e of the warpgroup's m64nBN fragment: row 16 warp + lane / 4
+    // + 8 ((e / 2) % 2), column 8 (e / 4) + 2 (lane % 4) + e % 2
+    const int lane = tid & 31, wi = (tid >> 5) & 3;
+    float* const Cz = C + z0 * c_sb0 + z1 * c_sb1;
+#pragma unroll
+    for (int e = 0; e < R; ++e) {
+      const int64_t gm =
+          m0 + 64 * w + 16 * wi + (lane >> 2) + 8 * ((e >> 1) & 1);
+      const int64_t gn = n0 + 8 * (e >> 2) + 2 * (lane & 3) + (e & 1);
+      if (gm >= M || gn >= N) continue;
+      if constexpr (PARTS) {
+#pragma unroll
+        for (int o = 0; o < NO; ++o)
+          if (o <= mo) Cz[o * c_so + gm * c_sr + gn * c_sc] = acc[o][e];
+      } else {
+        float per_order[NO];
+#pragma unroll
+        for (int o = 0; o < NO; ++o) per_order[o] = acc[o][e];
+        Cz[gm * c_sr + gn * c_sc] = combine_orders<NO>(per_order, mo);
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The decode tile.
+
+constexpr int SPLIT_MAX = 8;   // the portable cluster size
+
+// fused_matmul_kernel's decode tile as one block per DEC_N columns and batch
+// entry (S = 1): mp_matmul_common.cuh's decode_tile as it is
+template <int NL, int NO, bool GEN, bool PARTS>
+__global__ void __launch_bounds__(DEC_CT + 128)
+    fused_matmul_decode_kernel(MatmulArgs p, int dk) {
+  const int64_t z0 = blockIdx.z / p.nb1, z1 = blockIdx.z % p.nb1;
+  const float* const B[1] = {p.b + z0 * p.b_sb0 + z1 * p.b_sb1};
+  float* const C = p.c + z0 * p.c_sb0 + z1 * p.c_sb1;
+  const float* const A = p.a + z0 * p.a_sb0 + z1 * p.a_sb1;
+  const int64_t n0 = (int64_t)blockIdx.x * DEC_N;
+  if constexpr (PARTS) {
+    const int mo = GEN ? p.max_order : NO - 1;
+    decode_tile<NL, NO, GEN, false, false, 1, true>(
+        A, p.a_sr, p.a_sc, B, p.b_sr, p.b_sc, Planes{}, (int)p.M, p.N, p.K,
+        p.n_limbs, p.max_order, dk, nullptr, nullptr,
+        [&](int r, int64_t gn, const float (&po)[NO]) {
+#pragma unroll
+          for (int o = 0; o < NO; ++o)
+            if (o <= mo) C[o * p.c_so + r * p.c_sr + gn * p.c_sc] = po[o];
+        },
+        n0);
+  } else {
+    decode_tile<NL, NO, GEN, false>(
+        A, p.a_sr, p.a_sc, B, p.b_sr, p.b_sc, Planes{}, (int)p.M, p.N, p.K,
+        p.n_limbs, p.max_order, dk, nullptr, nullptr,
+        [&](int r, int64_t gn, const float (&y)[1]) {
+          C[r * p.c_sr + gn * p.c_sc] = y[0];
+        },
+        n0);
+  }
+}
+
+// The cluster-split decode tile: block x = slab * S + rank of a cluster of
+// S blocks; rank r runs chunks [r cpr, (r + 1) cpr) of K into its tot_c at
+// byte tot_off of the dynamic shared memory, then the cluster joins them.
+template <int NL, int NO, bool GEN, bool PARTS>
+__global__ void __launch_bounds__(DEC_CT + 128)
+    fused_matmul_split_kernel(MatmulArgs p, int dk, int S, int cpr,
+                              int tot_off) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int64_t z0 = blockIdx.z / p.nb1, z1 = blockIdx.z % p.nb1;
+  const int rank = (int)cluster.block_rank();
+  const int64_t n0 = (int64_t)(blockIdx.x / S) * DEC_N;
+  const int64_t kb = (int64_t)rank * cpr * KC;
+  const int64_t ke = kb + (int64_t)cpr * KC < p.K ? kb + (int64_t)cpr * KC
+                                                  : p.K;
+  const int64_t kl = ke > kb ? ke - kb : 0;
+  const float* const B[1] = {p.b + z0 * p.b_sb0 + z1 * p.b_sb1 +
+                             kb * p.b_sr};
+  const float* const A = p.a + z0 * p.a_sb0 + z1 * p.a_sb1 + kb * p.a_sc;
+  extern __shared__ __align__(16) unsigned char dec_smem[];
+  float* const tots = reinterpret_cast<float*>(dec_smem + tot_off);
+  decode_tile<NL, NO, GEN, false, false, 1, false, true>(
+      A, p.a_sr, p.a_sc, B, p.b_sr, p.b_sc, Planes{}, (int)p.M, p.N, kl,
+      p.n_limbs, p.max_order, dk, nullptr, nullptr,
+      [](int, int64_t, const float (&)[1]) {}, n0, tots);
+  cluster.sync();   // every rank's chunk sums are written
+  const int mo = GEN ? p.max_order : NO - 1;
+  const int nch = (int)((p.K + KC - 1) / KC);
+  float* const C = p.c + z0 * p.c_sb0 + z1 * p.c_sb1;
+  for (int idx = rank + S * (int)threadIdx.x; idx < DEC_M * DEC_N;
+       idx += S * (int)blockDim.x) {
+    const int r = idx / DEC_N;
+    const int64_t gn = n0 + idx % DEC_N;
+    if (r >= p.M || gn >= p.N) continue;
+    float per_order[NO];
+#pragma unroll
+    for (int o = 0; o < NO; ++o) {
+      float a = 0.f;   // the single block's acc[o], chunk by chunk
+      if (o <= mo) {
+#pragma unroll 4
+        for (int c = 0; c < nch; ++c) {
+          const float* const t = cluster.map_shared_rank(tots, c / cpr);
+          a = a + t[((c % cpr) * NO + o) * DEC_M * DEC_N + idx];
+        }
+      }
+      per_order[o] = a;
+    }
+    if constexpr (PARTS) {
+#pragma unroll
+      for (int o = 0; o < NO; ++o)
+        if (o <= mo) C[o * p.c_so + r * p.c_sr + gn * p.c_sc] = per_order[o];
+    } else {
+      C[r * p.c_sr + gn * p.c_sc] = combine_orders<NO>(per_order, mo);
+    }
+  }
+  cluster.sync();   // no rank leaves while another reads its sums
+}
+
+// The cluster size S as the split tile runs it: every rank at least one of
+// K's chunks, S = ceil(chunks / ceil(chunks / s)).
+__host__ __device__ inline int split_norm(int64_t nch, int s) {
+  if (nch <= 1 || s <= 1) return 1;
+  if (s > nch) s = (int)nch;
+  const int64_t cpr = (nch + s - 1) / s;
+  return (int)((nch + cpr - 1) / cpr);
+}
+
+// the split tile's shared memory for a rank's K range kr at dk k per
+// stage: the decode tile's (16-aligned), then the chunk sums of cpr chunks
+__host__ __device__ inline int64_t split_smem_bytes(int nl, int no, int M,
+                                                    int64_t kr, int dk,
+                                                    int cpr) {
+  const int64_t stages = dk > 0 ? (kr + dk - 1) / dk : 0;
+  const int slots = (int)(stages < DecRing<1>::S ? stages : DecRing<1>::S);
+  const int64_t base = (dec_smem_bytes(false, nl, M, dk, slots, 1) + 15) /
+                       16 * 16;
+  return base + (int64_t)cpr * no * DEC_M * DEC_N * 4;
+}
+
+// the split tile's k per stage for a rank's K range: the ring's most
+// (ring_k), or the range rounded up to KC when shorter, halved in
+// multiples of KC until the block fits the card's opt-in shared memory
+__host__ __device__ inline int split_dk(int nl, int no, int M, int64_t kr,
+                                        int cpr, int ring_k, int64_t optin) {
+  int dk = (int)(kr < ring_k ? (kr + KC - 1) / KC * KC : ring_k);
+  while (dk > KC && split_smem_bytes(nl, no, M, kr, dk, cpr) > optin)
+    dk = (dk / 2 + KC - 1) / KC * KC;
+  return dk;
+}
+
+// The decode plan: the largest cluster size S (<= SPLIT_MAX, as the tile
+// runs it) whose S blocks per 16-column slab (times the batch) all fit on
+// the card at once at split_dk's stage or, failing that, at a shorter one
+// (halved down to KC): blocks per SM by shared memory, by threads and by
+// registers at 64 a thread (SPLIT_PER_SM).  Returns S and its stage in
+// *dk; S = 1 (*dk = 0: launch_decode's choice) where no S fits, as at
+// lm_head's 2,000 slabs: the single-block decode tile.
+constexpr int SPLIT_PER_SM = 5;
+__host__ __device__ inline int split_plan(int64_t slabs, int64_t K, int nl,
+                                          int no, int M, int ring_k, int sms,
+                                          int64_t sm_smem, int64_t optin,
+                                          int* dk) {
+  const int64_t nch = (K + KC - 1) / KC;
+  for (int s = SPLIT_MAX; s > 1; --s) {
+    if (split_norm(nch, s) != s) continue;   // a smaller s runs as this one
+    const int cpr = (int)((nch + s - 1) / s);
+    const int64_t kr = (int64_t)cpr * KC;
+    for (int d = split_dk(nl, no, M, kr, cpr, ring_k, optin);;
+         d = (d / 2 + KC - 1) / KC * KC) {
+      const int64_t smem = split_smem_bytes(nl, no, M, kr, d, cpr);
+      int64_t per_sm = sm_smem / (smem + 1024);   // 1 KB is the runtime's
+      if (per_sm > SPLIT_PER_SM) per_sm = SPLIT_PER_SM;
+      if (smem <= optin && s * slabs <= per_sm * sms) {
+        *dk = d;
+        return s;
+      }
+      if (d <= KC) break;
+    }
+  }
+  *dk = 0;
+  return 1;
+}
+
+// M <= DEC_M: the plan's S (or the tuner's s_req), and the k per stage
+// (launch_decode's choice for the rank's K range, or the tuner's dk_req)
+template <int NL, int NO, bool GEN, bool PARTS>
+cudaError_t launch_split(const MatmulArgs& p, int64_t nb0, int dk_req,
+                         int s_req, cudaStream_t st) {
+  Card cd;
+  cudaError_t err = card(cd);
+  if (err != cudaSuccess) return err;
+  const int nl = GEN ? p.n_limbs : NL;
+  const int64_t nz = nb0 * p.nb1;
+  const int64_t nx = (p.N + DEC_N - 1) / DEC_N;
+  const int64_t nch = (p.K + KC - 1) / KC;
+  if (s_req > SPLIT_MAX) return cudaErrorInvalidValue;
+  int plan_dk = 0;
+  const int S = s_req > 0 ? split_norm(nch, s_req)
+                          : split_plan(nx * nz, p.K, nl, NO, (int)p.M,
+                                       DecRing<NL>::K, cd.sms, cd.sm_smem,
+                                       cd.optin, &plan_dk);
+  if (S == 1)
+    return launch_decode<NL, 1,
+                         fused_matmul_decode_kernel<NL, NO, GEN, PARTS>>(
+        p, false, nl, p.M, p.N, p.K, 1, nz, dk_req, st);
+  const int cpr = (int)((nch + S - 1) / S);
+  const int64_t kr = (int64_t)cpr * KC;
+  auto kernel = fused_matmul_split_kernel<NL, NO, GEN, PARTS>;
+  static bool raised = false;
+  if (!raised) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, cd.optin);
+    if (err != cudaSuccess) return err;
+    raised = true;
+  }
+  auto smem_of = [&](int dk) {
+    return split_smem_bytes(nl, NO, (int)p.M, kr, dk, cpr);
+  };
+  int dk = plan_dk > 0 ? plan_dk
+                       : split_dk(nl, NO, (int)p.M, kr, cpr, DecRing<NL>::K,
+                                  cd.optin);
+  if (dk_req > 0) {
+    if (dk_req % KC || dk_req > DecRing<NL>::K || smem_of(dk_req) > cd.optin)
+      return cudaErrorInvalidValue;
+    dk = dk_req;
+  }
+  const int64_t smem = smem_of(dk);
+  if (smem > cd.optin) return cudaErrorInvalidValue;
+  const int64_t stages = (kr + dk - 1) / dk;
+  const int slots = (int)(stages < DecRing<NL>::S ? stages : DecRing<NL>::S);
+  const int tot_off =
+      (int)((dec_smem_bytes(false, nl, (int)p.M, dk, slots, 1) + 15) / 16 *
+            16);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(nx * S), 1, (unsigned)nz);
+  cfg.blockDim = dim3(DEC_CT + 32 * DecRing<NL>::P(false), 1, 1);
+  cfg.dynamicSmemBytes = (size_t)smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)S;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int clusters = 0;
+  err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+  if (err != cudaSuccess) return err;
+  if (clusters < 1) return cudaErrorInvalidConfiguration;
+  err = cudaLaunchKernelEx(&cfg, kernel, p, dk, S, cpr, tot_off);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// Tensor maps and the prefill launch.
+
+using EncodeTiled = PFN_cuTensorMapEncodeTiled_v12000;
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &q);
+    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(ptr);
+  }
+  return fn;
+}
+
+// a 4-d f32 map (inner, rows, nb1, nb0), strides in elements, a box of
+// (box_inner, box_rows, 1, 1), zeros past every edge; the stride of a batch
+// dim of size 1 is never used and set to a legal one
+bool make_map(CUtensorMap* map, const float* base, int64_t inner,
+              int64_t rows, int64_t sr, int64_t nb1, int64_t sb1,
+              int64_t nb0, int64_t sb0, int box_inner, int box_rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const int64_t s1 = nb1 > 1 ? sb1 : sr * rows;
+  const int64_t s2 = nb0 > 1 ? sb0 : s1 * nb1;
+  cuuint64_t dims[4] = {(cuuint64_t)inner, (cuuint64_t)rows,
+                        (cuuint64_t)nb1, (cuuint64_t)nb0};
+  cuuint64_t strides[3] = {(cuuint64_t)sr * 4, (cuuint64_t)s1 * 4,
+                           (cuuint64_t)s2 * 4};
+  cuuint32_t box[4] = {(cuuint32_t)box_inner, (cuuint32_t)box_rows, 1, 1};
+  cuuint32_t es[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4,
+            const_cast<float*>(base), dims, strides, box, es,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// what a tensor map can read: unit column stride, 16-byte aligned base and
+// strides (a batch dim of size 1 excepted), sizes within 32 bits
+bool tma_operand(const void* base, int64_t sc, int64_t sr, int64_t nb1,
+                 int64_t sb1, int64_t nb0, int64_t sb0) {
+  auto ok = [](int64_t s) { return s > 0 && s % 4 == 0 && s < (1LL << 38); };
+  return reinterpret_cast<uintptr_t>(base) % 16 == 0 && sc == 1 && ok(sr) &&
+         (nb1 == 1 || ok(sb1)) && (nb0 == 1 || ok(sb0));
+}
+
+template <int NL, int NO, bool GEN, bool PARTS>
+cudaError_t launch_tma(const MatmulArgs& p, int64_t nb0, cudaStream_t st) {
+  constexpr int BN = hp_bn(NO);
+  constexpr int64_t SMEM = hp_smem(NL, BN, Hp<NL, NO>::RS);
+  if (p.K < 1 || p.M > INT32_MAX || p.N > INT32_MAX || p.K > INT32_MAX ||
+      p.nb1 > INT32_MAX ||
+      !tma_operand(p.a, p.a_sc, p.a_sr, p.nb1, p.a_sb1, nb0, p.a_sb0) ||
+      !tma_operand(p.b, p.b_sc, p.b_sr, p.nb1, p.b_sb1, nb0, p.b_sb0))
+    return cudaErrorInvalidValue;
+  CUtensorMap ta, tb;
+  if (!make_map(&ta, p.a, p.K, p.M, p.a_sr, p.nb1, p.a_sb1, nb0, p.a_sb0, KC,
+                HM) ||
+      !make_map(&tb, p.b, p.N, p.K, p.b_sr, p.nb1, p.b_sb1, nb0, p.b_sb0, BN,
+                KC))
+    return cudaErrorInvalidValue;
+  auto kernel = tma_matmul_kernel<NL, NO, GEN, PARTS>;
+  static bool raised = false;
+  if (!raised) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM);
+    if (err != cudaSuccess) return err;
+    raised = true;
+  }
+  const int64_t tiles = ((p.M + HM - 1) / HM) * ((p.N + BN - 1) / BN);
+  const dim3 grid((unsigned)tiles, 1, (unsigned)(nb0 * p.nb1));
+  kernel<<<grid, Hp<NL, NO>::HT, (size_t)SMEM, st>>>(
+      ta, tb, p.c, p.c_sb0, p.c_sb1, p.c_sr, p.c_sc, p.c_so, (int)p.nb1,
+      (int)p.M, (int)p.N, (int)p.K, p.n_limbs, p.max_order);
+  return cudaGetLastError();
+}
+
+template <int NL, int NO, bool GEN, bool PARTS>
+cudaError_t launch_hopper(const MatmulArgs& p, int64_t nb0, int p0, int p1,
+                          cudaStream_t st) {
+  if (p.M <= DEC_M) return launch_split<NL, NO, GEN, PARTS>(p, nb0, p0, p1, st);
+  // the prefill tile takes no launch parameter, and its partials epilogue
+  // only one limb (more limbs keep mp_matmul.cu's tile, faster there)
+  if (p0 > 0 || p1 > 0) return cudaErrorInvalidValue;
+  if constexpr (PARTS && NL != 1) {
+    return cudaErrorInvalidValue;
+  } else {
+    return launch_tma<NL, NO, GEN, PARTS>(p, nb0, st);
+  }
+}
+
+template <bool PARTS>
+cudaError_t hopper_for_format(const MatmulArgs& p, int64_t nb0, int p0,
+                              int p1, cudaStream_t st) {
+  const int nl = p.n_limbs, mo = p.max_order;
+  if (nl == 1 && mo == 0)
+    return launch_hopper<1, 1, false, PARTS>(p, nb0, p0, p1, st);
+  if (nl == 2 && mo == 1)
+    return launch_hopper<2, 2, false, PARTS>(p, nb0, p0, p1, st);
+  if (nl == 3 && mo == 2)
+    return launch_hopper<3, 3, false, PARTS>(p, nb0, p0, p1, st);
+  if (nl == 5 && mo == 4)
+    return launch_hopper<5, 5, false, PARTS>(p, nb0, p0, p1, st);
+  if (nl == 7 && mo == 6)
+    return launch_hopper<7, 7, false, PARTS>(p, nb0, p0, p1, st);
+  return launch_hopper<GEN_NL, GEN_NO, true, PARTS>(p, nb0, p0, p1, st);
+}
+
+}  // namespace
+
+extern "C" {
+
+// C[z] (M, N) = A[z] (M, K) @ B[z] (K, N) at (n_limbs, max_order): the fused
+// matmul's decode tile (M <= DEC_M, any strides) or its TMA prefill tile
+// (M > DEC_M, operands a tensor map can read); parts: the partials
+// epilogue, C[o] at c + o * c_so for o <= max_order, uncombined.  Strides in
+// elements; z = z0 * nb1 + z1 over nb0 * nb1 batches.  The autotuner's
+// launch parameters, 0 for the plan's: at M <= DEC_M p0 = the k per ring
+// stage (a multiple of KC within the ring), p1 = the cluster size (1..8);
+// at larger M both 0 (the prefill tile has none).  None changes a bit.
+// The partials epilogue at M > DEC_M takes one limb only.  Returns the CUDA error of the launch (0 on success;
+// cudaErrorInvalidValue for operands or parameters the tile cannot take).
+// Allocates nothing and does not synchronise.
+int mp_hopper_matmul_launch(const void* a, int64_t a_sb0, int64_t a_sb1,
+                            int64_t a_sr, int64_t a_sc, const void* b,
+                            int64_t b_sb0, int64_t b_sb1, int64_t b_sr,
+                            int64_t b_sc, void* c, int64_t c_sb0,
+                            int64_t c_sb1, int64_t c_sr, int64_t c_sc,
+                            int64_t c_so, int64_t parts, int64_t nb0,
+                            int64_t nb1, int64_t M, int64_t N, int64_t K,
+                            int64_t n_limbs, int64_t max_order, int64_t p0,
+                            int64_t p1, void* stream) {
+  if (!format_ok(n_limbs, max_order) || nb0 < 1 || nb1 < 1 ||
+      nb0 * nb1 > 65535 || p0 < 0 || p1 < 0 || p0 > 4096 || p1 > 64)
+    return (int)cudaErrorInvalidValue;
+  if (M == 0 || N == 0) return 0;
+  MatmulArgs p{static_cast<const float*>(a), static_cast<const float*>(b),
+               static_cast<float*>(c), a_sb0, a_sb1, a_sr, a_sc, b_sb0, b_sb1,
+               b_sr, b_sc, c_sb0, c_sb1, c_sr, c_sc, nb1, M, N, K,
+               (int)n_limbs, (int)max_order, c_so};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return (int)(parts ? hopper_for_format<true>(p, nb0, (int)p0, (int)p1, st)
+                     : hopper_for_format<false>(p, nb0, (int)p0, (int)p1, st));
+}
+
+// The prefill tile's columns for a format (hp_bn) and one block's dynamic
+// shared memory (at its hp_rs f32 stages).
+int mp_tma_tile_n(int64_t n_limbs, int64_t max_order) {
+  return hp_bn(builtin_format(n_limbs, max_order) ? (int)max_order + 1
+                                                  : GEN_NO);
+}
+
+int64_t mp_tma_smem_bytes(int64_t n_limbs, int64_t max_order) {
+  const int nl = builtin_format(n_limbs, max_order) ? (int)n_limbs : GEN_NL;
+  const int bn = mp_tma_tile_n(n_limbs, max_order);
+  return hp_smem(nl, bn, hp_rs(nl, bn));
+}
+
+// The decode plan's cluster size for slabs column slabs (times the batch),
+// K and M rows at a format, on a card of sms SMs with sm_smem bytes of
+// shared memory an SM and optin a block; its k per stage for a rank's K
+// range kr of cpr chunks; and the split tile's shared memory.
+int mp_split_plan(int64_t slabs, int64_t K, int64_t n_limbs,
+                  int64_t max_order, int64_t M, int64_t sms, int64_t sm_smem,
+                  int64_t optin, int* dk) {
+  const bool b = builtin_format(n_limbs, max_order);
+  return split_plan(slabs, K, (int)n_limbs, b ? (int)max_order + 1 : GEN_NO,
+                    (int)M, b && n_limbs <= 3 ? DecRing<1>::K
+                                              : DecRing<GEN_NL>::K,
+                    (int)sms, sm_smem, optin, dk);
+}
+
+int mp_split_dk(int64_t n_limbs, int64_t max_order, int64_t M, int64_t kr,
+                int64_t cpr, int64_t optin) {
+  const bool b = builtin_format(n_limbs, max_order);
+  return split_dk((int)n_limbs, b ? (int)max_order + 1 : GEN_NO, (int)M, kr,
+                  (int)cpr, b && n_limbs <= 3 ? DecRing<1>::K
+                                              : DecRing<GEN_NL>::K,
+                  optin);
+}
+
+int mp_split_norm(int64_t K, int64_t s) {
+  return split_norm((K + KC - 1) / KC, (int)s);
+}
+
+int64_t mp_split_smem_bytes(int64_t n_limbs, int64_t max_order, int64_t M,
+                            int64_t kr, int64_t dk, int64_t cpr) {
+  const bool b = builtin_format(n_limbs, max_order);
+  return split_smem_bytes((int)n_limbs, b ? (int)max_order + 1 : GEN_NO,
+                          (int)M, kr, (int)dk, (int)cpr);
+}
+
+}  // extern "C"

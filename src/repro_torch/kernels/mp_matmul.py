@@ -6,14 +6,17 @@ counters (port of the Pallas ``_fused_kernel``, ``_fused_multi_kernel``,
 which replaces no TPU kernel: the K-sharded backend's local step).
 
 Each wrapper runs its plain PyTorch version for CPU tensors and launches its
-CUDA kernel (``csrc/mp_matmul.cu``) for CUDA tensors — there is no fallback
-from one to the other.  The plain versions repeat the kernels' accumulation
-discipline: one f32 sum per limb-product order, joined by the compensated
-``_combine_orders`` (highest order first), whatever the limb count.
+CUDA kernel (``csrc/mp_matmul.cu``; the fused matmul's decode tile and its
+TMA prefill tile from ``csrc/mp_matmul_hopper.cu``) for CUDA tensors — there
+is no fallback from one to the other.  The fused matmul and its partials
+epilogue take one of three routes by the operands' shape and layout
+(:func:`fused_route`), each with its own launch counter (``routes``).  The
+plain versions repeat the kernels' accumulation discipline: one f32 sum per
+limb-product order, joined by the compensated ``_combine_orders`` (highest
+order first), whatever the limb count.
 """
 from __future__ import annotations
 
-import contextlib
 import ctypes
 from typing import List, Optional, Sequence, Tuple
 
@@ -25,6 +28,11 @@ from repro_torch.kernels import build, ref
 
 MAX_OUT = 3   # weights one fused-projection launch takes (csrc MAX_OUT)
 MAX_BATCH = 65535  # grid.z limit of one batched matmul launch
+DEC_M = 16    # most rows of the decode tile (csrc DEC_M)
+# the fused matmul's routes: the cluster-split decode tile (M <= DEC_M), the
+# TMA prefill tile (operands a tensor map reads), the strided prefill tile
+SPLIT, TMA, STRIDED = "cluster", "tma", "strided"
+ROUTES = (SPLIT, TMA, STRIDED)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int64
@@ -191,9 +199,11 @@ def _set_argtypes(lib) -> None:
         _P, _I, _I, _I, _I, _P, _I, _I, _I, _I, _P, _I, _I, _I, _I,
         _I, _I, _I, _I, _I, _I, _I, _P]
     lib.mp_fused_matmul_launch.restype = ctypes.c_int
+    # a library built from an older source (compare_kernels.py loads them)
+    # takes no launch parameters: the two extra arguments are not read
     lib.mp_fused_proj_launch.argtypes = [
         _P, _I, _P, _P, _P, _I, _P, _P, _P, _P, _I, _P,
-        _I, _I, _I, _I, _I, _I, _I, _P]
+        _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]
     lib.mp_fused_proj_launch.restype = ctypes.c_int
     lib.mp_prelimbed_matmul_launch.argtypes = [
         _P, _I, _P, _I, _I, _I, _P, _I, _I, _I, _I, _I, _I, _P]
@@ -209,11 +219,8 @@ def _set_argtypes(lib) -> None:
     lib.mp_fused_matmul_partials_launch.restype = ctypes.c_int
     lib.mp_decompose_launch.argtypes = [_P, _P, _I, _I, _P]
     lib.mp_decompose_launch.restype = ctypes.c_int
-    # the autotuner's entries (a library built from an older source, as
-    # compare_kernels.py loads, has none)
-    if hasattr(lib, "mp_set_launch_params"):
-        lib.mp_set_launch_params.argtypes = [_I, _I]
-        lib.mp_set_launch_params.restype = ctypes.c_int
+    # the shared-memory mirrors' entries (an older library may lack them)
+    if hasattr(lib, "mp_tile_smem_bytes"):
         for entry in ("mp_tile_e", "mp_tile_e_alt"):
             getattr(lib, entry).argtypes = [_I, _I, _I]
             getattr(lib, entry).restype = ctypes.c_int
@@ -226,26 +233,31 @@ def _set_argtypes(lib) -> None:
     lib._mp_matmul_typed = True
 
 
-@contextlib.contextmanager
-def launch_params(lib, tune: Sequence[int]):
-    """The autotuner's launch parameters ``(dec_dk, tile_e)`` (0: the
-    default choice) for the launches of this scope on this thread
-    (``mp_set_launch_params``).  They change no bit of any output."""
-    _set_argtypes(lib)
-    dk, e = (int(t) for t in tune)
-    lib.mp_set_launch_params(dk, e)
-    try:
-        yield
-    finally:
-        lib.mp_set_launch_params(0, 0)
+def _set_hopper_argtypes(lib) -> None:
+    if getattr(lib, "_mp_hopper_typed", False):
+        return
+    lib.mp_hopper_matmul_launch.argtypes = [_P, _I, _I, _I, _I, _P, _I, _I,
+                                            _I, _I, _P] + [_I] * 15 + [_P]
+    lib.mp_hopper_matmul_launch.restype = ctypes.c_int
+    lib.mp_tma_tile_n.argtypes = [_I, _I]
+    lib.mp_tma_tile_n.restype = ctypes.c_int
+    lib.mp_tma_smem_bytes.argtypes = [_I, _I]
+    lib.mp_tma_smem_bytes.restype = ctypes.c_int64
+    lib.mp_split_plan.argtypes = [_I] * 8 + [ctypes.POINTER(ctypes.c_int)]
+    lib.mp_split_plan.restype = ctypes.c_int
+    lib.mp_split_dk.argtypes = [_I] * 6
+    lib.mp_split_dk.restype = ctypes.c_int
+    lib.mp_split_norm.argtypes = [_I, _I]
+    lib.mp_split_norm.restype = ctypes.c_int
+    lib.mp_split_smem_bytes.argtypes = [_I] * 6
+    lib.mp_split_smem_bytes.restype = ctypes.c_int64
+    lib._mp_hopper_typed = True
 
 
-def launch_fused_matmul(lib, stream: int, a: torch.Tensor, b: torch.Tensor,
-                        fmt: MPFormat) -> torch.Tensor:
-    """Marshal one ``mp_fused_matmul_launch`` call (any device the library
-    runs on).  Leading dims broadcast; at most two batch dims reach the
-    kernel after merging, else the operands are copied to contiguous."""
-    _set_argtypes(lib)
+def _marshal(a: torch.Tensor, b: torch.Tensor):
+    """The fused matmul's operands as a launch takes them: leading dims
+    broadcast; at most two batch dims after merging, else the operands are
+    copied to contiguous.  Returns (a, b, c, sizes, (sa, sb, sc))."""
     a, b = _f32(a), _f32(b)
     M, K = a.shape[-2:]
     K2, N = b.shape[-2:]
@@ -269,6 +281,108 @@ def launch_fused_matmul(lib, stream: int, a: torch.Tensor, b: torch.Tensor,
     if sizes[0] * sizes[1] > MAX_BATCH:
         raise ValueError(f"batch of {sizes[0] * sizes[1]} matmuls exceeds "
                          f"one launch ({MAX_BATCH})")
+    return a, b, c, sizes, (sa, sb, sc)
+
+
+def _tma_operand(x: torch.Tensor, sizes, batch_strides) -> bool:
+    """Can a TMA tensor map read ``x`` (``tma_operand`` of
+    csrc/mp_matmul_hopper.cu): unit column stride, 16-byte aligned base and
+    row and batch strides (a batch dim of size 1 excepted)."""
+    def ok(st):
+        return 0 < st < 2 ** 38 and st % 4 == 0
+    return (x.data_ptr() % 16 == 0 and x.stride(-1) == 1 and ok(x.stride(-2))
+            and all(n == 1 or ok(st) for n, st in zip(sizes, batch_strides)))
+
+
+def fused_route(a: torch.Tensor, b: torch.Tensor, sizes, strides, *,
+                parts_limbs: int = 0) -> str:
+    """The route of a marshalled fused matmul (:func:`_marshal`): the
+    cluster-split decode tile at M <= 16 rows, else the TMA prefill tile
+    where a tensor map can read both operands (and K, M, N fit 31 bits),
+    else the strided prefill tile of csrc/mp_matmul.cu.  The three give
+    every output the same bits.  ``parts_limbs``: the limbs of a partials
+    launch, whose prefill takes the TMA tile at one limb only (at more the
+    strided tile measured faster, PERF.md)."""
+    (M, K), N = a.shape[-2:], b.shape[-1]
+    if M <= DEC_M:
+        return SPLIT
+    if parts_limbs > 1:
+        return STRIDED
+    if (0 < K < 2 ** 31 and M < 2 ** 31 and N < 2 ** 31
+            and _tma_operand(a, sizes, strides[0])
+            and _tma_operand(b, sizes, strides[1])):
+        return TMA
+    return STRIDED
+
+
+def launch_hopper_matmul(lib, stream: int, a, b, c, sizes, strides,
+                         fmt: MPFormat, tune: Sequence[int] = (0, 0), *,
+                         parts: bool = False) -> None:
+    """Marshal one ``mp_hopper_matmul_launch`` call on operands
+    :func:`_marshal` made (parts: c is the (n_orders, M, N) stack).
+    ``tune``: the autotuner's ``(p0, p1)``, (0, 0) the plan's launch: at M
+    <= 16 the k per ring stage and the cluster size; the prefill tile takes
+    none."""
+    _set_hopper_argtypes(lib)
+    sa, sb, sc = strides
+    M, K = a.shape[-2:]
+    N = b.shape[-1]
+    c_so = c.stride(0) if parts else 0
+    err = lib.mp_hopper_matmul_launch(
+        a.data_ptr(), sa[0], sa[1], a.stride(-2), a.stride(-1),
+        b.data_ptr(), sb[0], sb[1], b.stride(-2), b.stride(-1),
+        c.data_ptr(), sc[0], sc[1], c.stride(-2), c.stride(-1), c_so,
+        int(parts), sizes[0], sizes[1], M, N, K, fmt.n_limbs, fmt.max_order,
+        int(tune[0]), int(tune[1]), stream)
+    build.check(err, "mp_hopper_matmul")
+
+
+def launch_routed(stream: int, a: torch.Tensor, b: torch.Tensor,
+                  fmt: MPFormat, tune: Optional[Sequence[int]] = None, *,
+                  parts: bool = False):
+    """One fused matmul (parts: its partials stack, 2-D operands) by its
+    route (:func:`fused_route`), on this tree's libraries.  ``tune`` (the
+    autotuner's; None or (0, 0): the plan's launch) reaches the decode
+    tile; the prefill tiles have no free parameter and raise on another.
+    Returns (output, route)."""
+    if parts:
+        if a.ndim != 2 or b.ndim != 2 or a.shape[1] != b.shape[0]:
+            raise ValueError(f"partials take 2-D a (M, K) @ b (K, N), got "
+                             f"{tuple(a.shape)} @ {tuple(b.shape)}")
+        a, b = _f32(a), _f32(b)
+        sizes, strides = [1, 1], ([0, 0], [0, 0], [0, 0])
+        c = torch.empty((fmt.n_orders, a.shape[0], b.shape[1]),
+                        dtype=torch.float32, device=a.device)
+    else:
+        a, b, c, sizes, strides = _marshal(a, b)
+    route = fused_route(a, b, sizes, strides,
+                        parts_limbs=fmt.n_limbs if parts else 0)
+    if route != SPLIT and tune is not None and tuple(tune) != (0, 0):
+        raise ValueError(f"the {route} prefill tile takes no launch "
+                         f"parameters, got {tuple(tune)}")
+    if route == STRIDED:
+        lib = build.load("mp_matmul")
+        if parts:
+            c = launch_fused_matmul_partials(lib, stream, a, b, fmt)
+        else:
+            c = launch_fused_matmul(lib, stream, a, b, fmt)
+    else:
+        launch_hopper_matmul(build.load("mp_matmul_hopper"), stream, a, b, c,
+                             sizes, strides, fmt, tune or (0, 0),
+                             parts=parts)
+    return c, route
+
+
+def launch_fused_matmul(lib, stream: int, a: torch.Tensor, b: torch.Tensor,
+                        fmt: MPFormat) -> torch.Tensor:
+    """Marshal one ``mp_fused_matmul_launch`` call: this tree's strided
+    prefill tile (M > 16), or every shape of another, self-contained
+    version of csrc/mp_matmul.cu (compare_kernels.py).  Leading dims
+    broadcast (:func:`_marshal`)."""
+    _set_argtypes(lib)
+    a, b, c, sizes, (sa, sb, sc) = _marshal(a, b)
+    M, K = a.shape[-2:]
+    N = b.shape[-1]
     err = lib.mp_fused_matmul_launch(
         a.data_ptr(), sa[0], sa[1], a.stride(-2), a.stride(-1),
         b.data_ptr(), sb[0], sb[1], b.stride(-2), b.stride(-1),
@@ -303,10 +417,11 @@ def launch_fused_matmul_partials(lib, stream: int, a: torch.Tensor,
 def launch_fused_proj(lib, stream: int, a: torch.Tensor,
                       ws: Sequence[torch.Tensor], fmt: MPFormat, *,
                       gate: str = "none", biases=None,
-                      residual: Optional[torch.Tensor] = None
-                      ) -> torch.Tensor:
+                      residual: Optional[torch.Tensor] = None,
+                      tune: Sequence[int] = (0, 0)) -> torch.Tensor:
     """Marshal one ``mp_fused_proj_launch`` call: a (M, K); ws n_out equal
-    (K, N) weights, each from its own pointer (no stacked copy)."""
+    (K, N) weights, each from its own pointer (no stacked copy).  ``tune``:
+    the autotuner's ``(dec_dk, tile_e)``, (0, 0) the default launch."""
     _set_argtypes(lib)
     n_out = len(ws)
     if not 1 <= n_out <= MAX_OUT:
@@ -341,7 +456,7 @@ def launch_fused_proj(lib, stream: int, a: torch.Tensor,
     err = lib.mp_fused_proj_launch(
         a.data_ptr(), a.stride(0), *w_ptrs, N, *bias_ptrs, res_ptr, res_sr,
         out.data_ptr(), n_out, int(gate == "swiglu"), M, N, K,
-        fmt.n_limbs, fmt.max_order, stream)
+        fmt.n_limbs, fmt.max_order, int(tune[0]), int(tune[1]), stream)
     build.check(err, "mp_fused_proj")
     return out
 
@@ -502,8 +617,9 @@ def mp_fused_matmul(a: torch.Tensor, b: torch.Tensor, fmt: FormatLike, *,
     dims broadcast.  CPU tensors run :func:`fused_matmul_plain`; CUDA
     tensors launch the kernel (one launch, batch dims included; a
     column-major 2-D operand copied to row-major first, which moves no
-    bit: the kernel's sums do not depend on the operands' strides).
-    ``tune``: the autotuner's ``(dec_dk, tile_e)`` (:func:`launch_params`)."""
+    bit: the kernel's sums do not depend on the operands' strides), by the
+    route :func:`fused_route` gives (counted in ``routes``).  ``tune``: the
+    autotuner's launch parameters (:func:`launch_hopper_matmul`)."""
     fmt = resolve(fmt)
     if _on_meta(a, b):
         lead = torch.broadcast_shapes(a.shape[:-2], b.shape[:-2])
@@ -512,19 +628,15 @@ def mp_fused_matmul(a: torch.Tensor, b: torch.Tensor, fmt: FormatLike, *,
         mp_fused_matmul.plain_calls += 1
         return fused_matmul_plain(a, b, fmt)
     stream = _cuda_stream(a, b)
-    lib = build.load("mp_matmul")
-    if tune is None:
-        out = launch_fused_matmul(lib, stream, _row_major(a), _row_major(b),
-                                  fmt)
-    else:
-        with launch_params(lib, tune):
-            out = launch_fused_matmul(lib, stream, _row_major(a),
-                                      _row_major(b), fmt)
+    out, route = launch_routed(stream, _row_major(a), _row_major(b), fmt,
+                               tune)
     mp_fused_matmul.launches += 1
+    mp_fused_matmul.routes[route] += 1
     return out
 
 
 mp_fused_matmul.launches = 0      # kernel launches
+mp_fused_matmul.routes = dict.fromkeys(ROUTES, 0)   # launches per route
 mp_fused_matmul.plain_calls = 0   # CPU calls that ran the plain version
 
 
@@ -534,8 +646,8 @@ def mp_fused_matmul_partials(a: torch.Tensor, b: torch.Tensor,
     per-order sums, uncombined: the K-sharded backend's local step, which
     ``ref.combine_partials`` joins after the cross-rank reduce.  CPU
     tensors run :func:`fused_matmul_partials_plain`; CUDA tensors launch
-    ``fused_matmul_kernel``'s partials epilogue (a column-major operand
-    copied to row-major first, as :func:`mp_fused_matmul` does)."""
+    the fused matmul's partials epilogue by its route (a column-major
+    operand copied to row-major first, as :func:`mp_fused_matmul` does)."""
     fmt = resolve(fmt)
     if _on_meta(a, b):
         return _meta((fmt.n_orders, a.shape[0], b.shape[1]))
@@ -543,13 +655,15 @@ def mp_fused_matmul_partials(a: torch.Tensor, b: torch.Tensor,
         mp_fused_matmul_partials.plain_calls += 1
         return fused_matmul_partials_plain(a, b, fmt)
     stream = _cuda_stream(a, b)
-    out = launch_fused_matmul_partials(build.load("mp_matmul"), stream,
-                                       _row_major(a), _row_major(b), fmt)
+    out, route = launch_routed(stream, _row_major(a), _row_major(b), fmt,
+                               parts=True)
     mp_fused_matmul_partials.launches += 1
+    mp_fused_matmul_partials.routes[route] += 1
     return out
 
 
 mp_fused_matmul_partials.launches = 0
+mp_fused_matmul_partials.routes = dict.fromkeys(ROUTES, 0)
 mp_fused_matmul_partials.plain_calls = 0
 
 
@@ -560,7 +674,7 @@ def mp_fused_proj(a: torch.Tensor, ws: Sequence[torch.Tensor],
     """a (M, K) against 1..3 equal-width (K, N) weights at ``fmt`` with the
     fused epilogue -> (n_out, M, N), or (M, N) when ``gate="swiglu"``.  CPU
     tensors run :func:`fused_proj_plain`; CUDA tensors launch the kernel
-    (``tune``: the autotuner's ``(dec_dk, tile_e)``)."""
+    (``tune``: the autotuner's ``(dec_dk, tile_e)``, None the default)."""
     fmt = resolve(fmt)
     extra: Tuple[torch.Tensor, ...] = tuple(biases or ()) + (
         (residual,) if residual is not None else ())
@@ -572,14 +686,9 @@ def mp_fused_proj(a: torch.Tensor, ws: Sequence[torch.Tensor],
         return fused_proj_plain(a, ws, fmt, gate=gate, biases=biases,
                                 residual=residual)
     stream = _cuda_stream(a, *ws, *extra)
-    lib = build.load("mp_matmul")
-    if tune is None:
-        out = launch_fused_proj(lib, stream, a, ws, fmt, gate=gate,
-                                biases=biases, residual=residual)
-    else:
-        with launch_params(lib, tune):
-            out = launch_fused_proj(lib, stream, a, ws, fmt, gate=gate,
-                                    biases=biases, residual=residual)
+    out = launch_fused_proj(build.load("mp_matmul"), stream, a, ws, fmt,
+                            gate=gate, biases=biases, residual=residual,
+                            tune=tune or (0, 0))
     mp_fused_proj.launches += 1
     return out
 
@@ -681,6 +790,26 @@ def mp_decompose(w: torch.Tensor, n_limbs: int) -> torch.Tensor:
 
 mp_decompose.launches = 0
 mp_decompose.plain_calls = 0
+
+
+def decode_plan(M: int, N: int, K: int, fmt: FormatLike, batch: int = 1
+                ) -> Tuple[int, int]:
+    """The decode tile's default launch for an (M <= 16, K, N) fused matmul
+    on this card (``mp_split_plan`` of ``csrc/mp_matmul_hopper.cu``): the
+    cluster size S that splits K's chunks and the k per ring stage (0: the
+    single-block tile's own choice at S = 1).  Builds the library (needs
+    ``nvcc``: the machine with the card)."""
+    fmt = resolve(fmt)
+    lib = build.load("mp_matmul_hopper")
+    _set_hopper_argtypes(lib)
+    props = torch.cuda.get_device_properties(0)
+    dk = ctypes.c_int(0)
+    S = lib.mp_split_plan(-(-N // 16) * batch, K, fmt.n_limbs, fmt.max_order,
+                          M, props.multi_processor_count,
+                          props.shared_memory_per_multiprocessor,
+                          props.shared_memory_per_block_optin,
+                          ctypes.byref(dk))
+    return int(S), int(dk.value)
 
 
 def chunk_k() -> int:

@@ -128,20 +128,26 @@ def test_context_json_round_trips_autotune(flag):
 
 def test_tile_e_is_the_kernels_table():
     """``tile_e`` of csrc/mp_matmul.cu: the outputs per thread of the
-    prefill tile by limbs, orders and weights (its header's 128 x 128 tile
-    at M8, shrinking as the accumulators grow); E / 2 the tuner's other
-    choice for the built-in formats."""
+    strided prefill tile by limbs, orders and weights (its header's 128 x
+    128 tile at M8, shrinking as the accumulators grow); E / 2 the tuner's
+    other choice for the built-in formats' projection; the TMA tile's
+    columns beside it (``hp_bn`` of csrc/mp_matmul_hopper.cu: 96 at M8,
+    narrowing with the orders)."""
     want = {("M8", 1): 64, ("M16", 1): 32, ("M23", 1): 16, ("M36", 1): 16,
             ("M52", 1): 16, ("M8", 2): 32, ("M16", 2): 16, ("M8", 3): 32,
             ("M16", 3): 8, ("M52", 3): 4}
     for (mode, n_out), e in want.items():
         assert at.format_tile_e(mode, n_out) == e
         assert at.format_tile_e_alt(mode, n_out) == (e // 2 if e >= 8 else 0)
+    for mode, bn in (("M8", 96), ("M16", 64), ("M23", 48), ("M36", 32),
+                     ("M52", 24)):
+        assert at.tma_tile_n(mode) == bn
     register_format("X16FULL", mantissa_bits=16, n_limbs=2, max_order=2)
     try:   # the generic instantiation: (8 limbs, 15 orders), no other E
         assert at.format_tile_e("X16FULL") == 8
         assert at.format_tile_e_alt("X16FULL") == 0
         assert at.decode_ring_k("X16FULL") == 128
+        assert at.tma_tile_n("X16FULL") == 8
     finally:
         unregister_format("X16FULL")
 
@@ -167,6 +173,18 @@ def test_smem_mirrors_pin_the_kernels_numbers():
     assert at.dec_smem_bytes(False, 2, 8, 256, 3, 1) == (
         3 * 256 * 16 * 4 + 3 * 8 * 256 * 4 + 2 * 2 * 8 * 264 * 2
         + 2 * 2 * 256 * 16 * 2 + 16)
+    # the TMA tile at M8: 1024 bytes of alignment slack, two plane buffers
+    # (a 128 x 64 A plane, K-major, and a 64 x 96 B plane, N-major in two
+    # 64-column atoms, bf16), two f32 stages (128 x 64 and 64 x 96; a third
+    # does not fit), four mbarriers; every format's tile fits
+    assert at.tma_smem("M8") == 1024 + 2 * (128 * 64 * 2 + 2 * 64 * 64 * 2) \
+        + 2 * (128 + 96) * 64 * 4 + 32
+    assert at.tma_smem("M8") + (128 + 96) * 64 * 4 > at.SMEM_MAX
+    for mode in ("M8", "M16", "M23", "M36", "M52"):
+        assert at.tma_smem(mode) <= at.SMEM_MAX
+    # the split decode tile at w_down, S = 6: 8 chunks of sums a rank
+    assert at.split_smem("M8", 8, 512, 256, 8) == at.dec_smem_bytes(
+        False, 1, 8, 256, 2, 1) + 8 * 16 * 16 * 4
     # flash at Dh 64, M16 / M8 (f32 planes), 64 query rows
     assert at.flash_smem(64, 64, "M16", "M8") == (
         2 * 32 * 68 * 4 + 2 * 64 * 32 * 4 + 1 * 32 * 64 * 4
@@ -174,19 +192,31 @@ def test_smem_mirrors_pin_the_kernels_numbers():
 
 
 def test_candidates_filter_by_shared_memory_and_spills():
-    # decode: stages of KC up to the ring (256 for <= 3 limbs) and K
+    # the fused matmul's decode tile: (dk, S), stages of KC up to the ring
+    # (256 for <= 3 limbs) and the rank's K range, cluster sizes the plan's
+    # (6 at 48 slabs), 1, 2, 4 and 8 as the tile runs them (12 chunks: 6)
     assert at.candidate_blocks(8, 768, 768, "M8", smem=at.SMEM_MAX) == \
-        [(64, 0), (128, 0), (192, 0), (256, 0)]
+        [(64, 1), (128, 1), (192, 1), (256, 1), (64, 2), (128, 2), (192, 2),
+         (256, 2), (64, 4), (128, 4), (192, 4), (64, 6), (128, 6)]
     assert at.candidate_blocks(8, 100, 768, "M8", smem=at.SMEM_MAX) == \
-        [(64, 0), (128, 0)]
+        [(64, 1), (128, 1), (64, 2)]
     assert at.candidate_blocks(8, 768, 768, "M36", smem=at.SMEM_MAX) == \
-        [(64, 0), (128, 0)]
+        [(64, 1), (128, 1), (64, 2), (128, 2), (64, 4), (128, 4), (64, 6),
+         (128, 6)]
+    # S = 2 at 128 k needs the 6 chunk sums beside the ring; S = 4 at 192
+    # k fits (one stage of a rank's 3 chunks)
     small = at.dec_smem_bytes(False, 1, 8, 128, 3, 1)
     assert at.candidate_blocks(8, 768, 768, "M8", smem=small) == \
-        [(64, 0), (128, 0)]
-    # prefill: the default E and E / 2, each only if ptxas built it clean
-    assert at.candidate_blocks(2048, 768, 768, "M16", smem=at.SMEM_MAX) \
-        == [(0, 32), (0, 16)]
+        [(64, 1), (128, 1), (64, 2), (64, 4), (128, 4), (192, 4), (64, 6),
+         (128, 6)]
+    # the projection's decode tile: (dk, 0)
+    assert at.candidate_blocks(8, 768, 768, "M8", n_out=3,
+                               smem=at.SMEM_MAX) == \
+        [(64, 0), (128, 0), (192, 0), (256, 0)]
+    # the fused matmul's prefill tiles have no free parameter
+    assert at.candidate_blocks(2048, 768, 768, "M8", smem=at.SMEM_MAX) == []
+    assert at.candidate_blocks(2048, 768, 768, "M16", smem=at.SMEM_MAX) == []
+
     def entry(name, targs, regs, spill):   # as the H100 build reports it
         return (f"ptxas info    : Compiling entry function '_ZN45_GLOBAL__N"
                 f"__73b160df_12_mp_matmul_cu_acc52c43{len(name)}{name}I"
@@ -194,17 +224,18 @@ def test_candidates_filter_by_shared_memory_and_spills():
                 f"bytes spill stores, {spill} bytes spill loads\n"
                 f"ptxas info    : Used {regs} registers, used 1 barriers\n")
 
-    ptxas = build.ptxas_summary(
-        entry("fused_matmul_kernel", "Li2ELi2ELb0ELb0ELi32E", 168, 0)
-        + entry("fused_matmul_kernel", "Li2ELi2ELb0ELb0ELi16E", 128, 8))
-    assert at.candidate_blocks(2048, 768, 768, "M16", smem=at.SMEM_MAX,
-                               ptxas=ptxas) == [(0, 32)]
+    # the projection's prefill tile: the default E and E / 2
     ptxas = build.ptxas_summary(
         entry("fused_proj_kernel", "Li1ELi1ELi2ELb0ELi32E", 160, 0)
         + entry("fused_proj_kernel", "Li1ELi1ELi2ELb0ELi16E", 96, 0))
     assert at.candidate_blocks(2048, 768, 3072, "M8", n_out=2,
                                epilogue="swiglu", smem=at.SMEM_MAX,
                                ptxas=ptxas) == [(0, 32), (0, 16)]
+    ptxas = build.ptxas_summary(
+        entry("fused_proj_kernel", "Li2ELi2ELi1ELb0ELi32E", 168, 0)
+        + entry("fused_proj_kernel", "Li2ELi2ELi1ELb0ELi16E", 128, 8))
+    assert at.candidate_blocks(2048, 768, 768, "M16", epilogue="bias",
+                               smem=at.SMEM_MAX, ptxas=ptxas) == [(0, 32)]
     # flash: 16, 32, 64 query rows (within S rounded up to 16)
     assert at.attention_candidate_blocks(256, 256, 64, "M16", "M8",
                                          smem=at.SMEM_MAX) == \
@@ -219,10 +250,30 @@ def test_table_round_trip_is_atomic(table_dir):
     table["M16|8x768x768|float32"] = [128, 0]
     table["attn|M16/M8|96x256x256x64|c1|p0"] = [64]
     path = at.save_table(table, "NVIDIA_H100_80GB_HBM3")
-    assert os.path.basename(path) == "NVIDIA_H100_80GB_HBM3.json"
-    assert sorted(os.listdir(table_dir)) == ["NVIDIA_H100_80GB_HBM3.json"]
+    assert os.path.basename(path) == "NVIDIA_H100_80GB_HBM3.v2.json"
+    assert sorted(os.listdir(table_dir)) == ["NVIDIA_H100_80GB_HBM3.v2.json"]
     at.clear_memory_cache()
     assert at.load_table("NVIDIA_H100_80GB_HBM3") == table
+
+
+def test_a_table_of_the_old_layout_is_not_read(table_dir, monkeypatch):
+    """A table written for the old tiles' parameters (``[dk, E]``: a
+    prefill key holds ``[0, 32]``, which the TMA tile cannot take) lies
+    beside the new one unread: dispatch launches the default."""
+    key = at.table_key(2048, 3072, 768, "M8", torch.float32)
+    with open(table_dir / "NVIDIA_H100_80GB_HBM3.json", "w") as f:
+        json.dump({key: [0, 32],
+                   at.table_key(8, 768, 768, "M8", torch.float32): [192, 0]},
+                  f)
+    monkeypatch.setattr(at, "device_kind", lambda: "NVIDIA_H100_80GB_HBM3")
+    assert at.load_table() == {}
+    assert at.lookup(2048, 3072, 768, "M8") is None
+    seen = _recorders(monkeypatch)
+    n = at.stats()["lookups"]
+    dispatch.dispatch(torch.ones((2048, 3072)), torch.ones((3072, 768)),
+                      "M8", backend="cuda")
+    assert seen["matmul"] is None
+    assert at.stats()["lookups"] == n     # an empty table: no lookup
 
 
 def test_autotune_returns_a_cached_winner_without_sweeping(table_dir):

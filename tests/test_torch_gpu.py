@@ -1496,6 +1496,44 @@ def test_autotune_sweeps_bitwise(cuda, tmp_path, monkeypatch):
     at.reset_stats()
     lib = build.load("mp_matmul")
     mp_matmul._set_argtypes(lib)
+    hlib = build.load("mp_matmul_hopper")
+    mp_matmul._set_hopper_argtypes(hlib)
+    for mode in ("M8", "M16", "M23", "M36", "M52", "M16FULLT"):
+        if mode == "M16FULLT":
+            register_format(mode, mantissa_bits=16, n_limbs=2, max_order=2)
+        fmt = resolve(mode)
+        nl, mo = fmt.n_limbs, fmt.max_order
+        assert hlib.mp_tma_tile_n(nl, mo) == at.tma_tile_n(fmt)
+        assert hlib.mp_tma_smem_bytes(nl, mo) == at.tma_smem(fmt)
+        for kr, dk, cpr in ((512, 256, 8), (128, 64, 2), (384, 128, 6)):
+            for M in (1, 8, 16):
+                assert hlib.mp_split_smem_bytes(nl, mo, M, kr, dk, cpr) == \
+                    at.split_smem(fmt, M, kr, dk, cpr)
+        if mode == "M16FULLT":
+            unregister_format(mode)
+    props = torch.cuda.get_device_properties(0)
+    sms = props.multi_processor_count
+    sm_smem = props.shared_memory_per_multiprocessor
+    optin = props.shared_memory_per_block_optin
+    dk = ctypes.c_int(0)
+    for mode in ("M8", "M16", "M23", "M52"):
+        fmt = resolve(mode)
+        for slabs in (1, 4, 48, 96, 192, 263, 264, 2000):
+            for K in (64, 100, 448, 768, 3072):
+                for M in (1, 8, 16):
+                    S = hlib.mp_split_plan(slabs, K, fmt.n_limbs,
+                                           fmt.max_order, M, sms, sm_smem,
+                                           optin, ctypes.byref(dk))
+                    assert (S, dk.value) == at.split_plan(
+                        slabs, K, fmt, M, sms, sm_smem, optin)
+                for S in range(1, 9):
+                    assert hlib.mp_split_norm(K, S) == at.split_norm(K, S)
+        for kr, cpr in ((128, 2), (512, 8), (1536, 24)):
+            assert hlib.mp_split_dk(fmt.n_limbs, fmt.max_order, 8, kr, cpr,
+                                    optin) == at.split_dk(fmt, 8, kr, cpr,
+                                                          optin)
+    assert mp_matmul.decode_plan(8, 768, 3072, "M8") == \
+        at.split_plan(48, 3072, "M8", 8, sms, sm_smem, optin)
     for nl, mo in at.BUILTIN + ((2, 2), (4, 3)):
         resolved = next((f for f in ("M8", "M16", "M23", "M36", "M52")
                          if (resolve(f).n_limbs, resolve(f).max_order)
@@ -1533,12 +1571,18 @@ def test_autotune_sweeps_bitwise(cuda, tmp_path, monkeypatch):
                     at.flash_smem(Dh, bq, fq, fp)
     keys = [(70, 96, 200, "M16", 1, "none"), (8, 700, 300, "M8", 2, "swiglu"),
             (40, 64, 96, "M23", 3, "none"), (5, 130, 64, "M52", 1, "none"),
-            (2048, 768, 768, "M8", 1, "none")]
+            (2048, 768, 768, "M8", 1, "none"), (8, 3072, 768, "M8", 1, "none"),
+            (8, 1000, 200, "M23", 1, "none")]
     for M, K, N, f, n_out, ep in keys:
         rec = {}
         got = at.autotune(M, K, N, f, n_out=n_out, epilogue=ep, iters=2,
                           record=rec)
-        assert list(got) == rec["winner"] and len(rec["candidates"]) >= 1
+        assert list(got) == rec["winner"]
+        # the prefill tiles of the fused matmul have no free parameter
+        prefill_mm = M > 16 and n_out == 1 and ep == "none"
+        assert (len(rec["candidates"]) == 0) == prefill_mm
+        assert rec["winner_ms"] <= rec["default_ms"]
+        assert rec["default_won"] == (list(got) == [0, 0])
     rec = {}
     at.autotune_attention(6, 40, 40, 64, "M16", "M8", iters=2, record=rec)
     assert len(rec["candidates"]) == 2      # 64 rows exceed S = 40
@@ -1561,3 +1605,123 @@ def test_autotune_sweeps_bitwise(cuda, tmp_path, monkeypatch):
                                      backend="cuda"))
     assert all(torch.equal(t, p) for t, p in zip(tuned, plain))
     at.clear_memory_cache()
+
+
+# ---------------------------------------------------------------------------
+# the fused matmul's Hopper tiles (csrc/mp_matmul_hopper.cu)
+# ---------------------------------------------------------------------------
+def _routed(fn, *args, **kw):
+    before = dict(fn.routes)
+    out = fn(*args, **kw)
+    torch.cuda.synchronize()
+    return out, next(k for k, v in fn.routes.items() if v != before[k])
+
+
+@pytest.mark.parametrize("M,K,N", [(8, 3072, 768), (3, 200, 72),
+                                   (16, 1000, 264), (70, 200, 72),
+                                   (130, 1000, 264), (300, 768, 200)])
+@pytest.mark.parametrize("mode", ["M8", "M16", "M23", "M52"])
+def test_hopper_tiles_are_the_prelimbed_kernel(cuda, mode, M, K, N):
+    """The TMA prefill tile (M > 16) and the cluster-split decode tile (M <=
+    16) bitwise the pre-limbed kernel (the strided tiles of
+    csrc/mp_matmul.cu) on planes cut from the same weight, over ragged
+    shapes; the partials stack of each combines to the fused output."""
+    from repro_torch.kernels import ref as ref_lib
+
+    a, b = _randn(cuda, M, K, seed=180), _randn(cuda, K, N, seed=181)
+    out, route = _routed(mp_matmul.mp_fused_matmul, a, b, mode)
+    assert route == (mp_matmul.SPLIT if M <= 16 else mp_matmul.TMA)
+    planes = mp_matmul.mp_decompose(b, resolve(mode).n_limbs)
+    assert _bitwise(out, mp_matmul.mp_prelimbed_matmul(a, planes, mode))
+    parts, proute = _routed(mp_matmul.mp_fused_matmul_partials, a, b, mode)
+    # the partials' prefill keeps the strided tile at more than one limb
+    assert proute == (route if M <= 16 or resolve(mode).n_limbs == 1
+                      else mp_matmul.STRIDED)
+    assert _bitwise(ref_lib.combine_partials(parts, resolve(mode)), out)
+    _assert_mm_close(out, mp_matmul.fused_matmul_plain(a, b, mode), K)
+
+
+@pytest.mark.parametrize("M,K,N,mode", [(8, 3072, 768, "M8"),
+                                        (8, 768, 768, "M8"),
+                                        (5, 1000, 200, "M23"),
+                                        (8, 768, 2000, "M16"),
+                                        (70, 768, 768, "M8"),
+                                        (200, 448, 264, "M16"),
+                                        (130, 200, 72, "M36")])
+def test_every_launch_the_plan_allows_is_bitwise_the_default(cuda, M, K, N,
+                                                             mode):
+    """Every cluster size and stage depth of the decode tile the autotuner
+    may choose (its candidates) gives the default launch's bits; the TMA
+    tile has no parameter to choose, and refuses one."""
+    from repro_torch.kernels import autotune as at
+
+    a, b = _randn(cuda, M, K, seed=182), _randn(cuda, K, N, seed=183)
+    ref = mp_matmul.mp_fused_matmul(a, b, mode)
+    cands = at.candidate_blocks(M, K, N, mode)
+    if M > 16:
+        assert cands == []
+        with pytest.raises(ValueError, match="takes no launch parameters"):
+            mp_matmul.mp_fused_matmul(a, b, mode, tune=(0, 2))
+        return
+    assert {s for _, s in cands} >= {1, at.split_plan(-(-N // 16), K,
+                                                      mode, M)[0]}
+    for tune in cands:
+        assert _bitwise(mp_matmul.mp_fused_matmul(a, b, mode, tune=tune),
+                        ref), tune
+
+
+@pytest.mark.parametrize("mode", ["M8", "M16"])
+def test_batched_and_transposed_operands_route_and_keep_the_bits(cuda,
+                                                                  mode):
+    """A two-dim batch of row-major operands takes the TMA tile (4-d tensor
+    maps), a stride-0 token broadcast and a transposed view read as it is
+    the strided tile; each entry bitwise the same product alone, and the
+    view bitwise its row-major copy."""
+    a = _randn(cuda, 2, 3, 40, 64, seed=184)
+    b = _randn(cuda, 2, 3, 64, 48, seed=185)
+    out, route = _routed(mp_matmul.mp_fused_matmul, a, b, mode)
+    assert route == mp_matmul.TMA
+    for i in range(2):
+        for j in range(3):
+            assert _bitwise(out[i, j], mp_matmul.mp_fused_matmul(
+                a[i, j].contiguous(), b[i, j].contiguous(), mode))
+    tok = _randn(cuda, 40, 64, seed=186).expand(5, 40, 64)
+    w = _randn(cuda, 5, 64, 48, seed=187)
+    out, route = _routed(mp_matmul.mp_fused_matmul, tok, w, mode)
+    assert route == mp_matmul.STRIDED
+    assert _bitwise(out[2], mp_matmul.mp_fused_matmul(
+        tok[2].contiguous(), w[2].contiguous(), mode))
+    lib, stream = build.load("mp_matmul"), \
+        torch.cuda.current_stream().cuda_stream
+    g, wt = _randn(cuda, 130, 300, seed=188), _randn(cuda, 200, 300, seed=189)
+    view = mp_matmul.launch_fused_matmul(lib, stream, g, wt.t(),
+                                         resolve(mode))
+    assert _bitwise(view, mp_matmul.mp_fused_matmul(g, wt.t().contiguous(),
+                                                    mode))
+
+
+@pytest.mark.parametrize("M", [8, 70])
+def test_minus_zero_and_subnormal_products_on_the_hopper_tiles(cuda, M):
+    """compare_kernels.py's two edge cases on this tree: a row whose
+    products are all -0.0, and the subnormal products of
+    test_subnormal_products_are_kept, through the Hopper tiles and the
+    strided tile of csrc/mp_matmul.cu (the mma.sync chains) on the same
+    operands: bitwise."""
+    lib, stream = build.load("mp_matmul"), \
+        torch.cuda.current_stream().cuda_stream
+    neg = _randn(cuda, 70, 256, seed=190)
+    neg[3] = -0.0
+    pos = _randn(cuda, 256, 64, seed=191).abs() + 0.1
+    sub = _randn(cuda, 70, 16, seed=192)
+    sub[0] = 3.39e38 * torch.sign(sub[0])
+    sub[1, 3] = float("inf")
+    sub_b = _randn(cuda, 16, 8, seed=193)
+    sub_b[:, 4] = 1e-40
+    for a, b, mode in ((neg, pos, "M8"), (sub, sub_b, "M16"),
+                       (sub, sub_b, "M23")):
+        out = mp_matmul.mp_fused_matmul(a[:M], b, mode)
+        big = mp_matmul.launch_fused_matmul(lib, stream, a, b, resolve(mode))
+        assert _bitwise(out, big[:M])
+    out = mp_matmul.mp_fused_matmul(neg[:M], pos, "M8")
+    torch.cuda.synchronize()
+    assert (out[3] == 0).all() and not torch.signbit(out[3]).any()

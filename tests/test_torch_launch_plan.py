@@ -1,0 +1,340 @@
+"""The launch side of the fused matmul's Hopper tiles and the autotuner,
+without a card: the sweep keeps the fastest of all configurations, the
+default launch among them (``repro.kernels.autotune.autotune`` keeps the
+fastest of its candidates, its default blocks among them); a default table
+entry reaches the launch entry as zeros with no other call into the
+library, a tuned one as the entry's arguments; the route each operand
+layout takes; and the Python mirrors of the decode plan and the TMA tile
+pinned at the serving shapes (``tests/test_torch_gpu.py`` holds them equal
+to the numbers the library exports, on the card)."""
+import pytest
+import torch
+
+from repro.kernels import autotune as jat
+from repro_torch import kernels
+from repro_torch.core.formats import resolve
+from repro_torch.kernels import autotune as at
+from repro_torch.kernels import build, mp_matmul as mm, timing
+
+
+# ---------------------------------------------------------------------------
+# the sweep's choice
+# ---------------------------------------------------------------------------
+def _timed(monkeypatch, ms_by_config):
+    """A device timer that reads each configuration's time from the name
+    the run returns (the run's output is its configuration's tag)."""
+    current = {}
+
+    def fake_device_ms(fn, min_ms=30.0):
+        fn()
+        return ms_by_config[current["cfg"]], True
+    monkeypatch.setattr(timing, "device_ms", fake_device_ms)
+    return current
+
+
+def _run(current):
+    def run(cfg):
+        current["cfg"] = None if cfg is None else tuple(cfg)
+        return torch.zeros(4)           # every launch gives the same bits
+    return run
+
+
+@pytest.mark.parametrize("times,want", [
+    ({None: 1.0, (64, 2): 1.5, (128, 6): 1.2}, (0, 0)),
+    ({None: 1.0, (64, 2): 0.7, (128, 6): 0.9}, (64, 2)),
+    ({None: 1.0, (64, 2): 1.0, (128, 6): 1.0}, (0, 0)),   # a tie: default
+])
+def test_sweep_keeps_the_fastest_default_included(monkeypatch, times, want):
+    current = _timed(monkeypatch, times)
+    rec = {}
+    got = at._sweep("k", [(64, 2), (128, 6)], _run(current), 3, rec, (0, 0))
+    assert got == want
+    assert rec["winner"] == list(want)
+    assert rec["default_won"] == (want == (0, 0))
+    assert rec["winner_ms"] <= rec["default_ms"]
+
+
+@pytest.mark.parametrize("times", [
+    (0.9, 1.1, 0.95), (1.0, 0.8, 0.7), (1.0, 1.0, 1.0), (1.2, 0.9, 0.9)])
+def test_the_sweep_chooses_as_jax_does(monkeypatch, times):
+    """JAX's ``autotune`` times its candidates, its default blocks first
+    among them, and keeps the first of the least times; on the same times
+    the port's sweep keeps the same configuration."""
+    jcands = [(0, 0, 0), (64, 1, 0), (128, 2, 0)]
+    by = dict(zip(jcands, times))
+    monkeypatch.setattr(jat, "_time_blocks", lambda a, b, mode, cand, **k:
+                        by[tuple(cand)])
+    monkeypatch.setattr(jat, "load_table", lambda *a: {})
+    monkeypatch.setattr(jat, "save_table", lambda *a, **k: None)
+    want = jat.autotune(8, 16, 16, "M8", candidates=jcands)
+    current = _timed(monkeypatch, {None: times[0], (64, 1): times[1],
+                                   (128, 2): times[2]})
+    got = at._sweep("k", [(64, 1), (128, 2)], _run(current), 1, None, (0, 0))
+    assert got == tuple(want)[:2]
+
+
+def test_a_cell_without_candidates_keeps_the_default(monkeypatch):
+    """A prefill tile's key: no candidate, the default timed alone."""
+    current = _timed(monkeypatch, {None: 0.25})
+    rec = {}
+    assert at._sweep("k", [], _run(current), 3, rec, (0, 0)) == (0, 0)
+    assert rec["default_won"] and rec["candidates"] == {}
+    assert rec["winner_ms"] == rec["default_ms"] == 0.25
+
+
+def test_attention_sweep_stores_its_default_block(monkeypatch):
+    current = _timed(monkeypatch, {None: 0.5, (16,): 0.6, (32,): 0.8})
+    assert at._sweep("a", [(16,), (32,)], _run(current), 2, None,
+                     (64,)) == (64,)
+
+
+def test_sweep_raises_on_a_candidate_that_changes_bits(monkeypatch):
+    _timed(monkeypatch, {None: 1.0, (64, 1): 1.0})
+
+    def run(cfg):
+        return torch.ones(3) if cfg is None else torch.zeros(3)
+    with pytest.raises(RuntimeError, match="differs from the default"):
+        at._sweep("k", [(64, 1)], run, 1, None, (0, 0))
+
+
+# ---------------------------------------------------------------------------
+# launch parameters as launch arguments
+# ---------------------------------------------------------------------------
+class _Entry:
+    def __init__(self, lib, name):
+        self.lib, self.name = lib, name
+        self.argtypes = self.restype = None
+
+    def __call__(self, *args):
+        self.lib.calls.append((self.name, args))
+        return 0
+
+
+class _FakeLib:
+    """Records every call into a C entry (setting argtypes is no call)."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        if not name.startswith("mp_"):
+            raise AttributeError(name)
+        entry = _Entry(self, name)
+        setattr(self, name, entry)
+        return entry
+
+
+@pytest.fixture
+def fake_libs(monkeypatch):
+    libs = {"mp_matmul": _FakeLib(), "mp_matmul_hopper": _FakeLib()}
+    monkeypatch.setattr(build, "load", lambda name: libs[name])
+    return libs
+
+
+@pytest.mark.parametrize("M", [8, 64])
+@pytest.mark.parametrize("tune", [None, (0, 0)])
+def test_a_default_entry_makes_no_parameter_call(fake_libs, M, tune):
+    """A ``[0, 0]`` table entry (or none) reaches the launch as zeros: one
+    call into the library, the launch itself."""
+    a, b = torch.ones((M, 64)), torch.ones((64, 32))
+    _, route = mm.launch_routed(0, a, b, resolve("M16"), tune)
+    assert route == (mm.SPLIT if M <= 16 else mm.TMA)
+    calls = fake_libs["mp_matmul_hopper"].calls
+    assert [name for name, _ in calls] == ["mp_hopper_matmul_launch"]
+    assert calls[0][1][-3:-1] == (0, 0)
+    assert fake_libs["mp_matmul"].calls == []
+
+
+def test_tuned_parameters_travel_in_the_launch_arguments(fake_libs):
+    a, b = torch.ones((8, 3072)), torch.ones((3072, 768))
+    mm.launch_routed(0, a, b, resolve("M8"), (128, 6))
+    ((name, args),) = fake_libs["mp_matmul_hopper"].calls
+    assert name == "mp_hopper_matmul_launch" and args[-3:-1] == (128, 6)
+    ws = [torch.ones((64, 32)) for _ in range(2)]
+    mm.launch_fused_proj(fake_libs["mp_matmul"], 0, torch.ones((8, 64)), ws,
+                         resolve("M8"), gate="swiglu", tune=(64, 0))
+    ((name, args),) = fake_libs["mp_matmul"].calls
+    assert name == "mp_fused_proj_launch" and args[-3:-1] == (64, 0)
+
+
+@pytest.mark.parametrize("transposed", [False, True])
+def test_the_strided_tile_takes_no_parameter(fake_libs, transposed):
+    """Neither prefill tile (the TMA tile, or the strided tile a transposed
+    view runs) has a free parameter: a tuned entry raises before any call
+    into a library, the default launches."""
+    a = torch.ones((64, 96))
+    b = torch.ones((32, 96)).t() if transposed else torch.ones((96, 32))
+    with pytest.raises(ValueError, match="takes no launch parameters"):
+        mm.launch_routed(0, a, b, resolve("M8"), (0, 3))
+    assert fake_libs["mp_matmul"].calls == []
+    assert fake_libs["mp_matmul_hopper"].calls == []
+    _, route = mm.launch_routed(0, a, b, resolve("M8"), (0, 0))
+    assert route == (mm.STRIDED if transposed else mm.TMA)
+    lib = "mp_matmul" if transposed else "mp_matmul_hopper"
+    assert len(fake_libs[lib].calls) == 1
+
+
+@pytest.mark.parametrize("mode", ["M8", "M23"])
+def test_partials_take_the_same_routes(fake_libs, mode):
+    """The partials epilogue takes the fused matmul's routes, but at more
+    than one limb its prefill keeps the strided tile (faster there)."""
+    fmt = resolve(mode)
+    for M, route in ((8, mm.SPLIT),
+                     (64, mm.TMA if fmt.n_limbs == 1 else mm.STRIDED)):
+        out, got = mm.launch_routed(0, torch.ones((M, 64)),
+                                    torch.ones((64, 32)), fmt, parts=True)
+        assert got == route and out.shape == (fmt.n_orders, M, 32)
+    calls = fake_libs["mp_matmul_hopper"].calls
+    assert len(calls) == (2 if fmt.n_limbs == 1 else 1)
+    ((name, args),) = calls[-1:]
+    assert args[16] == 1    # parts
+    if fmt.n_limbs == 1:
+        assert args[15] == out.stride(0)    # c_so
+    else:
+        assert [n for n, _ in fake_libs["mp_matmul"].calls] == \
+            ["mp_fused_matmul_partials_launch"]
+
+
+def test_launch_params_and_the_thread_locals_are_gone():
+    assert not hasattr(mm, "launch_params")
+    src = (build.CSRC / "mp_matmul.cu").read_text() + \
+        (build.CSRC / "mp_matmul_common.cuh").read_text()
+    assert "mp_set_launch_params" not in src and "thread_local" not in src
+
+
+def test_reset_zeroes_the_route_counters():
+    mm.mp_fused_matmul.routes[mm.TMA] += 3
+    mm.mp_fused_matmul_partials.routes[mm.SPLIT] += 1
+    kernels.reset_launch_counts()
+    assert kernels.route_counts() == {
+        "mp_fused_matmul": dict.fromkeys(mm.ROUTES, 0),
+        "mp_fused_matmul_partials": dict.fromkeys(mm.ROUTES, 0)}
+
+
+# ---------------------------------------------------------------------------
+# routes by layout
+# ---------------------------------------------------------------------------
+def _route(a, b):
+    a, b, _, sizes, strides = mm._marshal(a, b)
+    return mm.fused_route(a, b, sizes, strides)
+
+
+@pytest.mark.parametrize("case,want", [
+    ("decode", mm.SPLIT),
+    ("contiguous", mm.TMA),
+    ("ragged, rows of 16 bytes", mm.TMA),
+    ("batched, two dims", mm.TMA),
+    ("batched, token broadcast (stride 0)", mm.STRIDED),
+    ("transposed B (dgrad's W^T view)", mm.STRIDED),
+    ("row stride off 16 bytes", mm.STRIDED),
+    ("base off 16 bytes", mm.STRIDED),
+    ("decode, transposed", mm.SPLIT),
+])
+def test_routes_by_layout(case, want):
+    r = torch.ones
+    a, b = {
+        "decode": (r(8, 64), r(64, 32)),
+        "contiguous": (r(2048, 768), r(768, 768)),
+        "ragged, rows of 16 bytes": (r(130, 200), r(200, 72)),
+        "batched, two dims": (r(2, 3, 40, 64), r(2, 3, 64, 48)),
+        "batched, token broadcast (stride 0)": (r(40, 64).expand(5, 40, 64),
+                                                r(5, 64, 48)),
+        "transposed B (dgrad's W^T view)": (r(70, 96), r(32, 96).t()),
+        "row stride off 16 bytes": (r(130, 200), r(200, 70)),
+        "base off 16 bytes": (r(64, 97)[:, 1:], r(96, 32)),
+        "decode, transposed": (r(64, 8).t(), r(64, 32)),
+    }[case]
+    assert _route(a, b) == want
+
+
+# ---------------------------------------------------------------------------
+# the plan and the tile, pinned
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("slabs,K,mode,want", [
+    (48, 3072, "M8", (8, 128)),    # w_down 8x3072x768: 384 blocks, 6 chunks
+    (48, 768, "M8", (6, 128)),     # wo: 288 blocks of 2 chunks
+    (48, 768, "M16", (6, 128)),
+    (48, 3072, "M52", (1, 0)),     # seven orders' sums do not fit 8 ranks
+    (192, 768, "M8", (3, 128)),    # w_gate 8x768x3072
+    (2000, 768, "M16", (1, 0)),    # lm_head: the slabs fill the card
+    (96 * 32, 64, "M16", (1, 0)),  # decode QK, 96 batch entries
+    (4, 64, "M8", (1, 0)),         # one chunk
+    (10, 320, "M8", (5, 64)),      # 5 chunks: one each
+    (20, 448, "M8", (7, 64)),      # 7 chunks, 8 asked: one each
+])
+def test_split_plan(slabs, K, mode, want):
+    assert at.split_plan(slabs, K, mode) == want
+    S, dk = want
+    if S > 1:   # every block fits on the card at once
+        cpr = -(-(-(-K // at.KC)) // S)
+        smem = at.split_smem(mode, 8, cpr * at.KC, dk, cpr)
+        per_sm = min(at.H100_SM_SMEM // (smem + 1024), at.SPLIT_PER_SM)
+        assert S * slabs <= per_sm * at.H100_SMS
+
+
+@pytest.mark.parametrize("K,s,want", [(3072, 8, 8), (768, 8, 6), (768, 5, 4),
+                                      (100, 8, 2), (64, 4, 1), (640, 3, 3)])
+def test_split_norm_gives_every_rank_a_chunk(K, s, want):
+    got = at.split_norm(K, s)
+    assert got == want
+    nch = -(-K // at.KC)
+    cpr = -(-nch // got)
+    assert (got - 1) * cpr < nch <= got * cpr
+
+
+def test_split_shared_memory_pins():
+    # w_down at S = 6: a rank's 512 k at 256 a stage, two slots, 8 chunk
+    # sums of 16 x 16 f32 at one order
+    base = at.dec_smem_bytes(False, 1, 8, 256, 2, 1)
+    assert at.split_smem("M8", 8, 512, 256, 8) == \
+        -(-base // 16) * 16 + 8 * 1 * 256 * 4
+    # M52's seven orders at 6 chunks
+    assert at.split_smem("M52", 8, 384, 128, 6) - at.split_smem(
+        "M52", 8, 384, 128, 0) == 6 * 7 * 1024
+
+
+@pytest.mark.parametrize("mode,bn,stages,smem", [
+    ("M8", 96, 2, 1024 + 2 * (16384 + 16384) + 2 * 57344 + 32),
+    ("M16", 64, 2, 1024 + 2 * 49152 + 2 * 49152 + 32),
+    ("M23", 48, 2, 1024 + 2 * 67584 + 2 * 45056 + 32),
+    ("M36", 32, 3, 1024 + 1 * 102400 + 3 * 40960 + 32),
+    ("M52", 24, 2, 1024 + 1 * 136192 + 2 * 38912 + 32),
+])
+def test_tma_tile_pins(mode, bn, stages, smem):
+    """Columns and shared memory at the tile's f32 stages: three where
+    they fit, else two."""
+    assert at.tma_tile_n(mode) == bn
+    assert at.tma_smem(mode) == smem <= at.SMEM_MAX
+    assert stages == 3 or smem + at._tma_stage(bn) > at.SMEM_MAX
+
+
+def test_tma_tiles_fill_the_card_at_the_serving_prefill():
+    """2048 x 768 outputs at M8 make 128 tiles of 128 x 96 for 132 SMs."""
+    bn = at.tma_tile_n("M8")
+    assert (2048 // at.HM) * (768 // bn) == 128
+    assert at.tma_tile_n("M16") == 64
+
+
+def test_generic_format_takes_the_narrowest_tile():
+    from repro_torch.core.formats import register_format, unregister_format
+
+    register_format("X16PL", mantissa_bits=16, n_limbs=2, max_order=2)
+    try:
+        assert at.tma_tile_n("X16PL") == 8
+        # one plane buffer of 8 limbs, two f32 stages (a third does not fit)
+        assert at.tma_smem("X16PL") == 1024 + 8 * (16384 + 1024) + \
+            2 * 136 * 64 * 4 + 32
+    finally:
+        unregister_format("X16PL")
+
+
+def test_candidates_cover_the_plan_and_every_cluster_size():
+    cands = at.candidate_blocks(8, 3072, 768, "M8", smem=at.SMEM_MAX)
+    assert {s for _, s in cands} == {1, 2, 4, 8}
+    assert {dk for dk, _ in cands} == {64, 128, 192, 256}
+    for dk, s in cands:
+        assert s == at.split_norm(3072, s) and dk % at.KC == 0
+    # the prefill tiles have no free parameter
+    assert at.candidate_blocks(2048, 3072, 768, "M8", smem=at.SMEM_MAX) == []
+    assert at.candidate_blocks(2048, 768, 32000, "M16",
+                               smem=at.SMEM_MAX) == []
