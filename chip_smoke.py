@@ -233,7 +233,9 @@ SOURCES = {
 # names those of the routes its path launched
 ROUTE_SOURCES = {"cluster": "src/repro_torch/kernels/csrc/mp_matmul_hopper.cu",
                  "tma": "src/repro_torch/kernels/csrc/mp_matmul_hopper.cu",
-                 "strided": "src/repro_torch/kernels/csrc/mp_matmul.cu"}
+                 "strided": "src/repro_torch/kernels/csrc/mp_matmul.cu",
+                 "decode": "src/repro_torch/kernels/csrc/mp_matmul.cu",
+                 "mma": "src/repro_torch/kernels/csrc/mp_matmul.cu"}
 # the path whose run gives each kernel's ``launches``: the three kernels of
 # slice 1 report the static ``generate`` path, the three of the scheduler
 # slice the scheduler path, the two mixed-lane kernels the mixed-traffic path,
@@ -256,6 +258,9 @@ EXPECTED = {"mp_fused_proj": 24 + 32 * 24, "mp_flash_attention": 12,
 # and lm_head on the TMA tile, every decode matmul (wo, w_down, QK, PV,
 # lm_head at 8 rows, or 1 row per batch entry) on the split decode tile
 EXPECTED_ROUTES = {"cluster": 32 * 49, "tma": 25, "strided": 0}
+# the projection's: the 24 prefill QKV and SwiGLU launches on the TMA tile,
+# the 768 decode ones on its decode tile
+EXPECTED_PROJ_ROUTES = {"decode": 32 * 24, "tma": 24, "strided": 0}
 # the mixed-traffic modes, request i at MODES[i % 4]: the serving builtins
 # and a custom format that keeps all four 2-limb products (M16 keeps three)
 CUSTOM = dict(name="M16FULL", mantissa_bits=16, n_limbs=2, max_order=2)
@@ -1044,11 +1049,11 @@ FLASH_TOL = 2e-5   # abs and rel: the same blocking on both sides, only the
                    # f32 summation order differs (tests/test_mp_attention.py)
 
 
-def routed_call(fn, *args):
-    """``fn(*args)`` for a wrapper that counts its launches per route, and
-    the route that ran."""
+def routed_call(fn, *args, **kw):
+    """``fn(*args, **kw)`` for a wrapper that counts its launches per
+    route, and the route that ran."""
     before = dict(fn.routes)
-    out = fn(*args)
+    out = fn(*args, **kw)
     return out, next(k for k, v in fn.routes.items() if v != before[k])
 
 
@@ -3858,15 +3863,16 @@ def main() -> int:
             vs=lambda: mp_matmul.mp_fused_matmul(a, b, fmt)))
 
     def proj_case(label, a, ws, fmt, gate="none", biases=None,
-                  residual=None, main=False, library=False, per=None):
+                  residual=None, main=False, library=False, per=None,
+                  bf16=False):
         fmt = resolve(fmt)
         kw = dict(gate=gate, biases=biases, residual=residual)
-        out = mp_matmul.mp_fused_proj(a, ws, fmt, **kw)
+        out, route = routed_call(mp_matmul.mp_fused_proj, a, ws, fmt, **kw)
         ref = mp_matmul.fused_proj_plain(a, ws, fmt, **kw)
         torch.cuda.synchronize()
         K = a.shape[-1]
         hold("mp_fused_proj", label, out, ref, proj_tol(a, ws, fmt, ref, **kw),
-             {"fmt": fmt.name})
+             {"fmt": fmt.name, "route": route})
         gold = {}
         if golden_case(label):
             raw = []
@@ -3914,11 +3920,18 @@ def main() -> int:
         stack = torch.stack([w.bfloat16().float() for w in ws])
         cases["mp_fused_proj"].append(dict(
             case=label, fmt=fmt.name, a=list(a.shape), n_out=len(ws),
-            N=N, gate=gate, ops=ops, bytes=nbytes, main=main, per=per, **gold,
+            N=N, gate=gate, ops=ops, bytes=nbytes, main=main, per=per,
+            route=route, **gold,
             fn=lambda: mp_matmul.mp_fused_proj(a, ws, fmt, **kw),
             plain=lambda: mp_matmul.fused_proj_plain(a, ws, fmt, **kw),
             library=(lambda ar=a.bfloat16().float(): torch.matmul(ar, stack))
-            if library else None))
+            if library else None,
+            # M8's function (without the epilogue; SwiGLU's product only)
+            # on the weights concatenated along N, on the bf16 fast path
+            library_bf16=(lambda ab=a.bfloat16(),
+                          bb=torch.cat(ws, dim=1).bfloat16():
+                          torch.mm(ab, bb, out_dtype=torch.float32))
+            if (library or bf16) and fmt.name == "M8" else None))
 
     def flash_case(label, B, S, T, H, Dh, qk, pv, causal, q_offset=0,
                    plant=(), main=False, per=None, data=None):
@@ -4002,12 +4015,12 @@ def main() -> int:
                        library=False, per=None):
         fmt = resolve(fmt)
         limbs = mp_matmul.mp_decompose(w, n_stored)
-        out = mp_matmul.mp_prelimbed_matmul(a, limbs, fmt)
+        out, route = routed_call(mp_matmul.mp_prelimbed_matmul, a, limbs, fmt)
         ref = mp_matmul.prelimbed_matmul_plain(a, limbs, fmt)
         torch.cuda.synchronize()
         K = a.shape[-1]
         hold("mp_prelimbed_matmul", label, out, ref, mm_tol(ref, K),
-             {"fmt": fmt.name, "n_stored": n_stored})
+             {"fmt": fmt.name, "n_stored": n_stored, "route": route})
         if n_stored >= fmt.n_limbs:
             # every limb the format needs is stored: the fused kernel's
             # products in the fused kernel's order, so its bits
@@ -4028,6 +4041,7 @@ def main() -> int:
         cases["mp_prelimbed_matmul"].append(dict(
             case=label, fmt=fmt.name, n_stored=n_stored, a=list(a.shape),
             b=list(w.shape), ops=ops, bytes=nbytes, main=main, per=per,
+            route=route,
             fn=lambda: mp_matmul.mp_prelimbed_matmul(a, limbs, fmt),
             plain=lambda: mp_matmul.prelimbed_matmul_plain(a, limbs, fmt),
             library=(lambda ar=a.bfloat16().float(), br=w.bfloat16().float():
@@ -4261,7 +4275,7 @@ def main() -> int:
               library=True, per=("prefill", L))
     wg = [randn(d, ff) * 0.03 for _ in range(2)]
     proj_case("prefill SwiGLU 2048x768 vs 2x768x3072", x, wg, "M8",
-              gate="swiglu", per=("prefill", L))
+              gate="swiglu", per=("prefill", L), bf16=True)
     proj_case("decode SwiGLU 8x768 vs 2x768x3072", randn(8, d), wg, "M8",
               gate="swiglu", library=True, per=("decode", L))
     proj_case("decode QKV 8x768 vs 3x768x768", randn(8, d), wq, "M8",
@@ -4273,6 +4287,15 @@ def main() -> int:
               residual=randn(300, ff))
     proj_case("1 out+bias+res 300x768 M23", x[:300], wq[:1], "M23",
               biases=[randn(d)], residual=randn(300, d))
+    # rows of 280 bytes: the strided prefill tile (its own generator, so
+    # the cases after it keep their data)
+    genr = torch.Generator(device=dev).manual_seed(27)
+
+    def randr(*shape):
+        return torch.randn(*shape, generator=genr, device=dev)
+
+    proj_case("ragged QKV 130x200 vs 3x200x70 M16", randr(130, 200),
+              [randr(200, 70) * 0.05 for _ in range(3)], "M16")
 
     # the cases after the first four draw from their own generator: every
     # other case keeps its data
@@ -4324,6 +4347,10 @@ def main() -> int:
     prelimbed_case("wo 256x768x768 M36", x[:256], randn(d, d), "M36", 5)
     prelimbed_case("ragged 37x300x77 M16", randn(37, 300), randn(300, 77),
                    "M16", 3)
+    # planes of 154-byte rows, which no tensor map reads: the split route's
+    # single-block tile
+    prelimbed_case("decode ragged 8x300x77 M16", randr(8, 300),
+                   randr(300, 77), "M16", 2)
     decode_lengths = [int(n) for n in np.linspace(64, 288, 8)]
     paged_case(f"decode 8 slots H12 lengths {decode_lengths[0]}.."
                f"{decode_lengths[-1]}", decode_lengths, 12, 12, "M16", "M8",
@@ -4625,12 +4652,17 @@ def main() -> int:
     log(f"[main] generate 8 prompts {lengths} x 32 new: {gen_s:.3f} s, "
         f"{8 * 32 / gen_s:.1f} tokens/s, peak {peak / 2**30:.2f} GiB, "
         f"launches {launches}; the fused matmul's routes "
-        f"{main_routes['mp_fused_matmul']}")
+        f"{main_routes['mp_fused_matmul']}, the projection's "
+        f"{main_routes['mp_fused_proj']}")
     if launches != EXPECTED:
         raise AssertionError(f"launches {launches} != expected {EXPECTED}")
     if main_routes["mp_fused_matmul"] != EXPECTED_ROUTES:
         raise AssertionError(f"routes {main_routes['mp_fused_matmul']} != "
                              f"expected {EXPECTED_ROUTES}")
+    if main_routes["mp_fused_proj"] != EXPECTED_PROJ_ROUTES:
+        raise AssertionError(f"projection routes "
+                             f"{main_routes['mp_fused_proj']} != expected "
+                             f"{EXPECTED_PROJ_ROUTES}")
     if len(outs) != 8 or any(len(o) != 32 for o in outs) or any(
             not 0 <= t < cfg.vocab for o in outs for t in o):
         raise AssertionError("generate returned malformed token streams")
@@ -4699,11 +4731,14 @@ def main() -> int:
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t1
     s_launches = kernels.launch_counts()
+    s_routes = kernels.route_counts()
     s_plain = kernels.plain_call_counts()
     s_peak = torch.cuda.max_memory_allocated()
     stats = sched.stats()
     n_dec = stats["decode_launches"]
     want = serve_launches(L, stats["prefills"], n_dec, 0, 1)
+    # every pre-limbed launch is a decode one (M <= 16): the split tile
+    want_pl = {"cluster": want["mp_prelimbed_matmul"], "mma": 0}
     log(f"[sched] {n_req} requests, prompts {sched_lengths[0]}.."
         f"{sched_lengths[-1]} x {sched_new} new, arrivals 2 ticks apart: "
         f"prelimb {prelimb_s * 1e3:.1f} ms, run {run_s:.3f} s, "
@@ -4711,10 +4746,15 @@ def main() -> int:
         f"ticks, {stats['prefills']} prefills, {n_dec} decode launches, "
         f"peak {s_peak / 2**30:.2f} GiB ({(s_peak - s_base) / 2**30:.2f} "
         f"GiB above the {s_base / 2**30:.2f} GiB resident before the path), "
-        f"launches {s_launches}")
+        f"launches {s_launches}; the pre-limbed matmul's routes "
+        f"{s_routes['mp_prelimbed_matmul']}")
     if s_launches != want or any(s_plain.values()):
         raise AssertionError(f"scheduler launches {s_launches} != expected "
                              f"{want} (plain calls {s_plain})")
+    if s_routes["mp_prelimbed_matmul"] != want_pl:
+        raise AssertionError(f"scheduler pre-limbed routes "
+                             f"{s_routes['mp_prelimbed_matmul']} != "
+                             f"expected {want_pl}")
     out = {r.rid: r.out for r in done}
     if (len(out) != n_req or stats["completed"] != n_req
             or any(len(o) != sched_new for o in out.values())
@@ -4788,8 +4828,8 @@ def main() -> int:
     report["sched"] = dict(
         lengths=sched_lengths, max_new=sched_new, prelimb_ms=prelimb_s * 1e3,
         run_s=run_s, tokens_per_s=stats["useful_tokens"] / run_s,
-        stats=stats, launches=s_launches, peak_bytes=s_peak,
-        resident_before_bytes=s_base,
+        stats=stats, launches=s_launches, routes=s_routes,
+        peak_bytes=s_peak, resident_before_bytes=s_base,
         solo_bitwise=list(solo_ids), logits_rel_vs_ref=s_rel,
         decode_tick_ms=tick_ms)
     del s_eng, sched, probe
@@ -5220,18 +5260,25 @@ def main() -> int:
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
     t_launches = kernels.launch_counts()
+    t_routes = kernels.route_counts()
     t_peak = torch.cuda.max_memory_allocated()
     t_want = {k: TRAIN_STEPS * v for k, v in per_step.items()}
+    # every projection of a step (1024 rows, contiguous) on the TMA tile
+    t_want_proj = {"decode": 0, "tma": t_want["mp_fused_proj"], "strided": 0}
     run_ms = [t * 1e3 for t in trainer._step_times]
     log(f"[train] Trainer.run {TRAIN_STEPS} steps of batch {TRAIN_BATCH} x "
         f"{TRAIN_SEQ} under train_default: {train_s:.3f} s, losses "
         f"{[round(x, 5) for x in hist]}, step ms {[round(x, 2) for x in run_ms]}"
         f", peak {t_peak / 2**30:.2f} GiB ({(t_peak - t_base) / 2**30:.2f} "
         f"GiB above the {t_base / 2**30:.2f} GiB resident before the path), "
-        f"launches {t_launches}")
+        f"launches {t_launches}; the projection's routes "
+        f"{t_routes['mp_fused_proj']}")
     if t_launches != t_want or any(kernels.plain_call_counts().values()):
         raise AssertionError(f"[train] launches {t_launches} != {t_want} "
                              f"(plain {kernels.plain_call_counts()})")
+    if t_routes["mp_fused_proj"] != t_want_proj:
+        raise AssertionError(f"[train] projection routes "
+                             f"{t_routes['mp_fused_proj']} != {t_want_proj}")
     if (len(hist) != TRAIN_STEPS or not all(math.isfinite(x) for x in hist)
             or not bool(all_finite(state.params))):
         raise AssertionError("[train] losses or parameters not finite")
@@ -5318,7 +5365,7 @@ def main() -> int:
         tokens_per_s=tok / med * 1e3, busy_ms=t_busy,
         idle_share=max(0.0, 1 - t_busy / med),
         busy_by_name=t_by_name, peak_bytes=t_peak,
-        resident_before_bytes=t_base, launches=t_launches,
+        resident_before_bytes=t_base, launches=t_launches, routes=t_routes,
         launches_per_step=per_step, loss_rel_vs_ref=loss_rel,
         grad_err_vs_ref=leaf_err, wgrad=wgrads)
 
@@ -5423,7 +5470,9 @@ def main() -> int:
                 f"{plain_ms:.4f} ms, library "
                 f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound "
                 f"{b_ms:.4f} ms ({b_by})"
-                + (f"; torch.mm bf16 (f32 out) {row['library_bf16_ms']:.4f} ms"
+                + (f"; torch.mm bf16 (f32 out)"
+                   + (" (product only)" if c.get("gate", "none") != "none"
+                      else "") + f" {row['library_bf16_ms']:.4f} ms"
                    if "library_bf16_ms" in row else "")
                 + (f"; the fused matmul on the same operands "
                    f"{row['fused_ms']:.4f} ms" if "fused_ms" in row else "")
@@ -5440,6 +5489,7 @@ def main() -> int:
                    **{k: v[kname] for k, v in new_launches.items()}}
         path = LAUNCH_PATH.get(kname, "generate")
         routes = {"generate": report["main"]["routes"],
+                  "scheduler": report["sched"]["routes"],
                   "dist": report["dist"]["generate"]["routes"]}.get(
                       path, {}).get(kname)
         if routes:     # the files of the routes that ran

@@ -2,23 +2,26 @@
 """Time this tree's kernels against other versions of one of their CUDA
 sources on one card, and check that they give the same bits.
 
-    python3 compare_kernels.py OTHER.cu [OTHER.cu ...]
+    python3 compare_kernels.py [OTHER.cu ...]
     python3 compare_kernels.py --source mp_attention OTHER.cu [...]
 
 ``--source`` names the source (``mp_matmul``, the default: the limb
 matmuls; ``mp_attention``: paged and mixed paged decode attention and flash
 attention).  Each other version is compiled with the tree's flags into
 ``build/compare_kernels/``, all at once, beside this tree's libraries (for
-``mp_matmul``: ``mp_matmul.cu`` and ``mp_matmul_hopper.cu``, whose fused
-matmul runs each case by the route the port's wrapper takes; another
-version's ``mp_matmul.cu`` runs every case itself).  Every case runs on
-each version through the port's launch marshalling, timed on the port's
-device timer (``repro_torch/kernels/timing.py``: calls queued behind a
-sleep kernel), and each other version's output is compared with this
-tree's bit for bit; the SM clock and power draw are sampled while each
-case of this tree runs back to back, and this tree's matmul lines carry
-the case's route, its bound, its plain version's time and, at M8, the
-time of ``torch.mm`` on bf16 operands with f32 out (M8's function).
+``mp_matmul``: another version's ``mp_matmul.cu`` with the
+``mp_matmul_hopper.cu`` beside it, where it has one; each version runs
+each case by the routes the port's wrappers take, through the entries it
+has).  Every case runs on each version through the port's launch
+marshalling, timed on the port's device timer
+(``repro_torch/kernels/timing.py``: calls queued behind a sleep kernel),
+and each other version's output is compared with this tree's bit for bit;
+the SM clock and power draw are sampled while each case of this tree runs
+back to back, and this tree's matmul lines carry the case's route, its
+bound, its plain version's time and, at M8, the time of ``torch.mm`` on
+bf16 operands with f32 out (M8's function; the projection's on its
+weights concatenated along N, SwiGLU's the product only).  With no other
+version, this tree's cases alone.
 
     python3 compare_kernels.py PARENT/src/repro_torch/kernels/csrc/mp_matmul.cu
 
@@ -41,39 +44,75 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 
 
+class Version:
+    """One version of the limb matmul sources: its ``mp_matmul`` library
+    and, where the version has one, its ``mp_matmul_hopper`` library (the
+    Hopper tiles).  Each case runs on it by the routes the port's wrappers
+    take, through the entries the version has: an older version's
+    ``mp_matmul.cu`` runs the projection and the pre-limbed matmul at every
+    shape itself."""
+
+    def __init__(self, matmul, hopper=None):
+        self.libs = {"mp_matmul": matmul, "mp_matmul_hopper": hopper}
+
+    def has(self, entry: str) -> bool:
+        hopper = self.libs["mp_matmul_hopper"]
+        return hopper is not None and hasattr(hopper, entry)
+
+
 def matmul_cases(torch, randn):
     """The model's prefill and decode shapes (paper-mpfp-100m), as in
-    chip_smoke.py's [time] lines, the partials epilogue at the K-sharded
-    prefill's shapes (two ranks: half of K), and two cases of the order's
-    edges: a row whose products are all -0.0, and the subnormal products
-    of tests/test_torch_gpu.py::test_subnormal_products_are_kept (an f32
-    and bf16 subnormal column, rows of +-3.39e38 and an inf), each at a
-    prefill and a decode row count.  Returns {label: (run, (a, b, fmt,
-    parts) or None)}; ``run(lib, stream)`` launches on another version's
-    library, or on this tree's by the wrapper's route when ``lib`` is
-    None."""
+    chip_smoke.py's [time] lines: the fused matmul, the partials epilogue
+    at the K-sharded prefill's shapes (two ranks: half of K), the fused
+    projection (QKV, SwiGLU, the training step's), the pre-limbed matmul
+    at the decode shapes on ``mp_decompose``d planes (two stored limbs, as
+    the serving path stores them), and the order's edges: a row whose
+    products are all -0.0, and the subnormal products of
+    tests/test_torch_gpu.py::test_subnormal_products_are_kept (an f32 and
+    bf16 subnormal column, rows of +-3.39e38 and an inf), each at a
+    prefill and a decode row count, through the fused matmul, the
+    projection (70 rows) and the pre-limbed matmul (8 and 4 rows).
+    Returns {label: (run, spec or None)}; ``run(version, stream)``
+    launches on a :class:`Version`; ``spec`` describes the case for
+    :func:`matmul_extras`."""
     from repro_torch.core.formats import resolve as f
     from repro_torch.kernels import mp_matmul as mm
 
     def fused(a, b, fmt):
-        def run(lib, st):
-            if lib is None:
-                return mm.launch_routed(st, a, b, f(fmt))[0]
-            return mm.launch_fused_matmul(lib, st, a, b, f(fmt))
-        return run, (a, b, f(fmt), False)
+        def run(v, st):
+            return mm.launch_routed(st, a, b, f(fmt), libs=v.libs)[0]
+        return run, dict(kind="fused", a=a, b=b, fmt=f(fmt))
 
     def partials(a, b, fmt):
-        def run(lib, st):
-            if lib is None:
-                return mm.launch_routed(st, a, b, f(fmt), parts=True)[0]
-            return mm.launch_fused_matmul_partials(lib, st, a, b, f(fmt))
-        return run, (a, b, f(fmt), True)
+        def run(v, st):
+            return mm.launch_routed(st, a, b, f(fmt), parts=True,
+                                    libs=v.libs)[0]
+        return run, dict(kind="parts", a=a, b=b, fmt=f(fmt))
 
-    def this_tree(lib):
-        return lib if lib is not None else _tree_lib()
+    def proj(a, ws, fmt, gate="none"):
+        def run(v, st):
+            if v.has("mp_hopper_proj_launch"):
+                return mm.launch_proj_routed(st, a, ws, f(fmt), gate=gate,
+                                             libs=v.libs)[0]
+            return mm.launch_fused_proj(v.libs["mp_matmul"], st, a, ws,
+                                        f(fmt), gate=gate)
+        return run, dict(kind="proj", a=a, ws=ws, fmt=f(fmt), gate=gate)
+
+    def prelimbed(a, w, fmt, n_stored=2):
+        limbs = mm.mp_decompose(w, n_stored)
+
+        def run(v, st):
+            if v.has("mp_hopper_prelimbed_launch"):
+                return mm.launch_prelimbed_routed(st, a, limbs, f(fmt),
+                                                  libs=v.libs)[0]
+            return mm.launch_prelimbed_matmul(v.libs["mp_matmul"], st, a,
+                                              limbs, f(fmt))
+        return run, dict(kind="prelimbed", a=a, limbs=limbs, w=w,
+                         fmt=f(fmt))
 
     x, a_ff = randn(2048, 768), randn(2048, 3072)
     w_o, w_down = randn(768, 768) * 0.03, randn(3072, 768) * 0.02
+    w_up = randn(768, 3072) * 0.03
     w_lm = randn(768, 32000) * 0.03
     wq = [randn(768, 768) * 0.03 for _ in range(3)]
     wg = [randn(768, 3072) * 0.03 for _ in range(2)]
@@ -83,21 +122,29 @@ def matmul_cases(torch, randn):
     neg = randn(70, 256)
     neg[3] = -0.0
     pos = randn(256, 64).abs() + 0.1
+    pos2 = randn(256, 64).abs() + 0.1
     sub = randn(70, 16)
     sub[0] = 3.39e38 * torch.sign(sub[0])
     sub[1, 3] = float("inf")
     sub_b = randn(16, 8)
     sub_b[:, 4] = 1e-40
+    sub_b2 = randn(16, 8)
+    sub_b2[:, 2] = 1e-40
     return {
         "prefill w_down 2048x3072x768 M8": fused(a_ff, w_down, "M8"),
         "prefill wo 2048x768x768 M8": fused(x, w_o, "M8"),
         "prefill lm_head 2048x768x32000 M16": fused(x, w_lm, "M16"),
         "prefill wo 2048x768x768 M23": fused(x, w_o, "M23"),
-        "prefill QKV 2048x768 vs 3x768x768 M8": (lambda lib, st: (
-            mm.launch_fused_proj(this_tree(lib), st, x, wq, f("M8"))), None),
-        "prefill SwiGLU 2048x768 vs 2x768x3072 M8": (lambda lib, st: (
-            mm.launch_fused_proj(this_tree(lib), st, x, wg, f("M8"),
-                                 gate="swiglu")), None),
+        "prefill QKV 2048x768 vs 3x768x768 M8": proj(x, wq, "M8"),
+        "prefill SwiGLU 2048x768 vs 2x768x3072 M8": proj(x, wg, "M8",
+                                                         "swiglu"),
+        "train QKV 1024x768 vs 3x768x768 M16": proj(x[:1024], wq, "M16"),
+        "train gate/up 1024x768 vs 2x768x3072 M16": proj(x[:1024], wg,
+                                                         "M16"),
+        "prefill QKV 2048x768 vs 3x768x768 M23": proj(x, wq, "M23"),
+        "decode QKV 8x768 vs 3x768x768 M8": proj(x[:8], wq, "M8"),
+        "decode SwiGLU 8x768 vs 2x768x3072 M8": proj(x[:8], wg, "M8",
+                                                     "swiglu"),
         "partials lm_head K/2 2048x384x32000 M16": partials(
             x[:, :384], w_lm[:384], "M16"),
         "partials w_down K/2 2048x1536x768 M8": partials(
@@ -108,48 +155,98 @@ def matmul_cases(torch, randn):
         "decode w_down 8x3072x768 M8": fused(a_ff[:8], w_down, "M8"),
         "decode wo 8x768x768 M8": fused(x[:8], w_o, "M8"),
         "decode QK 96 x 1x64x512 M16": fused(qh, kt, "M16"),
+        "pre-limbed decode w_down 8x3072x768 M8": prelimbed(a_ff[:8],
+                                                            w_down, "M8"),
+        "pre-limbed decode wo 8x768x768 M8": prelimbed(x[:8], w_o, "M8"),
+        "pre-limbed decode w_up 8x768x3072 M8": prelimbed(x[:8], w_up,
+                                                          "M8"),
+        "pre-limbed decode lm_head 8x768x32000 M16": prelimbed(x[:8], w_lm,
+                                                               "M16"),
+        "pre-limbed decode w_down 8x3072x768 M23": prelimbed(
+            a_ff[:8], w_down, "M23", 3),
         "row of -0.0 products 70x256x64 M8": fused(neg, pos, "M8"),
         "row of -0.0 products 8x256x64 M8": fused(neg[:8], pos, "M8"),
+        "row of -0.0 products, projection 70x256 vs 2x256x64 M8": proj(
+            neg, [pos, pos2], "M8"),
+        "row of -0.0 products, pre-limbed 8x256x64 M8": prelimbed(
+            neg[:8], pos, "M8", 1),
+        "row of -0.0 products, pre-limbed 4x256x64 M8": prelimbed(
+            neg[:4], pos, "M8", 1),
         "subnormal products 70x16x8 M16": fused(sub, sub_b, "M16"),
         "subnormal products 4x16x8 M16": fused(sub[:4], sub_b, "M16"),
-        "DD lm_head 2048x768x32000 M52": (lambda lib, st: (
-            mm.launch_both_prelimbed_matmul(this_tree(lib), st, xa7, wl7,
-                                            f("M52"))), None),
+        "subnormal products, projection 70x16 vs 2x16x8 M16": proj(
+            sub, [sub_b, sub_b2], "M16"),
+        "subnormal products, SwiGLU 70x16 vs 2x16x8 M16": proj(
+            sub, [sub_b, sub_b2], "M16", "swiglu"),
+        "subnormal products, pre-limbed 8x16x8 M16": prelimbed(
+            sub[:8], sub_b, "M16"),
+        "subnormal products, pre-limbed 4x16x8 M16": prelimbed(
+            sub[:4], sub_b, "M16"),
+        "DD lm_head 2048x768x32000 M52": (lambda v, st: (
+            mm.launch_both_prelimbed_matmul(v.libs["mp_matmul"], st, xa7,
+                                            wl7, f("M52"))), None),
     }
 
 
-def _tree_lib():
-    from repro_torch.kernels import build
-
-    return build.load("mp_matmul")
-
-
-def matmul_extras(torch, a, b, fmt, parts) -> str:
+def matmul_extras(torch, spec) -> str:
     """This tree's line's tail: the case's route, its bound, its plain
     version's time and, at M8 on 2-D operands (not the partials stack),
-    torch.mm on bf16 operands with f32 out (the function M8 computes)."""
+    torch.mm on bf16 operands with f32 out (the function M8 computes; for
+    the projection on its weights concatenated along N, and for SwiGLU the
+    product only, without the gate)."""
     from chip_smoke import bound
     from repro_torch.kernels import mp_matmul as mm
     from repro_torch.kernels.timing import device_ms
 
-    A, B, _, sizes, strides = mm._marshal(a, b)
-    route = mm.fused_route(A, B, sizes, strides,
-                           parts_limbs=fmt.n_limbs if parts else 0)
+    kind, fmt, a = spec["kind"], spec["fmt"], spec["a"]
     M, K = a.shape[-2:]
-    N = b.shape[-1]
-    nb = A.numel() // (M * K)
-    n_out = fmt.n_orders if parts else 1
-    b_ms, b_by = bound(2 * nb * M * K * N * fmt.n_products,
-                       4 * (a.numel() + b.numel() + n_out * nb * M * N))
-    plain = mm.fused_matmul_partials_plain if parts else mm.fused_matmul_plain
-    plain_ms = device_ms(lambda: plain(a, b, fmt))[0]
+    lib_b = None
+    if kind in ("fused", "parts"):
+        b = spec["b"]
+        A, B, _, sizes, strides = mm._marshal(a, b)
+        route = mm.fused_route(A, B, sizes, strides,
+                               parts_limbs=fmt.n_limbs if kind == "parts"
+                               else 0)
+        N = b.shape[-1]
+        nb = A.numel() // (M * K)
+        n_out = fmt.n_orders if kind == "parts" else 1
+        b_ms, b_by = bound(2 * nb * M * K * N * fmt.n_products,
+                           4 * (a.numel() + b.numel() + n_out * nb * M * N))
+        plain = mm.fused_matmul_partials_plain if kind == "parts" \
+            else mm.fused_matmul_plain
+        plain_ms = device_ms(lambda: plain(a, b, fmt))[0]
+        if a.ndim == 2 and b.ndim == 2 and kind == "fused":
+            lib_b = b
+    elif kind == "proj":
+        ws, gate = spec["ws"], spec["gate"]
+        route = mm.proj_route(a.contiguous(), [w.contiguous() for w in ws])
+        N = ws[0].shape[1]
+        n_out = 1 if gate != "none" else len(ws)
+        b_ms, b_by = bound(2 * M * K * N * fmt.n_products * len(ws),
+                           4 * (a.numel() + sum(w.numel() for w in ws)
+                                + n_out * M * N))
+        plain_ms = device_ms(lambda: mm.fused_proj_plain(
+            a, ws, fmt, gate=gate))[0]
+        lib_b = torch.cat(ws, dim=1)
+    else:
+        limbs = spec["limbs"]
+        route = mm.prelimbed_route(a)
+        N = limbs.shape[-1]
+        b_ms, b_by = bound(2 * M * K * N * fmt.n_products,
+                           4 * (a.numel() + M * N)
+                           + 2 * min(limbs.shape[0], fmt.n_limbs) * K * N)
+        plain_ms = device_ms(lambda: mm.prelimbed_matmul_plain(
+            a, limbs, fmt))[0]
+        lib_b = spec["w"]
     out = (f"; {route} route, bound {b_ms:.4f} ms ({b_by}), plain "
            f"{plain_ms:.4f} ms")
-    if fmt.name == "M8" and a.ndim == 2 and b.ndim == 2 and not parts:
-        ab, bb = a.bfloat16(), b.bfloat16()
+    if fmt.name == "M8" and lib_b is not None:
+        ab, bb = a.bfloat16(), lib_b.bfloat16()
         lib_ms = device_ms(lambda: torch.mm(ab, bb,
                                             out_dtype=torch.float32))[0]
-        out += f", torch.mm bf16 (f32 out) {lib_ms:.4f} ms"
+        what = " (product only)" if spec.get("gate", "none") != "none" \
+            else ""
+        out += f", torch.mm bf16 (f32 out){what} {lib_ms:.4f} ms"
     return out
 
 
@@ -242,8 +339,10 @@ def main(argv) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--source", default="mp_matmul",
                         choices=("mp_matmul", "mp_attention"))
-    parser.add_argument("others", nargs="+", type=Path,
-                        help="other versions of csrc/<source>.cu")
+    parser.add_argument("others", nargs="*", type=Path,
+                        help="other versions of csrc/<source>.cu (for "
+                        "mp_matmul: with mp_matmul_hopper.cu beside it, "
+                        "where it has one); none: this tree's alone")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("compare_kernels: no CUDA device", file=sys.stderr)
@@ -255,14 +354,22 @@ def main(argv) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     out_dir = ROOT / "build" / "compare_kernels"
     out_dir.mkdir(parents=True, exist_ok=True)
-    sources = {str(o): o for o in args.others}
+    # (version, library) -> source; another version's mp_matmul.cu brings
+    # the mp_matmul_hopper.cu beside it
+    sources = {}
+    for o in args.others:
+        sources[(str(o), args.source)] = o
+        hopper = o.parent / "mp_matmul_hopper.cu"
+        if args.source == "mp_matmul" and hopper.exists():
+            sources[(str(o), "mp_matmul_hopper")] = hopper
     if args.source != "mp_matmul":
-        sources = {"this tree": build.CSRC / f"{args.source}.cu", **sources}
-    procs = {name: subprocess.Popen(
+        sources = {("this tree", args.source): build.CSRC /
+                   f"{args.source}.cu", **sources}
+    procs = {key: subprocess.Popen(
         [build.nvcc_path(), *build.NVCC_FLAGS, "-o",
-         str(out_dir / f"{args.source}_{i}.so"), str(src)],
+         str(out_dir / f"{key[1]}_{i}.so"), str(src)],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for i, (name, src) in enumerate(sources.items())}
+        for i, (key, src) in enumerate(sources.items())}
     libs = {}
     if args.source == "mp_matmul":
         # this tree's libraries, built in parallel with the others
@@ -271,14 +378,22 @@ def main(argv) -> int:
                     build.ptxas_summary(rep.ptxas).items()):
                 print(f"[ptxas] this tree: {entry[:90]} regs {regs} spill "
                       f"{st}/{ld}")
-        libs["this tree"] = None
-    for i, (name, proc) in enumerate(procs.items()):
+        libs["this tree"] = Version(build.load("mp_matmul"),
+                                    build.load("mp_matmul_hopper"))
+    built = {}
+    for i, (key, proc) in enumerate(procs.items()):
         log, _ = proc.communicate()
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc {name} failed:\n{log}")
-        libs[name] = ctypes.CDLL(str(out_dir / f"{args.source}_{i}.so"))
+            raise RuntimeError(f"nvcc {key[0]} ({key[1]}) failed:\n{log}")
+        built[key] = ctypes.CDLL(str(out_dir / f"{key[1]}_{i}.so"))
         for entry, (regs, st, ld) in sorted(build.ptxas_summary(log).items()):
-            print(f"[ptxas] {name}: {entry[:90]} regs {regs} spill {st}/{ld}")
+            print(f"[ptxas] {key[0]}: {entry[:90]} regs {regs} spill "
+                  f"{st}/{ld}")
+    for (name, lib_name), lib in built.items():
+        if args.source != "mp_matmul":
+            libs[name] = lib
+        elif lib_name == "mp_matmul":
+            libs[name] = Version(lib, built.get((name, "mp_matmul_hopper")))
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -292,6 +407,7 @@ def main(argv) -> int:
     differ = 0
     for case, fn in cases.items():
         fn, operands = fn if isinstance(fn, tuple) else (fn, None)
+        # each case on every version in turn, this tree's first
         ref = fn(libs["this tree"], stream)
         for name, lib in libs.items():
             out = fn(lib, stream)
@@ -303,7 +419,7 @@ def main(argv) -> int:
             if name == "this tree":
                 tail = f"; {clocks_while(lambda: fn(lib, stream), torch)}"
                 if operands is not None:
-                    tail += matmul_extras(torch, *operands)
+                    tail += matmul_extras(torch, operands)
             else:
                 tail = f", bitwise this tree's: {same}"
             print(f"[compare] {name}: {case}: {ms:.4f} ms"

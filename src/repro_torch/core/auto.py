@@ -38,7 +38,12 @@ import torch
 
 from repro_torch.core import context as context_lib
 from repro_torch.core import limbs as limbs_lib
+from repro_torch.core.context import DEFAULT_AUTO_CANDIDATES
 from repro_torch.core.formats import FormatLike, resolve
+
+# the JAX package's back-compat alias (its v1 exposed the default candidate
+# set from this module)
+DEFAULT_CANDIDATES: Tuple = DEFAULT_AUTO_CANDIDATES
 
 
 def _candidates_and_tol(candidates, tol) -> Tuple[tuple, float]:

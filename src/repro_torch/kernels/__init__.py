@@ -2,8 +2,8 @@
 each with its plain PyTorch version and two counters: ``launches`` (kernel
 launches, counted where the kernel is launched and nowhere else) and
 ``plain_calls`` (calls on CPU tensors, which run the plain version); the
-fused matmul and its partials epilogue also count their launches per route
-(``routes``).  Beside
+fused matmul and its partials epilogue, the fused projection and the
+pre-limbed matmul also count their launches per route (``routes``).  Beside
 them, ``core.auto.mp_matmul_auto.host_reads`` counts the AUTO controller's
 reads of its selected format back to the host."""
 from repro_torch.kernels.mp_attention import mp_flash_attention, \
@@ -46,7 +46,9 @@ def launch_counts() -> dict:
 
 def route_counts() -> dict:
     """Launches per route of the wrappers with more than one (the fused
-    matmul and its partials epilogue: ``mp_matmul.ROUTES``)."""
+    matmul and its partials epilogue: ``mp_matmul.ROUTES``; the fused
+    projection: ``PROJ_ROUTES``; the pre-limbed matmul:
+    ``PRELIMBED_ROUTES``)."""
     return {name: dict(fn.routes) for name, fn in KERNELS.items()
             if hasattr(fn, "routes")}
 

@@ -13,10 +13,13 @@ launch at any of these parameters gives the default launch's bits:
     at least one chunk);
   * its prefill tiles (M > 16, TMA or strided) have no free parameter:
     their keys hold the default, ``[0, 0]``, timed alone;
-  * the fused projection (csrc/mp_matmul.cu): ``[dk, 0]`` at its decode
-    tile, ``[0, E]`` at its prefill tile, E the outputs per thread, the
-    tile's default (where ptxas stopped spilling) or half of it, for the
-    built-in formats (the library instantiates both);
+  * the fused projection: ``[dk, 0]`` at its decode tile
+    (csrc/mp_matmul.cu); none at its TMA prefill tile
+    (csrc/mp_matmul_hopper.cu: the shapes a tensor map reads, rows of a
+    multiple of 16 bytes), whose keys hold ``[0, 0]``; ``[0, E]`` at its
+    strided prefill tile (the other shapes), E the outputs per thread,
+    the tile's default (where ptxas stopped spilling) or half of it, for
+    the built-in formats (the library instantiates both);
   * flash attention: ``[block_q]``, the query rows per block (16, 32, 64).
 
 ``[0, 0]`` is a matmul's default launch (the plan's choice), an attention
@@ -62,9 +65,11 @@ from repro_torch.core.formats import FormatLike, MPFormat, resolve
 
 MatmulParams = Tuple[int, int]   # (p0, p1); (0, 0) = the default launch
 AttnParams = Tuple[int]          # (block_q,)
-# the layout of a table's entries, in its file name: 2 = the decode tile's
-# (dk, S) and the TMA tile's (0, 0); 1 (no tag) was the old tiles' (dk, E)
-TABLE_LAYOUT = 2
+# the layout of a table's entries, in its file name: 3 = the decode tile's
+# (dk, S), the TMA tiles' (0, 0), the projection's prefill keys on its TMA
+# tile (0, 0); 2 had the projection's prefill E; 1 (no tag) the old tiles'
+# (dk, E)
+TABLE_LAYOUT = 3
 
 # csrc/mp_matmul.cu
 KC = 64
@@ -81,7 +86,9 @@ BUILTIN = ((1, 0), (2, 1), (3, 2), (5, 4), (7, 6))
 HM = 128          # rows of the TMA tile
 HALIGN = 1024     # the swizzle's alignment (slack in the shared memory)
 SPLIT_MAX = 8     # the portable cluster size
-SPLIT_PER_SM = 5  # split-tile blocks an SM holds at 64 registers a thread
+DEC_CT = 64       # the decode tile's compute threads
+DEC_TMA_SLACK = 64 + 1024   # the pre-limbed split tile's TMA ring: mbarriers
+                            # and the 1024-byte alignment
 H100_SMS = 132
 H100_SM_SMEM = 233472   # shared memory of one H100 SM
 # csrc/mp_attention.cu
@@ -263,9 +270,10 @@ def _nl_no(fmt: MPFormat) -> Tuple[int, int]:
     return (fmt.n_limbs, fmt.n_orders) if _builtin(fmt) else (GEN_NL, GEN_NO)
 
 
-def tma_tile_n(fmt: FormatLike) -> int:
-    """``hp_bn``: the TMA prefill tile's columns for ``fmt`` (96 at M8)."""
-    no = _nl_no(resolve(fmt))[1]
+def tma_tile_n(fmt: FormatLike, nout: int = 1) -> int:
+    """``hp_bn``: the TMA prefill tile's columns for ``fmt`` at ``nout``
+    weights a block (96 at M8; the projection's gated block holds 2)."""
+    no = nout * _nl_no(resolve(fmt))[1]
     return 96 if no == 1 else 64 if no == 2 else 48 if no == 3 \
         else 32 if no <= 5 else 24 if no <= 7 else 8
 
@@ -276,22 +284,22 @@ def _tma_plane_b(bn: int) -> int:
     return -(-bn // 64) * 64 * KC * 2 if bn >= 64 else bn * KC * 2
 
 
-def _tma_planes(nl: int, bn: int) -> int:
-    return nl * (HM * KC * 2 + _tma_plane_b(bn))
+def _tma_planes(nl: int, bn: int, nout: int = 1) -> int:
+    return nl * (HM * KC * 2 + nout * _tma_plane_b(bn))
 
 
-def _tma_stage(bn: int) -> int:
-    return (HM + bn) * KC * 4
+def _tma_stage(bn: int, nout: int = 1) -> int:
+    return (HM + nout * bn) * KC * 4
 
 
-def tma_smem(fmt: FormatLike) -> int:
-    """``mp_tma_smem_bytes``: one TMA-tile block's dynamic shared memory
-    (``hp_smem`` at ``hp_rs``): one or two plane buffers, whichever fits
-    with two f32 stages; three f32 stages where they fit, else two; four
-    mbarriers."""
+def tma_smem(fmt: FormatLike, nout: int = 1) -> int:
+    """``mp_tma_smem_bytes``: one TMA-tile block's dynamic shared memory at
+    ``nout`` weights a block (``hp_smem`` at ``hp_rs``): one or two plane
+    buffers, whichever fits with two f32 stages; three f32 stages where
+    they fit, else two; four mbarriers."""
     fmt = resolve(fmt)
-    nl, bn = _nl_no(fmt)[0], tma_tile_n(fmt)
-    planes, stage = _tma_planes(nl, bn), _tma_stage(bn)
+    nl, bn = _nl_no(fmt)[0], tma_tile_n(fmt, nout)
+    planes, stage = _tma_planes(nl, bn, nout), _tma_stage(bn, nout)
     npb = 2 if HALIGN + 2 * planes + 2 * stage + 64 <= SMEM_MAX else 1
     three = HALIGN + npb * planes + 3 * stage + 8 * 4
     return three if three <= SMEM_MAX else three - stage
@@ -308,47 +316,58 @@ def split_norm(K: int, s: int) -> int:
     return -(-nch // cpr)
 
 
-def split_smem(fmt: FormatLike, M: int, kr: int, dk: int, cpr: int) -> int:
+def split_smem(fmt: FormatLike, M: int, kr: int, dk: int, cpr: int,
+               pl: bool = False) -> int:
     """``split_smem_bytes``: one split-tile block's dynamic shared memory:
-    the decode tile's for a K range of ``kr`` at ``dk`` k per stage,
+    the decode tile's for a K range of ``kr`` at ``dk`` k per stage (``pl``:
+    on stored planes, their bf16 ring and the TMA ring's slack),
     16-aligned, then the chunk sums of ``cpr`` chunks."""
     fmt = resolve(fmt)
     slots = min(DEC_SLOTS, -(-kr // dk))
-    base = -(-dec_smem_bytes(False, fmt.n_limbs, M, dk, slots, 1) // 16) * 16
-    return base + cpr * _nl_no(fmt)[1] * DEC_M * DEC_N * 4
+    base = dec_smem_bytes(pl, fmt.n_limbs, M, dk, slots, 1) + (
+        DEC_TMA_SLACK if pl else 0)
+    return -(-base // 16) * 16 + cpr * _nl_no(fmt)[1] * DEC_M * DEC_N * 4
 
 
 def split_dk(fmt: FormatLike, M: int, kr: int, cpr: int,
-             optin: int = SMEM_MAX) -> int:
+             optin: int = SMEM_MAX, pl: bool = False) -> int:
     """``split_dk``: the split tile's k per stage for a rank's K range: the
     ring's most, or the range rounded up to KC when shorter, halved in
     multiples of KC until the block fits ``optin`` bytes."""
     ring = decode_ring_k(fmt)
     dk = -(-kr // KC) * KC if kr < ring else ring
-    while dk > KC and split_smem(fmt, M, kr, dk, cpr) > optin:
+    while dk > KC and split_smem(fmt, M, kr, dk, cpr, pl) > optin:
         dk = -(-(dk // 2) // KC) * KC
     return dk
 
 
+def split_per_sm(pl: bool = False) -> int:
+    """``split_per_sm``: split-tile blocks an SM holds by registers at 64 a
+    thread: 5 of the fused matmul's 192 threads, 8 of the pre-limbed
+    kernel's 128."""
+    return 65536 // ((DEC_CT + 32 * (2 if pl else 4)) * 64)
+
+
 def split_plan(slabs: int, K: int, fmt: FormatLike = "M8", M: int = 8,
                sms: int = H100_SMS, sm_smem: int = H100_SM_SMEM,
-               optin: int = SMEM_MAX) -> Tuple[int, int]:
+               optin: int = SMEM_MAX, pl: bool = False) -> Tuple[int, int]:
     """``split_plan``: the decode tile's default (cluster size, k per stage)
-    for ``slabs`` 16-column slabs (times the batch): the largest S <= 8, as
-    the tile runs it, whose blocks all fit on the card at once at
-    :func:`split_dk`'s stage or a shorter one (blocks per SM by shared
-    memory, at most ``SPLIT_PER_SM``); (1, 0) where none does (lm_head's
-    2,000 slabs: the single-block tile at its own stage)."""
+    for ``slabs`` 16-column slabs (times the batch) of a fused matmul
+    (``pl``: a pre-limbed one): the largest S <= 8, as the tile runs it,
+    whose blocks all fit on the card at once at :func:`split_dk`'s stage
+    or a shorter one (blocks per SM by shared memory, at most
+    :func:`split_per_sm`); (1, 0) where none does (lm_head's 2,000 slabs:
+    the single-block tile at its own stage)."""
     nch = -(-K // KC)
     for s in range(SPLIT_MAX, 1, -1):
         if split_norm(K, s) != s:
             continue
         cpr = -(-nch // s)
         kr = cpr * KC
-        dk = split_dk(fmt, M, kr, cpr, optin)
+        dk = split_dk(fmt, M, kr, cpr, optin, pl)
         while True:
-            smem = split_smem(fmt, M, kr, dk, cpr)
-            per_sm = min(sm_smem // (smem + 1024), SPLIT_PER_SM)
+            smem = split_smem(fmt, M, kr, dk, cpr, pl)
+            per_sm = min(sm_smem // (smem + 1024), split_per_sm(pl))
             if smem <= optin and s * slabs <= per_sm * sms:
                 return s, dk
             if dk <= KC:
@@ -469,8 +488,10 @@ def candidate_blocks(M: int, K: int, N: int, mode: FormatLike, *,
     built without a spill (the projection's E / 2).  The fused
     matmul: at M <= 16 the decode tile's ``(dk, S)``, at larger M none (its
     prefill tiles have no free parameter).  The fused projection: at M <=
-    16 its decode tile's ``(dk, 0)``, at larger M its prefill tile's ``(0,
-    E)`` at the default E and E / 2 (built-in formats)."""
+    16 its decode tile's ``(dk, 0)``; at larger M none on its TMA tile
+    (K and N multiples of 4, as the contiguous operands a sweep makes: a
+    tensor map reads them), else the strided tile's ``(0, E)`` at the
+    default E and E / 2 (built-in formats)."""
     fmt = resolve(mode)
     limit = smem if smem is not None else smem_limit()
     gated = "swiglu" in epilogue
@@ -489,6 +510,8 @@ def candidate_blocks(M: int, K: int, N: int, mode: FormatLike, *,
                               nout) <= limit:
                 out.append((dk, 0))
         return out
+    if K % 4 == 0 and N % 4 == 0:
+        return []       # the TMA tile (mp_matmul.proj_route)
     width = min(n_out, 3)   # ops.mp_fused_proj_cuda: 3 weights per launch
     nl = _nl_no(fmt)[0]
     for e in (format_tile_e(fmt, width), format_tile_e_alt(fmt, width)):

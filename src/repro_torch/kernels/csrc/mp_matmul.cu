@@ -16,10 +16,18 @@
 //   fused_proj_kernel    replaces _fused_multi_kernel  (one A operand shared
 //                                                      by n_out B operands,
 //                                                      bias / swiglu / residual
-//                                                      epilogue)
+//                                                      epilogue: the decode
+//                                                      tile and the prefill
+//                                                      tile of the operands
+//                                                      TMA cannot read; the
+//                                                      TMA tile is in
+//                                                      mp_matmul_hopper.cu)
 //   prelimbed_matmul_kernel  replaces _prelimbed_kernel  (B as stored bf16
-//                                                      limb planes: serving
-//                                                      decode)
+//                                                      limb planes: the
+//                                                      prefill tile; the
+//                                                      serving decode's split
+//                                                      tile is in
+//                                                      mp_matmul_hopper.cu)
 //   decompose_kernel     replaces _decompose_kernel    (f32 -> bf16 limb
 //                                                      planes, once per
 //                                                      policy)
@@ -86,18 +94,18 @@
 // all their products' chains in one pass over a chunk, so a limb's fragments
 // are read once per k16 step.  What is left bounds them: the limbing and
 // the copies' instructions on the CUDA cores, the fragment reads from
-// shared memory, and the rate of mma.sync (the fused matmul's operands
-// that a tensor map reads take the wgmma and TMA tile of
-// mp_matmul_hopper.cu instead; this tile keeps the projection, the
-// pre-limbed kernels and the fused matmul's strided operands).
+// shared memory, and the rate of mma.sync.  The operands a tensor map
+// reads take the wgmma and TMA tile of mp_matmul_hopper.cu instead, the
+// fused matmul's and the projection's; this tile keeps their strided
+// operands and the prefill shapes of the pre-limbed, mixed-lane and
+// both-prelimbed kernels.
 //
-// The decode shapes (M <= 16 rows) of the pre-limbed, mixed-lane and
-// projection kernels take the decode tile (decode_tile, in
-// mp_matmul_common.cuh; the fused matmul's runs it split over a cluster in
-// mp_matmul_hopper.cu): the rows padded to
-// one m16 fragment, 16 columns per block so that N = 768 runs 48 blocks, B
-// streamed through a cp.async ring by producer warps that limb it once per
-// block.  They are bound by the bytes of the weights (the planes the format
+// The decode shapes (M <= 16 rows) of the mixed-lane and projection
+// kernels take the decode tile (decode_tile, in mp_matmul_common.cuh; the
+// fused and pre-limbed matmuls run it split over a cluster in
+// mp_matmul_hopper.cu): the rows padded to one m16 fragment, 16 columns
+// per block so that N = 768 runs 48 blocks, B streamed through a cp.async
+// ring by producer warps that limb it once per block.  They are bound by the bytes of the weights (the planes the format
 // reads, or the f32 weights), by the limbing of f32 weights and, in the
 // deeper formats, by one warp's MMA chains per 8 columns.  Ragged edges are
 // masked in the loads and stores; nothing is padded in device memory.
@@ -649,15 +657,6 @@ __global__ void __launch_bounds__(NT) fused_matmul_kernel(MatmulArgs p) {
 }
 
 
-struct PrelimbedArgs {
-  const float* a;        // (M, K), column stride 1
-  Planes b;              // (L, K, N) limb planes, column stride 1
-  float* c;              // (M, N), column stride 1
-  int64_t a_sr, c_sr;
-  int64_t M, N, K;
-  int n_limbs, max_order;
-};
-
 // Port of _prelimbed_kernel (build_prelimbed_call(both=False)): A limbed on
 // the fly, B read from its stored limb planes (the serving decode path's
 // pre-limbed weights).  Same tiles, same chunks, same per-order accumulators,
@@ -670,21 +669,6 @@ __global__ void __launch_bounds__(NT) prelimbed_matmul_kernel(PrelimbedArgs p) {
   matmul_tile<NL, NO, GEN, true>(p.a, p.a_sr, 1, nullptr, 0, 0, p.b, p.c,
                                  p.c_sr, 1, p.M, p.N, p.K, p.n_limbs,
                                  p.max_order);
-}
-
-// prelimbed_matmul_kernel's decode tile (M <= DEC_M): the serving decode
-// path's matmuls.  Bound at M = 8 by the planes' bytes.
-template <int NL, int NO, bool GEN>
-__global__ void __launch_bounds__(DEC_CT + 128)
-    prelimbed_matmul_decode_kernel(PrelimbedArgs p, int dk) {
-  const float* const B[1] = {nullptr};
-  decode_tile<NL, NO, GEN, true>(
-      p.a, p.a_sr, 1, B, 0, 0, p.b, (int)p.M, p.N, p.K, p.n_limbs,
-      p.max_order, dk, nullptr, nullptr,
-      [&](int r, int64_t gn, const float (&y)[1]) {
-        p.c[r * p.c_sr + gn] = y[0];
-      },
-      (int64_t)blockIdx.x * DEC_N);
 }
 
 struct MixedPrelimbedArgs {
@@ -770,42 +754,6 @@ __global__ void __launch_bounds__(256) decompose_kernel(
       out[l * n + i] = li;
       r = r - bf(li);
     }
-  }
-}
-
-struct ProjArgs {
-  const float* a;               // (M, K), column stride 1
-  const float* b[MAX_OUT];      // n_out x (K, N), column stride 1
-  const float* bias[MAX_OUT];   // n_out x (N,) or all null
-  const float* res;             // (M, N) or null
-  float* out;                   // (M, N) when gated, else (n_out, M, N)
-  int64_t a_sr, b_sr, res_sr;
-  int64_t M, N, K;
-  int n_limbs, max_order, gate;
-};
-
-// The projection's epilogue of output (gm, gn) of weights t0 .. t0 + NOUT - 1
-// (their combined sums y), before the single store, in _flush's order: bias,
-// then silu(out0) * out1 (silu(x) = x / (1 + expf(-x)) in f32), then the
-// residual.  Both projection tiles call it, so an output has the same bits
-// whichever tile ran it.
-template <int NOUT>
-__device__ __forceinline__ void proj_store(const ProjArgs& p, int64_t gm,
-                                           int64_t gn, int t0,
-                                           float (&y)[NOUT]) {
-#pragma unroll
-  for (int t = 0; t < NOUT; ++t)
-    if (p.bias[0] != nullptr) y[t] = y[t] + p.bias[t0 + t][gn];
-  if (p.gate) {
-    float g = 0.f;
-    if constexpr (NOUT == 2) g = (y[0] / (1.0f + expf(-y[0]))) * y[1];
-    if (p.res != nullptr) g = g + p.res[gm * p.res_sr + gn];
-    p.out[gm * p.N + gn] = g;
-  } else {
-    if (p.res != nullptr) y[0] = y[0] + p.res[gm * p.res_sr + gn];
-#pragma unroll
-    for (int t = 0; t < NOUT; ++t)
-      p.out[((t0 + t) * p.M + gm) * p.N + gn] = y[t];
   }
 }
 
@@ -919,12 +867,11 @@ cudaError_t launch_matmul(const MatmulArgs& p, int64_t nb0, cudaStream_t st) {
       p, p.M, p.N, nb0 * p.nb1, st);
 }
 
-// the tile choice is launch_matmul's, so the two kernels tile alike
+// the tile choice is launch_matmul's, so the two kernels tile alike; the
+// decode shapes (M <= DEC_M) take mp_matmul_hopper.cu's split tile
 template <int NL, int NO, bool GEN>
 cudaError_t launch_prelimbed(const PrelimbedArgs& p, cudaStream_t st) {
-  if (p.M <= DEC_M)
-    return launch_decode<NL, 1, prelimbed_matmul_decode_kernel<NL, NO, GEN>>(
-        p, true, GEN ? p.n_limbs : NL, p.M, p.N, p.K, 1, 1, 0, st);
+  if (p.M <= DEC_M) return cudaErrorInvalidValue;
   return launch_tile<NL, NO, 1, true, false,
                      prelimbed_matmul_kernel<NL, NO, GEN>>(p, p.M, p.N, 1, st);
 }
@@ -1144,8 +1091,9 @@ int mp_fused_proj_launch(const void* a, int64_t a_sr, const void* b0,
 
 // C (M, N) = A (M, K) @ B at (n_limbs, max_order), B given as n_stored bf16
 // limb planes (plane stride b_plane, row stride b_sr; column strides of A,
-// the planes and C are 1).  Planes at or past min(n_stored, n_limbs) are
-// never read.  Returns the CUDA error of the launch (0 on success).
+// the planes and C are 1); M > DEC_M (the decode shapes take
+// mp_hopper_prelimbed_launch).  Planes at or past min(n_stored, n_limbs)
+// are never read.  Returns the CUDA error of the launch (0 on success).
 // Allocates nothing and does not synchronise.
 int mp_prelimbed_matmul_launch(const void* a, int64_t a_sr, const void* b,
                                int64_t b_plane, int64_t b_sr,

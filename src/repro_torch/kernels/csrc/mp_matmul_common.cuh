@@ -1,8 +1,10 @@
 // The pieces the limb matmul sources share (mp_matmul.cu, mp_matmul_hopper.cu):
 // the order contract's tensor-core step (chunk_step), the limb cascade,
-// the compensated combine and the decode tile with its launch.  The order
-// of every add is described at the top of mp_matmul.cu.
+// the compensated combine, the projection's epilogue (proj_store), the
+// mbarrier and TMA helpers, and the decode tile with its launch.  The
+// order of every add is described at the top of mp_matmul.cu.
 #pragma once
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -131,6 +133,51 @@ __device__ __forceinline__ void limb4(const float* src, __nv_bfloat16* dst,
     if (nv > 2) x.z = src[2];
   }
   limb4v<NL>(x, dst, ps, nl);
+}
+
+// wait for the phase of ``parity`` of an mbarrier; a wait of about ten
+// seconds traps, so a stalled pipeline fails its launch instead of holding
+// the card
+__device__ __forceinline__ void mbar_wait(const uint64_t* bar, int parity) {
+  const long long t0 = clock64();
+  for (;;) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (clock64() - t0 > (1LL << 34)) __trap();
+  }
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
+                   smem_addr(bar)));
+}
+
+// the phase of bar completes when ``bytes`` have landed (one arrival)
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, int bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+// one box of a 3-d tensor map (c0 innermost) into dst, completing bar
+__device__ __forceinline__ void tma_load3(void* dst, const CUtensorMap* map,
+                                          int c0, int c1, int c2,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(smem_addr(bar))
+      : "memory");
 }
 
 // ---------------------------------------------------------------------------
@@ -337,6 +384,51 @@ __device__ __forceinline__ void chunk_step(
   }
 }
 
+struct ProjArgs {
+  const float* a;               // (M, K), column stride 1
+  const float* b[MAX_OUT];      // n_out x (K, N), column stride 1
+  const float* bias[MAX_OUT];   // n_out x (N,) or all null
+  const float* res;             // (M, N) or null
+  float* out;                   // (M, N) when gated, else (n_out, M, N)
+  int64_t a_sr, b_sr, res_sr;
+  int64_t M, N, K;
+  int n_limbs, max_order, gate;
+};
+
+// The projection's epilogue of output (gm, gn) of weights t0 .. t0 + NOUT - 1
+// (their combined sums y), before the single store, in _flush's order: bias,
+// then silu(out0) * out1 (silu(x) = x / (1 + expf(-x)) in f32), then the
+// residual.  Every projection tile calls it, so an output has the same bits
+// whichever tile ran it.
+template <int NOUT>
+__device__ __forceinline__ void proj_store(const ProjArgs& p, int64_t gm,
+                                           int64_t gn, int t0,
+                                           float (&y)[NOUT]) {
+#pragma unroll
+  for (int t = 0; t < NOUT; ++t)
+    if (p.bias[0] != nullptr) y[t] = y[t] + p.bias[t0 + t][gn];
+  if (p.gate) {
+    float g = 0.f;
+    if constexpr (NOUT == 2) g = (y[0] / (1.0f + expf(-y[0]))) * y[1];
+    if (p.res != nullptr) g = g + p.res[gm * p.res_sr + gn];
+    p.out[gm * p.N + gn] = g;
+  } else {
+    if (p.res != nullptr) y[0] = y[0] + p.res[gm * p.res_sr + gn];
+#pragma unroll
+    for (int t = 0; t < NOUT; ++t)
+      p.out[((t0 + t) * p.M + gm) * p.N + gn] = y[t];
+  }
+}
+
+struct PrelimbedArgs {
+  const float* a;        // (M, K), column stride 1
+  Planes b;              // (L, K, N) limb planes, column stride 1
+  float* c;              // (M, N), column stride 1
+  int64_t a_sr, c_sr;
+  int64_t M, N, K;
+  int n_limbs, max_order;
+};
+
 struct MatmulArgs {
   const float* a;
   const float* b;
@@ -418,6 +510,18 @@ __host__ __device__ inline int64_t dec_smem_bytes(bool pl, int nl, int M,
          (pl ? 0 : 2 * (int64_t)nout * nl * dk * DEC_N * 2) + 16;
 }
 
+// The split tile on stored planes (PL and SPLIT) fills its B ring by TMA:
+// the ring's mbarriers take the first 64 bytes, the regions start at the
+// next 1024-byte boundary (the 32-byte swizzle's pattern follows address
+// bits), so the block asks for DEC_TMA_SLACK bytes more
+constexpr int DEC_TMA_SLACK = 64 + 1024;
+constexpr int DEC_TMA_ALIGN = 1024;
+
+__host__ __device__ inline int64_t dec_split_bytes(bool pl, int nl, int M,
+                                                   int dk, int slots) {
+  return dec_smem_bytes(pl, nl, M, dk, slots, 1) + (pl ? DEC_TMA_SLACK : 0);
+}
+
 // dk: k per ring stage (a multiple of KC, at most DecRing<NL>::K); the
 // dynamic shared memory holds dec_smem_bytes(PL, nl, M, dk, slots, NOUT)
 // bytes, slots = min(DecRing<NL>::S, stages).  Warp roles: the first
@@ -427,11 +531,18 @@ __host__ __device__ inline int64_t dec_smem_bytes(bool pl, int nl, int M,
 // go to store(r, column, y) after combine_orders; PARTS (the partials
 // epilogue, NOUT == 1): its NO per-order accumulators go to store(r,
 // column, per_order) instead, uncombined.  n0: the block's first column.
-// SPLIT (the cluster-split decode tile of mp_matmul_hopper.cu, one f32
-// weight, no lanes): the block runs a range of K's chunks and stores each
-// chunk's per-order sums, tot_c[o] = +0.0 + tot, to tots[(c * NO + o) *
-// DEC_M * DEC_N + row * DEC_N + column] (c counted from the range's first
-// chunk) instead of adding them up; nothing is stored through ``store``.
+// SPLIT (the cluster-split decode tile of mp_matmul_hopper.cu, one weight,
+// no lanes): the block runs a range of K's chunks and stores each chunk's
+// per-order sums, tot_c[o] = +0.0 + tot, to tots[(c * NO + o) * DEC_M *
+// DEC_N + row * DEC_N + column] (c counted from the range's first chunk)
+// instead of adding them up; nothing is stored through ``store``.  With
+// stored planes (PL and SPLIT: dec_split_bytes of shared memory) the first
+// producer thread fills the B ring by TMA from ``bmap`` (a 3-d map of the
+// planes: columns, k, plane; a box of DEC_N columns by dk k in the 32-byte
+// swizzle, which lays each k row's two 8-column halves as dec_col does),
+// k counted from ``bmap_k0``; each ring slot completes an mbarrier the
+// compute warps wait on.  The TMA fills zeros past N and K, the chunk edge
+// of the contract.
 template <int NL, int NO, bool GEN, bool PL, bool LN = false, int NOUT = 1,
           bool PARTS = false, bool SPLIT = false, typename Store>
 __device__ __forceinline__ void decode_tile(
@@ -439,10 +550,12 @@ __device__ __forceinline__ void decode_tile(
     const float* const (&B)[NOUT], int64_t b_sr, int64_t b_sc, Planes bp,
     int M, int64_t N, int64_t K, int n_limbs, int max_order, int dk,
     const int32_t* __restrict__ ln, const int32_t* __restrict__ lo,
-    Store store, int64_t n0, float* __restrict__ tots = nullptr) {
+    Store store, int64_t n0, float* __restrict__ tots = nullptr,
+    const CUtensorMap* bmap = nullptr, int bmap_k0 = 0) {
   static_assert(!PL || NOUT == 1, "stored planes come for one weight");
-  static_assert(!SPLIT || (NOUT == 1 && !PL && !LN && !PARTS),
-                "the split tile runs one f32 weight without lanes");
+  static_assert(!SPLIT || (NOUT == 1 && !LN && !PARTS),
+                "the split tile runs one weight without lanes");
+  constexpr bool TMAB = PL && SPLIT;   // the B ring filled by TMA
   constexpr int NS = DecRing<NL>::S;
   // 16-byte copies where rows are contiguous and every chunk is aligned
   bool b_al = true;
@@ -460,12 +573,21 @@ __device__ __forceinline__ void decode_tile(
   const int ring = M * dk;         // f32 elements of one A ring slot
   const int ap = dk + PADE;        // elements of one A plane row
   const int plane = M * ap;        // elements of one A limb plane
-  // regions of dec_smem: the B ring, the A ring, A's limb planes (two
-  // buffers), the Bs' limb planes (fused, two buffers each), zeros
-  __nv_bfloat16* const Bp = reinterpret_cast<__nv_bfloat16*>(dec_smem);
-  float* const Br = reinterpret_cast<float*>(dec_smem);
+  // TMAB: the ring's mbarriers first, the regions from the next 1024-byte
+  // boundary
+  uint64_t* const full = reinterpret_cast<uint64_t*>(dec_smem);
+  unsigned char* const base =
+      TMAB ? reinterpret_cast<unsigned char*>(
+                 (reinterpret_cast<uintptr_t>(dec_smem) + 64 + DEC_TMA_ALIGN -
+                  1) &
+                 ~(uintptr_t)(DEC_TMA_ALIGN - 1))
+           : dec_smem;
+  // regions: the B ring, the A ring, A's limb planes (two buffers), the
+  // Bs' limb planes (fused, two buffers each), zeros
+  __nv_bfloat16* const Bp = reinterpret_cast<__nv_bfloat16*>(base);
+  float* const Br = reinterpret_cast<float*>(base);
   float* const Ar = reinterpret_cast<float*>(
-      dec_smem + dec_ring_b_bytes(PL, nl, dk, slots, NOUT));
+      base + dec_ring_b_bytes(PL, nl, dk, slots, NOUT));
   __nv_bfloat16* const As =
       reinterpret_cast<__nv_bfloat16*>(Ar + (int64_t)slots * ring);
   __nv_bfloat16* const Bl = As + 2 * nl * plane;
@@ -512,7 +634,15 @@ __device__ __forceinline__ void decode_tile(
           cp_async4(Ar + q * ring + m * dk + kk,
                     A + m * a_sr + (k0 + kk) * a_sc, true);
     }
-    if constexpr (PL) {
+    if constexpr (TMAB) {
+      // the stored planes' boxes of DEC_N columns by dk k, all at once
+      if (pt == 0) {
+        mbar_expect(full + q, nst * dk * DEC_N * 2);
+        for (int j = 0; j < nst; ++j)
+          tma_load3(Bp + bp_at(q, j), bmap, (int)n0, bmap_k0 + (int)k0, j,
+                    full + q);
+      }
+    } else if constexpr (PL) {
       const int kc = (kn + KC - 1) / KC * KC;
       for (int j = 0; j < nst; ++j) {
         const __nv_bfloat16* src = bp.p + j * bp.plane + k0 * bp.sr;
@@ -620,6 +750,13 @@ __device__ __forceinline__ void decode_tile(
     ro[0][h] = LN && !producer && r < M ? lo[r] : PAD_ORD;
   }
 
+  if constexpr (TMAB) {
+    if (tid == DEC_CT) {
+      for (int q = 0; q < NS; ++q) mbar_init(full + q);
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
+  }
   if (producer) {
     if (pt < 4) reinterpret_cast<uint32_t*>(zeros)[pt] = 0u;
     if constexpr (PL) {
@@ -649,6 +786,7 @@ __device__ __forceinline__ void decode_tile(
       const int nch = (stage_k(s) + KC - 1) / KC;
       const int buf = s & 1;
       const int q = s % NS;
+      if constexpr (TMAB) mbar_wait(full + q, (s / NS) & 1);
 #pragma unroll 1
       for (int c = 0; c < nch; ++c) {
         const int kb = c * KC;

@@ -1,41 +1,73 @@
-// The fused limb matmul's two tiles redesigned for Hopper (sm_90a), plain C
-// interface.  Both replace _fused_kernel (src/repro/kernels/mp_matmul.py:76)
-// with fused_matmul_kernel of mp_matmul.cu, whose order of sums they keep
-// bit for bit (mp_matmul.cu's header: K in chunks of KC from k = 0, one
-// chain of KC / 16 tensor-core k16 steps per chunk and kept product from
-// +0.0, the order's terms summed by IEEE f32 adds in product order, acc[o]
-// += tot, the compensated combine at the end), partials epilogue included.
+// The limb matmuls' Hopper tiles (sm_90a), plain C interface: the fused
+// matmul's two tiles, which replace _fused_kernel
+// (src/repro/kernels/mp_matmul.py:76) beside fused_matmul_kernel of
+// mp_matmul.cu; the fused projection's prefill tile, which replaces
+// _fused_multi_kernel (:227) at M > DEC_M beside fused_proj_kernel; and
+// the pre-limbed matmul's decode tile, which replaces _prelimbed_kernel
+// (:108) at M <= DEC_M.  Each keeps the order of sums of mp_matmul.cu bit
+// for bit (its header: K in chunks of KC from k = 0, one chain of KC / 16
+// tensor-core k16 steps per chunk and kept product from +0.0, the order's
+// terms summed by IEEE f32 adds in product order, acc[o] += tot, the
+// compensated combine at the end), epilogues included.
+//
+// Which kernel runs which route (kernels/mp_matmul.py counts them):
+//   the fused matmul and its partials: tma_matmul_kernel (tma, M > DEC_M,
+//     operands a tensor map reads), matmul_split_kernel (cluster, M <=
+//     DEC_M; at S = 1 fused_matmul_decode_kernel); mp_matmul.cu's
+//     fused_matmul_kernel the rest (strided);
+//   the projection: tma_matmul_kernel with the projection's epilogue (tma,
+//     M > DEC_M, a and the weights' rows a multiple of 16 bytes, 16-byte
+//     aligned); mp_matmul.cu's fused_proj_kernel the rest (strided) and
+//     its decode tile (decode, M <= DEC_M);
+//   the pre-limbed matmul: matmul_split_kernel on stored planes (cluster,
+//     M <= DEC_M; at S = 1, or planes no map reads,
+//     prelimbed_matmul_decode_kernel); mp_matmul.cu's
+//     prelimbed_matmul_kernel above (mma).
 //
 // tma_matmul_kernel, the prefill tile (M > DEC_M) of the operands a TMA
 // tensor map can describe (unit column stride, 16-byte aligned bases and
-// strides, up to two batch dims; mp_matmul.cu's fused_matmul_kernel keeps
-// the others: a stride-0 broadcast, a transposed view read as it is).
-//   Design: a 128 x BN tile per block (BN by format, 96 at M8, so that the
-//   2048 x 768 outputs of wo and w_down make 128 tiles on 132 SMs; the
-//   blocks walk M first, so a weight larger than L2 is read about once).
-//   Limbing warpgroups (two at one limb, else one), whose first thread is
-//   the TMA producer (cp.async.bulk.tensor into a ring of RS f32 stages,
-//   each completing an mbarrier; TMA zero-fills past M, N and K, which is
-//   the contract's zero-filled chunk edge), turn each stage into its bf16
-//   limb planes in the 128-byte swizzle wgmma reads (A K-major; B N-major
-//   as it lies, with the transpose bit, from 64 columns, else transposed
-//   to K-major on the way), into one of NPB plane buffers.  Two consumer
-//   warpgroups of 64 rows each chain four wgmma m64nBNk16 into a fresh
-//   accumulator (zeroed, scale-d 1: the +0.0 start of mma_bf16_first),
-//   then wgmma.wait_group and the CUDA-core adds; one warpgroup's adds
-//   overlap the other's chains, and named barriers hand the plane buffers
-//   over.  Four wgmma k16 steps give four mma.sync m16n8k16 steps' bits
-//   (compare_kernels.py's cases, signs of zero and subnormal products
-//   included), so every bitwise gate of the old tile holds.  Registers
-//   set BN: NO accumulators, the order's running sum and one chain per
-//   output within the registers of the block's threads.
+// strides, up to two batch dims; mp_matmul.cu's tiles keep the others: a
+// stride-0 broadcast, a transposed view read as it is).
+//   Design: a 128 x BN tile per block (BN by format and weights, 96 at M8
+//   and one weight, so that the 2048 x 768 outputs of wo and w_down make
+//   128 tiles on 132 SMs; the blocks walk M first, so a weight larger than
+//   L2 is read about once).  Limbing warpgroups (two at one limb, else
+//   one), whose first thread is the TMA producer (cp.async.bulk.tensor of
+//   A's and each weight's box into a ring of RS f32 stages, each stage
+//   completing an mbarrier; TMA zero-fills past M, N and K, which is the
+//   contract's zero-filled chunk edge), turn each stage into its bf16 limb
+//   planes in the 128-byte swizzle wgmma reads (A K-major, once for all
+//   the block's weights; B N-major as it lies, with the transpose bit,
+//   from 64 columns, else transposed to K-major on the way), into one of
+//   NPB plane buffers.  Two consumer warpgroups of 64 rows each chain four
+//   wgmma m64nBNk16 into a fresh accumulator (zeroed, scale-d 1: the +0.0
+//   start of mma_bf16_first), then wgmma.wait_group and the CUDA-core
+//   adds; one warpgroup's adds overlap the other's chains, and named
+//   barriers hand the plane buffers over.  Four wgmma k16 steps give four
+//   mma.sync m16n8k16 steps' bits (compare_kernels.py's cases, signs of
+//   zero and subnormal products included), so every bitwise gate of the
+//   old tiles holds.  Registers set BN: NOUT x NO accumulators, the
+//   order's running sum and one chain per output within the registers of
+//   the block's threads.  The epilogue (template Epi) stores the combined
+//   sum, the per-order sums (PARTS) or the projection's proj_store (bias,
+//   silu(g) * u, residual: the same code as fused_proj_kernel's).
+//   The projection (launch_tma_proj): gated, both weights in a block
+//   (NOUT = 2: g and u of one output in one thread; 64 columns at M8);
+//   QKV's three weights in one block where the tile keeps 24 columns (M8
+//   48, M16 24), else the grid walks the weights, one a block: on the
+//   H100, QKV 2048 x 768 M8 0.0572 ms against fused_proj_kernel's
+//   mma.sync tile's 0.0974 and one block per weight's 0.0618, SwiGLU
+//   0.1402 against 0.1961 (PERF.md).
 //   Bound now: the f32 operands cross from L2 once per tile, each A row
 //   block once per column block and each B column block once per row
-//   block (352 MB at w_down, 2048 x 3072 x 768 M8; 4.7 GB at lm_head M16,
-//   whose BN of 64 the three live chains per output cap); neither the
-//   limbing nor the MMAs, nor deeper stages, move its time much.  A
-//   cluster of two column tiles sharing A by TMA multicast measured
-//   slower on the H100 and is not kept.
+//   block (352 MB at w_down, 2048 x 3072 x 768 M8; about 600 MB at the
+//   SwiGLU prefill; 4.7 GB at lm_head M16, whose BN of 64 the three live
+//   chains per output cap); neither the limbing nor the MMAs, nor deeper
+//   stages, move its time much.  A cluster of two column tiles sharing A
+//   by TMA multicast measured slower on the H100 and is not kept.  M16's
+//   tile (168 registers, 20-36 bytes of spill) is no faster than the
+//   mma.sync tile at the training step's gate / up (0.1713 against 0.1648
+//   ms) and is faster at its QKV (0.0692 against 0.0805).
 //   Registers: one block an SM of 384 threads (one limbing warpgroup,
 //   from two limbs) leaves 168 a thread; from three limbs setmaxnreg
 //   moves the limbers' registers to the consumers (56 and 224 a thread),
@@ -45,28 +77,37 @@
 //   strided tile of mp_matmul.cu measured faster on the K-sharded
 //   lm_head at M16 and keeps that route (PERF.md).
 //
-// fused_matmul_split_kernel, the decode tile (M <= DEC_M).
-//   Bound: the bytes of the f32 weight, streamed by too few blocks: one
-//   block per 16 columns makes 48 blocks at N = 768.
+// matmul_split_kernel, the decode tile (M <= DEC_M) of the fused matmul
+// (its f32 weight) and of the pre-limbed matmul (PL: its stored planes).
+//   Bound: the bytes of the weight, streamed by too few blocks: one block
+//   per 16 columns makes 48 blocks at N = 768.
 //   Design: a thread-block cluster of S blocks (S <= 8) shares one 16-column
 //   slab; rank r runs a contiguous range of K's chunks through
-//   mp_matmul_common.cuh's decode_tile (its cp.async ring and limbing warps)
-//   and keeps each chunk's per-order sum tot_c in its shared memory; after
-//   cluster.sync() each rank takes 1/S of the slab's outputs and forms
-//   acc[o] = ((+0.0 + tot_0) + tot_1) + ... in chunk order, reading the
-//   other ranks' sums through distributed shared memory, then combines and
-//   stores; a last cluster.sync() keeps every rank's shared memory alive
-//   until the others have read it.  These are the single block's adds in
-//   the single block's order (acc never holds -0.0, so a chunk sum kept as
-//   +0.0 + tot_c adds the same as tot_c).  The plan (split_plan) takes the
-//   largest S whose blocks all fit on the card at once: S = 8 at w_down
-//   M8 (384 blocks of 6 chunks, 128 k a stage), 6 at wo, 1 at lm_head
-//   (2,000 slabs), where the kernel is fused_matmul_kernel's old decode
-//   tile as it was.
-//   Bound now: each rank runs a few short stages (3 of 128 k at w_down),
-//   so the ring's fill and the chunk sums' join through distributed
-//   shared memory, not the weight's bytes, set its time; the B stream is
-//   still cp.async, not TMA.
+//   mp_matmul_common.cuh's decode_tile and keeps each chunk's per-order sum
+//   tot_c in its shared memory; after cluster.sync() each rank takes 1/S
+//   of the slab's outputs and forms acc[o] = ((+0.0 + tot_0) + tot_1) +
+//   ... in chunk order, reading the other ranks' sums through distributed
+//   shared memory, then combines and stores; a last cluster.sync() keeps
+//   every rank's shared memory alive until the others have read it.
+//   These are the single block's adds in the single block's order (acc
+//   never holds -0.0, so a chunk sum kept as +0.0 + tot_c adds the same as
+//   tot_c).  The f32 weight comes through decode_tile's cp.async ring and
+//   limbing warps; the stored planes by TMA (one 16-column box of the
+//   rank's stage of k per plane, the 32-byte swizzle laying the rows as
+//   dec_col does, completing a ring slot's mbarrier), so its producer
+//   warps only copy A: 7% faster than their cp.async copies at w_down
+//   (0.0153 against 0.0165 ms, PERF.md).  The plan (split_plan) takes the
+//   largest S whose blocks all fit on the card at once: on the f32 weight
+//   S = 8 at w_down M8 (384 blocks of 6 chunks, 128 k a stage), 6 at wo;
+//   on stored planes (their bf16 ring, 8 blocks an SM) S = 8 at w_down
+//   (256 k a stage), 6 at wo, 4 at w_up; 1 at lm_head (2,000 slabs),
+//   where the kernels are the old decode tiles as they were
+//   (fused_matmul_decode_kernel, prelimbed_matmul_decode_kernel).
+//   Bound now: each rank runs one or two short stages, so the ring's
+//   fill, the launch of a cluster and the chunk sums' join through
+//   distributed shared memory, not the weight's bytes, set its time:
+//   pre-limbed w_down 0.0153 ms against 0.0014 of bytes; the f32 weight's
+//   B stream is still cp.async.
 //
 // Launch parameters the order leaves free, which the autotuner may set per
 // launch (mp_hopper_matmul_launch's p0, p1; 0 keeps the plan): the decode
@@ -79,6 +120,8 @@
 #include <cooperative_groups.h>
 #include <cuda.h>
 #include <cudaTypedefs.h>
+
+#include <cstring>
 
 #include "mp_matmul_common.cuh"
 
@@ -221,25 +264,6 @@ __device__ __forceinline__ void bar_arrive(int id, int n) {
   asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
 }
 
-// wait for the phase of ``parity`` of an mbarrier; a wait of about ten
-// seconds traps, so a stalled pipeline fails its launch instead of holding
-// the card
-__device__ __forceinline__ void mbar_wait(const uint64_t* bar, int parity) {
-  const long long t0 = clock64();
-  for (;;) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_addr(bar)), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (clock64() - t0 > (1LL << 34)) __trap();
-  }
-}
-
 __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
                                          int c0, int c1, int c2, int c3,
                                          uint64_t* bar) {
@@ -259,9 +283,9 @@ constexpr int HP = 2 * 128;            // the first limbing thread
 constexpr int HALIGN = 1024;           // the swizzle's alignment
 constexpr int BAR_FULL = 1, BAR_EMPTY = 3, BAR_LIMB = 5;  // named barriers
 
-// the tile's columns by format: NO accumulators, the order's sum and one
-// chain of BN / 2 registers each per thread within the registers of the
-// block's threads
+// the tile's columns by format and weights per block: NOUT x NO
+// accumulators, the order's sum and one chain of BN / 2 registers each per
+// thread within the registers of the block's threads (no = NOUT x NO)
 __host__ __device__ constexpr int hp_bn(int no) {
   return no == 1 ? 96 : no == 2 ? 64 : no == 3 ? 48 : no <= 5 ? 32
        : no <= 7 ? 24 : 8;
@@ -276,32 +300,37 @@ __host__ __device__ constexpr int64_t hp_plane_b(int bn) {
 // limbing warpgroups: two where the consumers' registers fit 512 threads
 // (one limb), else one
 __host__ __device__ constexpr int hp_lwg(int nl) { return nl == 1 ? 2 : 1; }
-// bytes of one plane buffer (NL A planes of HM x KC, NL B planes, bf16) and
-// of one f32 stage (A's HM x KC, B's KC x BN)
-__host__ __device__ constexpr int64_t hp_planes(int nl, int bn) {
-  return (int64_t)nl * ((int64_t)HM * KC * 2 + hp_plane_b(bn));
+// bytes of one plane buffer (NL A planes of HM x KC, NL B planes per
+// weight, bf16) and of one f32 stage (A's HM x KC, each weight's KC x BN)
+__host__ __device__ constexpr int64_t hp_planes(int nl, int bn, int nout) {
+  return (int64_t)nl * ((int64_t)HM * KC * 2 + nout * hp_plane_b(bn));
 }
-__host__ __device__ constexpr int64_t hp_stage(int bn) {
-  return (int64_t)(HM + bn) * KC * 4;
+__host__ __device__ constexpr int64_t hp_stage(int bn, int nout) {
+  return (int64_t)(HM + nout * bn) * KC * 4;
 }
 // plane buffers: two where two and two stages fit, else one
-__host__ __device__ constexpr int hp_npb(int nl, int bn) {
-  return HALIGN + 2 * hp_planes(nl, bn) + 2 * hp_stage(bn) + 64 <= SMEM_MAX
+__host__ __device__ constexpr int hp_npb(int nl, int bn, int nout) {
+  return HALIGN + 2 * hp_planes(nl, bn, nout) + 2 * hp_stage(bn, nout) + 64 <=
+                 SMEM_MAX
              ? 2 : 1;
 }
-__host__ __device__ constexpr int64_t hp_smem(int nl, int bn, int rs) {
-  return HALIGN + hp_npb(nl, bn) * hp_planes(nl, bn) + rs * hp_stage(bn) +
-         8 * 4;
+__host__ __device__ constexpr int64_t hp_smem(int nl, int bn, int rs,
+                                              int nout) {
+  return HALIGN + hp_npb(nl, bn, nout) * hp_planes(nl, bn, nout) +
+         rs * hp_stage(bn, nout) + 8 * 4;
 }
 // f32 stages: three where they fit, else two (deeper rings did not move
 // the tile's time on the H100)
-__host__ __device__ constexpr int hp_rs(int nl, int bn) {
-  return hp_smem(nl, bn, 3) <= SMEM_MAX ? 3 : 2;
+__host__ __device__ constexpr int hp_rs(int nl, int bn, int nout) {
+  return hp_smem(nl, bn, 3, nout) <= SMEM_MAX ? 3 : 2;
 }
 
-template <int NL, int NO>
+// NOUT weights per block: the fused matmul's one; the projection's one
+// (the grid walks its weights) or, gated, both (silu(g) * u needs g and
+// u of one output in one thread)
+template <int NL, int NO, int NOUT = 1>
 struct Hp {
-  static constexpr int BN = hp_bn(NO);
+  static constexpr int BN = hp_bn(NOUT * NO);
   static constexpr int R = BN / 2;     // accumulator registers per chain
   static constexpr bool NMAJ = hp_nmaj(BN);
   static constexpr int LT = 128 * hp_lwg(NL);   // limbing threads
@@ -313,11 +342,12 @@ struct Hp {
   // M16 keeps 168 and a 20-byte spill (PERF.md)
   static constexpr bool MOVE_REGS = NL >= 3;
   static constexpr int LREG = 56, CREG = 224;
-  static constexpr int NPB = hp_npb(NL, BN);
-  static constexpr int RS = hp_rs(NL, BN);
+  static constexpr int NPB = hp_npb(NL, BN, NOUT);
+  static constexpr int RS = hp_rs(NL, BN, NOUT);
   static constexpr int64_t PA = (int64_t)HM * KC * 2;   // one A plane
   static constexpr int64_t PB = hp_plane_b(BN);         // one B plane
-  static_assert(hp_smem(NL, BN, RS) <= SMEM_MAX, "the f32 stages fit");
+  static constexpr int64_t SMEM = hp_smem(NL, BN, RS, NOUT);
+  static_assert(SMEM <= SMEM_MAX, "the f32 stages fit");
   static_assert(PB % HALIGN == 0, "B planes keep the swizzle's alignment");
   static_assert((LT / 16) % 8 == 0 && HM * KC / 4 % LT == 0,
                 "a limber's A chunks share one swizzle phase");
@@ -337,50 +367,70 @@ __device__ __forceinline__ void chain(float (&d)[R], uint64_t da,
   wg_commit();
 }
 
-template <int NL, int NO, bool GEN, bool PARTS>
-__global__ void __launch_bounds__(Hp<NL, NO>::HT, 1) tma_matmul_kernel(
-    const __grid_constant__ CUtensorMap ta,
-    const __grid_constant__ CUtensorMap tb, float* C, int64_t c_sb0,
-    int64_t c_sb1, int64_t c_sr, int64_t c_sc, int64_t c_so, int nb1, int M,
-    int N, int K, int n_limbs, int max_order) {
-  using H = Hp<NL, NO>;
+// what a block of the prefill tile stores: the combined sum (the fused
+// matmul), the per-order sums (its partials epilogue), or the projection's
+// epilogue (proj_store)
+enum class Epi { COMBINE, PARTS, PROJ };
+
+// the tile's tensor maps: A's, and each weight's (the fused matmul has one)
+struct TmaMaps {
+  CUtensorMap a;
+  CUtensorMap b[MAX_OUT];
+};
+
+// where the tile stores: the fused matmul's C (strides in elements, batch
+// z = z0 * nb1 + z1; PARTS: order o's plane at C + o * c_so) or the
+// projection's ProjArgs (PROJ; weights t0 = blockIdx.y * NOUT onwards)
+struct TmaArgs {
+  float* C;
+  int64_t c_sb0, c_sb1, c_sr, c_sc, c_so;
+  int nb1, M, N, K, n_limbs, max_order;
+  ProjArgs proj;
+};
+
+template <int NL, int NO, int NOUT, bool GEN, Epi EPI>
+__global__ void __launch_bounds__(Hp<NL, NO, NOUT>::HT, 1) tma_matmul_kernel(
+    const __grid_constant__ TmaMaps maps, const TmaArgs t) {
+  using H = Hp<NL, NO, NOUT>;
   constexpr int BN = H::BN, R = H::R, NPB = H::NPB, RS = H::RS, LT = H::LT,
                 HT = H::HT;
   extern __shared__ unsigned char hp_raw[];
   unsigned char* const sm = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(hp_raw) + HALIGN - 1) &
       ~(uintptr_t)(HALIGN - 1));
-  constexpr int64_t PLANES = hp_planes(NL, BN), STAGE = hp_stage(BN);
+  constexpr int64_t PLANES = hp_planes(NL, BN, NOUT);
+  constexpr int64_t STAGE = hp_stage(BN, NOUT);
   auto plane_a = [&](int p, int i) {
     return reinterpret_cast<__nv_bfloat16*>(sm + p * PLANES + i * H::PA);
   };
-  auto plane_b = [&](int p, int j) {
+  auto plane_b = [&](int p, int w, int j) {   // weight w's limb j
     return reinterpret_cast<__nv_bfloat16*>(sm + p * PLANES + NL * H::PA +
-                                            j * H::PB);
+                                            (w * NL + j) * H::PB);
   };
   auto stage_a = [&](int r) {
     return reinterpret_cast<float*>(sm + NPB * PLANES + r * STAGE);
   };
-  auto stage_b = [&](int r) {
+  auto stage_b = [&](int r, int w) {
     return reinterpret_cast<float*>(sm + NPB * PLANES + r * STAGE +
-                                    (int64_t)HM * KC * 4);
+                                    ((int64_t)HM + w * BN) * KC * 4);
   };
   uint64_t* const full =   // full[r]: stage r has landed (TMA's bytes)
       reinterpret_cast<uint64_t*>(sm + NPB * PLANES + RS * STAGE);
 
-  const int nl = GEN ? n_limbs : NL;
-  const int mo = GEN ? max_order : NO - 1;
+  const int M = t.M, N = t.N, K = t.K;
+  const int nl = GEN ? t.n_limbs : NL;
+  const int mo = GEN ? t.max_order : NO - 1;
   const int mt = (M + HM - 1) / HM;
   const int m0 = (int)(blockIdx.x % mt) * HM;   // M first (mp_matmul.cu)
   const int n0 = (int)(blockIdx.x / mt) * BN;
-  const int z0 = (int)blockIdx.z / nb1, z1 = (int)blockIdx.z % nb1;
+  // the block's first weight (the fused matmul has one)
+  const int t0 = EPI == Epi::PROJ ? (int)blockIdx.y * NOUT : 0;
+  const int z0 = (int)blockIdx.z / t.nb1, z1 = (int)blockIdx.z % t.nb1;
   const int stages = (K + KC - 1) / KC;
   const int tid = threadIdx.x;
 
   if (tid == HP) {
-    for (int r = 0; r < RS; ++r)
-      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
-                       smem_addr(full + r)));
+    for (int r = 0; r < RS; ++r) mbar_init(full + r);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
@@ -391,13 +441,12 @@ __global__ void __launch_bounds__(Hp<NL, NO>::HT, 1) tma_matmul_kernel(
       asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(H::LREG));
     const int lt = tid - HP;
     auto issue = [&](int s, int r) {   // stage s into slot r
-      asm volatile(
-          "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-              smem_addr(full + r)),
-          "r"((int)STAGE)
-          : "memory");
-      tma_load(stage_a(r), &ta, s * KC, m0, z1, z0, full + r);
-      tma_load(stage_b(r), &tb, n0, s * KC, z1, z0, full + r);
+      mbar_expect(full + r, (int)STAGE);
+      tma_load(stage_a(r), &maps.a, s * KC, m0, z1, z0, full + r);
+#pragma unroll
+      for (int w = 0; w < NOUT; ++w)
+        tma_load(stage_b(r, w), &maps.b[t0 + w], n0, s * KC, z1, z0,
+                 full + r);
     };
     if (lt == 0)
       for (int s = 0; s < RS && s < stages; ++s) issue(s, s);
@@ -412,28 +461,31 @@ __global__ void __launch_bounds__(Hp<NL, NO>::HT, 1) tma_matmul_kernel(
       mbar_wait(full + r, (s / RS) & 1);
       if (s >= NPB) bar_sync(BAR_EMPTY + p, HT);  // the consumers are done
       const float* const fa = stage_a(r);
-      const float* const fb = stage_b(r);
 #pragma unroll
       for (int i = 0; i < HM * KC / 4 / LT; ++i)
         limb4v<NL>(*reinterpret_cast<const float4*>(fa + a_src + i * A_STEP),
                    plane_a(p, 0) + a_dst + i * A_STEP, H::PA / 2, nl);
-      if constexpr (H::NMAJ) {
-        // B as it lies: 4 columns of one k per chunk
+#pragma unroll
+      for (int w = 0; w < NOUT; ++w) {
+        const float* const fb = stage_b(r, w);
+        if constexpr (H::NMAJ) {
+          // B as it lies: 4 columns of one k per chunk
 #pragma unroll 4
-        for (int it = lt; it < BN * KC / 4; it += LT) {
-          const int k = it / (BN / 4), n = 4 * (it % (BN / 4));
-          limb4v<NL>(*reinterpret_cast<const float4*>(fb + k * BN + n),
-                     plane_b(p, 0) + swz_n(k, n), H::PB / 2, nl);
-        }
-      } else {
-        // B transposed: 4 k of one column per chunk
+          for (int it = lt; it < BN * KC / 4; it += LT) {
+            const int k = it / (BN / 4), n = 4 * (it % (BN / 4));
+            limb4v<NL>(*reinterpret_cast<const float4*>(fb + k * BN + n),
+                       plane_b(p, w, 0) + swz_n(k, n), H::PB / 2, nl);
+          }
+        } else {
+          // B transposed: 4 k of one column per chunk
 #pragma unroll 4
-        for (int it = lt; it < BN * KC / 4; it += LT) {
-          const int n = it % BN, k4 = it / BN;
-          const float4 x = make_float4(
-              fb[(4 * k4) * BN + n], fb[(4 * k4 + 1) * BN + n],
-              fb[(4 * k4 + 2) * BN + n], fb[(4 * k4 + 3) * BN + n]);
-          limb4v<NL>(x, plane_b(p, 0) + swz(n, k4), H::PB / 2, nl);
+          for (int it = lt; it < BN * KC / 4; it += LT) {
+            const int n = it % BN, k4 = it / BN;
+            const float4 x = make_float4(
+                fb[(4 * k4) * BN + n], fb[(4 * k4 + 1) * BN + n],
+                fb[(4 * k4 + 2) * BN + n], fb[(4 * k4 + 3) * BN + n]);
+            limb4v<NL>(x, plane_b(p, w, 0) + swz(n, k4), H::PB / 2, nl);
+          }
         }
       }
       // the planes are read by wgmma (the async proxy)
@@ -448,39 +500,45 @@ __global__ void __launch_bounds__(Hp<NL, NO>::HT, 1) tma_matmul_kernel(
     // the consumer warpgroups: rows 64 w .. 64 w + 63 of the tile
     if constexpr (H::MOVE_REGS)
       asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(H::CREG));
-    const int w = tid >> 7;
-    float acc[NO][R];
+    const int wg = tid >> 7;
+    float acc[NOUT][NO][R];
 #pragma unroll
-    for (int o = 0; o < NO; ++o)
+    for (int w = 0; w < NOUT; ++w)
 #pragma unroll
-      for (int e = 0; e < R; ++e) acc[o][e] = 0.f;
+      for (int o = 0; o < NO; ++o)
+#pragma unroll
+        for (int e = 0; e < R; ++e) acc[w][o][e] = 0.f;
 #pragma unroll 1
     for (int s = 0; s < stages; ++s) {
       const int p = s % NPB;
       bar_sync(BAR_FULL + p, HT);
-      auto da = [&](int i) { return desc_k(plane_a(p, i) + 64 * w * KC); };
-      auto db = [&](int j) {
-        return H::NMAJ ? desc_n(plane_b(p, j)) : desc_k(plane_b(p, j));
+      auto da = [&](int i) { return desc_k(plane_a(p, i) + 64 * wg * KC); };
+      auto db = [&](int w, int j) {
+        return H::NMAJ ? desc_n(plane_b(p, w, j)) : desc_k(plane_b(p, w, j));
       };
 #pragma unroll
       for (int o = 0; o < NO; ++o) {
         if (o > mo) continue;
         const int i0 = o - nl + 1 > 0 ? o - nl + 1 : 0;
         const int i1 = o < nl - 1 ? o : nl - 1;
-        // the order's first kept product, then the others in turn
-        float tot[R];
-        chain<R, H::NMAJ>(tot, da(i0), db(o - i0));
-        wg_wait<0>();
-#pragma unroll 1
-        for (int i = i0 + 1; i <= i1; ++i) {
-          float f[R];
-          chain<R, H::NMAJ>(f, da(i), db(o - i));
+#pragma unroll
+        for (int w = 0; w < NOUT; ++w) {
+          // the order's first kept product, then the others in turn; each
+          // weight's sums its own
+          float tot[R];
+          chain<R, H::NMAJ>(tot, da(i0), db(w, o - i0));
           wg_wait<0>();
+#pragma unroll 1
+          for (int i = i0 + 1; i <= i1; ++i) {
+            float f[R];
+            chain<R, H::NMAJ>(f, da(i), db(w, o - i));
+            wg_wait<0>();
 #pragma unroll
-          for (int e = 0; e < R; ++e) tot[e] = tot[e] + f[e];
+            for (int e = 0; e < R; ++e) tot[e] = tot[e] + f[e];
+          }
+#pragma unroll
+          for (int e = 0; e < R; ++e) acc[w][o][e] = acc[w][o][e] + tot[e];
         }
-#pragma unroll
-        for (int e = 0; e < R; ++e) acc[o][e] = acc[o][e] + tot[e];
       }
       if (s + NPB < stages) bar_arrive(BAR_EMPTY + p, HT);
     }
@@ -488,22 +546,30 @@ __global__ void __launch_bounds__(Hp<NL, NO>::HT, 1) tma_matmul_kernel(
     // accumulator e of the warpgroup's m64nBN fragment: row 16 warp + lane / 4
     // + 8 ((e / 2) % 2), column 8 (e / 4) + 2 (lane % 4) + e % 2
     const int lane = tid & 31, wi = (tid >> 5) & 3;
-    float* const Cz = C + z0 * c_sb0 + z1 * c_sb1;
+    float* const Cz = t.C + z0 * t.c_sb0 + z1 * t.c_sb1;
 #pragma unroll
     for (int e = 0; e < R; ++e) {
       const int64_t gm =
-          m0 + 64 * w + 16 * wi + (lane >> 2) + 8 * ((e >> 1) & 1);
+          m0 + 64 * wg + 16 * wi + (lane >> 2) + 8 * ((e >> 1) & 1);
       const int64_t gn = n0 + 8 * (e >> 2) + 2 * (lane & 3) + (e & 1);
       if (gm >= M || gn >= N) continue;
-      if constexpr (PARTS) {
+      if constexpr (EPI == Epi::PARTS) {
 #pragma unroll
         for (int o = 0; o < NO; ++o)
-          if (o <= mo) Cz[o * c_so + gm * c_sr + gn * c_sc] = acc[o][e];
+          if (o <= mo) Cz[o * t.c_so + gm * t.c_sr + gn * t.c_sc] = acc[0][o][e];
       } else {
-        float per_order[NO];
+        float y[NOUT];
 #pragma unroll
-        for (int o = 0; o < NO; ++o) per_order[o] = acc[o][e];
-        Cz[gm * c_sr + gn * c_sc] = combine_orders<NO>(per_order, mo);
+        for (int w = 0; w < NOUT; ++w) {
+          float per_order[NO];
+#pragma unroll
+          for (int o = 0; o < NO; ++o) per_order[o] = acc[w][o][e];
+          y[w] = combine_orders<NO>(per_order, mo);
+        }
+        if constexpr (EPI == Epi::PROJ)
+          proj_store<NOUT>(t.proj, gm, gn, t0, y);
+        else
+          Cz[gm * t.c_sr + gn * t.c_sc] = y[0];
       }
     }
   }
@@ -513,6 +579,14 @@ __global__ void __launch_bounds__(Hp<NL, NO>::HT, 1) tma_matmul_kernel(
 // The decode tile.
 
 constexpr int SPLIT_MAX = 8;   // the portable cluster size
+
+// The split decode tile's arguments: the fused matmul's (its f32 weight in
+// m.b), or the pre-limbed matmul's (PL: A, C, strides and sizes in m, batch
+// 1, its stored planes in bp)
+struct DecodeArgs {
+  MatmulArgs m;
+  Planes bp;
+};
 
 // fused_matmul_kernel's decode tile as one block per DEC_N columns and batch
 // entry (S = 1): mp_matmul_common.cuh's decode_tile as it is
@@ -546,14 +620,34 @@ __global__ void __launch_bounds__(DEC_CT + 128)
   }
 }
 
+// the pre-limbed matmul's decode tile as one block per DEC_N columns (S =
+// 1, as at lm_head's 2,000 slabs): mp_matmul.cu's old decode tile as it
+// was, its stored planes by cp.async.  (With its arguments in DecodeArgs
+// it measured 9% slower at lm_head, PERF.md.)
+template <int NL, int NO, bool GEN>
+__global__ void __launch_bounds__(DEC_CT + 128)
+    prelimbed_matmul_decode_kernel(PrelimbedArgs p, int dk) {
+  const float* const B[1] = {nullptr};
+  decode_tile<NL, NO, GEN, true>(
+      p.a, p.a_sr, 1, B, 0, 0, p.b, (int)p.M, p.N, p.K, p.n_limbs,
+      p.max_order, dk, nullptr, nullptr,
+      [&](int r, int64_t gn, const float (&y)[1]) {
+        p.c[r * p.c_sr + gn] = y[0];
+      },
+      (int64_t)blockIdx.x * DEC_N);
+}
+
 // The cluster-split decode tile: block x = slab * S + rank of a cluster of
 // S blocks; rank r runs chunks [r cpr, (r + 1) cpr) of K into its tot_c at
 // byte tot_off of the dynamic shared memory, then the cluster joins them.
-template <int NL, int NO, bool GEN, bool PARTS>
+// PL: B is the stored planes d.bp, fed by TMA through ``bmap`` (k counted
+// from 0 of the whole K: the rank's boxes start at its first k).
+template <int NL, int NO, bool GEN, bool PARTS, bool PL>
 __global__ void __launch_bounds__(DEC_CT + 128)
-    fused_matmul_split_kernel(MatmulArgs p, int dk, int S, int cpr,
-                              int tot_off) {
+    matmul_split_kernel(DecodeArgs d, const __grid_constant__ CUtensorMap bmap,
+                        int dk, int S, int cpr, int tot_off) {
   cg::cluster_group cluster = cg::this_cluster();
+  const MatmulArgs& p = d.m;
   const int64_t z0 = blockIdx.z / p.nb1, z1 = blockIdx.z % p.nb1;
   const int rank = (int)cluster.block_rank();
   const int64_t n0 = (int64_t)(blockIdx.x / S) * DEC_N;
@@ -561,15 +655,17 @@ __global__ void __launch_bounds__(DEC_CT + 128)
   const int64_t ke = kb + (int64_t)cpr * KC < p.K ? kb + (int64_t)cpr * KC
                                                   : p.K;
   const int64_t kl = ke > kb ? ke - kb : 0;
-  const float* const B[1] = {p.b + z0 * p.b_sb0 + z1 * p.b_sb1 +
-                             kb * p.b_sr};
+  const float* const B[1] = {
+      PL ? nullptr : p.b + z0 * p.b_sb0 + z1 * p.b_sb1 + kb * p.b_sr};
   const float* const A = p.a + z0 * p.a_sb0 + z1 * p.a_sb1 + kb * p.a_sc;
+  Planes bp = d.bp;   // the rank's k rows (for copies; TMA counts from 0)
+  bp.p += kb * bp.sr;
   extern __shared__ __align__(16) unsigned char dec_smem[];
   float* const tots = reinterpret_cast<float*>(dec_smem + tot_off);
-  decode_tile<NL, NO, GEN, false, false, 1, false, true>(
-      A, p.a_sr, p.a_sc, B, p.b_sr, p.b_sc, Planes{}, (int)p.M, p.N, kl,
+  decode_tile<NL, NO, GEN, PL, false, 1, false, true>(
+      A, p.a_sr, p.a_sc, B, p.b_sr, p.b_sc, bp, (int)p.M, p.N, kl,
       p.n_limbs, p.max_order, dk, nullptr, nullptr,
-      [](int, int64_t, const float (&)[1]) {}, n0, tots);
+      [](int, int64_t, const float (&)[1]) {}, n0, tots, &bmap, (int)kb);
   cluster.sync();   // every rank's chunk sums are written
   const int mo = GEN ? p.max_order : NO - 1;
   const int nch = (int)((p.K + KC - 1) / KC);
@@ -613,50 +709,63 @@ __host__ __device__ inline int split_norm(int64_t nch, int s) {
 }
 
 // the split tile's shared memory for a rank's K range kr at dk k per
-// stage: the decode tile's (16-aligned), then the chunk sums of cpr chunks
-__host__ __device__ inline int64_t split_smem_bytes(int nl, int no, int M,
-                                                    int64_t kr, int dk,
-                                                    int cpr) {
+// stage: the decode tile's (pl: on stored planes, with the TMA ring's
+// slack; 16-aligned), then the chunk sums of cpr chunks
+__host__ __device__ inline int64_t split_tot_off(bool pl, int nl, int M,
+                                                 int64_t kr, int dk) {
   const int64_t stages = dk > 0 ? (kr + dk - 1) / dk : 0;
   const int slots = (int)(stages < DecRing<1>::S ? stages : DecRing<1>::S);
-  const int64_t base = (dec_smem_bytes(false, nl, M, dk, slots, 1) + 15) /
-                       16 * 16;
-  return base + (int64_t)cpr * no * DEC_M * DEC_N * 4;
+  return (dec_split_bytes(pl, nl, M, dk, slots) + 15) / 16 * 16;
+}
+
+__host__ __device__ inline int64_t split_smem_bytes(bool pl, int nl, int no,
+                                                    int M, int64_t kr, int dk,
+                                                    int cpr) {
+  return split_tot_off(pl, nl, M, kr, dk) +
+         (int64_t)cpr * no * DEC_M * DEC_N * 4;
 }
 
 // the split tile's k per stage for a rank's K range: the ring's most
 // (ring_k), or the range rounded up to KC when shorter, halved in
 // multiples of KC until the block fits the card's opt-in shared memory
-__host__ __device__ inline int split_dk(int nl, int no, int M, int64_t kr,
-                                        int cpr, int ring_k, int64_t optin) {
+__host__ __device__ inline int split_dk(bool pl, int nl, int no, int M,
+                                        int64_t kr, int cpr, int ring_k,
+                                        int64_t optin) {
   int dk = (int)(kr < ring_k ? (kr + KC - 1) / KC * KC : ring_k);
-  while (dk > KC && split_smem_bytes(nl, no, M, kr, dk, cpr) > optin)
+  while (dk > KC && split_smem_bytes(pl, nl, no, M, kr, dk, cpr) > optin)
     dk = (dk / 2 + KC - 1) / KC * KC;
   return dk;
+}
+
+// blocks of the split tile an SM holds by registers, at 64 a thread: 5 of
+// the fused matmul's 192 threads, 8 of the pre-limbed kernel's 128 (its
+// producers only copy)
+__host__ __device__ constexpr int split_per_sm(bool pl) {
+  return 65536 / ((DEC_CT + 32 * DecRing<1>::P(pl)) * 64);
 }
 
 // The decode plan: the largest cluster size S (<= SPLIT_MAX, as the tile
 // runs it) whose S blocks per 16-column slab (times the batch) all fit on
 // the card at once at split_dk's stage or, failing that, at a shorter one
 // (halved down to KC): blocks per SM by shared memory, by threads and by
-// registers at 64 a thread (SPLIT_PER_SM).  Returns S and its stage in
-// *dk; S = 1 (*dk = 0: launch_decode's choice) where no S fits, as at
+// registers at 64 a thread (split_per_sm).  pl: B as stored bf16 planes
+// (their ring, not the f32 weight's).  Returns S and its stage in *dk;
+// S = 1 (*dk = 0: launch_decode's choice) where no S fits, as at
 // lm_head's 2,000 slabs: the single-block decode tile.
-constexpr int SPLIT_PER_SM = 5;
-__host__ __device__ inline int split_plan(int64_t slabs, int64_t K, int nl,
-                                          int no, int M, int ring_k, int sms,
-                                          int64_t sm_smem, int64_t optin,
-                                          int* dk) {
+__host__ __device__ inline int split_plan(bool pl, int64_t slabs, int64_t K,
+                                          int nl, int no, int M, int ring_k,
+                                          int sms, int64_t sm_smem,
+                                          int64_t optin, int* dk) {
   const int64_t nch = (K + KC - 1) / KC;
   for (int s = SPLIT_MAX; s > 1; --s) {
     if (split_norm(nch, s) != s) continue;   // a smaller s runs as this one
     const int cpr = (int)((nch + s - 1) / s);
     const int64_t kr = (int64_t)cpr * KC;
-    for (int d = split_dk(nl, no, M, kr, cpr, ring_k, optin);;
+    for (int d = split_dk(pl, nl, no, M, kr, cpr, ring_k, optin);;
          d = (d / 2 + KC - 1) / KC * KC) {
-      const int64_t smem = split_smem_bytes(nl, no, M, kr, d, cpr);
+      const int64_t smem = split_smem_bytes(pl, nl, no, M, kr, d, cpr);
       int64_t per_sm = sm_smem / (smem + 1024);   // 1 KB is the runtime's
-      if (per_sm > SPLIT_PER_SM) per_sm = SPLIT_PER_SM;
+      if (per_sm > split_per_sm(pl)) per_sm = split_per_sm(pl);
       if (smem <= optin && s * slabs <= per_sm * sms) {
         *dk = d;
         return s;
@@ -666,77 +775,6 @@ __host__ __device__ inline int split_plan(int64_t slabs, int64_t K, int nl,
   }
   *dk = 0;
   return 1;
-}
-
-// M <= DEC_M: the plan's S (or the tuner's s_req), and the k per stage
-// (launch_decode's choice for the rank's K range, or the tuner's dk_req)
-template <int NL, int NO, bool GEN, bool PARTS>
-cudaError_t launch_split(const MatmulArgs& p, int64_t nb0, int dk_req,
-                         int s_req, cudaStream_t st) {
-  Card cd;
-  cudaError_t err = card(cd);
-  if (err != cudaSuccess) return err;
-  const int nl = GEN ? p.n_limbs : NL;
-  const int64_t nz = nb0 * p.nb1;
-  const int64_t nx = (p.N + DEC_N - 1) / DEC_N;
-  const int64_t nch = (p.K + KC - 1) / KC;
-  if (s_req > SPLIT_MAX) return cudaErrorInvalidValue;
-  int plan_dk = 0;
-  const int S = s_req > 0 ? split_norm(nch, s_req)
-                          : split_plan(nx * nz, p.K, nl, NO, (int)p.M,
-                                       DecRing<NL>::K, cd.sms, cd.sm_smem,
-                                       cd.optin, &plan_dk);
-  if (S == 1)
-    return launch_decode<NL, 1,
-                         fused_matmul_decode_kernel<NL, NO, GEN, PARTS>>(
-        p, false, nl, p.M, p.N, p.K, 1, nz, dk_req, st);
-  const int cpr = (int)((nch + S - 1) / S);
-  const int64_t kr = (int64_t)cpr * KC;
-  auto kernel = fused_matmul_split_kernel<NL, NO, GEN, PARTS>;
-  static bool raised = false;
-  if (!raised) {
-    err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, cd.optin);
-    if (err != cudaSuccess) return err;
-    raised = true;
-  }
-  auto smem_of = [&](int dk) {
-    return split_smem_bytes(nl, NO, (int)p.M, kr, dk, cpr);
-  };
-  int dk = plan_dk > 0 ? plan_dk
-                       : split_dk(nl, NO, (int)p.M, kr, cpr, DecRing<NL>::K,
-                                  cd.optin);
-  if (dk_req > 0) {
-    if (dk_req % KC || dk_req > DecRing<NL>::K || smem_of(dk_req) > cd.optin)
-      return cudaErrorInvalidValue;
-    dk = dk_req;
-  }
-  const int64_t smem = smem_of(dk);
-  if (smem > cd.optin) return cudaErrorInvalidValue;
-  const int64_t stages = (kr + dk - 1) / dk;
-  const int slots = (int)(stages < DecRing<NL>::S ? stages : DecRing<NL>::S);
-  const int tot_off =
-      (int)((dec_smem_bytes(false, nl, (int)p.M, dk, slots, 1) + 15) / 16 *
-            16);
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)(nx * S), 1, (unsigned)nz);
-  cfg.blockDim = dim3(DEC_CT + 32 * DecRing<NL>::P(false), 1, 1);
-  cfg.dynamicSmemBytes = (size_t)smem;
-  cfg.stream = st;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = (unsigned)S;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  int clusters = 0;
-  err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
-  if (err != cudaSuccess) return err;
-  if (clusters < 1) return cudaErrorInvalidConfiguration;
-  err = cudaLaunchKernelEx(&cfg, kernel, p, dk, S, cpr, tot_off);
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -789,41 +827,222 @@ bool tma_operand(const void* base, int64_t sc, int64_t sr, int64_t nb1,
          (nb1 == 1 || ok(sb1)) && (nb0 == 1 || ok(sb0));
 }
 
+// the stored planes (nst of them, a plane stride of ``plane`` and a row
+// stride of ``sr`` elements, bf16) as a 3-d map (columns, k, plane) with a
+// box of DEC_N columns by dk k in the 32-byte swizzle (the decode tile's
+// dec_col layout), zeros past every edge; false where a map cannot read
+// them (the planes' rows or plane stride off 16 bytes, a misaligned base)
+bool make_planes_map(CUtensorMap* map, const Planes& bp, int nst, int64_t N,
+                     int64_t K, int dk) {
+  const EncodeTiled fn = encode_tiled();
+  auto ok = [](int64_t s) { return s > 0 && s % 8 == 0 && s < (1LL << 39); };
+  if (fn == nullptr || reinterpret_cast<uintptr_t>(bp.p) % 16 != 0 ||
+      !ok(bp.sr) || (nst > 1 && !ok(bp.plane)) || N > INT32_MAX ||
+      K > INT32_MAX)
+    return false;
+  const int64_t plane = nst > 1 ? bp.plane : bp.sr * K;
+  cuuint64_t dims[3] = {(cuuint64_t)N, (cuuint64_t)K, (cuuint64_t)nst};
+  cuuint64_t strides[2] = {(cuuint64_t)bp.sr * 2, (cuuint64_t)plane * 2};
+  cuuint32_t box[3] = {(cuuint32_t)DEC_N, (cuuint32_t)dk, 1};
+  cuuint32_t es[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+            const_cast<__nv_bfloat16*>(bp.p), dims, strides, box, es,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_32B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// M <= DEC_M: the plan's S (or the tuner's s_req), and the k per stage
+// (launch_decode's choice for the rank's K range, or the tuner's dk_req).
+// PL (the pre-limbed matmul, batch 1): the stored planes d.bp, by TMA;
+// planes a map cannot read run the single-block tile (S = 1), whose
+// cp.async copies take any layout, with the same bits.
+template <int NL, int NO, bool GEN, bool PARTS, bool PL>
+cudaError_t launch_split(const DecodeArgs& d, int64_t nb0, int dk_req,
+                         int s_req, cudaStream_t st) {
+  const MatmulArgs& p = d.m;
+  Card cd;
+  cudaError_t err = card(cd);
+  if (err != cudaSuccess) return err;
+  const int nl = GEN ? p.n_limbs : NL;
+  const int64_t nz = nb0 * p.nb1;
+  const int64_t nx = (p.N + DEC_N - 1) / DEC_N;
+  const int64_t nch = (p.K + KC - 1) / KC;
+  if (s_req > SPLIT_MAX) return cudaErrorInvalidValue;
+  int plan_dk = 0;
+  int S = s_req > 0 ? split_norm(nch, s_req)
+                    : split_plan(PL, nx * nz, p.K, nl, NO, (int)p.M,
+                                 DecRing<NL>::K, cd.sms, cd.sm_smem, cd.optin,
+                                 &plan_dk);
+  const int nst = PL ? (d.bp.n_stored < nl ? d.bp.n_stored : nl) : 0;
+  CUtensorMap bmap;
+  memset(&bmap, 0, sizeof(bmap));
+  const int cpr = (int)((nch + S - 1) / S);
+  const int64_t kr = (int64_t)cpr * KC;
+  int dk = plan_dk > 0 ? plan_dk
+                       : split_dk(PL, nl, NO, (int)p.M, kr, cpr,
+                                  DecRing<NL>::K, cd.optin);
+  auto smem_of = [&](int k) {
+    return split_smem_bytes(PL, nl, NO, (int)p.M, kr, k, cpr);
+  };
+  if (dk_req > 0 && S > 1) {
+    if (dk_req % KC || dk_req > DecRing<NL>::K || smem_of(dk_req) > cd.optin)
+      return cudaErrorInvalidValue;
+    dk = dk_req;
+  }
+  if constexpr (PL) {
+    if (S > 1 && !make_planes_map(&bmap, d.bp, nst, p.N, p.K, dk)) {
+      if (s_req > 1) return cudaErrorInvalidValue;
+      S = 1;
+    }
+  }
+  if (S == 1) {
+    if constexpr (PL) {
+      const PrelimbedArgs q{p.a, d.bp, p.c, p.a_sr, p.c_sr,
+                            p.M, p.N, p.K, p.n_limbs, p.max_order};
+      return launch_decode<NL, 1, prelimbed_matmul_decode_kernel<NL, NO, GEN>>(
+          q, true, nl, p.M, p.N, p.K, 1, 1, dk_req, st);
+    } else {
+      return launch_decode<NL, 1,
+                           fused_matmul_decode_kernel<NL, NO, GEN, PARTS>>(
+          p, false, nl, p.M, p.N, p.K, 1, nz, dk_req, st);
+    }
+  }
+  auto kernel = matmul_split_kernel<NL, NO, GEN, PARTS, PL>;
+  static bool raised = false;
+  if (!raised) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, cd.optin);
+    if (err != cudaSuccess) return err;
+    raised = true;
+  }
+  const int64_t smem = smem_of(dk);
+  if (smem > cd.optin) return cudaErrorInvalidValue;
+  const int tot_off = (int)split_tot_off(PL, nl, (int)p.M, kr, dk);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(nx * S), 1, (unsigned)nz);
+  cfg.blockDim = dim3(DEC_CT + 32 * DecRing<NL>::P(PL), 1, 1);
+  cfg.dynamicSmemBytes = (size_t)smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)S;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int clusters = 0;
+  err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+  if (err != cudaSuccess) return err;
+  if (clusters < 1) return cudaErrorInvalidConfiguration;
+  err = cudaLaunchKernelEx(&cfg, kernel, d, bmap, dk, S, cpr, tot_off);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// Launch one prefill-tile kernel: NOUT weights a block, ny blocks of
+// weights (grid.y), nz batch entries (grid.z); the kernel's dynamic shared
+// memory limit is raised to the tile's need once per kernel.
+template <int NL, int NO, int NOUT, bool GEN, Epi EPI>
+cudaError_t launch_tma_kernel(const TmaMaps& maps, const TmaArgs& t,
+                              unsigned ny, unsigned nz, cudaStream_t st) {
+  using H = Hp<NL, NO, NOUT>;
+  auto kernel = tma_matmul_kernel<NL, NO, NOUT, GEN, EPI>;
+  static bool raised = false;
+  if (!raised) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)H::SMEM);
+    if (err != cudaSuccess) return err;
+    raised = true;
+  }
+  const int64_t tiles =
+      (((int64_t)t.M + HM - 1) / HM) * (((int64_t)t.N + H::BN - 1) / H::BN);
+  const dim3 grid((unsigned)tiles, ny, nz);
+  kernel<<<grid, H::HT, (size_t)H::SMEM, st>>>(maps, t);
+  return cudaGetLastError();
+}
+
 template <int NL, int NO, bool GEN, bool PARTS>
 cudaError_t launch_tma(const MatmulArgs& p, int64_t nb0, cudaStream_t st) {
-  constexpr int BN = hp_bn(NO);
-  constexpr int64_t SMEM = hp_smem(NL, BN, Hp<NL, NO>::RS);
+  constexpr int BN = Hp<NL, NO>::BN;
   if (p.K < 1 || p.M > INT32_MAX || p.N > INT32_MAX || p.K > INT32_MAX ||
       p.nb1 > INT32_MAX ||
       !tma_operand(p.a, p.a_sc, p.a_sr, p.nb1, p.a_sb1, nb0, p.a_sb0) ||
       !tma_operand(p.b, p.b_sc, p.b_sr, p.nb1, p.b_sb1, nb0, p.b_sb0))
     return cudaErrorInvalidValue;
-  CUtensorMap ta, tb;
-  if (!make_map(&ta, p.a, p.K, p.M, p.a_sr, p.nb1, p.a_sb1, nb0, p.a_sb0, KC,
-                HM) ||
-      !make_map(&tb, p.b, p.N, p.K, p.b_sr, p.nb1, p.b_sb1, nb0, p.b_sb0, BN,
-                KC))
+  TmaMaps maps;
+  memset(&maps, 0, sizeof(maps));
+  if (!make_map(&maps.a, p.a, p.K, p.M, p.a_sr, p.nb1, p.a_sb1, nb0, p.a_sb0,
+                KC, HM) ||
+      !make_map(&maps.b[0], p.b, p.N, p.K, p.b_sr, p.nb1, p.b_sb1, nb0,
+                p.b_sb0, BN, KC))
     return cudaErrorInvalidValue;
-  auto kernel = tma_matmul_kernel<NL, NO, GEN, PARTS>;
-  static bool raised = false;
-  if (!raised) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM);
-    if (err != cudaSuccess) return err;
-    raised = true;
+  TmaArgs t{};
+  t.C = p.c;
+  t.c_sb0 = p.c_sb0;
+  t.c_sb1 = p.c_sb1;
+  t.c_sr = p.c_sr;
+  t.c_sc = p.c_sc;
+  t.c_so = p.c_so;
+  t.nb1 = (int)p.nb1;
+  t.M = (int)p.M;
+  t.N = (int)p.N;
+  t.K = (int)p.K;
+  t.n_limbs = p.n_limbs;
+  t.max_order = p.max_order;
+  return launch_tma_kernel<NL, NO, 1, GEN, PARTS ? Epi::PARTS : Epi::COMBINE>(
+      maps, t, 1, (unsigned)(nb0 * p.nb1), st);
+}
+
+// The projection's prefill tile: A's map and one per weight.  Gated, both
+// weights in one block (silu(g) * u needs g and u of one output in one
+// thread).  Ungated, the three weights of QKV in one block where its tile
+// keeps 24 columns or more (M8's 48, M16's 24: A limbed once for the
+// three, and fewer tiles than waves of one per weight), else the grid
+// walks the weights, one a block (grid.y = n_out): at M23 one block's 8
+// columns measured 2.1x slower, at two weights (gate / up at M16) 7%
+// slower (PERF.md).
+template <int NL, int NO, bool GEN>
+cudaError_t launch_tma_proj(const ProjArgs& p, int n_out, cudaStream_t st) {
+  constexpr int NW = 2;   // the gated block's weights
+  constexpr bool ONE3 = hp_bn(3 * NO) >= 24;
+  if (p.K < 1 || p.M > INT32_MAX || p.N > INT32_MAX || p.K > INT32_MAX ||
+      !tma_operand(p.a, 1, p.a_sr, 1, 0, 1, 0))
+    return cudaErrorInvalidValue;
+  const int nw = p.gate ? NW : ONE3 && n_out == 3 ? 3 : 1;
+  const int bn = hp_bn(nw * NO);
+  TmaMaps maps;
+  memset(&maps, 0, sizeof(maps));
+  if (!make_map(&maps.a, p.a, p.K, p.M, p.a_sr, 1, 0, 1, 0, KC, HM))
+    return cudaErrorInvalidValue;
+  for (int w = 0; w < n_out; ++w)
+    if (!tma_operand(p.b[w], 1, p.b_sr, 1, 0, 1, 0) ||
+        !make_map(&maps.b[w], p.b[w], p.N, p.K, p.b_sr, 1, 0, 1, 0, bn, KC))
+      return cudaErrorInvalidValue;
+  TmaArgs t{};
+  t.nb1 = 1;
+  t.M = (int)p.M;
+  t.N = (int)p.N;
+  t.K = (int)p.K;
+  t.n_limbs = p.n_limbs;
+  t.max_order = p.max_order;
+  t.proj = p;
+  if (nw == NW)
+    return launch_tma_kernel<NL, NO, NW, GEN, Epi::PROJ>(maps, t, 1, 1, st);
+  if constexpr (ONE3) {
+    if (nw == 3)
+      return launch_tma_kernel<NL, NO, 3, GEN, Epi::PROJ>(maps, t, 1, 1, st);
   }
-  const int64_t tiles = ((p.M + HM - 1) / HM) * ((p.N + BN - 1) / BN);
-  const dim3 grid((unsigned)tiles, 1, (unsigned)(nb0 * p.nb1));
-  kernel<<<grid, Hp<NL, NO>::HT, (size_t)SMEM, st>>>(
-      ta, tb, p.c, p.c_sb0, p.c_sb1, p.c_sr, p.c_sc, p.c_so, (int)p.nb1,
-      (int)p.M, (int)p.N, (int)p.K, p.n_limbs, p.max_order);
-  return cudaGetLastError();
+  return launch_tma_kernel<NL, NO, 1, GEN, Epi::PROJ>(maps, t,
+                                                      (unsigned)n_out, 1, st);
 }
 
 template <int NL, int NO, bool GEN, bool PARTS>
 cudaError_t launch_hopper(const MatmulArgs& p, int64_t nb0, int p0, int p1,
                           cudaStream_t st) {
-  if (p.M <= DEC_M) return launch_split<NL, NO, GEN, PARTS>(p, nb0, p0, p1, st);
+  if (p.M <= DEC_M)
+    return launch_split<NL, NO, GEN, PARTS, false>(DecodeArgs{p, Planes{}},
+                                                   nb0, p0, p1, st);
   // the prefill tile takes no launch parameter, and its partials epilogue
   // only one limb (more limbs keep mp_matmul.cu's tile, faster there)
   if (p0 > 0 || p1 > 0) return cudaErrorInvalidValue;
@@ -834,21 +1053,37 @@ cudaError_t launch_hopper(const MatmulArgs& p, int64_t nb0, int p0, int p1,
   }
 }
 
+// the launch of a built-in format's instantiation, or the generic one's
+#define MP_FOR_FORMAT(nl, mo, CALL)                            \
+  do {                                                         \
+    if ((nl) == 1 && (mo) == 0) return CALL(1, 1, false);      \
+    if ((nl) == 2 && (mo) == 1) return CALL(2, 2, false);      \
+    if ((nl) == 3 && (mo) == 2) return CALL(3, 3, false);      \
+    if ((nl) == 5 && (mo) == 4) return CALL(5, 5, false);      \
+    if ((nl) == 7 && (mo) == 6) return CALL(7, 7, false);      \
+    return CALL(GEN_NL, GEN_NO, true);                         \
+  } while (0)
+
 template <bool PARTS>
 cudaError_t hopper_for_format(const MatmulArgs& p, int64_t nb0, int p0,
                               int p1, cudaStream_t st) {
-  const int nl = p.n_limbs, mo = p.max_order;
-  if (nl == 1 && mo == 0)
-    return launch_hopper<1, 1, false, PARTS>(p, nb0, p0, p1, st);
-  if (nl == 2 && mo == 1)
-    return launch_hopper<2, 2, false, PARTS>(p, nb0, p0, p1, st);
-  if (nl == 3 && mo == 2)
-    return launch_hopper<3, 3, false, PARTS>(p, nb0, p0, p1, st);
-  if (nl == 5 && mo == 4)
-    return launch_hopper<5, 5, false, PARTS>(p, nb0, p0, p1, st);
-  if (nl == 7 && mo == 6)
-    return launch_hopper<7, 7, false, PARTS>(p, nb0, p0, p1, st);
-  return launch_hopper<GEN_NL, GEN_NO, true, PARTS>(p, nb0, p0, p1, st);
+#define MP_CALL(NL, NO, GEN) launch_hopper<NL, NO, GEN, PARTS>(p, nb0, p0, p1, st)
+  MP_FOR_FORMAT(p.n_limbs, p.max_order, MP_CALL);
+#undef MP_CALL
+}
+
+cudaError_t proj_for_format(const ProjArgs& p, int n_out, cudaStream_t st) {
+#define MP_CALL(NL, NO, GEN) launch_tma_proj<NL, NO, GEN>(p, n_out, st)
+  MP_FOR_FORMAT(p.n_limbs, p.max_order, MP_CALL);
+#undef MP_CALL
+}
+
+cudaError_t prelimbed_for_format(const DecodeArgs& d, int p0, int p1,
+                                 cudaStream_t st) {
+#define MP_CALL(NL, NO, GEN) \
+  launch_split<NL, NO, GEN, false, true>(d, 1, p0, p1, st)
+  MP_FOR_FORMAT(d.m.n_limbs, d.m.max_order, MP_CALL);
+#undef MP_CALL
 }
 
 }  // namespace
@@ -888,39 +1123,118 @@ int mp_hopper_matmul_launch(const void* a, int64_t a_sb0, int64_t a_sb1,
                      : hopper_for_format<false>(p, nb0, (int)p0, (int)p1, st));
 }
 
-// The prefill tile's columns for a format (hp_bn) and one block's dynamic
-// shared memory (at its hp_rs f32 stages).
-int mp_tma_tile_n(int64_t n_limbs, int64_t max_order) {
-  return hp_bn(builtin_format(n_limbs, max_order) ? (int)max_order + 1
-                                                  : GEN_NO);
+// out = epilogue(A @ B_t for t < n_out) at (n_limbs, max_order) on the
+// projection's TMA prefill tile (M > DEC_M; A (M, K) and each B_t (K, N)
+// with column stride 1 and row strides a map reads): the arguments of
+// mp_fused_proj_launch (csrc/mp_matmul.cu) without its launch parameters
+// (this tile has none).  Returns the CUDA error of the launch (0 on
+// success; cudaErrorInvalidValue for operands the tile cannot take).
+// Allocates nothing and does not synchronise.
+int mp_hopper_proj_launch(const void* a, int64_t a_sr, const void* b0,
+                          const void* b1, const void* b2, int64_t b_sr,
+                          const void* bias0, const void* bias1,
+                          const void* bias2, const void* res, int64_t res_sr,
+                          void* out, int64_t n_out, int64_t gate, int64_t M,
+                          int64_t N, int64_t K, int64_t n_limbs,
+                          int64_t max_order, void* stream) {
+  if (!format_ok(n_limbs, max_order) || n_out < 1 || n_out > MAX_OUT ||
+      (gate && n_out != 2) || (res != nullptr && !gate && n_out != 1) ||
+      M <= DEC_M)
+    return (int)cudaErrorInvalidValue;
+  if (N == 0) return 0;
+  ProjArgs p{};
+  p.a = static_cast<const float*>(a);
+  const void* bs[MAX_OUT] = {b0, b1, b2};
+  const void* biases[MAX_OUT] = {bias0, bias1, bias2};
+  for (int t = 0; t < MAX_OUT; ++t) {
+    p.b[t] = static_cast<const float*>(bs[t]);
+    p.bias[t] = static_cast<const float*>(biases[t]);
+  }
+  p.res = static_cast<const float*>(res);
+  p.out = static_cast<float*>(out);
+  p.a_sr = a_sr;
+  p.b_sr = b_sr;
+  p.res_sr = res_sr;
+  p.M = M;
+  p.N = N;
+  p.K = K;
+  p.n_limbs = (int)n_limbs;
+  p.max_order = (int)max_order;
+  p.gate = (int)gate;
+  return (int)proj_for_format(p, (int)n_out, static_cast<cudaStream_t>(stream));
 }
 
-int64_t mp_tma_smem_bytes(int64_t n_limbs, int64_t max_order) {
+// C (M, N) = A (M, K) @ B at (n_limbs, max_order), B given as n_stored bf16
+// limb planes (the arguments of mp_prelimbed_matmul_launch), on the split
+// decode tile (M <= DEC_M): its stored planes fed by TMA where a map reads
+// them.  p0, p1: the k per ring stage and the cluster size (0: the plan's,
+// mp_split_plan with pl); none changes a bit.  Returns the CUDA error of
+// the launch (0 on success).  Allocates nothing and does not synchronise.
+int mp_hopper_prelimbed_launch(const void* a, int64_t a_sr, const void* b,
+                               int64_t b_plane, int64_t b_sr,
+                               int64_t n_stored, void* c, int64_t c_sr,
+                               int64_t M, int64_t N, int64_t K,
+                               int64_t n_limbs, int64_t max_order, int64_t p0,
+                               int64_t p1, void* stream) {
+  if (!format_ok(n_limbs, max_order) || n_stored < 1 || M > DEC_M ||
+      p0 < 0 || p1 < 0 || p0 > 4096 || p1 > 64)
+    return (int)cudaErrorInvalidValue;
+  if (M == 0 || N == 0) return 0;
+  DecodeArgs d{};
+  d.m.a = static_cast<const float*>(a);
+  d.m.c = static_cast<float*>(c);
+  d.m.a_sr = a_sr;
+  d.m.a_sc = 1;
+  d.m.c_sr = c_sr;
+  d.m.c_sc = 1;
+  d.m.nb1 = 1;
+  d.m.M = M;
+  d.m.N = N;
+  d.m.K = K;
+  d.m.n_limbs = (int)n_limbs;
+  d.m.max_order = (int)max_order;
+  d.bp = Planes{static_cast<const __nv_bfloat16*>(b), b_plane, b_sr,
+                (int)n_stored};
+  return (int)prelimbed_for_format(d, (int)p0, (int)p1,
+                                   static_cast<cudaStream_t>(stream));
+}
+
+// The prefill tile's columns for a format (hp_bn) at nout weights a block
+// (the projection's gated block holds 2) and one block's dynamic shared
+// memory (at its hp_rs f32 stages).
+int mp_tma_tile_n(int64_t n_limbs, int64_t max_order, int64_t nout) {
+  return hp_bn((int)nout * (builtin_format(n_limbs, max_order)
+                                ? (int)max_order + 1
+                                : GEN_NO));
+}
+
+int64_t mp_tma_smem_bytes(int64_t n_limbs, int64_t max_order, int64_t nout) {
   const int nl = builtin_format(n_limbs, max_order) ? (int)n_limbs : GEN_NL;
-  const int bn = mp_tma_tile_n(n_limbs, max_order);
-  return hp_smem(nl, bn, hp_rs(nl, bn));
+  const int bn = mp_tma_tile_n(n_limbs, max_order, nout);
+  return hp_smem(nl, bn, hp_rs(nl, bn, (int)nout), (int)nout);
 }
 
 // The decode plan's cluster size for slabs column slabs (times the batch),
 // K and M rows at a format, on a card of sms SMs with sm_smem bytes of
-// shared memory an SM and optin a block; its k per stage for a rank's K
-// range kr of cpr chunks; and the split tile's shared memory.
-int mp_split_plan(int64_t slabs, int64_t K, int64_t n_limbs,
+// shared memory an SM and optin a block (pl: B as stored planes, the
+// pre-limbed matmul's); its k per stage for a rank's K range kr of cpr
+// chunks; and the split tile's shared memory.
+int mp_split_plan(int64_t pl, int64_t slabs, int64_t K, int64_t n_limbs,
                   int64_t max_order, int64_t M, int64_t sms, int64_t sm_smem,
                   int64_t optin, int* dk) {
   const bool b = builtin_format(n_limbs, max_order);
-  return split_plan(slabs, K, (int)n_limbs, b ? (int)max_order + 1 : GEN_NO,
-                    (int)M, b && n_limbs <= 3 ? DecRing<1>::K
-                                              : DecRing<GEN_NL>::K,
+  return split_plan(pl != 0, slabs, K, (int)n_limbs,
+                    b ? (int)max_order + 1 : GEN_NO, (int)M,
+                    b && n_limbs <= 3 ? DecRing<1>::K : DecRing<GEN_NL>::K,
                     (int)sms, sm_smem, optin, dk);
 }
 
-int mp_split_dk(int64_t n_limbs, int64_t max_order, int64_t M, int64_t kr,
-                int64_t cpr, int64_t optin) {
+int mp_split_dk(int64_t pl, int64_t n_limbs, int64_t max_order, int64_t M,
+                int64_t kr, int64_t cpr, int64_t optin) {
   const bool b = builtin_format(n_limbs, max_order);
-  return split_dk((int)n_limbs, b ? (int)max_order + 1 : GEN_NO, (int)M, kr,
-                  (int)cpr, b && n_limbs <= 3 ? DecRing<1>::K
-                                              : DecRing<GEN_NL>::K,
+  return split_dk(pl != 0, (int)n_limbs, b ? (int)max_order + 1 : GEN_NO,
+                  (int)M, kr, (int)cpr,
+                  b && n_limbs <= 3 ? DecRing<1>::K : DecRing<GEN_NL>::K,
                   optin);
 }
 
@@ -928,11 +1242,12 @@ int mp_split_norm(int64_t K, int64_t s) {
   return split_norm((K + KC - 1) / KC, (int)s);
 }
 
-int64_t mp_split_smem_bytes(int64_t n_limbs, int64_t max_order, int64_t M,
-                            int64_t kr, int64_t dk, int64_t cpr) {
+int64_t mp_split_smem_bytes(int64_t pl, int64_t n_limbs, int64_t max_order,
+                            int64_t M, int64_t kr, int64_t dk, int64_t cpr) {
   const bool b = builtin_format(n_limbs, max_order);
-  return split_smem_bytes((int)n_limbs, b ? (int)max_order + 1 : GEN_NO,
-                          (int)M, kr, (int)dk, (int)cpr);
+  return split_smem_bytes(pl != 0, (int)n_limbs,
+                          b ? (int)max_order + 1 : GEN_NO, (int)M, kr,
+                          (int)dk, (int)cpr);
 }
 
 }  // extern "C"

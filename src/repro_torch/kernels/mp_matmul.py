@@ -6,14 +6,15 @@ counters (port of the Pallas ``_fused_kernel``, ``_fused_multi_kernel``,
 which replaces no TPU kernel: the K-sharded backend's local step).
 
 Each wrapper runs its plain PyTorch version for CPU tensors and launches its
-CUDA kernel (``csrc/mp_matmul.cu``; the fused matmul's decode tile and its
-TMA prefill tile from ``csrc/mp_matmul_hopper.cu``) for CUDA tensors — there
-is no fallback from one to the other.  The fused matmul and its partials
-epilogue take one of three routes by the operands' shape and layout
-(:func:`fused_route`), each with its own launch counter (``routes``).  The
-plain versions repeat the kernels' accumulation discipline: one f32 sum per
-limb-product order, joined by the compensated ``_combine_orders`` (highest
-order first), whatever the limb count.
+CUDA kernel (``csrc/mp_matmul.cu``; the Hopper tiles from
+``csrc/mp_matmul_hopper.cu``) for CUDA tensors — there is no fallback from
+one to the other.  The fused matmul and its partials epilogue, the fused
+projection and the pre-limbed matmul each take one of their routes by the
+operands' shape and layout (:func:`fused_route`, :func:`proj_route`,
+:func:`prelimbed_route`), each with its own launch counter (``routes``).
+The plain versions repeat the kernels' accumulation discipline: one f32 sum
+per limb-product order, joined by the compensated ``_combine_orders``
+(highest order first), whatever the limb count.
 """
 from __future__ import annotations
 
@@ -33,6 +34,14 @@ DEC_M = 16    # most rows of the decode tile (csrc DEC_M)
 # TMA prefill tile (operands a tensor map reads), the strided prefill tile
 SPLIT, TMA, STRIDED = "cluster", "tma", "strided"
 ROUTES = (SPLIT, TMA, STRIDED)
+# the fused projection's: its decode tile (M <= DEC_M, csrc/mp_matmul.cu),
+# the TMA prefill tile (csrc/mp_matmul_hopper.cu), the strided prefill tile
+DECODE = "decode"
+PROJ_ROUTES = (DECODE, TMA, STRIDED)
+# the pre-limbed matmul's: the cluster-split decode tile
+# (csrc/mp_matmul_hopper.cu), the mma.sync prefill tile (csrc/mp_matmul.cu)
+MMA = "mma"
+PRELIMBED_ROUTES = (SPLIT, MMA)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int64
@@ -239,18 +248,29 @@ def _set_hopper_argtypes(lib) -> None:
     lib.mp_hopper_matmul_launch.argtypes = [_P, _I, _I, _I, _I, _P, _I, _I,
                                             _I, _I, _P] + [_I] * 15 + [_P]
     lib.mp_hopper_matmul_launch.restype = ctypes.c_int
-    lib.mp_tma_tile_n.argtypes = [_I, _I]
-    lib.mp_tma_tile_n.restype = ctypes.c_int
-    lib.mp_tma_smem_bytes.argtypes = [_I, _I]
-    lib.mp_tma_smem_bytes.restype = ctypes.c_int64
-    lib.mp_split_plan.argtypes = [_I] * 8 + [ctypes.POINTER(ctypes.c_int)]
-    lib.mp_split_plan.restype = ctypes.c_int
-    lib.mp_split_dk.argtypes = [_I] * 6
-    lib.mp_split_dk.restype = ctypes.c_int
-    lib.mp_split_norm.argtypes = [_I, _I]
-    lib.mp_split_norm.restype = ctypes.c_int
-    lib.mp_split_smem_bytes.argtypes = [_I] * 6
-    lib.mp_split_smem_bytes.restype = ctypes.c_int64
+    # the projection's and the pre-limbed matmul's entries, and the plan's
+    # stored-planes flag (a library built from an older source lacks them;
+    # compare_kernels.py launches only its fused matmul)
+    if hasattr(lib, "mp_hopper_proj_launch"):
+        lib.mp_hopper_proj_launch.argtypes = [
+            _P, _I, _P, _P, _P, _I, _P, _P, _P, _P, _I, _P,
+            _I, _I, _I, _I, _I, _I, _I, _P]
+        lib.mp_hopper_proj_launch.restype = ctypes.c_int
+        lib.mp_hopper_prelimbed_launch.argtypes = [
+            _P, _I, _P, _I, _I, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]
+        lib.mp_hopper_prelimbed_launch.restype = ctypes.c_int
+        lib.mp_tma_tile_n.argtypes = [_I, _I, _I]
+        lib.mp_tma_tile_n.restype = ctypes.c_int
+        lib.mp_tma_smem_bytes.argtypes = [_I, _I, _I]
+        lib.mp_tma_smem_bytes.restype = ctypes.c_int64
+        lib.mp_split_plan.argtypes = [_I] * 9 + [ctypes.POINTER(ctypes.c_int)]
+        lib.mp_split_plan.restype = ctypes.c_int
+        lib.mp_split_dk.argtypes = [_I] * 7
+        lib.mp_split_dk.restype = ctypes.c_int
+        lib.mp_split_norm.argtypes = [_I, _I]
+        lib.mp_split_norm.restype = ctypes.c_int
+        lib.mp_split_smem_bytes.argtypes = [_I] * 7
+        lib.mp_split_smem_bytes.restype = ctypes.c_int64
     lib._mp_hopper_typed = True
 
 
@@ -315,6 +335,12 @@ def fused_route(a: torch.Tensor, b: torch.Tensor, sizes, strides, *,
     return STRIDED
 
 
+def _lib(libs, name: str):
+    """``libs[name]`` (another version's libraries, compare_kernels.py), or
+    this tree's library, built at first use."""
+    return libs[name] if libs is not None else build.load(name)
+
+
 def launch_hopper_matmul(lib, stream: int, a, b, c, sizes, strides,
                          fmt: MPFormat, tune: Sequence[int] = (0, 0), *,
                          parts: bool = False) -> None:
@@ -339,12 +365,13 @@ def launch_hopper_matmul(lib, stream: int, a, b, c, sizes, strides,
 
 def launch_routed(stream: int, a: torch.Tensor, b: torch.Tensor,
                   fmt: MPFormat, tune: Optional[Sequence[int]] = None, *,
-                  parts: bool = False):
+                  parts: bool = False, libs=None):
     """One fused matmul (parts: its partials stack, 2-D operands) by its
-    route (:func:`fused_route`), on this tree's libraries.  ``tune`` (the
-    autotuner's; None or (0, 0): the plan's launch) reaches the decode
-    tile; the prefill tiles have no free parameter and raise on another.
-    Returns (output, route)."""
+    route (:func:`fused_route`), on this tree's libraries (``libs``: a
+    dict of another version's ``mp_matmul`` and ``mp_matmul_hopper``).
+    ``tune`` (the autotuner's; None or (0, 0): the plan's launch) reaches
+    the decode tile; the prefill tiles have no free parameter and raise on
+    another.  Returns (output, route)."""
     if parts:
         if a.ndim != 2 or b.ndim != 2 or a.shape[1] != b.shape[0]:
             raise ValueError(f"partials take 2-D a (M, K) @ b (K, N), got "
@@ -361,13 +388,13 @@ def launch_routed(stream: int, a: torch.Tensor, b: torch.Tensor,
         raise ValueError(f"the {route} prefill tile takes no launch "
                          f"parameters, got {tuple(tune)}")
     if route == STRIDED:
-        lib = build.load("mp_matmul")
+        lib = _lib(libs, "mp_matmul")
         if parts:
             c = launch_fused_matmul_partials(lib, stream, a, b, fmt)
         else:
             c = launch_fused_matmul(lib, stream, a, b, fmt)
     else:
-        launch_hopper_matmul(build.load("mp_matmul_hopper"), stream, a, b, c,
+        launch_hopper_matmul(_lib(libs, "mp_matmul_hopper"), stream, a, b, c,
                              sizes, strides, fmt, tune or (0, 0),
                              parts=parts)
     return c, route
@@ -414,15 +441,13 @@ def launch_fused_matmul_partials(lib, stream: int, a: torch.Tensor,
     return c
 
 
-def launch_fused_proj(lib, stream: int, a: torch.Tensor,
-                      ws: Sequence[torch.Tensor], fmt: MPFormat, *,
-                      gate: str = "none", biases=None,
-                      residual: Optional[torch.Tensor] = None,
-                      tune: Sequence[int] = (0, 0)) -> torch.Tensor:
-    """Marshal one ``mp_fused_proj_launch`` call: a (M, K); ws n_out equal
-    (K, N) weights, each from its own pointer (no stacked copy).  ``tune``:
-    the autotuner's ``(dec_dk, tile_e)``, (0, 0) the default launch."""
-    _set_argtypes(lib)
+def _proj_operands(a: torch.Tensor, ws: Sequence[torch.Tensor], *,
+                   gate: str, biases, residual):
+    """Checked operands of a projection launch: a (M, K) and the n_out
+    (K, N) weights contiguous f32, each weight from its own pointer (no
+    stacked copy); the entries' argument list from ``a`` to K, ``out``,
+    and the tensors the pointers point into (kept alive until the launch:
+    a converted bias or residual is a new tensor)."""
     n_out = len(ws)
     if not 1 <= n_out <= MAX_OUT:
         raise ValueError(f"one launch takes 1..{MAX_OUT} weights, got {n_out}")
@@ -453,12 +478,75 @@ def launch_fused_proj(lib, stream: int, a: torch.Tensor,
     out_shape = (M, N) if gate != "none" else (n_out, M, N)
     out = torch.empty(out_shape, dtype=torch.float32, device=a.device)
     w_ptrs = [w.data_ptr() for w in ws] + [None] * (MAX_OUT - n_out)
-    err = lib.mp_fused_proj_launch(
-        a.data_ptr(), a.stride(0), *w_ptrs, N, *bias_ptrs, res_ptr, res_sr,
-        out.data_ptr(), n_out, int(gate == "swiglu"), M, N, K,
-        fmt.n_limbs, fmt.max_order, int(tune[0]), int(tune[1]), stream)
+    args = (a.data_ptr(), a.stride(0), *w_ptrs, N, *bias_ptrs, res_ptr,
+            res_sr, out.data_ptr(), n_out, int(gate == "swiglu"), M, N, K)
+    return a, ws, args, out, (biases, residual)
+
+
+def proj_route(a: torch.Tensor, ws: Sequence[torch.Tensor]) -> str:
+    """The route of a projection on its marshalled operands (contiguous
+    f32, :func:`_proj_operands`): its decode tile at M <= 16 rows, else the
+    TMA prefill tile where a tensor map reads ``a`` and every weight (rows
+    of a multiple of 16 bytes, 16-byte aligned bases, sizes within 31
+    bits), else the strided prefill tile of csrc/mp_matmul.cu.  The three
+    give every output the same bits."""
+    (M, K), N = a.shape, ws[0].shape[1]
+    if M <= DEC_M:
+        return DECODE
+    if (0 < K < 2 ** 31 and M < 2 ** 31 and N < 2 ** 31
+            and all(_tma_operand(x, (1, 1), (0, 0)) for x in (a, *ws))):
+        return TMA
+    return STRIDED
+
+
+def launch_fused_proj(lib, stream: int, a: torch.Tensor,
+                      ws: Sequence[torch.Tensor], fmt: MPFormat, *,
+                      gate: str = "none", biases=None,
+                      residual: Optional[torch.Tensor] = None,
+                      tune: Sequence[int] = (0, 0)) -> torch.Tensor:
+    """Marshal one ``mp_fused_proj_launch`` call (csrc/mp_matmul.cu: the
+    decode tile at M <= 16, the strided prefill tile above; every shape on
+    an older version of the source): a (M, K); ws n_out equal (K, N)
+    weights.  ``tune``: the autotuner's ``(dec_dk, tile_e)``, (0, 0) the
+    default launch."""
+    _set_argtypes(lib)
+    a, ws, args, out, _keep = _proj_operands(a, ws, gate=gate,
+                                             biases=biases, residual=residual)
+    err = lib.mp_fused_proj_launch(*args, fmt.n_limbs, fmt.max_order,
+                                   int(tune[0]), int(tune[1]), stream)
     build.check(err, "mp_fused_proj")
     return out
+
+
+def launch_proj_routed(stream: int, a: torch.Tensor,
+                       ws: Sequence[torch.Tensor], fmt: MPFormat, *,
+                       gate: str = "none", biases=None,
+                       residual: Optional[torch.Tensor] = None,
+                       tune: Optional[Sequence[int]] = None, libs=None):
+    """One fused projection by its route (:func:`proj_route`), on this
+    tree's libraries or ``libs`` (as :func:`launch_routed`).  ``tune``
+    (the autotuner's ``(dec_dk, tile_e)``; None or (0, 0): the default)
+    reaches the decode and strided tiles; the TMA tile has no free
+    parameter and raises on another.  Returns (output, route)."""
+    a, ws, args, out, _keep = _proj_operands(a, ws, gate=gate,
+                                             biases=biases, residual=residual)
+    route = proj_route(a, ws)
+    tune = tuple(tune) if tune is not None else (0, 0)
+    if route != TMA:
+        lib = _lib(libs, "mp_matmul")
+        _set_argtypes(lib)
+        err = lib.mp_fused_proj_launch(*args, fmt.n_limbs, fmt.max_order,
+                                       int(tune[0]), int(tune[1]), stream)
+    else:
+        if tune != (0, 0):
+            raise ValueError(f"the {route} prefill tile takes no launch "
+                             f"parameters, got {tune}")
+        lib = _lib(libs, "mp_matmul_hopper")
+        _set_hopper_argtypes(lib)
+        err = lib.mp_hopper_proj_launch(*args, fmt.n_limbs, fmt.max_order,
+                                        stream)
+    build.check(err, "mp_fused_proj")
+    return out, route
 
 
 def _check_stack(limbs: torch.Tensor, what: str) -> None:
@@ -500,6 +588,43 @@ def launch_prelimbed_matmul(lib, stream: int, a: torch.Tensor,
         fmt.n_limbs, fmt.max_order, stream)
     build.check(err, "mp_prelimbed_matmul")
     return c
+
+
+def prelimbed_route(a: torch.Tensor) -> str:
+    """The pre-limbed matmul's route: the cluster-split decode tile at M <=
+    16 rows (csrc/mp_matmul_hopper.cu), the mma.sync prefill tile above
+    (csrc/mp_matmul.cu).  Both give every output the fused matmul's
+    bits."""
+    return SPLIT if a.shape[0] <= DEC_M else MMA
+
+
+def launch_prelimbed_routed(stream: int, a: torch.Tensor,
+                            limbs: torch.Tensor, fmt: MPFormat,
+                            tune: Optional[Sequence[int]] = None, *,
+                            libs=None):
+    """One pre-limbed matmul by its route (:func:`prelimbed_route`), on
+    this tree's libraries or ``libs`` (as :func:`launch_routed`).
+    ``tune``: the split tile's ``(dk, S)`` (None or (0, 0): the plan's,
+    ``decode_plan(..., pl=True)``); the prefill tile takes none and raises
+    on another.  Returns (output, route)."""
+    route = prelimbed_route(a)
+    tune = tuple(tune) if tune is not None else (0, 0)
+    if route == MMA:
+        if tune != (0, 0):
+            raise ValueError(f"the {route} prefill tile takes no launch "
+                             f"parameters, got {tune}")
+        return launch_prelimbed_matmul(_lib(libs, "mp_matmul"), stream, a,
+                                       limbs, fmt), route
+    lib = _lib(libs, "mp_matmul_hopper")
+    _set_hopper_argtypes(lib)
+    a, c = _prelimbed_operands(a, limbs)
+    (M, K), (L, _, N) = a.shape, limbs.shape
+    err = lib.mp_hopper_prelimbed_launch(
+        a.data_ptr(), a.stride(0), limbs.data_ptr(), limbs.stride(0),
+        limbs.stride(1), L, c.data_ptr(), c.stride(0), M, N, K,
+        fmt.n_limbs, fmt.max_order, int(tune[0]), int(tune[1]), stream)
+    build.check(err, "mp_prelimbed_matmul")
+    return c, route
 
 
 def launch_mixed_prelimbed_matmul(lib, stream: int, a: torch.Tensor,
@@ -674,7 +799,8 @@ def mp_fused_proj(a: torch.Tensor, ws: Sequence[torch.Tensor],
     """a (M, K) against 1..3 equal-width (K, N) weights at ``fmt`` with the
     fused epilogue -> (n_out, M, N), or (M, N) when ``gate="swiglu"``.  CPU
     tensors run :func:`fused_proj_plain`; CUDA tensors launch the kernel
-    (``tune``: the autotuner's ``(dec_dk, tile_e)``, None the default)."""
+    by the route :func:`proj_route` gives (counted in ``routes``;
+    ``tune``: the autotuner's ``(dec_dk, tile_e)``, None the default)."""
     fmt = resolve(fmt)
     extra: Tuple[torch.Tensor, ...] = tuple(biases or ()) + (
         (residual,) if residual is not None else ())
@@ -686,14 +812,16 @@ def mp_fused_proj(a: torch.Tensor, ws: Sequence[torch.Tensor],
         return fused_proj_plain(a, ws, fmt, gate=gate, biases=biases,
                                 residual=residual)
     stream = _cuda_stream(a, *ws, *extra)
-    out = launch_fused_proj(build.load("mp_matmul"), stream, a, ws, fmt,
-                            gate=gate, biases=biases, residual=residual,
-                            tune=tune or (0, 0))
+    out, route = launch_proj_routed(stream, a, ws, fmt, gate=gate,
+                                    biases=biases, residual=residual,
+                                    tune=tune)
     mp_fused_proj.launches += 1
+    mp_fused_proj.routes[route] += 1
     return out
 
 
 mp_fused_proj.launches = 0
+mp_fused_proj.routes = dict.fromkeys(PROJ_ROUTES, 0)
 mp_fused_proj.plain_calls = 0
 
 
@@ -702,7 +830,8 @@ def mp_prelimbed_matmul(a: torch.Tensor, limbs: torch.Tensor,
     """a (M, K) f32 @ a (K, N) weight given as its (L, K, N) bf16 limb
     stack, at ``fmt`` -> (M, N) f32.  Limbs the stack lacks are zero, limbs
     past the format's are ignored.  CPU tensors run
-    :func:`prelimbed_matmul_plain`; CUDA tensors launch the kernel."""
+    :func:`prelimbed_matmul_plain`; CUDA tensors launch the kernel by the
+    route :func:`prelimbed_route` gives (counted in ``routes``)."""
     fmt = resolve(fmt)
     if _on_meta(a, limbs):
         return _meta((a.shape[0], limbs.shape[-1]))
@@ -710,13 +839,14 @@ def mp_prelimbed_matmul(a: torch.Tensor, limbs: torch.Tensor,
         mp_prelimbed_matmul.plain_calls += 1
         return prelimbed_matmul_plain(a, limbs, fmt)
     stream = _cuda_stream(a, limbs)
-    out = launch_prelimbed_matmul(build.load("mp_matmul"), stream, a, limbs,
-                                  fmt)
+    out, route = launch_prelimbed_routed(stream, a, limbs, fmt)
     mp_prelimbed_matmul.launches += 1
+    mp_prelimbed_matmul.routes[route] += 1
     return out
 
 
 mp_prelimbed_matmul.launches = 0
+mp_prelimbed_matmul.routes = dict.fromkeys(PRELIMBED_ROUTES, 0)
 mp_prelimbed_matmul.plain_calls = 0
 
 
@@ -792,11 +922,12 @@ mp_decompose.launches = 0
 mp_decompose.plain_calls = 0
 
 
-def decode_plan(M: int, N: int, K: int, fmt: FormatLike, batch: int = 1
-                ) -> Tuple[int, int]:
-    """The decode tile's default launch for an (M <= 16, K, N) fused matmul
-    on this card (``mp_split_plan`` of ``csrc/mp_matmul_hopper.cu``): the
-    cluster size S that splits K's chunks and the k per ring stage (0: the
+def decode_plan(M: int, N: int, K: int, fmt: FormatLike, batch: int = 1,
+                *, pl: bool = False) -> Tuple[int, int]:
+    """The split decode tile's default launch for an (M <= 16, K, N) fused
+    matmul (``pl``: a pre-limbed one, its B stored bf16 planes) on this
+    card (``mp_split_plan`` of ``csrc/mp_matmul_hopper.cu``): the cluster
+    size S that splits K's chunks and the k per ring stage (0: the
     single-block tile's own choice at S = 1).  Builds the library (needs
     ``nvcc``: the machine with the card)."""
     fmt = resolve(fmt)
@@ -804,8 +935,8 @@ def decode_plan(M: int, N: int, K: int, fmt: FormatLike, batch: int = 1
     _set_hopper_argtypes(lib)
     props = torch.cuda.get_device_properties(0)
     dk = ctypes.c_int(0)
-    S = lib.mp_split_plan(-(-N // 16) * batch, K, fmt.n_limbs, fmt.max_order,
-                          M, props.multi_processor_count,
+    S = lib.mp_split_plan(int(pl), -(-N // 16) * batch, K, fmt.n_limbs,
+                          fmt.max_order, M, props.multi_processor_count,
                           props.shared_memory_per_multiprocessor,
                           props.shared_memory_per_block_optin,
                           ctypes.byref(dk))

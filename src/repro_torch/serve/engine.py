@@ -32,6 +32,7 @@ count.
 """
 from __future__ import annotations
 
+import dataclasses
 import time
 from typing import Dict, List, Optional, Tuple, Union
 
@@ -201,6 +202,18 @@ def _to_device(tree, device):
     if isinstance(tree, (list, tuple)):
         return type(tree)(_to_device(v, device) for v in tree)
     return tree.to(device)
+
+
+@dataclasses.dataclass
+class Request:
+    """One request of the static engine's slots (the JAX package's
+    ``serve.engine.Request``): its prompt, its token budget, the tokens it
+    has produced and whether it is done."""
+    rid: int
+    prompt: np.ndarray            # (S,) int32
+    max_new: int = 16
+    out: List[int] = dataclasses.field(default_factory=list)
+    done: bool = False
 
 
 class ServeEngine:

@@ -629,3 +629,18 @@ def test_auto_scheduler_streams_match_jax_where_margins_allow(jax_params,
             out, jc = je._decode(je.params, jc, jnp.asarray(tok))
             logits = np.asarray(out)[0, -1]
     assert compared > 0
+
+
+def test_default_candidates_alias_equals_jax():
+    """``repro_torch.core.auto.DEFAULT_CANDIDATES`` is the JAX package's
+    back-compat alias of the default AUTO candidate set: the same modes in
+    the same order, and the context's default."""
+    from repro_torch.core import auto as pauto
+    from repro_torch.core.context import DEFAULT_AUTO_CANDIDATES
+    from repro_torch.core.formats import resolve
+
+    assert pauto.DEFAULT_CANDIDATES is DEFAULT_AUTO_CANDIDATES
+    assert [resolve(m).name for m in pauto.DEFAULT_CANDIDATES] == \
+        [resolve(m).name for m in jauto.DEFAULT_CANDIDATES]
+    assert [m.name for m in pauto.DEFAULT_CANDIDATES] == \
+        [m.name for m in jauto.DEFAULT_CANDIDATES]

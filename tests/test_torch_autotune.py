@@ -224,18 +224,24 @@ def test_candidates_filter_by_shared_memory_and_spills():
                 f"bytes spill stores, {spill} bytes spill loads\n"
                 f"ptxas info    : Used {regs} registers, used 1 barriers\n")
 
-    # the projection's prefill tile: the default E and E / 2
+    # the projection's strided prefill tile (rows off 16 bytes): the
+    # default E and E / 2; its TMA tile (the serving shapes) has none
     ptxas = build.ptxas_summary(
         entry("fused_proj_kernel", "Li1ELi1ELi2ELb0ELi32E", 160, 0)
         + entry("fused_proj_kernel", "Li1ELi1ELi2ELb0ELi16E", 96, 0))
-    assert at.candidate_blocks(2048, 768, 3072, "M8", n_out=2,
+    assert at.candidate_blocks(2048, 768, 3070, "M8", n_out=2,
                                epilogue="swiglu", smem=at.SMEM_MAX,
                                ptxas=ptxas) == [(0, 32), (0, 16)]
+    assert at.candidate_blocks(2048, 768, 3072, "M8", n_out=2,
+                               epilogue="swiglu", smem=at.SMEM_MAX,
+                               ptxas=ptxas) == []
     ptxas = build.ptxas_summary(
         entry("fused_proj_kernel", "Li2ELi2ELi1ELb0ELi32E", 168, 0)
         + entry("fused_proj_kernel", "Li2ELi2ELi1ELb0ELi16E", 128, 8))
-    assert at.candidate_blocks(2048, 768, 768, "M16", epilogue="bias",
+    assert at.candidate_blocks(2048, 768, 766, "M16", epilogue="bias",
                                smem=at.SMEM_MAX, ptxas=ptxas) == [(0, 32)]
+    assert at.candidate_blocks(2048, 768, 768, "M16", epilogue="bias",
+                               smem=at.SMEM_MAX, ptxas=ptxas) == []
     # flash: 16, 32, 64 query rows (within S rounded up to 16)
     assert at.attention_candidate_blocks(256, 256, 64, "M16", "M8",
                                          smem=at.SMEM_MAX) == \
@@ -250,8 +256,8 @@ def test_table_round_trip_is_atomic(table_dir):
     table["M16|8x768x768|float32"] = [128, 0]
     table["attn|M16/M8|96x256x256x64|c1|p0"] = [64]
     path = at.save_table(table, "NVIDIA_H100_80GB_HBM3")
-    assert os.path.basename(path) == "NVIDIA_H100_80GB_HBM3.v2.json"
-    assert sorted(os.listdir(table_dir)) == ["NVIDIA_H100_80GB_HBM3.v2.json"]
+    assert os.path.basename(path) == "NVIDIA_H100_80GB_HBM3.v3.json"
+    assert sorted(os.listdir(table_dir)) == ["NVIDIA_H100_80GB_HBM3.v3.json"]
     at.clear_memory_cache()
     assert at.load_table("NVIDIA_H100_80GB_HBM3") == table
 
@@ -265,6 +271,11 @@ def test_a_table_of_the_old_layout_is_not_read(table_dir, monkeypatch):
         json.dump({key: [0, 32],
                    at.table_key(8, 768, 768, "M8", torch.float32): [192, 0]},
                   f)
+    # nor one of the layout before the projection's TMA tile: its prefill
+    # QKV key held E 16, which that tile cannot take
+    with open(table_dir / "NVIDIA_H100_80GB_HBM3.v2.json", "w") as f:
+        json.dump({at.table_key(2048, 768, 768, "M8", torch.float32,
+                                n_out=3): [0, 16]}, f)
     monkeypatch.setattr(at, "device_kind", lambda: "NVIDIA_H100_80GB_HBM3")
     assert at.load_table() == {}
     assert at.lookup(2048, 3072, 768, "M8") is None

@@ -1503,12 +1503,17 @@ def test_autotune_sweeps_bitwise(cuda, tmp_path, monkeypatch):
             register_format(mode, mantissa_bits=16, n_limbs=2, max_order=2)
         fmt = resolve(mode)
         nl, mo = fmt.n_limbs, fmt.max_order
-        assert hlib.mp_tma_tile_n(nl, mo) == at.tma_tile_n(fmt)
-        assert hlib.mp_tma_smem_bytes(nl, mo) == at.tma_smem(fmt)
+        for nout in (1, 2):
+            assert hlib.mp_tma_tile_n(nl, mo, nout) == at.tma_tile_n(fmt,
+                                                                     nout)
+            assert hlib.mp_tma_smem_bytes(nl, mo, nout) == at.tma_smem(
+                fmt, nout)
         for kr, dk, cpr in ((512, 256, 8), (128, 64, 2), (384, 128, 6)):
             for M in (1, 8, 16):
-                assert hlib.mp_split_smem_bytes(nl, mo, M, kr, dk, cpr) == \
-                    at.split_smem(fmt, M, kr, dk, cpr)
+                for pl in (False, True):
+                    assert hlib.mp_split_smem_bytes(
+                        pl, nl, mo, M, kr, dk, cpr) == \
+                        at.split_smem(fmt, M, kr, dk, cpr, pl)
         if mode == "M16FULLT":
             unregister_format(mode)
     props = torch.cuda.get_device_properties(0)
@@ -1521,19 +1526,24 @@ def test_autotune_sweeps_bitwise(cuda, tmp_path, monkeypatch):
         for slabs in (1, 4, 48, 96, 192, 263, 264, 2000):
             for K in (64, 100, 448, 768, 3072):
                 for M in (1, 8, 16):
-                    S = hlib.mp_split_plan(slabs, K, fmt.n_limbs,
-                                           fmt.max_order, M, sms, sm_smem,
-                                           optin, ctypes.byref(dk))
-                    assert (S, dk.value) == at.split_plan(
-                        slabs, K, fmt, M, sms, sm_smem, optin)
+                    for pl in (False, True):
+                        S = hlib.mp_split_plan(pl, slabs, K, fmt.n_limbs,
+                                               fmt.max_order, M, sms,
+                                               sm_smem, optin,
+                                               ctypes.byref(dk))
+                        assert (S, dk.value) == at.split_plan(
+                            slabs, K, fmt, M, sms, sm_smem, optin, pl)
                 for S in range(1, 9):
                     assert hlib.mp_split_norm(K, S) == at.split_norm(K, S)
         for kr, cpr in ((128, 2), (512, 8), (1536, 24)):
-            assert hlib.mp_split_dk(fmt.n_limbs, fmt.max_order, 8, kr, cpr,
-                                    optin) == at.split_dk(fmt, 8, kr, cpr,
-                                                          optin)
+            for pl in (False, True):
+                assert hlib.mp_split_dk(pl, fmt.n_limbs, fmt.max_order, 8,
+                                        kr, cpr, optin) == \
+                    at.split_dk(fmt, 8, kr, cpr, optin, pl)
     assert mp_matmul.decode_plan(8, 768, 3072, "M8") == \
         at.split_plan(48, 3072, "M8", 8, sms, sm_smem, optin)
+    assert mp_matmul.decode_plan(8, 768, 3072, "M8", pl=True) == \
+        at.split_plan(48, 3072, "M8", 8, sms, sm_smem, optin, pl=True)
     for nl, mo in at.BUILTIN + ((2, 2), (4, 3)):
         resolved = next((f for f in ("M8", "M16", "M23", "M36", "M52")
                          if (resolve(f).n_limbs, resolve(f).max_order)
@@ -1578,8 +1588,10 @@ def test_autotune_sweeps_bitwise(cuda, tmp_path, monkeypatch):
         got = at.autotune(M, K, N, f, n_out=n_out, epilogue=ep, iters=2,
                           record=rec)
         assert list(got) == rec["winner"]
-        # the prefill tiles of the fused matmul have no free parameter
-        prefill_mm = M > 16 and n_out == 1 and ep == "none"
+        # the fused matmul's prefill tiles have no free parameter, nor the
+        # projection's TMA tile (K and N multiples of 4)
+        prefill_mm = M > 16 and (n_out == 1 and ep == "none"
+                                 or K % 4 == 0 and N % 4 == 0)
         assert (len(rec["candidates"]) == 0) == prefill_mm
         assert rec["winner_ms"] <= rec["default_ms"]
         assert rec["default_won"] == (list(got) == [0, 0])
@@ -1723,5 +1735,144 @@ def test_minus_zero_and_subnormal_products_on_the_hopper_tiles(cuda, M):
         big = mp_matmul.launch_fused_matmul(lib, stream, a, b, resolve(mode))
         assert _bitwise(out, big[:M])
     out = mp_matmul.mp_fused_matmul(neg[:M], pos, "M8")
+    torch.cuda.synchronize()
+    assert (out[3] == 0).all() and not torch.signbit(out[3]).any()
+
+
+# ---------------------------------------------------------------------------
+# the projection's TMA tile and the pre-limbed split tile
+# (csrc/mp_matmul_hopper.cu)
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("M,K,N", [(70, 200, 72), (130, 768, 264),
+                                   (300, 448, 200), (2048, 768, 768)])
+@pytest.mark.parametrize("n_out,gate,bias,res", PROJ_EPILOGUES)
+@pytest.mark.parametrize("mode", ["M8", "M16", "M23", "M52", CUSTOM])
+def test_projection_tma_tile_is_the_strided_tile(cuda, custom_format, mode,
+                                                 n_out, gate, bias, res, M,
+                                                 K, N):
+    """The projection's TMA prefill tile bitwise its strided tile (the
+    mma.sync chains of csrc/mp_matmul.cu) on the same operands, every
+    epilogue; without one, each output bitwise the fused matmul."""
+    a = _randn(cuda, M, K, seed=200)
+    ws = [_randn(cuda, K, N, seed=201 + t) for t in range(n_out)]
+    _underflow_row(a, ws[0])
+    bs = [_randn(cuda, N, seed=210 + t) for t in range(n_out)] if bias \
+        else None
+    r = _randn(cuda, M, N, seed=220) if res else None
+    kw = dict(gate=gate, biases=bs, residual=r)
+    out, route = _routed(mp_matmul.mp_fused_proj, a, ws, mode, **kw)
+    assert route == mp_matmul.TMA
+    strided = mp_matmul.launch_fused_proj(
+        build.load("mp_matmul"), torch.cuda.current_stream().cuda_stream,
+        a, ws, resolve(mode), **kw)
+    assert _bitwise(out, strided)
+    if gate == "none" and not bias and not res:
+        for t in range(n_out):
+            assert _bitwise(out[t], mp_matmul.mp_fused_matmul(a, ws[t],
+                                                              mode)), t
+
+
+def test_projection_routes_on_the_card(cuda):
+    """Rows off 16 bytes (N = 70) and a misaligned base keep the strided
+    tile, M <= 16 the decode tile; each bitwise the TMA tile's rows."""
+    a = _randn(cuda, 70, 200, seed=230)
+    ws = [_randn(cuda, 200, 72, seed=231 + t) for t in range(3)]
+    full, route = _routed(mp_matmul.mp_fused_proj, a, ws, "M16")
+    assert route == mp_matmul.TMA
+    dec, route = _routed(mp_matmul.mp_fused_proj, a[:8], ws, "M16")
+    assert route == mp_matmul.DECODE and _bitwise(dec, full[:, :8])
+    off = torch.empty(70 * 200 + 1, device=a.device)[1:].view(70, 200)
+    off.copy_(a)
+    mis, route = _routed(mp_matmul.mp_fused_proj, off, ws, "M16")
+    assert route == mp_matmul.STRIDED and _bitwise(mis, full)
+    narrow = [w[:, :70].contiguous() for w in ws]
+    out, route = _routed(mp_matmul.mp_fused_proj, a, narrow, "M16")
+    assert route == mp_matmul.STRIDED and _bitwise(out, full[..., :70])
+    with pytest.raises(ValueError, match="takes no launch parameters"):
+        mp_matmul.mp_fused_proj(a, ws, "M16", tune=(0, 16))
+
+
+@pytest.mark.parametrize("M,K,N,mode,n_stored", [
+    (8, 3072, 768, "M8", 2), (8, 768, 768, "M8", 2), (8, 768, 3072, "M8", 2),
+    (8, 768, 32000, "M16", 2), (8, 3072, 768, "M16", 3),
+    (8, 3072, 768, "M23", 3), (5, 1000, 200, "M23", 3), (3, 200, 72, "M8", 1),
+    (16, 448, 264, "M52", 7), (8, 300, 77, "M16", 2), (1, 768, 768, "M36", 5),
+    (8, 768, 768, "M16", 1)])
+def test_prelimbed_split_tile_is_the_fused_matmul(cuda, M, K, N, mode,
+                                                  n_stored):
+    """The pre-limbed split decode tile (its planes by TMA; N = 77, whose
+    planes no map reads, the single-block tile): bitwise the fused matmul
+    on the weight the planes came from (every limb stored), bitwise the
+    same rows of an M = 70 launch (the mma.sync tile), and bitwise at
+    every cluster size and stage the plan allows."""
+    from repro_torch.kernels import autotune as at
+
+    a70, w = _randn(cuda, 70, K, seed=240), _randn(cuda, K, N, seed=241)
+    _underflow_row(a70, w)
+    limbs = mp_matmul.mp_decompose(w, n_stored)
+    a = a70[:M]
+    out, route = _routed(mp_matmul.mp_prelimbed_matmul, a, limbs, mode)
+    assert route == mp_matmul.SPLIT
+    full, route = _routed(mp_matmul.mp_prelimbed_matmul, a70, limbs, mode)
+    assert route == mp_matmul.MMA and _bitwise(out, full[:M])
+    if n_stored >= resolve(mode).n_limbs:
+        assert _bitwise(out, mp_matmul.mp_fused_matmul(a, w, mode))
+    stream = torch.cuda.current_stream().cuda_stream
+    nch = -(-K // at.KC)
+    for S in sorted({at.split_norm(K, s) for s in (1, 2, 4, 8)}):
+        cpr = -(-nch // S)
+        kr = K if S == 1 else cpr * at.KC
+        for dk in range(at.KC, min(at.decode_ring_k(mode),
+                                   -(-kr // at.KC) * at.KC) + 1, at.KC):
+            if S > 1 and at.split_smem(mode, M, kr, dk, cpr, True) > \
+                    at.smem_limit():
+                continue
+            if S > 1 and N % 8:
+                # no tensor map reads these planes: a cluster is refused
+                with pytest.raises(RuntimeError, match="CUDA error"):
+                    mp_matmul.launch_prelimbed_routed(
+                        stream, a, limbs, resolve(mode), (dk, S))
+                continue
+            got, _ = mp_matmul.launch_prelimbed_routed(
+                stream, a, limbs, resolve(mode), (dk, S))
+            assert _bitwise(got, out), (S, dk)
+
+
+@pytest.mark.parametrize("M", [4, 8])
+def test_minus_zero_and_subnormal_products_on_the_prelimbed_split(cuda, M):
+    """compare_kernels.py's edge cases through the pre-limbed split tile
+    (planes by TMA) and the projection's TMA tile: bitwise the mma.sync
+    tiles of csrc/mp_matmul.cu on the same operands (the pre-limbed
+    kernel at 70 rows, the strided projection tile), and a row of -0.0
+    products stays +0.0."""
+    lib, stream = build.load("mp_matmul"), \
+        torch.cuda.current_stream().cuda_stream
+    neg = _randn(cuda, 70, 256, seed=250)
+    neg[3] = -0.0
+    pos = _randn(cuda, 256, 64, seed=251).abs() + 0.1
+    sub = _randn(cuda, 70, 16, seed=252)
+    sub[0] = 3.39e38 * torch.sign(sub[0])
+    sub[1, 3] = float("inf")
+    sub_b = _randn(cuda, 16, 8, seed=253)
+    sub_b[:, 4] = 1e-40
+    for a, b, mode, n_stored in ((neg, pos, "M8", 1), (sub, sub_b, "M16", 2),
+                                 (sub, sub_b, "M23", 3)):
+        limbs = mp_matmul.mp_decompose(b, n_stored)
+        out, route = _routed(mp_matmul.mp_prelimbed_matmul, a[:M], limbs,
+                             mode)
+        assert route == mp_matmul.SPLIT
+        big = mp_matmul.launch_prelimbed_matmul(lib, stream, a, limbs,
+                                                resolve(mode))
+        assert _bitwise(out, big[:M])
+        ws = [b, b * 0.5]
+        proj, route = _routed(mp_matmul.mp_fused_proj, a, ws, mode)
+        assert route == mp_matmul.TMA
+        assert _bitwise(proj, mp_matmul.launch_fused_proj(
+            lib, stream, a, ws, resolve(mode)))
+        gated = mp_matmul.mp_fused_proj(a, ws, mode, gate="swiglu")
+        assert _bitwise(gated, mp_matmul.launch_fused_proj(
+            lib, stream, a, ws, resolve(mode), gate="swiglu"))
+    out = mp_matmul.mp_prelimbed_matmul(neg[:M], mp_matmul.mp_decompose(
+        pos, 1), "M8")
     torch.cuda.synchronize()
     assert (out[3] == 0).all() and not torch.signbit(out[3]).any()

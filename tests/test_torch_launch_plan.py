@@ -1,12 +1,14 @@
-"""The launch side of the fused matmul's Hopper tiles and the autotuner,
+"""The launch side of the Hopper tiles (the fused matmul's, the
+projection's TMA tile, the pre-limbed split tile) and the autotuner,
 without a card: the sweep keeps the fastest of all configurations, the
 default launch among them (``repro.kernels.autotune.autotune`` keeps the
 fastest of its candidates, its default blocks among them); a default table
 entry reaches the launch entry as zeros with no other call into the
 library, a tuned one as the entry's arguments; the route each operand
-layout takes; and the Python mirrors of the decode plan and the TMA tile
-pinned at the serving shapes (``tests/test_torch_gpu.py`` holds them equal
-to the numbers the library exports, on the card)."""
+layout takes; and the Python mirrors of the decode plan (on f32 weights
+and on stored planes) and the TMA tile pinned at the serving shapes
+(``tests/test_torch_gpu.py`` holds them equal to the numbers the library
+exports, on the card)."""
 import pytest
 import torch
 
@@ -205,9 +207,13 @@ def test_launch_params_and_the_thread_locals_are_gone():
 def test_reset_zeroes_the_route_counters():
     mm.mp_fused_matmul.routes[mm.TMA] += 3
     mm.mp_fused_matmul_partials.routes[mm.SPLIT] += 1
+    mm.mp_fused_proj.routes[mm.TMA] += 2
+    mm.mp_prelimbed_matmul.routes[mm.SPLIT] += 5
     kernels.reset_launch_counts()
     assert kernels.route_counts() == {
         "mp_fused_matmul": dict.fromkeys(mm.ROUTES, 0),
+        "mp_fused_proj": dict.fromkeys(mm.PROJ_ROUTES, 0),
+        "mp_prelimbed_matmul": dict.fromkeys(mm.PRELIMBED_ROUTES, 0),
         "mp_fused_matmul_partials": dict.fromkeys(mm.ROUTES, 0)}
 
 
@@ -268,7 +274,7 @@ def test_split_plan(slabs, K, mode, want):
     if S > 1:   # every block fits on the card at once
         cpr = -(-(-(-K // at.KC)) // S)
         smem = at.split_smem(mode, 8, cpr * at.KC, dk, cpr)
-        per_sm = min(at.H100_SM_SMEM // (smem + 1024), at.SPLIT_PER_SM)
+        per_sm = min(at.H100_SM_SMEM // (smem + 1024), at.split_per_sm())
         assert S * slabs <= per_sm * at.H100_SMS
 
 
@@ -338,3 +344,147 @@ def test_candidates_cover_the_plan_and_every_cluster_size():
     assert at.candidate_blocks(2048, 3072, 768, "M8", smem=at.SMEM_MAX) == []
     assert at.candidate_blocks(2048, 768, 32000, "M16",
                                smem=at.SMEM_MAX) == []
+
+
+# ---------------------------------------------------------------------------
+# the projection's and the pre-limbed matmul's routes
+# ---------------------------------------------------------------------------
+def _misaligned(rows, cols):
+    """A contiguous (rows, cols) f32 tensor whose base is 4 bytes off 16."""
+    return torch.ones(rows * cols + 1)[1:].view(rows, cols)
+
+
+@pytest.mark.parametrize("case,want,entry", [
+    ("contiguous", mm.TMA, "mp_hopper_proj_launch"),
+    ("gated", mm.TMA, "mp_hopper_proj_launch"),
+    ("N % 4 != 0", mm.STRIDED, "mp_fused_proj_launch"),
+    ("K % 4 != 0", mm.STRIDED, "mp_fused_proj_launch"),
+    ("misaligned base", mm.STRIDED, "mp_fused_proj_launch"),
+    ("M <= 16", mm.DECODE, "mp_fused_proj_launch"),
+    ("M <= 16, gated", mm.DECODE, "mp_fused_proj_launch"),
+])
+def test_projection_routes_by_layout(fake_libs, case, want, entry):
+    """The projection's TMA tile takes the operands a tensor map reads;
+    rows off 16 bytes or a misaligned base keep the strided tile; M <= 16
+    its decode tile.  One call into one library."""
+    r = torch.ones
+    a, ws, gate = {
+        "contiguous": (r(64, 96), [r(96, 32)] * 3, "none"),
+        "gated": (r(64, 96), [r(96, 32)] * 2, "swiglu"),
+        "N % 4 != 0": (r(64, 96), [r(96, 30)] * 3, "none"),
+        "K % 4 != 0": (r(64, 94), [r(94, 32)] * 2, "none"),
+        "misaligned base": (_misaligned(64, 96), [r(96, 32)] * 3, "none"),
+        "M <= 16": (r(8, 96), [r(96, 32)] * 3, "none"),
+        "M <= 16, gated": (r(16, 96), [r(96, 32)] * 2, "swiglu"),
+    }[case]
+    out, route = mm.launch_proj_routed(0, a, ws, resolve("M8"), gate=gate)
+    assert route == want
+    assert out.shape == ((a.shape[0], 32 if "N" not in case else 30)
+                         if gate != "none" else
+                         (len(ws), a.shape[0], ws[0].shape[1]))
+    calls = [n for lib in fake_libs.values() for n, _ in lib.calls]
+    assert calls == [entry]
+
+
+def test_the_projections_tma_tile_takes_no_parameter(fake_libs):
+    """A prefill projection key on the TMA route carries no parameter: a
+    tuned one raises before any call, the default launches; the decode and
+    strided tiles take theirs."""
+    a, ws = torch.ones((64, 96)), [torch.ones((96, 32))] * 3
+    with pytest.raises(ValueError, match="takes no launch parameters"):
+        mm.launch_proj_routed(0, a, ws, resolve("M8"), tune=(0, 16))
+    assert all(lib.calls == [] for lib in fake_libs.values())
+    mm.launch_proj_routed(0, a, ws, resolve("M8"), tune=(0, 0))
+    ((name, args),) = fake_libs["mp_matmul_hopper"].calls
+    assert name == "mp_hopper_proj_launch" and len(args) == 20
+    mm.launch_proj_routed(0, a, [torch.ones((96, 30))] * 3, resolve("M8"),
+                          tune=(0, 16))
+    mm.launch_proj_routed(0, a[:8], ws, resolve("M8"), tune=(128, 0))
+    tuned = [args[-3:-1] for _, args in fake_libs["mp_matmul"].calls]
+    assert tuned == [(0, 16), (128, 0)]
+    # the autotuner offers the TMA shapes nothing, the strided ones E
+    assert at.candidate_blocks(2048, 768, 768, "M8", n_out=3,
+                               smem=at.SMEM_MAX) == []
+    assert at.candidate_blocks(2048, 768, 3072, "M8", n_out=2,
+                               epilogue="swiglu", smem=at.SMEM_MAX) == []
+    assert at.candidate_blocks(2048, 768, 770, "M8", n_out=2,
+                               epilogue="swiglu", smem=at.SMEM_MAX) == \
+        [(0, 32), (0, 16)]
+
+
+@pytest.mark.parametrize("M,want,entry", [
+    (1, mm.SPLIT, "mp_hopper_prelimbed_launch"),
+    (8, mm.SPLIT, "mp_hopper_prelimbed_launch"),
+    (16, mm.SPLIT, "mp_hopper_prelimbed_launch"),
+    (17, mm.MMA, "mp_prelimbed_matmul_launch"),
+    (70, mm.MMA, "mp_prelimbed_matmul_launch"),
+])
+def test_prelimbed_routes_by_rows(fake_libs, M, want, entry):
+    """The pre-limbed matmul: the split decode tile (its stored planes by
+    TMA where a map reads them) at M <= 16, the mma.sync tile above; the
+    split tile takes the plan's launch as zeros."""
+    limbs = torch.zeros((2, 96, 40), dtype=torch.bfloat16)
+    out, route = mm.launch_prelimbed_routed(0, torch.ones((M, 96)), limbs,
+                                            resolve("M8"))
+    assert route == want == mm.prelimbed_route(torch.ones((M, 96)))
+    assert out.shape == (M, 40)
+    ((name, args),) = [c for lib in fake_libs.values() for c in lib.calls]
+    assert name == entry
+    if want == mm.SPLIT:
+        assert args[-3:-1] == (0, 0) and args[5] == 2   # the stored count
+    with pytest.raises(ValueError, match="takes no launch parameters"):
+        mm.launch_prelimbed_routed(0, torch.ones((70, 96)), limbs,
+                                   resolve("M8"), (64, 2))
+
+
+@pytest.mark.parametrize("slabs,K,mode,want", [
+    (48, 3072, "M8", (8, 256)),    # w_down: 384 blocks, 2 stages a rank
+    (48, 3072, "M16", (8, 128)),
+    (48, 768, "M8", (6, 128)),     # wq / wk / wv / wo: one stage a rank
+    (48, 768, "M16", (6, 128)),
+    (192, 768, "M8", (4, 192)),    # w_gate / w_up: 768 blocks
+    (192, 768, "M16", (4, 64)),
+    (2000, 768, "M8", (1, 0)),     # lm_head: the slabs fill the card
+    (2000, 768, "M16", (1, 0)),
+])
+def test_split_plan_on_stored_planes(slabs, K, mode, want):
+    """The plan with stored planes reckons their bf16 ring (and the TMA
+    ring's slack) and 8 blocks an SM by registers (the kernel's 128
+    threads), so w_up splits in 4 where the f32 weight splits in 3."""
+    assert at.split_plan(slabs, K, mode, pl=True) == want
+    S, dk = want
+    if S > 1:
+        cpr = -(-(-(-K // at.KC)) // S)
+        smem = at.split_smem(mode, 8, cpr * at.KC, dk, cpr, pl=True)
+        per_sm = min(at.H100_SM_SMEM // (smem + 1024), at.split_per_sm(True))
+        assert S * slabs <= per_sm * at.H100_SMS
+    assert at.split_per_sm(True) == 8 and at.split_per_sm(False) == 5
+
+
+def test_split_shared_memory_on_stored_planes():
+    # w_down at S = 8: a rank's 384 k at 256 a stage, two slots of one
+    # stored bf16 plane, the TMA ring's 1088 bytes, 6 chunk sums
+    base = at.dec_smem_bytes(True, 1, 8, 256, 2, 1) + at.DEC_TMA_SLACK
+    assert base == 2 * 256 * 16 * 2 + 2 * 8 * 256 * 4 + 2 * 8 * 264 * 2 \
+        + 16 + 1088
+    assert at.split_smem("M8", 8, 384, 256, 6, pl=True) == \
+        -(-base // 16) * 16 + 6 * 1024
+
+
+def test_the_projection_tile_pins():
+    """The projection's gated block holds both weights: its tile's columns
+    are those of twice the orders (64 at M8), and its f32 stages and plane
+    buffers hold two weights' tiles; QKV's block holds its three weights
+    at M8 (48 columns) and M16 (24), where they fit."""
+    assert [at.tma_tile_n(m, 2) for m in ("M8", "M16", "M23", "M36",
+                                          "M52")] == [64, 32, 24, 8, 8]
+    assert at.tma_smem("M8", 2) == 1024 + 2 * (128 * 64 * 2 + 2 * 64 * 64 * 2) \
+        + 2 * (128 + 2 * 64) * 64 * 4 + 32
+    for mode in ("M8", "M16", "M23", "M36", "M52"):
+        assert at.tma_smem(mode, 2) <= at.SMEM_MAX
+        assert at.tma_smem(mode, 1) == at.tma_smem(mode)
+    assert [at.tma_tile_n(m, 3) for m in ("M8", "M16", "M23")] == [48, 24, 8]
+    # three K-major B planes of 48 columns and two buffers at M8
+    assert at.tma_smem("M8", 3) == 1024 + 2 * (128 * 64 * 2 + 3 * 48 * 64 * 2) \
+        + 2 * (128 + 3 * 48) * 64 * 4 + 32 <= at.SMEM_MAX
+    assert at.tma_smem("M16", 3) <= at.SMEM_MAX

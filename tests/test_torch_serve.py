@@ -223,3 +223,28 @@ def test_chip_smoke_fails_without_the_card_or_the_repo(tmp_path):
                               if k != "PYTHONPATH"})
     assert out.returncode != 0
     assert '"ok": true' not in out.stdout
+
+
+def test_request_fields_equal_jax():
+    """``repro_torch.serve.engine.Request`` is the JAX package's
+    ``serve.engine.Request``: the same fields in the same order, with the
+    same defaults, and an instance of each holds the same values."""
+    import dataclasses
+
+    from repro.serve.engine import Request as JRequest
+    from repro_torch.serve.engine import Request
+
+    def spec(cls):
+        return [(f.name, f.default,
+                 f.default_factory() if f.default_factory
+                 is not dataclasses.MISSING else None)
+                for f in dataclasses.fields(cls)]
+    assert spec(Request) == spec(JRequest)
+    prompt = np.arange(1, 6, dtype=np.int32)
+    mine, theirs = Request(7, prompt, 3), JRequest(7, prompt, 3)
+    mine.out.append(11)
+    theirs.out.append(11)
+    a, b = dataclasses.asdict(mine), dataclasses.asdict(theirs)
+    assert a.keys() == b.keys()
+    assert all(np.array_equal(a[k], b[k]) if k == "prompt" else a[k] == b[k]
+               for k in a)
