@@ -234,7 +234,6 @@ SOURCES = {
 ROUTE_SOURCES = {"cluster": "src/repro_torch/kernels/csrc/mp_matmul_hopper.cu",
                  "tma": "src/repro_torch/kernels/csrc/mp_matmul_hopper.cu",
                  "strided": "src/repro_torch/kernels/csrc/mp_matmul.cu",
-                 "decode": "src/repro_torch/kernels/csrc/mp_matmul.cu",
                  "mma": "src/repro_torch/kernels/csrc/mp_matmul.cu"}
 # the path whose run gives each kernel's ``launches``: the three kernels of
 # slice 1 report the static ``generate`` path, the three of the scheduler
@@ -259,8 +258,8 @@ EXPECTED = {"mp_fused_proj": 24 + 32 * 24, "mp_flash_attention": 12,
 # lm_head at 8 rows, or 1 row per batch entry) on the split decode tile
 EXPECTED_ROUTES = {"cluster": 32 * 49, "tma": 25, "strided": 0}
 # the projection's: the 24 prefill QKV and SwiGLU launches on the TMA tile,
-# the 768 decode ones on its decode tile
-EXPECTED_PROJ_ROUTES = {"decode": 32 * 24, "tma": 24, "strided": 0}
+# the 768 decode ones on the split decode tile
+EXPECTED_PROJ_ROUTES = {"cluster": 32 * 24, "tma": 24, "strided": 0}
 # the mixed-traffic modes, request i at MODES[i % 4]: the serving builtins
 # and a custom format that keeps all four 2-limb products (M16 keeps three)
 CUSTOM = dict(name="M16FULL", mantissa_bits=16, n_limbs=2, max_order=2)
@@ -3618,15 +3617,32 @@ def main() -> int:
     log(f"[build] limb matmuls: one tensor-core chain per product (mma.sync;"
         f" wgmma on the fused matmul's TMA tile) over chunks of KC = "
         f"{report['chunk_k']} k, summed by f32 adds")
-    # the fused matmul's decode plan at the serving decode shapes: the
-    # cluster size splitting K's chunks and the k per ring stage
+    # the split decode plans at the serving decode shapes: the cluster size
+    # splitting K's chunks and the k per ring stage, on each split kernel's
+    # registers (the fused matmul's, the projection's one weight a block
+    # and gated two, the mixed tick's envelope (3, 2) on stored planes)
+    plans = (("w_down", 3072, 768, "M8", {}), ("wo", 768, 768, "M8", {}),
+             ("lm_head", 768, 32000, "M16", {}),
+             ("QKV", 768, 768, "M8", dict(kind="proj", n_out=3)),
+             ("SwiGLU", 768, 3072, "M8", dict(kind="proj", n_out=2,
+                                               gate=True)),
+             ("mixed wq", 768, 768, "M23", dict(kind="mixed")),
+             ("mixed w_gate", 768, 3072, "M23", dict(kind="mixed")),
+             ("mixed w_down", 3072, 768, "M23", dict(kind="mixed")),
+             ("mixed lm_head", 768, 32000, "M23", dict(kind="mixed")))
     report["split_plan"] = {
-        f"{lbl} 8x{K}x{N} {f}": mp_matmul.decode_plan(8, N, K, f)
-        for lbl, K, N, f in (("w_down", 3072, 768, "M8"),
-                             ("wo", 768, 768, "M8"),
-                             ("lm_head", 768, 32000, "M16"))}
-    log("[build] fused matmul decode plan (cluster size, k per stage): "
-        + ", ".join(f"{k} {v}" for k, v in report["split_plan"].items()))
+        f"{lbl} 8x{K}x{N} {f}": mp_matmul.decode_plan(8, N, K, f, **kw)
+        for lbl, K, N, f, kw in plans}
+    report["split_regs"] = {
+        f"{kind} {f}" + (f" nout {n}" if kind == "proj" else ""):
+            mp_matmul.split_regs(kind, f, n)
+        for kind, n in (("fused", 1), ("prelimbed", 1), ("proj", 1),
+                        ("proj", 2), ("mixed", 1))
+        for f in ("M8", "M16", "M23")}
+    log("[build] split decode plans (cluster size, k per stage): "
+        + ", ".join(f"{k} {v}" for k, v in report["split_plan"].items())
+        + "; registers a thread: "
+        + ", ".join(f"{k} {v}" for k, v in report["split_regs"].items()))
     # the paged kernels' chunk at the decode shape (Dh 64, bs 16, M16/M8 and
     # the mixed tick's (3, 3) envelope); a slot's bits do not depend on it
     chunk_cols = mp_attention.paged_chunk_cols(64, 16, 1, 2, 1)
@@ -4854,6 +4870,7 @@ def main() -> int:
         torch.cuda.synchronize()
         m_run_s = time.perf_counter() - t0
         m_launches = kernels.launch_counts()
+        m_routes = kernels.route_counts()
         m_plain = kernels.plain_call_counts()
     m_stats = m_sched.stats()
     n_mixed, n_bucket = step_calls.steps["mixed"], step_calls.steps["bucket"]
@@ -4875,6 +4892,15 @@ def main() -> int:
     if m_launches != m_want or any(m_plain.values()):
         raise AssertionError(f"mixed launches {m_launches} != expected "
                              f"{m_want} (plain calls {m_plain})")
+    # every mixed-lane launch is a decode one (M <= 16): the split tile
+    m_want_routes = {"cluster": m_want["mp_mixed_prelimbed_matmul"],
+                     "mma": 0}
+    log(f"[mixed] the mixed-lane matmul's routes "
+        f"{m_routes['mp_mixed_prelimbed_matmul']} (want {m_want_routes})")
+    if m_routes["mp_mixed_prelimbed_matmul"] != m_want_routes:
+        raise AssertionError(f"mixed-lane routes "
+                             f"{m_routes['mp_mixed_prelimbed_matmul']} != "
+                             f"expected {m_want_routes}")
     m_out = {r.rid: r.out for r in m_done}
     if (len(m_out) != n_req or m_stats["completed"] != n_req
             or any(len(o) != sched_new for o in m_out.values())
@@ -4961,7 +4987,8 @@ def main() -> int:
     report["mixed"] = dict(
         modes=list(MODES), lengths=sched_lengths, max_new=sched_new,
         run_s=m_run_s, tokens_per_s=m_stats["useful_tokens"] / m_run_s,
-        stats=m_stats, launches=m_launches, mixed_launches=n_mixed,
+        stats=m_stats, launches=m_launches, routes=m_routes,
+        mixed_launches=n_mixed,
         bucket_launches=n_bucket, prelimb_misses=misses,
         solo_bitwise=list(m_solo_ids), tick_ms=tick,
         kernel_launches_per_tick=per_tick, kernel_busy_ms_per_tick=busy_ms,
@@ -5264,7 +5291,8 @@ def main() -> int:
     t_peak = torch.cuda.max_memory_allocated()
     t_want = {k: TRAIN_STEPS * v for k, v in per_step.items()}
     # every projection of a step (1024 rows, contiguous) on the TMA tile
-    t_want_proj = {"decode": 0, "tma": t_want["mp_fused_proj"], "strided": 0}
+    t_want_proj = {"cluster": 0, "tma": t_want["mp_fused_proj"],
+                   "strided": 0}
     run_ms = [t * 1e3 for t in trainer._step_times]
     log(f"[train] Trainer.run {TRAIN_STEPS} steps of batch {TRAIN_BATCH} x "
         f"{TRAIN_SEQ} under train_default: {train_s:.3f} s, losses "
@@ -5490,6 +5518,7 @@ def main() -> int:
         path = LAUNCH_PATH.get(kname, "generate")
         routes = {"generate": report["main"]["routes"],
                   "scheduler": report["sched"]["routes"],
+                  "mixed": report["mixed"]["routes"],
                   "dist": report["dist"]["generate"]["routes"]}.get(
                       path, {}).get(kname)
         if routes:     # the files of the routes that ran

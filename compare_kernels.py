@@ -20,8 +20,10 @@ the SM clock and power draw are sampled while each case of this tree runs
 back to back, and this tree's matmul lines carry the case's route, its
 bound, its plain version's time and, at M8, the time of ``torch.mm`` on
 bf16 operands with f32 out (M8's function; the projection's on its
-weights concatenated along N, SwiGLU's the product only).  With no other
-version, this tree's cases alone.
+weights concatenated along N, SwiGLU's the product only).  An older
+version without the split projection or mixed-lane entries of
+``mp_matmul_hopper.cu`` runs those decode shapes on its ``mp_matmul.cu``.
+With no other version, this tree's cases alone.
 
     python3 compare_kernels.py PARENT/src/repro_torch/kernels/csrc/mp_matmul.cu
 
@@ -64,17 +66,24 @@ def matmul_cases(torch, randn):
     """The model's prefill and decode shapes (paper-mpfp-100m), as in
     chip_smoke.py's [time] lines: the fused matmul, the partials epilogue
     at the K-sharded prefill's shapes (two ranks: half of K), the fused
-    projection (QKV, SwiGLU, the training step's), the pre-limbed matmul
-    at the decode shapes on ``mp_decompose``d planes (two stored limbs, as
-    the serving path stores them), and the order's edges: a row whose
-    products are all -0.0, and the subnormal products of
+    projection (QKV, SwiGLU, the training step's; at decode also with
+    bias, residual and both), the pre-limbed matmul at the decode shapes
+    on ``mp_decompose``d planes (two stored limbs, as the serving path
+    stores them), the mixed-lane matmul at the mixed tick's decode shapes
+    (two rows per mode of chip_smoke.MODES, envelope (3, 2), three stored
+    limbs; and four rows, one per mode), and the order's edges: a row
+    whose products are all -0.0, and the subnormal products of
     tests/test_torch_gpu.py::test_subnormal_products_are_kept (an f32 and
     bf16 subnormal column, rows of +-3.39e38 and an inf), each at a
     prefill and a decode row count, through the fused matmul, the
-    projection (70 rows) and the pre-limbed matmul (8 and 4 rows).
+    projection (70, 8 and 4 rows), the pre-limbed matmul (8 and 4 rows)
+    and the mixed-lane matmul (70, 8 and 4 rows, the four lanes in turn).
     Returns {label: (run, spec or None)}; ``run(version, stream)``
     launches on a :class:`Version`; ``spec`` describes the case for
     :func:`matmul_extras`."""
+    from chip_smoke import CUSTOM, MODES
+    from repro_torch.core import lanes
+    from repro_torch.core.formats import register_format
     from repro_torch.core.formats import resolve as f
     from repro_torch.kernels import mp_matmul as mm
 
@@ -89,14 +98,20 @@ def matmul_cases(torch, randn):
                                     libs=v.libs)[0]
         return run, dict(kind="parts", a=a, b=b, fmt=f(fmt))
 
-    def proj(a, ws, fmt, gate="none"):
+    def proj(a, ws, fmt, gate="none", biases=None, residual=None):
+        epi = dict(gate=gate, biases=biases, residual=residual)
+        # an older version runs its own decode tile, or every shape, on
+        # mp_matmul.cu
+        entry = ("mp_hopper_proj_decode_launch" if a.shape[0] <= mm.DEC_M
+                 else "mp_hopper_proj_launch")
+
         def run(v, st):
-            if v.has("mp_hopper_proj_launch"):
-                return mm.launch_proj_routed(st, a, ws, f(fmt), gate=gate,
-                                             libs=v.libs)[0]
+            if v.has(entry):
+                return mm.launch_proj_routed(st, a, ws, f(fmt), libs=v.libs,
+                                             **epi)[0]
             return mm.launch_fused_proj(v.libs["mp_matmul"], st, a, ws,
-                                        f(fmt), gate=gate)
-        return run, dict(kind="proj", a=a, ws=ws, fmt=f(fmt), gate=gate)
+                                        f(fmt), **epi)
+        return run, dict(kind="proj", a=a, ws=ws, fmt=f(fmt), **epi)
 
     def prelimbed(a, w, fmt, n_stored=2):
         limbs = mm.mp_decompose(w, n_stored)
@@ -110,12 +125,38 @@ def matmul_cases(torch, randn):
         return run, dict(kind="prelimbed", a=a, limbs=limbs, w=w,
                          fmt=f(fmt))
 
+    def mixed(a, w, names, n_stored=3):
+        """Row i of a at the format names[i % len(names)] under their
+        envelope, against w's mp_decompose'd planes."""
+        fmts = [f(n) for n in (list(names) * a.shape[0])[:a.shape[0]]]
+        env = lanes.envelope_format(max(x.n_limbs for x in fmts),
+                                    max(x.max_order for x in fmts))
+        ln, lo = (torch.tensor(v, dtype=torch.int32, device=a.device)
+                  for v in ([x.n_limbs for x in fmts],
+                            [x.max_order for x in fmts]))
+        limbs = mm.mp_decompose(w, n_stored)
+
+        def run(v, st):
+            if a.shape[0] > mm.DEC_M or v.has(
+                    "mp_hopper_mixed_prelimbed_launch"):
+                return mm.launch_mixed_routed(st, a, limbs, env, ln, lo,
+                                              libs=v.libs)[0]
+            return mm.launch_mixed_prelimbed_matmul(
+                v.libs["mp_matmul"], st, a, limbs, env, ln, lo)
+        return run, dict(kind="mixed", a=a, limbs=limbs, fmt=env, fmts=fmts,
+                         lanes=(ln, lo))
+
+    spec = dict(CUSTOM)
+    register_format(spec.pop("name"), **spec)
+    tick = [m for m in MODES for _ in range(2)]   # two rows per mode
     x, a_ff = randn(2048, 768), randn(2048, 3072)
     w_o, w_down = randn(768, 768) * 0.03, randn(3072, 768) * 0.02
     w_up = randn(768, 3072) * 0.03
     w_lm = randn(768, 32000) * 0.03
     wq = [randn(768, 768) * 0.03 for _ in range(3)]
     wg = [randn(768, 3072) * 0.03 for _ in range(2)]
+    bq = [randn(768) for _ in range(3)]
+    bg = [randn(3072) for _ in range(2)]
     qh = randn(8, 1, 12, 64).permute(0, 2, 1, 3)
     kt = randn(8, 512, 12, 64).permute(0, 2, 1, 3).transpose(-1, -2)
     xa7, wl7 = mm.mp_decompose(x, 7), mm.mp_decompose(w_lm, 7)
@@ -145,6 +186,16 @@ def matmul_cases(torch, randn):
         "decode QKV 8x768 vs 3x768x768 M8": proj(x[:8], wq, "M8"),
         "decode SwiGLU 8x768 vs 2x768x3072 M8": proj(x[:8], wg, "M8",
                                                      "swiglu"),
+        "decode QKV+bias 8x768 vs 3x768x768 M8": proj(
+            x[:8], wq, "M8", biases=bq),
+        "decode SwiGLU+bias+res 8x768 vs 2x768x3072 M8": proj(
+            x[:8], wg, "M8", "swiglu", biases=bg, residual=randn(8, 3072)),
+        "decode 1 out+bias+res 8x768 vs 768x768 M8": proj(
+            x[:8], wq[:1], "M8", biases=bq[:1], residual=randn(8, 768)),
+        "decode QKV 4x768 vs 3x768x768 M8": proj(x[:4], wq, "M8"),
+        "decode QKV 8x768 vs 3x768x768 M23": proj(x[:8], wq, "M23"),
+        "decode SwiGLU 8x768 vs 2x768x3072 M16": proj(x[:8], wg, "M16",
+                                                      "swiglu"),
         "partials lm_head K/2 2048x384x32000 M16": partials(
             x[:, :384], w_lm[:384], "M16"),
         "partials w_down K/2 2048x1536x768 M8": partials(
@@ -182,6 +233,29 @@ def matmul_cases(torch, randn):
             sub[:8], sub_b, "M16"),
         "subnormal products, pre-limbed 4x16x8 M16": prelimbed(
             sub[:4], sub_b, "M16"),
+        "row of -0.0 products, projection 8x256 vs 2x256x64 M8": proj(
+            neg[:8], [pos, pos2], "M8"),
+        "row of -0.0 products, projection 4x256 vs 2x256x64 M8": proj(
+            neg[:4], [pos, pos2], "M8"),
+        "subnormal products, projection 8x16 vs 2x16x8 M16": proj(
+            sub[:8], [sub_b, sub_b2], "M16"),
+        "subnormal products, SwiGLU 4x16 vs 2x16x8 M16": proj(
+            sub[:4], [sub_b, sub_b2], "M16", "swiglu"),
+        "mixed decode wq 8x768x768, two rows per mode": mixed(
+            x[:8], w_o, tick),
+        "mixed decode w_gate 8x768x3072, two rows per mode": mixed(
+            x[:8], w_up, tick),
+        "mixed decode w_down 8x3072x768, two rows per mode": mixed(
+            a_ff[:8], w_down, tick),
+        "mixed decode lm_head 8x768x32000, two rows per mode": mixed(
+            x[:8], w_lm, tick),
+        "mixed decode wq 4x768x768, one row per mode": mixed(
+            x[:4], w_o, MODES),
+        "row of -0.0 products, mixed 8x256x64": mixed(neg[:8], pos, MODES),
+        "row of -0.0 products, mixed 4x256x64": mixed(neg[:4], pos, MODES),
+        "row of -0.0 products, mixed 70x256x64": mixed(neg, pos, MODES),
+        "subnormal products, mixed 8x16x8": mixed(sub[:8], sub_b, MODES),
+        "subnormal products, mixed 4x16x8": mixed(sub[:4], sub_b, MODES),
         "DD lm_head 2048x768x32000 M52": (lambda v, st: (
             mm.launch_both_prelimbed_matmul(v.libs["mp_matmul"], st, xa7,
                                             wl7, f("M52"))), None),
@@ -219,15 +293,30 @@ def matmul_extras(torch, spec) -> str:
             lib_b = b
     elif kind == "proj":
         ws, gate = spec["ws"], spec["gate"]
+        biases, res = spec["biases"], spec["residual"]
         route = mm.proj_route(a.contiguous(), [w.contiguous() for w in ws])
         N = ws[0].shape[1]
         n_out = 1 if gate != "none" else len(ws)
         b_ms, b_by = bound(2 * M * K * N * fmt.n_products * len(ws),
                            4 * (a.numel() + sum(w.numel() for w in ws)
-                                + n_out * M * N))
+                                + n_out * M * N
+                                + (len(ws) * N if biases else 0)
+                                + (M * N if res is not None else 0)))
         plain_ms = device_ms(lambda: mm.fused_proj_plain(
-            a, ws, fmt, gate=gate))[0]
+            a, ws, fmt, gate=gate, biases=biases, residual=res))[0]
         lib_b = torch.cat(ws, dim=1)
+    elif kind == "mixed":
+        # the products each row keeps (its own lane), the envelope's planes
+        # read once, A and C, and the two lane vectors
+        limbs, (ln, lo) = spec["limbs"], spec["lanes"]
+        route = mm.prelimbed_route(a)
+        N = limbs.shape[-1]
+        b_ms, b_by = bound(2 * K * N * sum(x.n_products
+                                           for x in spec["fmts"]),
+                           4 * (a.numel() + M * N) + 8 * M
+                           + 2 * min(limbs.shape[0], fmt.n_limbs) * K * N)
+        plain_ms = device_ms(lambda: mm.mixed_prelimbed_matmul_plain(
+            a, limbs, fmt, ln, lo))[0]
     else:
         limbs = spec["limbs"]
         route = mm.prelimbed_route(a)

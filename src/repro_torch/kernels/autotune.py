@@ -13,8 +13,9 @@ launch at any of these parameters gives the default launch's bits:
     at least one chunk);
   * its prefill tiles (M > 16, TMA or strided) have no free parameter:
     their keys hold the default, ``[0, 0]``, timed alone;
-  * the fused projection: ``[dk, 0]`` at its decode tile
-    (csrc/mp_matmul.cu); none at its TMA prefill tile
+  * the fused projection: ``[dk, S]`` at its decode tile, split over a
+    cluster as the fused matmul's (csrc/mp_matmul_hopper.cu); none at its
+    TMA prefill tile
     (csrc/mp_matmul_hopper.cu: the shapes a tensor map reads, rows of a
     multiple of 16 bytes), whose keys hold ``[0, 0]``; ``[0, E]`` at its
     strided prefill tile (the other shapes), E the outputs per thread,
@@ -65,11 +66,11 @@ from repro_torch.core.formats import FormatLike, MPFormat, resolve
 
 MatmulParams = Tuple[int, int]   # (p0, p1); (0, 0) = the default launch
 AttnParams = Tuple[int]          # (block_q,)
-# the layout of a table's entries, in its file name: 3 = the decode tile's
-# (dk, S), the TMA tiles' (0, 0), the projection's prefill keys on its TMA
-# tile (0, 0); 2 had the projection's prefill E; 1 (no tag) the old tiles'
-# (dk, E)
-TABLE_LAYOUT = 3
+# the layout of a table's entries, in its file name: 4 = the decode tiles'
+# (dk, S), the projection's among them, the TMA tiles' (0, 0); 3 had the
+# projection's decode (dk, 0) on its single-block tile; 2 the projection's
+# prefill E; 1 (no tag) the old tiles' (dk, E)
+TABLE_LAYOUT = 4
 
 # csrc/mp_matmul.cu
 KC = 64
@@ -317,63 +318,97 @@ def split_norm(K: int, s: int) -> int:
 
 
 def split_smem(fmt: FormatLike, M: int, kr: int, dk: int, cpr: int,
-               pl: bool = False) -> int:
+               pl: bool = False, nout: int = 1) -> int:
     """``split_smem_bytes``: one split-tile block's dynamic shared memory:
-    the decode tile's for a K range of ``kr`` at ``dk`` k per stage (``pl``:
-    on stored planes, their bf16 ring and the TMA ring's slack),
-    16-aligned, then the chunk sums of ``cpr`` chunks."""
+    the decode tile's for a K range of ``kr`` at ``dk`` k per stage and
+    ``nout`` weights a block (``pl``: on stored planes, their bf16 ring and
+    the TMA ring's slack), 16-aligned, then the chunk sums of ``cpr``
+    chunks of each weight."""
     fmt = resolve(fmt)
     slots = min(DEC_SLOTS, -(-kr // dk))
-    base = dec_smem_bytes(pl, fmt.n_limbs, M, dk, slots, 1) + (
+    base = dec_smem_bytes(pl, fmt.n_limbs, M, dk, slots, nout) + (
         DEC_TMA_SLACK if pl else 0)
-    return -(-base // 16) * 16 + cpr * _nl_no(fmt)[1] * DEC_M * DEC_N * 4
+    return -(-base // 16) * 16 + \
+        cpr * nout * _nl_no(fmt)[1] * DEC_M * DEC_N * 4
 
 
 def split_dk(fmt: FormatLike, M: int, kr: int, cpr: int,
-             optin: int = SMEM_MAX, pl: bool = False) -> int:
+             optin: int = SMEM_MAX, pl: bool = False, nout: int = 1) -> int:
     """``split_dk``: the split tile's k per stage for a rank's K range: the
     ring's most, or the range rounded up to KC when shorter, halved in
     multiples of KC until the block fits ``optin`` bytes."""
     ring = decode_ring_k(fmt)
     dk = -(-kr // KC) * KC if kr < ring else ring
-    while dk > KC and split_smem(fmt, M, kr, dk, cpr, pl) > optin:
+    while dk > KC and split_smem(fmt, M, kr, dk, cpr, pl, nout) > optin:
         dk = -(-(dk // 2) // KC) * KC
     return dk
 
 
-def split_per_sm(pl: bool = False) -> int:
-    """``split_per_sm``: split-tile blocks an SM holds by registers at 64 a
-    thread: 5 of the fused matmul's 192 threads, 8 of the pre-limbed
-    kernel's 128."""
-    return 65536 // ((DEC_CT + 32 * (2 if pl else 4)) * 64)
+def split_per_sm(pl: bool = False, regs: int = 64) -> int:
+    """``split_per_sm``: split-tile blocks an SM holds by registers at
+    ``regs`` a thread (the kernel's, at least 64, in steps of 8): at 64, 5
+    of the f32 weights' 192 threads, 8 of the stored planes' 128."""
+    r = 64 if regs < 64 else -(-regs // 8) * 8
+    return 65536 // ((DEC_CT + 32 * (2 if pl else 4)) * r)
 
 
 def split_plan(slabs: int, K: int, fmt: FormatLike = "M8", M: int = 8,
                sms: int = H100_SMS, sm_smem: int = H100_SM_SMEM,
-               optin: int = SMEM_MAX, pl: bool = False) -> Tuple[int, int]:
+               optin: int = SMEM_MAX, pl: bool = False, nout: int = 1,
+               regs: int = 64) -> Tuple[int, int]:
     """``split_plan``: the decode tile's default (cluster size, k per stage)
-    for ``slabs`` 16-column slabs (times the batch) of a fused matmul
-    (``pl``: a pre-limbed one): the largest S <= 8, as the tile runs it,
-    whose blocks all fit on the card at once at :func:`split_dk`'s stage
-    or a shorter one (blocks per SM by shared memory, at most
-    :func:`split_per_sm`); (1, 0) where none does (lm_head's 2,000 slabs:
-    the single-block tile at its own stage)."""
+    for ``slabs`` 16-column slabs (times grid.y and the batch) of a split
+    kernel (``pl``: on stored planes, the pre-limbed and mixed-lane
+    matmuls'; ``nout`` weights a block, the projection's gated block two;
+    ``regs`` the kernel's registers a thread): the largest S <= 8, as the
+    tile runs it, whose blocks all fit on the card at once at
+    :func:`split_dk`'s stage or a shorter one (blocks per SM by shared
+    memory, at most :func:`split_per_sm`) and, on f32 weights, with fewer
+    stages a rank than the single block runs (:func:`dec_stage_k`) where
+    that one runs more than one; (1, 0) where none does (lm_head's 2,000
+    slabs: the single-block tile at its own stage)."""
     nch = -(-K // KC)
+    d1 = dec_stage_k(fmt, M, K, nout, slabs, pl, sms, sm_smem, optin)
+    st1 = 0 if pl else -(-K // d1)
     for s in range(SPLIT_MAX, 1, -1):
         if split_norm(K, s) != s:
             continue
         cpr = -(-nch // s)
         kr = cpr * KC
-        dk = split_dk(fmt, M, kr, cpr, optin, pl)
+        dk = split_dk(fmt, M, kr, cpr, optin, pl, nout)
         while True:
-            smem = split_smem(fmt, M, kr, dk, cpr, pl)
-            per_sm = min(sm_smem // (smem + 1024), split_per_sm(pl))
+            if st1 > 1 and -(-kr // dk) >= st1:
+                break
+            smem = split_smem(fmt, M, kr, dk, cpr, pl, nout)
+            per_sm = min(sm_smem // (smem + 1024), split_per_sm(pl, regs))
             if smem <= optin and s * slabs <= per_sm * sms:
                 return s, dk
             if dk <= KC:
                 break
             dk = -(-(dk // 2) // KC) * KC
     return 1, 0
+
+
+def dec_stage_k(fmt: FormatLike, M: int, K: int, nout: int, blocks: int,
+                pl: bool = False, sms: int = H100_SMS,
+                sm_smem: int = H100_SM_SMEM, optin: int = SMEM_MAX) -> int:
+    """``dec_stage_k``: the single-block decode tile's k per stage for
+    ``blocks`` blocks of ``nout`` weights: the ring's most (K rounded up to
+    KC when shorter), halved in multiples of KC until the block fits
+    ``optin`` bytes and, with more blocks than SMs, two fit on one SM."""
+    fmt = resolve(fmt)
+
+    def smem(dk):
+        return dec_smem_bytes(pl, fmt.n_limbs, M, dk,
+                              min(DEC_SLOTS, -(-K // dk)), nout)
+    ring = decode_ring_k(fmt)
+    dk = -(-K // KC) * KC if K < ring else ring
+    while dk > KC and smem(dk) > optin:
+        dk = -(-(dk // 2) // KC) * KC
+    if blocks > sms:
+        while dk > KC and 2 * (smem(dk) + 1024) > sm_smem:
+            dk = -(-(dk // 2) // KC) * KC
+    return dk
 
 
 def decode_ring_k(fmt: FormatLike) -> int:
@@ -455,13 +490,16 @@ def _tile_builds(fmt: MPFormat, n_out: int, e: int,
 
 
 def _split_candidates(M: int, K: int, N: int, fmt: MPFormat, limit: int,
-                      sms: int) -> List[MatmulParams]:
-    """The fused matmul's decode tile: cluster sizes (the plan's, 1, 2, 4
-    and 8 as the tile runs them) and, for each, the stages of KC up to the
-    ring's most and the rank's K range, within ``limit`` bytes."""
+                      sms: int, nout: int = 1, ny: int = 1
+                      ) -> List[MatmulParams]:
+    """A split decode tile on f32 weights (the fused matmul's, or the
+    projection's at ``nout`` weights a block and ``ny`` blocks of weights):
+    cluster sizes (the plan's, 1, 2, 4 and 8 as the tile runs them) and,
+    for each, the stages of KC up to the ring's most and the rank's K
+    range, within ``limit`` bytes."""
     sizes = sorted({split_norm(K, s) for s in
-                    (split_plan(-(-N // DEC_N), K, fmt, M, sms)[0], 1, 2, 4,
-                     8)})
+                    (split_plan(-(-N // DEC_N) * ny, K, fmt, M, sms,
+                                nout=nout)[0], 1, 2, 4, 8)})
     out: List[MatmulParams] = []
     nch = -(-K // KC)
     for S in sizes:
@@ -470,8 +508,9 @@ def _split_candidates(M: int, K: int, N: int, fmt: MPFormat, limit: int,
         kmax = min(decode_ring_k(fmt), -(-kr // KC) * KC)
         for dk in range(KC, kmax + 1, KC):
             need = (dec_smem_bytes(False, fmt.n_limbs, M, dk,
-                                   min(DEC_SLOTS, -(-kr // dk)), 1)
-                    if S == 1 else split_smem(fmt, M, kr, dk, cpr))
+                                   min(DEC_SLOTS, -(-kr // dk)), nout)
+                    if S == 1 else split_smem(fmt, M, kr, dk, cpr,
+                                              nout=nout))
             if need <= limit:
                 out.append((dk, S))
     return out
@@ -488,7 +527,8 @@ def candidate_blocks(M: int, K: int, N: int, mode: FormatLike, *,
     built without a spill (the projection's E / 2).  The fused
     matmul: at M <= 16 the decode tile's ``(dk, S)``, at larger M none (its
     prefill tiles have no free parameter).  The fused projection: at M <=
-    16 its decode tile's ``(dk, 0)``; at larger M none on its TMA tile
+    16 its split decode tile's ``(dk, S)`` (gated, both weights a block;
+    else one, the grid walking them); at larger M none on its TMA tile
     (K and N multiples of 4, as the contiguous operands a sweep makes: a
     tensor map reads them), else the strided tile's ``(0, E)`` at the
     default E and E / 2 (built-in formats)."""
@@ -500,16 +540,10 @@ def candidate_blocks(M: int, K: int, N: int, mode: FormatLike, *,
         if M <= DEC_M:
             return _split_candidates(M, K, N, fmt, limit, sms)
         return []
-    out: List[MatmulParams] = []
     if M <= DEC_M:
-        nout = 2 if gated else 1
-        kmax = min(decode_ring_k(fmt), -(-K // KC) * KC)
-        for dk in range(KC, kmax + 1, KC):
-            slots = min(DEC_SLOTS, -(-K // dk))
-            if dec_smem_bytes(False, fmt.n_limbs, M, dk, slots,
-                              nout) <= limit:
-                out.append((dk, 0))
-        return out
+        return _split_candidates(M, K, N, fmt, limit, sms,
+                                 *((2, 1) if gated else (1, min(n_out, 3))))
+    out: List[MatmulParams] = []
     if K % 4 == 0 and N % 4 == 0:
         return []       # the TMA tile (mp_matmul.proj_route)
     width = min(n_out, 3)   # ops.mp_fused_proj_cuda: 3 weights per launch

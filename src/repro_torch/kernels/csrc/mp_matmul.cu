@@ -16,11 +16,11 @@
 //   fused_proj_kernel    replaces _fused_multi_kernel  (one A operand shared
 //                                                      by n_out B operands,
 //                                                      bias / swiglu / residual
-//                                                      epilogue: the decode
-//                                                      tile and the prefill
+//                                                      epilogue: the prefill
 //                                                      tile of the operands
 //                                                      TMA cannot read; the
-//                                                      TMA tile is in
+//                                                      TMA and split decode
+//                                                      tiles are in
 //                                                      mp_matmul_hopper.cu)
 //   prelimbed_matmul_kernel  replaces _prelimbed_kernel  (B as stored bf16
 //                                                      limb planes: the
@@ -35,8 +35,11 @@
 //                                                      pre-limbed kernel at a
 //                                                      batch's envelope
 //                                                      depth, each row at its
-//                                                      own lane format:
-//                                                      mixed-format decode)
+//                                                      own lane format: the
+//                                                      prefill tile; the
+//                                                      mixed-format decode's
+//                                                      split tile is in
+//                                                      mp_matmul_hopper.cu)
 //   both_prelimbed_matmul_kernel  replaces _both_prelimbed_kernel  (A and B
 //                                                      both as stored bf16
 //                                                      limb planes: two-float
@@ -100,21 +103,18 @@
 // operands and the prefill shapes of the pre-limbed, mixed-lane and
 // both-prelimbed kernels.
 //
-// The decode shapes (M <= 16 rows) of the mixed-lane and projection
-// kernels take the decode tile (decode_tile, in mp_matmul_common.cuh; the
-// fused and pre-limbed matmuls run it split over a cluster in
-// mp_matmul_hopper.cu): the rows padded to one m16 fragment, 16 columns
-// per block so that N = 768 runs 48 blocks, B streamed through a cp.async
-// ring by producer warps that limb it once per block.  They are bound by the bytes of the weights (the planes the format
-// reads, or the f32 weights), by the limbing of f32 weights and, in the
-// deeper formats, by one warp's MMA chains per 8 columns.  Ragged edges are
-// masked in the loads and stores; nothing is padded in device memory.
+// The decode shapes (M <= 16 rows) of every limb matmul take the decode
+// tile (decode_tile, in mp_matmul_common.cuh), split over a cluster in
+// mp_matmul_hopper.cu: the rows padded to one m16 fragment, 16 columns
+// per block, B streamed through a ring by producer warps that limb it once
+// per block.  Ragged edges are masked in the loads and stores; nothing is
+// padded in device memory.
 //
 // Launch parameters the order leaves free, which the autotuner
-// (kernels/autotune.py) may set per launch, as arguments of
-// mp_fused_proj_launch: the decode tile's k per ring stage and the prefill
-// tile's outputs per thread (tile_e's, or half of it for the built-in
-// formats).  They move work between stages and blocks, never an add.
+// (kernels/autotune.py) may set per launch, as an argument of
+// mp_fused_proj_launch: the prefill tile's outputs per thread (tile_e's, or
+// half of it for the built-in formats).  They move work between blocks,
+// never an add.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 --fmad=false
 // (no --use_fast_math).  --fmad=false keeps every a*b+c rounded twice, as
@@ -671,12 +671,6 @@ __global__ void __launch_bounds__(NT) prelimbed_matmul_kernel(PrelimbedArgs p) {
                                  p.max_order);
 }
 
-struct MixedPrelimbedArgs {
-  PrelimbedArgs m;          // the envelope's (n_limbs, max_order) in m
-  const int32_t* lane_n;    // (M,) limbs of each row's lane
-  const int32_t* lane_ord;  // (M,) order cut of each row's lane
-};
-
 // Port of _mixed_prelimbed_kernel (build_mixed_prelimbed_call): the
 // pre-limbed kernel at the batch's envelope depth, each output row at its
 // own lane format (lane_n[m], lane_ord[m]) at or below the envelope.  The
@@ -693,22 +687,6 @@ __global__ void __launch_bounds__(NT)
   matmul_tile<NL, NO, GEN, true, true>(
       p.m.a, p.m.a_sr, 1, nullptr, 0, 0, p.m.b, p.m.c, p.m.c_sr, 1, p.m.M,
       p.m.N, p.m.K, p.m.n_limbs, p.m.max_order, p.lane_n, p.lane_ord);
-}
-
-// mixed_prelimbed_matmul_kernel's decode tile (M <= DEC_M): the mixed-format
-// decode tick's matmuls.  The envelope's planes stream once for all rows and
-// the MMAs run at the envelope; each row selects its own terms.
-template <int NL, int NO, bool GEN>
-__global__ void __launch_bounds__(DEC_CT + 128)
-    mixed_prelimbed_matmul_decode_kernel(MixedPrelimbedArgs p, int dk) {
-  const float* const B[1] = {nullptr};
-  decode_tile<NL, NO, GEN, true, true>(
-      p.m.a, p.m.a_sr, 1, B, 0, 0, p.m.b, (int)p.m.M, p.m.N, p.m.K,
-      p.m.n_limbs, p.m.max_order, dk, p.lane_n, p.lane_ord,
-      [&](int r, int64_t gn, const float (&y)[1]) {
-        p.m.c[r * p.m.c_sr + gn] = y[0];
-      },
-      (int64_t)blockIdx.x * DEC_N);
 }
 
 struct BothPrelimbedArgs {
@@ -782,27 +760,6 @@ __global__ void __launch_bounds__(NT) fused_proj_kernel(ProjArgs p) {
     }
     proj_store<NOUT>(p, gm, gn, 0, y);
   });
-}
-
-// fused_proj_kernel's decode tile (M <= DEC_M): A limbed once per stage for
-// the block's NOUT weights, weights t0 = blockIdx.y * NOUT onwards (grid.y
-// blocks of weights per column block), then proj_store.  NOUT = 1 without
-// the gate; the swiglu gate needs g and u of one output in one thread, so
-// it runs NOUT = 2.
-template <int NL, int NO, int NOUT, bool GEN>
-__global__ void __launch_bounds__(DEC_CT + 128)
-    fused_proj_decode_kernel(ProjArgs p, int dk) {
-  const int t0 = (int)blockIdx.y * NOUT;
-  const float* B[NOUT];
-#pragma unroll
-  for (int t = 0; t < NOUT; ++t) B[t] = p.b[t0 + t];
-  decode_tile<NL, NO, GEN, false, false, NOUT>(
-      p.a, p.a_sr, 1, B, p.b_sr, 1, Planes{}, (int)p.M, p.N, p.K, p.n_limbs,
-      p.max_order, dk, nullptr, nullptr,
-      [&](int r, int64_t gn, float (&y)[NOUT]) {
-        proj_store<NOUT>(p, r, gn, t0, y);
-      },
-      (int64_t)blockIdx.x * DEC_N);
 }
 
 
@@ -879,10 +836,7 @@ cudaError_t launch_prelimbed(const PrelimbedArgs& p, cudaStream_t st) {
 template <int NL, int NO, bool GEN>
 cudaError_t launch_mixed_prelimbed(const MixedPrelimbedArgs& p,
                                    cudaStream_t st) {
-  if (p.m.M <= DEC_M)
-    return launch_decode<NL, 1,
-                         mixed_prelimbed_matmul_decode_kernel<NL, NO, GEN>>(
-        p, true, GEN ? p.m.n_limbs : NL, p.m.M, p.m.N, p.m.K, 1, 1, 0, st);
+  if (p.m.M <= DEC_M) return cudaErrorInvalidValue;
   return launch_tile<NL, NO, 1, true, false,
                      mixed_prelimbed_matmul_kernel<NL, NO, GEN>>(p, p.m.M,
                                                                  p.m.N, 1, st);
@@ -896,21 +850,10 @@ cudaError_t launch_both_prelimbed(const BothPrelimbedArgs& p,
                                                                 st);
 }
 
-// At M <= DEC_M the decode tile: one block per (column block, weight)
-// without the gate (QKV's 768 columns: 144 blocks, 1.3x faster than the
-// three weights in one block), both weights in one block with it (the gate
-// needs g and u of one output in one thread).
+// the decode shapes (M <= DEC_M) take mp_matmul_hopper.cu's split tile
 template <int NL, int NO, int NOUT, bool GEN>
-cudaError_t launch_proj(const ProjArgs& p, int dk, int e, cudaStream_t st) {
-  if (p.M <= DEC_M) {
-    const int nl = GEN ? p.n_limbs : NL;
-    if constexpr (NOUT == 2)
-      if (p.gate)
-        return launch_decode<NL, 2, fused_proj_decode_kernel<NL, NO, 2, GEN>>(
-            p, false, nl, p.M, p.N, p.K, 1, 1, dk, st);
-    return launch_decode<NL, 1, fused_proj_decode_kernel<NL, NO, 1, GEN>>(
-        p, false, nl, p.M, p.N, p.K, NOUT, 1, dk, st);
-  }
+cudaError_t launch_proj(const ProjArgs& p, int e, cudaStream_t st) {
+  if (p.M <= DEC_M) return cudaErrorInvalidValue;
   constexpr int EA = !GEN && tile_e_alt(NL, NO, NOUT)
                          ? tile_e_alt(NL, NO, NOUT)
                          : tile_e(NL, NO, NOUT);
@@ -921,16 +864,15 @@ cudaError_t launch_proj(const ProjArgs& p, int dk, int e, cudaStream_t st) {
 }
 
 template <int NOUT>
-cudaError_t proj_for_format(const ProjArgs& p, int dk, int e,
-                            cudaStream_t st) {
+cudaError_t proj_for_format(const ProjArgs& p, int e, cudaStream_t st) {
   const int nl = p.n_limbs;
   const int mo = p.max_order;
-  if (nl == 1 && mo == 0) return launch_proj<1, 1, NOUT, false>(p, dk, e, st);
-  if (nl == 2 && mo == 1) return launch_proj<2, 2, NOUT, false>(p, dk, e, st);
-  if (nl == 3 && mo == 2) return launch_proj<3, 3, NOUT, false>(p, dk, e, st);
-  if (nl == 5 && mo == 4) return launch_proj<5, 5, NOUT, false>(p, dk, e, st);
-  if (nl == 7 && mo == 6) return launch_proj<7, 7, NOUT, false>(p, dk, e, st);
-  return launch_proj<GEN_NL, GEN_NO, NOUT, true>(p, dk, e, st);
+  if (nl == 1 && mo == 0) return launch_proj<1, 1, NOUT, false>(p, e, st);
+  if (nl == 2 && mo == 1) return launch_proj<2, 2, NOUT, false>(p, e, st);
+  if (nl == 3 && mo == 2) return launch_proj<3, 3, NOUT, false>(p, e, st);
+  if (nl == 5 && mo == 4) return launch_proj<5, 5, NOUT, false>(p, e, st);
+  if (nl == 7 && mo == 6) return launch_proj<7, 7, NOUT, false>(p, e, st);
+  return launch_proj<GEN_NL, GEN_NO, NOUT, true>(p, e, st);
 }
 
 }  // namespace
@@ -1039,15 +981,17 @@ int mp_fused_matmul_partials_launch(const void* a, int64_t a_sr, int64_t a_sc,
   return (int)err;
 }
 
-// out = epilogue(A @ B_t for t < n_out) at (n_limbs, max_order).  A (M, K)
-// and each B_t (K, N) have column stride 1 and the given row strides; biases
-// are n_out (N,) vectors or all null; res (M, N) or null; gate 1 = swiglu
-// (n_out must be 2, out (M, N)), else out is (n_out, M, N) contiguous.
-// The autotuner's launch parameters, 0 for the default choice: dec_dk, the
-// decode tile's k per stage (a multiple of KC within the ring), and tile_e,
-// the prefill tile's outputs per thread (mp_tile_e's or mp_tile_e_alt's);
-// parameters a launch cannot take return cudaErrorInvalidValue.  No bit of
-// any output depends on them.
+// out = epilogue(A @ B_t for t < n_out) at (n_limbs, max_order) on the
+// strided prefill tile (M > DEC_M; the decode shapes take
+// mp_hopper_proj_decode_launch).  A (M, K) and each B_t (K, N) have column
+// stride 1 and the given row strides; biases are n_out (N,) vectors or all
+// null; res (M, N) or null; gate 1 = swiglu (n_out must be 2, out (M, N)),
+// else out is (n_out, M, N) contiguous.  The autotuner's launch parameter,
+// 0 for the default choice: tile_e, the prefill tile's outputs per thread
+// (mp_tile_e's or mp_tile_e_alt's); dec_dk must be 0 (the decode tile's
+// parameter, which older versions of this entry took here).  Parameters a
+// launch cannot take return cudaErrorInvalidValue.  No bit of any output
+// depends on them.
 int mp_fused_proj_launch(const void* a, int64_t a_sr, const void* b0,
                          const void* b1, const void* b2, int64_t b_sr,
                          const void* bias0, const void* bias1,
@@ -1057,7 +1001,8 @@ int mp_fused_proj_launch(const void* a, int64_t a_sr, const void* b0,
                          int64_t max_order, int64_t dec_dk, int64_t tile_e,
                          void* stream) {
   if (!format_ok(n_limbs, max_order) || n_out < 1 || n_out > MAX_OUT ||
-      (gate && n_out != 2) || (res != nullptr && !gate && n_out != 1))
+      (gate && n_out != 2) || (res != nullptr && !gate && n_out != 1) ||
+      dec_dk != 0)
     return (int)cudaErrorInvalidValue;
   if (M == 0 || N == 0) return 0;
   ProjArgs p{};
@@ -1081,11 +1026,10 @@ int mp_fused_proj_launch(const void* a, int64_t a_sr, const void* b0,
   p.gate = (int)gate;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  const int dk = dec_dk > 0 ? (int)dec_dk : 0;
   const int e = tile_e > 0 ? (int)tile_e : 0;
-  if (n_out == 1) err = proj_for_format<1>(p, dk, e, st);
-  else if (n_out == 2) err = proj_for_format<2>(p, dk, e, st);
-  else err = proj_for_format<3>(p, dk, e, st);
+  if (n_out == 1) err = proj_for_format<1>(p, e, st);
+  else if (n_out == 2) err = proj_for_format<2>(p, e, st);
+  else err = proj_for_format<3>(p, e, st);
   return (int)err;
 }
 
@@ -1132,7 +1076,8 @@ int mp_prelimbed_matmul_launch(const void* a, int64_t a_sr, const void* b,
 // C (M, N) = A (M, K) @ B with row m at its own lane format (lane_n[m]
 // limbs, order cut lane_ord[m]) at or below the envelope (n_limbs,
 // max_order); A, B and C as in mp_prelimbed_matmul_launch, lane_n and
-// lane_ord (M,) int32 on the device.  Planes at or past min(n_stored,
+// lane_ord (M,) int32 on the device; M > DEC_M (the decode shapes take
+// mp_hopper_mixed_prelimbed_launch).  Planes at or past min(n_stored,
 // n_limbs) are never read.  Returns the CUDA error of the launch (0 on
 // success).  Allocates nothing and does not synchronise.
 int mp_mixed_prelimbed_matmul_launch(const void* a, int64_t a_sr,

@@ -429,6 +429,14 @@ struct PrelimbedArgs {
   int n_limbs, max_order;
 };
 
+// the mixed-lane matmul's: the pre-limbed arguments at the envelope, and
+// each row's lane
+struct MixedPrelimbedArgs {
+  PrelimbedArgs m;          // the envelope's (n_limbs, max_order) in m
+  const int32_t* lane_n;    // (M,) limbs of each row's lane
+  const int32_t* lane_ord;  // (M,) order cut of each row's lane
+};
+
 struct MatmulArgs {
   const float* a;
   const float* b;
@@ -443,10 +451,10 @@ struct MatmulArgs {
 };
 
 // ---------------------------------------------------------------------------
-// The decode tile: the body of fused_matmul_kernel, prelimbed_matmul_kernel,
-// mixed_prelimbed_matmul_kernel and fused_proj_kernel when M <= DEC_M (a
-// decode micro-batch of 1..16 rows, or one row per batch entry of decode
-// attention's QK and PV).
+// The decode tile: the body of every limb matmul's decode kernels (M <=
+// DEC_M: a decode micro-batch of 1..16 rows, or one row per batch entry of
+// decode attention's QK and PV), single-block or split over a cluster
+// (mp_matmul_hopper.cu).
 //
 // Invariant: every output element gets exactly the MMAs and adds of the
 // prefill tile, in the same order (chunk_step on the same chunks of KC k,
@@ -518,8 +526,10 @@ constexpr int DEC_TMA_SLACK = 64 + 1024;
 constexpr int DEC_TMA_ALIGN = 1024;
 
 __host__ __device__ inline int64_t dec_split_bytes(bool pl, int nl, int M,
-                                                   int dk, int slots) {
-  return dec_smem_bytes(pl, nl, M, dk, slots, 1) + (pl ? DEC_TMA_SLACK : 0);
+                                                   int dk, int slots,
+                                                   int nout) {
+  return dec_smem_bytes(pl, nl, M, dk, slots, nout) +
+         (pl ? DEC_TMA_SLACK : 0);
 }
 
 // dk: k per ring stage (a multiple of KC, at most DecRing<NL>::K); the
@@ -531,18 +541,19 @@ __host__ __device__ inline int64_t dec_split_bytes(bool pl, int nl, int M,
 // go to store(r, column, y) after combine_orders; PARTS (the partials
 // epilogue, NOUT == 1): its NO per-order accumulators go to store(r,
 // column, per_order) instead, uncombined.  n0: the block's first column.
-// SPLIT (the cluster-split decode tile of mp_matmul_hopper.cu, one weight,
-// no lanes): the block runs a range of K's chunks and stores each chunk's
-// per-order sums, tot_c[o] = +0.0 + tot, to tots[(c * NO + o) * DEC_M *
-// DEC_N + row * DEC_N + column] (c counted from the range's first chunk)
-// instead of adding them up; nothing is stored through ``store``.  With
-// stored planes (PL and SPLIT: dec_split_bytes of shared memory) the first
-// producer thread fills the B ring by TMA from ``bmap`` (a 3-d map of the
-// planes: columns, k, plane; a box of DEC_N columns by dk k in the 32-byte
-// swizzle, which lays each k row's two 8-column halves as dec_col does),
-// k counted from ``bmap_k0``; each ring slot completes an mbarrier the
-// compute warps wait on.  The TMA fills zeros past N and K, the chunk edge
-// of the contract.
+// SPLIT (the cluster-split decode tile of mp_matmul_hopper.cu, any NOUT,
+// lanes or none): the block runs a range of K's chunks and stores each
+// chunk's per-order sums of weight t, tot_c[t][o] = +0.0 + tot (LN: +0.0
+// in the rows whose lane keeps no term of o), to tots[((c * NOUT + t) * NO
+// + o) * DEC_M * DEC_N + row * DEC_N + column] (c counted from the range's
+// first chunk) instead of adding them up; nothing is stored through
+// ``store``.  With stored planes (PL and SPLIT: dec_split_bytes of shared
+// memory) the first producer thread fills the B ring by TMA from ``bmap``
+// (a 3-d map of the planes: columns, k, plane; a box of DEC_N columns by
+// dk k in the 32-byte swizzle, which lays each k row's two 8-column halves
+// as dec_col does), k counted from ``bmap_k0``; each ring slot completes
+// an mbarrier the compute warps wait on.  The TMA fills zeros past N and
+// K, the chunk edge of the contract.
 template <int NL, int NO, bool GEN, bool PL, bool LN = false, int NOUT = 1,
           bool PARTS = false, bool SPLIT = false, typename Store>
 __device__ __forceinline__ void decode_tile(
@@ -553,8 +564,7 @@ __device__ __forceinline__ void decode_tile(
     Store store, int64_t n0, float* __restrict__ tots = nullptr,
     const CUtensorMap* bmap = nullptr, int bmap_k0 = 0) {
   static_assert(!PL || NOUT == 1, "stored planes come for one weight");
-  static_assert(!SPLIT || (NOUT == 1 && !LN && !PARTS),
-                "the split tile runs one weight without lanes");
+  static_assert(!SPLIT || !PARTS, "the split kernel joins the partials");
   constexpr bool TMAB = PL && SPLIT;   // the B ring filled by TMA
   constexpr int NS = DecRing<NL>::S;
   // 16-byte copies where rows are contiguous and every chunk is aligned
@@ -805,15 +815,17 @@ __device__ __forceinline__ void decode_tile(
           // again for the next chunk
           const int lc = s * (dk / KC) + c;
 #pragma unroll
-          for (int o = 0; o < NO; ++o)
+          for (int t = 0; t < NOUT; ++t)
 #pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              if (o <= mo)
-                tots[(lc * NO + o) * DEC_M * DEC_N +
-                     (g + 8 * (e >> 1)) * DEC_N + 8 * w + 2 * (lane & 3) +
-                     (e & 1)] = acc[0][o][0][0][e];
-              acc[0][o][0][0][e] = 0.f;
-            }
+            for (int o = 0; o < NO; ++o)
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                if (o <= mo)
+                  tots[((lc * NOUT + t) * NO + o) * DEC_M * DEC_N +
+                       (g + 8 * (e >> 1)) * DEC_N + 8 * w + 2 * (lane & 3) +
+                       (e & 1)] = acc[t][o][0][0][e];
+                acc[t][o][0][0][e] = 0.f;
+              }
         }
       }
     }
@@ -876,15 +888,35 @@ inline cudaError_t card(Card& c) {
   return cudaSuccess;
 }
 
+// The single-block decode tile's k per stage for blocks blocks of nout
+// weights: the ring's most (ring_k; K rounded up to a multiple of KC when
+// shorter), halved, in multiples of KC and down to KC, until the rings and
+// planes fit the card's opt-in shared memory and, where there are more
+// blocks than SMs, until two blocks fit on one SM
+__host__ __device__ inline int dec_stage_k(bool pl, int nl, int M, int64_t K,
+                                           int nout, int64_t blocks,
+                                           int ring_k, int sms,
+                                           int64_t sm_smem, int64_t optin) {
+  auto smem_of = [&](int dk) {
+    const int64_t stages = dk > 0 ? (K + dk - 1) / dk : 0;
+    const int slots = (int)(stages < DecRing<1>::S ? stages : DecRing<1>::S);
+    return dec_smem_bytes(pl, nl, M, dk, slots, nout);
+  };
+  auto half = [](int dk) { return (dk / 2 + KC - 1) / KC * KC; };
+  int dk = (int)(K < ring_k ? (K + KC - 1) / KC * KC : ring_k);
+  while (dk > KC && smem_of(dk) > optin) dk = half(dk);
+  if (blocks > sms)
+    // 1 KB of each block's shared memory is the runtime's
+    while (dk > KC && 2 * (smem_of(dk) + 1024) > sm_smem) dk = half(dk);
+  return dk;
+}
+
 // Launch one decode-tile kernel: blocks of DEC_CT compute threads and the
 // producer warps over the N columns (x), ny groups of NOUT weights (y) and
-// the batch (z).  k per stage is DecRing's (K rounded up to a multiple of
-// KC when shorter), halved, in multiples of KC and down to KC, until NOUT
-// weights' rings and planes fit the card's shared memory and, where the
-// grid has more blocks than the card has SMs, until two blocks fit on one
-// SM.  It only stages the loads: the chunks and every add keep their
-// order, so the bits do not depend on it.  The kernel's dynamic shared
-// memory limit is raised to the card's once per kernel.
+// the batch (z), at dec_stage_k's k per stage (or the tuner's dk_req).  It
+// only stages the loads: the chunks and every add keep their order, so the
+// bits do not depend on it.  The kernel's dynamic shared memory limit is
+// raised to the card's once per kernel.
 template <int NL, int NOUT, auto kernel, typename Args>
 cudaError_t launch_decode(const Args& p, bool pl, int nl, int64_t M,
                           int64_t N, int64_t K, unsigned ny, int64_t nz,
@@ -892,7 +924,7 @@ cudaError_t launch_decode(const Args& p, bool pl, int nl, int64_t M,
   Card cd;
   cudaError_t err = card(cd);
   if (err != cudaSuccess) return err;
-  const int optin = cd.optin, sms = cd.sms, sm_smem = cd.sm_smem;
+  const int optin = cd.optin;
   static bool raised = false;
   if (!raised) {
     err = cudaFuncSetAttribute(
@@ -906,14 +938,10 @@ cudaError_t launch_decode(const Args& p, bool pl, int nl, int64_t M,
         (int)(stages < DecRing<NL>::S ? stages : DecRing<NL>::S);
     return dec_smem_bytes(pl, nl, (int)M, dk, slots, NOUT);
   };
-  auto half = [](int dk) { return (dk / 2 + KC - 1) / KC * KC; };
-  int dk = (int)(K < DecRing<NL>::K ? (K + KC - 1) / KC * KC
-                                    : DecRing<NL>::K);
-  while (dk > KC && smem_of(dk) > optin) dk = half(dk);
   const dim3 grid((unsigned)((N + DEC_N - 1) / DEC_N), ny, (unsigned)nz);
-  if ((int64_t)grid.x * grid.y * grid.z > sms)
-    // 1 KB of each block's shared memory is the runtime's
-    while (dk > KC && 2 * (smem_of(dk) + 1024) > sm_smem) dk = half(dk);
+  int dk = dec_stage_k(pl, nl, (int)M, K, NOUT,
+                       (int64_t)grid.x * grid.y * grid.z, DecRing<NL>::K,
+                       cd.sms, cd.sm_smem, optin);
   if (dk_req > 0) {
     // the tuner's stage: a multiple of KC within the ring and the card
     if (dk_req % KC || dk_req > DecRing<NL>::K || smem_of(dk_req) > optin)

@@ -1,14 +1,15 @@
 // The limb matmuls' Hopper tiles (sm_90a), plain C interface: the fused
 // matmul's two tiles, which replace _fused_kernel
 // (src/repro/kernels/mp_matmul.py:76) beside fused_matmul_kernel of
-// mp_matmul.cu; the fused projection's prefill tile, which replaces
-// _fused_multi_kernel (:227) at M > DEC_M beside fused_proj_kernel; and
-// the pre-limbed matmul's decode tile, which replaces _prelimbed_kernel
-// (:108) at M <= DEC_M.  Each keeps the order of sums of mp_matmul.cu bit
-// for bit (its header: K in chunks of KC from k = 0, one chain of KC / 16
-// tensor-core k16 steps per chunk and kept product from +0.0, the order's
-// terms summed by IEEE f32 adds in product order, acc[o] += tot, the
-// compensated combine at the end), epilogues included.
+// mp_matmul.cu; the fused projection's two tiles, which replace
+// _fused_multi_kernel (:227) beside fused_proj_kernel; and the decode tiles
+// of the pre-limbed and mixed-lane matmuls, which replace _prelimbed_kernel
+// (:108) and _mixed_prelimbed_kernel (:137) at M <= DEC_M.  Each keeps
+// the order of sums of mp_matmul.cu bit for bit (its header: K in chunks
+// of KC from k = 0, one chain of KC / 16 tensor-core k16 steps per chunk
+// and kept product from +0.0, the order's terms summed by IEEE f32 adds in
+// product order, acc[o] += tot, the compensated combine at the end),
+// epilogues and lanes included.
 //
 // Which kernel runs which route (kernels/mp_matmul.py counts them):
 //   the fused matmul and its partials: tma_matmul_kernel (tma, M > DEC_M,
@@ -17,12 +18,15 @@
 //     fused_matmul_kernel the rest (strided);
 //   the projection: tma_matmul_kernel with the projection's epilogue (tma,
 //     M > DEC_M, a and the weights' rows a multiple of 16 bytes, 16-byte
-//     aligned); mp_matmul.cu's fused_proj_kernel the rest (strided) and
-//     its decode tile (decode, M <= DEC_M);
-//   the pre-limbed matmul: matmul_split_kernel on stored planes (cluster,
-//     M <= DEC_M; at S = 1, or planes no map reads,
-//     prelimbed_matmul_decode_kernel); mp_matmul.cu's
-//     prelimbed_matmul_kernel above (mma).
+//     aligned), matmul_split_kernel<PROJ> (cluster, M <= DEC_M; at S = 1
+//     fused_proj_decode_kernel); mp_matmul.cu's fused_proj_kernel the rest
+//     (strided);
+//   the pre-limbed and mixed-lane matmuls: matmul_split_kernel on stored
+//     planes, the mixed one with each row's lane (cluster, M <= DEC_M; at
+//     S = 1, or planes no map reads, prelimbed_matmul_decode_kernel and
+//     mixed_prelimbed_matmul_decode_kernel); mp_matmul.cu's
+//     prelimbed_matmul_kernel and mixed_prelimbed_matmul_kernel above
+//     (mma).
 //
 // tma_matmul_kernel, the prefill tile (M > DEC_M) of the operands a TMA
 // tensor map can describe (unit column stride, 16-byte aligned bases and
@@ -78,7 +82,9 @@
 //   lm_head at M16 and keeps that route (PERF.md).
 //
 // matmul_split_kernel, the decode tile (M <= DEC_M) of the fused matmul
-// (its f32 weight) and of the pre-limbed matmul (PL: its stored planes).
+// (its f32 weight), of the projection (PROJ: NOUT f32 weights a block) and
+// of the pre-limbed and mixed-lane matmuls (PL: the stored planes; LN: each
+// row at its lane).
 //   Bound: the bytes of the weight, streamed by too few blocks: one block
 //   per 16 columns makes 48 blocks at N = 768.
 //   Design: a thread-block cluster of S blocks (S <= 8) shares one 16-column
@@ -103,10 +109,28 @@
 //   (256 k a stage), 6 at wo, 4 at w_up; 1 at lm_head (2,000 slabs),
 //   where the kernels are the old decode tiles as they were
 //   (fused_matmul_decode_kernel, prelimbed_matmul_decode_kernel).
+//   The projection (PROJ): each rank's chunk sums of its NOUT weights, the
+//   join forms each weight's sum, combines it and runs proj_store once per
+//   output (bias, silu(g) * u, residual, as every projection tile); gated,
+//   both weights a block, else one a block with grid.y walking QKV's
+//   (faster than the three in one cluster, A limbed once: 0.0097 against
+//   0.0116 ms).  On f32 weights the plan also asks a rank for fewer stages
+//   than the single block runs: halving a stage to fit more blocks keeps
+//   their count and only adds the join, so the gated projection at M8
+//   (two f32 rings a block) keeps S = 1, as every (dk, S) swept there was
+//   slower (PERF.md).  The mixed-lane matmul (LN): each row keeps its lane
+//   in registers, chunk_step adds only its kept terms (a chunk sum of an
+//   order above its cut stays +0.0), and the join combines each row from
+//   its own cut down (lane_ord, read from global memory); its planes come
+//   by TMA as the pre-limbed matmul's, and it keeps its single-block tile
+//   with its own MixedPrelimbedArgs at S = 1 (lm_head).  The plan reads each
+//   split kernel's registers (cudaFuncGetAttributes): above 64 a thread
+//   fewer blocks share an SM (the projection's 78 at M8, 88 gated).
 //   Bound now: each rank runs one or two short stages, so the ring's
 //   fill, the launch of a cluster and the chunk sums' join through
 //   distributed shared memory, not the weight's bytes, set its time:
-//   pre-limbed w_down 0.0153 ms against 0.0014 of bytes; the f32 weight's
+//   pre-limbed w_down 0.0153 ms against 0.0014 of bytes, mixed w_down
+//   0.0321 against 0.0043, QKV M8 0.0098 against 0.0021; the f32 weight's
 //   B stream is still cp.async.
 //
 // Launch parameters the order leaves free, which the autotuner may set per
@@ -122,6 +146,7 @@
 #include <cudaTypedefs.h>
 
 #include <cstring>
+#include <type_traits>
 
 #include "mp_matmul_common.cuh"
 
@@ -582,11 +607,32 @@ constexpr int SPLIT_MAX = 8;   // the portable cluster size
 
 // The split decode tile's arguments: the fused matmul's (its f32 weight in
 // m.b), or the pre-limbed matmul's (PL: A, C, strides and sizes in m, batch
-// 1, its stored planes in bp)
+// 1, its stored planes in bp); the mixed-lane matmul's add each row's lane
+// (MixedDecodeArgs); the projection's are its ProjArgs
 struct DecodeArgs {
   MatmulArgs m;
   Planes bp;
 };
+
+struct MixedDecodeArgs {
+  DecodeArgs d;
+  const int32_t* lane_n;    // (M,) limbs of each row's lane
+  const int32_t* lane_ord;  // (M,) order cut of each row's lane
+};
+
+__device__ __forceinline__ const DecodeArgs& dec_of(const DecodeArgs& d) {
+  return d;
+}
+__device__ __forceinline__ const DecodeArgs& dec_of(const MixedDecodeArgs& d) {
+  return d.d;
+}
+
+// the argument struct of each epilogue: the projection's ProjArgs, else the
+// matmuls' (LN: with the lanes)
+template <Epi EPI, bool LN>
+using SplitArgs =
+    std::conditional_t<EPI == Epi::PROJ, ProjArgs,
+                       std::conditional_t<LN, MixedDecodeArgs, DecodeArgs>>;
 
 // fused_matmul_kernel's decode tile as one block per DEC_N columns and batch
 // entry (S = 1): mp_matmul_common.cuh's decode_tile as it is
@@ -637,64 +683,164 @@ __global__ void __launch_bounds__(DEC_CT + 128)
       (int64_t)blockIdx.x * DEC_N);
 }
 
+// the mixed-lane matmul's decode tile as one block per DEC_N columns (S =
+// 1): mp_matmul.cu's old tile as it was, with its own MixedPrelimbedArgs.
+// The envelope's planes stream once for all rows and the MMAs run at the
+// envelope; each row selects its own terms.
+template <int NL, int NO, bool GEN>
+__global__ void __launch_bounds__(DEC_CT + 128)
+    mixed_prelimbed_matmul_decode_kernel(MixedPrelimbedArgs p, int dk) {
+  const float* const B[1] = {nullptr};
+  decode_tile<NL, NO, GEN, true, true>(
+      p.m.a, p.m.a_sr, 1, B, 0, 0, p.m.b, (int)p.m.M, p.m.N, p.m.K,
+      p.m.n_limbs, p.m.max_order, dk, p.lane_n, p.lane_ord,
+      [&](int r, int64_t gn, const float (&y)[1]) {
+        p.m.c[r * p.m.c_sr + gn] = y[0];
+      },
+      (int64_t)blockIdx.x * DEC_N);
+}
+
+// the projection's decode tile as one block per (DEC_N columns, NOUT
+// weights) (S = 1): A limbed once per stage for the block's weights t0 =
+// blockIdx.y * NOUT onwards, then proj_store; mp_matmul.cu's old tile as it
+// was.  The swiglu gate needs g and u of one output in one thread, so it
+// runs NOUT = 2.
+template <int NL, int NO, int NOUT, bool GEN>
+__global__ void __launch_bounds__(DEC_CT + 128)
+    fused_proj_decode_kernel(ProjArgs p, int dk) {
+  const int t0 = (int)blockIdx.y * NOUT;
+  const float* B[NOUT];
+#pragma unroll
+  for (int t = 0; t < NOUT; ++t) B[t] = p.b[t0 + t];
+  decode_tile<NL, NO, GEN, false, false, NOUT>(
+      p.a, p.a_sr, 1, B, p.b_sr, 1, Planes{}, (int)p.M, p.N, p.K, p.n_limbs,
+      p.max_order, dk, nullptr, nullptr,
+      [&](int r, int64_t gn, float (&y)[NOUT]) {
+        proj_store<NOUT>(p, r, gn, t0, y);
+      },
+      (int64_t)blockIdx.x * DEC_N);
+}
+
 // The cluster-split decode tile: block x = slab * S + rank of a cluster of
 // S blocks; rank r runs chunks [r cpr, (r + 1) cpr) of K into its tot_c at
-// byte tot_off of the dynamic shared memory, then the cluster joins them.
-// PL: B is the stored planes d.bp, fed by TMA through ``bmap`` (k counted
-// from 0 of the whole K: the rank's boxes start at its first k).
-template <int NL, int NO, bool GEN, bool PARTS, bool PL>
+// byte tot_off of the dynamic shared memory, then the cluster joins them:
+// each output's acc[t][o] = ((+0.0 + tot_0) + tot_1) + ... in chunk order,
+// then the epilogue.  EPI: COMBINE (the fused and pre-limbed matmuls: the
+// combined sum; LN: each row from its own order cut down), PARTS (the
+// per-order sums, uncombined) or PROJ (the projection: NOUT weights t0 =
+// blockIdx.y * NOUT onwards, combined, then proj_store).  PL: B is the
+// stored planes, fed by TMA through ``bmap`` (k counted from 0 of the whole
+// K: the rank's boxes start at its first k).
+template <int NL, int NO, bool GEN, int NOUT, Epi EPI, bool PL, bool LN>
 __global__ void __launch_bounds__(DEC_CT + 128)
-    matmul_split_kernel(DecodeArgs d, const __grid_constant__ CUtensorMap bmap,
-                        int dk, int S, int cpr, int tot_off) {
+    matmul_split_kernel(const SplitArgs<EPI, LN> d,
+                        const __grid_constant__ CUtensorMap bmap, int dk,
+                        int S, int cpr, int tot_off) {
+  static_assert(EPI == Epi::PROJ ? !PL && !LN : NOUT == 1,
+                "the projection's f32 weights, the matmuls' one weight");
+  static_assert(EPI != Epi::PARTS || !LN, "the partials have no lanes");
   cg::cluster_group cluster = cg::this_cluster();
-  const MatmulArgs& p = d.m;
-  const int64_t z0 = blockIdx.z / p.nb1, z1 = blockIdx.z % p.nb1;
   const int rank = (int)cluster.block_rank();
   const int64_t n0 = (int64_t)(blockIdx.x / S) * DEC_N;
+  // the block's operands: the projection's weights t0 onwards, or the
+  // matmul's batch entry blockIdx.z
+  const float* A;
+  const float* B[NOUT];
+  int64_t a_sr, a_sc = 1, b_sr = 0, b_sc = 1, M, N, K;
+  int n_limbs, max_order, t0 = 0;
+  Planes bp{};
+  const int32_t* ln = nullptr;
+  const int32_t* lo = nullptr;
+  float* C = nullptr;
+  int64_t c_sr = 0, c_sc = 1, c_so = 0;
+  if constexpr (EPI == Epi::PROJ) {
+    t0 = (int)blockIdx.y * NOUT;
+    A = d.a;
+    a_sr = d.a_sr;
+#pragma unroll
+    for (int t = 0; t < NOUT; ++t) B[t] = d.b[t0 + t];
+    b_sr = d.b_sr;
+    M = d.M;
+    N = d.N;
+    K = d.K;
+    n_limbs = d.n_limbs;
+    max_order = d.max_order;
+  } else {
+    const MatmulArgs& p = dec_of(d).m;
+    const int64_t z0 = blockIdx.z / p.nb1, z1 = blockIdx.z % p.nb1;
+    A = p.a + z0 * p.a_sb0 + z1 * p.a_sb1;
+    a_sr = p.a_sr;
+    a_sc = p.a_sc;
+    B[0] = PL ? nullptr : p.b + z0 * p.b_sb0 + z1 * p.b_sb1;
+    b_sr = p.b_sr;
+    b_sc = p.b_sc;
+    bp = dec_of(d).bp;
+    M = p.M;
+    N = p.N;
+    K = p.K;
+    n_limbs = p.n_limbs;
+    max_order = p.max_order;
+    C = p.c + z0 * p.c_sb0 + z1 * p.c_sb1;
+    c_sr = p.c_sr;
+    c_sc = p.c_sc;
+    c_so = p.c_so;
+    if constexpr (LN) {
+      ln = d.lane_n;
+      lo = d.lane_ord;
+    }
+  }
   const int64_t kb = (int64_t)rank * cpr * KC;
-  const int64_t ke = kb + (int64_t)cpr * KC < p.K ? kb + (int64_t)cpr * KC
-                                                  : p.K;
+  const int64_t ke = kb + (int64_t)cpr * KC < K ? kb + (int64_t)cpr * KC : K;
   const int64_t kl = ke > kb ? ke - kb : 0;
-  const float* const B[1] = {
-      PL ? nullptr : p.b + z0 * p.b_sb0 + z1 * p.b_sb1 + kb * p.b_sr};
-  const float* const A = p.a + z0 * p.a_sb0 + z1 * p.a_sb1 + kb * p.a_sc;
-  Planes bp = d.bp;   // the rank's k rows (for copies; TMA counts from 0)
+  // the rank's k rows (the planes' for copies; TMA counts from 0)
+  const float* Bk[NOUT];
+#pragma unroll
+  for (int t = 0; t < NOUT; ++t) Bk[t] = PL ? nullptr : B[t] + kb * b_sr;
   bp.p += kb * bp.sr;
   extern __shared__ __align__(16) unsigned char dec_smem[];
   float* const tots = reinterpret_cast<float*>(dec_smem + tot_off);
-  decode_tile<NL, NO, GEN, PL, false, 1, false, true>(
-      A, p.a_sr, p.a_sc, B, p.b_sr, p.b_sc, bp, (int)p.M, p.N, kl,
-      p.n_limbs, p.max_order, dk, nullptr, nullptr,
-      [](int, int64_t, const float (&)[1]) {}, n0, tots, &bmap, (int)kb);
+  decode_tile<NL, NO, GEN, PL, LN, NOUT, false, true>(
+      A + kb * a_sc, a_sr, a_sc, Bk, b_sr, b_sc, bp, (int)M, N, kl, n_limbs,
+      max_order, dk, ln, lo, [](int, int64_t, const float (&)[NOUT]) {}, n0,
+      tots, &bmap, (int)kb);
   cluster.sync();   // every rank's chunk sums are written
-  const int mo = GEN ? p.max_order : NO - 1;
-  const int nch = (int)((p.K + KC - 1) / KC);
-  float* const C = p.c + z0 * p.c_sb0 + z1 * p.c_sb1;
+  const int mo = GEN ? max_order : NO - 1;
+  const int nch = (int)((K + KC - 1) / KC);
   for (int idx = rank + S * (int)threadIdx.x; idx < DEC_M * DEC_N;
        idx += S * (int)blockDim.x) {
     const int r = idx / DEC_N;
     const int64_t gn = n0 + idx % DEC_N;
-    if (r >= p.M || gn >= p.N) continue;
-    float per_order[NO];
+    if (r >= M || gn >= N) continue;
+    float y[NOUT];
 #pragma unroll
-    for (int o = 0; o < NO; ++o) {
-      float a = 0.f;   // the single block's acc[o], chunk by chunk
-      if (o <= mo) {
+    for (int t = 0; t < NOUT; ++t) {
+      float per_order[NO];
+#pragma unroll
+      for (int o = 0; o < NO; ++o) {
+        float a = 0.f;   // the single block's acc[t][o], chunk by chunk
+        if (o <= mo) {
 #pragma unroll 4
-        for (int c = 0; c < nch; ++c) {
-          const float* const t = cluster.map_shared_rank(tots, c / cpr);
-          a = a + t[((c % cpr) * NO + o) * DEC_M * DEC_N + idx];
+          for (int c = 0; c < nch; ++c) {
+            const float* const tt = cluster.map_shared_rank(tots, c / cpr);
+            a = a + tt[(((c % cpr) * NOUT + t) * NO + o) * DEC_M * DEC_N +
+                       idx];
+          }
         }
+        per_order[o] = a;
       }
-      per_order[o] = a;
-    }
-    if constexpr (PARTS) {
+      if constexpr (EPI == Epi::PARTS) {
 #pragma unroll
-      for (int o = 0; o < NO; ++o)
-        if (o <= mo) C[o * p.c_so + r * p.c_sr + gn * p.c_sc] = per_order[o];
-    } else {
-      C[r * p.c_sr + gn * p.c_sc] = combine_orders<NO>(per_order, mo);
+        for (int o = 0; o < NO; ++o)
+          if (o <= mo) C[o * c_so + r * c_sr + gn * c_sc] = per_order[o];
+      } else {
+        // a lane row joins its own orders, from its own highest one down
+        y[t] = combine_orders<NO>(per_order, LN ? lo[r] : mo);
+      }
     }
+    if constexpr (EPI == Epi::PROJ)
+      proj_store<NOUT>(d, r, gn, t0, y);
+    else if constexpr (EPI == Epi::COMBINE)
+      C[r * c_sr + gn * c_sc] = y[0];
   }
   cluster.sync();   // no rank leaves while another reads its sums
 }
@@ -709,63 +855,77 @@ __host__ __device__ inline int split_norm(int64_t nch, int s) {
 }
 
 // the split tile's shared memory for a rank's K range kr at dk k per
-// stage: the decode tile's (pl: on stored planes, with the TMA ring's
-// slack; 16-aligned), then the chunk sums of cpr chunks
+// stage and nout weights a block: the decode tile's (pl: on stored planes,
+// with the TMA ring's slack; 16-aligned), then the chunk sums of cpr chunks
 __host__ __device__ inline int64_t split_tot_off(bool pl, int nl, int M,
-                                                 int64_t kr, int dk) {
+                                                 int64_t kr, int dk,
+                                                 int nout) {
   const int64_t stages = dk > 0 ? (kr + dk - 1) / dk : 0;
   const int slots = (int)(stages < DecRing<1>::S ? stages : DecRing<1>::S);
-  return (dec_split_bytes(pl, nl, M, dk, slots) + 15) / 16 * 16;
+  return (dec_split_bytes(pl, nl, M, dk, slots, nout) + 15) / 16 * 16;
 }
 
 __host__ __device__ inline int64_t split_smem_bytes(bool pl, int nl, int no,
                                                     int M, int64_t kr, int dk,
-                                                    int cpr) {
-  return split_tot_off(pl, nl, M, kr, dk) +
-         (int64_t)cpr * no * DEC_M * DEC_N * 4;
+                                                    int cpr, int nout) {
+  return split_tot_off(pl, nl, M, kr, dk, nout) +
+         (int64_t)cpr * nout * no * DEC_M * DEC_N * 4;
 }
 
 // the split tile's k per stage for a rank's K range: the ring's most
 // (ring_k), or the range rounded up to KC when shorter, halved in
 // multiples of KC until the block fits the card's opt-in shared memory
 __host__ __device__ inline int split_dk(bool pl, int nl, int no, int M,
-                                        int64_t kr, int cpr, int ring_k,
-                                        int64_t optin) {
+                                        int64_t kr, int cpr, int nout,
+                                        int ring_k, int64_t optin) {
   int dk = (int)(kr < ring_k ? (kr + KC - 1) / KC * KC : ring_k);
-  while (dk > KC && split_smem_bytes(pl, nl, no, M, kr, dk, cpr) > optin)
+  while (dk > KC && split_smem_bytes(pl, nl, no, M, kr, dk, cpr, nout) > optin)
     dk = (dk / 2 + KC - 1) / KC * KC;
   return dk;
 }
 
-// blocks of the split tile an SM holds by registers, at 64 a thread: 5 of
-// the fused matmul's 192 threads, 8 of the pre-limbed kernel's 128 (its
-// producers only copy)
-__host__ __device__ constexpr int split_per_sm(bool pl) {
-  return 65536 / ((DEC_CT + 32 * DecRing<1>::P(pl)) * 64);
+// blocks of the split tile an SM holds by registers: ``regs`` a thread (the
+// instantiation's, ptxas's count; at least 64, in the allocation's steps of
+// 8): at 64, 5 of the f32 weight's 192 threads, 8 of the stored planes'
+// 128 (their producers only copy)
+__host__ __device__ constexpr int split_per_sm(bool pl, int regs) {
+  return 65536 / ((DEC_CT + 32 * DecRing<1>::P(pl)) *
+                  (regs < 64 ? 64 : (regs + 7) / 8 * 8));
 }
 
 // The decode plan: the largest cluster size S (<= SPLIT_MAX, as the tile
-// runs it) whose S blocks per 16-column slab (times the batch) all fit on
-// the card at once at split_dk's stage or, failing that, at a shorter one
-// (halved down to KC): blocks per SM by shared memory, by threads and by
-// registers at 64 a thread (split_per_sm).  pl: B as stored bf16 planes
-// (their ring, not the f32 weight's).  Returns S and its stage in *dk;
-// S = 1 (*dk = 0: launch_decode's choice) where no S fits, as at
-// lm_head's 2,000 slabs: the single-block decode tile.
+// runs it) whose S blocks per 16-column slab (slabs: the launch's slabs
+// times grid.y and the batch) all fit on the card at once at split_dk's
+// stage or, failing that, at a shorter one (halved down to KC): blocks per
+// SM by shared memory, by threads and by the kernel's registers
+// (split_per_sm).  On f32 weights, which the block limbs stage by stage, a
+// rank must also run fewer stages than the single block (dec_stage_k's)
+// where that one runs more than one: a shorter stage that keeps their
+// count only adds the cluster's join (the gated projection at M8, 0.0201
+// ms at (64, 2) against 0.0187 at one block, PERF.md).  pl: B as stored
+// bf16 planes (their ring, not the f32 weights'); nout: weights a block.
+// Returns S and its stage in *dk; S = 1 (*dk = 0: launch_decode's choice)
+// where no S fits, as at lm_head's 2,000 slabs: the single-block decode
+// tile.
 __host__ __device__ inline int split_plan(bool pl, int64_t slabs, int64_t K,
-                                          int nl, int no, int M, int ring_k,
-                                          int sms, int64_t sm_smem,
-                                          int64_t optin, int* dk) {
+                                          int nl, int no, int M, int nout,
+                                          int regs, int ring_k, int sms,
+                                          int64_t sm_smem, int64_t optin,
+                                          int* dk) {
   const int64_t nch = (K + KC - 1) / KC;
+  const int d1 = dec_stage_k(pl, nl, M, K, nout, slabs, ring_k, sms,
+                             sm_smem, optin);
+  const int64_t st1 = pl ? 0 : (K + d1 - 1) / d1;
   for (int s = SPLIT_MAX; s > 1; --s) {
     if (split_norm(nch, s) != s) continue;   // a smaller s runs as this one
     const int cpr = (int)((nch + s - 1) / s);
     const int64_t kr = (int64_t)cpr * KC;
-    for (int d = split_dk(pl, nl, no, M, kr, cpr, ring_k, optin);;
+    for (int d = split_dk(pl, nl, no, M, kr, cpr, nout, ring_k, optin);;
          d = (d / 2 + KC - 1) / KC * KC) {
-      const int64_t smem = split_smem_bytes(pl, nl, no, M, kr, d, cpr);
+      if (st1 > 1 && (kr + d - 1) / d >= st1) break;
+      const int64_t smem = split_smem_bytes(pl, nl, no, M, kr, d, cpr, nout);
       int64_t per_sm = sm_smem / (smem + 1024);   // 1 KB is the runtime's
-      if (per_sm > split_per_sm(pl)) per_sm = split_per_sm(pl);
+      if (per_sm > split_per_sm(pl, regs)) per_sm = split_per_sm(pl, regs);
       if (smem <= optin && s * slabs <= per_sm * sms) {
         *dk = d;
         return s;
@@ -775,6 +935,17 @@ __host__ __device__ inline int split_plan(bool pl, int64_t slabs, int64_t K,
   }
   *dk = 0;
   return 1;
+}
+
+// a kernel's registers a thread (ptxas's count), read once
+template <auto kernel>
+int kernel_regs() {
+  static int regs = 0;
+  if (regs == 0) {
+    cudaFuncAttributes a;
+    if (cudaFuncGetAttributes(&a, kernel) == cudaSuccess) regs = a.numRegs;
+  }
+  return regs;
 }
 
 // ---------------------------------------------------------------------------
@@ -827,6 +998,15 @@ bool tma_operand(const void* base, int64_t sc, int64_t sr, int64_t nb1,
          (nb1 == 1 || ok(sb1)) && (nb0 == 1 || ok(sb0));
 }
 
+// the stored planes a tensor map reads (make_planes_map's layout): rows and
+// plane stride a multiple of 16 bytes, a 16-byte aligned base, K and N
+// within 31 bits
+bool planes_mappable(const Planes& bp, int nst, int64_t N, int64_t K) {
+  auto ok = [](int64_t s) { return s > 0 && s % 8 == 0 && s < (1LL << 39); };
+  return reinterpret_cast<uintptr_t>(bp.p) % 16 == 0 && ok(bp.sr) &&
+         (nst <= 1 || ok(bp.plane)) && N <= INT32_MAX && K <= INT32_MAX;
+}
+
 // the stored planes (nst of them, a plane stride of ``plane`` and a row
 // stride of ``sr`` elements, bf16) as a 3-d map (columns, k, plane) with a
 // box of DEC_N columns by dk k in the 32-byte swizzle (the decode tile's
@@ -835,11 +1015,7 @@ bool tma_operand(const void* base, int64_t sc, int64_t sr, int64_t nb1,
 bool make_planes_map(CUtensorMap* map, const Planes& bp, int nst, int64_t N,
                      int64_t K, int dk) {
   const EncodeTiled fn = encode_tiled();
-  auto ok = [](int64_t s) { return s > 0 && s % 8 == 0 && s < (1LL << 39); };
-  if (fn == nullptr || reinterpret_cast<uintptr_t>(bp.p) % 16 != 0 ||
-      !ok(bp.sr) || (nst > 1 && !ok(bp.plane)) || N > INT32_MAX ||
-      K > INT32_MAX)
-    return false;
+  if (fn == nullptr || !planes_mappable(bp, nst, N, K)) return false;
   const int64_t plane = nst > 1 ? bp.plane : bp.sr * K;
   cuuint64_t dims[3] = {(cuuint64_t)N, (cuuint64_t)K, (cuuint64_t)nst};
   cuuint64_t strides[2] = {(cuuint64_t)bp.sr * 2, (cuuint64_t)plane * 2};
@@ -852,51 +1028,113 @@ bool make_planes_map(CUtensorMap* map, const Planes& bp, int nst, int64_t N,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// M <= DEC_M: the plan's S (or the tuner's s_req), and the k per stage
-// (launch_decode's choice for the rank's K range, or the tuner's dk_req).
-// PL (the pre-limbed matmul, batch 1): the stored planes d.bp, by TMA;
-// planes a map cannot read run the single-block tile (S = 1), whose
-// cp.async copies take any layout, with the same bits.
-template <int NL, int NO, bool GEN, bool PARTS, bool PL>
-cudaError_t launch_split(const DecodeArgs& d, int64_t nb0, int dk_req,
-                         int s_req, cudaStream_t st) {
-  const MatmulArgs& p = d.m;
+// One split launch: S ranks a slab and dk k per stage, each rank cpr of K's
+// chunks, dynamic shared memory smem with the chunk sums at tot_off
+struct SplitPlan {
+  int S = 1, dk = 0, cpr = 0, tot_off = 0;
+  int64_t smem = 0;
+};
+
+// The split tile's launch for K at M rows, nout weights a block and slabs
+// 16-column slabs (times grid.y and the batch): the plan's S on the
+// kernel's registers (or the tuner's s_req) and k per stage (split_dk's for
+// the rank's K range, or the tuner's dk_req).  splittable false (stored
+// planes no tensor map reads) plans S = 1.  S = 1: the caller runs the
+// single-block tile (at dk_req, or launch_decode's choice).
+template <int NL, auto kernel>
+cudaError_t split_choose(bool pl, int nl, int no, int nout, int64_t M,
+                         int64_t K, int64_t slabs, bool splittable,
+                         int dk_req, int s_req, SplitPlan* sp) {
   Card cd;
   cudaError_t err = card(cd);
   if (err != cudaSuccess) return err;
+  const int64_t nch = (K + KC - 1) / KC;
+  if (s_req > SPLIT_MAX || (s_req > 1 && !splittable))
+    return cudaErrorInvalidValue;
+  int plan_dk = 0;
+  sp->S = s_req > 0 ? split_norm(nch, s_req)
+          : splittable
+              ? split_plan(pl, slabs, K, nl, no, (int)M, nout,
+                           kernel_regs<kernel>(), DecRing<NL>::K, cd.sms,
+                           cd.sm_smem, cd.optin, &plan_dk)
+              : 1;
+  if (sp->S == 1) return cudaSuccess;
+  sp->cpr = (int)((nch + sp->S - 1) / sp->S);
+  const int64_t kr = (int64_t)sp->cpr * KC;
+  sp->dk = plan_dk > 0 ? plan_dk
+                       : split_dk(pl, nl, no, (int)M, kr, sp->cpr, nout,
+                                  DecRing<NL>::K, cd.optin);
+  if (dk_req > 0) {
+    if (dk_req % KC || dk_req > DecRing<NL>::K ||
+        split_smem_bytes(pl, nl, no, (int)M, kr, dk_req, sp->cpr, nout) >
+            cd.optin)
+      return cudaErrorInvalidValue;
+    sp->dk = dk_req;
+  }
+  sp->smem = split_smem_bytes(pl, nl, no, (int)M, kr, sp->dk, sp->cpr, nout);
+  if (sp->smem > cd.optin) return cudaErrorInvalidValue;
+  sp->tot_off = (int)split_tot_off(pl, nl, (int)M, kr, sp->dk, nout);
+  return cudaSuccess;
+}
+
+// Launch the split kernel on the plan: grid (nx S, ny, nz), clusters of S
+// along x, DecRing's producer warps (pl: two, they only copy); the kernel's
+// dynamic shared memory limit is raised to the card's once per kernel.
+template <int NL, auto kernel, typename Args>
+cudaError_t split_go(const Args& d, const CUtensorMap& bmap, bool pl,
+                     int64_t nx, unsigned ny, int64_t nz, const SplitPlan& sp,
+                     cudaStream_t st) {
+  Card cd;
+  cudaError_t err = card(cd);
+  if (err != cudaSuccess) return err;
+  static bool raised = false;
+  if (!raised) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, cd.optin);
+    if (err != cudaSuccess) return err;
+    raised = true;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(nx * sp.S), ny, (unsigned)nz);
+  cfg.blockDim = dim3(DEC_CT + 32 * DecRing<NL>::P(pl), 1, 1);
+  cfg.dynamicSmemBytes = (size_t)sp.smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)sp.S;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int clusters = 0;
+  err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+  if (err != cudaSuccess) return err;
+  if (clusters < 1) return cudaErrorInvalidConfiguration;
+  err = cudaLaunchKernelEx(&cfg, kernel, d, bmap, sp.dk, sp.S, sp.cpr,
+                           sp.tot_off);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// M <= DEC_M, the fused matmul (PARTS: its partials) and the pre-limbed
+// matmul (PL, batch 1: the stored planes d.bp, by TMA; planes no map reads
+// plan S = 1, whose cp.async copies take any layout, with the same bits)
+template <int NL, int NO, bool GEN, bool PARTS, bool PL>
+cudaError_t launch_split(const DecodeArgs& d, int64_t nb0, int dk_req,
+                         int s_req, cudaStream_t st) {
+  constexpr Epi EPI = PARTS ? Epi::PARTS : Epi::COMBINE;
+  constexpr auto kernel = matmul_split_kernel<NL, NO, GEN, 1, EPI, PL, false>;
+  const MatmulArgs& p = d.m;
   const int nl = GEN ? p.n_limbs : NL;
   const int64_t nz = nb0 * p.nb1;
   const int64_t nx = (p.N + DEC_N - 1) / DEC_N;
-  const int64_t nch = (p.K + KC - 1) / KC;
-  if (s_req > SPLIT_MAX) return cudaErrorInvalidValue;
-  int plan_dk = 0;
-  int S = s_req > 0 ? split_norm(nch, s_req)
-                    : split_plan(PL, nx * nz, p.K, nl, NO, (int)p.M,
-                                 DecRing<NL>::K, cd.sms, cd.sm_smem, cd.optin,
-                                 &plan_dk);
   const int nst = PL ? (d.bp.n_stored < nl ? d.bp.n_stored : nl) : 0;
-  CUtensorMap bmap;
-  memset(&bmap, 0, sizeof(bmap));
-  const int cpr = (int)((nch + S - 1) / S);
-  const int64_t kr = (int64_t)cpr * KC;
-  int dk = plan_dk > 0 ? plan_dk
-                       : split_dk(PL, nl, NO, (int)p.M, kr, cpr,
-                                  DecRing<NL>::K, cd.optin);
-  auto smem_of = [&](int k) {
-    return split_smem_bytes(PL, nl, NO, (int)p.M, kr, k, cpr);
-  };
-  if (dk_req > 0 && S > 1) {
-    if (dk_req % KC || dk_req > DecRing<NL>::K || smem_of(dk_req) > cd.optin)
-      return cudaErrorInvalidValue;
-    dk = dk_req;
-  }
-  if constexpr (PL) {
-    if (S > 1 && !make_planes_map(&bmap, d.bp, nst, p.N, p.K, dk)) {
-      if (s_req > 1) return cudaErrorInvalidValue;
-      S = 1;
-    }
-  }
-  if (S == 1) {
+  SplitPlan sp;
+  cudaError_t err = split_choose<NL, kernel>(
+      PL, nl, NO, 1, p.M, p.K, nx * nz,
+      !PL || planes_mappable(d.bp, nst, p.N, p.K), dk_req, s_req, &sp);
+  if (err != cudaSuccess) return err;
+  if (sp.S == 1) {
     if constexpr (PL) {
       const PrelimbedArgs q{p.a, d.bp, p.c, p.a_sr, p.c_sr,
                             p.M, p.N, p.K, p.n_limbs, p.max_order};
@@ -908,36 +1146,80 @@ cudaError_t launch_split(const DecodeArgs& d, int64_t nb0, int dk_req,
           p, false, nl, p.M, p.N, p.K, 1, nz, dk_req, st);
     }
   }
-  auto kernel = matmul_split_kernel<NL, NO, GEN, PARTS, PL>;
-  static bool raised = false;
-  if (!raised) {
-    err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, cd.optin);
-    if (err != cudaSuccess) return err;
-    raised = true;
+  CUtensorMap bmap;
+  memset(&bmap, 0, sizeof(bmap));
+  if (PL && !make_planes_map(&bmap, d.bp, nst, p.N, p.K, sp.dk))
+    return cudaErrorInvalidValue;
+  return split_go<NL, kernel>(d, bmap, PL, nx, 1, nz, sp, st);
+}
+
+// M <= DEC_M, the mixed-lane matmul: as the pre-limbed matmul's, each row
+// at its lane; S = 1 runs mixed_prelimbed_matmul_decode_kernel on its own
+// MixedPrelimbedArgs
+template <int NL, int NO, bool GEN>
+cudaError_t launch_mixed_split(const MixedDecodeArgs& d, int dk_req,
+                               int s_req, cudaStream_t st) {
+  constexpr auto kernel =
+      matmul_split_kernel<NL, NO, GEN, 1, Epi::COMBINE, true, true>;
+  const MatmulArgs& p = d.d.m;
+  const int nl = GEN ? p.n_limbs : NL;
+  const int64_t nx = (p.N + DEC_N - 1) / DEC_N;
+  const int nst = d.d.bp.n_stored < nl ? d.d.bp.n_stored : nl;
+  SplitPlan sp;
+  cudaError_t err = split_choose<NL, kernel>(
+      true, nl, NO, 1, p.M, p.K, nx, planes_mappable(d.d.bp, nst, p.N, p.K),
+      dk_req, s_req, &sp);
+  if (err != cudaSuccess) return err;
+  if (sp.S == 1) {
+    const MixedPrelimbedArgs q{{p.a, d.d.bp, p.c, p.a_sr, p.c_sr, p.M, p.N,
+                                p.K, p.n_limbs, p.max_order},
+                               d.lane_n,
+                               d.lane_ord};
+    return launch_decode<NL, 1,
+                         mixed_prelimbed_matmul_decode_kernel<NL, NO, GEN>>(
+        q, true, nl, p.M, p.N, p.K, 1, 1, dk_req, st);
   }
-  const int64_t smem = smem_of(dk);
-  if (smem > cd.optin) return cudaErrorInvalidValue;
-  const int tot_off = (int)split_tot_off(PL, nl, (int)p.M, kr, dk);
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)(nx * S), 1, (unsigned)nz);
-  cfg.blockDim = dim3(DEC_CT + 32 * DecRing<NL>::P(PL), 1, 1);
-  cfg.dynamicSmemBytes = (size_t)smem;
-  cfg.stream = st;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = (unsigned)S;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  int clusters = 0;
-  err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+  CUtensorMap bmap;
+  memset(&bmap, 0, sizeof(bmap));
+  if (!make_planes_map(&bmap, d.d.bp, nst, p.N, p.K, sp.dk))
+    return cudaErrorInvalidValue;
+  return split_go<NL, kernel>(d, bmap, true, nx, 1, 1, sp, st);
+}
+
+// M <= DEC_M, the projection: NOUT weights a block, ny blocks of weights
+// (grid.y); S = 1 runs fused_proj_decode_kernel
+template <int NL, int NO, bool GEN, int NOUT>
+cudaError_t launch_proj_split(const ProjArgs& p, unsigned ny, int dk_req,
+                              int s_req, cudaStream_t st) {
+  constexpr auto kernel =
+      matmul_split_kernel<NL, NO, GEN, NOUT, Epi::PROJ, false, false>;
+  const int nl = GEN ? p.n_limbs : NL;
+  const int64_t nx = (p.N + DEC_N - 1) / DEC_N;
+  SplitPlan sp;
+  cudaError_t err = split_choose<NL, kernel>(
+      false, nl, NO, NOUT, p.M, p.K, nx * ny, true, dk_req, s_req, &sp);
   if (err != cudaSuccess) return err;
-  if (clusters < 1) return cudaErrorInvalidConfiguration;
-  err = cudaLaunchKernelEx(&cfg, kernel, d, bmap, dk, S, cpr, tot_off);
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
+  if (sp.S == 1)
+    return launch_decode<NL, NOUT,
+                         fused_proj_decode_kernel<NL, NO, NOUT, GEN>>(
+        p, false, nl, p.M, p.N, p.K, ny, 1, dk_req, st);
+  CUtensorMap bmap;
+  memset(&bmap, 0, sizeof(bmap));
+  return split_go<NL, kernel>(p, bmap, false, nx, ny, 1, sp, st);
+}
+
+// The projection's decode tile: gated, both weights in a block (silu(g) * u
+// needs g and u of one output in one thread); else one weight a block, the
+// grid walking QKV's weights (grid.y = n_out: QKV 8x768 M8 0.0097 ms
+// against 0.0116 with the three weights in one cluster, A limbed once,
+// PERF.md)
+template <int NL, int NO, bool GEN>
+cudaError_t launch_proj_decode(const ProjArgs& p, int n_out, int dk_req,
+                               int s_req, cudaStream_t st) {
+  if (p.gate)
+    return launch_proj_split<NL, NO, GEN, 2>(p, 1, dk_req, s_req, st);
+  return launch_proj_split<NL, NO, GEN, 1>(p, (unsigned)n_out, dk_req, s_req,
+                                           st);
 }
 
 // Launch one prefill-tile kernel: NOUT weights a block, ny blocks of
@@ -1086,6 +1368,49 @@ cudaError_t prelimbed_for_format(const DecodeArgs& d, int p0, int p1,
 #undef MP_CALL
 }
 
+cudaError_t proj_decode_for_format(const ProjArgs& p, int n_out, int p0,
+                                   int p1, cudaStream_t st) {
+#define MP_CALL(NL, NO, GEN) \
+  launch_proj_decode<NL, NO, GEN>(p, n_out, p0, p1, st)
+  MP_FOR_FORMAT(p.n_limbs, p.max_order, MP_CALL);
+#undef MP_CALL
+}
+
+cudaError_t mixed_for_format(const MixedDecodeArgs& d, int p0, int p1,
+                             cudaStream_t st) {
+#define MP_CALL(NL, NO, GEN) launch_mixed_split<NL, NO, GEN>(d, p0, p1, st)
+  MP_FOR_FORMAT(d.d.m.n_limbs, d.d.m.max_order, MP_CALL);
+#undef MP_CALL
+}
+
+// the registers a thread of a split kernel: kind 0 the fused matmul's, 1
+// its partials', 2 the pre-limbed matmul's, 3 the projection's (nout
+// weights a block), 4 the mixed-lane matmul's
+template <int NL, int NO, bool GEN>
+int split_regs(int kind, int nout) {
+  switch (kind) {
+    case 0:
+      return kernel_regs<
+          matmul_split_kernel<NL, NO, GEN, 1, Epi::COMBINE, false, false>>();
+    case 1:
+      return kernel_regs<
+          matmul_split_kernel<NL, NO, GEN, 1, Epi::PARTS, false, false>>();
+    case 2:
+      return kernel_regs<
+          matmul_split_kernel<NL, NO, GEN, 1, Epi::COMBINE, true, false>>();
+    case 3:
+      if (nout == 2)
+        return kernel_regs<
+            matmul_split_kernel<NL, NO, GEN, 2, Epi::PROJ, false, false>>();
+      return kernel_regs<
+          matmul_split_kernel<NL, NO, GEN, 1, Epi::PROJ, false, false>>();
+    case 4:
+      return kernel_regs<
+          matmul_split_kernel<NL, NO, GEN, 1, Epi::COMBINE, true, true>>();
+  }
+  return 0;
+}
+
 }  // namespace
 
 extern "C" {
@@ -1199,6 +1524,89 @@ int mp_hopper_prelimbed_launch(const void* a, int64_t a_sr, const void* b,
                                    static_cast<cudaStream_t>(stream));
 }
 
+// The projection at M <= DEC_M (the arguments of mp_hopper_proj_launch)
+// on the split decode tile: gated, both weights a block; else one a block,
+// the grid walking the weights.  p0, p1: the k per ring stage and the
+// cluster size (0: the plan's, mp_split_plan with nout); none changes a
+// bit.  Returns the CUDA error of the launch (0 on success;
+// cudaErrorInvalidValue for operands or parameters the tile cannot take).
+// Allocates nothing and does not synchronise.
+int mp_hopper_proj_decode_launch(const void* a, int64_t a_sr, const void* b0,
+                                 const void* b1, const void* b2, int64_t b_sr,
+                                 const void* bias0, const void* bias1,
+                                 const void* bias2, const void* res,
+                                 int64_t res_sr, void* out, int64_t n_out,
+                                 int64_t gate, int64_t M, int64_t N, int64_t K,
+                                 int64_t n_limbs, int64_t max_order,
+                                 int64_t p0, int64_t p1, void* stream) {
+  if (!format_ok(n_limbs, max_order) || n_out < 1 || n_out > MAX_OUT ||
+      (gate && n_out != 2) || (res != nullptr && !gate && n_out != 1) ||
+      M > DEC_M || p0 < 0 || p1 < 0 || p0 > 4096 || p1 > 64)
+    return (int)cudaErrorInvalidValue;
+  if (M == 0 || N == 0) return 0;
+  ProjArgs p{};
+  p.a = static_cast<const float*>(a);
+  const void* bs[MAX_OUT] = {b0, b1, b2};
+  const void* biases[MAX_OUT] = {bias0, bias1, bias2};
+  for (int t = 0; t < MAX_OUT; ++t) {
+    p.b[t] = static_cast<const float*>(bs[t]);
+    p.bias[t] = static_cast<const float*>(biases[t]);
+  }
+  p.res = static_cast<const float*>(res);
+  p.out = static_cast<float*>(out);
+  p.a_sr = a_sr;
+  p.b_sr = b_sr;
+  p.res_sr = res_sr;
+  p.M = M;
+  p.N = N;
+  p.K = K;
+  p.n_limbs = (int)n_limbs;
+  p.max_order = (int)max_order;
+  p.gate = (int)gate;
+  return (int)proj_decode_for_format(p, (int)n_out, (int)p0, (int)p1,
+                                     static_cast<cudaStream_t>(stream));
+}
+
+// C (M, N) = A (M, K) @ B with row m at its own lane format (the arguments
+// of mp_mixed_prelimbed_matmul_launch in mp_matmul.cu) on the split decode
+// tile (M <= DEC_M): the envelope's stored planes fed by TMA where a map
+// reads them.  p0, p1: the k per ring stage and the cluster size (0: the
+// plan's); none changes a bit.  Returns the CUDA error of the launch (0 on
+// success).  Allocates nothing and does not synchronise.
+int mp_hopper_mixed_prelimbed_launch(const void* a, int64_t a_sr,
+                                     const void* b, int64_t b_plane,
+                                     int64_t b_sr, int64_t n_stored,
+                                     const void* lane_n, const void* lane_ord,
+                                     void* c, int64_t c_sr, int64_t M,
+                                     int64_t N, int64_t K, int64_t n_limbs,
+                                     int64_t max_order, int64_t p0, int64_t p1,
+                                     void* stream) {
+  if (!format_ok(n_limbs, max_order) || n_stored < 1 || lane_n == nullptr ||
+      lane_ord == nullptr || M > DEC_M || p0 < 0 || p1 < 0 || p0 > 4096 ||
+      p1 > 64)
+    return (int)cudaErrorInvalidValue;
+  if (M == 0 || N == 0) return 0;
+  MixedDecodeArgs d{};
+  d.d.m.a = static_cast<const float*>(a);
+  d.d.m.c = static_cast<float*>(c);
+  d.d.m.a_sr = a_sr;
+  d.d.m.a_sc = 1;
+  d.d.m.c_sr = c_sr;
+  d.d.m.c_sc = 1;
+  d.d.m.nb1 = 1;
+  d.d.m.M = M;
+  d.d.m.N = N;
+  d.d.m.K = K;
+  d.d.m.n_limbs = (int)n_limbs;
+  d.d.m.max_order = (int)max_order;
+  d.d.bp = Planes{static_cast<const __nv_bfloat16*>(b), b_plane, b_sr,
+                  (int)n_stored};
+  d.lane_n = static_cast<const int32_t*>(lane_n);
+  d.lane_ord = static_cast<const int32_t*>(lane_ord);
+  return (int)mixed_for_format(d, (int)p0, (int)p1,
+                               static_cast<cudaStream_t>(stream));
+}
+
 // The prefill tile's columns for a format (hp_bn) at nout weights a block
 // (the projection's gated block holds 2) and one block's dynamic shared
 // memory (at its hp_rs f32 stages).
@@ -1214,28 +1622,39 @@ int64_t mp_tma_smem_bytes(int64_t n_limbs, int64_t max_order, int64_t nout) {
   return hp_smem(nl, bn, hp_rs(nl, bn, (int)nout), (int)nout);
 }
 
-// The decode plan's cluster size for slabs column slabs (times the batch),
-// K and M rows at a format, on a card of sms SMs with sm_smem bytes of
-// shared memory an SM and optin a block (pl: B as stored planes, the
-// pre-limbed matmul's); its k per stage for a rank's K range kr of cpr
-// chunks; and the split tile's shared memory.
+// The decode plan's cluster size for slabs column slabs (times grid.y and
+// the batch), K and M rows at a format, nout weights a block and regs
+// registers a thread, on a card of sms SMs with sm_smem bytes of shared
+// memory an SM and optin a block (pl: B as stored planes, the pre-limbed
+// and mixed-lane matmuls'); its k per stage for a rank's K range kr of cpr
+// chunks; the split tile's shared memory; and the registers of a split
+// kernel (mp_split_regs: kind 0 fused, 1 partials, 2 pre-limbed, 3
+// projection, 4 mixed-lane; needs the card).
 int mp_split_plan(int64_t pl, int64_t slabs, int64_t K, int64_t n_limbs,
-                  int64_t max_order, int64_t M, int64_t sms, int64_t sm_smem,
-                  int64_t optin, int* dk) {
+                  int64_t max_order, int64_t M, int64_t nout, int64_t regs,
+                  int64_t sms, int64_t sm_smem, int64_t optin, int* dk) {
   const bool b = builtin_format(n_limbs, max_order);
   return split_plan(pl != 0, slabs, K, (int)n_limbs,
-                    b ? (int)max_order + 1 : GEN_NO, (int)M,
+                    b ? (int)max_order + 1 : GEN_NO, (int)M, (int)nout,
+                    (int)regs,
                     b && n_limbs <= 3 ? DecRing<1>::K : DecRing<GEN_NL>::K,
                     (int)sms, sm_smem, optin, dk);
 }
 
 int mp_split_dk(int64_t pl, int64_t n_limbs, int64_t max_order, int64_t M,
-                int64_t kr, int64_t cpr, int64_t optin) {
+                int64_t kr, int64_t cpr, int64_t nout, int64_t optin) {
   const bool b = builtin_format(n_limbs, max_order);
   return split_dk(pl != 0, (int)n_limbs, b ? (int)max_order + 1 : GEN_NO,
-                  (int)M, kr, (int)cpr,
+                  (int)M, kr, (int)cpr, (int)nout,
                   b && n_limbs <= 3 ? DecRing<1>::K : DecRing<GEN_NL>::K,
                   optin);
+}
+
+int mp_split_regs(int64_t kind, int64_t nout, int64_t n_limbs,
+                  int64_t max_order) {
+#define MP_CALL(NL, NO, GEN) split_regs<NL, NO, GEN>((int)kind, (int)nout)
+  MP_FOR_FORMAT(n_limbs, max_order, MP_CALL);
+#undef MP_CALL
 }
 
 int mp_split_norm(int64_t K, int64_t s) {
@@ -1243,11 +1662,12 @@ int mp_split_norm(int64_t K, int64_t s) {
 }
 
 int64_t mp_split_smem_bytes(int64_t pl, int64_t n_limbs, int64_t max_order,
-                            int64_t M, int64_t kr, int64_t dk, int64_t cpr) {
+                            int64_t M, int64_t kr, int64_t dk, int64_t cpr,
+                            int64_t nout) {
   const bool b = builtin_format(n_limbs, max_order);
   return split_smem_bytes(pl != 0, (int)n_limbs,
                           b ? (int)max_order + 1 : GEN_NO, (int)M, kr,
-                          (int)dk, (int)cpr);
+                          (int)dk, (int)cpr, (int)nout);
 }
 
 }  // extern "C"

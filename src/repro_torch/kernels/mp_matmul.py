@@ -9,9 +9,10 @@ Each wrapper runs its plain PyTorch version for CPU tensors and launches its
 CUDA kernel (``csrc/mp_matmul.cu``; the Hopper tiles from
 ``csrc/mp_matmul_hopper.cu``) for CUDA tensors — there is no fallback from
 one to the other.  The fused matmul and its partials epilogue, the fused
-projection and the pre-limbed matmul each take one of their routes by the
-operands' shape and layout (:func:`fused_route`, :func:`proj_route`,
-:func:`prelimbed_route`), each with its own launch counter (``routes``).
+projection and the pre-limbed and mixed-lane matmuls each take one of their
+routes by the operands' shape and layout (:func:`fused_route`,
+:func:`proj_route`, :func:`prelimbed_route`), each with its own launch
+counter (``routes``).
 The plain versions repeat the kernels' accumulation discipline: one f32 sum
 per limb-product order, joined by the compensated ``_combine_orders``
 (highest order first), whatever the limb count.
@@ -34,14 +35,16 @@ DEC_M = 16    # most rows of the decode tile (csrc DEC_M)
 # TMA prefill tile (operands a tensor map reads), the strided prefill tile
 SPLIT, TMA, STRIDED = "cluster", "tma", "strided"
 ROUTES = (SPLIT, TMA, STRIDED)
-# the fused projection's: its decode tile (M <= DEC_M, csrc/mp_matmul.cu),
-# the TMA prefill tile (csrc/mp_matmul_hopper.cu), the strided prefill tile
-DECODE = "decode"
-PROJ_ROUTES = (DECODE, TMA, STRIDED)
-# the pre-limbed matmul's: the cluster-split decode tile
+# the fused projection's: the cluster-split decode tile (M <= DEC_M) and the
+# TMA prefill tile (csrc/mp_matmul_hopper.cu), the strided prefill tile
+PROJ_ROUTES = (SPLIT, TMA, STRIDED)
+# the pre-limbed and mixed-lane matmuls': the cluster-split decode tile
 # (csrc/mp_matmul_hopper.cu), the mma.sync prefill tile (csrc/mp_matmul.cu)
 MMA = "mma"
 PRELIMBED_ROUTES = (SPLIT, MMA)
+# the split kernels, by kind (mp_split_regs of csrc/mp_matmul_hopper.cu)
+SPLIT_KINDS = {"fused": 0, "partials": 1, "prelimbed": 2, "proj": 3,
+               "mixed": 4}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int64
@@ -208,8 +211,6 @@ def _set_argtypes(lib) -> None:
         _P, _I, _I, _I, _I, _P, _I, _I, _I, _I, _P, _I, _I, _I, _I,
         _I, _I, _I, _I, _I, _I, _I, _P]
     lib.mp_fused_matmul_launch.restype = ctypes.c_int
-    # a library built from an older source (compare_kernels.py loads them)
-    # takes no launch parameters: the two extra arguments are not read
     lib.mp_fused_proj_launch.argtypes = [
         _P, _I, _P, _P, _P, _I, _P, _P, _P, _P, _I, _P,
         _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]
@@ -248,9 +249,9 @@ def _set_hopper_argtypes(lib) -> None:
     lib.mp_hopper_matmul_launch.argtypes = [_P, _I, _I, _I, _I, _P, _I, _I,
                                             _I, _I, _P] + [_I] * 15 + [_P]
     lib.mp_hopper_matmul_launch.restype = ctypes.c_int
-    # the projection's and the pre-limbed matmul's entries, and the plan's
-    # stored-planes flag (a library built from an older source lacks them;
-    # compare_kernels.py launches only its fused matmul)
+    # the projection's and the pre-limbed matmul's entries (a library built
+    # from an older source lacks them; compare_kernels.py launches its
+    # fused matmul only)
     if hasattr(lib, "mp_hopper_proj_launch"):
         lib.mp_hopper_proj_launch.argtypes = [
             _P, _I, _P, _P, _P, _I, _P, _P, _P, _P, _I, _P,
@@ -263,14 +264,28 @@ def _set_hopper_argtypes(lib) -> None:
         lib.mp_tma_tile_n.restype = ctypes.c_int
         lib.mp_tma_smem_bytes.argtypes = [_I, _I, _I]
         lib.mp_tma_smem_bytes.restype = ctypes.c_int64
-        lib.mp_split_plan.argtypes = [_I] * 9 + [ctypes.POINTER(ctypes.c_int)]
-        lib.mp_split_plan.restype = ctypes.c_int
-        lib.mp_split_dk.argtypes = [_I] * 7
-        lib.mp_split_dk.restype = ctypes.c_int
         lib.mp_split_norm.argtypes = [_I, _I]
         lib.mp_split_norm.restype = ctypes.c_int
-        lib.mp_split_smem_bytes.argtypes = [_I] * 7
+    # the split projection and mixed-lane matmul, and the plan's exports
+    # with weights a block and registers (an older library lacks them)
+    if hasattr(lib, "mp_hopper_mixed_prelimbed_launch"):
+        lib.mp_hopper_proj_decode_launch.argtypes = [
+            _P, _I, _P, _P, _P, _I, _P, _P, _P, _P, _I, _P,
+            _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]
+        lib.mp_hopper_proj_decode_launch.restype = ctypes.c_int
+        lib.mp_hopper_mixed_prelimbed_launch.argtypes = [
+            _P, _I, _P, _I, _I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+            _I, _P]
+        lib.mp_hopper_mixed_prelimbed_launch.restype = ctypes.c_int
+        lib.mp_split_plan.argtypes = [_I] * 11 + [
+            ctypes.POINTER(ctypes.c_int)]
+        lib.mp_split_plan.restype = ctypes.c_int
+        lib.mp_split_dk.argtypes = [_I] * 8
+        lib.mp_split_dk.restype = ctypes.c_int
+        lib.mp_split_smem_bytes.argtypes = [_I] * 8
         lib.mp_split_smem_bytes.restype = ctypes.c_int64
+        lib.mp_split_regs.argtypes = [_I] * 4
+        lib.mp_split_regs.restype = ctypes.c_int
     lib._mp_hopper_typed = True
 
 
@@ -485,14 +500,14 @@ def _proj_operands(a: torch.Tensor, ws: Sequence[torch.Tensor], *,
 
 def proj_route(a: torch.Tensor, ws: Sequence[torch.Tensor]) -> str:
     """The route of a projection on its marshalled operands (contiguous
-    f32, :func:`_proj_operands`): its decode tile at M <= 16 rows, else the
-    TMA prefill tile where a tensor map reads ``a`` and every weight (rows
-    of a multiple of 16 bytes, 16-byte aligned bases, sizes within 31
-    bits), else the strided prefill tile of csrc/mp_matmul.cu.  The three
-    give every output the same bits."""
+    f32, :func:`_proj_operands`): the cluster-split decode tile at M <= 16
+    rows, else the TMA prefill tile where a tensor map reads ``a`` and
+    every weight (rows of a multiple of 16 bytes, 16-byte aligned bases,
+    sizes within 31 bits), else the strided prefill tile of
+    csrc/mp_matmul.cu.  The three give every output the same bits."""
     (M, K), N = a.shape, ws[0].shape[1]
     if M <= DEC_M:
-        return DECODE
+        return SPLIT
     if (0 < K < 2 ** 31 and M < 2 ** 31 and N < 2 ** 31
             and all(_tma_operand(x, (1, 1), (0, 0)) for x in (a, *ws))):
         return TMA
@@ -505,10 +520,11 @@ def launch_fused_proj(lib, stream: int, a: torch.Tensor,
                       residual: Optional[torch.Tensor] = None,
                       tune: Sequence[int] = (0, 0)) -> torch.Tensor:
     """Marshal one ``mp_fused_proj_launch`` call (csrc/mp_matmul.cu: the
-    decode tile at M <= 16, the strided prefill tile above; every shape on
-    an older version of the source): a (M, K); ws n_out equal (K, N)
-    weights.  ``tune``: the autotuner's ``(dec_dk, tile_e)``, (0, 0) the
-    default launch."""
+    strided prefill tile, M > 16; an older version of the source runs its
+    decode tile there too): a (M, K); ws n_out equal (K, N) weights.
+    ``tune``: the entry's ``(dec_dk, tile_e)`` (dec_dk 0 here; an older
+    version's decode tile took its k per stage), (0, 0) the default
+    launch."""
     _set_argtypes(lib)
     a, ws, args, out, _keep = _proj_operands(a, ws, gate=gate,
                                              biases=biases, residual=residual)
@@ -525,14 +541,21 @@ def launch_proj_routed(stream: int, a: torch.Tensor,
                        tune: Optional[Sequence[int]] = None, libs=None):
     """One fused projection by its route (:func:`proj_route`), on this
     tree's libraries or ``libs`` (as :func:`launch_routed`).  ``tune``
-    (the autotuner's ``(dec_dk, tile_e)``; None or (0, 0): the default)
-    reaches the decode and strided tiles; the TMA tile has no free
-    parameter and raises on another.  Returns (output, route)."""
+    (the autotuner's; None or (0, 0): the default) reaches the split
+    decode tile as ``(dk, S)`` and the strided tile as ``(0, E)``; the TMA
+    tile has no free parameter and raises on another.  Returns (output,
+    route)."""
     a, ws, args, out, _keep = _proj_operands(a, ws, gate=gate,
                                              biases=biases, residual=residual)
     route = proj_route(a, ws)
     tune = tuple(tune) if tune is not None else (0, 0)
-    if route != TMA:
+    if route == SPLIT:
+        lib = _lib(libs, "mp_matmul_hopper")
+        _set_hopper_argtypes(lib)
+        err = lib.mp_hopper_proj_decode_launch(
+            *args, fmt.n_limbs, fmt.max_order, int(tune[0]), int(tune[1]),
+            stream)
+    elif route == STRIDED:
         lib = _lib(libs, "mp_matmul")
         _set_argtypes(lib)
         err = lib.mp_fused_proj_launch(*args, fmt.n_limbs, fmt.max_order,
@@ -591,10 +614,10 @@ def launch_prelimbed_matmul(lib, stream: int, a: torch.Tensor,
 
 
 def prelimbed_route(a: torch.Tensor) -> str:
-    """The pre-limbed matmul's route: the cluster-split decode tile at M <=
-    16 rows (csrc/mp_matmul_hopper.cu), the mma.sync prefill tile above
-    (csrc/mp_matmul.cu).  Both give every output the fused matmul's
-    bits."""
+    """The pre-limbed and mixed-lane matmuls' route: the cluster-split
+    decode tile at M <= 16 rows (csrc/mp_matmul_hopper.cu), the mma.sync
+    prefill tile above (csrc/mp_matmul.cu).  Both give every output the
+    same bits (the pre-limbed matmul's the fused matmul's)."""
     return SPLIT if a.shape[0] <= DEC_M else MMA
 
 
@@ -605,8 +628,8 @@ def launch_prelimbed_routed(stream: int, a: torch.Tensor,
     """One pre-limbed matmul by its route (:func:`prelimbed_route`), on
     this tree's libraries or ``libs`` (as :func:`launch_routed`).
     ``tune``: the split tile's ``(dk, S)`` (None or (0, 0): the plan's,
-    ``decode_plan(..., pl=True)``); the prefill tile takes none and raises
-    on another.  Returns (output, route)."""
+    ``decode_plan(..., kind="prelimbed")``); the prefill tile takes none
+    and raises on another.  Returns (output, route)."""
     route = prelimbed_route(a)
     tune = tuple(tune) if tune is not None else (0, 0)
     if route == MMA:
@@ -631,17 +654,14 @@ def launch_mixed_prelimbed_matmul(lib, stream: int, a: torch.Tensor,
                                   limbs: torch.Tensor, env: MPFormat,
                                   lane_n: torch.Tensor,
                                   lane_ord: torch.Tensor) -> torch.Tensor:
-    """Marshal one ``mp_mixed_prelimbed_matmul_launch`` call: as
-    :func:`launch_prelimbed_matmul` at the envelope ``env``, plus the
-    per-row lanes (M,) int32, read in place."""
+    """Marshal one ``mp_mixed_prelimbed_matmul_launch`` call (the mma.sync
+    prefill tile, M > 16; an older version of the source runs its decode
+    tile there too): as :func:`launch_prelimbed_matmul` at the envelope
+    ``env``, plus the per-row lanes (M,) int32, read in place."""
     _set_argtypes(lib)
     a, c = _prelimbed_operands(a, limbs)
     (M, K), (L, _, N) = a.shape, limbs.shape
-    for lane in (lane_n, lane_ord):
-        if (lane.dtype != torch.int32 or lane.shape != (M,)
-                or not lane.is_contiguous()):
-            raise ValueError(f"lanes must be contiguous ({M},) int32, got "
-                             f"{tuple(lane.shape)} {lane.dtype}")
+    _check_lanes(lane_n, lane_ord, M)
     err = lib.mp_mixed_prelimbed_matmul_launch(
         a.data_ptr(), a.stride(0), limbs.data_ptr(), limbs.stride(0),
         limbs.stride(1), L, lane_n.data_ptr(), lane_ord.data_ptr(),
@@ -649,6 +669,47 @@ def launch_mixed_prelimbed_matmul(lib, stream: int, a: torch.Tensor,
         stream)
     build.check(err, "mp_mixed_prelimbed_matmul")
     return c
+
+
+def _check_lanes(lane_n: torch.Tensor, lane_ord: torch.Tensor, M: int
+                 ) -> None:
+    for lane in (lane_n, lane_ord):
+        if (lane.dtype != torch.int32 or lane.shape != (M,)
+                or not lane.is_contiguous()):
+            raise ValueError(f"lanes must be contiguous ({M},) int32, got "
+                             f"{tuple(lane.shape)} {lane.dtype}")
+
+
+def launch_mixed_routed(stream: int, a: torch.Tensor, limbs: torch.Tensor,
+                        env: MPFormat, lane_n: torch.Tensor,
+                        lane_ord: torch.Tensor,
+                        tune: Optional[Sequence[int]] = None, *, libs=None):
+    """One mixed-lane pre-limbed matmul by its route (the pre-limbed
+    matmul's, :func:`prelimbed_route`), on this tree's libraries or
+    ``libs`` (as :func:`launch_routed`).  ``tune``: the split tile's
+    ``(dk, S)`` (None or (0, 0): the plan's); the prefill tile takes none
+    and raises on another.  Returns (output, route)."""
+    route = prelimbed_route(a)
+    tune = tuple(tune) if tune is not None else (0, 0)
+    if route == MMA:
+        if tune != (0, 0):
+            raise ValueError(f"the {route} prefill tile takes no launch "
+                             f"parameters, got {tune}")
+        return launch_mixed_prelimbed_matmul(
+            _lib(libs, "mp_matmul"), stream, a, limbs, env, lane_n,
+            lane_ord), route
+    lib = _lib(libs, "mp_matmul_hopper")
+    _set_hopper_argtypes(lib)
+    a, c = _prelimbed_operands(a, limbs)
+    (M, K), (L, _, N) = a.shape, limbs.shape
+    _check_lanes(lane_n, lane_ord, M)
+    err = lib.mp_hopper_mixed_prelimbed_launch(
+        a.data_ptr(), a.stride(0), limbs.data_ptr(), limbs.stride(0),
+        limbs.stride(1), L, lane_n.data_ptr(), lane_ord.data_ptr(),
+        c.data_ptr(), c.stride(0), M, N, K, env.n_limbs, env.max_order,
+        int(tune[0]), int(tune[1]), stream)
+    build.check(err, "mp_mixed_prelimbed_matmul")
+    return c, route
 
 
 def launch_both_prelimbed_matmul(lib, stream: int, al: torch.Tensor,
@@ -858,7 +919,8 @@ def mp_mixed_prelimbed_matmul(a: torch.Tensor, limbs: torch.Tensor,
     ``lane_ord[m]``, (M,) int32 each) at or below the envelope ``env`` ->
     (M, N) f32.  A row equals :func:`mp_prelimbed_matmul`'s row at the
     lane's format bit for bit.  CPU tensors run
-    :func:`mixed_prelimbed_matmul_plain`; CUDA tensors launch the kernel."""
+    :func:`mixed_prelimbed_matmul_plain`; CUDA tensors launch the kernel by
+    the route :func:`prelimbed_route` gives (counted in ``routes``)."""
     env = resolve(env)
     if _on_meta(a, limbs, lane_n, lane_ord):
         return _meta((a.shape[0], limbs.shape[-1]))
@@ -866,13 +928,14 @@ def mp_mixed_prelimbed_matmul(a: torch.Tensor, limbs: torch.Tensor,
         mp_mixed_prelimbed_matmul.plain_calls += 1
         return mixed_prelimbed_matmul_plain(a, limbs, env, lane_n, lane_ord)
     stream = _cuda_stream(a, limbs, lane_n, lane_ord)
-    out = launch_mixed_prelimbed_matmul(build.load("mp_matmul"), stream, a,
-                                        limbs, env, lane_n, lane_ord)
+    out, route = launch_mixed_routed(stream, a, limbs, env, lane_n, lane_ord)
     mp_mixed_prelimbed_matmul.launches += 1
+    mp_mixed_prelimbed_matmul.routes[route] += 1
     return out
 
 
 mp_mixed_prelimbed_matmul.launches = 0
+mp_mixed_prelimbed_matmul.routes = dict.fromkeys(PRELIMBED_ROUTES, 0)
 mp_mixed_prelimbed_matmul.plain_calls = 0
 
 
@@ -922,24 +985,40 @@ mp_decompose.launches = 0
 mp_decompose.plain_calls = 0
 
 
+def split_regs(kind: str, fmt: FormatLike, nout: int = 1) -> int:
+    """Registers a thread of the split kernel of ``kind`` (a key of
+    :data:`SPLIT_KINDS`; the projection's at ``nout`` weights a block) at
+    ``fmt``'s instantiation, as the card reads them (``mp_split_regs``).
+    Builds the library (needs ``nvcc``: the machine with the card)."""
+    fmt = resolve(fmt)
+    lib = build.load("mp_matmul_hopper")
+    _set_hopper_argtypes(lib)
+    return int(lib.mp_split_regs(SPLIT_KINDS[kind], nout, fmt.n_limbs,
+                                 fmt.max_order))
+
+
 def decode_plan(M: int, N: int, K: int, fmt: FormatLike, batch: int = 1,
-                *, pl: bool = False) -> Tuple[int, int]:
-    """The split decode tile's default launch for an (M <= 16, K, N) fused
-    matmul (``pl``: a pre-limbed one, its B stored bf16 planes) on this
-    card (``mp_split_plan`` of ``csrc/mp_matmul_hopper.cu``): the cluster
-    size S that splits K's chunks and the k per ring stage (0: the
-    single-block tile's own choice at S = 1).  Builds the library (needs
-    ``nvcc``: the machine with the card)."""
+                *, kind: str = "fused", n_out: int = 1, gate: bool = False
+                ) -> Tuple[int, int]:
+    """The split decode tile's default launch for an (M <= 16, K, N) matmul
+    of ``kind`` (:data:`SPLIT_KINDS`: "prelimbed" and "mixed" read stored
+    bf16 planes; "proj" is the projection of ``n_out`` weights, gated or
+    not: both weights a block gated, else one a block) on this card
+    (``mp_split_plan`` of ``csrc/mp_matmul_hopper.cu`` on the kernel's
+    registers): the cluster size S that splits K's chunks and the k per
+    ring stage (0: the single-block tile's own choice at S = 1).  Builds
+    the library (needs ``nvcc``: the machine with the card)."""
     fmt = resolve(fmt)
     lib = build.load("mp_matmul_hopper")
     _set_hopper_argtypes(lib)
     props = torch.cuda.get_device_properties(0)
+    nout, ny = (2, 1) if gate else (1, n_out) if kind == "proj" else (1, 1)
     dk = ctypes.c_int(0)
-    S = lib.mp_split_plan(int(pl), -(-N // 16) * batch, K, fmt.n_limbs,
-                          fmt.max_order, M, props.multi_processor_count,
-                          props.shared_memory_per_multiprocessor,
-                          props.shared_memory_per_block_optin,
-                          ctypes.byref(dk))
+    S = lib.mp_split_plan(
+        int(kind in ("prelimbed", "mixed")), -(-N // 16) * ny * batch, K,
+        fmt.n_limbs, fmt.max_order, M, nout, split_regs(kind, fmt, nout),
+        props.multi_processor_count, props.shared_memory_per_multiprocessor,
+        props.shared_memory_per_block_optin, ctypes.byref(dk))
     return int(S), int(dk.value)
 
 

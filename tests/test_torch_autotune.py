@@ -209,10 +209,23 @@ def test_candidates_filter_by_shared_memory_and_spills():
     assert at.candidate_blocks(8, 768, 768, "M8", smem=small) == \
         [(64, 1), (128, 1), (64, 2), (64, 4), (128, 4), (192, 4), (64, 6),
          (128, 6)]
-    # the projection's decode tile: (dk, 0)
+    # the projection's decode tile, split over a cluster: (dk, S) as the
+    # fused matmul's; QKV's plan takes S = 4 for its 144 slabs (one weight
+    # a block, 64 registers), the gated block none (a rank's stages would
+    # be as many as one block's)
+    split = [(64, 1), (128, 1), (192, 1), (256, 1), (64, 2), (128, 2),
+             (192, 2), (256, 2), (64, 4), (128, 4), (192, 4), (64, 6),
+             (128, 6)]
     assert at.candidate_blocks(8, 768, 768, "M8", n_out=3,
-                               smem=at.SMEM_MAX) == \
-        [(64, 0), (128, 0), (192, 0), (256, 0)]
+                               smem=at.SMEM_MAX) == split
+    assert at.split_plan(144, 768, "M8") == (4, 192)
+    assert at.candidate_blocks(8, 768, 3072, "M8", n_out=2,
+                               epilogue="swiglu", smem=at.SMEM_MAX) == split
+    assert at.split_plan(192, 768, "M8", nout=2) == (1, 0)
+    # two weights' f32 rings and planes at S = 1 need more than one's
+    small = at.dec_smem_bytes(False, 1, 8, 192, 3, 1)
+    assert (256, 1) not in at.candidate_blocks(
+        8, 768, 3072, "M8", n_out=2, epilogue="swiglu", smem=small)
     # the fused matmul's prefill tiles have no free parameter
     assert at.candidate_blocks(2048, 768, 768, "M8", smem=at.SMEM_MAX) == []
     assert at.candidate_blocks(2048, 768, 768, "M16", smem=at.SMEM_MAX) == []
@@ -256,8 +269,8 @@ def test_table_round_trip_is_atomic(table_dir):
     table["M16|8x768x768|float32"] = [128, 0]
     table["attn|M16/M8|96x256x256x64|c1|p0"] = [64]
     path = at.save_table(table, "NVIDIA_H100_80GB_HBM3")
-    assert os.path.basename(path) == "NVIDIA_H100_80GB_HBM3.v3.json"
-    assert sorted(os.listdir(table_dir)) == ["NVIDIA_H100_80GB_HBM3.v3.json"]
+    assert os.path.basename(path) == "NVIDIA_H100_80GB_HBM3.v4.json"
+    assert sorted(os.listdir(table_dir)) == ["NVIDIA_H100_80GB_HBM3.v4.json"]
     at.clear_memory_cache()
     assert at.load_table("NVIDIA_H100_80GB_HBM3") == table
 
@@ -276,9 +289,15 @@ def test_a_table_of_the_old_layout_is_not_read(table_dir, monkeypatch):
     with open(table_dir / "NVIDIA_H100_80GB_HBM3.v2.json", "w") as f:
         json.dump({at.table_key(2048, 768, 768, "M8", torch.float32,
                                 n_out=3): [0, 16]}, f)
+    # nor one of the layout before the projection's split decode tile: its
+    # decode QKV key held (dk, 0) of the single-block tile
+    with open(table_dir / "NVIDIA_H100_80GB_HBM3.v3.json", "w") as f:
+        json.dump({at.table_key(8, 768, 768, "M8", torch.float32,
+                                n_out=3): [192, 0]}, f)
     monkeypatch.setattr(at, "device_kind", lambda: "NVIDIA_H100_80GB_HBM3")
     assert at.load_table() == {}
     assert at.lookup(2048, 3072, 768, "M8") is None
+    assert at.lookup(8, 768, 768, "M8", n_out=3) is None
     seen = _recorders(monkeypatch)
     n = at.stats()["lookups"]
     dispatch.dispatch(torch.ones((2048, 3072)), torch.ones((3072, 768)),

@@ -1510,10 +1510,11 @@ def test_autotune_sweeps_bitwise(cuda, tmp_path, monkeypatch):
                 fmt, nout)
         for kr, dk, cpr in ((512, 256, 8), (128, 64, 2), (384, 128, 6)):
             for M in (1, 8, 16):
-                for pl in (False, True):
+                for pl, nout in ((False, 1), (True, 1), (False, 2),
+                                 (False, 3)):
                     assert hlib.mp_split_smem_bytes(
-                        pl, nl, mo, M, kr, dk, cpr) == \
-                        at.split_smem(fmt, M, kr, dk, cpr, pl)
+                        pl, nl, mo, M, kr, dk, cpr, nout) == \
+                        at.split_smem(fmt, M, kr, dk, cpr, pl, nout)
         if mode == "M16FULLT":
             unregister_format(mode)
     props = torch.cuda.get_device_properties(0)
@@ -1521,29 +1522,38 @@ def test_autotune_sweeps_bitwise(cuda, tmp_path, monkeypatch):
     sm_smem = props.shared_memory_per_multiprocessor
     optin = props.shared_memory_per_block_optin
     dk = ctypes.c_int(0)
+    kinds = (("fused", False, 1), ("prelimbed", True, 1), ("proj", False, 1),
+             ("proj", False, 2), ("mixed", True, 1))
     for mode in ("M8", "M16", "M23", "M52"):
         fmt = resolve(mode)
-        for slabs in (1, 4, 48, 96, 192, 263, 264, 2000):
+        for slabs in (1, 4, 48, 96, 144, 192, 263, 264, 2000):
             for K in (64, 100, 448, 768, 3072):
                 for M in (1, 8, 16):
-                    for pl in (False, True):
+                    for (kind, pl, nout), regs in zip(
+                            kinds, (0, 64, 72, 96, 168)):
                         S = hlib.mp_split_plan(pl, slabs, K, fmt.n_limbs,
-                                               fmt.max_order, M, sms,
-                                               sm_smem, optin,
+                                               fmt.max_order, M, nout, regs,
+                                               sms, sm_smem, optin,
                                                ctypes.byref(dk))
                         assert (S, dk.value) == at.split_plan(
-                            slabs, K, fmt, M, sms, sm_smem, optin, pl)
+                            slabs, K, fmt, M, sms, sm_smem, optin, pl, nout,
+                            regs)
                 for S in range(1, 9):
                     assert hlib.mp_split_norm(K, S) == at.split_norm(K, S)
         for kr, cpr in ((128, 2), (512, 8), (1536, 24)):
-            for pl in (False, True):
+            for pl, nout in ((False, 1), (True, 1), (False, 2), (False, 3)):
                 assert hlib.mp_split_dk(pl, fmt.n_limbs, fmt.max_order, 8,
-                                        kr, cpr, optin) == \
-                    at.split_dk(fmt, 8, kr, cpr, optin, pl)
-    assert mp_matmul.decode_plan(8, 768, 3072, "M8") == \
-        at.split_plan(48, 3072, "M8", 8, sms, sm_smem, optin)
-    assert mp_matmul.decode_plan(8, 768, 3072, "M8", pl=True) == \
-        at.split_plan(48, 3072, "M8", 8, sms, sm_smem, optin, pl=True)
+                                        kr, cpr, nout, optin) == \
+                    at.split_dk(fmt, 8, kr, cpr, optin, pl, nout)
+        # the plan of each split kernel on its own registers (ptxas's)
+        for kind, pl, nout in kinds:
+            regs = mp_matmul.split_regs(kind, fmt, nout)
+            assert 0 < regs <= 255, (kind, mode)
+            slabs = 48 * (3 if kind == "proj" and nout == 1 else 1)
+            assert mp_matmul.decode_plan(
+                8, 768, 768, fmt, kind=kind, n_out=3 if nout == 1 else 2,
+                gate=nout == 2) == at.split_plan(
+                    slabs, 768, fmt, 8, sms, sm_smem, optin, pl, nout, regs)
     for nl, mo in at.BUILTIN + ((2, 2), (4, 3)):
         resolved = next((f for f in ("M8", "M16", "M23", "M36", "M52")
                          if (resolve(f).n_limbs, resolve(f).max_order)
@@ -1774,13 +1784,14 @@ def test_projection_tma_tile_is_the_strided_tile(cuda, custom_format, mode,
 
 def test_projection_routes_on_the_card(cuda):
     """Rows off 16 bytes (N = 70) and a misaligned base keep the strided
-    tile, M <= 16 the decode tile; each bitwise the TMA tile's rows."""
+    tile, M <= 16 the split decode tile; each bitwise the TMA tile's
+    rows."""
     a = _randn(cuda, 70, 200, seed=230)
     ws = [_randn(cuda, 200, 72, seed=231 + t) for t in range(3)]
     full, route = _routed(mp_matmul.mp_fused_proj, a, ws, "M16")
     assert route == mp_matmul.TMA
     dec, route = _routed(mp_matmul.mp_fused_proj, a[:8], ws, "M16")
-    assert route == mp_matmul.DECODE and _bitwise(dec, full[:, :8])
+    assert route == mp_matmul.SPLIT and _bitwise(dec, full[:, :8])
     off = torch.empty(70 * 200 + 1, device=a.device)[1:].view(70, 200)
     off.copy_(a)
     mis, route = _routed(mp_matmul.mp_fused_proj, off, ws, "M16")
@@ -1876,3 +1887,156 @@ def test_minus_zero_and_subnormal_products_on_the_prelimbed_split(cuda, M):
         pos, 1), "M8")
     torch.cuda.synchronize()
     assert (out[3] == 0).all() and not torch.signbit(out[3]).any()
+
+
+# ---------------------------------------------------------------------------
+# the projection's and the mixed-lane matmul's split decode tiles
+# (csrc/mp_matmul_hopper.cu)
+# ---------------------------------------------------------------------------
+def _split_tunes(mode, M, K, pl=False, nout=1):
+    """Every (dk, S) of a split decode tile within the card's shared
+    memory: S in 1, 2, 4, 8 as the tile runs them, dk in steps of KC up to
+    the ring's most and the rank's K range (S = 1: the single-block
+    tile)."""
+    from repro_torch.kernels import autotune as at
+
+    out, nch = [], -(-K // at.KC)
+    for S in sorted({at.split_norm(K, s) for s in (1, 2, 4, 8)}):
+        cpr = -(-nch // S)
+        kr = K if S == 1 else cpr * at.KC
+        for dk in range(at.KC, min(at.decode_ring_k(mode),
+                                   -(-kr // at.KC) * at.KC) + 1, at.KC):
+            need = (at.dec_smem_bytes(pl, resolve(mode).n_limbs, M, dk,
+                                      min(at.DEC_SLOTS, -(-K // dk)), nout)
+                    if S == 1 else at.split_smem(mode, M, kr, dk, cpr, pl,
+                                                 nout))
+            if need <= at.smem_limit():
+                out.append((dk, S))
+    return out
+
+
+@pytest.mark.parametrize("M,K,N", [(8, 768, 768), (4, 200, 72),
+                                   (16, 1000, 264)])
+@pytest.mark.parametrize("n_out,gate,bias,res", PROJ_EPILOGUES)
+@pytest.mark.parametrize("mode", ["M8", "M16", "M23", CUSTOM])
+def test_projection_split_tile_is_the_single_block_tile(
+        cuda, custom_format, mode, n_out, gate, bias, res, M, K, N):
+    """The projection's split decode tile: the plan's launch bitwise the
+    single-block tile (S = 1, fused_proj_decode_kernel as it was) and
+    every (dk, S) the card holds, every epilogue (bias, then silu(g) * u,
+    then the residual, after the cluster's join); the rows bitwise an M =
+    70 launch's (the TMA tile); without an epilogue each weight bitwise
+    the fused matmul."""
+    a70 = _randn(cuda, 70, K, seed=260)
+    ws = [_randn(cuda, K, N, seed=261 + t) for t in range(n_out)]
+    _underflow_row(a70, ws[0])
+    bs = [_randn(cuda, N, seed=270 + t) for t in range(n_out)] if bias \
+        else None
+    r70 = _randn(cuda, 70, N, seed=280) if res else None
+    a, r = a70[:M], (r70[:M] if res else None)
+    out, route = _routed(mp_matmul.mp_fused_proj, a, ws, mode, gate=gate,
+                         biases=bs, residual=r)
+    assert route == mp_matmul.SPLIT
+    full = mp_matmul.mp_fused_proj(a70, ws, mode, gate=gate, biases=bs,
+                                   residual=r70)
+    assert _bitwise(out, full[..., :M, :])
+    nout = 2 if gate != "none" else 1
+    for tune in _split_tunes(mode, M, K, nout=nout):
+        got = mp_matmul.mp_fused_proj(a, ws, mode, gate=gate, biases=bs,
+                                      residual=r, tune=tune)
+        assert _bitwise(got, out), tune
+    if gate == "none" and not bias and not res:
+        for t in range(n_out):
+            assert _bitwise(out[t], mp_matmul.mp_fused_matmul(a, ws[t],
+                                                              mode)), t
+
+
+@pytest.mark.parametrize("M,K,N,n_stored", [
+    (8, 768, 768, 3), (8, 3072, 768, 3), (4, 768, 3072, 3), (16, 448, 88, 2),
+    (8, 300, 77, 3), (1, 768, 768, 5)])
+@pytest.mark.parametrize("cycle", sorted(LANE_CYCLES))
+def test_mixed_split_tile_rows_are_the_homogeneous_rows(
+        cuda, custom_format, cycle, M, K, N, n_stored):
+    """The mixed-lane split decode tile (the envelope's planes by TMA; N =
+    77, whose planes no map reads, the single-block tile): each row
+    bitwise the pre-limbed row at its lane's format, the rows bitwise an M
+    = 70 launch's (the mma.sync tile), and every (dk, S) the card holds
+    bitwise the plan's launch (a cluster on planes no map reads is
+    refused)."""
+    fmts = [resolve(m) for m in (LANE_CYCLES[cycle] * 70)[:70]]
+    env = _envelope(fmts)
+    a70, w = _randn(cuda, 70, K, seed=290), _randn(cuda, K, N, seed=291)
+    _underflow_row(a70, w)
+    limbs = mp_matmul.mp_decompose(w, n_stored)
+    ln, lo = _lane_vectors(cuda, fmts)
+    full, route = _routed(mp_matmul.mp_mixed_prelimbed_matmul, a70, limbs,
+                          env, ln, lo)
+    assert route == mp_matmul.MMA
+    a, lnm, lom = a70[:M], ln[:M].contiguous(), lo[:M].contiguous()
+    out, route = _routed(mp_matmul.mp_mixed_prelimbed_matmul, a, limbs, env,
+                         lnm, lom)
+    assert route == mp_matmul.SPLIT and _bitwise(out, full[:M])
+    for f in set(fmts[:M]):
+        rows = [i for i, x in enumerate(fmts[:M]) if x == f]
+        homo = mp_matmul.mp_prelimbed_matmul(a[rows], limbs, f)
+        assert _bitwise(out[rows], homo), f.name
+    stream = torch.cuda.current_stream().cuda_stream
+    for dk, S in _split_tunes(env, M, K, pl=True):
+        if S > 1 and N % 8:
+            with pytest.raises(RuntimeError, match="CUDA error"):
+                mp_matmul.launch_mixed_routed(stream, a, limbs, env, lnm,
+                                              lom, (dk, S))
+            continue
+        got, _ = mp_matmul.launch_mixed_routed(stream, a, limbs, env, lnm,
+                                               lom, (dk, S))
+        assert _bitwise(got, out), (dk, S)
+
+
+@pytest.mark.parametrize("M", [4, 8])
+def test_minus_zero_and_subnormal_products_on_the_new_splits(
+        cuda, custom_format, M):
+    """compare_kernels.py's edge cases through the projection's and the
+    mixed-lane matmul's split tiles: bitwise their single-block tiles (S =
+    1) and the rows of a 70-row launch, the mixed rows bitwise the
+    pre-limbed rows at their lanes; a row of -0.0 products stays +0.0."""
+    neg = _randn(cuda, 70, 256, seed=250)
+    neg[3] = -0.0
+    pos = _randn(cuda, 256, 64, seed=251).abs() + 0.1
+    sub = _randn(cuda, 70, 16, seed=252)
+    sub[0] = 3.39e38 * torch.sign(sub[0])
+    sub[1, 3] = float("inf")
+    sub_b = _randn(cuda, 16, 8, seed=253)
+    sub_b[:, 4] = 1e-40
+    fmts = [resolve(m) for m in (["M8", "M16", "M23", CUSTOM] * 18)[:70]]
+    env = _envelope(fmts)
+    ln, lo = _lane_vectors(cuda, fmts)
+    for a, b, mode in ((neg, pos, "M8"), (sub, sub_b, "M16"),
+                       (sub, sub_b, "M23")):
+        ws = [b, b * 0.5]
+        for gate in ("none", "swiglu"):
+            out, route = _routed(mp_matmul.mp_fused_proj, a[:M], ws, mode,
+                                 gate=gate)
+            assert route == mp_matmul.SPLIT
+            one = mp_matmul.mp_fused_proj(a[:M], ws, mode, gate=gate,
+                                          tune=(0, 1))
+            full = mp_matmul.mp_fused_proj(a, ws, mode, gate=gate)
+            assert _bitwise(out, one) and _bitwise(out, full[..., :M, :])
+        limbs = mp_matmul.mp_decompose(b, 4)
+        out, route = _routed(mp_matmul.mp_mixed_prelimbed_matmul, a[:M],
+                             limbs, env, ln[:M].contiguous(),
+                             lo[:M].contiguous())
+        assert route == mp_matmul.SPLIT
+        full = mp_matmul.mp_mixed_prelimbed_matmul(a, limbs, env, ln, lo)
+        one, _ = mp_matmul.launch_mixed_routed(
+            torch.cuda.current_stream().cuda_stream, a[:M], limbs, env,
+            ln[:M].contiguous(), lo[:M].contiguous(), (0, 1))
+        assert _bitwise(out, full[:M]) and _bitwise(out, one)
+        for f in set(fmts[:M]):
+            rows = [i for i, x in enumerate(fmts[:M]) if x == f]
+            assert _bitwise(out[rows], mp_matmul.mp_prelimbed_matmul(
+                a[rows], limbs, f)), (mode, f.name)
+        if a is neg:
+            assert (out[3] == 0).all() and not torch.signbit(out[3]).any()
+            proj = mp_matmul.mp_fused_proj(a[:M], ws, mode)
+            assert (proj[:, 3] == 0).all() and \
+                not torch.signbit(proj[:, 3]).any()

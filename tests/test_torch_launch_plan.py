@@ -1,12 +1,14 @@
 """The launch side of the Hopper tiles (the fused matmul's, the
-projection's TMA tile, the pre-limbed split tile) and the autotuner,
+projection's TMA tile, the split tiles of the projection and of the
+pre-limbed and mixed-lane matmuls) and the autotuner,
 without a card: the sweep keeps the fastest of all configurations, the
 default launch among them (``repro.kernels.autotune.autotune`` keeps the
 fastest of its candidates, its default blocks among them); a default table
 entry reaches the launch entry as zeros with no other call into the
 library, a tuned one as the entry's arguments; the route each operand
-layout takes; and the Python mirrors of the decode plan (on f32 weights
-and on stored planes) and the TMA tile pinned at the serving shapes
+layout takes; and the Python mirrors of the decode plan (on f32 weights,
+one or more a block, and on stored planes) and the TMA tile pinned at the
+serving shapes
 (``tests/test_torch_gpu.py`` holds them equal to the numbers the library
 exports, on the card)."""
 import pytest
@@ -153,10 +155,17 @@ def test_tuned_parameters_travel_in_the_launch_arguments(fake_libs):
     ((name, args),) = fake_libs["mp_matmul_hopper"].calls
     assert name == "mp_hopper_matmul_launch" and args[-3:-1] == (128, 6)
     ws = [torch.ones((64, 32)) for _ in range(2)]
-    mm.launch_fused_proj(fake_libs["mp_matmul"], 0, torch.ones((8, 64)), ws,
-                         resolve("M8"), gate="swiglu", tune=(64, 0))
-    ((name, args),) = fake_libs["mp_matmul"].calls
-    assert name == "mp_fused_proj_launch" and args[-3:-1] == (64, 0)
+    mm.launch_proj_routed(0, torch.ones((8, 64)), ws, resolve("M8"),
+                          gate="swiglu", tune=(64, 2))
+    (_, (name, args)) = fake_libs["mp_matmul_hopper"].calls
+    assert name == "mp_hopper_proj_decode_launch" and args[-3:-1] == (64, 2)
+    mm.launch_mixed_routed(0, torch.ones((8, 64)),
+                           torch.zeros((2, 64, 32), dtype=torch.bfloat16),
+                           resolve("M23"), *_lanes(8), (128, 4))
+    (name, args) = fake_libs["mp_matmul_hopper"].calls[-1]
+    assert name == "mp_hopper_mixed_prelimbed_launch" and \
+        args[-3:-1] == (128, 4)
+    assert fake_libs["mp_matmul"].calls == []
 
 
 @pytest.mark.parametrize("transposed", [False, True])
@@ -207,14 +216,18 @@ def test_launch_params_and_the_thread_locals_are_gone():
 def test_reset_zeroes_the_route_counters():
     mm.mp_fused_matmul.routes[mm.TMA] += 3
     mm.mp_fused_matmul_partials.routes[mm.SPLIT] += 1
-    mm.mp_fused_proj.routes[mm.TMA] += 2
+    mm.mp_fused_proj.routes[mm.SPLIT] += 2
     mm.mp_prelimbed_matmul.routes[mm.SPLIT] += 5
+    mm.mp_mixed_prelimbed_matmul.routes[mm.SPLIT] += 7
+    mm.mp_mixed_prelimbed_matmul.routes[mm.MMA] += 1
     kernels.reset_launch_counts()
     assert kernels.route_counts() == {
         "mp_fused_matmul": dict.fromkeys(mm.ROUTES, 0),
         "mp_fused_proj": dict.fromkeys(mm.PROJ_ROUTES, 0),
         "mp_prelimbed_matmul": dict.fromkeys(mm.PRELIMBED_ROUTES, 0),
+        "mp_mixed_prelimbed_matmul": dict.fromkeys(mm.PRELIMBED_ROUTES, 0),
         "mp_fused_matmul_partials": dict.fromkeys(mm.ROUTES, 0)}
+    assert mm.PROJ_ROUTES == (mm.SPLIT, mm.TMA, mm.STRIDED)
 
 
 # ---------------------------------------------------------------------------
@@ -360,13 +373,15 @@ def _misaligned(rows, cols):
     ("N % 4 != 0", mm.STRIDED, "mp_fused_proj_launch"),
     ("K % 4 != 0", mm.STRIDED, "mp_fused_proj_launch"),
     ("misaligned base", mm.STRIDED, "mp_fused_proj_launch"),
-    ("M <= 16", mm.DECODE, "mp_fused_proj_launch"),
-    ("M <= 16, gated", mm.DECODE, "mp_fused_proj_launch"),
+    ("M <= 16", mm.SPLIT, "mp_hopper_proj_decode_launch"),
+    ("M <= 16, gated", mm.SPLIT, "mp_hopper_proj_decode_launch"),
+    ("M <= 16, rows off 16 bytes", mm.SPLIT, "mp_hopper_proj_decode_launch"),
 ])
 def test_projection_routes_by_layout(fake_libs, case, want, entry):
     """The projection's TMA tile takes the operands a tensor map reads;
     rows off 16 bytes or a misaligned base keep the strided tile; M <= 16
-    its decode tile.  One call into one library."""
+    the split decode tile (its cp.async copies take any layout) whatever
+    the layout.  One call into one library."""
     r = torch.ones
     a, ws, gate = {
         "contiguous": (r(64, 96), [r(96, 32)] * 3, "none"),
@@ -376,11 +391,11 @@ def test_projection_routes_by_layout(fake_libs, case, want, entry):
         "misaligned base": (_misaligned(64, 96), [r(96, 32)] * 3, "none"),
         "M <= 16": (r(8, 96), [r(96, 32)] * 3, "none"),
         "M <= 16, gated": (r(16, 96), [r(96, 32)] * 2, "swiglu"),
+        "M <= 16, rows off 16 bytes": (r(8, 94), [r(94, 30)] * 3, "none"),
     }[case]
     out, route = mm.launch_proj_routed(0, a, ws, resolve("M8"), gate=gate)
     assert route == want
-    assert out.shape == ((a.shape[0], 32 if "N" not in case else 30)
-                         if gate != "none" else
+    assert out.shape == ((a.shape[0], 32) if gate != "none" else
                          (len(ws), a.shape[0], ws[0].shape[1]))
     calls = [n for lib in fake_libs.values() for n, _ in lib.calls]
     assert calls == [entry]
@@ -399,9 +414,11 @@ def test_the_projections_tma_tile_takes_no_parameter(fake_libs):
     assert name == "mp_hopper_proj_launch" and len(args) == 20
     mm.launch_proj_routed(0, a, [torch.ones((96, 30))] * 3, resolve("M8"),
                           tune=(0, 16))
-    mm.launch_proj_routed(0, a[:8], ws, resolve("M8"), tune=(128, 0))
-    tuned = [args[-3:-1] for _, args in fake_libs["mp_matmul"].calls]
-    assert tuned == [(0, 16), (128, 0)]
+    mm.launch_proj_routed(0, a[:8], ws, resolve("M8"), tune=(128, 4))
+    assert [args[-3:-1] for _, args in fake_libs["mp_matmul"].calls] == \
+        [(0, 16)]
+    (name, args) = fake_libs["mp_matmul_hopper"].calls[-1]
+    assert name == "mp_hopper_proj_decode_launch" and args[-3:-1] == (128, 4)
     # the autotuner offers the TMA shapes nothing, the strided ones E
     assert at.candidate_blocks(2048, 768, 768, "M8", n_out=3,
                                smem=at.SMEM_MAX) == []
@@ -437,6 +454,63 @@ def test_prelimbed_routes_by_rows(fake_libs, M, want, entry):
                                    resolve("M8"), (64, 2))
 
 
+def _lanes(M, modes=("M8", "M16", "M23", "M16FULL")):
+    """(M,) int32 lanes of rows at ``modes`` in turn."""
+    from repro_torch.core.formats import register_format
+
+    register_format("M16FULL", mantissa_bits=16, n_limbs=2, max_order=2)
+    fmts = [resolve(m) for m in (list(modes) * M)[:M]]
+    return (torch.tensor([f.n_limbs for f in fmts], dtype=torch.int32),
+            torch.tensor([f.max_order for f in fmts], dtype=torch.int32))
+
+
+@pytest.mark.parametrize("M,want,entry", [
+    (1, mm.SPLIT, "mp_hopper_mixed_prelimbed_launch"),
+    (4, mm.SPLIT, "mp_hopper_mixed_prelimbed_launch"),
+    (16, mm.SPLIT, "mp_hopper_mixed_prelimbed_launch"),
+    (17, mm.MMA, "mp_mixed_prelimbed_matmul_launch"),
+    (70, mm.MMA, "mp_mixed_prelimbed_matmul_launch"),
+])
+def test_mixed_routes_by_rows(fake_libs, M, want, entry):
+    """The mixed-lane matmul takes the pre-limbed matmul's routes: the
+    split decode tile at M <= 16 (the lanes in the arguments, the plan's
+    launch as zeros), the mma.sync tile above; the wrapper counts each
+    launch on its route."""
+    limbs = torch.zeros((3, 96, 40), dtype=torch.bfloat16)
+    ln, lo = _lanes(M)
+    a = torch.ones((M, 96))
+    out, route = mm.launch_mixed_routed(0, a, limbs, resolve("M23"), ln, lo)
+    assert route == want == mm.prelimbed_route(a) and out.shape == (M, 40)
+    ((name, args),) = [c for lib in fake_libs.values() for c in lib.calls]
+    assert name == entry
+    assert args[6:8] == (ln.data_ptr(), lo.data_ptr())
+    if want == mm.SPLIT:
+        assert args[-3:-1] == (0, 0) and args[-5:-3] == (3, 2)
+    with pytest.raises(ValueError, match="takes no launch parameters"):
+        mm.launch_mixed_routed(0, torch.ones((70, 96)), limbs,
+                               resolve("M23"), *_lanes(70), (64, 2))
+    with pytest.raises(ValueError, match="lanes must be"):
+        mm.launch_mixed_routed(0, a, limbs, resolve("M23"), ln[:-1] if M > 1
+                               else ln.long(), lo)
+
+
+def test_the_mixed_wrapper_counts_its_routes(fake_libs, monkeypatch):
+    """On CUDA tensors the wrapper launches by the route and counts it
+    (the fake libraries stand in for the card: the stream and the device
+    check are bypassed)."""
+    monkeypatch.setattr(mm, "_on_cpu", lambda *t: False)
+    monkeypatch.setattr(mm, "_cuda_stream", lambda *t: 0)
+    kernels.reset_launch_counts()
+    limbs = torch.zeros((3, 96, 40), dtype=torch.bfloat16)
+    for M in (8, 8, 70):
+        mm.mp_mixed_prelimbed_matmul(torch.ones((M, 96)), limbs, "M23",
+                                     *_lanes(M))
+    assert kernels.route_counts()["mp_mixed_prelimbed_matmul"] == {
+        mm.SPLIT: 2, mm.MMA: 1}
+    assert kernels.launch_counts()["mp_mixed_prelimbed_matmul"] == 3
+    kernels.reset_launch_counts()
+
+
 @pytest.mark.parametrize("slabs,K,mode,want", [
     (48, 3072, "M8", (8, 256)),    # w_down: 384 blocks, 2 stages a rank
     (48, 3072, "M16", (8, 128)),
@@ -459,6 +533,82 @@ def test_split_plan_on_stored_planes(slabs, K, mode, want):
         per_sm = min(at.H100_SM_SMEM // (smem + 1024), at.split_per_sm(True))
         assert S * slabs <= per_sm * at.H100_SMS
     assert at.split_per_sm(True) == 8 and at.split_per_sm(False) == 5
+
+
+@pytest.mark.parametrize("slabs,K,mode,nout,want", [
+    (3 * 48, 768, "M8", 1, (4, 192)),   # QKV 8x768, one weight a block:
+                                        # 576 blocks of 3 chunks
+    (48, 768, "M8", 3, (6, 128)),       # QKV's three weights a block
+    (192, 768, "M8", 2, (1, 0)),        # SwiGLU 8x768 vs 2x768x3072: at
+                                        # S = 2 a rank's 64-k stages are
+                                        # as many as one block's 128-k
+    (48, 768, "M8", 1, (6, 128)),       # one weight with its residual
+    (3 * 48, 768, "M16", 1, (4, 64)),
+    (192, 768, "M16", 2, (1, 0)),
+    (3 * 48, 768, "M23", 1, (3, 64)),
+])
+def test_split_plan_with_weights_a_block(slabs, K, mode, nout, want):
+    """The projection's plan reckons nout weights' f32 rings, limb planes
+    and chunk sums a block, and every slab of every block of weights
+    (grid.y); on f32 weights a rank runs fewer stages than one block
+    would."""
+    assert at.split_plan(slabs, K, mode, nout=nout) == want
+    S, dk = want
+    if S == 1:
+        return
+    cpr = -(-(-(-K // at.KC)) // S)
+    smem = at.split_smem(mode, 8, cpr * at.KC, dk, cpr, nout=nout)
+    per_sm = min(at.H100_SM_SMEM // (smem + 1024), at.split_per_sm())
+    assert S * slabs <= per_sm * at.H100_SMS
+    assert smem == at.split_smem(mode, 8, cpr * at.KC, dk, cpr) + (
+        at.dec_smem_bytes(False, resolve(mode).n_limbs, 8, dk,
+                          min(3, -(-cpr * at.KC // dk)), nout)
+        - at.dec_smem_bytes(False, resolve(mode).n_limbs, 8, dk,
+                            min(3, -(-cpr * at.KC // dk)), 1)
+        + (nout - 1) * cpr * resolve(mode).n_orders * 1024)
+
+
+@pytest.mark.parametrize("slabs,K,want", [
+    (48, 768, (6, 128)),      # wq / wk / wv / wo under envelope (3, 2)
+    (192, 768, (3, 64)),      # w_gate / w_up
+    (48, 3072, (8, 64)),      # w_down
+    (2000, 768, (1, 0)),      # lm_head: the slabs fill the card
+])
+def test_split_plan_on_the_envelopes_planes(slabs, K, want):
+    """The mixed tick's shapes: the envelope (3, 2) of M8 / M16 / M23 /
+    M16FULL rows reads three stored planes (M23's instantiation), its
+    chunk sums three orders a chunk."""
+    env = "M23"
+    assert at.split_plan(slabs, K, env, pl=True) == want
+
+
+@pytest.mark.parametrize("regs,per_sm", [(40, 5), (64, 5), (65, 4), (72, 4),
+                                         (96, 3), (128, 2), (255, 1)])
+def test_the_plan_takes_the_kernels_registers(regs, per_sm):
+    """Blocks an SM holds by registers: at least 64 a thread, allocated in
+    steps of 8; more registers than 64 lower the plan's S (QKV: at 3
+    blocks an SM, S = 2 would need 128-k stages, three a rank, as many as
+    one block's 256-k ones: no split)."""
+    assert at.split_per_sm(False, regs) == per_sm
+    assert at.split_per_sm(True, regs) == 65536 // (128 * max(
+        64, -(-regs // 8) * 8))
+    assert at.split_plan(144, 768, "M8", regs=regs) == (
+        (4, 192) if per_sm == 5 else (3, 256) if per_sm == 4 else (1, 0))
+
+
+@pytest.mark.parametrize("K,blocks,mode,nout,pl,want", [
+    (768, 144, "M8", 1, False, 256),   # QKV, one weight a block: 2 an SM
+    (768, 192, "M8", 2, False, 128),   # SwiGLU: two weights' rings
+    (768, 144, "M23", 1, False, 128),
+    (768, 48, "M23", 1, False, 256),   # fewer blocks than SMs
+    (192, 10, "M8", 1, False, 192),    # K under the ring: one stage
+    (768, 192, "M23", 1, True, 128),   # the mixed tick's w_gate planes
+])
+def test_the_single_blocks_stage(K, blocks, mode, nout, pl, want):
+    """``dec_stage_k``: the ring's most, halved until two blocks share an
+    SM where the grid has more blocks than the card's SMs (the plan's
+    yardstick: a split on f32 weights runs fewer stages a rank)."""
+    assert at.dec_stage_k(mode, 8, K, nout, blocks, pl) == want
 
 
 def test_split_shared_memory_on_stored_planes():
