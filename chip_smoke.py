@@ -38,9 +38,11 @@ line is not printed):
    quickstart's surface): every built-in format and a run-time M30 on f32
    operands at the model's prefill shapes, M36 / M52 on two-float (DD)
    operands at the same shapes and M52 once at the ``lm_head`` shape, AUTO
-   on integer and on float data; launch counts and host reads exact; the
-   both-prelimbed kernel against its plain version, bitwise the fused
-   kernel on limb stacks cut from f32 operands, the DD results below
+   on integer and on float data; launch counts and host reads exact, the
+   five DD launches on the both-prelimbed TMA tile (5 ``tma`` + 0
+   ``mma``); the both-prelimbed kernel against its plain version (a ragged
+   200x333x77 DD stack no tensor map reads on ``mma`` too), bitwise the
+   fused kernel on limb stacks cut from f32 operands, the DD results below
    ``8 * 2^-24 * sqrt(K)`` of the float64 golden, AUTO on integers M8 and
    exact;
 4. the static path: ``ServeEngine.generate`` of the full-width
@@ -4526,17 +4528,27 @@ def main() -> int:
     torch.cuda.synchronize()
     modes_s = time.perf_counter() - t0
     md_launches = kernels.launch_counts()
+    md_routes = kernels.route_counts()
     md_reads = auto_lib.mp_matmul_auto.host_reads
     n_f32 = sum(kind == "f32" for _, _, kind in runs)
     md_want = {**dict.fromkeys(kernels.KERNELS, 0),
                "mp_fused_matmul": n_f32 + 2,
                "mp_both_prelimbed_matmul": len(runs) - n_f32}
+    # every DD launch (built-in formats, stacks a tensor map reads) on the
+    # both-prelimbed matmul's TMA tile
+    md_want_both = {"tma": len(runs) - n_f32, "mma": 0}
     log(f"[modes] {len(runs)} facade calls + 2 AUTO in {modes_s:.3f} s: "
-        f"launches {md_launches}, AUTO host reads {md_reads}")
+        f"launches {md_launches}, AUTO host reads {md_reads}; the "
+        f"both-prelimbed matmul's routes "
+        f"{md_routes['mp_both_prelimbed_matmul']}")
     if (md_launches != md_want or md_reads != 2
+            or md_routes["mp_both_prelimbed_matmul"] != md_want_both
             or any(kernels.plain_call_counts().values())):
         raise AssertionError(f"[modes] launches {md_launches} != {md_want} "
-                             f"or host reads {md_reads} != 2")
+                             f"or host reads {md_reads} != 2 or the "
+                             f"both-prelimbed routes "
+                             f"{md_routes['mp_both_prelimbed_matmul']} != "
+                             f"{md_want_both}")
     modes_rel = {}
     for (k, f, kind), out in mode_out.items():
         a64, b64 = m64[k]
@@ -4562,20 +4574,26 @@ def main() -> int:
                                  f"the format {r}")
 
     def both_case(label, al, bl, fmt, out=None, bitwise=None, timed=False,
-                  main=False, gold=None):
+                  main=False, gold=None, route=None):
         """The both-prelimbed kernel's result ``out`` on the stacks (al, bl)
         (launched here when None) against its plain version; ``bitwise``:
         the fused kernel's result it must equal bit for bit; ``timed``: a
         case of the ``[time]`` lines; ``gold``: its error against the
-        float64 golden and the bound (held in ``[modes]``) for that line."""
+        float64 golden and the bound (held in ``[modes]``) for that line;
+        ``route``: the route the stacks must take."""
         fmt = resolve(fmt)
+        got = mp_matmul.both_route(al, bl, fmt)
+        if route is not None and got != route:
+            raise AssertionError(f"mp_both_prelimbed_matmul {label} routes "
+                                 f"to {got}, not {route}")
         if out is None:
             out = mp_matmul.mp_both_prelimbed_matmul(al, bl, fmt)
         ref = mp_matmul.both_prelimbed_matmul_plain(al, bl, fmt)
         torch.cuda.synchronize()
         K = al.shape[-1]
         hold("mp_both_prelimbed_matmul", label, out, ref, mm_tol(ref, K),
-             {"fmt": fmt.name, "stored": [al.shape[0], bl.shape[0]]})
+             {"fmt": fmt.name, "stored": [al.shape[0], bl.shape[0]],
+              "route": got})
         if bitwise is not None:
             if not torch.equal(out.view(torch.int32),
                                bitwise.view(torch.int32)):
@@ -4592,7 +4610,7 @@ def main() -> int:
                        * K * N) + 4 * M * N)
         cases["mp_both_prelimbed_matmul"].append(dict(
             case=label, fmt=fmt.name, a=[M, K], b=[K, N], ops=ops,
-            bytes=nbytes, main=main, per=None, **(gold or {}),
+            bytes=nbytes, main=main, per=None, route=got, **(gold or {}),
             fn=lambda: mp_matmul.mp_both_prelimbed_matmul(al, bl, fmt),
             plain=lambda: mp_matmul.both_prelimbed_matmul_plain(al, bl, fmt),
             library=None))
@@ -4609,7 +4627,8 @@ def main() -> int:
         both_case(f"DD {k} {f}", al, bl, f, out=out, main=main,
                   timed=main or (k.startswith("w_down") and f == "M36"),
                   gold=dict(gold_rel=modes_rel[f"{k} {f} {kind}"],
-                            gold_bound=8 * U32 * math.sqrt(K)))
+                            gold_bound=8 * U32 * math.sqrt(K)),
+                  route=mp_matmul.TMA)
     # on stacks cut from f32 operands: bitwise the fused kernel's result
     a32, b32 = mf32["w_up 2048x768x3072"]
     for f in f32_fmts:
@@ -4622,6 +4641,13 @@ def main() -> int:
     both_case("ragged 37x300x77 M52 from 3 and 7 stored",
               mp_matmul.mp_decompose(ra, 3), mp_matmul.mp_decompose(rb, 7),
               "M52")
+    # a DD stack no tensor map reads (A's rows of 666 bytes): the mma.sync
+    # tile, held against the plain version on every run
+    rag = [limbs_lib.dd_from_f64(mrng.standard_normal(sh))
+           for sh in ((200, 333), (333, 77))]
+    both_case("DD ragged 200x333x77 M52 (rows no tensor map reads)",
+              *(limbs_lib.decompose_dd(x, 7) for x in rag), "M52",
+              route=mp_matmul.MMA)
     # AUTO: M8 on integers with an exact product; the float data's choice
     int_gold = ia.double() @ ib.double()
     rep_int = mp.auto_report(ia, ib)
@@ -4640,6 +4666,7 @@ def main() -> int:
                              "format's result")
     report["modes"] = dict(
         seconds=modes_s, launches=md_launches, host_reads=md_reads,
+        routes=md_routes,
         rel_vs_f64=modes_rel, auto_int=rep_int["selected_format"],
         auto_float=float_fmt, auto_int_exact=exact)
     del mode_out, mf32, mdd, auto_int, auto_float, int_gold
@@ -5519,6 +5546,7 @@ def main() -> int:
         routes = {"generate": report["main"]["routes"],
                   "scheduler": report["sched"]["routes"],
                   "mixed": report["mixed"]["routes"],
+                  "modes": report["modes"]["routes"],
                   "dist": report["dist"]["generate"]["routes"]}.get(
                       path, {}).get(kname)
         if routes:     # the files of the routes that ran

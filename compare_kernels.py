@@ -23,7 +23,8 @@ bf16 operands with f32 out (M8's function; the projection's on its
 weights concatenated along N, SwiGLU's the product only).  An older
 version without the split projection or mixed-lane entries of
 ``mp_matmul_hopper.cu`` runs those decode shapes on its ``mp_matmul.cu``.
-With no other version, this tree's cases alone.
+With no other version, this tree's cases alone; ``--match TEXT`` keeps
+the cases whose label holds TEXT.
 
     python3 compare_kernels.py PARENT/src/repro_torch/kernels/csrc/mp_matmul.cu
 
@@ -76,8 +77,14 @@ def matmul_cases(torch, randn):
     tests/test_torch_gpu.py::test_subnormal_products_are_kept (an f32 and
     bf16 subnormal column, rows of +-3.39e38 and an inf), each at a
     prefill and a decode row count, through the fused matmul, the
-    projection (70, 8 and 4 rows), the pre-limbed matmul (8 and 4 rows)
-    and the mixed-lane matmul (70, 8 and 4 rows, the four lanes in turn).
+    projection (70, 8 and 4 rows), the pre-limbed matmul (8 and 4 rows),
+    the mixed-lane matmul (70, 8 and 4 rows, the four lanes in turn) and
+    the both-prelimbed matmul (70 and 8 rows, M16 and M52); and the
+    both-prelimbed matmul on DD stacks (``decompose_dd`` of seeded float64
+    data) at chip_smoke.py's five [modes] shapes and at two decode shapes
+    (8 rows), and on ``mp_decompose``'d f32 stacks at lm_head M52.  A
+    design of the both-prelimbed tile other than the tree's is timed as
+    another version: a copy of the sources with that design in place.
     Returns {label: (run, spec or None)}; ``run(version, stream)``
     launches on a :class:`Version`; ``spec`` describes the case for
     :func:`matmul_extras`."""
@@ -145,6 +152,31 @@ def matmul_cases(torch, randn):
                 v.libs["mp_matmul"], st, a, limbs, env, ln, lo)
         return run, dict(kind="mixed", a=a, limbs=limbs, fmt=env, fmts=fmts,
                          lanes=(ln, lo))
+
+    def both(al, bl, fmt):
+        """The both-prelimbed matmul on the stacks (al, bl) by its route.  A
+        version without mp_hopper_both_prelimbed_launch runs its
+        mp_matmul.cu."""
+        def run(v, st):
+            if v.has("mp_hopper_both_prelimbed_launch"):
+                return mm.launch_both_routed(st, al, bl, f(fmt),
+                                             libs=v.libs)[0]
+            return mm.launch_both_prelimbed_matmul(v.libs["mp_matmul"], st,
+                                                   al, bl, f(fmt))
+        return run, dict(kind="both", a=al[0], al=al, bl=bl, fmt=f(fmt))
+
+    def dd(M, K, N, fmt, seed=1):
+        """Stacks of decompose_dd at the format's limbs of a seeded float64
+        (M, K) @ (K, N) pair, as the [modes] phase makes its DD operands."""
+        import numpy as np
+
+        from repro_torch.core import limbs as limbs_lib
+
+        rng = np.random.default_rng(seed)
+        n = f(fmt).n_limbs
+        return tuple(limbs_lib.decompose_dd(limbs_lib.dd_from_f64(
+            rng.standard_normal(shape), device=x.device), n)
+            for shape in ((M, K), (K, N)))
 
     spec = dict(CUSTOM)
     register_format(spec.pop("name"), **spec)
@@ -256,9 +288,23 @@ def matmul_cases(torch, randn):
         "row of -0.0 products, mixed 70x256x64": mixed(neg, pos, MODES),
         "subnormal products, mixed 8x16x8": mixed(sub[:8], sub_b, MODES),
         "subnormal products, mixed 4x16x8": mixed(sub[:4], sub_b, MODES),
-        "DD lm_head 2048x768x32000 M52": (lambda v, st: (
-            mm.launch_both_prelimbed_matmul(v.libs["mp_matmul"], st, xa7,
-                                            wl7, f("M52"))), None),
+        "DD lm_head 2048x768x32000 M52 on mp_decompose'd f32": both(
+            xa7, wl7, "M52"),
+        **{f"DD {k} {M}x{K}x{N} {fmt} on decompose_dd": both(
+            *dd(M, K, N, fmt), fmt)
+           for k, (M, K, N), fmts in (
+               ("w_up", (2048, 768, 3072), ("M36", "M52")),
+               ("w_down", (2048, 3072, 768), ("M36", "M52")),
+               ("lm_head", (2048, 768, 32000), ("M52",)),
+               ("decode w_up", (8, 768, 3072), ("M52",)),
+               ("decode w_down", (8, 3072, 768), ("M36",)))
+           for fmt in fmts},
+        **{f"{what}, both-prelimbed {M}x{a.shape[1]}x{b.shape[1]} {fmt}":
+           both(mm.mp_decompose(a[:M], f(fmt).n_limbs),
+                mm.mp_decompose(b, f(fmt).n_limbs), fmt)
+           for what, a, b in (("row of -0.0 products", neg, pos),
+                              ("subnormal products", sub, sub_b))
+           for M in (70, 8) for fmt in ("M16", "M52")},
     }
 
 
@@ -317,6 +363,27 @@ def matmul_extras(torch, spec) -> str:
                            + 2 * min(limbs.shape[0], fmt.n_limbs) * K * N)
         plain_ms = device_ms(lambda: mm.mixed_prelimbed_matmul_plain(
             a, limbs, fmt, ln, lo))[0]
+    elif kind == "both":
+        # the planes the format reads, once each, and C; the yardstick: one
+        # torch.mm of plane 0 by plane 0 (bf16, f32 out) times the format's
+        # products, the library's rate for the same bf16 products without
+        # the per-order adds or the combine
+        al, bl = spec["al"], spec["bl"]
+        route = mm.both_route(al, bl, fmt) if hasattr(mm, "both_route") \
+            else "mma"
+        N = bl.shape[-1]
+        b_ms, b_by = bound(2 * M * K * N * fmt.n_products,
+                           2 * (min(al.shape[0], fmt.n_limbs) * M * K
+                                + min(bl.shape[0], fmt.n_limbs) * K * N)
+                           + 4 * M * N)
+        plain_ms = device_ms(lambda: mm.both_prelimbed_matmul_plain(
+            al, bl, fmt))[0]
+        one_ms = device_ms(lambda: torch.mm(al[0], bl[0],
+                                            out_dtype=torch.float32))[0]
+        return (f"; {route} route, bound {b_ms:.4f} ms ({b_by}), "
+                f"plain {plain_ms:.4f} ms, products only (torch.mm bf16, "
+                f"f32 out) x{fmt.n_products} {one_ms * fmt.n_products:.4f} "
+                f"ms")
     else:
         limbs = spec["limbs"]
         route = mm.prelimbed_route(a)
@@ -432,6 +499,9 @@ def main(argv) -> int:
                         help="other versions of csrc/<source>.cu (for "
                         "mp_matmul: with mp_matmul_hopper.cu beside it, "
                         "where it has one); none: this tree's alone")
+    parser.add_argument("--match", action="append", default=[],
+                        help="run only the cases whose label holds this "
+                        "text (repeatable: any of them)")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("compare_kernels: no CUDA device", file=sys.stderr)
@@ -492,6 +562,9 @@ def main(argv) -> int:
 
     cases = (matmul_cases if args.source == "mp_matmul"
              else attention_cases)(torch, randn)
+    if args.match:
+        cases = {k: v for k, v in cases.items()
+                 if any(m in k for m in args.match)}
     stream = torch.cuda.current_stream().cuda_stream
     differ = 0
     for case, fn in cases.items():

@@ -3,8 +3,8 @@ each with its plain PyTorch version and two counters: ``launches`` (kernel
 launches, counted where the kernel is launched and nowhere else) and
 ``plain_calls`` (calls on CPU tensors, which run the plain version); the
 fused matmul and its partials epilogue, the fused projection and the
-pre-limbed and mixed-lane matmuls also count their launches per route
-(``routes``).  Beside
+pre-limbed, mixed-lane and both-prelimbed matmuls also count their launches
+per route (``routes``).  Beside
 them, ``core.auto.mp_matmul_auto.host_reads`` counts the AUTO controller's
 reads of its selected format back to the host."""
 from repro_torch.kernels.mp_attention import mp_flash_attention, \
@@ -49,7 +49,7 @@ def route_counts() -> dict:
     """Launches per route of the wrappers with more than one (the fused
     matmul and its partials epilogue: ``mp_matmul.ROUTES``; the fused
     projection: ``PROJ_ROUTES``; the pre-limbed and mixed-lane matmuls:
-    ``PRELIMBED_ROUTES``)."""
+    ``PRELIMBED_ROUTES``; the both-prelimbed matmul: ``BOTH_ROUTES``)."""
     return {name: dict(fn.routes) for name, fn in KERNELS.items()
             if hasattr(fn, "routes")}
 

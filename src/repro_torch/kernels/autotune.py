@@ -306,6 +306,35 @@ def tma_smem(fmt: FormatLike, nout: int = 1) -> int:
     return three if three <= SMEM_MAX else three - stage
 
 
+def both_tile(fmt: FormatLike) -> Optional[dict]:
+    """``mp_both_tile``: the both-prelimbed TMA tile's pins at a built-in
+    format, None for a run-time format (which keeps the mma.sync tile).
+    Rows, columns, ring stages (as many 4-at-most as fit), dynamic shared
+    memory (the swizzle's slack, the ring, the mbarriers) and each consumer
+    warpgroup's orders.  M36 and M52 split their orders, which fill two
+    warpgroups, over 64 rows: warpgroup 1 takes M52's {3, 4, 5} (15
+    products) and warpgroup 0 {0, 1, 2, 6} (13), M36's {2, 3} (7) and {0,
+    1, 4} (8).  The others split rows: each warpgroup 64 rows and every
+    order."""
+    fmt = resolve(fmt)
+    nl, no = fmt.n_limbs, fmt.n_orders
+    if (nl, fmt.max_order) not in BUILTIN:
+        return None
+    os_ = no in (5, 7)
+    bm = 64 if os_ else 128
+    bn = 48 if no == 7 else 128 if no == 1 else 64
+    stage = nl * (bm * KC * 2 + -(-bn // 64) * 64 * KC * 2)
+    stages = min(4, (SMEM_MAX - HALIGN - 64) // stage)
+    if os_:
+        lo, hi = (3, 5) if no == 7 else (2, 3)
+        orders = [[o for o in range(no) if not lo <= o <= hi],
+                  list(range(lo, hi + 1))]
+    else:
+        orders = [list(range(no))] * 2
+    return dict(bm=bm, bn=bn, stages=stages,
+                smem=HALIGN + stages * stage + 64, orders=orders)
+
+
 def split_norm(K: int, s: int) -> int:
     """``split_norm``: cluster size s as the split tile runs it, every rank
     at least one chunk (S = ceil(chunks / ceil(chunks / s)))."""

@@ -44,7 +44,11 @@
 //                                                      both as stored bf16
 //                                                      limb planes: two-float
 //                                                      DD operands, modes 5
-//                                                      and 6)
+//                                                      and 6; the run-time
+//                                                      formats and the planes
+//                                                      no tensor map reads;
+//                                                      the TMA tile is in
+//                                                      mp_matmul_hopper.cu)
 //
 // What they compute: C = sum over the format's kept limb pairs (i, j) of
 // A_i * B_j, where X_i is the i-th bf16 limb of the f32 operand (the
@@ -98,10 +102,11 @@
 // are read once per k16 step.  What is left bounds them: the limbing and
 // the copies' instructions on the CUDA cores, the fragment reads from
 // shared memory, and the rate of mma.sync.  The operands a tensor map
-// reads take the wgmma and TMA tile of mp_matmul_hopper.cu instead, the
-// fused matmul's and the projection's; this tile keeps their strided
-// operands and the prefill shapes of the pre-limbed, mixed-lane and
-// both-prelimbed kernels.
+// reads take the wgmma and TMA tiles of mp_matmul_hopper.cu instead, the
+// fused matmul's, the projection's and the both-prelimbed matmul's; this
+// tile keeps their strided operands (the both-prelimbed matmul's: planes
+// no tensor map reads, and its run-time formats at any layout) and the
+// prefill shapes of the pre-limbed and mixed-lane kernels.
 //
 // The decode shapes (M <= 16 rows) of every limb matmul take the decode
 // tile (decode_tile, in mp_matmul_common.cuh), split over a cluster in
@@ -706,7 +711,9 @@ struct BothPrelimbedArgs {
 // and _combine_orders flush as fused_matmul_kernel, so on planes decomposed
 // from f32 operands it returns fused_matmul_kernel's result on them, bit for
 // bit.  Bound at the prefill shapes by its limb products (28 for M52): the
-// fragment reads from shared memory and the MMAs.
+// fragment reads from shared memory and the MMAs.  The built-in formats'
+// planes a tensor map reads take both_tma_kernel of mp_matmul_hopper.cu
+// (the same bits); this tile keeps the rest, at every M.
 template <int NL, int NO, bool GEN>
 __global__ void __launch_bounds__(NT)
     both_prelimbed_matmul_kernel(BothPrelimbedArgs p) {

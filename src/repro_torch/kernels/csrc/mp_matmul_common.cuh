@@ -154,9 +154,18 @@ __device__ __forceinline__ void mbar_wait(const uint64_t* bar, int parity) {
   }
 }
 
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
-                   smem_addr(bar)));
+// a barrier whose phase completes after n arrivals
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int n = 1) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(n));
+}
+
+// one arrival on bar
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
 }
 
 // the phase of bar completes when ``bytes`` have landed (one arrival)

@@ -2,9 +2,11 @@
 // matmul's two tiles, which replace _fused_kernel
 // (src/repro/kernels/mp_matmul.py:76) beside fused_matmul_kernel of
 // mp_matmul.cu; the fused projection's two tiles, which replace
-// _fused_multi_kernel (:227) beside fused_proj_kernel; and the decode tiles
+// _fused_multi_kernel (:227) beside fused_proj_kernel; the decode tiles
 // of the pre-limbed and mixed-lane matmuls, which replace _prelimbed_kernel
-// (:108) and _mixed_prelimbed_kernel (:137) at M <= DEC_M.  Each keeps
+// (:108) and _mixed_prelimbed_kernel (:137) at M <= DEC_M; and the
+// both-prelimbed matmul's tile, which replaces _both_prelimbed_kernel
+// (:182) beside both_prelimbed_matmul_kernel.  Each keeps
 // the order of sums of mp_matmul.cu bit for bit (its header: K in chunks
 // of KC from k = 0, one chain of KC / 16 tensor-core k16 steps per chunk
 // and kept product from +0.0, the order's terms summed by IEEE f32 adds in
@@ -26,7 +28,11 @@
 //     S = 1, or planes no map reads, prelimbed_matmul_decode_kernel and
 //     mixed_prelimbed_matmul_decode_kernel); mp_matmul.cu's
 //     prelimbed_matmul_kernel and mixed_prelimbed_matmul_kernel above
-//     (mma).
+//     (mma);
+//   the both-prelimbed matmul: both_tma_kernel (tma: a built-in format
+//     whose stored planes a tensor map reads, any M); mp_matmul.cu's
+//     both_prelimbed_matmul_kernel the rest (mma: the run-time formats,
+//     rows or plane strides off 16 bytes, a misaligned base).
 //
 // tma_matmul_kernel, the prefill tile (M > DEC_M) of the operands a TMA
 // tensor map can describe (unit column stride, 16-byte aligned bases and
@@ -133,9 +139,51 @@
 //   0.0321 against 0.0043, QKV M8 0.0098 against 0.0021; the f32 weight's
 //   B stream is still cp.async.
 //
+// both_tma_kernel, the both-prelimbed matmul (two-float operands at M36
+// and M52: 15 and 28 products a chunk) on stored planes.
+//   Bound: its limb products at the tensor cores' rate (2.85 ms at lm_head
+//   2048 x 768 x 32000 M52), and the planes' trips from L2: each A plane
+//   block crosses once per column tile, each B plane block once per row
+//   tile.  Registers set the tile: each output carries one accumulator per
+//   order it holds, the order's running sum and a chain.
+//   Design: no f32 stage and no limbing.  The producer warpgroup's first
+//   thread keeps TMA loads of the stored planes in flight (A K-major in
+//   boxes of 64 k x the tile's rows, B N-major in boxes of 64 columns x 64
+//   k, both in the 128-byte swizzle wgmma reads, with the transpose bit for
+//   B) through a ring of full and empty mbarriers; TMA zero-fills past M,
+//   N and K, the contract's zero-filled chunk edge; planes past a stack's
+//   stored count are zeroed once and their products run.  Two consumer
+//   warpgroups run one chain of four wgmma k16 steps per kept product, the
+//   first at scale-d 0 (d = A @ B: no zeroing, which ran lm_head M52 at
+//   6.86 ms against 4.81), wgmma.wait_group, then the CUDA-core adds; one
+//   warpgroup's adds overlap the other's chains.  A chain gives the
+//   mma.sync chain's bits but for the sign of a zero sum, which no later
+//   add keeps.  Every thread has the 168 registers of 384 (ptxas gave the
+//   consumers no more under setmaxnreg), so the accumulators a thread
+//   holds set the tile.  The order split (M36, M52): both warpgroups on the
+//   same 64 rows (M36 64 columns, M52 48), each with a fixed subset of the
+//   orders balanced by products (M52 {0, 1, 2, 6} and {3, 4, 5}, M36 {0,
+//   1, 4} and {2, 3}), so a thread holds four orders, not seven; after the
+//   last stage warpgroup 1 hands its sums to warpgroup 0 through the ring,
+//   which combines from the highest order down.  The row split (each
+//   warpgroup 64 rows, every order; M8 128 x 128, M16 and M23 x 64) is the
+//   formats' with too few orders to split; a row split at M52 (128 x 48,
+//   measured on a source variant) took 1.7x the order split's time at
+//   lm_head and is not kept.  Each format has one tile.  The blocks walk
+//   M first, so B's planes (344 MB at lm_head M52) are read from device
+//   memory about once.
+//   Bound now: 59% of the MMA bound at lm_head M52 (4.79 ms against 2.85),
+//   faster than 28 bf16 torch.mm products (5.51).  Not by L2 alone: a
+//   cluster pair sharing A's planes by TMA multicast, half of A's trips,
+//   ran slower (5.92 ms) and is not kept; each warpgroup still waits for
+//   every chain before its adds (two chain buffers, tried at 256 threads,
+//   spilled and ran slower), and wgmma n48 reads both operands from shared
+//   memory.
+//
 // Launch parameters the order leaves free, which the autotuner may set per
 // launch (mp_hopper_matmul_launch's p0, p1; 0 keeps the plan): the decode
-// tile's k per ring stage and cluster size.  The prefill tile has none.
+// tile's k per ring stage and cluster size.  The prefill tile and the
+// both-prelimbed tile have none.
 //
 // The tensor maps come from cuTensorMapEncodeTiled, a driver-API function,
 // obtained through the runtime's cudaGetDriverEntryPointByVersion (no
@@ -157,91 +205,117 @@ namespace {
 // ---------------------------------------------------------------------------
 // wgmma m64nNk16, bf16 x bf16 -> f32, both operands in shared memory in the
 // 128-byte swizzle: A K-major, B K-major (TB 0) or N-major (TB 1, the
-// transpose bit); d += A @ B (scale-d 1)
+// transpose bit); d += A @ B (scale-d sd = 1) or d = A @ B (sd = 0)
 template <int N, int TB>
 struct Wg;
 template <>
 struct Wg<8, 0> {
   static __device__ __forceinline__ void run(float (&d)[4], uint64_t da,
-                                             uint64_t db) {
+                                             uint64_t db, int sd = 1) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
         "{%0, %1, %2, %3}, "
         "%4, %5, p, 1, 1, 0, 0;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "l"(da), "l"(db), "r"(1));
+        : "l"(da), "l"(db), "r"(sd));
   }
 };
 template <>
 struct Wg<24, 0> {
   static __device__ __forceinline__ void run(float (&d)[12], uint64_t da,
-                                             uint64_t db) {
+                                             uint64_t db, int sd = 1) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %14, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n24k16.f32.bf16.bf16 "
         "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11}, "
         "%12, %13, p, 1, 1, 0, 0;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11])
-        : "l"(da), "l"(db), "r"(1));
+        : "l"(da), "l"(db), "r"(sd));
   }
 };
 template <>
 struct Wg<32, 0> {
   static __device__ __forceinline__ void run(float (&d)[16], uint64_t da,
-                                             uint64_t db) {
+                                             uint64_t db, int sd = 1) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
         "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
         "%16, %17, p, 1, 1, 0, 0;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-        : "l"(da), "l"(db), "r"(1));
+        : "l"(da), "l"(db), "r"(sd));
   }
 };
 template <>
 struct Wg<48, 0> {
   static __device__ __forceinline__ void run(float (&d)[24], uint64_t da,
-                                             uint64_t db) {
+                                             uint64_t db, int sd = 1) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %26, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 "
         "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23}, "
         "%24, %25, p, 1, 1, 0, 0;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
-        : "l"(da), "l"(db), "r"(1));
+        : "l"(da), "l"(db), "r"(sd));
   }
 };
 template <>
 struct Wg<64, 1> {
   static __device__ __forceinline__ void run(float (&d)[32], uint64_t da,
-                                             uint64_t db) {
+                                             uint64_t db, int sd = 1) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
         "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
         "%32, %33, p, 1, 1, 0, 1;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "l"(da), "l"(db), "r"(1));
+        : "l"(da), "l"(db), "r"(sd));
   }
 };
 template <>
 struct Wg<96, 1> {
   static __device__ __forceinline__ void run(float (&d)[48], uint64_t da,
-                                             uint64_t db) {
+                                             uint64_t db, int sd = 1) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %50, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
         "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47}, "
         "%48, %49, p, 1, 1, 0, 1;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
-        : "l"(da), "l"(db), "r"(1));
+        : "l"(da), "l"(db), "r"(sd));
+  }
+};
+template <>
+struct Wg<48, 1> {
+  static __device__ __forceinline__ void run(float (&d)[24], uint64_t da,
+                                             uint64_t db, int sd = 1) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %26, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23}, "
+        "%24, %25, p, 1, 1, 0, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+        : "l"(da), "l"(db), "r"(sd));
+  }
+};
+template <>
+struct Wg<128, 1> {
+  static __device__ __forceinline__ void run(float (&d)[64], uint64_t da,
+                                             uint64_t db, int sd = 1) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "%64, %65, p, 1, 1, 0, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(da), "l"(db), "r"(sd));
   }
 };
 template <int N, int TB>
 __device__ __forceinline__ void wgmma(float (&d)[N / 2], uint64_t da,
-                                      uint64_t db) {
-  Wg<N, TB>::run(d, da, db);
+                                      uint64_t db, int sd = 1) {
+  Wg<N, TB>::run(d, da, db, sd);
 }
 
 __device__ __forceinline__ void wg_fence() {
@@ -389,6 +463,20 @@ __device__ __forceinline__ void chain(float (&d)[R], uint64_t da,
 #pragma unroll
   for (int ks = 0; ks < KS; ++ks)
     wgmma<2 * R, NMAJ ? 1 : 0>(d, da + 2 * ks, db + (NMAJ ? 128 : 2) * ks);
+  wg_commit();
+}
+
+// the same chain with its first k16 step at scale-d 0 (d = A @ B): no
+// zeroing.  A chain's sum differs from the zeroed one's only where it is a
+// zero, whose sign no later add keeps (an order's accumulator starts at
+// +0.0 and +0.0 + -0.0 is +0.0, so it never holds -0.0)
+template <int R>
+__device__ __forceinline__ void chain_n(float (&d)[R], uint64_t da,
+                                        uint64_t db) {
+  wg_fence();
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks)
+    wgmma<2 * R, 1>(d, da + 2 * ks, db + 128 * ks, ks > 0);
   wg_commit();
 }
 
@@ -595,6 +683,271 @@ __global__ void __launch_bounds__(Hp<NL, NO, NOUT>::HT, 1) tma_matmul_kernel(
           proj_store<NOUT>(t.proj, gm, gn, t0, y);
         else
           Cz[gm * t.c_sr + gn * t.c_sc] = y[0];
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The both-prelimbed tile: both operands as stored bf16 planes, fed by TMA
+// straight into the buffers wgmma reads (no f32 stage, no limbing).
+
+// two consumer warpgroups and the producer's: every thread has the 168
+// registers of 384 (ptxas allocated no more to the consumers under
+// setmaxnreg, PERF.md), so the accumulators a thread holds set the tile
+constexpr int BP_CT = 256;            // consumer threads: two warpgroups
+constexpr int BP_T = BP_CT + 128;     // and the producer's warpgroup
+constexpr int BAR_BP_DONE = 1, BAR_BP_X = 2;   // named barriers
+
+// the order split: warpgroup 1 takes the orders lo..hi, warpgroup 0 the
+// rest, balanced by products (M52's 28 as {0, 1, 2, 6} = 13 and {3, 4, 5} =
+// 15; M36's 15 as {0, 1, 4} = 8 and {2, 3} = 7)
+__host__ __device__ constexpr int bp_lo(int no) { return no == 7 ? 3 : 2; }
+__host__ __device__ constexpr int bp_hi(int no) { return no == 7 ? 5 : 3; }
+// warpgroup w's q-th order, -1 past its last
+__host__ __device__ constexpr int bp_order(int no, int w, int q) {
+  return w == 1 ? (bp_lo(no) + q <= bp_hi(no) ? bp_lo(no) + q : -1)
+       : q < bp_lo(no) ? q
+       : bp_hi(no) + 1 + q - bp_lo(no) < no ? bp_hi(no) + 1 + q - bp_lo(no)
+                                             : -1;
+}
+__host__ __device__ constexpr int bp_count(int no, int w) {
+  return w == 1 ? bp_hi(no) - bp_lo(no) + 1 : no - (bp_hi(no) - bp_lo(no) + 1);
+}
+// each format's one split: the order split where five or seven orders
+// fill two warpgroups (M36, M52), else the row split (each warpgroup 64
+// rows and every order, the prefill tile's split)
+__host__ __device__ constexpr bool bp_osplit(int no) {
+  return no == 5 || no == 7;
+}
+__host__ __device__ constexpr int bp_bm(int no) {
+  return bp_osplit(no) ? 64 : 128;
+}
+// the tile's columns.  The row split: the format's NO accumulators, the
+// order's sum and one chain of BN / 2 registers a thread within 168.  The
+// order split: M36's warpgroup 0 holds three orders (64 columns), M52's
+// four (48; at 64 ptxas spills 276 bytes and lm_head took 5.14 ms against
+// 4.82, at 56 5.81, PERF.md)
+__host__ __device__ constexpr int bp_bn(int no) {
+  return no == 7 ? 48 : no == 1 ? 128 : 64;
+}
+// one stage: NL A planes of BM x KC (K-major) and NL B planes of KC x BN,
+// N-major in 64-column boxes (bf16)
+__host__ __device__ constexpr int64_t bp_stage(int nl, int no) {
+  return (int64_t)nl * ((int64_t)bp_bm(no) * KC * 2 +
+                        (int64_t)(bp_bn(no) + 63) / 64 * 64 * KC * 2);
+}
+// stages of the ring: as many as fit, at most four
+__host__ __device__ constexpr int bp_stages(int nl, int no) {
+  return (SMEM_MAX - HALIGN - 64) / bp_stage(nl, no) < 4
+             ? (int)((SMEM_MAX - HALIGN - 64) / bp_stage(nl, no))
+             : 4;
+}
+__host__ __device__ constexpr int64_t bp_smem(int nl, int no) {
+  return HALIGN + bp_stages(nl, no) * bp_stage(nl, no) + 64;
+}
+
+template <int NL, int NO>
+struct Bt {
+  static constexpr bool OS = bp_osplit(NO);
+  static constexpr int BM = bp_bm(NO), BN = bp_bn(NO);
+  static constexpr int R = BN / 2;       // accumulator registers per chain
+  static constexpr int ATOMS = (BN + 63) / 64;   // B's 64-column boxes
+  // accumulators a thread: its warpgroup's orders
+  static constexpr int NACC = OS ? (bp_count(NO, 0) > bp_count(NO, 1)
+                                        ? bp_count(NO, 0)
+                                        : bp_count(NO, 1))
+                                 : NO;
+  static constexpr int64_t PA = (int64_t)BM * KC * 2;    // one A plane
+  static constexpr int64_t PB = (int64_t)ATOMS * 64 * KC * 2;   // one B plane
+  static constexpr int64_t STAGE = bp_stage(NL, NO);
+  static constexpr int ST = bp_stages(NL, NO);
+  static constexpr int64_t SMEM = bp_smem(NL, NO);
+  static_assert(ST >= 1 && SMEM <= SMEM_MAX, "one stage fits");
+  static_assert(!OS || (int64_t)bp_count(NO, 1) * R * BP_CT / 2 * 4 <=
+                           ST * STAGE,
+                "warpgroup 1's sums fit the ring");
+};
+
+struct BothMaps {
+  CUtensorMap a;   // (K, M, A's planes), boxes of KC x BM
+  CUtensorMap b;   // (N, K, B's planes), boxes of 64 x KC
+};
+
+struct BothArgs {
+  float* C;
+  int64_t c_sr;
+  int M, N, K, nsa, nsb;   // nsa, nsb: the planes each map holds
+};
+
+// One consumer warpgroup's K loop: for each stage (a ring slot), each of
+// its orders q (warpgroup W's under the order split, every order under the
+// row split) and each kept product of the order in the format's product
+// order, one chain of KS wgmma k16 steps from +0.0; the order's terms
+// summed by f32 adds, then acc[q] += tot; then the slot is released.
+// a_row: the byte offset of the warpgroup's 64 rows in an A plane.
+template <int NL, int NO, int W>
+__device__ __forceinline__ void bp_consume(
+    const unsigned char* ring, uint64_t* full, uint64_t* empty, int stages,
+    int a_row, float (&acc)[Bt<NL, NO>::NACC][Bt<NL, NO>::R]) {
+  using T = Bt<NL, NO>;
+  constexpr int R = T::R, ST = T::ST;
+#pragma unroll
+  for (int q = 0; q < T::NACC; ++q)
+#pragma unroll
+    for (int e = 0; e < R; ++e) acc[q][e] = 0.f;
+#pragma unroll 1
+  for (int s = 0; s < stages; ++s) {
+    const int slot = s % ST;
+    mbar_wait(full + slot, (s / ST) & 1);
+    const unsigned char* const st = ring + slot * T::STAGE;
+    auto da = [&](int i) { return desc_k(st + i * T::PA + a_row); };
+    auto db = [&](int j) { return desc_n(st + NL * T::PA + j * T::PB); };
+#pragma unroll
+    for (int q = 0; q < T::NACC; ++q) {
+      const int o = T::OS ? bp_order(NO, W, q) : q;
+      if (o < 0) continue;
+      const int i0 = o - NL + 1 > 0 ? o - NL + 1 : 0;
+      const int i1 = o < NL - 1 ? o : NL - 1;
+      float tot[R];
+      chain_n<R>(tot, da(i0), db(o - i0));
+      wg_wait<0>();
+#pragma unroll 1
+      for (int i = i0 + 1; i <= i1; ++i) {
+        float f[R];
+        chain_n<R>(f, da(i), db(o - i));
+        wg_wait<0>();
+#pragma unroll
+        for (int e = 0; e < R; ++e) tot[e] = tot[e] + f[e];
+      }
+#pragma unroll
+      for (int e = 0; e < R; ++e) acc[q][e] = acc[q][e] + tot[e];
+    }
+    mbar_arrive(empty + slot);
+  }
+}
+
+// accumulator e of a warpgroup's m64nBN fragment: row 16 warp + lane / 4 + 8
+// ((e / 2) % 2), column 8 (e / 4) + 2 (lane % 4) + e % 2
+__device__ __forceinline__ int frag_row(int lt, int e) {
+  return 16 * (lt >> 5) + ((lt & 31) >> 2) + 8 * ((e >> 1) & 1);
+}
+__device__ __forceinline__ int frag_col(int lt, int e) {
+  return 8 * (e >> 2) + 2 * (lt & 3) + (e & 1);
+}
+
+// C (M, N) = A @ B at the format, both as stored planes (tile of blockIdx.x,
+// M first).  Threads 0..255: two consumer warpgroups; 256..383: the
+// producer warpgroup, whose first thread keeps the TMA loads in flight
+// through full / empty mbarriers.  Planes at or past a stack's stored count (nsa,
+// nsb) are zero-filled once and their products run like any other.
+template <int NL, int NO>
+__global__ void __launch_bounds__(BP_T, 1)
+    both_tma_kernel(const __grid_constant__ BothMaps maps, const BothArgs t) {
+  using T = Bt<NL, NO>;
+  constexpr int BM = T::BM, BN = T::BN, R = T::R, ST = T::ST;
+  extern __shared__ unsigned char bp_raw[];
+  unsigned char* const ring = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(bp_raw) + HALIGN - 1) &
+      ~(uintptr_t)(HALIGN - 1));
+  uint64_t* const full = reinterpret_cast<uint64_t*>(ring + ST * T::STAGE);
+  uint64_t* const empty = full + ST;
+  const int mt = (t.M + BM - 1) / BM;
+  const int m0 = (int)(blockIdx.x % mt) * BM;
+  const int n0 = (int)(blockIdx.x / mt) * BN;
+  const int stages = (t.K + KC - 1) / KC;
+  const int tid = threadIdx.x;
+
+  if (tid == BP_CT) {
+    for (int r = 0; r < ST; ++r) {
+      mbar_init(full + r);
+      mbar_init(empty + r, BP_CT);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  // the planes past the stored counts: zeros, never loaded
+  for (int r = 0; r < ST; ++r) {
+    unsigned char* const st = ring + r * T::STAGE;
+    for (int i = t.nsa; i < NL; ++i)
+      for (int x = tid; x < (int)(T::PA / 16); x += BP_T)
+        reinterpret_cast<uint4*>(st + i * T::PA)[x] = make_uint4(0, 0, 0, 0);
+    for (int j = t.nsb; j < NL; ++j)
+      for (int x = tid; x < (int)(T::PB / 16); x += BP_T)
+        reinterpret_cast<uint4*>(st + NL * T::PA + j * T::PB)[x] =
+            make_uint4(0, 0, 0, 0);
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
+
+  // the role by warpgroup, uniform across each warp (a shuffle from lane
+  // 0): the consumers' code is then compiled as one warpgroup's (9-20%
+  // faster than on tid >= BP_CT, PERF.md)
+  const int wgi = __shfl_sync(0xffffffffu, tid / 128, 0);
+  if (wgi == 2) {
+    // the producer: A's planes K-major (boxes of KC k x BM rows), B's
+    // N-major (boxes of 64 columns x KC k), 128-byte swizzle, into slot s %
+    // ST once both warpgroups have released its last stage
+    if (tid == BP_CT) {
+      const int bytes = (int)(t.nsa * T::PA + t.nsb * T::PB);
+#pragma unroll 1
+      for (int s = 0; s < stages; ++s) {
+        const int slot = s % ST;
+        if (s >= ST) mbar_wait(empty + slot, ((s / ST) + 1) & 1);
+        unsigned char* const st = ring + slot * T::STAGE;
+        mbar_expect(full + slot, bytes);
+        for (int i = 0; i < t.nsa; ++i)
+          tma_load3(st + i * T::PA, &maps.a, s * KC, m0, i, full + slot);
+        for (int j = 0; j < t.nsb; ++j)
+#pragma unroll
+          for (int q = 0; q < T::ATOMS; ++q)
+            tma_load3(st + NL * T::PA + j * T::PB + q * 64 * KC * 2, &maps.b,
+                      n0 + 64 * q, s * KC, j, full + slot);
+      }
+    }
+  } else {
+    const int lt = tid & 127;
+    float acc[T::NACC][R];
+    float* const xch = reinterpret_cast<float*>(ring);
+    if (T::OS && wgi == 1) {
+      // the order split's warpgroup 1: its orders over the tile's 64 rows,
+      // then its sums to warpgroup 0 through the ring (free once both are
+      // done)
+      bp_consume<NL, NO, 1>(ring, full, empty, stages, 0, acc);
+      bar_sync(BAR_BP_DONE, BP_CT);
+#pragma unroll
+      for (int q = 0; q < bp_count(NO, 1); ++q)
+#pragma unroll
+        for (int e = 0; e < R; ++e) xch[(q * R + e) * 128 + lt] = acc[q][e];
+      bar_arrive(BAR_BP_X, BP_CT);
+    } else {
+      // the order split's warpgroup 0 (its orders, then every order joined
+      // from the highest down), or the row split's warpgroup wgi (rows 64
+      // wgi .. 64 wgi + 63, every order)
+      const int row0 = T::OS ? 0 : 64 * wgi;
+      bp_consume<NL, NO, 0>(ring, full, empty, stages, row0 * KC * 2,
+                               acc);
+      if constexpr (T::OS) {
+        bar_sync(BAR_BP_DONE, BP_CT);
+        bar_sync(BAR_BP_X, BP_CT);
+      }
+#pragma unroll
+      for (int e = 0; e < R; ++e) {
+        const int64_t gm = m0 + row0 + frag_row(lt, e);
+        const int64_t gn = n0 + frag_col(lt, e);
+        if (gm >= t.M || gn >= t.N) continue;
+        float per_order[NO];
+        if constexpr (T::OS) {
+#pragma unroll
+          for (int q = 0; q < bp_count(NO, 0); ++q)
+            per_order[bp_order(NO, 0, q)] = acc[q][e];
+#pragma unroll
+          for (int q = 0; q < bp_count(NO, 1); ++q)
+            per_order[bp_order(NO, 1, q)] = xch[(q * R + e) * 128 + lt];
+        } else {
+#pragma unroll
+          for (int o = 0; o < NO; ++o) per_order[o] = acc[o][e];
+        }
+        t.C[gm * t.c_sr + gn] = combine_orders<NO>(per_order, NO - 1);
       }
     }
   }
@@ -1008,22 +1361,27 @@ bool planes_mappable(const Planes& bp, int nst, int64_t N, int64_t K) {
 }
 
 // the stored planes (nst of them, a plane stride of ``plane`` and a row
-// stride of ``sr`` elements, bf16) as a 3-d map (columns, k, plane) with a
-// box of DEC_N columns by dk k in the 32-byte swizzle (the decode tile's
-// dec_col layout), zeros past every edge; false where a map cannot read
-// them (the planes' rows or plane stride off 16 bytes, a misaligned base)
-bool make_planes_map(CUtensorMap* map, const Planes& bp, int nst, int64_t N,
-                     int64_t K, int dk) {
+// stride of ``sr`` elements, bf16, ``inner`` columns of ``rows`` rows) as a
+// 3-d map (inner, rows, plane) with a box of box_inner x box_rows in the
+// given swizzle, zeros past every edge; false where a map cannot read them
+// (the planes' rows or plane stride off 16 bytes, a misaligned base).  The
+// decode tile reads B's planes in boxes of DEC_N columns x dk k in the
+// 32-byte swizzle (its dec_col layout), the both-prelimbed tile both
+// operands' in the 128-byte swizzle wgmma reads.
+bool make_planes_map(CUtensorMap* map, const Planes& p, int nst,
+                     int64_t inner, int64_t rows, int box_inner, int box_rows,
+                     CUtensorMapSwizzle swizzle) {
   const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr || !planes_mappable(bp, nst, N, K)) return false;
-  const int64_t plane = nst > 1 ? bp.plane : bp.sr * K;
-  cuuint64_t dims[3] = {(cuuint64_t)N, (cuuint64_t)K, (cuuint64_t)nst};
-  cuuint64_t strides[2] = {(cuuint64_t)bp.sr * 2, (cuuint64_t)plane * 2};
-  cuuint32_t box[3] = {(cuuint32_t)DEC_N, (cuuint32_t)dk, 1};
+  if (fn == nullptr || !planes_mappable(p, nst, inner, rows)) return false;
+  const int64_t plane = nst > 1 ? p.plane : p.sr * rows;
+  cuuint64_t dims[3] = {(cuuint64_t)inner, (cuuint64_t)rows,
+                        (cuuint64_t)nst};
+  cuuint64_t strides[2] = {(cuuint64_t)p.sr * 2, (cuuint64_t)plane * 2};
+  cuuint32_t box[3] = {(cuuint32_t)box_inner, (cuuint32_t)box_rows, 1};
   cuuint32_t es[3] = {1, 1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
-            const_cast<__nv_bfloat16*>(bp.p), dims, strides, box, es,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_32B,
+            const_cast<__nv_bfloat16*>(p.p), dims, strides, box, es,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
@@ -1148,7 +1506,8 @@ cudaError_t launch_split(const DecodeArgs& d, int64_t nb0, int dk_req,
   }
   CUtensorMap bmap;
   memset(&bmap, 0, sizeof(bmap));
-  if (PL && !make_planes_map(&bmap, d.bp, nst, p.N, p.K, sp.dk))
+  if (PL && !make_planes_map(&bmap, d.bp, nst, p.N, p.K, DEC_N, sp.dk,
+                            CU_TENSOR_MAP_SWIZZLE_32B))
     return cudaErrorInvalidValue;
   return split_go<NL, kernel>(d, bmap, PL, nx, 1, nz, sp, st);
 }
@@ -1181,7 +1540,8 @@ cudaError_t launch_mixed_split(const MixedDecodeArgs& d, int dk_req,
   }
   CUtensorMap bmap;
   memset(&bmap, 0, sizeof(bmap));
-  if (!make_planes_map(&bmap, d.d.bp, nst, p.N, p.K, sp.dk))
+  if (!make_planes_map(&bmap, d.d.bp, nst, p.N, p.K, DEC_N, sp.dk,
+                       CU_TENSOR_MAP_SWIZZLE_32B))
     return cudaErrorInvalidValue;
   return split_go<NL, kernel>(d, bmap, true, nx, 1, 1, sp, st);
 }
@@ -1317,6 +1677,39 @@ cudaError_t launch_tma_proj(const ProjArgs& p, int n_out, cudaStream_t st) {
   }
   return launch_tma_kernel<NL, NO, 1, GEN, Epi::PROJ>(maps, t,
                                                       (unsigned)n_out, 1, st);
+}
+
+// The both-prelimbed tile: A's planes (M, K) and B's (K, N) by their maps;
+// a layout no map reads, or K < 1, is refused (the caller routes those to
+// mp_matmul.cu's tile before the launch)
+template <int NL, int NO>
+cudaError_t launch_both(const Planes& ap, const Planes& bp, float* c,
+                        int64_t c_sr, int64_t M, int64_t N, int64_t K,
+                        cudaStream_t st) {
+  using T = Bt<NL, NO>;
+  auto kernel = both_tma_kernel<NL, NO>;
+  const int nsa = ap.n_stored < NL ? ap.n_stored : NL;
+  const int nsb = bp.n_stored < NL ? bp.n_stored : NL;
+  if (K < 1 || M > INT32_MAX || N > INT32_MAX || K > INT32_MAX)
+    return cudaErrorInvalidValue;
+  BothMaps maps;
+  memset(&maps, 0, sizeof(maps));
+  if (!make_planes_map(&maps.a, ap, nsa, K, M, KC, T::BM,
+                       CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !make_planes_map(&maps.b, bp, nsb, N, K, 64, KC,
+                       CU_TENSOR_MAP_SWIZZLE_128B))
+    return cudaErrorInvalidValue;
+  static bool raised = false;
+  if (!raised) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)T::SMEM);
+    if (err != cudaSuccess) return err;
+    raised = true;
+  }
+  const BothArgs t{c, c_sr, (int)M, (int)N, (int)K, nsa, nsb};
+  const int64_t tiles = ((M + T::BM - 1) / T::BM) * ((N + T::BN - 1) / T::BN);
+  kernel<<<(unsigned)tiles, BP_T, (size_t)T::SMEM, st>>>(maps, t);
+  return cudaGetLastError();
 }
 
 template <int NL, int NO, bool GEN, bool PARTS>
@@ -1605,6 +1998,60 @@ int mp_hopper_mixed_prelimbed_launch(const void* a, int64_t a_sr,
   d.lane_ord = static_cast<const int32_t*>(lane_ord);
   return (int)mixed_for_format(d, (int)p0, (int)p1,
                                static_cast<cudaStream_t>(stream));
+}
+
+// C (M, N) = A @ B at (n_limbs, max_order), both given as stored bf16 limb
+// planes (the arguments of mp_both_prelimbed_matmul_launch in mp_matmul.cu)
+// on the TMA + wgmma tile, at a built-in format whose planes a tensor map
+// reads (rows and plane strides a multiple of 16 bytes, 16-byte aligned
+// bases) and K >= 1.  Returns the CUDA error of the launch (0 on success;
+// cudaErrorInvalidValue for a run-time format or a layout the tile does
+// not take).  Allocates nothing and does not synchronise.
+int mp_hopper_both_prelimbed_launch(const void* a, int64_t a_plane,
+                                    int64_t a_sr, int64_t na_stored,
+                                    const void* b, int64_t b_plane,
+                                    int64_t b_sr, int64_t nb_stored, void* c,
+                                    int64_t c_sr, int64_t M, int64_t N,
+                                    int64_t K, int64_t n_limbs,
+                                    int64_t max_order, void* stream) {
+  if (!format_ok(n_limbs, max_order) || !builtin_format(n_limbs, max_order) ||
+      na_stored < 1 || nb_stored < 1)
+    return (int)cudaErrorInvalidValue;
+  if (M == 0 || N == 0) return 0;
+  const Planes ap{static_cast<const __nv_bfloat16*>(a), a_plane, a_sr,
+                  (int)(na_stored < GEN_NL ? na_stored : GEN_NL)};
+  const Planes bp{static_cast<const __nv_bfloat16*>(b), b_plane, b_sr,
+                  (int)(nb_stored < GEN_NL ? nb_stored : GEN_NL)};
+  float* const cc = static_cast<float*>(c);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (n_limbs) {
+    case 1: return (int)launch_both<1, 1>(ap, bp, cc, c_sr, M, N, K, st);
+    case 2: return (int)launch_both<2, 2>(ap, bp, cc, c_sr, M, N, K, st);
+    case 3: return (int)launch_both<3, 3>(ap, bp, cc, c_sr, M, N, K, st);
+    case 5: return (int)launch_both<5, 5>(ap, bp, cc, c_sr, M, N, K, st);
+    default: return (int)launch_both<7, 7>(ap, bp, cc, c_sr, M, N, K, st);
+  }
+}
+
+// The both-prelimbed tile's pins at a built-in format: out = {BM, BN,
+// stages, dynamic shared memory, warpgroup 0's orders and warpgroup 1's as
+// bit masks (the row split: every order in each)}.  Returns 0, or -1 where
+// the format has no tile.
+int mp_both_tile(int64_t n_limbs, int64_t max_order, int64_t* out) {
+  if (!builtin_format(n_limbs, max_order)) return -1;
+  const int nl = (int)n_limbs, no = (int)max_order + 1;
+  const bool os = bp_osplit(no);
+  int64_t masks[2] = {0, 0};
+  for (int w = 0; w < 2; ++w)
+    if (os)
+      for (int q = 0; q < bp_count(no, w); ++q)
+        masks[w] |= (int64_t)1 << bp_order(no, w, q);
+    else
+      masks[w] = ((int64_t)1 << no) - 1;
+  const int64_t v[6] = {bp_bm(no), bp_bn(no), bp_stages(nl, no),
+                        bp_smem(nl, no), masks[0], masks[1]};
+  for (int i = 0; i < 6; ++i) out[i] = v[i];
+  return 0;
 }
 
 // The prefill tile's columns for a format (hp_bn) at nout weights a block

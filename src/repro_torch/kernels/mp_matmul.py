@@ -11,8 +11,9 @@ CUDA kernel (``csrc/mp_matmul.cu``; the Hopper tiles from
 one to the other.  The fused matmul and its partials epilogue, the fused
 projection and the pre-limbed and mixed-lane matmuls each take one of their
 routes by the operands' shape and layout (:func:`fused_route`,
-:func:`proj_route`, :func:`prelimbed_route`), each with its own launch
-counter (``routes``).
+:func:`proj_route`, :func:`prelimbed_route`; the both-prelimbed matmul by
+its stacks' layout and format, :func:`both_route`), each with its own
+launch counter (``routes``).
 The plain versions repeat the kernels' accumulation discipline: one f32 sum
 per limb-product order, joined by the compensated ``_combine_orders``
 (highest order first), whatever the limb count.
@@ -42,9 +43,16 @@ PROJ_ROUTES = (SPLIT, TMA, STRIDED)
 # (csrc/mp_matmul_hopper.cu), the mma.sync prefill tile (csrc/mp_matmul.cu)
 MMA = "mma"
 PRELIMBED_ROUTES = (SPLIT, MMA)
+# the both-prelimbed matmul's: the TMA + wgmma tile
+# (csrc/mp_matmul_hopper.cu), the mma.sync tile (csrc/mp_matmul.cu)
+BOTH_ROUTES = (TMA, MMA)
 # the split kernels, by kind (mp_split_regs of csrc/mp_matmul_hopper.cu)
 SPLIT_KINDS = {"fused": 0, "partials": 1, "prelimbed": 2, "proj": 3,
                "mixed": 4}
+
+# the formats with instantiations of their own (n_limbs, max_order); the
+# others run the generic one (csrc builtin_format)
+_BUILTIN = ((1, 0), (2, 1), (3, 2), (5, 4), (7, 6))
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int64
@@ -286,6 +294,13 @@ def _set_hopper_argtypes(lib) -> None:
         lib.mp_split_smem_bytes.restype = ctypes.c_int64
         lib.mp_split_regs.argtypes = [_I] * 4
         lib.mp_split_regs.restype = ctypes.c_int
+    # the both-prelimbed tile and its pins (an older library lacks them)
+    if hasattr(lib, "mp_hopper_both_prelimbed_launch"):
+        lib.mp_hopper_both_prelimbed_launch.argtypes = [
+            _P, _I, _I, _I, _P, _I, _I, _I, _P, _I, _I, _I, _I, _I, _I, _P]
+        lib.mp_hopper_both_prelimbed_launch.restype = ctypes.c_int
+        lib.mp_both_tile.argtypes = [_I, _I, ctypes.POINTER(_I)]
+        lib.mp_both_tile.restype = ctypes.c_int
     lib._mp_hopper_typed = True
 
 
@@ -712,13 +727,10 @@ def launch_mixed_routed(stream: int, a: torch.Tensor, limbs: torch.Tensor,
     return c, route
 
 
-def launch_both_prelimbed_matmul(lib, stream: int, al: torch.Tensor,
-                                 bl: torch.Tensor, fmt: MPFormat
-                                 ) -> torch.Tensor:
-    """Marshal one ``mp_both_prelimbed_matmul_launch`` call: the (La, M, K)
-    and (Lb, K, N) bf16 limb stacks, read in place (planes the format does
-    not need are never read)."""
-    _set_argtypes(lib)
+def _both_operands(al: torch.Tensor, bl: torch.Tensor):
+    """Checked stacks of a both-prelimbed launch, (La, M, K) and (Lb, K,
+    N) bf16, read in place; the entries' argument list up to K and the
+    output."""
     _check_stack(al, "A limb stack")
     _check_stack(bl, "B limb stack")
     (La, M, K), (Lb, K2, N) = al.shape, bl.shape
@@ -726,12 +738,91 @@ def launch_both_prelimbed_matmul(lib, stream: int, al: torch.Tensor,
         raise ValueError(f"contraction mismatch: limb stacks "
                          f"{tuple(al.shape)} @ {tuple(bl.shape)}")
     c = torch.empty((M, N), dtype=torch.float32, device=al.device)
-    err = lib.mp_both_prelimbed_matmul_launch(
-        al.data_ptr(), al.stride(0), al.stride(1), La, bl.data_ptr(),
-        bl.stride(0), bl.stride(1), Lb, c.data_ptr(), c.stride(0), M, N, K,
-        fmt.n_limbs, fmt.max_order, stream)
+    args = (al.data_ptr(), al.stride(0), al.stride(1), La, bl.data_ptr(),
+            bl.stride(0), bl.stride(1), Lb, c.data_ptr(), c.stride(0), M, N,
+            K)
+    return args, c
+
+
+def launch_both_prelimbed_matmul(lib, stream: int, al: torch.Tensor,
+                                 bl: torch.Tensor, fmt: MPFormat
+                                 ) -> torch.Tensor:
+    """Marshal one ``mp_both_prelimbed_matmul_launch`` call (the mma.sync
+    tile of csrc/mp_matmul.cu; every shape of an older version): the
+    (La, M, K) and (Lb, K, N) bf16 limb stacks, read in place (planes the
+    format does not need are never read)."""
+    _set_argtypes(lib)
+    args, c = _both_operands(al, bl)
+    err = lib.mp_both_prelimbed_matmul_launch(*args, fmt.n_limbs,
+                                              fmt.max_order, stream)
     build.check(err, "mp_both_prelimbed_matmul")
     return c
+
+
+def _planes_mappable(x: torch.Tensor, n_used: int) -> bool:
+    """Can a tensor map read the first ``n_used`` planes of the stack ``x``
+    (``planes_mappable`` of csrc/mp_matmul_hopper.cu): a 16-byte aligned
+    base, rows and (past one plane) the plane stride a multiple of 16
+    bytes."""
+    def ok(st):
+        return 0 < st < 2 ** 39 and st % 8 == 0
+    return (x.data_ptr() % 16 == 0 and ok(x.stride(1))
+            and (n_used <= 1 or ok(x.stride(0))))
+
+
+def both_route(al: torch.Tensor, bl: torch.Tensor, fmt: FormatLike) -> str:
+    """The both-prelimbed matmul's route, from the stacks' layout and the
+    format, before the launch: the TMA + wgmma tile of
+    csrc/mp_matmul_hopper.cu for a built-in format whose used planes a
+    tensor map reads (:func:`_planes_mappable`; K >= 1, sizes within 31
+    bits), else the mma.sync tile of csrc/mp_matmul.cu (a run-time format,
+    rows off 16 bytes, a misaligned base).  Both give every output the same
+    bits."""
+    fmt = resolve(fmt)
+    (La, M, K), (Lb, _, N) = al.shape, bl.shape
+    nl = fmt.n_limbs
+    if ((nl, fmt.max_order) in _BUILTIN and 0 < K < 2 ** 31
+            and M < 2 ** 31 and N < 2 ** 31
+            and _planes_mappable(al, min(La, nl))
+            and _planes_mappable(bl, min(Lb, nl))):
+        return TMA
+    return MMA
+
+
+def launch_both_routed(stream: int, al: torch.Tensor, bl: torch.Tensor,
+                       fmt: MPFormat, *, libs=None):
+    """One both-prelimbed matmul by its route (:func:`both_route`), on this
+    tree's libraries or ``libs`` (as :func:`launch_routed`).  Returns
+    (output, route)."""
+    route = both_route(al, bl, fmt)
+    if route == MMA:
+        return launch_both_prelimbed_matmul(_lib(libs, "mp_matmul"), stream,
+                                            al, bl, fmt), route
+    lib = _lib(libs, "mp_matmul_hopper")
+    _set_hopper_argtypes(lib)
+    args, c = _both_operands(al, bl)
+    err = lib.mp_hopper_both_prelimbed_launch(*args, fmt.n_limbs,
+                                              fmt.max_order, stream)
+    build.check(err, "mp_both_prelimbed_matmul")
+    return c, route
+
+
+def both_tile(fmt: FormatLike) -> Optional[dict]:
+    """The both-prelimbed TMA tile's pins as the library exports them
+    (``mp_both_tile``): rows, columns, ring stages, dynamic shared memory
+    and each consumer warpgroup's orders; None where the format has no
+    tile.  Builds the library (needs ``nvcc``: the machine
+    with the card); ``autotune.both_tile`` mirrors it."""
+    fmt = resolve(fmt)
+    lib = build.load("mp_matmul_hopper")
+    _set_hopper_argtypes(lib)
+    out = (_I * 6)()
+    if lib.mp_both_tile(fmt.n_limbs, fmt.max_order, out) != 0:
+        return None
+    bm, bn, st, smem, m0, m1 = (int(v) for v in out)
+    return dict(bm=bm, bn=bn, stages=st, smem=smem,
+                orders=[[o for o in range(fmt.n_orders) if m >> o & 1]
+                        for m in (m0, m1)])
 
 
 def launch_decompose(lib, stream: int, w: torch.Tensor, n_limbs: int
@@ -945,7 +1036,8 @@ def mp_both_prelimbed_matmul(al: torch.Tensor, bl: torch.Tensor,
     their bf16 limb stacks, (La, M, K) and (Lb, K, N): the DD operand path
     (modes 5 and 6 on operands wider than f32).  Limbs a stack lacks are
     zero, limbs past the format's are ignored.  CPU tensors run
-    :func:`both_prelimbed_matmul_plain`; CUDA tensors launch the kernel."""
+    :func:`both_prelimbed_matmul_plain`; CUDA tensors launch the kernel by
+    the route :func:`both_route` gives (counted in ``routes``)."""
     fmt = resolve(fmt)
     if _on_meta(al, bl):
         return _meta((al.shape[1], bl.shape[2]))
@@ -953,13 +1045,14 @@ def mp_both_prelimbed_matmul(al: torch.Tensor, bl: torch.Tensor,
         mp_both_prelimbed_matmul.plain_calls += 1
         return both_prelimbed_matmul_plain(al, bl, fmt)
     stream = _cuda_stream(al, bl)
-    out = launch_both_prelimbed_matmul(build.load("mp_matmul"), stream, al,
-                                       bl, fmt)
+    out, route = launch_both_routed(stream, al, bl, fmt)
     mp_both_prelimbed_matmul.launches += 1
+    mp_both_prelimbed_matmul.routes[route] += 1
     return out
 
 
 mp_both_prelimbed_matmul.launches = 0
+mp_both_prelimbed_matmul.routes = dict.fromkeys(BOTH_ROUTES, 0)
 mp_both_prelimbed_matmul.plain_calls = 0
 
 

@@ -273,3 +273,27 @@ def test_dd_weights_run_per_branch_in_fused_proj():
     out = mp_fused_proj(x, [_pdd(w) for w in w64], "M52", epilogue="swiglu")
     g, u = (mp_matmul(x, _pdd(w), "M52") for w in w64)
     assert torch.equal(out, pref.silu(g) * u)
+
+
+# (M, K, N) across the both-prelimbed TMA tile's edges on the card: rows
+# past 64 and 128 (the order split's and the row split's), columns past 48,
+# 64 and 96, K off the 64-k chunk
+BOTH_EDGES = [(65, 130, 49), (129, 65, 97), (17, 200, 65)]
+
+
+@pytest.mark.parametrize("M,K,N", BOTH_EDGES)
+@pytest.mark.parametrize("mode", HIGH)
+def test_both_prelimbed_plain_matches_jax_kernel_at_tile_edges(mode, M, K, N):
+    """The both-prelimbed plain version (what the card's TMA and mma.sync
+    tiles are held to) on decompose_dd stacks against JAX's
+    _both_prelimbed_kernel path (``ops.mp_matmul_pallas`` on DD operands,
+    interpret mode) at test_dd_high_modes' tolerance (rtol 3e-6, atol
+    1e-5: the same products, summed in blocks of another depth)."""
+    a64, b64 = _f64(20, M, K), _f64(21, K, N)
+    n = resolve(mode).n_limbs
+    al = plimbs.decompose_dd(_pdd(a64), n)
+    bl = plimbs.decompose_dd(_pdd(b64), n)
+    out = pkern.both_prelimbed_matmul_plain(al, bl, mode)
+    j = jops.mp_matmul_pallas(_jdd(a64), _jdd(b64), mode, interpret=True)
+    np.testing.assert_allclose(out.numpy(), np.asarray(j), rtol=3e-6,
+                               atol=1e-5)

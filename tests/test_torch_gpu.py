@@ -2040,3 +2040,182 @@ def test_minus_zero_and_subnormal_products_on_the_new_splits(
             proj = mp_matmul.mp_fused_proj(a[:M], ws, mode)
             assert (proj[:, 3] == 0).all() and \
                 not torch.signbit(proj[:, 3]).any()
+
+
+# ---------------------------------------------------------------------------
+# the both-prelimbed matmul's TMA + wgmma tile (csrc/mp_matmul_hopper.cu)
+# against the mma.sync tile of csrc/mp_matmul.cu (the tile it replaces at
+# the layouts a tensor map reads), bit for bit
+# ---------------------------------------------------------------------------
+BUILTIN_MODES = ["M8", "M16", "M23", "M36", "M52"]
+# (M, K, N): M and N off the tiles (64 / 128 rows, 48..128 columns), K off
+# the 64-k chunk; rows of a multiple of 16 bytes, as a tensor map reads them
+BOTH_SHAPES = [(70, 200, 72), (130, 1000, 264), (300, 448, 200),
+               (2048, 768, 768)]
+
+
+def _mma_tile(al, bl, mode):
+    """The both-prelimbed matmul on the mma.sync tile (the parent's)."""
+    return mp_matmul.launch_both_prelimbed_matmul(
+        build.load("mp_matmul"), torch.cuda.current_stream().cuda_stream,
+        al, bl, resolve(mode))
+
+
+def _tma_tile(al, bl, mode):
+    out, route = mp_matmul.launch_both_routed(
+        torch.cuda.current_stream().cuda_stream, al, bl, resolve(mode))
+    assert route == mp_matmul.TMA
+    return out
+
+
+def _dd_stacks(M, K, N, mode, seed):
+    from repro_torch.core import limbs
+
+    rng = np.random.default_rng(seed)
+    n = resolve(mode).n_limbs
+    return tuple(limbs.decompose_dd(limbs.dd_from_f64(
+        rng.standard_normal(shape)), n) for shape in ((M, K), (K, N)))
+
+
+@pytest.mark.parametrize("M,K,N", BOTH_SHAPES)
+@pytest.mark.parametrize("mode", BUILTIN_MODES)
+def test_both_tma_tile_is_the_mma_tile(cuda, mode, M, K, N):
+    """Every built-in format, ragged shapes: bitwise the mma.sync tile on
+    the same stacks (DD stacks and stacks cut from f32), and each within
+    the f32 floor of the plain version."""
+    n = resolve(mode).n_limbs
+    a, b = _randn(cuda, M, K, seed=200), _randn(cuda, K, N, seed=201)
+    for al, bl in (_dd_stacks(M, K, N, mode, 202),
+                   (mp_matmul.mp_decompose(a, n),
+                    mp_matmul.mp_decompose(b, n))):
+        want = _mma_tile(al, bl, mode)
+        assert _bitwise(_tma_tile(al, bl, mode), want)
+        _assert_mm_close(want, mp_matmul.both_prelimbed_matmul_plain(
+            al, bl, mode), K)
+
+
+@pytest.mark.parametrize("M,K,N,mode", [
+    (2048, 768, 3072, "M36"), (2048, 768, 3072, "M52"),
+    (2048, 3072, 768, "M36"), (2048, 3072, 768, "M52"),
+    (2048, 768, 32000, "M52")])
+def test_both_tma_tile_at_the_modes_shapes(cuda, M, K, N, mode):
+    """chip_smoke.py's five [modes] DD launches: bitwise the mma.sync
+    tile on decompose_dd stacks."""
+    al, bl = _dd_stacks(M, K, N, mode, 203)
+    assert _bitwise(_tma_tile(al, bl, mode), _mma_tile(al, bl, mode))
+
+
+@pytest.mark.parametrize("M,K,N", [(2048, 768, 768), (130, 1000, 264)])
+@pytest.mark.parametrize("mode", BUILTIN_MODES)
+def test_both_on_f32_cut_stacks_is_the_tma_matmul_kernel(cuda, mode, M, K,
+                                                         N):
+    """On stacks cut from f32 operands, both-prelimbed (its TMA tile) is
+    the fused matmul's TMA tile (tma_matmul_kernel) bit for bit."""
+    n = resolve(mode).n_limbs
+    a, b = _randn(cuda, M, K, seed=204), _randn(cuda, K, N, seed=205)
+    A, B, _, sizes, strides = mp_matmul._marshal(a, b)
+    assert mp_matmul.fused_route(A, B, sizes, strides) == mp_matmul.TMA
+    fused = mp_matmul.mp_fused_matmul(a, b, mode)
+    al, bl = mp_matmul.mp_decompose(a, n), mp_matmul.mp_decompose(b, n)
+    assert _bitwise(_tma_tile(al, bl, mode), fused)
+
+
+@pytest.mark.parametrize("K", [200, 1000])
+@pytest.mark.parametrize("mode", ["M8", "M23", "M36", "M52"])
+def test_both_rows_are_batch_invariant(cuda, mode, K):
+    """Rows at M <= 17 equal the same rows of one M = 70 launch (both on
+    the TMA tile), K off the chunk."""
+    al, bl = _dd_stacks(70, K, 136, mode, 206)
+    full = _tma_tile(al, bl, mode)
+    for M in BATCH_MS:
+        for rows in (slice(0, M), slice(70 - M, 70)):
+            sub = al[:, rows].contiguous()
+            _assert_rows_bitwise(_tma_tile(sub, bl, mode), full, rows,
+                                 (M, rows))
+
+
+@pytest.mark.parametrize("mode,na,nb", [("M52", 3, 7), ("M52", 7, 2),
+                                        ("M36", 1, 4), ("M23", 2, 3)])
+def test_both_short_stacks_are_zero_padded(cuda, mode, na, nb):
+    """Stacks shorter than the format: the planes past the stored count
+    read as +0.0 and their products run, so the result is the same stacks
+    padded with +0.0 planes, bit for bit, and the mma.sync tile's."""
+    n = resolve(mode).n_limbs
+    a, b = _randn(cuda, 70, 200, seed=207), _randn(cuda, 200, 72, seed=208)
+    al, bl = mp_matmul.mp_decompose(a, na), mp_matmul.mp_decompose(b, nb)
+
+    def pad(x):
+        z = torch.zeros((n - x.shape[0],) + tuple(x.shape[1:]),
+                        dtype=x.dtype, device=x.device)
+        return torch.cat([x, z]) if x.shape[0] < n else x
+
+    short = _tma_tile(al, bl, mode)
+    assert _bitwise(short, _tma_tile(pad(al), pad(bl), mode))
+    assert _bitwise(short, _mma_tile(al, bl, mode))
+
+
+@pytest.mark.parametrize("M", [8, 70])
+def test_minus_zero_and_subnormal_products_on_the_both_tile(cuda, M):
+    """compare_kernels.py's two edge cases through the both-prelimbed TMA
+    tile, on stacks cut from the operands: a row whose products are all
+    -0.0 (it stays +0.0) and the subnormal products, bitwise the mma.sync
+    tile at every format."""
+    neg = _randn(cuda, 70, 256, seed=209)
+    neg[3] = -0.0
+    pos = _randn(cuda, 256, 64, seed=210).abs() + 0.1
+    sub = _randn(cuda, 70, 16, seed=211)
+    sub[0] = 3.39e38 * torch.sign(sub[0])
+    sub[1, 3] = float("inf")
+    sub_b = _randn(cuda, 16, 8, seed=212)
+    sub_b[:, 4] = 1e-40
+    for a, b in ((neg, pos), (sub, sub_b)):
+        for mode in BUILTIN_MODES:
+            n = resolve(mode).n_limbs
+            al = mp_matmul.mp_decompose(a[:M], n)
+            bl = mp_matmul.mp_decompose(b, n)
+            out = _tma_tile(al, bl, mode)
+            assert _bitwise(out, _mma_tile(al, bl, mode)), mode
+            if a is neg:
+                assert (out[3] == 0).all() and not torch.signbit(out[3]).any()
+
+
+def test_both_routes_by_layout_and_format_on_the_card(cuda, custom_format):
+    """The wrapper's route: the TMA tile for a built-in format's mappable
+    stacks, the mma.sync tile for a run-time format, rows off 16 bytes and
+    a misaligned base; each counted on its route, no plain call."""
+    a, b = _randn(cuda, 70, 200, seed=213), _randn(cuda, 200, 72, seed=214)
+    al, bl = mp_matmul.mp_decompose(a, 7), mp_matmul.mp_decompose(b, 7)
+    odd = mp_matmul.mp_decompose(_randn(cuda, 70, 333, seed=215), 7)
+    odd_b = mp_matmul.mp_decompose(_randn(cuda, 333, 72, seed=216), 7)
+    shifted = mp_matmul.mp_decompose(_randn(cuda, 70, 208, seed=217), 7)
+    shifted = shifted[:, :, 1:201]   # rows of 416 bytes, base off 16 bytes
+    cases = [(al, bl, "M52", mp_matmul.TMA), (al, bl, CUSTOM, mp_matmul.MMA),
+             (odd, odd_b, "M52", mp_matmul.MMA),
+             (shifted, bl, "M52", mp_matmul.MMA)]
+    kernels.reset_launch_counts()
+    for x, y, mode, want in cases:
+        assert mp_matmul.both_route(x, y, mode) == want
+        out = mp_matmul.mp_both_prelimbed_matmul(x, y, mode)
+        _assert_mm_close(out, mp_matmul.both_prelimbed_matmul_plain(
+            x, y, mode), x.shape[-1])
+    assert kernels.route_counts()["mp_both_prelimbed_matmul"] == {
+        mp_matmul.TMA: 1, mp_matmul.MMA: 3}
+    assert kernels.plain_call_counts()["mp_both_prelimbed_matmul"] == 0
+    kernels.reset_launch_counts()
+    # the TMA tile refuses rows no tensor map reads, and raises
+    lib = build.load("mp_matmul_hopper")
+    mp_matmul._set_hopper_argtypes(lib)
+    args, _ = mp_matmul._both_operands(odd, odd_b)
+    with pytest.raises(RuntimeError):
+        build.check(lib.mp_hopper_both_prelimbed_launch(
+            *args, 7, 6, torch.cuda.current_stream().cuda_stream), "both")
+
+
+@pytest.mark.parametrize("mode", BUILTIN_MODES)
+def test_both_tile_pins_mirror(cuda, mode):
+    """The library's both-prelimbed tile (mp_both_tile) is autotune's
+    mirror: rows, columns, stages, shared memory, each warpgroup's
+    orders."""
+    from repro_torch.kernels import autotune
+
+    assert mp_matmul.both_tile(mode) == autotune.both_tile(mode)

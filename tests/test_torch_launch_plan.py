@@ -220,12 +220,15 @@ def test_reset_zeroes_the_route_counters():
     mm.mp_prelimbed_matmul.routes[mm.SPLIT] += 5
     mm.mp_mixed_prelimbed_matmul.routes[mm.SPLIT] += 7
     mm.mp_mixed_prelimbed_matmul.routes[mm.MMA] += 1
+    mm.mp_both_prelimbed_matmul.routes[mm.TMA] += 4
+    mm.mp_both_prelimbed_matmul.routes[mm.MMA] += 2
     kernels.reset_launch_counts()
     assert kernels.route_counts() == {
         "mp_fused_matmul": dict.fromkeys(mm.ROUTES, 0),
         "mp_fused_proj": dict.fromkeys(mm.PROJ_ROUTES, 0),
         "mp_prelimbed_matmul": dict.fromkeys(mm.PRELIMBED_ROUTES, 0),
         "mp_mixed_prelimbed_matmul": dict.fromkeys(mm.PRELIMBED_ROUTES, 0),
+        "mp_both_prelimbed_matmul": dict.fromkeys(mm.BOTH_ROUTES, 0),
         "mp_fused_matmul_partials": dict.fromkeys(mm.ROUTES, 0)}
     assert mm.PROJ_ROUTES == (mm.SPLIT, mm.TMA, mm.STRIDED)
 
@@ -638,3 +641,142 @@ def test_the_projection_tile_pins():
     assert at.tma_smem("M8", 3) == 1024 + 2 * (128 * 64 * 2 + 3 * 48 * 64 * 2) \
         + 2 * (128 + 3 * 48) * 64 * 4 + 32 <= at.SMEM_MAX
     assert at.tma_smem("M16", 3) <= at.SMEM_MAX
+
+
+# ---------------------------------------------------------------------------
+# the both-prelimbed matmul: its route by layout and format, its TMA tile's
+# pins (csrc/mp_matmul_hopper.cu both_tma_kernel)
+# ---------------------------------------------------------------------------
+def _stacks(n, M, K, N, shift=0):
+    """(n, M, K) and (n, K, N) bf16 stacks; ``shift`` elements cut off the
+    front of A's rows (a base off 16 bytes)."""
+    al = torch.zeros((n, M, K + shift), dtype=torch.bfloat16)[:, :, shift:]
+    return al, torch.zeros((n, K, N), dtype=torch.bfloat16)
+
+
+@pytest.mark.parametrize("case,mode,want", [
+    ("aligned", "M8", mm.TMA), ("aligned", "M16", mm.TMA),
+    ("aligned", "M23", mm.TMA), ("aligned", "M36", mm.TMA),
+    ("aligned", "M52", mm.TMA),
+    ("K 333 (rows of 666 bytes)", "M52", mm.MMA),
+    ("base off 16 bytes", "M52", mm.MMA),
+    ("N 77 (B's rows of 154 bytes)", "M36", mm.MMA),
+    ("run-time format", "X28BP", mm.MMA),
+])
+def test_both_routes_by_layout_and_format(fake_libs, case, mode, want):
+    """The TMA tile for a built-in format whose used planes a tensor map
+    reads, else the mma.sync tile; chosen before the launch, the format in
+    the launch's arguments."""
+    from repro_torch.core.formats import register_format, unregister_format
+
+    register_format("X28BP", mantissa_bits=28, n_limbs=4, max_order=3)
+    try:
+        fmt = resolve(mode)
+        K = 333 if case.startswith("K 333") else 200
+        N = 77 if case.startswith("N 77") else 72
+        al, bl = _stacks(fmt.n_limbs, 70, K, N,
+                         shift=1 if case.startswith("base") else 0)
+        assert mm.both_route(al, bl, fmt) == want
+        out, route = mm.launch_both_routed(0, al, bl, fmt)
+        assert route == want and out.shape == (70, N)
+        ((name, args),) = [c for lib in fake_libs.values() for c in lib.calls]
+        assert name == ("mp_hopper_both_prelimbed_launch" if want == mm.TMA
+                        else "mp_both_prelimbed_matmul_launch")
+        assert args[-3:-1] == (fmt.n_limbs, fmt.max_order)
+    finally:
+        unregister_format("X28BP")
+
+
+def test_both_route_reads_only_the_used_planes(fake_libs):
+    """A stack whose plane stride is off 16 bytes still takes the TMA tile
+    where the format reads one plane of it (M8), not where it reads
+    more."""
+    al = torch.zeros((3, 70 * 200 + 4), dtype=torch.bfloat16)
+    al = al[:, :70 * 200].view(3, 70, 200)
+    assert al.stride(0) % 8 != 0
+    bl = torch.zeros((3, 200, 72), dtype=torch.bfloat16)
+    assert mm.both_route(al, bl, "M8") == mm.TMA
+    assert mm.both_route(al, bl, "M16") == mm.MMA
+
+
+def test_the_both_wrapper_counts_its_routes(fake_libs, monkeypatch):
+    """On CUDA tensors the wrapper launches by the route and counts it
+    (the fake libraries stand in for the card)."""
+    monkeypatch.setattr(mm, "_on_cpu", lambda *t: False)
+    monkeypatch.setattr(mm, "_cuda_stream", lambda *t: 0)
+    kernels.reset_launch_counts()
+    for K in (200, 333, 200):
+        mm.mp_both_prelimbed_matmul(*_stacks(7, 70, K, 72), "M52")
+    assert kernels.route_counts()["mp_both_prelimbed_matmul"] == {
+        mm.TMA: 2, mm.MMA: 1}
+    assert kernels.launch_counts()["mp_both_prelimbed_matmul"] == 3
+    kernels.reset_launch_counts()
+    assert kernels.route_counts()["mp_both_prelimbed_matmul"] == {
+        mm.TMA: 0, mm.MMA: 0}
+
+
+@pytest.mark.parametrize("K,want", [(200, mm.TMA), (333, mm.MMA)])
+def test_the_both_launch_passes_its_argtypes(fake_libs, K, want):
+    """Each route's C entry gets as many arguments as its argtypes name."""
+    al, bl = _stacks(7, 70, K, 72)
+    _, route = mm.launch_both_routed(0, al, bl, resolve("M52"))
+    ((name, args),) = [c for lib in fake_libs.values() for c in lib.calls]
+    lib = fake_libs["mp_matmul_hopper" if route == mm.TMA else "mp_matmul"]
+    assert route == want and len(args) == len(getattr(lib, name).argtypes)
+
+
+@pytest.mark.parametrize("mode,bm,bn,stages,smem,orders", [
+    ("M8", 128, 128, 4, 1024 + 4 * (16384 + 16384) + 64, [[0], [0]]),
+    ("M16", 128, 64, 4, 1024 + 4 * 2 * (16384 + 8192) + 64,
+     [[0, 1], [0, 1]]),
+    ("M23", 128, 64, 3, 1024 + 3 * 3 * (16384 + 8192) + 64,
+     [[0, 1, 2], [0, 1, 2]]),
+    ("M36", 64, 64, 2, 1024 + 2 * 5 * (8192 + 8192) + 64,
+     [[0, 1, 4], [2, 3]]),
+    ("M52", 64, 48, 2, 1024 + 2 * 7 * (8192 + 8192) + 64,
+     [[0, 1, 2, 6], [3, 4, 5]]),
+])
+def test_both_tile_pins(mode, bm, bn, stages, smem, orders):
+    """The both-prelimbed TMA tile's mirror: rows, columns, ring stages
+    (as many as fit, at most four), shared memory; under the order split
+    each warpgroup's orders, balanced by products (M52 13 / 15, M36 8 /
+    7), and each thread's accumulators, the order's sum and a chain
+    within the 168 registers a thread of 384 has."""
+    got = at.both_tile(mode)
+    assert got == dict(bm=bm, bn=bn, stages=stages, smem=smem, orders=orders)
+    assert smem <= at.SMEM_MAX
+    fmt = resolve(mode)
+    per_order = [sum(1 for i, j in fmt.products if i + j == o)
+                 for o in range(fmt.n_orders)]
+    counts = [sum(per_order[o] for o in w) for w in orders]
+    if bm == 64:
+        assert sorted(sum(orders, [])) == list(range(fmt.n_orders))
+        assert abs(counts[0] - counts[1]) <= 2
+    chain = 1 if max(per_order) > 1 else 0
+    regs = (max(len(w) for w in orders) + 1 + chain) * bn // 2
+    assert regs <= 160
+
+
+@pytest.mark.parametrize("mode", ["M8", "M16", "M23", "M36", "M52"])
+def test_each_format_has_one_both_tile(mode):
+    """One tile a format: the orders split over two warpgroups on 64 rows
+    where five or seven orders fill them (M36, M52), else each warpgroup
+    64 of 128 rows and every order."""
+    fmt = resolve(mode)
+    got = at.both_tile(mode)
+    if fmt.n_orders in (5, 7):
+        assert got["bm"] == 64
+        assert not set(got["orders"][0]) & set(got["orders"][1])
+    else:
+        assert got["bm"] == 128
+        assert got["orders"] == [list(range(fmt.n_orders))] * 2
+
+
+def test_both_tile_keeps_the_generic_format_off():
+    from repro_torch.core.formats import register_format, unregister_format
+
+    register_format("X20BP", mantissa_bits=20, n_limbs=2, max_order=2)
+    try:
+        assert at.both_tile("X20BP") is None
+    finally:
+        unregister_format("X20BP")
