@@ -132,7 +132,19 @@ line is not printed):
    route, ``pipeline_forward`` of the 12 layers over the ranks bitwise
    the sequential forward, a depth-2 value-and-grad against the cuda
    backend, [train]'s checkpoint restored onto the ranks' mesh (each
-   shard bitwise its slice); ``hierarchical_psum`` on four ranks; the
+   shard bitwise its slice), then ``[fsdp]`` on the same ranks: three
+   ``Trainer.run`` steps of the full-width, full-depth model on the FSDP
+   layout of ``make_rules`` on a (data W, model 1) mesh (each rank its
+   blocks of params and moments, its rows of [train]'s batches) and a
+   checkpoint: losses, grad norms and replicated leaves bitwise equal on
+   every rank, each loss and grad norm within 1e-5 (step 1) / 5e-4 of
+   [train]'s, the gathered state after the last step within 5e-4 of each
+   leaf's max of [train]'s state after the same step (params and both
+   moments), launches per kernel and route of the one-rank step's formula (0
+   ``strided`` projections), collective calls and bytes of the formula,
+   resident state bytes the layout's, the checkpoint restored on one rank
+   == the gathered state bitwise; step ms and host ms in the collectives;
+   ``hierarchical_psum`` on four ranks; the
    serve launcher under ``torchrun``; a one-rank NCCL group (sharded ==
    cuda engine bitwise); which collectives gloo runs on CUDA tensors
    (``all_to_all`` included), against the set ``dist/collectives.py``
@@ -1932,33 +1944,52 @@ def _dist_setup():
 
 
 class CollectiveClock:
-    """Host milliseconds spent in ``torch.distributed.all_reduce`` while
-    entered, each call timed between two synchronizes (so the time is the
-    collective's own, not the kernels queued before it)."""
+    """Host milliseconds spent in the named collectives while entered
+    (default ``all_reduce``; ``all_gather``, ``reduce_scatter``: the
+    flat-tensor calls of ``dist/collectives.py``), each call timed between
+    two synchronizes (so the time is the collective's own, not the
+    kernels queued before it): ``ms`` / ``calls`` in all, ``by_name``."""
+
+    def __init__(self, *names):
+        self.names = names or ("all_reduce",)
+
+    def _target(self, name):
+        import torch.distributed as dist
+
+        from repro_torch.dist import collectives
+
+        return {"all_reduce": (dist, "all_reduce"),
+                "all_gather": (collectives, "_ALL_GATHER"),
+                "reduce_scatter": (collectives, "_REDUCE_SCATTER")}[name]
 
     def __enter__(self):
         import torch
-        import torch.distributed as dist
 
         self.ms, self.calls = 0.0, 0
-        self._real = dist.all_reduce
+        self.by_name = {n: {"ms": 0.0, "calls": 0} for n in self.names}
+        self._real = {}
+        for name in self.names:
+            mod, attr = self._target(name)
+            real = self._real[name] = getattr(mod, attr)
 
-        def timed(*args, **kw):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = self._real(*args, **kw)
-            torch.cuda.synchronize()
-            self.ms += (time.perf_counter() - t0) * 1e3
-            self.calls += 1
-            return out
+            def timed(*args, _real=real, _name=name, **kw):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = _real(*args, **kw)
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+                self.ms += ms
+                self.calls += 1
+                self.by_name[_name]["ms"] += ms
+                self.by_name[_name]["calls"] += 1
+                return out
 
-        dist.all_reduce = timed
+            setattr(mod, attr, timed)
         return self
 
     def __exit__(self, *exc):
-        import torch.distributed as dist
-
-        dist.all_reduce = self._real
+        for name, real in self._real.items():
+            setattr(*self._target(name), real)
         return False
 
 
@@ -2200,6 +2231,157 @@ def dist_train(seq, batch):
                 loss_rel=abs(ls.item() - lc.item()) / abs(lc.item()),
                 worst_leaf=worst, grads_sha1=digest.hexdigest(),
                 counts=cs)
+
+
+def fsdp_collectives(params, W: int, remat: bool = True) -> dict:
+    """Collective calls and bytes (each rank's input) of one training step
+    on the FSDP layout over W ranks: all_gather one per sharded leaf in the
+    forward and one per sharded layer leaf in remat's recompute (the
+    rank's block), reduce_scatter one per sharded leaf (the whole
+    cotangent), all_reduce one per replicated leaf (its gradient), the
+    clipping norm (4 bytes) and the metrics (loss, nll, params_finite: 3
+    floats)."""
+    from repro_torch import tree as tree_lib
+
+    sharded, reps = [], []
+    for p, x in tree_lib.items(params):
+        (sharded if x.ndim and x.shape[-1] % W == 0 else reps).append(
+            (p, x.numel() * x.element_size()))
+    again = [(p, b) for p, b in sharded if remat and p.startswith("layers/")]
+    return {
+        "all_gather": {"calls": len(sharded) + len(again),
+                       "bytes": sum(b // W for _, b in sharded + again)},
+        "reduce_scatter": {"calls": len(sharded),
+                           "bytes": sum(b for _, b in sharded)},
+        "all_reduce": {"calls": len(reps) + 2,
+                       "bytes": sum(b for _, b in reps) + 4 + 3 * 4}}
+
+
+def dist_fsdp(steps, seq, batch, ck_dir, train_dir):
+    """[fsdp]: ``Trainer.run`` of the full-width, full-depth model on the
+    FSDP layout of ``make_rules`` on a (data W, model 1) mesh: each rank
+    holds its blocks of params and moments and trains on its rows of
+    [train]'s batches; the losses, grad norms, launches, routes,
+    collectives (calls, bytes, host ms) of the run, the state's resident
+    bytes, and on rank 0 the gathered state against the one-rank restore
+    of its checkpoint (bitwise) and against [train]'s state after the same
+    steps (``train_dir``: each leaf's largest difference over its max)."""
+    torch = _dist_setup()
+    import hashlib
+
+    import torch.distributed as dist
+
+    from repro_torch import kernels
+    from repro_torch import tree as tree_lib
+    from repro_torch.checkpoint import checkpoint as ckpt_lib
+    from repro_torch.configs import paper_mpfp
+    from repro_torch.configs.shapes import ShapeCell
+    from repro_torch.core.policy import PrecisionPolicy
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.dist import fsdp
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import specs
+    from repro_torch.train import trainer as trainer_lib
+
+    cfg = paper_mpfp.CONFIG
+    W = dist.get_world_size()
+    mesh = mesh_lib.make_debug_mesh(data=W, model=1)
+    cell = ShapeCell("fsdp", seq, batch, "train")
+    layout = specs.fsdp_layout(cfg, cell, specs.make_rules(mesh, cell, cfg))
+    if layout is None:
+        raise AssertionError("make_rules gives [fsdp]'s cell no FSDP layout")
+    rules = layout.rules
+    tcfg = trainer_lib.TrainerConfig(total_steps=TRAIN_STEPS, warmup=2,
+                                     ckpt_dir=ck_dir, ckpt_every=steps,
+                                     keep=1)
+    trainer = trainer_lib.Trainer(cfg, tcfg,
+                                  policy=PrecisionPolicy.train_default(),
+                                  layout=layout)
+    pipe = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=seq + 1,
+                                  global_batch=batch))
+    state0 = trainer.init_state(seed=0)
+    storages = {x.untyped_storage().data_ptr(): x.untyped_storage().nbytes()
+                for x in tree_lib.leaves(state0)}
+    resident = sum(storages.values())
+    on_card = all(x.is_cuda for x in tree_lib.leaves(state0))
+    real_fn, norms, lrs, step_clock = trainer._step_fn, [], [], []
+    clock = CollectiveClock("all_gather", "reduce_scatter", "all_reduce")
+
+    def step_fn(state, b):
+        before = {k: v["ms"] for k, v in clock.by_name.items()}
+        new, metrics = real_fn(state, b)
+        norms.append(float(metrics["grad_norm"]))
+        lrs.append(float(metrics["lr"]))
+        step_clock.append({k: v["ms"] - before[k]
+                           for k, v in clock.by_name.items()})
+        return new, metrics
+
+    trainer._step_fn = step_fn
+    torch.cuda.synchronize()
+    _reset()
+    with clock:
+        t0 = time.perf_counter()
+        state, hist = trainer.run(pipe, num_steps=steps, log_every=0,
+                                  state=state0)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+    launches, coll = _counts()
+    routes, plain = kernels.route_counts(), kernels.plain_call_counts()
+    shardings = trainer.state_shardings()
+    reps = hashlib.sha1()
+    for (p, x), (_, s) in zip(tree_lib.items(state),
+                              tree_lib.items(shardings)):
+        if not fsdp.is_sharded(s):
+            reps.update(p.encode() + _bits(x).cpu().numpy().tobytes())
+    gathered = fsdp.full_tree(state, shardings)
+    ck_equal = vs_train = None
+    if dist.get_rank() == 0:
+        like = tree_lib.map_(torch.empty_like, gathered)
+        restored, _ = ckpt_lib.restore(ck_dir, steps, like)
+        ck_equal = all(torch.equal(_bits(a), _bits(b)) for a, b in zip(
+            tree_lib.leaves(restored), tree_lib.leaves(gathered)))
+        del restored
+        ref, _ = ckpt_lib.restore(train_dir, steps, like)
+        # per leaf: bitwise, the largest difference, the reference's max
+        vs_train = {}
+        for (p, a), b in zip(tree_lib.items(gathered), tree_lib.leaves(ref)):
+            diff = (a.double() - b.double()).abs().max().item() if a.numel() \
+                else 0.0
+            vs_train[p] = (bool(torch.equal(_bits(a), _bits(b))), diff,
+                           b.double().abs().max().item() if b.numel() else 0.0)
+        del ref, like
+    del gathered
+    dist.barrier()
+    return dict(
+        W=W, batch_axes=list(rules.batch_axes), losses=hist, norms=norms,
+        rollbacks=trainer.rollbacks, run_s=run_s,
+        step_ms=[t * 1e3 for t in trainer._step_times],
+        launches=launches, routes=routes, plain=plain, collectives=coll,
+        clock=clock.by_name, step_clock=step_clock, resident=resident,
+        on_card=on_card,
+        layout_bytes=sum(x.numel() * x.element_size()
+                         for x in tree_lib.leaves(state)),
+        replicated_sha1=reps.hexdigest(), checkpoint_equal=ck_equal,
+        vs_train=vs_train,
+        lrs=lrs, formula=fsdp_collectives(_meta_params(cfg), W, cfg.remat),
+        one_rank_bytes=sum(x.numel() * x.element_size()
+                           for x in tree_lib.leaves(_meta_state(cfg))))
+
+
+def _meta_params(cfg):
+    from repro_torch.models import transformer as T
+
+    return T.init_params(cfg, device="meta")
+
+
+def _meta_state(cfg):
+    """A one-rank train state's leaves (f32 moments) on ``meta``."""
+    from repro_torch.optim import adamw
+    from repro_torch.train import trainer as trainer_lib
+
+    params = _meta_params(cfg)
+    return trainer_lib.TrainState(params, adamw.init(params,
+                                                     adamw.AdamWConfig()))
 
 
 def _bits(t):
@@ -2588,6 +2770,7 @@ DIST_TASKS = {"generate": dist_generate, "scheduler": dist_scheduler,
               "sp_decode": dist_sp_decode, "pipeline": dist_pipeline,
               "train": dist_train, "restore": dist_restore,
               "collectives": dist_collectives, "gloo_ops": dist_gloo_ops,
+              "fsdp": dist_fsdp,
               "ep_grad": dist_ep_grad, "ep_generate": dist_ep_generate}
 
 
@@ -2674,10 +2857,167 @@ def _task(fail, label, reports, name):
     return None if bad else [rep[name] for rep in reports]
 
 
-def dist_phase(fail, cfg, params, main_prompts, sched_prompts, ck_dir, smi):
+FSDP_STEPS = 3   # [fsdp]: Trainer.run steps on the layout, then a checkpoint
+
+
+def adamw_drift(lrs) -> float:
+    """The most one parameter element of two AdamW runs from the same
+    state can differ after steps at ``lrs`` when their gradients differ
+    only in rounding: step t's update is lr_t (m̂/(√v̂ + eps) + wd p), and
+    |m̂/√v̂| <= R_t = sqrt(Σ_i w_i² / u_i) over the moments' weights
+    (Cauchy-Schwarz; w_i the first moment's, u_i the second's, bias
+    corrected), so a flipped update moves an element by at most 2 lr_t R_t
+    and the decay shrinks the difference already there; plus one f32
+    rounding of an element below 2 a step."""
+    from repro_torch.optim import adamw
+
+    o = adamw.AdamWConfig()
+    d = 0.0
+    for t, lr in enumerate(lrs, 1):
+        bc1, bc2 = 1 - o.b1 ** t, 1 - o.b2 ** t
+        r = math.sqrt(sum(((1 - o.b1) * o.b1 ** (t - i) / bc1) ** 2
+                          / ((1 - o.b2) * o.b2 ** (t - i) / bc2)
+                          for i in range(1, t + 1)))
+        d = d + 2 * lr * r + 2 ** -22
+    return d
+
+
+def fsdp_gates(fail, fs, train, cfg, smi) -> dict:
+    """[fsdp]'s gates over the ranks' reports: losses, grad norms and
+    replicated leaves bitwise equal on every rank; each loss against
+    [train]'s on the same batches (step 1 within 1e-5, later steps 5e-4
+    relative); launches per kernel and route of the one-rank step's
+    formula, 0 ``strided`` projections, no plain call; collective calls
+    and bytes of the formula (the steps' and the checkpoint's gathers);
+    resident state bytes the layout's (1/W of each leaf); the checkpoint
+    restored on one rank == the gathered state bitwise.  Each grad norm is
+    held against [train]'s as the losses are, and the gathered state (params
+    and both moments) against [train]'s state
+    after the same steps: a reduce-scatter that averaged, or a step that
+    lost a rank's rows, moves the norms and the moments where AdamW's
+    scale-free update barely moves the losses.  The parameters are held
+    within AdamW's drift (:func:`adamw_drift`), which a block in the
+    wrong place far exceeds."""
+    f0, n = fs[0], FSDP_STEPS
+    W = f0["W"]
+    same = all(f["losses"] == f0["losses"] and f["norms"] == f0["norms"]
+               and f["replicated_sha1"] == f0["replicated_sha1"]
+               and f["launches"] == f0["launches"] for f in fs)
+    want = train["losses"][:n]
+    rel = [abs(a - b) / abs(b) for a, b in zip(f0["losses"], want)]
+    log(f"[fsdp] {W} ranks, batch axes {f0['batch_axes']}: losses "
+        f"{f0['losses']} vs [train] {want} (rel {[f'{r:.2e}' for r in rel]}"
+        f"; bounds 1e-5, then 5e-4); grad norms {f0['norms']}; ranks equal "
+        f"(losses, norms, replicated leaves, launches) {same}")
+    fail.check(same, "[fsdp] ranks differ")
+    fail.check(len(rel) == n and f0["rollbacks"] == 0 and rel[0] <= 1e-5
+               and all(r <= 5e-4 for r in rel[1:]),
+               "[fsdp] losses off [train]'s")
+    want_norms = train["norms"][:n]
+    norm_rel = [abs(a - b) / abs(b) for a, b in zip(f0["norms"], want_norms)]
+    log(f"[fsdp] grad norms {f0['norms']} vs [train] {want_norms} (rel "
+        f"{[f'{r:.2e}' for r in norm_rel]}; bounds 1e-5, then 5e-4)")
+    fail.check(len(norm_rel) == n and norm_rel[0] <= 1e-5
+               and all(r <= 5e-4 for r in norm_rel[1:]),
+               "[fsdp] grad norms off [train]'s")
+    # the moments within 5e-4 of each leaf's max of [train]'s; each
+    # parameter within the drift AdamW allows two runs whose gradients
+    # differ only in rounding (a flipped update of a near-zero gradient
+    # moves an element by up to 2 lr R_t; the losses, norms and moments
+    # show that they do not differ more)
+    vt = f0["vs_train"]
+    bound = adamw_drift(f0["lrs"])
+    groups = {"params": ("0/", lambda d, mx: d / bound),
+              "m": ("1/1/", lambda d, mx: d / max(mx, 1e-30) / 5e-4),
+              "v": ("1/2/", lambda d, mx: d / max(mx, 1e-30) / 5e-4)}
+    worst, ok = {}, vt.get("1/0", (False,))[0]
+    for g, (pre, share) in groups.items():
+        shares = {p: share(d, mx) for p, (_, d, mx) in vt.items()
+                  if p.startswith(pre)}
+        w = max(shares, key=shares.get)
+        worst[g] = {"leaf": w, "diff": vt[w][1], "max": vt[w][2],
+                    "share_of_bound": shares[w],
+                    "bitwise": sum(vt[p][0] for p in shares),
+                    "leaves": len(shares)}
+        ok = ok and shares[w] <= 1.0
+    log(f"[fsdp] the gathered state after {n} steps against [train]'s after "
+        f"{n}: the step bitwise {vt.get('1/0', (False,))[0]}; "
+        + "; ".join(f"{g} {w['bitwise']} of {w['leaves']} leaves bitwise, "
+                    f"worst {w['leaf']} {w['diff']:.3e} (leaf max "
+                    f"{w['max']:.3e}), {w['share_of_bound']:.3f} of its "
+                    f"bound" for g, w in worst.items())
+        + f" (bounds: params {bound:.3e} absolute, AdamW's drift over the "
+          f"lrs {f0['lrs']}; m, v 5e-4 of the leaf's max)")
+    fail.check(ok, "[fsdp] the state off [train]'s")
+    want_launches = {k: n * v for k, v in train["launches_per_step"].items()}
+    routes_ok = all(
+        f0["routes"][k][r] * TRAIN_STEPS == n * c
+        for k, v in train["routes"].items() for r, c in v.items())
+    plain = [f["plain"] for f in fs if any(f["plain"].values())]
+    log(f"[fsdp] launches {nonzero(f0['launches'])} (want "
+        f"{nonzero(want_launches)}); routes "
+        f"{ {k: v for k, v in f0['routes'].items() if any(v.values())} }; "
+        f"plain calls {plain or 0}")
+    fail.check(f0["launches"] == want_launches and routes_ok
+               and f0["routes"]["mp_fused_proj"]["strided"] == 0
+               and not plain, "[fsdp] launches or routes off the formula")
+    per = f0["formula"]
+    rs = per["reduce_scatter"]
+    want_coll = {
+        "all_gather": {"calls": n * per["all_gather"]["calls"]
+                       + 3 * rs["calls"],
+                       "bytes": n * per["all_gather"]["bytes"]
+                       + 3 * rs["bytes"] // W},
+        "reduce_scatter": {k: n * v for k, v in rs.items()},
+        "all_reduce": {k: n * v for k, v in per["all_reduce"].items()}}
+    got_coll = [{k: {c: f["collectives"][k][c] for c in ("calls", "bytes")}
+                 for k in want_coll} for f in fs]
+    log(f"[fsdp] collectives of {n} steps and the checkpoint "
+        f"{got_coll[0]} (want {want_coll}; a step: {per})")
+    fail.check(all(g == want_coll for g in got_coll),
+               "[fsdp] collectives off the formula")
+    step = 4   # the AdamW step counter, int32, on every rank
+    want_bytes = (f0["one_rank_bytes"] - step) // W + step
+    log(f"[fsdp] resident params + moments a rank "
+        f"{[f['resident'] for f in fs]} bytes (the layout's "
+        f"{f0['layout_bytes']}, one rank's {f0['one_rank_bytes']} / {W} + "
+        f"the step = {want_bytes}); on the card {f0['on_card']}")
+    fail.check(all(f["resident"] == f["layout_bytes"] == want_bytes
+                   and f["on_card"] for f in fs),
+               "[fsdp] resident bytes off the layout's")
+    log(f"[fsdp] the checkpoint (rank 0 wrote the global arrays) restored "
+        f"on one rank == the gathered state bitwise: "
+        f"{f0['checkpoint_equal']}")
+    fail.check(f0["checkpoint_equal"] is True, "[fsdp] checkpoint")
+    for r, f in enumerate(fs):
+        clk = {k: f"{v['ms']:.1f} ms / {v['calls']}"
+               for k, v in f["clock"].items()}
+        per = {k: [round(c[k], 1) for c in f["step_clock"]]
+               for k in f["clock"]}
+        log(f"[fsdp] rank {r}: step ms {[round(x, 2) for x in f['step_ms']]}"
+            f", host ms in collectives a step {per}; in the run and the "
+            f"checkpoint (calls) {clk}; run {f['run_s']:.2f} s ({smi})")
+    return dict(W=W, losses=f0["losses"], train_losses=want, loss_rel=rel,
+                norms=f0["norms"], train_norms=want_norms, norm_rel=norm_rel,
+                vs_train=worst, drift_bound=bound,
+                launches=f0["launches"],
+                routes=f0["routes"], collectives=got_coll[0],
+                collectives_per_step=per,
+                step_ms={r: f["step_ms"] for r, f in enumerate(fs)},
+                clock={r: f["clock"] for r, f in enumerate(fs)},
+                step_clock={r: f["step_clock"] for r, f in enumerate(fs)},
+                resident=[f["resident"] for f in fs],
+                one_rank_bytes=f0["one_rank_bytes"],
+                checkpoint_equal=f0["checkpoint_equal"], card=smi)
+
+
+def dist_phase(fail, cfg, params, main_prompts, sched_prompts, ck_dir, smi,
+               train):
     """[dist]: full-width serving, the scheduler, sequence-parallel decode,
     the pipeline, a training value-and-grad and elastic restore across W
-    ranks; the collectives on four; the torchrun launcher; one-rank NCCL."""
+    ranks, then [fsdp] on the same ranks (``train``: [train]'s report, its
+    losses and routes on the same batches); the collectives on four; the
+    torchrun launcher; one-rank NCCL."""
     import numpy as np
     import torch
 
@@ -2702,9 +3042,17 @@ def dist_phase(fail, cfg, params, main_prompts, sched_prompts, ck_dir, smi):
              ("sp_decode", dict(lengths=sp_lengths)),
              ("pipeline", dict(n_micro=4)),
              ("train", dict(seq=TRAIN_SEQ, batch=TRAIN_BATCH)),
-             ("restore", dict(ck_dir=str(ck_dir), step=TRAIN_STEPS))]
+             ("restore", dict(ck_dir=str(ck_dir), step=TRAIN_STEPS)),
+             ("fsdp", dict(steps=FSDP_STEPS, seq=TRAIN_SEQ,
+                           batch=TRAIN_BATCH,
+                           ck_dir=str(ROOT / "build" / "fsdp_ckpt"),
+                           train_dir=train["fsdp_ref_dir"]))]
     t0 = time.perf_counter()
-    reports = run_ranks(W, tasks, backend=backend)
+    try:
+        reports = run_ranks(W, tasks, backend=backend)
+    finally:
+        shutil.rmtree(ROOT / "build" / "fsdp_ckpt", ignore_errors=True)
+        shutil.rmtree(train["fsdp_ref_dir"], ignore_errors=True)
     ranks_s = time.perf_counter() - t0
     log(f"[dist] {W} ranks over {reports[0]['backend']} "
         f"({'one card each' if n_dev >= 2 else 'sharing one card'}): "
@@ -2872,6 +3220,11 @@ def dist_phase(fail, cfg, params, main_prompts, sched_prompts, ck_dir, smi):
         fail.check(all(r["equal"] for r in rs) and rs[0]["n_sharded"] > 0,
                    "[dist] elastic restore")
         res["restore"] = rs[0]
+
+    # ---- [fsdp]: the training step on the FSDP layout ------------------------------
+    fs = _task(fail, "[fsdp]", reports, "fsdp")
+    if fs is not None:
+        res["fsdp"] = fsdp_gates(fail, fs, train, cfg, smi)
 
     # ---- collectives on four ranks --------------------------------------------------
     t0 = time.perf_counter()
@@ -5308,11 +5661,27 @@ def main() -> int:
     # resident before the path: the serving weights and phase 3's inputs
     t_base = torch.cuda.memory_allocated()
     kernels.reset_launch_counts()
+    # each step's grad norm and the state after FSDP_STEPS steps, which
+    # [fsdp] holds its own against (kept on the card, written after the run)
+    run_fn, t_norms, at_fsdp = trainer._step_fn, [], []
+
+    def keep_step(state_, batch_):
+        new_, metrics_ = run_fn(state_, batch_)
+        t_norms.append(metrics_["grad_norm"])
+        if len(t_norms) == FSDP_STEPS:
+            at_fsdp.append(new_)
+        return new_, metrics_
+
+    trainer._step_fn = keep_step
     t0 = time.perf_counter()
     state, hist = trainer.run(pipe, num_steps=TRAIN_STEPS, log_every=0,
                               state=state0)
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
+    trainer._step_fn = run_fn
+    t_norms = [float(x) for x in t_norms]
+    fsdp_ref_dir = ROOT / "build" / "train_fsdp_ref"
+    ckpt_lib.save(str(fsdp_ref_dir), FSDP_STEPS, at_fsdp.pop(), keep=1)
     t_launches = kernels.launch_counts()
     t_routes = kernels.route_counts()
     t_peak = torch.cuda.max_memory_allocated()
@@ -5422,7 +5791,8 @@ def main() -> int:
         busy_by_name=t_by_name, peak_bytes=t_peak,
         resident_before_bytes=t_base, launches=t_launches, routes=t_routes,
         launches_per_step=per_step, loss_rel_vs_ref=loss_rel,
-        grad_err_vs_ref=leaf_err, wgrad=wgrads)
+        grad_err_vs_ref=leaf_err, wgrad=wgrads, norms=t_norms,
+        fsdp_ref_dir=str(fsdp_ref_dir))
 
     # ---- 4f'. [autotune] and [roofline] -----------------------------------
     t0 = time.perf_counter()
@@ -5475,7 +5845,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     try:
         new["dist"] = fail.run("[dist]", dist_phase, fail, cfg, params,
-                               prompts, sched_prompts, ck_dir, smi)
+                               prompts, sched_prompts, ck_dir, smi,
+                               report["train"])
     finally:
         shutil.rmtree(ck_dir, ignore_errors=True)
     new["ep"] = fail.run("[ep]", ep_phase, fail, smi)

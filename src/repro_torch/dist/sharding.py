@@ -22,6 +22,8 @@ import contextvars
 import dataclasses
 from typing import Optional, Tuple
 
+import torch
+
 from repro_torch import tree as tree_lib
 
 
@@ -211,6 +213,64 @@ def param_shardings(params, rules: AxisRules):
         return Sharding(mesh, tuple(entries))
 
     return _map_with_path(leaf, params)
+
+
+# ---------------------------------------------------------------------------
+# the per-rank view of a layout
+# ---------------------------------------------------------------------------
+def axes_of(entry) -> Tuple[str, ...]:
+    return (entry,) if isinstance(entry, str) else tuple(entry or ())
+
+
+def shard_index(mesh, entry) -> Tuple[int, int]:
+    """(this rank's block, the number of blocks) along a dim laid out by a
+    spec ``entry``: the row-major index of the rank's mesh coordinates over
+    the entry's axes, in the entry's order — the block JAX's
+    ``NamedSharding.devices_indices_map`` gives the device at the same
+    coordinates.  (0, 1) for ``None``."""
+    coord = dict(zip(_names(mesh), mesh.get_coordinate()))
+    idx, n = 0, 1
+    for a in axes_of(entry):
+        idx, n = idx * _size(mesh, a) + coord[a], n * _size(mesh, a)
+    return idx, n
+
+
+def _blocks(sharding: Sharding, shape):
+    """Per dim: (block, number of blocks); a dim that does not divide its
+    axes stays whole (``param_shardings``' rule)."""
+    out = []
+    for d, e in enumerate(sharding.spec):
+        idx, n = shard_index(sharding.mesh, e)
+        out.append((idx, n) if shape[d] % n == 0 else (0, 1))
+    return out
+
+
+def local_shape(sharding: Sharding, shape) -> Tuple[int, ...]:
+    """The shape of this rank's block of a global ``shape``."""
+    return tuple(s // n for s, (_, n) in zip(shape, _blocks(sharding, shape)))
+
+
+def block(sharding: Sharding, shape) -> Tuple[slice, ...]:
+    """This rank's block of a global ``shape``: one slice a dim."""
+    return tuple(slice(idx * (s // n), (idx + 1) * (s // n))
+                 for s, (idx, n) in zip(shape, _blocks(sharding, shape)))
+
+
+def shard(x, sharding: Sharding):
+    """This rank's block of the global tensor ``x`` (a contiguous copy, so
+    it holds no reference to the whole)."""
+    return x[block(sharding, x.shape)].clone(
+        memory_format=torch.contiguous_format)
+
+
+def batch_rows(rules: AxisRules, B: int) -> slice:
+    """This rank's rows of a global batch of ``B`` rows laid out over the
+    rules' batch axes (JAX's ``P(batch, ...)``)."""
+    idx, n = shard_index(rules.mesh, rules.batch)
+    if B % n:
+        raise ValueError(f"a batch of {B} rows does not split over the "
+                         f"{n} ranks of the batch axes {rules.batch}")
+    return slice(idx * B // n, (idx + 1) * B // n)
 
 
 def expert_shardings(params, mesh, *, model_axis: str = "model",

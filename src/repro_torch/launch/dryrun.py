@@ -24,14 +24,18 @@ One JSON record per cell lands in ``build/dryrun/<mesh>_<arch>_<shape>.json``:
 ``status`` ``ok``, or ``skip`` with the reason (the shape does not apply to
 the arch, as ``configs.shapes.applicability`` decides; or the port's path
 does not run on meta tensors or the fake group, with the error), the JAX
-layout decisions (``make_rules``), ``n_chips``, ``trace_s`` (the seconds
+layout decisions (``make_rules``) with ``layout.ported`` (true where the
+step ran on the rank's blocks: a train cell under pure FSDP rules without
+MoE layers, ``specs.fsdp_layout``), ``n_chips``, ``trace_s`` (the seconds
 of the meta run: eager PyTorch has no lowering or compile), ``memory`` (per
 rank: the argument bytes by group, params, optimizer state, cache and batch,
 and the output bytes; ``peak_bytes`` is null, since a meta run allocates
 nothing and records no temporaries, and eager PyTorch frees activations as
 it goes), ``work`` (FLOPs, bytes, collective bytes by kind, per rank) and
-``roofline`` (the H100 SXM's constants, NVLink as the link).  The port keeps
-parameters whole on every rank, so the records show what it holds.
+``roofline`` (the H100 SXM's constants, NVLink as the link).  The records
+show what the port holds: a ported cell's blocks (Σ over leaves of the
+block's numel × item size) and rows, every other cell's whole parameters,
+state, cache and batch on every rank.
 """
 from __future__ import annotations
 
@@ -143,7 +147,8 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, out_dir: str, *,
         "trace_s": trace_s,
         "layout": {"batch_axes": [a for a in rules.batch_axes if a],
                    "seq_axes": list(rules.seq_axes),
-                   "tp_enabled": rules.tp_enabled},
+                   "tp_enabled": rules.tp_enabled,
+                   "ported": cell.layout is not None},
         "memory": {
             **{f"{k}_bytes": v for k, v in groups.items()},
             "argument_bytes": sum(groups.values()),

@@ -10,12 +10,20 @@ one cell: the port's own step (``train.trainer.make_train_step``,
 Layout.  :func:`make_rules` decides the JAX package's layout (batch axes,
 sequence axes, tensor parallelism) from the mesh's axis names and sizes
 alone, so it takes a ``torch.distributed`` DeviceMesh or any stand-in with
-``axis_names`` and a ``shape`` dict.  The port does not shard by those
-rules: it keeps parameters, optimizer state, batch and cache whole on every
-rank and shards the contraction of each 2-D matmul over the mesh's
-``data`` axis (the ``sharded`` backend; ROADMAP.md Queue 3).  The
-structures here are what the port holds per rank, so they have the global
-shapes.
+``axis_names`` and a ``shape`` dict.  The structures here are what the
+port holds per rank:
+
+* a train cell whose rules are pure FSDP (batch axes only: no sequence
+  axes, no TP) of a family without MoE layers runs the port's FSDP step
+  (:func:`fsdp_layout`, ``dist/fsdp.py``): parameters and AdamW moments
+  take this rank's block shapes (``param_shardings``), the batch this
+  rank's rows, and the step runs on the ``cuda`` backend (each matmul on
+  the rank's rows; nothing K-sharded on top of the layout);
+* every other cell (prefill, decode, the TP and sequence-sharded layouts,
+  the MoE) keeps parameters, optimizer state, batch and cache whole on
+  every rank and shards the contraction of each 2-D matmul over the
+  mesh's ``data`` axis (the ``sharded`` backend; ROADMAP.md Queue 1): its
+  structures have the global shapes.
 """
 from __future__ import annotations
 
@@ -29,6 +37,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.shapes import SHAPES, ShapeCell
 from repro_torch.core import context as context_lib
 from repro_torch.core.policy import PrecisionPolicy
+from repro_torch.dist import fsdp as fsdp_lib
 from repro_torch.dist import sharding as sh_lib
 from repro_torch.models import transformer as T
 from repro_torch.optim import adamw
@@ -112,17 +121,39 @@ class Cell:
     # the meta arguments by group: params, opt, cache, batch
     groups: Dict[str, Any] = dataclasses.field(default_factory=dict)
     rules: Optional[sh_lib.AxisRules] = None
+    # the FSDP layout the step runs on (None: the whole-rank run)
+    layout: Optional[fsdp_lib.Layout] = None
 
 
 def _meta(shape, dtype) -> torch.Tensor:
     return torch.empty(shape, dtype=dtype, device=META)
 
 
-def batch_structs(cfg: ModelConfig, cell: ShapeCell, rules=None
-                  ) -> Dict[str, torch.Tensor]:
-    """The step's inputs at the global batch (int32 tokens, f32 stub
-    embeddings, as the pipelines make them)."""
-    B, S = cell.global_batch, cell.seq_len
+def fsdp_layout(cfg: ModelConfig, cell: ShapeCell, rules
+                ) -> Optional[fsdp_lib.Layout]:
+    """The FSDP layout a cell's step runs on, or None for the whole-rank
+    run: a train cell under pure FSDP rules whose batch axes span more than
+    one rank (on one, nothing is sharded), of a family without MoE layers
+    (whose router statistics would need a global reduction).  The one
+    place the port decides it: the dry run, the launcher and
+    ``Trainer(layout=...)``'s callers take it from here."""
+    if not (cell.phase == "train" and fsdp_lib.is_pure_fsdp(rules)
+            and rules.axis_size(rules.batch) > 1 and cfg.family != "moe"):
+        return None
+    return fsdp_lib.make_layout(T.init_params(cfg, device=META), rules)
+
+
+def _rows(cell: ShapeCell, layout) -> int:
+    return cell.global_batch // layout.size if layout is not None \
+        else cell.global_batch
+
+
+def batch_structs(cfg: ModelConfig, cell: ShapeCell, rules=None,
+                  layout=None) -> Dict[str, torch.Tensor]:
+    """The step's inputs at the global batch, or this rank's rows of it
+    under ``layout`` (int32 tokens, f32 stub embeddings, as the pipelines
+    make them)."""
+    B, S = _rows(cell, layout), cell.seq_len
     if cfg.family == "audio":
         return {"embeds": _meta((B, S, cfg.d_model), torch.float32)}
     if cfg.family == "vlm":
@@ -132,19 +163,24 @@ def batch_structs(cfg: ModelConfig, cell: ShapeCell, rules=None
     return {"tokens": _meta((B, S), torch.int32)}
 
 
-def label_struct(cfg: ModelConfig, cell: ShapeCell, rules=None
-                 ) -> torch.Tensor:
-    B, S = cell.global_batch, cell.seq_len
+def label_struct(cfg: ModelConfig, cell: ShapeCell, rules=None,
+                 layout=None) -> torch.Tensor:
+    B, S = _rows(cell, layout), cell.seq_len
     S_lab = S - cfg.n_patches if cfg.family == "vlm" else S
     return _meta((B, S_lab), torch.int32)
 
 
-def params_structs(cfg: ModelConfig, rules=None) -> dict:
-    return T.init_params(cfg, device=META)
+def params_structs(cfg: ModelConfig, rules=None, layout=None) -> dict:
+    """The parameters' global shapes, or this rank's blocks' under
+    ``layout``."""
+    params = T.init_params(cfg, device=META)
+    if layout is not None:
+        params = fsdp_lib.local_structs(params, layout.params)
+    return params
 
 
-def state_structs(cfg: ModelConfig, rules, moment_dtype: str):
-    params = params_structs(cfg, rules)
+def state_structs(cfg: ModelConfig, rules, moment_dtype: str, layout=None):
+    params = params_structs(cfg, rules, layout)
     ocfg = adamw.AdamWConfig(moment_dtype=moment_dtype)
     return trainer_lib.TrainState(params, adamw.init(params, ocfg)), ocfg
 
@@ -155,13 +191,19 @@ def cache_structs(cfg: ModelConfig, cell: ShapeCell, rules=None,
                         device=META)
 
 
-def _scoped(step: Callable, rules, mesh) -> Callable:
+def _scoped(step: Callable, rules, mesh, layout=None) -> Callable:
     """Run ``step`` under the cell's rules and, across ranks, the
-    ``sharded`` backend on ``mesh`` (the port's multi-rank code); on one
-    process under the context's backend."""
+    ``sharded`` backend on ``mesh`` (the port's whole-rank multi-rank
+    code) or, under an FSDP ``layout``, the ``cuda`` backend (the step
+    gathers; each matmul runs on the rank's rows); on one process under
+    the context's backend."""
     def fn(*args):
-        ctx = context_lib.context(backend="sharded", mesh=mesh) \
-            if mesh is not None else context_lib.context()
+        if layout is not None:
+            ctx = context_lib.context(backend="cuda")
+        elif mesh is not None:
+            ctx = context_lib.context(backend="sharded", mesh=mesh)
+        else:
+            ctx = context_lib.context()
         with sh_lib.use_rules(rules), ctx:
             return step(*args)
 
@@ -178,16 +220,20 @@ def build_cell(arch: str, cfg: ModelConfig, shape: Union[str, ShapeCell],
     policy = policy or PrecisionPolicy.train_default()
 
     if cell.phase == "train":
+        layout = fsdp_layout(cfg, cell, rules)
         moment_dtype = "bfloat16" if cfg.param_count() > 5e10 else "float32"
-        state, ocfg = state_structs(cfg, rules, moment_dtype)
+        state, ocfg = state_structs(cfg, rules, moment_dtype, layout)
         tcfg = trainer_lib.TrainerConfig(opt=ocfg)
-        step = trainer_lib.make_train_step(cfg, policy, tcfg, mesh=mesh)
-        batch = batch_structs(cfg, cell, rules)
-        batch["labels"] = label_struct(cfg, cell, rules)
-        return Cell(arch, cell.name, "train", _scoped(step, rules, mesh),
-                    (state, batch), donate=(0,),
+        step = trainer_lib.make_train_step(
+            cfg, policy, tcfg, mesh=mesh if layout is None else None,
+            layout=layout)
+        batch = batch_structs(cfg, cell, rules, layout)
+        batch["labels"] = label_struct(cfg, cell, rules, layout)
+        return Cell(arch, cell.name, "train",
+                    _scoped(step, rules, mesh, layout), (state, batch),
+                    donate=(0,),
                     groups={"params": state.params, "opt": state.opt,
-                            "batch": batch}, rules=rules)
+                            "batch": batch}, rules=rules, layout=layout)
 
     params = params_structs(cfg, rules)
     if cell.phase == "prefill":

@@ -3,12 +3,23 @@
     PYTHONPATH=src python -m repro_torch.launch.train --smoke --steps 50 \\
         --policy train_default --device cpu
 
-Across ranks (the ``sharded`` backend; every rank takes the same steps on
-the same batches, rank 0 prints, every rank checks that its losses equal
-rank 0's and checkpoints into its own ``rank<r>`` directory):
+Across ranks under torchrun the launcher lays the state out as the JAX
+launcher does, by ``launch/specs.make_rules`` on a (data = W, model = 1)
+mesh ("the mesh, sharding rules and step function are identical to the
+dry-run's"): for a non-MoE family whose batch divides the ranks that is
+the FSDP layout (``dist/fsdp.py``): each rank holds its blocks of the
+parameters and moments, trains on its rows of each batch, and rank 0
+writes the one checkpoint directory (the global arrays).  Each matmul then
+runs on the rank's rows (``--backend sharded`` would K-shard them again
+over the ranks: the trainer refuses it under the layout).  Where the
+layout does not apply (``specs.fsdp_layout``: the MoE family, a batch
+that does not divide the ranks) every rank holds the whole state, takes the same steps on the same batches under
+``--backend`` (``sharded``: K-sharded matmuls) and checkpoints into its own
+``rank<r>`` directory.  Rank 0 prints; every rank checks that its losses
+equal rank 0's:
 
     PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \
-        --smoke --steps 4 --backend sharded --device cpu
+        --smoke --steps 4 --device cpu
 
 Runs on the card unless ``--device cpu`` is given (every kernel wrapper
 then runs its plain version).  ``--arch`` takes every id of
@@ -23,9 +34,11 @@ import argparse
 import os
 
 from repro_torch.configs.registry import ARCH_IDS, get_config
+from repro_torch.configs.shapes import ShapeCell
 from repro_torch.core.policy import POLICIES, get_policy
 from repro_torch.data.pipeline import DataConfig, SyntheticLM
 from repro_torch.launch import mesh as mesh_lib
+from repro_torch.launch import specs as specs_lib
 from repro_torch.optim import adamw
 from repro_torch.train import trainer as trainer_lib
 
@@ -45,7 +58,8 @@ def main(argv=None):
                     choices=sorted(POLICIES))
     ap.add_argument("--backend", default="",
                     help="mp_matmul dispatch backend (cuda/ref/sharded); "
-                         "'' = the context's default")
+                         "'' = the context's default; 'sharded' only "
+                         "where the FSDP layout does not apply")
     ap.add_argument("--ckpt-dir", default="",
                     help="default: build/ckpt/<arch> in the checkout")
     ap.add_argument("--moment-dtype", default="float32")
@@ -55,17 +69,28 @@ def main(argv=None):
     info = mesh_lib.join_from_env(args.device)
     if info is not None:
         args.device = str(info.device)
-        args.ckpt_dir = os.path.join(args.ckpt_dir or os.path.join(
-            ROOT, "build", "ckpt", args.arch), f"rank{info.rank}")
     with mesh_lib.rank0_prints(info):
-        return _train(args)
+        return _train(args, info)
 
 
-def _train(args):
+def _train(args, info=None):
     cfg = get_config(args.arch, smoke=args.smoke)
     if not args.smoke and cfg.param_count() > 1e9 and args.device == "cpu":
         raise SystemExit(f"{args.arch} full config is {cfg.param_count():,} "
                          f"params — use --smoke on the CPU")
+    ckpt_dir = args.ckpt_dir or os.path.join(ROOT, "build", "ckpt",
+                                             args.arch)
+    layout = None
+    if info is not None:
+        mesh = mesh_lib.make_debug_mesh(data=info.world_size, model=1)
+        cell = ShapeCell("launch", args.seq, args.batch, "train")
+        layout = specs_lib.fsdp_layout(cfg, cell,
+                                       specs_lib.make_rules(mesh, cell, cfg))
+        if layout is not None:
+            print(f"FSDP layout over {info.world_size} ranks, batch axes "
+                  f"{layout.rules.batch_axes}")
+        else:
+            ckpt_dir = os.path.join(ckpt_dir, f"rank{info.rank}")
 
     pipe = SyntheticLM(DataConfig(
         vocab=cfg.vocab, seq_len=args.seq + 1, global_batch=args.batch,
@@ -74,11 +99,10 @@ def _train(args):
     tcfg = trainer_lib.TrainerConfig(
         opt=adamw.AdamWConfig(moment_dtype=args.moment_dtype),
         total_steps=args.steps, warmup=max(2, args.steps // 20),
-        ckpt_dir=args.ckpt_dir or os.path.join(ROOT, "build", "ckpt",
-                                               args.arch),
-        ckpt_every=max(10, args.steps // 5), matmul_backend=args.backend)
+        ckpt_dir=ckpt_dir, ckpt_every=max(10, args.steps // 5),
+        matmul_backend=args.backend)
     trainer = trainer_lib.Trainer(cfg, tcfg, policy=get_policy(args.policy),
-                                  device=args.device)
+                                  device=args.device, layout=layout)
     state, history = trainer.run(pipe, num_steps=args.steps, log_every=10)
     mesh_lib.check_same_on_every_rank(history, "losses")
     if history:

@@ -18,7 +18,14 @@ JAX package scans stacked ``(L, ...)`` leaves; see
 MoE or Mamba2 layer alone, or ``cfg.scan_group`` of them together (JAX's
 nested scan), and each zamba2 group (the shared block with its LoRA, then
 its Mamba2 layers) as one region.  ``cfg.scan_layers=False`` is the JAX
-package's unrolled loop, which does not rematerialize."""
+package's unrolled loop, which does not rematerialize.
+
+Under an FSDP layout (``dist.fsdp.use_layout``; the training step installs
+it) the parameters are this rank's blocks: the forward gathers each
+layer's leaves right before the layer runs — again in remat's recompute —
+and the embedding, the hybrid's shared block, the final norm and the head
+where it first uses them (``dist.fsdp.gatherer``).  With no layout the
+hook is the identity."""
 from __future__ import annotations
 
 import contextlib
@@ -33,6 +40,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import auto as auto_lib
 from repro_torch.core import dispatch as dispatch_lib
 from repro_torch.core.policy import PrecisionPolicy
+from repro_torch.dist import fsdp as fsdp_lib
 from repro_torch.dist import sharding as sharding_lib
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import mla as mla_lib
@@ -288,19 +296,22 @@ def _needs_grad(h: torch.Tensor, layers) -> bool:
 
 
 def _stack(layers: List[dict], h: torch.Tensor, aux: torch.Tensor,
-           cfg: ModelConfig, caches: Optional[List], step):
+           cfg: ModelConfig, caches: Optional[List], step, pre=None):
     """Run ``step(lp, h, cache) -> (h, new cache, aux (2,) or None)`` over
     the layers in order, adding their aux values to ``aux`` in layer order
     (JAX's ``_scan_layers``).  Under autograd with ``cfg.remat`` (and
     ``cfg.scan_layers``) each layer — or each group of ``cfg.scan_group``
     layers where that divides the stack, JAX's nested scan — is one
-    rematerialized region."""
+    rematerialized region.  ``pre(i, lp)`` (the FSDP gather) runs right
+    before layer ``i``, inside its region."""
     n = len(layers)
+    pre = pre or (lambda i, lp: lp)
     if not (cfg.remat and cfg.scan_layers and caches is None
             and _needs_grad(h, layers)):
         new_caches = []
         for i, lp in enumerate(layers):
-            h, nc, a = step(lp, h, caches[i] if caches is not None else None)
+            h, nc, a = step(pre(i, lp), h,
+                            caches[i] if caches is not None else None)
             if a is not None:
                 aux = aux + a
             new_caches.append(nc)
@@ -308,10 +319,10 @@ def _stack(layers: List[dict], h: torch.Tensor, aux: torch.Tensor,
     g = max(1, cfg.scan_group)
     g = g if g > 1 and n % g == 0 and n > g else 1
 
-    def region(group):
+    def region(s):
         def body(h, aux):
-            for lp in group:
-                h, _, a = step(lp, h, None)
+            for i in range(s, s + g):
+                h, _, a = step(pre(i, layers[i]), h, None)
                 if a is not None:
                     aux = aux + a
             return h, aux
@@ -319,7 +330,7 @@ def _stack(layers: List[dict], h: torch.Tensor, aux: torch.Tensor,
         return body
 
     for s in range(0, n, g):
-        h, aux = _remat(region(layers[s:s + g]), h, aux)
+        h, aux = _remat(region(s), h, aux)
     return h, aux, []
 
 
@@ -337,8 +348,16 @@ def forward(params: dict, inputs: Dict[str, torch.Tensor], cfg: ModelConfig,
     rules); the other families take and ignore it.  The aux losses are
     ``{"moe_aux", "moe_zloss"}``, the MoE layers' summed in layer order
     (zeros for the other families)."""
+    gather = fsdp_lib.gatherer()
+    if fsdp_lib.current_layout() is not None and cfg.family == "moe":
+        raise NotImplementedError(
+            "the MoE family under an FSDP layout: its router statistics "
+            "(the load-balance aux's expert fractions and mean "
+            "probabilities) need a global reduction over the batch group, "
+            "which the port does not have; a per-rank aux would differ "
+            "from the JAX step's")
     if "tokens" in inputs:
-        h = embed(inputs["tokens"], params["embed"]["table"])
+        h = embed(inputs["tokens"], gather(params["embed"], "embed")["table"])
         if "patch_embeds" in inputs and cfg.family == "vlm":
             h = torch.cat([inputs["patch_embeds"].to(h.dtype), h], dim=1)
     else:
@@ -357,9 +376,13 @@ def forward(params: dict, inputs: Dict[str, torch.Tensor], cfg: ModelConfig,
         h, nc = _dense_layer_fwd(lp, h, cfg, policy, positions, lc)
         return h, nc, None
 
+    def layer(key):
+        return lambda i, lp: gather(lp, key, i)
+
     if cfg.family in ("dense", "vlm", "audio"):
         h, aux, nc = _stack(params["layers"], h, aux, cfg,
-                            cache.attn if has_cache else None, dense_step)
+                            cache.attn if has_cache else None, dense_step,
+                            layer("layers"))
         new_cache = ModelCache(nc) if has_cache else None
     elif cfg.family == "moe":
         moe_kw = sharding_lib.moe_layer_kwargs() if mesh is not None else None
@@ -384,17 +407,18 @@ def forward(params: dict, inputs: Dict[str, torch.Tensor], cfg: ModelConfig,
             return h, nc, None
 
         h, aux, nc = _stack(params["layers"], h, aux, cfg,
-                            cache.ssm if has_cache else None, ssm_step)
+                            cache.ssm if has_cache else None, ssm_step,
+                            layer("layers"))
         if has_cache:
             new_cache = ModelCache(ssm=nc)
     elif cfg.family == "hybrid":
         h, new_cache = _hybrid_forward(params, h, cfg, policy, positions,
-                                       cache)
+                                       cache, gather)
     else:
         raise ValueError(cfg.family)
-    h = rms_norm(h, params["ln_final"]["w"], cfg.norm_eps)
-    head = params["ctc_head"] if cfg.family == "audio" else params["lm_head"]
-    logits = unembed(h, head["w"], policy)
+    h = rms_norm(h, gather(params["ln_final"], "ln_final")["w"], cfg.norm_eps)
+    head = "ctc_head" if cfg.family == "audio" else "lm_head"
+    logits = unembed(h, gather(params[head], head)["w"], policy)
     if cfg.padded_vocab != cfg.vocab:
         logits = logits[..., :cfg.vocab]
     return logits, {"moe_aux": aux[0], "moe_zloss": aux[1]}, new_cache
@@ -402,12 +426,14 @@ def forward(params: dict, inputs: Dict[str, torch.Tensor], cfg: ModelConfig,
 
 def _hybrid_forward(params: dict, h: torch.Tensor, cfg: ModelConfig,
                     policy: PrecisionPolicy, positions: torch.Tensor,
-                    cache: Optional[ModelCache]):
+                    cache: Optional[ModelCache], gather):
     """zamba2: per group, the ONE shared attention + MLP block (with this
     group's LoRA on wq / wo) then ``hybrid_attn_every`` Mamba2 layers;
     under autograd with ``cfg.remat`` each group is one rematerialized
-    region (JAX: ``jax.checkpoint`` of the group scan's body)."""
-    shared = params["shared_block"]
+    region (JAX: ``jax.checkpoint`` of the group scan's body).  ``gather``
+    (the FSDP hook) takes the shared block once, each group's LoRA and
+    Mamba2 layers inside the group."""
+    shared = gather(params["shared_block"], "shared_block")
     loras = params.get("shared_lora")
     every = cfg.hybrid_attn_every
     has_cache = cache is not None
@@ -418,14 +444,16 @@ def _hybrid_forward(params: dict, h: torch.Tensor, cfg: ModelConfig,
         a_out, nac = _attn_block(
             shared, a_in, cfg, policy, positions,
             cache.shared_attn[g] if has_cache else None,
-            lora=loras[g] if loras is not None else None)
+            lora=(gather(loras[g], "shared_lora", g) if loras is not None
+                  else None))
         h = h + a_out
         m_in = rms_norm(h, shared["ln2"]["w"], cfg.norm_eps)
         m = shared["mlp"]
         h = h + swiglu_mlp(m_in, m["w_gate"], m["w_up"], m["w_down"], policy)
         ncs = []
         for i in range(g * every, (g + 1) * every):
-            h, nc = _ssm_layer_fwd(params["layers"][i], h, cfg, policy,
+            h, nc = _ssm_layer_fwd(gather(params["layers"][i], "layers", i),
+                                   h, cfg, policy,
                                    cache.ssm[i] if has_cache else None)
             ncs.append(nc)
         return h, nac, ncs

@@ -5,6 +5,12 @@ f32, with the global-norm clip and the bias corrections in the JAX
 package's f32 arithmetic, in the same order of operations.  Parameters are
 the port's trees (nested dicts and lists of tensors, ``repro_torch.tree``);
 an update makes new tensors and leaves the old ones as they were.
+
+Under an FSDP layout (``dist.fsdp.Layout``) the parameters, gradients and
+moments are this rank's blocks: the elementwise update runs on them
+unchanged, and the clipping norm is the whole gradient's (the sharded
+leaves' squares summed over the batch group, the replicated leaves' added
+once), the same on every rank.
 """
 from __future__ import annotations
 
@@ -14,6 +20,7 @@ from typing import Any, NamedTuple, Tuple
 import torch
 
 from repro_torch import tree as tree_lib
+from repro_torch.dist import collectives, fsdp
 
 
 class AdamWState(NamedTuple):
@@ -52,21 +59,35 @@ def init(params, cfg: AdamWConfig) -> AdamWState:
                       v=tree_lib.map_(zeros, params))
 
 
-def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum of squares of every leaf, the leaves' sums added in
-    flattening order (f32)."""
+def _sum_sq(xs):
     total = None
-    for x in tree_lib.leaves(tree):
+    for x in xs:
         sq = torch.sum(torch.square(x.float()))
         total = sq if total is None else total + sq
-    return torch.sqrt(total)
+    return total
+
+
+def global_norm(tree, layout=None) -> torch.Tensor:
+    """sqrt of the sum of squares of every leaf, the leaves' sums added in
+    flattening order (f32).  Under ``layout`` (``tree`` this rank's blocks)
+    the sharded leaves' sum is all-reduced over the batch group, then the
+    replicated leaves' sum is added."""
+    if layout is None:
+        return torch.sqrt(_sum_sq(tree_lib.leaves(tree)))
+    pairs = list(zip(tree_lib.leaves(tree), tree_lib.leaves(layout.params)))
+    local = _sum_sq([x for x, s in pairs if fsdp.is_sharded(s)])
+    if local is None:
+        local = torch.zeros((), device=pairs[0][0].device)
+    total = collectives.all_reduce(local, layout.group)
+    rep = _sum_sq([x for x, s in pairs if not fsdp.is_sharded(s)])
+    return torch.sqrt(total if rep is None else total + rep)
 
 
 @torch.no_grad()
 def apply(params, grads, state: AdamWState, cfg: AdamWConfig,
-          lr_scale=1.0) -> Tuple[Any, AdamWState, dict]:
+          lr_scale=1.0, layout=None) -> Tuple[Any, AdamWState, dict]:
     """One AdamW update.  Returns (new_params, new_state, metrics)."""
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, layout)
     clip = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-12),
                        max=1.0)
     step = state.step + 1

@@ -1,6 +1,6 @@
 """Fault-tolerant training loop and its step (port of
-``repro.train.trainer``; every model family, on one device or with the
-MoE family's expert-parallel mesh).
+``repro.train.trainer``; every model family, on one device, with the
+MoE family's expert-parallel mesh, or across ranks in the FSDP layout).
 
     train_step(state, batch) -> (state', metrics)
 
@@ -20,6 +20,14 @@ Fault tolerance (held against the JAX package's tests):
     data pipeline replays from the stored step;
   * straggler hook: steps slower than ``straggler_factor`` x the rolling
     median are counted.
+
+The FSDP layout (``dist/fsdp.py``; ``launch/specs.fsdp_layout`` decides
+it from ``make_rules``): ``Trainer(layout=...)`` holds this rank's block of
+every parameter and moment (``param_shardings``) and feeds the step its
+rows of each global batch;
+the step returns the global loss and metrics (reduced over the batch
+group, so every rank rolls back together) and the blocks' new values, and
+checkpoints hold the global arrays (gathered, written by rank 0).
 
 The trainer runs on the card (``device="cuda"``) unless the caller asks for
 the CPU, where every kernel wrapper runs its plain version; without a card
@@ -41,6 +49,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import context as context_lib
 from repro_torch.core.classify import all_finite
 from repro_torch.core.policy import PrecisionPolicy
+from repro_torch.dist import fsdp as fsdp_lib
+from repro_torch.dist import sharding as sh_lib
 from repro_torch.models import transformer as T
 from repro_torch.optim import adamw
 from repro_torch.optim import schedule as sched_lib
@@ -124,8 +134,14 @@ def _backend_scope(name: str):
 
 
 def make_train_step(cfg: ModelConfig, policy: PrecisionPolicy,
-                    tcfg: TrainerConfig, mesh=None) -> Callable:
+                    tcfg: TrainerConfig, mesh=None,
+                    layout: Optional[fsdp_lib.Layout] = None) -> Callable:
+    """``train_step(state, batch) -> (state', metrics)``.  Under an FSDP
+    ``layout`` the state holds this rank's blocks and ``batch`` its rows;
+    the metrics are the global ones, the same on every rank."""
     loss_fn = make_loss_fn(cfg, policy, tcfg, mesh=mesh)
+    if layout is not None:
+        loss_fn = fsdp_lib.local_loss(loss_fn, layout)
     sched = sched_lib.SCHEDULES[tcfg.schedule]
 
     def train_step(state: TrainState, batch) -> Tuple[TrainState, Dict]:
@@ -140,9 +156,11 @@ def make_train_step(cfg: ModelConfig, policy: PrecisionPolicy,
         lr_scale = sched(state.opt.step, warmup=tcfg.warmup,
                          total=tcfg.total_steps)
         new_params, new_opt, opt_metrics = adamw.apply(
-            state.params, grads, state.opt, tcfg.opt, lr_scale)
+            state.params, grads, state.opt, tcfg.opt, lr_scale, layout)
         metrics.update(opt_metrics)
         metrics["params_finite"] = all_finite(new_params).float()
+        if layout is not None:
+            metrics = fsdp_lib.reduce_metrics(metrics, layout)
         return TrainState(new_params, new_opt), metrics
 
     return train_step
@@ -182,7 +200,8 @@ class Trainer:
     def __init__(self, cfg: ModelConfig, tcfg: TrainerConfig,
                  policy: Optional[PrecisionPolicy] = None,
                  escalation_policy: Optional[PrecisionPolicy] = None,
-                 device: str = "cuda", mesh=None):
+                 device: str = "cuda", mesh=None,
+                 layout: Optional[fsdp_lib.Layout] = None):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Trainer(device='cuda') needs a CUDA device; "
@@ -191,14 +210,22 @@ class Trainer:
         self.cfg = cfg
         self.tcfg = tcfg
         # passed to the forward, as in the JAX package (the MoE family's
-        # expert-parallel mesh; the dense family ignores it)
+        # expert-parallel mesh; the other families ignore it)
         self.mesh = mesh
+        # the FSDP layout of the state and the step (None: the whole state
+        # on this rank)
+        self.layout = layout
+        if layout is not None and tcfg.matmul_backend == "sharded":
+            raise ValueError("the FSDP layout runs each matmul on the "
+                             "rank's rows; the sharded backend would "
+                             "K-shard them again over the mesh")
         # explicit policy > active PrecisionContext's policy > recipe default
         self.policy = (policy or context_lib.current_context().policy
                        or PrecisionPolicy.train_default())
         self.escalation_policy = (escalation_policy
                                   or PrecisionPolicy.full_fp32())
-        self._step_fn = make_train_step(cfg, self.policy, tcfg, mesh=mesh)
+        self._step_fn = make_train_step(cfg, self.policy, tcfg,
+                                        mesh=self.mesh, layout=self.layout)
         self._escalated_fn = None
         self._step_times: list = []
         self.straggler_events = 0
@@ -206,12 +233,31 @@ class Trainer:
         self.metrics = MetricsLogger(tcfg.metrics_path or None)
 
     def init_state(self, seed: int = 0) -> TrainState:
+        """The state from ``seed``; under the layout, this rank's blocks of
+        the whole ``init_params`` (the one-rank values)."""
         params = T.init_params(self.cfg, seed, device=self.device)
+        if self.layout is not None:
+            params = fsdp_lib.shard_tree(params, self.layout.params)
         return TrainState(params, adamw.init(params, self.tcfg.opt))
+
+    def state_shardings(self) -> Optional[TrainState]:
+        """The layout's :class:`~repro_torch.dist.sharding.Sharding` of
+        every leaf of the state (the moments the parameters'; the step
+        replicated), or None without a layout."""
+        if self.layout is None:
+            return None
+        p = self.layout.params
+        step = sh_lib.Sharding(self.layout.rules.mesh, ())
+        return TrainState(p, adamw.AdamWState(step, p, p))
 
     def to_device(self, batch: Dict[str, np.ndarray]
                   ) -> Dict[str, torch.Tensor]:
-        """A pipeline's numpy batch on the trainer's device."""
+        """A pipeline's numpy batch on the trainer's device; under the
+        layout, this rank's rows of it."""
+        if self.layout is not None:
+            rows = sh_lib.batch_rows(self.layout.rules,
+                                     len(next(iter(batch.values()))))
+            batch = {k: v[rows] for k, v in batch.items()}
         return {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
                 for k, v in batch.items()}
 
@@ -221,7 +267,9 @@ class Trainer:
         step = ckpt_lib.latest_step(self.tcfg.ckpt_dir)
         if step is None:
             return state, 0
-        restored, extra = ckpt_lib.restore(self.tcfg.ckpt_dir, step, state)
+        restored, extra = ckpt_lib.restore(
+            self.tcfg.ckpt_dir, step, state,
+            shardings=self.state_shardings(), local=True)
         return restored, int(extra.get("data_step", step))
 
     def run(self, pipeline, *, start_step: int = 0, num_steps: int = 100,
@@ -250,7 +298,7 @@ class Trainer:
                     if self._escalated_fn is None:
                         self._escalated_fn = make_train_step(
                             self.cfg, self.escalation_policy, self.tcfg,
-                            mesh=self.mesh)
+                            mesh=self.mesh, layout=self.layout)
                     fn = self._escalated_fn
                 continue
 
@@ -262,7 +310,8 @@ class Trainer:
             if self.tcfg.ckpt_dir and step % self.tcfg.ckpt_every == 0:
                 ckpt_lib.save(self.tcfg.ckpt_dir, step, state,
                               keep=self.tcfg.keep,
-                              extra_meta={"data_step": step})
+                              extra_meta={"data_step": step},
+                              shardings=self.state_shardings())
                 last_good = step
             if log_every and step % log_every == 0:
                 print(f"step {step:5d} loss {loss:.4f} "

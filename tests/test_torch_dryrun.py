@@ -130,15 +130,33 @@ def _leaves(tree):
 CELLS = (("deepseek-7b", "decode_32k"),          # dense
          ("deepseek-v2-lite-16b", "decode_32k"),  # MoE (MLA)
          ("mamba2-130m", "long_500k"),            # SSM
-         ("hubert-xlarge", "train_4k"),           # encoder-only
+         ("hubert-xlarge", "train_4k"),           # encoder-only, FSDP
+         ("deepseek-7b", "train_4k"),             # dense, FSDP
          ("hubert-xlarge", "decode_32k"),         # skip: no decode step
          ("deepseek-7b", "long_500k"))            # skip: full attention
+
+
+def _fsdp_ported(want, cfg, shape) -> bool:
+    """Does the port run this cell on its FSDP layout: a train cell whose
+    JAX rules shard the batch alone, of a family without MoE layers."""
+    return (JSHAPES[shape].phase == "train" and want.batch_axes != (None,)
+            and not want.seq_axes and not want.tp_enabled
+            and cfg.family != "moe")
+
+
+def _block_bytes(tree, n: int) -> int:
+    """JAX's FSDP arithmetic: each leaf's trailing dim over the n ranks of
+    the batch axes where it divides, else the whole leaf."""
+    return sum(x.numel() * x.element_size() // (
+        n if x.ndim and x.shape[-1] % n == 0 else 1) for x in _leaves(tree))
 
 
 def test_cells_in_a_subprocess(tmp_path):
     """Full-size cells as rank 0 of the 256-rank fake world: ok records with
     the layout of ``make_rules``, per-rank work and memory, the H100
-    roofline; skip records with JAX's reasons."""
+    roofline; skip records with JAX's reasons.  A train cell under pure
+    FSDP rules (``layout.ported``) holds the layout's blocks and rows and
+    gathers and reduce-scatters them; every other cell whole parameters."""
     out = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.dryrun", "--mesh",
          "single", "--out", str(tmp_path), "--cells",
@@ -157,13 +175,24 @@ def test_cells_in_a_subprocess(tmp_path):
         assert rec["n_chips"] == 256 and rec["trace_s"] > 0
         want = jspecs.make_rules(StandInMesh(False), JSHAPES[shape],
                                  jget_config(arch))
+        cfg = get_config(arch)
+        ported = _fsdp_ported(want, cfg, shape)
         assert rec["layout"] == {
             "batch_axes": [a for a in want.batch_axes if a],
-            "seq_axes": list(want.seq_axes), "tp_enabled": want.tp_enabled}
+            "seq_axes": list(want.seq_axes), "tp_enabled": want.tp_enabled,
+            "ported": ported}
         mem, work = rec["memory"], rec["work"]
-        cfg = get_config(arch)
-        # the port holds the parameters whole on every rank
-        assert mem["params_bytes"] == nbytes(specs.params_structs(cfg))
+        if ported:   # this rank's blocks of params and f32 moments, its rows
+            params = specs.params_structs(cfg)
+            assert mem["params_bytes"] == _block_bytes(params, 256)
+            assert mem["opt_bytes"] == 2 * _block_bytes(params, 256) + 4
+            batch = specs.batch_structs(cfg, JSHAPES[shape])
+            batch["labels"] = specs.label_struct(cfg, JSHAPES[shape])
+            assert mem["batch_bytes"] == nbytes(batch) // 256
+            assert work["collective_bytes"]["all_gather"] > 0
+            assert work["collective_bytes"]["reduce_scatter"] > 0
+        else:        # the port holds the parameters whole on every rank
+            assert mem["params_bytes"] == nbytes(specs.params_structs(cfg))
         assert mem["argument_bytes"] == sum(
             v for k, v in mem.items() if k.endswith("_bytes")
             and k not in ("argument_bytes", "output_bytes", "peak_bytes"))
@@ -177,3 +206,9 @@ def test_cells_in_a_subprocess(tmp_path):
         if shape == "train_4k":   # K-sharded matmuls: the all-reduces
             assert work["collective_bytes"]["all_reduce"] > 0
     assert arch in assigned_archs()
+    # deepseek-7b at train_4k: every leaf's trailing dim divides 256, so a
+    # rank holds 1/256 of the 27.6 GB of f32 parameters (107,974,464 bytes)
+    with open(tmp_path / "singlepod_deepseek-7b_train_4k.json") as f:
+        assert json.load(f)["memory"]["params_bytes"] == nbytes(
+            specs.params_structs(get_config("deepseek-7b"))) // 256 \
+            == 107_974_464

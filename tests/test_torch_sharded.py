@@ -418,14 +418,20 @@ def test_trainer_value_and_grad_under_sharded(pool, jax_params):
 
 # ------------------------------------------------------------------ launchers
 @pytest.mark.parametrize("module,args", [
-    ("repro_torch.launch.serve", ["--requests", "2", "--max-new", "3"]),
+    ("repro_torch.launch.serve", ["--requests", "2", "--max-new", "3",
+                                  "--backend", "sharded"]),
     ("repro_torch.launch.train", ["--steps", "2", "--batch", "2", "--seq",
-                                  "16"])])
+                                  "16"]),
+    ("repro_torch.launch.train", ["--steps", "2", "--batch", "3", "--seq",
+                                  "16", "--backend", "sharded"])])
 def test_launcher_under_torchrun_on_two_gloo_ranks(tmp_path, module, args):
     """``torchrun --nproc-per-node 2 -m repro_torch.launch.{serve,train}
-    --backend sharded --device cpu``: each rank joins the group from
-    torchrun's environment, rank 0 alone prints, and the run ends 0 only
-    if every rank's tokens (losses) equal rank 0's."""
+    --device cpu``: each rank joins the group from torchrun's environment,
+    rank 0 alone prints, and the run ends 0 only if every rank's tokens
+    (losses) equal rank 0's.  The server runs ``--backend sharded``; the
+    trainer lays a batch of 2 out on the FSDP layout (``make_rules``), and
+    a batch of 3, which does not divide the ranks, runs whole on every rank
+    under ``--backend sharded``."""
     import os
     import subprocess
     import sys
@@ -437,8 +443,8 @@ def test_launcher_under_torchrun_on_two_gloo_ranks(tmp_path, module, args):
         if module.endswith("train") else []
     run = subprocess.run(
         [sys.executable, "-m", "torch.distributed.run", "--standalone",
-         "--nproc-per-node", "2", "-m", module, "--smoke", "--backend",
-         "sharded", "--device", "cpu", *args, *extra],
+         "--nproc-per-node", "2", "-m", module, "--smoke", "--device", "cpu",
+         *args, *extra],
         cwd=str(tmp_path), env=env, capture_output=True, text=True,
         timeout=240)
     assert run.returncode == 0, run.stderr[-3000:]
@@ -447,4 +453,7 @@ def test_launcher_under_torchrun_on_two_gloo_ranks(tmp_path, module, args):
                  if ln.startswith("req")]
         assert len(lines) == 2          # rank 0's two streams, once
     else:
+        fsdp = "--backend" not in args
+        assert run.stdout.count("FSDP layout over 2 ranks") == int(fsdp)
+        assert run.stdout.count("done: loss") == 1
         assert run.stdout.count("done: loss") == 1

@@ -463,3 +463,209 @@ def moe_model_serve_train(jax_params, prompts, max_new, ck_dir):
                 _np(got["layers"][0]["moe"]["router"].to_local()),
                 _np(state.params["layers"][0]["moe"]["router"]))
     return out
+
+
+# ---------------------------------------------------------------- FSDP
+def _fsdp_cfg(arch, overrides):
+    import dataclasses
+
+    from repro_torch.configs import registry
+
+    return dataclasses.replace(registry.get_config(arch, smoke=True),
+                               **(overrides or {}))
+
+
+def _fsdp_trainer(cfg, mesh, batch, **tcfg_kw):
+    """A trainer on the layout the port's ``make_rules`` gives a train cell
+    of ``batch``'s rows on ``mesh`` (``specs.fsdp_layout``, as the launcher
+    and the dry run take it)."""
+    from repro_torch.configs.shapes import ShapeCell
+    from repro_torch.core.policy import PrecisionPolicy
+    from repro_torch.launch import specs
+    from repro_torch.optim import adamw
+    from repro_torch.train import trainer as trainer_lib
+
+    B, S = batch["labels"].shape
+    if cfg.family == "vlm":
+        S += cfg.n_patches
+    cell = ShapeCell("smoke", S, B, "train")
+    layout = specs.fsdp_layout(cfg, cell, specs.make_rules(mesh, cell, cfg))
+    assert layout is not None, "make_rules gives this cell no FSDP layout"
+    tcfg = trainer_lib.TrainerConfig(opt=adamw.AdamWConfig(lr=1e-3),
+                                     total_steps=30, warmup=2, **tcfg_kw)
+    return trainer_lib.Trainer(cfg, tcfg, policy=PrecisionPolicy
+                               .train_default(), device="cpu", layout=layout)
+
+
+class _Batches:
+    def __init__(self, batches):
+        self.batches = batches
+
+    def batch(self, step):
+        return self.batches[step]
+
+
+def _state(cfg, jax_params, opt_cfg):
+    from repro_torch.optim import adamw
+    from repro_torch.train import trainer as trainer_lib
+    from repro_torch.weights import params_from_jax
+
+    params = params_from_jax(jax_params)
+    return trainer_lib.TrainState(params, adamw.init(params, opt_cfg))
+
+
+def fsdp_blocks(runs):
+    """Each run (arch, overrides, a numbered global train state and batch
+    of the port's structure): this rank's mesh coordinates, its block of
+    every state leaf under the trainer's layout and its rows of the
+    batch."""
+    from repro_torch.dist import fsdp
+
+    mesh = mesh_lib.make_debug_mesh(data=2, model=2)
+    out = {"coord": tuple(mesh.get_coordinate())}
+    for name, (arch, overrides, state, batch) in runs.items():
+        tr = _fsdp_trainer(_fsdp_cfg(arch, overrides), mesh, batch)
+        state = tree_lib.map_(_t, state)
+        blocks = fsdp.shard_tree(state, tr.state_shardings())
+        out[name] = ({p: _np(x) for p, x in tree_lib.items(blocks)},
+                     {k: _np(v) for k, v in tr.to_device(batch).items()})
+    return out
+
+
+def fsdp_vs_one_rank(arch, overrides, jax_params, batch):
+    """One train_default step of a SMOKE config under the FSDP layout on a
+    (data 2, model 2) mesh and on one rank (this process, the whole batch):
+    each rank's rows' logits and the one-rank logits of the same rows, the
+    gathered gradients and the one-rank ones, the step's loss, metrics,
+    new state (gathered) and collectives, the one-rank step's."""
+    from repro_torch.dist import fsdp
+    from repro_torch.models import transformer as T
+    from repro_torch.train import trainer as trainer_lib
+
+    cfg = _fsdp_cfg(arch, overrides)
+    mesh = mesh_lib.make_debug_mesh(data=2, model=2)
+    tr = _fsdp_trainer(cfg, mesh, batch)
+    layout = tr.layout
+    full = _state(cfg, jax_params, tr.tcfg.opt)
+    local = fsdp.shard_tree(full, tr.state_shardings())
+    gb = {k: _t(v) for k, v in batch.items()}
+    lb = tr.to_device(batch)
+    inputs = lambda b: {k: v for k, v in b.items() if k != "labels"}  # noqa
+    with torch.no_grad():
+        with fsdp.use_layout(layout):
+            logits = T.forward(local.params, inputs(lb), cfg, tr.policy)[0]
+        one_logits = T.forward(full.params, inputs(gb), cfg, tr.policy)[0]
+    loss_fn = trainer_lib.make_loss_fn(cfg, tr.policy, tr.tcfg)
+    (_, _), g_loc = trainer_lib.value_and_grad(
+        fsdp.local_loss(loss_fn, layout), local.params, lb)
+    (_, _), g_one = trainer_lib.value_and_grad(loss_fn, full.params, gb)
+    collectives.reset_counts()
+    new, metrics = tr._step_fn(local, lb)
+    counts = collectives.counts()
+    one_step = trainer_lib.make_train_step(cfg, tr.policy, tr.tcfg)
+    collectives.reset_counts()
+    one_new, one_metrics = one_step(full, gb)
+    one_counts = collectives.counts()
+    rows = tr.to_device({"r": np.arange(len(batch["labels"]))})["r"]
+    new_full = fsdp.full_tree(new, tr.state_shardings())
+    reps = {p: _np(x) for (p, x), (_, s) in zip(
+        tree_lib.items(new), tree_lib.items(tr.state_shardings()))
+        if not fsdp.is_sharded(s)}
+    as_np = lambda t: {p: _np(x) for p, x in tree_lib.items(t)}  # noqa
+    return {
+        "rows": _np(rows), "logits": _np(logits),
+        "one_logits": _np(one_logits),
+        "grads": as_np(fsdp.full_tree(g_loc, layout.params)),
+        "one_grads": as_np(g_one),
+        "metrics": {k: _np(v) for k, v in metrics.items()},
+        "one_metrics": {k: _np(v) for k, v in one_metrics.items()},
+        "new": as_np(new_full), "one_new": as_np(one_new),
+        "replicated": reps, "counts": counts, "one_counts": one_counts,
+        "local_bytes": sum(x.numel() * x.element_size()
+                           for x in tree_lib.leaves(local)),
+        "sharded": {p: fsdp.is_sharded(s)
+                    for p, s in tree_lib.items(layout.params)},
+    }
+
+
+def fsdp_jax_steps(jax_params, batches):
+    """paper-mpfp-100m SMOKE under the layout: one step's gathered new
+    state and loss from ``batches[0]``, then ``Trainer.run`` over all of
+    ``batches`` from the same state (its losses)."""
+    from repro_torch.dist import fsdp
+
+    cfg = _fsdp_cfg("paper-mpfp-100m", None)
+    mesh = mesh_lib.make_debug_mesh(data=2, model=2)
+    tr = _fsdp_trainer(cfg, mesh, batches[0])
+    local = fsdp.shard_tree(_state(cfg, jax_params, tr.tcfg.opt),
+                            tr.state_shardings())
+    new, metrics = tr._step_fn(local, tr.to_device(batches[0]))
+    new = fsdp.full_tree(new, tr.state_shardings())
+
+    _, hist = tr.run(_Batches(batches), num_steps=len(batches), log_every=0,
+                     state=local)
+    return {"loss": float(metrics["loss"]),
+            "new": {p: _np(x) for p, x in tree_lib.items(new)},
+            "history": hist}
+
+
+def fsdp_checkpoints(jax_params, batches, ck4, ck1):
+    """Two ``Trainer.run`` steps under the layout checkpointing into
+    ``ck4`` (rank 0 writes the global arrays): the gathered state; then a
+    trainer restoring ``ck1`` (a one-rank checkpoint): this rank's blocks
+    of it."""
+    from repro_torch.dist import fsdp
+
+    cfg = _fsdp_cfg("paper-mpfp-100m", None)
+    mesh = mesh_lib.make_debug_mesh(data=2, model=2)
+    tr = _fsdp_trainer(cfg, mesh, batches[0], ckpt_dir=ck4, ckpt_every=2)
+    local = fsdp.shard_tree(_state(cfg, jax_params, tr.tcfg.opt),
+                            tr.state_shardings())
+
+    state, _ = tr.run(_Batches(batches), num_steps=2, log_every=0, state=local)
+    gathered = fsdp.full_tree(state, tr.state_shardings())
+    tr1 = _fsdp_trainer(cfg, mesh, batches[0], ckpt_dir=ck1)
+    restored, data_step = tr1.maybe_restore(tr1.init_state())
+    return {"gathered": {p: _np(x) for p, x in tree_lib.items(gathered)},
+            "restored": {p: _np(x) for p, x in tree_lib.items(restored)},
+            "data_step": data_step, "coord": tuple(mesh.get_coordinate())}
+
+
+def fsdp_nan_rollback(jax_params, batches, ck_dir):
+    """test_torch_train.py's NaN rollback under the layout: at the fifth
+    step rank 0 alone poisons one block of its second moments, so only its
+    block of the new parameters is NaN (the loss stays finite); every rank
+    must roll back to the last checkpoint and escalate together."""
+    from repro_torch.core.classify import all_finite
+    from repro_torch.dist import fsdp
+    from repro_torch.train import trainer as trainer_lib
+
+    cfg = _fsdp_cfg("paper-mpfp-100m", None)
+    mesh = mesh_lib.make_debug_mesh(data=2, model=2)
+    tr = _fsdp_trainer(cfg, mesh, batches[0], ckpt_dir=ck_dir, ckpt_every=2,
+                        keep=2)
+    real_fn = tr._step_fn
+    seen = {"n": 0, "finite": [], "loss": []}
+
+    def poisoned(state, batch):
+        seen["n"] += 1
+        if seen["n"] == 5 and dist.get_rank() == 0:
+            v = tree_lib.map_(lambda x: x, state.opt.v)
+            v["layers"][0]["mlp"]["w_up"] = torch.full_like(
+                v["layers"][0]["mlp"]["w_up"], float("nan"))
+            state = trainer_lib.TrainState(state.params,
+                                           state.opt._replace(v=v))
+        new_state, metrics = real_fn(state, batch)
+        seen["finite"].append(float(metrics["params_finite"]))
+        seen["loss"].append(float(metrics["loss"]))
+        return new_state, metrics
+
+    tr._step_fn = poisoned
+
+    local = fsdp.shard_tree(_state(cfg, jax_params, tr.tcfg.opt),
+                            tr.state_shardings())
+    state, hist = tr.run(_Batches(batches), num_steps=8, log_every=0, state=local)
+    return {"rollbacks": tr.rollbacks, "history": hist,
+            "escalated": tr._escalated_fn is not None,
+            "finite": bool(all_finite(state.params)),
+            "step_finite": seen["finite"], "step_loss": seen["loss"]}
