@@ -186,9 +186,17 @@ line is not printed):
    ``ep_a2a``), the config's capacity factor (finite, dropped share),
    ``ServeEngine(mesh=...)`` (prefill on the split route, decode on the
    replicated route, logits within 4·2^-6 of the one-rank engine,
-   launches and exchanges of the formula); one rank over NCCL.  A failed
-   gate of 4g-4n is logged and the phases go on; the run fails after
-   them;
+   launches and exchanges of the formula); one rank over NCCL;
+4o. ``[dlayout]`` (on ``[ep]``'s four ranks): full-width, full-depth
+   ``paper-mpfp-100m`` serving on the decode layout of ``make_rules``
+   (``make_serve_step(layout=specs.decode_layout(...))``) in two cells:
+   8 rows over ``data`` with the cache sequence over ``model``, and batch
+   1 with it over (``data``, ``model``); 8 decode steps teacher-forced on a
+   one-rank step's greedy tokens: logits within 4·2^-6 of the one-rank
+   step, equal-row ranks bitwise, the gathered cache against the one-rank
+   cache, collectives, launches, routes and resident bytes of
+   ``dlayout_formula``, no plain call.  A failed gate of 4g-4o is logged
+   and the phases go on; the run fails after them;
 5. a ``kernels`` JSON line: per kernel its launches on its main path, its
    device time (CUDA events around calls enqueued behind a sleep kernel, so
    the card runs them back to back; the time of calls issued one after the
@@ -2690,6 +2698,181 @@ def dist_ep_generate(prompts, max_new):
     return out
 
 
+# [dlayout]: the decode layout (dist/decode_layout.py) on [ep]'s four ranks
+DLAYOUT_STEPS = 8
+# task: (batch, cache length, prompt tokens); rows: 8 rows over data, the
+# cache's 512 positions over model (blocks of 256: positions 252-259
+# cross the boundary); context: batch 1, 2048 positions over (data, model)
+# (blocks of 512: block 3 holds no valid position until step 7)
+DLAYOUT_CELLS = {"dlayout_rows": (8, 512, 252),
+                 "dlayout_context": (1, 2048, 1530)}
+
+
+def dlayout_formula(cfg, B: int, S: int, W: int = 4) -> dict:
+    """A decode step on the layout of ``make_rules`` on a (data 2, model 2)
+    mesh, per rank: ``all_gather`` one per parameter leaf whose trailing
+    dim divides the batch group (the rank's block; none at batch 1, where
+    the parameters are whole), ``all_reduce`` 3 per attention layer (the
+    B_loc x H row maxima and exp-sums, the B_loc x H x Dh partial P.V, f32);
+    launches of the one-rank step on raw weights (per layer the QKV and
+    SwiGLU projections, QK, PV, ``wo``, ``w_down``; the head), every one
+    on the cluster route (M <= 16); the resident cache and parameter
+    bytes."""
+    from repro_torch import tree as tree_lib
+    from repro_torch.models import transformer as T
+
+    rows = 2 if B > 1 else 1
+    seq = W // rows
+    b_loc, L = B // rows, cfg.n_layers
+    params = T.init_params(cfg, device="meta")
+    shard = [x.numel() * x.element_size() // rows for x in
+             tree_lib.leaves(params)
+             if rows > 1 and x.ndim and x.shape[-1] % rows == 0]
+    whole = [x.numel() * x.element_size() for x in tree_lib.leaves(params)
+             if not (rows > 1 and x.ndim and x.shape[-1] % rows == 0)]
+    per_layer = 4 * b_loc * cfg.n_heads * (2 + cfg.resolved_head_dim)
+    kv = 2 * L * b_loc * (S // seq) * cfg.n_kv_heads \
+        * cfg.resolved_head_dim * 2
+    return {"all_gather": (len(shard), sum(shard)),
+            "all_reduce": (3 * L, L * per_layer),
+            "launches": {"mp_fused_matmul": 4 * L + 1,
+                         "mp_fused_proj": 2 * L},
+            "cache_bytes": kv, "params_bytes": sum(shard) + sum(whole)}
+
+
+def dist_dlayout(B, S, prompt, steps):
+    """[dlayout]: full-width, full-depth paper-mpfp-100m (random weights,
+    seed 0) serving on the decode layout of ``make_rules`` on a (data 2,
+    model 2) mesh.  Every rank prefills the whole cache on ``cuda`` (the
+    same bits on each); rank 0 runs ``steps`` one-rank
+    ``make_serve_step`` decode steps on it, greedy, and hands their tokens
+    to every rank; then each rank cuts the cache (``shard_cache``), takes
+    its parameter blocks, and runs the same steps teacher-forced on
+    ``make_serve_step(layout=...)``: its rows' logits, launches, routes,
+    plain calls, collectives and host ms in them a step, step ms, its
+    resident bytes; rank 0 also the gathered cache against the one-rank
+    cache."""
+    torch = _dist_setup()
+    import numpy as np
+    import torch.distributed as dist
+
+    from repro_torch import kernels
+    from repro_torch import tree as tree_lib
+    from repro_torch.configs import paper_mpfp
+    from repro_torch.configs.shapes import ShapeCell
+    from repro_torch.core.policy import PrecisionPolicy
+    from repro_torch.dist import decode_layout as dl
+    from repro_torch.dist import fsdp
+    from repro_torch.dist import sharding as sh_lib
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import specs
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.engine import make_prefill_step, make_serve_step
+
+    cfg = paper_mpfp.CONFIG
+    mesh = mesh_lib.make_debug_mesh(data=2, model=2)
+    cell = ShapeCell("dlayout", S, B, "decode")
+    rules = specs.make_rules(mesh, cell, cfg)
+    layout = specs.decode_layout(cfg, cell, rules)
+    if layout is None:
+        raise AssertionError("make_rules gives [dlayout]'s cell no layout")
+    policy = PrecisionPolicy.serve_default()
+    params = T.init_params(cfg, seed=0, device="cuda")
+    tokens = torch.as_tensor(np.random.default_rng(7).integers(
+        1, cfg.vocab, (B, prompt)), device="cuda")
+    with torch.no_grad():
+        last, cache = make_prefill_step(cfg, policy)(
+            params, {"tokens": tokens}, T.make_cache(cfg, B, S,
+                                                     device="cuda"))
+    toks = torch.zeros((steps, B, 1), dtype=torch.long, device="cuda")
+    out = {"coord": tuple(mesh.get_coordinate()),
+           "batch_axes": [a for a in rules.batch_axes if a],
+           "seq": layout.seq, "seq_block": layout.seq_block}
+    one_cache = None
+    if dist.get_rank() == 0:
+        one_cache = sh_lib.map_cache(lambda n, x: x.clone(), cache)
+        one = make_serve_step(cfg, policy)
+        cur, one_logits, one_launches = last[:, -1].argmax(-1), [], None
+        with torch.no_grad():
+            for i in range(steps):
+                toks[i, :, 0] = cur
+                _reset()
+                lg, one_cache = one(params, one_cache, toks[i])
+                torch.cuda.synchronize()
+                if one_launches is None:
+                    one_launches = (nonzero(kernels.launch_counts()),
+                                    kernels.route_counts())
+                one_logits.append(lg[:, -1].float().cpu().numpy())
+                cur = lg[:, -1].argmax(-1)
+        out.update(one_logits=np.stack(one_logits),
+                   one_launches=one_launches)
+    dist.broadcast(toks, 0)
+    rows = layout.rows(B)
+    lp = (fsdp.shard_tree(params, layout.fsdp.params)
+          if layout.fsdp is not None else params)
+    local = dl.shard_cache(cache, layout)
+    del cache, params
+    torch.cuda.empty_cache()
+    kv = [x for c in local.attn for x in (c.k, c.v)]
+    out["resident"] = {
+        "params": sum(x.untyped_storage().nbytes()
+                      for x in tree_lib.leaves(lp)),
+        "cache": sum(x.untyped_storage().nbytes() for x in kv)}
+    out["on_card"] = all(x.is_cuda for x in tree_lib.leaves(lp) + kv)
+    step = make_serve_step(cfg, policy, layout=layout)
+    warm = sh_lib.map_cache(lambda n, x: x.clone(), local)
+    step(lp, warm, toks[0][rows])       # warm-up: gloo's buffers
+    del warm
+    torch.cuda.synchronize()
+    dist.barrier()
+    logits, per_step = [], []
+    clock = CollectiveClock("all_gather", "all_reduce")
+    with clock:
+        for i in range(steps):
+            before = {k: v["ms"] for k, v in clock.by_name.items()}
+            _reset()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lg, local = step(lp, local, toks[i][rows])
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            launches, coll = _counts()
+            per_step.append(dict(
+                ms=ms, launches=nonzero(launches),
+                routes=kernels.route_counts(),
+                plain=nonzero(kernels.plain_call_counts()),
+                collectives={k: (v["calls"], v["bytes"])
+                             for k, v in coll.items() if v["calls"]},
+                clock={k: v["ms"] - before[k]
+                       for k, v in clock.by_name.items()}))
+            logits.append(lg[:, -1].float().cpu().numpy())
+    out.update(rows=(rows.start, rows.stop), logits=np.stack(logits),
+               steps=per_step, length=local.length)
+    full = dl.full_cache(local, layout)
+    if one_cache is not None:
+        # per layer and tensor: the positions the steps did not write
+        # bitwise, the written ones bitwise, or their largest difference
+        # over the tensor's max
+        new = slice(prompt, prompt + steps)
+        keep = torch.ones(S, dtype=torch.bool, device="cuda")
+        keep[new] = False
+        cmp = []
+        for l, (a, b) in enumerate(zip(full.attn, one_cache.attn)):
+            for name, x, y in (("k", a.k, b.k), ("v", a.v, b.v)):
+                cmp.append((l, name,
+                            bool(torch.equal(_bits(x[:, keep]),
+                                             _bits(y[:, keep]))),
+                            bool(torch.equal(_bits(x[:, new]),
+                                             _bits(y[:, new]))),
+                            ((x[:, new].float() - y[:, new].float()).abs()
+                             .max() / y.float().abs().max()).item()))
+        out["cache_cmp"] = cmp
+    del full, one_cache
+    torch.cuda.empty_cache()
+    dist.barrier()
+    return out
+
+
 def dist_gloo_ops(p2p=False, a2a=False):
     """Which collectives gloo runs on CUDA tensors itself: each op straight
     through ``torch.distributed`` on the world group, the result checked.
@@ -2771,7 +2954,8 @@ DIST_TASKS = {"generate": dist_generate, "scheduler": dist_scheduler,
               "train": dist_train, "restore": dist_restore,
               "collectives": dist_collectives, "gloo_ops": dist_gloo_ops,
               "fsdp": dist_fsdp,
-              "ep_grad": dist_ep_grad, "ep_generate": dist_ep_generate}
+              "ep_grad": dist_ep_grad, "ep_generate": dist_ep_generate,
+              "dlayout_rows": dist_dlayout, "dlayout_context": dist_dlayout}
 
 
 def dist_rank(rank, world, init_file, backend, tasks, outq):
@@ -3331,6 +3515,115 @@ def dist_phase(fail, cfg, params, main_prompts, sched_prompts, ck_dir, smi,
     return res
 
 
+def dlayout_gates(fail, name, reports, smi) -> dict:
+    """[dlayout]'s gates on one cell's reports: every rank's rows' logits
+    within 4·2^-6 (in the norm) of the one-rank step's, its greedy tokens
+    the one-rank tokens wherever their top-2 margin passes that bound of
+    the row's largest logit, the ranks of the same rows bitwise; the
+    gathered cache against the one-rank cache (the positions not written
+    and the first layer's writes bitwise: the same projections of the same
+    inputs on the same routes; the later layers' writes within 4·2^-6 of
+    the tensor's max: their inputs passed the sequence-parallel softmax);
+    a step's collectives, launches and routes of :func:`dlayout_formula`,
+    no plain call; the resident bytes the layout's, on the card."""
+    import numpy as np
+
+    from repro_torch.configs import paper_mpfp
+
+    got = _task(fail, f"[dlayout] {name}", reports, name)
+    if got is None:
+        return {}
+    B, S, prompt = DLAYOUT_CELLS[name]
+    cfg = paper_mpfp.CONFIG
+    want = dlayout_formula(cfg, B, S)
+    r0 = got[0]
+    one = r0["one_logits"]                          # (steps, B, V)
+    rel_tol = 4 * 2.0 ** -6
+    rel, tok_ok, compared = [], True, 0
+    for r in got:
+        rows = slice(*r["rows"])
+        for i in range(DLAYOUT_STEPS):
+            a, b = r["logits"][i], one[i][rows]
+            rel.append(float(np.linalg.norm(a - b) / np.linalg.norm(b)))
+            top2 = np.sort(b, -1)[:, -2:]
+            live = top2[:, 1] - top2[:, 0] > rel_tol * np.abs(b).max(-1)
+            compared += int(live.sum())
+            tok_ok &= bool((a.argmax(-1) == b.argmax(-1))[live].all())
+    same_rows = all(np.array_equal(r["logits"], q["logits"])
+                    for r in got for q in got if r["rows"] == q["rows"])
+    cmp = r0["cache_cmp"]
+    kept = all(c[2] for c in cmp)
+    first = all(c[3] for c in cmp if c[0] == 0)
+    later = max(c[4] for c in cmp)
+    n_bitwise = sum(c[3] for c in cmp)
+    coll_ok = launch_ok = True
+    for r in got:
+        for st in r["steps"]:
+            coll = st["collectives"]
+            coll_ok &= (coll.get("all_gather", (0, 0))
+                        == want["all_gather"]
+                        and coll.get("all_reduce", (0, 0))
+                        == want["all_reduce"]
+                        and set(coll) <= {"all_gather", "all_reduce"})
+            routes = {k: nonzero(v) for k, v in st["routes"].items()
+                      if any(v.values())}
+            launch_ok &= (st["launches"] == want["launches"]
+                          and routes == {k: {"cluster": n} for k, n in
+                                         want["launches"].items()}
+                          and not st["plain"])
+    one_routes = {k: nonzero(v) for k, v in r0["one_launches"][1].items()
+                  if any(v.values())}
+    launch_ok &= (r0["one_launches"][0] == want["launches"]
+                  and one_routes == {k: {"cluster": n} for k, n in
+                                     want["launches"].items()})
+    res_ok = all(r["resident"] == {"params": want["params_bytes"],
+                                   "cache": want["cache_bytes"]}
+                 and r["on_card"] for r in got)
+    ms = [st["ms"] for r in got for st in r["steps"]]
+    coll_ms = {k: [st["clock"][k] for r in got for st in r["steps"]]
+               for k in ("all_gather", "all_reduce")}
+    st0 = r0["steps"][0]
+    log(f"[dlayout] {name}: paper-mpfp-100m full width and depth, batch "
+        f"{B}, cache {S}, prompt {prompt}, {DLAYOUT_STEPS} steps "
+        f"teacher-forced on the one-rank greedy tokens; rules batch "
+        f"{r0['batch_axes']}, cache sequence over {r0['seq']} (blocks "
+        f"{sorted(r['seq_block'] for r in got)}); logits vs the one-rank "
+        f"step max {max(rel):.3e} in the norm (tol {rel_tol:.3e}); greedy "
+        f"tokens equal where the margin passes: {tok_ok} ({compared} "
+        f"compared); equal-row ranks bitwise {same_rows}; gathered cache: "
+        f"unwritten positions bitwise {kept}, layer 0's writes bitwise "
+        f"{first}, {n_bitwise} of {len(cmp)} layer tensors' writes bitwise, "
+        f"the rest within {later:.3e} of the max; a step's collectives "
+        f"{st0['collectives']} (formula all_gather {want['all_gather']}, "
+        f"all_reduce {want['all_reduce']}); launches {st0['launches']} "
+        f"routes cluster, plain {st0['plain']} (formula "
+        f"{want['launches']}); resident {r0['resident']} (formula params "
+        f"{want['params_bytes']:,}, cache {want['cache_bytes']:,}); step "
+        f"ms a rank {min(ms):.2f}-{max(ms):.2f} (median "
+        f"{float(np.median(ms)):.2f}), host ms a step in all_gather "
+        f"{float(np.median(coll_ms['all_gather'])):.2f}, all_reduce "
+        f"{float(np.median(coll_ms['all_reduce'])):.2f} (medians) ({smi})")
+    fail.check(max(rel) <= rel_tol and tok_ok,
+               f"[dlayout] {name}: logits off the one-rank step")
+    fail.check(same_rows, f"[dlayout] {name}: equal-row ranks differ")
+    fail.check(kept and first and later <= rel_tol,
+               f"[dlayout] {name}: gathered cache off the one-rank cache")
+    fail.check(coll_ok, f"[dlayout] {name}: collectives off the formula")
+    fail.check(launch_ok,
+               f"[dlayout] {name}: launches / routes off the formula, or a "
+               f"plain call")
+    fail.check(res_ok, f"[dlayout] {name}: resident bytes off the layout")
+    fail.check(all(r["length"] == prompt + DLAYOUT_STEPS for r in got),
+               f"[dlayout] {name}: cache length")
+    return dict(logits_rel=max(rel), tokens_equal=tok_ok,
+                tokens_compared=compared, same_rows=same_rows,
+                cache_unwritten_bitwise=kept, cache_layer0_bitwise=first,
+                cache_writes_bitwise=n_bitwise, cache_tensors=len(cmp),
+                cache_later_rel=later, step_ms=ms, collective_ms=coll_ms,
+                collectives=st0["collectives"], launches=st0["launches"],
+                resident=r0["resident"], card=smi)
+
+
 def ep_phase(fail, smi):
     """``[ep]``: the expert-parallel MoE on four ranks, (data 2, model 2):
     one value-and-grad (loss and gradients equal on every rank, within
@@ -3339,8 +3632,9 @@ def ep_phase(fail, smi):
     :func:`ep_a2a`, nothing staged), the config's capacity factor (finite,
     the dropped share), ``ServeEngine(mesh=...)`` (prefill on the split
     route, a decode step on the replicated one: logits within 4·2^-6 of
-    the one-rank engine, launches and exchanges of the formula); then one
-    rank over NCCL on a (1, 1) mesh."""
+    the one-rank engine, launches and exchanges of the formula); on the
+    same ranks ``[dlayout]`` (:func:`dist_dlayout`,
+    :func:`dlayout_gates`); then one rank over NCCL on a (1, 1) mesh."""
     import numpy as np
     import torch
 
@@ -3362,7 +3656,10 @@ def ep_phase(fail, smi):
     t0 = time.perf_counter()
     reports = run_ranks(4, [("ep_grad", dict(batch=EP_BATCH, seq=EP_SEQ)),
                             ("ep_generate", dict(prompts=prompts,
-                                                 max_new=new))],
+                                                 max_new=new))]
+                        + [(name, dict(B=B, S=S, prompt=p,
+                                       steps=DLAYOUT_STEPS))
+                           for name, (B, S, p) in DLAYOUT_CELLS.items()],
                         backend=backend)
     res = {"backend": reports[0]["backend"],
            "ranks_s": time.perf_counter() - t0}
@@ -3478,6 +3775,10 @@ def ep_phase(fail, smi):
                                decode_rel=r_dec, own_cf_prefill_rel=r_own,
                                own_cf_dropped_share=own["dropped_share"],
                                launches=ep0["total"][0])
+
+    # ---- [dlayout]: the decode layout on the same ranks ---------------------------
+    res["dlayout"] = {name: dlayout_gates(fail, name, reports, smi)
+                      for name in DLAYOUT_CELLS}
 
     # ---- one rank over NCCL -------------------------------------------------------
     info = mesh_lib.init_distributed(

@@ -315,3 +315,54 @@ def cache_specs(cache, rules: AxisRules, *, seq_axes=()):
         return tuple(entries)
 
     return tree_lib.map_(leaf, cache)
+
+
+# the per-layer cache tensors whose dim 1 is the cache sequence
+_SEQ_FIELDS = frozenset({"k", "v", "c_kv", "k_rope"})
+
+
+def map_cache(fn, cache, *rest):
+    """``fn(field, tensor, *others)`` over every tensor of the port's
+    per-layer caches: a ``ModelCache`` (or a list, or one layer's
+    ``KVCache`` / ``MLACache`` / ``SSMCache``), the result of the same
+    structure; ``others`` are the same fields of ``rest`` (trees of that
+    structure, e.g. shardings).  Other fields (``length``) are kept."""
+    if cache is None:
+        return None
+    if isinstance(cache, list):
+        return [map_cache(fn, c, *(r[i] for r in rest))
+                for i, c in enumerate(cache)]
+    kw = {}
+    for f in dataclasses.fields(cache):
+        v = getattr(cache, f.name)
+        others = [getattr(r, f.name) for r in rest]
+        if isinstance(v, torch.Tensor):
+            kw[f.name] = fn(f.name, v, *others)
+        elif isinstance(v, list) or dataclasses.is_dataclass(v):
+            kw[f.name] = map_cache(fn, v, *others)
+    return dataclasses.replace(cache, **kw)
+
+
+def layer_cache_shardings(cache, rules: AxisRules, seq_axes=()):
+    """A :class:`Sharding` for every tensor of the port's per-layer
+    ``ModelCache`` (the result has its structure, a ``Sharding`` in each
+    tensor's place): :func:`cache_specs`' rule on the stacked leaves
+    without the leading L — dim 0 (B) over the batch axes, dim 1 (S) over
+    ``seq_axes`` for the sequence tensors (``KVCache.k`` / ``.v``,
+    ``MLACache.c_kv`` / ``.k_rope``); an ``SSMCache``'s ``conv`` and
+    ``state`` by rows only.  A dim that does not divide its axes stays
+    whole."""
+    mesh = rules.mesh
+    seq = _entry(tuple(a for a in axes_of(seq_axes) if a in _names(mesh)))
+    bentry = rules.batch
+
+    def leaf(name, x):
+        entries = [None] * x.ndim
+        if bentry is not None and x.shape[0] % rules.axis_size(bentry) == 0:
+            entries[0] = bentry
+        if (name in _SEQ_FIELDS and seq is not None
+                and x.shape[1] % rules.axis_size(seq) == 0):
+            entries[1] = seq
+        return Sharding(mesh, tuple(entries))
+
+    return map_cache(leaf, cache)

@@ -26,16 +26,21 @@ the arch, as ``configs.shapes.applicability`` decides; or the port's path
 does not run on meta tensors or the fake group, with the error), the JAX
 layout decisions (``make_rules``) with ``layout.ported`` (true where the
 step ran on the rank's blocks: a train cell under pure FSDP rules without
-MoE layers, ``specs.fsdp_layout``), ``n_chips``, ``trace_s`` (the seconds
-of the meta run: eager PyTorch has no lowering or compile), ``memory`` (per
-rank: the argument bytes by group, params, optimizer state, cache and batch,
-and the output bytes; ``peak_bytes`` is null, since a meta run allocates
-nothing and records no temporaries, and eager PyTorch frees activations as
-it goes), ``work`` (FLOPs, bytes, collective bytes by kind, per rank) and
+MoE layers, ``specs.fsdp_layout``, and a decode cell without MoE layers or
+TP, ``specs.decode_layout``: its rows and cache blocks, its parameters'
+FSDP blocks where the batch has axes, all-gathers over them and three
+all-reduces an attention layer over the sequence group), ``n_chips``,
+``trace_s`` (the seconds of the meta run: eager PyTorch has no lowering or
+compile), ``memory`` (per rank: the argument bytes by group, params,
+optimizer state, cache and batch, and the output bytes; ``peak_bytes`` is
+null, since a meta run allocates nothing and records no temporaries, and
+eager PyTorch frees activations as it goes), ``work`` (FLOPs, bytes, collective bytes by kind, per rank) and
 ``roofline`` (the H100 SXM's constants, NVLink as the link).  The records
 show what the port holds: a ported cell's blocks (Σ over leaves of the
 block's numel × item size) and rows, every other cell's whole parameters,
-state, cache and batch on every rank.
+state, cache and batch on every rank.  (A decode cell's ``length`` is a
+Python int in the port: JAX's records count its int32 leaves, 4 bytes a
+layer, which the port's do not.)
 """
 from __future__ import annotations
 

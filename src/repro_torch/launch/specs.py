@@ -19,10 +19,18 @@ port holds per rank:
   take this rank's block shapes (``param_shardings``), the batch this
   rank's rows, and the step runs on the ``cuda`` backend (each matmul on
   the rank's rows; nothing K-sharded on top of the layout);
-* every other cell (prefill, decode, the TP and sequence-sharded layouts,
-  the MoE) keeps parameters, optimizer state, batch and cache whole on
-  every rank and shards the contraction of each 2-D matmul over the
-  mesh's ``data`` axis (the ``sharded`` backend; ROADMAP.md Queue 1): its
+* a decode cell of a family without MoE layers whose rules are not TP
+  runs the port's decode layout (:func:`decode_layout`,
+  ``dist/decode_layout.py``): the cache takes this rank's rows and its
+  block of the cache sequence (over :func:`_cache_seq_axes`), the tokens
+  this rank's rows, the parameters this rank's blocks under pure FSDP
+  rules (whole at batch 1, where the rules have no batch axes), and the
+  step runs on the ``cuda`` backend, attention sequence-parallel over the
+  rank's block;
+* every other cell (prefill, the TP and sequence-sharded layouts, the
+  MoE) keeps parameters, optimizer state, batch and cache whole on every
+  rank and shards the contraction of each 2-D matmul over the mesh's
+  ``data`` axis (the ``sharded`` backend; ROADMAP.md Queue 1 item 2): its
   structures have the global shapes.
 """
 from __future__ import annotations
@@ -37,6 +45,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.shapes import SHAPES, ShapeCell
 from repro_torch.core import context as context_lib
 from repro_torch.core.policy import PrecisionPolicy
+from repro_torch.dist import decode_layout as decode_lib
 from repro_torch.dist import fsdp as fsdp_lib
 from repro_torch.dist import sharding as sh_lib
 from repro_torch.models import transformer as T
@@ -110,6 +119,16 @@ def make_rules(mesh, cell: ShapeCell, cfg: ModelConfig) -> sh_lib.AxisRules:
                             tp_enabled=tp)
 
 
+def _cache_seq_axes(mesh, cell: ShapeCell, rules=None):
+    """Cache sequence sharding (JAX's ``_cache_seq_axes``): the model axis
+    normally; batch 1 long-context re-purposes every idle axis for
+    context parallelism."""
+    if cell.global_batch == 1:
+        names = _axis_sizes(mesh)
+        return tuple(a for a in ("pod", "data", "model") if a in names)
+    return "model"
+
+
 @dataclasses.dataclass
 class Cell:
     arch: str
@@ -121,8 +140,8 @@ class Cell:
     # the meta arguments by group: params, opt, cache, batch
     groups: Dict[str, Any] = dataclasses.field(default_factory=dict)
     rules: Optional[sh_lib.AxisRules] = None
-    # the FSDP layout the step runs on (None: the whole-rank run)
-    layout: Optional[fsdp_lib.Layout] = None
+    # the FSDP or decode layout the step runs on (None: the whole-rank run)
+    layout: Optional[Union[fsdp_lib.Layout, decode_lib.DecodeLayout]] = None
 
 
 def _meta(shape, dtype) -> torch.Tensor:
@@ -141,6 +160,25 @@ def fsdp_layout(cfg: ModelConfig, cell: ShapeCell, rules
             and rules.axis_size(rules.batch) > 1 and cfg.family != "moe"):
         return None
     return fsdp_lib.make_layout(T.init_params(cfg, device=META), rules)
+
+
+def decode_layout(cfg: ModelConfig, cell: ShapeCell, rules
+                  ) -> Optional[decode_lib.DecodeLayout]:
+    """The decode layout a cell's serve step runs on, or None for the
+    whole-rank run: a decode cell under rules without TP, of a family
+    without MoE layers (whose experts' layout is ROADMAP.md Queue 1 item
+    2d).  The cache sequence goes over :func:`_cache_seq_axes`; the
+    parameters are FSDP blocks where the rules have batch axes, else
+    whole.  The one place the port decides it: the dry run and the serve
+    step's callers take it from here."""
+    if not (rules is not None and cell.phase == "decode"
+            and not rules.tp_enabled and cfg.family != "moe"
+            and not cfg.encoder_only):
+        return None
+    return decode_lib.make_layout(
+        T.init_params(cfg, device=META),
+        T.make_cache(cfg, cell.global_batch, cell.seq_len, device=META),
+        rules, _cache_seq_axes(rules.mesh, cell, rules))
 
 
 def _rows(cell: ShapeCell, layout) -> int:
@@ -172,8 +210,10 @@ def label_struct(cfg: ModelConfig, cell: ShapeCell, rules=None,
 
 def params_structs(cfg: ModelConfig, rules=None, layout=None) -> dict:
     """The parameters' global shapes, or this rank's blocks' under
-    ``layout``."""
+    ``layout`` (an FSDP layout, or a decode layout's parameters)."""
     params = T.init_params(cfg, device=META)
+    if isinstance(layout, decode_lib.DecodeLayout):
+        layout = layout.fsdp
     if layout is not None:
         params = fsdp_lib.local_structs(params, layout.params)
     return params
@@ -186,17 +226,23 @@ def state_structs(cfg: ModelConfig, rules, moment_dtype: str, layout=None):
 
 
 def cache_structs(cfg: ModelConfig, cell: ShapeCell, rules=None,
-                  dtype=torch.bfloat16) -> T.ModelCache:
-    return T.make_cache(cfg, cell.global_batch, cell.seq_len, dtype=dtype,
-                        device=META)
+                  dtype=torch.bfloat16, layout=None) -> T.ModelCache:
+    """The decode cache at the cell's global shapes, or this rank's blocks'
+    under a decode ``layout``."""
+    cache = T.make_cache(cfg, cell.global_batch, cell.seq_len, dtype=dtype,
+                         device=META)
+    if layout is not None:
+        cache = decode_lib.local_structs(cache, layout)
+    return cache
 
 
 def _scoped(step: Callable, rules, mesh, layout=None) -> Callable:
     """Run ``step`` under the cell's rules and, across ranks, the
     ``sharded`` backend on ``mesh`` (the port's whole-rank multi-rank
-    code) or, under an FSDP ``layout``, the ``cuda`` backend (the step
-    gathers; each matmul runs on the rank's rows); on one process under
-    the context's backend."""
+    code) or, under an FSDP or decode ``layout``, the ``cuda`` backend
+    (the step gathers; each matmul runs on the rank's rows, decode
+    attention on its block of the cache); on one process under the
+    context's backend."""
     def fn(*args):
         if layout is not None:
             ctx = context_lib.context(backend="cuda")
@@ -235,8 +281,8 @@ def build_cell(arch: str, cfg: ModelConfig, shape: Union[str, ShapeCell],
                     groups={"params": state.params, "opt": state.opt,
                             "batch": batch}, rules=rules, layout=layout)
 
-    params = params_structs(cfg, rules)
     if cell.phase == "prefill":
+        params = params_structs(cfg, rules)
         inputs = batch_structs(cfg, cell, rules)
         if cfg.encoder_only:
             def enc(params, inputs):
@@ -255,11 +301,15 @@ def build_cell(arch: str, cfg: ModelConfig, shape: Union[str, ShapeCell],
                     groups={"params": params, "cache": cache,
                             "batch": inputs}, rules=rules)
 
-    # decode: one new token per sequence against a full-length cache
-    cache = cache_structs(cfg, cell, rules)
-    tok = _meta((cell.global_batch, 1), torch.int32)
-    srv = trainer_lib.make_serve_step(cfg, policy, mesh=mesh)
-    return Cell(arch, cell.name, "decode", _scoped(srv, rules, mesh),
+    # decode: one new token per sequence against a full-length cache (on
+    # its layout: this rank's rows and blocks)
+    layout = decode_layout(cfg, cell, rules)
+    params = params_structs(cfg, rules, layout)
+    cache = cache_structs(cfg, cell, rules, layout=layout)
+    tok = _meta((_rows(cell, layout), 1), torch.int32)
+    srv = trainer_lib.make_serve_step(
+        cfg, policy, mesh=mesh if layout is None else None, layout=layout)
+    return Cell(arch, cell.name, "decode", _scoped(srv, rules, mesh, layout),
                 (params, cache, tok), donate=(1,),
                 groups={"params": params, "cache": cache, "batch": tok},
-                rules=rules)
+                rules=rules, layout=layout)

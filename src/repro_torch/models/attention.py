@@ -1,8 +1,9 @@
 """GQA / MHA attention (port of ``repro.models.attention``: the no-cache,
 dense-KV-cache and paged-KV-cache paths): fused multi-precision flash
 attention via ``mp_attention``, the chunk-scan fallback for long sequences,
-single-token decode against the dense cache, and the paged pool's write and
-decode attention (the continuous scheduler's path).
+single-token decode against the dense cache (under a decode layout,
+``dist/decode_layout.py``, against this rank's block of it), and the paged
+pool's write and decode attention (the continuous scheduler's path).
 
 All projections and both attention contractions run through the
 multi-precision ops, so the block obeys the run-time precision policy; the
@@ -24,6 +25,7 @@ from repro_torch.core.formats import is_auto
 from repro_torch.core.mpmatmul import mp_attention, mp_dense, mp_matmul, \
     mp_qkv_proj
 from repro_torch.core.policy import PrecisionPolicy
+from repro_torch.dist import decode_layout as decode_layout_lib
 from repro_torch.models.layers import apply_rope, dense_init
 from repro_torch.serve.kv_cache import TRASH_BLOCK, PagedKVCache
 
@@ -225,8 +227,13 @@ def gqa_forward(params: dict, x: torch.Tensor, dims: AttnDims,
                                   kv_chunk=kv_chunk)
     elif cache is not None:
         start = cache.length
-        cache.k[:, start:start + S] = k.to(cache.k.dtype)
-        cache.v[:, start:start + S] = v.to(cache.v.dtype)
+        layout = decode_layout_lib.current_decode_layout()
+        if layout is not None:   # on the rank whose block holds start
+            decode_layout_lib.block_write(cache.k, start, k, layout)
+            decode_layout_lib.block_write(cache.v, start, v, layout)
+        else:
+            cache.k[:, start:start + S] = k.to(cache.k.dtype)
+            cache.v[:, start:start + S] = v.to(cache.v.dtype)
         new_cache = KVCache(cache.k, cache.v, start + S)
         if S == 1:
             out = _decode_attention(q, cache.k, cache.v, new_cache.length,
@@ -255,10 +262,19 @@ def _decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                       policy: PrecisionPolicy) -> torch.Tensor:
     """One-token attention against the whole cache, masked by ``length``.
     Both contractions route through ``mp_matmul`` at the policy-resolved
-    ``attn_qk`` / ``attn_pv`` formats (``masked_decode_attention``)."""
+    ``attn_qk`` / ``attn_pv`` formats (``masked_decode_attention``); under
+    a decode layout whose cache sequence is sharded, over this rank's
+    block, combined over the sequence group (``sp_decode_block``)."""
     n_rep = dims.n_heads // dims.n_kv_heads
     kk = _repeat_kv(k_cache.float(), n_rep)   # (B, T, H, Dh)
     vv = _repeat_kv(v_cache.float(), n_rep)
+    layout = decode_layout_lib.current_decode_layout()
+    if layout is not None and layout.seq is not None:
+        from repro_torch.dist.attention import sp_decode_block
+
+        return sp_decode_block(q, kk, vv, length, layout.seq_block[0],
+                               layout.seq_group, policy.mode("attn_qk"),
+                               policy.mode("attn_pv"))
     return dispatch_lib.masked_decode_attention(
         q, kk, vv, length, policy.mode("attn_qk"), policy.mode("attn_pv"))
 

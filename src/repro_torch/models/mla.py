@@ -7,7 +7,10 @@ through the flash kernel at the QK head dim (qk_nope + qk_rope: 192 for
 DeepSeek-V2), with V padded up to it so one kernel serves both
 contractions.  Decode: the cache stores only ``c_kv`` (kv_lora dims) and
 the shared ``k_rope`` (qk_rope dims) per token, and the K up-projection is
-absorbed into the query so attention runs in latent space.  The absorbed
+absorbed into the query so attention runs in latent space (under a decode
+layout, ``dist/decode_layout.py``, over this rank's block of the latent,
+the softmax and the context ``p @ c_kv`` combined over the sequence group
+before ``w_uv``, which every rank of the group applies alike).  The absorbed
 einsums run in f32 outside the multiplier, as in the JAX package (which
 computes them in XLA, outside any Pallas kernel); every projection routes
 through the multi-precision ops.
@@ -21,6 +24,7 @@ import torch
 
 from repro_torch.core.mpmatmul import mp_dense, mp_fused_proj
 from repro_torch.core.policy import PrecisionPolicy
+from repro_torch.dist import decode_layout as decode_layout_lib
 from repro_torch.models.attention import _self_attention
 from repro_torch.models.layers import apply_rope, dense_init
 
@@ -118,8 +122,14 @@ def mla_forward(params: dict, x: torch.Tensor, dims: MLADims,
     new_cache = None
     if cache is not None:
         start = cache.length
-        cache.c_kv[:, start:start + S] = c_kv.to(cache.c_kv.dtype)
-        cache.k_rope[:, start:start + S] = k_rope.to(cache.k_rope.dtype)
+        layout = decode_layout_lib.current_decode_layout()
+        if layout is not None:   # on the rank whose block holds start
+            decode_layout_lib.block_write(cache.c_kv, start, c_kv, layout)
+            decode_layout_lib.block_write(cache.k_rope, start, k_rope,
+                                          layout)
+        else:
+            cache.c_kv[:, start:start + S] = c_kv.to(cache.c_kv.dtype)
+            cache.k_rope[:, start:start + S] = k_rope.to(cache.k_rope.dtype)
         new_cache = MLACache(cache.c_kv, cache.k_rope, start + S)
         if S == 1:
             out = _absorbed_decode(params, q_nope, q_rope, cache.c_kv,
@@ -171,11 +181,23 @@ def _absorbed_decode(params: dict, q_nope: torch.Tensor,
     logits = (torch.einsum("bhl,btl->bht", q_lat, ckv)
               + torch.einsum("bshd,btd->bht", q_rope.float(), krp)
               ) * scale.to(q_lat.device)
-    mask = torch.arange(T, device=ckv.device)[None, None, :] < length
-    logits = torch.where(mask, logits,
-                         torch.full((), NEG_INF, device=ckv.device))
-    p = torch.softmax(logits, dim=-1)
-    ctx = torch.einsum("bht,btl->bhl", p, ckv)              # (B, H, lora)
+    layout = decode_layout_lib.current_decode_layout()
+    if layout is not None and layout.seq is not None:
+        # this rank's block of the latent: the softmax combined over the
+        # sequence group, the context summed in latent space
+        from repro_torch.dist.attention import combine_block
+
+        ctx = combine_block(
+            logits[:, :, None, :], length, layout.seq_block[0],
+            layout.seq_group,
+            lambda p: torch.einsum("bht,btl->bhl", p[:, :, 0], ckv)[
+                :, :, None])[:, :, 0]                        # (B, H, lora)
+    else:
+        mask = torch.arange(T, device=ckv.device)[None, None, :] < length
+        logits = torch.where(mask, logits,
+                             torch.full((), NEG_INF, device=ckv.device))
+        p = torch.softmax(logits, dim=-1)
+        ctx = torch.einsum("bht,btl->bhl", p, ckv)          # (B, H, lora)
     w_uv = params["w_uv"].float().reshape(lora, h, dv)
     out = torch.einsum("bhl,lhd->bhd", ctx, w_uv)
     return out.reshape(B, 1, h, dv)

@@ -25,7 +25,14 @@ it) the parameters are this rank's blocks: the forward gathers each
 layer's leaves right before the layer runs — again in remat's recompute —
 and the embedding, the hybrid's shared block, the final norm and the head
 where it first uses them (``dist.fsdp.gatherer``).  With no layout the
-hook is the identity."""
+hook is the identity.
+
+Under a decode layout (``dist.decode_layout.use_decode_layout``; the serve
+step installs it) the forward runs on this rank's rows, the parameters
+through the same hook (blocks under pure FSDP rules, whole at batch 1),
+each attention layer (the hybrid's shared block too) over this rank's
+block of its cache sequence, each Mamba2 layer on its rows of the
+state."""
 from __future__ import annotations
 
 import contextlib
@@ -40,6 +47,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import auto as auto_lib
 from repro_torch.core import dispatch as dispatch_lib
 from repro_torch.core.policy import PrecisionPolicy
+from repro_torch.dist import decode_layout as decode_layout_lib
 from repro_torch.dist import fsdp as fsdp_lib
 from repro_torch.dist import sharding as sharding_lib
 from repro_torch.models import attention as attn_lib
@@ -349,6 +357,13 @@ def forward(params: dict, inputs: Dict[str, torch.Tensor], cfg: ModelConfig,
     ``{"moe_aux", "moe_zloss"}``, the MoE layers' summed in layer order
     (zeros for the other families)."""
     gather = fsdp_lib.gatherer()
+    if (decode_layout_lib.current_decode_layout() is not None
+            and cfg.family == "moe"):
+        raise NotImplementedError(
+            "the MoE family under a decode layout: its experts' layout "
+            "beside the rows' (moe_forward_ep) is the MoE under a layout, "
+            "ROADMAP.md Queue 1 item 2d, not ported; its decode cells run "
+            "whole-rank")
     if fsdp_lib.current_layout() is not None and cfg.family == "moe":
         raise NotImplementedError(
             "the MoE family under an FSDP layout: its router statistics "

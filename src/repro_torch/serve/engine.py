@@ -111,14 +111,31 @@ def make_prefill_step(cfg: ModelConfig, policy: PrecisionPolicy, mesh=None):
     return prefill_step
 
 
-def make_serve_step(cfg: ModelConfig, policy: PrecisionPolicy, mesh=None):
-    """(params, cache, tokens (B, 1)) -> (logits (B, 1, V), cache)."""
+def make_serve_step(cfg: ModelConfig, policy: PrecisionPolicy, mesh=None,
+                    layout=None):
+    """(params, cache, tokens (B, 1)) -> (logits (B, 1, V), cache).
+
+    ``layout``: a decode layout (``dist.decode_layout``; the counterpart of
+    JAX's serve step under ``use_rules``): the step takes this rank's
+    parameter blocks, cache blocks and rows of the tokens, and returns its
+    rows' logits; it runs on the ``cuda`` backend (each matmul on the
+    rank's rows and block, nothing K-sharded on top) under
+    ``torch.no_grad``."""
     def serve_step(params, cache, tokens):
         logits, _, new_cache = T.forward(params, {"tokens": tokens}, cfg,
                                          policy, cache=cache, mesh=mesh)
         return logits, new_cache
 
-    return serve_step
+    if layout is None:
+        return serve_step
+    from repro_torch.dist import decode_layout as decode_layout_lib
+
+    def laid_out(params, cache, tokens):
+        with torch.no_grad(), context_lib.context(backend="cuda"), \
+                decode_layout_lib.use_decode_layout(layout):
+            return serve_step(params, cache, tokens)
+
+    return laid_out
 
 
 def make_paged_prefill_step(cfg: ModelConfig, policy: PrecisionPolicy,

@@ -7,7 +7,9 @@ params)``) — the stacked ``(L, ...)`` layer leaves become the port's lists
 of per-layer dicts.
 A gradient tree has the params' structure and maps the same way;
 ``adamw_state_from_jax`` carries an AdamW state (step, m, v) across with
-that mapping.  No jax is imported here: the caller converts.
+that mapping, and ``cache_from_jax`` a decode cache (the stacked
+``ModelCache``) as the port's per-layer one.  No jax is imported here: the
+caller converts.
 """
 from __future__ import annotations
 
@@ -77,3 +79,37 @@ def adamw_state_from_jax(step, m: dict, v: dict, device="cpu") -> AdamWState:
         step=torch.tensor(int(np.asarray(step)), dtype=torch.int32,
                           device=device),
         m=params_from_jax(m, device), v=params_from_jax(v, device))
+
+
+def cache_from_jax(cache, device="cpu"):
+    """A JAX decode cache of any family (its ``ModelCache`` with numpy
+    leaves: ``jax.tree_util.tree_map(np.asarray, cache)``) -> the port's
+    ``ModelCache`` of per-layer caches.  Each stacked group (``attn``,
+    ``dense_attn``, ``shared_attn`` (L, ...); the hybrid's ``ssm``
+    (G, every, ...) flattened to its L layers in order) becomes a list of
+    ``KVCache`` / ``MLACache`` / ``SSMCache``, by its fields; the int32
+    ``length`` leaves become the Python int each layer's holds."""
+    from repro_torch.models import transformer as T
+    from repro_torch.models.attention import KVCache
+    from repro_torch.models.mla import MLACache
+    from repro_torch.models.ssm import SSMCache
+
+    kinds = {"k": KVCache, "c_kv": MLACache, "conv": SSMCache}
+
+    def layers(group):
+        if group is None:
+            return None
+        kind = next(kinds[f] for f in group._fields if f in kinds)
+        lead = np.asarray(group.length).ndim
+        flat = {f: np.asarray(getattr(group, f)) for f in group._fields}
+        flat = {f: x.reshape((-1,) + x.shape[lead:])
+                for f, x in flat.items()}
+        return [kind(**{f: int(x[i]) if f == "length"
+                        else _tensor(x[i], device)
+                        for f, x in flat.items()})
+                for i in range(flat["length"].shape[0])]
+
+    return T.ModelCache(attn=layers(cache.attn),
+                        dense_attn=layers(cache.dense_attn),
+                        ssm=layers(cache.ssm),
+                        shared_attn=layers(cache.shared_attn))

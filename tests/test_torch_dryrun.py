@@ -127,21 +127,44 @@ def _leaves(tree):
     return []
 
 
-CELLS = (("deepseek-7b", "decode_32k"),          # dense
+CELLS = (("deepseek-7b", "decode_32k"),          # dense, decode layout
          ("deepseek-v2-lite-16b", "decode_32k"),  # MoE (MLA)
-         ("mamba2-130m", "long_500k"),            # SSM
+         ("mamba2-130m", "long_500k"),            # SSM, batch 1
+         ("zamba2-2.7b", "long_500k"),            # hybrid, batch 1
          ("hubert-xlarge", "train_4k"),           # encoder-only, FSDP
          ("deepseek-7b", "train_4k"),             # dense, FSDP
          ("hubert-xlarge", "decode_32k"),         # skip: no decode step
          ("deepseek-7b", "long_500k"))            # skip: full attention
 
 
-def _fsdp_ported(want, cfg, shape) -> bool:
-    """Does the port run this cell on its FSDP layout: a train cell whose
-    JAX rules shard the batch alone, of a family without MoE layers."""
-    return (JSHAPES[shape].phase == "train" and want.batch_axes != (None,)
-            and not want.seq_axes and not want.tp_enabled
-            and cfg.family != "moe")
+def _ported(want, cfg, shape) -> bool:
+    """Does the port run this cell on its layout: a train cell whose JAX
+    rules shard the batch alone (FSDP), or a decode cell whose rules are
+    not TP (the decode layout), of a family without MoE layers."""
+    phase = JSHAPES[shape].phase
+    fsdp = (phase == "train" and want.batch_axes != (None,)
+            and not want.seq_axes and not want.tp_enabled)
+    return (fsdp or (phase == "decode" and not want.tp_enabled)) \
+        and cfg.family != "moe"
+
+
+def _cache_block_bytes(cache, rows: int, seq: int) -> int:
+    """JAX's decode arithmetic on the port's per-layer cache: each tensor's
+    rows over the ``rows`` ranks of the batch axes, the sequence tensors'
+    positions over the ``seq`` ranks of the sequence axes, where they
+    divide."""
+    total = 0
+    for group in ("attn", "dense_attn", "ssm", "shared_attn"):
+        for c in getattr(cache, group) or []:
+            for f in ("k", "v", "c_kv", "k_rope", "conv", "state"):
+                x = getattr(c, f, None)
+                if x is None:
+                    continue
+                n = rows if x.shape[0] % rows == 0 else 1
+                if f not in ("conv", "state") and x.shape[1] % seq == 0:
+                    n *= seq
+                total += x.numel() * x.element_size() // n
+    return total
 
 
 def _block_bytes(tree, n: int) -> int:
@@ -156,7 +179,10 @@ def test_cells_in_a_subprocess(tmp_path):
     the layout of ``make_rules``, per-rank work and memory, the H100
     roofline; skip records with JAX's reasons.  A train cell under pure
     FSDP rules (``layout.ported``) holds the layout's blocks and rows and
-    gathers and reduce-scatters them; every other cell whole parameters."""
+    gathers and reduce-scatters them; a decode cell without MoE layers or
+    TP (``layout.ported``) its rows, its cache blocks and its parameter
+    blocks over the batch axes (whole at batch 1), with three all-reduces
+    an attention layer; every other cell whole parameters."""
     out = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.dryrun", "--mesh",
          "single", "--out", str(tmp_path), "--cells",
@@ -176,13 +202,32 @@ def test_cells_in_a_subprocess(tmp_path):
         want = jspecs.make_rules(StandInMesh(False), JSHAPES[shape],
                                  jget_config(arch))
         cfg = get_config(arch)
-        ported = _fsdp_ported(want, cfg, shape)
+        ported = _ported(want, cfg, shape)
         assert rec["layout"] == {
             "batch_axes": [a for a in want.batch_axes if a],
             "seq_axes": list(want.seq_axes), "tp_enabled": want.tp_enabled,
             "ported": ported}
         mem, work = rec["memory"], rec["work"]
-        if ported:   # this rank's blocks of params and f32 moments, its rows
+        scell = JSHAPES[shape]
+        if ported and scell.phase == "decode":
+            # its rows and cache blocks; parameter blocks over the batch
+            # axes (data, 16 ranks), whole at batch 1
+            rows = 16 if want.batch_axes != (None,) else 1
+            seq = 16 if scell.global_batch > 1 else 256
+            cache = specs.cache_structs(cfg, scell)
+            assert mem["cache_bytes"] == _cache_block_bytes(cache, rows, seq)
+            params = specs.params_structs(cfg)
+            assert mem["params_bytes"] == (_block_bytes(params, rows)
+                                           if rows > 1 else nbytes(params))
+            assert mem["batch_bytes"] == 4 * scell.global_batch // rows
+            assert (work["collective_bytes"].get("all_gather", 0) > 0) == \
+                (rows > 1)
+            n_attn = {"ssm": 0, "hybrid": cfg.n_layers
+                      // max(1, cfg.hybrid_attn_every)}.get(cfg.family,
+                                                          cfg.n_layers)
+            assert work["collective_calls"].get("all_reduce", 0) == \
+                3 * n_attn
+        elif ported:   # this rank's blocks of params and f32 moments, rows
             params = specs.params_structs(cfg)
             assert mem["params_bytes"] == _block_bytes(params, 256)
             assert mem["opt_bytes"] == 2 * _block_bytes(params, 256) + 4
@@ -212,3 +257,24 @@ def test_cells_in_a_subprocess(tmp_path):
         assert json.load(f)["memory"]["params_bytes"] == nbytes(
             specs.params_structs(get_config("deepseek-7b"))) // 256 \
             == 107_974_464
+    # the decode layout's bytes a rank, JAX's per-device shard bytes less
+    # the int32 length leaves (4 bytes a layer), which the port holds as
+    # Python ints: deepseek-7b's 1,920 GiB cache over 256 ranks and its
+    # parameters over data's 16; zamba2's 500k context cache over 256,
+    # its parameters whole; mamba2's long_500k state whole (no sequence)
+    mem = {}
+    for arch, shape in (("deepseek-7b", "decode_32k"),
+                        ("zamba2-2.7b", "long_500k"),
+                        ("mamba2-130m", "long_500k")):
+        with open(tmp_path / f"singlepod_{arch}_{shape}.json") as f:
+            mem[arch] = json.load(f)["memory"]
+    assert (mem["deepseek-7b"]["cache_bytes"],
+            mem["deepseek-7b"]["params_bytes"]) == (8_053_063_680,
+                                                    1_727_591_424)
+    assert mem["zamba2-2.7b"]["cache_bytes"] == 262_923_264
+    assert mem["zamba2-2.7b"]["params_bytes"] == nbytes(
+        specs.params_structs(get_config("zamba2-2.7b")))
+    assert mem["mamba2-130m"]["cache_bytes"] == nbytes(
+        specs.cache_structs(get_config("mamba2-130m"), JSHAPES["long_500k"]))
+    assert mem["mamba2-130m"]["params_bytes"] == nbytes(
+        specs.params_structs(get_config("mamba2-130m")))

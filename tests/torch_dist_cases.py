@@ -669,3 +669,240 @@ def fsdp_nan_rollback(jax_params, batches, ck_dir):
             "escalated": tr._escalated_fn is not None,
             "finite": bool(all_finite(state.params)),
             "step_finite": seen["finite"], "step_loss": seen["loss"]}
+
+
+# ---------------------------------------------------------------- decode layout
+def cache_items(cache):
+    """(path, tensor) of every tensor of a per-layer ``ModelCache``:
+    ``<group>/<layer>/<field>``."""
+    import dataclasses
+
+    out = []
+    for group in ("attn", "dense_attn", "ssm", "shared_attn"):
+        for i, c in enumerate(getattr(cache, group) or []):
+            for f in dataclasses.fields(c):
+                v = getattr(c, f.name)
+                if isinstance(v, torch.Tensor):
+                    out.append((f"{group}/{i}/{f.name}", v))
+    return out
+
+
+def _decode_layout(cfg, B, S, mesh):
+    """The decode layout ``launch/specs`` gives a decode cell of B rows and
+    a cache of S positions on ``mesh``."""
+    from repro_torch.configs.shapes import ShapeCell
+    from repro_torch.launch import specs
+
+    cell = ShapeCell("smoke", S, B, "decode")
+    layout = specs.decode_layout(cfg, cell, specs.make_rules(mesh, cell,
+                                                             cfg))
+    assert layout is not None, "no decode layout for this cell"
+    return layout
+
+
+def decode_blocks(runs):
+    """Each run (arch, B, S, a numbered global cache of the port's
+    structure): this rank's block of every cache tensor under the decode
+    layout, its rows, and its block of the cache sequence."""
+    from repro_torch.configs import registry
+    from repro_torch.dist import decode_layout as dl
+
+    mesh = mesh_lib.make_debug_mesh(data=2, model=2)
+    out = {"coord": tuple(mesh.get_coordinate())}
+    for name, (arch, B, S, cache) in runs.items():
+        layout = _decode_layout(registry.get_config(arch, smoke=True), B, S,
+                                mesh)
+        blocks = dl.shard_cache(cache, layout)
+        rows = layout.rows(B)
+        out[name] = ({p: _np(x) for p, x in cache_items(blocks)},
+                     (rows.start, rows.stop),
+                     layout.seq_block if layout.seq is not None else None)
+    return out
+
+
+def _decode_inputs(cfg, B, n_tok, seed=0):
+    rng = np.random.default_rng(seed)
+    inputs = {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab,
+                                                     (B, n_tok)))}
+    if cfg.family == "vlm":
+        inputs["patch_embeds"] = torch.as_tensor(rng.standard_normal(
+            (B, cfg.n_patches, cfg.d_model)).astype(np.float32))
+    return inputs
+
+
+def _clone_cache(cache):
+    from repro_torch.dist import sharding as sh_lib
+
+    return sh_lib.map_cache(lambda name, x: x.clone(), cache)
+
+
+def decode_vs_one_rank(arch, B, S, length, steps, policy="serve_default"):
+    """A SMOKE model's cache prefilled to ``length`` positions on every
+    rank (the same on each), then ``steps`` decode steps teacher-forced on
+    fixed tokens: on the decode layout of a (data 2, model 2) mesh (this
+    rank's parameter blocks, cache blocks and rows) and on one rank (this
+    process, the whole cache).  Each step's logits, the gathered cache
+    after the steps, the collectives of each step, the rank's resident
+    bytes."""
+    from repro_torch.configs import registry
+    from repro_torch.core.policy import PrecisionPolicy
+    from repro_torch.dist import decode_layout as dl
+    from repro_torch.dist import fsdp
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.engine import make_prefill_step, make_serve_step
+
+    cfg = registry.get_config(arch, smoke=True)
+    pol = getattr(PrecisionPolicy, policy)()
+    mesh = mesh_lib.make_debug_mesh(data=2, model=2)
+    layout = _decode_layout(cfg, B, S, mesh)
+    params = T.init_params(cfg, seed=0)
+    n_tok = length - (cfg.n_patches if cfg.family == "vlm" else 0)
+    with torch.no_grad():
+        _, cache = make_prefill_step(cfg, pol)(
+            params, _decode_inputs(cfg, B, n_tok),
+            T.make_cache(cfg, B, S))
+    assert cache.length == length
+    toks = torch.as_tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab, (steps, B, 1)))
+    from repro_torch import kernels
+
+    one_cache, one_logits, one_calls = _clone_cache(cache), [], []
+    one = make_serve_step(cfg, pol)
+    with torch.no_grad():
+        for t in toks:
+            kernels.reset_launch_counts()
+            lg, one_cache = one(params, one_cache, t)
+            one_calls.append(kernels.plain_call_counts())
+            one_logits.append(_np(lg[:, -1]))
+    rows = layout.rows(B)
+    lp = fsdp.shard_tree(params, layout.fsdp.params) \
+        if layout.fsdp is not None else params
+    local = dl.shard_cache(cache, layout)
+    resident = sum(x.numel() * x.element_size()
+                   for x in tree_lib.leaves(lp)) + sum(
+        x.numel() * x.element_size() for _, x in cache_items(local))
+    step = make_serve_step(cfg, pol, layout=layout)
+    logits, counts, calls = [], [], []
+    for t in toks:
+        collectives.reset_counts()
+        kernels.reset_launch_counts()
+        lg, local = step(lp, local, t[rows])
+        counts.append(collectives.counts())
+        calls.append(kernels.plain_call_counts())
+        logits.append(_np(lg[:, -1]))
+    assert local.length == length + steps
+    first = next(((p, x) for p, x in cache_items(local)
+                  if p.split("/")[-1] in ("k", "c_kv")), None)
+    full = dl.full_cache(local, layout)
+    return {"coord": tuple(mesh.get_coordinate()),
+            "rows": (rows.start, rows.stop), "logits": logits,
+            "one_logits": one_logits,
+            "seq_block": layout.seq_block if layout.seq is not None
+            else None,
+            "cache": {p: _np(x.float()) for p, x in cache_items(full)},
+            "one_cache": {p: _np(x.float())
+                          for p, x in cache_items(one_cache)},
+            "counts": counts, "resident": resident,
+            "calls": calls, "one_calls": one_calls,
+            "first_block": (first[0], _np(first[1].float()))
+            if first is not None else None,
+            "sharded_params": [p for p, s in tree_lib.items(
+                layout.fsdp.params)
+                if fsdp.is_sharded(s)] if layout.fsdp is not None else []}
+
+
+def decode_jax_step(arch, B, S, np_params, np_cache, tokens):
+    """One serve_default step of a SMOKE model on the decode layout from a
+    JAX cache (``cache_from_jax``) and JAX's parameters: this rank's rows'
+    logits and the gathered new cache."""
+    from repro_torch.configs import registry
+    from repro_torch.core.policy import PrecisionPolicy
+    from repro_torch.dist import decode_layout as dl
+    from repro_torch.dist import fsdp
+    from repro_torch.serve.engine import make_serve_step
+    from repro_torch.weights import cache_from_jax, params_from_jax
+
+    cfg = registry.get_config(arch, smoke=True)
+    mesh = mesh_lib.make_debug_mesh(data=2, model=2)
+    layout = _decode_layout(cfg, B, S, mesh)
+    params = params_from_jax(np_params)
+    lp = fsdp.shard_tree(params, layout.fsdp.params) \
+        if layout.fsdp is not None else params
+    local = dl.shard_cache(cache_from_jax(np_cache), layout)
+    rows = layout.rows(B)
+    step = make_serve_step(cfg, PrecisionPolicy.serve_default(),
+                           layout=layout)
+    lg, local = step(lp, local, _t(tokens)[rows])
+    full = dl.full_cache(local, layout)
+    return {"rows": (rows.start, rows.stop), "logits": _np(lg[:, -1]),
+            "length": local.length,
+            "cache": {p: _np(x.float()) for p, x in cache_items(full)}}
+
+
+def decode_edges(q, k, v, lengths, junk):
+    """sp_decode_block over this rank's block of the sequence group
+    (data, model) of a whole K / V: with the positions past every length
+    holding zeros and holding finite junk (a block with no valid position
+    adds nothing); and the sharded backend's sp_decode_attention against
+    the formula it had before sp_decode_block split from it."""
+    from repro_torch.dist import attention as dist_attn
+    from repro_torch.kernels import ref as ref_backend
+
+    mesh = mesh_lib.make_debug_mesh(data=2, model=2)
+    group = collectives.axis_group(mesh, ("data", "model"))
+    idx, n = 2 * mesh.get_coordinate()[0] + mesh.get_coordinate()[1], 4
+    q, k, v, junk = _t(q), _t(k), _t(v), _t(junk)
+    T = k.shape[1]
+    t = T // n
+    blk = slice(idx * t, (idx + 1) * t)
+    valid = (torch.arange(T)[None, :, None, None]
+             < _t(lengths).reshape(-1, 1, 1, 1))
+    dirty_k = torch.where(valid, k, junk)
+    dirty_v = torch.where(valid, v, -junk)
+    collectives.reset_counts()
+    clean = dist_attn.sp_decode_block(q, k[:, blk], v[:, blk], _t(lengths),
+                                      idx * t, group, "M16")
+    counts = collectives.counts()["all_reduce"]
+    dirty = dist_attn.sp_decode_block(q, dirty_k[:, blk], dirty_v[:, blk],
+                                      _t(lengths), idx * t, group, "M16")
+    try:
+        dist_attn.sp_decode_block(q, k[:, blk], v[:, blk], _t(lengths),
+                                  idx * t, group, "AUTO")
+        auto = ""
+    except ValueError as e:
+        auto = str(e)
+
+    # the sharded backend's entry against its formula before the split
+    dmesh = mesh_lib.make_debug_mesh(data=4, model=1)
+    sp = dist_attn.sp_decode_attention(q, k, v, _t(lengths), "M8", "M16",
+                                       mesh=dmesh, axis="data")
+    r = dmesh.get_local_rank("data")
+    dgroup = dmesh.get_group("data")
+    t_loc = -(-T // 4)
+    t0, t1 = min(r * t_loc, T), min((r + 1) * t_loc, T)
+    k_loc, v_loc = k[:, t0:t1], v[:, t0:t1]
+    ln = torch.as_tensor(_t(lengths)).reshape(-1, 1, 1, 1)
+    scale = 1.0 / float(np.sqrt(q.shape[-1]))
+    qh = q.permute(0, 2, 1, 3).float() * scale
+    kh = k_loc.permute(0, 2, 1, 3).float()
+    vh = v_loc.permute(0, 2, 1, 3).float()
+    from repro_torch.core.formats import resolve
+
+    logits = ref_backend.attn_qk_logits(qh, kh, resolve("M8"),
+                                        dot=ref_backend._dot_nt)
+    pos = r * t_loc + torch.arange(t_loc)
+    mask = pos < ln
+    logits = torch.where(mask, logits,
+                         torch.full((), ref_backend.ATTN_NEG_INF))
+    m = logits.amax(dim=-1, keepdim=True)
+    dist.all_reduce(m, op=dist.ReduceOp.MAX, group=dgroup)
+    p = torch.where(mask, torch.exp(logits - m), torch.zeros(()))
+    den = p.sum(dim=-1, keepdim=True)
+    dist.all_reduce(den, group=dgroup)
+    acc = ref_backend.attn_pv(p, vh, resolve("M16"))
+    dist.all_reduce(acc, group=dgroup)
+    before = (acc / torch.clamp(den, min=1e-30)).permute(0, 2, 1, 3).to(
+        q.dtype)
+    return {"clean": _np(clean), "dirty": _np(dirty), "counts": counts,
+            "auto": auto, "block": (idx * t, t),
+            "sp_bits": bool(torch.equal(sp, before)), "sp": _np(sp)}
