@@ -195,8 +195,29 @@ line is not printed):
    one-rank step's greedy tokens: logits within 4·2^-6 of the one-rank
    step, equal-row ranks bitwise, the gathered cache against the one-rank
    cache, collectives, launches, routes and resident bytes of
-   ``dlayout_formula``, no plain call.  A failed gate of 4g-4o is logged
-   and the phases go on; the run fails after them;
+   ``dlayout_formula``, no plain call;
+4p. ``[ulysses]`` (three cells on ``[ep]``'s four ranks, one on three of
+   its own): the Ulysses layout of ``make_rules``
+   (``specs.seq_layout``: the batch over ``data``, the sequence over
+   ``model``) of full-width, full-depth ``paper-mpfp-100m`` (heads mode,
+   12 heads over 2): 2 ``Trainer.run`` steps of 2 x 1024 (the first
+   forward's logits on every rank's row and block bitwise the one-rank
+   forward, the loss and every gradient leaf within 1e-5 / 5e-4 of the
+   one-rank step, the parameters after the steps within ``adamw_drift``
+   of the one-rank state, the ranks of one block bitwise) and a prefill
+   of 2 x 2048 into its cache (the last logits and the gathered cache
+   bitwise the one-rank prefill's); full-width, full-depth mamba2-130m
+   on the same ranks (the SSM's hand-over in rank order, 4 chunks of 256
+   a block): a prefill of 2 x 2048 (the last logits and every SSM state
+   of the gathered cache bitwise the one-rank prefill's) and a
+   value-and-grad on its tokens (the same bounds); deepseek-7b at depth 2,
+   full width, on (data 1, model 3) (seq mode: 32 heads over 3): a
+   prefill of 3072 (the same bits) and a value-and-grad on its tokens
+   (the same bounds);
+   collectives, launches, routes and resident bytes of
+   ``ulysses_formula``, no plain call; step ms a rank and host ms in each
+   collective.  A failed gate of 4g-4p is logged and the phases go on;
+   the run fails after them;
 5. a ``kernels`` JSON line: per kernel its launches on its main path, its
    device time (CUDA events around calls enqueued behind a sleep kernel, so
    the card runs them back to back; the time of calls issued one after the
@@ -354,7 +375,11 @@ def arch_train_launches(cfg, B: int, S: int, remat: bool = True) -> dict:
     ``w_o``; flash attention's backward 5 products (the chunk-scan 2 a
     product).  Per MLP the gate / up dgrads and w_down; per MoE layer the
     router 2, the three batched expert contractions 2 each, the shared
-    experts' MLP 3; per Mamba2 layer 7; the head's dgrad."""
+    experts' MLP 3; per Mamba2 layer 7 within one SSD chunk (the in and
+    out projections' dgrads, the scores' and the intra-chunk product's 2
+    each, the inter-chunk product's C), 10 over more (the chunk states'
+    product 2 and the inter-chunk product's carried state then take
+    gradients); the head's dgrad."""
     f = arch_forward_launches(cfg, B, S)
     rep = 2 if remat else 1
     if cfg.mla is not None:
@@ -366,7 +391,8 @@ def arch_train_launches(cfg, B: int, S: int, remat: bool = True) -> dict:
     else:
         attn += 2 * 2 * (_n_chunks(S, cfg.attn_q_chunk)
                          * _n_chunks(S, cfg.attn_kv_chunk))
-    mlp, ssm = 3, 7
+    mlp = 3
+    ssm = 7 + (3 if cfg.ssm is not None and S > cfg.ssm.chunk else 0)
     L = cfg.n_layers
     if cfg.family in ("dense", "vlm", "audio"):
         bwd = L * (attn + mlp)
@@ -1954,7 +1980,8 @@ def _dist_setup():
 class CollectiveClock:
     """Host milliseconds spent in the named collectives while entered
     (default ``all_reduce``; ``all_gather``, ``reduce_scatter``: the
-    flat-tensor calls of ``dist/collectives.py``), each call timed between
+    flat-tensor calls of ``dist/collectives.py``; ``all_to_all``, ``send``,
+    ``recv``, ``broadcast``), each call timed between
     two synchronizes (so the time is the collective's own, not the
     kernels queued before it): ``ms`` / ``calls`` in all, ``by_name``."""
 
@@ -1968,7 +1995,10 @@ class CollectiveClock:
 
         return {"all_reduce": (dist, "all_reduce"),
                 "all_gather": (collectives, "_ALL_GATHER"),
-                "reduce_scatter": (collectives, "_REDUCE_SCATTER")}[name]
+                "reduce_scatter": (collectives, "_REDUCE_SCATTER"),
+                "all_to_all": (dist, "all_to_all_single"),
+                "send": (dist, "send"), "recv": (dist, "recv"),
+                "broadcast": (dist, "broadcast")}[name]
 
     def __enter__(self):
         import torch
@@ -2873,6 +2903,654 @@ def dist_dlayout(B, S, prompt, steps):
     return out
 
 
+# [ulysses]: the Ulysses layout (dist/seq_layout.py) of the train and
+# prefill steps: three cells on [ep]'s four ranks, (data 2, model 2),
+# full-width full-depth paper-mpfp-100m (heads mode: 12 heads over 2) and
+# mamba2-130m (the SSM's hand-over: 4 chunks of 256 a block), and one on
+# three ranks of its own, (data 1, model 3), deepseek-7b at depth 2 at
+# full width (seq mode: 32 heads, which 3 does not divide)
+ULYSSES_STEPS = 2
+# task: (arch, depth (None: the config's), batch, seq, (data, model))
+ULYSSES_CELLS = {"ulysses_train": ("paper-mpfp-100m", None, 2, 1024, (2, 2)),
+                 "ulysses_prefill": ("paper-mpfp-100m", None, 2, 2048,
+                                     (2, 2)),
+                 "ulysses_ssm": ("mamba2-130m", None, 2, 2048, (2, 2)),
+                 "ulysses_seq": ("deepseek-7b", 2, 1, 3072, (1, 3))}
+# the prefill cells that also take a value-and-grad on their tokens
+ULYSSES_GRAD = ("ulysses_ssm", "ulysses_seq")
+ULYSSES_SEED = 11
+
+
+def ulysses_cfg(name):
+    from repro_torch.configs.registry import get_config
+
+    arch, depth, _, _, _ = ULYSSES_CELLS[name]
+    cfg = get_config(arch)
+    return cfg if depth is None else dataclasses.replace(cfg,
+                                                         n_layers=depth)
+
+
+def ulysses_batch(cfg, B: int, S: int, step: int = 0) -> dict:
+    """A global batch of B rows of S tokens and their labels (numpy seed
+    ``ULYSSES_SEED`` + step)."""
+    import numpy as np
+
+    rng = np.random.default_rng(ULYSSES_SEED + step)
+    return {"tokens": rng.integers(1, cfg.vocab, (B, S)),
+            "labels": rng.integers(0, cfg.vocab, (B, S))}
+
+
+def _seq_pairs(cfg, S: int, M: int) -> tuple:
+    """The chunk-scan's (query, kv) chunk pairs a layer of the one-rank
+    step at S positions and of a rank's block in seq mode."""
+    nk = _n_chunks(S, cfg.attn_kv_chunk)
+    return (_n_chunks(S, cfg.attn_q_chunk) * nk,
+            _n_chunks(S // M, cfg.attn_q_chunk) * nk)
+
+
+def ulysses_formula(cfg, B: int, S: int, mesh: tuple, phase: str,
+                    m: int = 0) -> dict:
+    """A step on the rank at model coordinate ``m`` on the Ulysses layout
+    of ``make_rules`` on a (data D, model M) mesh, B rows of S positions
+    (b = B / D rows and t = S / M positions a rank), from the code:
+
+    * collectives {name: (calls, bytes handed in)}: the parameters (FSDP
+      blocks over data, whole at D = 1): ``all_gather`` one per sharded
+      leaf at D > 1 (its block), again per layer leaf in a train step's
+      remat recompute; a gradient: ``reduce_scatter`` over data (the whole
+      leaf, D > 1), then ``all_reduce`` over model (the block); a train
+      step's clipping norm (4 bytes) and metrics (12); attention per layer
+      (f32): heads mode 4 ``all_to_all`` of (b, t, H, Dh) a pass (q, k, v,
+      the output; forward, recompute, backward), seq mode 2 ``all_gather``
+      of K / V's (b, t, Hkv, Dh) a pass (forward, recompute) and their
+      ``reduce_scatter`` in the backward (the whole); per Mamba2 layer
+      the conv window (b x (d_conv - 1) x conv_dim f32) and the final
+      state (b x H x P x N f32) ``send`` to the next block (m < M - 1)
+      and ``recv`` from the previous one (m > 0) a forward pass
+      (forward, recompute), in the backward the other way; a prefill's
+      last logits ``broadcast`` from the last block (b x V f32), and each
+      Mamba2 layer's two states;
+    * launches: the one-rank formula at the global B x S
+      (:func:`arch_forward_launches`, :func:`arch_train_launches`: the
+      route and, in heads mode, the chunk pairs), the chunk-scan's query
+      chunks in seq mode the rank's block's;
+    * resident bytes: the parameters' blocks (and a train step's f32
+      moments, + the 0-d step), a prefill's cache blocks (b x t of every
+      layer's K / V, bf16; every Mamba2 layer's b rows of both states,
+      f32)."""
+    from repro_torch import tree as tree_lib
+    from repro_torch.models import transformer as T
+
+    D, M = mesh
+    b, t, L = B // D, S // M, cfg.n_layers
+    H, hk, dh, V = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim, \
+        cfg.vocab
+    train = phase in ("train", "grad")
+    items = [(p, x.numel() * x.element_size())
+             for p, x in tree_lib.items(T.init_params(cfg, device="meta"))]
+    shapes = {p: x.shape for p, x in tree_lib.items(
+        T.init_params(cfg, device="meta"))}
+    sharded = [(p, n) for p, n in items if shapes[p][-1] % D == 0]
+    reps = [(p, n) for p, n in items if shapes[p][-1] % D]
+    c = {}
+
+    def add(name, calls, nbytes):
+        got = c.get(name, (0, 0))
+        c[name] = (got[0] + calls, got[1] + nbytes)
+
+    if D > 1:
+        gathered = sharded + ([(p, n) for p, n in sharded
+                               if p.startswith("layers/")] if train else [])
+        add("all_gather", len(gathered), sum(n // D for _, n in gathered))
+    if train:
+        if D > 1:
+            add("reduce_scatter", len(sharded), sum(n for _, n in sharded))
+        add("all_reduce", len(sharded) + len(reps),
+            sum(n // D for _, n in sharded) + sum(n for _, n in reps))
+        if phase == "train":
+            add("all_reduce", 2, 4 + 12)
+    n_att = 0 if cfg.family == "ssm" else L
+    if n_att and H % M == 0:
+        add("all_to_all", 4 * L * (3 if train else 1),
+            4 * L * (3 if train else 1) * 4 * b * t * H * dh)
+    elif n_att:
+        kv = hk if H % M else H
+        add("all_gather", 2 * L * (2 if train else 1),
+            2 * L * (2 if train else 1) * 4 * b * t * kv * dh)
+        if train:
+            add("reduce_scatter", 2 * L, 2 * L * M * 4 * b * t * kv * dh)
+    states = 0
+    if cfg.ssm is not None:
+        d = cfg.ssm
+        states = 4 * b * ((d.d_conv - 1) * d.conv_dim
+                          + d.n_heads * d.head_dim * d.d_state)
+        fwd = 2 if train else 1
+        nxt, prv = int(m < M - 1), int(m > 0)
+        for name, n in (("send", fwd * nxt + train * prv),
+                        ("recv", fwd * prv + train * nxt)):
+            if n:
+                add(name, 2 * L * n, L * states * n)
+    if phase == "prefill":
+        add("broadcast", 1, 4 * b * V)
+        if states:
+            add("broadcast", 2 * L, L * states)
+    one = (arch_train_launches(cfg, B, S) if train
+           else arch_forward_launches(cfg, B, S))
+    launches = dict(one)
+    if H % M and not launches["mp_flash_attention"]:
+        p_one, p_loc = _seq_pairs(cfg, S, M)
+        per = 2 * (2 if train else 1) + (4 if train else 0)
+        launches["mp_fused_matmul"] -= L * per * (p_one - p_loc)
+    params = sum(n // D if shapes[p][-1] % D == 0 else n for p, n in items)
+    out = {"collectives": c, "launches": launches, "one_launches": one,
+           "params_bytes": params}
+    if phase == "train":
+        out["state_bytes"] = 3 * params + 4
+    if phase == "prefill":
+        out["cache_bytes"] = (L * states if cfg.family == "ssm"
+                              else 2 * L * b * t * hk * dh * 2)
+    return out
+
+
+def _ulysses_setup(name):
+    torch = _dist_setup()
+    from repro_torch.configs.shapes import ShapeCell
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import specs
+
+    _, _, B, S, (D, M) = ULYSSES_CELLS[name]
+    cfg = ulysses_cfg(name)
+    mesh = mesh_lib.make_debug_mesh(data=D, model=M)
+
+    def layout_of(phase):
+        cell = ShapeCell(name, S, B, phase)
+        layout = specs.seq_layout(cfg, cell, specs.make_rules(mesh, cell,
+                                                              cfg))
+        if layout is None:
+            raise AssertionError(f"make_rules gives [ulysses] {name}'s "
+                                 f"{phase} cell no Ulysses layout")
+        return layout
+
+    return torch, cfg, mesh, layout_of, B, S
+
+
+def _ulysses_counted(torch, fn, clock):
+    """``fn()`` timed (synchronized), its launches, routes, plain calls,
+    collectives and the host ms in each collective."""
+    from repro_torch import kernels
+
+    before = {k: v["ms"] for k, v in clock.by_name.items()}
+    _reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches, coll = _counts()
+    return out, dict(
+        ms=ms, launches=nonzero(launches),
+        routes={k: nonzero(v) for k, v in kernels.route_counts().items()
+                if any(v.values())},
+        plain=nonzero(kernels.plain_call_counts()),
+        collectives={k: (v["calls"], v["bytes"]) for k, v in coll.items()
+                     if v["calls"]},
+        clock={k: v["ms"] - before[k] for k, v in clock.by_name.items()})
+
+
+ULYSSES_CLOCKED = ("all_to_all", "all_gather", "reduce_scatter",
+                   "all_reduce", "send", "recv", "broadcast")
+
+
+def _one_rank_counted(torch, fn):
+    """The one-rank step's launches and routes (rank 0)."""
+    from repro_torch import kernels
+
+    _reset()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (nonzero(kernels.launch_counts()),
+                 {k: nonzero(v) for k, v in kernels.route_counts().items()
+                  if any(v.values())})
+
+
+def _state_sha1(tree) -> str:
+    import hashlib
+
+    from repro_torch import tree as tree_lib
+
+    h = hashlib.sha1()
+    for p, x in tree_lib.items(tree):
+        h.update(p.encode() + _bits(x).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _grads_worst(got, want) -> tuple:
+    """(worst leaf, its largest difference over the leaf's max)."""
+    from repro_torch import tree as tree_lib
+
+    worst = ("", 0.0)
+    for (p, a), b in zip(tree_lib.items(got), tree_lib.leaves(want)):
+        r = ((a.double() - b.double()).abs().max()
+             / b.double().abs().max().clamp(min=1e-30)).item()
+        if r >= worst[1]:
+            worst = (p, r)
+    return worst
+
+
+def dist_ulysses_train(steps):
+    """[ulysses] ulysses_train: full-width, full-depth paper-mpfp-100m
+    (random weights, seed 0) training on the Ulysses layout of
+    ``make_rules`` on a (data 2, model 2) mesh, ``train_default``: the
+    first step's forward on every rank's row and block against the
+    one-rank forward (rank 0's, broadcast), a value-and-grad against the
+    one-rank one (rank 0: loss, every leaf gathered), ``steps``
+    ``Trainer.run`` AdamW steps (per step the launches, routes, plain
+    calls, collectives and host ms in them, ms) and the state after them
+    against ``steps`` one-rank steps (rank 0), the state's digest a rank,
+    its resident bytes."""
+    torch, cfg, mesh, layout_of, B, S = _ulysses_setup("ulysses_train")
+    import torch.distributed as dist
+
+    from repro_torch import tree as tree_lib
+    from repro_torch.core.policy import PrecisionPolicy
+    from repro_torch.dist import collectives
+    from repro_torch.dist import fsdp
+    from repro_torch.dist import seq_layout as sl
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw
+    from repro_torch.train import trainer as trainer_lib
+
+    layout = layout_of("train")
+    policy = PrecisionPolicy.train_default()
+    tcfg = trainer_lib.TrainerConfig(total_steps=TRAIN_STEPS, warmup=2)
+    trainer = trainer_lib.Trainer(cfg, tcfg, policy=policy, layout=layout)
+    batches = [ulysses_batch(cfg, B, S, i) for i in range(steps)]
+    rank0 = dist.get_rank() == 0
+    params = T.init_params(cfg, seed=0, device="cuda")
+    gb = {k: torch.as_tensor(v, device="cuda") for k, v in batches[0].items()}
+    lb = trainer.to_device(batches[0])
+    rows, (off, t) = layout.rows(B), layout.block
+    out = {"coord": tuple(mesh.get_coordinate()),
+           "batch_axes": [a for a in layout.rules.batch_axes if a],
+           "seq_axes": list(layout.rules.seq_axes),
+           "mode": layout.mode(cfg.n_heads), "rows": (rows.start, rows.stop),
+           "block": (off, t)}
+    state0 = trainer.init_state(seed=0)
+    lp = state0.params
+    out["resident"] = sum(x.untyped_storage().nbytes()
+                          for x in tree_lib.leaves(state0))
+    out["on_card"] = all(x.is_cuda for x in tree_lib.leaves(state0))
+    # the first step's forward
+    with torch.no_grad():
+        with sl.use_seq_layout(layout):
+            lg = T.forward(lp, {"tokens": lb["tokens"]}, cfg, policy)[0]
+        one = (T.forward(params, {"tokens": gb["tokens"]}, cfg,
+                         policy)[0].float().contiguous()
+               if rank0 else torch.empty((B, S, cfg.vocab), device="cuda"))
+        dist.broadcast(one, 0)
+        blk = one[rows, off:off + t]
+        out["fwd_bitwise"] = bool(torch.equal(_bits(lg), _bits(blk)))
+        out["fwd_rel"] = ((lg - blk).abs().max() / blk.abs().max()).item()
+        del one, blk, lg
+    # a value-and-grad against the one-rank one
+    loss_fn = trainer_lib.make_loss_fn(cfg, policy, tcfg, layout=layout)
+    (loss, _), g = trainer_lib.value_and_grad(loss_fn, lp, lb)
+    loss = collectives.all_reduce(loss.clone(), layout.metrics_group).item()
+    g = fsdp.full_tree(g, layout.params)
+    if rank0:
+        (one_loss, _), one_g = trainer_lib.value_and_grad(
+            trainer_lib.make_loss_fn(cfg, policy, tcfg), params, gb)
+        out["loss"], out["one_loss"] = loss, one_loss.item()
+        out["loss_rel"] = abs(loss - one_loss.item()) / abs(one_loss.item())
+        out["worst_leaf"] = _grads_worst(g, one_g)
+        del one_g
+    del g
+    torch.cuda.empty_cache()
+    # the steps
+    real_fn, per_step, lrs = trainer._step_fn, [], []
+    clock = CollectiveClock(*ULYSSES_CLOCKED)
+
+    def step_fn(state, batch):
+        (new, metrics), st = _ulysses_counted(
+            torch, lambda: real_fn(state, batch), clock)
+        lrs.append(float(metrics["lr"]))
+        st["loss"] = float(metrics["loss"])
+        st["grad_norm"] = float(metrics["grad_norm"])
+        per_step.append(st)
+        return new, metrics
+
+    class Batches:
+        def batch(self, step):
+            return batches[step]
+
+    trainer._step_fn = step_fn
+    dist.barrier()
+    with clock:
+        state, hist = trainer.run(Batches(), num_steps=steps, log_every=0,
+                                  state=state0)
+    out.update(steps=per_step, lrs=lrs, history=hist,
+               state_sha1=_state_sha1(state),
+               state_bytes=sum(x.numel() * x.element_size()
+                               for x in tree_lib.leaves(state)))
+    full = fsdp.full_tree(state, trainer.state_shardings())
+    if rank0:
+        one_step = trainer_lib.make_train_step(cfg, policy, tcfg)
+        one_state = trainer_lib.TrainState(params, adamw.init(params,
+                                                              tcfg.opt))
+        one_hist = []
+        for i, b in enumerate(batches):
+            wb = {k: torch.as_tensor(v, device="cuda") for k, v in b.items()}
+            if i == 0:
+                (one_state, m), one = _one_rank_counted(
+                    torch, lambda: one_step(one_state, wb))
+                out["one_launches"] = one
+            else:
+                one_state, m = one_step(one_state, wb)
+            one_hist.append(float(m["loss"]))
+        diff = 0.0
+        for a, b in zip(tree_lib.leaves(full.params),
+                        tree_lib.leaves(one_state.params)):
+            diff = max(diff, (a.double() - b.double()).abs().max().item())
+        out.update(one_history=one_hist, params_diff=diff)
+        del one_state
+    del full, state, params
+    torch.cuda.empty_cache()
+    dist.barrier()
+    return out
+
+
+def _cache_tensors(cache) -> list:
+    """(path, tensor) of every tensor of a per-layer ``ModelCache``
+    (``<group>/<layer>/<field>``: K / V, MLA's latents, the SSM states)."""
+    out = []
+    for group in ("attn", "dense_attn", "ssm", "shared_attn"):
+        for i, c in enumerate(getattr(cache, group) or []):
+            for f in dataclasses.fields(c):
+                v = getattr(c, f.name)
+                if hasattr(v, "is_cuda") and v.ndim:
+                    out.append((f"{group}/{i}/{f.name}", v))
+    return out
+
+
+def dist_ulysses_prefill(name="ulysses_prefill"):
+    """[ulysses] a prefill on the Ulysses layout (``make_prefill_step(
+    layout=...)``): every rank's rows' last logits (the last block's)
+    against the one-rank prefill's (rank 0's, broadcast), the gathered
+    cache against the one-rank cache (rank 0: per layer and tensor bitwise
+    or the largest difference over the max), the counted run's launches,
+    routes, plain calls, collectives, host ms in them and ms (after a
+    warm-up run), the resident bytes; for the cells of ``ULYSSES_GRAD``
+    (deepseek-7b in seq mode, mamba2-130m's SSM hand-over) then a
+    value-and-grad on the same tokens against the one-rank one (rank 0:
+    the loss, every leaf gathered), with its launches and collectives."""
+    torch, cfg, mesh, layout_of, B, S = _ulysses_setup(name)
+    import torch.distributed as dist
+
+    from repro_torch import tree as tree_lib
+    from repro_torch.core.policy import PrecisionPolicy
+    from repro_torch.dist import collectives
+    from repro_torch.dist import decode_layout as dl
+    from repro_torch.dist import fsdp
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.engine import make_prefill_step
+    from repro_torch.train import trainer as trainer_lib
+
+    layout = layout_of("prefill")
+    policy = PrecisionPolicy.serve_default()
+    rank0 = dist.get_rank() == 0
+    batch = ulysses_batch(cfg, B, S)
+    gb = {k: torch.as_tensor(v, device="cuda") for k, v in batch.items()}
+    rows, (off, t) = layout.rows(B), layout.block
+    out = {"coord": tuple(mesh.get_coordinate()),
+           "batch_axes": [a for a in layout.rules.batch_axes if a],
+           "seq_axes": list(layout.rules.seq_axes),
+           "mode": layout.mode(cfg.n_heads), "rows": (rows.start, rows.stop),
+           "block": (off, t)}
+    lp = fsdp.shard_tree(T.init_params(cfg, seed=0, device="cuda"),
+                         layout.params)
+    # the one-rank prefill on the whole parameters (rank 0); at data 1 the
+    # blocks are the whole leaves
+    one_last = torch.empty((B, 1, cfg.vocab), device="cuda")
+    one_cache = None
+    if rank0:
+        whole = (lp if layout.size == 1
+                 else T.init_params(cfg, seed=0, device="cuda"))
+        with torch.no_grad():
+            (last1, one_cache), one = _one_rank_counted(
+                torch, lambda: make_prefill_step(cfg, policy)(
+                    whole, {"tokens": gb["tokens"]},
+                    T.make_cache(cfg, B, S, device="cuda")))
+        one_last.copy_(last1.float())
+        out["one_launches"] = one
+        del whole, last1
+    dist.broadcast(one_last, 0)
+    local = dl.shard_cache(T.make_cache(cfg, B, S, device="cuda"), layout)
+    kv = [x for _, x in _cache_tensors(local)]
+    out["resident"] = {
+        "params": sum(x.untyped_storage().nbytes()
+                      for x in tree_lib.leaves(lp)),
+        "cache": sum(x.untyped_storage().nbytes() for x in kv)}
+    out["on_card"] = all(x.is_cuda for x in tree_lib.leaves(lp) + kv)
+    step = make_prefill_step(cfg, policy, layout=layout)
+    inputs = {"tokens": gb["tokens"][rows]}
+    step(lp, inputs, local)                  # warm-up: gloo's buffers
+    dist.barrier()
+    clock = CollectiveClock(*ULYSSES_CLOCKED)
+    with clock:
+        (last, local), st = _ulysses_counted(
+            torch, lambda: step(lp, inputs, local), clock)
+    out["prefill"] = st
+    want = one_last[rows]
+    out["last_bitwise"] = bool(torch.equal(_bits(last), _bits(want)))
+    out["last_rel"] = ((last - want).abs().max() / want.abs().max()).item()
+    out["length"] = local.length
+    full = dl.full_cache(local, layout)
+    if one_cache is not None:
+        out["cache_cmp"] = [
+            (pth, bool(torch.equal(_bits(x), _bits(y))),
+             ((x.float() - y.float()).abs().max()
+              / y.float().abs().max().clamp(min=1e-30)).item())
+            for (pth, x), (_, y) in zip(_cache_tensors(full),
+                                        _cache_tensors(one_cache))]
+    del full, one_cache, local, kv
+    torch.cuda.empty_cache()
+    if name in ULYSSES_GRAD:
+        tl = layout_of("train")
+        lb = {k: v[rows] for k, v in gb.items()}
+        loss_fn = trainer_lib.make_loss_fn(cfg, PrecisionPolicy
+                                           .train_default(), layout=tl)
+        clock = CollectiveClock(*ULYSSES_CLOCKED)
+        with clock:
+            ((loss, _), g), st = _ulysses_counted(
+                torch, lambda: trainer_lib.value_and_grad(loss_fn, lp, lb),
+                clock)
+        out["grad"] = st
+        out["loss"] = collectives.all_reduce(loss.clone(),
+                                             tl.metrics_group).item()
+        g = fsdp.full_tree(g, tl.params)   # whole leaves (at data 1 as is)
+        if not rank0:
+            del g
+        torch.cuda.empty_cache()
+        if rank0:
+            whole = (lp if tl.size == 1
+                     else T.init_params(cfg, seed=0, device="cuda"))
+            ((loss1, _), g1), out["one_grad_launches"] = _one_rank_counted(
+                torch, lambda: trainer_lib.value_and_grad(
+                    trainer_lib.make_loss_fn(cfg, PrecisionPolicy
+                                             .train_default()), whole, gb))
+            del whole
+            out["one_loss"] = loss1.item()
+            out["loss_rel"] = (abs(out["loss"] - loss1.item())
+                               / abs(loss1.item()))
+            out["worst_leaf"] = _grads_worst(g, g1)
+            del g, g1
+        dist.barrier()
+    del lp
+    torch.cuda.empty_cache()
+    dist.barrier()
+    return out
+
+
+def ulysses_gates(fail, name, reports, smi) -> dict:
+    """[ulysses]'s gates on one cell's reports: the rules (batch over
+    ``data``, the sequence over ``model``) and the attention mode; the
+    forward's bits on every rank's rows and block (train: the first
+    step's logits; a prefill: the last logits on every rank and the
+    gathered cache) against the one-rank step's; the loss within 1e-5 and
+    every gradient leaf within 5e-4 of its max; after the AdamW steps the
+    parameters within ``adamw_drift`` of the one-rank state and the ranks
+    holding one block bitwise; a step's collectives, launches and resident
+    bytes of :func:`ulysses_formula`, its routes the one-rank step's, no
+    plain call; step ms a rank and host ms in the collectives logged."""
+    import numpy as np
+
+    label = f"[ulysses] {name}"
+    got = _task(fail, label, reports, name)
+    if got is None:
+        return {}
+    _, _, B, S, mesh = ULYSSES_CELLS[name]
+    cfg = ulysses_cfg(name)
+    r0 = got[0]
+    mode = "heads" if cfg.n_heads % mesh[1] == 0 else "seq"
+    fail.check(all(r["batch_axes"] == ["data"] and r["seq_axes"] == ["model"]
+                   and r["mode"] == mode for r in got),
+               f"{label}: rules or mode off (batch over data, the sequence "
+               f"over model, {mode} mode)")
+    fail.check(sorted(r["block"] for r in got) == sorted(
+        (m * S // mesh[1], S // mesh[1]) for _ in range(mesh[0])
+        for m in range(mesh[1])), f"{label}: blocks")
+    phase = "train" if name == "ulysses_train" else "prefill"
+    # the SSM's send / recv depend on the rank's place in the sequence
+    want_of = {r["coord"][1]: ulysses_formula(cfg, B, S, mesh, phase,
+                                              r["coord"][1]) for r in got}
+    want = want_of[r0["coord"][1]]
+    mode_txt = f"{mode} mode" if cfg.n_heads else "no attention"
+    one_routes = r0["one_launches"][1]
+
+    def step_ok(st, want, one=r0["one_launches"]):
+        """The counts of the formula; the launches on the routes the
+        one-rank step took (``one``: its launches and routes), no plain
+        call."""
+        return (st["collectives"] == want["collectives"]
+                and st["launches"] == nonzero(want["launches"])
+                and one[0] == nonzero(want["one_launches"])
+                and set(st["routes"]) == set(one[1])
+                and all(set(v) <= set(one[1][k])
+                        for k, v in st["routes"].items())
+                and not st["plain"])
+
+    out = {"mode": mode, "card": smi}
+    if phase == "train":
+        fwd = all(r["fwd_bitwise"] for r in got)
+        drift = adamw_drift(r0["lrs"])
+        by_block = {}
+        for r in got:
+            by_block.setdefault(r["coord"][0], set()).add(r["state_sha1"])
+        same = all(len(v) == 1 for v in by_block.values())
+        steps_ok = all(step_ok(st, want_of[r["coord"][1]]) for r in got
+                       for st in r["steps"])
+        res_ok = all(r["resident"] == r["state_bytes"] == want["state_bytes"]
+                     and r["on_card"] for r in got)
+        hist_ok = all(r["history"] == r0["history"] for r in got)
+        ms = [st["ms"] for r in got for st in r["steps"]]
+        coll_ms = {k: float(np.median([st["clock"][k] for r in got
+                                       for st in r["steps"]]))
+                   for k in ULYSSES_CLOCKED}
+        st0 = r0["steps"][0]
+        log(f"{label}: paper-mpfp-100m full width and depth, batch {B} x "
+            f"{S}, (data, model) {mesh}, {mode} mode, {ULYSSES_STEPS} "
+            f"Trainer.run steps (train_default); first forward bitwise the "
+            f"one-rank forward on every rank's row and block: {fwd} (max "
+            f"{max(r['fwd_rel'] for r in got):.3e} of the max); value and "
+            f"grad loss rel {r0['loss_rel']:.3e}, worst leaf "
+            f"{r0['worst_leaf'][0]} {r0['worst_leaf'][1]:.3e} of its max "
+            f"(bounds 1e-5, 5e-4); after {ULYSSES_STEPS} steps the params "
+            f"{r0['params_diff']:.3e} from the one-rank state (adamw_drift "
+            f"{drift:.3e}), losses {r0['history']} (one rank "
+            f"{r0['one_history']}); ranks of one block bitwise {same}; a "
+            f"step's collectives {st0['collectives']} (formula "
+            f"{want['collectives']}); launches {st0['launches']} (formula "
+            f"{nonzero(want['launches'])}), routes {st0['routes']} (one "
+            f"rank {one_routes}), plain {st0['plain']}; resident "
+            f"{r0['resident']:,} (formula {want['state_bytes']:,}); step ms "
+            f"a rank {min(ms):.1f}-{max(ms):.1f} (median "
+            f"{float(np.median(ms)):.1f}), host ms a step (medians) "
+            f"{ {k: round(v, 2) for k, v in coll_ms.items() if v} } ({smi})")
+        fail.check(fwd, f"{label}: forward logits off the one-rank bits")
+        fail.check(r0["loss_rel"] <= 1e-5 and r0["worst_leaf"][1] < 5e-4,
+                   f"{label}: loss or gradients off the one-rank step")
+        fail.check(r0["params_diff"] <= drift,
+                   f"{label}: params off the one-rank state past "
+                   f"adamw_drift")
+        fail.check(same and hist_ok, f"{label}: ranks of one block differ")
+        fail.check(steps_ok,
+                   f"{label}: collectives / launches / routes off the "
+                   f"formula, or a plain call")
+        fail.check(res_ok, f"{label}: resident bytes off the layout")
+        out.update(fwd_bitwise=fwd, loss_rel=r0["loss_rel"],
+                   worst_leaf=r0["worst_leaf"], params_diff=r0["params_diff"],
+                   adamw_drift=drift, same_blocks=same, step_ms=ms,
+                   collective_ms=coll_ms, collectives=st0["collectives"],
+                   launches=st0["launches"], resident=r0["resident"])
+        return out
+    last = all(r["last_bitwise"] for r in got)
+    cmp = r0["cache_cmp"]
+    cache = all(c[1] for c in cmp)
+    pre_ok = all(step_ok(r["prefill"], want_of[r["coord"][1]]) for r in got)
+    res_ok = all(r["resident"] == {"params": want["params_bytes"],
+                                   "cache": want["cache_bytes"]}
+                 and r["on_card"] and r["length"] == S for r in got)
+    ms = [r["prefill"]["ms"] for r in got]
+    coll_ms = {k: float(np.median([r["prefill"]["clock"][k] for r in got]))
+               for k in ULYSSES_CLOCKED}
+    st0 = r0["prefill"]
+    log(f"{label}: {ULYSSES_CELLS[name][0]} depth {cfg.n_layers}, full "
+        f"width, "
+        f"prefill of {B} x {S} (cache {S}), (data, model) {mesh}, "
+        f"{mode_txt} (serve_default): last logits bitwise the one-rank prefill's "
+        f"on every rank: {last} (max {max(r['last_rel'] for r in got):.3e} "
+        f"of the max); gathered cache bitwise {cache} ({sum(c[1] for c in cmp)}"
+        f" of {len(cmp)} layer tensors; worst {max(c[2] for c in cmp):.3e} "
+        f"of the max); collectives {st0['collectives']} (formula "
+        f"{want['collectives']}); launches {st0['launches']} (formula "
+        f"{nonzero(want['launches'])}), routes {st0['routes']} (one rank "
+        f"{one_routes}), plain {st0['plain']}; resident {r0['resident']} "
+        f"(formula params {want['params_bytes']:,}, cache "
+        f"{want['cache_bytes']:,}); prefill ms a rank {min(ms):.1f}-"
+        f"{max(ms):.1f}, host ms (medians) "
+        f"{ {k: round(v, 2) for k, v in coll_ms.items() if v} } ({smi})")
+    fail.check(last, f"{label}: last logits off the one-rank bits")
+    fail.check(cache, f"{label}: gathered cache off the one-rank bits")
+    fail.check(pre_ok,
+               f"{label}: collectives / launches / routes off the formula, "
+               f"or a plain call")
+    fail.check(res_ok, f"{label}: resident bytes off the layout")
+    out.update(last_bitwise=last, cache_bitwise=cache, prefill_ms=ms,
+               collective_ms=coll_ms, collectives=st0["collectives"],
+               launches=st0["launches"], resident=r0["resident"])
+    if name in ULYSSES_GRAD:
+        gw_of = {m: ulysses_formula(cfg, B, S, mesh, "grad", m)
+                 for m in want_of}
+        gw = gw_of[r0["coord"][1]]
+        g_ok = all(step_ok(r["grad"], gw_of[r["coord"][1]],
+                           r0["one_grad_launches"]) for r in got)
+        gms = [r["grad"]["ms"] for r in got]
+        log(f"{label}: value-and-grad (train_default) on the same tokens: "
+            f"loss rel {r0['loss_rel']:.3e}, worst leaf "
+            f"{r0['worst_leaf'][0]} {r0['worst_leaf'][1]:.3e} of its max "
+            f"(bounds 1e-5, 5e-4); collectives {r0['grad']['collectives']} "
+            f"(formula {gw['collectives']}); launches "
+            f"{r0['grad']['launches']} (formula {nonzero(gw['launches'])}); "
+            f"ms a rank {min(gms):.1f}-{max(gms):.1f} ({smi})")
+        fail.check(r0["loss_rel"] <= 1e-5 and r0["worst_leaf"][1] < 5e-4,
+                   f"{label}: loss or gradients off the one-rank step")
+        fail.check(g_ok, f"{label}: value-and-grad collectives / launches "
+                         f"off the formula, or a plain call")
+        out.update(loss_rel=r0["loss_rel"], worst_leaf=r0["worst_leaf"],
+                   grad_ms=gms, grad_collectives=r0["grad"]["collectives"])
+    return out
+
+
 def dist_gloo_ops(p2p=False, a2a=False):
     """Which collectives gloo runs on CUDA tensors itself: each op straight
     through ``torch.distributed`` on the world group, the result checked.
@@ -2955,7 +3633,11 @@ DIST_TASKS = {"generate": dist_generate, "scheduler": dist_scheduler,
               "collectives": dist_collectives, "gloo_ops": dist_gloo_ops,
               "fsdp": dist_fsdp,
               "ep_grad": dist_ep_grad, "ep_generate": dist_ep_generate,
-              "dlayout_rows": dist_dlayout, "dlayout_context": dist_dlayout}
+              "dlayout_rows": dist_dlayout, "dlayout_context": dist_dlayout,
+              "ulysses_train": dist_ulysses_train,
+              "ulysses_prefill": dist_ulysses_prefill,
+              "ulysses_ssm": dist_ulysses_prefill,
+              "ulysses_seq": dist_ulysses_prefill}
 
 
 def dist_rank(rank, world, init_file, backend, tasks, outq):
@@ -3659,7 +4341,10 @@ def ep_phase(fail, smi):
                                                  max_new=new))]
                         + [(name, dict(B=B, S=S, prompt=p,
                                        steps=DLAYOUT_STEPS))
-                           for name, (B, S, p) in DLAYOUT_CELLS.items()],
+                           for name, (B, S, p) in DLAYOUT_CELLS.items()]
+                        + [("ulysses_train", dict(steps=ULYSSES_STEPS)),
+                           ("ulysses_prefill", {}),
+                           ("ulysses_ssm", {"name": "ulysses_ssm"})],
                         backend=backend)
     res = {"backend": reports[0]["backend"],
            "ranks_s": time.perf_counter() - t0}
@@ -3779,6 +4464,18 @@ def ep_phase(fail, smi):
     # ---- [dlayout]: the decode layout on the same ranks ---------------------------
     res["dlayout"] = {name: dlayout_gates(fail, name, reports, smi)
                       for name in DLAYOUT_CELLS}
+
+    # ---- [ulysses]: the Ulysses layout on the same ranks, then seq mode on 3 -------
+    res["ulysses"] = {name: ulysses_gates(fail, name, reports, smi)
+                      for name in ("ulysses_train", "ulysses_prefill",
+                                   "ulysses_ssm")}
+    t0 = time.perf_counter()
+    three = run_ranks(3, [("ulysses_seq", {"name": "ulysses_seq"})],
+                      backend="nccl" if n_dev >= 3 else "gloo")
+    log(f"[ulysses] 3 ranks over {three[0]['backend']}, mesh (data 1, "
+        f"model 3): {time.perf_counter() - t0:.1f} s")
+    res["ulysses"]["ulysses_seq"] = ulysses_gates(fail, "ulysses_seq", three,
+                                                  smi)
 
     # ---- one rank over NCCL -------------------------------------------------------
     info = mesh_lib.init_distributed(

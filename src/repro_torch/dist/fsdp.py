@@ -68,6 +68,11 @@ class Layout:
     def size(self) -> int:
         return self.rules.axis_size(self.rules.batch)
 
+    @property
+    def metrics_group(self):
+        """The ranks a step's metrics sum over: the batch group."""
+        return self.group
+
 
 def make_layout(params, rules: AxisRules) -> Layout:
     """The layout of a model whose global parameters (any device, ``meta``
@@ -144,13 +149,23 @@ def gather(x_local: torch.Tensor, sharding: Sharding,
            rules: AxisRules) -> torch.Tensor:
     """The whole leaf from this rank's block: a sharded leaf all-gathered
     along its sharded dim (backward: reduce-scatter of the cotangent), a
-    replicated one as it is (backward: all-reduce over the batch group)."""
+    replicated one as it is (backward: all-reduce over the batch group).
+
+    Under rules that also have sequence axes (the Ulysses layout,
+    ``dist/seq_layout.py``) the ranks of one row group hold other blocks
+    of the sequence, so a gradient also sums over the sequence group: a
+    sharded leaf's block after the reduce-scatter (one all-reduce over
+    the sequence axes), a replicated leaf's over every rank."""
+    seq = sh_lib.axes_of(rules.seq) if rules.seq_axes else ()
     if is_sharded(sharding):
+        if seq and x_local.requires_grad:
+            x_local = _SumGrad.apply(
+                x_local, collectives.axis_group(rules.mesh, seq))
         return _gather_dim(x_local, sharding)
     if not x_local.requires_grad:
         return x_local
     return _SumGrad.apply(x_local, collectives.axis_group(
-        rules.mesh, sh_lib.axes_of(rules.batch)))
+        rules.mesh, sh_lib.axes_of(rules.batch) + seq))
 
 
 @torch.no_grad()
@@ -216,7 +231,10 @@ def gatherer() -> Callable:
 def local_loss(loss_fn: Callable, layout: Layout) -> Callable:
     """``loss_fn`` on this rank's rows under ``layout``: its loss and
     extras divided by the group's size (its share of the global mean, so
-    the gradients' sums over the group are the global mean's)."""
+    the gradients' sums over the group are the global mean's).  A Ulysses
+    layout (``dist/seq_layout.py``) carries its parameters' ``params``,
+    ``rules`` and batch group ``size`` and takes the same share; its
+    ``loss_fn`` gives its rows' mean summed over the sequence group."""
     n = float(layout.size)
 
     def fn(params, batch):
@@ -229,14 +247,15 @@ def local_loss(loss_fn: Callable, layout: Layout) -> Callable:
 
 def reduce_metrics(metrics: Dict[str, torch.Tensor],
                    layout: Layout) -> Dict[str, torch.Tensor]:
-    """The step's metrics over the group, in one all-reduce: ``loss`` and
+    """The step's metrics over ``layout.metrics_group`` (the batch group;
+    under the Ulysses layout every rank), in one all-reduce: ``loss`` and
     ``nll`` (each rank's share) summed into the global means, and
     ``params_finite`` 1 only where every rank's blocks are finite.  (The
     MoE terms are not reduced: an MoE forward refuses a layout.)"""
     keys = ("loss", "nll")
     packed = torch.stack([metrics[k].float().reshape(()) for k in keys]
                          + [1.0 - metrics["params_finite"].float()])
-    collectives.all_reduce(packed, layout.group)
+    collectives.all_reduce(packed, layout.metrics_group)
     out = dict(metrics)
     out.update({k: packed[i] for i, k in enumerate(keys)})
     out["params_finite"] = (packed[-1] == 0).float()

@@ -273,6 +273,17 @@ def batch_rows(rules: AxisRules, B: int) -> slice:
     return slice(idx * B // n, (idx + 1) * B // n)
 
 
+def seq_block(rules: AxisRules, S: int) -> slice:
+    """This rank's positions of a global sequence of ``S`` laid out over
+    the rules' sequence axes (JAX's ``P(batch, seq, ...)``), in
+    :func:`shard_index`'s block order."""
+    idx, n = shard_index(rules.mesh, rules.seq)
+    if S % n:
+        raise ValueError(f"a sequence of {S} positions does not split over "
+                         f"the {n} ranks of the sequence axes {rules.seq}")
+    return slice(idx * S // n, (idx + 1) * S // n)
+
+
 def expert_shardings(params, mesh, *, model_axis: str = "model",
                      data_axis: str = "data"):
     """A :class:`Sharding` tree for a model's parameters as the

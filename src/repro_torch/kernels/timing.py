@@ -18,7 +18,10 @@ def device_ms(fn, min_ms: float = 30.0):
     and whether it stayed ahead.  Where the sleep ran out before the host
     had enqueued the last call (the start event had passed), the run is
     made again with half the calls and twice the sleep; after five runs the
-    last one's time comes back with ``False``."""
+    last one's time comes back with ``False``.  Where enqueueing took as
+    long as the sleep itself, the calls waited for the card (a host read
+    inside them): no longer sleep puts the host ahead, so that run's time
+    comes back at once with ``False``."""
     fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -30,14 +33,17 @@ def device_ms(fn, min_ms: float = 30.0):
     for attempt in range(5):
         # ~2e6 cycles per ms at the card's boost clock (a lower clock only
         # makes the sleep longer), twice the host's n enqueues and more
-        torch.cuda._sleep(int(2e6 * (2 ** (attempt + 1) * n * once + 1.0)))
+        sleep_ms = 2 ** (attempt + 1) * n * once + 1.0
+        torch.cuda._sleep(int(2e6 * sleep_ms))
         start.record()
+        t0 = time.perf_counter()
         for _ in range(n):
             fn()
+        enqueue_ms = (time.perf_counter() - t0) * 1e3
         end.record()
         ahead = not start.query()
         torch.cuda.synchronize()
-        if ahead:
+        if ahead or enqueue_ms >= sleep_ms:
             break
         n = max(3, n // 2)
     return start.elapsed_time(end) / n, ahead

@@ -26,10 +26,15 @@ the arch, as ``configs.shapes.applicability`` decides; or the port's path
 does not run on meta tensors or the fake group, with the error), the JAX
 layout decisions (``make_rules``) with ``layout.ported`` (true where the
 step ran on the rank's blocks: a train cell under pure FSDP rules without
-MoE layers, ``specs.fsdp_layout``, and a decode cell without MoE layers or
+MoE layers, ``specs.fsdp_layout``; a decode cell without MoE layers or
 TP, ``specs.decode_layout``: its rows and cache blocks, its parameters'
 FSDP blocks where the batch has axes, all-gathers over them and three
-all-reduces an attention layer over the sequence group), ``n_chips``,
+all-reduces an attention layer over the sequence group; and a train or
+prefill cell under the small-batch rules without MoE layers or TP,
+``specs.seq_layout``, the Ulysses layout: its rows with the whole
+sequence, its parameter blocks over the batch axes, a prefill's cache
+blocks, the all-to-alls (or K / V all-gathers) over ``model`` and the
+SSM's send / recv), ``n_chips``,
 ``trace_s`` (the seconds of the meta run: eager PyTorch has no lowering or
 compile), ``memory`` (per rank: the argument bytes by group, params,
 optimizer state, cache and batch, and the output bytes; ``peak_bytes`` is

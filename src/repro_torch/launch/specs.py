@@ -27,9 +27,18 @@ port holds per rank:
   rules (whole at batch 1, where the rules have no batch axes), and the
   step runs on the ``cuda`` backend, attention sequence-parallel over the
   rank's block;
-* every other cell (prefill, the TP and sequence-sharded layouts, the
-  MoE) keeps parameters, optimizer state, batch and cache whole on every
-  rank and shards the contraction of each 2-D matmul over the mesh's
+* a train or prefill cell of a family without MoE layers whose rules
+  shard the sequence without TP (JAX's small-batch layout: batch over
+  (``pod``,) ``data``, the sequence over ``model``) runs the port's
+  Ulysses layout (:func:`seq_layout`, ``dist/seq_layout.py``): parameters
+  and AdamW moments take this rank's FSDP block shapes over the batch
+  axes, the batch this rank's rows with the whole sequence, a prefill's
+  cache the decode layout's blocks (rows over the batch axes, the cache
+  sequence over ``model``), and the step runs on the ``cuda`` backend, on
+  the rank's block of the sequence;
+* every other cell (the TP layouts, the MoE) keeps parameters, optimizer
+  state, batch and cache whole on every rank and shards the contraction
+  of each 2-D matmul over the mesh's
   ``data`` axis (the ``sharded`` backend; ROADMAP.md Queue 1 item 2): its
   structures have the global shapes.
 """
@@ -47,6 +56,7 @@ from repro_torch.core import context as context_lib
 from repro_torch.core.policy import PrecisionPolicy
 from repro_torch.dist import decode_layout as decode_lib
 from repro_torch.dist import fsdp as fsdp_lib
+from repro_torch.dist import seq_layout as seq_lib
 from repro_torch.dist import sharding as sh_lib
 from repro_torch.models import transformer as T
 from repro_torch.optim import adamw
@@ -140,8 +150,10 @@ class Cell:
     # the meta arguments by group: params, opt, cache, batch
     groups: Dict[str, Any] = dataclasses.field(default_factory=dict)
     rules: Optional[sh_lib.AxisRules] = None
-    # the FSDP or decode layout the step runs on (None: the whole-rank run)
-    layout: Optional[Union[fsdp_lib.Layout, decode_lib.DecodeLayout]] = None
+    # the FSDP, decode or Ulysses layout the step runs on (None: the
+    # whole-rank run)
+    layout: Optional[Union[fsdp_lib.Layout, decode_lib.DecodeLayout,
+                           seq_lib.SeqLayout]] = None
 
 
 def _meta(shape, dtype) -> torch.Tensor:
@@ -181,6 +193,39 @@ def decode_layout(cfg: ModelConfig, cell: ShapeCell, rules
         rules, _cache_seq_axes(rules.mesh, cell, rules))
 
 
+def seq_layout(cfg: ModelConfig, cell: ShapeCell, rules
+               ) -> Optional[seq_lib.SeqLayout]:
+    """The Ulysses layout a cell's train or prefill step runs on, or None
+    for the whole-rank run: a train or prefill cell under rules with
+    sequence axes and no TP, whose batch has axes (at batch 1 on a mesh
+    whose batch axes are idle the rows would repeat over them and a
+    prefill's cache would split its sequence over them too,
+    ``_cache_seq_axes``), of a family without MoE layers (their experts'
+    layout is ROADMAP.md Queue 1 item 2d), whose sequence divides the
+    sequence axes.  A prefill's cache is laid out as the decode layout's
+    (rows over the batch axes, the cache sequence over
+    :func:`_cache_seq_axes`).  The one place the port decides it: the dry
+    run, the launcher and the steps' callers take it from here."""
+    if not (rules is not None and cell.phase in ("train", "prefill")
+            and rules.seq_axes and not rules.tp_enabled
+            and rules.batch is not None and cfg.family != "moe"
+            and cell.seq_len % rules.axis_size(rules.seq) == 0):
+        return None
+    cache = None
+    if cell.phase == "prefill" and not cfg.encoder_only:
+        cache = T.make_cache(cfg, cell.global_batch, cell.seq_len,
+                             device=META)
+    return seq_lib.make_layout(T.init_params(cfg, device=META), rules,
+                               cell.seq_len, cache,
+                               _cache_seq_axes(rules.mesh, cell, rules))
+
+
+def train_layout(cfg: ModelConfig, cell: ShapeCell, rules):
+    """The layout a train cell's step runs on: FSDP (:func:`fsdp_layout`)
+    or Ulysses (:func:`seq_layout`), or None for the whole-rank run."""
+    return fsdp_layout(cfg, cell, rules) or seq_layout(cfg, cell, rules)
+
+
 def _rows(cell: ShapeCell, layout) -> int:
     return cell.global_batch // layout.size if layout is not None \
         else cell.global_batch
@@ -210,7 +255,8 @@ def label_struct(cfg: ModelConfig, cell: ShapeCell, rules=None,
 
 def params_structs(cfg: ModelConfig, rules=None, layout=None) -> dict:
     """The parameters' global shapes, or this rank's blocks' under
-    ``layout`` (an FSDP layout, or a decode layout's parameters)."""
+    ``layout`` (an FSDP or Ulysses layout, or a decode layout's
+    parameters)."""
     params = T.init_params(cfg, device=META)
     if isinstance(layout, decode_lib.DecodeLayout):
         layout = layout.fsdp
@@ -228,7 +274,7 @@ def state_structs(cfg: ModelConfig, rules, moment_dtype: str, layout=None):
 def cache_structs(cfg: ModelConfig, cell: ShapeCell, rules=None,
                   dtype=torch.bfloat16, layout=None) -> T.ModelCache:
     """The decode cache at the cell's global shapes, or this rank's blocks'
-    under a decode ``layout``."""
+    under a decode or Ulysses ``layout``."""
     cache = T.make_cache(cfg, cell.global_batch, cell.seq_len, dtype=dtype,
                          device=META)
     if layout is not None:
@@ -239,9 +285,9 @@ def cache_structs(cfg: ModelConfig, cell: ShapeCell, rules=None,
 def _scoped(step: Callable, rules, mesh, layout=None) -> Callable:
     """Run ``step`` under the cell's rules and, across ranks, the
     ``sharded`` backend on ``mesh`` (the port's whole-rank multi-rank
-    code) or, under an FSDP or decode ``layout``, the ``cuda`` backend
-    (the step gathers; each matmul runs on the rank's rows, decode
-    attention on its block of the cache); on one process under the
+    code) or, under an FSDP, decode or Ulysses ``layout``, the ``cuda``
+    backend (the step gathers; each matmul runs on the rank's rows, and
+    block of the sequence or of the cache); on one process under the
     context's backend."""
     def fn(*args):
         if layout is not None:
@@ -266,7 +312,7 @@ def build_cell(arch: str, cfg: ModelConfig, shape: Union[str, ShapeCell],
     policy = policy or PrecisionPolicy.train_default()
 
     if cell.phase == "train":
-        layout = fsdp_layout(cfg, cell, rules)
+        layout = train_layout(cfg, cell, rules)
         moment_dtype = "bfloat16" if cfg.param_count() > 5e10 else "float32"
         state, ocfg = state_structs(cfg, rules, moment_dtype, layout)
         tcfg = trainer_lib.TrainerConfig(opt=ocfg)
@@ -282,24 +328,26 @@ def build_cell(arch: str, cfg: ModelConfig, shape: Union[str, ShapeCell],
                             "batch": batch}, rules=rules, layout=layout)
 
     if cell.phase == "prefill":
-        params = params_structs(cfg, rules)
-        inputs = batch_structs(cfg, cell, rules)
+        layout = seq_layout(cfg, cell, rules)
+        params = params_structs(cfg, rules, layout)
+        inputs = batch_structs(cfg, cell, rules, layout)
+        pre = trainer_lib.make_prefill_step(
+            cfg, policy, mesh=mesh if layout is None else None,
+            layout=layout)
         if cfg.encoder_only:
             def enc(params, inputs):
-                logits, _, _ = T.forward(params, inputs, cfg, policy,
-                                         mesh=mesh)
-                return logits[:, -1:, :]
+                return pre(params, inputs, None)[0]
 
             return Cell(arch, cell.name, "prefill",
-                        _scoped(enc, rules, mesh), (params, inputs),
+                        _scoped(enc, rules, mesh, layout), (params, inputs),
                         groups={"params": params, "batch": inputs},
-                        rules=rules)
-        cache = cache_structs(cfg, cell, rules)
-        pre = trainer_lib.make_prefill_step(cfg, policy, mesh=mesh)
-        return Cell(arch, cell.name, "prefill", _scoped(pre, rules, mesh),
+                        rules=rules, layout=layout)
+        cache = cache_structs(cfg, cell, rules, layout=layout)
+        return Cell(arch, cell.name, "prefill",
+                    _scoped(pre, rules, mesh, layout),
                     (params, inputs, cache), donate=(2,),
                     groups={"params": params, "cache": cache,
-                            "batch": inputs}, rules=rules)
+                            "batch": inputs}, rules=rules, layout=layout)
 
     # decode: one new token per sequence against a full-length cache (on
     # its layout: this rank's rows and blocks)

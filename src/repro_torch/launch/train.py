@@ -12,8 +12,9 @@ parameters and moments, trains on its rows of each batch, and rank 0
 writes the one checkpoint directory (the global arrays).  Each matmul then
 runs on the rank's rows (``--backend sharded`` would K-shard them again
 over the ranks: the trainer refuses it under the layout).  Where the
-layout does not apply (``specs.fsdp_layout``: the MoE family, a batch
-that does not divide the ranks) every rank holds the whole state, takes the same steps on the same batches under
+layout does not apply (``specs.train_layout``, which on this mesh picks
+FSDP or nothing: the MoE family, a batch that does not divide the
+ranks) every rank holds the whole state, takes the same steps on the same batches under
 ``--backend`` (``sharded``: K-sharded matmuls) and checkpoints into its own
 ``rank<r>`` directory.  Rank 0 prints; every rank checks that its losses
 equal rank 0's:
@@ -84,8 +85,8 @@ def _train(args, info=None):
     if info is not None:
         mesh = mesh_lib.make_debug_mesh(data=info.world_size, model=1)
         cell = ShapeCell("launch", args.seq, args.batch, "train")
-        layout = specs_lib.fsdp_layout(cfg, cell,
-                                       specs_lib.make_rules(mesh, cell, cfg))
+        layout = specs_lib.train_layout(
+            cfg, cell, specs_lib.make_rules(mesh, cell, cfg))
         if layout is not None:
             print(f"FSDP layout over {info.world_size} ranks, batch axes "
                   f"{layout.rules.batch_axes}")

@@ -26,6 +26,7 @@ from repro_torch.core.mpmatmul import mp_attention, mp_dense, mp_matmul, \
     mp_qkv_proj
 from repro_torch.core.policy import PrecisionPolicy
 from repro_torch.dist import decode_layout as decode_layout_lib
+from repro_torch.dist import seq_layout as seq_layout_lib
 from repro_torch.models.layers import apply_rope, dense_init
 from repro_torch.serve.kv_cache import TRASH_BLOCK, PagedKVCache
 
@@ -153,28 +154,70 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def _self_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     policy: PrecisionPolicy, *, causal: bool = True,
-                    q_chunk: int = 1024, kv_chunk: int = 1024
-                    ) -> torch.Tensor:
+                    q_chunk: int = 1024, kv_chunk: int = 1024,
+                    q_offset: int = 0,
+                    elements: Optional[int] = None) -> torch.Tensor:
     """Route full self-attention: the fused flash path (``mp_attention``)
     when eligible, else the chunk-scan — AUTO formats and sequences with
     B·H·S·T > FUSED_P_MAX_ELEMENTS take the chunk-scan, as in the JAX
-    package."""
+    package.  ``elements``: the B·H·S·T the route is decided on where the
+    operands are one rank's part of it (the Ulysses layout's global
+    shape); ``q_offset``: the queries' first position."""
     B, S, H, Dh = q.shape
     T = k.shape[1]
     fmt_qk = policy.mode("attn_qk")
     fmt_pv = policy.mode("attn_pv")
+    if elements is None:
+        elements = B * H * S * T
     if (is_auto(fmt_qk) or is_auto(fmt_pv)
-            or B * H * S * T > FUSED_P_MAX_ELEMENTS):
+            or elements > FUSED_P_MAX_ELEMENTS):
         return chunked_attention(q, k, v, policy, causal=causal,
-                                 q_chunk=q_chunk, kv_chunk=kv_chunk)
+                                 q_chunk=q_chunk, kv_chunk=kv_chunk,
+                                 q_offset=q_offset)
     bwd_qk = policy.bwd_kwargs("attn_qk")
     bwd_pv = policy.bwd_kwargs("attn_pv")
     return mp_attention(
-        q, k, v, fmt_qk, fmt_pv, causal=causal,
+        q, k, v, fmt_qk, fmt_pv, causal=causal, q_offset=q_offset,
         dgrad_qk_mode=bwd_qk["dgrad_mode"],
         wgrad_qk_mode=bwd_qk["wgrad_mode"],
         dgrad_pv_mode=bwd_pv["dgrad_mode"],
         wgrad_pv_mode=bwd_pv["wgrad_mode"])
+
+
+def laid_out_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       policy: PrecisionPolicy, layout, *, causal: bool,
+                       q_chunk: int, kv_chunk: int) -> torch.Tensor:
+    """Self-attention of this rank's block of the sequence under a Ulysses
+    ``layout`` (``dist/seq_layout.py``): q (B, t, H, Dh), k / v (B, t, Hkv,
+    Dh) of the block's positions, H a multiple of Hkv; the output (B, t,
+    H, Dh) of the block's queries.  The route is the one-rank step's,
+    decided on the global (B, H, S, S).
+
+    ``heads`` mode (the sequence group divides H): q, k, v exchanged to
+    every position of H / M heads (K / V before the GQA repeat where M
+    divides Hkv too: the same bits), attention over the whole sequence,
+    the output exchanged back.  ``seq`` mode: K / V gathered over the
+    sequence group, the block's queries at their offset."""
+    B, t, H, Dh = q.shape
+    n_rep = H // k.shape[2]
+    S = layout.seq_len
+    elements = B * layout.size * H * S * S
+    kw = dict(causal=causal, q_chunk=q_chunk, kv_chunk=kv_chunk,
+              elements=elements)
+    if layout.mode(H) == "heads":
+        if k.shape[2] % layout.model_size == 0:
+            kh = _repeat_kv(seq_layout_lib.seq_to_heads(k, layout), n_rep)
+            vh = _repeat_kv(seq_layout_lib.seq_to_heads(v, layout), n_rep)
+        else:
+            kh = seq_layout_lib.seq_to_heads(_repeat_kv(k, n_rep), layout)
+            vh = seq_layout_lib.seq_to_heads(_repeat_kv(v, n_rep), layout)
+        out = _self_attention(seq_layout_lib.seq_to_heads(q, layout), kh, vh,
+                              policy, **kw)
+        return seq_layout_lib.heads_to_seq(out, layout)
+    kf = _repeat_kv(seq_layout_lib.gather_seq(k, layout), n_rep)
+    vf = _repeat_kv(seq_layout_lib.gather_seq(v, layout), n_rep)
+    return _self_attention(q, kf, vf, policy, q_offset=layout.block[0],
+                           **kw)
 
 
 def gqa_forward(params: dict, x: torch.Tensor, dims: AttnDims,
@@ -214,7 +257,15 @@ def gqa_forward(params: dict, x: torch.Tensor, dims: AttnDims,
         k = apply_rope(k, positions, dims.rope_theta, dims.rope_fraction)
 
     new_cache = None
-    if isinstance(cache, PagedKVCache):
+    seq = seq_layout_lib.current_seq_layout()
+    if seq is not None:
+        if cache is not None:   # a prefill: this rank's block of the cache
+            seq_layout_lib.cache_block_write(cache.k, cache.length, k, seq)
+            seq_layout_lib.cache_block_write(cache.v, cache.length, v, seq)
+            new_cache = KVCache(cache.k, cache.v, seq.seq_len)
+        out = laid_out_attention(q, k, v, policy, seq, causal=dims.causal,
+                                 q_chunk=q_chunk, kv_chunk=kv_chunk)
+    elif isinstance(cache, PagedKVCache):
         new_cache = _paged_write(cache, k, v, positions)
         if S == 1:
             out = _paged_decode_attention(q, new_cache, dims, policy)

@@ -10,7 +10,10 @@ the shared ``k_rope`` (qk_rope dims) per token, and the K up-projection is
 absorbed into the query so attention runs in latent space (under a decode
 layout, ``dist/decode_layout.py``, over this rank's block of the latent,
 the softmax and the context ``p @ c_kv`` combined over the sequence group
-before ``w_uv``, which every rank of the group applies alike).  The absorbed
+before ``w_uv``, which every rank of the group applies alike).  Under the
+Ulysses layout (``dist/seq_layout.py``) the prefill runs on this rank's
+block of the sequence: the per-head K and padded V take the layout's
+heads or seq mode, and the latent cache's block is the rank's.  The absorbed
 einsums run in f32 outside the multiplier, as in the JAX package (which
 computes them in XLA, outside any Pallas kernel); every projection routes
 through the multi-precision ops.
@@ -25,7 +28,8 @@ import torch
 from repro_torch.core.mpmatmul import mp_dense, mp_fused_proj
 from repro_torch.core.policy import PrecisionPolicy
 from repro_torch.dist import decode_layout as decode_layout_lib
-from repro_torch.models.attention import _self_attention
+from repro_torch.dist import seq_layout as seq_layout_lib
+from repro_torch.models.attention import _self_attention, laid_out_attention
 from repro_torch.models.layers import apply_rope, dense_init
 
 NEG_INF = -1e30
@@ -120,7 +124,16 @@ def mla_forward(params: dict, x: torch.Tensor, dims: MLADims,
                         dims.rope_theta)[:, :, 0, :]
 
     new_cache = None
-    if cache is not None:
+    seq = seq_layout_lib.current_seq_layout()
+    if seq is not None and cache is not None:
+        # a prefill under the Ulysses layout: this rank's block of the
+        # latent cache
+        seq_layout_lib.cache_block_write(cache.c_kv, cache.length, c_kv,
+                                         seq)
+        seq_layout_lib.cache_block_write(cache.k_rope, cache.length,
+                                         k_rope, seq)
+        new_cache = MLACache(cache.c_kv, cache.k_rope, seq.seq_len)
+    elif cache is not None:
         start = cache.length
         layout = decode_layout_lib.current_decode_layout()
         if layout is not None:   # on the rank whose block holds start
@@ -152,8 +165,12 @@ def mla_forward(params: dict, x: torch.Tensor, dims: MLADims,
     # both (values ignore the pad after the contraction)
     pad = dims.qk_head_dim - dims.v_head_dim
     v_p = torch.nn.functional.pad(v, (0, pad)) if pad > 0 else v
-    out = _self_attention(q, k, v_p, policy, causal=True, q_chunk=q_chunk,
-                          kv_chunk=kv_chunk)
+    if seq is not None:   # the block's queries: heads or seq mode
+        out = laid_out_attention(q, k, v_p, policy, seq, causal=True,
+                                 q_chunk=q_chunk, kv_chunk=kv_chunk)
+    else:
+        out = _self_attention(q, k, v_p, policy, causal=True,
+                              q_chunk=q_chunk, kv_chunk=kv_chunk)
     out = out[..., :dims.v_head_dim].reshape(B, S, h * dims.v_head_dim)
     out = mp_dense(out, params["w_o"], policy.mode("attn_out"),
                    **policy.bwd_kwargs("attn_out"))

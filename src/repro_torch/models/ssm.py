@@ -9,6 +9,12 @@ The SSD chunked algorithm splits the selective scan into block terms:
     (an element-wise decay recurrence in f32, outside the multiplier, as in
     the JAX package).
 
+Under the Ulysses layout (``dist/seq_layout.py``) a layer runs this rank's
+block of the sequence after the previous block's: the conv takes that
+block's last ``d_conv - 1`` pre-conv inputs as its window and the chunk
+recurrence its final state as the initial state (the one-rank loop's carry
+at that chunk), handed on in rank order over the sequence group.
+
 Decode keeps a recurrent cache: the conv window (d_conv - 1 samples) and the
 SSM state (B, H, dh, ds): O(1) per token.  The conv is shifted adds (d_conv
 is tiny), never a cuDNN convolution, and the decode update is plain f32.
@@ -24,6 +30,7 @@ import torch.nn.functional as F
 
 from repro_torch.core.mpmatmul import mp_dense, mp_matmul
 from repro_torch.core.policy import PrecisionPolicy
+from repro_torch.dist import seq_layout as seq_layout_lib
 from repro_torch.models.layers import dense_init, normal, rand, rms_norm
 
 
@@ -113,10 +120,13 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 def _ssd_chunked(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                  Bm: torch.Tensor, Cm: torch.Tensor, dims: SSMDims,
                  policy: PrecisionPolicy,
-                 init_state: Optional[torch.Tensor] = None):
+                 init_state: Optional[torch.Tensor] = None, handover=None):
     """SSD over chunks.  xh: (B, S, H, dh); dt: (B, S, H); A: (H,) negative;
     Bm/Cm: (B, S, G, ds).  Returns (y (B, S, H, dh), final state
-    (B, H, dh, ds))."""
+    (B, H, dh, ds)).  ``handover`` (a ``dist.seq_layout.SSMHandover``):
+    the initial state is the previous sequence block's final state,
+    received right before the chunk recurrence, and the final state goes
+    on to the next block."""
     Bsz, S, H, dh = xh.shape
     G, ds = Bm.shape[2], Bm.shape[3]
     hpg = H // G                                      # heads per group
@@ -173,6 +183,8 @@ def _ssd_chunked(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 
     # --- inter-chunk state recurrence (sequential over nc, f32) ------------
     seg_decay = torch.exp(seg_total)                          # (B, nc, H)
+    if handover is not None:
+        init_state = handover.recv_state(s_chunk[:, 0])
     state = (init_state if init_state is not None
              else torch.zeros((Bsz, H, dh, ds), device=xh.device))
     s_prevs = []
@@ -180,6 +192,8 @@ def _ssd_chunked(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         s_prevs.append(state)                  # the state BEFORE chunk c
         state = state * seg_decay[:, c, :, None, None] + s_chunk[:, c]
     s_prev = torch.stack(s_prevs, dim=1)                      # (B,nc,H,dh,ds)
+    if handover is not None:
+        handover.send_state(state)
 
     # --- inter-chunk contribution: y_inter[l] = exp(cum_l) C_l · S_prev ----
     Ch = torch.repeat_interleave(C_c.permute(0, 1, 3, 2, 4), hpg, dim=2)
@@ -205,7 +219,19 @@ def ssm_forward(params: dict, x: torch.Tensor, dims: SSMDims,
     if cache is not None and S == 1:
         return _decode_step(params, z, xBC_pre, dt, dims, policy, cache)
 
-    xBC = F.silu(_causal_conv(xBC_pre, params["conv_w"], params["conv_b"]))
+    seq = seq_layout_lib.current_seq_layout()
+    hand = window = None
+    if seq is not None:   # this rank's block: the previous block's carry
+        if S % dims.chunk:
+            raise ValueError(
+                f"a sequence block of {S} positions under the Ulysses "
+                f"layout: the SSD chunks ({dims.chunk}) must tile each "
+                f"block, or the blocks would not chunk as the whole "
+                f"sequence does")
+        hand = seq_layout_lib.SSMHandover(seq, xBC_pre)
+        window = hand.window(xBC_pre, dims.d_conv - 1)
+    xBC = F.silu(_causal_conv(xBC_pre, params["conv_w"], params["conv_b"],
+                              init_window=window))
     xs, Bm, Cm = torch.split(xBC, [dims.d_inner, G * ds, G * ds], dim=-1)
     xh = xs.reshape(B, S, H, dh)
     Bm = Bm.reshape(B, S, G, ds)
@@ -213,17 +239,24 @@ def ssm_forward(params: dict, x: torch.Tensor, dims: SSMDims,
     dt = softplus(dt.float() + params["dt_bias"].float())
     A = -torch.exp(params["A_log"].float())
 
-    y, final_state = _ssd_chunked(xh.float(), dt, A, Bm, Cm, dims, policy)
+    y, final_state = _ssd_chunked(xh.float(), dt, A, Bm, Cm, dims, policy,
+                                  handover=hand)
     y = y + params["D"].float()[None, None, :, None] * xh
     y = y.reshape(B, S, dims.d_inner)
     y = y * F.silu(z.float())
     y = rms_norm(y, params["norm_w"])
+    if hand is not None:
+        y = hand.tie(y)
     out = mp_dense(y.to(x.dtype), params["out_proj"], mode, **bwd)
 
     new_cache = None
     if cache is not None:  # prefill: stash the conv window and final state
         K = dims.d_conv
         conv_tail = xBC_pre[:, S - (K - 1):, :]  # last K-1 pre-conv inputs
+        if seq is not None:   # the last block's, on every rank
+            conv_tail = seq_layout_lib.from_last(conv_tail, seq)
+            final_state = seq_layout_lib.from_last(final_state, seq)
+            S = seq.seq_len
         new_cache = SSMCache(conv=conv_tail.to(cache.conv.dtype),
                              state=final_state.to(cache.state.dtype),
                              length=cache.length + S)

@@ -32,7 +32,16 @@ step installs it) the forward runs on this rank's rows, the parameters
 through the same hook (blocks under pure FSDP rules, whole at batch 1),
 each attention layer (the hybrid's shared block too) over this rank's
 block of its cache sequence, each Mamba2 layer on its rows of the
-state."""
+state.
+
+Under the Ulysses layout (``dist.seq_layout.use_seq_layout``; the train
+and prefill steps install it) the inputs are this rank's rows with the
+whole sequence: the forward embeds them (the VLM's patches first) and
+keeps the rank's block of the sequence, positions at its offset; the
+parameters come through the same hook (FSDP blocks over the batch axes);
+each attention layer takes the layout's heads or seq mode, each Mamba2
+layer its block after the previous block's (``models.ssm``), and remat's
+recompute runs under the layout again."""
 from __future__ import annotations
 
 import contextlib
@@ -49,6 +58,7 @@ from repro_torch.core import dispatch as dispatch_lib
 from repro_torch.core.policy import PrecisionPolicy
 from repro_torch.dist import decode_layout as decode_layout_lib
 from repro_torch.dist import fsdp as fsdp_lib
+from repro_torch.dist import seq_layout as seq_layout_lib
 from repro_torch.dist import sharding as sharding_lib
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import mla as mla_lib
@@ -281,6 +291,7 @@ def _remat(fn, *args):
     snap = dispatch_lib.snapshot()
     selections = auto_lib.SelectionLog()
     routes = moe_lib.RouteLog()
+    seq = seq_layout_lib.current_seq_layout()
 
     @contextlib.contextmanager
     def record():
@@ -290,12 +301,17 @@ def _remat(fn, *args):
     @contextlib.contextmanager
     def recompute():
         with dispatch_lib.restored(snap), selections.replaying(), \
-                routes.replaying():
+                routes.replaying(), seq_layout_lib.use_seq_layout(seq):
             yield
 
-    return torch.utils.checkpoint.checkpoint(
-        fn, *args, use_reentrant=False,
-        context_fn=lambda: (record(), recompute()))
+    # under the Ulysses layout the recompute runs the region's exchanges
+    # again, which every rank of the group must meet: it runs whole (no
+    # early stop at the last saved tensor)
+    with (contextlib.nullcontext() if seq is None else
+          torch.utils.checkpoint.set_checkpoint_early_stop(False)):
+        return torch.utils.checkpoint.checkpoint(
+            fn, *args, use_reentrant=False,
+            context_fn=lambda: (record(), recompute()))
 
 
 def _needs_grad(h: torch.Tensor, layers) -> bool:
@@ -357,6 +373,13 @@ def forward(params: dict, inputs: Dict[str, torch.Tensor], cfg: ModelConfig,
     ``{"moe_aux", "moe_zloss"}``, the MoE layers' summed in layer order
     (zeros for the other families)."""
     gather = fsdp_lib.gatherer()
+    seq = seq_layout_lib.current_seq_layout()
+    if seq is not None and cfg.family == "moe":
+        raise NotImplementedError(
+            "the MoE family under the Ulysses layout: its experts' layout "
+            "beside the sequence blocks (moe_forward_ep) is the MoE under a "
+            "layout, ROADMAP.md Queue 1 item 2d, not ported; its train and "
+            "prefill cells run whole-rank")
     if (decode_layout_lib.current_decode_layout() is not None
             and cfg.family == "moe"):
         raise NotImplementedError(
@@ -381,6 +404,13 @@ def forward(params: dict, inputs: Dict[str, torch.Tensor], cfg: ModelConfig,
     base = cache.length if cache is not None else 0
     if torch.is_tensor(base) and base.ndim:  # paged: per-slot (B,) lengths
         base = base[:, None]
+    if seq is not None:   # this rank's block of the whole sequence
+        if S != seq.seq_len:
+            raise ValueError(f"the Ulysses layout is of {seq.seq_len} "
+                             f"positions; the inputs hold {S}")
+        off, S = seq.block
+        h = h[:, off:off + S].contiguous()
+        base = base + off
     positions = (base + torch.arange(S, device=h.device)[None, :]).expand(
         B, S)
     has_cache = cache is not None

@@ -101,14 +101,35 @@ def prelimb_dense_params(params: dict, n_limbs: int) -> dict:
     return out
 
 
-def make_prefill_step(cfg: ModelConfig, policy: PrecisionPolicy, mesh=None):
-    """(params, inputs, cache) -> (last-position logits (B, 1, V), cache)."""
+def make_prefill_step(cfg: ModelConfig, policy: PrecisionPolicy, mesh=None,
+                      layout=None):
+    """(params, inputs, cache) -> (last-position logits (B, 1, V), cache).
+
+    ``layout``: a Ulysses layout (``dist.seq_layout``; the counterpart of
+    JAX's prefill step under ``use_rules``): the step takes this rank's
+    parameter blocks, its rows of the inputs with the whole sequence and
+    its cache blocks (a cache as long as the prompt), runs its block of
+    the sequence on the ``cuda`` backend under ``torch.no_grad``, and
+    returns its rows' last-position logits (the last block's, on every
+    rank of the sequence group) and its cache blocks (the SSM states the
+    last block's on every rank).  An encoder-only model takes no cache
+    (None in, None out)."""
     def prefill_step(params, inputs, cache):
         logits, _, new_cache = T.forward(params, inputs, cfg, policy,
                                          cache=cache, mesh=mesh)
         return logits[:, -1:, :], new_cache
 
-    return prefill_step
+    if layout is None:
+        return prefill_step
+    from repro_torch.dist import seq_layout as seq_lib
+
+    def laid_out(params, inputs, cache):
+        with torch.no_grad(), context_lib.context(backend="cuda"), \
+                seq_lib.use_seq_layout(layout):
+            last, new_cache = prefill_step(params, inputs, cache)
+            return seq_lib.from_last(last, layout), new_cache
+
+    return laid_out
 
 
 def make_serve_step(cfg: ModelConfig, policy: PrecisionPolicy, mesh=None,

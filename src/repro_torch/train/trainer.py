@@ -27,7 +27,10 @@ every parameter and moment (``param_shardings``) and feeds the step its
 rows of each global batch;
 the step returns the global loss and metrics (reduced over the batch
 group, so every rank rolls back together) and the blocks' new values, and
-checkpoints hold the global arrays (gathered, written by rank 0).
+checkpoints hold the global arrays (gathered, written by rank 0).  The
+Ulysses layout (``dist/seq_layout.py``; ``launch/specs.seq_layout``) is
+the same on the state, and feeds the step each row's whole sequence, of
+which it runs the rank's block; the metrics reduce over every rank.
 
 The trainer runs on the card (``device="cuda"``) unless the caller asks for
 the CPU, where every kernel wrapper runs its plain version; without a card
@@ -38,7 +41,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import time
-from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -50,6 +53,7 @@ from repro_torch.core import context as context_lib
 from repro_torch.core.classify import all_finite
 from repro_torch.core.policy import PrecisionPolicy
 from repro_torch.dist import fsdp as fsdp_lib
+from repro_torch.dist import seq_layout as seq_lib
 from repro_torch.dist import sharding as sh_lib
 from repro_torch.models import transformer as T
 from repro_torch.optim import adamw
@@ -58,6 +62,10 @@ from repro_torch.optim import schedule as sched_lib
 from repro_torch.serve.engine import (  # noqa: F401
     make_prefill_step, make_serve_step)
 from repro_torch.train.metrics import MetricsLogger
+
+
+# a step's layout: FSDP (dist/fsdp.py) or Ulysses (dist/seq_layout.py)
+Layout = Union[fsdp_lib.Layout, seq_lib.SeqLayout]
 
 
 class TrainState(NamedTuple):
@@ -88,30 +96,55 @@ class TrainerConfig:
 
 def make_loss_fn(cfg: ModelConfig, policy: PrecisionPolicy,
                  tcfg: Optional[TrainerConfig] = None,
-                 mesh=None) -> Callable:
+                 mesh=None, layout: Optional[Layout] = None) -> Callable:
     """loss_fn(params, batch) -> (loss, extras): the mean over tokens of the
     f32 ``logsumexp`` minus the label's logit (the VLM's patch positions
     sliced off), plus ``tcfg.aux_weight`` x the MoE load-balance aux and
     ``tcfg.zloss_weight`` x the router z-loss (zeros for the other
     families); extras ``{"nll", "moe_aux", "moe_zloss"}``.  ``tcfg``
-    defaults to ``TrainerConfig()``'s weights."""
+    defaults to ``TrainerConfig()``'s weights.
+
+    ``layout``: an FSDP or a Ulysses layout; ``batch`` then holds this
+    rank's rows, and the loss and extras are this rank's share of the
+    global mean (``dist.fsdp.local_loss``: its rows' mean over the batch
+    group's size), so that the sums over the layout's ranks of the loss
+    (``metrics_group``) and of the gradients are the global mean's.  Under
+    a Ulysses layout (``dist/seq_layout.py``, installed around the
+    forward) the rows hold the whole sequence, the logits are the rank's
+    block's, the labels are cut to the block by global position (the
+    VLM's patch positions carry none), and the rows' mean is the block's
+    tokens' sum over the rows' token count."""
     tcfg = tcfg if tcfg is not None else TrainerConfig()
+    seq = layout if isinstance(layout, seq_lib.SeqLayout) else None
 
     def loss_fn(params, batch):
         inputs = {k: v for k, v in batch.items() if k != "labels"}
-        logits, aux, _ = T.forward(params, inputs, cfg, policy, mesh=mesh)
-        if cfg.family == "vlm" and "patch_embeds" in inputs:
-            logits = logits[:, inputs["patch_embeds"].shape[1]:, :]
+        labels = batch["labels"]
+        n_prefix = (inputs["patch_embeds"].shape[1]
+                    if cfg.family == "vlm" and "patch_embeds" in inputs
+                    else 0)
+        with seq_lib.use_seq_layout(seq) if seq is not None \
+                else contextlib.nullcontext():
+            logits, aux, _ = T.forward(params, inputs, cfg, policy,
+                                       mesh=mesh)
+        if seq is not None:
+            logits, labels = seq_lib.label_block(logits, labels, n_prefix,
+                                                 seq)
+        elif n_prefix:
+            logits = logits[:, n_prefix:, :]
         logits = logits.float()
         lse = torch.logsumexp(logits, dim=-1)
-        picked = torch.gather(logits, -1,
-                              batch["labels"].long()[..., None])[..., 0]
-        nll = torch.mean(lse - picked)
+        picked = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+        if seq is not None:   # the block's share of its rows' mean
+            nll = (lse - picked).sum() / float(batch["labels"].numel())
+        else:
+            nll = torch.mean(lse - picked)
         loss = (nll + tcfg.aux_weight * aux["moe_aux"]
                 + tcfg.zloss_weight * aux["moe_zloss"])
         return loss, {"nll": nll, **aux}
 
-    return loss_fn
+    return loss_fn if layout is None else fsdp_lib.local_loss(loss_fn,
+                                                              layout)
 
 
 def value_and_grad(loss_fn: Callable, params, batch):
@@ -135,13 +168,13 @@ def _backend_scope(name: str):
 
 def make_train_step(cfg: ModelConfig, policy: PrecisionPolicy,
                     tcfg: TrainerConfig, mesh=None,
-                    layout: Optional[fsdp_lib.Layout] = None) -> Callable:
-    """``train_step(state, batch) -> (state', metrics)``.  Under an FSDP
-    ``layout`` the state holds this rank's blocks and ``batch`` its rows;
-    the metrics are the global ones, the same on every rank."""
-    loss_fn = make_loss_fn(cfg, policy, tcfg, mesh=mesh)
-    if layout is not None:
-        loss_fn = fsdp_lib.local_loss(loss_fn, layout)
+                    layout: Optional[Layout] = None) -> Callable:
+    """``train_step(state, batch) -> (state', metrics)``.  Under an FSDP or
+    a Ulysses ``layout`` the state holds this rank's blocks and ``batch``
+    its rows (under the Ulysses layout with the whole sequence, of which
+    the step runs the rank's block); the metrics are the global ones, the
+    same on every rank."""
+    loss_fn = make_loss_fn(cfg, policy, tcfg, mesh=mesh, layout=layout)
     sched = sched_lib.SCHEDULES[tcfg.schedule]
 
     def train_step(state: TrainState, batch) -> Tuple[TrainState, Dict]:
@@ -201,7 +234,7 @@ class Trainer:
                  policy: Optional[PrecisionPolicy] = None,
                  escalation_policy: Optional[PrecisionPolicy] = None,
                  device: str = "cuda", mesh=None,
-                 layout: Optional[fsdp_lib.Layout] = None):
+                 layout: Optional[Layout] = None):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Trainer(device='cuda') needs a CUDA device; "

@@ -128,6 +128,7 @@ def _leaves(tree):
 
 
 CELLS = (("deepseek-7b", "decode_32k"),          # dense, decode layout
+         ("mamba2-130m", "prefill_32k"),          # SSM, Ulysses layout
          ("deepseek-v2-lite-16b", "decode_32k"),  # MoE (MLA)
          ("mamba2-130m", "long_500k"),            # SSM, batch 1
          ("zamba2-2.7b", "long_500k"),            # hybrid, batch 1
@@ -139,12 +140,16 @@ CELLS = (("deepseek-7b", "decode_32k"),          # dense, decode layout
 
 def _ported(want, cfg, shape) -> bool:
     """Does the port run this cell on its layout: a train cell whose JAX
-    rules shard the batch alone (FSDP), or a decode cell whose rules are
-    not TP (the decode layout), of a family without MoE layers."""
+    rules shard the batch alone (FSDP), a decode cell whose rules are not
+    TP (the decode layout), or a train or prefill cell whose rules shard
+    the batch and the sequence without TP (Ulysses), of a family without
+    MoE layers."""
     phase = JSHAPES[shape].phase
     fsdp = (phase == "train" and want.batch_axes != (None,)
             and not want.seq_axes and not want.tp_enabled)
-    return (fsdp or (phase == "decode" and not want.tp_enabled)) \
+    ulysses = (phase in ("train", "prefill") and want.batch_axes != (None,)
+               and bool(want.seq_axes) and not want.tp_enabled)
+    return (fsdp or ulysses or (phase == "decode" and not want.tp_enabled)) \
         and cfg.family != "moe"
 
 
@@ -182,7 +187,9 @@ def test_cells_in_a_subprocess(tmp_path):
     gathers and reduce-scatters them; a decode cell without MoE layers or
     TP (``layout.ported``) its rows, its cache blocks and its parameter
     blocks over the batch axes (whole at batch 1), with three all-reduces
-    an attention layer; every other cell whole parameters."""
+    an attention layer; a prefill cell under the Ulysses rules
+    (``layout.ported``) its rows, its parameter and cache blocks, and the
+    SSM's hand-over and broadcasts; every other cell whole parameters."""
     out = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.dryrun", "--mesh",
          "single", "--out", str(tmp_path), "--cells",
@@ -227,6 +234,19 @@ def test_cells_in_a_subprocess(tmp_path):
                                                           cfg.n_layers)
             assert work["collective_calls"].get("all_reduce", 0) == \
                 3 * n_attn
+        elif ported and want.seq_axes:   # Ulysses: data's 16 ranks
+            params = specs.params_structs(cfg)
+            assert mem["params_bytes"] == _block_bytes(params, 16)
+            cache = specs.cache_structs(cfg, scell)
+            assert mem["cache_bytes"] == _cache_block_bytes(cache, 16, 16)
+            batch = specs.batch_structs(cfg, scell)
+            assert mem["batch_bytes"] == nbytes(batch) // 16
+            # the parameter gathers; each Mamba2 layer's carry to the next
+            # block; the last block's states and logits to every block
+            assert work["collective_calls"]["all_gather"] > 0
+            assert work["collective_calls"]["send"] == 2 * cfg.n_layers
+            assert work["collective_calls"]["broadcast"] == \
+                2 * cfg.n_layers + 1
         elif ported:   # this rank's blocks of params and f32 moments, rows
             params = specs.params_structs(cfg)
             assert mem["params_bytes"] == _block_bytes(params, 256)
@@ -278,3 +298,107 @@ def test_cells_in_a_subprocess(tmp_path):
         specs.cache_structs(get_config("mamba2-130m"), JSHAPES["long_500k"]))
     assert mem["mamba2-130m"]["params_bytes"] == nbytes(
         specs.params_structs(get_config("mamba2-130m")))
+
+
+class CoordMesh:
+    """A production mesh at one rank's coordinates: what the layouts read
+    of a ``DeviceMesh`` (names, sizes, coordinates), no process group."""
+
+    def __init__(self, multi_pod: bool, coord=None):
+        sizes = (2, 16, 16) if multi_pod else (16, 16)
+        self.mesh_dim_names = (("pod", "data", "model") if multi_pod
+                               else ("data", "model"))
+        self.shape = sizes
+        self.axis_names = self.mesh_dim_names
+        self._coord = list(coord or (0,) * len(sizes))
+
+    def size(self, i):
+        return self.shape[i]
+
+    def get_coordinate(self):
+        return self._coord
+
+
+ULYSSES_ARCHS = ("minicpm3-4b", "deepseek-7b", "chatglm3-6b", "mamba2-130m",
+                 "llava-next-34b", "zamba2-2.7b", "hubert-xlarge")
+
+
+def _ulysses_cells():
+    """JAX's small-batch layout without MoE or TP: prefill_32k on both
+    meshes and multipod train_4k, for the seven ids."""
+    return [(a, s, m) for a in ULYSSES_ARCHS
+            for s, m in (("prefill_32k", False), ("prefill_32k", True),
+                         ("train_4k", True))]
+
+
+def test_the_ulysses_cells_are_every_non_moe_non_tp_sequence_cell():
+    """The 21 cells are exactly the assigned ids' cells whose JAX rules
+    shard the sequence without TP, of a family without MoE layers; each
+    gets the layout."""
+    got = []
+    for arch in assigned_archs():
+        cfg, jcfg = get_config(arch), jget_config(arch)
+        for shape in ("train_4k", "prefill_32k"):
+            for multi in (False, True):
+                want = jspecs.make_rules(StandInMesh(multi), JSHAPES[shape],
+                                         jcfg)
+                if not want.seq_axes or want.tp_enabled \
+                        or cfg.family == "moe":
+                    continue
+                got.append((arch, shape, multi))
+                rules = specs.make_rules(CoordMesh(multi), SHAPES[shape],
+                                         cfg)
+                assert specs.seq_layout(cfg, SHAPES[shape], rules) \
+                    is not None, (arch, shape, multi)
+                assert _ported(want, cfg, shape)
+    assert sorted(got) == sorted(_ulysses_cells())
+
+
+@pytest.mark.parametrize("arch,shape,multi", _ulysses_cells())
+def test_ulysses_cells_hold_jax_arithmetic(arch, shape, multi):
+    """A rank's structures under the layout (``build_cell``'s: params,
+    AdamW moments, batch rows with the whole sequence, prefill cache
+    blocks) at rank 0's coordinates: JAX's per-device arithmetic — each
+    leaf's trailing dim over the batch axes (16 or 32 ranks) where it
+    divides, the batch's rows over them, the cache's rows over them and
+    its sequence over model's 16 (the SSM states by rows, the stated
+    exception)."""
+    cfg, scell = get_config(arch), SHAPES[shape]
+    rules = specs.make_rules(CoordMesh(multi), scell, cfg)
+    layout = specs.seq_layout(cfg, scell, rules)
+    n = 32 if multi else 16
+    assert layout.size == n and layout.model_size == 16
+    assert layout.block == (0, scell.seq_len // 16)
+    params = specs.params_structs(cfg)
+    assert nbytes(specs.params_structs(cfg, rules, layout)) == \
+        _block_bytes(params, n)
+    batch = specs.batch_structs(cfg, scell, rules, layout)
+    whole = specs.batch_structs(cfg, scell)
+    if scell.phase == "train":
+        batch["labels"] = specs.label_struct(cfg, scell, rules, layout)
+        whole["labels"] = specs.label_struct(cfg, scell)
+        state, _ = specs.state_structs(cfg, rules, "float32", layout)
+        assert nbytes(state.opt) == 2 * _block_bytes(params, n) + 4
+    assert nbytes(batch) == nbytes(whole) // n
+    if scell.phase == "prefill" and not cfg.encoder_only:
+        assert nbytes(specs.cache_structs(cfg, scell, rules,
+                                          layout=layout)) == \
+            _cache_block_bytes(specs.cache_structs(cfg, scell), n, 16)
+
+
+def test_the_pinned_ulysses_cells():
+    """JAX's bytes a device (summed ``shard_shape`` over its structures
+    on 256 fake devices) less its int32 ``length`` leaves, 4 bytes a
+    layer: deepseek-7b prefill_32k single pod, where the port held
+    505.75 GiB a rank whole; mamba2-130m prefill_32k's cache."""
+    got = {}
+    for arch in ("deepseek-7b", "mamba2-130m"):
+        cfg, scell = get_config(arch), SHAPES["prefill_32k"]
+        rules = specs.make_rules(CoordMesh(False), scell, cfg)
+        layout = specs.seq_layout(cfg, scell, rules)
+        got[arch] = (nbytes(specs.params_structs(cfg, rules, layout)),
+                     nbytes(specs.cache_structs(cfg, scell, rules,
+                                                layout=layout)),
+                     nbytes(specs.batch_structs(cfg, scell, rules, layout)))
+    assert got["deepseek-7b"] == (1_727_591_424, 2_013_265_920, 262_144)
+    assert got["mamba2-130m"][1] == 38_781_024 - 4 * 24

@@ -906,3 +906,275 @@ def decode_edges(q, k, v, lengths, junk):
     return {"clean": _np(clean), "dirty": _np(dirty), "counts": counts,
             "auto": auto, "block": (idx * t, t),
             "sp_bits": bool(torch.equal(sp, before)), "sp": _np(sp)}
+
+
+# ---------------------------------------------------------------- Ulysses
+def ulysses_inputs(cfg, B, S, seed=11):
+    """A global batch of B rows of S positions (numpy, seeded): tokens
+    (the VLM's after its patches) or the audio family's frame embeddings,
+    the VLM's patch embeddings, and labels."""
+    rng = np.random.default_rng(seed)
+    P = cfg.n_patches if cfg.family == "vlm" else 0
+    out = {}
+    if cfg.family == "audio":
+        out["embeds"] = rng.standard_normal((B, S, cfg.d_model)).astype(
+            np.float32)
+    else:
+        out["tokens"] = rng.integers(0, cfg.vocab, (B, S - P)).astype(
+            np.int64)
+    if P:
+        out["patch_embeds"] = rng.standard_normal(
+            (B, P, cfg.d_model)).astype(np.float32)
+    out["labels"] = rng.integers(0, cfg.vocab, (B, S - P)).astype(np.int64)
+    return out
+
+
+def _ulysses_layout(cfg, B, S, phase, mesh):
+    """The Ulysses layout ``launch/specs`` gives a cell of B rows of S
+    positions on ``mesh``."""
+    from repro_torch.configs.shapes import ShapeCell
+    from repro_torch.launch import specs
+
+    cell = ShapeCell("smoke", S, B, phase)
+    layout = specs.seq_layout(cfg, cell, specs.make_rules(mesh, cell, cfg))
+    assert layout is not None, "make_rules gives this cell no Ulysses layout"
+    return layout
+
+
+def _ulysses_trainer(cfg, layout, **tcfg_kw):
+    from repro_torch.core.policy import PrecisionPolicy
+    from repro_torch.optim import adamw
+    from repro_torch.train import trainer as trainer_lib
+
+    tcfg = trainer_lib.TrainerConfig(opt=adamw.AdamWConfig(lr=1e-3),
+                                     total_steps=30, warmup=2, **tcfg_kw)
+    return trainer_lib.Trainer(cfg, tcfg, policy=PrecisionPolicy
+                               .train_default(), device="cpu", layout=layout)
+
+
+def ulysses_blocks(runs):
+    """Each run (arch, overrides, phase, B, S, a numbered global train
+    state (train) or parameters (prefill), a numbered batch, a numbered
+    cache or None): this rank's mesh coordinates, and under the layout its
+    block of every state leaf, its rows of the batch, its cache blocks,
+    its block of the sequence and its attention mode."""
+    from repro_torch.dist import fsdp
+    from repro_torch.dist import decode_layout as dl
+
+    mesh = mesh_lib.make_debug_mesh(data=2, model=2)
+    out = {"coord": tuple(mesh.get_coordinate())}
+    for name, (arch, ov, phase, B, S, state, batch, cache) in runs.items():
+        cfg = _fsdp_cfg(arch, ov)
+        layout = _ulysses_layout(cfg, B, S, phase, mesh)
+        shardings = (_ulysses_trainer(cfg, layout).state_shardings()
+                     if phase == "train" else layout.params)
+        blocks = fsdp.shard_tree(tree_lib.map_(_t, state), shardings)
+        rows = layout.rows(B)
+        got_cache = None
+        if cache is not None:
+            got_cache = {p: _np(x) for p, x in cache_items(
+                dl.shard_cache(cache, layout))}
+        out[name] = ({p: _np(x) for p, x in tree_lib.items(blocks)},
+                     {k: v[rows] for k, v in batch.items()}, got_cache,
+                     layout.block, layout.mode(max(1, cfg.n_heads)))
+    return out
+
+
+def _counted_calls(fn):
+    """``fn()``, the collectives it called ({name: (calls, bytes)}) and
+    the kernel wrappers' plain calls."""
+    from repro_torch import kernels
+
+    collectives.reset_counts()
+    kernels.reset_launch_counts()
+    out = fn()
+    coll = {k: (v["calls"], v["bytes"]) for k, v in
+            collectives.counts().items() if v["calls"]
+            and k in collectives.COLLECTIVES}
+    return out, coll, {k: v for k, v in kernels.plain_call_counts().items()
+                       if v}
+
+
+def ulysses_vs_one_rank(arch, overrides, B, S, fused_max=None,
+                        prefill=True):
+    """A SMOKE model (random weights, seed 0) on the Ulysses layout of a
+    (data 2, model 2) mesh and on one rank (this process, the whole
+    batch), on the same inputs: the forward's logits of the rank's rows
+    and block and the one-rank ones there; the loss and gradients
+    (gathered) of a train_default value-and-grad; one train step's
+    collectives, metrics and plain calls; a prefill's last logits and
+    gathered cache (``prefill``; an encoder its last logits) and its
+    collectives.  ``fused_max``: the attention route's threshold
+    (``models.attention.FUSED_P_MAX_ELEMENTS``) for the run, e.g. 0 for
+    the chunk-scan at these sizes."""
+    from repro_torch.core.policy import PrecisionPolicy
+    from repro_torch.dist import fsdp
+    from repro_torch.dist import decode_layout as dl
+    from repro_torch.dist import seq_layout as sl
+    from repro_torch.models import attention as attn_lib
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.engine import make_prefill_step
+    from repro_torch.train import trainer as trainer_lib
+
+    cfg = _fsdp_cfg(arch, overrides)
+    mesh = mesh_lib.make_debug_mesh(data=2, model=2)
+    saved = attn_lib.FUSED_P_MAX_ELEMENTS
+    if fused_max is not None:
+        attn_lib.FUSED_P_MAX_ELEMENTS = fused_max
+    try:
+        layout = _ulysses_layout(cfg, B, S, "train", mesh)
+        tr = _ulysses_trainer(cfg, layout)
+        pol = tr.policy
+        params = T.init_params(cfg, seed=0)
+        gb = {k: _t(v) for k, v in ulysses_inputs(cfg, B, S).items()}
+        lb = tr.to_device({k: v.numpy() for k, v in gb.items()})
+        rows = layout.rows(B)
+        off, t = layout.block
+        lp = fsdp.shard_tree(params, layout.params)
+        inputs = lambda b: {k: v for k, v in b.items() if k != "labels"}  # noqa
+        with torch.no_grad():
+            with sl.use_seq_layout(layout), \
+                    context_lib.context(backend="cuda"):
+                logits, _, fwd_calls = _counted_calls(
+                    lambda: T.forward(lp, inputs(lb), cfg, pol)[0])
+            one_logits, _, one_calls = _counted_calls(
+                lambda: T.forward(params, inputs(gb), cfg, pol)[0])
+        out = {"coord": tuple(mesh.get_coordinate()),
+               "rows": (rows.start, rows.stop), "block": (off, t),
+               "mode": layout.mode(max(1, cfg.n_heads)),
+               "logits": _np(logits),
+               "one_logits": _np(one_logits[rows, off:off + t]),
+               "fwd_calls": fwd_calls, "one_fwd_calls": one_calls}
+        loss_fn = trainer_lib.make_loss_fn(cfg, pol, tr.tcfg, layout=layout)
+        one_fn = trainer_lib.make_loss_fn(cfg, pol, tr.tcfg)
+        with context_lib.context(backend="cuda"):
+            (loss, _), g = trainer_lib.value_and_grad(loss_fn, lp, lb)
+        (one_loss, _), one_g = trainer_lib.value_and_grad(one_fn, params, gb)
+        state = tr.init_state()
+        (new, metrics), coll, calls = _counted_calls(
+            lambda: tr._step_fn(state, lb))
+        out.update(
+            loss=float(collectives.all_reduce(loss.clone(),
+                                              layout.metrics_group)),
+            one_loss=float(one_loss),
+            grads={p: _np(x) for p, x in tree_lib.items(
+                fsdp.full_tree(g, layout.params))},
+            one_grads={p: _np(x) for p, x in tree_lib.items(one_g)},
+            step_collectives=coll, step_calls=calls,
+            metrics={k: _np(v) for k, v in metrics.items()},
+            sharded=[p for p, s in tree_lib.items(layout.params)
+                     if fsdp.is_sharded(s)],
+            state_bytes=sum(x.numel() * x.element_size()
+                            for x in tree_lib.leaves(state)),
+            batch_bytes=sum(x.numel() * x.element_size()
+                            for x in lb.values()))
+        if not prefill:
+            return out
+        pl = _ulysses_layout(cfg, B, S, "prefill", mesh)
+        lp = fsdp.shard_tree(params, pl.params)
+        pin = inputs(lb)
+        with torch.no_grad():
+            if cfg.encoder_only:
+                one_last, _ = make_prefill_step(cfg, pol)(
+                    params, inputs(gb), None)
+                (last, _), coll, calls = _counted_calls(
+                    lambda: make_prefill_step(cfg, pol, layout=pl)(
+                        lp, pin, None))
+                full = one_full = {}
+            else:
+                one_last, one_cache = make_prefill_step(cfg, pol)(
+                    params, inputs(gb), T.make_cache(cfg, B, S))
+                local = dl.shard_cache(T.make_cache(cfg, B, S), pl)
+                (last, local), coll, calls = _counted_calls(
+                    lambda: make_prefill_step(cfg, pol, layout=pl)(
+                        lp, pin, local))
+                assert local.length == S
+                full = {p: _np(x.float()) for p, x in cache_items(
+                    dl.full_cache(local, pl))}
+                one_full = {p: _np(x.float())
+                            for p, x in cache_items(one_cache)}
+                out["cache_bytes"] = sum(x.numel() * x.element_size()
+                                         for _, x in cache_items(local))
+        out.update(last=_np(last), one_last=_np(one_last[rows]),
+                   cache=full, one_cache=one_full,
+                   prefill_collectives=coll, prefill_calls=calls,
+                   params_bytes=sum(x.numel() * x.element_size()
+                                    for x in tree_lib.leaves(lp)))
+        return out
+    finally:
+        attn_lib.FUSED_P_MAX_ELEMENTS = saved
+
+
+
+def ulysses_jax_steps(arch, overrides, np_params, batch, S, np_cache):
+    """A SMOKE model on the Ulysses layout of a (data 2, model 2) mesh from
+    JAX's parameters: one train_default step from the global batch (the
+    gathered new state, the loss) and a serve_default prefill of its
+    inputs into JAX's empty cache (this rank's rows' last logits, the
+    gathered cache)."""
+    from repro_torch.core.policy import PrecisionPolicy
+    from repro_torch.dist import fsdp
+    from repro_torch.dist import decode_layout as dl
+    from repro_torch.serve.engine import make_prefill_step
+    from repro_torch.weights import cache_from_jax, params_from_jax
+
+    cfg = _fsdp_cfg(arch, overrides)
+    mesh = mesh_lib.make_debug_mesh(data=2, model=2)
+    B = len(batch["labels"])
+    layout = _ulysses_layout(cfg, B, S, "train", mesh)
+    tr = _ulysses_trainer(cfg, layout)
+    local = fsdp.shard_tree(_state(cfg, np_params, tr.tcfg.opt),
+                            tr.state_shardings())
+    new, metrics = tr._step_fn(local, tr.to_device(batch))
+    new = fsdp.full_tree(new, tr.state_shardings())
+    pl = _ulysses_layout(cfg, B, S, "prefill", mesh)
+    rows = pl.rows(B)
+    inputs = {k: _t(v)[rows] for k, v in batch.items() if k != "labels"}
+    last, cache = make_prefill_step(cfg, PrecisionPolicy.serve_default(),
+                                    layout=pl)(
+        fsdp.shard_tree(params_from_jax(np_params), pl.params), inputs,
+        dl.shard_cache(cache_from_jax(np_cache), pl))
+    return {"loss": float(metrics["loss"]),
+            "new": {p: _np(x) for p, x in tree_lib.items(new)},
+            "rows": (rows.start, rows.stop), "last": _np(last),
+            "cache": {p: _np(x.float()) for p, x in cache_items(
+                dl.full_cache(cache, pl))}}
+
+
+def ulysses_edges(S_bad):
+    """Without a usable block: the SSM family at a block that is not a
+    multiple of its SSD chunk, and a prefill into a cache longer than the
+    prompt; each error's message."""
+    from repro_torch.configs import registry
+    from repro_torch.core.policy import PrecisionPolicy
+    from repro_torch.dist import fsdp
+    from repro_torch.dist import decode_layout as dl
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.engine import make_prefill_step
+
+    mesh = mesh_lib.make_debug_mesh(data=2, model=2)
+    pol = PrecisionPolicy.serve_default()
+    out = {}
+    cfg = registry.get_config("mamba2-130m", smoke=True)
+    layout = _ulysses_layout(cfg, 2, S_bad, "prefill", mesh)
+    inputs = {k: _t(v)[layout.rows(2)] for k, v in
+              ulysses_inputs(cfg, 2, S_bad).items() if k != "labels"}
+    params = fsdp.shard_tree(T.init_params(cfg), layout.params)
+    try:
+        make_prefill_step(cfg, pol, layout=layout)(params, inputs, None)
+        out["chunk"] = ""
+    except ValueError as e:
+        out["chunk"] = str(e)
+    cfg = registry.get_config("paper-mpfp-100m", smoke=True)
+    layout = _ulysses_layout(cfg, 2, 32, "prefill", mesh)
+    params = fsdp.shard_tree(T.init_params(cfg), layout.params)
+    inputs = {k: _t(v)[layout.rows(2)] for k, v in
+              ulysses_inputs(cfg, 2, 32).items() if k != "labels"}
+    long_cache = dl.shard_cache(T.make_cache(cfg, 2, 64), layout)
+    try:
+        make_prefill_step(cfg, pol, layout=layout)(params, inputs,
+                                                   long_cache)
+        out["long"] = ""
+    except NotImplementedError as e:
+        out["long"] = str(e)
+    return out
